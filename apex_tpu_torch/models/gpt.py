@@ -1,0 +1,277 @@
+"""Decoder-only causal language model (GPT-style), eval mode.
+
+Twin of ``apex_tpu/models/gpt.py`` for serving: pre-LN blocks on
+:class:`FusedLayerNorm`, learned positional embeddings, a weight-tied LM
+head with fp32 logits, ``gelu(approximate="tanh")``, and the serving
+hooks ``positions``, ``cache_views`` and ``return_kv``.  The
+projections are plain ``nn.Linear`` (the reference leaves them to XLA,
+outside any kernel).  Attention runs through ``attention_fn`` (e.g.
+``make_flash_attention(causal=True)``) on the full causal forward, and
+through ``ops.cached_attention`` / ``ops.chunk_cached_attention`` over
+a cache view.
+
+Not here: dropout, remat, int8 KV (``kv_quant``) and the pipelined and
+tensor-parallel variants — the training and later serving slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops.decode_attention import (
+    cached_attention,
+    chunk_cached_attention,
+)
+
+NEG_INF = -1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    layer_norm_eps: float = 1e-5
+    initializer_range: float = 0.02
+
+
+def gpt_small() -> GPTConfig:
+    """The 124M 12x768 configuration (GPT-2 small)."""
+    return GPTConfig()
+
+
+def gpt_medium() -> GPTConfig:
+    return GPTConfig(hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, intermediate_size=4096)
+
+
+def dot_product_attention(q, k, v, bias=None):
+    """(B, S, H, D) -> (B, S, H, D); softmax in fp32 — the twin of
+    ``apex_tpu.models.bert.dot_product_attention``."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    scores = scores.float()
+    if bias is not None:
+        scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def causal_dot_product_attention(q, k, v, bias=None, dropout_fn=None):
+    """The default attention path: the causal mask folded into the
+    additive bias, then :func:`dot_product_attention`."""
+    if dropout_fn is not None:
+        raise NotImplementedError("attention dropout is not ported yet")
+    sq, sk = q.shape[1], k.shape[1]
+    pos_q = torch.arange(sq, device=q.device)
+    pos_k = torch.arange(sk, device=q.device)
+    cmask = torch.where(pos_q[:, None] >= pos_k[None, :], 0.0, NEG_INF)
+    bias = cmask[None, None] if bias is None else bias + cmask[None, None]
+    return dot_product_attention(q, k, v, bias=bias)
+
+
+class GPTSelfAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
+                 *, device="cuda", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_attention_heads
+        self.attention_fn = attention_fn
+        self.query = nn.Linear(h, h, device=dev, dtype=dtype)
+        self.key = nn.Linear(h, h, device=dev, dtype=dtype)
+        self.value = nn.Linear(h, h, device=dev, dtype=dtype)
+        self.output = nn.Linear(h, h, device=dev, dtype=dtype)
+
+    def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False):
+        """``cache_view``: ``(k_ctx, v_ctx, ctx_bias)`` with k/v_ctx
+        (B, T, H, D) gathered cache context and ctx_bias (B, T).  A single
+        new token (decode) attends [context; self] through
+        ``cached_attention``; a chunk attends [context; chunk] through
+        ``chunk_cached_attention``.  ``return_kv`` also returns this call's
+        freshly projected ``(k, v)``."""
+        b, s, h = x.shape
+        nh = self.num_heads
+        q = self.query(x).view(b, s, nh, h // nh)
+        k = self.key(x).view(b, s, nh, h // nh)
+        v = self.value(x).view(b, s, nh, h // nh)
+        if cache_view is not None:
+            k_ctx, v_ctx, ctx_bias = cache_view
+            k_full = torch.cat([k_ctx.to(k.dtype), k], dim=1)
+            v_full = torch.cat([v_ctx.to(v.dtype), v], dim=1)
+            if s == 1:
+                # decode: the self slot is always live (bias 0)
+                bias = torch.cat([ctx_bias, ctx_bias.new_zeros((b, 1))],
+                                 dim=1)
+                ctx = cached_attention(q, k_full, v_full, kv_bias=bias)
+            else:
+                ctx = chunk_cached_attention(q, k_full, v_full, ctx_bias)
+        else:
+            attn = self.attention_fn or causal_dot_product_attention
+            ctx = attn(q, k, v, bias=attn_bias)
+        out = self.output(ctx.reshape(b, s, h))
+        if return_kv:
+            return out, (k, v)
+        return out
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN: x + Attn(LN(x)); x + MLP(LN(x))."""
+
+    def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
+                 *, device="cuda", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.attn_ln = FusedLayerNorm(h, eps=eps, device=dev, dtype=dtype)
+        self.attention = GPTSelfAttention(cfg, attention_fn, device=dev,
+                                          dtype=dtype)
+        self.mlp_ln = FusedLayerNorm(h, eps=eps, device=dev, dtype=dtype)
+        self.mlp_in = nn.Linear(h, cfg.intermediate_size, device=dev,
+                                dtype=dtype)
+        self.mlp_out = nn.Linear(cfg.intermediate_size, h, device=dev,
+                                 dtype=dtype)
+
+    def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False):
+        h = self.attention(self.attn_ln(x), attn_bias, cache_view=cache_view,
+                           return_kv=return_kv)
+        kv = None
+        if return_kv:
+            h, kv = h
+        x = x + h
+        h = self.mlp_out(F.gelu(self.mlp_in(self.mlp_ln(x)),
+                                approximate="tanh"))
+        if return_kv:
+            return x + h, kv
+        return x + h
+
+
+class GPTLMHeadModel(nn.Module):
+    """Token + position embeddings -> pre-LN blocks -> final LN ->
+    weight-tied LM head.  Returns (B, S, V) fp32 logits.
+
+    ``device`` defaults to ``"cuda"`` and raises without CUDA unless
+    ``device="cpu"`` is passed.  ``seed`` initialises the weights with the
+    reference's distributions (normal(initializer_range) for embeddings
+    and projection weights, zero biases, unit LN scales) from a CPU
+    ``torch.Generator``, so a seed gives the same weights on any device;
+    ``seed=None`` leaves PyTorch's default init for callers that load a
+    state dict.
+
+    Serving hooks (``serving.engine`` is the caller): ``positions``
+    (B, S) explicit position indices; ``cache_views`` ``(k_ctx, v_ctx,
+    ctx_bias)`` with k/v_ctx (L, B, T, H, D) per-layer gathered context;
+    ``return_kv`` also returns the per-layer fresh ``(k, v)`` list.
+    """
+
+    def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
+                 *, device="cuda", dtype: torch.dtype = torch.float32,
+                 seed: Optional[int] = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.wte = nn.Embedding(cfg.vocab_size, h, device=dev, dtype=dtype)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings, h, device=dev,
+                                dtype=dtype)
+        self.blocks = nn.ModuleList(
+            GPTBlock(cfg, attention_fn, device=dev, dtype=dtype)
+            for _ in range(cfg.num_hidden_layers))
+        self.final_ln = FusedLayerNorm(h, eps=cfg.layer_norm_eps, device=dev,
+                                       dtype=dtype)
+        if seed is not None:
+            self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        gen = torch.Generator().manual_seed(int(seed))
+        std = self.cfg.initializer_range
+        for name, p in self.named_parameters():
+            if name.endswith("_ln.scale"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.empty(p.shape, dtype=torch.float32)
+                        .normal_(0.0, std, generator=gen))
+
+    def forward(self, input_ids, attention_mask=None, positions=None,
+                cache_views=None, return_kv: bool = False):
+        b, s = input_ids.shape
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device)[None, :]
+        x = self.wte(input_ids) + self.wpe(positions)
+        bias = None
+        if attention_mask is not None:
+            bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
+                               NEG_INF).float()
+        kvs = []
+        for i, block in enumerate(self.blocks):
+            cv = None
+            if cache_views is not None:
+                k_ctx, v_ctx, ctx_bias = cache_views
+                cv = (k_ctx[i], v_ctx[i], ctx_bias)
+            if return_kv:
+                x, kv = block(x, bias, cache_view=cv, return_kv=True)
+                kvs.append(kv)
+            else:
+                x = block(x, bias, cache_view=cv)
+        x = self.final_ln(x)
+        logits = F.linear(x, self.wte.weight).float()  # weight-tied head
+        if return_kv:
+            return logits, kvs
+        return logits
+
+
+def params_from_jax(params: Mapping, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's GPT param tree (``{"params": ...}`` or its
+    inner dict, leaves as numpy arrays) as this model's ``state_dict``.
+
+    DenseGeneral q/k/v kernels (h, nh, hd) and the output kernel
+    (nh, hd, h) flatten to (h, h) and transpose into ``nn.Linear``'s
+    (out, in) layout; Dense kernels (in, out) transpose; embeddings and
+    LN scale/bias carry over as they are."""
+    p = params.get("params", params)
+    h = cfg.hidden_size
+
+    def t(a, shape=None):
+        a = np.array(a)  # a writable copy
+        if shape is not None:
+            a = a.reshape(shape)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    sd = {"wte.weight": t(p["wte"]["embedding"]),
+          "wpe.weight": t(p["wpe"]["embedding"]),
+          "final_ln.scale": t(p["final_ln"]["scale"]),
+          "final_ln.bias": t(p["final_ln"]["bias"])}
+    for i in range(cfg.num_hidden_layers):
+        blk, pre = p[f"block_{i}"], f"blocks.{i}."
+        for ln in ("attn_ln", "mlp_ln"):
+            sd[f"{pre}{ln}.scale"] = t(blk[ln]["scale"])
+            sd[f"{pre}{ln}.bias"] = t(blk[ln]["bias"])
+        att = blk["attention"]
+        for name in ("query", "key", "value"):
+            sd[f"{pre}attention.{name}.weight"] = t(
+                np.asarray(att[name]["kernel"]).reshape(h, h).T)
+            sd[f"{pre}attention.{name}.bias"] = t(att[name]["bias"], (h,))
+        sd[f"{pre}attention.output.weight"] = t(
+            np.asarray(att["output"]["kernel"]).reshape(h, h).T)
+        sd[f"{pre}attention.output.bias"] = t(att["output"]["bias"])
+        for name in ("mlp_in", "mlp_out"):
+            sd[f"{pre}{name}.weight"] = t(np.asarray(blk[name]["kernel"]).T)
+            sd[f"{pre}{name}.bias"] = t(blk[name]["bias"])
+    return sd

@@ -1,0 +1,40 @@
+"""apex_tpu_torch.serving — batched GPT inference: paged KV cache and
+continuous batching.
+
+- :mod:`serving.kv_cache` — the block pool (a dict of tensors updated in
+  place) and the host-side refcounted allocator;
+- :mod:`serving.engine` — bucketed prefill (flash kernel pluggable) and
+  batched single-token decode through the decode-attention kernel;
+- :mod:`serving.scheduler` / :mod:`serving.api` — iteration-level
+  continuous batching with preempt-youngest on pool pressure, and the
+  synchronous :class:`InferenceServer` front door.
+"""
+
+from apex_tpu_torch.serving.api import InferenceServer, greedy_sample
+from apex_tpu_torch.serving.engine import (
+    DecodeEngine,
+    default_prefill_buckets,
+    pick_bucket,
+)
+from apex_tpu_torch.serving.kv_cache import (
+    BlockAllocator,
+    KVCacheConfig,
+    init_kv_cache,
+    resolve_cache_dtype,
+)
+from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
+
+__all__ = [
+    "BlockAllocator",
+    "DecodeEngine",
+    "InferenceServer",
+    "KVCacheConfig",
+    "QueueFullError",
+    "Request",
+    "Scheduler",
+    "default_prefill_buckets",
+    "greedy_sample",
+    "init_kv_cache",
+    "pick_bucket",
+    "resolve_cache_dtype",
+]

@@ -1,0 +1,254 @@
+"""The synchronous continuous-batching server.
+
+Twin of ``apex_tpu/serving/api.py::InferenceServer`` run with the
+subsystems this slice leaves out turned off — no prefix cache, chunked
+prefill, speculation, pipelined loop, overload control, breaker,
+streaming, program accounting, int8 KV or mesh.  Each :meth:`step`
+admits what fits, prefills every admitted request through the bucketed
+prefill (greedy token sampled on the device), then runs one batched
+decode step over the rest of the running batch and retires requests on
+``max_new_tokens`` or ``eos_id``.  Greedy sampling happens on the device
+(the engine's ``*_sampled`` steps), so only token ids and finite flags
+cross to the host.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from apex_tpu_torch._kernels.build import launch_counts
+from apex_tpu_torch.models.gpt import GPTConfig
+from apex_tpu_torch.serving import reasons
+from apex_tpu_torch.serving.engine import DecodeEngine
+from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
+
+
+def greedy_sample(logits) -> np.ndarray:
+    """(…, V) host logits -> (…,) argmax token ids; ties break toward
+    the LOWEST id (``np.argmax``'s rule, the contract the device-side
+    :func:`ops.greedy_argmax` matches)."""
+    logits = np.asarray(logits)
+    if not np.issubdtype(logits.dtype, np.floating):
+        raise TypeError(
+            f"greedy_sample expects floating-point logits, got dtype "
+            f"{logits.dtype} (token ids passed where logits belong?)")
+    return np.argmax(logits, axis=-1)
+
+
+class _Gauge:
+    """Peak and running mean of a level sampled once per step."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.peak = self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float):
+        self.peak = max(self.peak, float(val))
+        self.sum += float(val)
+        self.count += 1
+
+    @property
+    def avg(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
+
+class InferenceServer:
+    """Batched GPT inference with a paged KV cache and continuous
+    batching.
+
+    Args (all pass to :class:`DecodeEngine` except ``max_waiting``):
+      cfg, params: the architecture and its ``state_dict``.
+      device: ``"cuda"`` (default) or ``"cpu"``.
+      max_batch_size, max_context, num_blocks, block_size, cache_dtype:
+        see :class:`DecodeEngine` (flash prefill, cached-attention
+        decode).
+      max_waiting: bound on the waiting queue; a submit past it comes
+        back already finished with ``finish_reason="rejected"``.
+
+    Example::
+
+        server = InferenceServer(cfg, params, device="cuda")
+        outs = server.generate(prompts, max_new_tokens=64)
+    """
+
+    def __init__(self, cfg: GPTConfig, params, *,
+                 device="cuda",
+                 max_batch_size: int = 8,
+                 max_context: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 block_size: int = 16,
+                 cache_dtype: Optional[torch.dtype] = None,
+                 max_waiting: Optional[int] = None):
+        self.engine = DecodeEngine(
+            cfg, params, device=device, max_batch_size=max_batch_size,
+            max_context=max_context, num_blocks=num_blocks,
+            block_size=block_size, cache_dtype=cache_dtype)
+        self.scheduler = Scheduler(
+            self.engine.allocator,
+            max_batch_size=self.engine.max_batch_size,
+            block_size=self.engine.block_size,
+            max_context=self.engine.max_context,
+            max_waiting=max_waiting)
+        self.queue_depth = _Gauge()
+        self.occupancy = _Gauge()
+        self.reset_meters()
+
+    # -- request lifecycle ------------------------------------------------
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int,
+               eos_id: Optional[int] = None) -> Request:
+        """Enqueue one request.  ``max_new_tokens`` must be >= 1; a prompt
+        leaving no room to generate within ``max_context`` raises
+        :class:`ValueError`, and a budget overshooting the remaining
+        context is capped to fit.  A full waiting queue returns the
+        request already finished with ``finish_reason="rejected"``."""
+        prompt = [int(t) for t in prompt]
+        if int(max_new_tokens) < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        cap = self.engine.max_context - len(prompt)
+        if cap <= 0:
+            raise ValueError(
+                f"prompt length {len(prompt)} leaves no room to generate "
+                f"within max_context={self.engine.max_context}")
+        req = Request(prompt=prompt,
+                      max_new_tokens=min(int(max_new_tokens), cap),
+                      eos_id=eos_id)
+        try:
+            self.scheduler.submit(req)
+        except QueueFullError:
+            req.finished = True
+            req.finish_reason = reasons.REJECTED
+            self.scheduler.finished.append(req)
+            self.scheduler.failures[reasons.REJECTED] = \
+                self.scheduler.failures.get(reasons.REJECTED, 0) + 1
+        return req
+
+    @property
+    def has_work(self) -> bool:
+        return self.scheduler.has_work
+
+    def step(self) -> int:
+        """One continuous-batching iteration: admit, prefill every
+        admitted request (sampling its first token), then one decode step
+        across the rest of the running batch.  Returns the number of
+        tokens produced.  A request whose logits go non-finite, or that
+        outgrows the pool with nothing left to preempt, fails alone."""
+        sched, engine = self.scheduler, self.engine
+        produced = 0
+        sched.admit()
+        for req in [r for r in sched._admit_order if r.prefilling]:
+            ids, fin = engine.prefill_sampled(req.prefill_ctx,
+                                              req.block_table)
+            self.prefills += 1
+            sched.prefill_done(req)
+            if not req.prefill_sample:
+                continue    # resumed after preemption: its token is pending
+            if not bool(fin[0]):
+                sched.fail(req, reasons.NONFINITE)
+                continue
+            req.record_token(int(ids[0]))
+            produced += 1
+            if req.finished:
+                sched.retire(req)
+
+        if sched.running:
+            for req in list(sched.running.values()):
+                if req.running and not req.prefilling \
+                        and not sched.ensure_decode_capacity(req):
+                    sched.fail(req, reasons.CAPACITY)
+            running = [r for r in sched.running.values() if not r.prefilling]
+            if running:
+                produced += self._decode_step(running)
+
+        self.tokens_generated += produced
+        self.queue_depth.update(sched.num_waiting)
+        self.occupancy.update(sched.num_running / engine.max_batch_size)
+        return produced
+
+    def _decode_inputs(self, running):
+        engine = self.engine
+        b, mb = engine.max_batch_size, engine.blocks_per_seq
+        tokens = np.zeros((b,), np.int64)
+        positions = np.zeros((b,), np.int64)
+        tables = np.zeros((b, mb), np.int64)
+        for req in running:
+            tokens[req.slot] = req.next_input
+            positions[req.slot] = req.num_cached
+            tables[req.slot, :len(req.block_table)] = req.block_table
+        return tokens, positions, tables
+
+    def _decode_step(self, running) -> int:
+        sched = self.scheduler
+        ids, fin = self.engine.decode_sampled(*self._decode_inputs(running))
+        self.decode_steps += 1
+        ids, fin = ids.cpu().numpy(), fin.cpu().numpy()
+        produced = 0
+        for req in running:
+            if not fin[req.slot]:
+                sched.fail(req, reasons.NONFINITE)
+                continue
+            req.num_cached += 1
+            req.record_token(int(ids[req.slot]))
+            produced += 1
+            if req.finished:
+                sched.retire(req)
+        return produced
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: int,
+                 eos_id: Optional[int] = None) -> List[List[int]]:
+        """Generate completions for ``prompts`` (token-id lists); returns
+        the generated ids per prompt, in input order.  A request that
+        fails contributes whatever it generated before failing."""
+        reqs = [self.submit(p, max_new_tokens, eos_id) for p in prompts]
+        while self.has_work:
+            self.step()
+        return [list(r.generated) for r in reqs]
+
+    # -- meters -----------------------------------------------------------
+
+    def reset_meters(self) -> None:
+        """Zero the counters (after warm-up, before a timed window)."""
+        self.tokens_generated = 0
+        self.prefills = 0
+        self.decode_steps = 0
+        self.queue_depth.reset()
+        self.occupancy.reset()
+        self.scheduler.finished.clear()
+        self.scheduler.failures.clear()
+        self._launches_at_reset = launch_counts()
+        self._started = time.perf_counter()
+
+    def stats(self) -> dict:
+        """Serving counters since :meth:`reset_meters`.  ``kernel_launches``
+        are the CUDA kernels' launches since then, by kernel, counted
+        process-wide (a second server in the same process adds to them):
+        ``2 * L + 1`` LayerNorm launches per prefill and per decode step,
+        ``L`` flash launches per prefill and ``L`` decode-attention
+        launches per decode step; 0 on the CPU."""
+        sched = self.scheduler
+        elapsed = max(time.perf_counter() - self._started, 1e-9)
+        now = launch_counts()
+        launches = {name: n - self._launches_at_reset.get(name, 0)
+                    for name, n in now.items()}
+        return {
+            "tokens_generated": self.tokens_generated,
+            "tokens_per_s": self.tokens_generated / elapsed,
+            "queue_depth_peak": self.queue_depth.peak,
+            "batch_occupancy_avg": round(self.occupancy.avg, 3),
+            "requests_finished": len(sched.finished),
+            "requests_failed": dict(sched.failures),
+            "preemptions": sum(r.preemptions for r in sched.finished),
+            "prefills": self.prefills,
+            "decode_steps": self.decode_steps,
+            "kv_blocks_free": self.engine.allocator.num_free,
+            "kernel_launches": launches,
+        }

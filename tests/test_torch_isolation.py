@@ -1,0 +1,77 @@
+"""The port stands alone: ``apex_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of ``apex_tpu``, and the port's entry points run
+on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+from apex_tpu_torch.serving import DecodeEngine, InferenceServer
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "apex_tpu")
+
+TINY = GPTConfig(vocab_size=64, hidden_size=16, num_hidden_layers=1,
+                 num_attention_heads=2, intermediate_size=32,
+                 max_position_embeddings=32)
+
+
+def _sources():
+    yield REPO / "chip_smoke.py"
+    yield from sorted((REPO / "apex_tpu_torch").rglob("*.py"))
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            bad += [f"{path.relative_to(REPO)}: {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "flax", "optax"):
+            sys.modules[name] = None        # any import of them raises
+        import apex_tpu_torch
+        mods = [m.name for m in pkgutil.walk_packages(
+            apex_tpu_torch.__path__, "apex_tpu_torch.")]
+        for m in mods:
+            importlib.import_module(m)
+        leaked = [m for m in sys.modules
+                  if m == "apex_tpu" or m.startswith("apex_tpu.")]
+        assert not leaked, leaked
+        print(len(mods))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 14
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device is valid")
+    sd = GPTLMHeadModel(TINY, device="cpu", seed=0).state_dict()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DecodeEngine(TINY, sd)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceServer(TINY, sd)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPTLMHeadModel(TINY)
+    DecodeEngine(TINY, sd, device="cpu")       # asked for: fine
