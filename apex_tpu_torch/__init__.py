@@ -1,9 +1,10 @@
 """apex_tpu_torch — the PyTorch/CUDA twin of :mod:`apex_tpu` for NVIDIA Hopper.
 
 Laid out like ``apex_tpu`` subpackage for subpackage, so every ported
-module has an obvious counterpart: ``normalization``, ``ops``,
-``models`` and ``serving``.  Plain tensor code is PyTorch; every kernel
-the JAX package wrote in Pallas for the TPU is a CUDA C++ kernel written
+module has an obvious counterpart: ``amp``, ``normalization``,
+``ops``, ``optimizers``, ``models``, ``serving``, ``utils`` and
+``examples``.  Plain tensor code is PyTorch; every kernel the JAX
+package wrote in Pallas for the TPU is a CUDA C++ kernel written
 for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and bound
 with :mod:`ctypes` (``_kernels``).  Each kernel wrapper runs its plain
 PyTorch version for a CPU tensor and launches its kernel for a CUDA
@@ -16,7 +17,8 @@ never JAX, and nothing of ``apex_tpu``.  Subpackages load lazily, so
 
 import importlib
 
-_SUBPACKAGES = ("models", "normalization", "ops", "serving")
+_SUBPACKAGES = ("amp", "examples", "models", "normalization", "ops",
+                "optimizers", "serving", "utils")
 
 __all__ = list(_SUBPACKAGES)
 

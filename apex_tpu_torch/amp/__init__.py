@@ -1,0 +1,45 @@
+"""apex_tpu_torch.amp — automatic mixed precision (O0, O2, O3).
+
+Twin of ``apex_tpu.amp``: ``initialize`` with the opt-level presets, the
+``scale_loss`` protocol and master weights, on device-resident state
+(the loss scale, overflow flag and skip-step never leave the card)::
+
+    model, optimizer = amp.initialize(model, FusedAdam(lr=3e-4),
+                                      opt_level="O2")
+    params = model.init()
+    opt_state = optimizer.init(params)
+    for ids in batches:
+        loss = lm_loss(model.apply(params, ids), ids)
+        with amp.scale_loss(loss, opt_state) as scaled:
+            grads = torch.autograd.grad(scaled, list(params.values()))
+        params, opt_state = optimizer.step(
+            params, dict(zip(params, grads)), opt_state)
+"""
+
+from apex_tpu_torch.amp._amp_state import maybe_print
+from apex_tpu_torch.amp.frontend import initialize
+from apex_tpu_torch.amp.handle import scale_loss
+from apex_tpu_torch.amp.model import AmpModel, applier, cast_tree
+from apex_tpu_torch.amp.optimizer import AmpOptimizer, AmpOptimizerState
+from apex_tpu_torch.amp.properties import (
+    AmpOptimizationError,
+    Properties,
+    opt_levels,
+)
+from apex_tpu_torch.amp.scaler import LossScaler, LossScalerState
+
+__all__ = [
+    "AmpModel",
+    "AmpOptimizationError",
+    "AmpOptimizer",
+    "AmpOptimizerState",
+    "LossScaler",
+    "LossScalerState",
+    "Properties",
+    "applier",
+    "cast_tree",
+    "initialize",
+    "maybe_print",
+    "opt_levels",
+    "scale_loss",
+]

@@ -1,0 +1,339 @@
+// FlashAttention-2 backward for Hopper (no dropout): dq (B5) and dk/dv
+// (B6), two kernels as in the JAX package, so each output is owned by
+// one block and needs no atomics (the result is deterministic).
+//
+// Replaces apex_tpu/ops/flash_attention.py::_bwd_dq_kernel and
+// ::_bwd_dkv_kernel (both launched by _bwd_pallas) with dropout_rate == 0,
+// the setting of the training path (examples/gpt/main_amp.py runs
+// deterministic=True).  Same function: p is recomputed from the saved
+// fp32 lse as p = exp(q.k * scale + mask[key] - lse), causal on global
+// positions, with p = 0 on a row whose lse is NEG_INF (a fully-masked
+// row: its s and lse would both be NEG_INF and exp(0) = 1, _recompute_p);
+//   ds = p * (do.v - delta)         delta = rowsum(do * o) (- dlse)
+//   dq = sum_k ds k * scale         (B5, q-major)
+//   dv = sum_q p do,  dk = sum_q ds q * scale   (B6, k-major)
+// delta comes from the wrapper (one PyTorch row sum).
+//
+// Bound on the H100: operations.  GPT-2 small trains at B = 8, H = 12,
+// S = 1024, D = 64: B5 does ~6 * B*H*S^2*D / 2 causal FLOPs and B6
+// ~8 * B*H*S^2*D / 2 against ~100 MB of operands.  Like the forward
+// (flash_fwd.cu), this first version computes in fp32 on the CUDA cores,
+// so its ceiling is the fp32 rate (67 TFLOP/s), not the bf16 tensor-core
+// rate; mma/wgmma tiles are later work.  Design: the TPU's sequential
+// grid axis becomes a loop inside the block.  B5: one block per
+// (batch*head, 64-row q tile) looping over k tiles up to the causal
+// diagonal; B6: one block per (batch*head, 64-key tile) looping over q
+// tiles from the diagonal on.  Each row of the block's own operand
+// (query for B5, key for B6) belongs to D/16 adjacent threads holding 16
+// interleaved dims of it and of its fp32 accumulators in registers, so a
+// dot product is 16 FMAs plus a two-step shuffle; the streamed tiles are
+// staged in shared memory as fp32 and read back as broadcasts without
+// bank conflicts.  Ragged tails and the key mask are handled in the
+// kernel, and operands are read in the JAX (B, S, H, D) layout through
+// strides: no transpose or padding copy.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kTile = 64;   // rows per block and per streamed tile
+constexpr int kDPT = 16;    // head dims per thread
+
+template <int D>
+struct Cfg {
+  static constexpr int kTPR = D / kDPT;  // threads per row
+  static constexpr int kThreads = kTile * kTPR;
+};
+
+// (sb, ss, sh) in elements for q, k, v and do, in that order
+struct Strides {
+  int64_t q[3], k[3], v[3], o[3];
+};
+
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float (*dst)[D], const T* src,
+                                          int64_t row_stride, int row0,
+                                          int rows, int tid, int nt) {
+  for (int idx = tid; idx < kTile * D; idx += nt) {
+    const int r = idx / D, d = idx % D;
+    dst[r][d] = row0 + r < rows
+        ? apex::to_float(src[static_cast<int64_t>(row0 + r) * row_stride + d])
+        : 0.f;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int H, int Sq, int Sk, Strides st, float scale,
+                    int causal) {
+  constexpr int TPR = Cfg<D>::kTPR;
+  constexpr int NT = Cfg<D>::kThreads;
+  __shared__ float ks[kTile][D];
+  __shared__ float vs[kTile][D];
+  __shared__ float ms[kTile];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, part = tid % TPR;
+  const int qi = q0 + r;
+  const bool row_ok = qi < Sq;
+
+  float qv[kDPT], dov[kDPT], acc[kDPT];
+  {
+    const int64_t row = row_ok ? qi : 0;
+    const T* qrow = q + b * st.q[0] + row * st.q[1] + h * st.q[2];
+    const T* orow = dout + b * st.o[0] + row * st.o[1] + h * st.o[2];
+#pragma unroll
+    for (int i = 0; i < kDPT; ++i) {
+      qv[i] = row_ok ? apex::to_float(qrow[part + TPR * i]) : 0.f;
+      dov[i] = row_ok ? apex::to_float(orow[part + TPR * i]) : 0.f;
+      acc[i] = 0.f;
+    }
+  }
+  const int64_t srow = static_cast<int64_t>(bh) * Sq + qi;
+  const float L = row_ok ? lse[srow] : apex::kNegInf;
+  const float dl = row_ok ? delta[srow] : 0.f;
+  const bool live = L > apex::kNegInf * 0.5f;
+
+  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  const T* kb = k + b * st.k[0] + h * st.k[2];
+  const T* vb = v + b * st.v[0] + h * st.v[2];
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();  // the previous tile is consumed
+    load_tile<T, D>(ks, kb, st.k[1], k0, Sk, tid, NT);
+    load_tile<T, D>(vs, vb, st.v[1], k0, Sk, tid, NT);
+    for (int j = tid; j < kTile; j += NT)
+      ms[j] = (mask != nullptr && k0 + j < Sk)
+                  ? mask[static_cast<int64_t>(b) * Sk + k0 + j] : 0.f;
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {
+      const int key = k0 + j;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDPT; ++i) {
+        s += qv[i] * ks[j][part + TPR * i];
+        dp += dov[i] * vs[j][part + TPR * i];
+      }
+      s = row_sum<TPR>(s);
+      dp = row_sum<TPR>(dp);
+      float p = 0.f;
+      if (live && key < Sk && !(causal && key > qi))
+        p = expf(s * scale + ms[j] - L);
+      const float ds = p * (dp - dl);
+#pragma unroll
+      for (int i = 0; i < kDPT; ++i) acc[i] += ds * ks[j][part + TPR * i];
+    }
+  }
+
+  if (row_ok) {
+    T* out = dq + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < kDPT; ++i)
+      out[part + TPR * i] = apex::from_float<T>(acc[i] * scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Sq, int Sk, Strides st,
+                     float scale, int causal) {
+  constexpr int TPR = Cfg<D>::kTPR;
+  constexpr int NT = Cfg<D>::kThreads;
+  __shared__ float qs[kTile][D];
+  __shared__ float os[kTile][D];
+  __shared__ float ls[kTile];
+  __shared__ float dls[kTile];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, part = tid % TPR;
+  const int kj = k0 + r;
+  const bool key_ok = kj < Sk;
+
+  float kv[kDPT], vv[kDPT], dka[kDPT], dva[kDPT];
+  {
+    const int64_t row = key_ok ? kj : 0;
+    const T* krow = k + b * st.k[0] + row * st.k[1] + h * st.k[2];
+    const T* vrow = v + b * st.v[0] + row * st.v[1] + h * st.v[2];
+#pragma unroll
+    for (int i = 0; i < kDPT; ++i) {
+      kv[i] = key_ok ? apex::to_float(krow[part + TPR * i]) : 0.f;
+      vv[i] = key_ok ? apex::to_float(vrow[part + TPR * i]) : 0.f;
+      dka[i] = 0.f;
+      dva[i] = 0.f;
+    }
+  }
+  const float mk = (mask != nullptr && key_ok)
+                       ? mask[static_cast<int64_t>(b) * Sk + kj] : 0.f;
+
+  // causal: query tiles wholly before the key tile see none of its keys
+  const int q_begin = causal ? (k0 / kTile) * kTile : 0;
+  const T* qb = q + b * st.q[0] + h * st.q[2];
+  const T* ob = dout + b * st.o[0] + h * st.o[2];
+  for (int q0 = q_begin; q0 < Sq; q0 += kTile) {
+    __syncthreads();
+    load_tile<T, D>(qs, qb, st.q[1], q0, Sq, tid, NT);
+    load_tile<T, D>(os, ob, st.o[1], q0, Sq, tid, NT);
+    for (int i = tid; i < kTile; i += NT) {
+      const bool ok = q0 + i < Sq;
+      const int64_t srow = static_cast<int64_t>(bh) * Sq + q0 + i;
+      ls[i] = ok ? lse[srow] : apex::kNegInf;
+      dls[i] = ok ? delta[srow] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int i = 0; i < kTile; ++i) {
+      const int qi = q0 + i;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < kDPT; ++d) {
+        s += kv[d] * qs[i][part + TPR * d];
+        dp += vv[d] * os[i][part + TPR * d];
+      }
+      s = row_sum<TPR>(s);
+      dp = row_sum<TPR>(dp);
+      const float L = ls[i];
+      float p = 0.f;
+      if (key_ok && L > apex::kNegInf * 0.5f && !(causal && kj > qi))
+        p = expf(s * scale + mk - L);
+      const float ds = p * (dp - dls[i]);
+#pragma unroll
+      for (int d = 0; d < kDPT; ++d) {
+        dva[d] += p * os[i][part + TPR * d];
+        dka[d] += ds * qs[i][part + TPR * d];
+      }
+    }
+  }
+
+  if (key_ok) {
+    const int64_t off = ((static_cast<int64_t>(b) * Sk + kj) * H + h) * D;
+#pragma unroll
+    for (int d = 0; d < kDPT; ++d) {
+      dk[off + part + TPR * d] = apex::from_float<T>(dka[d] * scale);
+      dv[off + part + TPR * d] = apex::from_float<T>(dva[d]);
+    }
+  }
+}
+
+Strides read_strides(const void* strides) {
+  const int64_t* s = static_cast<const int64_t*>(strides);
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = s[i];
+    st.k[i] = s[3 + i];
+    st.v[i] = s[6 + i];
+    st.o[i] = s[9 + i];
+  }
+  return st;
+}
+
+template <typename T>
+cudaError_t launch_dq(int D, const void* q, const void* k, const void* v,
+                      const void* dout, const float* mask, const float* lse,
+                      const float* delta, void* dq, int B, int H, int Sq,
+                      int Sk, const Strides& st, float scale, int causal,
+                      cudaStream_t stream) {
+  // head_dim 64 only, like flash_fwd.cu and decode_attention.cu
+  if (D != 64) return cudaErrorInvalidValue;
+  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
+  flash_bwd_dq_kernel<T, 64><<<grid, Cfg<64>::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), mask, lse, delta,
+      static_cast<T*>(dq), H, Sq, Sk, st, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv(int D, const void* q, const void* k, const void* v,
+                       const void* dout, const float* mask, const float* lse,
+                       const float* delta, void* dk, void* dv, int B, int H,
+                       int Sq, int Sk, const Strides& st, float scale,
+                       int causal, cudaStream_t stream) {
+  if (D != 64) return cudaErrorInvalidValue;
+  const dim3 grid((Sk + kTile - 1) / kTile, B * H);
+  flash_bwd_dkv_kernel<T, 64><<<grid, Cfg<64>::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), mask, lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, st, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, do: (B, Sq, H, D); k, v: (B, Sk, H, D); all in `dtype` with unit
+// stride on D; strides[12] = (sb, ss, sh) for q, k, v, do in elements.
+// mask: (B, Sk) fp32 contiguous or null; lse, delta: (B, H, Sq) fp32
+// contiguous.  dq: (B, Sq, H, D) contiguous in `dtype`.
+extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* mask,
+                                 const void* lse, const void* delta,
+                                 void* dq, int B, int H, int Sq, int Sk,
+                                 int D, const void* strides, float scale,
+                                 int causal, int dtype, void* stream) {
+  const Strides st = read_strides(strides);
+  const float* mk = static_cast<const float*>(mask);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case apex::kFloat32:
+      return static_cast<int>(launch_dq<float>(
+          D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal, s));
+    case apex::kBFloat16:
+      return static_cast<int>(launch_dq<__nv_bfloat16>(
+          D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// as apex_flash_bwd_dq; dk, dv: (B, Sk, H, D) contiguous in `dtype`.
+extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* mask,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, int B, int H, int Sq,
+                                  int Sk, int D, const void* strides,
+                                  float scale, int causal, int dtype,
+                                  void* stream) {
+  const Strides st = read_strides(strides);
+  const float* mk = static_cast<const float*>(mask);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case apex::kFloat32:
+      return static_cast<int>(launch_dkv<float>(
+          D, q, k, v, dout, mk, ls, dl, dk, dv, B, H, Sq, Sk, st, scale,
+          causal, s));
+    case apex::kBFloat16:
+      return static_cast<int>(launch_dkv<__nv_bfloat16>(
+          D, q, k, v, dout, mk, ls, dl, dk, dv, B, H, Sq, Sk, st, scale,
+          causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,163 @@
+"""Causal-LM training: GPT + causal flash attention + amp + FusedAdam.
+
+Twin of ``examples/gpt/main_amp.py`` at its ``--flash`` path on one
+device: next-token loss on synthetic token streams (uniform random ids
+from ``numpy.random.RandomState(0)``, as the JAX example makes them),
+attention through ``make_flash_attention(causal=True)``, amp O0/O2/O3
+with the dynamic loss scale, ``FusedAdam`` with the flat layout.  The
+step is the JAX example's ``train_step`` with ``deterministic=True``
+(no dropout).
+
+    python -m apex_tpu_torch.examples.gpt_main_amp --config small
+    python -m apex_tpu_torch.examples.gpt_main_amp --config tiny \\
+        --b 2 --seq-len 64 --steps 3          # needs a card as well
+
+:func:`train` is the same loop as a function; it takes ``device="cpu"``
+for a run on the plain PyTorch versions of the kernels.
+
+Not here yet: ``--sp``, ``--tp`` and ``--remat`` (sequence and tensor
+parallelism, rematerialisation) and the data-parallel mesh.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, Iterator, Mapping, Optional
+
+import numpy as np
+import torch
+
+from apex_tpu_torch import amp
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel, gpt_medium, \
+    gpt_small, lm_loss
+from apex_tpu_torch.ops import make_flash_attention
+from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.utils import AverageMeter, maybe_print
+
+
+def config(name: str, seq_len: int) -> GPTConfig:
+    """``--config`` as the JAX example reads it; positions grow to
+    ``seq_len`` where the configuration has fewer."""
+    cfg = {"small": gpt_small(), "medium": gpt_medium(),
+           "tiny": GPTConfig(vocab_size=997, hidden_size=128,
+                             num_hidden_layers=2, num_attention_heads=4,
+                             intermediate_size=256,
+                             max_position_embeddings=seq_len)}[name]
+    if cfg.max_position_embeddings < seq_len:
+        cfg = dataclasses.replace(cfg, max_position_embeddings=seq_len)
+    return cfg
+
+
+def batches(vocab: int, batch: int, seq_len: int) -> Iterator[np.ndarray]:
+    rng = np.random.RandomState(0)
+    while True:
+        yield rng.randint(0, vocab, (batch, seq_len)).astype(np.int32)
+
+
+def build(cfg: GPTConfig, *, lr: float = 3e-4, opt_level: str = "O2",
+          loss_scale=None, device="cuda", seed: int = 0,
+          state_dict: Optional[Mapping[str, torch.Tensor]] = None):
+    """(model, optimizer, params, opt_state): the GPT with causal flash
+    attention under ``amp.initialize`` with ``FusedAdam(lr)``; weights
+    from ``seed`` or, when given, ``state_dict`` (e.g. from
+    ``models.params_from_jax``)."""
+    dev = resolve_device(device)
+    module = GPTLMHeadModel(cfg, attention_fn=make_flash_attention(
+        causal=True), device=dev, seed=None if state_dict is not None else seed)
+    if state_dict is not None:
+        module.load_state_dict(state_dict)
+    # amp's default verbosity, as the JAX example: the option report,
+    # and maybe_print's step lines after it
+    model, optimizer = amp.initialize(module, FusedAdam(lr=lr),
+                                      opt_level=opt_level,
+                                      loss_scale=loss_scale)
+    params = model.init()
+    opt_state = optimizer.init(params)
+    return model, optimizer, params, opt_state
+
+
+def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
+               ids: torch.Tensor):
+    """One step of the JAX example's ``train_step``: loss, scaled
+    gradients, ``optimizer.step``.  Returns ``(params, opt_state, loss,
+    grads)`` with the loss unscaled and the grads as autograd gave them
+    (scaled)."""
+    logits = model.apply(params, ids)
+    loss = lm_loss(logits, ids)
+    with amp.scale_loss(loss, opt_state) as scaled:
+        grads = torch.autograd.grad(scaled, list(params.values()))
+    grads = dict(zip(params.keys(), grads))
+    params, opt_state = optimizer.step(params, grads, opt_state)
+    return params, opt_state, loss.detach(), grads
+
+
+def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
+          steps: int = 30, lr: float = 3e-4, opt_level: str = "O2",
+          loss_scale=None, device="cuda", seed: int = 0,
+          state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+          print_freq: int = 0) -> dict:
+    """Train ``steps`` steps; returns per-step ``losses`` and
+    ``step_seconds`` (host clock around each step, ended by reading the
+    loss), ``tokens_per_s`` per step, and the final scaler state
+    (``loss_scale``, ``skipped_steps``, ``applied_steps``)."""
+    dev = resolve_device(device)
+    model, optimizer, params, opt_state = build(
+        cfg, lr=lr, opt_level=opt_level, loss_scale=loss_scale, device=dev,
+        seed=seed, state_dict=state_dict)
+    losses, seconds = [], []
+    data = batches(cfg.vocab_size, batch, seq_len)
+    for step in range(steps):
+        ids = torch.from_numpy(next(data)).to(dev)
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = train_step(model, optimizer, params,
+                                                opt_state, ids)
+        losses.append(float(loss))      # waits for the step to finish
+        seconds.append(time.perf_counter() - t0)
+        if print_freq and (step % print_freq == 0 or step == steps - 1):
+            maybe_print(f"step {step:4d} loss {losses[-1]:8.4f} "
+                        f"tok/s {batch * seq_len / seconds[-1]:12.1f}",
+                        rank0=True)
+    return {"losses": losses, "step_seconds": seconds,
+            "tokens_per_s": [batch * seq_len / s for s in seconds],
+            "loss_scale": float(optimizer.loss_scale(opt_state)),
+            "skipped_steps": int(opt_state.skipped_steps),
+            "applied_steps": int(opt_state.applied_steps)}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="GPT causal-LM training "
+                                "(PyTorch/CUDA port)")
+    p.add_argument("--config", default="small",
+                   choices=["small", "medium", "tiny"])
+    p.add_argument("--b", "--batch-size", type=int, default=8, dest="b")
+    p.add_argument("--seq-len", type=int, default=1024)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--opt-level", default="O2", choices=["O0", "O2", "O3"])
+    p.add_argument("--loss-scale", default=None)
+    p.add_argument("--print-freq", type=int, default=5)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cfg = config(args.config, args.seq_len)
+    dev = resolve_device("cuda")
+    maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
+                f"{args.config}, seq: {args.seq_len}, flash: True",
+                rank0=True)
+    out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
+                lr=args.lr, opt_level=args.opt_level,
+                loss_scale=args.loss_scale, print_freq=args.print_freq)
+    meter = AverageMeter()
+    for tps in out["tokens_per_s"][1:]:     # the first step warms up
+        meter.update(tps)
+    maybe_print(f"final: loss {out['losses'][-1]:.4f}, avg {meter.avg:.1f} "
+                f"tok/s", rank0=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,9 @@ from apex_tpu_torch.models.gpt import (
     GPTSelfAttention,
     gpt_medium,
     gpt_small,
+    lm_loss,
     params_from_jax,
 )
 
 __all__ = ["GPTBlock", "GPTConfig", "GPTLMHeadModel", "GPTSelfAttention",
-           "gpt_medium", "gpt_small", "params_from_jax"]
+           "gpt_medium", "gpt_small", "lm_loss", "params_from_jax"]

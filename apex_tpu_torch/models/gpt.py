@@ -1,6 +1,6 @@
-"""Decoder-only causal language model (GPT-style), eval mode.
+"""Decoder-only causal language model (GPT-style).
 
-Twin of ``apex_tpu/models/gpt.py`` for serving: pre-LN blocks on
+Twin of ``apex_tpu/models/gpt.py`` for serving and training: pre-LN blocks on
 :class:`FusedLayerNorm`, learned positional embeddings, a weight-tied LM
 head with fp32 logits, ``gelu(approximate="tanh")``, and the serving
 hooks ``positions``, ``cache_views`` and ``return_kv``.  The
@@ -10,8 +10,13 @@ outside any kernel).  Attention runs through ``attention_fn`` (e.g.
 through ``ops.cached_attention`` / ``ops.chunk_cached_attention`` over
 a cache view.
 
+The training forward (no cache views) is differentiable end to end,
+the kernels included (their autograd functions), and :func:`lm_loss` is
+the next-token cross entropy in fp32.  It trains as the JAX example's
+step does, with ``deterministic=True``: no dropout.
+
 Not here: dropout, remat, int8 KV (``kv_quant``) and the pipelined and
-tensor-parallel variants — the training and later serving slices.
+tensor-parallel variants — later slices.
 """
 
 from __future__ import annotations
@@ -275,3 +280,26 @@ def params_from_jax(params: Mapping, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
             sd[f"{pre}{name}.weight"] = t(np.asarray(blk[name]["kernel"]).T)
             sd[f"{pre}{name}.bias"] = t(blk[name]["bias"])
     return sd
+
+
+def _lm_masked_sum(logits, input_ids, attention_mask):
+    """Masked SUM of next-token cross entropy (no normalization)."""
+    b, s, v = logits.shape
+    per_tok = F.cross_entropy(logits[:, :-1].reshape(-1, v).float(),
+                              input_ids[:, 1:].reshape(-1).long(),
+                              reduction="none").view(b, s - 1)
+    return (per_tok * attention_mask[:, 1:].to(per_tok.dtype)).sum()
+
+
+def lm_loss(logits, input_ids, attention_mask=None):
+    """Next-token cross entropy in fp32: predict token t+1 from the
+    prefix up to t.  Position S-1 has no target and is dropped; with a
+    padding mask, positions whose TARGET is padding are dropped too.
+    Mean over the kept positions."""
+    if attention_mask is None:
+        v = logits.shape[-1]
+        return F.cross_entropy(logits[:, :-1].reshape(-1, v).float(),
+                               input_ids[:, 1:].reshape(-1).long())
+    keep = attention_mask[:, 1:].sum().float()
+    return (_lm_masked_sum(logits, input_ids, attention_mask)
+            / keep.clamp_min(1.0))

@@ -1,13 +1,21 @@
-"""FusedLayerNorm — layer normalization through a hand-written CUDA kernel.
+"""FusedLayerNorm — layer normalization through hand-written CUDA kernels.
 
-Twin of ``apex_tpu/normalization/fused_layer_norm.py`` (forward only:
-the serving path runs no backward).  The input is viewed as (n1, n2)
-with n2 = prod(normalized_shape); each row gets its fp32 mean, two-pass
-biased variance and ``invvar = rsqrt(var + eps)`` whatever the input
-dtype.  On a CUDA tensor the ``csrc/layer_norm.cu`` kernel computes the
-statistics and the affine step in one pass and writes y in x's dtype;
-on a CPU tensor :func:`_ln_forward_plain` computes the same function in
-PyTorch (it is also the kernel's reference in ``chip_smoke.py``).
+Twin of ``apex_tpu/normalization/fused_layer_norm.py``.  The input is
+viewed as (n1, n2) with n2 = prod(normalized_shape); each row gets its
+fp32 mean, two-pass biased variance and ``invvar = rsqrt(var + eps)``
+whatever the input dtype.  On a CUDA tensor the ``csrc/layer_norm.cu``
+kernels compute the forward (statistics and the affine step in one
+pass, y in x's dtype) and the input gradient of the backward; on a CPU
+tensor :func:`_ln_forward_plain` and :func:`_ln_backward_plain` compute
+the same functions in PyTorch (they are also the kernels' references in
+``chip_smoke.py``).
+
+:func:`fused_layer_norm_affine` and :func:`fused_layer_norm` are
+``torch.autograd.Function``s on both devices, as the JAX functions are
+``custom_vjp``s: the forward saves x and the fp32 mean/invvar, the
+backward recomputes xhat from them.  dweight and dbias are PyTorch
+column sums (the JAX package leaves them to XLA) and come back in the
+weight's dtype, dx in x's.
 """
 
 from __future__ import annotations
@@ -30,9 +38,11 @@ from apex_tpu_torch._kernels.build import (
 Shape = Union[int, Sequence[int]]
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 KERNEL = Kernel("layer_norm_fwd", "apex_layer_norm_fwd",
-                [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_float, ctypes.c_int, _P])
+                [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P])
+BWD_KERNEL = Kernel("layer_norm_bwd", "apex_layer_norm_bwd",
+                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 
 
 def _norm_shape(normalized_shape: Shape) -> Tuple[int, ...]:
@@ -52,19 +62,46 @@ def _ln_forward_plain(x2: torch.Tensor, eps: float):
     return d * invvar[:, None], mean, invvar
 
 
+def _xhat(x2, mean, invvar):
+    return (x2.float() - mean[:, None]) * invvar[:, None]
+
+
+def _ln_backward_plain(dy2, x2, mean, invvar, weight):
+    """dx of LayerNorm over rows, in x's dtype: the TPU kernel's
+    ``invvar * (dy' - (sum(dy') + xhat * sum(dy' * xhat)) / n2)`` with
+    ``dy' = dy * weight`` in fp32 and xhat recomputed from x."""
+    dyw = dy2.float()
+    if weight is not None:
+        dyw = dyw * weight.float()[None, :]
+    xhat = _xhat(x2, mean, invvar)
+    sum1 = dyw.sum(dim=1, keepdim=True)
+    sum2 = (dyw * xhat).sum(dim=1, keepdim=True)
+    dx = invvar[:, None] * (dyw - (sum1 + xhat * sum2) / x2.shape[1])
+    return dx.to(x2.dtype)
+
+
+def _check_affine(weight, bias, n2):
+    if (weight is None) != (bias is None):
+        raise ValueError("weight and bias must be given together")
+    if weight is not None and (weight.shape != (n2,) or bias.shape != (n2,)):
+        raise ValueError(
+            f"weight/bias must be ({n2},); got {tuple(weight.shape)} "
+            f"and {tuple(bias.shape)}")
+
+
 def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
                    bias: Optional[torch.Tensor], eps: float):
     """LayerNorm over the rows of ``x2`` (n1, n2), with the affine step
     ``* weight + bias`` when both are given.  Returns ``(y, mean,
-    invvar)``: y in x's dtype, the statistics (n1,) fp32.
+    invvar)``: y in x's dtype, the statistics (n1,) fp32.  No autograd:
+    :func:`fused_layer_norm_affine` is the differentiable form.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes contiguous fp32/bf16 rows and raises on anything else."""
-    if (weight is None) != (bias is None):
-        raise ValueError("weight and bias must be given together")
     if x2.ndim != 2:
         raise ValueError(f"x2 must be (n1, n2); got {tuple(x2.shape)}")
     n1, n2 = x2.shape
+    _check_affine(weight, bias, n2)
     affine = () if weight is None else (weight, bias)
     if plain_path(x2, *affine):
         xhat, mean, invvar = _ln_forward_plain(x2, eps)
@@ -75,10 +112,6 @@ def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
     if not x2.is_contiguous():
         raise ValueError("layer_norm_fwd: x2 must be contiguous")
     if weight is not None:
-        if weight.shape != (n2,) or bias.shape != (n2,):
-            raise ValueError(
-                f"weight/bias must be ({n2},); got {tuple(weight.shape)} "
-                f"and {tuple(bias.shape)}")
         weight = weight.float().contiguous()
         bias = bias.float().contiguous()
     y = torch.empty_like(x2)
@@ -94,6 +127,74 @@ def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
     return y, mean, invvar
 
 
+def layer_norm_bwd(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
+                   invvar: torch.Tensor,
+                   weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """dx of LayerNorm over the rows of ``x2`` (n1, n2) given the
+    output gradient ``dy2`` (n1, n2), the forward's fp32 ``mean`` and
+    ``invvar`` (n1,) and the affine ``weight`` (n2,) or None.  Returns dx
+    in x's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (fp32/bf16, dy in x's dtype)."""
+    if x2.ndim != 2 or dy2.shape != x2.shape:
+        raise ValueError(f"dy2 and x2 must be the same (n1, n2); got "
+                         f"{tuple(dy2.shape)} and {tuple(x2.shape)}")
+    n1, n2 = x2.shape
+    if mean.shape != (n1,) or invvar.shape != (n1,):
+        raise ValueError(f"mean/invvar must be ({n1},)")
+    if weight is not None and weight.shape != (n2,):
+        raise ValueError(f"weight must be ({n2},); got {tuple(weight.shape)}")
+    w = () if weight is None else (weight,)
+    if plain_path(dy2, x2, mean, invvar, *w):
+        return _ln_backward_plain(dy2, x2, mean, invvar, weight)
+    code = check_dtype("layer_norm_bwd", x2)
+    if dy2.dtype != x2.dtype:
+        raise TypeError(f"layer_norm_bwd: dy dtype {dy2.dtype} != x dtype "
+                        f"{x2.dtype}")
+    if mean.dtype != torch.float32 or invvar.dtype != torch.float32:
+        raise TypeError("layer_norm_bwd: mean/invvar must be float32")
+    x2 = x2.contiguous()
+    dy2 = dy2.contiguous()
+    mean = mean.contiguous()
+    invvar = invvar.contiguous()
+    if weight is not None:
+        weight = weight.float().contiguous()
+    dx = torch.empty_like(x2)
+    if n1 == 0:
+        return dx
+    BWD_KERNEL.launch(dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(),
+                      invvar.data_ptr(),
+                      None if weight is None else weight.data_ptr(),
+                      dx.data_ptr(), n1, n2, code, stream_handle(x2.device))
+    return dx
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """y = LN(x2) [* weight + bias] over rows, with B3 (or its plain
+    version) for dx and PyTorch column sums for dweight/dbias."""
+
+    @staticmethod
+    def forward(ctx, x2, weight, bias, eps):
+        y, mean, invvar = layer_norm_fwd(x2, weight, bias, eps)
+        ctx.save_for_backward(x2, weight, mean, invvar)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, weight, mean, invvar = ctx.saved_tensors
+        dy = dy.to(x2.dtype)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = layer_norm_bwd(dy, x2, mean, invvar, weight)
+        if weight is not None and (ctx.needs_input_grad[1]
+                                   or ctx.needs_input_grad[2]):
+            dy32 = dy.float()
+            dw = (dy32 * _xhat(x2, mean, invvar)).sum(dim=0).to(weight.dtype)
+            db = dy32.sum(dim=0).to(weight.dtype)
+        return dx, dw, db, None
+
+
 def _rows(x: torch.Tensor, ns: Tuple[int, ...]) -> torch.Tensor:
     if tuple(x.shape[x.ndim - len(ns):]) != ns:
         raise ValueError(
@@ -102,25 +203,27 @@ def _rows(x: torch.Tensor, ns: Tuple[int, ...]) -> torch.Tensor:
     n2 = 1
     for d in ns:
         n2 *= d
-    return x.reshape(-1, n2)
+    return x.reshape(-1, n2).contiguous()
 
 
 def fused_layer_norm_affine(x: torch.Tensor, weight: torch.Tensor,
                             bias: torch.Tensor, normalized_shape: Shape,
                             eps: float = 1e-5) -> torch.Tensor:
     """y = LN(x) * weight + bias over the trailing ``normalized_shape``
-    dims, in x's dtype (reference ``fused_layer_norm_affine``)."""
+    dims, in x's dtype (reference ``fused_layer_norm_affine``);
+    differentiable in x, weight and bias."""
     ns = _norm_shape(normalized_shape)
-    y, _, _ = layer_norm_fwd(_rows(x, ns), weight.reshape(-1),
-                             bias.reshape(-1), eps)
+    y = _LayerNormFn.apply(_rows(x, ns), weight.reshape(-1),
+                           bias.reshape(-1), eps)
     return y.reshape(x.shape)
 
 
 def fused_layer_norm(x: torch.Tensor, normalized_shape: Shape,
                      eps: float = 1e-5) -> torch.Tensor:
-    """Non-affine LN over the trailing ``normalized_shape`` dims."""
+    """Non-affine LN over the trailing ``normalized_shape`` dims;
+    differentiable in x."""
     ns = _norm_shape(normalized_shape)
-    y, _, _ = layer_norm_fwd(_rows(x, ns), None, None, eps)
+    y = _LayerNormFn.apply(_rows(x, ns), None, None, eps)
     return y.reshape(x.shape)
 
 

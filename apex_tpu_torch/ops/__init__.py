@@ -7,8 +7,24 @@ from apex_tpu_torch.ops.flash_attention import (
     flash_attention,
     make_flash_attention,
 )
+from apex_tpu_torch.ops.flatten import (
+    FlatSpec,
+    flatten,
+    flatten_like,
+    unflatten,
+)
+from apex_tpu_torch.ops.multi_tensor import (
+    multi_tensor_axpby,
+    multi_tensor_l2norm,
+    multi_tensor_scale,
+    multi_tensor_unscale,
+    tree_any_nonfinite,
+)
 from apex_tpu_torch.ops.sampling import finite_rows, greedy_argmax
 
-__all__ = ["bias_to_kv_mask", "cached_attention", "chunk_cached_attention",
-           "finite_rows", "flash_attention", "greedy_argmax",
-           "make_flash_attention"]
+__all__ = ["FlatSpec", "bias_to_kv_mask", "cached_attention",
+           "chunk_cached_attention", "finite_rows", "flash_attention",
+           "flatten", "flatten_like", "greedy_argmax",
+           "make_flash_attention", "multi_tensor_axpby",
+           "multi_tensor_l2norm", "multi_tensor_scale",
+           "multi_tensor_unscale", "tree_any_nonfinite", "unflatten"]

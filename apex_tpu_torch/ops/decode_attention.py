@@ -102,7 +102,10 @@ def cached_attention(q, k, v, *, kv_bias: Optional[torch.Tensor] = None,
         drop); unwritten slots MUST be masked by the caller.
       scale: logit scale, default 1/sqrt(D).
 
-    Returns (B, 1, H, D) in q's dtype.  Inference only.
+    Returns (B, 1, H, D) in q's dtype.  Inference only: the kernel has
+    no backward (neither has the JAX one), so on CUDA tensors it raises
+    when grad mode is on and an input requires grad, rather than return
+    an output cut from the graph.
     """
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D); got {tuple(q.shape)}")
@@ -116,6 +119,11 @@ def cached_attention(q, k, v, *, kv_bias: Optional[torch.Tensor] = None,
     bias_t = () if kv_bias is None else (kv_bias,)
     if plain_path(q, k, v, *bias_t):
         return _reference(q, k, v, kv_bias, scale)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, *bias_t)):
+        raise RuntimeError(
+            "cached_attention: the decode kernel has no backward; call it "
+            "under torch.no_grad() or on inputs that do not require grad")
     return _decode_cuda(q, k, v, kv_bias, scale)
 
 

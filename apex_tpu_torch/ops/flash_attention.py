@@ -1,16 +1,24 @@
-"""Flash attention forward through a hand-written CUDA kernel.
+"""Flash attention through hand-written CUDA kernels, forward and backward.
 
-Twin of ``apex_tpu/ops/flash_attention.py`` for the serving prefill:
-exact attention over (B, S, H, D) operands with an additive (B, Sk) key
-mask and optional causal masking on global positions, fp32 softmax, no
-(Sq, Sk) score tensor in device memory.  On CUDA tensors
-``csrc/flash_fwd.cu`` computes it; on CPU tensors :func:`_reference`
-(the plain PyTorch version, also the kernel's reference on the card).
+Twin of ``apex_tpu/ops/flash_attention.py``: exact attention over
+(B, S, H, D) operands with an additive (B, Sk) key mask and optional
+causal masking on global positions, fp32 softmax, no (Sq, Sk) score
+tensor in device memory.  :func:`flash_attention` is a
+``torch.autograd.Function`` on both devices, as the JAX function is a
+``custom_vjp``, differentiable in the output and the lse:
 
-Not here yet: the backward kernels and in-kernel attention dropout
-(the murmur3 keep-mask), which come with the training path.  There is
-no short-sequence gate either: the TPU's XLA/Pallas crossover
-(``FLASH_AUTO_MIN_SEQ``) was a v5e measurement and is not inherited.
+- forward: ``csrc/flash_fwd.cu`` (B4) on CUDA tensors, :func:`_reference`
+  on CPU tensors; it saves q, k, v, o, the fp32 lse and the mask;
+- backward: ``delta = rowsum(do * o)`` in fp32, minus the lse cotangent
+  when the lse output has one (``_bwd_pallas``), then
+  ``csrc/flash_bwd.cu`` (B5 for dq, B6 for dk/dv) on CUDA tensors and
+  :func:`_bwd_dq_reference` / :func:`_bwd_dkv_reference` on CPU
+  tensors.
+
+Not here yet: in-kernel attention dropout (the murmur3 keep-mask, B4's
+dropout branch).  There is no short-sequence gate either: the TPU's
+XLA/Pallas crossover (``FLASH_AUTO_MIN_SEQ``) was a v5e measurement and
+is not inherited.
 """
 
 from __future__ import annotations
@@ -30,19 +38,24 @@ from apex_tpu_torch._kernels.build import (
 
 NEG_INF = -1e30
 
-_HEAD_DIMS = (64,)   # the head dims csrc/flash_fwd.cu is built for
+_HEAD_DIMS = (64,)   # the head dims csrc/flash_*.cu are built for
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 KERNEL = Kernel("flash_fwd", "apex_flash_fwd",
-                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                 ctypes.c_float, _I, _I, _P])
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I,
+                 _P])
+BWD_DQ_KERNEL = Kernel("flash_bwd_dq", "apex_flash_bwd_dq",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P, _F, _I, _I, _P])
+BWD_DKV_KERNEL = Kernel("flash_bwd_dkv", "apex_flash_bwd_dkv",
+                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _P, _F, _I, _I, _P])
 
 
-def _reference(q, k, v, kv_mask, causal, scale, return_lse: bool = False):
-    """Plain PyTorch version (fp32 softmax), shapes (B, S, H, D).  With
-    ``return_lse`` also returns the per-row log-sum-exp (B, H, Sq) fp32,
-    NEG_INF for fully-masked rows."""
+def _scores(q, k, kv_mask, causal, scale):
+    """(B, H, Sq, Sk) fp32 logits with the key mask and causal mask."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if kv_mask is not None:
         s = s + kv_mask[:, None, None, :].float()
@@ -51,6 +64,14 @@ def _reference(q, k, v, kv_mask, causal, scale, return_lse: bool = False):
         pos_k = torch.arange(k.shape[1], device=q.device)
         s = torch.where((pos_q[:, None] >= pos_k[None, :])[None, None],
                         s, NEG_INF)
+    return s
+
+
+def _reference(q, k, v, kv_mask, causal, scale, return_lse: bool = False):
+    """Plain PyTorch version of the forward (fp32 softmax), shapes
+    (B, S, H, D).  With ``return_lse`` also returns the per-row
+    log-sum-exp (B, H, Sq) fp32, NEG_INF for fully-masked rows."""
+    s = _scores(q, k, kv_mask, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     valid = m > NEG_INF / 2
     p = torch.exp(s - m)
@@ -67,25 +88,57 @@ def _reference(q, k, v, kv_mask, causal, scale, return_lse: bool = False):
     return out, lse
 
 
+def _bwd_p_ds(q, k, v, do, lse, delta, kv_mask, causal, scale):
+    """p recomputed from the saved lse (0 on fully-masked rows) and
+    ``ds = p * (do.v - delta)``, (B, H, Sq, Sk) fp32."""
+    s = _scores(q, k, kv_mask, causal, scale)
+    lse4 = lse[..., None]
+    p = torch.where(lse4 > NEG_INF / 2, torch.exp(s - lse4),
+                    torch.zeros((), device=q.device))
+    dov = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dov - delta[..., None])
+
+
+def _bwd_dq_reference(q, k, v, do, lse, delta, kv_mask, causal, scale):
+    """Plain PyTorch version of B5: ``dq = ds @ k * scale`` in q's
+    dtype."""
+    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, kv_mask, causal, scale)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(
+        q.dtype)
+
+
+def _bwd_dkv_reference(q, k, v, do, lse, delta, kv_mask, causal, scale):
+    """Plain PyTorch version of B6: ``dk = ds^T @ q * scale`` and
+    ``dv = p^T @ do`` in q's dtype."""
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, kv_mask, causal, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check_operands(name, q, k, v, kv_mask):
+    b, _, _, d = q.shape
+    code = check_dtype(name, q)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v dtypes differ "
+                        f"({q.dtype}, {k.dtype}, {v.dtype})")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {_HEAD_DIMS}")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {n} needs unit stride on head_dim")
+    if kv_mask is not None:
+        if kv_mask.shape != (b, k.shape[1]):
+            raise ValueError(f"kv_mask must be ({b}, {k.shape[1]}); got "
+                             f"{tuple(kv_mask.shape)}")
+        kv_mask = kv_mask.float().contiguous()
+    return code, kv_mask
+
+
 def _flash_cuda(q, k, v, kv_mask, causal, scale):
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    code = check_dtype("flash_attention", q)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q/k/v dtypes differ "
-                        f"({q.dtype}, {k.dtype}, {v.dtype})")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in "
-                         f"{_HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention: {name} needs unit stride "
-                             "on head_dim")
-    if kv_mask is not None:
-        if kv_mask.shape != (b, sk):
-            raise ValueError(f"kv_mask must be ({b}, {sk}); got "
-                             f"{tuple(kv_mask.shape)}")
-        kv_mask = kv_mask.float().contiguous()
+    code, kv_mask = _check_operands("flash_attention", q, k, v, kv_mask)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -103,6 +156,121 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale):
     return o, lse
 
 
+def _bwd_launch_args(q, k, v, do, lse, delta, kv_mask, causal, scale):
+    """Checks the backward's operands and returns the pointer and scalar
+    arguments B5 and B6 share (the strides array is kept alive beside
+    them)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    code, kv_mask = _check_operands("flash_attention backward", q, k, v,
+                                    kv_mask)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must be {tuple(q.shape)} in {q.dtype}; got "
+                         f"{tuple(do.shape)} in {do.dtype}")
+    for n, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32:
+            raise ValueError(f"{n} must be ({b}, {h}, {sq}) float32")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    lse = lse.contiguous()
+    delta = delta.contiguous()
+    strides = (ctypes.c_int64 * 12)(
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        do.stride(0), do.stride(1), do.stride(2))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            None if kv_mask is None else kv_mask.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    common = (b, h, sq, sk, d, ctypes.addressof(strides), float(scale),
+              int(causal), code, stream_handle(q.device))
+    # the tensors made here must outlive the launch
+    keep = (strides, do, lse, delta, kv_mask)
+    return ptrs, common, keep
+
+
+def _check_bwd_devices(q, k, v, do, lse, delta, kv_mask):
+    mask_t = () if kv_mask is None else (kv_mask,)
+    return plain_path(q, k, v, do, lse, delta, *mask_t)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_mask, causal, scale):
+    """dq (B, Sq, H, D) given the output gradient ``do``, the forward's
+    lse and ``delta = rowsum(do * o) - dlse`` (B, H, Sq) fp32: the kernel
+    B5 for CUDA tensors, the plain version for CPU tensors."""
+    if _check_bwd_devices(q, k, v, do, lse, delta, kv_mask):
+        return _bwd_dq_reference(q, k, v, do, lse, delta, kv_mask, causal,
+                                 scale)
+    ptrs, common, _keep = _bwd_launch_args(q, k, v, do, lse, delta, kv_mask,
+                                           causal, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel():
+        BWD_DQ_KERNEL.launch(*ptrs, dq.data_ptr(), *common)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_mask, causal,
+                            scale):
+    """(dk, dv) (B, Sk, H, D), from the same operands as
+    :func:`flash_attention_bwd_dq`: the kernel B6 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if _check_bwd_devices(q, k, v, do, lse, delta, kv_mask):
+        return _bwd_dkv_reference(q, k, v, do, lse, delta, kv_mask, causal,
+                                  scale)
+    ptrs, common, _keep = _bwd_launch_args(q, k, v, do, lse, delta, kv_mask,
+                                           causal, scale)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dk.numel():
+        BWD_DKV_KERNEL.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *common)
+    return dk, dv
+
+
+def flash_attention_fwd(q, k, v, kv_mask, causal, scale):
+    """(o, lse) without autograd: the kernel B4 for CUDA tensors, the
+    plain version for CPU tensors."""
+    mask_t = () if kv_mask is None else (kv_mask,)
+    if plain_path(q, k, v, *mask_t):
+        return _reference(q, k, v, kv_mask, causal, scale, return_lse=True)
+    return _flash_cuda(q, k, v, kv_mask, causal, scale)
+
+
+def flash_attention_bwd(q, k, v, do, lse, delta, kv_mask, causal, scale):
+    """(dq, dk, dv): B5 then B6 (or their plain versions)."""
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_mask, causal,
+                                scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_mask,
+                                     causal, scale)
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        do = do.to(q.dtype)
+        # delta in the (B, H, Sq) layout of lse; the lse cotangent folds
+        # into it: d lse / d s = p, so ds = p * (dov - delta + dlse)
+        delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse,
+                                         delta.contiguous(), kv_mask,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, kv_mask: Optional[torch.Tensor] = None,
                     causal: bool = False, scale: Optional[float] = None,
                     return_lse: bool = False, dropout_rate: float = 0.0):
@@ -116,10 +284,11 @@ def flash_attention(q, k, v, *, kv_mask: Optional[torch.Tensor] = None,
       return_lse: also return the per-row log-sum-exp (B, H, Sq) fp32
         (NEG_INF for fully-masked rows).
       dropout_rate: must be 0; in-kernel attention dropout is not ported
-        yet (it arrives with the training kernels).
+        yet.
 
     Returns (B, Sq, H, D) in q's dtype (and the lse).  Fully-masked rows
-    give zeros.  Inference only: no gradient flows through the kernel.
+    give zeros.  Differentiable in q, k, v through both outputs (the
+    mask gets no gradient).
     """
     if dropout_rate != 0.0:
         raise NotImplementedError(
@@ -132,11 +301,7 @@ def flash_attention(q, k, v, *, kv_mask: Optional[torch.Tensor] = None,
                          f"v={tuple(v.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    mask_t = () if kv_mask is None else (kv_mask,)
-    if plain_path(q, k, v, *mask_t):
-        return _reference(q, k, v, kv_mask, causal, scale,
-                          return_lse=return_lse)
-    o, lse = _flash_cuda(q, k, v, kv_mask, causal, scale)
+    o, lse = _FlashFn.apply(q, k, v, kv_mask, bool(causal), float(scale))
     return (o, lse) if return_lse else o
 
 

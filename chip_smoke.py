@@ -8,20 +8,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  — the card, its capability, CUDA version and power limit;
    exits 1 before anything else when CUDA is not available.
 2. build   — compiles ``apex_tpu_torch/csrc/*.cu`` with nvcc for sm_90a.
-3. kernels — LayerNorm forward, flash forward and decode attention
-   against their plain PyTorch versions on the card at the serving
-   path's shapes, fp32 and bf16 (scale-aware error max|a-b|/(max|b|+1)
-   <= 2e-5 fp32, <= 2e-2 bf16), each timed as the median device time
-   of 50 launches between CUDA events beside its plain version, one
-   PyTorch library call computing the same function (a yardstick the
-   port never calls) and its bound (the larger of bytes over 3.35 TB/s
-   and FLOPs over the peak for the operand type).
+3. kernels — every ported kernel against its plain PyTorch version on
+   the card at the shapes the serving and training paths give it, fp32
+   and bf16 (scale-aware error max|a-b|/(max|b|+1) <= 2e-5 fp32,
+   <= 2e-2 bf16, <= 1e-6 for FusedAdam, whose skipped step must keep
+   every bit), each timed as the median device time of 20-50 launches
+   between CUDA events beside its plain version, one PyTorch library
+   call computing the same function (a yardstick the port never calls)
+   and its bound (the larger of bytes over 3.35 TB/s and FLOPs over the
+   peak for the operand type).
 4. serve   — ``InferenceServer`` on GPT-2 small at full width (seeded
    random weights), 8 decode slots, 16-token blocks, flash prefill,
    16 prompts of 4..255 tokens, 32 new tokens each:
    (a) fp32 cache, TF32 off: tokens against greedy full recompute on
        the card (the port's model with plain attention and plain
-       LayerNorm: it launches none of the three kernels); a mismatch is
+       LayerNorm: it launches none of the kernels); a mismatch is
        allowed only where the oracle's top-2 logit gap is < 1e-3, and
        ends that request's comparison;
    (b) the default bf16 cache, timed: tokens/s (median of 3 passes),
@@ -31,6 +32,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the same counts.  (c) repeats (b) under
    ``torch.profiler``: device time by kernel class and the device's
    idle share of the wall time.
+5. train   — ``apex_tpu_torch.examples.gpt_main_amp`` on GPT-2 small at
+   full width, FusedAdam(lr=3e-4) flat, causal flash attention, against
+   a kernel-free oracle on the card (the same model and step on plain
+   LayerNorm, plain attention and plain Adam, checked to launch none of
+   the port's kernels), both from seed 0 and the example's token
+   batches:
+   (a) O0, TF32 off, batch 2, 3 steps: losses <= 1e-4 relative, step-1
+       gradients <= 1e-4 scale-aware, and each step's launches exactly
+       25 LayerNorm forward and backward, 12 flash forward, dq and dk/dv,
+       1 FusedAdam;
+   (b) O2 through ``train()`` at batch 8, sequence 1024, 10 steps with
+       every launch count at 0 just before and read just after (exactly
+       10 times the per-step counts): losses within 2e-2 of the O2
+       oracle at every step; median tokens/s over steps 1-9;
+   (c) the overflow step: one gradient element set to inf, then
+       ``AmpOptimizer.step`` under ``torch.cuda.set_sync_debug_mode
+       ("error")``: master params, m, v and the step counter keep every
+       bit, the loss scale halves, and no host sync is raised;
+   (d) one more O2 step under ``torch.profiler``: device time by kernel
+       class and the device's idle share.
 
 The line before the last is ``{"kernels": [...]}``; before it, the
 card's name and power limit as nvidia-smi prints them; the last line is
@@ -56,10 +77,18 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # fp32 on the CUDA cores
               "bfloat16": 989e12}  # dense bf16 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ADAM_TOL = 1e-6
 NEAR_TIE_GAP = 1e-3
 TIMED_LAUNCHES = 50
+TIMED_LAUNCHES_LARGE = 20  # training-size shapes (ms each)
 TIMED_SERVE_PASSES = 3
 SPIN_CYCLES = 2_000_000   # ~1 ms at the H100's clock
+
+# the training path: examples/gpt/main_amp.py --config small --flash
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 3e-4
+O0_BATCH, O0_STEPS, O2_STEPS = 2, 3, 10
+O0_TOL = 1e-4             # loss relative, step-1 grads scale-aware
+O2_LOSS_TOL = 2e-2        # absolute, every step
 
 
 def emit(phase, **fields):
@@ -140,12 +169,17 @@ def phase_build():
          ptxas=ptxas[:24])
 
 
-def _check(name, dtype, got, want):
+def _check(name, dtype, got, want, tol=None):
+    tol = TOL[dtype] if tol is None else tol
     rel, max_abs = scale_aware_err(got, want)
-    if not rel <= TOL[dtype]:
+    if not rel <= tol:
         raise AssertionError(f"{name} [{dtype}]: scale-aware error {rel:.3g} "
-                             f"> {TOL[dtype]}")
+                             f"> {tol}")
     return rel, max_abs
+
+
+def _dt(dtype):
+    return str(dtype).split(".")[1]
 
 
 def _ln_variants(torch):
@@ -154,7 +188,8 @@ def _ln_variants(torch):
         "apex_tpu_torch.normalization.fused_layer_norm")
     out = []
     for dtype in (torch.float32, torch.bfloat16):
-        for n1 in (8, 256):
+        # decode, a prefill bucket, a training step (8 x 1024 tokens)
+        for n1 in (8, 256, TRAIN_BATCH * TRAIN_SEQ):
             n2 = 768
             g = torch.Generator(device="cuda").manual_seed(n1)
             x = torch.randn(n1, n2, device="cuda", generator=g).to(dtype)
@@ -168,7 +203,7 @@ def _ln_variants(torch):
                 xhat, mean, invvar = ln._ln_forward_plain(x, 1e-5)
                 return (xhat * w + b).to(dtype), mean, invvar
 
-            dt = str(dtype).split(".")[1]
+            dt = _dt(dtype)
             y, mean, invvar = kernel()
             py, pmean, pinvvar = plain()
             rel, max_abs = _check("layer_norm_fwd", dt, y, py)
@@ -178,13 +213,15 @@ def _ln_variants(torch):
             isz = x.element_size()
             nbytes = 2 * n1 * n2 * isz + 2 * n2 * 4 + 2 * n1 * 4
             bms, by = bound(nbytes, 8 * n1 * n2, "float32")
+            iters = TIMED_LAUNCHES if n1 <= 256 else TIMED_LAUNCHES_LARGE
             out.append({
                 "shape": [n1, n2], "dtype": dt, "rel_err": rel,
                 "max_abs_err": max_abs,
-                "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+                "ms": median_ms(kernel, iters),
+                "plain_ms": median_ms(plain, iters),
                 "library_ms": median_ms(
                     lambda: F.layer_norm(x, (n2,), w.to(dtype),
-                                         b.to(dtype), 1e-5)),
+                                         b.to(dtype), 1e-5), iters),
                 "bound_ms": bms, "bound_by": by})
     return out
 
@@ -195,12 +232,17 @@ def _flash_variants(torch):
     out = []
     h, d = 12, 64
     for dtype in (torch.float32, torch.bfloat16):
-        for s, length in ((16, 11), (100, 77), (256, 200), (1024, 1000)):
+        # serving prefills (B 1, a padding mask), then the training step
+        # (B 8, no mask: the example's batches have no padding)
+        for bsz, s, length in ((1, 16, 11), (1, 100, 77), (1, 256, 200),
+                               (1, 1024, 1000),
+                               (TRAIN_BATCH, TRAIN_SEQ, None)):
             g = torch.Generator(device="cuda").manual_seed(s)
-            q, k, v = (torch.randn(1, s, h, d, device="cuda", generator=g)
+            q, k, v = (torch.randn(bsz, s, h, d, device="cuda", generator=g)
                        .to(dtype) for _ in range(3))
-            mask = torch.where(torch.arange(s, device="cuda") < length, 0.0,
-                               -1e9)[None].float()
+            mask = None if length is None else torch.where(
+                torch.arange(s, device="cuda") < length, 0.0,
+                -1e9)[None].float()
             scale = 1.0 / d ** 0.5
 
             def kernel():
@@ -211,26 +253,37 @@ def _flash_variants(torch):
                 return fa._reference(q, k, v, mask, True, scale,
                                      return_lse=True)
 
-            dt = str(dtype).split(".")[1]
+            dt = _dt(dtype)
             o, lse = kernel()
             po, plse = plain()
             rel, max_abs = _check("flash_fwd", dt, o, po)
             r, m = _check("flash_fwd lse", "float32", lse, plse)
             rel, max_abs = max(rel, r), max(max_abs, m)
-            causal = torch.triu(torch.full((s, s), float("-inf"),
-                                           device="cuda"), 1)
-            sdpa_mask = (causal[None, None] + mask[:, None, None, :]).to(dtype)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if mask is None:
+                def library():
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+            else:
+                causal = torch.triu(torch.full((s, s), float("-inf"),
+                                               device="cuda"), 1)
+                sdpa_mask = (causal[None, None]
+                             + mask[:, None, None, :]).to(dtype)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=sdpa_mask)
             isz = q.element_size()
-            nbytes = 4 * s * h * d * isz + s * 4 + h * s * 4
-            bms, by = bound(nbytes, 2 * h * s * s * d, dt)
+            nbytes = bsz * (4 * s * h * d * isz + h * s * 4) + (
+                0 if mask is None else s * 4)
+            bms, by = bound(nbytes, 2 * bsz * h * s * s * d, dt)
+            iters = TIMED_LAUNCHES if bsz == 1 else TIMED_LAUNCHES_LARGE
             out.append({
-                "shape": [1, s, h, d], "dtype": dt, "rel_err": rel,
+                "shape": [bsz, s, h, d], "dtype": dt, "rel_err": rel,
                 "max_abs_err": max_abs,
-                "ms": median_ms(kernel), "plain_ms": median_ms(plain),
-                "library_ms": median_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=sdpa_mask)),
+                "ms": median_ms(kernel, iters),
+                "plain_ms": median_ms(plain, iters),
+                "library_ms": median_ms(library, iters),
                 "bound_ms": bms, "bound_by": by})
     return out
 
@@ -278,17 +331,222 @@ def _decode_variants(torch):
     return out
 
 
-# (name, source, TPU kernel it replaces, variant builder, summary variant)
+def _ln_bwd_variants(torch):
+    ln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    out = []
+    n1, n2 = TRAIN_BATCH * TRAIN_SEQ, 768
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(11)
+        x = (2 * torch.randn(n1, n2, device="cuda", generator=g) + 0.5) \
+            .to(dtype)
+        dy = torch.randn(n1, n2, device="cuda", generator=g).to(dtype)
+        w = 1 + 0.1 * torch.randn(n2, device="cuda", generator=g)
+        _, mean, invvar = ln._ln_forward_plain(x, 1e-5)
+
+        def kernel():
+            return ln.layer_norm_bwd(dy, x, mean, invvar, w)
+
+        def plain():
+            return ln._ln_backward_plain(dy, x, mean, invvar, w)
+
+        def library():
+            # dx only, from the same saved statistics (rstd = invvar)
+            return torch.ops.aten.native_layer_norm_backward(
+                dy, x, [n2], mean[:, None], invvar[:, None], w.to(dtype),
+                None, [True, False, False])
+
+        dt = _dt(dtype)
+        rel, max_abs = _check("layer_norm_bwd", dt, kernel(), plain())
+        isz = x.element_size()
+        nbytes = 3 * n1 * n2 * isz + 2 * n1 * 4 + n2 * 4
+        bms, by = bound(nbytes, 11 * n1 * n2, "float32")
+        out.append({
+            "shape": [n1, n2], "dtype": dt, "rel_err": rel,
+            "max_abs_err": max_abs,
+            "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
+            "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
+            "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
+            "bound_ms": bms, "bound_by": by})
+    return out
+
+
+def _flash_bwd_variants(torch, which):
+    """B5 (``which="dq"``) or B6 (``"dkv"``) at the training step's
+    shape, and at a ragged padded one (fp32 and bf16).  The library
+    yardstick is SDPA's backward, which computes dq, dk and dv together,
+    so both kernels carry the same library time."""
+    import torch.nn.functional as F
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    kernel_fn = {"dq": fa.flash_attention_bwd_dq,
+                 "dkv": fa.flash_attention_bwd_dkv}[which]
+    plain_fn = {"dq": fa._bwd_dq_reference,
+                "dkv": fa._bwd_dkv_reference}[which]
+    out = []
+    h, d = 12, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz, s, length in ((TRAIN_BATCH, TRAIN_SEQ, None),
+                               (2, 100, 77)):
+            g = torch.Generator(device="cuda").manual_seed(s + 1)
+            q, k, v, do = (torch.randn(bsz, s, h, d, device="cuda",
+                                       generator=g).to(dtype)
+                           for _ in range(4))
+            mask = None if length is None else torch.where(
+                torch.arange(s, device="cuda") < length, 0.0,
+                -1e9)[None].expand(bsz, s).float().contiguous()
+            scale = 1.0 / d ** 0.5
+            o, lse = fa._reference(q, k, v, mask, True, scale,
+                                   return_lse=True)
+            delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+                .contiguous()
+            args = (q, k, v, do, lse, delta, mask, True, scale)
+
+            def kernel():
+                return kernel_fn(*args)
+
+            def plain():
+                return plain_fn(*args)
+
+            dt = _dt(dtype)
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            rel = max_abs = 0.0
+            for a, b in zip(got, want):
+                r, m = _check(f"flash_bwd_{which}", dt, a, b)
+                rel, max_abs = max(rel, r), max(max_abs, m)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2)
+            if mask is None:
+                so = F.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True)
+            else:
+                causal = torch.triu(torch.full((s, s), float("-inf"),
+                                               device="cuda"), 1)
+                so = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=(causal[None, None]
+                                           + mask[:, None, None, :]).to(dtype))
+
+            def library():
+                return torch.autograd.grad(so, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            # causal pairs this input needs (all rows live: no row is
+            # fully masked here)
+            pairs = bsz * h * s * (s + 1) // 2
+            isz = q.element_size()
+            n_in = 4 * bsz * s * h * d * isz + 2 * bsz * h * s * 4
+            n_out = (1 if which == "dq" else 2) * bsz * s * h * d * isz
+            flops = (6 if which == "dq" else 8) * pairs * d
+            bms, by = bound(n_in + n_out, flops, dt)
+            iters = TIMED_LAUNCHES if bsz * s < 1024 else TIMED_LAUNCHES_LARGE
+            out.append({
+                "shape": [bsz, s, h, d], "dtype": dt, "rel_err": rel,
+                "max_abs_err": max_abs,
+                "ms": median_ms(kernel, iters),
+                "plain_ms": median_ms(plain, iters),
+                "library_ms": median_ms(library, iters),
+                "bound_ms": bms, "bound_by": by})
+    return out
+
+
+def _gpt_small_param_count():
+    from apex_tpu_torch.models import gpt_small
+    cfg = gpt_small()
+    h, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    block = 4 * h + 4 * (h * h + h) + (h * f + f) + (f * h + h)
+    return (cfg.vocab_size * h + cfg.max_position_embeddings * h
+            + n * block + 2 * h)
+
+
+def _adam_variants(torch):
+    """B1 over GPT-2 small's flat fp32 buffer (124.4M elements, a
+    multiple of 128), with inf/nan in g; the skipped step keeps every
+    bit.  Yardstick: ``torch._fused_adam_`` (weight decay 0)."""
+    adam = importlib.import_module("apex_tpu_torch.optimizers.fused_adam")
+    n = _gpt_small_param_count()
+    n += -n % adam.PAD_TO
+    g_ = torch.Generator(device="cuda").manual_seed(3)
+    p = torch.randn(n, device="cuda", generator=g_)
+    m = 0.01 * torch.randn(n, device="cuda", generator=g_)
+    v = 1e-4 * torch.rand(n, device="cuda", generator=g_)
+    g = torch.randn(n, device="cuda", generator=g_)
+    lr, b1, b2, eps = TRAIN_LR, 0.9, 0.999, 1e-8
+    step_size = lr * (1 - b2 ** 3) ** 0.5 / (1 - b1 ** 3)
+    scalars = torch.tensor([step_size, b1, b2, eps, 1.0, 0.0, 1.0],
+                           device="cuda")
+    skip = scalars.clone()
+    skip[6] = 0.0
+    ref = adam._adam_plain(p, m, v, g, scalars, False)
+    p1, m1, v1 = p.clone(), m.clone(), v.clone()
+    adam.adam_flat(p1, m1, v1, g, scalars, False)
+    rel = max_abs = 0.0
+    for a, b in zip((p1, m1, v1), ref):
+        r, mx = _check("fused_adam", "float32", a, b, tol=ADAM_TOL)
+        rel, max_abs = max(rel, r), max(max_abs, mx)
+    del ref
+    # an overflowed step: inf and nan in g, keep = 0 -> every bit stays,
+    # in the kernel and in its plain version
+    g_bad = g.clone()
+    g_bad[7], g_bad[n // 2] = float("inf"), float("nan")
+    old = (p1.clone(), m1.clone(), v1.clone())
+    adam.adam_flat(p1, m1, v1, g_bad, skip, False)
+    plain_skip = adam._adam_plain(*old, g_bad, skip, False)
+    if not all(torch.equal(a, b) and torch.equal(c, b)
+               for a, b, c in zip((p1, m1, v1), old, plain_skip)):
+        raise AssertionError("fused_adam: a skipped step changed a bit")
+    del g_bad, old, plain_skip, p1, m1, v1
+
+    def kernel():
+        adam.adam_flat(p, m, v, g, scalars, False)
+
+    def plain():
+        return adam._adam_plain(p, m, v, g, scalars, False)
+
+    steps = [torch.tensor(3.0, device="cuda")]
+
+    def library():
+        torch._fused_adam_([p], [g], [m], [v], [], steps, lr=lr, beta1=b1,
+                           beta2=b2, weight_decay=0.0, eps=eps,
+                           amsgrad=False, maximize=False)
+
+    bms, by = bound(28 * n, 15 * n, "float32")
+    return [{"shape": [n], "dtype": "float32", "rel_err": rel,
+             "max_abs_err": max_abs, "skip_bitwise": True,
+             "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
+             "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
+             "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
+             "bound_ms": bms, "bound_by": by}]
+
+
+# (name, source, TPU kernel it replaces, variant builder, summary variant:
+# the shape and dtype of the training step, the path that launches the
+# kernel last, and for B7 the serving step's)
 KERNELS = (
     ("layer_norm_fwd", "apex_tpu_torch/csrc/layer_norm.cu",
      "apex_tpu/normalization/fused_layer_norm.py:63", _ln_variants,
-     ([8, 768], "float32")),
+     ([TRAIN_BATCH * TRAIN_SEQ, 768], "bfloat16")),
     ("flash_fwd", "apex_tpu_torch/csrc/flash_fwd.cu",
      "apex_tpu/ops/flash_attention.py:161", _flash_variants,
-     ([1, 256, 12, 64], "float32")),
+     ([TRAIN_BATCH, TRAIN_SEQ, 12, 64], "bfloat16")),
     ("decode_attention", "apex_tpu_torch/csrc/decode_attention.cu",
      "apex_tpu/ops/decode_attention.py:125", _decode_variants,
      ([8, 1025, 12, 64], "float32")),
+    ("fused_adam", "apex_tpu_torch/csrc/fused_adam.cu",
+     "apex_tpu/optimizers/fused_adam.py:95", _adam_variants,
+     (None, "float32")),
+    ("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm.cu",
+     "apex_tpu/normalization/fused_layer_norm.py:78", _ln_bwd_variants,
+     ([TRAIN_BATCH * TRAIN_SEQ, 768], "bfloat16")),
+    ("flash_bwd_dq", "apex_tpu_torch/csrc/flash_bwd.cu",
+     "apex_tpu/ops/flash_attention.py:252",
+     functools.partial(_flash_bwd_variants, which="dq"),
+     ([TRAIN_BATCH, TRAIN_SEQ, 12, 64], "bfloat16")),
+    ("flash_bwd_dkv", "apex_tpu_torch/csrc/flash_bwd.cu",
+     "apex_tpu/ops/flash_attention.py:291",
+     functools.partial(_flash_bwd_variants, which="dkv"),
+     ([TRAIN_BATCH, TRAIN_SEQ, 12, 64], "bfloat16")),
 )
 
 
@@ -300,10 +558,11 @@ def phase_kernels():
         for row in rows:
             emit("kernels", kernel=name, **row)
         main = next(r for r in rows
-                    if r["shape"] == summary[0] and r["dtype"] == summary[1])
+                    if summary[0] in (None, r["shape"])
+                    and r["dtype"] == summary[1])
         results[name] = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None,
+            "replaces": replaces, "launches": None, "launches_by_path": {},
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -339,11 +598,13 @@ def _serve_once(server, prompts, max_new):
     counts = launch_counts()
     st = server.stats()
     layers = server.engine.cfg.num_hidden_layers
-    want = {"layer_norm_fwd": (2 * layers + 1)
-            * (st["prefills"] + st["decode_steps"]),
-            "flash_fwd": layers * st["prefills"],
-            "decode_attention": layers * st["decode_steps"]}
-    if counts != want or not all(counts.values()) \
+    serve = {"layer_norm_fwd": (2 * layers + 1)
+             * (st["prefills"] + st["decode_steps"]),
+             "flash_fwd": layers * st["prefills"],
+             "decode_attention": layers * st["decode_steps"]}
+    # the training kernels (backward, optimizer) run no time here
+    want = {name: serve.get(name, 0) for name in counts}
+    if counts != want or not all(serve.values()) \
             or st["kernel_launches"] != counts:
         raise AssertionError(f"kernel launches {counts} (stats() "
                              f"{st['kernel_launches']}) != expected {want} "
@@ -471,12 +732,18 @@ def phase_serve():
     return counts
 
 
-# device-time classes of the serve pass's kernels, by kernel-name fragment
+# device-time classes of the profiled passes' kernels, by kernel-name
+# fragment (first match wins)
 KERNEL_CLASSES = (
     ("layer_norm_fwd (port)", ("layer_norm_fwd_kernel",)),
+    ("layer_norm_bwd (port)", ("layer_norm_bwd_kernel",)),
     ("flash_fwd (port)", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq (port)", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv (port)", ("flash_bwd_dkv_kernel",)),
+    ("fused_adam (port)", ("fused_adam_kernel",)),
     ("decode_attention (port)", ("decode_attention_kernel",)),
-    ("gemm", ("gemm", "gemv", "xmma", "cutlass", "cublas")),
+    ("gemm", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
+              "sm90_")),
     ("gather/scatter", ("index", "gather", "scatter")),
     ("copy/cast/cat", ("copy", "cat", "Cat")),
     ("reduce", ("reduce", "Reduce")),
@@ -484,26 +751,23 @@ KERNEL_CLASSES = (
 )
 
 
-def _profile_serve(server, prompts, max_new):
-    """One more bf16 serve pass under ``torch.profiler``: device time by
-    kernel class and the device's idle share of the pass's wall time.
-    Reports ``"not measured"`` when the profiler records no device
-    events."""
+def _profile(label, run, **fields):
+    """``run()`` once under ``torch.profiler``: device time by kernel
+    class and the device's idle share of the run's wall time.  Reports
+    ``"not measured"`` when the profiler records no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    server.engine.reset_cache()
-    server.reset_meters()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.generate(prompts, max_new_tokens=max_new)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        emit("profile", device_time="not measured")
+        emit("profile", run=label, device_time="not measured")
         return {"device_time": "not measured"}
     by_class, by_name, busy_us, end_us = {}, {}, 0.0, None
     for e in sorted(kernels, key=lambda e: e.time_range.start):
@@ -519,27 +783,247 @@ def _profile_serve(server, prompts, max_new):
                     if any(k in e.name for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + dur
         by_name[e.name] = by_name.get(e.name, 0.0) + dur
-    st = server.stats()
-    steps = st["prefills"] + st["decode_steps"]
     total = sum(by_class.values())
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us,
            "kernel_ms_total": total / 1e3, "kernel_launches": len(kernels),
-           "engine_steps": steps,
+           **fields,
            "by_class_ms": {c: v / 1e3 for c, v in
                            sorted(by_class.items(), key=lambda kv: -kv[1])},
            "top_kernels_ms": {n[:120]: v / 1e3 for n, v in sorted(
                by_name.items(), key=lambda kv: -kv[1])[:15]}}
-    emit("profile", wall_ms=round(out["wall_ms"], 3),
+    emit("profile", run=label, wall_ms=round(out["wall_ms"], 3),
          device_busy_ms=round(out["device_busy_ms"], 3),
          device_idle_share=round(out["device_idle_share"], 4),
-         kernel_launches=len(kernels), engine_steps=steps,
+         kernel_launches=len(kernels), **fields,
          by_class_ms={c: round(v, 3) for c, v in
                       out["by_class_ms"].items()})
     return out
 
 
-def main(phases=("device", "build", "kernels", "serve")):
+def _profile_serve(server, prompts, max_new):
+    """One more bf16 serve pass under the profiler."""
+    server.engine.reset_cache()
+    server.reset_meters()
+    out = _profile("serve", lambda: server.generate(prompts,
+                                                    max_new_tokens=max_new))
+    st = server.stats()
+    out["engine_steps"] = st["prefills"] + st["decode_steps"]
+    return out
+
+
+# -- train -------------------------------------------------------------------
+
+def _per_step_launches(cfg, names):
+    """Launches of one training step: 2L+1 LayerNorms forward and
+    backward, L attentions forward, dq and dk/dv, one Adam update."""
+    n = cfg.num_hidden_layers
+    step = {"layer_norm_fwd": 2 * n + 1, "layer_norm_bwd": 2 * n + 1,
+            "flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "fused_adam": 1}
+    return {name: step.get(name, 0) for name in names}
+
+
+def _plain_attention(q, k, v, bias=None, dropout_fn=None):
+    """The flash adapter's plain version: causal attention with fp32
+    softmax (``_reference``), differentiable through PyTorch's own
+    autograd."""
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    if dropout_fn is not None:
+        raise NotImplementedError("the oracle trains without dropout")
+    return fa._reference(q, k, v, fa.bias_to_kv_mask(bias), True,
+                         q.shape[-1] ** -0.5)
+
+
+def _train_oracle(cfg, opt_level):
+    """The example's model and optimizer with no port kernel in them:
+    plain LayerNorm, plain attention, and FusedAdam whose update is its
+    plain version.  Same seed, so the same initial weights."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTLMHeadModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    adam = importlib.import_module("apex_tpu_torch.optimizers.fused_adam")
+
+    class PlainAdam(FusedAdam):
+        def _update(self, p, m, v, g, scalars):
+            new = adam._adam_plain(p, m, v, g, scalars, self.eps_inside_sqrt)
+            for buf, val in zip((p, m, v), new):
+                buf.copy_(val)
+
+    module = _plain_oracle(GPTLMHeadModel(cfg, attention_fn=_plain_attention,
+                                          device="cuda", seed=0))
+    model, opt = amp.initialize(module, PlainAdam(lr=TRAIN_LR),
+                                opt_level=opt_level, verbosity=0)
+    params = model.init()
+    return model, opt, params, opt.init(params)
+
+
+def _oracle_steps(cfg, opt_level, batch, steps):
+    """The oracle's losses over ``steps`` steps of the example's
+    batches, and its step-1 gradients; fails if it launched a port
+    kernel."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    before = launch_counts()
+    model, opt, params, st = _train_oracle(cfg, opt_level)
+    data = gpt_main_amp.batches(cfg.vocab_size, batch, TRAIN_SEQ)
+    losses, grads1 = [], None
+    for step in range(steps):
+        ids = torch.from_numpy(next(data)).to("cuda")
+        params, st, loss, grads = gpt_main_amp.train_step(model, opt, params,
+                                                          st, ids)
+        losses.append(float(loss))
+        if step == 0:
+            grads1 = grads
+    if launch_counts() != before:
+        raise AssertionError("the training oracle launched a port kernel")
+    return losses, grads1
+
+
+def _train_o0():
+    """(a) O0 at batch 2: losses and step-1 gradients against the oracle,
+    and each step's launches."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    want_losses, want_grads = _oracle_steps(cfg, "O0", O0_BATCH, O0_STEPS)
+    model, opt, params, st = gpt_main_amp.build(
+        cfg, lr=TRAIN_LR, opt_level="O0", device="cuda", seed=0)
+    data = gpt_main_amp.batches(cfg.vocab_size, O0_BATCH, TRAIN_SEQ)
+    losses, grad_err = [], 0.0
+    for step in range(O0_STEPS):
+        ids = torch.from_numpy(next(data)).to("cuda")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        params, st, loss, grads = gpt_main_amp.train_step(model, opt, params,
+                                                          st, ids)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts != _per_step_launches(cfg, counts):
+            raise AssertionError(f"O0 step {step}: launches {counts}")
+        losses.append(float(loss))
+        if step == 0:
+            for name, g in grads.items():
+                rel, _ = scale_aware_err(g, want_grads[name])
+                grad_err = max(grad_err, rel)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    emit("train", opt_level="O0", batch=O0_BATCH, seq=TRAIN_SEQ,
+         losses=losses, oracle_losses=want_losses, loss_rel_err=loss_err,
+         step1_grad_err=grad_err, launches_per_step=counts)
+    if not (loss_err <= O0_TOL and grad_err <= O0_TOL):
+        raise AssertionError(f"O0: loss error {loss_err:.3g}, step-1 grad "
+                             f"error {grad_err:.3g} > {O0_TOL}")
+    return {"losses": losses, "oracle_losses": want_losses,
+            "loss_rel_err": loss_err, "step1_grad_err": grad_err}
+
+
+def _train_o2():
+    """(b) O2 through ``train()`` at the example's defaults, every launch
+    count read around the run; losses against the O2 oracle."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = gpt_main_amp.train(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             steps=O2_STEPS, lr=TRAIN_LR, opt_level="O2",
+                             device="cuda", seed=0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: O2_STEPS * v
+            for k, v in _per_step_launches(cfg, counts).items()}
+    if counts != want:
+        raise AssertionError(f"O2: launches {counts} != {want}")
+    want_losses, _ = _oracle_steps(cfg, "O2", TRAIN_BATCH, O2_STEPS)
+    errs = [abs(a - b) for a, b in zip(out["losses"], want_losses)]
+    tps = statistics.median(out["tokens_per_s"][1:])
+    emit("train", opt_level="O2", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=O2_STEPS, losses=out["losses"], oracle_losses=want_losses,
+         max_loss_abs_err=max(errs), tokens_per_s_median=tps,
+         step_ms=[1e3 * t for t in out["step_seconds"]],
+         loss_scale=out["loss_scale"], skipped_steps=out["skipped_steps"],
+         peak_memory_gb=peak_gb, launches=counts)
+    if not max(errs) <= O2_LOSS_TOL:
+        raise AssertionError(f"O2: loss error {max(errs):.3g} > "
+                             f"{O2_LOSS_TOL}")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"O2: non-finite loss {out['losses']}")
+    return {**out, "oracle_losses": want_losses, "tokens_per_s_median": tps,
+            "peak_memory_gb": peak_gb, "launches": counts}
+
+
+def _train_overflow_and_profile():
+    """(c) an overflowed O2 step under sync-debug "error": nothing
+    changes but the scale, and no host sync; (d) one O2 step under the
+    profiler."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples import gpt_main_amp
+    from apex_tpu_torch.models import lm_loss
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    model, opt, params, st = gpt_main_amp.build(
+        cfg, lr=TRAIN_LR, opt_level="O2", device="cuda", seed=0)
+    data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(next(data)).to("cuda")
+    params, st, _, _ = gpt_main_amp.train_step(model, opt, params, st, ids)
+    loss = lm_loss(model.apply(params, ids), ids)
+    with amp.scale_loss(loss, st) as scaled:
+        grads = dict(zip(params, torch.autograd.grad(
+            scaled, list(params.values()))))
+    grads["blocks.5.mlp_in.weight"][17, 3] = float("inf")
+    inner = st.inner
+    snap = (inner.p.clone(), inner.m.clone(), inner.v.clone(),
+            inner.step.clone())
+    scale0 = float(opt.loss_scale(st))
+    skipped0 = int(st.skipped_steps)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st = opt.step(params, grads, st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(a, b) for a, b in zip(
+        (st.inner.p, st.inner.m, st.inner.v, st.inner.step), snap))
+    scale1 = float(opt.loss_scale(st))
+    emit("train", overflow_step="inf in blocks.5.mlp_in.weight",
+         bits_kept=kept, loss_scale_before=scale0, loss_scale_after=scale1,
+         skipped_steps=int(st.skipped_steps), host_syncs=0)
+    if not (kept and scale1 == scale0 / 2
+            and int(st.skipped_steps) == skipped0 + 1):
+        raise AssertionError("the overflow step changed the state or did "
+                             "not halve the scale")
+    del grads, snap, loss, scaled
+    # (d) a warm step, then one under the profiler
+    state = {"params": params, "st": st}
+
+    def one_step():
+        ids = torch.from_numpy(next(data)).to("cuda")
+        state["params"], state["st"], loss, _ = gpt_main_amp.train_step(
+            model, opt, state["params"], state["st"], ids)
+        float(loss)
+
+    one_step()
+    return _profile("train_step_O2", one_step,
+                    tokens=TRAIN_BATCH * TRAIN_SEQ)
+
+
+def phase_train():
+    results = {"O0": _train_o0()}
+    results["O2"] = _train_o2()
+    results["profile"] = _train_overflow_and_profile()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "train.json").write_text(json.dumps(results, indent=1,
+                                                   default=str))
+    return results["O2"]["launches"]
+
+
+def main(phases=("device", "build", "kernels", "serve", "train")):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     sys.path.insert(0, str(REPO))
@@ -549,10 +1033,18 @@ def main(phases=("device", "build", "kernels", "serve")):
         phase_build()
     if "kernels" in phases:
         kernels = phase_kernels()
-    if "serve" in phases:
-        counts = phase_serve()
-        for k in kernels.values():
-            k["launches"] = counts[k["name"]]
+    # each main path runs with the counts at 0 just before it; a kernel
+    # reports the launches of the training step where it runs there
+    # (the path this slice adds), else those of the serve run
+    for path, run in (("serve", phase_serve), ("train", phase_train)):
+        if path not in phases:
+            continue
+        counts = run()
+        for k in (kernels or {}).values():
+            n = counts.get(k["name"], 0)
+            k["launches_by_path"][path] = n
+            if n:
+                k["launches"] = n
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(smi_line)
     if kernels is not None:

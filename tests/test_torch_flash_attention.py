@@ -5,11 +5,14 @@ with 32-wide blocks, as ``tests/L0/test_flash_attention.py`` does, so
 ragged lengths cross block edges; the port's CPU path is its plain
 PyTorch version (no CUDA kernel launched).  Inputs come from
 ``numpy.random.RandomState``.  Scale-aware error max|a-b| / (max|b| + 1)
-<= 1e-5 in fp32 for the output and the lse.
+<= 1e-5 in fp32 for the output, the lse and the gradients dq, dk, dv
+(``jax.vjp`` through the interpret-mode backward kernels against the
+port's autograd function).
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,6 +114,72 @@ def test_adapter_collapses_bias_and_matches_jax_adapter():
     assert bias_to_kv_mask(torch.from_numpy(bias)).shape == (2, 20)
     with pytest.raises(ValueError):
         bias_to_kv_mask(torch.zeros(2, 2, 1, 20))
+
+
+def _grads(q, k, v, mask, causal, do, dlse=None):
+    """(dq, dk, dv) from the JAX interpret kernels (``jax.vjp``) and from
+    the port's autograd function; with ``dlse`` the lse output has a
+    cotangent too."""
+    kw = dict(kv_mask=None if mask is None else jnp.asarray(mask),
+              causal=causal, use_pallas=True, interpret=True, block_q=32,
+              block_k=32, return_lse=dlse is not None)
+    _, vjp = jax.vjp(lambda q, k, v: jax_fa.flash_attention(q, k, v, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do) if dlse is None
+               else (jnp.asarray(do), jnp.asarray(dlse)))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    before = launch_counts()
+    out = flash_attention(
+        qt, kt, vt, kv_mask=None if mask is None else torch.from_numpy(mask),
+        causal=causal, return_lse=dlse is not None)
+    cot = (torch.from_numpy(do),) if dlse is None else \
+        (torch.from_numpy(do), torch.from_numpy(dlse))
+    got = torch.autograd.grad(out if dlse is not None else (out,),
+                              (qt, kt, vt), cot)
+    assert launch_counts() == before, "the CPU path launched a kernel"
+    return got, want
+
+
+@pytest.mark.parametrize("s", [32, 33, 70])   # exact, ragged, multi-block
+@pytest.mark.parametrize("causal", [False, True])
+def test_grads_match_jax_kernel_with_padding_mask(s, causal):
+    q, k, v = _inputs(2, s, s, 2, 16, seed=s + 1)
+    do = np.random.RandomState(s + 2).randn(2, s, 2, 16).astype(np.float32)
+    mask = np.zeros((2, s), np.float32)
+    mask[1, s - s // 3:] = -1e9
+    got, want = _grads(q, k, v, mask, causal, do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert rel_err(g.numpy(), w) <= TOL
+
+
+def test_grads_through_lse_match_jax_kernel():
+    q, k, v = _inputs(2, 45, 45, 2, 16, seed=11)
+    rng = np.random.RandomState(12)
+    do = rng.randn(2, 45, 2, 16).astype(np.float32)
+    dlse = rng.randn(2, 2, 45).astype(np.float32)
+    got, want = _grads(q, k, v, None, True, do, dlse)
+    for g, w in zip(got, want):
+        assert rel_err(g.numpy(), w) <= TOL
+
+
+def test_grads_cross_lengths_without_mask():
+    q, k, v = _inputs(1, 24, 50, 3, 16, seed=13)
+    do = np.random.RandomState(14).randn(1, 24, 3, 16).astype(np.float32)
+    got, want = _grads(q, k, v, None, False, do)
+    for g, w in zip(got, want):
+        assert rel_err(g.numpy(), w) <= TOL
+
+
+def test_grads_of_fully_masked_rows_are_zero():
+    q, k, v = _inputs(2, 40, 40, 2, 16, seed=15)
+    do = np.random.RandomState(16).randn(2, 40, 2, 16).astype(np.float32)
+    mask = np.zeros((2, 40), np.float32)
+    mask[0, :] = NEG_INF                 # batch row 0 sees no key at all
+    got, want = _grads(q, k, v, mask, False, do)
+    for g, w in zip(got, want):
+        assert np.all(g[0].numpy() == 0.0) and np.all(np.asarray(w)[0] == 0)
+        assert rel_err(g[1].numpy(), np.asarray(w)[1]) <= TOL
 
 
 def test_dropout_is_refused():

@@ -8,8 +8,9 @@ without it:
 
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX.)  They cover
 the edges ``chip_smoke.py`` does not: odd widths, ragged lengths, the
-built head_dim (64), fully-masked rows, strided operands and the errors
-the wrappers raise.  Scale-aware error max|a-b| / (max|b| + 1) <= 2e-5
+built head_dim (64), fully-masked rows, strided operands, inf/nan
+gradients in the Adam step, gradients flowing through the kernels'
+autograd functions, and the errors the wrappers raise.  Scale-aware error max|a-b| / (max|b| + 1) <= 2e-5
 in fp32, <= 2e-2 in bf16; every kernel call adds exactly one launch.
 """
 
@@ -23,6 +24,7 @@ from apex_tpu_torch._kernels import launch_counts
 ln = importlib.import_module("apex_tpu_torch.normalization.fused_layer_norm")
 fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 da = importlib.import_module("apex_tpu_torch.ops.decode_attention")
+adam = importlib.import_module("apex_tpu_torch.optimizers.fused_adam")
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +147,136 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         da.cached_attention(q[:, :1], q, q)
     with pytest.raises(ValueError):
         fa.flash_attention(q[..., :64], q.cpu()[..., :64], q[..., :64])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n1,n2", [(1, 7), (1, 768), (33, 1001), (64, 768)])
+@pytest.mark.parametrize("affine", [True, False])
+def test_layer_norm_bwd_matches_plain(gen, dtype, n1, n2, affine):
+    x = (3 * torch.randn(n1, n2, device="cuda", generator=gen) + 1).to(dtype)
+    dy = torch.randn(n1, n2, device="cuda", generator=gen).to(dtype)
+    w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=gen)) \
+        if affine else None
+    _, mean, invvar = ln._ln_forward_plain(x, 1e-5)
+    dx = _one_launch("layer_norm_bwd",
+                     lambda: ln.layer_norm_bwd(dy, x, mean, invvar, w))
+    want = ln._ln_backward_plain(dy, x, mean, invvar, w)
+    assert dx.dtype == dtype
+    assert rel_err(dx, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal,full_mask", [
+    (16, True, False), (77, True, False), (100, False, True),
+    (1024, True, False)])
+def test_flash_bwd_matches_plain(gen, dtype, s, causal, full_mask):
+    b, h, d = 2, 3, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(4))
+    mask = torch.zeros(b, s, device="cuda")
+    mask[1, s - s // 3:] = -1e9
+    if full_mask:
+        mask[0, :] = fa.NEG_INF          # batch row 0 sees no key at all
+    scale = d ** -0.5
+    o, lse = fa._reference(q, k, v, mask, causal, scale, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    before = launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, do, lse, delta, mask, causal, scale)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = (fa._bwd_dq_reference(q, k, v, do, lse, delta, mask, causal,
+                                 scale),
+            *fa._bwd_dkv_reference(q, k, v, do, lse, delta, mask, causal,
+                                   scale))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert rel_err(g, w) <= TOL[dtype]
+        if full_mask:
+            assert torch.all(g[0] == 0)
+
+
+def _adam_inputs(gen, n=4096):
+    p, m, g = (torch.randn(n, device="cuda", generator=gen)
+               for _ in range(3))
+    v = torch.rand(n, device="cuda", generator=gen)
+    g[5], g[77] = float("inf"), float("nan")
+    return p, m.mul_(0.1), v.mul_(0.01), g
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.0])
+@pytest.mark.parametrize("eps_inside", [False, True])
+def test_fused_adam_matches_plain_with_nonfinite_grads(gen, keep,
+                                                       eps_inside):
+    p, m, v, g = _adam_inputs(gen)
+    scalars = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 4.0, 0.01, keep],
+                           device="cuda")
+    want = adam._adam_plain(p, m, v, g, scalars, eps_inside)
+    old = [t.clone() for t in (p, m, v)]
+    _one_launch("fused_adam",
+                lambda: adam.adam_flat(p, m, v, g, scalars, eps_inside))
+    for got, w, o in zip((p, m, v), want, old):
+        # inf/nan lanes agree too: equal_nan, and bitwise where skipped
+        assert torch.allclose(got, w, rtol=0, atol=1e-6, equal_nan=True)
+        if keep == 0.0:
+            assert torch.equal(got, o)
+
+
+def test_amp_step_on_overflow_syncs_nothing_and_keeps_every_bit(gen):
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import FusedAdam
+    params = {"w": torch.randn(300, 7, device="cuda", generator=gen),
+              "b": torch.randn(129, device="cuda", generator=gen)}
+    opt = amp.AmpOptimizer(FusedAdam(lr=1e-3), amp.LossScaler("dynamic"))
+    state = opt.init(params)
+    grads = {k: torch.randn_like(t) for k, t in params.items()}
+    params, state = opt.step(params, grads, state)
+    snap = ([t.clone() for t in params.values()],
+            state.inner.m.clone(), state.inner.v.clone(),
+            state.inner.step.clone())
+    grads["b"][3] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state = opt.step(params, grads, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for got, old in zip(params.values(), snap[0]):
+        assert torch.equal(got, old)
+    assert torch.equal(state.inner.m, snap[1])
+    assert torch.equal(state.inner.v, snap[2])
+    assert torch.equal(state.inner.step, snap[3])
+    assert float(opt.loss_scale(state)) == 2.0 ** 15
+
+
+def test_gradients_flow_through_the_kernels(gen):
+    """loss.backward() on the card reaches every input through the
+    LayerNorm and flash autograd functions (B2/B3, B4/B5/B6)."""
+    m = ln.FusedLayerNorm(64, device="cuda")
+    x = torch.randn(2, 40, 3, 64, device="cuda", generator=gen,
+                    requires_grad=True)
+    before = launch_counts()
+    y = m(x)
+    o = fa.flash_attention(y, y * 0.5, y * 2.0, causal=True)
+    o.float().pow(2).sum().backward()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    for t in (x, m.scale, m.bias):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        assert t.grad.abs().sum() > 0
+
+
+def test_decode_attention_refuses_a_gradient(gen):
+    q = torch.randn(2, 1, 3, 64, device="cuda", generator=gen,
+                    requires_grad=True)
+    k, v = (torch.randn(2, 9, 3, 64, device="cuda", generator=gen)
+            for _ in range(2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.cached_attention(q, k, v)
+    with torch.no_grad():
+        da.cached_attention(q, k, v)

@@ -12,6 +12,7 @@ ulp).
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,6 +105,65 @@ def test_two_pass_variance_on_offset_rows():
     want = (x - x.astype(np.float64).mean(1, keepdims=True)) / np.sqrt(
         x.astype(np.float64).var(1, keepdims=True) + 1e-5)
     assert rel_err(got, want) <= 1e-3
+
+
+def _t(a, dtype, grad=True):
+    return torch.from_numpy(np.array(a)).to(getattr(torch, dtype)) \
+        .requires_grad_(grad)
+
+
+@pytest.mark.parametrize("dtype,wdtype", [("float32", "float32"),
+                                          ("bfloat16", "float32"),
+                                          ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("shape,ns", [((8, 64), 64), ((4, 33), 33),
+                                      ((2, 3, 7), (3, 7))])
+def test_affine_grads_match_jax_kernel(shape, ns, dtype, wdtype):
+    """dx (B3 and its plain version), dweight and dbias against
+    ``jax.vjp`` through the interpret-mode kernels; every gradient comes
+    back in its operand's dtype, as ``_fla_bwd`` casts them."""
+    rng = np.random.RandomState(shape[-1] + 7)
+    wshape = (ns,) if isinstance(ns, int) else ns
+    x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(*wshape)).astype(np.float32)
+    b = (0.1 * rng.randn(*wshape)).astype(np.float32)
+    dy = rng.randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda x, w, b: jax_ln.fused_layer_norm_affine(x, w, b, ns, 1e-5,
+                                                       True),
+        jnp.asarray(x, dtype), jnp.asarray(w, wdtype), jnp.asarray(b, wdtype))
+    want = vjp(jnp.asarray(dy, dtype))
+    xt, wt, bt = _t(x, dtype), _t(w, wdtype), _t(b, wdtype)
+    before = launch_counts()
+    y = fused_layer_norm_affine(xt, wt, bt, ns, 1e-5)
+    got = torch.autograd.grad(y, (xt, wt, bt), _t(dy, dtype, False))
+    assert launch_counts() == before, "the CPU path launched a kernel"
+    for g, t, jg in zip(got, (xt, wt, bt), want):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert rel_err(_to_np(g), jg) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_affine_grad_matches_jax_kernel(dtype):
+    rng = np.random.RandomState(8)
+    x = rng.randn(6, 129).astype(np.float32)
+    dy = rng.randn(6, 129).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda x: jax_ln.fused_layer_norm(x, 129, 1e-5, True),
+        jnp.asarray(x, dtype))
+    (want,) = vjp(jnp.asarray(dy, dtype))
+    xt = _t(x, dtype)
+    (got,) = torch.autograd.grad(fused_layer_norm(xt, 129), xt,
+                                 _t(dy, dtype, False))
+    assert got.dtype == xt.dtype
+    assert rel_err(_to_np(got), want) <= TOL[dtype]
+
+
+def test_module_backward_reaches_its_params():
+    m = FusedLayerNorm(16, device="cpu")
+    x = torch.randn(3, 16, requires_grad=True)
+    m(x).pow(2).sum().backward()
+    assert x.grad is not None and m.scale.grad is not None \
+        and m.bias.grad is not None
 
 
 def test_shape_errors():
