@@ -3,8 +3,9 @@
 Twin of ``apex_tpu/amp/optimizer.py``.  The canonical params handed to
 ``step`` are already the fp32 masters (``amp/model.py``), so there is no
 half/fp32 group splitting; the overflow -> skip-step protocol is a
-device bool that the fused optimizer consumes inside its kernel
-(``supports_fused_skip``), so a skipped step needs no host sync.
+device bool that the fused optimizer consumes inside its update
+(``supports_fused_skip``: FusedAdam's kernel, FusedLAMB's per-leaf
+selects), so a skipped step needs no host sync.
 
 Not here yet: the wrapper-level select for optimizers without a fused
 skip (the ``optax`` path), gradient accumulation into stashed grads
@@ -31,21 +32,24 @@ class AmpOptimizerState(NamedTuple):
 
 class AmpOptimizer:
     """Wraps a fused optimizer (``init(params)`` and
-    ``step(params, grads, state, skip=...)``) with unscale, overflow and
-    skip logic."""
+    ``step(params, grads, state, skip=...)``, whose state has a ``step``
+    counter tensor) with unscale, overflow and skip logic."""
 
     def __init__(self, inner, loss_scaler: LossScaler, num_losses: int = 1):
         if not getattr(inner, "supports_fused_skip", False):
             raise NotImplementedError(
                 f"{type(inner).__name__} has no fused skip-step; only "
-                "fused optimizers (FusedAdam) are ported so far")
+                "optimizers with one (FusedAdam, FusedLAMB) are ported so "
+                "far")
         self.inner = inner
         self.loss_scaler = loss_scaler
         self.num_losses = int(num_losses)
 
     def init(self, params: Tree) -> AmpOptimizerState:
         inner = self.inner.init(params)
-        device = inner.m.device
+        # the step counter lies where the state does, whether the moments
+        # are one flat buffer (FusedAdam) or trees (FusedLAMB)
+        device = inner.step.device
         zero = torch.zeros((), dtype=torch.int32, device=device)
         return AmpOptimizerState(
             inner=inner,

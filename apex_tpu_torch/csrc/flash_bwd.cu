@@ -1,18 +1,25 @@
-// FlashAttention-2 backward for Hopper (no dropout): dq (B5) and dk/dv
-// (B6), two kernels as in the JAX package, so each output is owned by
-// one block and needs no atomics (the result is deterministic).
+// FlashAttention-2 backward for Hopper: dq (B5) and dk/dv (B6), two
+// kernels as in the JAX package, so each output is owned by one block and
+// needs no atomics (the result is deterministic), each with its dropout
+// branch (B5d, B6d).
 //
 // Replaces apex_tpu/ops/flash_attention.py::_bwd_dq_kernel and
-// ::_bwd_dkv_kernel (both launched by _bwd_pallas) with dropout_rate == 0,
-// the setting of the training path (examples/gpt/main_amp.py runs
-// deterministic=True).  Same function: p is recomputed from the saved
-// fp32 lse as p = exp(q.k * scale + mask[key] - lse), causal on global
-// positions, with p = 0 on a row whose lse is NEG_INF (a fully-masked
-// row: its s and lse would both be NEG_INF and exp(0) = 1, _recompute_p);
+// ::_bwd_dkv_kernel (both launched by _bwd_pallas): dropout_rate == 0 for
+// GPT training (examples/gpt/main_amp.py runs deterministic=True) and the
+// dropout branch for BERT pretraining.  Same function: p is recomputed
+// from the saved fp32 lse as p = exp(q.k * scale + mask[key] - lse),
+// causal on global positions, with p = 0 on a row whose lse is NEG_INF (a
+// fully-masked row: its s and lse would both be NEG_INF and exp(0) = 1,
+// _recompute_p);
 //   ds = p * (do.v - delta)         delta = rowsum(do * o) (- dlse)
 //   dq = sum_k ds k * scale         (B5, q-major)
 //   dv = sum_q p do,  dk = sum_q ds q * scale   (B6, k-major)
-// delta comes from the wrapper (one PyTorch row sum).
+// delta comes from the wrapper (one PyTorch row sum).  With dropout
+// (kDropout, a template flag: the rate-0 kernels are the code they were)
+// the keep bit of apex::dropout_keep, on the same global coordinate as the
+// forward's, scales do.v to keep ? do.v / (1 - rate) : 0 in ds, and dv
+// takes the dropped p (keep ? p / (1 - rate) : 0); delta is unchanged
+// because o already carries the dropout.
 //
 // Bound on the H100: operations.  GPT-2 small trains at B = 8, H = 12,
 // S = 1024, D = 64: B5 does ~6 * B*H*S^2*D / 2 causal FLOPs and B6
@@ -69,7 +76,7 @@ __device__ __forceinline__ void load_tile(float (*dst)[D], const T* src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(Cfg<D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -77,7 +84,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int Sq, int Sk, Strides st, float scale,
-                    int causal) {
+                    int causal, const int* __restrict__ seed, float rate,
+                    float keep_div) {
   constexpr int TPR = Cfg<D>::kTPR;
   constexpr int NT = Cfg<D>::kThreads;
   __shared__ float ks[kTile][D];
@@ -108,6 +116,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float L = row_ok ? lse[srow] : apex::kNegInf;
   const float dl = row_ok ? delta[srow] : 0.f;
   const bool live = L > apex::kNegInf * 0.5f;
+  apex::DropoutCoords dc{};
+  if constexpr (kDropout) dc = apex::dropout_coords(seed, b, h);
 
   const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
   const T* kb = k + b * st.k[0] + h * st.k[2];
@@ -135,6 +145,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float p = 0.f;
       if (live && key < Sk && !(causal && key > qi))
         p = expf(s * scale + ms[j] - L);
+      if constexpr (kDropout) {
+        const bool keep = apex::dropout_keep(
+            dc.seed, dc.bh, static_cast<uint32_t>(qi + dc.row_off),
+            static_cast<uint32_t>(key + dc.col_off), rate);
+        dp = keep ? dp / keep_div : 0.f;
+      }
       const float ds = p * (dp - dl);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) acc[i] += ds * ks[j][part + TPR * i];
@@ -149,7 +165,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(Cfg<D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -157,7 +173,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int Sq, int Sk, Strides st,
-                     float scale, int causal) {
+                     float scale, int causal, const int* __restrict__ seed,
+                     float rate, float keep_div) {
   constexpr int TPR = Cfg<D>::kTPR;
   constexpr int NT = Cfg<D>::kThreads;
   __shared__ float qs[kTile][D];
@@ -188,6 +205,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float mk = (mask != nullptr && key_ok)
                        ? mask[static_cast<int64_t>(b) * Sk + kj] : 0.f;
+  apex::DropoutCoords dc{};
+  if constexpr (kDropout) dc = apex::dropout_coords(seed, b, h);
 
   // causal: query tiles wholly before the key tile see none of its keys
   const int q_begin = causal ? (k0 / kTile) * kTile : 0;
@@ -220,10 +239,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float p = 0.f;
       if (key_ok && L > apex::kNegInf * 0.5f && !(causal && kj > qi))
         p = expf(s * scale + mk - L);
+      float pv = p;
+      if constexpr (kDropout) {
+        const bool keep = apex::dropout_keep(
+            dc.seed, dc.bh, static_cast<uint32_t>(qi + dc.row_off),
+            static_cast<uint32_t>(kj + dc.col_off), rate);
+        pv = keep ? p / keep_div : 0.f;
+        dp = keep ? dp / keep_div : 0.f;
+      }
       const float ds = p * (dp - dls[i]);
 #pragma unroll
       for (int d = 0; d < kDPT; ++d) {
-        dva[d] += p * os[i][part + TPR * d];
+        dva[d] += pv * os[i][part + TPR * d];
         dka[d] += ds * qs[i][part + TPR * d];
       }
     }
@@ -251,20 +278,56 @@ Strides read_strides(const void* strides) {
   return st;
 }
 
+// the dropout arguments of both kernels: the (5,) int32 seed array in
+// device memory (null: no dropout), the fp32 rate and divisor 1 - rate
+struct Dropout {
+  const int* seed;
+  float rate, keep_div;
+  bool on() const { return seed != nullptr && rate > 0.f; }
+};
+
+template <typename T, bool kDropout>
+void dq_kernel(const dim3& grid, cudaStream_t stream, const void* q,
+               const void* k, const void* v, const void* dout,
+               const float* mask, const float* lse, const float* delta,
+               void* dq, int H, int Sq, int Sk, const Strides& st,
+               float scale, int causal, const Dropout& dr) {
+  flash_bwd_dq_kernel<T, 64, kDropout><<<grid, Cfg<64>::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), mask, lse, delta,
+      static_cast<T*>(dq), H, Sq, Sk, st, scale, causal, dr.seed, dr.rate,
+      dr.keep_div);
+}
+
 template <typename T>
 cudaError_t launch_dq(int D, const void* q, const void* k, const void* v,
                       const void* dout, const float* mask, const float* lse,
                       const float* delta, void* dq, int B, int H, int Sq,
                       int Sk, const Strides& st, float scale, int causal,
-                      cudaStream_t stream) {
+                      const Dropout& dr, cudaStream_t stream) {
   // head_dim 64 only, like flash_fwd.cu and decode_attention.cu
   if (D != 64) return cudaErrorInvalidValue;
   const dim3 grid((Sq + kTile - 1) / kTile, B * H);
-  flash_bwd_dq_kernel<T, 64><<<grid, Cfg<64>::kThreads, 0, stream>>>(
+  if (dr.on())
+    dq_kernel<T, true>(grid, stream, q, k, v, dout, mask, lse, delta, dq, H,
+                       Sq, Sk, st, scale, causal, dr);
+  else
+    dq_kernel<T, false>(grid, stream, q, k, v, dout, mask, lse, delta, dq, H,
+                        Sq, Sk, st, scale, causal, dr);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kDropout>
+void dkv_kernel(const dim3& grid, cudaStream_t stream, const void* q,
+                const void* k, const void* v, const void* dout,
+                const float* mask, const float* lse, const float* delta,
+                void* dk, void* dv, int H, int Sq, int Sk, const Strides& st,
+                float scale, int causal, const Dropout& dr) {
+  flash_bwd_dkv_kernel<T, 64, kDropout><<<grid, Cfg<64>::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), mask, lse, delta,
-      static_cast<T*>(dq), H, Sq, Sk, st, scale, causal);
-  return cudaGetLastError();
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, st, scale, causal,
+      dr.seed, dr.rate, dr.keep_div);
 }
 
 template <typename T>
@@ -272,13 +335,15 @@ cudaError_t launch_dkv(int D, const void* q, const void* k, const void* v,
                        const void* dout, const float* mask, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int H,
                        int Sq, int Sk, const Strides& st, float scale,
-                       int causal, cudaStream_t stream) {
+                       int causal, const Dropout& dr, cudaStream_t stream) {
   if (D != 64) return cudaErrorInvalidValue;
   const dim3 grid((Sk + kTile - 1) / kTile, B * H);
-  flash_bwd_dkv_kernel<T, 64><<<grid, Cfg<64>::kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), mask, lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, st, scale, causal);
+  if (dr.on())
+    dkv_kernel<T, true>(grid, stream, q, k, v, dout, mask, lse, delta, dk, dv,
+                        H, Sq, Sk, st, scale, causal, dr);
+  else
+    dkv_kernel<T, false>(grid, stream, q, k, v, dout, mask, lse, delta, dk,
+                         dv, H, Sq, Sk, st, scale, causal, dr);
   return cudaGetLastError();
 }
 
@@ -287,14 +352,18 @@ cudaError_t launch_dkv(int D, const void* q, const void* k, const void* v,
 // q, do: (B, Sq, H, D); k, v: (B, Sk, H, D); all in `dtype` with unit
 // stride on D; strides[12] = (sb, ss, sh) for q, k, v, do in elements.
 // mask: (B, Sk) fp32 contiguous or null; lse, delta: (B, H, Sq) fp32
-// contiguous.  dq: (B, Sq, H, D) contiguous in `dtype`.
+// contiguous.  dq: (B, Sq, H, D) contiguous in `dtype`.  seed: the (5,)
+// int32 seed array in device memory, or null; dropout runs when it is
+// given and rate > 0, dividing kept values by keep_div.
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* mask,
                                  const void* lse, const void* delta,
                                  void* dq, int B, int H, int Sq, int Sk,
                                  int D, const void* strides, float scale,
-                                 int causal, int dtype, void* stream) {
+                                 int causal, const void* seed, float rate,
+                                 float keep_div, int dtype, void* stream) {
   const Strides st = read_strides(strides);
+  const Dropout dr{static_cast<const int*>(seed), rate, keep_div};
   const float* mk = static_cast<const float*>(mask);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -302,10 +371,12 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
   switch (dtype) {
     case apex::kFloat32:
       return static_cast<int>(launch_dq<float>(
-          D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal, s));
+          D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal,
+          dr, s));
     case apex::kBFloat16:
       return static_cast<int>(launch_dq<__nv_bfloat16>(
-          D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal, s));
+          D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal,
+          dr, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -317,9 +388,11 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int H, int Sq,
                                   int Sk, int D, const void* strides,
-                                  float scale, int causal, int dtype,
+                                  float scale, int causal, const void* seed,
+                                  float rate, float keep_div, int dtype,
                                   void* stream) {
   const Strides st = read_strides(strides);
+  const Dropout dr{static_cast<const int*>(seed), rate, keep_div};
   const float* mk = static_cast<const float*>(mask);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -328,11 +401,11 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case apex::kFloat32:
       return static_cast<int>(launch_dkv<float>(
           D, q, k, v, dout, mk, ls, dl, dk, dv, B, H, Sq, Sk, st, scale,
-          causal, s));
+          causal, dr, s));
     case apex::kBFloat16:
       return static_cast<int>(launch_dkv<__nv_bfloat16>(
           D, q, k, v, dout, mk, ls, dl, dk, dv, B, H, Sq, Sk, st, scale,
-          causal, s));
+          causal, dr, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,21 @@
-// FlashAttention-2 forward for Hopper (no dropout).
+// FlashAttention-2 forward for Hopper, with and without attention dropout.
 //
 // Replaces apex_tpu/ops/flash_attention.py::_fwd_kernel (launched by
-// _fwd_pallas) with dropout_rate == 0, the serving prefill's setting.
-// Same function: s = q.k * scale + mask[key], causal on global
-// positions, fp32 streaming softmax (running max m, normaliser l,
-// accumulator acc), o = acc / l in q's dtype and lse = m + log(l) in
-// fp32; a row that saw no live key (m never above NEG_INF / 2) gives
-// zeros and lse = NEG_INF.
+// _fwd_pallas): B4 with dropout_rate == 0 (serving prefill, GPT training)
+// and its dropout branch B4d (BERT pretraining).  Same function:
+// s = q.k * scale + mask[key], causal on global positions, fp32 streaming
+// softmax (running max m, normaliser l, accumulator acc), o = acc / l in
+// q's dtype and lse = m + log(l) in fp32; a row that saw no live key (m
+// never above NEG_INF / 2) gives zeros and lse = NEG_INF.  Dropout
+// (kDropout, a template flag, so the rate-0 kernel is the code it was)
+// drops the normalized probs: l and the lse take the undropped p, the
+// accumulator keep ? p / (1 - rate) : 0, with the keep bit from
+// apex::dropout_keep on the global (batch*head, q, key) coordinate, so a
+// masked key (p = 0) contributes 0 whatever it keeps; the 5-int32 seed
+// array is read from device memory and the divisor 1 - rate comes
+// rounded to fp32 from the host.  The hash costs ~12 integer ops per
+// score on each of the row's D/16 threads.  BERT-large trains at B = 32,
+// H = 16, S = 128, non-causal: a 2 x 512 grid of blocks.
 //
 // Bound on the H100: operations.  Prefill runs B = 1, H = 12, D = 64,
 // S up to 1024: ~4 * H * S^2 * D / 2 causal FLOPs against a few MB of
@@ -38,7 +47,7 @@ struct TileCfg {
   static constexpr int kBK = D <= 64 ? 64 : 32;  // keys per smem tile
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(TileCfg<D>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
@@ -46,7 +55,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int Sk, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                  int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-                 int64_t o_sh, float scale, int causal) {
+                 int64_t o_sh, float scale, int causal,
+                 const int* __restrict__ seed, float rate, float keep_div) {
   constexpr int TPR = TileCfg<D>::kTPR;
   constexpr int NT = TileCfg<D>::kThreads;
   constexpr int BK = TileCfg<D>::kBK;
@@ -73,6 +83,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   float m = apex::kNegInf, l = 0.f;
+  apex::DropoutCoords dc{};
+  if constexpr (kDropout) dc = apex::dropout_coords(seed, b, h);
 
   // causal: keys past the tile's last query row are fully masked
   const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
@@ -123,8 +135,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < kChunk; ++c) {
         const float p = expf(s[c] - m_new);
         l += p;
+        float pv = p;
+        if constexpr (kDropout) {
+          const bool keep = apex::dropout_keep(
+              dc.seed, dc.bh, static_cast<uint32_t>(qi + dc.row_off),
+              static_cast<uint32_t>(k0 + j0 + c + dc.col_off), rate);
+          pv = keep ? p / keep_div : 0.f;
+        }
 #pragma unroll
-        for (int i = 0; i < kDPT; ++i) acc[i] += p * vs[j0 + c][part + TPR * i];
+        for (int i = 0; i < kDPT; ++i) acc[i] += pv * vs[j0 + c][part + TPR * i];
       }
       m = m_new;
     }
@@ -143,17 +162,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* mask, void* o, float* lse, int B, int H,
                    int Sq, int Sk, const int64_t* st, float scale, int causal,
+                   const int* seed, float rate, float keep_div,
                    cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, TileCfg<D>::kThreads, 0, stream>>>(
+  flash_fwd_kernel<T, D, kDropout><<<grid, TileCfg<D>::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H, Sq, Sk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], scale, causal);
+      st[10], st[11], scale, causal, seed, rate, keep_div);
   return cudaGetLastError();
 }
 
@@ -161,13 +181,16 @@ template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const float* mask, void* o, float* lse, int B, int H,
                        int Sq, int Sk, const int64_t* st, float scale,
-                       int causal, cudaStream_t stream) {
-  // head_dim 64 only: GPT-2 small and medium; another head_dim is built
-  // when a configuration that needs it is ported
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, mask, o, lse, B, H, Sq, Sk, st, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
+                       int causal, const int* seed, float rate,
+                       float keep_div, cudaStream_t stream) {
+  // head_dim 64 only: GPT-2 small/medium and BERT-base/large; another
+  // head_dim is built when a configuration that needs it is ported
+  if (D != 64) return cudaErrorInvalidValue;
+  if (seed != nullptr && rate > 0.f)
+    return launch<T, 64, true>(q, k, v, mask, o, lse, B, H, Sq, Sk, st,
+                               scale, causal, seed, rate, keep_div, stream);
+  return launch<T, 64, false>(q, k, v, mask, o, lse, B, H, Sq, Sk, st, scale,
+                              causal, nullptr, 0.f, 1.f, stream);
 }
 
 }  // namespace
@@ -175,22 +198,28 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 // q: (B, Sq, H, D), k/v: (B, Sk, H, D), o: (B, Sq, H, D), all in `dtype`
 // with unit stride on D; strides[12] = (sb, ss, sh) for q, k, v, o in
 // elements.  mask: (B, Sk) fp32 contiguous or null.  lse: (B, H, Sq) fp32.
+// seed: the (5,) int32 seed array in device memory, or null; dropout runs
+// when it is given and rate > 0, dividing kept probs by keep_div.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* mask, void* o, void* lse, int B,
                               int H, int Sq, int Sk, int D,
                               const void* strides, float scale, int causal,
+                              const void* seed, float rate, float keep_div,
                               int dtype, void* stream) {
   const int64_t* st = static_cast<const int64_t*>(strides);
   const float* mk = static_cast<const float*>(mask);
   float* ls = static_cast<float*>(lse);
+  const int* sd = static_cast<const int*>(seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
     case apex::kFloat32:
-      err = dispatch_d<float>(D, q, k, v, mk, o, ls, B, H, Sq, Sk, st, scale, causal, s);
+      err = dispatch_d<float>(D, q, k, v, mk, o, ls, B, H, Sq, Sk, st, scale,
+                              causal, sd, rate, keep_div, s);
       break;
     case apex::kBFloat16:
-      err = dispatch_d<__nv_bfloat16>(D, q, k, v, mk, o, ls, B, H, Sq, Sk, st, scale, causal, s);
+      err = dispatch_d<__nv_bfloat16>(D, q, k, v, mk, o, ls, B, H, Sq, Sk, st,
+                                      scale, causal, sd, rate, keep_div, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,0 +1,346 @@
+"""BERT encoder for pretraining — the FusedLayerNorm + FusedLAMB workload.
+
+Twin of ``apex_tpu/models/bert.py`` (``BertForPreTraining`` and what it
+is built from): a post-LN transformer encoder on :class:`FusedLayerNorm`
+(eps 1e-12), exact-erf ``gelu``, an untied MLM decoder with bias, a
+``[CLS]`` tanh pooler and the NSP head.  One tensor per JAX leaf, named
+as the flax modules are (``encoder.layer_0.attention.query.bias``,
+``encoder.layer_0.attention_ln.scale``, ...): LAMB's trust ratio is per
+tensor and the BERT recipe's ``(bias|_ln)`` regex picks the no-decay
+leaves by name, so a fused or renamed leaf would change the update.
+Projections are plain ``nn.Linear`` (the JAX package leaves them to
+XLA).
+
+Attention runs through ``attention_fn(q, k, v, bias, dropout_fn)``
+(default :func:`dot_product_attention`; ``make_flash_attention()`` for
+the fused kernels).  Dropout follows the JAX model with an explicit
+``torch.Generator`` in place of flax's ``dropout`` rng stream:
+
+- attention dropout: with a custom ``attention_fn``, each layer draws an
+  int32 seed in [0, 2**31 - 1) per call from the generator and hands it
+  to the attention function as ``dropout_fn.rate`` / ``.seed``, which
+  the flash kernels consume (dropout inside the kernel); the default
+  attention applies ``dropout_fn`` to its materialized probs;
+- hidden dropout (after the embedding LN, on the attention output and
+  on the MLP output): ``torch.where(rand < 1 - rate, x / (1 - rate), 0)``
+  on the generator.
+
+The port's generator stream is not flax's threefry stream, so a given
+seed drops other positions than the JAX model does; the tests hold the
+two together through injected attention seeds.
+
+Not here: ``PipelinedBert``, MoE layers, remat, the
+``BertEmbeddings``/``BertStage``/``BertHeads`` split and
+``load_hf_bert``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.normalization import FusedLayerNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+
+
+def bert_base() -> BertConfig:
+    return BertConfig()
+
+
+def bert_large() -> BertConfig:
+    return BertConfig(hidden_size=1024, num_hidden_layers=24,
+                      num_attention_heads=16, intermediate_size=4096)
+
+
+def _need_generator(generator):
+    if generator is None:
+        raise ValueError("dropout (deterministic=False) needs a "
+                         "torch.Generator: pass generator=")
+    return generator
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout on ``generator``: ``x / (1 - rate)`` where a
+    uniform draw is below ``1 - rate``, else 0.  Rate 0 draws nothing."""
+    if rate == 0.0:
+        return x
+    r = torch.rand(x.shape, generator=_need_generator(generator),
+                   device=x.device)
+    return torch.where(r < 1.0 - rate, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def dot_product_attention(q, k, v, bias=None, dropout_fn=None):
+    """(B, S, H, D) q/k/v -> (B, S, H, D); softmax in fp32, then the
+    probs in q's dtype through ``dropout_fn`` when one is given."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    scores = scores.float()
+    if bias is not None:
+        scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if dropout_fn is not None:
+        probs = dropout_fn(probs)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _linear(n_in, n_out, dev, dtype):
+    return nn.Linear(n_in, n_out, device=dev, dtype=dtype)
+
+
+def _layer_norm(cfg, dev, dtype):
+    return FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
+                          device=dev, dtype=dtype)
+
+
+class BertSelfAttention(nn.Module):
+    """q/k/v projections (one ``nn.Linear`` each, as the JAX leaves
+    are), attention, output projection."""
+
+    def __init__(self, cfg: BertConfig,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        h = cfg.hidden_size
+        self.cfg = cfg
+        self.attention_fn = attention_fn
+        self.query = _linear(h, h, dev, dtype)
+        self.key = _linear(h, h, dev, dtype)
+        self.value = _linear(h, h, dev, dtype)
+        self.output = _linear(h, h, dev, dtype)
+
+    def forward(self, x, attn_bias, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        cfg = self.cfg
+        b, s, h = x.shape
+        nh = cfg.num_attention_heads
+        q, k, v = (proj(x).view(b, s, nh, h // nh)
+                   for proj in (self.query, self.key, self.value))
+        dropout_fn = None
+        rate = cfg.attention_probs_dropout_prob
+        if rate > 0 and not deterministic:
+            gen = _need_generator(generator)
+
+            def dropout_fn(p):
+                return dropout(p, rate, gen)
+
+            if self.attention_fn is not None:
+                # fused adapters cannot call a probs -> probs closure
+                # (the probs are never materialized): they consume the
+                # rate and this layer's per-call seed, drawn on the card
+                # without a host sync
+                dropout_fn.rate = rate
+                dropout_fn.seed = torch.randint(
+                    0, 2 ** 31 - 1, (), generator=gen, device=x.device,
+                    dtype=torch.int32)
+        attn = self.attention_fn or dot_product_attention
+        ctx = attn(q, k, v, bias=attn_bias, dropout_fn=dropout_fn)
+        return self.output(ctx.reshape(b, s, h))
+
+
+class BertLayer(nn.Module):
+    """Post-LN: LN(x + drop(Attn(x))); LN(x + drop(MLP(x)))."""
+
+    def __init__(self, cfg: BertConfig,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.attention = BertSelfAttention(cfg, attention_fn, device=dev,
+                                           dtype=dtype)
+        self.attention_ln = _layer_norm(cfg, dev, dtype)
+        self.intermediate = _linear(cfg.hidden_size, cfg.intermediate_size,
+                                    dev, dtype)
+        self.output = _linear(cfg.intermediate_size, cfg.hidden_size, dev,
+                              dtype)
+        self.output_ln = _layer_norm(cfg, dev, dtype)
+
+    def forward(self, x, attn_bias, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        rate = 0.0 if deterministic else self.cfg.hidden_dropout_prob
+        attn_out = self.attention(x, attn_bias, deterministic, generator)
+        x = self.attention_ln(x + dropout(attn_out, rate, generator))
+        y = self.output(F.gelu(self.intermediate(x)))   # exact erf gelu
+        return self.output_ln(x + dropout(y, rate, generator))
+
+
+class BertEncoder(nn.Module):
+    """input_ids/token_type_ids (B, S) int, attention_mask (B, S) {0,1}
+    -> sequence output (B, S, H).  Embedding sum + LN + dropout
+    (``_embed_block``), then the layers, named ``layer_<i>``."""
+
+    def __init__(self, cfg: BertConfig,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        h = cfg.hidden_size
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=dev,
+                                            dtype=dtype)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, h, device=dev, dtype=dtype)
+        self.token_type_embeddings = nn.Embedding(
+            cfg.type_vocab_size, h, device=dev, dtype=dtype)
+        self.embeddings_ln = _layer_norm(cfg, dev, dtype)
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"layer_{i}", BertLayer(
+                cfg, attention_fn, device=dev, dtype=dtype))
+
+    def _embed_block(self, input_ids, token_type_ids, deterministic,
+                     generator):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)[None, :]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = self.embeddings_ln(self.word_embeddings(input_ids)
+                               + self.position_embeddings(pos)
+                               + self.token_type_embeddings(token_type_ids))
+        rate = 0.0 if deterministic else self.cfg.hidden_dropout_prob
+        return dropout(x, rate, generator)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        x = self._embed_block(input_ids, token_type_ids, deterministic,
+                              generator)
+        attn_bias = None
+        if attention_mask is not None:
+            attn_bias = torch.where(attention_mask[:, None, None, :] > 0,
+                                    0.0, -1e9).float()
+        for i in range(self.cfg.num_hidden_layers):
+            x = getattr(self, f"layer_{i}")(x, attn_bias, deterministic,
+                                            generator)
+        return x
+
+
+class BertForPreTraining(nn.Module):
+    """Encoder + MLM head (transform, gelu, LN, untied decoder) + NSP
+    head (tanh pooler over ``[CLS]``); returns fp32 ``(mlm_logits,
+    nsp_logits)``.
+
+    ``device`` defaults to ``"cuda"`` and raises without CUDA unless
+    ``device="cpu"`` is passed.  ``seed`` initialises the weights with
+    the JAX model's distributions (normal(initializer_range) for
+    embeddings and kernels, zero biases, unit LN scales) from a CPU
+    ``torch.Generator``, the same weights on any device; ``seed=None``
+    leaves PyTorch's init for callers that load a state dict."""
+
+    def __init__(self, cfg: BertConfig,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32,
+                 seed: Optional[int] = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        h = cfg.hidden_size
+        self.cfg = cfg
+        self.encoder = BertEncoder(cfg, attention_fn, device=dev,
+                                   dtype=dtype)
+        self.mlm_transform = _linear(h, h, dev, dtype)
+        self.mlm_ln = _layer_norm(cfg, dev, dtype)
+        self.mlm_decoder = _linear(h, cfg.vocab_size, dev, dtype)
+        self.pooler = _linear(h, h, dev, dtype)
+        self.nsp_classifier = _linear(h, 2, dev, dtype)
+        if seed is not None:
+            self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        gen = torch.Generator().manual_seed(int(seed))
+        std = self.cfg.initializer_range
+        for name, p in self.named_parameters():
+            if name.endswith("_ln.scale"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.empty(p.shape, dtype=torch.float32)
+                        .normal_(0.0, std, generator=gen))
+
+    def _pretraining_heads(self, seq):
+        h = self.mlm_ln(F.gelu(self.mlm_transform(seq)))
+        mlm_logits = self.mlm_decoder(h).float()
+        cls = torch.tanh(self.pooler(seq[:, 0]))
+        nsp_logits = self.nsp_classifier(cls).float()
+        return mlm_logits, nsp_logits
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        seq = self.encoder(input_ids, attention_mask, token_type_ids,
+                           deterministic, generator)
+        return self._pretraining_heads(seq)
+
+
+def params_from_jax(params: Mapping, cfg: BertConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``BertForPreTraining`` param tree
+    (``{"params": ...}`` or its inner dict, leaves as arrays) as this
+    model's ``state_dict`` — and equally a gradient tree of the same
+    shape.  DenseGeneral q/k/v kernels (h, nh, hd) and the output kernel
+    (nh, hd, h) flatten to (h, h) and transpose into ``nn.Linear``'s
+    (out, in) layout; Dense kernels (in, out) transpose; embeddings and
+    LN scale/bias carry over as they are."""
+    p = params.get("params", params)
+    h = cfg.hidden_size
+
+    def t(a, shape=None):
+        a = np.array(a)  # a writable copy
+        if shape is not None:
+            a = a.reshape(shape)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def dense(sd, name, leaf):
+        sd[f"{name}.weight"] = t(np.asarray(leaf["kernel"]).T)
+        sd[f"{name}.bias"] = t(leaf["bias"])
+
+    def ln(sd, name, leaf):
+        sd[f"{name}.scale"] = t(leaf["scale"])
+        sd[f"{name}.bias"] = t(leaf["bias"])
+
+    enc = p["encoder"]
+    sd = {}
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        sd[f"encoder.{name}.weight"] = t(enc[name]["embedding"])
+    ln(sd, "encoder.embeddings_ln", enc["embeddings_ln"])
+    for i in range(cfg.num_hidden_layers):
+        lay, pre = enc[f"layer_{i}"], f"encoder.layer_{i}."
+        att = lay["attention"]
+        for name in ("query", "key", "value"):
+            sd[f"{pre}attention.{name}.weight"] = t(
+                np.asarray(att[name]["kernel"]).reshape(h, h).T)
+            sd[f"{pre}attention.{name}.bias"] = t(att[name]["bias"], (h,))
+        sd[f"{pre}attention.output.weight"] = t(
+            np.asarray(att["output"]["kernel"]).reshape(h, h).T)
+        sd[f"{pre}attention.output.bias"] = t(att["output"]["bias"])
+        ln(sd, f"{pre}attention_ln", lay["attention_ln"])
+        dense(sd, f"{pre}intermediate", lay["intermediate"])
+        dense(sd, f"{pre}output", lay["output"])
+        ln(sd, f"{pre}output_ln", lay["output_ln"])
+    for name in ("mlm_transform", "mlm_decoder", "pooler", "nsp_classifier"):
+        dense(sd, name, p[name])
+    ln(sd, "mlm_ln", p["mlm_ln"])
+    return sd

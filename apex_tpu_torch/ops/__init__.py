@@ -4,8 +4,11 @@ from apex_tpu_torch.ops.decode_attention import (
 )
 from apex_tpu_torch.ops.flash_attention import (
     bias_to_kv_mask,
+    dropout_params,
     flash_attention,
+    keep_from_seed,
     make_flash_attention,
+    seed_array,
 )
 from apex_tpu_torch.ops.flatten import (
     FlatSpec,
@@ -23,8 +26,9 @@ from apex_tpu_torch.ops.multi_tensor import (
 from apex_tpu_torch.ops.sampling import finite_rows, greedy_argmax
 
 __all__ = ["FlatSpec", "bias_to_kv_mask", "cached_attention",
-           "chunk_cached_attention", "finite_rows", "flash_attention",
-           "flatten", "flatten_like", "greedy_argmax",
-           "make_flash_attention", "multi_tensor_axpby",
+           "chunk_cached_attention", "dropout_params", "finite_rows",
+           "flash_attention", "flatten", "flatten_like", "greedy_argmax",
+           "keep_from_seed", "make_flash_attention", "multi_tensor_axpby",
            "multi_tensor_l2norm", "multi_tensor_scale",
-           "multi_tensor_unscale", "tree_any_nonfinite", "unflatten"]
+           "multi_tensor_unscale", "seed_array", "tree_any_nonfinite",
+           "unflatten"]

@@ -1,3 +1,4 @@
 from apex_tpu_torch.optimizers.fused_adam import FusedAdam, FusedAdamState
+from apex_tpu_torch.optimizers.fused_lamb import FusedLAMB, FusedLAMBState
 
-__all__ = ["FusedAdam", "FusedAdamState"]
+__all__ = ["FusedAdam", "FusedAdamState", "FusedLAMB", "FusedLAMBState"]

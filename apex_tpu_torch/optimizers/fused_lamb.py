@@ -1,0 +1,231 @@
+"""FusedLAMB — layer-wise adaptive moments (LAMB) for large-batch training.
+
+Twin of ``apex_tpu/optimizers/fused_lamb.py``, the math of the
+reference's ``multi_tensor_lamb_stage_1.cu`` / ``_stage_2.cu``:
+
+stage 1:
+    clipped = global_grad_norm > max_grad_norm
+                  ? global_grad_norm / max_grad_norm : 1.0
+    g      = grad / clipped
+    m      = beta1*m + (1-beta1)*g ;  v = beta2*v + (1-beta2)*g^2
+    m_hat  = m / (1-beta1^t) ;        v_hat = v / (1-beta2^t)
+    update = m_hat / (sqrt(v_hat) + eps) + weight_decay * p
+
+stage 2:
+    ratio  = (||p|| > 0 and ||update|| > 0) ? ||p|| / ||update|| : 1.0
+    p     -= lr * ratio * update
+
+The trust ratio is per parameter *tensor*, so the state holds trees of
+moments shaped like the parameters (``FusedLAMBState``), and the
+arithmetic runs leaf by leaf — plain PyTorch, as the JAX package has no
+Pallas kernel for it: ``torch._foreach_*`` ops for the elementwise
+chain (one multi-tensor launch per op on the card), the global grad norm
+from :func:`multi_tensor_l2norm`, the per-tensor norms from
+``torch._foreach_norm``.  ``step(..., skip=overflow)`` is amp's
+skip-step: ``torch.where`` selects (never a blend, since overflowed
+grads carry inf/NaN) keep every bit of p, m, v and the step counter, and
+nothing is read back to the host.
+
+Parameter names are the trees' dotted leaf names
+(``param_groups.leaf_names``; a ``{name: tensor}`` dict's keys):
+``param_groups`` match them, and ``exclude_from_layer_adaptation`` is a
+predicate on them.  Not here yet: ``per_slice_trust_ratio`` and
+``add_param_group`` (the pipelined BERT's).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from apex_tpu_torch.ops.multi_tensor import multi_tensor_l2norm
+from apex_tpu_torch.optimizers.param_groups import (
+    hparam_for_path,
+    leaf_names,
+    validate_specs,
+)
+
+Tree = Any
+
+
+class FusedLAMBState(NamedTuple):
+    step: torch.Tensor   # int32 0-d, steps taken (skipped ones excluded)
+    m: Tree              # fp32, like params
+    v: Tree              # fp32, like params
+
+
+class _Plan(NamedTuple):
+    """Per-leaf hyperparameters of one parameter tree, resolved once:
+    eps and weight decay as Python floats, ``-lr`` and the exclusion as
+    device vectors (so a step copies nothing from the host)."""
+    eps: List[float]
+    weight_decay: List[float]
+    neg_lr: torch.Tensor     # (L,) fp32
+    excluded: torch.Tensor   # (L,) bool
+
+
+class FusedLAMB:
+    """LAMB over trees of parameters (e.g. a ``{name: tensor}`` dict):
+    ``init(params)``, ``update(grads, state, params, skip=None)`` ->
+    ``(deltas, state)`` and ``step(params, grads, state, skip=None)`` ->
+    ``(params, state)``.
+
+    ``exclude_from_layer_adaptation``: optional predicate
+    ``f(name) -> bool``; matching tensors use ratio 1.0 (the BERT
+    practice for bias and LayerNorm parameters).  ``param_groups``:
+    name-matched group specs with ``lr`` / ``weight_decay`` / ``eps``
+    overrides, resolved per leaf; ``betas`` and ``max_grad_norm`` stay
+    global.  ``trust_clip``: optional upper bound on the ratio."""
+
+    # AmpOptimizer hands the overflow flag to step(skip=...): the select
+    # runs inside the per-leaf update, without a host sync
+    supports_fused_skip = True
+
+    def __init__(self, lr: float = 1e-3,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-6, weight_decay: float = 0.01,
+                 max_grad_norm: float = 1.0,
+                 trust_clip: Optional[float] = None,
+                 exclude_from_layer_adaptation=None, param_groups=None):
+        self.lr = float(lr)
+        self.betas = (float(betas[0]), float(betas[1]))
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        self.max_grad_norm = float(max_grad_norm)
+        self.trust_clip = trust_clip
+        self.exclude_from_layer_adaptation = exclude_from_layer_adaptation
+        self.param_groups = list(param_groups) if param_groups else []
+        if self.param_groups:
+            validate_specs(self.param_groups, ("lr", "weight_decay", "eps"),
+                           "FusedLAMB")
+        self._plans: Dict[Tuple, _Plan] = {}
+
+    def _plan(self, names: Tuple[str, ...], device) -> _Plan:
+        key = (names, torch.device(device))
+        plan = self._plans.get(key)
+        if plan is None:
+            defaults = {"lr": self.lr, "weight_decay": self.weight_decay,
+                        "eps": self.eps}
+            hps = [hparam_for_path(n, defaults, self.param_groups)
+                   for n in names]
+            excl = self.exclude_from_layer_adaptation
+            plan = _Plan(
+                eps=[float(hp["eps"]) for hp in hps],
+                weight_decay=[float(hp["weight_decay"]) for hp in hps],
+                neg_lr=torch.tensor([-float(hp["lr"]) for hp in hps],
+                                    dtype=torch.float32, device=device),
+                excluded=torch.tensor([bool(excl(n)) if excl else False
+                                       for n in names], device=device))
+            self._plans[key] = plan
+        return plan
+
+    def init(self, params: Tree) -> FusedLAMBState:
+        leaves, spec = pytree.tree_flatten(params)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        self._plan(leaf_names(params), device)
+        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        return FusedLAMBState(
+            step=torch.zeros((), dtype=torch.int32, device=device),
+            m=pytree.tree_unflatten(zeros, spec),
+            v=pytree.tree_unflatten([z.clone() for z in zeros], spec))
+
+    @torch.no_grad()
+    def _deltas(self, grads: Tree, state: FusedLAMBState, params: Tree,
+                skip):
+        """``(deltas, keep, new_state, spec)``: the leaves' ``-lr * ratio
+        * update`` in fp32 before the skip select, the 0-d bool keep (or
+        None without ``skip``), and the state with m, v already
+        selected."""
+        p_leaves, spec = pytree.tree_flatten(params)
+        g_leaves, g_spec = pytree.tree_flatten(grads)
+        m_leaves, _ = pytree.tree_flatten(state.m)
+        v_leaves, _ = pytree.tree_flatten(state.v)
+        if g_spec != spec or len(m_leaves) != len(p_leaves):
+            raise ValueError("FusedLAMB: params, grads and state must be "
+                             "trees of the same structure")
+        plan = self._plan(leaf_names(params), state.step.device)
+        if skip is None:
+            keep = None
+            step = state.step + 1
+        else:
+            if not isinstance(skip, torch.Tensor):
+                skip = torch.full((), bool(skip), device=state.step.device)
+            keep = ~skip.to(torch.bool).reshape(())
+            # a skipped step leaves the bias-correction clock alone
+            step = state.step + keep.to(torch.int32)
+        beta1, beta2 = self.betas
+
+        # stage 0: global grad-norm clipping
+        gnorm = multi_tensor_l2norm(grads)
+        clip = torch.where(gnorm > self.max_grad_norm,
+                           gnorm / self.max_grad_norm, 1.0)
+
+        # stage 1: per-leaf adam-style update (eps, weight decay per group)
+        g = torch._foreach_div([x.float() for x in g_leaves], clip)
+        p32 = [x.float() for x in p_leaves]
+        m2 = torch._foreach_mul(m_leaves, beta1)
+        torch._foreach_add_(m2, torch._foreach_mul(g, 1.0 - beta1))
+        gg = torch._foreach_mul(g, 1.0 - beta2)
+        torch._foreach_mul_(gg, g)
+        v2 = torch._foreach_mul(v_leaves, beta2)
+        torch._foreach_add_(v2, gg)
+        # bias correction; clamp: a skipped first step sees t = 0, where
+        # 1 - beta^0 = 0; its update only feeds keep-selected values
+        t = step.clamp_min(1).float()
+        num = torch._foreach_div(m2, 1.0 - torch.pow(beta1, t))
+        den = torch._foreach_div(v2, 1.0 - torch.pow(beta2, t))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, plan.eps)
+        upd = torch._foreach_div(num, den)
+        torch._foreach_add_(upd, torch._foreach_mul(p32, plan.weight_decay))
+        if keep is not None:
+            m2 = [torch.where(keep, a, b) for a, b in zip(m2, m_leaves)]
+            v2 = [torch.where(keep, a, b) for a, b in zip(v2, v_leaves)]
+
+        # stage 2: per-tensor trust ratio
+        p_norm = torch.stack(torch._foreach_norm(p32))
+        u_norm = torch.stack(torch._foreach_norm(upd))
+        ratio = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
+                            1.0)
+        if self.trust_clip is not None:
+            ratio = torch.clamp_max(ratio, float(self.trust_clip))
+        ratio = torch.where(plan.excluded, 1.0, ratio)
+        deltas = torch._foreach_mul(upd, list((plan.neg_lr * ratio)
+                                              .unbind()))
+        new_state = FusedLAMBState(step=step,
+                                   m=pytree.tree_unflatten(m2, spec),
+                                   v=pytree.tree_unflatten(v2, spec))
+        return deltas, keep, new_state, (p_leaves, spec)
+
+    def update(self, grads: Tree, state: FusedLAMBState,
+               params: Optional[Tree] = None, *, skip=None):
+        """``(deltas, new_state)``: each leaf's ``-lr * ratio * update``
+        in the parameter's dtype, zero where ``skip`` holds (the
+        moments then keep their values and the step counter stands)."""
+        if params is None:
+            raise ValueError("FusedLAMB.update requires params")
+        deltas, keep, new_state, (p_leaves, spec) = self._deltas(
+            grads, state, params, skip)
+        with torch.no_grad():
+            if keep is not None:
+                deltas = [torch.where(keep, d, 0.0) for d in deltas]
+            deltas = [d.to(p.dtype) for d, p in zip(deltas, p_leaves)]
+        return pytree.tree_unflatten(deltas, spec), new_state
+
+    def step(self, params: Tree, grads: Tree, state: FusedLAMBState,
+             skip=None):
+        """Apply one update; returns ``(params, state)``, the params as
+        new leaf tensors that require grad.  Under ``skip`` every bit of
+        the params is kept (a select of the old tensor, not ``p + 0``)."""
+        deltas, keep, new_state, (p_leaves, spec) = self._deltas(
+            grads, state, params, skip)
+        with torch.no_grad():
+            new = torch._foreach_add(
+                p_leaves, [d.to(p.dtype) for d, p in zip(deltas, p_leaves)])
+            if keep is not None:
+                new = [torch.where(keep, a, b) for a, b in zip(new, p_leaves)]
+        new = [t.requires_grad_(t.is_floating_point()) for t in new]
+        return pytree.tree_unflatten(new, spec), new_state

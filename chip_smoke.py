@@ -16,7 +16,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    between CUDA events beside its plain version, one PyTorch library
    call computing the same function (a yardstick the port never calls)
    and its bound (the larger of bytes over 3.35 TB/s and FLOPs over the
-   peak for the operand type).
+   peak for the operand type).  The dropout kernels (B4d, B5d, B6d, at
+   rate 0.1, BERT-large's and GPT's training shapes) also read their
+   keep-mask back from a crafted input and hold it bit for bit against
+   ``keep_from_seed``.
 4. serve   — ``InferenceServer`` on GPT-2 small at full width (seeded
    random weights), 8 decode slots, 16-token blocks, flash prefill,
    16 prompts of 4..255 tokens, 32 new tokens each:
@@ -52,6 +55,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
        bit, the loss scale halves, and no host sync is raised;
    (d) one more O2 step under ``torch.profiler``: device time by kernel
        class and the device's idle share.
+6. train_bert — ``apex_tpu_torch.examples.bert_main_amp`` on BERT-large
+   at full width (vocab 30522, hidden 1024, 24 layers, 16 heads),
+   FusedLAMB as the example (lr 1e-4, max_grad_norm 1.0, no decay and
+   no layer adaptation for bias/LayerNorm), ``make_flash_attention()``
+   and ``deterministic=False`` (dropout 0.1: attention dropout inside
+   the flash kernels, hidden dropout on a generator from seed 0),
+   against a kernel-free oracle on the card (the same model, weights,
+   generator seed and batches on plain LayerNorm and the plain
+   flash-with-dropout, checked to launch none of the port's kernels):
+   (a) O0, TF32 off, batch 2, 3 steps: losses <= 1e-4 relative, step-1
+       gradients <= 1e-4 scale-aware, each step exactly 50 LayerNorm
+       forward and backward, 24 flash forward, dq and dk/dv with
+       dropout, nothing else;
+   (b) O2 through ``train()`` at batch 32, sequence 128, 10 steps,
+       counts at 0 just before and read just after (10 times the
+       per-step counts): losses within 2e-2 of the O2 oracle at every
+       step; median tokens/s over steps 1-9; peak memory;
+   (c) the overflow step through ``AmpOptimizer(FusedLAMB)`` under
+       ``set_sync_debug_mode("error")``: params, m, v and the step
+       counter keep every bit, the scale halves, no host sync;
+   (d) one more O2 step under ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``; before it, the
 card's name and power limit as nvidia-smi prints them; the last line is
@@ -61,6 +85,7 @@ card's name and power limit as nvidia-smi prints them; the last line is
 
 import functools
 import importlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -89,6 +114,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 3e-4
 O0_BATCH, O0_STEPS, O2_STEPS = 2, 3, 10
 O0_TOL = 1e-4             # loss relative, step-1 grads scale-aware
 O2_LOSS_TOL = 2e-2        # absolute, every step
+
+# the BERT path: examples/bert/main_amp.py --config large (B 32, S 128,
+# FusedLAMB(lr=1e-4, max_grad_norm=1.0)) with flash attention and the
+# default dropout 0.1, inside the kernels for attention
+BERT_BATCH, BERT_SEQ, BERT_LR = 32, 128, 1e-4
+BERT_HIDDEN, BERT_HEADS, BERT_LAYERS = 1024, 16, 24
+DROPOUT = 0.1
+BERT_O0_BATCH = 2
 
 
 def emit(phase, **fields):
@@ -188,9 +221,10 @@ def _ln_variants(torch):
         "apex_tpu_torch.normalization.fused_layer_norm")
     out = []
     for dtype in (torch.float32, torch.bfloat16):
-        # decode, a prefill bucket, a training step (8 x 1024 tokens)
-        for n1 in (8, 256, TRAIN_BATCH * TRAIN_SEQ):
-            n2 = 768
+        # decode, a prefill bucket, a GPT training step (8 x 1024 tokens
+        # of 768), a BERT-large one (32 x 128 tokens of 1024)
+        for n1, n2 in ((8, 768), (256, 768), (TRAIN_BATCH * TRAIN_SEQ, 768),
+                       (BERT_BATCH * BERT_SEQ, BERT_HIDDEN)):
             g = torch.Generator(device="cuda").manual_seed(n1)
             x = torch.randn(n1, n2, device="cuda", generator=g).to(dtype)
             w = 1 + 0.1 * torch.randn(n2, device="cuda", generator=g)
@@ -335,8 +369,10 @@ def _ln_bwd_variants(torch):
     ln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     out = []
-    n1, n2 = TRAIN_BATCH * TRAIN_SEQ, 768
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, (n1, n2) in itertools.product(
+            (torch.float32, torch.bfloat16),
+            ((TRAIN_BATCH * TRAIN_SEQ, 768),
+             (BERT_BATCH * BERT_SEQ, BERT_HIDDEN))):
         g = torch.Generator(device="cuda").manual_seed(11)
         x = (2 * torch.randn(n1, n2, device="cuda", generator=g) + 0.5) \
             .to(dtype)
@@ -451,6 +487,144 @@ def _flash_bwd_variants(torch, which):
     return out
 
 
+def _mask_readback(torch, fa, which, dtype):
+    """The keep-mask a dropout kernel drew, read back from its output
+    and held bit for bit against ``keep_from_seed``.  With q = 0 every
+    p is 1/Sk; with Sk = D = 64: v = I makes ``o > 0`` the forward's
+    mask (B4d); k = I, v and do all-ones in column 0 and delta = 0 make
+    ``dq > 0`` it (B5d); do = I makes ``dv > 0`` it (B6d).  Offsets past
+    2**16 and a seed near 2**31 exercise the global coordinates."""
+    b, h, n = 2, 3, 64
+    eye = torch.eye(n, device="cuda")[None, :, None, :].expand(
+        b, n, h, n).to(dtype).contiguous()
+    zeros = torch.zeros(b, n, h, n, device="cuda", dtype=dtype)
+    col0 = zeros.clone()
+    col0[..., 0] = 1
+    seed = fa.seed_array(2 ** 31 - 2, (70001, 65540, 4, 2 * h),
+                         num_heads=h, device="cuda")
+    keep = fa.keep_from_seed(seed, b, h, torch.arange(n, device="cuda"),
+                             torch.arange(n, device="cuda"), DROPOUT)
+    lse = torch.full((b, h, n), float(np.log(n)), device="cuda")
+    delta = torch.zeros(b, h, n, device="cuda")
+    if which == "fwd":
+        o, _ = fa.flash_attention_fwd(zeros, zeros, eye, None, False, 0.125,
+                                      DROPOUT, seed)
+        got = o.permute(0, 2, 1, 3)
+    elif which == "dq":
+        got = fa.flash_attention_bwd_dq(zeros, eye, col0, col0, lse, delta,
+                                        None, False, 0.125, DROPOUT, seed)
+        got = got.permute(0, 2, 1, 3)
+    else:
+        _, dv = fa.flash_attention_bwd_dkv(zeros, zeros, zeros, eye, lse,
+                                           delta, None, False, 0.125,
+                                           DROPOUT, seed)
+        got = dv.permute(0, 2, 3, 1)
+    if not torch.equal(got.float() > 0, keep):
+        raise AssertionError(f"flash {which} dropout [{dtype}]: the kernel's "
+                             "keep-mask differs from keep_from_seed")
+    return True
+
+
+def _flash_dropout_variants(torch, which):
+    """B4d (``which="fwd"``), B5d (``"dq"``) or B6d (``"dkv"``) at rate
+    0.1: BERT-large's training shape (B 32, S 128, 16 heads,
+    non-causal, no padding: the example's batches have none) and GPT's
+    causal one, fp32 and bf16, each with the bitwise mask read-back.
+    The library yardstick is SDPA with ``dropout_p=0.1`` (its own Philox
+    mask, so a time only): the forward for B4d, the backward (dq, dk and
+    dv in one call) for B5d and B6d.  The bound counts the matmul FLOPs
+    over the operand type's peak; the hash's ~12 integer operations per
+    score are not in it."""
+    import torch.nn.functional as F
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    out = []
+    d = 64
+    for dtype in (torch.float32, torch.bfloat16):
+        readback = _mask_readback(torch, fa, which, dtype)
+        for bsz, s, h, causal in ((BERT_BATCH, BERT_SEQ, BERT_HEADS, False),
+                                  (TRAIN_BATCH, TRAIN_SEQ, 12, True)):
+            g = torch.Generator(device="cuda").manual_seed(s + 7)
+            q, k, v, do = (torch.randn(bsz, s, h, d, device="cuda",
+                                       generator=g).to(dtype)
+                           for _ in range(4))
+            seed = fa.seed_array(12345 + s, num_heads=h, device="cuda")
+            scale = 1.0 / d ** 0.5
+            po, plse = fa._reference(q, k, v, None, causal, scale,
+                                     return_lse=True, dropout_rate=DROPOUT,
+                                     seed=seed)
+            delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1) \
+                .contiguous()
+            bargs = (q, k, v, do, plse, delta, None, causal, scale, DROPOUT,
+                     seed)
+            if which == "fwd":
+                def kernel():
+                    return fa.flash_attention_fwd(q, k, v, None, causal,
+                                                  scale, DROPOUT, seed)
+
+                def plain():
+                    return fa._reference(q, k, v, None, causal, scale,
+                                         return_lse=True,
+                                         dropout_rate=DROPOUT, seed=seed)
+            else:
+                kfn = {"dq": fa.flash_attention_bwd_dq,
+                       "dkv": fa.flash_attention_bwd_dkv}[which]
+                pfn = {"dq": fa._bwd_dq_reference,
+                       "dkv": fa._bwd_dkv_reference}[which]
+
+                def kernel():
+                    return kfn(*bargs)
+
+                def plain():
+                    return pfn(*bargs)
+            dt = _dt(dtype)
+            got, want = kernel(), plain()
+            rel = max_abs = 0.0
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                r, m = _check(f"flash_{which}_dropout", dt if a.dtype == dtype
+                              else "float32", a, b)
+                rel, max_abs = max(rel, r), max(max_abs, m)
+            del got, want, po
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            so = None
+            if which == "fwd":
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, dropout_p=DROPOUT, is_causal=causal)
+            else:
+                so = F.scaled_dot_product_attention(
+                    qt, kt, vt, dropout_p=DROPOUT, is_causal=causal)
+                dot = do.transpose(1, 2)
+
+                def library():
+                    return torch.autograd.grad(so, (qt, kt, vt), dot,
+                                               retain_graph=True)
+            pairs = bsz * h * (s * (s + 1) // 2 if causal else s * s)
+            isz = q.element_size()
+            if which == "fwd":
+                nbytes = 4 * bsz * s * h * d * isz + bsz * h * s * 4
+                flops = 4 * pairs * d
+            else:
+                n_out = (1 if which == "dq" else 2) * bsz * s * h * d * isz
+                nbytes = 4 * bsz * s * h * d * isz + 2 * bsz * h * s * 4 \
+                    + n_out
+                flops = (6 if which == "dq" else 8) * pairs * d
+            bms, by = bound(nbytes, flops, dt)
+            iters = TIMED_LAUNCHES if bsz * s <= 4096 else \
+                TIMED_LAUNCHES_LARGE
+            out.append({
+                "shape": [bsz, s, h, d], "dtype": dt, "causal": causal,
+                "rate": DROPOUT, "rel_err": rel, "max_abs_err": max_abs,
+                "mask_bitwise": readback,
+                "ms": median_ms(kernel, iters),
+                "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
+                "library_ms": median_ms(library, iters),
+                "bound_ms": bms, "bound_by": by})
+            del so
+    return out
+
+
 def _gpt_small_param_count():
     from apex_tpu_torch.models import gpt_small
     cfg = gpt_small()
@@ -526,7 +700,7 @@ def _adam_variants(torch):
 KERNELS = (
     ("layer_norm_fwd", "apex_tpu_torch/csrc/layer_norm.cu",
      "apex_tpu/normalization/fused_layer_norm.py:63", _ln_variants,
-     ([TRAIN_BATCH * TRAIN_SEQ, 768], "bfloat16")),
+     ([BERT_BATCH * BERT_SEQ, BERT_HIDDEN], "bfloat16")),
     ("flash_fwd", "apex_tpu_torch/csrc/flash_fwd.cu",
      "apex_tpu/ops/flash_attention.py:161", _flash_variants,
      ([TRAIN_BATCH, TRAIN_SEQ, 12, 64], "bfloat16")),
@@ -538,7 +712,7 @@ KERNELS = (
      (None, "float32")),
     ("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm.cu",
      "apex_tpu/normalization/fused_layer_norm.py:78", _ln_bwd_variants,
-     ([TRAIN_BATCH * TRAIN_SEQ, 768], "bfloat16")),
+     ([BERT_BATCH * BERT_SEQ, BERT_HIDDEN], "bfloat16")),
     ("flash_bwd_dq", "apex_tpu_torch/csrc/flash_bwd.cu",
      "apex_tpu/ops/flash_attention.py:252",
      functools.partial(_flash_bwd_variants, which="dq"),
@@ -547,6 +721,18 @@ KERNELS = (
      "apex_tpu/ops/flash_attention.py:291",
      functools.partial(_flash_bwd_variants, which="dkv"),
      ([TRAIN_BATCH, TRAIN_SEQ, 12, 64], "bfloat16")),
+    ("flash_fwd_dropout", "apex_tpu_torch/csrc/flash_fwd.cu",
+     "apex_tpu/ops/flash_attention.py:161",
+     functools.partial(_flash_dropout_variants, which="fwd"),
+     ([BERT_BATCH, BERT_SEQ, BERT_HEADS, 64], "bfloat16")),
+    ("flash_bwd_dq_dropout", "apex_tpu_torch/csrc/flash_bwd.cu",
+     "apex_tpu/ops/flash_attention.py:252",
+     functools.partial(_flash_dropout_variants, which="dq"),
+     ([BERT_BATCH, BERT_SEQ, BERT_HEADS, 64], "bfloat16")),
+    ("flash_bwd_dkv_dropout", "apex_tpu_torch/csrc/flash_bwd.cu",
+     "apex_tpu/ops/flash_attention.py:291",
+     functools.partial(_flash_dropout_variants, which="dkv"),
+     ([BERT_BATCH, BERT_SEQ, BERT_HEADS, 64], "bfloat16")),
 )
 
 
@@ -745,10 +931,21 @@ KERNEL_CLASSES = (
     ("gemm", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
               "sm90_")),
     ("gather/scatter", ("index", "gather", "scatter")),
+    ("multi-tensor (foreach)", ("multi_tensor_apply", "foreach")),
     ("copy/cast/cat", ("copy", "cat", "Cat")),
     ("reduce", ("reduce", "Reduce")),
     ("elementwise", ("elementwise",)),
 )
+
+
+def _kernel_class(name):
+    """The class of a kernel name; the flash kernels' dropout
+    instantiations (template flag ``true``) count apart."""
+    cls = next((c for c, keys in KERNEL_CLASSES
+                if any(k in name for k in keys)), "other")
+    if cls.startswith("flash_") and ("true>" in name or "Lb1E" in name):
+        cls = cls.replace(" (port)", "_dropout (port)")
+    return cls
 
 
 def _profile(label, run, **fields):
@@ -779,8 +976,7 @@ def _profile(label, run, **fields):
             busy_us += end - end_us
             end_us = end
         dur = end - start
-        cls = next((c for c, keys in KERNEL_CLASSES
-                    if any(k in e.name for k in keys)), "other")
+        cls = _kernel_class(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + dur
         by_name[e.name] = by_name.get(e.name, 0.0) + dur
     total = sum(by_class.values())
@@ -1023,7 +1219,238 @@ def phase_train():
     return results["O2"]["launches"]
 
 
-def main(phases=("device", "build", "kernels", "serve", "train")):
+# -- train_bert ---------------------------------------------------------------
+
+def _bert_per_step_launches(cfg, names):
+    """Launches of one BERT training step with dropout: 2L+2 LayerNorms
+    (embeddings, two per layer, the MLM head) forward and backward, L
+    flash attentions with dropout forward, dq and dk/dv; nothing else
+    (FusedLAMB is plain PyTorch)."""
+    n = cfg.num_hidden_layers
+    step = {"layer_norm_fwd": 2 * n + 2, "layer_norm_bwd": 2 * n + 2,
+            "flash_fwd_dropout": n, "flash_bwd_dq_dropout": n,
+            "flash_bwd_dkv_dropout": n}
+    return {name: step.get(name, 0) for name in names}
+
+
+def _plain_dropout_attention(q, k, v, bias=None, dropout_fn=None):
+    """The flash adapter's plain version for BERT: non-causal attention
+    with fp32 softmax and the kernels' hash dropout from the
+    ``dropout_fn`` annotation (``_reference``), differentiable through
+    PyTorch's own autograd."""
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    rate, seed = fa.dropout_params(dropout_fn)
+    sa = None if seed is None else fa.seed_array(seed, num_heads=q.shape[2])
+    return fa._reference(q, k, v, fa.bias_to_kv_mask(bias), False,
+                         q.shape[-1] ** -0.5, dropout_rate=rate, seed=sa)
+
+
+def _bert_oracle_steps(cfg, state_dict, opt_level, batch, steps):
+    """The example's BERT step with no port kernel in it — plain
+    LayerNorm, the plain flash-with-dropout, the same FusedLAMB (plain
+    PyTorch) — from ``state_dict``, the example's batches and a dropout
+    generator from seed 0: its losses and step-1 gradients.  Fails if it
+    launched a port kernel."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    before = launch_counts()
+    model, opt, params, st = bert_main_amp.build(
+        cfg, lr=BERT_LR, opt_level=opt_level,
+        attention_fn=_plain_dropout_attention, device="cuda",
+        state_dict=state_dict)
+    _plain_oracle(model.module)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = bert_main_amp.batches(cfg, batch, BERT_SEQ)
+    losses, grads1 = [], None
+    for step in range(steps):
+        tensors = tuple(torch.from_numpy(a).to("cuda") for a in next(data))
+        params, st, loss, grads = bert_main_amp.train_step(
+            model, opt, params, st, tensors, deterministic=False,
+            generator=gen)
+        losses.append(float(loss))
+        if step == 0:
+            grads1 = grads
+    if launch_counts() != before:
+        raise AssertionError("the BERT oracle launched a port kernel")
+    return losses, grads1
+
+
+def _bert_build(cfg, opt_level, state_dict=None):
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    return bert_main_amp.build(
+        cfg, lr=BERT_LR, opt_level=opt_level,
+        attention_fn=make_flash_attention(), device="cuda", seed=0,
+        state_dict=state_dict)
+
+
+def _bert_o0():
+    """(a) O0, TF32 off, batch 2: losses and step-1 gradients against the
+    oracle, and each step's launches."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    cfg = bert_main_amp.get_config("large")
+    model, opt, params, st = _bert_build(cfg, "O0")
+    state_dict = {k: v.detach().clone()
+                  for k, v in model.module.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = bert_main_amp.batches(cfg, BERT_O0_BATCH, BERT_SEQ)
+    losses, counts, grads1 = [], None, None
+    for step in range(O0_STEPS):
+        tensors = tuple(torch.from_numpy(a).to("cuda") for a in next(data))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        params, st, loss, grads = bert_main_amp.train_step(
+            model, opt, params, st, tensors, deterministic=False,
+            generator=gen)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts != _bert_per_step_launches(cfg, counts):
+            raise AssertionError(f"BERT O0 step {step}: launches {counts}")
+        losses.append(float(loss))
+        if step == 0:
+            grads1 = grads
+    del model, opt, params, st
+    want_losses, want_grads = _bert_oracle_steps(cfg, state_dict, "O0",
+                                                 BERT_O0_BATCH, O0_STEPS)
+    grad_err = max(scale_aware_err(g, want_grads[n])[0]
+                   for n, g in grads1.items())
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    emit("train_bert", opt_level="O0", batch=BERT_O0_BATCH, seq=BERT_SEQ,
+         losses=losses, oracle_losses=want_losses, loss_rel_err=loss_err,
+         step1_grad_err=grad_err, launches_per_step=counts)
+    if not (loss_err <= O0_TOL and grad_err <= O0_TOL):
+        raise AssertionError(f"BERT O0: loss error {loss_err:.3g}, step-1 "
+                             f"grad error {grad_err:.3g} > {O0_TOL}")
+    return {"losses": losses, "oracle_losses": want_losses,
+            "loss_rel_err": loss_err, "step1_grad_err": grad_err,
+            "launches_per_step": counts}, state_dict
+
+
+def _bert_o2(state_dict):
+    """(b) O2 through ``train()`` at the example's defaults (B 32, S 128)
+    with flash attention and dropout, every launch count read around the
+    run; losses against the O2 oracle."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    cfg = bert_main_amp.get_config("large")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = bert_main_amp.train(
+        cfg, batch=BERT_BATCH, seq_len=BERT_SEQ, steps=O2_STEPS, lr=BERT_LR,
+        opt_level="O2", attention_fn=make_flash_attention(),
+        deterministic=False, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: O2_STEPS * v
+            for k, v in _bert_per_step_launches(cfg, counts).items()}
+    if counts != want:
+        raise AssertionError(f"BERT O2: launches {counts} != {want}")
+    want_losses, _ = _bert_oracle_steps(cfg, state_dict, "O2", BERT_BATCH,
+                                        O2_STEPS)
+    errs = [abs(a - b) for a, b in zip(out["losses"], want_losses)]
+    tps = statistics.median(out["tokens_per_s"][1:])
+    emit("train_bert", opt_level="O2", batch=BERT_BATCH, seq=BERT_SEQ,
+         steps=O2_STEPS, dropout=DROPOUT, losses=out["losses"],
+         oracle_losses=want_losses, max_loss_abs_err=max(errs),
+         tokens_per_s_median=tps,
+         step_ms=[1e3 * t for t in out["step_seconds"]],
+         loss_scale=out["loss_scale"], skipped_steps=out["skipped_steps"],
+         peak_memory_gb=peak_gb, launches=counts)
+    if not max(errs) <= O2_LOSS_TOL:
+        raise AssertionError(f"BERT O2: loss error {max(errs):.3g} > "
+                             f"{O2_LOSS_TOL}")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"BERT O2: non-finite loss {out['losses']}")
+    return {**out, "oracle_losses": want_losses, "tokens_per_s_median": tps,
+            "peak_memory_gb": peak_gb, "launches": counts}
+
+
+def _bert_overflow_and_profile(state_dict):
+    """(c) an overflowed O2 step through ``AmpOptimizer(FusedLAMB)`` under
+    sync-debug "error": nothing changes but the scale, and no host sync;
+    (d) one O2 step under the profiler."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples import bert_main_amp
+    cfg = bert_main_amp.get_config("large")
+    model, opt, params, st = _bert_build(cfg, "O2", state_dict)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = bert_main_amp.batches(cfg, BERT_BATCH, BERT_SEQ)
+
+    def batch():
+        return tuple(torch.from_numpy(a).to("cuda") for a in next(data))
+
+    params, st, _, _ = bert_main_amp.train_step(
+        model, opt, params, st, batch(), deterministic=False, generator=gen)
+    ids, labels, weights, nsp = batch()
+    mlm, nsp_logits = model.apply(params, ids, deterministic=False,
+                                  generator=gen)
+    loss = bert_main_amp.batch_loss(mlm, nsp_logits, labels, weights, nsp)
+    with amp.scale_loss(loss, st) as scaled:
+        grads = dict(zip(params, torch.autograd.grad(
+            scaled, list(params.values()))))
+    bad = f"encoder.layer_{cfg.num_hidden_layers // 2}.intermediate.weight"
+    grads[bad][17, 3] = float("inf")
+    snap = ({k: v.detach().clone() for k, v in params.items()},
+            {k: v.clone() for k, v in st.inner.m.items()},
+            {k: v.clone() for k, v in st.inner.v.items()},
+            st.inner.step.clone())
+    scale0 = float(opt.loss_scale(st))
+    skipped0 = int(st.skipped_steps)
+    del mlm, nsp_logits, loss, scaled
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st = opt.step(params, grads, st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    kept = (all(torch.equal(params[k], snap[0][k]) for k in params)
+            and all(torch.equal(st.inner.m[k], snap[1][k]) for k in params)
+            and all(torch.equal(st.inner.v[k], snap[2][k]) for k in params)
+            and torch.equal(st.inner.step, snap[3]))
+    scale1 = float(opt.loss_scale(st))
+    emit("train_bert", overflow_step=f"inf in {bad}", bits_kept=kept,
+         loss_scale_before=scale0, loss_scale_after=scale1,
+         skipped_steps=int(st.skipped_steps), host_syncs=0)
+    if not (kept and scale1 == scale0 / 2
+            and int(st.skipped_steps) == skipped0 + 1):
+        raise AssertionError("the BERT overflow step changed the state or "
+                             "did not halve the scale")
+    del grads, snap
+    state = {"params": params, "st": st}
+
+    def one_step():
+        state["params"], state["st"], loss, _ = bert_main_amp.train_step(
+            model, opt, state["params"], state["st"], batch(),
+            deterministic=False, generator=gen)
+        float(loss)
+
+    one_step()
+    return _profile("train_bert_step_O2", one_step,
+                    tokens=BERT_BATCH * BERT_SEQ)
+
+
+def phase_train_bert():
+    results, state_dict = _bert_o0()
+    results = {"O0": results}
+    results["O2"] = _bert_o2(state_dict)
+    results["profile"] = _bert_overflow_and_profile(state_dict)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "train_bert.json").write_text(json.dumps(results, indent=1,
+                                                        default=str))
+    return results["O2"]["launches"]
+
+
+def main(phases=("device", "build", "kernels", "serve", "train",
+                 "train_bert")):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     sys.path.insert(0, str(REPO))
@@ -1034,9 +1461,10 @@ def main(phases=("device", "build", "kernels", "serve", "train")):
     if "kernels" in phases:
         kernels = phase_kernels()
     # each main path runs with the counts at 0 just before it; a kernel
-    # reports the launches of the training step where it runs there
-    # (the path this slice adds), else those of the serve run
-    for path, run in (("serve", phase_serve), ("train", phase_train)):
+    # reports the launches of the last path that ran it (BERT training,
+    # the path this slice adds, then GPT training, then serving)
+    for path, run in (("serve", phase_serve), ("train", phase_train),
+                      ("train_bert", phase_train_bert)):
         if path not in phases:
             continue
         counts = run()

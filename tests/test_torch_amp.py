@@ -18,7 +18,7 @@ from apex_tpu import amp as jamp
 from apex_tpu import models as jax_models
 from apex_tpu_torch import amp
 from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
-from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 
 torch.set_num_threads(1)
 
@@ -176,3 +176,31 @@ def test_amp_step_skips_on_overflow_and_halves_the_scale():
     with amp.scale_loss(torch.tensor(2.0, dtype=torch.bfloat16),
                         state) as scaled:
         assert scaled.dtype == torch.float32 and float(scaled) == 2.0 ** 16
+
+
+def test_amp_optimizer_wraps_fused_lamb_tree_state():
+    """``AmpOptimizer.init`` takes its device from the inner state's step
+    counter, so an optimizer whose moments are trees (FusedLAMB) is
+    wrapped as FusedAdam's flat buffers are; the overflow skip keeps
+    every bit of its state."""
+    rng = np.random.RandomState(1)
+    params = {"w": torch.from_numpy(rng.randn(5, 3).astype(np.float32)),
+              "w_ln.bias": torch.from_numpy(rng.randn(7).astype(np.float32))}
+    opt = amp.AmpOptimizer(FusedLAMB(lr=1e-2), amp.LossScaler("dynamic"))
+    state = opt.init(params)
+    assert state.loss_scalers[0].loss_scale.device == state.inner.step.device
+    grads = {k: torch.ones_like(v) for k, v in params.items()}
+    params, state = opt.step(params, grads, state)       # a clean step
+    snap = ({k: v.clone() for k, v in params.items()},
+            {k: v.clone() for k, v in state.inner.m.items()},
+            {k: v.clone() for k, v in state.inner.v.items()},
+            state.inner.step.clone())
+    grads["w"][1, 2] = float("inf")
+    params, state = opt.step(params, grads, state)
+    for k in params:
+        assert torch.equal(params[k], snap[0][k])
+        assert torch.equal(state.inner.m[k], snap[1][k])
+        assert torch.equal(state.inner.v[k], snap[2][k])
+    assert torch.equal(state.inner.step, snap[3])
+    assert float(opt.loss_scale(state)) == 2.0 ** 15
+    assert int(state.skipped_steps) == 1 and int(state.applied_steps) == 1

@@ -183,8 +183,12 @@ def test_grads_of_fully_masked_rows_are_zero():
 
 
 def test_dropout_is_refused():
+    """Dropout is refused where the JAX package refuses it: a rate
+    without a seed, and a dropout closure without the (rate, seed)
+    annotation the fused kernels consume (``test_torch_flash_dropout``
+    covers dropout itself)."""
     q, k, v = (torch.zeros(1, 4, 1, 16) for _ in range(3))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention(q, k, v, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="annotation"):
         make_flash_attention(causal=True)(q, k, v, None, lambda p: p)

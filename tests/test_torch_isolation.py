@@ -12,8 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from apex_tpu_torch.examples import gpt_main_amp
-from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
+from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp
+from apex_tpu_torch.models import BertConfig, BertForPreTraining, GPTConfig, \
+    GPTLMHeadModel
 from apex_tpu_torch.serving import DecodeEngine, InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -54,7 +55,9 @@ def test_every_module_imports_with_jax_blocked():
         for m in mods:
             importlib.import_module(m)
         for m in ("amp", "optimizers", "utils", "examples.gpt_main_amp",
-                  "ops.flatten", "ops.multi_tensor"):
+                  "ops.flatten", "ops.multi_tensor", "models.bert",
+                  "optimizers.fused_lamb", "optimizers.param_groups",
+                  "examples.bert_main_amp"):
             assert "apex_tpu_torch." + m in mods, m
         leaked = [m for m in sys.modules
                   if m == "apex_tpu" or m.startswith("apex_tpu.")]
@@ -65,7 +68,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 33
+    assert int(out.stdout.split()[-1]) >= 37
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -80,4 +83,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         GPTLMHeadModel(TINY)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         gpt_main_amp.train(TINY, batch=1, seq_len=8, steps=1)
+    bert = BertConfig(vocab_size=64, hidden_size=16, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BertForPreTraining(bert)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bert_main_amp.train(bert, batch=1, seq_len=8, steps=1)
     DecodeEngine(TINY, sd, device="cpu")       # asked for: fine

@@ -280,3 +280,140 @@ def test_decode_attention_refuses_a_gradient(gen):
         da.cached_attention(q, k, v)
     with torch.no_grad():
         da.cached_attention(q, k, v)
+
+
+# -- attention dropout: B4d, B5d, B6d ----------------------------------------
+
+def _seed(seed, h, offsets=None):
+    return fa.seed_array(seed, offsets, num_heads=h, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(33, 33, True), (100, 100, False),
+                                          (24, 70, False), (130, 130, True)])
+@pytest.mark.parametrize("rate", [0.1, 0.3])
+def test_flash_dropout_matches_plain(gen, dtype, sq, sk, causal, rate):
+    """B4d, B5d and B6d against their plain versions, with a padded
+    batch row, a fully-masked one (non-causal) and ragged tails."""
+    b, h, d = 2, 3, 64
+    q, do = (torch.randn(b, sq, h, d, device="cuda", generator=gen)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    mask = torch.zeros(b, sk, device="cuda")
+    mask[1, sk - sk // 3:] = -1e9
+    if not causal:
+        mask[0, :] = fa.NEG_INF
+    seed = _seed(1234 + sq, h, (5, 70000, 1, 2 * h))
+    scale = d ** -0.5
+    o, lse = _one_launch("flash_fwd_dropout", lambda: fa.flash_attention_fwd(
+        q, k, v, mask, causal, scale, rate, seed))
+    po, plse = fa._reference(q, k, v, mask, causal, scale, return_lse=True,
+                             dropout_rate=rate, seed=seed)
+    assert rel_err(o, po) <= TOL[dtype]
+    assert rel_err(lse, plse) <= 2e-5
+    delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, plse, delta, mask, causal, scale, rate, seed)
+    dq = _one_launch("flash_bwd_dq_dropout",
+                     lambda: fa.flash_attention_bwd_dq(*args))
+    dk, dv = _one_launch("flash_bwd_dkv_dropout",
+                         lambda: fa.flash_attention_bwd_dkv(*args))
+    want = (fa._bwd_dq_reference(*args), *fa._bwd_dkv_reference(*args))
+    for g, w in zip((dq, dk, dv), want):
+        assert g.dtype == dtype
+        assert rel_err(g, w) <= TOL[dtype]
+        if not causal:
+            assert torch.all(g[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_flash_dropout_mask_reads_back_bitwise(gen, dtype, rate):
+    """q = 0 makes every p = 1/Sk; with Sk = D = 64 and v = I the
+    output's column d is key d's kept value, so ``o > 0`` IS the keep
+    mask the kernel drew; likewise dv with do = I and dq with k = I.
+    All must equal ``keep_from_seed`` bit for bit (offsets past 2**16
+    included)."""
+    b, h, n = 2, 3, 64
+    eye = torch.eye(n, device="cuda")[None, :, None, :].expand(b, n, h, n)
+    zeros = torch.zeros(b, n, h, n, device="cuda", dtype=dtype)
+    v = eye.to(dtype).contiguous()
+    seed = _seed(2 ** 31 - 2, h, (70001, 65540, 4, 2 * h))
+    keep = fa.keep_from_seed(seed, b, h, torch.arange(n, device="cuda"),
+                             torch.arange(n, device="cuda"), rate)
+    o, lse = fa.flash_attention_fwd(zeros, zeros, v, None, False, 0.125,
+                                    rate, seed)
+    assert torch.equal(o.float().permute(0, 2, 1, 3) > 0, keep)
+    kept = o.float()[o.float() > 0]
+    want = torch.full_like(kept, 1.0 / (n * (1.0 - rate)))
+    assert rel_err(kept, want) <= TOL[dtype]
+    delta = torch.zeros(b, h, n, device="cuda")
+    _, dv = fa.flash_attention_bwd_dkv(zeros, zeros, v, v, lse, delta, None,
+                                       False, 0.125, rate, seed)
+    # dv[b, key, h, d] = p_v[b, h, q = d, key]
+    assert torch.equal(dv.float().permute(0, 2, 3, 1) > 0, keep)
+    # dq: k = I, v and do all-ones in column 0 (so do.v = 1) and delta =
+    # 0 make dq[b, q, h, d] = keep / (n (1 - rate)) * scale at key d
+    col0 = zeros.clone()
+    col0[..., 0] = 1
+    dq = fa.flash_attention_bwd_dq(zeros, v, col0, col0, lse, delta, None,
+                                   False, 0.125, rate, seed)
+    assert torch.equal(dq.float().permute(0, 2, 1, 3) > 0, keep)
+
+
+def test_flash_dropout_branch_with_nothing_dropped_matches_plain_kernel(
+        gen):
+    """At a rate whose keep-mask drops nothing and whose divisor rounds
+    to 1.0f, the dropout kernels compute what the dropout-off kernels do
+    (to the rounding of a differently contracted FMA chain); rate 0 runs
+    the dropout-off kernel itself, bit for bit."""
+    b, s, h, d = 2, 77, 3, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    rate = 1e-9
+    seed = _seed(11, h)
+    keep = fa.keep_from_seed(seed, b, h, torch.arange(s, device="cuda"),
+                             torch.arange(s, device="cuda"), rate)
+    assert bool(keep.all())
+    assert torch.tensor(1.0 - rate, dtype=torch.float32).item() == 1.0
+    for causal in (False, True):
+        o0, lse0 = fa.flash_attention_fwd(q, k, v, None, causal, 0.125)
+        o1, lse1 = _one_launch("flash_fwd_dropout", lambda: (
+            fa.flash_attention_fwd(q, k, v, None, causal, 0.125, rate,
+                                   seed)))
+        assert rel_err(o1, o0) <= 1e-6 and rel_err(lse1, lse0) <= 1e-6
+        delta = (do * o0).sum(-1).permute(0, 2, 1).contiguous()
+        g0 = fa.flash_attention_bwd(q, k, v, do, lse0, delta, None, causal,
+                                    0.125)
+        g1 = fa.flash_attention_bwd(q, k, v, do, lse0, delta, None, causal,
+                                    0.125, rate, seed)
+        for a, c in zip(g1, g0):
+            assert rel_err(a, c) <= 1e-6
+    o2 = _one_launch("flash_fwd", lambda: fa.flash_attention(
+        q, k, v, dropout_rate=0.0, dropout_seed=5))
+    assert torch.equal(o2, fa.flash_attention(q, k, v))
+
+
+def test_dropout_gradients_flow_through_the_kernels(gen):
+    """Autograd through B4d/B5d/B6d equals autograd through the plain
+    dropout reference on the same seed."""
+    b, s, h, d = 2, 70, 2, 64
+    qkv = [torch.randn(b, s, h, d, device="cuda", generator=gen,
+                       requires_grad=True) for _ in range(3)]
+    mask = torch.zeros(b, s, device="cuda")
+    mask[1, 50:] = -1e9
+    before = launch_counts()
+    o = fa.flash_attention(*qkv, kv_mask=mask, dropout_rate=0.2,
+                           dropout_seed=torch.tensor(99, device="cuda"))
+    got = torch.autograd.grad(o.pow(2).sum(), qkv)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for name in ("flash_fwd_dropout", "flash_bwd_dq_dropout",
+                 "flash_bwd_dkv_dropout"):
+        assert after[name] == before[name] + 1, name
+    po = fa._reference(*qkv, mask, False, d ** -0.5, dropout_rate=0.2,
+                       seed=_seed(99, h))
+    want = torch.autograd.grad(po.pow(2).sum(), qkv)
+    assert rel_err(o, po) <= 2e-5
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 2e-5
