@@ -8,15 +8,17 @@ projections are plain ``nn.Linear`` (the reference leaves them to XLA,
 outside any kernel).  Attention runs through ``attention_fn`` (e.g.
 ``make_flash_attention(causal=True)``) on the full causal forward, and
 through ``ops.cached_attention`` / ``ops.chunk_cached_attention`` over
-a cache view.
+a cache view.  With ``kv_quant=True`` (the int8 pool) fresh K/V are
+quantized at the projection (``ops.kv_quant``) and attention everywhere
+runs on the quantized grid.
 
 The training forward (no cache views) is differentiable end to end,
 the kernels included (their autograd functions), and :func:`lm_loss` is
 the next-token cross entropy in fp32.  It trains as the JAX example's
 step does, with ``deterministic=True``: no dropout.
 
-Not here: dropout, remat, int8 KV (``kv_quant``) and the pipelined and
-tensor-parallel variants — later slices.
+Not here: dropout, remat and the pipelined and tensor-parallel
+variants — later slices.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from apex_tpu_torch.ops.decode_attention import (
     cached_attention,
     chunk_cached_attention,
 )
+from apex_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 
 NEG_INF = -1e9
 
@@ -102,35 +105,63 @@ class GPTSelfAttention(nn.Module):
         self.value = nn.Linear(h, h, device=dev, dtype=dtype)
         self.output = nn.Linear(h, h, device=dev, dtype=dtype)
 
-    def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False):
+    def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False,
+                kv_quant: bool = False):
         """``cache_view``: ``(k_ctx, v_ctx, ctx_bias)`` with k/v_ctx
         (B, T, H, D) gathered cache context and ctx_bias (B, T).  A single
         new token (decode) attends [context; self] through
         ``cached_attention``; a chunk attends [context; chunk] through
         ``chunk_cached_attention``.  ``return_kv`` also returns this call's
-        freshly projected ``(k, v)``."""
+        freshly projected ``(k, v)``.
+
+        ``kv_quant``: fresh K/V are quantized here, so attention sees
+        the same int8 grid whether a key is fresh or read back from the
+        pool.  ``cache_view`` is then ``(k_ctx, v_ctx, ctx_bias,
+        k_scale_ctx, v_scale_ctx)`` with int8 context; the fresh int8
+        K/V and their scales concatenate onto it and nothing is cast to
+        the compute dtype (the attention ops widen at read).  Without a
+        cache view, ``attention_fn`` attends the dequantized K/V.
+        ``return_kv`` then returns ``((k_q, k_scale), (v_q,
+        v_scale))``."""
         b, s, h = x.shape
         nh = self.num_heads
         q = self.query(x).view(b, s, nh, h // nh)
         k = self.key(x).view(b, s, nh, h // nh)
         v = self.value(x).view(b, s, nh, h // nh)
+        kv_out = (k, v)
+        if kv_quant:
+            (k_q, k_s), (v_q, v_s) = kv_out = quantize_kv(k), quantize_kv(v)
         if cache_view is not None:
-            k_ctx, v_ctx, ctx_bias = cache_view
-            k_full = torch.cat([k_ctx.to(k.dtype), k], dim=1)
-            v_full = torch.cat([v_ctx.to(v.dtype), v], dim=1)
+            ks_full = vs_full = None
+            if kv_quant:
+                k_ctx, v_ctx, ctx_bias, ks_ctx, vs_ctx = cache_view
+                k_full = torch.cat([k_ctx, k_q], dim=1)
+                v_full = torch.cat([v_ctx, v_q], dim=1)
+                ks_full = torch.cat([ks_ctx, k_s], dim=1)
+                vs_full = torch.cat([vs_ctx, v_s], dim=1)
+            else:
+                k_ctx, v_ctx, ctx_bias = cache_view
+                k_full = torch.cat([k_ctx.to(k.dtype), k], dim=1)
+                v_full = torch.cat([v_ctx.to(v.dtype), v], dim=1)
             if s == 1:
                 # decode: the self slot is always live (bias 0)
                 bias = torch.cat([ctx_bias, ctx_bias.new_zeros((b, 1))],
                                  dim=1)
-                ctx = cached_attention(q, k_full, v_full, kv_bias=bias)
+                ctx = cached_attention(q, k_full, v_full, kv_bias=bias,
+                                       k_scale=ks_full, v_scale=vs_full)
             else:
-                ctx = chunk_cached_attention(q, k_full, v_full, ctx_bias)
+                ctx = chunk_cached_attention(q, k_full, v_full, ctx_bias,
+                                             k_scale=ks_full,
+                                             v_scale=vs_full)
         else:
+            if kv_quant:
+                k = dequantize_kv(k_q, k_s, k.dtype)
+                v = dequantize_kv(v_q, v_s, v.dtype)
             attn = self.attention_fn or causal_dot_product_attention
             ctx = attn(q, k, v, bias=attn_bias)
         out = self.output(ctx.reshape(b, s, h))
         if return_kv:
-            return out, (k, v)
+            return out, kv_out
         return out
 
 
@@ -151,9 +182,10 @@ class GPTBlock(nn.Module):
         self.mlp_out = nn.Linear(cfg.intermediate_size, h, device=dev,
                                  dtype=dtype)
 
-    def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False):
+    def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False,
+                kv_quant: bool = False):
         h = self.attention(self.attn_ln(x), attn_bias, cache_view=cache_view,
-                           return_kv=return_kv)
+                           return_kv=return_kv, kv_quant=kv_quant)
         kv = None
         if return_kv:
             h, kv = h
@@ -180,7 +212,11 @@ class GPTLMHeadModel(nn.Module):
     Serving hooks (``serving.engine`` is the caller): ``positions``
     (B, S) explicit position indices; ``cache_views`` ``(k_ctx, v_ctx,
     ctx_bias)`` with k/v_ctx (L, B, T, H, D) per-layer gathered context;
-    ``return_kv`` also returns the per-layer fresh ``(k, v)`` list.
+    ``return_kv`` also returns the per-layer fresh ``(k, v)`` list;
+    ``kv_quant`` serves from the int8 pool: ``cache_views`` grows the
+    per-layer (L, B, T, H) scale legs (a 5-tuple), fresh K/V are
+    quantized at the projection, and ``return_kv`` yields per-layer
+    ``((k_q, k_scale), (v_q, v_scale))``.
     """
 
     def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
@@ -215,7 +251,8 @@ class GPTLMHeadModel(nn.Module):
                         .normal_(0.0, std, generator=gen))
 
     def forward(self, input_ids, attention_mask=None, positions=None,
-                cache_views=None, return_kv: bool = False):
+                cache_views=None, return_kv: bool = False,
+                kv_quant: bool = False):
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :]
@@ -228,13 +265,14 @@ class GPTLMHeadModel(nn.Module):
         for i, block in enumerate(self.blocks):
             cv = None
             if cache_views is not None:
-                k_ctx, v_ctx, ctx_bias = cache_views
-                cv = (k_ctx[i], v_ctx[i], ctx_bias)
+                k_ctx, v_ctx, ctx_bias, *scales = cache_views
+                cv = (k_ctx[i], v_ctx[i], ctx_bias, *(t[i] for t in scales))
             if return_kv:
-                x, kv = block(x, bias, cache_view=cv, return_kv=True)
+                x, kv = block(x, bias, cache_view=cv, return_kv=True,
+                              kv_quant=kv_quant)
                 kvs.append(kv)
             else:
-                x = block(x, bias, cache_view=cv)
+                x = block(x, bias, cache_view=cv, kv_quant=kv_quant)
         x = self.final_ln(x)
         logits = F.linear(x, self.wte.weight).float()  # weight-tied head
         if return_kv:

@@ -16,6 +16,7 @@ from apex_tpu_torch.ops.flatten import (
     flatten_like,
     unflatten,
 )
+from apex_tpu_torch.ops.kv_quant import INT8_QMAX, dequantize_kv, quantize_kv
 from apex_tpu_torch.ops.multi_tensor import (
     multi_tensor_axpby,
     multi_tensor_l2norm,
@@ -25,10 +26,10 @@ from apex_tpu_torch.ops.multi_tensor import (
 )
 from apex_tpu_torch.ops.sampling import finite_rows, greedy_argmax
 
-__all__ = ["FlatSpec", "bias_to_kv_mask", "cached_attention",
-           "chunk_cached_attention", "dropout_params", "finite_rows",
-           "flash_attention", "flatten", "flatten_like", "greedy_argmax",
-           "keep_from_seed", "make_flash_attention", "multi_tensor_axpby",
-           "multi_tensor_l2norm", "multi_tensor_scale",
-           "multi_tensor_unscale", "seed_array", "tree_any_nonfinite",
-           "unflatten"]
+__all__ = ["FlatSpec", "INT8_QMAX", "bias_to_kv_mask", "cached_attention",
+           "chunk_cached_attention", "dequantize_kv", "dropout_params",
+           "finite_rows", "flash_attention", "flatten", "flatten_like",
+           "greedy_argmax", "keep_from_seed", "make_flash_attention",
+           "multi_tensor_axpby", "multi_tensor_l2norm",
+           "multi_tensor_scale", "multi_tensor_unscale", "quantize_kv",
+           "seed_array", "tree_any_nonfinite", "unflatten"]

@@ -1,11 +1,18 @@
 """Cached (single-token) attention — the decode half of serving.
 
-Twin of ``apex_tpu/ops/decode_attention.py`` without the int8 KV path.
-One new query token per sequence attends T gathered cache positions:
-Sq == 1, no causality (the cache holds only the past), an additive fp32
-(B, T) bias that masks unwritten slots, fp32 softmax.  On CUDA tensors
-``csrc/decode_attention.cu`` computes it, reading K/V in the (B, T, H, D)
-layout through strides; on CPU tensors :func:`_reference` does.
+Twin of ``apex_tpu/ops/decode_attention.py``.  One new query token per
+sequence attends T gathered cache positions: Sq == 1, no causality (the
+cache holds only the past), an additive fp32 (B, T) bias that masks
+unwritten slots, fp32 softmax.  On CUDA tensors
+``csrc/decode_attention.cu`` computes it, reading K/V in the
+(B, T, H, D) layout through strides; on CPU tensors :func:`_reference`
+does.
+
+Quantized KV: with the pool's (B, T, H) fp32 scale sidecar
+(``k_scale``/``v_scale``) K and V are int8 and widen to q's dtype at
+read, by :func:`ops.kv_quant.dequantize_kv`'s rule (one fp32 multiply,
+one cast): inside the kernel on CUDA (B8, counted apart as
+``decode_attention_q8``), before the scores in the plain version.
 
 :func:`chunk_cached_attention` (multi-token chunks over a cached
 context) is plain PyTorch here, as it is plain jnp in the reference.
@@ -25,23 +32,33 @@ from apex_tpu_torch._kernels.build import (
     plain_path,
     stream_handle,
 )
+from apex_tpu_torch.ops.kv_quant import dequantize_kv
 
 NEG_INF = -1e30
 
 _HEAD_DIMS = (64,)   # the head dims csrc/decode_attention.cu is built for
-# the kernel keeps the (T,) score row in shared memory
+# the kernel keeps the (T,) score row in shared memory, B8 also the (T,)
+# K and V scale rows
 _MAX_T = (227 * 1024) // 4 - 128 - 256
+_MAX_T_Q8 = _MAX_T // 3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel("decode_attention", "apex_decode_attention",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_float,
                  _I, _P])
+KERNEL_Q8 = Kernel("decode_attention_q8", "apex_decode_attention_q8",
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                    ctypes.c_float, _I, _P])
 
 
-def _reference(q, k, v, kv_bias, scale):
+def _reference(q, k, v, kv_bias, scale, k_scale=None, v_scale=None):
     """Plain PyTorch version: fp32 scores and softmax, output in q's
-    dtype; fully-masked rows give zeros."""
+    dtype; fully-masked rows give zeros.  With scales, k/v are int8 and
+    widen to q's dtype first."""
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale, q.dtype)
+        v = dequantize_kv(v, v_scale, q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if kv_bias is not None:
         s = s + kv_bias.float()[:, None, None, :]
@@ -54,18 +71,40 @@ def _reference(q, k, v, kv_bias, scale):
     return out.to(q.dtype)
 
 
-def _decode_cuda(q, k, v, kv_bias, scale):
+def _check_scales(k, k_scale, v_scale, what):
+    """Both scales or neither, shaped like k without its head_dim."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(
+            f"{what}: k_scale and v_scale must be passed together")
+    if k_scale is not None and (k_scale.shape != k.shape[:3]
+                                or v_scale.shape != k.shape[:3]):
+        raise ValueError(
+            f"{what}: scales must be (B, T, H) matching k; got "
+            f"k={tuple(k.shape)} k_scale={tuple(k_scale.shape)} "
+            f"v_scale={tuple(v_scale.shape)}")
+
+
+def _decode_cuda(q, k, v, kv_bias, scale, k_scale, v_scale):
     b, t, h, d = k.shape
     code = check_dtype("cached_attention", q)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"cached_attention: q/k/v dtypes differ "
-                        f"({q.dtype}, {k.dtype}, {v.dtype})")
+    quantized = k_scale is not None
+    kv_dtype = torch.int8 if quantized else q.dtype
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(
+            f"cached_attention: k/v must be {kv_dtype} "
+            f"{'with scales' if quantized else 'like q'}; got "
+            f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
+    if quantized and (k_scale.dtype != torch.float32
+                      or v_scale.dtype != torch.float32):
+        raise TypeError(f"cached_attention: scales must be float32; got "
+                        f"{k_scale.dtype}, {v_scale.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"cached_attention: head_dim {d} not in "
                          f"{_HEAD_DIMS}")
-    if t > _MAX_T:
+    max_t = _MAX_T_Q8 if quantized else _MAX_T
+    if t > max_t:
         raise ValueError(f"cached_attention: T={t} exceeds the kernel's "
-                         f"shared-memory score row ({_MAX_T})")
+                         f"shared-memory rows ({max_t})")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             raise ValueError(f"cached_attention: {name} needs unit stride "
@@ -78,34 +117,48 @@ def _decode_cuda(q, k, v, kv_bias, scale):
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0 or t == 0:
         return o.zero_()
-    strides = (ctypes.c_int64 * 10)(
-        q.stride(0), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(2))
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  None if kv_bias is None else kv_bias.data_ptr(),
-                  o.data_ptr(), b, h, t, d, ctypes.addressof(strides),
-                  float(scale), code, stream_handle(q.device))
+    strides = [q.stride(0), q.stride(2),
+               k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2),
+               o.stride(0), o.stride(2)]
+    bias_ptr = None if kv_bias is None else kv_bias.data_ptr()
+    if not quantized:
+        st = (ctypes.c_int64 * 10)(*strides)
+        KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                      o.data_ptr(), b, h, t, d, ctypes.addressof(st),
+                      float(scale), code, stream_handle(q.device))
+        return o
+    strides += [k_scale.stride(0), k_scale.stride(1), k_scale.stride(2),
+                v_scale.stride(0), v_scale.stride(1), v_scale.stride(2)]
+    st = (ctypes.c_int64 * 16)(*strides)
+    KERNEL_Q8.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     k_scale.data_ptr(), v_scale.data_ptr(), bias_ptr,
+                     o.data_ptr(), b, h, t, d, ctypes.addressof(st),
+                     float(scale), code, stream_handle(q.device))
     return o
 
 
 def cached_attention(q, k, v, *, kv_bias: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None):
     """Single-new-token attention over a gathered KV-cache context.
 
     Args:
       q: (B, 1, H, D) — the new token's queries.
-      k, v: (B, T, H, D) in q's dtype — the gathered context, the new
-        token's own k/v included.
+      k, v: (B, T, H, D) — the gathered context, the new token's own
+        k/v included; in q's dtype, or int8 with scales.
       kv_bias: optional (B, T) additive fp32 mask (0 keep / NEG_INF
         drop); unwritten slots MUST be masked by the caller.
       scale: logit scale, default 1/sqrt(D).
+      k_scale, v_scale: optional (B, T, H) fp32 dequantization scales
+        (the quantized pool's sidecar); k/v are then int8 and widen to
+        q's dtype at read (kernel B8 on CUDA).
 
-    Returns (B, 1, H, D) in q's dtype.  Inference only: the kernel has
-    no backward (neither has the JAX one), so on CUDA tensors it raises
-    when grad mode is on and an input requires grad, rather than return
-    an output cut from the graph.
+    Returns (B, 1, H, D) in q's dtype.  Inference only: the kernels
+    have no backward (neither have the JAX ones), so on CUDA tensors
+    they raise when grad mode is on and an input requires grad, rather
+    than return an output cut from the graph.
     """
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D); got {tuple(q.shape)}")
@@ -114,21 +167,24 @@ def cached_attention(q, k, v, *, kv_bias: Optional[torch.Tensor] = None,
         raise ValueError(
             f"k/v must be (B, T, H, D) matching q; got q={tuple(q.shape)} "
             f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    _check_scales(k, k_scale, v_scale, "cached_attention")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    bias_t = () if kv_bias is None else (kv_bias,)
-    if plain_path(q, k, v, *bias_t):
-        return _reference(q, k, v, kv_bias, scale)
+    extra = tuple(x for x in (kv_bias, k_scale, v_scale) if x is not None)
+    if plain_path(q, k, v, *extra):
+        return _reference(q, k, v, kv_bias, scale, k_scale, v_scale)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, *bias_t)):
+            t.requires_grad for t in (q, k, v, *extra)):
         raise RuntimeError(
             "cached_attention: the decode kernel has no backward; call it "
             "under torch.no_grad() or on inputs that do not require grad")
-    return _decode_cuda(q, k, v, kv_bias, scale)
+    return _decode_cuda(q, k, v, kv_bias, scale, k_scale, v_scale)
 
 
 def chunk_cached_attention(q, k, v, ctx_bias,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None):
     """Multi-token (chunked-prefill) attention over gathered cache
     context plus the chunk itself.
 
@@ -139,6 +195,9 @@ def chunk_cached_attention(q, k, v, ctx_bias,
         own fresh K/V, attended causally within the chunk.
       ctx_bias: (B, T) additive fp32 context mask.
       scale: logit scale, default 1/sqrt(D).
+      k_scale, v_scale: optional (B, T + C, H) fp32 dequantization
+        scales; k/v (the quantized context and the chunk's own
+        quantized K/V) are then int8 and widen to q's dtype first.
 
     Plain PyTorch with the same fp32 numeric policy as
     :func:`cached_attention`'s reference.
@@ -149,6 +208,10 @@ def chunk_cached_attention(q, k, v, ctx_bias,
         raise ValueError(
             f"k/v must be (B, T + C, H, D) with T >= 0; got "
             f"q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    _check_scales(k, k_scale, v_scale, "chunk_cached_attention")
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale, q.dtype)
+        v = dequantize_kv(v, v_scale, q.dtype)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale

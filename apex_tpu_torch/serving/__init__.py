@@ -2,7 +2,8 @@
 continuous batching.
 
 - :mod:`serving.kv_cache` — the block pool (a dict of tensors updated in
-  place) and the host-side refcounted allocator;
+  place; full width or int8 with a scale sidecar) and the host-side
+  refcounted allocator;
 - :mod:`serving.engine` — bucketed prefill (flash kernel pluggable) and
   batched single-token decode through the decode-attention kernel;
 - :mod:`serving.scheduler` / :mod:`serving.api` — iteration-level
@@ -17,14 +18,18 @@ from apex_tpu_torch.serving.engine import (
     pick_bucket,
 )
 from apex_tpu_torch.serving.kv_cache import (
+    KV_QUANT_ENV,
     BlockAllocator,
     KVCacheConfig,
+    gather_scales,
     init_kv_cache,
     resolve_cache_dtype,
+    resolve_kv_quant,
 )
 from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
 
 __all__ = [
+    "KV_QUANT_ENV",
     "BlockAllocator",
     "DecodeEngine",
     "InferenceServer",
@@ -33,8 +38,10 @@ __all__ = [
     "Request",
     "Scheduler",
     "default_prefill_buckets",
+    "gather_scales",
     "greedy_sample",
     "init_kv_cache",
     "pick_bucket",
     "resolve_cache_dtype",
+    "resolve_kv_quant",
 ]

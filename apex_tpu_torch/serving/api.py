@@ -3,7 +3,7 @@
 Twin of ``apex_tpu/serving/api.py::InferenceServer`` run with the
 subsystems this slice leaves out turned off — no prefix cache, chunked
 prefill, speculation, pipelined loop, overload control, breaker,
-streaming, program accounting, int8 KV or mesh.  Each :meth:`step`
+streaming, program accounting or mesh.  Each :meth:`step`
 admits what fits, prefills every admitted request through the bucketed
 prefill (greedy token sampled on the device), then runs one batched
 decode step over the rest of the running batch and retires requests on
@@ -14,6 +14,7 @@ cross to the host.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -24,6 +25,7 @@ from apex_tpu_torch._kernels.build import launch_counts
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.serving import reasons
 from apex_tpu_torch.serving.engine import DecodeEngine
+from apex_tpu_torch.serving.kv_cache import KV_QUANT_ENV
 from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
 
 
@@ -69,6 +71,10 @@ class InferenceServer:
       max_batch_size, max_context, num_blocks, block_size, cache_dtype:
         see :class:`DecodeEngine` (flash prefill, cached-attention
         decode).
+      kv_quant: ``"int8"`` serves from the quantized pool (decode on
+        kernel B8); ``"off"`` pins the full-width pool; None defers to
+        the ``APEX_TPU_KV_QUANT`` environment variable (unset: off).
+        A kwarg that is given wins over the environment.
       max_waiting: bound on the waiting queue; a submit past it comes
         back already finished with ``finish_reason="rejected"``.
 
@@ -85,11 +91,15 @@ class InferenceServer:
                  num_blocks: Optional[int] = None,
                  block_size: int = 16,
                  cache_dtype: Optional[torch.dtype] = None,
+                 kv_quant: Optional[str] = None,
                  max_waiting: Optional[int] = None):
+        if kv_quant is None:
+            kv_quant = os.environ.get(KV_QUANT_ENV)
         self.engine = DecodeEngine(
             cfg, params, device=device, max_batch_size=max_batch_size,
             max_context=max_context, num_blocks=num_blocks,
-            block_size=block_size, cache_dtype=cache_dtype)
+            block_size=block_size, cache_dtype=cache_dtype,
+            kv_quant=kv_quant)
         self.scheduler = Scheduler(
             self.engine.allocator,
             max_batch_size=self.engine.max_batch_size,
@@ -233,7 +243,11 @@ class InferenceServer:
         process-wide (a second server in the same process adds to them):
         ``2 * L + 1`` LayerNorm launches per prefill and per decode step,
         ``L`` flash launches per prefill and ``L`` decode-attention
-        launches per decode step; 0 on the CPU."""
+        launches per decode step — ``decode_attention`` (B7) on the
+        full-width pool, ``decode_attention_q8`` (B8) on the int8 one;
+        0 on the CPU.  ``memory`` is the pool: its geometry and bytes
+        (:meth:`DecodeEngine.memory_info`) and the allocator's free,
+        live and peak live blocks."""
         sched = self.scheduler
         elapsed = max(time.perf_counter() - self._started, 1e-9)
         now = launch_counts()
@@ -251,4 +265,18 @@ class InferenceServer:
             "decode_steps": self.decode_steps,
             "kv_blocks_free": self.engine.allocator.num_free,
             "kernel_launches": launches,
+            "memory": self._memory_stats(),
+        }
+
+    def _memory_stats(self) -> dict:
+        info = self.engine.memory_info()
+        alloc = self.engine.allocator
+        return {
+            "blocks_usable": info["blocks_usable"],
+            "blocks_free": alloc.num_free,
+            "blocks_live": alloc.num_live,
+            "blocks_live_peak": alloc.live_peak,
+            **{key: info[key] for key in (
+                "pool_bytes", "pool_bytes_per_device", "bytes_per_block",
+                "cache_dtype", "quantize", "compute_dtype")},
         }

@@ -19,6 +19,12 @@ traffic:
   same steps with the greedy argmax and the non-finite row guard on the
   device, returning token ids and finite flags instead of logits.
 
+With ``kv_quant="int8"`` the pool stores int8 K/V and their fp32
+scales: the model quantizes fresh K/V at the projection, prefill
+attends the dequantized values through the flash kernel, and decode
+hands the int8 context and its scales to ``ops.cached_attention``
+(kernel B8), which widens them at read.
+
 Empty decode slots ride along as no-ops: position 0 masks their whole
 context, and their zeroed block table sends the K/V write to the
 garbage block.  The pool is updated in place.
@@ -43,11 +49,18 @@ from apex_tpu_torch.serving.kv_cache import (
     KVCacheConfig,
     context_bias,
     gather_context,
+    gather_scales,
     init_kv_cache,
+    resolve_kv_quant,
     slot_index,
     write_prefill,
     write_tokens,
 )
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """``torch.int8`` -> ``"int8"``: the reference's dtype names."""
+    return str(dtype).removeprefix("torch.")
 
 
 def default_prefill_buckets(max_context: int,
@@ -90,7 +103,12 @@ class DecodeEngine:
       num_blocks: physical blocks in the pool (incl. the reserved garbage
         block 0); default ``max_batch_size`` full-context requests + 1.
       block_size: tokens per block.
-      cache_dtype: KV dtype; None = bfloat16.
+      cache_dtype: KV compute dtype; None = the amp policy's
+        ``cast_model_type``, else bfloat16
+        (:func:`serving.kv_cache.resolve_cache_dtype`).
+      kv_quant: ``"int8"`` stores the pool as int8 plus a per-slot,
+        per-head fp32 scale sidecar; None (default) or ``"off"`` keeps
+        it full width in ``cache_dtype``.
 
     Prefill attends through ``ops.flash_attention`` (causal) and decode
     through ``ops.cached_attention``; prompts pad to
@@ -103,9 +121,12 @@ class DecodeEngine:
                  max_context: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  block_size: int = 16,
-                 cache_dtype: Optional[torch.dtype] = None):
+                 cache_dtype: Optional[torch.dtype] = None,
+                 kv_quant: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.kv_quant = resolve_kv_quant(kv_quant)
+        self.quantized = self.kv_quant is not None
         self.max_batch_size = int(max_batch_size)
         self.max_context = int(max_context or cfg.max_position_embeddings)
         if self.max_context > cfg.max_position_embeddings:
@@ -122,7 +143,8 @@ class DecodeEngine:
             head_dim=cfg.hidden_size // cfg.num_attention_heads,
             num_blocks=int(num_blocks),
             block_size=self.block_size,
-            dtype=cache_dtype)
+            dtype=cache_dtype,
+            quantize=self.kv_quant)
         self.allocator = BlockAllocator(self.cache_cfg)
         self.cache = init_kv_cache(self.cache_cfg, self.device)
         self.model = GPTLMHeadModel(cfg, make_flash_attention(causal=True),
@@ -133,9 +155,23 @@ class DecodeEngine:
 
     # -- device steps -----------------------------------------------------
 
-    @staticmethod
-    def _stack_kvs(kvs):
-        """Per-layer fresh (k, v) -> stacked (L, B, S, H, D) pair."""
+    def _cache_views(self, tables, bias):
+        """The model's ``cache_views`` for one gathered context:
+        ``(k, v, bias)``, plus the scale legs under quantization."""
+        k_ctx, v_ctx = gather_context(self.cache, tables, self.block_size)
+        if not self.quantized:
+            return (k_ctx, v_ctx, bias)
+        ks_ctx, vs_ctx = gather_scales(self.cache, tables, self.block_size)
+        return (k_ctx, v_ctx, bias, ks_ctx, vs_ctx)
+
+    def _stack_kvs(self, kvs):
+        """Per-layer fresh K/V -> the scatter layout: a stacked
+        (L, B, S, H, D) pair, or under quantization the
+        ``((k_q, k_scale), (v_q, v_scale))`` quadruple."""
+        if self.quantized:
+            return tuple((torch.stack([kv[i][0] for kv in kvs]),
+                          torch.stack([kv[i][1] for kv in kvs]))
+                         for i in (0, 1))
         return (torch.stack([kv[0] for kv in kvs]),
                 torch.stack([kv[1] for kv in kvs]))
 
@@ -146,7 +182,8 @@ class DecodeEngine:
         sb = ids.shape[1]
         pos = torch.arange(sb, device=self.device)[None, :]
         mask = (pos < length[:, None]).int()
-        logits, kvs = self.model(ids, attention_mask=mask, return_kv=True)
+        logits, kvs = self.model(ids, attention_mask=mask, return_kv=True,
+                                 kv_quant=self.quantized)
         # padded positions scatter into the garbage block (slot 0)
         slots = torch.where(mask > 0, slot_index(table, pos, self.block_size),
                             0)
@@ -160,11 +197,10 @@ class DecodeEngine:
         Returns logits (B, V)."""
         t_ctx = self.blocks_per_seq * self.block_size
         bias = context_bias(positions, t_ctx)
-        k_ctx, v_ctx = gather_context(self.cache, tables, self.block_size)
         logits, kvs = self.model(tokens[:, None],
                                  positions=positions[:, None],
-                                 cache_views=(k_ctx, v_ctx, bias),
-                                 return_kv=True)
+                                 cache_views=self._cache_views(tables, bias),
+                                 return_kv=True, kv_quant=self.quantized)
         slots = slot_index(tables, positions, self.block_size)
         write_tokens(self.cache, self._stack_kvs(kvs), slots)
         return logits[:, 0]
@@ -221,6 +257,26 @@ class DecodeEngine:
         logits = self._decode_impl(*self._decode_args(tokens, positions,
                                                       tables))
         return greedy_argmax(logits), finite_rows(logits)
+
+    def memory_info(self) -> dict:
+        """Pool geometry for ``stats()["memory"]``: usable blocks, tokens
+        per block, the pool's bytes by its config and as read off the
+        live tensors (one device: the two agree), the bytes of one
+        block, and the storage and compute dtypes.  Under quantization
+        every count includes the scale sidecar."""
+        cfg = self.cache_cfg
+        return {
+            "blocks_usable": cfg.num_blocks - 1,
+            "block_size": cfg.block_size,
+            "pool_tokens": cfg.usable_tokens,
+            "pool_bytes": cfg.bytes(),
+            "pool_bytes_per_device": sum(
+                t.numel() * t.element_size() for t in self.cache.values()),
+            "bytes_per_block": cfg.bytes_per_block,
+            "cache_dtype": _dtype_name(self.cache["k"].dtype),
+            "quantize": cfg.quantize,
+            "compute_dtype": _dtype_name(cfg.resolved_dtype()),
+        }
 
     def reset_cache(self):
         """Zero the pool and refill the allocator in place."""

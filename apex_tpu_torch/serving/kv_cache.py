@@ -1,8 +1,8 @@
 """Block-table-indexed KV cache — the serving memory manager.
 
-Twin of ``apex_tpu/serving/kv_cache.py`` without quantization, copies or
-prefix-cache hooks.  The cache is one preallocated pool of
-``num_blocks`` blocks of ``block_size`` token slots per layer,
+Twin of ``apex_tpu/serving/kv_cache.py`` without copies or prefix-cache
+hooks.  The cache is one preallocated pool of ``num_blocks`` blocks of
+``block_size`` token slots per layer,
 
     k, v: (num_layers, num_blocks * block_size, num_heads, head_dim)
 
@@ -13,8 +13,12 @@ blocks.  Physical block 0 is the reserved garbage sink: unallocated
 table entries and padded positions point at it, and the context bias
 masks whatever sits there.
 
-The default cache dtype is bfloat16 (the port has no amp policy yet);
-``KVCacheConfig(dtype=torch.float32)`` pins a full-width pool.
+``KVCacheConfig(quantize="int8")`` stores K/V as int8 with a per-slot,
+per-head fp32 scale sidecar ``k_scale``/``v_scale`` (L, num_slots, H);
+the model quantizes at the projection (``ops.kv_quant``) and the
+attention ops widen at read.  ``dtype`` is the compute dtype: an
+explicit one wins, else the installed amp policy's
+``cast_model_type``, else bfloat16 (:func:`resolve_cache_dtype`).
 """
 
 from __future__ import annotations
@@ -24,25 +28,58 @@ from typing import Dict, List, Optional
 
 import torch
 
+from apex_tpu_torch.amp._amp_state import _amp_state
+
 NEG_INF = -1e9
+
+# env twin of the ``kv_quant=`` knob (InferenceServer reads it)
+KV_QUANT_ENV = "APEX_TPU_KV_QUANT"
+
+_QUANT_MODES = (None, "int8")
+
+
+def resolve_kv_quant(value) -> Optional[str]:
+    """Normalize a ``kv_quant`` knob or ``APEX_TPU_KV_QUANT`` value to
+    None or ``"int8"``; anything else raises."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if v in ("", "0", "none", "off"):
+            return None
+        if v in ("1", "int8"):
+            return "int8"
+    raise ValueError(
+        f"unknown KV quantization mode {value!r} "
+        f"(expected one of: None/'', 'int8')")
 
 
 def resolve_cache_dtype(dtype: Optional[torch.dtype] = None) -> torch.dtype:
-    """An explicit floating dtype wins; None means bfloat16.  Integer
-    dtypes are refused: the pool holds compute-dtype K/V."""
-    if dtype is None:
-        return torch.bfloat16
-    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-        raise TypeError(
-            f"cache dtype must be a floating-point torch.dtype, got {dtype}")
-    return dtype
+    """The compute dtype of the pool's values: an explicit dtype wins;
+    else the installed amp policy's ``cast_model_type`` (O0 float32,
+    O2/O3 bfloat16); else bfloat16.  Integer dtypes are refused: int8
+    storage is a quantization mode, not a cache dtype."""
+    if dtype is not None:
+        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+            raise TypeError(
+                f"cache dtype must be a floating-point compute dtype, "
+                f"got {dtype}; for an int8-quantized KV pool pass "
+                f"KVCacheConfig(quantize='int8') (per-block-scaled "
+                f"storage), not dtype={dtype}")
+        return dtype
+    props = _amp_state.opt_properties
+    cast = props.cast_model_type if props is not None else None
+    return cast if cast is not None else torch.bfloat16
 
 
 @dataclasses.dataclass(frozen=True)
 class KVCacheConfig:
     """Geometry of the block pool.  ``num_blocks`` INCLUDES the reserved
     garbage block 0, so the usable capacity is
-    ``(num_blocks - 1) * block_size`` tokens."""
+    ``(num_blocks - 1) * block_size`` tokens.  ``dtype=None`` defers to
+    :func:`resolve_cache_dtype`.  ``quantize="int8"`` stores int8 K/V
+    plus the fp32 scale sidecar, and every byte count includes the
+    sidecar."""
 
     num_layers: int
     num_heads: int
@@ -50,6 +87,7 @@ class KVCacheConfig:
     num_blocks: int
     block_size: int = 16
     dtype: Optional[torch.dtype] = None
+    quantize: Optional[str] = None
 
     def __post_init__(self):
         if self.num_blocks < 2:
@@ -59,22 +97,66 @@ class KVCacheConfig:
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1; got "
                              f"{self.block_size}")
+        if self.quantize not in _QUANT_MODES:
+            raise ValueError(
+                f"quantize must be one of {_QUANT_MODES}; got "
+                f"{self.quantize!r}")
         self.resolved_dtype()
 
     @property
     def num_slots(self) -> int:
         return self.num_blocks * self.block_size
 
+    @property
+    def usable_tokens(self) -> int:
+        return (self.num_blocks - 1) * self.block_size
+
+    @property
+    def quantized(self) -> bool:
+        return self.quantize is not None
+
     def resolved_dtype(self) -> torch.dtype:
         return resolve_cache_dtype(self.dtype)
 
+    def storage_dtype(self) -> torch.dtype:
+        """int8 under quantization, the compute dtype otherwise."""
+        return torch.int8 if self.quantized else self.resolved_dtype()
+
+    @property
+    def scale_bytes_per_block(self) -> int:
+        """One block's share of the scale sidecar, K and V; 0 when
+        quantization is off."""
+        if not self.quantized:
+            return 0
+        return 2 * self.num_layers * self.block_size * self.num_heads * 4
+
+    @property
+    def bytes_per_block(self) -> int:
+        """Device bytes of one physical block: the K and V payload plus
+        the scale sidecar under quantization."""
+        payload = (2 * self.num_layers * self.block_size * self.num_heads
+                   * self.head_dim * self.storage_dtype().itemsize)
+        return payload + self.scale_bytes_per_block
+
+    def bytes(self) -> int:
+        """Device bytes of the whole pool, sidecar included."""
+        return self.num_blocks * self.bytes_per_block
+
 
 def init_kv_cache(cfg: KVCacheConfig, device) -> Dict[str, torch.Tensor]:
-    """The zeroed pool ``{"k", "v"}``, each (L, num_slots, H, D)."""
+    """The zeroed pool ``{"k", "v"}``, each (L, num_slots, H, D) in the
+    storage dtype, plus under quantization ``{"k_scale", "v_scale"}``,
+    each (L, num_slots, H) fp32."""
     shape = (cfg.num_layers, cfg.num_slots, cfg.num_heads, cfg.head_dim)
-    dt = cfg.resolved_dtype()
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    dt = cfg.storage_dtype()
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.quantized:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+    return cache
 
 
 def slot_index(block_tables: torch.Tensor, positions: torch.Tensor,
@@ -94,35 +176,54 @@ def slot_index(block_tables: torch.Tensor, positions: torch.Tensor,
 
 def write_tokens(cache, kvs, slots) -> None:
     """Scatter one new token per sequence into the pool, in place.
-    kvs: ``(k_new, v_new)`` each (L, B, 1, H, D); slots: (B,)."""
-    k_new, v_new = kvs
-    slots = slots.long()
-    cache["k"].index_copy_(1, slots, k_new[:, :, 0].to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slots, v_new[:, :, 0].to(cache["v"].dtype))
+    kvs: ``(k_new, v_new)`` each (L, B, 1, H, D); under quantization
+    ``((k_q, k_scale), (v_q, v_scale))`` with the payloads int8 and the
+    scales (L, B, 1, H) fp32, already quantized by the model.  slots:
+    (B,)."""
+    write_prefill(cache, kvs, slots[:, None])
 
 
 def write_prefill(cache, kvs, slots) -> None:
     """Scatter a whole prompt's K/V into the pool, in place.
-    kvs: ``(k_new, v_new)`` each (L, B, S, H, D); slots: (B, S) with
-    padded positions pointed at the garbage block by the caller."""
-    k_new, v_new = kvs
-    L = k_new.shape[0]
+    kvs: ``(k_new, v_new)`` each (L, B, S, H, D), or the quantized
+    quadruple as in :func:`write_tokens` (scales (L, B, S, H)); slots:
+    (B, S) with padded positions pointed at the garbage block by the
+    caller."""
     flat = slots.reshape(-1).long()
-    cache["k"].index_copy_(1, flat, k_new.reshape(L, -1, *k_new.shape[3:])
-                           .to(cache["k"].dtype))
-    cache["v"].index_copy_(1, flat, v_new.reshape(L, -1, *v_new.shape[3:])
-                           .to(cache["v"].dtype))
+    k_new, v_new = kvs
+    legs = [("k", k_new), ("v", v_new)]
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = k_new, v_new
+        legs = [("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)]
+    for name, new in legs:
+        pool = cache[name]
+        pool.index_copy_(1, flat, new.reshape(pool.shape[0], -1,
+                                              *new.shape[3:]).to(pool.dtype))
+
+
+def _context_slots(block_tables: torch.Tensor, block_size: int):
+    """(B, max_blocks) tables -> (B, max_blocks * block_size) pool slots
+    in logical order."""
+    b, mb = block_tables.shape
+    return (block_tables[:, :, None] * block_size
+            + torch.arange(block_size, device=block_tables.device)
+            [None, None, :]).reshape(b, mb * block_size)
 
 
 def gather_context(cache, block_tables: torch.Tensor, block_size: int):
     """Each sequence's logical context: ``(k_ctx, v_ctx)`` of shape
     (L, B, max_blocks * block_size, H, D); gathered position j IS
     logical token j because tables are ordered."""
-    b, mb = block_tables.shape
-    slots = (block_tables[:, :, None] * block_size
-             + torch.arange(block_size, device=block_tables.device)
-             [None, None, :]).reshape(b, mb * block_size)
+    slots = _context_slots(block_tables, block_size)
     return cache["k"][:, slots], cache["v"][:, slots]
+
+
+def gather_scales(cache, block_tables: torch.Tensor, block_size: int):
+    """The scale sidecar's leg of :func:`gather_context`, by the same
+    slot map: ``(k_scale, v_scale)`` each (L, B, max_blocks *
+    block_size, H) fp32."""
+    slots = _context_slots(block_tables, block_size)
+    return cache["k_scale"][:, slots], cache["v_scale"][:, slots]
 
 
 def context_bias(lengths: torch.Tensor, max_context: int) -> torch.Tensor:
@@ -148,10 +249,15 @@ class BlockAllocator:
         self._free: List[int] = list(range(self.cfg.num_blocks - 1, 0, -1))
         self._free_set = set(self._free)
         self._refs: Dict[int, int] = {}
+        self.live_peak = 0          # high-watermark of live blocks
 
     @property
     def num_free(self) -> int:
         return len(self._free)
+
+    @property
+    def num_live(self) -> int:
+        return len(self._refs)
 
     def can_alloc(self, n: int) -> bool:
         return n <= len(self._free)
@@ -170,6 +276,7 @@ class BlockAllocator:
         for blk in out:
             self._free_set.discard(blk)
             self._refs[blk] = 1
+        self.live_peak = max(self.live_peak, len(self._refs))
         return out
 
     def refs(self, blk: int) -> int:

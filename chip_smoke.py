@@ -19,7 +19,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    peak for the operand type).  The dropout kernels (B4d, B5d, B6d, at
    rate 0.1, BERT-large's and GPT's training shapes) also read their
    keep-mask back from a crafted input and hold it bit for bit against
-   ``keep_from_seed``.
+   ``keep_from_seed``.  B8 (int8 K/V, 8 x 1025 x 12 x 64 from
+   ``quantize_kv`` of random data, one head all zero) is also held bit
+   for bit against B7 on the dequantized K/V; its library yardstick is
+   SDPA on the dequantized K/V (no PyTorch call takes int8 K/V).
 4. serve   — ``InferenceServer`` on GPT-2 small at full width (seeded
    random weights), 8 decode slots, 16-token blocks, flash prefill,
    16 prompts of 4..255 tokens, 32 new tokens each:
@@ -34,8 +37,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    per-prefill and per-decode-step count, and that ``stats()`` reports
    the same counts.  (c) repeats (b) under
    ``torch.profiler``: device time by kernel class and the device's
-   idle share of the wall time.
-5. train   — ``apex_tpu_torch.examples.gpt_main_amp`` on GPT-2 small at
+   idle share of the wall time.  Both arms pin ``kv_quant="off"``.
+5. serve_q8 — the same model and traffic from the int8 pool
+   (``kv_quant="int8"``, decode through B8):
+   (a) fp32 compute, TF32 off, 8 slots: tokens against the int8 greedy
+       full recompute on the card (``model(ids, kv_quant=True)`` on the
+       kernel-free oracle: K/V quantized at the source, plain attention
+       over the dequantized values), the same near-tie rule; launches
+       exact (B8 ``L`` per decode step, B7 none); ``stats()["memory"]``
+       reads ``int8`` and 313,344 bytes per block;
+   (b) the same server timed (median of 3 passes) and profiled once;
+   (c) equal pool bytes: the bytes of 129 bf16 blocks give the bf16
+       arm 129 blocks and the int8 arm 242; both serve the 16 prompts
+       with 16 slots (all at once need 158 blocks); the int8 arm's
+       tokens agree with the bf16 arm's to a mean agreeing prefix
+       >= 0.75 (``tests/L0/test_kv_quant.py``'s gate).
+6. train   — ``apex_tpu_torch.examples.gpt_main_amp`` on GPT-2 small at
    full width, FusedAdam(lr=3e-4) flat, causal flash attention, against
    a kernel-free oracle on the card (the same model and step on plain
    LayerNorm, plain attention and plain Adam, checked to launch none of
@@ -55,7 +72,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
        bit, the loss scale halves, and no host sync is raised;
    (d) one more O2 step under ``torch.profiler``: device time by kernel
        class and the device's idle share.
-6. train_bert — ``apex_tpu_torch.examples.bert_main_amp`` on BERT-large
+7. train_bert — ``apex_tpu_torch.examples.bert_main_amp`` on BERT-large
    at full width (vocab 30522, hidden 1024, 24 layers, 16 heads),
    FusedLAMB as the example (lr 1e-4, max_grad_norm 1.0, no decay and
    no layer adaptation for bias/LayerNorm), ``make_flash_attention()``
@@ -107,6 +124,13 @@ NEAR_TIE_GAP = 1e-3
 TIMED_LAUNCHES = 50
 TIMED_LAUNCHES_LARGE = 20  # training-size shapes (ms each)
 TIMED_SERVE_PASSES = 3
+
+# the int8 serving path: GPT-2 small's pool block at 16 tokens (int8 K/V
+# and their fp32 scales), the equal-bytes arms and their agreement gate
+Q8_BYTES_PER_BLOCK = 2 * 12 * 16 * 12 * 64 + 2 * 12 * 16 * 12 * 4
+EQUAL_BYTES_BF16_BLOCKS = 129
+EQUAL_BYTES_SLOTS = 16
+Q8_AGREEMENT_MIN = 0.75
 SPIN_CYCLES = 2_000_000   # ~1 ms at the H100's clock
 
 # the training path: examples/gpt/main_amp.py --config small --flash
@@ -361,6 +385,66 @@ def _decode_variants(torch):
             "library_ms": median_ms(
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)),
+            "bound_ms": bms, "bound_by": by})
+    return out
+
+
+def _decode_q8_variants(torch):
+    """B8 at the serve_q8 decode shape, fp32 and bf16 compute: int8 K/V
+    from ``quantize_kv`` of random data (head 5 of K all zero: zero
+    scales), the engine's bias (a masked tail, an empty slot at position
+    0), held against its plain version and bit for bit against B7 on
+    the dequantized K/V."""
+    import torch.nn.functional as F
+    da = importlib.import_module("apex_tpu_torch.ops.decode_attention")
+    kvq = importlib.import_module("apex_tpu_torch.ops.kv_quant")
+    out = []
+    b, t, h, d = 8, 1025, 12, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(8)
+        q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(dtype)
+        k, v = (torch.randn(b, t, h, d, device="cuda", generator=g)
+                for _ in range(2))
+        k[:, :, 5] = 0
+        (kq, ks), (vq, vs) = kvq.quantize_kv(k), kvq.quantize_kv(v)
+        del k, v
+        lengths = torch.randint(1, t - 1, (b,), device="cuda", generator=g)
+        lengths[0] = 0
+        pos = torch.arange(t, device="cuda")[None, :]
+        bias = torch.where(pos < lengths[:, None], 0.0, -1e9).float()
+        bias[:, -1] = 0.0
+        scale = 1.0 / d ** 0.5
+        kd, vd = (kvq.dequantize_kv(x, s, dtype) for x, s in ((kq, ks),
+                                                             (vq, vs)))
+
+        def kernel():
+            return da.cached_attention(q, kq, vq, kv_bias=bias, k_scale=ks,
+                                       v_scale=vs)
+
+        def plain():
+            return da._reference(q, kq, vq, bias, scale, ks, vs)
+
+        dt = _dt(dtype)
+        o = kernel()
+        rel, max_abs = _check("decode_attention_q8", dt, o, plain())
+        if not torch.equal(o, da.cached_attention(q, kd, vd, kv_bias=bias)):
+            raise AssertionError(f"decode_attention_q8 [{dt}]: differs from "
+                                 "B7 on the dequantized K/V")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kd, vd))
+        sdpa_mask = bias[:, None, None, :].to(dtype)
+        isz = q.element_size()
+        nbytes = (2 * b * t * h * d + 2 * b * t * h * 4 + b * t * 4
+                  + 2 * b * h * d * isz)
+        # two dot products and the widening multiply per K/V element pair
+        bms, by = bound(nbytes, 6 * b * h * t * d, dt)
+        out.append({
+            "shape": [b, t, h, d], "dtype": dt, "rel_err": rel,
+            "max_abs_err": max_abs, "b7_bitwise": True,
+            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+            "library_ms": median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sdpa_mask)),
+            "library": "SDPA on the dequantized K/V",
             "bound_ms": bms, "bound_by": by})
     return out
 
@@ -696,7 +780,7 @@ def _adam_variants(torch):
 
 # (name, source, TPU kernel it replaces, variant builder, summary variant:
 # the shape and dtype of the training step, the path that launches the
-# kernel last, and for B7 the serving step's)
+# kernel last, and for B7 and B8 the serving step's)
 KERNELS = (
     ("layer_norm_fwd", "apex_tpu_torch/csrc/layer_norm.cu",
      "apex_tpu/normalization/fused_layer_norm.py:63", _ln_variants,
@@ -706,6 +790,9 @@ KERNELS = (
      ([TRAIN_BATCH, TRAIN_SEQ, 12, 64], "bfloat16")),
     ("decode_attention", "apex_tpu_torch/csrc/decode_attention.cu",
      "apex_tpu/ops/decode_attention.py:125", _decode_variants,
+     ([8, 1025, 12, 64], "float32")),
+    ("decode_attention_q8", "apex_tpu_torch/csrc/decode_attention.cu",
+     "apex_tpu/ops/decode_attention.py:131", _decode_q8_variants,
      ([8, 1025, 12, 64], "float32")),
     ("fused_adam", "apex_tpu_torch/csrc/fused_adam.cu",
      "apex_tpu/optimizers/fused_adam.py:95", _adam_variants,
@@ -752,6 +839,7 @@ def phase_kernels():
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            **{key: main[key] for key in ("library",) if key in main},
             "shape": main["shape"], "dtype": main["dtype"],
             "variants": rows}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -771,7 +859,8 @@ def _make_prompts(cfg, n=16, seed=0):
 def _serve_once(server, prompts, max_new):
     """Drive the main path once with every launch count at 0 just
     before and read just after; checks the counts against the model's
-    2L+1 LayerNorms and L attentions per forward."""
+    2L+1 LayerNorms and L attentions per forward (decode on B8 from an
+    int8 pool, on B7 otherwise)."""
     import torch
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     torch.cuda.synchronize()
@@ -784,10 +873,12 @@ def _serve_once(server, prompts, max_new):
     counts = launch_counts()
     st = server.stats()
     layers = server.engine.cfg.num_hidden_layers
+    decode = ("decode_attention_q8" if server.engine.quantized
+              else "decode_attention")
     serve = {"layer_norm_fwd": (2 * layers + 1)
              * (st["prefills"] + st["decode_steps"]),
              "flash_fwd": layers * st["prefills"],
-             "decode_attention": layers * st["decode_steps"]}
+             decode: layers * st["decode_steps"]}
     # the training kernels (backward, optimizer) run no time here
     want = {name: serve.get(name, 0) for name in counts}
     if counts != want or not all(serve.values()) \
@@ -827,10 +918,11 @@ def _plain_oracle(model):
     return model
 
 
-def _oracle_check(model, prompts, outs):
-    """Greedy full recompute on the card through the plain oracle;
-    returns (tokens compared, near-ties that ended a comparison).  Fails
-    if the oracle launched any of the port's kernels."""
+def _oracle_check(model, prompts, outs, kv_quant=False):
+    """Greedy full recompute on the card through the plain oracle (with
+    ``kv_quant``, K/V quantized at the source as the int8 pool holds
+    them); returns (tokens compared, near-ties that ended a comparison).
+    Fails if the oracle launched any of the port's kernels."""
     import torch
     from apex_tpu_torch._kernels import launch_counts
     from apex_tpu_torch.ops import greedy_argmax
@@ -841,7 +933,7 @@ def _oracle_check(model, prompts, outs):
             toks = list(p)
             for t, got in enumerate(o):
                 ids = torch.tensor([toks], device="cuda")
-                logits = model(ids)[0, -1]
+                logits = model(ids, kv_quant=kv_quant)[0, -1]
                 ref = int(greedy_argmax(logits))
                 top2 = torch.topk(logits, 2).values
                 gap = float(top2[0] - top2[1])
@@ -871,7 +963,8 @@ def phase_serve():
     oracle = _plain_oracle(model)
     prompts = _make_prompts(cfg)
     max_new = 32
-    common = dict(device="cuda", max_batch_size=8, block_size=16)
+    common = dict(device="cuda", max_batch_size=8, block_size=16,
+                  kv_quant="off")
     results = {}
 
     # (a) fp32 cache against greedy full recompute
@@ -918,6 +1011,129 @@ def phase_serve():
     return counts
 
 
+def _lcp(a, b):
+    """Length of the agreeing prefix of two token lists."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def _serve_emit(label, st, wall, counts, **fields):
+    emit("serve_q8", run=label, tokens=st["tokens_generated"],
+         wall_s=round(wall, 4), tokens_per_s=st["tokens_generated"] / wall,
+         prefills=st["prefills"], decode_steps=st["decode_steps"],
+         preemptions=st["preemptions"], launches=counts, **fields)
+
+
+def phase_serve_q8():
+    """The int8-pool serving path, (a)-(c) of the module docstring;
+    returns the launch counts of the last timed pass of (b)."""
+    import torch
+    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
+    from apex_tpu_torch.serving import InferenceServer, KVCacheConfig
+
+    cfg = gpt_small()
+    model = GPTLMHeadModel(cfg, device="cuda", seed=0).eval()
+    params = model.state_dict()
+    oracle = _plain_oracle(model)
+    prompts = _make_prompts(cfg)
+    max_new = 32
+    results = {}
+
+    # (a) fp32 compute against the int8 full recompute
+    server = InferenceServer(cfg, params, device="cuda", max_batch_size=8,
+                             block_size=16, cache_dtype=torch.float32,
+                             kv_quant="int8")
+    outs_a, wall, counts, st = _serve_once(server, prompts, max_new)
+    mem = st["memory"]
+    if mem["cache_dtype"] != "int8" or \
+            mem["bytes_per_block"] != Q8_BYTES_PER_BLOCK:
+        raise AssertionError(f"serve_q8: the pool is not the int8 one: "
+                             f"{mem}")
+    compared, near_ties = _oracle_check(oracle, prompts, outs_a,
+                                        kv_quant=True)
+    results["oracle"] = {"wall_s": wall, "launches": counts, "stats": st,
+                         "oracle_tokens_compared": compared,
+                         "near_ties": near_ties}
+    _serve_emit("oracle", st, wall, counts, memory=mem,
+                oracle_tokens_compared=compared, near_ties=near_ties)
+
+    # (b) the same server, timed after a warm-up pass, then profiled
+    server.generate(prompts[:2], max_new_tokens=2)
+    passes = []
+    for _ in range(TIMED_SERVE_PASSES):
+        server.engine.reset_cache()
+        outs_b, wall, counts, st = _serve_once(server, prompts, max_new)
+        passes.append(st["tokens_generated"] / wall)
+    results["timed"] = {"tokens_per_s": statistics.median(passes),
+                        "tokens_per_s_passes": passes, "launches": counts,
+                        "stats": st, "same_tokens_as_a": outs_b == outs_a}
+    _serve_emit("timed", st, wall, counts,
+                tokens_per_s_median=statistics.median(passes),
+                tokens_per_s_passes=passes,
+                batch_occupancy_avg=st["batch_occupancy_avg"],
+                same_tokens_as_a=outs_b == outs_a)
+    timed_counts = counts
+    results["profile"] = _profile_serve(server, prompts, max_new,
+                                        label="serve_q8")
+    del server
+
+    # (c) equal pool bytes: bf16 blocks against int8 blocks
+    geometry = dict(num_layers=cfg.num_hidden_layers,
+                    num_heads=cfg.num_attention_heads,
+                    head_dim=cfg.hidden_size // cfg.num_attention_heads,
+                    block_size=16, num_blocks=2, dtype=torch.bfloat16)
+    budget = EQUAL_BYTES_BF16_BLOCKS * KVCacheConfig(
+        **geometry).bytes_per_block
+    q8_blocks = budget // KVCacheConfig(quantize="int8",
+                                        **geometry).bytes_per_block
+    arms, outs = {}, {}
+    for arm, quant, blocks in (("bfloat16", "off", EQUAL_BYTES_BF16_BLOCKS),
+                               ("int8", "int8", q8_blocks)):
+        srv = InferenceServer(cfg, params, device="cuda",
+                              max_batch_size=EQUAL_BYTES_SLOTS,
+                              block_size=16, num_blocks=blocks,
+                              cache_dtype=torch.bfloat16, kv_quant=quant)
+        srv.generate(prompts[:2], max_new_tokens=2)
+        srv.engine.reset_cache()
+        outs[arm], wall, counts, st = _serve_once(srv, prompts, max_new)
+        mem = st["memory"]
+        if mem["pool_bytes"] > budget:
+            raise AssertionError(f"serve_q8 {arm} arm: pool of "
+                                 f"{mem['pool_bytes']} B over {budget} B")
+        arms[arm] = {"blocks_usable": mem["blocks_usable"],
+                     "blocks_live_peak": mem["blocks_live_peak"],
+                     "pool_bytes": mem["pool_bytes"],
+                     "bytes_per_block": mem["bytes_per_block"],
+                     "preemptions": st["preemptions"],
+                     "decode_steps": st["decode_steps"],
+                     "prefills": st["prefills"],
+                     "tokens_per_s": st["tokens_generated"] / wall}
+        _serve_emit(f"equal_bytes_{arm}", st, wall, counts,
+                    **{key: arms[arm][key] for key in (
+                        "blocks_usable", "blocks_live_peak", "pool_bytes",
+                        "bytes_per_block")})
+        del srv
+    agree = sum(_lcp(a, b) for a, b in zip(outs["int8"], outs["bfloat16"])) \
+        / sum(len(o) for o in outs["bfloat16"])
+    results["equal_bytes"] = {"budget_bytes": budget, "arms": arms,
+                              "agreeing_prefix_mean": agree}
+    emit("serve_q8", run="equal_bytes", budget_bytes=budget,
+         agreeing_prefix_mean=round(agree, 4),
+         blocks_usable={a: arms[a]["blocks_usable"] for a in arms})
+    if not agree >= Q8_AGREEMENT_MIN:
+        raise AssertionError(f"serve_q8: int8 tokens agree with bf16's to "
+                             f"a mean prefix of {agree:.3f} < "
+                             f"{Q8_AGREEMENT_MIN}")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "serve_q8.json").write_text(json.dumps(results, indent=1,
+                                                      default=str))
+    return timed_counts
+
+
 # device-time classes of the profiled passes' kernels, by kernel-name
 # fragment (first match wins)
 KERNEL_CLASSES = (
@@ -938,13 +1154,23 @@ KERNEL_CLASSES = (
 )
 
 
+# the classes of the kernels' template-flag-on instantiations (``true``):
+# the flash kernels' dropout branches and the decode kernel's int8 front
+FLAG_CLASSES = {
+    "flash_fwd (port)": "flash_fwd_dropout (port)",
+    "flash_bwd_dq (port)": "flash_bwd_dq_dropout (port)",
+    "flash_bwd_dkv (port)": "flash_bwd_dkv_dropout (port)",
+    "decode_attention (port)": "decode_attention_q8 (port)",
+}
+
+
 def _kernel_class(name):
-    """The class of a kernel name; the flash kernels' dropout
-    instantiations (template flag ``true``) count apart."""
+    """The class of a kernel name; the flag-on instantiations count
+    apart (``FLAG_CLASSES``)."""
     cls = next((c for c, keys in KERNEL_CLASSES
                 if any(k in name for k in keys)), "other")
-    if cls.startswith("flash_") and ("true>" in name or "Lb1E" in name):
-        cls = cls.replace(" (port)", "_dropout (port)")
+    if cls in FLAG_CLASSES and ("true>" in name or "Lb1E" in name):
+        cls = FLAG_CLASSES[cls]
     return cls
 
 
@@ -997,12 +1223,12 @@ def _profile(label, run, **fields):
     return out
 
 
-def _profile_serve(server, prompts, max_new):
-    """One more bf16 serve pass under the profiler."""
+def _profile_serve(server, prompts, max_new, label="serve"):
+    """One more serve pass under the profiler."""
     server.engine.reset_cache()
     server.reset_meters()
-    out = _profile("serve", lambda: server.generate(prompts,
-                                                    max_new_tokens=max_new))
+    out = _profile(label, lambda: server.generate(prompts,
+                                                  max_new_tokens=max_new))
     st = server.stats()
     out["engine_steps"] = st["prefills"] + st["decode_steps"]
     return out
@@ -1449,7 +1675,7 @@ def phase_train_bert():
     return results["O2"]["launches"]
 
 
-def main(phases=("device", "build", "kernels", "serve", "train",
+def main(phases=("device", "build", "kernels", "serve", "serve_q8", "train",
                  "train_bert")):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
@@ -1462,8 +1688,9 @@ def main(phases=("device", "build", "kernels", "serve", "train",
         kernels = phase_kernels()
     # each main path runs with the counts at 0 just before it; a kernel
     # reports the launches of the last path that ran it (BERT training,
-    # the path this slice adds, then GPT training, then serving)
-    for path, run in (("serve", phase_serve), ("train", phase_train),
+    # then GPT training, then int8 serving, then serving)
+    for path, run in (("serve", phase_serve), ("serve_q8", phase_serve_q8),
+                      ("train", phase_train),
                       ("train_bert", phase_train_bert)):
         if path not in phases:
             continue

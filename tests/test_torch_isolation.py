@@ -57,7 +57,7 @@ def test_every_module_imports_with_jax_blocked():
         for m in ("amp", "optimizers", "utils", "examples.gpt_main_amp",
                   "ops.flatten", "ops.multi_tensor", "models.bert",
                   "optimizers.fused_lamb", "optimizers.param_groups",
-                  "examples.bert_main_amp"):
+                  "examples.bert_main_amp", "ops.kv_quant"):
             assert "apex_tpu_torch." + m in mods, m
         leaked = [m for m in sys.modules
                   if m == "apex_tpu" or m.startswith("apex_tpu.")]
@@ -68,7 +68,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 37
+    assert int(out.stdout.split()[-1]) >= 38
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():

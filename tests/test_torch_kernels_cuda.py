@@ -10,7 +10,8 @@ without it:
 the edges ``chip_smoke.py`` does not: odd widths, ragged lengths, the
 built head_dim (64), fully-masked rows, strided operands, inf/nan
 gradients in the Adam step, gradients flowing through the kernels'
-autograd functions, and the errors the wrappers raise.  Scale-aware error max|a-b| / (max|b| + 1) <= 2e-5
+autograd functions, the errors the wrappers raise, and B8 (int8 K/V)
+bit for bit against B7 on the dequantized K/V.  Scale-aware error max|a-b| / (max|b| + 1) <= 2e-5
 in fp32, <= 2e-2 in bf16; every kernel call adds exactly one launch.
 """
 
@@ -25,6 +26,7 @@ ln = importlib.import_module("apex_tpu_torch.normalization.fused_layer_norm")
 fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 da = importlib.import_module("apex_tpu_torch.ops.decode_attention")
 adam = importlib.import_module("apex_tpu_torch.optimizers.fused_adam")
+kvq = importlib.import_module("apex_tpu_torch.ops.kv_quant")
 
 pytestmark = pytest.mark.cuda
 
@@ -417,3 +419,92 @@ def test_dropout_gradients_flow_through_the_kernels(gen):
     assert rel_err(o, po) <= 2e-5
     for g, w in zip(got, want):
         assert rel_err(g, w) <= 2e-5
+
+
+# -- int8 K/V decode: B8 ------------------------------------------------------
+
+def _q8_inputs(gen, dtype, b, t, h=3, d=64):
+    """q in ``dtype``; int8 K/V and their scales from ``quantize_kv`` of
+    random data, head 1 of K all zero (zero scales); slot 0 fully
+    masked, the others with a masked tail as the engine's bias."""
+    q = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen)
+            for _ in range(2))
+    k[:, :, 1] = 0
+    (kq, ks), (vq, vs) = kvq.quantize_kv(k), kvq.quantize_kv(v)
+    bias = torch.zeros(b, t, device="cuda")
+    bias[0] = da.NEG_INF
+    bias[1:, t // 2 + 1:] = -1e9
+    return q, kq, ks, vq, vs, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 17, 1025])
+def test_decode_q8_matches_plain_and_b7_bitwise(gen, dtype, t):
+    q, kq, ks, vq, vs, bias = _q8_inputs(gen, dtype, 4, t)
+    before = launch_counts()["decode_attention"]
+    o = _one_launch("decode_attention_q8", lambda: da.cached_attention(
+        q, kq, vq, kv_bias=bias, k_scale=ks, v_scale=vs))
+    assert launch_counts()["decode_attention"] == before
+    assert o.dtype == dtype and o.shape == q.shape
+    want = da._reference(q, kq, vq, bias, 64 ** -0.5, ks, vs)
+    assert rel_err(o, want) <= TOL[dtype]
+    assert torch.all(o[0] == 0)          # the empty slot: every key masked
+    b7 = _one_launch("decode_attention", lambda: da.cached_attention(
+        q, kvq.dequantize_kv(kq, ks, dtype), kvq.dequantize_kv(vq, vs, dtype),
+        kv_bias=bias))
+    assert torch.equal(o, b7)
+
+
+def test_decode_q8_reads_gathered_strides(gen):
+    """K/V and scales as the engine hands them over: views into a wider
+    pool gather, the scales transposed, nothing contiguous."""
+    q, kq, ks, vq, vs, bias = _q8_inputs(gen, torch.float32, 2, 300)
+    kv = torch.stack([kq, vq], dim=2)                   # (B, T, 2, H, D)
+    kq_s, vq_s = kv.unbind(2)
+    sc = torch.stack([ks, vs]).transpose(1, 2).contiguous().transpose(1, 2)
+    ks_s, vs_s = sc.unbind(0)
+    assert not any(x.is_contiguous() for x in (kq_s, vq_s, ks_s, vs_s))
+    o = _one_launch("decode_attention_q8", lambda: da.cached_attention(
+        q, kq_s, vq_s, kv_bias=bias, k_scale=ks_s, v_scale=vs_s))
+    assert torch.equal(o, da.cached_attention(q, kq, vq, kv_bias=bias,
+                                              k_scale=ks, v_scale=vs))
+    assert rel_err(o, da._reference(q, kq, vq, bias, 64 ** -0.5, ks,
+                                    vs)) <= 2e-5
+
+
+def test_decode_q8_zero_scales_and_refusals(gen):
+    q, kq, ks, vq, vs, _ = _q8_inputs(gen, torch.float32, 2, 40)
+    o = da.cached_attention(q, kq, vq, k_scale=torch.zeros_like(ks),
+                            v_scale=torch.zeros_like(vs))
+    assert torch.isfinite(o).all() and torch.all(o == 0)
+    q32 = torch.randn(2, 1, 3, 32, device="cuda", generator=gen)
+    k32, s32 = kvq.quantize_kv(torch.randn(2, 40, 3, 32, device="cuda",
+                                           generator=gen))
+    with pytest.raises(ValueError, match="head_dim"):
+        da.cached_attention(q32, k32, k32, k_scale=s32, v_scale=s32)
+    with pytest.raises(TypeError):      # int8 K/V need their scales
+        da.cached_attention(q, kq, vq)
+    with pytest.raises(TypeError):      # scales need int8 K/V
+        da.cached_attention(q, kq.float(), vq.float(), k_scale=ks,
+                            v_scale=vs)
+    with pytest.raises(ValueError, match="together"):
+        da.cached_attention(q, kq, vq, k_scale=ks)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.cached_attention(qg, kq, vq, k_scale=ks, v_scale=vs)
+    with torch.no_grad():
+        da.cached_attention(qg, kq, vq, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_the_card_equals_the_cpu(gen, dtype):
+    x = (torch.randn(8, 100, 12, 64, device="cuda", generator=gen)
+         * torch.rand(8, 100, 12, 1, device="cuda", generator=gen) * 5)
+    x[0, 0, 0] = 0
+    x = x.to(dtype)
+    q, s = kvq.quantize_kv(x)
+    qc, sc = kvq.quantize_kv(x.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    assert torch.equal(kvq.dequantize_kv(q, s, dtype).cpu(),
+                       kvq.dequantize_kv(qc, sc, dtype))
