@@ -19,26 +19,58 @@
 // the keep bit of apex::dropout_keep, on the same global coordinate as the
 // forward's, scales do.v to keep ? do.v / (1 - rate) : 0 in ds, and dv
 // takes the dropped p (keep ? p / (1 - rate) : 0); delta is unchanged
-// because o already carries the dropout.
+// because o already carries the dropout.  Ragged tails and the key mask
+// are handled in the kernels, and operands are read in the JAX
+// (B, S, H, D) layout through strides: no transpose or padding copy.
 //
-// Bound on the H100: operations.  GPT-2 small trains at B = 8, H = 12,
-// S = 1024, D = 64: B5 does ~6 * B*H*S^2*D / 2 causal FLOPs and B6
-// ~8 * B*H*S^2*D / 2 against ~100 MB of operands.  Like the forward
-// (flash_fwd.cu), this first version computes in fp32 on the CUDA cores,
-// so its ceiling is the fp32 rate (67 TFLOP/s), not the bf16 tensor-core
-// rate; mma/wgmma tiles are later work.  Design: the TPU's sequential
-// grid axis becomes a loop inside the block.  B5: one block per
-// (batch*head, 64-row q tile) looping over k tiles up to the causal
+// B5 in bf16: flash_bwd_dq_kernel_wgmma, on the tensor cores.  Bound on
+// the H100 SXM: operations.  GPT-2 small trains at B 8, H 12, S 1024,
+// D 64: 6 * D * B*H*S(S+1)/2 = 19.3 GFLOP causal, 0.0196 ms at 989
+// TFLOP/s dense bf16, against 63 MB of q, k, v, do, lse, delta and dq
+// (0.0189 ms at 3.35 TB/s).  What held the first version back, and what
+// this one does:
+// - fp32 scalar FMAs on the CUDA cores (ceiling 67 TFLOP/s): S = Q K^T
+//   and dP = dO V^T are SS wgmma chains (q, do, k and v all K-major as
+//   they lie, [row][d]) and dQ += dS K an RS wgmma with dS in registers
+//   and K read MN-major through B's transpose bit (sm90_mma.cuh);
+// - every FMA read a K or V element back from shared memory, with two
+//   shuffles per dot product: the products read 128-byte-swizzled tiles
+//   through descriptors, and P, dP and dS never leave registers;
+// - 2-byte loads serialized with compute: 16-byte cp.async into a
+//   two-stage ring of K, V and key-mask tiles, the next tile loading
+//   while this one computes;
+// - light causal tiles first: blockIdx.y walks from the heaviest q tile
+//   down, batch*head on blockIdx.x.
+// A block owns a 64-row q tile (one warpgroup): q and do stay resident
+// in swizzled shared memory, lse (base 2) and delta for the thread's two
+// rows in registers.  Per 64-key tile: S and dP as two commit groups, P
+// = live ? exp(S * scale + mask - lse) : 0 (2^x on the SFU) while dP
+// still runs, with dropout dP = keep ? dP / (1 - rate) : 0 (the keep
+// bits hashed while S and dP run), dS = P (dP - delta) rounded to bf16
+// in registers (where the TPU's MXU and SDPA round it), then dQ += dS K.
+// One 64-row warpgroup per block with three blocks resident per SM (a
+// launch bound that caps a thread at 168 registers; ptxas gives 150, and
+// 163 with dropout, on the H100 build) hides the serial waits better
+// than 128-row blocks of two warpgroups and two blocks per SM.  Causal
+// tiles past the diagonal are not loaded; only the tile crossing it applies the causal mask, only the
+// last one the tail.  dq = acc * scale in bf16.  Operands must meet the
+// 16-byte rule (base and (b, s, h) strides in multiples of 16 bytes);
+// the wrapper copies one that does not.
+//
+// B5 in fp32 and B6 in both dtypes: the first version, on the CUDA cores
+// (fp32 arithmetic; the fp32 instantiations keep the oracle checks free
+// of TF32).  GPT's B6 does ~8 * B*H*S^2*D / 2 causal FLOPs.  The TPU's
+// sequential grid axis becomes a loop inside the block.  B5: one block
+// per (batch*head, 64-row q tile) looping over k tiles up to the causal
 // diagonal; B6: one block per (batch*head, 64-key tile) looping over q
 // tiles from the diagonal on.  Each row of the block's own operand
 // (query for B5, key for B6) belongs to D/16 adjacent threads holding 16
 // interleaved dims of it and of its fp32 accumulators in registers, so a
 // dot product is 16 FMAs plus a two-step shuffle; the streamed tiles are
 // staged in shared memory as fp32 and read back as broadcasts without
-// bank conflicts.  Ragged tails and the key mask are handled in the
-// kernel, and operands are read in the JAX (B, S, H, D) layout through
-// strides: no transpose or padding copy.
+// bank conflicts.
 #include "common.cuh"
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -266,6 +298,196 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- B5 / B5d in bf16 on the tensor cores ------------------------------
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBM = 64;                // query rows per block: one warpgroup
+constexpr int kBN = 64;                // keys per streamed tile
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 3;          // resident blocks per SM
+constexpr int kTile = kBN * 128;       // bytes of one K or V tile
+constexpr int kQBytes = kBM * 128;
+// Q | dO | K[2] | V[2] | mask[2][kBN] fp32, behind 1024 bytes of
+// alignment slack (the swizzle needs 1024-byte aligned tiles)
+constexpr int kSmem = 1024 + 2 * kQBytes + 4 * kTile + 2 * kBN * 4;
+
+struct DqArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *mask, *lse, *delta;
+  bf16* dq;
+  int H, Sq, Sk;
+  Strides st;
+  float scale, scale_log2;  // scale, scale * log2(e)
+  int causal;
+  const int* seed;
+  float rate, inv_keep;  // the drop rate and 1 / (1 - rate)
+};
+
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dq_kernel_wgmma(const DqArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sO = sQ + kQBytes;    // do
+  const uint32_t sK = sO + kQBytes;    // + stage * kTile
+  const uint32_t sV = sK + 2 * kTile;
+  const uint32_t sM = sV + 2 * kTile;  // + (stage * kBN + j) * 4
+  const float* mask_s =
+      reinterpret_cast<const float*>(smem_raw + (sM - raw));
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // causal: the heaviest q tiles first
+  const int tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * kBM;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + 16 * warp + lane / 4;  // and row0 + 8: this thread's
+
+  const bf16* qb = a.q + b * a.st.q[0] + h * a.st.q[2];
+  const bf16* ob = a.dout + b * a.st.o[0] + h * a.st.o[2];
+  const bf16* kb = a.k + b * a.st.k[0] + h * a.st.k[2];
+  const bf16* vb = a.v + b * a.st.v[0] + h * a.st.v[2];
+  const float* mb = a.mask == nullptr ? nullptr
+                                      : a.mask + static_cast<int64_t>(b) * a.Sk;
+
+  const int k_end = a.causal ? min(a.Sk, q0 + kBM) : a.Sk;
+  const int n_tiles = (k_end + kBN - 1) / kBN;
+
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * kBN;
+    for (int i = tid; i < kBN * 8; i += kThreads) {
+      const int r = i / 8, c = i % 8, key = k0 + r;
+      const bool ok = key < a.Sk;
+      const int64_t kr = ok ? key : 0;
+      sm90::cp_async16(sK + stage * kTile + sm90::sw128(r, c),
+                       kb + kr * a.st.k[1] + 8 * c, ok);
+      sm90::cp_async16(sV + stage * kTile + sm90::sw128(r, c),
+                       vb + kr * a.st.v[1] + 8 * c, ok);
+    }
+    if (mb != nullptr && tid < kBN) {
+      const int key = k0 + tid;
+      const bool ok = key < a.Sk;
+      sm90::cp_async4(sM + (stage * kBN + tid) * 4, mb + (ok ? key : 0), ok);
+    }
+  };
+
+  for (int i = tid; i < kBM * 8; i += kThreads) {
+    const int r = i / 8, c = i % 8, row = q0 + r;
+    const bool ok = row < a.Sq;
+    const int64_t qr = ok ? row : 0;
+    sm90::cp_async16(sQ + sm90::sw128(r, c), qb + qr * a.st.q[1] + 8 * c, ok);
+    sm90::cp_async16(sO + sm90::sw128(r, c), ob + qr * a.st.o[1] + 8 * c, ok);
+  }
+  if (n_tiles > 0) load_kv(0, 0);
+  sm90::cp_async_commit();
+
+  // this thread's two rows: lse in base 2, delta, and whether any key
+  // of the row is live (a fully-masked row has lse = NEG_INF and p = 0)
+  float L2[2], dl[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const int64_t srow = static_cast<int64_t>(bh) * a.Sq + row;
+    const float L = row < a.Sq ? a.lse[srow] : apex::kNegInf;
+    live[i] = L > apex::kNegInf * 0.5f;
+    L2[i] = L * kLog2e;
+    dl[i] = row < a.Sq ? a.delta[srow] : 0.f;
+  }
+  apex::DropoutCoords dc{};
+  if constexpr (kDropout) dc = apex::dropout_coords(a.seed, b, h);
+
+  float acc[32], s[32], dp[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r] = s[r] = dp[r] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) load_kv(t + 1, stage ^ 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();  // tile t (and Q, dO) landed
+    sm90::fence_proxy_async();
+    __syncthreads();
+    const int k0 = t * kBN;
+    const uint32_t kt = sK + stage * kTile, vt = sV + stage * kTile;
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    sm90::wgmma_tile_ss(s, sQ, kt);  // S = Q K^T
+    sm90::wgmma_commit();
+    sm90::wgmma_tile_ss(dp, sO, vt);  // dP = dO V^T
+    sm90::wgmma_commit();
+    // the tile's keep bits, hashed while S and dP run
+    uint32_t keep = 0;
+    if constexpr (kDropout)
+      keep = sm90::keep_bits(dc, row0, k0, lane, a.rate);
+    sm90::wgmma_wait<1>();  // S landed: P while dP runs
+    sm90::fence_regs(s);
+
+    const bool diag = a.causal && k0 + kBN - 1 > q0;
+    const bool tail = k0 + kBN > a.Sk;
+    const float* ms = mask_s + stage * kBN;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int i = sm90::acc_row_half(r);
+      const int col = sm90::acc_col(r, lane);
+      const float mk = mb != nullptr ? ms[col] * kLog2e : 0.f;
+      const float p =
+          sm90::exp2_approx(fmaf(s[r], a.scale_log2, mk - L2[i]));
+      s[r] = (!live[i] || (tail && k0 + col >= a.Sk) ||
+              (diag && k0 + col > row0 + 8 * i)) ? 0.f : p;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      float g = dp[r];
+      if constexpr (kDropout) g = (keep >> r) & 1u ? g * a.inv_keep : 0.f;
+      s[r] *= g - dl[sm90::acc_row_half(r)];  // dS = P (dP - delta)
+    }
+    uint32_t da[4][4];  // dS as the A operand of dQ += dS K
+    sm90::acc_to_a(s, da);
+    sm90::fence_regs(acc);
+    sm90::wgmma_tile_rs(acc, da, kt);  // dQ += dS K
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    __syncthreads();  // the stage is consumed before tile t + 2 fills it
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= a.Sq) continue;
+    bf16* out = a.dq + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = 4 * j + 2 * i;
+      *reinterpret_cast<uint32_t*>(out + sm90::acc_col(r, lane)) =
+          sm90::pack_bf16(acc[r] * a.scale, acc[r + 1] * a.scale);
+    }
+  }
+}
+
+template <bool kDropout>
+cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
+  static unsigned done = 0;
+  cudaError_t err =
+      sm90::allow_smem(flash_bwd_dq_kernel_wgmma<kDropout>, kSmem, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * a.H, (a.Sq + kBM - 1) / kBM);
+  flash_bwd_dq_kernel_wgmma<kDropout><<<grid, kThreads, kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 Strides read_strides(const void* strides) {
   const int64_t* s = static_cast<const int64_t*>(strides);
   Strides st;
@@ -373,10 +595,19 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
       return static_cast<int>(launch_dq<float>(
           D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal,
           dr, s));
-    case apex::kBFloat16:
-      return static_cast<int>(launch_dq<__nv_bfloat16>(
-          D, q, k, v, dout, mk, ls, dl, dq, B, H, Sq, Sk, st, scale, causal,
-          dr, s));
+    case apex::kBFloat16: {
+      if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
+      using wg::bf16;
+      const wg::DqArgs a{static_cast<const bf16*>(q),
+                         static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v),
+                         static_cast<const bf16*>(dout), mk, ls, dl,
+                         static_cast<bf16*>(dq), H, Sq, Sk, st, scale,
+                         scale * wg::kLog2e, causal, dr.seed, dr.rate,
+                         1.f / dr.keep_div};
+      return static_cast<int>(dr.on() ? wg::launch_dq<true>(a, B, s)
+                                      : wg::launch_dq<false>(a, B, s));
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -410,3 +641,6 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// the bf16 dq kernel's dynamic shared memory in bytes (the build report)
+extern "C" int apex_flash_bwd_dq_wgmma_smem() { return wg::kSmem; }

@@ -31,6 +31,14 @@ no host sync.  Dropout launches count under their own names
 (``flash_fwd_dropout``, ``flash_bwd_dq_dropout``,
 ``flash_bwd_dkv_dropout``); rate 0 runs the dropout-free kernels.
 
+In bf16 the forward and dq kernels run on Hopper's tensor cores
+(``wgmma``; P and dS rounded to bf16 before the second product, as the
+TPU's MXU and SDPA round them), reading q, k, v and do with 16-byte
+``cp.async``: a bf16 operand whose base or (b, s, h) strides are not
+multiples of 16 bytes is passed as a contiguous copy
+(:func:`_kernel_operand`).  fp32 keeps the CUDA-core bodies (no TF32),
+which read any stride; dk/dv stays on the CUDA cores in both dtypes.
+
 There is no short-sequence gate: the TPU's XLA/Pallas crossover
 (``FLASH_AUTO_MIN_SEQ``) was a v5e measurement and is not inherited.
 """
@@ -288,6 +296,26 @@ def _check_operands(name, q, k, v, kv_mask, dropout_rate, seed):
     return code, kv_mask, seed
 
 
+def _meets_16_byte_rule(t) -> bool:
+    """Whether the bf16 kernels can read ``t`` (B, S, H, D) with 16-byte
+    ``cp.async``: its base address and its (b, s, h) strides, over the
+    dims longer than 1, are multiples of 16 bytes (the head dim is
+    contiguous and 64 wide)."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * size % 16 == 0 for i in range(3) if t.shape[i] > 1)
+
+
+def _kernel_operand(t):
+    """``t`` as the kernels read it: a bf16 operand that breaks the
+    16-byte rule (:func:`_meets_16_byte_rule`) becomes a contiguous copy
+    in new memory; every other operand, and every fp32 one (the fp32
+    kernels read any stride), is passed as it lies."""
+    if t.dtype != torch.bfloat16 or _meets_16_byte_rule(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _dropout_args(dropout_rate, seed):
     """(seed pointer, fp32 rate, fp32 divisor ``1 - rate`` rounded from
     double) for the C entry points; rate 0 selects the dropout-free
@@ -302,6 +330,7 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, dropout_rate, seed):
     sk = k.shape[1]
     code, kv_mask, seed = _check_operands("flash_attention", q, k, v,
                                           kv_mask, dropout_rate, seed)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -322,10 +351,12 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, dropout_rate, seed):
 
 
 def _bwd_launch_args(q, k, v, do, lse, delta, kv_mask, causal, scale,
-                     dropout_rate, seed):
+                     dropout_rate, seed, tensor_cores):
     """Checks the backward's operands and returns the pointer and scalar
     arguments B5 and B6 share (the strides array is kept alive beside
-    them)."""
+    them).  With ``tensor_cores`` (B5, whose bf16 body reads 16-byte
+    lines) q, k, v and do go through :func:`_kernel_operand`; B6 reads
+    any stride and takes them as they lie."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     code, kv_mask, seed = _check_operands("flash_attention backward", q, k,
@@ -338,6 +369,8 @@ def _bwd_launch_args(q, k, v, do, lse, delta, kv_mask, causal, scale,
             raise ValueError(f"{n} must be ({b}, {h}, {sq}) float32")
     if do.stride(-1) != 1:
         do = do.contiguous()
+    if tensor_cores:
+        q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
     lse = lse.contiguous()
     delta = delta.contiguous()
     strides = (ctypes.c_int64 * 12)(
@@ -352,7 +385,7 @@ def _bwd_launch_args(q, k, v, do, lse, delta, kv_mask, causal, scale,
               int(causal), *_dropout_args(dropout_rate, seed), code,
               stream_handle(q.device))
     # the tensors made here must outlive the launch
-    keep = (strides, do, lse, delta, kv_mask, seed)
+    keep = (strides, q, k, v, do, lse, delta, kv_mask, seed)
     return ptrs, common, keep
 
 
@@ -366,12 +399,15 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_mask, causal, scale,
     """dq (B, Sq, H, D) given the output gradient ``do``, the forward's
     lse and ``delta = rowsum(do * o) - dlse`` (B, H, Sq) fp32: the kernel
     B5 (B5d with dropout) for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors.  A bf16 q, k, v or do whose base or (b, s, h) strides are
+    not multiples of 16 bytes is read from a contiguous copy
+    (:func:`_kernel_operand`)."""
     if _plain_bwd(q, k, v, do, lse, delta, kv_mask, seed):
         return _bwd_dq_reference(q, k, v, do, lse, delta, kv_mask, causal,
                                  scale, dropout_rate, seed)
     ptrs, common, _keep = _bwd_launch_args(q, k, v, do, lse, delta, kv_mask,
-                                           causal, scale, dropout_rate, seed)
+                                           causal, scale, dropout_rate, seed,
+                                           tensor_cores=True)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
         kernel = DROPOUT_BWD_DQ_KERNEL if dropout_rate > 0.0 \
@@ -384,12 +420,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_mask, causal,
                             scale, dropout_rate: float = 0.0, seed=None):
     """(dk, dv) (B, Sk, H, D), from the same operands as
     :func:`flash_attention_bwd_dq`: the kernel B6 (B6d with dropout) for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.  B6 runs on the CUDA
+    cores in both dtypes and reads its operands as they lie, whatever
+    their alignment."""
     if _plain_bwd(q, k, v, do, lse, delta, kv_mask, seed):
         return _bwd_dkv_reference(q, k, v, do, lse, delta, kv_mask, causal,
                                   scale, dropout_rate, seed)
     ptrs, common, _keep = _bwd_launch_args(q, k, v, do, lse, delta, kv_mask,
-                                           causal, scale, dropout_rate, seed)
+                                           causal, scale, dropout_rate, seed,
+                                           tensor_cores=False)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dk.numel():
@@ -402,7 +441,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_mask, causal,
 def flash_attention_fwd(q, k, v, kv_mask, causal, scale,
                         dropout_rate: float = 0.0, seed=None):
     """(o, lse) without autograd: the kernel B4 (B4d with dropout) for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.  A bf16 q, k or v
+    whose base or (b, s, h) strides are not multiples of 16 bytes is read
+    from a contiguous copy (:func:`_kernel_operand`)."""
     extra = tuple(t for t in (kv_mask, seed) if t is not None)
     if plain_path(q, k, v, *extra):
         return _reference(q, k, v, kv_mask, causal, scale, return_lse=True,

@@ -7,18 +7,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  — the card, its capability, CUDA version and power limit;
    exits 1 before anything else when CUDA is not available.
-2. build   — compiles ``apex_tpu_torch/csrc/*.cu`` with nvcc for sm_90a.
+2. build   — compiles ``apex_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
+   and reports ``ptxas``'s registers, spills and shared memory (static,
+   and the dynamic bytes each launch asks for) of the tensor-core
+   kernels (bf16 flash forward and dq, with and without dropout).
 3. kernels — every ported kernel against its plain PyTorch version on
    the card at the shapes the serving and training paths give it, fp32
    and bf16 (scale-aware error max|a-b|/(max|b|+1) <= 2e-5 fp32,
    <= 2e-2 bf16, <= 1e-6 for FusedAdam, whose skipped step must keep
-   every bit), each timed as the median device time of 20-50 launches
+   every bit; the bf16 flash forward's o and dq also row by row, see
+   ``row_err``), each timed as the median device time of 20-50 launches
    between CUDA events beside its plain version, one PyTorch library
    call computing the same function (a yardstick the port never calls)
    and its bound (the larger of bytes over 3.35 TB/s and FLOPs over the
-   peak for the operand type).  The dropout kernels (B4d, B5d, B6d, at
-   rate 0.1, BERT-large's and GPT's training shapes) also read their
-   keep-mask back from a crafted input and hold it bit for bit against
+   peak for the operand type).  Each flash row names the body it timed
+   (``design``: ``wgmma`` for bf16 B4/B5 and their dropout branches,
+   ``cuda_cores_fp32`` for fp32 and for B6).  The dropout kernels (B4d,
+   B5d, B6d, at rate 0.1, BERT-large's and GPT's training shapes) also
+   read their keep-mask back from crafted inputs over Sq = Sk = 192
+   (three tiles each way) and hold it bit for bit against
    ``keep_from_seed``.  B8 (int8 K/V, 8 x 1025 x 12 x 64 from
    ``quantize_kv`` of random data, one head all zero) is also held bit
    for bit against B7 on the dequantized K/V; its library yardstick is
@@ -119,6 +126,14 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # fp32 on the CUDA cores
               "bfloat16": 989e12}  # dense bf16 tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# per-row bound on the bf16 flash forward's o and on its dq
+# (``row_err``): the scale-aware 2e-2 is relative to the tensor's largest
+# value, which a causal row 0 (o = v[0]) sets well above a late row's,
+# so alone it can pass a fault of ~20% on the late rows.  fp32 keeps
+# its scale-aware 2e-5, which is already tighter than any row's
+# rounding noise.
+ROW_TOL = 1e-2
+ROW_EPS = 1e-2
 ADAM_TOL = 1e-6
 NEAR_TIE_GAP = 1e-3
 TIMED_LAUNCHES = 50
@@ -157,6 +172,18 @@ def scale_aware_err(a, b):
     b = b.float()
     max_abs = (a - b).abs().max().item()
     return max_abs / (b.abs().max().item() + 1.0), max_abs
+
+
+def row_err(a, b, eps=ROW_EPS):
+    """Largest error of one row (the head dim) against that row's own
+    size: max over rows of ||a_r - b_r|| / (||b_r|| + eps).  ``eps``
+    keeps a row that is zero up to rounding in exact arithmetic (a fully
+    masked row, the dq of a row with one live key) from dividing noise
+    by noise; it is a twentieth of the smallest live row's norm (~0.2)
+    that these unit-variance inputs give o and dq at S 1024."""
+    a = a.float()
+    b = b.float()
+    return ((a - b).norm(dim=-1) / (b.norm(dim=-1) + eps)).max().item()
 
 
 def median_ms(fn, iters=TIMED_LAUNCHES, warmup=5):
@@ -211,19 +238,57 @@ def phase_device():
     return name, smi_line
 
 
+# the bf16 tensor-core kernels: the fragment of their mangled names and
+# the C entry point that returns their dynamic shared memory
+WGMMA_KERNELS = (("flash_fwd_kernel_wgmma", "apex_flash_fwd_wgmma_smem"),
+                 ("flash_bwd_dq_kernel_wgmma",
+                  "apex_flash_bwd_dq_wgmma_smem"))
+
+
+def _wgmma_ptxas(log, lib):
+    """``ptxas -v``'s registers, spills and static shared memory of each
+    instantiation of the wgmma kernels, with the dynamic shared memory
+    its launch asks for."""
+    import ctypes
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = next((f"{frag}<{'true' if 'ILb1E' in ln else 'false'}>"
+                         for frag, _ in WGMMA_KERNELS if frag in ln), None)
+            if name:
+                fn = getattr(lib, dict(WGMMA_KERNELS)[name.split("<")[0]])
+                fn.restype = ctypes.c_int
+                out[name] = {"dynamic_smem_bytes": fn()}
+        elif name and "spill" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+            name = None
+    return out
+
+
 def phase_build():
     from apex_tpu_torch._kernels import build_library, library
     t0 = time.perf_counter()
     lib = build_library()
-    library()
+    cdll = library()
     secs = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "build.log").write_text(log)
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    wgmma = _wgmma_ptxas(log, cdll)
+    if len(wgmma) != 2 * len(WGMMA_KERNELS):
+        raise AssertionError(f"build: wgmma kernels missing from the ptxas "
+                             f"report: {sorted(wgmma)}")
     emit("build", seconds=round(secs, 3), library=str(lib.relative_to(REPO)),
-         ptxas=ptxas[:24])
+         wgmma_kernels=wgmma, ptxas=ptxas[:24])
 
 
 def _check(name, dtype, got, want, tol=None):
@@ -235,8 +300,28 @@ def _check(name, dtype, got, want, tol=None):
     return rel, max_abs
 
 
+def _check_rows(name, dtype, got, want):
+    """The per-row bound in bf16 (``row_err``); None in fp32."""
+    if dtype != "bfloat16":
+        return None
+    err = row_err(got, want)
+    if not err <= ROW_TOL:
+        raise AssertionError(f"{name} [{dtype}]: row error {err:.3g} > "
+                             f"{ROW_TOL} (scale-aware "
+                             f"{scale_aware_err(got, want)[0]:.3g})")
+    return err
+
+
 def _dt(dtype):
     return str(dtype).split(".")[1]
+
+
+def _design(which, dt):
+    """Which body a flash row timed: bf16 B4/B5 (and their dropout
+    branches) run on the tensor cores, everything else on the fp32 CUDA
+    cores."""
+    return ("wgmma" if dt == "bfloat16" and which in ("fwd", "dq")
+            else "cuda_cores_fp32")
 
 
 def _ln_variants(torch):
@@ -315,6 +400,7 @@ def _flash_variants(torch):
             o, lse = kernel()
             po, plse = plain()
             rel, max_abs = _check("flash_fwd", dt, o, po)
+            rows = _check_rows("flash_fwd", dt, o, po)
             r, m = _check("flash_fwd lse", "float32", lse, plse)
             rel, max_abs = max(rel, r), max(max_abs, m)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -337,7 +423,9 @@ def _flash_variants(torch):
             bms, by = bound(nbytes, 2 * bsz * h * s * s * d, dt)
             iters = TIMED_LAUNCHES if bsz == 1 else TIMED_LAUNCHES_LARGE
             out.append({
-                "shape": [bsz, s, h, d], "dtype": dt, "rel_err": rel,
+                "shape": [bsz, s, h, d], "dtype": dt,
+                "design": _design("fwd", dt), "rel_err": rel,
+                **({} if rows is None else {"row_err": rows}),
                 "max_abs_err": max_abs,
                 "ms": median_ms(kernel, iters),
                 "plain_ms": median_ms(plain, iters),
@@ -535,6 +623,8 @@ def _flash_bwd_variants(torch, which):
             for a, b in zip(got, want):
                 r, m = _check(f"flash_bwd_{which}", dt, a, b)
                 rel, max_abs = max(rel, r), max(max_abs, m)
+            rows = (_check_rows("flash_bwd_dq", dt, got[0], want[0])
+                    if which == "dq" else None)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
             dot = do.transpose(1, 2)
@@ -562,7 +652,9 @@ def _flash_bwd_variants(torch, which):
             bms, by = bound(n_in + n_out, flops, dt)
             iters = TIMED_LAUNCHES if bsz * s < 1024 else TIMED_LAUNCHES_LARGE
             out.append({
-                "shape": [bsz, s, h, d], "dtype": dt, "rel_err": rel,
+                "shape": [bsz, s, h, d], "dtype": dt,
+                "design": _design(which, dt), "rel_err": rel,
+                **({} if rows is None else {"row_err": rows}),
                 "max_abs_err": max_abs,
                 "ms": median_ms(kernel, iters),
                 "plain_ms": median_ms(plain, iters),
@@ -573,39 +665,47 @@ def _flash_bwd_variants(torch, which):
 
 def _mask_readback(torch, fa, which, dtype):
     """The keep-mask a dropout kernel drew, read back from its output
-    and held bit for bit against ``keep_from_seed``.  With q = 0 every
-    p is 1/Sk; with Sk = D = 64: v = I makes ``o > 0`` the forward's
-    mask (B4d); k = I, v and do all-ones in column 0 and delta = 0 make
-    ``dq > 0`` it (B5d); do = I makes ``dv > 0`` it (B6d).  Offsets past
-    2**16 and a seed near 2**31 exercise the global coordinates."""
-    b, h, n = 2, 3, 64
-    eye = torch.eye(n, device="cuda")[None, :, None, :].expand(
-        b, n, h, n).to(dtype).contiguous()
-    zeros = torch.zeros(b, n, h, n, device="cuda", dtype=dtype)
+    and held bit for bit against ``keep_from_seed`` over Sq = Sk = 192
+    (three tiles in q and in k).  With q = 0 every p is 1/192, and a
+    one-hot operand selects the 64-wide window w: v[64 w + d, d] = 1
+    makes ``o > 0`` the forward's mask over keys 64 w.. (B4d); k the
+    same, with v and do all-ones in column 0 and delta = 0, makes
+    ``dq > 0`` it (B5d); do over the q window makes ``dv > 0`` the mask
+    of queries 64 w.. (B6d).  Offsets past 2**16 and a seed near 2**31
+    exercise the global coordinates."""
+    b, h, n, d = 2, 3, 192, 64
+    zeros = torch.zeros(b, n, h, d, device="cuda", dtype=dtype)
     col0 = zeros.clone()
     col0[..., 0] = 1
+    cols = torch.arange(d, device="cuda")
     seed = fa.seed_array(2 ** 31 - 2, (70001, 65540, 4, 2 * h),
                          num_heads=h, device="cuda")
     keep = fa.keep_from_seed(seed, b, h, torch.arange(n, device="cuda"),
                              torch.arange(n, device="cuda"), DROPOUT)
     lse = torch.full((b, h, n), float(np.log(n)), device="cuda")
     delta = torch.zeros(b, h, n, device="cuda")
-    if which == "fwd":
-        o, _ = fa.flash_attention_fwd(zeros, zeros, eye, None, False, 0.125,
-                                      DROPOUT, seed)
-        got = o.permute(0, 2, 1, 3)
-    elif which == "dq":
-        got = fa.flash_attention_bwd_dq(zeros, eye, col0, col0, lse, delta,
-                                        None, False, 0.125, DROPOUT, seed)
-        got = got.permute(0, 2, 1, 3)
-    else:
-        _, dv = fa.flash_attention_bwd_dkv(zeros, zeros, zeros, eye, lse,
-                                           delta, None, False, 0.125,
-                                           DROPOUT, seed)
-        got = dv.permute(0, 2, 3, 1)
-    if not torch.equal(got.float() > 0, keep):
-        raise AssertionError(f"flash {which} dropout [{dtype}]: the kernel's "
-                             "keep-mask differs from keep_from_seed")
+    for w in range(n // d):
+        onehot = zeros.clone()
+        onehot[:, w * d + cols, :, cols] = 1
+        win = slice(w * d, (w + 1) * d)
+        if which == "fwd":
+            o, _ = fa.flash_attention_fwd(zeros, zeros, onehot, None, False,
+                                          0.125, DROPOUT, seed)
+            got, want = o.permute(0, 2, 1, 3), keep[..., win]
+        elif which == "dq":
+            got = fa.flash_attention_bwd_dq(zeros, onehot, col0, col0, lse,
+                                            delta, None, False, 0.125,
+                                            DROPOUT, seed)
+            got, want = got.permute(0, 2, 1, 3), keep[..., win]
+        else:
+            _, dv = fa.flash_attention_bwd_dkv(zeros, zeros, zeros, onehot,
+                                               lse, delta, None, False,
+                                               0.125, DROPOUT, seed)
+            got, want = dv.permute(0, 2, 3, 1), keep[:, :, win]
+        if not torch.equal(got.float() > 0, want):
+            raise AssertionError(f"flash {which} dropout [{dtype}]: the "
+                                 f"kernel's keep-mask differs from "
+                                 f"keep_from_seed in window {w}")
     return True
 
 
@@ -662,12 +762,16 @@ def _flash_dropout_variants(torch, which):
                     return pfn(*bargs)
             dt = _dt(dtype)
             got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
             rel = max_abs = 0.0
-            for a, b in zip(got if isinstance(got, tuple) else (got,),
-                            want if isinstance(want, tuple) else (want,)):
+            for a, b in zip(got, want):
                 r, m = _check(f"flash_{which}_dropout", dt if a.dtype == dtype
                               else "float32", a, b)
                 rel, max_abs = max(rel, r), max(max_abs, m)
+            # o (B4d) or dq (B5d); B6d stays on the scale-aware bound
+            rows = (None if which == "dkv" else _check_rows(
+                f"flash_{which}_dropout", dt, got[0], want[0]))
             del got, want, po
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
@@ -698,8 +802,11 @@ def _flash_dropout_variants(torch, which):
             iters = TIMED_LAUNCHES if bsz * s <= 4096 else \
                 TIMED_LAUNCHES_LARGE
             out.append({
-                "shape": [bsz, s, h, d], "dtype": dt, "causal": causal,
-                "rate": DROPOUT, "rel_err": rel, "max_abs_err": max_abs,
+                "shape": [bsz, s, h, d], "dtype": dt,
+                "design": _design(which, dt), "causal": causal,
+                "rate": DROPOUT, "rel_err": rel,
+                **({} if rows is None else {"row_err": rows}),
+                "max_abs_err": max_abs,
                 "mask_bitwise": readback,
                 "ms": median_ms(kernel, iters),
                 "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
@@ -839,7 +946,8 @@ def phase_kernels():
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            **{key: main[key] for key in ("library",) if key in main},
+            **{key: main[key] for key in ("library", "design", "row_err")
+               if key in main},
             "shape": main["shape"], "dtype": main["dtype"],
             "variants": rows}
     OUT_DIR.mkdir(parents=True, exist_ok=True)

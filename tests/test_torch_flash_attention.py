@@ -192,3 +192,51 @@ def test_dropout_is_refused():
         flash_attention(q, k, v, dropout_rate=0.1)
     with pytest.raises(NotImplementedError, match="annotation"):
         make_flash_attention(causal=True)(q, k, v, None, lambda p: p)
+
+
+def _bf16_view(shape, strides, offset=0, dtype=torch.bfloat16):
+    """A (B, S, H, D) view with the given element strides, ``offset``
+    elements into a fresh buffer."""
+    n = offset + 1 + sum((s - 1) * st for s, st in zip(shape, strides))
+    return torch.zeros(n, dtype=dtype).as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("case,copied", [
+    ("contiguous", False),
+    ("qkv_unbind", False),        # (B, S, 3, H, D).unbind(2), k's leg
+    ("base_off_2_bytes", True),   # base one element past a 16-byte line
+    ("seq_stride_196", True),     # s stride 392 bytes
+    ("head_stride_68", True),     # h stride 136 bytes
+    ("batch_of_one", False),      # B = 1: its odd stride never multiplies
+    ("float32", False),           # the fp32 kernels read any stride
+])
+def test_kernel_operand_copies_bf16_only_where_the_16_byte_rule_fails(
+        case, copied):
+    """The flash wrappers' operand preparation on CPU tensors with the
+    strides the card would see: a bf16 operand whose base or (b, s, h)
+    strides (over dims longer than 1) are not multiples of 16 bytes is
+    copied into new contiguous memory; every other operand is passed as
+    it lies."""
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    t = {
+        "contiguous": lambda: torch.zeros(2, 5, 3, 64, dtype=torch.bfloat16),
+        "qkv_unbind": lambda: torch.zeros(
+            2, 5, 3, 4, 64, dtype=torch.bfloat16).unbind(2)[1],
+        "base_off_2_bytes": lambda: _bf16_view((2, 5, 3, 64),
+                                               (960, 192, 64, 1), 1),
+        "seq_stride_196": lambda: _bf16_view((2, 5, 3, 64),
+                                             (980, 196, 64, 1)),
+        "head_stride_68": lambda: _bf16_view((2, 5, 3, 64),
+                                             (1020, 204, 68, 1)),
+        "batch_of_one": lambda: _bf16_view((1, 5, 3, 64), (7, 192, 64, 1)),
+        "float32": lambda: _bf16_view((2, 5, 3, 64), (980, 196, 64, 1),
+                                      1, torch.float32),
+    }[case]()
+    torch.manual_seed(0)
+    t.copy_(torch.randn(t.shape))
+    out = fa._kernel_operand(t)
+    assert (out is not t) == copied
+    assert fa._meets_16_byte_rule(out) or out.dtype == torch.float32
+    if copied:
+        assert out.is_contiguous() and out.data_ptr() != t.data_ptr()
+        assert torch.equal(out, t)

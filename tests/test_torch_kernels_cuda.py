@@ -12,11 +12,13 @@ built head_dim (64), fully-masked rows, strided operands, inf/nan
 gradients in the Adam step, gradients flowing through the kernels'
 autograd functions, the errors the wrappers raise, and B8 (int8 K/V)
 bit for bit against B7 on the dequantized K/V.  Scale-aware error max|a-b| / (max|b| + 1) <= 2e-5
-in fp32, <= 2e-2 in bf16; every kernel call adds exactly one launch.
+in fp32, <= 2e-2 in bf16; the bf16 flash o and dq also row by row
+(``row_err``); every kernel call adds exactly one launch.
 """
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +33,7 @@ kvq = importlib.import_module("apex_tpu_torch.ops.kv_quant")
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ROW_TOL = 1e-2  # bf16 flash o and dq, per row (as chip_smoke.py)
 
 
 @pytest.fixture
@@ -43,6 +46,25 @@ def gen():
 def rel_err(got, want):
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / (want.abs().max() + 1)).item()
+
+
+def row_err(got, want, eps=1e-2):
+    """max over rows (the head dim) of ||got_r - want_r|| / (||want_r||
+    + eps): unlike ``rel_err`` it does not let the largest row of a
+    causal output (row 0, o = v[0]) set the bound for the late rows.
+    ``eps`` keeps rows that are zero up to rounding (fully masked, or
+    the dq of a row with one live key) from dividing noise by noise."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / (want.norm(dim=-1) + eps)).max() \
+        .item()
+
+
+def _check_bf16(got, want):
+    """The scale-aware and the per-row bound, with both readings in the
+    message."""
+    errs = rel_err(got, want), row_err(got, want)
+    assert errs[0] <= 2e-2 and errs[1] <= ROW_TOL, \
+        f"scale-aware {errs[0]:.3g}, row {errs[1]:.3g}"
 
 
 def _one_launch(name, fn):
@@ -419,6 +441,157 @@ def test_dropout_gradients_flow_through_the_kernels(gen):
     assert rel_err(o, po) <= 2e-5
     for g, w in zip(got, want):
         assert rel_err(g, w) <= 2e-5
+
+
+# -- bf16 flash on the tensor cores: B4, B4d, B5, B5d ------------------------
+
+_BF16_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 1024)
+
+
+def _bf16_flash_case(gen, sq, sk, causal, rate):
+    """B4/B4d and B5/B5d in bf16 against their plain versions at one
+    (Sq, Sk): batch row 1 padded (its last third of keys at -1e9), and
+    without causal masking batch row 0 fully masked (zeros, NEG_INF lse,
+    zero dq).  The lse is held on the live rows alone, so the NEG_INF
+    rows cannot hide an error in the scale-aware bound."""
+    b, h, d = 2, 3, 64
+    q, do = (torch.randn(b, sq, h, d, device="cuda", generator=gen)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen)
+            .bfloat16() for _ in range(2))
+    mask = torch.zeros(b, sk, device="cuda")
+    mask[1, sk - sk // 3:] = -1e9
+    if not causal:
+        mask[0, :] = fa.NEG_INF
+    seed = _seed(4321 + sq, h, (3, 70000, 2, 2 * h)) if rate else None
+    scale = d ** -0.5
+    suffix = "_dropout" if rate else ""
+    o, lse = _one_launch("flash_fwd" + suffix, lambda: fa.flash_attention_fwd(
+        q, k, v, mask, causal, scale, rate, seed))
+    po, plse = fa._reference(q, k, v, mask, causal, scale, return_lse=True,
+                             dropout_rate=rate, seed=seed)
+    assert o.dtype == torch.bfloat16
+    _check_bf16(o, po)
+    live = slice(0 if causal else 1, None)
+    assert rel_err(lse[live], plse[live]) <= 2e-5
+    delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, plse, delta, mask, causal, scale, rate, seed)
+    dq = _one_launch("flash_bwd_dq" + suffix,
+                     lambda: fa.flash_attention_bwd_dq(*args))
+    assert dq.dtype == torch.bfloat16
+    _check_bf16(dq, fa._bwd_dq_reference(*args))
+    if not causal:
+        assert torch.all(o[0] == 0) and torch.all(lse[0] == fa.NEG_INF)
+        assert torch.all(dq[0] == 0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", _BF16_SEQS)
+def test_flash_bf16_tiles_match_plain(gen, s, causal, rate):
+    _bf16_flash_case(gen, s, s, causal, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("sq,sk", [(1, 1024), (63, 129), (65, 200),
+                                   (200, 64), (129, 1), (1024, 127)])
+def test_flash_bf16_cross_lengths_match_plain(gen, sq, sk, rate):
+    _bf16_flash_case(gen, sq, sk, False, rate)
+
+
+def test_flash_bf16_reads_strided_and_misaligned_operands(gen):
+    """The ``qkv.unbind`` views of ``test_flash_reads_strided_operands``
+    in bf16 are read where they lie; an operand whose base is 2 bytes
+    past a 16-byte line goes through the wrapper's contiguous copy and
+    gives what the copy itself gives, bit for bit.  B6 (dk, dv: CUDA
+    cores) takes that operand as it lies, with the same bits too."""
+    qkv = torch.randn(1, 50, 3, 4, 64, device="cuda",
+                      generator=gen).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert all(fa._kernel_operand(t) is t for t in (q, k, v))
+    o, lse = _one_launch("flash_fwd", lambda: fa.flash_attention_fwd(
+        q, k, v, None, True, 0.125))
+    po, plse = fa._reference(q, k, v, None, True, 0.125, return_lse=True)
+    _check_bf16(o, po)
+    assert rel_err(lse, plse) <= 2e-5
+    do = torch.randn(1, 50, 4, 64, device="cuda", generator=gen).bfloat16()
+    delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = _one_launch("flash_bwd_dq", lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, plse, delta, None, True, 0.125))
+    _check_bf16(dq, fa._bwd_dq_reference(q, k, v, do, plse, delta, None,
+                                         True, 0.125))
+    buf = torch.empty(50 * 4 * 64 + 8, device="cuda", dtype=torch.bfloat16)
+    q_off = buf[1:1 + 50 * 4 * 64].view(1, 50, 4, 64)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 == 2
+    assert fa._kernel_operand(q_off) is not q_off
+    o_off, lse_off = fa.flash_attention_fwd(q_off, k, v, None, True, 0.125)
+    o_ref, lse_ref = fa.flash_attention_fwd(q.contiguous(), k, v, None, True,
+                                            0.125)
+    assert torch.equal(o_off, o_ref) and torch.equal(lse_off, lse_ref)
+    dq_off = fa.flash_attention_bwd_dq(q_off, k, v, do, plse, delta, None,
+                                       True, 0.125)
+    assert torch.equal(dq_off, fa.flash_attention_bwd_dq(
+        q.contiguous(), k, v, do, plse, delta, None, True, 0.125))
+    dkv_off = fa.flash_attention_bwd_dkv(q_off, k, v, do, plse, delta, None,
+                                         True, 0.125)
+    dkv_ref = fa.flash_attention_bwd_dkv(q.contiguous(), k, v, do, plse,
+                                         delta, None, True, 0.125)
+    assert all(torch.equal(a, c) for a, c in zip(dkv_off, dkv_ref))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bf16_launches_are_bit_identical(gen, rate):
+    """One block owns each output (no atomics): two launches on the same
+    inputs give the same bits, o, lse and dq."""
+    b, s, h, d = 2, 333, 3, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(4))
+    seed = _seed(8, h) if rate else None
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_fwd(q, k, v, None, True, 0.125, rate,
+                                        seed)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+            .contiguous()
+        runs.append((o, lse, fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, None, True, 0.125, rate, seed)))
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 1, 2])
+def test_flash_dropout_mask_reads_back_over_tiles(gen, dtype, window):
+    """The keep-mask of B4d, B5d and B6d read back bit for bit over more
+    than one tile in q and in k: Sq = Sk = 192 with q = 0 (every p =
+    1/192) and a one-hot operand selecting the 64-key window ``window``:
+    v for the forward (o[q, d] keeps key 64 w + d), k for dq (with v and
+    do all-ones in column 0, delta = 0), and do over the q window for dv
+    (dv[key, d] keeps query 64 w + d)."""
+    b, h, n, d = 2, 3, 192, 64
+    rate = 0.1
+    zeros = torch.zeros(b, n, h, d, device="cuda", dtype=dtype)
+    onehot = zeros.clone()
+    cols = torch.arange(d, device="cuda")
+    onehot[:, window * d + cols, :, cols] = 1
+    col0 = zeros.clone()
+    col0[..., 0] = 1
+    seed = _seed(2 ** 31 - 5, h, (70001, 65540, 4, 2 * h))
+    keep = fa.keep_from_seed(seed, b, h, torch.arange(n, device="cuda"),
+                             torch.arange(n, device="cuda"), rate)
+    win = slice(window * d, (window + 1) * d)
+    lse = torch.full((b, h, n), float(np.log(n)), device="cuda")
+    delta = torch.zeros(b, h, n, device="cuda")
+    o, _ = fa.flash_attention_fwd(zeros, zeros, onehot, None, False, 0.125,
+                                  rate, seed)
+    assert torch.equal(o.float().permute(0, 2, 1, 3) > 0, keep[..., win])
+    dq = fa.flash_attention_bwd_dq(zeros, onehot, col0, col0, lse, delta,
+                                   None, False, 0.125, rate, seed)
+    assert torch.equal(dq.float().permute(0, 2, 1, 3) > 0, keep[..., win])
+    _, dv = fa.flash_attention_bwd_dkv(zeros, zeros, zeros, onehot, lse,
+                                       delta, None, False, 0.125, rate, seed)
+    assert torch.equal(dv.float().permute(0, 2, 3, 1) > 0, keep[:, :, win])
 
 
 # -- int8 K/V decode: B8 ------------------------------------------------------
