@@ -57,18 +57,51 @@
 // 16-byte rule (base and (b, s, h) strides in multiples of 16 bytes);
 // the wrapper copies one that does not.
 //
-// B5 in fp32 and B6 in both dtypes: the first version, on the CUDA cores
-// (fp32 arithmetic; the fp32 instantiations keep the oracle checks free
-// of TF32).  GPT's B6 does ~8 * B*H*S^2*D / 2 causal FLOPs.  The TPU's
-// sequential grid axis becomes a loop inside the block.  B5: one block
-// per (batch*head, 64-row q tile) looping over k tiles up to the causal
-// diagonal; B6: one block per (batch*head, 64-key tile) looping over q
-// tiles from the diagonal on.  Each row of the block's own operand
-// (query for B5, key for B6) belongs to D/16 adjacent threads holding 16
-// interleaved dims of it and of its fp32 accumulators in registers, so a
-// dot product is 16 FMAs plus a two-step shuffle; the streamed tiles are
-// staged in shared memory as fp32 and read back as broadcasts without
-// bank conflicts.
+// B6 in bf16: flash_bwd_dkv_kernel_wgmma, on the tensor cores.  Bound on
+// the H100 SXM: operations.  At GPT-2 small's step, 8 * D *
+// B*H*S(S+1)/2 = 25.8 GFLOP causal, 0.0261 ms at 989 TFLOP/s dense bf16,
+// against 76 MB of q, k, v, do, lse, delta, dk and dv (0.0228 ms at 3.35
+// TB/s); BERT-large's B6d (B 32, H 16, S 128, not causal) is bound by
+// its 51 MB (0.0152 ms).  The CUDA-core version needed P^T and dS^T as
+// operands; this one computes them directly, with keys on the
+// accumulator's rows and queries on its columns:
+// - S^T = K Q^T and dP^T = V dO^T are SS wgmma chains (k, v, q and do
+//   all K-major as they lie, [row][d]); P^T and dS^T, rounded to bf16 in
+//   registers (acc_to_a), are the A operands of the RS products dV +=
+//   P^T dO and dK += dS^T Q, which read the dO and Q tiles MN-major
+//   through B's transpose bit (as B4 reads V): every operand tile is
+//   loaded once, nothing is transposed;
+// - the per-query statistics move with the queries: lse and delta stream
+//   with each Q/dO tile into shared memory (4-byte cp.async, as dq's key
+//   mask) and are read per accumulator column; the key mask is per row,
+//   in registers for the thread's two keys;
+// - the dropout keep bits come from sm90::keep_bits_t, the transposed
+//   twin of keep_bits (the hash's row is still the query, its column the
+//   key), hashed while S^T and dP^T run;
+// - Q, dO, lse and delta in a two-stage cp.async ring; causal query
+//   tiles wholly before the key tile are not loaded, only the first
+//   tile (the one on the diagonal) applies the causal mask and only the
+//   last the query tail; the earliest keys, the heaviest causal blocks,
+//   launch first.
+// A block owns a 64-key tile of one batch*head (one warpgroup); dK, dV,
+// S^T and dP^T take 4 x 32 fp32 registers a thread, so two blocks are
+// resident per SM (the launch bound caps a thread at 255 registers).
+// Per query tile: S^T and dP^T as two commit groups, P^T while dP^T
+// runs, then both RS products in one group.  dk = acc * scale and dv in
+// bf16.  Operands must meet the 16-byte rule; the wrapper copies one that
+// does not.
+//
+// B5 and B6 in fp32: the first version, on the CUDA cores (fp32
+// arithmetic; the fp32 instantiations keep the oracle checks free of
+// TF32).  The TPU's sequential grid axis becomes a loop inside the
+// block.  B5: one block per (batch*head, 64-row q tile) looping over k
+// tiles up to the causal diagonal; B6: one block per (batch*head, 64-key
+// tile) looping over q tiles from the diagonal on.  Each row of the
+// block's own operand (query for B5, key for B6) belongs to D/16
+// adjacent threads holding 16 interleaved dims of it and of its fp32
+// accumulators in registers, so a dot product is 16 FMAs plus a two-step
+// shuffle; the streamed tiles are staged in shared memory as fp32 and
+// read back as broadcasts without bank conflicts.
 #include "common.cuh"
 #include "sm90_mma.cuh"
 
@@ -486,6 +519,210 @@ cudaError_t launch_dq(const DqArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// -- B6 / B6d in bf16 on the tensor cores ------------------------------
+
+constexpr int kDkvMinBlocks = 2;  // resident blocks per SM
+// K | V | Q[2] | dO[2] | (lse, delta)[2][kBM] fp32, behind 1024 bytes of
+// alignment slack
+constexpr int kDkvSmem = 1024 + 2 * kTile + 4 * kQBytes + 4 * kBM * 4;
+
+struct DkvArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *mask, *lse, *delta;
+  bf16 *dk, *dv;
+  int H, Sq, Sk;
+  Strides st;
+  float scale, scale_log2;  // scale, scale * log2(e)
+  int causal;
+  const int* seed;
+  float rate, inv_keep;  // the drop rate and 1 / (1 - rate)
+};
+
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads, kDkvMinBlocks)
+flash_bwd_dkv_kernel_wgmma(const DkvArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + kTile;
+  const uint32_t sQ = sV + kTile;        // + stage * kQBytes
+  const uint32_t sO = sQ + 2 * kQBytes;  // do, + stage * kQBytes
+  const uint32_t sL = sO + 2 * kQBytes;  // lse, delta: + (2 stage + i) kBM 4
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (sL - raw));
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // causal: key tile 0 sees every query tile, so the lowest blockIdx.y
+  // (launched first) is the heaviest
+  const int k0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int key0 = k0 + 16 * warp + lane / 4;  // and key0 + 8: this thread's
+
+  const bf16* qb = a.q + b * a.st.q[0] + h * a.st.q[2];
+  const bf16* ob = a.dout + b * a.st.o[0] + h * a.st.o[2];
+  const bf16* kb = a.k + b * a.st.k[0] + h * a.st.k[2];
+  const bf16* vb = a.v + b * a.st.v[0] + h * a.st.v[2];
+  const int64_t srow0 = static_cast<int64_t>(bh) * a.Sq;
+
+  // causal: query tiles wholly before the key tile see none of its keys
+  const int q_begin = a.causal ? k0 : 0;
+  const int n_tiles = q_begin < a.Sq ? (a.Sq - q_begin + kBM - 1) / kBM : 0;
+
+  auto load_q = [&](int t, int stage) {
+    const int q0 = q_begin + t * kBM;
+    for (int i = tid; i < kBM * 8; i += kThreads) {
+      const int r = i / 8, c = i % 8, row = q0 + r;
+      const bool ok = row < a.Sq;
+      const int64_t qr = ok ? row : 0;
+      sm90::cp_async16(sQ + stage * kQBytes + sm90::sw128(r, c),
+                       qb + qr * a.st.q[1] + 8 * c, ok);
+      sm90::cp_async16(sO + stage * kQBytes + sm90::sw128(r, c),
+                       ob + qr * a.st.o[1] + 8 * c, ok);
+    }
+    // threads 0..63 bring the tile's lse, 64..127 its delta
+    const int row = q0 + tid % kBM;
+    const bool ok = row < a.Sq;
+    const float* src = tid < kBM ? a.lse : a.delta;
+    sm90::cp_async4(sL + ((2 * stage + tid / kBM) * kBM + tid % kBM) * 4,
+                    src + srow0 + (ok ? row : 0), ok);
+  };
+
+  for (int i = tid; i < kBN * 8; i += kThreads) {
+    const int r = i / 8, c = i % 8, key = k0 + r;
+    const bool ok = key < a.Sk;
+    const int64_t kr = ok ? key : 0;
+    sm90::cp_async16(sK + sm90::sw128(r, c), kb + kr * a.st.k[1] + 8 * c, ok);
+    sm90::cp_async16(sV + sm90::sw128(r, c), vb + kr * a.st.v[1] + 8 * c, ok);
+  }
+  if (n_tiles > 0) load_q(0, 0);
+  sm90::cp_async_commit();
+
+  // this thread's two keys: in range, and their mask in base 2
+  bool key_ok[2];
+  float mk2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    key_ok[i] = key < a.Sk;
+    mk2[i] = (a.mask != nullptr && key_ok[i])
+                 ? a.mask[static_cast<int64_t>(b) * a.Sk + key] * kLog2e
+                 : 0.f;
+  }
+  apex::DropoutCoords dc{};
+  if constexpr (kDropout) dc = apex::dropout_coords(a.seed, b, h);
+
+  float dk[32], dv[32], s[32], dp[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) dk[r] = dv[r] = s[r] = dp[r] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) load_q(t + 1, stage ^ 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();  // tile t (and K, V) landed
+    sm90::fence_proxy_async();
+    __syncthreads();
+    const int q0 = q_begin + t * kBM;
+    const uint32_t qt = sQ + stage * kQBytes, ot = sO + stage * kQBytes;
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    sm90::wgmma_tile_ss(s, sK, qt);  // S^T = K Q^T
+    sm90::wgmma_commit();
+    sm90::wgmma_tile_ss(dp, sV, ot);  // dP^T = V dO^T
+    sm90::wgmma_commit();
+    // the tile's keep bits, hashed while S^T and dP^T run
+    uint32_t keep = 0;
+    if constexpr (kDropout)
+      keep = sm90::keep_bits_t(dc, key0, q0, lane, a.rate);
+    sm90::wgmma_wait<1>();  // S^T landed: P^T while dP^T runs
+    sm90::fence_regs(s);
+
+    // the query columns' statistics: lse (a fully-masked row has NEG_INF
+    // and p = 0) and delta
+    const float* ls = stats + 2 * stage * kBM;
+    const float* dl = ls + kBM;
+    const bool diag = a.causal && t == 0;  // q0 == k0
+    const bool tail = q0 + kBM > a.Sq;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int i = sm90::acc_row_half(r);
+      const int col = sm90::acc_col(r, lane);
+      const float L = ls[col];
+      const float p =
+          sm90::exp2_approx(fmaf(s[r], a.scale_log2, mk2[i] - L * kLog2e));
+      s[r] = (!key_ok[i] || !(L > apex::kNegInf * 0.5f) ||
+              (tail && q0 + col >= a.Sq) ||
+              (diag && key0 + 8 * i > q0 + col)) ? 0.f : p;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+
+    // P^T as dV's A operand (dropped and scaled under dropout), then
+    // dS^T = P^T (dP^T - delta), dP^T dropped and scaled the same way
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 8 * kk + 2 * j;
+        float lo = s[r], hi = s[r + 1];
+        if constexpr (kDropout) {
+          lo = (keep >> r) & 1u ? lo * a.inv_keep : 0.f;
+          hi = (keep >> (r + 1)) & 1u ? hi * a.inv_keep : 0.f;
+        }
+        pa[kk][j] = sm90::pack_bf16(lo, hi);
+      }
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      float g = dp[r];
+      if constexpr (kDropout) g = (keep >> r) & 1u ? g * a.inv_keep : 0.f;
+      s[r] *= g - dl[sm90::acc_col(r, lane)];
+    }
+    sm90::acc_to_a(s, da);
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::wgmma_tile_rs(dv, pa, ot);  // dV += P^T dO
+    sm90::wgmma_tile_rs(dk, da, qt);  // dK += dS^T Q
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_frags(pa);
+    sm90::fence_frags(da);
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    __syncthreads();  // the stage is consumed before tile t + 2 fills it
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (!key_ok[i]) continue;
+    const int64_t off = ((static_cast<int64_t>(b) * a.Sk + key) * a.H + h) * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = 4 * j + 2 * i;
+      const int col = sm90::acc_col(r, lane);
+      *reinterpret_cast<uint32_t*>(a.dk + off + col) =
+          sm90::pack_bf16(dk[r] * a.scale, dk[r + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(a.dv + off + col) =
+          sm90::pack_bf16(dv[r], dv[r + 1]);
+    }
+  }
+}
+
+template <bool kDropout>
+cudaError_t launch_dkv(const DkvArgs& a, int B, cudaStream_t stream) {
+  static unsigned done = 0;
+  cudaError_t err =
+      sm90::allow_smem(flash_bwd_dkv_kernel_wgmma<kDropout>, kDkvSmem, &done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * a.H, (a.Sk + kBN - 1) / kBN);
+  flash_bwd_dkv_kernel_wgmma<kDropout>
+      <<<grid, kThreads, kDkvSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace wg
 
 Strides read_strides(const void* strides) {
@@ -633,14 +870,25 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
       return static_cast<int>(launch_dkv<float>(
           D, q, k, v, dout, mk, ls, dl, dk, dv, B, H, Sq, Sk, st, scale,
           causal, dr, s));
-    case apex::kBFloat16:
-      return static_cast<int>(launch_dkv<__nv_bfloat16>(
-          D, q, k, v, dout, mk, ls, dl, dk, dv, B, H, Sq, Sk, st, scale,
-          causal, dr, s));
+    case apex::kBFloat16: {
+      if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
+      using wg::bf16;
+      const wg::DkvArgs a{static_cast<const bf16*>(q),
+                          static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v),
+                          static_cast<const bf16*>(dout), mk, ls, dl,
+                          static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
+                          Sq, Sk, st, scale, scale * wg::kLog2e, causal,
+                          dr.seed, dr.rate, 1.f / dr.keep_div};
+      return static_cast<int>(dr.on() ? wg::launch_dkv<true>(a, B, s)
+                                      : wg::launch_dkv<false>(a, B, s));
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// the bf16 dq kernel's dynamic shared memory in bytes (the build report)
+// the bf16 dq and dk/dv kernels' dynamic shared memory in bytes (the
+// build report)
 extern "C" int apex_flash_bwd_dq_wgmma_smem() { return wg::kSmem; }
+extern "C" int apex_flash_bwd_dkv_wgmma_smem() { return wg::kDkvSmem; }

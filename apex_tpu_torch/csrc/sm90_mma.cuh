@@ -4,7 +4,8 @@
 // m64n64k16 bf16 -> fp32 with A from shared memory (SS) or registers
 // (RS), the fences that order them, the register maps of the
 // accumulator and of the A fragment, 2^x and the dropout keep bits of a
-// score fragment, and the opt-in to dynamic shared memory above 48 KB.
+// score fragment (as S, or transposed as S^T for dk/dv), and the opt-in
+// to dynamic shared memory above 48 KB.
 //
 // Tiles.  Every tile is rows of 64 bf16 (head_dim 64 = 128 bytes, the
 // swizzle's width) in shared memory whose base is 1024-byte aligned; the
@@ -16,8 +17,9 @@
 //     come in 8-row groups 1024 bytes apart (SBO); a k16 step moves the
 //     start address 32 bytes along the row.
 //   MN-major (the output column runs along the row): B = v or k as
-//     [key][d] for a product over keys (transpose bit 1).  8 keys per
-//     1024-byte group (SBO); a k16 step is two groups, 2048 bytes.
+//     [key][d] for a product over keys, or q or do as [query][d] for a
+//     product over queries (transpose bit 1).  8 rows per 1024-byte
+//     group (SBO); a k16 step is two groups, 2048 bytes.
 // Fragments (per warp w of the warpgroup, lane t, g = t / 4, c = t % 4):
 //   accumulator m64n64 fp32, 32 registers: d[4 * j + 2 * i + e] is row
 //     16 w + g + 8 i, column 8 j + 2 c + e (j < 8, i, e < 2);
@@ -116,6 +118,15 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for A fragments in registers: an RS wgmma reads them after it
+// is issued, so they must stay live and unchanged until its wait
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r])::"memory");
 }
 
 #define APEX_WGMMA_D32                                                     \
@@ -232,6 +243,25 @@ __device__ __forceinline__ uint32_t keep_bits(const apex::DropoutCoords& dc,
                 dc.seed, dc.bh,
                 static_cast<uint32_t>(row0 + 8 * acc_row_half(r) + dc.row_off),
                 static_cast<uint32_t>(k0 + acc_col(r, lane) + dc.col_off),
+                rate))
+            << r;
+  return bits;
+}
+
+// the same bits for a TRANSPOSED score accumulator, whose rows are keys
+// and columns queries (dk/dv compute S^T = K Q^T): bit r for register r,
+// keys key0 and key0 + 8, queries q0..; the hash's row is still the
+// query and its column the key, so both forms draw one mask
+__device__ __forceinline__ uint32_t keep_bits_t(const apex::DropoutCoords& dc,
+                                                int key0, int q0, int lane,
+                                                float rate) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int r = 0; r < 32; ++r)
+    bits |= static_cast<uint32_t>(apex::dropout_keep(
+                dc.seed, dc.bh,
+                static_cast<uint32_t>(q0 + acc_col(r, lane) + dc.row_off),
+                static_cast<uint32_t>(key0 + 8 * acc_row_half(r) + dc.col_off),
                 rate))
             << r;
   return bits;

@@ -13,9 +13,15 @@ JAX example does, ``deterministic=True`` with dot-product attention::
 :func:`train` is the same loop as a function, with the model API's own
 knobs besides: ``attention_fn`` (``make_flash_attention()`` for the
 fused kernels) and ``deterministic=False`` for dropout (attention
-dropout inside the flash kernels, hidden dropout on a
-``torch.Generator`` seeded from ``seed``); ``device="cpu"`` runs the
-plain PyTorch versions of the kernels.
+dropout inside the flash kernels, hidden dropout through the threefry
+dropout kernel, both keyed as flax keys them); ``device="cpu"`` runs
+the plain PyTorch versions of the kernels.
+
+Step keys: the JAX example trains deterministically and passes no
+dropout rng (``examples/bert/main_amp.py``), so it fixes no rule for
+one.  Here step ``i`` takes ``fold_in(PRNGKey(seed), i)``
+(:func:`step_key`), the key a JAX caller would pass as
+``rngs={"dropout": ...}`` to reproduce the step's dropout.
 
 Not here: ``--ring-attention``/``--sp-attention``, ``--remat``,
 ``--moe``, ``--grad-accum``, ``--pp`` and the data-parallel mesh.
@@ -36,6 +42,7 @@ from apex_tpu_torch import amp
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models import BertConfig, BertForPreTraining, \
     bert_base, bert_large
+from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.optimizers import FusedLAMB
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
@@ -112,18 +119,23 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
     return model, optimizer, params, optimizer.init(params)
 
 
+def step_key(seed: int, step: int) -> threefry.Key:
+    """Step ``step``'s dropout key: ``fold_in(PRNGKey(seed), step)``."""
+    return threefry.fold_in(threefry.PRNGKey(seed), step)
+
+
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
-               batch, *, deterministic: bool = True,
-               generator: Optional[torch.Generator] = None):
+               batch, *, deterministic: bool = True, dropout_key=None):
     """One step of the JAX example's ``train_step``: loss, scaled
     gradients, ``optimizer.step``.  ``batch`` is ``(ids, labels,
-    weights, nsp)`` on the device.  Returns ``(params, opt_state, loss,
-    grads)``, the loss unscaled and the grads as autograd gave them
-    (scaled)."""
+    weights, nsp)`` on the device; ``dropout_key`` (a threefry key, e.g.
+    :func:`step_key`) keys the step's dropout when ``deterministic`` is
+    False.  Returns ``(params, opt_state, loss, grads)``, the loss
+    unscaled and the grads as autograd gave them (scaled)."""
     ids, labels, weights, nsp = batch
     mlm_logits, nsp_logits = model.apply(params, ids,
                                          deterministic=deterministic,
-                                         generator=generator)
+                                         dropout_key=dropout_key)
     loss = batch_loss(mlm_logits, nsp_logits, labels, weights, nsp)
     with amp.scale_loss(loss, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
@@ -153,16 +165,13 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
     ``step_seconds`` (host clock around each step, ended by reading the
     loss), ``tokens_per_s`` per step, and the final scaler state
     (``loss_scale``, ``skipped_steps``, ``applied_steps``).  Dropout
-    (``deterministic=False``) draws from a generator on the device
-    seeded with ``seed``."""
+    (``deterministic=False``) takes step i's key from
+    :func:`step_key` ``(seed, i)``."""
     dev = resolve_device(device)
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, max_grad_norm=max_grad_norm, opt_level=opt_level,
         loss_scale=loss_scale, attention_fn=attention_fn, device=dev,
         seed=seed)
-    generator = None
-    if not deterministic:
-        generator = torch.Generator(device=dev).manual_seed(int(seed))
     losses, seconds = [], []
     meter = AverageMeter()
     data = batches(cfg, batch, seq_len, mask_prob)
@@ -172,7 +181,8 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
         tensors = tuple(torch.from_numpy(a).to(dev) for a in host)
         params, opt_state, loss, _ = train_step(
             model, optimizer, params, opt_state, tensors,
-            deterministic=deterministic, generator=generator)
+            deterministic=deterministic,
+            dropout_key=None if deterministic else step_key(seed, step))
         losses.append(float(loss))      # waits for the step to finish
         seconds.append(time.perf_counter() - t0)
         meter.update(losses[-1])

@@ -13,21 +13,30 @@ XLA).
 
 Attention runs through ``attention_fn(q, k, v, bias, dropout_fn)``
 (default :func:`dot_product_attention`; ``make_flash_attention()`` for
-the fused kernels).  Dropout follows the JAX model with an explicit
-``torch.Generator`` in place of flax's ``dropout`` rng stream:
+the fused kernels).  Dropout draws from flax's ``dropout`` rng stream as
+the JAX model does: ``forward(..., deterministic=False,
+dropout_key=key)`` takes the key that the JAX model takes as
+``rngs={"dropout": key}`` (two uint32, e.g. ``threefry.PRNGKey(seed)``
+or ``np.asarray(jax.random.PRNGKey(seed))``), and every draw is keyed
+by its flax module path and call count (``ops/threefry.py``), so the
+same key drops the same positions in both packages:
 
-- attention dropout: with a custom ``attention_fn``, each layer draws an
-  int32 seed in [0, 2**31 - 1) per call from the generator and hands it
-  to the attention function as ``dropout_fn.rate`` / ``.seed``, which
-  the flash kernels consume (dropout inside the kernel); the default
-  attention applies ``dropout_fn`` to its materialized probs;
-- hidden dropout (after the embedding LN, on the attention output and
-  on the MLP output): ``torch.where(rand < 1 - rate, x / (1 - rate), 0)``
-  on the generator.
+- hidden dropout (the embeddings' ``Dropout_0`` after their LN, and
+  each layer's one ``Dropout_0``, called on the attention output and
+  then on the MLP output, its count advancing between the two):
+  :class:`~apex_tpu_torch.ops.threefry.Dropout` (flax's ``nn.Dropout``
+  bit for bit, the ``threefry_dropout`` kernel on the card);
+- attention dropout: with a custom ``attention_fn``, each layer's int32
+  seed ``randint(make_rng("dropout"), (), 0, int32 max)`` at the
+  attention's scope, handed over as ``dropout_fn.rate`` /
+  ``.seed`` for the flash kernels (dropout inside the kernel); the
+  encoder draws all layers' seeds on the host and moves them to the
+  card in one ``non_blocking`` copy from pinned memory; the default
+  attention applies ``dropout_fn`` (the attention's ``Dropout_0``) to
+  its materialized probs.
 
-The port's generator stream is not flax's threefry stream, so a given
-seed drops other positions than the JAX model does; the tests hold the
-two together through injected attention seeds.
+The keys depend only on the step key, the paths and the counts, so
+they are computed on the host: nothing syncs.
 
 Not here: ``PipelinedBert``, MoE layers, remat, the
 ``BertEmbeddings``/``BertStage``/``BertHeads`` split and
@@ -47,6 +56,7 @@ from torch import nn
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,21 +83,13 @@ def bert_large() -> BertConfig:
                       num_attention_heads=16, intermediate_size=4096)
 
 
-def _need_generator(generator):
-    if generator is None:
-        raise ValueError("dropout (deterministic=False) needs a "
-                         "torch.Generator: pass generator=")
-    return generator
-
-
-def dropout(x, rate: float, generator: Optional[torch.Generator]):
-    """Inverted dropout on ``generator``: ``x / (1 - rate)`` where a
-    uniform draw is below ``1 - rate``, else 0.  Rate 0 draws nothing."""
-    if rate == 0.0:
-        return x
-    r = torch.rand(x.shape, generator=_need_generator(generator),
-                   device=x.device)
-    return torch.where(r < 1.0 - rate, x / (1.0 - rate), 0.0).to(x.dtype)
+def _scope(dropout_key) -> threefry.RngScope:
+    """The flax scope of the ``dropout`` stream a module draws from: the
+    root scope of a key, or the scope its parent hands down."""
+    if dropout_key is None:
+        raise ValueError("dropout (deterministic=False) needs a threefry "
+                         "key: pass dropout_key=")
+    return threefry.RngScope.of(dropout_key)
 
 
 def dot_product_attention(q, k, v, bias=None, dropout_fn=None):
@@ -115,7 +117,10 @@ def _layer_norm(cfg, dev, dtype):
 
 class BertSelfAttention(nn.Module):
     """q/k/v projections (one ``nn.Linear`` each, as the JAX leaves
-    are), attention, output projection."""
+    are), attention, output projection.  ``dropout_key`` is the
+    attention's flax scope (or a key for a standalone call);
+    ``attention_seed``, when given, is its already drawn per-call seed
+    (a 0-d int32 tensor on the model's device)."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
@@ -129,9 +134,10 @@ class BertSelfAttention(nn.Module):
         self.key = _linear(h, h, dev, dtype)
         self.value = _linear(h, h, dev, dtype)
         self.output = _linear(h, h, dev, dtype)
+        self.dropout = threefry.Dropout(cfg.attention_probs_dropout_prob)
 
     def forward(self, x, attn_bias, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                dropout_key=None, attention_seed=None):
         cfg = self.cfg
         b, s, h = x.shape
         nh = cfg.num_attention_heads
@@ -140,27 +146,40 @@ class BertSelfAttention(nn.Module):
         dropout_fn = None
         rate = cfg.attention_probs_dropout_prob
         if rate > 0 and not deterministic:
-            gen = _need_generator(generator)
+            scope = _scope(dropout_key)
+            drop = scope.push("Dropout_0")
 
             def dropout_fn(p):
-                return dropout(p, rate, gen)
+                return self.dropout(p, drop.make_rng())
 
             if self.attention_fn is not None:
                 # fused adapters cannot call a probs -> probs closure
                 # (the probs are never materialized): they consume the
-                # rate and this layer's per-call seed, drawn on the card
-                # without a host sync
+                # rate and this layer's per-call seed, drawn from the
+                # attention's scope on the host and on the card by a
+                # copy that does not sync
+                if attention_seed is None:
+                    attention_seed = threefry.attention_seeds(
+                        [scope], x.device)[0]
                 dropout_fn.rate = rate
-                dropout_fn.seed = torch.randint(
-                    0, 2 ** 31 - 1, (), generator=gen, device=x.device,
-                    dtype=torch.int32)
+                dropout_fn.seed = attention_seed
         attn = self.attention_fn or dot_product_attention
         ctx = attn(q, k, v, bias=attn_bias, dropout_fn=dropout_fn)
         return self.output(ctx.reshape(b, s, h))
 
 
+def _dropout_scope(cfg, deterministic, dropout_key):
+    """The scope a module's dropouts draw from, None when none is
+    active (flax then draws nothing and needs no key)."""
+    if deterministic or (cfg.hidden_dropout_prob == 0.0
+                         and cfg.attention_probs_dropout_prob == 0.0):
+        return None
+    return _scope(dropout_key)
+
+
 class BertLayer(nn.Module):
-    """Post-LN: LN(x + drop(Attn(x))); LN(x + drop(MLP(x)))."""
+    """Post-LN: LN(x + drop(Attn(x))); LN(x + drop(MLP(x))), ``drop``
+    one module (flax's ``Dropout_0`` of the layer) called twice."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
@@ -176,14 +195,23 @@ class BertLayer(nn.Module):
         self.output = _linear(cfg.intermediate_size, cfg.hidden_size, dev,
                               dtype)
         self.output_ln = _layer_norm(cfg, dev, dtype)
+        self.drop = threefry.Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, attn_bias, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
-        rate = 0.0 if deterministic else self.cfg.hidden_dropout_prob
-        attn_out = self.attention(x, attn_bias, deterministic, generator)
-        x = self.attention_ln(x + dropout(attn_out, rate, generator))
+                dropout_key=None, attention_seed=None):
+        scope = _dropout_scope(self.cfg, deterministic, dropout_key)
+        attn_out = self.attention(
+            x, attn_bias, deterministic,
+            None if scope is None else scope.push("attention"),
+            attention_seed)
+        x = self.attention_ln(x + self._drop(attn_out, scope))
         y = self.output(F.gelu(self.intermediate(x)))   # exact erf gelu
-        return self.output_ln(x + dropout(y, rate, generator))
+        return self.output_ln(x + self._drop(y, scope))
+
+    def _drop(self, x, scope):
+        if scope is None or self.drop.rate == 0.0:
+            return x
+        return self.drop(x, scope.push("Dropout_0").make_rng())
 
 
 class BertEncoder(nn.Module):
@@ -198,6 +226,7 @@ class BertEncoder(nn.Module):
         dev = resolve_device(device)
         h = cfg.hidden_size
         self.cfg = cfg
+        self.attention_fn = attention_fn
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=dev,
                                             dtype=dtype)
         self.position_embeddings = nn.Embedding(
@@ -205,12 +234,12 @@ class BertEncoder(nn.Module):
         self.token_type_embeddings = nn.Embedding(
             cfg.type_vocab_size, h, device=dev, dtype=dtype)
         self.embeddings_ln = _layer_norm(cfg, dev, dtype)
+        self.embeddings_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(
                 cfg, attention_fn, device=dev, dtype=dtype))
 
-    def _embed_block(self, input_ids, token_type_ids, deterministic,
-                     generator):
+    def _embed_block(self, input_ids, token_type_ids, scope):
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None, :]
         if token_type_ids is None:
@@ -218,21 +247,31 @@ class BertEncoder(nn.Module):
         x = self.embeddings_ln(self.word_embeddings(input_ids)
                                + self.position_embeddings(pos)
                                + self.token_type_embeddings(token_type_ids))
-        rate = 0.0 if deterministic else self.cfg.hidden_dropout_prob
-        return dropout(x, rate, generator)
+        if scope is None or self.embeddings_dropout.rate == 0.0:
+            return x
+        return self.embeddings_dropout(x, scope.push("Dropout_0").make_rng())
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
-        x = self._embed_block(input_ids, token_type_ids, deterministic,
-                              generator)
+                deterministic: bool = True, dropout_key=None):
+        cfg = self.cfg
+        n = cfg.num_hidden_layers
+        scope = _dropout_scope(cfg, deterministic, dropout_key)
+        x = self._embed_block(input_ids, token_type_ids, scope)
         attn_bias = None
         if attention_mask is not None:
             attn_bias = torch.where(attention_mask[:, None, None, :] > 0,
                                     0.0, -1e9).float()
-        for i in range(self.cfg.num_hidden_layers):
+        scopes = [None if scope is None else scope.push(f"layer_{i}")
+                  for i in range(n)]
+        seeds = [None] * n
+        if scope is not None and self.attention_fn is not None \
+                and cfg.attention_probs_dropout_prob > 0:
+            # every layer's attention seed in one copy to the device
+            seeds = threefry.attention_seeds(
+                [sc.push("attention") for sc in scopes], x.device)
+        for i in range(n):
             x = getattr(self, f"layer_{i}")(x, attn_bias, deterministic,
-                                            generator)
+                                            scopes[i], seeds[i])
         return x
 
 
@@ -287,10 +326,14 @@ class BertForPreTraining(nn.Module):
         return mlm_logits, nsp_logits
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                deterministic: bool = True, dropout_key=None):
+        """``dropout_key``: the key the JAX model takes as
+        ``rngs={"dropout": key}``; needed when ``deterministic`` is False
+        and a dropout rate is above 0."""
+        scope = _dropout_scope(self.cfg, deterministic, dropout_key)
         seq = self.encoder(input_ids, attention_mask, token_type_ids,
-                           deterministic, generator)
+                           deterministic,
+                           None if scope is None else scope.push("encoder"))
         return self._pretraining_heads(seq)
 
 

@@ -31,13 +31,13 @@ no host sync.  Dropout launches count under their own names
 (``flash_fwd_dropout``, ``flash_bwd_dq_dropout``,
 ``flash_bwd_dkv_dropout``); rate 0 runs the dropout-free kernels.
 
-In bf16 the forward and dq kernels run on Hopper's tensor cores
+In bf16 the forward, dq and dk/dv kernels run on Hopper's tensor cores
 (``wgmma``; P and dS rounded to bf16 before the second product, as the
 TPU's MXU and SDPA round them), reading q, k, v and do with 16-byte
 ``cp.async``: a bf16 operand whose base or (b, s, h) strides are not
 multiples of 16 bytes is passed as a contiguous copy
 (:func:`_kernel_operand`).  fp32 keeps the CUDA-core bodies (no TF32),
-which read any stride; dk/dv stays on the CUDA cores in both dtypes.
+which read any stride.
 
 There is no short-sequence gate: the TPU's XLA/Pallas crossover
 (``FLASH_AUTO_MIN_SEQ``) was a v5e measurement and is not inherited.
@@ -351,12 +351,11 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, dropout_rate, seed):
 
 
 def _bwd_launch_args(q, k, v, do, lse, delta, kv_mask, causal, scale,
-                     dropout_rate, seed, tensor_cores):
+                     dropout_rate, seed):
     """Checks the backward's operands and returns the pointer and scalar
     arguments B5 and B6 share (the strides array is kept alive beside
-    them).  With ``tensor_cores`` (B5, whose bf16 body reads 16-byte
-    lines) q, k, v and do go through :func:`_kernel_operand`; B6 reads
-    any stride and takes them as they lie."""
+    them).  q, k, v and do go through :func:`_kernel_operand`: the bf16
+    bodies of both read 16-byte lines."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     code, kv_mask, seed = _check_operands("flash_attention backward", q, k,
@@ -369,8 +368,7 @@ def _bwd_launch_args(q, k, v, do, lse, delta, kv_mask, causal, scale,
             raise ValueError(f"{n} must be ({b}, {h}, {sq}) float32")
     if do.stride(-1) != 1:
         do = do.contiguous()
-    if tensor_cores:
-        q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
+    q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
     lse = lse.contiguous()
     delta = delta.contiguous()
     strides = (ctypes.c_int64 * 12)(
@@ -406,8 +404,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, kv_mask, causal, scale,
         return _bwd_dq_reference(q, k, v, do, lse, delta, kv_mask, causal,
                                  scale, dropout_rate, seed)
     ptrs, common, _keep = _bwd_launch_args(q, k, v, do, lse, delta, kv_mask,
-                                           causal, scale, dropout_rate, seed,
-                                           tensor_cores=True)
+                                           causal, scale, dropout_rate, seed)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
         kernel = DROPOUT_BWD_DQ_KERNEL if dropout_rate > 0.0 \
@@ -420,15 +417,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_mask, causal,
                             scale, dropout_rate: float = 0.0, seed=None):
     """(dk, dv) (B, Sk, H, D), from the same operands as
     :func:`flash_attention_bwd_dq`: the kernel B6 (B6d with dropout) for
-    CUDA tensors, the plain version for CPU tensors.  B6 runs on the CUDA
-    cores in both dtypes and reads its operands as they lie, whatever
-    their alignment."""
+    CUDA tensors, the plain version for CPU tensors.  A bf16 q, k, v or
+    do whose base or (b, s, h) strides are not multiples of 16 bytes is
+    read from a contiguous copy (:func:`_kernel_operand`)."""
     if _plain_bwd(q, k, v, do, lse, delta, kv_mask, seed):
         return _bwd_dkv_reference(q, k, v, do, lse, delta, kv_mask, causal,
                                   scale, dropout_rate, seed)
     ptrs, common, _keep = _bwd_launch_args(q, k, v, do, lse, delta, kv_mask,
-                                           causal, scale, dropout_rate, seed,
-                                           tensor_cores=False)
+                                           causal, scale, dropout_rate, seed)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dk.numel():

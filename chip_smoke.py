@@ -10,26 +10,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build   — compiles ``apex_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    and reports ``ptxas``'s registers, spills and shared memory (static,
    and the dynamic bytes each launch asks for) of the tensor-core
-   kernels (bf16 flash forward and dq, with and without dropout).
+   kernels (bf16 flash forward, dq and dk/dv, with and without
+   dropout).
 3. kernels — every ported kernel against its plain PyTorch version on
    the card at the shapes the serving and training paths give it, fp32
    and bf16 (scale-aware error max|a-b|/(max|b|+1) <= 2e-5 fp32,
    <= 2e-2 bf16, <= 1e-6 for FusedAdam, whose skipped step must keep
-   every bit; the bf16 flash forward's o and dq also row by row, see
+   every bit; the bf16 flash o, dq, dk and dv also row by row, see
    ``row_err``), each timed as the median device time of 20-50 launches
    between CUDA events beside its plain version, one PyTorch library
    call computing the same function (a yardstick the port never calls)
    and its bound (the larger of bytes over 3.35 TB/s and FLOPs over the
    peak for the operand type).  Each flash row names the body it timed
-   (``design``: ``wgmma`` for bf16 B4/B5 and their dropout branches,
-   ``cuda_cores_fp32`` for fp32 and for B6).  The dropout kernels (B4d,
+   (``design``: ``wgmma`` for bf16 B4/B5/B6 and their dropout branches,
+   ``cuda_cores_fp32`` for fp32).  The dropout kernels (B4d,
    B5d, B6d, at rate 0.1, BERT-large's and GPT's training shapes) also
    read their keep-mask back from crafted inputs over Sq = Sk = 192
    (three tiles each way) and hold it bit for bit against
    ``keep_from_seed``.  B8 (int8 K/V, 8 x 1025 x 12 x 64 from
    ``quantize_kv`` of random data, one head all zero) is also held bit
    for bit against B7 on the dequantized K/V; its library yardstick is
-   SDPA on the dequantized K/V (no PyTorch call takes int8 K/V).
+   SDPA on the dequantized K/V (no PyTorch call takes int8 K/V).  The
+   threefry dropout kernel (BERT's hidden dropout; no TPU kernel) is
+   held bit for bit against its plain version, forward and gradient, at
+   BERT-large's activation and an odd size, beside ``F.dropout``.
 4. serve   — ``InferenceServer`` on GPT-2 small at full width (seeded
    random weights), 8 decode slots, 16-token blocks, flash prefill,
    16 prompts of 4..255 tokens, 32 new tokens each:
@@ -84,20 +88,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    FusedLAMB as the example (lr 1e-4, max_grad_norm 1.0, no decay and
    no layer adaptation for bias/LayerNorm), ``make_flash_attention()``
    and ``deterministic=False`` (dropout 0.1: attention dropout inside
-   the flash kernels, hidden dropout on a generator from seed 0),
+   the flash kernels, hidden dropout through the threefry dropout
+   kernel, step i keyed ``fold_in(PRNGKey(0), i)`` as flax keys it),
    against a kernel-free oracle on the card (the same model, weights,
-   generator seed and batches on plain LayerNorm and the plain
-   flash-with-dropout, checked to launch none of the port's kernels):
+   step keys and batches on plain LayerNorm, the plain threefry dropout
+   and the plain flash-with-dropout, checked to launch none of the
+   port's kernels):
    (a) O0, TF32 off, batch 2, 3 steps: losses <= 1e-4 relative, step-1
        gradients <= 1e-4 scale-aware, each step exactly 50 LayerNorm
        forward and backward, 24 flash forward, dq and dk/dv with
-       dropout, nothing else;
+       dropout, 98 threefry dropouts (49 forward, 49 backward), nothing
+       else;
    (b) O2 through ``train()`` at batch 32, sequence 128, 10 steps,
        counts at 0 just before and read just after (10 times the
        per-step counts): losses within 2e-2 of the O2 oracle at every
        step; median tokens/s over steps 1-9; peak memory;
-   (c) the overflow step through ``AmpOptimizer(FusedLAMB)`` under
-       ``set_sync_debug_mode("error")``: params, m, v and the step
+   (c) the overflow step under ``set_sync_debug_mode("error")``, its
+       forward (keys and attention seeds made on the host, the seeds
+       copied from pinned memory), backward and
+       ``AmpOptimizer(FusedLAMB)`` step: params, m, v and the step
        counter keep every bit, the scale halves, no host sync;
    (d) one more O2 step under ``torch.profiler``.
 
@@ -242,7 +251,9 @@ def phase_device():
 # the C entry point that returns their dynamic shared memory
 WGMMA_KERNELS = (("flash_fwd_kernel_wgmma", "apex_flash_fwd_wgmma_smem"),
                  ("flash_bwd_dq_kernel_wgmma",
-                  "apex_flash_bwd_dq_wgmma_smem"))
+                  "apex_flash_bwd_dq_wgmma_smem"),
+                 ("flash_bwd_dkv_kernel_wgmma",
+                  "apex_flash_bwd_dkv_wgmma_smem"))
 
 
 def _wgmma_ptxas(log, lib):
@@ -316,12 +327,17 @@ def _dt(dtype):
     return str(dtype).split(".")[1]
 
 
-def _design(which, dt):
-    """Which body a flash row timed: bf16 B4/B5 (and their dropout
-    branches) run on the tensor cores, everything else on the fp32 CUDA
-    cores."""
-    return ("wgmma" if dt == "bfloat16" and which in ("fwd", "dq")
-            else "cuda_cores_fp32")
+def _design(dt):
+    """Which body a flash row timed: bf16 B4, B5 and B6 (and their
+    dropout branches) run on the tensor cores, fp32 on the CUDA cores."""
+    return "wgmma" if dt == "bfloat16" else "cuda_cores_fp32"
+
+
+def _check_rows_all(name, dtype, got, want):
+    """``_check_rows`` over each output (dk and dv for B6): the largest
+    row error, None in fp32."""
+    errs = [_check_rows(name, dtype, a, b) for a, b in zip(got, want)]
+    return None if errs[0] is None else max(errs)
 
 
 def _ln_variants(torch):
@@ -424,7 +440,7 @@ def _flash_variants(torch):
             iters = TIMED_LAUNCHES if bsz == 1 else TIMED_LAUNCHES_LARGE
             out.append({
                 "shape": [bsz, s, h, d], "dtype": dt,
-                "design": _design("fwd", dt), "rel_err": rel,
+                "design": _design(dt), "rel_err": rel,
                 **({} if rows is None else {"row_err": rows}),
                 "max_abs_err": max_abs,
                 "ms": median_ms(kernel, iters),
@@ -623,8 +639,7 @@ def _flash_bwd_variants(torch, which):
             for a, b in zip(got, want):
                 r, m = _check(f"flash_bwd_{which}", dt, a, b)
                 rel, max_abs = max(rel, r), max(max_abs, m)
-            rows = (_check_rows("flash_bwd_dq", dt, got[0], want[0])
-                    if which == "dq" else None)
+            rows = _check_rows_all(f"flash_bwd_{which}", dt, got, want)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
             dot = do.transpose(1, 2)
@@ -653,7 +668,7 @@ def _flash_bwd_variants(torch, which):
             iters = TIMED_LAUNCHES if bsz * s < 1024 else TIMED_LAUNCHES_LARGE
             out.append({
                 "shape": [bsz, s, h, d], "dtype": dt,
-                "design": _design(which, dt), "rel_err": rel,
+                "design": _design(dt), "rel_err": rel,
                 **({} if rows is None else {"row_err": rows}),
                 "max_abs_err": max_abs,
                 "ms": median_ms(kernel, iters),
@@ -769,9 +784,10 @@ def _flash_dropout_variants(torch, which):
                 r, m = _check(f"flash_{which}_dropout", dt if a.dtype == dtype
                               else "float32", a, b)
                 rel, max_abs = max(rel, r), max(max_abs, m)
-            # o (B4d) or dq (B5d); B6d stays on the scale-aware bound
-            rows = (None if which == "dkv" else _check_rows(
-                f"flash_{which}_dropout", dt, got[0], want[0]))
+            # o (B4d), dq (B5d), dk and dv (B6d); not the forward's lse
+            rows = _check_rows_all(f"flash_{which}_dropout", dt,
+                                   got[:1] if which == "fwd" else got,
+                                   want[:1] if which == "fwd" else want)
             del got, want, po
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
@@ -803,7 +819,7 @@ def _flash_dropout_variants(torch, which):
                 TIMED_LAUNCHES_LARGE
             out.append({
                 "shape": [bsz, s, h, d], "dtype": dt,
-                "design": _design(which, dt), "causal": causal,
+                "design": _design(dt), "causal": causal,
                 "rate": DROPOUT, "rel_err": rel,
                 **({} if rows is None else {"row_err": rows}),
                 "max_abs_err": max_abs,
@@ -813,6 +829,52 @@ def _flash_dropout_variants(torch, which):
                 "library_ms": median_ms(library, iters),
                 "bound_ms": bms, "bound_by": by})
             del so
+    return out
+
+
+def _dropout_variants(torch):
+    """The threefry dropout kernel at BERT-large's hidden activation (B 32
+    x S 128 x 1024: O2's bf16, O0's fp32) and at an odd size, rate 0.1:
+    forward and gradient (the same launch on dy) bit for bit against the
+    plain version on the same key.  Yardstick: ``F.dropout`` (PyTorch's
+    own Philox stream, so a time only).  The bound counts the bytes
+    alone: the table has no integer-ALU rate for threefry's ~100
+    operations an element."""
+    import torch.nn.functional as F
+    tf = importlib.import_module("apex_tpu_torch.ops.threefry")
+    out = []
+    key = tf.fold_in(tf.PRNGKey(0), 3)
+    for dtype, shape in itertools.product(
+            (torch.float32, torch.bfloat16),
+            ((BERT_BATCH, BERT_SEQ, BERT_HIDDEN), (3, 1001, 7))):
+        g = torch.Generator(device="cuda").manual_seed(13)
+        x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        xg = x.clone().requires_grad_()
+        y = tf.dropout(xg, DROPOUT, key)
+        y.backward(dy)
+        dt = _dt(dtype)
+        for what, got, want in (
+                ("forward", y, tf.dropout_plain(x, DROPOUT, key)),
+                ("gradient", xg.grad, tf.dropout_plain(dy, DROPOUT, key))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"threefry_dropout {what} [{dt}]: "
+                                     "differs from the plain version")
+        kept = float((y != 0).float().mean())
+        del y, xg
+        n = x.numel()
+        bms, by = bound(2 * n * x.element_size(), 0, dt)
+        iters = TIMED_LAUNCHES if n < 1e6 else TIMED_LAUNCHES_LARGE
+        out.append({
+            "shape": list(shape), "dtype": dt, "rate": DROPOUT,
+            "bitwise": True, "kept_share": kept, "rel_err": 0.0,
+            "max_abs_err": 0.0,
+            "ms": median_ms(lambda: tf.dropout(x, DROPOUT, key), iters),
+            "plain_ms": median_ms(lambda: tf.dropout_plain(x, DROPOUT, key),
+                                  TIMED_LAUNCHES_LARGE),
+            "library_ms": median_ms(lambda: F.dropout(x, DROPOUT), iters),
+            "library": "F.dropout (Philox)",
+            "bound_ms": bms, "bound_by": by})
     return out
 
 
@@ -927,6 +989,12 @@ KERNELS = (
      "apex_tpu/ops/flash_attention.py:291",
      functools.partial(_flash_dropout_variants, which="dkv"),
      ([BERT_BATCH, BERT_SEQ, BERT_HEADS, 64], "bfloat16")),
+    # no TPU kernel: the reference's hidden dropout is flax's nn.Dropout,
+    # plain jnp that XLA fuses
+    ("threefry_dropout", "apex_tpu_torch/csrc/threefry_dropout.cu",
+     "none (apex_tpu/models/bert.py:98 nn.Dropout, plain jnp)",
+     _dropout_variants,
+     ([BERT_BATCH, BERT_SEQ, BERT_HIDDEN], "bfloat16")),
 )
 
 
@@ -946,7 +1014,8 @@ def phase_kernels():
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            **{key: main[key] for key in ("library", "design", "row_err")
+            **{key: main[key] for key in ("library", "design", "row_err",
+                                          "bitwise")
                if key in main},
             "shape": main["shape"], "dtype": main["dtype"],
             "variants": rows}
@@ -1014,15 +1083,23 @@ def _plain_layer_norm(mod, x):
     return (xhat * mod.scale + mod.bias).to(x.dtype).reshape(x.shape)
 
 
+def _plain_dropout(mod, x, key):
+    tf = importlib.import_module("apex_tpu_torch.ops.threefry")
+    return x if mod.rate == 0.0 else tf.dropout_plain(x, mod.rate, key)
+
+
 def _plain_oracle(model):
-    """``model`` with every LayerNorm on its plain PyTorch version; its
-    attention is the model's plain default.  The oracle then shares no
-    kernel with the server it checks."""
+    """``model`` with every LayerNorm and every threefry dropout on its
+    plain PyTorch version; its attention is the model's plain default.
+    The oracle then shares no kernel with the path it checks."""
     ln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
+    tf = importlib.import_module("apex_tpu_torch.ops.threefry")
     for mod in model.modules():
         if isinstance(mod, ln.FusedLayerNorm):
             mod.forward = functools.partial(_plain_layer_norm, mod)
+        elif isinstance(mod, tf.Dropout):
+            mod.forward = functools.partial(_plain_dropout, mod)
     return model
 
 
@@ -1251,6 +1328,7 @@ KERNEL_CLASSES = (
     ("flash_bwd_dq (port)", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv (port)", ("flash_bwd_dkv_kernel",)),
     ("fused_adam (port)", ("fused_adam_kernel",)),
+    ("threefry_dropout (port)", ("threefry_dropout_kernel",)),
     ("decode_attention (port)", ("decode_attention_kernel",)),
     ("gemm", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet",
               "sm90_")),
@@ -1558,12 +1636,13 @@ def phase_train():
 def _bert_per_step_launches(cfg, names):
     """Launches of one BERT training step with dropout: 2L+2 LayerNorms
     (embeddings, two per layer, the MLM head) forward and backward, L
-    flash attentions with dropout forward, dq and dk/dv; nothing else
-    (FusedLAMB is plain PyTorch)."""
+    flash attentions with dropout forward, dq and dk/dv, 2L+1 hidden
+    dropouts (embeddings, two per layer) forward and as many backward;
+    nothing else (FusedLAMB is plain PyTorch)."""
     n = cfg.num_hidden_layers
     step = {"layer_norm_fwd": 2 * n + 2, "layer_norm_bwd": 2 * n + 2,
             "flash_fwd_dropout": n, "flash_bwd_dq_dropout": n,
-            "flash_bwd_dkv_dropout": n}
+            "flash_bwd_dkv_dropout": n, "threefry_dropout": 2 * (2 * n + 1)}
     return {name: step.get(name, 0) for name in names}
 
 
@@ -1581,10 +1660,10 @@ def _plain_dropout_attention(q, k, v, bias=None, dropout_fn=None):
 
 def _bert_oracle_steps(cfg, state_dict, opt_level, batch, steps):
     """The example's BERT step with no port kernel in it — plain
-    LayerNorm, the plain flash-with-dropout, the same FusedLAMB (plain
-    PyTorch) — from ``state_dict``, the example's batches and a dropout
-    generator from seed 0: its losses and step-1 gradients.  Fails if it
-    launched a port kernel."""
+    LayerNorm, the plain threefry dropout, the plain flash-with-dropout,
+    the same FusedLAMB (plain PyTorch) — from ``state_dict``, the
+    example's batches and the step keys of seed 0: its losses and step-1
+    gradients.  Fails if it launched a port kernel."""
     import torch
     from apex_tpu_torch._kernels import launch_counts
     from apex_tpu_torch.examples import bert_main_amp
@@ -1594,14 +1673,13 @@ def _bert_oracle_steps(cfg, state_dict, opt_level, batch, steps):
         attention_fn=_plain_dropout_attention, device="cuda",
         state_dict=state_dict)
     _plain_oracle(model.module)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     data = bert_main_amp.batches(cfg, batch, BERT_SEQ)
     losses, grads1 = [], None
     for step in range(steps):
         tensors = tuple(torch.from_numpy(a).to("cuda") for a in next(data))
         params, st, loss, grads = bert_main_amp.train_step(
             model, opt, params, st, tensors, deterministic=False,
-            generator=gen)
+            dropout_key=bert_main_amp.step_key(0, step))
         losses.append(float(loss))
         if step == 0:
             grads1 = grads
@@ -1629,7 +1707,6 @@ def _bert_o0():
     model, opt, params, st = _bert_build(cfg, "O0")
     state_dict = {k: v.detach().clone()
                   for k, v in model.module.state_dict().items()}
-    gen = torch.Generator(device="cuda").manual_seed(0)
     data = bert_main_amp.batches(cfg, BERT_O0_BATCH, BERT_SEQ)
     losses, counts, grads1 = [], None, None
     for step in range(O0_STEPS):
@@ -1638,7 +1715,7 @@ def _bert_o0():
         reset_launch_counts()
         params, st, loss, grads = bert_main_amp.train_step(
             model, opt, params, st, tensors, deterministic=False,
-            generator=gen)
+            dropout_key=bert_main_amp.step_key(0, step))
         torch.cuda.synchronize()
         counts = launch_counts()
         if counts != _bert_per_step_launches(cfg, counts):
@@ -1707,41 +1784,45 @@ def _bert_o2(state_dict):
 
 
 def _bert_overflow_and_profile(state_dict):
-    """(c) an overflowed O2 step through ``AmpOptimizer(FusedLAMB)`` under
-    sync-debug "error": nothing changes but the scale, and no host sync;
-    (d) one O2 step under the profiler."""
+    """(c) an overflowed O2 step under sync-debug "error": the forward
+    (its dropout keys and attention seeds made on the host), the
+    backward and ``AmpOptimizer(FusedLAMB)``'s step; nothing changes but
+    the scale, and no host sync; (d) one O2 step under the profiler."""
     import torch
     from apex_tpu_torch import amp
     from apex_tpu_torch.examples import bert_main_amp
     cfg = bert_main_amp.get_config("large")
     model, opt, params, st = _bert_build(cfg, "O2", state_dict)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     data = bert_main_amp.batches(cfg, BERT_BATCH, BERT_SEQ)
+    steps = itertools.count()
 
     def batch():
         return tuple(torch.from_numpy(a).to("cuda") for a in next(data))
 
     params, st, _, _ = bert_main_amp.train_step(
-        model, opt, params, st, batch(), deterministic=False, generator=gen)
+        model, opt, params, st, batch(), deterministic=False,
+        dropout_key=bert_main_amp.step_key(0, next(steps)))
     ids, labels, weights, nsp = batch()
-    mlm, nsp_logits = model.apply(params, ids, deterministic=False,
-                                  generator=gen)
-    loss = bert_main_amp.batch_loss(mlm, nsp_logits, labels, weights, nsp)
-    with amp.scale_loss(loss, st) as scaled:
-        grads = dict(zip(params, torch.autograd.grad(
-            scaled, list(params.values()))))
     bad = f"encoder.layer_{cfg.num_hidden_layers // 2}.intermediate.weight"
-    grads[bad][17, 3] = float("inf")
+    scale0 = float(opt.loss_scale(st))
+    skipped0 = int(st.skipped_steps)
     snap = ({k: v.detach().clone() for k, v in params.items()},
             {k: v.clone() for k, v in st.inner.m.items()},
             {k: v.clone() for k, v in st.inner.v.items()},
             st.inner.step.clone())
-    scale0 = float(opt.loss_scale(st))
-    skipped0 = int(st.skipped_steps)
-    del mlm, nsp_logits, loss, scaled
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        mlm, nsp_logits = model.apply(
+            params, ids, deterministic=False,
+            dropout_key=bert_main_amp.step_key(0, next(steps)))
+        loss = bert_main_amp.batch_loss(mlm, nsp_logits, labels, weights,
+                                        nsp)
+        with amp.scale_loss(loss, st) as scaled:
+            grads = dict(zip(params, torch.autograd.grad(
+                scaled, list(params.values()))))
+        grads[bad][17, 3].fill_(float("inf"))   # a launch, not a copy
+        del mlm, nsp_logits, loss, scaled
         params, st = opt.step(params, grads, st)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1753,7 +1834,8 @@ def _bert_overflow_and_profile(state_dict):
     scale1 = float(opt.loss_scale(st))
     emit("train_bert", overflow_step=f"inf in {bad}", bits_kept=kept,
          loss_scale_before=scale0, loss_scale_after=scale1,
-         skipped_steps=int(st.skipped_steps), host_syncs=0)
+         skipped_steps=int(st.skipped_steps), host_syncs=0,
+         sync_checked="forward, backward and optimizer step")
     if not (kept and scale1 == scale0 / 2
             and int(st.skipped_steps) == skipped0 + 1):
         raise AssertionError("the BERT overflow step changed the state or "
@@ -1764,7 +1846,8 @@ def _bert_overflow_and_profile(state_dict):
     def one_step():
         state["params"], state["st"], loss, _ = bert_main_amp.train_step(
             model, opt, state["params"], state["st"], batch(),
-            deterministic=False, generator=gen)
+            deterministic=False,
+            dropout_key=bert_main_amp.step_key(0, next(steps)))
         float(loss)
 
     one_step()

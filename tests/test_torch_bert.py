@@ -9,13 +9,15 @@ weights (``params_from_jax``), with token ids from
   both sides, sums in another order), with and without an attention
   mask, through the port's ``dot_product_attention`` and through
   ``make_flash_attention`` (its plain version on the CPU);
-- attention dropout through injected seeds: the port's layers draw
-  their per-call seeds from a ``torch.Generator``; the same seeds, drawn
-  again from a copy of the generator, go into a JAX ``attention_fn``
-  that calls ``apex_tpu.ops.flash_attention`` with them (the flax-drawn
-  seed ignored).  Logits and step-1 gradients within 1e-4;
+- dropout on the same key: attention dropout 0.1 and hidden dropout
+  0.1, the JAX model given ``rngs={"dropout": key}`` and the port
+  ``dropout_key=key``, through ``make_flash_attention`` (the JAX one on
+  its plain path, the port's plain version on the CPU) and through the
+  default dot-product attention: the attention seeds equal exactly,
+  every ``nn.Dropout`` keep mask bit for bit (flax's recorded in call
+  order), logits, loss and every gradient within 1e-4 (fp32);
 - hidden dropout: the kept fraction, the identity when deterministic,
-  the same masks from the same generator state;
+  the same masks from the same key;
 - the leaves the recipe's ``(bias|_ln)`` regex matches are the same
   leaves on both sides.
 """
@@ -28,11 +30,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax.linen import stochastic as flax_stochastic
 
 from apex_tpu import models as jax_models
 from apex_tpu_torch.examples import bert_main_amp
 from apex_tpu_torch.models import bert as tb
 from apex_tpu_torch.ops import make_flash_attention
+from apex_tpu_torch.ops import threefry as tf
 
 jax_fa = importlib.import_module("apex_tpu.ops.flash_attention")
 
@@ -107,88 +111,139 @@ def _jax_loss(model, params, ids, mask, labels, weights, nsp, rng):
     return loss, (mlm, nsp_logits)
 
 
-def test_attention_dropout_matches_jax_through_injected_seeds(jax_init):
-    kw = dict(TINY, attention_probs_dropout_prob=0.1, hidden_dropout_prob=0.0)
+class _RecordingRandom:
+    """``jax.random`` for ``flax.linen.stochastic``: records every
+    dropout keep mask ``nn.Dropout`` draws, in call order."""
+
+    def __init__(self):
+        self.masks = []
+
+    def __getattr__(self, name):
+        return getattr(jax.random, name)
+
+    def bernoulli(self, key, p=0.5, shape=None):
+        mask = jax.random.bernoulli(key, p=p, shape=shape)
+        self.masks.append(np.asarray(mask))
+        return mask
+
+
+def _same_key_case(jax_init, monkeypatch, attention):
+    """Tiny BERT with attention and hidden dropout 0.1, one key for both
+    packages; returns nothing, asserts the seeds, the masks, the logits,
+    the loss and every gradient."""
+    kw = dict(TINY, attention_probs_dropout_prob=0.1,
+              hidden_dropout_prob=0.1)
     cfg = tb.BertConfig(**kw)
-    layers = cfg.num_hidden_layers
     ids, mask = _batch(1)
     rng = np.random.RandomState(2)
     labels = rng.randint(0, kw["vocab_size"], (B, S)).astype(np.int32)
     weights = (rng.rand(B, S) < 0.3).astype(np.float32)
     nsp = rng.randint(0, 2, (B,)).astype(np.int32)
+    # step 1's key under the example's rule, fold_in(PRNGKey(seed), step)
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 1)
+    assert bert_main_amp.step_key(0, 1) == tuple(int(x) for x in
+                                                 np.asarray(key))
 
-    # the seeds the port's layers will draw, in layer order
-    copy = torch.Generator().manual_seed(1234)
-    seeds = [int(torch.randint(0, 2 ** 31 - 1, (), generator=copy,
-                               dtype=torch.int32)) for _ in range(layers)]
-    assert len(set(seeds)) == layers
-    calls = []
+    jseeds, seeds = [], []
 
-    def jax_attention(q, k, v, bias=None, dropout_fn=None):
-        i = len(calls) % layers
-        calls.append(i)
-        return jax_fa.flash_attention(
-            q, k, v, kv_mask=jax_fa.bias_to_kv_mask(bias),
-            dropout_rate=dropout_fn.rate, dropout_seed=seeds[i],
-            use_pallas=False)
+    def recording(fn, out):
+        def attention_fn(q, k, v, bias=None, dropout_fn=None):
+            if not isinstance(dropout_fn.seed, jax.core.Tracer):
+                out.append(int(dropout_fn.seed))
+            return fn(q, k, v, bias=bias, dropout_fn=dropout_fn)
+        return attention_fn
 
+    flash = attention == "flash"
+    jattn = recording(jax_fa.make_flash_attention(use_pallas=False),
+                      jseeds) if flash else None
     jmodel = jax_models.BertForPreTraining(jax_models.BertConfig(**kw),
-                                           attention_fn=jax_attention)
-    (jloss, jlogits), jgrads = jax.value_and_grad(
-        lambda p: _jax_loss(jmodel, p, jnp.asarray(ids), jnp.asarray(mask),
-                            jnp.asarray(labels), jnp.asarray(weights),
-                            jnp.asarray(nsp), jax.random.PRNGKey(5)),
-        has_aux=True)(jax.tree.map(jnp.asarray, jax_init))
-    assert calls[:layers] == list(range(layers))
+                                           attention_fn=jattn)
+    jparams = jax.tree.map(jnp.asarray, jax_init)
+    jargs = tuple(jnp.asarray(a) for a in (ids, mask, labels, weights, nsp))
+    recorder = _RecordingRandom()
+    with monkeypatch.context() as mp:
+        mp.setattr(flax_stochastic, "random", recorder)
+        jmodel.apply({"params": jparams}, jargs[0], jargs[1],
+                     deterministic=False, rngs={"dropout": key})
+    (jloss, jlogits), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: _jax_loss(jmodel, p, *jargs, key), has_aux=True))(jparams)
 
-    model = _port(cfg, jax_init, make_flash_attention())
-    gen = torch.Generator().manual_seed(1234)
+    masks = []
+    plain_dropout = tf.dropout
+
+    def recording_dropout(x, rate, k):
+        masks.append(tf.bernoulli(k, 1.0 - rate, x.shape).numpy())
+        return plain_dropout(x, rate, k)
+
+    monkeypatch.setattr(tf, "dropout", recording_dropout)
+    attn = recording(make_flash_attention(), seeds) if flash else None
+    model = _port(cfg, jax_init, attn)
     params = dict(model.named_parameters())
     mlm, nsp_logits = model(torch.from_numpy(ids), torch.from_numpy(mask),
-                            deterministic=False, generator=gen)
+                            deterministic=False, dropout_key=np.asarray(key))
     loss = bert_main_amp.batch_loss(mlm, nsp_logits, torch.from_numpy(labels),
                                     torch.from_numpy(weights),
                                     torch.from_numpy(nsp))
     grads = torch.autograd.grad(loss, list(params.values()))
+
+    layers = cfg.num_hidden_layers
+    assert seeds == jseeds and len(seeds) == (layers if flash else 0)
+    # the embeddings' dropout, then per layer (the attention probs on the
+    # default path) the attention output and the MLP output
+    assert len(masks) == len(recorder.masks) == 1 + layers * (2 if flash
+                                                              else 3)
+    for got, want in zip(masks, recorder.masks):
+        np.testing.assert_array_equal(got, want)
     for g, w in zip((mlm, nsp_logits), jlogits):
         assert rel_err(g.detach().numpy(), w) <= TOL
     assert abs(float(loss.detach()) - float(jloss)) <= TOL * abs(float(jloss))
     want = tb.params_from_jax(jax.tree.map(np.asarray, jgrads), cfg)
     for name, g in zip(params, grads):
         assert rel_err(g.numpy(), want[name].numpy()) <= TOL, name
-    # the dropout is live: another generator state, other logits
+    # the dropout is live: another key, other logits
     other = model(torch.from_numpy(ids), torch.from_numpy(mask),
-                  deterministic=False,
-                  generator=torch.Generator().manual_seed(99))[0]
+                  deterministic=False, dropout_key=tf.PRNGKey(6))[0]
     assert rel_err(other.detach().numpy(), mlm.detach().numpy()) > 1e-3
+
+
+def test_attention_dropout_matches_jax_through_injected_seeds(jax_init,
+                                                             monkeypatch):
+    """Flash attention with both dropouts on, on one key for both
+    packages: no seed is injected; the port draws the seeds flax draws
+    (``_same_key_case``)."""
+    _same_key_case(jax_init, monkeypatch, "flash")
+
+
+def test_default_attention_dropout_matches_jax_on_the_same_key(jax_init,
+                                                              monkeypatch):
+    """The default dot-product attention, whose probs dropout is the
+    attention's own ``Dropout_0``, on one key for both packages."""
+    _same_key_case(jax_init, monkeypatch, "dot")
 
 
 def test_hidden_dropout_rate_identity_and_repeatability():
     x = torch.ones(100_000)
-    gen = torch.Generator().manual_seed(0)
-    y = tb.dropout(x, 0.1, gen)
+    y = tf.dropout(x, 0.1, tf.PRNGKey(0))
     kept = float((y != 0).float().mean())
     assert abs(kept - 0.9) < 0.005
-    assert torch.allclose(y[y != 0], torch.full((), 1 / 0.9))
-    assert tb.dropout(x, 0.0, None) is x
-    a = tb.dropout(x, 0.3, torch.Generator().manual_seed(7))
-    b = tb.dropout(x, 0.3, torch.Generator().manual_seed(7))
+    assert torch.equal(y[y != 0], torch.full_like(y[y != 0],
+                                                  float(np.float32(1 / 0.9))))
+    assert tf.dropout(x, 0.0, None) is x
+    a = tf.dropout(x, 0.3, tf.PRNGKey(7))
+    b = tf.dropout(x, 0.3, tf.PRNGKey(7))
     assert torch.equal(a, b)
 
     cfg = tb.BertConfig(**TINY)
     model = tb.BertForPreTraining(cfg, device="cpu", seed=0)
     ids = torch.from_numpy(_batch()[0])
     base = model(ids)
-    same = model(ids, deterministic=True,
-                 generator=torch.Generator().manual_seed(3))
+    same = model(ids, deterministic=True, dropout_key=tf.PRNGKey(3))
     assert all(torch.equal(p, q) for p, q in zip(base, same))
-    d1 = model(ids, deterministic=False,
-               generator=torch.Generator().manual_seed(3))
-    d2 = model(ids, deterministic=False,
-               generator=torch.Generator().manual_seed(3))
+    d1 = model(ids, deterministic=False, dropout_key=tf.PRNGKey(3))
+    d2 = model(ids, deterministic=False, dropout_key=tf.PRNGKey(3))
     assert all(torch.equal(p, q) for p, q in zip(d1, d2))
     assert not torch.equal(d1[0], base[0])
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(ValueError, match="dropout_key"):
         model(ids, deterministic=False)
 
 

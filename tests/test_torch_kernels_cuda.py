@@ -10,10 +10,12 @@ without it:
 the edges ``chip_smoke.py`` does not: odd widths, ragged lengths, the
 built head_dim (64), fully-masked rows, strided operands, inf/nan
 gradients in the Adam step, gradients flowing through the kernels'
-autograd functions, the errors the wrappers raise, and B8 (int8 K/V)
-bit for bit against B7 on the dequantized K/V.  Scale-aware error max|a-b| / (max|b| + 1) <= 2e-5
-in fp32, <= 2e-2 in bf16; the bf16 flash o and dq also row by row
-(``row_err``); every kernel call adds exactly one launch.
+autograd functions, the errors the wrappers raise, B8 (int8 K/V) bit
+for bit against B7 on the dequantized K/V, and the threefry dropout
+kernel bit for bit against its plain version.  Scale-aware error
+max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
+flash o, dq, dk and dv also row by row (``row_err``); every kernel call
+adds exactly one launch.
 """
 
 import importlib
@@ -29,11 +31,12 @@ fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 da = importlib.import_module("apex_tpu_torch.ops.decode_attention")
 adam = importlib.import_module("apex_tpu_torch.optimizers.fused_adam")
 kvq = importlib.import_module("apex_tpu_torch.ops.kv_quant")
+tf = importlib.import_module("apex_tpu_torch.ops.threefry")
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-ROW_TOL = 1e-2  # bf16 flash o and dq, per row (as chip_smoke.py)
+ROW_TOL = 1e-2  # bf16 flash o, dq, dk and dv, per row (as chip_smoke.py)
 
 
 @pytest.fixture
@@ -443,17 +446,18 @@ def test_dropout_gradients_flow_through_the_kernels(gen):
         assert rel_err(g, w) <= 2e-5
 
 
-# -- bf16 flash on the tensor cores: B4, B4d, B5, B5d ------------------------
+# -- bf16 flash on the tensor cores: B4, B4d, B5, B5d, B6, B6d --------------
 
 _BF16_SEQS = (1, 63, 64, 65, 127, 128, 129, 200, 1024)
 
 
 def _bf16_flash_case(gen, sq, sk, causal, rate):
-    """B4/B4d and B5/B5d in bf16 against their plain versions at one
-    (Sq, Sk): batch row 1 padded (its last third of keys at -1e9), and
-    without causal masking batch row 0 fully masked (zeros, NEG_INF lse,
-    zero dq).  The lse is held on the live rows alone, so the NEG_INF
-    rows cannot hide an error in the scale-aware bound."""
+    """B4/B4d, B5/B5d and B6/B6d in bf16 against their plain versions at
+    one (Sq, Sk): batch row 1 padded (its last third of keys at -1e9),
+    and without causal masking batch row 0 fully masked (zeros, NEG_INF
+    lse, zero dq, dk and dv).  The lse is held on the live rows alone,
+    so the NEG_INF rows cannot hide an error in the scale-aware
+    bound."""
     b, h, d = 2, 3, 64
     q, do = (torch.randn(b, sq, h, d, device="cuda", generator=gen)
              .bfloat16() for _ in range(2))
@@ -480,9 +484,15 @@ def _bf16_flash_case(gen, sq, sk, causal, rate):
                      lambda: fa.flash_attention_bwd_dq(*args))
     assert dq.dtype == torch.bfloat16
     _check_bf16(dq, fa._bwd_dq_reference(*args))
+    dk, dv = _one_launch("flash_bwd_dkv" + suffix,
+                         lambda: fa.flash_attention_bwd_dkv(*args))
+    for got, want in zip((dk, dv), fa._bwd_dkv_reference(*args)):
+        assert got.dtype == torch.bfloat16 and got.shape == k.shape
+        _check_bf16(got, want)
     if not causal:
         assert torch.all(o[0] == 0) and torch.all(lse[0] == fa.NEG_INF)
         assert torch.all(dq[0] == 0)
+        assert torch.all(dk[0] == 0) and torch.all(dv[0] == 0)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -503,8 +513,8 @@ def test_flash_bf16_reads_strided_and_misaligned_operands(gen):
     """The ``qkv.unbind`` views of ``test_flash_reads_strided_operands``
     in bf16 are read where they lie; an operand whose base is 2 bytes
     past a 16-byte line goes through the wrapper's contiguous copy and
-    gives what the copy itself gives, bit for bit.  B6 (dk, dv: CUDA
-    cores) takes that operand as it lies, with the same bits too."""
+    gives what the copy itself gives, bit for bit, in the forward, dq
+    and dk/dv."""
     qkv = torch.randn(1, 50, 3, 4, 64, device="cuda",
                       generator=gen).bfloat16()
     q, k, v = qkv.unbind(2)
@@ -520,6 +530,11 @@ def test_flash_bf16_reads_strided_and_misaligned_operands(gen):
         q, k, v, do, plse, delta, None, True, 0.125))
     _check_bf16(dq, fa._bwd_dq_reference(q, k, v, do, plse, delta, None,
                                          True, 0.125))
+    dkv = _one_launch("flash_bwd_dkv", lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, do, plse, delta, None, True, 0.125))
+    for got, want in zip(dkv, fa._bwd_dkv_reference(q, k, v, do, plse, delta,
+                                                    None, True, 0.125)):
+        _check_bf16(got, want)
     buf = torch.empty(50 * 4 * 64 + 8, device="cuda", dtype=torch.bfloat16)
     q_off = buf[1:1 + 50 * 4 * 64].view(1, 50, 4, 64)
     q_off.copy_(q)
@@ -543,7 +558,7 @@ def test_flash_bf16_reads_strided_and_misaligned_operands(gen):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_bf16_launches_are_bit_identical(gen, rate):
     """One block owns each output (no atomics): two launches on the same
-    inputs give the same bits, o, lse and dq."""
+    inputs give the same bits, o, lse, dq, dk and dv."""
     b, s, h, d = 2, 333, 3, 64
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                    .bfloat16() for _ in range(4))
@@ -554,8 +569,9 @@ def test_flash_bf16_launches_are_bit_identical(gen, rate):
                                         seed)
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
             .contiguous()
-        runs.append((o, lse, fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, None, True, 0.125, rate, seed)))
+        bargs = (q, k, v, do, lse, delta, None, True, 0.125, rate, seed)
+        runs.append((o, lse, fa.flash_attention_bwd_dq(*bargs),
+                     *fa.flash_attention_bwd_dkv(*bargs)))
     for a, c in zip(*runs):
         assert torch.equal(a, c)
 
@@ -568,7 +584,8 @@ def test_flash_dropout_mask_reads_back_over_tiles(gen, dtype, window):
     1/192) and a one-hot operand selecting the 64-key window ``window``:
     v for the forward (o[q, d] keeps key 64 w + d), k for dq (with v and
     do all-ones in column 0, delta = 0), and do over the q window for dv
-    (dv[key, d] keeps query 64 w + d)."""
+    (dv[key, d] keeps query 64 w + d: B6d's transposed keep bits, whose
+    rows are keys)."""
     b, h, n, d = 2, 3, 192, 64
     rate = 0.1
     zeros = torch.zeros(b, n, h, d, device="cuda", dtype=dtype)
@@ -681,3 +698,30 @@ def test_quantize_kv_on_the_card_equals_the_cpu(gen, dtype):
     assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
     assert torch.equal(kvq.dequantize_kv(q, s, dtype).cpu(),
                        kvq.dequantize_kv(qc, sc, dtype))
+
+
+# -- threefry dropout ---------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,rate", [((1,), 0.1), ((3, 1001, 7), 0.1),
+                                        ((2, 130, 1024), 0.1),
+                                        ((5, 33), 0.5)])
+def test_threefry_dropout_matches_plain_bitwise(gen, dtype, shape, rate):
+    """The kernel (one launch forward, one for the gradient) equals its
+    plain version on the same key bit for bit, output and gradient,
+    through a strided input too."""
+    key = tf.fold_in(tf.PRNGKey(len(shape)), 7)
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    xg = x.clone().requires_grad_()
+    y = _one_launch("threefry_dropout", lambda: tf.dropout(xg, rate, key))
+    assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y, tf.dropout_plain(x, rate, key))
+    _one_launch("threefry_dropout", lambda: y.backward(dy))
+    assert torch.equal(xg.grad, tf.dropout_plain(dy, rate, key))
+    xt = x.transpose(0, -1)                 # not contiguous
+    assert torch.equal(tf.dropout(xt, rate, key),
+                       tf.dropout_plain(xt.contiguous(), rate, key))
+    if x.numel() > 10_000:
+        kept = float((y != 0).float().mean())
+        assert abs(kept - (1 - rate)) < 0.01
