@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels: the dtype codes the Python
-// wrappers pass, conversions to and from fp32, warp reductions, and the
-// attention-dropout keep-mask.
+// wrappers pass, conversions to and from fp32, 16-byte vector loads and
+// stores, warp reductions, and the attention-dropout keep-mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +32,25 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+
+// N elements of T moved as one vector: with sizeof(T) * N == 16 a load
+// or store of a Pack from a 16-byte-aligned address is one 16-byte
+// instruction (ld/st.global.v4), and with constant indices after
+// unrolling its elements stay in registers
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, N>*>(p);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, N>& v) {
+  *reinterpret_cast<Pack<T, N>*>(p) = v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -5,22 +5,23 @@ viewed as (n1, n2) with n2 = prod(normalized_shape); each row gets its
 fp32 mean, two-pass biased variance and ``invvar = rsqrt(var + eps)``
 whatever the input dtype.  On a CUDA tensor the ``csrc/layer_norm.cu``
 kernels compute the forward (statistics and the affine step in one
-pass, y in x's dtype) and the input gradient of the backward; on a CPU
-tensor :func:`_ln_forward_plain` and :func:`_ln_backward_plain` compute
-the same functions in PyTorch (they are also the kernels' references in
+pass, y in x's dtype) and the whole backward (dx, and the column sums
+dweight and dbias the JAX package leaves to XLA); on a CPU tensor
+:func:`_ln_forward_plain` and :func:`_ln_backward_plain` compute the
+same functions in PyTorch (they are also the kernels' references in
 ``chip_smoke.py``).
 
 :func:`fused_layer_norm_affine` and :func:`fused_layer_norm` are
 ``torch.autograd.Function``s on both devices, as the JAX functions are
 ``custom_vjp``s: the forward saves x and the fp32 mean/invvar, the
-backward recomputes xhat from them.  dweight and dbias are PyTorch
-column sums (the JAX package leaves them to XLA) and come back in the
-weight's dtype, dx in x's.
+backward recomputes xhat from them.  dweight and dbias are fp32 sums
+over the rows and come back in the weight's dtype, dx in x's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import numbers
 from typing import Optional, Sequence, Tuple, Union
 
@@ -29,8 +30,10 @@ from torch import nn
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch._kernels.build import (
+    DTYPE_CODES,
     Kernel,
     check_dtype,
+    library,
     plain_path,
     stream_handle,
 )
@@ -42,7 +45,10 @@ _I = ctypes.c_int
 KERNEL = Kernel("layer_norm_fwd", "apex_layer_norm_fwd",
                 [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P])
 BWD_KERNEL = Kernel("layer_norm_bwd", "apex_layer_norm_bwd",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                     _I, _I, _P])
+# the backward's 16-byte path: rows of at most this many elements
+_BWD_FAST_MAX_N2 = 1024
 
 
 def _norm_shape(normalized_shape: Shape) -> Tuple[int, ...]:
@@ -66,18 +72,28 @@ def _xhat(x2, mean, invvar):
     return (x2.float() - mean[:, None]) * invvar[:, None]
 
 
-def _ln_backward_plain(dy2, x2, mean, invvar, weight):
-    """dx of LayerNorm over rows, in x's dtype: the TPU kernel's
+def _ln_backward_plain(dy2, x2, mean, invvar, weight, grad_input=True,
+                       grad_weight=True):
+    """LayerNorm's backward over rows: ``(dx, dweight, dbias)``, None for
+    a gradient not asked for (``grad_input``, ``grad_weight``) and for
+    dweight/dbias without a weight.  dx is the TPU kernel's
     ``invvar * (dy' - (sum(dy') + xhat * sum(dy' * xhat)) / n2)`` with
-    ``dy' = dy * weight`` in fp32 and xhat recomputed from x."""
-    dyw = dy2.float()
-    if weight is not None:
-        dyw = dyw * weight.float()[None, :]
+    ``dy' = dy * weight`` in fp32 and xhat recomputed from x, in x's
+    dtype; dweight and dbias are ``_fla_bwd``'s fp32 column sums of
+    ``dy * xhat`` and ``dy``, in the weight's dtype."""
+    dy32 = dy2.float()
     xhat = _xhat(x2, mean, invvar)
-    sum1 = dyw.sum(dim=1, keepdim=True)
-    sum2 = (dyw * xhat).sum(dim=1, keepdim=True)
-    dx = invvar[:, None] * (dyw - (sum1 + xhat * sum2) / x2.shape[1])
-    return dx.to(x2.dtype)
+    dx = dw = db = None
+    if grad_input:
+        dyw = dy32 if weight is None else dy32 * weight.float()[None, :]
+        sum1 = dyw.sum(dim=1, keepdim=True)
+        sum2 = (dyw * xhat).sum(dim=1, keepdim=True)
+        dx = invvar[:, None] * (dyw - (sum1 + xhat * sum2) / x2.shape[1])
+        dx = dx.to(x2.dtype)
+    if grad_weight and weight is not None:
+        dw = (dy32 * xhat).sum(dim=0).to(weight.dtype)
+        db = dy32.sum(dim=0).to(weight.dtype)
+    return dx, dw, db
 
 
 def _check_affine(weight, bias, n2):
@@ -127,16 +143,38 @@ def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
     return y, mean, invvar
 
 
+def _bwd_fast(n2, *tensors) -> bool:
+    """Whether the backward takes its 16-byte path: whole 16-byte chunks
+    a row, at most ``_BWD_FAST_MAX_N2`` elements (32 a lane), and every
+    row operand 16-byte aligned."""
+    vec = 16 // tensors[0].element_size()
+    return (n2 % vec == 0 and n2 <= _BWD_FAST_MAX_N2
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_parts(n1: int, n2: int, code: int, fast: bool) -> int:
+    """Partial rows (the kernel's grid) of a backward at this shape."""
+    fn = library().apex_layer_norm_bwd_parts
+    fn.argtypes = [_I, _I, _I, _I]
+    fn.restype = _I
+    return fn(n1, n2, code, int(fast))
+
+
 def layer_norm_bwd(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
-                   invvar: torch.Tensor,
-                   weight: Optional[torch.Tensor]) -> torch.Tensor:
-    """dx of LayerNorm over the rows of ``x2`` (n1, n2) given the
+                   invvar: torch.Tensor, weight: Optional[torch.Tensor], *,
+                   grad_input: bool = True, grad_weight: bool = True):
+    """LayerNorm's backward over the rows of ``x2`` (n1, n2) given the
     output gradient ``dy2`` (n1, n2), the forward's fp32 ``mean`` and
-    ``invvar`` (n1,) and the affine ``weight`` (n2,) or None.  Returns dx
-    in x's dtype.
+    ``invvar`` (n1,) and the affine ``weight`` (n2,) or None.  Returns
+    ``(dx, dweight, dbias)``: dx in x's dtype, dweight and dbias (the
+    fp32 sums over rows of ``dy * xhat`` and ``dy``) in the weight's;
+    None for a gradient not asked for (``grad_input``, ``grad_weight``)
+    and for dweight/dbias without a weight.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (fp32/bf16, dy in x's dtype)."""
+    (fp32/bf16, dy in x's dtype): one call, counted once, runs the row
+    kernel and, for the weight gradients, a column-sum kernel."""
     if x2.ndim != 2 or dy2.shape != x2.shape:
         raise ValueError(f"dy2 and x2 must be the same (n1, n2); got "
                          f"{tuple(dy2.shape)} and {tuple(x2.shape)}")
@@ -147,32 +185,52 @@ def layer_norm_bwd(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
         raise ValueError(f"weight must be ({n2},); got {tuple(weight.shape)}")
     w = () if weight is None else (weight,)
     if plain_path(dy2, x2, mean, invvar, *w):
-        return _ln_backward_plain(dy2, x2, mean, invvar, weight)
+        return _ln_backward_plain(dy2, x2, mean, invvar, weight, grad_input,
+                                  grad_weight)
     code = check_dtype("layer_norm_bwd", x2)
     if dy2.dtype != x2.dtype:
         raise TypeError(f"layer_norm_bwd: dy dtype {dy2.dtype} != x dtype "
                         f"{x2.dtype}")
     if mean.dtype != torch.float32 or invvar.dtype != torch.float32:
         raise TypeError("layer_norm_bwd: mean/invvar must be float32")
+    grad_weight = grad_weight and weight is not None
     x2 = x2.contiguous()
     dy2 = dy2.contiguous()
     mean = mean.contiguous()
     invvar = invvar.contiguous()
+    dx = torch.empty_like(x2) if grad_input else None
+    dw = db = w_dtype = None
+    if grad_weight:
+        # the kernel writes fp32 or bf16; another weight dtype is cast
+        w_dtype = weight.dtype
+        out_dtype = w_dtype if w_dtype in DTYPE_CODES else torch.float32
+        dw, db = (torch.empty((n2,), dtype=out_dtype, device=x2.device)
+                  for _ in range(2))
     if weight is not None:
         weight = weight.float().contiguous()
-    dx = torch.empty_like(x2)
     if n1 == 0:
-        return dx
-    BWD_KERNEL.launch(dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(),
-                      invvar.data_ptr(),
-                      None if weight is None else weight.data_ptr(),
-                      dx.data_ptr(), n1, n2, code, stream_handle(x2.device))
-    return dx
+        if grad_weight:
+            dw.zero_()
+            db.zero_()
+    elif grad_input or grad_weight:
+        fast = _bwd_fast(n2, dy2, x2, *(t for t in (dx, weight)
+                                        if t is not None))
+        parts = _bwd_parts(n1, n2, code, fast)
+        part = torch.empty((parts, 2, n2), dtype=torch.float32,
+                           device=x2.device) if grad_weight else None
+        BWD_KERNEL.launch(*(None if t is None else t.data_ptr() for t in (
+            dy2, x2, mean, invvar, weight, dx, part)), parts,
+            *(None if t is None else t.data_ptr() for t in (dw, db)),
+            DTYPE_CODES[dw.dtype] if grad_weight else 0, n1, n2,
+            int(fast), code, stream_handle(x2.device))
+    if dw is not None and dw.dtype != w_dtype:
+        dw, db = dw.to(w_dtype), db.to(w_dtype)
+    return dx, dw, db
 
 
 class _LayerNormFn(torch.autograd.Function):
-    """y = LN(x2) [* weight + bias] over rows, with B3 (or its plain
-    version) for dx and PyTorch column sums for dweight/dbias."""
+    """y = LN(x2) [* weight + bias] over rows; B3 (or its plain version)
+    computes dx, dweight and dbias in one call."""
 
     @staticmethod
     def forward(ctx, x2, weight, bias, eps):
@@ -183,15 +241,10 @@ class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2, weight, mean, invvar = ctx.saved_tensors
-        dy = dy.to(x2.dtype)
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = layer_norm_bwd(dy, x2, mean, invvar, weight)
-        if weight is not None and (ctx.needs_input_grad[1]
-                                   or ctx.needs_input_grad[2]):
-            dy32 = dy.float()
-            dw = (dy32 * _xhat(x2, mean, invvar)).sum(dim=0).to(weight.dtype)
-            db = dy32.sum(dim=0).to(weight.dtype)
+        dx, dw, db = layer_norm_bwd(
+            dy.to(x2.dtype), x2, mean, invvar, weight,
+            grad_input=ctx.needs_input_grad[0],
+            grad_weight=ctx.needs_input_grad[1] or ctx.needs_input_grad[2])
         return dx, dw, db, None
 
 

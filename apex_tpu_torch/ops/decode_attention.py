@@ -4,9 +4,10 @@ Twin of ``apex_tpu/ops/decode_attention.py``.  One new query token per
 sequence attends T gathered cache positions: Sq == 1, no causality (the
 cache holds only the past), an additive fp32 (B, T) bias that masks
 unwritten slots, fp32 softmax.  On CUDA tensors
-``csrc/decode_attention.cu`` computes it, reading K/V in the
-(B, T, H, D) layout through strides; on CPU tensors :func:`_reference`
-does.
+``csrc/decode_attention.cu`` computes it, split across the context in
+64-key tiles (a key masked at or below NEG_INF / 2 reads no K or V),
+reading K/V in the (B, T, H, D) layout through strides; on CPU tensors
+:func:`_reference` does.
 
 Quantized KV: with the pool's (B, T, H) fp32 scale sidecar
 (``k_scale``/``v_scale``) K and V are int8 and widen to q's dtype at
@@ -21,6 +22,7 @@ context) is plain PyTorch here, as it is plain jnp in the reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -32,24 +34,29 @@ from apex_tpu_torch._kernels.build import (
     plain_path,
     stream_handle,
 )
+from apex_tpu_torch.ops.flash_attention import _meets_16_byte_rule
 from apex_tpu_torch.ops.kv_quant import dequantize_kv
 
 NEG_INF = -1e30
 
 _HEAD_DIMS = (64,)   # the head dims csrc/decode_attention.cu is built for
-# the kernel keeps the (T,) score row in shared memory, B8 also the (T,)
-# K and V scale rows
-_MAX_T = (227 * 1024) // 4 - 128 - 256
-_MAX_T_Q8 = _MAX_T // 3
+_TILE = 64           # keys of a kernel tile
+_MAX_SPLITS = 32     # splits of a (b, h) the kernel combines
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel("decode_attention", "apex_decode_attention",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_float,
-                 _I, _P])
+                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                 ctypes.c_float, _I, _P])
 KERNEL_Q8 = Kernel("decode_attention_q8", "apex_decode_attention_q8",
-                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                    ctypes.c_float, _I, _P])
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _P, ctypes.c_float, _I, _P])
+
+# the kernel's per-(b, h) split counters, by (device, stream): zeros that
+# every launch leaves zero; launches on one stream run in order, so they
+# share a set
+_COUNTERS = {}
+
 
 
 def _reference(q, k, v, kv_bias, scale, k_scale=None, v_scale=None):
@@ -84,6 +91,36 @@ def _check_scales(k, k_scale, v_scale, what):
             f"v_scale={tuple(v_scale.shape)}")
 
 
+def _counters(device, stream, n):
+    """At least ``n`` int32 zeros for the split counters on this stream."""
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split(device, bh, t):
+    """(tiles a split, splits): the context's 64-key tiles cut into as
+    many splits as keep B * H * splits within one block an SM (at most
+    ``_MAX_SPLITS``).  A block takes a split; above half as many (b, h)
+    as SMs the context is not split.  On the H100 one split was the fastest
+    count at B * H 96 and 192 (T 1025), and this rule's 11 splits at
+    B * H 12, T 20,000 were 4-7x faster than one (``chip_smoke.py``'s
+    ``split_ms``).  It depends on B * H and T only, so B7 and B8 split a
+    context alike."""
+    n_tiles = -(-t // _TILE)
+    splits = max(1, min(_MAX_SPLITS, n_tiles, _sm_count(device) // bh))
+    tiles = -(-n_tiles // splits)
+    return tiles, -(-n_tiles // tiles)
+
+
 def _decode_cuda(q, k, v, kv_bias, scale, k_scale, v_scale):
     b, t, h, d = k.shape
     code = check_dtype("cached_attention", q)
@@ -101,10 +138,9 @@ def _decode_cuda(q, k, v, kv_bias, scale, k_scale, v_scale):
     if d not in _HEAD_DIMS:
         raise ValueError(f"cached_attention: head_dim {d} not in "
                          f"{_HEAD_DIMS}")
-    max_t = _MAX_T_Q8 if quantized else _MAX_T
-    if t > max_t:
-        raise ValueError(f"cached_attention: T={t} exceeds the kernel's "
-                         f"shared-memory rows ({max_t})")
+    if b * h > 65535:
+        raise ValueError(f"cached_attention: B * H = {b * h} exceeds the "
+                         "kernel's grid (65535)")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             raise ValueError(f"cached_attention: {name} needs unit stride "
@@ -117,24 +153,38 @@ def _decode_cuda(q, k, v, kv_bias, scale, k_scale, v_scale):
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0 or t == 0:
         return o.zero_()
+    # the kernel copies 16-byte chunks of every (b, t, h) row
+    k, v = (x if _meets_16_byte_rule(x)
+            else x.clone(memory_format=torch.contiguous_format)
+            for x in (k, v))
     strides = [q.stride(0), q.stride(2),
                k.stride(0), k.stride(1), k.stride(2),
                v.stride(0), v.stride(1), v.stride(2),
                o.stride(0), o.stride(2)]
+    stream = stream_handle(q.device)
+    tiles, splits = _split(q.device, b * h, t)
+    scratch = counters = None
+    if splits > 1:
+        # (m, l) and acc[d] of every split, fp32
+        scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        counters = _counters(q.device, stream, b * h)
+    extra = tuple(None if x is None else x.data_ptr()
+                  for x in (scratch, counters))
     bias_ptr = None if kv_bias is None else kv_bias.data_ptr()
     if not quantized:
         st = (ctypes.c_int64 * 10)(*strides)
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                      o.data_ptr(), b, h, t, d, ctypes.addressof(st),
-                      float(scale), code, stream_handle(q.device))
+                      o.data_ptr(), *extra, b, h, t, d, tiles,
+                      ctypes.addressof(st), float(scale), code, stream)
         return o
     strides += [k_scale.stride(0), k_scale.stride(1), k_scale.stride(2),
                 v_scale.stride(0), v_scale.stride(1), v_scale.stride(2)]
     st = (ctypes.c_int64 * 16)(*strides)
     KERNEL_Q8.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      k_scale.data_ptr(), v_scale.data_ptr(), bias_ptr,
-                     o.data_ptr(), b, h, t, d, ctypes.addressof(st),
-                     float(scale), code, stream_handle(q.device))
+                     o.data_ptr(), *extra, b, h, t, d, tiles,
+                     ctypes.addressof(st), float(scale), code, stream)
     return o
 
 

@@ -297,7 +297,8 @@ def _check_operands(name, q, k, v, kv_mask, dropout_rate, seed):
 
 
 def _meets_16_byte_rule(t) -> bool:
-    """Whether the bf16 kernels can read ``t`` (B, S, H, D) with 16-byte
+    """Whether the kernels that copy 16-byte chunks (the bf16 flash
+    kernels, decode attention) can read ``t`` (B, S, H, D) with
     ``cp.async``: its base address and its (b, s, h) strides, over the
     dims longer than 1, are multiples of 16 bytes (the head dim is
     contiguous and 64 wide)."""

@@ -11,7 +11,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and reports ``ptxas``'s registers, spills and shared memory (static,
    and the dynamic bytes each launch asks for) of the tensor-core
    kernels (bf16 flash forward, dq and dk/dv, with and without
-   dropout).
+   dropout), and of B3's and the decode kernels (``PTXAS_KERNELS``).
 3. kernels — every ported kernel against its plain PyTorch version on
    the card at the shapes the serving and training paths give it, fp32
    and bf16 (scale-aware error max|a-b|/(max|b|+1) <= 2e-5 fp32,
@@ -27,8 +27,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    B5d, B6d, at rate 0.1, BERT-large's and GPT's training shapes) also
    read their keep-mask back from crafted inputs over Sq = Sk = 192
    (three tiles each way) and hold it bit for bit against
-   ``keep_from_seed``.  B8 (int8 K/V, 8 x 1025 x 12 x 64 from
-   ``quantize_kv`` of random data, one head all zero) is also held bit
+   ``keep_from_seed``.  B3 is the whole LayerNorm backward (dx, dgamma
+   and dbeta, against ``native_layer_norm_backward`` asked for all
+   three).  B7 and B8 (decode split across the context) run at the
+   decode shapes of ``DECODE_SHAPES``: the serve path's 8 x 1025 x 12 x
+   64 at three biases (``DECODE_BIASES``: the engine's, all keys live,
+   NEG_INF tails whose keys the kernel does not read), serve_q8 (c)'s
+   16 slots, and one context of 20,000 keys at B * H 12 (split, and
+   the splits combined); each row has a live-key bound and the
+   all-keys one, the split count the wrapper chose and, at the shape's
+   first bias, the time of every split count (``split_ms``).  B3, B7
+   and B8 are held bit for bit against a second launch.  B8 (int8 K/V
+   from ``quantize_kv`` of random data, one head all zero) is also held bit
    for bit against B7 on the dequantized K/V; its library yardstick is
    SDPA on the dequantized K/V (no PyTorch call takes int8 K/V).  The
    threefry dropout kernel (BERT's hidden dropout; no TPU kernel) is
@@ -256,21 +266,34 @@ WGMMA_KERNELS = (("flash_fwd_kernel_wgmma", "apex_flash_fwd_wgmma_smem"),
                   "apex_flash_bwd_dkv_wgmma_smem"))
 
 
-def _wgmma_ptxas(log, lib):
+# B3's three kernels and the split decode body, by their name in the
+# mangled symbol
+PTXAS_KERNELS = ("layer_norm_bwd_kernel", "layer_norm_bwd_generic_kernel",
+                 "layer_norm_bwd_colsum_kernel", "decode_attention_kernel")
+# mangled template arguments: fp32, bf16, a bool flag
+TEMPLATE_ARGS = {"f": "float", "13__nv_bfloat16": "bfloat16",
+                 "Lb0E": "false", "Lb1E": "true"}
+
+
+def _ptxas(log, fragments):
     """``ptxas -v``'s registers, spills and static shared memory of each
-    instantiation of the wgmma kernels, with the dynamic shared memory
-    its launch asks for."""
-    import ctypes
+    instantiation of the named kernels, as ``name<template args>``."""
     import re
+    arg = re.compile("|".join(map(re.escape, TEMPLATE_ARGS)))
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = next((f"{frag}<{'true' if 'ILb1E' in ln else 'false'}>"
-                         for frag, _ in WGMMA_KERNELS if frag in ln), None)
-            if name:
-                fn = getattr(lib, dict(WGMMA_KERNELS)[name.split("<")[0]])
-                fn.restype = ctypes.c_int
-                out[name] = {"dynamic_smem_bytes": fn()}
+            name = None
+            for frag in fragments:
+                at = ln.find(f"{len(frag)}{frag}I")
+                if at < 0:
+                    continue
+                rest, args = ln[at + len(f"{len(frag)}{frag}I"):], []
+                while (m := arg.match(rest)) is not None:
+                    args.append(TEMPLATE_ARGS[m.group(0)])
+                    rest = rest[m.end():]
+                name = f"{frag}<{', '.join(args)}>"
+                out[name] = {}
         elif name and "spill" in ln:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
             out[name].update(spill_stores=int(st), spill_loads=int(ld))
@@ -294,12 +317,23 @@ def phase_build():
     (OUT_DIR / "build.log").write_text(log)
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    wgmma = _wgmma_ptxas(log, cdll)
+    import ctypes
+    wgmma = _ptxas(log, [frag for frag, _ in WGMMA_KERNELS])
     if len(wgmma) != 2 * len(WGMMA_KERNELS):
         raise AssertionError(f"build: wgmma kernels missing from the ptxas "
                              f"report: {sorted(wgmma)}")
+    for name, row in wgmma.items():  # the dynamic bytes a launch asks for
+        fn = getattr(cdll, dict(WGMMA_KERNELS)[name.split("<")[0]])
+        fn.restype = ctypes.c_int
+        row["dynamic_smem_bytes"] = fn()
+    redesigned = _ptxas(log, PTXAS_KERNELS)
+    # B3's three kernels and the decode body (B7, B8), fp32 and bf16
+    if len(redesigned) != 10:
+        raise AssertionError(f"build: redesigned kernels missing from the "
+                             f"ptxas report: {sorted(redesigned)}")
     emit("build", seconds=round(secs, 3), library=str(lib.relative_to(REPO)),
-         wgmma_kernels=wgmma, ptxas=ptxas[:24])
+         wgmma_kernels=wgmma, redesigned_kernels=redesigned,
+         ptxas=ptxas[:24])
 
 
 def _check(name, dtype, got, want, tol=None):
@@ -450,110 +484,158 @@ def _flash_variants(torch):
     return out
 
 
-def _decode_variants(torch):
-    import torch.nn.functional as F
-    da = importlib.import_module("apex_tpu_torch.ops.decode_attention")
-    out = []
-    b, t, h, d = 8, 1025, 12, 64
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device="cuda").manual_seed(7)
-        q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(dtype)
-        k, v = (torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
-                for _ in range(2))
-        # the engine's bias: cached context < length, then the live self
-        # slot; slot 0 is an empty decode slot at position 0
-        lengths = torch.randint(1, t - 1, (b,), device="cuda", generator=g)
-        lengths[0] = 0
-        pos = torch.arange(t, device="cuda")[None, :]
-        bias = torch.where(pos < lengths[:, None], 0.0, -1e9).float()
-        bias[:, -1] = 0.0
-        scale = 1.0 / d ** 0.5
+# the bias patterns the decode rows are timed at: the engine's (random
+# context lengths, -1e9 past them as the serving pool masks, an empty
+# slot at position 0, the self slot live), every key live, and the same
+# lengths masked at NEG_INF, whose masked keys the kernel does not read.
+# A key is live when its bias is above NEG_INF / 2, the kernel's rule (a
+# -1e9 key is read and weighted exactly 0).
+DECODE_BIASES = ("engine", "all_live", "neg_inf_tail")
 
-        def kernel():
-            return da.cached_attention(q, k, v, kv_bias=bias)
 
-        def plain():
-            return da._reference(q, k, v, bias, scale)
+def _decode_bias(torch, pattern, lengths, t):
+    if pattern == "all_live":
+        return torch.zeros(lengths.numel(), t, device="cuda")
+    masked = -1e9 if pattern == "engine" else -1e30
+    pos = torch.arange(t, device="cuda")[None, :]
+    bias = torch.where(pos < lengths[:, None], 0.0, masked).float()
+    bias[:, -1] = 0.0
+    return bias
 
-        dt = str(dtype).split(".")[1]
-        rel, max_abs = _check("decode_attention", dt, kernel(), plain())
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_mask = bias[:, None, None, :].to(dtype)
-        isz = q.element_size()
-        nbytes = 2 * b * t * h * d * isz + 2 * b * h * d * isz + b * t * 4
-        bms, by = bound(nbytes, 4 * b * h * t * d, dt)
-        out.append({
-            "shape": [b, t, h, d], "dtype": dt, "rel_err": rel,
-            "max_abs_err": max_abs,
-            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
-            "library_ms": median_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=sdpa_mask)),
-            "bound_ms": bms, "bound_by": by})
+
+# the decode shapes, (B, T, H, D), and the biases each is timed at: the
+# serve path's 8 slots (serve, serve_q8 (a) and (b)) and serve_q8 (c)'s
+# 16 (one split a (b, h) at both), and one long context at small B * H,
+# whose splits the last block of a (b, h) combines, T above the limit the
+# shared-memory score row once set
+DECODE_SHAPES = (((8, 1025, 12, 64), DECODE_BIASES),
+                 ((16, 1025, 12, 64), ("engine",)),
+                 ((1, 20000, 12, 64), ("all_live",)))
+
+
+def _split_sweep(da, kernel, check, t):
+    """The kernel's time at every split count a 64-key tiling of ``t``
+    keys allows (at most ``_MAX_SPLITS``), the wrapper's choice replaced
+    for the call; each output is held against the plain version."""
+    from unittest import mock
+    n_tiles = -(-t // da._TILE)
+    out = {}
+    for splits in range(1, min(da._MAX_SPLITS, n_tiles) + 1):
+        tiles = -(-n_tiles // splits)
+        if -(-n_tiles // tiles) != splits:
+            continue  # the same tiling as a smaller count
+        with mock.patch.object(da, "_split", lambda *_: (tiles, splits)):
+            check(kernel())
+            out[str(splits)] = median_ms(kernel)
     return out
 
 
-def _decode_q8_variants(torch):
-    """B8 at the serve_q8 decode shape, fp32 and bf16 compute: int8 K/V
-    from ``quantize_kv`` of random data (head 5 of K all zero: zero
-    scales), the engine's bias (a masked tail, an empty slot at position
-    0), held against its plain version and bit for bit against B7 on
-    the dequantized K/V."""
+def _decode_rows(torch, quantized):
+    """B7 (fp32/bf16 K/V) or B8 (int8 K/V from ``quantize_kv`` of random
+    data, head 5 of K all zero: zero scales) at each of
+    ``DECODE_SHAPES``, fp32 and bf16 compute, at the shape's biases:
+    held against the plain version, B8 bit for bit against B7 on the
+    dequantized K/V, and a second launch against the first.  Each row
+    names the split count the wrapper chose; at a shape's first bias
+    ``split_ms`` times every split count, each output held against the
+    plain version.  ``bound_ms`` counts the K/V (and scale) bytes and
+    operations of live keys and every bias, q and o byte;
+    ``bound_all_keys_ms`` every key's."""
     import torch.nn.functional as F
     da = importlib.import_module("apex_tpu_torch.ops.decode_attention")
     kvq = importlib.import_module("apex_tpu_torch.ops.kv_quant")
+    name = "decode_attention_q8" if quantized else "decode_attention"
     out = []
-    b, t, h, d = 8, 1025, 12, 64
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device="cuda").manual_seed(8)
-        q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(dtype)
+    for (b, t, h, d), patterns in DECODE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            out += _decode_shape_rows(torch, F, da, kvq, name, quantized,
+                                      (b, t, h, d), patterns, dtype)
+    return out
+
+
+def _decode_shape_rows(torch, F, da, kvq, name, quantized, shape, patterns,
+                       dtype):
+    b, t, h, d = shape
+    g = torch.Generator(device="cuda").manual_seed(8 if quantized else 7)
+    q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(dtype)
+    if quantized:
         k, v = (torch.randn(b, t, h, d, device="cuda", generator=g)
                 for _ in range(2))
         k[:, :, 5] = 0
         (kq, ks), (vq, vs) = kvq.quantize_kv(k), kvq.quantize_kv(v)
         del k, v
-        lengths = torch.randint(1, t - 1, (b,), device="cuda", generator=g)
-        lengths[0] = 0
-        pos = torch.arange(t, device="cuda")[None, :]
-        bias = torch.where(pos < lengths[:, None], 0.0, -1e9).float()
-        bias[:, -1] = 0.0
+        kd, vd = (kvq.dequantize_kv(x, sc, dtype)
+                  for x, sc in ((kq, ks), (vq, vs)))
+        kv_args = (kq, vq)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        kd, vd = (torch.randn(b, t, h, d, device="cuda", generator=g)
+                  .to(dtype) for _ in range(2))
+        kv_args, scales = (kd, vd), {}
+    lengths = torch.randint(1, t - 1, (b,), device="cuda", generator=g)
+    lengths[0] = 0
+    dt = _dt(dtype)
+    isz = q.element_size()
+    splits = da._split(q.device, b * h, t)[1]
+    out = []
+    for pattern in patterns:
+        bias = _decode_bias(torch, pattern, lengths, t)
         scale = 1.0 / d ** 0.5
-        kd, vd = (kvq.dequantize_kv(x, s, dtype) for x, s in ((kq, ks),
-                                                             (vq, vs)))
+        label = f"{name} [{dt}, {b}x{t}, {pattern}]"
 
         def kernel():
-            return da.cached_attention(q, kq, vq, kv_bias=bias, k_scale=ks,
-                                       v_scale=vs)
+            return da.cached_attention(q, *kv_args, kv_bias=bias, **scales)
 
         def plain():
-            return da._reference(q, kq, vq, bias, scale, ks, vs)
+            return da._reference(q, *kv_args, bias, scale, *scales.values())
 
-        dt = _dt(dtype)
         o = kernel()
-        rel, max_abs = _check("decode_attention_q8", dt, o, plain())
-        if not torch.equal(o, da.cached_attention(q, kd, vd, kv_bias=bias)):
-            raise AssertionError(f"decode_attention_q8 [{dt}]: differs from "
-                                 "B7 on the dequantized K/V")
+        want = plain()
+        rel, max_abs = _check(label, dt, o, want)
+        if not torch.equal(o, kernel()):
+            raise AssertionError(f"{label}: a second launch gave other "
+                                 "bits")
+        if quantized and not torch.equal(
+                o, da.cached_attention(q, kd, vd, kv_bias=bias)):
+            raise AssertionError(f"{label}: differs from B7 on the "
+                                 "dequantized K/V")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, kd, vd))
         sdpa_mask = bias[:, None, None, :].to(dtype)
-        isz = q.element_size()
-        nbytes = (2 * b * t * h * d + 2 * b * t * h * 4 + b * t * 4
-                  + 2 * b * h * d * isz)
-        # two dot products and the widening multiply per K/V element pair
-        bms, by = bound(nbytes, 6 * b * h * t * d, dt)
+        live = int((bias > -5e29).sum())
+        # per key pair: K and V rows (and two scales); two dot products
+        # (and B8's widening multiply) per K/V element pair
+        per_key = (2 * h * d + 2 * h * 4) if quantized else 2 * h * d * isz
+        fixed = b * t * 4 + 2 * b * h * d * isz
+        ops = (6 if quantized else 4) * h * d
+        bms, by = bound(live * per_key + fixed, live * ops, dt)
+        all_ms, _ = bound(b * t * per_key + fixed, b * t * ops, dt)
+        sweep = {}
+        if pattern == patterns[0]:
+            sweep = {"split_ms": _split_sweep(
+                da, kernel, lambda x: _check(label, dt, x, want), t)}
         out.append({
-            "shape": [b, t, h, d], "dtype": dt, "rel_err": rel,
-            "max_abs_err": max_abs, "b7_bitwise": True,
+            "shape": [b, t, h, d], "dtype": dt, "bias": pattern,
+            "splits": splits, **sweep,
+            "live_key_share": live / (b * t), "rel_err": rel,
+            "max_abs_err": max_abs, "repeat_bitwise": True,
+            **({"b7_bitwise": True} if quantized else {}),
             "ms": median_ms(kernel), "plain_ms": median_ms(plain),
             "library_ms": median_ms(
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sdpa_mask)),
-            "library": "SDPA on the dequantized K/V",
-            "bound_ms": bms, "bound_by": by})
+            **({"library": "SDPA on the dequantized K/V"}
+               if quantized else {}),
+            "bound_ms": bms, "bound_by": by,
+            "bound_all_keys_ms": all_ms})
     return out
 
 
 def _ln_bwd_variants(torch):
+    """B3, the whole LayerNorm backward (dx, dgamma, dbeta in one call),
+    at the GPT and BERT training shapes, fp32 and bf16, against the plain
+    version (dx scale-aware 2e-5 / 2e-2, the fp32 dgamma and dbeta 2e-5)
+    and bit for bit against a second launch.  Yardstick: PyTorch's
+    ``native_layer_norm_backward`` asked for the same three outputs."""
     ln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     out = []
@@ -574,23 +656,40 @@ def _ln_bwd_variants(torch):
         def plain():
             return ln._ln_backward_plain(dy, x, mean, invvar, w)
 
+        w_lib = w.to(dtype)
+        b_lib = torch.zeros_like(w_lib)   # dbias needs a bias tensor
+
         def library():
-            # dx only, from the same saved statistics (rstd = invvar)
+            # the same three outputs from the same saved statistics
+            # (rstd = invvar)
             return torch.ops.aten.native_layer_norm_backward(
-                dy, x, [n2], mean[:, None], invvar[:, None], w.to(dtype),
-                None, [True, False, False])
+                dy, x, [n2], mean[:, None], invvar[:, None], w_lib, b_lib,
+                [True, True, True])
 
         dt = _dt(dtype)
-        rel, max_abs = _check("layer_norm_bwd", dt, kernel(), plain())
+        got, want = kernel(), plain()
+        rel, max_abs = _check("layer_norm_bwd dx", dt, got[0], want[0])
+        wrel = 0.0
+        for what, a, b in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+            r, m = _check(f"layer_norm_bwd {what}", "float32", a, b)
+            wrel, max_abs = max(wrel, r), max(max_abs, m)
+        if not all(torch.equal(a, b) for a, b in zip(got, kernel())):
+            raise AssertionError(f"layer_norm_bwd [{dt}]: a second launch "
+                                 "gave other bits")
+        del got, want
         isz = x.element_size()
-        nbytes = 3 * n1 * n2 * isz + 2 * n1 * 4 + n2 * 4
-        bms, by = bound(nbytes, 11 * n1 * n2, "float32")
+        # dy and x read, dx written; mean, invvar and gamma read; dgamma
+        # and dbeta written
+        nbytes = 3 * n1 * n2 * isz + 2 * n1 * 4 + 3 * n2 * 4
+        bms, by = bound(nbytes, 15 * n1 * n2, "float32")
         out.append({
             "shape": [n1, n2], "dtype": dt, "rel_err": rel,
-            "max_abs_err": max_abs,
+            "weight_grad_rel_err": wrel, "max_abs_err": max_abs,
+            "repeat_bitwise": True,
             "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
             "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
             "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
+            "library": "native_layer_norm_backward (dx, dgamma, dbeta)",
             "bound_ms": bms, "bound_by": by})
     return out
 
@@ -949,7 +1048,8 @@ def _adam_variants(torch):
 
 # (name, source, TPU kernel it replaces, variant builder, summary variant:
 # the shape and dtype of the training step, the path that launches the
-# kernel last, and for B7 and B8 the serving step's)
+# kernel last, and for B7 and B8 the serving step's, with the engine's
+# bias)
 KERNELS = (
     ("layer_norm_fwd", "apex_tpu_torch/csrc/layer_norm.cu",
      "apex_tpu/normalization/fused_layer_norm.py:63", _ln_variants,
@@ -958,11 +1058,13 @@ KERNELS = (
      "apex_tpu/ops/flash_attention.py:161", _flash_variants,
      ([TRAIN_BATCH, TRAIN_SEQ, 12, 64], "bfloat16")),
     ("decode_attention", "apex_tpu_torch/csrc/decode_attention.cu",
-     "apex_tpu/ops/decode_attention.py:125", _decode_variants,
-     ([8, 1025, 12, 64], "float32")),
+     "apex_tpu/ops/decode_attention.py:125",
+     functools.partial(_decode_rows, quantized=False),
+     ([8, 1025, 12, 64], "float32", "engine")),
     ("decode_attention_q8", "apex_tpu_torch/csrc/decode_attention.cu",
-     "apex_tpu/ops/decode_attention.py:131", _decode_q8_variants,
-     ([8, 1025, 12, 64], "float32")),
+     "apex_tpu/ops/decode_attention.py:131",
+     functools.partial(_decode_rows, quantized=True),
+     ([8, 1025, 12, 64], "float32", "engine")),
     ("fused_adam", "apex_tpu_torch/csrc/fused_adam.cu",
      "apex_tpu/optimizers/fused_adam.py:95", _adam_variants,
      (None, "float32")),
@@ -1007,7 +1109,8 @@ def phase_kernels():
             emit("kernels", kernel=name, **row)
         main = next(r for r in rows
                     if summary[0] in (None, r["shape"])
-                    and r["dtype"] == summary[1])
+                    and r["dtype"] == summary[1]
+                    and summary[2:] in ((), (r.get("bias"),)))
         results[name] = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "launches_by_path": {},
@@ -1015,7 +1118,8 @@ def phase_kernels():
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             **{key: main[key] for key in ("library", "design", "row_err",
-                                          "bitwise")
+                                          "bitwise", "bias",
+                                          "bound_all_keys_ms")
                if key in main},
             "shape": main["shape"], "dtype": main["dtype"],
             "variants": rows}
@@ -1323,7 +1427,7 @@ def phase_serve_q8():
 # fragment (first match wins)
 KERNEL_CLASSES = (
     ("layer_norm_fwd (port)", ("layer_norm_fwd_kernel",)),
-    ("layer_norm_bwd (port)", ("layer_norm_bwd_kernel",)),
+    ("layer_norm_bwd (port)", ("layer_norm_bwd",)),
     ("flash_fwd (port)", ("flash_fwd_kernel",)),
     ("flash_bwd_dq (port)", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv (port)", ("flash_bwd_dkv_kernel",)),

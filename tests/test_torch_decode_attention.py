@@ -63,6 +63,43 @@ def test_cached_attention_matches_jax_kernel(t):
     assert rel_err(got.numpy(), want) <= TOL
 
 
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200])
+def test_cached_attention_masks_the_kernel_skips_match_jax(t):
+    """The bias patterns the kernel's 64-key tiles meet, against the JAX
+    kernel through its own CPU path (interpret mode): the engine's masked
+    tail (-1e9 past the context, the self slot live), a row whose only
+    live key is the self slot, a row masked at NEG_INF everywhere but two
+    keys (whole tiles at or below NEG_INF / 2, which the kernel skips),
+    and an all-masked row (zeros)."""
+    rng = np.random.RandomState(1000 + t)
+    b, h, d = 5, 2, 64
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    k = rng.randn(b, t, h, d).astype(np.float32)
+    v = rng.randn(b, t, h, d).astype(np.float32)
+    bias = np.zeros((b, t), np.float32)
+    bias[1, t // 3:] = -1e9                  # the engine's masked tail
+    bias[1, t - 1] = 0.0                     # ... and its live self slot
+    bias[2, :] = -1e9                        # only the self slot live
+    bias[2, t - 1] = 0.0
+    bias[3, :] = -1e30                       # NEG_INF tiles, two live keys
+    bias[3, [t // 2, t - 1]] = 0.0
+    bias[4, :] = -1e30                       # all masked: zeros
+    want = jax_da.cached_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        kv_bias=jnp.asarray(bias), use_pallas=True, interpret=True,
+        block_k=128)
+    before = launch_counts()
+    got = cached_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v),
+                           kv_bias=torch.from_numpy(bias))
+    assert launch_counts() == before, "the CPU path launched a kernel"
+    assert np.all(got[4].numpy() == 0.0)
+    assert rel_err(got.numpy(), want) <= TOL
+    if t > 1:                                # one live key: o is its v
+        np.testing.assert_allclose(got[2, 0].numpy(), v[2, t - 1],
+                                   rtol=1e-6, atol=1e-6)
+
+
 def test_cached_attention_without_bias_and_shape_errors():
     rng = np.random.RandomState(0)
     q = rng.randn(2, 1, 2, 16).astype(np.float32)
@@ -76,6 +113,28 @@ def test_cached_attention_without_bias_and_shape_errors():
     with pytest.raises(ValueError):
         cached_attention(torch.zeros(2, 2, 2, 16), torch.zeros(2, 9, 2, 16),
                          torch.zeros(2, 9, 2, 16))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_split_keeps_one_block_an_sm(monkeypatch, sms):
+    """The wrapper's split count: no split once half the SMs hold a
+    (b, h) (the serve paths' 8 and 16 slots), else as many 64-key
+    splits as keep B * H * splits within the SM count; the tiles cover
+    T in at most ``_MAX_SPLITS`` splits, none of them empty."""
+    da = importlib.import_module("apex_tpu_torch.ops.decode_attention")
+    monkeypatch.setattr(da, "_sm_count", lambda device: sms)
+    assert da._split(None, 96, 1025) == (17, 1)
+    assert da._split(None, 192, 1025) == (17, 1)
+    for bh in (1, 2, 12, 18, 40, 66, 67, 200):
+        for t in (1, 63, 64, 65, 1025, 3000, 20_000, 100_000):
+            tiles, splits = da._split(None, bh, t)
+            n_tiles = -(-t // da._TILE)
+            assert 1 <= splits <= da._MAX_SPLITS
+            assert (splits - 1) * tiles < n_tiles <= splits * tiles
+            assert splits == 1 or bh * splits <= sms
+            if bh * 2 > sms or n_tiles == 1:
+                assert splits == 1
+    assert da._split(None, 12, 20_000)[1] == sms // 12
 
 
 def test_chunk_cached_attention_matches_jax():

@@ -10,9 +10,12 @@ without it:
 the edges ``chip_smoke.py`` does not: odd widths, ragged lengths, the
 built head_dim (64), fully-masked rows, strided operands, inf/nan
 gradients in the Adam step, gradients flowing through the kernels'
-autograd functions, the errors the wrappers raise, B8 (int8 K/V) bit
-for bit against B7 on the dequantized K/V, and the threefry dropout
-kernel bit for bit against its plain version.  Scale-aware error
+autograd functions, the errors the wrappers raise, B3's dweight and
+dbias, decode split across 64-key tiles (every split count of 1025
+keys, masked tiles skipped, T past the old shared-memory limit), B8 (int8 K/V) bit for bit against B7 on
+the dequantized K/V, the same bits from repeated launches of B3, B7
+and B8, and the threefry dropout kernel bit for bit against its plain
+version.  Scale-aware error
 max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
 flash o, dq, dk and dv also row by row (``row_err``); every kernel call
 adds exactly one launch.
@@ -126,21 +129,43 @@ def test_flash_reads_strided_operands(gen):
     assert rel_err(o, fa._reference(q, k, v, None, True, 64 ** -0.5)) <= 2e-5
 
 
+def _decode_bias(b, t):
+    """(b, t) biases over the kernel's 64-key tiles: row 0 all live; row 1
+    the engine's masked tail (-1e9, read and weighted 0); row 2 all
+    masked (zeros); from row 3 on NEG_INF masks that leave whole tiles
+    masked at the start, in the middle and at the tail, and a row whose
+    only live key is the last (the self slot)."""
+    bias = torch.zeros(b, t, device="cuda")
+    bias[1, t // 2:] = -1e9
+    bias[2, :] = da.NEG_INF
+    if b > 3:
+        bias[3, :] = da.NEG_INF
+        bias[3, t // 3:t // 3 + 5] = 0.0     # live keys mid-row only
+        bias[3, t - 1] = 0.0
+    if b > 4:
+        bias[4, :2 * t // 3] = da.NEG_INF    # masked head, live tail
+    if b > 5:
+        bias[5, :] = da.NEG_INF
+        bias[5, t - 1] = 0.0                 # only the self slot
+    return bias
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [1, 37, 1025, 3000])
+@pytest.mark.parametrize("t", [1, 37, 63, 64, 65, 1025, 3000])
 def test_decode_matches_plain(gen, dtype, t):
-    b, h, d = 4, 3, 64
+    """Split across 64-key tiles at T on either side of a tile edge,
+    with masked tiles skipped; repeated launches give the same bits."""
+    b, h, d = 6, 3, 64
     q = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(dtype)
     k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
             for _ in range(2))
-    bias = torch.zeros(b, t, device="cuda")
-    bias[1, t // 2:] = -1e9
-    bias[2, :] = da.NEG_INF              # all masked: zeros
+    bias = _decode_bias(b, t)
     o = _one_launch("decode_attention",
                     lambda: da.cached_attention(q, k, v, kv_bias=bias))
     want = da._reference(q, k, v, bias, d ** -0.5)
     assert rel_err(o, want) <= TOL[dtype]
     assert torch.all(o[2] == 0)
+    assert torch.equal(o, da.cached_attention(q, k, v, kv_bias=bias))
 
 
 def test_decode_reads_strided_operands_without_bias(gen):
@@ -150,6 +175,26 @@ def test_decode_reads_strided_operands_without_bias(gen):
     o = _one_launch("decode_attention",
                     lambda: da.cached_attention(q, k, v))
     assert rel_err(o, da._reference(q, k, v, None, 64 ** -0.5)) <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_copies_rows_off_the_16_byte_grid(gen, dtype):
+    """K/V whose (b, t, h) rows are not 16-byte aligned (a base one
+    element off) are read from a contiguous copy: the same bits as the
+    aligned tensors give."""
+    b, t, h, d = 4, 130, 3, 64
+    q = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    buf = torch.empty(2 * k.numel() + 1, device="cuda", dtype=dtype)
+    k_off = buf[1:1 + k.numel()].view(k.shape)
+    v_off = buf[1 + k.numel():].view(v.shape)
+    k_off.copy_(k)
+    v_off.copy_(v)
+    bias = _decode_bias(b, t)
+    o = _one_launch("decode_attention", lambda: da.cached_attention(
+        q, k_off, v_off, kv_bias=bias))
+    assert torch.equal(o, da.cached_attention(q, k, v, kv_bias=bias))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -177,19 +222,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n1,n2", [(1, 7), (1, 768), (33, 1001), (64, 768)])
+@pytest.mark.parametrize("n1,n2", [(1, 7), (1, 768), (33, 1001), (64, 768),
+                                   (4096, 1024), (8192, 768)])
 @pytest.mark.parametrize("affine", [True, False])
 def test_layer_norm_bwd_matches_plain(gen, dtype, n1, n2, affine):
+    """dx, dweight and dbias in one call (one launch) against the plain
+    version; a second launch gives the same bits."""
     x = (3 * torch.randn(n1, n2, device="cuda", generator=gen) + 1).to(dtype)
     dy = torch.randn(n1, n2, device="cuda", generator=gen).to(dtype)
     w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=gen)) \
         if affine else None
     _, mean, invvar = ln._ln_forward_plain(x, 1e-5)
-    dx = _one_launch("layer_norm_bwd",
-                     lambda: ln.layer_norm_bwd(dy, x, mean, invvar, w))
+    got = _one_launch("layer_norm_bwd",
+                      lambda: ln.layer_norm_bwd(dy, x, mean, invvar, w))
     want = ln._ln_backward_plain(dy, x, mean, invvar, w)
-    assert dx.dtype == dtype
-    assert rel_err(dx, want) <= TOL[dtype]
+    assert got[0].dtype == dtype
+    assert rel_err(got[0], want[0]) <= TOL[dtype]
+    if not affine:
+        assert got[1] is None and got[2] is None
+    else:
+        for g, pw in zip(got[1:], want[1:]):
+            assert g.dtype == torch.float32 and rel_err(g, pw) <= 2e-5
+    again = ln.layer_norm_bwd(dy, x, mean, invvar, w)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again))
+
+
+def test_layer_norm_bwd_asked_gradients_weight_dtype_and_alignment(gen):
+    """Each call is one launch whatever it is asked for; a bf16 weight
+    gets bf16 gradients; a row operand off the 16-byte grid takes the
+    generic path and agrees with the plain version."""
+    n1, n2 = 300, 768
+    x = torch.randn(n1, n2, device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    dy = torch.randn(n1, n2, device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=gen)) \
+        .to(torch.bfloat16)
+    _, mean, invvar = ln._ln_forward_plain(x, 1e-5)
+    full = _one_launch("layer_norm_bwd",
+                       lambda: ln.layer_norm_bwd(dy, x, mean, invvar, w))
+    want = ln._ln_backward_plain(dy, x, mean, invvar, w)
+    for g, pw in zip(full, want):
+        assert g.dtype == torch.bfloat16 and rel_err(g, pw) <= 2e-2
+    dx, dw, db = _one_launch("layer_norm_bwd", lambda: ln.layer_norm_bwd(
+        dy, x, mean, invvar, w, grad_weight=False))
+    assert dw is None and db is None and torch.equal(dx, full[0])
+    dx, dw, db = _one_launch("layer_norm_bwd", lambda: ln.layer_norm_bwd(
+        dy, x, mean, invvar, w, grad_input=False))
+    assert dx is None and torch.equal(dw, full[1]) and torch.equal(db,
+                                                                   full[2])
+    buf = torch.empty(2 * n1 * n2 + 1, device="cuda", dtype=torch.bfloat16)
+    x_off = buf[1:1 + n1 * n2].view(n1, n2)     # 2 bytes off the grid
+    dy_off = buf[1 + n1 * n2:].view(n1, n2)
+    x_off.copy_(x)
+    dy_off.copy_(dy)
+    got = _one_launch("layer_norm_bwd", lambda: ln.layer_norm_bwd(
+        dy_off, x_off, mean, invvar, w.float()))
+    want = ln._ln_backward_plain(dy, x, mean, invvar, w.float())
+    assert rel_err(got[0], want[0]) <= 2e-2
+    assert all(rel_err(g, pw) <= 2e-5 for g, pw in zip(got[1:], want[1:]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -629,9 +721,10 @@ def _q8_inputs(gen, dtype, b, t, h=3, d=64):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [1, 17, 1025])
+@pytest.mark.parametrize("t", [1, 17, 63, 64, 65, 1025, 3000])
 def test_decode_q8_matches_plain_and_b7_bitwise(gen, dtype, t):
-    q, kq, ks, vq, vs, bias = _q8_inputs(gen, dtype, 4, t)
+    q, kq, ks, vq, vs, bias = _q8_inputs(gen, dtype, 6, t)
+    bias[3:] = _decode_bias(6, t)[3:]           # NEG_INF tiles skipped
     before = launch_counts()["decode_attention"]
     o = _one_launch("decode_attention_q8", lambda: da.cached_attention(
         q, kq, vq, kv_bias=bias, k_scale=ks, v_scale=vs))
@@ -644,6 +737,56 @@ def test_decode_q8_matches_plain_and_b7_bitwise(gen, dtype, t):
         q, kvq.dequantize_kv(kq, ks, dtype), kvq.dequantize_kv(vq, vs, dtype),
         kv_bias=bias))
     assert torch.equal(o, b7)
+    assert torch.equal(o, da.cached_attention(
+        q, kq, vq, kv_bias=bias, k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_runs_past_the_old_shared_memory_limit(gen, quantized):
+    """T = 20,000 (the old kernels kept a shared-memory score row and
+    took T <= 19,242 with int8 K/V): B8 equals B7 on the dequantized K/V
+    bit for bit, both against the plain version, masked tiles skipped."""
+    t = 20_000
+    q, kq, ks, vq, vs, bias = _q8_inputs(gen, torch.float32, 6, t, h=2)
+    bias[3:] = _decode_bias(6, t)[3:]
+    kd, vd = kvq.dequantize_kv(kq, ks, q.dtype), kvq.dequantize_kv(vq, vs,
+                                                                   q.dtype)
+    b7 = _one_launch("decode_attention", lambda: da.cached_attention(
+        q, kd, vd, kv_bias=bias))
+    assert rel_err(b7, da._reference(q, kd, vd, bias, 64 ** -0.5)) <= 2e-5
+    assert torch.all(b7[0] == 0)
+    if quantized:
+        o = _one_launch("decode_attention_q8", lambda: da.cached_attention(
+            q, kq, vq, kv_bias=bias, k_scale=ks, v_scale=vs))
+        assert torch.equal(o, b7)
+        assert torch.equal(o, da.cached_attention(
+            q, kq, vq, kv_bias=bias, k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 9, 17])
+def test_decode_every_split_count_matches_plain(gen, monkeypatch, dtype,
+                                                splits):
+    """Every way 1025 keys (17 tiles) split, the wrapper's choice
+    replaced: each count against the plain version, zeros on the
+    all-masked rows, B8 bit for bit B7 at the same count, and a second
+    launch (the combine's counters reset) the same bits."""
+    t = 1025
+    tiles = -(-17 // splits)
+    monkeypatch.setattr(da, "_split", lambda *_: (tiles, splits))
+    q, kq, ks, vq, vs, bias = _q8_inputs(gen, dtype, 6, t)
+    bias[3:] = _decode_bias(6, t)[3:]
+    o = _one_launch("decode_attention_q8", lambda: da.cached_attention(
+        q, kq, vq, kv_bias=bias, k_scale=ks, v_scale=vs))
+    assert rel_err(o, da._reference(q, kq, vq, bias, 64 ** -0.5, ks,
+                                    vs)) <= TOL[dtype]
+    assert torch.all(o[0] == 0)
+    b7 = _one_launch("decode_attention", lambda: da.cached_attention(
+        q, kvq.dequantize_kv(kq, ks, dtype), kvq.dequantize_kv(vq, vs, dtype),
+        kv_bias=bias))
+    assert torch.equal(o, b7)
+    assert torch.equal(o, da.cached_attention(
+        q, kq, vq, kv_bias=bias, k_scale=ks, v_scale=vs))
 
 
 def test_decode_q8_reads_gathered_strides(gen):

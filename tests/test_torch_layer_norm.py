@@ -116,7 +116,12 @@ def _t(a, dtype, grad=True):
                                           ("bfloat16", "float32"),
                                           ("bfloat16", "bfloat16")])
 @pytest.mark.parametrize("shape,ns", [((8, 64), 64), ((4, 33), 33),
-                                      ((2, 3, 7), (3, 7))])
+                                      ((2, 3, 7), (3, 7)),
+                                      # the paths' widths (GPT-2 small's
+                                      # 768, BERT-large's 1024) and a
+                                      # ragged one
+                                      ((2, 5, 768), 768), ((9, 1024), 1024),
+                                      ((6, 1001), 1001)])
 def test_affine_grads_match_jax_kernel(shape, ns, dtype, wdtype):
     """dx (B3 and its plain version), dweight and dbias against
     ``jax.vjp`` through the interpret-mode kernels; every gradient comes
@@ -156,6 +161,66 @@ def test_non_affine_grad_matches_jax_kernel(dtype):
                                  _t(dy, dtype, False))
     assert got.dtype == xt.dtype
     assert rel_err(_to_np(got), want) <= TOL[dtype]
+
+
+def _fla_bwd_numpy(dy, x, mean, invvar, w):
+    """The reference's ``_fla_bwd`` (apex_tpu/normalization/
+    fused_layer_norm.py:226-236) in float64 numpy: dx from the gamma-scaled
+    dy and xhat, dweight and dbias as column sums of dy * xhat and dy."""
+    dy, x = dy.astype(np.float64), x.astype(np.float64)
+    xhat = (x - mean[:, None]) * invvar[:, None]
+    dyw = dy if w is None else dy * w[None, :]
+    n2 = x.shape[1]
+    dx = invvar[:, None] * (dyw - (dyw.sum(1, keepdims=True)
+                                   + xhat * (dyw * xhat).sum(1, keepdims=True))
+                            / n2)
+    return dx, (dy * xhat).sum(0), dy.sum(0)
+
+
+@pytest.mark.parametrize("n1,n2", [(16, 768), (8, 1024), (5, 1001), (3, 7)])
+@pytest.mark.parametrize("affine", [True, False])
+def test_backward_plain_matches_reference_formula(n1, n2, affine):
+    """``_ln_backward_plain`` — the CPU path and the kernel's reference —
+    returns (dx, dweight, dbias) as ``_fla_bwd`` forms them, None for
+    the weight gradients without a weight; in float32 within 1e-5."""
+    ln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    rng = np.random.RandomState(n1 * n2)
+    x = (rng.randn(n1, n2) * 2 + 0.5).astype(np.float32)
+    dy = rng.randn(n1, n2).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(n2)).astype(np.float32) if affine else None
+    _, mean, invvar = ln._ln_forward_plain(torch.from_numpy(x), 1e-5)
+    got = ln.layer_norm_bwd(torch.from_numpy(dy), torch.from_numpy(x), mean,
+                            invvar, None if w is None else torch.from_numpy(w))
+    want = _fla_bwd_numpy(dy, x, mean.double().numpy(),
+                          invvar.double().numpy(), w)
+    assert rel_err(_to_np(got[0]), want[0]) <= TOL["float32"]
+    if not affine:
+        assert got[1] is None and got[2] is None
+        return
+    for g, jg in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32 and g.shape == (n2,)
+        assert rel_err(_to_np(g), jg) <= TOL["float32"]
+
+
+def test_backward_plain_computes_only_what_is_asked():
+    """No weight gradient asked for: (dx, None, None); no input gradient:
+    (None, dweight, dbias) equal to the full call's."""
+    ln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    rng = np.random.RandomState(12)
+    x, dy = (torch.from_numpy(rng.randn(6, 40).astype(np.float32))
+             for _ in range(2))
+    w = torch.from_numpy((1 + 0.1 * rng.randn(40)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    _, mean, invvar = ln._ln_forward_plain(x, 1e-5)
+    full = ln.layer_norm_bwd(dy, x, mean, invvar, w)
+    assert full[1].dtype == torch.bfloat16 and full[2].dtype == torch.bfloat16
+    dx, dw, db = ln.layer_norm_bwd(dy, x, mean, invvar, w, grad_weight=False)
+    assert dw is None and db is None and torch.equal(dx, full[0])
+    dx, dw, db = ln.layer_norm_bwd(dy, x, mean, invvar, w, grad_input=False)
+    assert dx is None and torch.equal(dw, full[1]) and torch.equal(db,
+                                                                   full[2])
 
 
 def test_module_backward_reaches_its_params():
