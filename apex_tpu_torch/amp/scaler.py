@@ -17,6 +17,7 @@ from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
+from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.ops.multi_tensor import multi_tensor_unscale
 
 Tree = Any
@@ -49,7 +50,10 @@ class LossScaler:
         self.min_loss_scale = min_loss_scale
         self.max_loss_scale = float(max_loss_scale)
 
-    def init(self, device="cpu") -> LossScalerState:
+    def init(self, device="cuda") -> LossScalerState:
+        """The starting state on ``device``: the card unless the caller
+        asks for the CPU (``device="cpu"``)."""
+        device = resolve_device(device)
         return LossScalerState(
             loss_scale=torch.full((), self._init_scale, dtype=torch.float32,
                                   device=device),

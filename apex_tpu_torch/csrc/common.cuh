@@ -60,6 +60,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// N elements of W at p widened to fp32, read as vectors of at most 16
+// bytes (p aligned to the vector: N * sizeof(W) bytes up to 16)
+template <typename W, int N>
+__device__ __forceinline__ void load_float(const W* p, float (&out)[N]) {
+  constexpr int E = 16 / sizeof(W) < N ? 16 / sizeof(W) : N;
+#pragma unroll
+  for (int u = 0; u < N / E; ++u) {
+    const Pack<W, E> pk = load_pack<W, E>(p + u * E);
+#pragma unroll
+    for (int e = 0; e < E; ++e) out[u * E + e] = to_float(pk.v[e]);
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

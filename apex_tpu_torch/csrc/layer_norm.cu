@@ -8,31 +8,163 @@
 // fp32 xhat and left the affine step to XLA; here the affine step is
 // fused and the kernel writes y = xhat * w + b in x's dtype plus the
 // fp32 mean and invvar.  The fp32 xhat round trip only fed the backward,
-// which can recompute it from x, mean and invvar.
+// which can recompute it from x, mean and invvar.  w and b are read in
+// their own dtype (fp32, or bf16 as amp O2 keeps LayerNorm's params) and
+// widened in registers, as the reference's affine step widens them
+// inside XLA's fusion, so O2 launches no cast kernels for them.
 //
-// Bound on the H100: bytes.  GPT-2 small normalises rows of 768, and
-// n1 is 8 (decode) to 1024 (the largest prefill bucket) when serving and
-// 8192 in a training step (8 x 1024 tokens): a call moves at most ~25 MB
-// and at decode is bound by its launch, not by the 3.35 TB/s of device
-// memory.  Design: one warp per row, lanes
-// striding the row so every load instruction reads 32 neighbouring
-// elements, fp32 sums reduced with shuffles — no shared memory and no
-// block barrier.  The row is read three times (mean, variance,
-// output); the second and third reads hit L1.
+// Bound on the H100: bytes, 2 * n1 * n2 * itemsize (x read, y written)
+// at 3.35 TB/s.  The paths' rows are 768 (GPT-2 small) and 1024
+// (BERT-large) wide: 8 rows at decode and up to 1024 at prefill (fp32),
+// 8192 x 768 and 4096 x 1024 in a training step (bf16 under O2, 13-17 MB:
+// 3.8-5.0 us).  At decode the bytes take 0.02 us, so there the bound is
+// latency: the number of dependent round trips to memory.
+//
+// Fast path (n2 % (16 / itemsize) == 0, n2 <= 1024, x, y, w and b
+// 16-byte aligned; every row the port's paths normalise):
+// layer_norm_fwd_kernel, one warp a row.  Lane l owns the row's 16-byte
+// chunks l, l + 32, ... (at most 32 elements).  The row's loads and then
+// the lane's columns of w and b (held in registers for every row the
+// warp takes) go out before the first add, so a row costs one round
+// trip to memory.  The mean and the two-pass variance come from the
+// registers (warp shuffles, no shared memory, no block barrier), and y
+// goes out in 16-byte stores.  The grid is resident: one-warp blocks,
+// no more than the card holds at once (8 rows land on 8 SMs), each warp
+// walking rows with the next row's loads issued before this row's sums.
+//
+// Candidates timed on an H100 at 700 W (chip_smoke.py's B2 rows, with
+// L2 warm and flushed; an empty launch reads 0.0049 ms there):
+//  - one row a warp, its w and b loaded beside it (113-130 registers):
+//    4096 x 1024 bf16 0.0093 ms warm, 0.0120 with L2 flushed; 8192 x
+//    768 bf16 0.0117 / 0.0147.  Two rows a warp (153-181 registers) was
+//    slower at every shape: fewer warps fit, and 4096 rows ran in two
+//    waves that each waited out a full load latency;
+//  - w and b loaded at the output pass instead (53-58 registers): twice
+//    as slow at the training shapes, as those loads then missed L1
+//    behind the streaming rows and sat on every warp's critical path;
+//  - the resident grid (this design): 0.0093 / 0.0118 and 0.0111 /
+//    0.0139, against 0.0109 / 0.0136 and 0.0146 / 0.0174 for the same
+//    kernel launched one row a warp.  Blocks of 1, 2, 4 and 8 warps:
+//    at 8-256 rows within 2% of each other; at 4096 x 1024 bf16
+//    0.00934, 0.00931, 0.00941, 0.00976 ms warm and 0.01206, 0.01194,
+//    0.01187, 0.01189 cold; at 8192 x 768 bf16 0.01130, 0.01133,
+//    0.01130, 0.01274 warm and 0.01413, 0.01416, 0.01402, 0.01445
+//    cold.  So one size serves every shape: one warp, which spreads a
+//    few rows over as many SMs.
+// Every other row (n2 = 7, 33 or 1001, a bf16 row of 100, wider than
+// 1024, or a misaligned view) takes layer_norm_fwd_generic_kernel,
+// the first version: one warp a row, four a block, lanes striding the
+// row with scalar loads, which reads it three times (mean, variance,
+// output).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxPerLane = 32;     // elements of a row a lane keeps
+constexpr int kFwdGenericWarps = 4;
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ b, T* __restrict__ y,
+template <typename T, int V, int NC>
+__device__ __forceinline__ void load_row(const T* __restrict__ xr, int lane,
+                                         int nch, apex::Pack<T, V> (&v)[NC]) {
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int ci = lane + 32 * i;
+    if (ci < nch) v[i] = apex::load_pack<T, V>(xr + ci * V);
+  }
+}
+
+// one warp a block
+template <typename T, typename W>
+__global__ void __launch_bounds__(32)
+layer_norm_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                      const W* __restrict__ b, T* __restrict__ y,
                       float* __restrict__ mean_out,
                       float* __restrict__ invvar_out, int n1, int n2,
                       float eps) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  constexpr int V = 16 / sizeof(T);     // elements a 16-byte chunk
+  constexpr int NC = kMaxPerLane / V;   // chunks a lane may own
+  using P = apex::Pack<T, V>;
+  const int lane = threadIdx.x;
+  const int stride = gridDim.x;  // warps in the grid
+  int row = blockIdx.x;
+  if (row >= n1) return;
+  const int nch = n2 / V;
+  const float n = static_cast<float>(n2);
+
+  // the first row's loads, then the lane's columns of w and b (held for
+  // every row the warp takes), all before the first add
+  P xv[NC];
+  load_row<T, V, NC>(x + static_cast<int64_t>(row) * n2, lane, nch, xv);
+  float wv[NC][V], bv[NC][V];
+  if (w != nullptr) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int ci = lane + 32 * i;
+      if (ci < nch) {
+        apex::load_float<W, V>(w + ci * V, wv[i]);
+        apex::load_float<W, V>(b + ci * V, bv[i]);
+      }
+    }
+  }
+
+  for (; row < n1; row += stride) {
+    // the warp's next row (a resident grid walks the rows) is loaded
+    // before this row's sums
+    P nx[NC];
+    if (row + stride < n1)
+      load_row<T, V, NC>(x + static_cast<int64_t>(row + stride) * n2, lane,
+                         nch, nx);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (lane + 32 * i >= nch) continue;
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += apex::to_float(xv[i].v[e]);
+    }
+    const float mean = apex::warp_sum(s) / n;
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (lane + 32 * i >= nch) continue;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = apex::to_float(xv[i].v[e]) - mean;
+        ss += d * d;
+      }
+    }
+    const float invvar = rsqrtf(apex::warp_sum(ss) / n + eps);
+    T* yr = y + static_cast<int64_t>(row) * n2;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int ci = lane + 32 * i;
+      if (ci >= nch) continue;
+      P out;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float v = (apex::to_float(xv[i].v[e]) - mean) * invvar;
+        if (w != nullptr) v = v * wv[i][e] + bv[i][e];
+        out.v[e] = apex::from_float<T>(v);
+      }
+      apex::store_pack<T, V>(yr + ci * V, out);
+    }
+    if (lane == 0) {
+      mean_out[row] = mean;
+      invvar_out[row] = invvar;
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i) xv[i] = nx[i];
+  }
+}
+
+template <typename T, typename W>
+__global__ void __launch_bounds__(32 * kFwdGenericWarps)
+layer_norm_fwd_generic_kernel(const T* __restrict__ x,
+                              const W* __restrict__ w,
+                              const W* __restrict__ b, T* __restrict__ y,
+                              float* __restrict__ mean_out,
+                              float* __restrict__ invvar_out, int n1, int n2,
+                              float eps) {
+  const int row = blockIdx.x * kFwdGenericWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= n1) return;  // the whole warp leaves together
   const T* xr = x + static_cast<int64_t>(row) * n2;
@@ -53,13 +185,49 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   T* yr = y + static_cast<int64_t>(row) * n2;
   for (int i = lane; i < n2; i += 32) {
     float v = (apex::to_float(xr[i]) - mean) * invvar;
-    if (w != nullptr) v = v * w[i] + b[i];
+    if (w != nullptr) v = v * apex::to_float(w[i]) + apex::to_float(b[i]);
     yr[i] = apex::from_float<T>(v);
   }
   if (lane == 0) {
     mean_out[row] = mean;
     invvar_out[row] = invvar;
   }
+}
+
+// one-warp blocks of the fast kernel resident on the card at once
+template <typename T, typename W>
+int fwd_resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, layer_norm_fwd_kernel<T, W>, 32, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
+}
+
+template <typename T, typename W>
+cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y,
+                       float* mean, float* invvar, int n1, int n2, float eps,
+                       int fast, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const W* wt = static_cast<const W*>(w);
+  const W* bt = static_cast<const W*>(b);
+  T* yt = static_cast<T*>(y);
+  if (!fast) {
+    layer_norm_fwd_generic_kernel<T, W>
+        <<<(n1 + kFwdGenericWarps - 1) / kFwdGenericWarps,
+           32 * kFwdGenericWarps, 0, s>>>(xt, wt, bt, yt, mean, invvar, n1,
+                                          n2, eps);
+    return cudaGetLastError();
+  }
+  const int cap = fwd_resident_blocks<T, W>();
+  layer_norm_fwd_kernel<T, W><<<n1 < cap ? n1 : cap, 32, 0, s>>>(
+      xt, wt, bt, yt, mean, invvar, n1, n2, eps);
+  return cudaGetLastError();
 }
 
 // LayerNorm backward (B3): dx, and dgamma / dbeta fused in.
@@ -71,11 +239,13 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 //   dx = invvar * (dy' - (sum(dy') + xhat * sum(dy' * xhat)) / n2)
 // in fp32, written in x's dtype; and over the rows, in fp32,
 //   dgamma = sum_rows dy * xhat,   dbeta = sum_rows dy,
-// written in gamma's dtype.  The TPU kernel read an fp32 xhat its forward
-// had stored and a dy' its caller had formed; here xhat is recomputed
-// from x and the forward's fp32 mean/invvar and the gamma multiply is
-// done in the kernel, so the only full-size reads are dy and x, and the
-// only full-size write is dx.
+// written in gamma's dtype.  gamma is read in its own dtype (fp32 or
+// bf16) and widened in registers once for all the rows a warp takes, as
+// in the forward.  The TPU kernel
+// read an fp32 xhat its forward had stored and a dy' its caller had
+// formed; here xhat is recomputed from x and the forward's fp32
+// mean/invvar and the gamma multiply is done in the kernel, so the only
+// full-size reads are dy and x, and the only full-size write is dx.
 //
 // Bound on the H100: bytes.  BERT-large's step normalises (4096, 1024)
 // rows and GPT-2 small's (8192, 768), bf16 under O2: read dy and x, write
@@ -104,28 +274,31 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 //     the row kernel so that its launch overlaps the row kernel's tail.
 // No float atomics: two launches on the same inputs give the same bits.
 constexpr int kBwdWarps = 8;         // rows a block of the fast path holds
-constexpr int kBwdMaxPerLane = 32;   // elements of a row a lane keeps
 constexpr int kGenericThreads = 256;
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(32 * kBwdWarps)
 layer_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                       const float* __restrict__ mean,
                       const float* __restrict__ invvar,
-                      const float* __restrict__ w, T* __restrict__ dx,
+                      const W* __restrict__ w, T* __restrict__ dx,
                       float* __restrict__ part, int n1, int n2) {
   constexpr int V = 16 / sizeof(T);          // elements a 16-byte chunk
-  constexpr int NC = kBwdMaxPerLane / V;     // chunks a lane may own
+  constexpr int NC = kMaxPerLane / V;        // chunks a lane may own
   using P = apex::Pack<T, V>;
   extern __shared__ float col_s[];  // kBwdWarps x (dgamma, dbeta) x n2
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nch = n2 / V;
   const float n = static_cast<float>(n2);
-  float gacc[NC][V], bacc[NC][V];
+  float gacc[NC][V], bacc[NC][V], wv[NC][V];
 #pragma unroll
-  for (int i = 0; i < NC; ++i)
+  for (int i = 0; i < NC; ++i) {
 #pragma unroll
     for (int e = 0; e < V; ++e) gacc[i][e] = bacc[i][e] = 0.f;
+    // the lane's columns of gamma, the same in every row it takes
+    if (w != nullptr && lane + 32 * i < nch)
+      apex::load_float<W, V>(w + (lane + 32 * i) * V, wv[i]);
+  }
 
   for (int row = blockIdx.x * kBwdWarps + warp; row < n1;
        row += gridDim.x * kBwdWarps) {
@@ -145,16 +318,10 @@ layer_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     for (int i = 0; i < NC; ++i) {
       const int ci = lane + 32 * i;
       if (ci >= nch) continue;
-      apex::Pack<float, 4> wv[V / 4 > 0 ? V / 4 : 1];
-      if (w != nullptr) {
-#pragma unroll
-        for (int u = 0; u < V / 4; ++u)
-          wv[u] = apex::load_pack<float, 4>(w + ci * V + 4 * u);
-      }
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         const float d = apex::to_float(dyv[i].v[e]);
-        const float dw = w != nullptr ? d * wv[e / 4].v[e % 4] : d;
+        const float dw = w != nullptr ? d * wv[i][e] : d;
         const float xh = (apex::to_float(xv[i].v[e]) - mu) * iv;
         s1 += dw;
         s2 += dw * xh;
@@ -171,17 +338,11 @@ layer_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     for (int i = 0; i < NC; ++i) {
       const int ci = lane + 32 * i;
       if (ci >= nch) continue;
-      apex::Pack<float, 4> wv[V / 4 > 0 ? V / 4 : 1];
-      if (w != nullptr) {
-#pragma unroll
-        for (int u = 0; u < V / 4; ++u)
-          wv[u] = apex::load_pack<float, 4>(w + ci * V + 4 * u);
-      }
       P out;
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         const float d = apex::to_float(dyv[i].v[e]);
-        const float dw = w != nullptr ? d * wv[e / 4].v[e % 4] : d;
+        const float dw = w != nullptr ? d * wv[i][e] : d;
         const float xh = (apex::to_float(xv[i].v[e]) - mu) * iv;
         out.v[e] = apex::from_float<T>(iv * (dw - (s1 + xh * s2) / n));
       }
@@ -218,13 +379,13 @@ layer_norm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(kGenericThreads)
 layer_norm_bwd_generic_kernel(const T* __restrict__ dy,
                               const T* __restrict__ x,
                               const float* __restrict__ mean,
                               const float* __restrict__ invvar,
-                              const float* __restrict__ w,
+                              const W* __restrict__ w,
                               T* __restrict__ dx, float* __restrict__ part,
                               int n1, int n2) {
   constexpr int kWarps = kGenericThreads / 32;
@@ -244,7 +405,7 @@ layer_norm_bwd_generic_kernel(const T* __restrict__ dy,
     float s1 = 0.f, s2 = 0.f;
     for (int i = tid; i < n2; i += kGenericThreads) {
       float d = apex::to_float(dyr[i]);
-      if (w != nullptr) d *= w[i];
+      if (w != nullptr) d *= apex::to_float(w[i]);
       const float xh = (apex::to_float(xr[i]) - mu) * iv;
       s1 += d;
       s2 += d * xh;
@@ -265,7 +426,7 @@ layer_norm_bwd_generic_kernel(const T* __restrict__ dy,
     __syncthreads();  // red is rewritten by the next row
     for (int i = tid; i < n2; i += kGenericThreads) {
       const float d = apex::to_float(dyr[i]);
-      const float dw = w != nullptr ? d * w[i] : d;
+      const float dw = w != nullptr ? d * apex::to_float(w[i]) : d;
       const float xh = (apex::to_float(xr[i]) - mu) * iv;
       if (dx != nullptr)
         dx[base + i] = apex::from_float<T>(iv * (dw - (s1 + xh * s2) / n));
@@ -308,21 +469,21 @@ layer_norm_bwd_colsum_kernel(const float* __restrict__ part, int parts,
 // the fast kernel's shared memory at the widest row (64 KB): every
 // warp's column sums
 constexpr size_t kFastSmemMax =
-    sizeof(float) * kBwdWarps * 2 * 32 * kBwdMaxPerLane;
+    sizeof(float) * kBwdWarps * 2 * 32 * kMaxPerLane;
 
 // blocks of the fast kernel resident on the card at once: its grid
-template <typename T>
+template <typename T, typename W>
 int fast_grid() {
   static int blocks = 0;
   if (blocks == 0) {
-    cudaFuncSetAttribute(layer_norm_bwd_kernel<T>,
+    cudaFuncSetAttribute(layer_norm_bwd_kernel<T, W>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(kFastSmemMax));
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, layer_norm_bwd_kernel<T>, 32 * kBwdWarps, kFastSmemMax);
+        &per_sm, layer_norm_bwd_kernel<T, W>, 32 * kBwdWarps, kFastSmemMax);
     blocks = sms * (per_sm > 0 ? per_sm : 1);
   }
   return blocks;
@@ -339,24 +500,24 @@ int generic_grid() {
   return blocks;
 }
 
-template <typename T>
+template <typename T, typename W>
 cudaError_t launch_bwd(const void* dy, const void* x, const float* mean,
-                       const float* invvar, const float* w, void* dx,
+                       const float* invvar, const void* w, void* dx,
                        float* part, int parts, void* dgamma, void* dbeta,
-                       int w_dtype, int n1, int n2, int fast,
-                       cudaStream_t s) {
+                       int n1, int n2, int fast, cudaStream_t s) {
   const T* dyt = static_cast<const T*>(dy);
   const T* xt = static_cast<const T*>(x);
+  const W* wt = static_cast<const W*>(w);
   T* dxt = static_cast<T*>(dx);
   if (fast) {
-    fast_grid<T>();  // sets the kernel's shared-memory limit once
-    layer_norm_bwd_kernel<T>
+    fast_grid<T, W>();  // sets the kernel's shared-memory limit once
+    layer_norm_bwd_kernel<T, W>
         <<<parts, 32 * kBwdWarps,
            part != nullptr ? sizeof(float) * kBwdWarps * 2 * n2 : 0, s>>>(
-            dyt, xt, mean, invvar, w, dxt, part, n1, n2);
+            dyt, xt, mean, invvar, wt, dxt, part, n1, n2);
   } else {
-    layer_norm_bwd_generic_kernel<T><<<parts, kGenericThreads, 0, s>>>(
-        dyt, xt, mean, invvar, w, dxt, part, n1, n2);
+    layer_norm_bwd_generic_kernel<T, W><<<parts, kGenericThreads, 0, s>>>(
+        dyt, xt, mean, invvar, wt, dxt, part, n1, n2);
   }
   if (part == nullptr) return cudaGetLastError();
   const cudaError_t err = cudaGetLastError();
@@ -372,30 +533,61 @@ cudaError_t launch_bwd(const void* dy, const void* x, const float* mean,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  switch (w_dtype) {
+  return cudaLaunchKernelEx(&cfg, layer_norm_bwd_colsum_kernel<W>,
+                            static_cast<const float*>(part), parts, n2,
+                            static_cast<W*>(dgamma), static_cast<W*>(dbeta));
+}
+
+// f<T, W>(args...) for the (dtype, w_dtype) codes: x's type and the
+// affine weights' (fp32 or bf16)
+template <template <typename, typename> class F, typename... A>
+cudaError_t dispatch(int dtype, int w_dtype, A... args) {
+  const bool wf = w_dtype == apex::kFloat32;
+  if (!wf && w_dtype != apex::kBFloat16) return cudaErrorInvalidValue;
+  switch (dtype) {
     case apex::kFloat32:
-      return cudaLaunchKernelEx(&cfg, layer_norm_bwd_colsum_kernel<float>,
-                                static_cast<const float*>(part), parts, n2,
-                                static_cast<float*>(dgamma),
-                                static_cast<float*>(dbeta));
+      return wf ? F<float, float>::run(args...)
+                : F<float, __nv_bfloat16>::run(args...);
     case apex::kBFloat16:
-      return cudaLaunchKernelEx(
-          &cfg, layer_norm_bwd_colsum_kernel<__nv_bfloat16>,
-          static_cast<const float*>(part), parts, n2,
-          static_cast<__nv_bfloat16*>(dgamma),
-          static_cast<__nv_bfloat16*>(dbeta));
+      return wf ? F<__nv_bfloat16, float>::run(args...)
+                : F<__nv_bfloat16, __nv_bfloat16>::run(args...);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename T, typename W>
+struct Fwd {
+  template <typename... A>
+  static cudaError_t run(A... args) {
+    return launch_fwd<T, W>(args...);
+  }
+};
+
+template <typename T, typename W>
+struct Bwd {
+  template <typename... A>
+  static cudaError_t run(A... args) {
+    return launch_bwd<T, W>(args...);
+  }
+};
+
+template <typename T, typename W>
+struct BwdGrid {
+  static cudaError_t run(int* grid) {
+    *grid = fast_grid<T, W>();
+    return cudaSuccess;
+  }
+};
+
 }  // namespace
 
-// The partial rows the backward writes for (n1, n2) in `dtype`: the grid
-// of the kernel it takes (`fast`: the 16-byte path), at most n1 rows'
-// worth.  The wrapper allocates (parts, 2, n2) fp32 for them.
+// The partial rows the backward writes for (n1, n2) in `dtype` with a
+// `w_dtype` weight: the grid of the kernel it takes (`fast`: the 16-byte
+// path), at most n1 rows' worth.  The wrapper allocates (parts, 2, n2)
+// fp32 for them.
 extern "C" int apex_layer_norm_bwd_parts(int n1, int n2, int dtype,
-                                         int fast) {
+                                         int w_dtype, int fast) {
   int grid = 0;
   if (!fast) {
     grid = generic_grid();
@@ -404,77 +596,42 @@ extern "C" int apex_layer_norm_bwd_parts(int n1, int n2, int dtype,
     grid = grid < cap ? grid : (cap > 0 ? cap : 1);
     return n1 < grid ? (n1 > 0 ? n1 : 1) : grid;
   }
-  switch (dtype) {
-    case apex::kFloat32:
-      grid = fast_grid<float>();
-      break;
-    case apex::kBFloat16:
-      grid = fast_grid<__nv_bfloat16>();
-      break;
-    default:
-      return 1;
-  }
+  if (dispatch<BwdGrid>(dtype, w_dtype, &grid) != cudaSuccess) return 1;
   const int rows = (n1 + kBwdWarps - 1) / kBwdWarps;
   return rows < grid ? (rows > 0 ? rows : 1) : grid;
 }
 
 // dy, x, dx: (n1, n2) contiguous in `dtype` (dx null: no input gradient);
-// mean, invvar: (n1,) fp32; w: (n2,) fp32 gamma or null (non-affine).
-// part: (parts, 2, n2) fp32 scratch from apex_layer_norm_bwd_parts, or
-// null for no weight gradients; dgamma, dbeta: (n2,) in `w_dtype`.
-// `fast`: n2 a multiple of 16 / itemsize, n2 <= 1024, and dy, x, dx
-// and w 16-byte aligned.
+// mean, invvar: (n1,) fp32; w: (n2,) gamma in `w_dtype` (fp32 or bf16) or
+// null (non-affine).  part: (parts, 2, n2) fp32 scratch from
+// apex_layer_norm_bwd_parts, or null for no weight gradients; dgamma,
+// dbeta: (n2,) in `w_dtype`.  `fast`: n2 a multiple of 16 / itemsize,
+// n2 <= 1024, and dy, x, dx and w 16-byte aligned.
 extern "C" int apex_layer_norm_bwd(const void* dy, const void* x,
                                    const void* mean, const void* invvar,
                                    const void* w, void* dx, void* part,
                                    int parts, void* dgamma, void* dbeta,
                                    int w_dtype, int n1, int n2, int fast,
                                    int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* mf = static_cast<const float*>(mean);
-  const float* iv = static_cast<const float*>(invvar);
-  const float* wf = static_cast<const float*>(w);
-  float* pf = static_cast<float*>(part);
-  switch (dtype) {
-    case apex::kFloat32:
-      return static_cast<int>(launch_bwd<float>(
-          dy, x, mf, iv, wf, dx, pf, parts, dgamma, dbeta, w_dtype, n1, n2,
-          fast, s));
-    case apex::kBFloat16:
-      return static_cast<int>(launch_bwd<__nv_bfloat16>(
-          dy, x, mf, iv, wf, dx, pf, parts, dgamma, dbeta, w_dtype, n1, n2,
-          fast, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(dispatch<Bwd>(
+      dtype, w_dtype, dy, x, static_cast<const float*>(mean),
+      static_cast<const float*>(invvar), w, dx, static_cast<float*>(part),
+      parts, dgamma, dbeta, n1, n2, fast,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// x, y: (n1, n2) contiguous in `dtype`; w, b: (n2,) fp32 or both null
-// (no affine step); mean, invvar: (n1,) fp32.
+// x, y: (n1, n2) contiguous in `dtype`; w, b: (n2,) in `w_dtype` (fp32 or
+// bf16) or both null (no affine step); mean, invvar: (n1,) fp32.
+// `fast`: n2 a multiple of 16 / itemsize, n2 <= 1024, and x, y, w and b
+// 16-byte aligned; it then launches one-warp blocks, no more than fit
+// on the card at once, each warp walking rows.
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
                                    const void* b, void* y, void* mean,
                                    void* invvar, int n1, int n2, float eps,
-                                   int dtype, void* stream) {
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((n1 + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  float* mf = static_cast<float*>(mean);
-  float* iv = static_cast<float*>(invvar);
-  switch (dtype) {
-    case apex::kFloat32:
-      layer_norm_fwd_kernel<float><<<grid, block, 0, s>>>(
-          static_cast<const float*>(x), wf, bf, static_cast<float*>(y), mf,
-          iv, n1, n2, eps);
-      break;
-    case apex::kBFloat16:
-      layer_norm_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), wf, bf,
-          static_cast<__nv_bfloat16*>(y), mf, iv, n1, n2, eps);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                   int dtype, int w_dtype, int fast,
+                                   void* stream) {
+  return static_cast<int>(dispatch<Fwd>(
+      dtype, w_dtype, x, w, b, y, static_cast<float*>(mean),
+      static_cast<float*>(invvar), n1, n2, eps, fast,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -15,7 +15,10 @@ same functions in PyTorch (they are also the kernels' references in
 ``torch.autograd.Function``s on both devices, as the JAX functions are
 ``custom_vjp``s: the forward saves x and the fp32 mean/invvar, the
 backward recomputes xhat from them.  dweight and dbias are fp32 sums
-over the rows and come back in the weight's dtype, dx in x's.
+over the rows and come back in the weight's dtype, dx in x's.  The
+kernels read fp32 or bf16 weights as they are (amp O2 keeps LayerNorm's
+params in bf16) and widen them in registers; a weight of another dtype,
+or a weight and bias of two dtypes, is read through fp32 copies.
 """
 
 from __future__ import annotations
@@ -43,12 +46,13 @@ Shape = Union[int, Sequence[int]]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel("layer_norm_fwd", "apex_layer_norm_fwd",
-                [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P])
+                [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I,
+                 _I, _P])
 BWD_KERNEL = Kernel("layer_norm_bwd", "apex_layer_norm_bwd",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                      _I, _I, _P])
-# the backward's 16-byte path: rows of at most this many elements
-_BWD_FAST_MAX_N2 = 1024
+# the 16-byte paths of both kernels: rows of at most this many elements
+_FAST_MAX_N2 = 1024
 
 
 def _norm_shape(normalized_shape: Shape) -> Tuple[int, ...]:
@@ -96,6 +100,22 @@ def _ln_backward_plain(dy2, x2, mean, invvar, weight, grad_input=True,
     return dx, dw, db
 
 
+def _fast_rows(n2, *tensors) -> bool:
+    """Whether a kernel takes its 16-byte path: whole 16-byte chunks of
+    ``tensors[0]``'s dtype a row, at most ``_FAST_MAX_N2`` elements (32
+    a lane), and every operand 16-byte aligned.  The forward passes x,
+    y and the affine weights; the backward dy, x, dx and the weight."""
+    vec = 16 // tensors[0].element_size()
+    return (n2 % vec == 0 and n2 <= _FAST_MAX_N2
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _kernel_weight(t: torch.Tensor) -> torch.Tensor:
+    """An affine operand as the kernels read it: fp32 or bf16 as it is,
+    another dtype as an fp32 copy."""
+    return (t if t.dtype in DTYPE_CODES else t.float()).contiguous()
+
+
 def _check_affine(weight, bias, n2):
     if (weight is None) != (bias is None):
         raise ValueError("weight and bias must be given together")
@@ -113,7 +133,9 @@ def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
     :func:`fused_layer_norm_affine` is the differentiable form.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes contiguous fp32/bf16 rows and raises on anything else."""
+    which takes contiguous fp32/bf16 rows and raises on anything else.
+    Weight and bias are read in their dtype when both are fp32 or both
+    bf16; any other pair goes through fp32 copies."""
     if x2.ndim != 2:
         raise ValueError(f"x2 must be (n1, n2); got {tuple(x2.shape)}")
     n1, n2 = x2.shape
@@ -127,38 +149,30 @@ def layer_norm_fwd(x2: torch.Tensor, weight: Optional[torch.Tensor],
     code = check_dtype("layer_norm_fwd", x2)
     if not x2.is_contiguous():
         raise ValueError("layer_norm_fwd: x2 must be contiguous")
-    if weight is not None:
-        weight = weight.float().contiguous()
-        bias = bias.float().contiguous()
+    if weight is not None and weight.dtype != bias.dtype:
+        affine = (weight.float(), bias.float())
+    affine = tuple(_kernel_weight(t) for t in affine)
     y = torch.empty_like(x2)
     mean = torch.empty((n1,), dtype=torch.float32, device=x2.device)
     invvar = torch.empty_like(mean)
     if n1 == 0:
         return y, mean, invvar
-    KERNEL.launch(x2.data_ptr(),
-                  None if weight is None else weight.data_ptr(),
-                  None if bias is None else bias.data_ptr(),
-                  y.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
-                  n1, n2, float(eps), code, stream_handle(x2.device))
+    fast = _fast_rows(n2, x2, y, *affine)
+    w, b = (t.data_ptr() for t in affine) if affine else (None, None)
+    KERNEL.launch(x2.data_ptr(), w, b, y.data_ptr(), mean.data_ptr(),
+                  invvar.data_ptr(), n1, n2, float(eps), code,
+                  DTYPE_CODES[affine[0].dtype] if affine else 0, int(fast),
+                  stream_handle(x2.device))
     return y, mean, invvar
 
 
-def _bwd_fast(n2, *tensors) -> bool:
-    """Whether the backward takes its 16-byte path: whole 16-byte chunks
-    a row, at most ``_BWD_FAST_MAX_N2`` elements (32 a lane), and every
-    row operand 16-byte aligned."""
-    vec = 16 // tensors[0].element_size()
-    return (n2 % vec == 0 and n2 <= _BWD_FAST_MAX_N2
-            and all(t.data_ptr() % 16 == 0 for t in tensors))
-
-
 @functools.lru_cache(maxsize=None)
-def _bwd_parts(n1: int, n2: int, code: int, fast: bool) -> int:
+def _bwd_parts(n1: int, n2: int, code: int, w_code: int, fast: bool) -> int:
     """Partial rows (the kernel's grid) of a backward at this shape."""
     fn = library().apex_layer_norm_bwd_parts
-    fn.argtypes = [_I, _I, _I, _I]
+    fn.argtypes = [_I, _I, _I, _I, _I]
     fn.restype = _I
-    return fn(n1, n2, code, int(fast))
+    return fn(n1, n2, code, w_code, int(fast))
 
 
 def layer_norm_bwd(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
@@ -206,23 +220,24 @@ def layer_norm_bwd(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
         out_dtype = w_dtype if w_dtype in DTYPE_CODES else torch.float32
         dw, db = (torch.empty((n2,), dtype=out_dtype, device=x2.device)
                   for _ in range(2))
+    w_code = 0
     if weight is not None:
-        weight = weight.float().contiguous()
+        weight = _kernel_weight(weight)
+        w_code = DTYPE_CODES[weight.dtype]
     if n1 == 0:
         if grad_weight:
             dw.zero_()
             db.zero_()
     elif grad_input or grad_weight:
-        fast = _bwd_fast(n2, dy2, x2, *(t for t in (dx, weight)
-                                        if t is not None))
-        parts = _bwd_parts(n1, n2, code, fast)
+        fast = _fast_rows(n2, dy2, x2, *(t for t in (dx, weight)
+                                         if t is not None))
+        parts = _bwd_parts(n1, n2, code, w_code, fast)
         part = torch.empty((parts, 2, n2), dtype=torch.float32,
                            device=x2.device) if grad_weight else None
         BWD_KERNEL.launch(*(None if t is None else t.data_ptr() for t in (
             dy2, x2, mean, invvar, weight, dx, part)), parts,
             *(None if t is None else t.data_ptr() for t in (dw, db)),
-            DTYPE_CODES[dw.dtype] if grad_weight else 0, n1, n2,
-            int(fast), code, stream_handle(x2.device))
+            w_code, n1, n2, int(fast), code, stream_handle(x2.device))
     if dw is not None and dw.dtype != w_dtype:
         dw, db = dw.to(w_dtype), db.to(w_dtype)
     return dx, dw, db

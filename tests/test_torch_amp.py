@@ -76,7 +76,7 @@ SCRIPT = [False, False, False, True, False, True, True, True, True,
 ])
 def test_scaler_trajectory_equals_jax(kw):
     scaler, jscaler = amp.LossScaler(**kw), jamp.LossScaler(**kw)
-    st, jst = scaler.init(), jscaler.init()
+    st, jst = scaler.init(device="cpu"), jscaler.init()
     assert st.loss_scale.dtype == torch.float32
     assert st.unskipped.dtype == torch.int32
     assert st.overflow.dtype == torch.bool
@@ -86,6 +86,18 @@ def test_scaler_trajectory_equals_jax(kw):
         assert float(st.loss_scale) == float(jst.loss_scale)
         assert int(st.unskipped) == int(jst.unskipped)
         assert bool(st.overflow) == bool(jst.overflow)
+
+
+def test_scaler_state_lies_on_the_card_unless_asked():
+    """``LossScaler.init`` defaults to the card like every entry point
+    of the port: without CUDA it raises unless the CPU is asked for."""
+    scaler = amp.LossScaler()
+    assert scaler.init(device="cpu").loss_scale.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert scaler.init().loss_scale.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        scaler.init()
 
 
 def _jax_names(tree, prefix=()):

@@ -10,8 +10,10 @@ without it:
 the edges ``chip_smoke.py`` does not: odd widths, ragged lengths, the
 built head_dim (64), fully-masked rows, strided operands, inf/nan
 gradients in the Adam step, gradients flowing through the kernels'
-autograd functions, the errors the wrappers raise, B3's dweight and
-dbias, decode split across 64-key tiles (every split count of 1025
+autograd functions, the errors the wrappers raise, B2 at the paths'
+shapes and both sides of its fast path's edges with fp32 and bf16
+weights (every block size giving the same bits, and no device kernel
+but its own under the profiler, nor B3's), B3's dweight and dbias, decode split across 64-key tiles (every split count of 1025
 keys, masked tiles skipped, T past the old shared-memory limit), B8 (int8 K/V) bit for bit against B7 on
 the dequantized K/V, the same bits from repeated launches of B3, B7
 and B8, and the threefry dropout kernel bit for bit against its plain
@@ -81,22 +83,101 @@ def _one_launch(name, fn):
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n1,n2", [(1, 7), (33, 100), (5, 1000), (64, 768)])
-@pytest.mark.parametrize("affine", [True, False])
-def test_layer_norm_matches_plain(gen, dtype, n1, n2, affine):
+# B2's shapes: the paths' (decode, a prefill bucket, the GPT and BERT
+# training steps) and both sides of the fast path's edges (whole
+# 16-byte chunks, at most 1024 elements)
+LN_FWD_SHAPES = [(8, 768), (256, 768), (8192, 768), (4096, 1024),
+                 (1, 7), (33, 100), (5, 1000), (3, 1001), (5, 1024),
+                 (5, 1032), (64, 768)]
+
+
+def _ln_fwd_inputs(gen, dtype, wdtype, n1, n2):
     x = (3 * torch.randn(n1, n2, device="cuda", generator=gen) + 1).to(dtype)
-    w = b = None
-    if affine:
-        w = 1 + 0.1 * torch.randn(n2, device="cuda", generator=gen)
-        b = 0.1 * torch.randn(n2, device="cuda", generator=gen)
-    y, mean, invvar = _one_launch("layer_norm_fwd",
-                                  lambda: ln.layer_norm_fwd(x, w, b, 1e-5))
+    if wdtype is None:
+        return x, None, None
+    w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=gen)).to(wdtype)
+    b = (0.1 * torch.randn(n2, device="cuda", generator=gen)).to(wdtype)
+    return x, w, b
+
+
+def _ln_fwd_check(x, w, b, got):
+    y, mean, invvar = got
     xhat, pmean, pinvvar = ln._ln_forward_plain(x, 1e-5)
-    want = (xhat if w is None else xhat * w + b).to(dtype)
-    assert y.dtype == dtype
-    assert rel_err(y, want) <= TOL[dtype]
+    want = (xhat if w is None else xhat * w.float() + b.float()).to(x.dtype)
+    assert y.dtype == x.dtype
+    assert rel_err(y, want) <= TOL[x.dtype]
     assert rel_err(mean, pmean) <= 2e-5 and rel_err(invvar, pinvvar) <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n1,n2", LN_FWD_SHAPES)
+@pytest.mark.parametrize("affine", [None, torch.float32, torch.bfloat16])
+def test_layer_norm_matches_plain(gen, dtype, n1, n2, affine):
+    """B2 against its plain version, without an affine step and with fp32
+    or bf16 weights (read in their dtype); a second launch gives the
+    same bits."""
+    x, w, b = _ln_fwd_inputs(gen, dtype, affine, n1, n2)
+    got = _one_launch("layer_norm_fwd",
+                      lambda: ln.layer_norm_fwd(x, w, b, 1e-5))
+    _ln_fwd_check(x, w, b, got)
+    again = ln.layer_norm_fwd(x, w, b, 1e-5)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n1,n2", [(8192, 768), (4096, 1024), (5, 1000)])
+def test_layer_norm_fwd_rows_walked_give_the_same_bits(gen, dtype, n1, n2):
+    """A row gives the same bits whether its warp takes it alone or walks
+    to it past other rows (the fast path's grid is resident, so at 4096
+    rows and more a warp takes several)."""
+    x, w, b = _ln_fwd_inputs(gen, dtype, dtype, n1, n2)
+    full = ln.layer_norm_fwd(x, w, b, 1e-5)
+    for r in (0, n1 // 2, n1 - 1):
+        alone = ln.layer_norm_fwd(x[r:r + 1].clone(), w, b, 1e-5)
+        assert all(torch.equal(a, c[r:r + 1]) for a, c in zip(alone, full)), r
+
+
+def test_layer_norm_fwd_misaligned_rows_and_other_weights(gen):
+    """A row view off the 16-byte grid takes the generic path; a weight
+    and bias of two dtypes, or fp16 ones, are read through fp32 copies;
+    each call is one launch and agrees with the plain version."""
+    n1, n2 = 40, 768
+    x, w, b = _ln_fwd_inputs(gen, torch.bfloat16, torch.bfloat16, n1, n2)
+    buf = torch.empty(n1 * n2 + 1, device="cuda", dtype=torch.bfloat16)
+    x_off = buf[1:].view(n1, n2)                # 2 bytes off the grid
+    x_off.copy_(x)
+    for xi, wi, bi in ((x_off, w, b), (x, w, b.float()), (x, w.half(),
+                                                          b.half())):
+        got = _one_launch("layer_norm_fwd",
+                          lambda: ln.layer_norm_fwd(xi, wi, bi, 1e-5))
+        _ln_fwd_check(xi, wi, bi, got)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_runs_only_its_own_kernels(gen, wdtype):
+    """Under the profiler: one affine forward with fp32 or bf16 weights
+    (bf16: amp O2's LayerNorm) runs exactly one device kernel, and one
+    backward with the weight gradients exactly B3's two (rows, column
+    sums): no casts."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, b = _ln_fwd_inputs(gen, torch.bfloat16, wdtype, 4096, 1024)
+    dy = torch.randn_like(x)
+    _, mean, invvar = ln.layer_norm_fwd(x, w, b, 1e-5)
+    ln.layer_norm_bwd(dy, x, mean, invvar, w)
+    torch.cuda.synchronize()
+
+    def device_kernels(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    fwd = device_kernels(lambda: ln.layer_norm_fwd(x, w, b, 1e-5))
+    assert len(fwd) == 1 and "layer_norm_fwd_kernel" in fwd[0], fwd
+    bwd = device_kernels(lambda: ln.layer_norm_bwd(dy, x, mean, invvar, w))
+    assert len(bwd) == 2 and all("layer_norm_bwd" in k for k in bwd), bwd
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -224,25 +305,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n1,n2", [(1, 7), (1, 768), (33, 1001), (64, 768),
                                    (4096, 1024), (8192, 768)])
-@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("affine", [None, torch.float32, torch.bfloat16])
 def test_layer_norm_bwd_matches_plain(gen, dtype, n1, n2, affine):
     """dx, dweight and dbias in one call (one launch) against the plain
-    version; a second launch gives the same bits."""
+    version, with the weight read in its dtype (fp32 or bf16; dweight and
+    dbias come back in it, fp32 sums rounded once); a second launch gives
+    the same bits."""
     x = (3 * torch.randn(n1, n2, device="cuda", generator=gen) + 1).to(dtype)
     dy = torch.randn(n1, n2, device="cuda", generator=gen).to(dtype)
     w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=gen)) \
-        if affine else None
+        .to(affine) if affine is not None else None
     _, mean, invvar = ln._ln_forward_plain(x, 1e-5)
     got = _one_launch("layer_norm_bwd",
                       lambda: ln.layer_norm_bwd(dy, x, mean, invvar, w))
     want = ln._ln_backward_plain(dy, x, mean, invvar, w)
     assert got[0].dtype == dtype
     assert rel_err(got[0], want[0]) <= TOL[dtype]
-    if not affine:
+    if affine is None:
         assert got[1] is None and got[2] is None
     else:
         for g, pw in zip(got[1:], want[1:]):
-            assert g.dtype == torch.float32 and rel_err(g, pw) <= 2e-5
+            assert g.dtype == affine and rel_err(g, pw) <= TOL[affine]
     again = ln.layer_norm_bwd(dy, x, mean, invvar, w)
     assert all(a is None and b is None or torch.equal(a, b)
                for a, b in zip(got, again))

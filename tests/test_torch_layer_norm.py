@@ -46,22 +46,29 @@ def _to_np(t):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,ns", [((8, 64), 64), ((4, 33), 33),
                                       ((5, 3, 100), 100),
-                                      ((2, 3, 7), (3, 7))])
-def test_affine_matches_jax_kernel(shape, ns, dtype):
+                                      ((2, 3, 7), (3, 7)),
+                                      # the paths' widths
+                                      ((2, 5, 768), 768), ((3, 1024), 1024)])
+def test_affine_matches_jax_kernel(shape, ns, dtype, wdtype):
+    """y against the reference's forward, with fp32 weights and with bf16
+    weights as amp O2 keeps LayerNorm's params (both sides widen them to
+    fp32 for the affine step)."""
     rng = np.random.RandomState(len(shape) * 100 + shape[-1])
     x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
     wshape = (ns,) if isinstance(ns, int) else ns
     w = (1 + 0.1 * rng.randn(*wshape)).astype(np.float32)
     b = (0.1 * rng.randn(*wshape)).astype(np.float32)
     want = jax_ln.fused_layer_norm_affine(
-        jnp.asarray(x, dtype), jnp.asarray(w), jnp.asarray(b), ns, 1e-5,
-        True)
+        jnp.asarray(x, dtype), jnp.asarray(w, wdtype),
+        jnp.asarray(b, wdtype), ns, 1e-5, True)
     before = launch_counts()
     got = fused_layer_norm_affine(
-        torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(w),
-        torch.from_numpy(b), ns, 1e-5)
+        torch.from_numpy(x).to(getattr(torch, dtype)),
+        torch.from_numpy(w).to(getattr(torch, wdtype)),
+        torch.from_numpy(b).to(getattr(torch, wdtype)), ns, 1e-5)
     assert launch_counts() == before, "the CPU path launched a kernel"
     assert got.dtype == getattr(torch, dtype) and got.shape == shape
     assert rel_err(_to_np(got), want) <= TOL[dtype]
@@ -221,6 +228,54 @@ def test_backward_plain_computes_only_what_is_asked():
     dx, dw, db = ln.layer_norm_bwd(dy, x, mean, invvar, w, grad_input=False)
     assert dx is None and torch.equal(dw, full[1]) and torch.equal(db,
                                                                    full[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n2,fast", [
+    (768, True), (1024, True),           # the paths' widths
+    (1000, True),                        # whole 16-byte chunks, <= 1024
+    (7, False), (33, False), (1001, False),
+    (1032, False),                       # wider than 32 elements a lane
+])
+def test_fast_path_choice(dtype, n2, fast):
+    """``_fast_rows`` — which path the forward and the backward take —
+    for whole aligned rows of each width, and the generic path for a
+    view 4 bytes off the 16-byte grid (whatever its width)."""
+    ln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    x = torch.zeros(3, n2, dtype=dtype)
+    w = torch.zeros(n2, dtype=dtype)
+    assert ln._fast_rows(n2, x, torch.empty_like(x), w, w) is fast
+    for wd in (torch.float32, torch.bfloat16):
+        assert ln._fast_rows(n2, x, x, w.to(wd), w.to(wd)) is fast
+    buf = torch.zeros(3 * n2 + 2, dtype=torch.float32).view(dtype)
+    off = buf[16 // x.element_size() // 4:][:3 * n2].view(3, n2)
+    assert off.data_ptr() % 16 != 0
+    assert ln._fast_rows(n2, off, x, w, w) is False
+    assert ln._fast_rows(n2, x, x, w, off[0]) is False
+
+
+@pytest.mark.parametrize("dtype,fast", [(torch.float32, True),
+                                        (torch.bfloat16, False)])
+def test_fast_path_needs_whole_chunks_of_the_dtype(dtype, fast):
+    """100 elements are 25 fp32 chunks of 16 bytes but 12.5 bf16 ones."""
+    ln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    assert ln._fast_rows(100, torch.zeros(2, 100, dtype=dtype)) is fast
+
+
+def test_kernel_weight_operands():
+    """The kernels read fp32 and bf16 weights as they are and any other
+    dtype through an fp32 copy."""
+    ln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    for dt in (torch.float32, torch.bfloat16):
+        w = torch.ones(16, dtype=dt)
+        assert ln._kernel_weight(w) is w
+    assert ln._kernel_weight(torch.ones(16, dtype=torch.float16)).dtype \
+        == torch.float32
+    strided = torch.ones(32)[::2]
+    assert ln._kernel_weight(strided).is_contiguous()
 
 
 def test_module_backward_reaches_its_params():
