@@ -3,12 +3,16 @@
 Twin of ``apex_tpu/amp/optimizer.py``.  The canonical params handed to
 ``step`` are already the fp32 masters (``amp/model.py``), so there is no
 half/fp32 group splitting; the overflow -> skip-step protocol is a
-device bool that the fused optimizer consumes inside its update
+device bool.  A fused optimizer consumes it inside its update
 (``supports_fused_skip``: FusedAdam's kernel, FusedLAMB's per-leaf
-selects), so a skipped step needs no host sync.
+selects); any other optimizer in optax's protocol (``init`` and
+``update(grads, state, params)``, e.g. ``optimizers.transforms.sgd``)
+runs ``update`` and ``apply_updates``, then a ``torch.where`` over the
+params and over its whole state picks the new or the old values, so an
+overflowed step keeps every bit of both, a schedule's count included.
+Neither path reads a value back to the host.
 
-Not here yet: the wrapper-level select for optimizers without a fused
-skip (the ``optax`` path), gradient accumulation into stashed grads
+Not here yet: gradient accumulation into stashed grads
 (``unscale_grads(stashed=...)``) and ``with_zero``.
 """
 
@@ -17,8 +21,10 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from apex_tpu_torch.amp.scaler import LossScaler, LossScalerState
+from apex_tpu_torch.optimizers.transforms import apply_updates
 
 Tree = Any
 
@@ -30,26 +36,28 @@ class AmpOptimizerState(NamedTuple):
     skipped_steps: torch.Tensor                 # int32, overflow-skipped
 
 
+def _tree_select(keep: torch.Tensor, on_true: Tree, on_false: Tree):
+    """``torch.where(keep, new, old)`` leaf by leaf over two trees of one
+    structure (tensor leaves only)."""
+    return pytree.tree_map(lambda t, f: torch.where(keep, t, f),
+                           on_true, on_false)
+
+
 class AmpOptimizer:
-    """Wraps a fused optimizer (``init(params)`` and
-    ``step(params, grads, state, skip=...)``, whose state has a ``step``
-    counter tensor) with unscale, overflow and skip logic."""
+    """Wraps an optimizer with unscale, overflow and skip logic: a fused
+    one (``init(params)`` and ``step(params, grads, state, skip=...)``,
+    ``supports_fused_skip = True``) or one in optax's protocol
+    (``init(params)`` and ``update(grads, state, params)``)."""
 
     def __init__(self, inner, loss_scaler: LossScaler, num_losses: int = 1):
-        if not getattr(inner, "supports_fused_skip", False):
-            raise NotImplementedError(
-                f"{type(inner).__name__} has no fused skip-step; only "
-                "optimizers with one (FusedAdam, FusedLAMB) are ported so "
-                "far")
         self.inner = inner
         self.loss_scaler = loss_scaler
         self.num_losses = int(num_losses)
 
     def init(self, params: Tree) -> AmpOptimizerState:
         inner = self.inner.init(params)
-        # the step counter lies where the state does, whether the moments
-        # are one flat buffer (FusedAdam) or trees (FusedLAMB)
-        device = inner.step.device
+        device = next(t for t in pytree.tree_leaves(params)
+                      if isinstance(t, torch.Tensor)).device
         zero = torch.zeros((), dtype=torch.int32, device=device)
         return AmpOptimizerState(
             inner=inner,
@@ -74,9 +82,24 @@ class AmpOptimizer:
 
     def apply_gradients(self, params: Tree, grads: Tree,
                         state: AmpOptimizerState, overflow):
-        """The inner step with the overflow skip inside its kernel."""
-        params_out, inner_out = self.inner.step(params, grads, state.inner,
-                                                skip=overflow)
+        """The inner step with the overflow skip: inside a fused
+        optimizer's update, else a select between the updated and the old
+        params and inner state."""
+        if getattr(self.inner, "supports_fused_skip", False):
+            params_out, inner_out = self.inner.step(params, grads,
+                                                    state.inner,
+                                                    skip=overflow)
+        else:
+            keep = ~overflow
+            with torch.no_grad():
+                updates, new_inner = self.inner.update(grads, state.inner,
+                                                       params)
+                new_params = apply_updates(params, updates)
+                params_out = _tree_select(keep, new_params, params)
+                inner_out = _tree_select(keep, new_inner, state.inner)
+            params_out = pytree.tree_map(
+                lambda new, old: new.requires_grad_(old.requires_grad),
+                params_out, params)
         skipped = overflow.to(torch.int32)
         return params_out, state._replace(
             inner=inner_out,

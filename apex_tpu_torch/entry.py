@@ -1,0 +1,115 @@
+"""Entry points: a ResNet-50 forward and the flagship data-parallel step.
+
+Twin of ``__graft_entry__.py``.  ``entry()`` returns the ResNet-50 amp O2
+forward at batch 8, 224x224, with its arguments.  ``dryrun(n)`` runs
+the data-parallel training step of the JAX ``dryrun_multichip`` on this
+rank of ``n``: a tiny BasicBlock ResNet (stages [1, 1], width 16, 10
+classes) with ``SyncBatchNorm``, amp O2, ``FusedAdam(lr=1e-3)`` (kernel
+B1 on the card) and ``DistributedDataParallel``, on ``2 * n`` images of
+ones at 32x32 split over the ranks.  It stops before the JAX dry run's
+ZeRO-1 leg (``FusedAdam.with_zero`` over the data axis), which comes
+with a later slice of the port, and before its tensor, sequence,
+pipeline and expert-parallel legs.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+import torch.distributed as dist
+
+from apex_tpu_torch import amp, models, parallel
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.optimizers import FusedAdam, transforms
+from apex_tpu_torch.parallel.multiproc import free_port
+
+DRYRUN_IMAGE = 32
+
+
+def entry(device="cuda"):
+    """``(fn, args)``: ``fn(*args)`` is ResNet-50's amp O2 forward
+    (inference mode) on a batch of 8 224x224 images of ones."""
+    dev = resolve_device(device)
+    model, _ = amp.initialize(models.ResNet50(device=dev),
+                              transforms.sgd(0.1), opt_level="O2",
+                              verbosity=0)
+    x = torch.ones((8, 224, 224, 3), dtype=torch.float32, device=dev)
+    params = model.init()
+
+    def forward(params, x):
+        with torch.no_grad():
+            return model.apply(params, x, train=False)
+
+    return forward, (params, x)
+
+
+def dryrun_model(device="cuda", seed: Optional[int] = 0):
+    """The dry run's model: ResNet(stages [1, 1], BasicBlock, 10 classes,
+    width 16, SyncBatchNorm)."""
+    return models.ResNet([1, 1], models.BasicBlock, num_classes=10,
+                         width=16, norm=parallel.SyncBatchNorm,
+                         device=device, seed=seed)
+
+
+def dryrun(n_ranks: int, device="cuda", *, steps: int = 1,
+           opt_level: str = "O2", optimizer=None,
+           state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """The flagship data-parallel step on this rank of ``n_ranks``.
+
+    Call it on every rank of an initialized process group of ``n_ranks``;
+    with none and ``n_ranks == 1`` it starts a one-rank group itself
+    (NCCL on the card, gloo on the CPU; the address is a free localhost
+    port) and ends it after.  ``steps`` repeats the step on the same
+    batch; ``optimizer`` replaces ``FusedAdam(lr=1e-3)`` and
+    ``state_dict`` (e.g. ``models.resnet_params_from_jax``) the weights
+    from seed 0.  Returns the world-mean ``losses`` and the final
+    ``params``, ``opt_state`` and ``model``."""
+    dev = resolve_device(device)
+    own_group = not dist.is_initialized()
+    if own_group:
+        if n_ranks != 1:
+            raise RuntimeError(f"dryrun({n_ranks}) needs an initialized "
+                               f"process group of {n_ranks} ranks")
+        parallel.initialize_distributed(
+            dev, init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0)
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world != n_ranks:
+            raise RuntimeError(f"dryrun({n_ranks}) on a world of {world}")
+        module = dryrun_model(dev, seed=None if state_dict else 0)
+        if state_dict is not None:
+            module.load_state_dict(state_dict)
+        model, opt = amp.initialize(
+            module, optimizer if optimizer is not None else FusedAdam(
+                lr=1e-3), opt_level=opt_level, verbosity=0)
+        ddp = parallel.DistributedDataParallel(model)
+        params = model.init()
+        opt_state = opt.init(params)
+        x = torch.ones((2, DRYRUN_IMAGE, DRYRUN_IMAGE, 3), device=dev)
+        y = torch.zeros((2,), dtype=torch.int64, device=dev)
+        losses = []
+        for _ in range(steps):
+            logits = model.apply(params, x, train=True).float()
+            loss = transforms.softmax_cross_entropy_with_integer_labels(
+                logits, y).mean()
+            with amp.scale_loss(loss, opt_state) as scaled:
+                grads = torch.autograd.grad(scaled, list(params.values()))
+            grads = ddp.reduce_gradients(dict(zip(params.keys(), grads)))
+            params, opt_state = opt.step(params, grads, opt_state)
+            losses.append(parallel.all_reduce_tree(loss.detach(),
+                                                   average=True))
+        losses = [float(v) for v in losses]
+        if not all(torch.isfinite(torch.tensor(losses))):
+            raise AssertionError(f"dryrun({n_ranks}): loss {losses}")
+        if rank == 0:
+            print(f"dryrun({n_ranks}) dp + SyncBN + FusedAdam "
+                  f"({opt_level}): ok, loss={losses[-1]:.4f}; stops before "
+                  "the ZeRO-1 leg")
+        return {"losses": losses, "params": params, "opt_state": opt_state,
+                "model": model}
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+

@@ -1,0 +1,118 @@
+"""Minimal DistributedDataParallel usage, explicit-collectives style.
+
+Twin of ``examples/simple/distributed/distributed_data_parallel.py``
+(reference ``examples/simple/distributed/distributed_data_parallel.py``):
+each rank computes gradients on its batch, ``ddp.reduce_gradients``
+gives every rank the world-averaged gradient with the apex options
+(``--allreduce-always-fp32``, ``--gradient-predivide-factor``), and
+amp's optimizer steps ``sgd(0.05)``.  The model is the JAX example's
+MLP (784 -> 256 -> 256 -> 10, ReLU), written out here.
+
+One process per GPU (``python -m apex_tpu_torch.parallel.multiproc``);
+``--b`` is the global batch, split evenly over the ranks, rank r taking
+rows ``r::world`` of each batch from ``np.random.RandomState(0)``.
+
+    WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
+        -m apex_tpu_torch.examples.ddp_simple --allreduce-always-fp32
+
+``--zero2`` comes with a later slice of the port and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from apex_tpu_torch import amp, parallel
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.optimizers import transforms
+
+
+def mlp(features=(256, 256), num_classes: int = 10, in_features: int = 784,
+        *, device="cuda", seed: int = 0) -> nn.Module:
+    """The JAX example's ``MLP(features=(256, 256))``: Linear + ReLU per
+    width, then the classifier; normal(0, 1/fan_in) weights from
+    ``seed``, zero biases."""
+    gen = torch.Generator().manual_seed(seed)
+    layers, width = [], in_features
+    for f in list(features) + [num_classes]:
+        lin = nn.Linear(width, f)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn(f, width, generator=gen)
+                             * width ** -0.5)
+            lin.bias.zero_()
+        layers += [lin, nn.ReLU()]
+        width = f
+    return nn.Sequential(nn.Flatten(), *layers[:-1]).to(device)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--b", type=int, default=256, help="global batch size")
+    p.add_argument("--opt-level", default="O2",
+                   choices=["O0", "O1", "O2", "O3"])
+    p.add_argument("--allreduce-always-fp32", action="store_true")
+    p.add_argument("--gradient-predivide-factor", type=float, default=1.0)
+    p.add_argument("--zero2", action="store_true")
+    return p.parse_args(argv)
+
+
+def run(args, device="cuda") -> list:
+    """Train ``--iters`` steps on this rank; returns the world-mean loss
+    of each step."""
+    if args.zero2:
+        raise NotImplementedError("--zero2 comes with a later slice of the "
+                                  "port")
+    dev = resolve_device(device)
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
+    if args.b % world:
+        raise SystemExit(f"global batch {args.b} must divide by {world} "
+                         "ranks")
+    model, optimizer = amp.initialize(
+        mlp(device=dev), transforms.sgd(0.05), opt_level=args.opt_level,
+        verbosity=0)
+    ddp = parallel.DistributedDataParallel(
+        model, allreduce_always_fp32=args.allreduce_always_fp32,
+        gradient_predivide_factor=args.gradient_predivide_factor)
+    params = ddp.broadcast_params(ddp.init())
+    opt_state = optimizer.init(params)
+    rng = np.random.RandomState(0)
+    losses = []
+    for i in range(args.iters):
+        x = rng.randn(args.b, 784).astype(np.float32)[rank::world]
+        y = rng.randint(0, 10, args.b).astype(np.int64)[rank::world]
+        x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        logits = ddp.apply(params, x).float()
+        loss = transforms.softmax_cross_entropy_with_integer_labels(
+            logits, y).mean()
+        with amp.scale_loss(loss, opt_state) as scaled:
+            grads = torch.autograd.grad(scaled, list(params.values()))
+        # the DDP contract: world-averaged grads on every rank
+        grads = ddp.reduce_gradients(dict(zip(params.keys(), grads)))
+        params, opt_state = optimizer.step(params, grads, opt_state)
+        mean_loss = parallel.all_reduce_tree(loss.detach(), average=True)
+        losses.append(float(mean_loss))
+        if i % 5 == 0 and rank == 0:
+            print(f"iter {i}: loss {losses[-1]:.4f}  loss_scale "
+                  f"{float(optimizer.loss_scale(opt_state)):.0f}")
+    return losses
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    parallel.initialize_distributed("cuda")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    print(f"world size: {world}")
+    run(args)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -18,9 +18,28 @@ from apex_tpu_torch.models.gpt import (
     lm_loss,
     params_from_jax,
 )
+from apex_tpu_torch.models.resnet import (
+    BasicBlock,
+    BatchNorm,
+    Bottleneck,
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+    default_norm,
+    resnet_params_from_jax,
+    s2d_input_transform,
+    space_to_depth,
+    stem_to_s2d,
+)
 
-__all__ = ["BertConfig", "BertEncoder", "BertForPreTraining", "BertLayer",
-           "BertSelfAttention", "GPTBlock", "GPTConfig", "GPTLMHeadModel",
-           "GPTSelfAttention", "bert_base", "bert_large",
-           "bert_params_from_jax", "gpt_medium", "gpt_small", "lm_loss",
-           "params_from_jax"]
+__all__ = ["BasicBlock", "BatchNorm", "BertConfig", "BertEncoder",
+           "BertForPreTraining", "BertLayer", "BertSelfAttention",
+           "Bottleneck", "GPTBlock", "GPTConfig", "GPTLMHeadModel",
+           "GPTSelfAttention", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+           "ResNet101", "ResNet152", "bert_base", "bert_large",
+           "bert_params_from_jax", "default_norm", "gpt_medium", "gpt_small",
+           "lm_loss", "params_from_jax", "resnet_params_from_jax",
+           "s2d_input_transform", "space_to_depth", "stem_to_s2d"]

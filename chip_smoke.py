@@ -130,6 +130,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
        counter keep every bit, the scale halves, no host sync;
    (d) one more O2 step under ``torch.profiler``.
 
+8. train_resnet — the flagship, run first of the paths:
+   ``apex_tpu_torch.examples.imagenet_main_amp`` at its defaults with
+   ``--sync_bn`` (ResNet-50, 224x224, 1000 classes, B 256, amp O2,
+   ``chain(add_decayed_weights(1e-4), sgd(lr_schedule, 0.9))``), DDP and
+   SyncBatchNorm over an NCCL group of one rank (NCCL takes one rank a
+   GPU); no kernel of the port is on this path (convs are cuDNN's,
+   SyncBatchNorm plain PyTorch, as the JAX step's are lax.conv and jnp):
+   (a) 10 steps through ``train()`` on pre-made synthetic batches
+       (``prefetch_to_device``: pinned memory, a side stream), every
+       loss finite; images/s (median of steps 1-9, CUDA events between
+       the steps' starts), peak memory; one more step under
+       ``torch.profiler``: busy ms, launches, idle share;
+   (b) O2 against O0 (TF32 off) from the same weights and batches, B 32,
+       3 steps: losses within 2e-2 at every step;
+   (c) the overflow step (an inf planted in the data with ``fill_``) on
+       (b)'s O2 state under ``set_sync_debug_mode("error")``: forward,
+       backward, DDP all-reduce and SGD step; params and the SGD state,
+       the schedule's count included, keep every bit, the scale halves;
+   (d) two processes on the one card over gloo (CUDA tensors), each half
+       of a batch of 4 through the dry run's model in fp32: SyncBatchNorm's
+       forward, its running statistics and the DDP-reduced gradients
+       equal this process's full batch within 2e-5 scale-aware;
+   (e) ``entry.dryrun(1)`` over the NCCL group, 3 steps, against the same
+       step on plain Adam (no kernel): O0 losses <= 1e-4 relative, O2
+       within 2e-2, B1 launched exactly once a step (path ``dryrun``).
+
 The line before the last is ``{"kernels": [...]}``; before it, the
 card's name and power limit as nvidia-smi prints them; the last line is
 ``{"ok": true, "device": {...}}``.  Longer records go to
@@ -1731,12 +1757,8 @@ def _plain_attention(q, k, v, bias=None, dropout_fn=None):
                          q.shape[-1] ** -0.5)
 
 
-def _train_oracle(cfg, opt_level):
-    """The example's model and optimizer with no port kernel in them:
-    plain LayerNorm, plain attention, and FusedAdam whose update is its
-    plain version.  Same seed, so the same initial weights."""
-    from apex_tpu_torch import amp
-    from apex_tpu_torch.models import GPTLMHeadModel
+def _plain_adam(lr):
+    """FusedAdam whose update is its plain version: launches no B1."""
     from apex_tpu_torch.optimizers import FusedAdam
     adam = importlib.import_module("apex_tpu_torch.optimizers.fused_adam")
 
@@ -1746,9 +1768,18 @@ def _train_oracle(cfg, opt_level):
             for buf, val in zip((p, m, v), new):
                 buf.copy_(val)
 
+    return PlainAdam(lr=lr)
+
+
+def _train_oracle(cfg, opt_level):
+    """The example's model and optimizer with no port kernel in them:
+    plain LayerNorm, plain attention, and FusedAdam whose update is its
+    plain version.  Same seed, so the same initial weights."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTLMHeadModel
     module = _plain_oracle(GPTLMHeadModel(cfg, attention_fn=_plain_attention,
                                           device="cuda", seed=0))
-    model, opt = amp.initialize(module, PlainAdam(lr=TRAIN_LR),
+    model, opt = amp.initialize(module, _plain_adam(TRAIN_LR),
                                 opt_level=opt_level, verbosity=0)
     params = model.init()
     return model, opt, params, opt.init(params)
@@ -2154,8 +2185,294 @@ def phase_train_bert():
     return results["O2"]["launches"]
 
 
-def main(phases=("device", "build", "kernels", "serve", "serve_q8", "train",
-                 "train_bert")):
+# -- train_resnet --------------------------------------------------------------
+
+# the flagship: examples/imagenet/main_amp.py defaults with --sync_bn
+# (ResNet-50, 224x224, 1000 classes, B 256 per rank, O2,
+# chain(add_decayed_weights(1e-4), sgd(lr_schedule, 0.9))), DDP and
+# SyncBatchNorm over NCCL at world size 1
+RESNET_STEPS = 10
+RESNET_PAIR_BATCH, RESNET_PAIR_STEPS = 32, 3
+SYNC_TOL = 2e-5           # two processes against one, scale-aware
+DRYRUN_STEPS = 3
+GLOO_BATCH = 4            # the dry run's model, split over 2 processes
+
+
+def _resnet_args(*extra):
+    from apex_tpu_torch.examples import imagenet_main_amp as im
+    return im.parse_args(["--sync_bn", "--print-freq", "0", *extra])
+
+
+def _resnet_batches(args, n):
+    from apex_tpu_torch.examples import imagenet_main_amp as im
+    data = im.synthetic_batches(args, args.steps_per_epoch)
+    return [next(data) for _ in range(n)]
+
+
+def _resnet_full():
+    """(a) the full-width step, 10 steps from the example's loop with
+    pre-made synthetic batches (the host makes them before the run, so
+    numpy's generator is not timed), then one more step profiled."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import imagenet_main_amp as im
+    args = _resnet_args()
+    batches = _resnet_batches(args, RESNET_STEPS + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = im.train(args, device="cuda", steps=RESNET_STEPS,
+                   batches=iter(batches[:RESNET_STEPS]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ips = statistics.median(out["images_per_s"][1:])
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"train_resnet: non-finite loss "
+                             f"{out['losses']}")
+    state = {"params": out["params"], "st": out["opt_state"]}
+    xs = [tuple(torch.from_numpy(a).to("cuda") for a in b)
+          for b in batches[RESNET_STEPS:]]
+
+    def one_step(x, y):
+        state["params"], state["st"], loss, _, _ = im.train_step(
+            out["model"], out["optimizer"], out["ddp"], state["params"],
+            state["st"], x, y, out["norm"])
+        float(loss)
+
+    one_step(*xs[0])
+    prof = _profile("train_resnet50_step_O2", lambda: one_step(*xs[1]),
+                    images=args.b)
+    emit("train_resnet", run="(a) full width", arch=args.arch,
+         batch=args.b, image=args.image_size, opt_level=args.opt_level,
+         sync_bn=args.sync_bn, world_size=1, backend="nccl",
+         steps=RESNET_STEPS, losses=out["losses"],
+         images_per_s_median=ips, step_ms=[1e3 * t for t in
+                                           out["step_seconds"]],
+         loss_scale=out["loss_scale"], skipped_steps=out["skipped_steps"],
+         peak_memory_gb=peak_gb, launches=counts)
+    result = {k: out[k] for k in ("losses", "step_seconds", "images_per_s",
+                                  "loss_scale", "skipped_steps")}
+    del out, state, xs
+    return {**result, "images_per_s_median": ips, "peak_memory_gb": peak_gb,
+            "profile": prof, "launches": counts}
+
+
+def _resnet_pair_and_overflow():
+    """(b) O2 against O0 (TF32 off) from the same weights and batches at
+    B 32, 3 steps; (c) the overflow step (an inf in the data) under
+    sync-debug "error" on the O2 run's state."""
+    import torch
+    from apex_tpu_torch.examples import imagenet_main_amp as im
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    runs = {}
+    for level in ("O0", "O2"):
+        args = _resnet_args("--b", str(RESNET_PAIR_BATCH), "--opt-level",
+                            level)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            runs[level] = im.train(
+                args, device="cuda", steps=RESNET_PAIR_STEPS,
+                batches=iter(_resnet_batches(args, RESNET_PAIR_STEPS)))
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+    gaps = [abs(a - b) for a, b in zip(runs["O2"]["losses"],
+                                       runs["O0"]["losses"])]
+    emit("train_resnet", run="(b) O2 against O0", batch=RESNET_PAIR_BATCH,
+         o0_losses=runs["O0"]["losses"], o2_losses=runs["O2"]["losses"],
+         max_loss_gap=max(gaps))
+    if not max(gaps) <= O2_LOSS_TOL:
+        raise AssertionError(f"train_resnet: O2 against O0 loss gap "
+                             f"{max(gaps):.3g} > {O2_LOSS_TOL}")
+    del runs["O0"]
+    o2 = runs["O2"]
+    model, opt, ddp, norm = o2["model"], o2["optimizer"], o2["ddp"], \
+        o2["norm"]
+    params, st = o2["params"], o2["opt_state"]
+    x, y = (torch.from_numpy(a).to("cuda") for a in _resnet_batches(
+        _resnet_args("--b", str(RESNET_PAIR_BATCH)), 1)[0])
+    x = x.float()
+    x[1, 17, 5].fill_(float("inf"))     # a launch, not a copy
+    leaves = torch.utils._pytree.tree_leaves
+    snap = ([p.detach().clone() for p in params.values()],
+            [t.clone() for t in leaves(st.inner)])
+    scale0 = float(opt.loss_scale(st))
+    skipped0 = int(st.skipped_steps)
+    count0 = int(st.inner[1][1].count)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st, loss, _, _ = im.train_step(model, opt, ddp, params, st,
+                                               x, y, norm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    kept = (all(torch.equal(a, b) for a, b in zip(params.values(), snap[0]))
+            and all(torch.equal(a, b) for a, b in zip(leaves(st.inner),
+                                                      snap[1])))
+    count = int(st.inner[1][1].count)
+    scale1 = float(opt.loss_scale(st))
+    emit("train_resnet", run="(c) overflow step", planted="inf in the data",
+         loss=float(loss), bits_kept=kept, schedule_count=count,
+         loss_scale_before=scale0, loss_scale_after=scale1,
+         skipped_steps=int(st.skipped_steps), host_syncs=0,
+         sync_checked="forward, backward, DDP all-reduce and SGD step")
+    if not (kept and scale1 == scale0 / 2 and count == count0
+            and int(st.skipped_steps) == skipped0 + 1):
+        raise AssertionError("train_resnet: the overflow step changed the "
+                             "state or did not halve the scale")
+    return {"o2_o0_gaps": gaps, "overflow_bits_kept": kept}
+
+
+def _gloo_data():
+    rng = np.random.RandomState(7)
+    x = rng.randn(GLOO_BATCH, 32, 32, 3).astype(np.float32)
+    y = rng.randint(0, 10, GLOO_BATCH).astype(np.int64)
+    return x, y
+
+
+def _fp32_step(x, y):
+    """The dry run's model (seed 0) in fp32 on the card, one training
+    forward and backward: logits, running statistics, DDP-reduced
+    gradients."""
+    import torch
+    from apex_tpu_torch import entry, parallel
+    from apex_tpu_torch.optimizers import transforms
+    model = entry.dryrun_model("cuda")
+    logits = model(torch.from_numpy(x).cuda(), train=True)
+    loss = transforms.softmax_cross_entropy_with_integer_labels(
+        logits, torch.from_numpy(y).cuda()).mean()
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    grads = parallel.DistributedDataParallel().reduce_gradients(
+        dict(zip(names, grads)))
+    stats = {k: v for k, v in model.state_dict().items() if "running" in k}
+    return {"logits": logits.detach().cpu(),
+            "stats": {k: v.cpu() for k, v in stats.items()},
+            "grads": {k: v.cpu() for k, v in grads.items()}}
+
+
+def _gloo_rank(rank, world, store):
+    """(d)'s ranks: half the batch each, SyncBatchNorm and DDP over gloo
+    on CUDA tensors, TF32 off."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        x, y = _gloo_data()
+        half = slice(rank * GLOO_BATCH // world,
+                     (rank + 1) * GLOO_BATCH // world)
+        torch.save(_fp32_step(x[half], y[half]),
+                   OUT_DIR / f"gloo_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _resnet_two_processes():
+    """(d) two processes on the one card over gloo against this process's
+    full batch (its NCCL group of one)."""
+    import torch
+    import torch.multiprocessing as mp
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    store = OUT_DIR / "gloo_store"
+    if store.exists():
+        store.unlink()
+    mp.start_processes(_gloo_rank, args=(2, str(store)), nprocs=2,
+                       join=True, start_method="spawn")
+    store.unlink(missing_ok=True)
+    ranks = [torch.load(OUT_DIR / f"gloo_rank{r}.pt") for r in range(2)]
+    for r in range(2):
+        (OUT_DIR / f"gloo_rank{r}.pt").unlink()
+    full = _fp32_step(*_gloo_data())
+    errs = {"forward": scale_aware_err(
+        torch.cat([r["logits"] for r in ranks]), full["logits"])[0]}
+    errs["running_stats"] = max(
+        scale_aware_err(r["stats"][k], v)[0]
+        for r in ranks for k, v in full["stats"].items())
+    errs["reduced_grads"] = max(
+        scale_aware_err(r["grads"][k], v)[0]
+        for r in ranks for k, v in full["grads"].items())
+    emit("train_resnet", run="(d) two processes on one card over gloo",
+         model="dryrun ResNet fp32", batch=GLOO_BATCH, errors=errs,
+         tol=SYNC_TOL)
+    if not max(errs.values()) <= SYNC_TOL:
+        raise AssertionError(f"train_resnet: two gloo ranks against one "
+                             f"process: {errs}")
+    return errs
+
+
+def _resnet_dryrun():
+    """(e) ``entry.dryrun(1)`` over NCCL with B1, against the same step
+    on plain Adam; the counts read around the O2 kernel run."""
+    import torch
+    from apex_tpu_torch import entry
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    out, counts = {}, {}
+    for level in ("O0", "O2"):
+        before = launch_counts()
+        oracle = entry.dryrun(1, "cuda", steps=DRYRUN_STEPS, opt_level=level,
+                              optimizer=_plain_adam(1e-3))["losses"]
+        if launch_counts() != before:
+            raise AssertionError("the dry-run oracle launched a port kernel")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = entry.dryrun(1, "cuda", steps=DRYRUN_STEPS,
+                           opt_level=level)["losses"]
+        torch.cuda.synchronize()
+        counts[level] = launch_counts()
+        want = {k: DRYRUN_STEPS if k == "fused_adam" else 0
+                for k in counts[level]}
+        if counts[level] != want:
+            raise AssertionError(f"dryrun {level}: launches {counts[level]}")
+        err = (max(abs(a - b) / abs(b) for a, b in zip(got, oracle))
+               if level == "O0" else max(abs(a - b)
+                                         for a, b in zip(got, oracle)))
+        tol = O0_TOL if level == "O0" else O2_LOSS_TOL
+        out[level] = {"losses": got, "oracle_losses": oracle, "err": err}
+        emit("train_resnet", run=f"(e) entry.dryrun(1) {level}", losses=got,
+             oracle_losses=oracle, loss_err=err, tol=tol,
+             launches=counts[level])
+        if not err <= tol:
+            raise AssertionError(f"dryrun {level}: loss error {err:.3g} > "
+                                 f"{tol}")
+    return out, counts["O2"]
+
+
+def phase_train_resnet():
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel.multiproc import free_port, \
+        initialize_distributed
+    initialize_distributed("cuda", world_size=1, rank=0,
+                           init_method=f"tcp://127.0.0.1:{free_port()}")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"train_resnet: backend {dist.get_backend()}")
+    try:
+        results = {"full": _resnet_full()}
+        torch.cuda.empty_cache()
+        results["pair"] = _resnet_pair_and_overflow()
+        torch.cuda.empty_cache()
+        results["two_processes"] = _resnet_two_processes()
+        results["dryrun"], dry_counts = _resnet_dryrun()
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "train_resnet.json").write_text(json.dumps(results, indent=1,
+                                                          default=str))
+    return {"train_resnet": results["full"]["launches"],
+            "dryrun": dry_counts}
+
+
+def main(phases=("device", "build", "kernels", "train_resnet", "serve",
+                 "serve_q8", "train", "train_bert")):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     sys.path.insert(0, str(REPO))
@@ -2167,18 +2484,24 @@ def main(phases=("device", "build", "kernels", "serve", "serve_q8", "train",
         kernels = phase_kernels()
     # each main path runs with the counts at 0 just before it; a kernel
     # reports the launches of the last path that ran it (BERT training,
-    # then GPT training, then int8 serving, then serving)
-    for path, run in (("serve", phase_serve), ("serve_q8", phase_serve_q8),
-                      ("train", phase_train),
-                      ("train_bert", phase_train_bert)):
-        if path not in phases:
+    # then GPT training, then int8 serving, then serving, then the
+    # flagship's dry run); train_resnet's phase drives two paths, the
+    # ResNet-50 step and entry.dryrun
+    for phase, run in (("train_resnet", phase_train_resnet),
+                       ("serve", phase_serve), ("serve_q8", phase_serve_q8),
+                       ("train", phase_train),
+                       ("train_bert", phase_train_bert)):
+        if phase not in phases:
             continue
-        counts = run()
-        for k in (kernels or {}).values():
-            n = counts.get(k["name"], 0)
-            k["launches_by_path"][path] = n
-            if n:
-                k["launches"] = n
+        by_path = run()
+        if phase != "train_resnet":
+            by_path = {phase: by_path}
+        for path, counts in by_path.items():
+            for k in (kernels or {}).values():
+                n = counts.get(k["name"], 0)
+                k["launches_by_path"][path] = n
+                if n:
+                    k["launches"] = n
     emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(smi_line)
     if kernels is not None:

@@ -1,6 +1,8 @@
-"""The port stands alone: ``apex_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of ``apex_tpu``, and the port's entry points run
-on the card unless the caller asks for the CPU."""
+"""The port stands alone: ``apex_tpu_torch`` (its ``parallel`` and
+``data`` subpackages and ``entry.py`` included) and ``chip_smoke.py``
+import neither JAX, flax, optax nor anything of ``apex_tpu``, and the
+port's entry points run on the card unless the caller asks for the
+CPU."""
 
 import ast
 import os
@@ -12,9 +14,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp
+from apex_tpu_torch import entry
+from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp, \
+    imagenet_main_amp
+from apex_tpu_torch.data import prefetch_to_device
 from apex_tpu_torch.models import BertConfig, BertForPreTraining, GPTConfig, \
-    GPTLMHeadModel
+    GPTLMHeadModel, ResNet50
 from apex_tpu_torch.serving import DecodeEngine, InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -57,7 +62,12 @@ def test_every_module_imports_with_jax_blocked():
         for m in ("amp", "optimizers", "utils", "examples.gpt_main_amp",
                   "ops.flatten", "ops.multi_tensor", "models.bert",
                   "optimizers.fused_lamb", "optimizers.param_groups",
-                  "examples.bert_main_amp", "ops.kv_quant"):
+                  "examples.bert_main_amp", "ops.kv_quant", "entry",
+                  "parallel", "parallel.LARC", "parallel.collectives",
+                  "parallel.distributed", "parallel.mesh",
+                  "parallel.multiproc", "parallel.sync_batchnorm", "data",
+                  "data.loaders", "models.resnet", "optimizers.transforms",
+                  "examples.imagenet_main_amp", "examples.ddp_simple"):
             assert "apex_tpu_torch." + m in mods, m
         leaked = [m for m in sys.modules
                   if m == "apex_tpu" or m.startswith("apex_tpu.")]
@@ -68,7 +78,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 38
+    assert int(out.stdout.split()[-1]) >= 51
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -89,4 +99,14 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         BertForPreTraining(bert)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bert_main_amp.train(bert, batch=1, seq_len=8, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResNet50()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.dryrun(1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        imagenet_main_amp.train(imagenet_main_amp.parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prefetch_to_device(iter([]))
     DecodeEngine(TINY, sd, device="cpu")       # asked for: fine

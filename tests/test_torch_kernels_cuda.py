@@ -951,3 +951,92 @@ def test_threefry_dropout_matches_plain_bitwise(gen, dtype, shape, rate):
     if x.numel() > 10_000:
         kept = float((y != 0).float().mean())
         assert abs(kept - (1 - rate)) < 0.01
+
+
+# -- the flagship step's pieces on the card (no kernel of their own) ----------
+
+@pytest.fixture
+def nccl_world(gen):
+    """A one-rank NCCL process group for the test (NCCL takes one rank a
+    GPU)."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel.multiproc import free_port, \
+        initialize_distributed
+    initialize_distributed("cuda", world_size=1, rank=0,
+                           init_method=f"tcp://127.0.0.1:{free_port()}")
+    yield gen
+    dist.destroy_process_group()
+
+
+def test_syncbn_and_ddp_at_world_one_over_nccl(nccl_world):
+    """SyncBatchNorm's NCCL sums over a world of one give the local
+    statistics: output, running statistics and gradients equal the
+    plain formulas (fp32, 2e-5); DDP's reduction is exact (predivide 2
+    and back) and keeps bf16 gradients bf16 under allreduce_always_fp32."""
+    from apex_tpu_torch.parallel import DistributedDataParallel, \
+        SyncBatchNorm
+    gen = nccl_world
+    x = (torch.randn(6, 8, 5, 5, device="cuda", generator=gen) * 2 + 1) \
+        .contiguous(memory_format=torch.channels_last).requires_grad_()
+    bn = SyncBatchNorm(8, device="cuda")
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-0.5, 0.5, generator=gen)
+    y = bn(x)
+    (y ** 3).sum().backward()
+    xr = x.detach().clone().requires_grad_()
+    w = bn.weight.detach().clone().requires_grad_()
+    b = bn.bias.detach().clone().requires_grad_()
+    mean = xr.mean((0, 2, 3))
+    var = (xr * xr).mean((0, 2, 3)) - mean * mean
+    want = (xr - mean.view(1, -1, 1, 1)) * torch.rsqrt(var + 1e-5).view(
+        1, -1, 1, 1) * w.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+    (want ** 3).sum().backward()
+    n = x.numel() / 8
+    assert rel_err(y, want) <= 2e-5
+    assert rel_err(x.grad, xr.grad) <= 2e-5
+    assert rel_err(bn.weight.grad, w.grad) <= 2e-5
+    assert rel_err(bn.running_mean, 0.1 * mean) <= 2e-5
+    assert rel_err(bn.running_var, 0.9 + 0.1 * var * n / (n - 1)) <= 2e-5
+    g = {"a": torch.randn(5, device="cuda", generator=gen),
+         "b": torch.randn(3, device="cuda", generator=gen).bfloat16()}
+    out = DistributedDataParallel(gradient_predivide_factor=2.0,
+                                  allreduce_always_fp32=True) \
+        .reduce_gradients(g)
+    assert torch.equal(out["a"], g["a"]) and torch.equal(out["b"], g["b"])
+    assert out["b"].dtype == torch.bfloat16
+
+
+def test_overflow_select_on_the_card(gen):
+    """AmpOptimizer over the optax-style SGD on the card: an overflowed
+    step keeps every bit of the params and the state (the schedule's
+    count too), halves the scale and syncs nothing."""
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.amp.optimizer import AmpOptimizer
+    from apex_tpu_torch.optimizers import transforms as T
+    tx = T.chain(T.add_decayed_weights(1e-4),
+                 T.sgd(T.linear_schedule(0.01, 0.1, 5), momentum=0.9))
+    opt = AmpOptimizer(tx, LossScaler("dynamic"))
+    params = {"w": torch.randn(64, 32, device="cuda", generator=gen)
+              .requires_grad_(),
+              "b": torch.randn(32, device="cuda", generator=gen)
+              .requires_grad_()}
+    st = opt.init(params)
+    good = {k: torch.randn_like(v) for k, v in params.items()}
+    params, st = opt.step(params, good, st)
+    bad = {k: v.clone() for k, v in good.items()}
+    bad["w"][3, 4].fill_(float("inf"))
+    snap = ([p.detach().clone() for p in params.values()],
+            [t.clone() for t in torch.utils._pytree.tree_leaves(st.inner)])
+    scale0 = st.loss_scalers[0].loss_scale.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st = opt.step(params, bad, st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(a, b) for a, b in zip(params.values(), snap[0]))
+    assert all(torch.equal(a, b) for a, b in zip(
+        torch.utils._pytree.tree_leaves(st.inner), snap[1]))
+    assert int(st.inner[1][1].count) == 1
+    assert torch.equal(st.loss_scalers[0].loss_scale, scale0 / 2)
