@@ -1,9 +1,9 @@
 """apex_tpu_torch — the PyTorch/CUDA twin of :mod:`apex_tpu` for NVIDIA Hopper.
 
 Laid out like ``apex_tpu`` subpackage for subpackage, so every ported
-module has an obvious counterpart: ``amp``, ``normalization``,
-``ops``, ``optimizers``, ``models``, ``parallel``, ``data``,
-``serving``, ``utils`` and ``examples``.  Plain tensor code is PyTorch; every kernel the JAX
+module has an obvious counterpart: ``amp``, ``fp16_utils``,
+``normalization``, ``ops``, ``optimizers``, ``models``, ``parallel``,
+``data``, ``serving``, ``utils`` and ``examples``.  Plain tensor code is PyTorch; every kernel the JAX
 package wrote in Pallas for the TPU is a CUDA C++ kernel written
 for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and bound
 with :mod:`ctypes` (``_kernels``).  Each kernel wrapper runs its plain
@@ -17,8 +17,9 @@ never JAX, and nothing of ``apex_tpu``.  Subpackages load lazily, so
 
 import importlib
 
-_SUBPACKAGES = ("amp", "data", "examples", "models", "normalization", "ops",
-                "optimizers", "parallel", "serving", "utils")
+_SUBPACKAGES = ("amp", "data", "examples", "fp16_utils", "models",
+                "normalization", "ops", "optimizers", "parallel", "serving",
+                "utils")
 
 __all__ = list(_SUBPACKAGES)
 

@@ -1,7 +1,7 @@
 """Cross-module amp state and rank-0-aware printing.
 
 Twin of ``apex_tpu/amp/_amp_state.py``.  The mutable global holds only
-configuration (verbosity, the active Properties); every
+configuration (verbosity, ``casts_disabled``, the active Properties); every
 numeric state (loss scales, overflow flags) lives in explicit state
 objects on the device.
 """
@@ -14,6 +14,7 @@ import torch
 class AmpState:
     def __init__(self):
         self.verbosity = 1
+        self.casts_disabled = False
         self.opt_properties = None
 
 

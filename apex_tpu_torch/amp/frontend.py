@@ -8,9 +8,10 @@ prints, and wraps the model(s) and optimizer(s).  The returned
 from ``model.init()``, optimizer state from ``optimizer.init(params)``,
 and both are threaded through the caller's train step.
 
-O0, O2 and O3 are ported.  O1 (``cast_ops``, the op-level cast policy
-the JAX package installs by patching its namespaces) raises
-``NotImplementedError``: it is a later slice of the port.
+O1 (``cast_ops``; ``patch_torch_functions`` is its reference-name
+alias) installs the op-level cast policy by patching the ``torch``
+namespaces (``amp.patch``); the half dtype is bfloat16 unless
+``cast_model_type`` says otherwise.
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ from apex_tpu_torch.amp import _amp_state
 from apex_tpu_torch.amp._amp_state import maybe_print
 from apex_tpu_torch.amp.model import AmpModel
 from apex_tpu_torch.amp.optimizer import AmpOptimizer
+from apex_tpu_torch.amp.patch import install_o1_patches
 from apex_tpu_torch.amp.properties import Properties, opt_levels
 from apex_tpu_torch.amp.scaler import LossScaler
 
 
 def initialize(models, optimizers=None, enabled: bool = True,
                opt_level: str = "O1", cast_model_type=None,
+               cast_ops: Optional[bool] = None,
+               patch_torch_functions: Optional[bool] = None,
                keep_batchnorm_fp32=None,
                master_weights: Optional[bool] = None, loss_scale=None,
                min_loss_scale: Optional[float] = None,
@@ -56,11 +60,6 @@ def initialize(models, optimizers=None, enabled: bool = True,
             f"Unexpected optimization level {opt_level}. Options are 'O0', "
             "'O1', 'O2', 'O3'. Note the prefix is the capital letter O, "
             "not the number zero.")
-    if opt_level == "O1":
-        raise NotImplementedError(
-            "amp opt_level O1 (the op-level cast policy) is not ported to "
-            "apex_tpu_torch yet; it comes with a later slice of the port. "
-            "Use O0, O2 or O3.")
 
     properties = opt_levels[opt_level](Properties())
     maybe_print(f"Selected optimization level {opt_level}", True)
@@ -68,7 +67,9 @@ def initialize(models, optimizers=None, enabled: bool = True,
     for k, v in properties.options.items():
         maybe_print(f"{k:24} : {v}", True)
 
-    overrides = dict(cast_model_type=cast_model_type,
+    if patch_torch_functions is not None and cast_ops is None:
+        cast_ops = patch_torch_functions
+    overrides = dict(cast_model_type=cast_model_type, cast_ops=cast_ops,
                      keep_batchnorm_fp32=keep_batchnorm_fp32,
                      master_weights=master_weights, loss_scale=loss_scale)
     explicit = {k: v for k, v in overrides.items() if v is not None}
@@ -83,6 +84,10 @@ def initialize(models, optimizers=None, enabled: bool = True,
         maybe_print(f"{k:24} : {v}", True)
 
     _amp_state._amp_state.opt_properties = properties
+    if properties.enabled and properties.cast_ops:
+        # O1: the per-op precision policy (reference amp.init,
+        # apex/amp/amp.py:68-171)
+        install_o1_patches()
     models_out = _wrap_models(models, properties, keep_fp32_patterns)
     if optimizers is None:
         return models_out

@@ -1,4 +1,4 @@
-"""Per-iteration amp protocol: ``scale_loss``.
+"""Per-iteration amp protocol: ``scale_loss`` / ``disable_casts``.
 
 Twin of ``apex_tpu/amp/handle.py``.  ``scale_loss`` is the entry half of
 the reference's context manager: it yields ``loss.float() * scale`` from
@@ -35,3 +35,22 @@ def scale_loss(loss, state, loss_id: int = 0):
         yield loss
         return
     yield loss.float() * _resolve_scaler_state(state, loss_id).loss_scale
+
+
+def scale(loss, state, loss_id: int = 0):
+    """Function form of :func:`scale_loss` for non-context-manager use."""
+    with scale_loss(loss, state, loss_id) as s:
+        return s
+
+
+@contextlib.contextmanager
+def disable_casts():
+    """Code under this context runs without amp's casts: the O1 op
+    policy, the decorators of ``amp.functional`` and ``AmpModel``'s
+    parameter and input casts (reference ``handle.py:160``)."""
+    old = _amp_state._amp_state.casts_disabled
+    _amp_state._amp_state.casts_disabled = True
+    try:
+        yield
+    finally:
+        _amp_state._amp_state.casts_disabled = old

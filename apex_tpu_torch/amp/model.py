@@ -9,18 +9,21 @@ dict ``{name: tensor}`` the caller owns (``AmpModel.init``).
 module through ``torch.func.functional_call``, so autograd routes the
 bf16 gradients back to the fp32 masters as fp32 — the same flow.
 
-- O0: everything fp32; O2: compute in half, canonical fp32 masters;
-  O3: canonical params stored in half (no masters).
-- Parameters on paths matching ``keep_fp32_patterns`` stay fp32
-  (O2's default: BatchNorm and MoE router paths).  Patterns are matched
-  against the components of the dotted parameter name, as the JAX
-  package matches flax path components: GPT's ``attn_ln``, ``mlp_ln``
-  and ``final_ln`` match none of O2's patterns, so GPT trains all-half.
+- O0: everything fp32; O1 and O2: compute in half, canonical fp32
+  masters; O3: canonical params stored in half (no masters).
+- Parameters on paths matching ``keep_fp32_patterns`` stay fp32: under
+  O1 every norm layer and MoE router (``NORM_PATTERNS +
+  ROUTER_PATTERNS``), under O2 BatchNorm and the routers.  Patterns are
+  matched against the components of the dotted parameter name, as the
+  JAX package matches flax path components: GPT's ``attn_ln``,
+  ``mlp_ln`` and ``final_ln`` match ``_ln$`` (fp32 under O1) and none
+  of O2's patterns (GPT trains all-half under O2).
 - Float inputs are cast to the compute dtype; integer inputs (token
   ids) are not.
 - A kept-fp32 *norm* module's float32 output is recast to the half
   compute dtype (the JAX package's norm-output seam mend), so one fp32
   norm does not drag the rest of the network up to fp32.
+- Under ``amp.disable_casts()`` none of these casts happens.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from apex_tpu_torch.amp import _amp_state
 from apex_tpu_torch.amp.properties import Properties
 
 BATCHNORM_PATTERNS = (r"BatchNorm", r"SyncBatchNorm", r"^bn(_|\d|$)",
@@ -98,6 +102,8 @@ class AmpModel:
                            else torch.bfloat16)
         if keep_fp32_patterns is not None:
             self.keep_fp32_patterns = tuple(keep_fp32_patterns)
+        elif p.cast_ops:  # O1: norm layers and MoE routers stay fp32
+            self.keep_fp32_patterns = NORM_PATTERNS + ROUTER_PATTERNS
         elif p.keep_batchnorm_fp32:  # O2 (and O3 with the override)
             self.keep_fp32_patterns = BATCHNORM_PATTERNS + ROUTER_PATTERNS
         else:
@@ -109,7 +115,7 @@ class AmpModel:
             bool(p.cast_ops) or p.cast_model_type not in (None, False))
 
     def canonical_variables(self, params: Dict[str, torch.Tensor]):
-        """Canonical (optimizer-side) layout: fp32 masters for O0/O2,
+        """Canonical (optimizer-side) layout: fp32 masters for O0-O2,
         half for O3."""
         p = self._properties
         if not p.enabled:
@@ -124,7 +130,7 @@ class AmpModel:
     def compute_variables(self, params: Dict[str, torch.Tensor]):
         """Canonical params cast to the compute layout for one call."""
         p = self._properties
-        if not p.enabled:
+        if not p.enabled or _amp_state._amp_state.casts_disabled:
             return params
         if p.opt_level == "O0":
             return cast_tree(params, torch.float32)
@@ -135,7 +141,7 @@ class AmpModel:
 
     def cast_inputs(self, args, kwargs):
         p = self._properties
-        if not p.enabled:
+        if not p.enabled or _amp_state._amp_state.casts_disabled:
             return args, kwargs
         if p.opt_level == "O0":
             dtype = torch.float32
@@ -173,7 +179,8 @@ class AmpModel:
                 h.remove()
 
     def _apply_context(self):
-        if self._compute_cast_needed() and self.keep_fp32_patterns:
+        if (self._compute_cast_needed() and self.keep_fp32_patterns
+                and not _amp_state._amp_state.casts_disabled):
             return self._norm_output_recast()
         return contextlib.nullcontext()
 

@@ -2,8 +2,9 @@
 
 Twin of ``apex_tpu/amp/properties.py`` (reference
 ``apex/amp/frontend.py:6-190``) with torch dtypes.  The half dtype
-defaults to ``torch.bfloat16``; ``cast_ops`` is the option O1 sets (its
-op-level cast policy is not ported yet: ``amp.initialize`` refuses O1).
+defaults to ``torch.bfloat16``; ``cast_ops`` (alias
+``patch_torch_functions``) is the option O1 sets: ``amp.initialize``
+then installs the op-level cast policy of ``amp.patch``.
 """
 
 from __future__ import annotations
@@ -130,7 +131,7 @@ class O2:
 
 class O1:
     """Op-policy mixed precision + dynamic scale (reference
-    ``frontend.py:146``); the table only — see ``amp.initialize``."""
+    ``frontend.py:146``)."""
 
     brief = "O1: Insert casts around matmul-bound ops (op-level policy)."
 

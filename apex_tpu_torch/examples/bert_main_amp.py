@@ -2,7 +2,7 @@
 
 Twin of ``examples/bert/main_amp.py`` on one device: masked-LM + NSP
 loss on the example's synthetic batches (``synthetic_mlm_batch``, from
-``numpy.random.RandomState(0)``), amp O0/O2/O3 with the dynamic loss
+``numpy.random.RandomState(0)``), amp O0-O3 with the dynamic loss
 scale, and the BERT recipe's ``FusedLAMB``: no weight decay and no layer
 adaptation for bias and LayerNorm parameters.  The CLI trains as the
 JAX example does, ``deterministic=True`` with dot-product attention::
@@ -209,7 +209,8 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--max-grad-norm", type=float, default=1.0)
-    p.add_argument("--opt-level", default="O2", choices=["O0", "O2", "O3"])
+    p.add_argument("--opt-level", default="O2",
+                   choices=["O0", "O1", "O2", "O3"])
     p.add_argument("--loss-scale", default=None)
     p.add_argument("--mask-prob", type=float, default=0.15)
     p.add_argument("--print-freq", type=int, default=5)

@@ -6,7 +6,7 @@ each rank computes gradients on its batch, ``ddp.reduce_gradients``
 gives every rank the world-averaged gradient with the apex options
 (``--allreduce-always-fp32``, ``--gradient-predivide-factor``), and
 amp's optimizer steps ``sgd(0.05)``.  The model is the JAX example's
-MLP (784 -> 256 -> 256 -> 10, ReLU), written out here.
+``models.MLP(features=(256, 256))`` (784 -> 256 -> 256 -> 10, ReLU).
 
 One process per GPU (``python -m apex_tpu_torch.parallel.multiproc``);
 ``--b`` is the global batch, split evenly over the ranks, rank r taking
@@ -25,29 +25,11 @@ import argparse
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch import nn
 
 from apex_tpu_torch import amp, parallel
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.models import MLP
 from apex_tpu_torch.optimizers import transforms
-
-
-def mlp(features=(256, 256), num_classes: int = 10, in_features: int = 784,
-        *, device="cuda", seed: int = 0) -> nn.Module:
-    """The JAX example's ``MLP(features=(256, 256))``: Linear + ReLU per
-    width, then the classifier; normal(0, 1/fan_in) weights from
-    ``seed``, zero biases."""
-    gen = torch.Generator().manual_seed(seed)
-    layers, width = [], in_features
-    for f in list(features) + [num_classes]:
-        lin = nn.Linear(width, f)
-        with torch.no_grad():
-            lin.weight.copy_(torch.randn(f, width, generator=gen)
-                             * width ** -0.5)
-            lin.bias.zero_()
-        layers += [lin, nn.ReLU()]
-        width = f
-    return nn.Sequential(nn.Flatten(), *layers[:-1]).to(device)
 
 
 def parse_args(argv=None):
@@ -75,7 +57,8 @@ def run(args, device="cuda") -> list:
         raise SystemExit(f"global batch {args.b} must divide by {world} "
                          "ranks")
     model, optimizer = amp.initialize(
-        mlp(device=dev), transforms.sgd(0.05), opt_level=args.opt_level,
+        MLP(features=(256, 256), device=dev), transforms.sgd(0.05),
+        opt_level=args.opt_level,
         verbosity=0)
     ddp = parallel.DistributedDataParallel(
         model, allreduce_always_fp32=args.allreduce_always_fp32,

@@ -3,7 +3,7 @@
 Twin of ``examples/gpt/main_amp.py`` at its ``--flash`` path on one
 device: next-token loss on synthetic token streams (uniform random ids
 from ``numpy.random.RandomState(0)``, as the JAX example makes them),
-attention through ``make_flash_attention(causal=True)``, amp O0/O2/O3
+attention through ``make_flash_attention(causal=True)``, amp O0-O3
 with the dynamic loss scale, ``FusedAdam`` with the flat layout.  The
 step is the JAX example's ``train_step`` with ``deterministic=True``
 (no dropout).
@@ -136,7 +136,8 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=int, default=1024)
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--lr", type=float, default=3e-4)
-    p.add_argument("--opt-level", default="O2", choices=["O0", "O2", "O3"])
+    p.add_argument("--opt-level", default="O2",
+                   choices=["O0", "O1", "O2", "O3"])
     p.add_argument("--loss-scale", default=None)
     p.add_argument("--print-freq", type=int, default=5)
     return p.parse_args(argv)

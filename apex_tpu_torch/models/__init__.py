@@ -18,6 +18,7 @@ from apex_tpu_torch.models.gpt import (
     lm_loss,
     params_from_jax,
 )
+from apex_tpu_torch.models.mlp import MLP, mlp_params_from_jax
 from apex_tpu_torch.models.resnet import (
     BasicBlock,
     BatchNorm,
@@ -38,8 +39,9 @@ from apex_tpu_torch.models.resnet import (
 __all__ = ["BasicBlock", "BatchNorm", "BertConfig", "BertEncoder",
            "BertForPreTraining", "BertLayer", "BertSelfAttention",
            "Bottleneck", "GPTBlock", "GPTConfig", "GPTLMHeadModel",
-           "GPTSelfAttention", "ResNet", "ResNet18", "ResNet34", "ResNet50",
-           "ResNet101", "ResNet152", "bert_base", "bert_large",
+           "GPTSelfAttention", "MLP", "ResNet", "ResNet18", "ResNet34",
+           "ResNet50", "ResNet101", "ResNet152", "bert_base", "bert_large",
            "bert_params_from_jax", "default_norm", "gpt_medium", "gpt_small",
-           "lm_loss", "params_from_jax", "resnet_params_from_jax",
-           "s2d_input_transform", "space_to_depth", "stem_to_s2d"]
+           "lm_loss", "mlp_params_from_jax", "params_from_jax",
+           "resnet_params_from_jax", "s2d_input_transform", "space_to_depth",
+           "stem_to_s2d"]

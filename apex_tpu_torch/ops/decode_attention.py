@@ -36,8 +36,13 @@ from apex_tpu_torch._kernels.build import (
 )
 from apex_tpu_torch.ops.flash_attention import _meets_16_byte_rule
 from apex_tpu_torch.ops.kv_quant import dequantize_kv
+from apex_tpu_torch.ops.unpatched import unpatched
 
 NEG_INF = -1e30
+
+# the plain version's einsum, immune to amp O1's half-list patch (as in
+# ops.flash_attention)
+_einsum = unpatched(torch.einsum)
 
 _HEAD_DIMS = (64,)   # the head dims csrc/decode_attention.cu is built for
 _TILE = 64           # keys of a kernel tile
@@ -66,7 +71,7 @@ def _reference(q, k, v, kv_bias, scale, k_scale=None, v_scale=None):
     if k_scale is not None:
         k = dequantize_kv(k, k_scale, q.dtype)
         v = dequantize_kv(v, v_scale, q.dtype)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = _einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if kv_bias is not None:
         s = s + kv_bias.float()[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
@@ -74,7 +79,7 @@ def _reference(q, k, v, kv_bias, scale, k_scale=None, v_scale=None):
     p = torch.exp(s - torch.where(valid, m, torch.zeros_like(m)))
     p = torch.where(valid, p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", (p / l).to(q.dtype), v)
+    out = _einsum("bhqk,bkhd->bqhd", (p / l).to(q.dtype), v)
     return out.to(q.dtype)
 
 
@@ -264,7 +269,7 @@ def chunk_cached_attention(q, k, v, ctx_bias,
         v = dequantize_kv(v, v_scale, q.dtype)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = _einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     idx = torch.arange(c, device=q.device)
     causal = torch.where(idx[:, None] >= idx[None, :], 0.0, NEG_INF)
     bias = torch.cat(
@@ -274,5 +279,5 @@ def chunk_cached_attention(q, k, v, ctx_bias,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", (p / l).to(q.dtype), v)
+    out = _einsum("bhqk,bkhd->bqhd", (p / l).to(q.dtype), v)
     return out.to(q.dtype)

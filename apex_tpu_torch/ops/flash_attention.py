@@ -57,8 +57,13 @@ from apex_tpu_torch._kernels.build import (
     plain_path,
     stream_handle,
 )
+from apex_tpu_torch.ops.unpatched import unpatched
 
 NEG_INF = -1e30
+
+# the plain versions' einsum, immune to amp O1's half-list patch: their
+# fp32 upcasts are deliberate numerics, not user policy
+_einsum = unpatched(torch.einsum)
 
 _HEAD_DIMS = (64,)   # the head dims csrc/flash_*.cu are built for
 
@@ -186,7 +191,7 @@ def _divisor(rate, device):
 
 def _scores(q, k, kv_mask, causal, scale):
     """(B, H, Sq, Sk) fp32 logits with the key mask and causal mask."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = _einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if kv_mask is not None:
         s = s + kv_mask[:, None, None, :].float()
     if causal:
@@ -215,7 +220,7 @@ def _reference(q, k, v, kv_mask, causal, scale, return_lse: bool = False,
         keep = _keep_mask(seed, q, k, dropout_rate)
         probs = torch.where(keep, probs / _divisor(dropout_rate, q.device),
                             0.0)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = _einsum("bhqk,bkhd->bqhd", probs, v.float())
     out = out * valid.permute(0, 2, 1, 3).to(out.dtype)
     out = out.to(q.dtype)
     if not return_lse:
@@ -236,7 +241,7 @@ def _bwd_p_ds(q, k, v, do, lse, delta, kv_mask, causal, scale,
     lse4 = lse[..., None]
     p = torch.where(lse4 > NEG_INF / 2, torch.exp(s - lse4),
                     torch.zeros((), device=q.device))
-    dov = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dov = _einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     p_v = p
     if dropout_rate > 0.0:
         keep = _keep_mask(seed, q, k, dropout_rate)
@@ -252,7 +257,7 @@ def _bwd_dq_reference(q, k, v, do, lse, delta, kv_mask, causal, scale,
     scale`` in q's dtype."""
     _, ds = _bwd_p_ds(q, k, v, do, lse, delta, kv_mask, causal, scale,
                       dropout_rate, seed)
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(
+    return (_einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(
         q.dtype)
 
 
@@ -263,8 +268,8 @@ def _bwd_dkv_reference(q, k, v, do, lse, delta, kv_mask, causal, scale,
     dtype."""
     p, ds = _bwd_p_ds(q, k, v, do, lse, delta, kv_mask, causal, scale,
                       dropout_rate, seed)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = _einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = _einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(q.dtype), dv.to(q.dtype)
 
 

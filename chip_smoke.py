@@ -26,9 +26,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    for a launch that does nothing (``timing_floor_ms``, and with L2
    flushed ``timing_floor_cold_ms``), the floor under every time.  B2
    runs with weights in x's dtype (as
-   the paths hold them), its library call on the same weights; at the
+   O0 and O2 hold them), its library call on the same weights; at the
    bf16 training shapes both are also timed with the 50 MB L2 flushed
-   before each launch (``cold_ms``, ``library_cold_ms``).  Each flash
+   before each launch (``cold_ms``, ``library_cold_ms``).  B2 and B3
+   also run bf16 x with fp32 weights (O1 keeps norm layers' params
+   fp32) at GPT-2 small's and BERT-large's training shapes
+   (``LN_O1_SHAPES``), B3's dgamma and dbeta then fp32.  Each flash
    row names the body it timed
    (``design``: ``wgmma`` for bf16 B4/B5/B6 and their dropout branches,
    ``cuda_cores_fp32`` for fp32).  The dropout kernels (B4d,
@@ -155,6 +158,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (e) ``entry.dryrun(1)`` over the NCCL group, 3 steps, against the same
        step on plain Adam (no kernel): O0 losses <= 1e-4 relative, O2
        within 2e-2, B1 launched exactly once a step (path ``dryrun``).
+
+9. train_o1 — GPT-2 small under amp O1 at B 8, S 1024 on B1-B6 (the
+   op-level cast policy installed on the torch namespaces; LayerNorm's
+   params the fp32 masters, everything else bf16):
+   (a) ``train()``, 10 steps, counts at 0 just before and read just
+       after (10 times the per-step counts): losses finite and within
+       2e-2 of the kernel-free oracle at O1 (``_oracle_steps(cfg,
+       "O1", ...)``);
+   (b) O1 and O2 in turns (``O1_TURNS``: O1, O2, O2, O1, O1, O2; 10
+       steps each): tokens/s (median of steps 1-9) and peak memory of
+       each;
+   (c) the compute layout: LayerNorm's params enter B2/B3 uncast and
+       fp32, every gradient fp32;
+   (d) the overflow step under ``set_sync_debug_mode("error")`` over
+       forward, backward and FusedAdam: p, m, v and the step counter
+       keep every bit, the scale halves, no host sync;
+   (e) one O1 and one O2 step under ``torch.profiler``: busy ms,
+       launches, idle share;
+   (f) each level's host costs: ``compute_variables`` with the
+       norm-output hooks (ms a step), the patched calls one step makes,
+       and one wrapper's cost against its original (``F.cross_entropy``,
+       microseconds a call).
+10. train_simple — ``apex_tpu_torch.examples.simple_main_amp.train()``
+   at its defaults (O1, the synthetic 8192 x 784 data, 5 epochs, B 256,
+   ``sgd(0.05)``): finite losses that fall; the same run at O0 from the
+   same data and weights, each epoch's mean loss within 2e-2; a dtype
+   probe (the first Linear runs bf16, ``F.cross_entropy`` computes in
+   fp32 on bf16 logits, ``F.binary_cross_entropy`` is refused);
+   samples/s (median of epochs 1-4); one O1 step under the profiler.
+   Both O1 phases run last, and each ends by removing the policy,
+   resetting amp's state and checking every patched function is its
+   original again.
 
 The line before the last is ``{"kernels": [...]}``; before it, the
 card's name and power limit as nvidia-smi prints them; the last line is
@@ -534,14 +569,40 @@ def _check_rows_all(name, dtype, got, want):
     return None if errs[0] is None else max(errs)
 
 
+def _ln_cases(torch, shapes, o1_shapes):
+    """(x dtype, weight dtype, (n1, n2)): fp32 and bf16 at ``shapes`` with
+    the weights in x's dtype (O0 and O2 hold LayerNorm's params so), then
+    bf16 x with fp32 weights at ``o1_shapes`` (O1 keeps norm layers'
+    params fp32)."""
+    return ([(dt, dt, shape) for dt in (torch.float32, torch.bfloat16)
+             for shape in shapes]
+            + [(torch.bfloat16, torch.float32, shape)
+               for shape in o1_shapes])
+
+
+# the training shapes that run LayerNorm with bf16 x and fp32 weights
+# under O1: GPT-2 small's (8 x 1024 tokens of 768) and a BERT-large one
+LN_O1_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 768),
+                (BERT_BATCH * BERT_SEQ, BERT_HIDDEN))
+# no PyTorch call takes that pairing on the card: F.layer_norm and
+# native_layer_norm_backward raise "expected scalar type BFloat16 but
+# found Float" (PyTorch 2.11, CUDA 12.8); the row of the same shape with
+# bf16 weights times them
+LN_NO_LIBRARY = ("none: F.layer_norm and native_layer_norm_backward "
+                 "refuse bf16 x with fp32 weights on the card")
+
+
 def _ln_variants(torch):
     """B2 at the paths' shapes: decode and a prefill bucket (fp32, as
     served), the GPT and BERT training steps in bf16 (O2) and fp32 (O0),
-    the weights in x's dtype as the paths hold them (O2 keeps
-    LayerNorm's params in bf16), against the plain version (y 2e-5 /
-    2e-2 scale-aware, mean and invvar 2e-5).  ``F.layer_norm`` gets the
-    same weights, so no cast falls inside its timed window.  At the bf16
-    training shapes both are also timed with L2 flushed before each
+    the weights in x's dtype as O0 and O2 hold them, and the two
+    training steps with bf16 x and fp32 weights as O1 holds them
+    (``LN_O1_SHAPES``, with the kernel's launches in one O1 GPT step),
+    against the plain version (y 2e-5 / 2e-2 scale-aware by x's dtype,
+    mean and invvar 2e-5).  ``F.layer_norm`` gets the same weights, so
+    no cast falls inside its timed window; it refuses the O1 pairing
+    (``LN_NO_LIBRARY``).  At the bf16 training shapes
+    with bf16 weights both are also timed with L2 flushed before each
     launch (``cold_ms``, ``library_cold_ms``: the bound share is read
     from those), beside the same bytes through one ``copy_`` of x into y
     with L2 flushed (``copy_cold_ms``: what the card's own streaming copy
@@ -549,67 +610,74 @@ def _ln_variants(torch):
     it (``launch``) and the rows its busiest warp walks
     (``rows_per_warp``)."""
     import torch.nn.functional as F
+    from apex_tpu_torch.models import gpt_small
     ln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     flush = l2_flush()
     out = []
-    for dtype in (torch.float32, torch.bfloat16):
-        # decode, a prefill bucket, a GPT training step (8 x 1024 tokens
-        # of 768), a BERT-large one (32 x 128 tokens of 1024)
-        for n1, n2 in ((8, 768), (256, 768), (TRAIN_BATCH * TRAIN_SEQ, 768),
-                       (BERT_BATCH * BERT_SEQ, BERT_HIDDEN)):
-            g = torch.Generator(device="cuda").manual_seed(n1)
-            x = torch.randn(n1, n2, device="cuda", generator=g).to(dtype)
-            w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=g)) \
-                .to(dtype)
-            b = (0.1 * torch.randn(n2, device="cuda", generator=g)).to(dtype)
+    # decode, a prefill bucket, a GPT training step (8 x 1024 tokens of
+    # 768), a BERT-large one (32 x 128 tokens of 1024)
+    for dtype, wdtype, (n1, n2) in _ln_cases(
+            torch, ((8, 768), (256, 768), (TRAIN_BATCH * TRAIN_SEQ, 768),
+                    (BERT_BATCH * BERT_SEQ, BERT_HIDDEN)), LN_O1_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(n1)
+        x = torch.randn(n1, n2, device="cuda", generator=g).to(dtype)
+        w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=g)) \
+            .to(wdtype)
+        b = (0.1 * torch.randn(n2, device="cuda", generator=g)).to(wdtype)
 
-            def kernel():
-                return ln.layer_norm_fwd(x, w, b, 1e-5)
+        def kernel():
+            return ln.layer_norm_fwd(x, w, b, 1e-5)
 
-            def plain():
-                xhat, mean, invvar = ln._ln_forward_plain(x, 1e-5)
-                return (xhat * w.float() + b.float()).to(dtype), mean, invvar
+        def plain():
+            xhat, mean, invvar = ln._ln_forward_plain(x, 1e-5)
+            return (xhat * w.float() + b.float()).to(dtype), mean, invvar
 
-            def library():
-                return F.layer_norm(x, (n2,), w, b, 1e-5)
+        def library():
+            return F.layer_norm(x, (n2,), w, b, 1e-5)
 
-            dt = _dt(dtype)
-            got = kernel()
-            y, mean, invvar = got
-            py, pmean, pinvvar = plain()
-            rel, max_abs = _check("layer_norm_fwd", dt, y, py)
-            for a, want in ((mean, pmean), (invvar, pinvvar)):
-                r, m = _check("layer_norm_fwd stats", "float32", a, want)
-                rel, max_abs = max(rel, r), max(max_abs, m)
-            del py, pmean, pinvvar
-            iters = TIMED_LAUNCHES if n1 <= 256 else TIMED_LAUNCHES_LARGE
-            isz = x.element_size()
-            # x read and y written; w, b read; mean, invvar written
-            nbytes = 2 * n1 * n2 * isz + 2 * n2 * isz + 2 * n1 * 4
-            bms, by = bound(nbytes, 8 * n1 * n2, "float32")
-            row = {
-                "shape": [n1, n2], "dtype": dt, "weight_dtype": dt,
-                "rel_err": rel, "max_abs_err": max_abs,
-                "ms": median_ms(kernel, iters),
-                "plain_ms": median_ms(plain, iters),
-                "library_ms": median_ms(library, iters),
-                "library": "F.layer_norm (weights in x's dtype)",
-                "bound_ms": bms, "bound_by": by}
-            if dtype == torch.bfloat16 and n1 > 256:
-                row["cold_ms"] = median_ms(kernel, iters, flush=flush)
-                row["library_cold_ms"] = median_ms(library, iters,
-                                                   flush=flush)
-                row["cold_bound_share"] = bms / row["cold_ms"]
-                y = torch.empty_like(x)
-                row["copy_cold_ms"] = median_ms(lambda: y.copy_(x), iters,
-                                                flush=flush)
-                del y
-                row["launch"] = kineto_launch(kernel, "layer_norm_fwd_kernel")
-                warps = (row["launch"]["grid"][0]
-                         * row["launch"]["block"][0] // 32)
-                row["rows_per_warp"] = -(-n1 // warps)
+        dt, wdt = _dt(dtype), _dt(wdtype)
+        got = kernel()
+        y, mean, invvar = got
+        py, pmean, pinvvar = plain()
+        rel, max_abs = _check("layer_norm_fwd", dt, y, py)
+        for a, want in ((mean, pmean), (invvar, pinvvar)):
+            r, m = _check("layer_norm_fwd stats", "float32", a, want)
+            rel, max_abs = max(rel, r), max(max_abs, m)
+        del py, pmean, pinvvar
+        iters = TIMED_LAUNCHES if n1 <= 256 else TIMED_LAUNCHES_LARGE
+        isz = x.element_size()
+        # x read and y written; w, b read; mean, invvar written
+        nbytes = 2 * n1 * n2 * isz + 2 * n2 * w.element_size() + 2 * n1 * 4
+        bms, by = bound(nbytes, 8 * n1 * n2, "float32")
+        row = {
+            "shape": [n1, n2], "dtype": dt, "weight_dtype": wdt,
+            "rel_err": rel, "max_abs_err": max_abs,
+            "ms": median_ms(kernel, iters),
+            "plain_ms": median_ms(plain, iters),
+            "library_ms": None, "library": LN_NO_LIBRARY,
+            "bound_ms": bms, "bound_by": by}
+        if wdtype != dtype:
+            row["launches_per_o1_gpt_step"] = _per_step_launches(
+                gpt_small(), ("layer_norm_fwd",))["layer_norm_fwd"]
             out.append(row)
+            continue
+        row["library_ms"] = median_ms(library, iters)
+        row["library"] = "F.layer_norm (the same x and weights)"
+        if dtype == torch.bfloat16 and n1 > 256:
+            row["cold_ms"] = median_ms(kernel, iters, flush=flush)
+            row["library_cold_ms"] = median_ms(library, iters,
+                                               flush=flush)
+            row["cold_bound_share"] = bms / row["cold_ms"]
+            y = torch.empty_like(x)
+            row["copy_cold_ms"] = median_ms(lambda: y.copy_(x), iters,
+                                            flush=flush)
+            del y
+            row["launch"] = kineto_launch(kernel, "layer_norm_fwd_kernel")
+            warps = (row["launch"]["grid"][0]
+                     * row["launch"]["block"][0] // 32)
+            row["rows_per_warp"] = -(-n1 // warps)
+        out.append(row)
     return out
 
 
@@ -827,25 +895,28 @@ def _decode_shape_rows(torch, F, da, kvq, name, quantized, shape, patterns,
 def _ln_bwd_variants(torch):
     """B3, the whole LayerNorm backward (dx, dgamma, dbeta in one call),
     at the GPT and BERT training shapes, fp32 and bf16, gamma in x's
-    dtype as the paths hold it (O2 keeps LayerNorm's params in bf16, so
-    dgamma and dbeta come back in bf16 there), against the plain version
-    (dx, dgamma and dbeta scale-aware 2e-5 / 2e-2) and bit for bit
-    against a second launch.  Yardstick: PyTorch's
+    dtype as O0 and O2 hold it (O2 keeps LayerNorm's params in bf16, so
+    dgamma and dbeta come back in bf16 there), and with bf16 x and fp32
+    gamma as O1 holds it (dgamma and dbeta come back fp32; with the
+    kernel's launches in one O1 GPT step), against the plain version (dx
+    scale-aware 2e-5 / 2e-2 by x's dtype, dgamma and dbeta by gamma's)
+    and bit for bit against a second launch.  Yardstick: PyTorch's
     ``native_layer_norm_backward`` asked for the same three outputs from
-    the same gamma."""
+    the same gamma (it refuses the O1 pairing: ``LN_NO_LIBRARY``)."""
+    from apex_tpu_torch.models import gpt_small
     ln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     out = []
-    for dtype, (n1, n2) in itertools.product(
-            (torch.float32, torch.bfloat16),
-            ((TRAIN_BATCH * TRAIN_SEQ, 768),
-             (BERT_BATCH * BERT_SEQ, BERT_HIDDEN))):
+    train_shapes = ((TRAIN_BATCH * TRAIN_SEQ, 768),
+                    (BERT_BATCH * BERT_SEQ, BERT_HIDDEN))
+    for dtype, wdtype, (n1, n2) in _ln_cases(torch, train_shapes,
+                                             LN_O1_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(11)
         x = (2 * torch.randn(n1, n2, device="cuda", generator=g) + 0.5) \
             .to(dtype)
         dy = torch.randn(n1, n2, device="cuda", generator=g).to(dtype)
         w = (1 + 0.1 * torch.randn(n2, device="cuda", generator=g)) \
-            .to(dtype)
+            .to(wdtype)
         _, mean, invvar = ln._ln_forward_plain(x, 1e-5)
 
         def kernel():
@@ -863,35 +934,41 @@ def _ln_bwd_variants(torch):
                 dy, x, [n2], mean[:, None], invvar[:, None], w, b_lib,
                 [True, True, True])
 
-        dt = _dt(dtype)
+        dt, wdt = _dt(dtype), _dt(wdtype)
         got, want = kernel(), plain()
         rel, max_abs = _check("layer_norm_bwd dx", dt, got[0], want[0])
         wrel = 0.0
         for what, a, b in zip(("dgamma", "dbeta"), got[1:], want[1:]):
-            if a.dtype != dtype:
-                raise AssertionError(f"layer_norm_bwd {what} [{dt}]: "
+            if a.dtype != wdtype:
+                raise AssertionError(f"layer_norm_bwd {what} [{dt}, {wdt}]: "
                                      f"{a.dtype}, not gamma's dtype")
-            r, m = _check(f"layer_norm_bwd {what}", dt, a, b)
+            r, m = _check(f"layer_norm_bwd {what}", wdt, a, b)
             wrel, max_abs = max(wrel, r), max(max_abs, m)
         if not all(torch.equal(a, b) for a, b in zip(got, kernel())):
-            raise AssertionError(f"layer_norm_bwd [{dt}]: a second launch "
-                                 "gave other bits")
+            raise AssertionError(f"layer_norm_bwd [{dt}, {wdt}]: a second "
+                                 "launch gave other bits")
         del got, want
-        isz = x.element_size()
+        isz, wsz = x.element_size(), w.element_size()
         # dy and x read, dx written; mean, invvar and gamma read; dgamma
-        # and dbeta written (gamma, dgamma and dbeta in x's dtype)
-        nbytes = 3 * n1 * n2 * isz + 2 * n1 * 4 + 3 * n2 * isz
+        # and dbeta written (gamma, dgamma and dbeta in gamma's dtype)
+        nbytes = 3 * n1 * n2 * isz + 2 * n1 * 4 + 3 * n2 * wsz
         bms, by = bound(nbytes, 15 * n1 * n2, "float32")
-        out.append({
-            "shape": [n1, n2], "dtype": dt, "weight_dtype": dt,
+        row = {
+            "shape": [n1, n2], "dtype": dt, "weight_dtype": wdt,
             "rel_err": rel,
             "weight_grad_rel_err": wrel, "max_abs_err": max_abs,
             "repeat_bitwise": True,
             "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
             "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
-            "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
-            "library": "native_layer_norm_backward (dx, dgamma, dbeta)",
-            "bound_ms": bms, "bound_by": by})
+            "library_ms": None, "library": LN_NO_LIBRARY,
+            "bound_ms": bms, "bound_by": by}
+        if wdtype != dtype:
+            row["launches_per_o1_gpt_step"] = _per_step_launches(
+                gpt_small(), ("layer_norm_bwd",))["layer_norm_bwd"]
+        else:
+            row["library_ms"] = median_ms(library, TIMED_LAUNCHES_LARGE)
+            row["library"] = "native_layer_norm_backward (dx, dgamma, dbeta)"
+        out.append(row)
     return out
 
 
@@ -1846,26 +1923,39 @@ def _train_o0():
             "loss_rel_err": loss_err, "step1_grad_err": grad_err}
 
 
-def _train_o2():
-    """(b) O2 through ``train()`` at the example's defaults, every launch
-    count read around the run; losses against the O2 oracle."""
+def _gpt_train(cfg, opt_level):
+    """``train()`` at the example's defaults (B 8, S 1024, ``O2_STEPS``
+    steps) with every launch count at 0 just before and read just after
+    (exactly ``O2_STEPS`` times the per-step counts); returns the run,
+    the counts and the peak memory."""
     import torch
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.examples import gpt_main_amp
-    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     out = gpt_main_amp.train(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                             steps=O2_STEPS, lr=TRAIN_LR, opt_level="O2",
-                             device="cuda", seed=0)
+                             steps=O2_STEPS, lr=TRAIN_LR,
+                             opt_level=opt_level, device="cuda", seed=0)
     torch.cuda.synchronize()
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {k: O2_STEPS * v
             for k, v in _per_step_launches(cfg, counts).items()}
     if counts != want:
-        raise AssertionError(f"O2: launches {counts} != {want}")
+        raise AssertionError(f"{opt_level}: launches {counts} != {want}")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"{opt_level}: non-finite loss "
+                             f"{out['losses']}")
+    return out, counts, peak_gb
+
+
+def _train_o2():
+    """(b) O2 through ``train()`` at the example's defaults, every launch
+    count read around the run; losses against the O2 oracle."""
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    out, counts, peak_gb = _gpt_train(cfg, "O2")
     want_losses, _ = _oracle_steps(cfg, "O2", TRAIN_BATCH, O2_STEPS)
     errs = [abs(a - b) for a, b in zip(out["losses"], want_losses)]
     tps = statistics.median(out["tokens_per_s"][1:])
@@ -1878,8 +1968,6 @@ def _train_o2():
     if not max(errs) <= O2_LOSS_TOL:
         raise AssertionError(f"O2: loss error {max(errs):.3g} > "
                              f"{O2_LOSS_TOL}")
-    if not all(np.isfinite(out["losses"])):
-        raise AssertionError(f"O2: non-finite loss {out['losses']}")
     return {**out, "oracle_losses": want_losses, "tokens_per_s_median": tps,
             "peak_memory_gb": peak_gb, "launches": counts}
 
@@ -2185,6 +2273,313 @@ def phase_train_bert():
     return results["O2"]["launches"]
 
 
+# -- train_o1 and train_simple: amp O1 -----------------------------------------
+
+SIMPLE_TOL = 2e-2   # O1 against O0, each epoch's mean loss, absolute
+# GPT-2 small's O1 and O2 runs in turns, the first O1 the checked one
+O1_TURNS = ("O1", "O2", "O2", "O1", "O1", "O2")
+
+
+def _o1_cleanup():
+    """The end of each O1 phase: the policy's patches removed, the amp
+    state reset, and every patched torch function its original again, so
+    the policy reaches no later phase."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp import _amp_state, patch
+    amp.remove_o1_patches()
+    _amp_state._amp_state.opt_properties = None
+    _amp_state._amp_state.casts_disabled = False
+    left = [f"{m.__name__}.{n}" for m, n, _ in patch._targets()
+            if hasattr(getattr(m, n), "__amp_original__")]
+    if left:
+        raise AssertionError(f"O1 patches left installed: {left}")
+
+
+def _amp_host_costs(model, params, one_step):
+    """What amp's model side and O1's policy cost the host in a step (the
+    host clock of the card's machine, each loop ended by a sync): the
+    mean ms of ``compute_variables`` (the param casts it launches) with
+    the norm-output hook context entered and left; the patched calls one
+    step makes, counted by shims over the installed wrappers; and a
+    wrapper's own cost, ``F.cross_entropy`` on small device tensors,
+    wrapped against its original."""
+    import collections
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.amp import patch
+    n = 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with model._apply_context():
+            model.compute_variables(params)
+    torch.cuda.synchronize()
+    out = {"model_side_ms": (time.perf_counter() - t0) * 1e3 / n}
+    calls = collections.Counter()
+    installed = [(m, name, getattr(m, name))
+                 for m, name, _ in patch._targets()]
+
+    def shim(fn, key):
+        def counted(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for m, name, fn in installed:
+        setattr(m, name, shim(fn, f"{m.__name__}.{name}"))
+    try:
+        one_step()
+    finally:
+        for m, name, fn in installed:
+            setattr(m, name, fn)
+    out["patched_calls_per_step"] = dict(calls)
+    logits = torch.randn(8, 16, device="cuda")
+    labels = torch.zeros(8, dtype=torch.int64, device="cuda")
+    per_call = {}
+    for key, fn in (("wrapped", F.cross_entropy),
+                    ("original", F.cross_entropy.__amp_original__)):
+        fn(logits, labels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn(logits, labels)
+        torch.cuda.synchronize()
+        per_call[key] = (time.perf_counter() - t0) * 1e3
+    out["cross_entropy_us"] = per_call
+    out["wrapper_us_per_call"] = per_call["wrapped"] - per_call["original"]
+    return out
+
+
+def _o1_layout_overflow_and_profiles():
+    """(c) the O1 compute layout: LayerNorm's params enter B2/B3 as the
+    fp32 masters themselves (no cast between), every other param bf16,
+    and dgamma/dbeta arrive fp32; (d) an overflowed O1 step under
+    sync-debug "error" over the forward (the patched ``F.cross_entropy``
+    included), the backward and FusedAdam: p, m, v and the step counter
+    keep every bit, the scale halves, no host sync; (e) one O1 and one
+    O2 step under the profiler, then each level's host costs
+    (``_amp_host_costs``; under O2 the O1 wrappers stay installed,
+    inert)."""
+    import torch
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples import gpt_main_amp
+    from apex_tpu_torch.models import lm_loss
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+
+    def batch():
+        return torch.from_numpy(next(data)).to("cuda")
+
+    model, opt, params, st = gpt_main_amp.build(
+        cfg, lr=TRAIN_LR, opt_level="O1", device="cuda", seed=0)
+    compute = model.compute_variables(params)
+    ln_names = [n for n in params if "_ln." in n]
+    if not (len(ln_names) == 2 * (2 * cfg.num_hidden_layers + 1)
+            and all(compute[n] is params[n] for n in ln_names)
+            and all(params[n].dtype == torch.float32 for n in ln_names)
+            and all(t.dtype == torch.bfloat16 for n, t in compute.items()
+                    if n not in ln_names)):
+        raise AssertionError("O1: the compute layout is not LayerNorm fp32 "
+                             "and the rest bf16")
+    params, st, _, grads = gpt_main_amp.train_step(model, opt, params, st,
+                                                   batch())
+    if not all(g.dtype == torch.float32 for g in grads.values()):
+        raise AssertionError("O1: a gradient is not fp32")
+    del grads
+    ids = batch()
+    inner = st.inner
+    snap = (inner.p.clone(), inner.m.clone(), inner.v.clone(),
+            inner.step.clone())
+    scale0, skipped0 = float(opt.loss_scale(st)), int(st.skipped_steps)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = lm_loss(model.apply(params, ids), ids)
+        with amp.scale_loss(loss, st) as scaled:
+            grads = dict(zip(params, torch.autograd.grad(
+                scaled, list(params.values()))))
+        grads["blocks.5.mlp_in.weight"][17, 3].fill_(float("inf"))
+        del loss, scaled
+        params, st = opt.step(params, grads, st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(a, b) for a, b in zip(
+        (st.inner.p, st.inner.m, st.inner.v, st.inner.step), snap))
+    scale1 = float(opt.loss_scale(st))
+    emit("train_o1", overflow_step="inf in blocks.5.mlp_in.weight",
+         bits_kept=kept, loss_scale_before=scale0, loss_scale_after=scale1,
+         skipped_steps=int(st.skipped_steps), host_syncs=0,
+         sync_checked="forward, backward and optimizer step",
+         layernorm_params="fp32 masters, uncast", grads="fp32")
+    if not (kept and scale1 == scale0 / 2
+            and int(st.skipped_steps) == skipped0 + 1):
+        raise AssertionError("the O1 overflow step changed the state or "
+                             "did not halve the scale")
+    del grads, snap
+    profiles = {}
+    for level in ("O1", "O2"):
+        if level == "O2":
+            model, opt, params, st = gpt_main_amp.build(
+                cfg, lr=TRAIN_LR, opt_level="O2", device="cuda", seed=0)
+        state = {"params": params, "st": st}
+
+        def one_step():
+            state["params"], state["st"], loss, _ = gpt_main_amp.train_step(
+                model, opt, state["params"], state["st"], batch())
+            float(loss)
+
+        one_step()
+        profiles[level] = _profile(f"train_step_{level}", one_step,
+                                   tokens=TRAIN_BATCH * TRAIN_SEQ)
+        profiles[level]["host"] = _amp_host_costs(model, state["params"],
+                                                  one_step)
+        emit("train_o1", opt_level=level, amp_host=profiles[level]["host"])
+        del state, params, st
+        torch.cuda.empty_cache()
+    return profiles
+
+
+def phase_train_o1():
+    """GPT-2 small under O1 at B 8, S 1024 on B1-B6: (a) ``train()``, its
+    launches exact, losses within 2e-2 of the kernel-free O1 oracle;
+    (b) tokens/s of O1 and O2 in turns on this card (``O1_TURNS``);
+    (c)-(f) in ``_o1_layout_overflow_and_profiles``."""
+    import torch
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    try:
+        out, counts, peak_gb = _gpt_train(cfg, "O1")
+        want_losses, _ = _oracle_steps(cfg, "O1", TRAIN_BATCH, O2_STEPS)
+        errs = [abs(a - b) for a, b in zip(out["losses"], want_losses)]
+        emit("train_o1", opt_level="O1", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+             steps=O2_STEPS, losses=out["losses"],
+             oracle_losses=want_losses, max_loss_abs_err=max(errs),
+             step_ms=[1e3 * t for t in out["step_seconds"]],
+             loss_scale=out["loss_scale"],
+             skipped_steps=out["skipped_steps"], peak_memory_gb=peak_gb,
+             launches=counts)
+        if not max(errs) <= O2_LOSS_TOL:
+            raise AssertionError(f"O1: loss error {max(errs):.3g} > "
+                                 f"{O2_LOSS_TOL}")
+        runs = {"O1": [out], "O2": []}
+        peaks = {"O1": [peak_gb], "O2": []}
+        for level in O1_TURNS[1:]:
+            torch.cuda.empty_cache()
+            run, _, peak = _gpt_train(cfg, level)
+            runs[level].append(run)
+            peaks[level].append(peak)
+        torch.cuda.empty_cache()
+        profiles = _o1_layout_overflow_and_profiles()
+        summary = {}
+        for level in ("O1", "O2"):
+            tps = [statistics.median(r["tokens_per_s"][1:])
+                   for r in runs[level]]
+            prof = profiles[level]
+            summary[level] = {
+                "tokens_per_s_median": tps, "peak_memory_gb": peaks[level],
+                "device_busy_ms": prof.get("device_busy_ms"),
+                "kernel_launches": prof.get("kernel_launches"),
+                "device_idle_share": prof.get("device_idle_share")}
+        emit("train_o1", o1_against_o2=summary,
+             order=f"{', '.join(O1_TURNS)} ({O2_STEPS} steps each), then "
+             "one profiled step each")
+    finally:
+        _o1_cleanup()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "train_o1.json").write_text(json.dumps(
+        {"runs": runs, "oracle_losses": want_losses, "profiles": profiles,
+         "summary": summary}, indent=1, default=str))
+    return counts
+
+
+def _simple_probe_and_profile():
+    """Under the twin's O1: its first Linear runs bf16, ``F.cross_entropy``
+    computes in fp32 on bf16 logits, and the probability form of BCE is
+    refused; then one O1 step under the profiler."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples import simple_main_amp as simple
+    model, opt = amp.initialize(simple.MLP(device="cuda"),
+                                simple.transforms.sgd(0.05),
+                                opt_level="O1", verbosity=0)
+    seen = {}
+    model.module.Dense_0.register_forward_hook(
+        lambda m, a, out: seen.update(dense_0=out.dtype))
+    params = model.init()
+    st = opt.init(params)
+    x, y = (torch.from_numpy(a).to("cuda")
+            for a in simple.synthetic_data(256, 784, 10))
+    params, st, _ = simple.train_step(model, opt, params, st, x, y)
+    ce = F.cross_entropy(torch.randn(4, 10, device="cuda")
+                         .to(torch.bfloat16),
+                         torch.zeros(4, dtype=torch.int64, device="cuda"))
+    try:
+        F.binary_cross_entropy(torch.full((2,), 0.5, device="cuda"),
+                               torch.ones(2, device="cuda"))
+        banned = False
+    except RuntimeError as e:
+        banned = "with_logits" in str(e)
+    probe = {"dense_0": str(seen.get("dense_0")),
+             "cross_entropy_on_bf16_logits": str(ce.dtype),
+             "binary_cross_entropy_refused": banned}
+    if probe != {"dense_0": "torch.bfloat16",
+                 "cross_entropy_on_bf16_logits": "torch.float32",
+                 "binary_cross_entropy_refused": True}:
+        raise AssertionError(f"O1 dtype probe: {probe}")
+    state = {"params": params, "st": st}
+
+    def one_step():
+        state["params"], state["st"], loss = simple.train_step(
+            model, opt, state["params"], state["st"], x, y)
+        float(loss)
+
+    one_step()
+    return probe, _profile("train_simple_step_O1", one_step, samples=256)
+
+
+def phase_train_simple():
+    """``examples.simple_main_amp.train()`` at its defaults on the card
+    (O1, the synthetic 8192 x 784 data, 5 epochs of 32 steps of 256, seed
+    0 weights): finite losses that fall; the same run at O0 from the same
+    data and weights, each epoch's mean loss within 2e-2; the dtype
+    probe; samples/s (median of epochs 1-4, each epoch ended by reading
+    its losses); one O1 step under the profiler."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import simple_main_amp as simple
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        o1 = simple.train()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        o0 = simple.train("O0")
+        probe, profile = _simple_probe_and_profile()
+        errs = [abs(a - b) for a, b in zip(o1["epoch_losses"],
+                                           o0["epoch_losses"])]
+        sps = {k: statistics.median(r["samples_per_s"][1:])
+               for k, r in (("O1", o1), ("O0", o0))}
+        emit("train_simple", opt_level="O1", epoch_losses=o1["epoch_losses"],
+             o0_epoch_losses=o0["epoch_losses"], max_epoch_loss_abs_err=max(
+                 errs), samples_per_s_median=sps,
+             loss_scale=o1["loss_scale"], skipped_steps=o1["skipped_steps"],
+             probe=probe, launches=counts,
+             step_profile={k: profile.get(k) for k in (
+                 "device_busy_ms", "kernel_launches", "device_idle_share",
+                 "wall_ms")})
+        if not (np.isfinite(o1["losses"]).all()
+                and o1["epoch_losses"][-1] < o1["epoch_losses"][0]):
+            raise AssertionError(f"simple O1: losses {o1['epoch_losses']}")
+        if not max(errs) <= SIMPLE_TOL:
+            raise AssertionError(f"simple: O1 against O0 {max(errs):.3g} > "
+                                 f"{SIMPLE_TOL}")
+    finally:
+        _o1_cleanup()
+    return counts
+
+
 # -- train_resnet --------------------------------------------------------------
 
 # the flagship: examples/imagenet/main_amp.py defaults with --sync_bn
@@ -2472,7 +2867,8 @@ def phase_train_resnet():
 
 
 def main(phases=("device", "build", "kernels", "train_resnet", "serve",
-                 "serve_q8", "train", "train_bert")):
+                 "serve_q8", "train", "train_bert", "train_o1",
+                 "train_simple")):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     sys.path.insert(0, str(REPO))
@@ -2483,14 +2879,17 @@ def main(phases=("device", "build", "kernels", "train_resnet", "serve",
     if "kernels" in phases:
         kernels = phase_kernels()
     # each main path runs with the counts at 0 just before it; a kernel
-    # reports the launches of the last path that ran it (BERT training,
-    # then GPT training, then int8 serving, then serving, then the
-    # flagship's dry run); train_resnet's phase drives two paths, the
-    # ResNet-50 step and entry.dryrun
+    # reports the launches of the last path that ran it (GPT training
+    # under O1, then BERT training, then GPT training, then int8 serving,
+    # then serving, then the flagship's dry run); train_resnet's phase
+    # drives two paths, the ResNet-50 step and entry.dryrun; the O1
+    # phases run last and remove their op policy at their end
     for phase, run in (("train_resnet", phase_train_resnet),
                        ("serve", phase_serve), ("serve_q8", phase_serve_q8),
                        ("train", phase_train),
-                       ("train_bert", phase_train_bert)):
+                       ("train_bert", phase_train_bert),
+                       ("train_o1", phase_train_o1),
+                       ("train_simple", phase_train_simple)):
         if phase not in phases:
             continue
         by_path = run()

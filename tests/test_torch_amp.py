@@ -17,6 +17,7 @@ import torch
 from apex_tpu import amp as jamp
 from apex_tpu import models as jax_models
 from apex_tpu_torch import amp
+from apex_tpu_torch.amp import _amp_state
 from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel
 from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 
@@ -25,6 +26,17 @@ torch.set_num_threads(1)
 TINY = dict(vocab_size=997, hidden_size=128, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=256,
             max_position_embeddings=64)
+
+
+@pytest.fixture(autouse=True)
+def _no_leaked_o1():
+    """O1 installs both packages' process-global op policies: remove them
+    and reset the port's amp state after every test."""
+    yield
+    jamp.remove_o1_patches()
+    amp.remove_o1_patches()
+    _amp_state._amp_state.opt_properties = None
+    _amp_state._amp_state.casts_disabled = False
 
 
 def _dtype_name(x):
@@ -119,7 +131,7 @@ def _jax_names(tree, prefix=()):
     return out
 
 
-@pytest.mark.parametrize("level", ["O0", "O2", "O3"])
+@pytest.mark.parametrize("level", ["O0", "O1", "O2", "O3"])
 def test_gpt_param_and_compute_dtypes_match_jax(level):
     jmodel = jamp.initialize(jax_models.GPTLMHeadModel(
         jax_models.GPTConfig(**TINY)), opt_level=level, verbosity=0)
@@ -145,9 +157,14 @@ def test_gpt_param_and_compute_dtypes_match_jax(level):
 
 
 def test_o1_is_refused():
+    """O1 is ported now: ``initialize`` takes it (and its default opt
+    level is O1), installs the op policy, and refuses only unknown opt
+    levels."""
     m = GPTLMHeadModel(GPTConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="O1"):
-        amp.initialize(m, opt_level="O1", verbosity=0)
+    model = amp.initialize(m, opt_level="O1", verbosity=0)
+    assert model._properties.opt_level == "O1" and model._properties.cast_ops
+    assert hasattr(torch.softmax, "__amp_original__")
+    assert amp.initialize(m, verbosity=0)._properties.opt_level == "O1"
     with pytest.raises(RuntimeError, match="optimization level"):
         amp.initialize(m, opt_level="O4", verbosity=0)
 

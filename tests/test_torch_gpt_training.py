@@ -14,9 +14,11 @@ plain versions of its kernels.
 Tolerances: O0 losses <= 1e-5 relative per step and step-1 grads <= 1e-5
 scale-aware (fp32 on both sides, sums in another order); params after
 step 3 <= 1e-3 scale-aware (Adam's first steps are ~lr * sign(g), so a
-near-zero gradient's rounding flips an update of +-lr = 1e-4).  O2
-(bf16 compute) losses within 2e-2 absolute; the loss scale and the
-skipped and applied step counts equal.
+near-zero gradient's rounding flips an update of +-lr = 1e-4).  O2 and
+O1 (bf16 compute) losses within 2e-2 absolute; the loss scale and the
+skipped and applied step counts equal.  O1 installs both packages'
+process-global op policies: ``_no_leaked_o1`` removes them and resets
+the port's amp state after every test.
 """
 
 import jax
@@ -29,7 +31,9 @@ from apex_tpu import amp as jamp
 from apex_tpu import models as jax_models
 from apex_tpu import optimizers as jax_optimizers
 from apex_tpu.ops.flash_attention import make_flash_attention as jax_flash
+from apex_tpu_torch import amp
 from apex_tpu_torch._kernels import launch_counts
+from apex_tpu_torch.amp import _amp_state
 from apex_tpu_torch.examples import gpt_main_amp
 from apex_tpu_torch.models import GPTConfig, lm_loss, params_from_jax
 
@@ -39,6 +43,15 @@ TINY = dict(vocab_size=997, hidden_size=128, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=256,
             max_position_embeddings=64)
 B, S, STEPS, LR = 2, 64, 3, 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _no_leaked_o1():
+    yield
+    jamp.remove_o1_patches()
+    amp.remove_o1_patches()
+    _amp_state._amp_state.opt_properties = None
+    _amp_state._amp_state.casts_disabled = False
 
 
 def rel_err(got, want):
@@ -144,6 +157,27 @@ def test_o2_losses_and_scaler_match_jax():
     # O2: fp32 masters, bf16-rounded gradients arriving as fp32
     assert all(p.dtype == torch.float32 for p in params.values())
     assert all(g.dtype == torch.float32 for g in grads.values())
+
+
+def test_o1_losses_and_scaler_match_jax():
+    init, jlosses, _, _, jopt, jst = _jax_run("O1")
+    losses, grads, params, opt, st = _port_run("O1", init)
+    for got, want in zip(losses, jlosses):
+        assert abs(got - want) <= 2e-2, (losses, jlosses)
+    assert float(opt.loss_scale(st)) == float(jopt.loss_scale(jst))
+    assert int(st.skipped_steps) == int(jst.skipped_steps)
+    assert int(st.applied_steps) == int(jst.applied_steps)
+    # O1: fp32 masters and grads; in the compute layout the LayerNorm
+    # params stay fp32 (the norm patterns), everything else runs bf16
+    assert all(p.dtype == torch.float32 for p in params.values())
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    model = gpt_main_amp.build(GPTConfig(**TINY), opt_level="O1",
+                               device="cpu")[0]
+    compute = model.compute_variables(params)
+    for name, t in compute.items():
+        want = torch.float32 if "_ln." in name else torch.bfloat16
+        assert t.dtype == want, name
+    assert sum("_ln." in n for n in compute) == 2 * (2 * 2 + 1)
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -1,8 +1,8 @@
-"""The port stands alone: ``apex_tpu_torch`` (its ``parallel`` and
-``data`` subpackages and ``entry.py`` included) and ``chip_smoke.py``
-import neither JAX, flax, optax nor anything of ``apex_tpu``, and the
-port's entry points run on the card unless the caller asks for the
-CPU."""
+"""The port stands alone: ``apex_tpu_torch`` (its ``parallel``, ``data``
+and ``fp16_utils`` subpackages and ``entry.py`` included) and
+``chip_smoke.py`` import neither JAX, flax, optax nor anything of
+``apex_tpu``, and the port's entry points run on the card unless the
+caller asks for the CPU."""
 
 import ast
 import os
@@ -16,10 +16,10 @@ import torch
 
 from apex_tpu_torch import entry
 from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp, \
-    imagenet_main_amp
+    imagenet_main_amp, simple_main_amp
 from apex_tpu_torch.data import prefetch_to_device
-from apex_tpu_torch.models import BertConfig, BertForPreTraining, GPTConfig, \
-    GPTLMHeadModel, ResNet50
+from apex_tpu_torch.models import MLP, BertConfig, BertForPreTraining, \
+    GPTConfig, GPTLMHeadModel, ResNet50
 from apex_tpu_torch.serving import DecodeEngine, InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -67,7 +67,12 @@ def test_every_module_imports_with_jax_blocked():
                   "parallel.distributed", "parallel.mesh",
                   "parallel.multiproc", "parallel.sync_batchnorm", "data",
                   "data.loaders", "models.resnet", "optimizers.transforms",
-                  "examples.imagenet_main_amp", "examples.ddp_simple"):
+                  "examples.imagenet_main_amp", "examples.ddp_simple",
+                  "amp.lists", "amp.patch", "amp.functional",
+                  "amp.compat_api", "fp16_utils", "fp16_utils.fp16util",
+                  "fp16_utils.loss_scaler", "fp16_utils.fp16_optimizer",
+                  "models.mlp", "examples.simple_main_amp",
+                  "ops.unpatched"):
             assert "apex_tpu_torch." + m in mods, m
         leaked = [m for m in sys.modules
                   if m == "apex_tpu" or m.startswith("apex_tpu.")]
@@ -78,7 +83,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 51
+    assert int(out.stdout.split()[-1]) >= 62
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -109,4 +114,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         imagenet_main_amp.train(imagenet_main_amp.parse_args([]))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         prefetch_to_device(iter([]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MLP()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simple_main_amp.train(epochs=1)
     DecodeEngine(TINY, sd, device="cpu")       # asked for: fine
