@@ -109,6 +109,14 @@ class AmpModel:
         else:
             self.keep_fp32_patterns = ()
 
+    @property
+    def properties(self) -> Properties:
+        return self._properties
+
+    @property
+    def unwrapped(self) -> nn.Module:
+        return self.module
+
     def _compute_cast_needed(self) -> bool:
         p = self._properties
         return bool(p.enabled) and (

@@ -12,13 +12,17 @@ params and over its whole state picks the new or the old values, so an
 overflowed step keeps every bit of both, a schedule's count included.
 Neither path reads a value back to the host.
 
-Not here yet: gradient accumulation into stashed grads
-(``unscale_grads(stashed=...)``) and ``with_zero``.
+Gradient accumulation: ``unscale_grads(stashed=..., update_scale=False)``
+adds each microbatch's unscaled grads into the stash and leaves the
+scaler where it was; the step ends with one ``update_scale`` on the
+ORed overflow and one ``apply_gradients``.
+
+Not here yet: ``with_zero``.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -66,11 +70,22 @@ class AmpOptimizer:
             applied_steps=zero, skipped_steps=zero.clone())
 
     def unscale_grads(self, grads: Tree, state: AmpOptimizerState,
-                      loss_id: int = 0):
+                      loss_id: int = 0, *, stashed: Optional[Tree] = None,
+                      update_scale: bool = True):
         """Unscale one loss's grads to fp32 and update its scale; returns
-        ``(grads, overflow, new_state)``."""
-        g, overflow = self.loss_scaler.unscale(
-            grads, state.loss_scalers[loss_id], out_dtype=torch.float32)
+        ``(grads, overflow, new_state)``.  With ``stashed`` the result is
+        ``stashed + grads / scale`` and only ``grads`` can overflow;
+        ``update_scale=False`` leaves the scaler as it was, for one
+        :meth:`update_scale` on the ORed flag at the end of the step."""
+        sstate = state.loss_scalers[loss_id]
+        if stashed is None:
+            g, overflow = self.loss_scaler.unscale(grads, sstate,
+                                                   out_dtype=torch.float32)
+        else:
+            g, overflow = self.loss_scaler.unscale_with_stashed(
+                grads, stashed, sstate)
+        if not update_scale:
+            return g, overflow, state
         return g, overflow, self.update_scale(state, overflow, loss_id)
 
     def update_scale(self, state: AmpOptimizerState, overflow,

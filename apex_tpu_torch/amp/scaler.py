@@ -18,7 +18,8 @@ from typing import Any, NamedTuple, Optional, Union
 import torch
 
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.ops.multi_tensor import multi_tensor_unscale
+from apex_tpu_torch.ops.multi_tensor import multi_tensor_axpby, \
+    multi_tensor_unscale, tree_any_nonfinite
 
 Tree = Any
 
@@ -70,6 +71,18 @@ class LossScaler:
         """``(grads / scale, overflow)``."""
         return multi_tensor_unscale(grads, state.loss_scale,
                                     out_dtype=out_dtype)
+
+    def unscale_with_stashed(self, grads: Tree, stashed: Tree,
+                             state: LossScalerState):
+        """``(stashed + grads / scale, overflow)``, the grad-accumulation
+        path: only ``grads`` can trip the flag."""
+        inv = 1.0 / state.loss_scale
+        return multi_tensor_axpby(inv, grads, 1.0, stashed, arg_to_check=0)
+
+    def check_overflow(self, grads: Tree) -> torch.Tensor:
+        """Whether any leaf of ``grads`` holds a non-finite value (a 0-d
+        device bool)."""
+        return tree_any_nonfinite(grads)
 
     def update(self, state: LossScalerState, overflow) -> LossScalerState:
         """Post-step scale adjustment, branch-free on the device."""

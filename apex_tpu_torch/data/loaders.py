@@ -1,14 +1,15 @@
 """Host-side batch iterators and the copy to the device.
 
 Twin of ``apex_tpu/data/loaders.py``: endless synthetic NHWC uint8
-batches, ``.npz`` shards, the host-side space-to-depth layout for
+batches, ``.npz`` shards, torchvision-style image folders decoded by a
+PIL thread pool with the reference's train and eval transforms
+(:func:`image_folder_loader`), the host-side space-to-depth layout for
 ``ResNet(stem="s2d_pre")``, and :func:`prefetch_to_device`, which
 stages the next batches onto the card from a background thread (pinned
 host memory, a copy on a side CUDA stream, an event the consuming
 stream waits on), so the copy overlaps the step that runs.
 
-Not here yet: the ImageFolder loader (decoded JPEGs with the
-reference's train and eval transforms) and the native gather.
+Not here yet: the native JPEG decoder and the native gather.
 """
 
 from __future__ import annotations
@@ -71,6 +72,159 @@ def npz_loader(data_dir: str, batch_size: int, seed: int = 0,
             for i in range(len(perm) // batch_size):
                 idx = perm[i * batch_size:(i + 1) * batch_size]
                 yield x[idx], y[idx]
+
+
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+
+def _list_image_folder(root: str):
+    """``(samples, classes)`` of torchvision's ImageFolder layout,
+    ``root/<class>/<image>``: classes sorted, labels their positions,
+    images sorted within each class."""
+    classes = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)))
+    if not classes:
+        raise FileNotFoundError(f"no class directories under {root}")
+    samples = []
+    for label, cls in enumerate(classes):
+        for path in sorted(glob.glob(os.path.join(root, cls, "*"))):
+            if path.lower().endswith(IMAGE_EXTENSIONS):
+                samples.append((path, label))
+    if not samples:
+        raise FileNotFoundError(f"no images under {root}")
+    return samples, classes
+
+
+def _decode_train(path: str, image_size: int, rng: np.random.RandomState):
+    """The reference's training transform: RandomResizedCrop (area
+    0.08-1.0, aspect 3/4-4/3, ten tries, then a centre crop of the short
+    side) to ``image_size``, bilinear, then a horizontal flip with
+    probability 1/2; every draw from ``rng``."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im = im.convert("RGB")
+        w, h = im.size
+        area = w * h
+        for _ in range(10):
+            target = area * rng.uniform(0.08, 1.0)
+            ar = np.exp(rng.uniform(np.log(3 / 4), np.log(4 / 3)))
+            cw = int(round(np.sqrt(target * ar)))
+            ch = int(round(np.sqrt(target / ar)))
+            if 0 < cw <= w and 0 < ch <= h:
+                x0 = rng.randint(0, w - cw + 1)
+                y0 = rng.randint(0, h - ch + 1)
+                im = im.resize((image_size, image_size), Image.BILINEAR,
+                               box=(x0, y0, x0 + cw, y0 + ch))
+                break
+        else:
+            s = min(w, h)
+            x0, y0 = (w - s) // 2, (h - s) // 2
+            im = im.resize((image_size, image_size), Image.BILINEAR,
+                           box=(x0, y0, x0 + s, y0 + s))
+        arr = np.asarray(im, np.uint8)
+    if rng.rand() < 0.5:
+        arr = arr[:, ::-1]
+    return arr
+
+
+def _decode_eval(path: str, image_size: int):
+    """The reference's validation transform: the short side resized to
+    ``image_size * 256 / 224``, bilinear, then the centre
+    ``image_size`` square."""
+    from PIL import Image
+
+    resize = int(image_size * 256 / 224)
+    with Image.open(path) as im:
+        im = im.convert("RGB")
+        w, h = im.size
+        if w < h:
+            nw, nh = resize, int(round(h * resize / w))
+        else:
+            nw, nh = int(round(w * resize / h)), resize
+        im = im.resize((nw, nh), Image.BILINEAR)
+        x0, y0 = (nw - image_size) // 2, (nh - image_size) // 2
+        im = im.crop((x0, y0, x0 + image_size, y0 + image_size))
+        return np.asarray(im, np.uint8)
+
+
+def image_folder_loader(root: str, batch_size: int, image_size: int = 224,
+                        train: bool = True, shuffle: Optional[bool] = None,
+                        seed: int = 0, num_workers: int = 8,
+                        loop: bool = True, samples=None,
+                        native: bool = True, num_shards: int = 1,
+                        shard_index: int = 0):
+    """``(x uint8 NHWC, y int32)`` batches from a torchvision-style image
+    folder, decoded by a pool of ``num_workers`` threads with PIL:
+    RandomResizedCrop and a flip for ``train``, Resize and CenterCrop
+    otherwise.  The port has no native JPEG decoder yet, so ``native``
+    changes nothing: every file takes the PIL pool, as the JAX package
+    does when its decoder is missing (``native=False`` there).
+
+    ``shuffle`` defaults to ``train``.  ``loop=False`` gives one pass
+    with a short last batch; a training epoch drops its short tail.
+    ``samples`` (from :func:`_list_image_folder`) skips listing ``root``
+    again.  ``num_shards``/``shard_index``: every shard draws the same
+    permutation each epoch and takes its strided slice of it, the
+    remainder of fewer than ``num_shards`` samples dropped (the
+    ``DistributedSampler`` role); ``batch_size`` is this shard's.  The
+    augmentation seeds of an epoch come from an RNG of their own per
+    (epoch, shard), drawn in the calling thread."""
+    del native
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard_index {shard_index} not in "
+                         f"[0, {num_shards})")
+    if samples is None:
+        samples, _ = _list_image_folder(root)
+    if train and len(samples) // num_shards < batch_size:
+        raise ValueError(
+            f"{root}: {len(samples)} images / {num_shards} shards < "
+            f"batch_size {batch_size}; a training epoch would produce "
+            "zero batches")
+    if shuffle is None:
+        shuffle = train
+    return _image_folder_iter(samples, batch_size, image_size, train,
+                              shuffle, seed, num_workers, loop, num_shards,
+                              shard_index)
+
+
+def _image_folder_iter(samples, batch_size, image_size, train, shuffle,
+                       seed, num_workers, loop, num_shards=1, shard_index=0):
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.RandomState(seed)
+
+    def decode(item):
+        (path, label), item_seed = item
+        if train:
+            # the seed was drawn in the calling thread: a RandomState is
+            # not shared between threads
+            return _decode_train(path, image_size,
+                                 np.random.RandomState(item_seed)), label
+        return _decode_eval(path, image_size), label
+
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        epoch = 0
+        while True:
+            order = rng.permutation(len(samples)) if shuffle \
+                else np.arange(len(samples))
+            if num_shards > 1:
+                usable = (len(order) // num_shards) * num_shards
+                order = order[:usable][shard_index::num_shards]
+            aug_rng = np.random.RandomState(
+                (seed * 1000003 + epoch * 9973 + shard_index) % (2 ** 31))
+            for i in range(0, len(order), batch_size):
+                idx = order[i:i + batch_size]
+                if train and len(idx) < batch_size:
+                    break
+                seeds = aug_rng.randint(2 ** 31, size=len(idx))
+                decoded = list(pool.map(decode, [
+                    (samples[j], s) for j, s in zip(idx, seeds)]))
+                yield (np.stack([d[0] for d in decoded]).astype(np.uint8),
+                       np.asarray([d[1] for d in decoded], np.int32))
+            epoch += 1
+            if not loop:
+                return
 
 
 def s2d_batches(iterator):

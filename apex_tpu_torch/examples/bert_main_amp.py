@@ -23,8 +23,26 @@ one.  Here step ``i`` takes ``fold_in(PRNGKey(seed), i)``
 (:func:`step_key`), the key a JAX caller would pass as
 ``rngs={"dropout": ...}`` to reproduce the step's dropout.
 
+``--grad-accum A`` splits a step's batch into A strided microbatches
+(microbatch j is ``a[j::A]``): each one's scaled gradients are
+unscaled into the stash (``unscale_grads(stashed=...,
+update_scale=False)``), the scale is updated once from the ORed
+overflow, and one ``apply_gradients`` runs, so an overflow in any
+microbatch skips the whole step.  Microbatch j's dropout key is
+``fold_in(step key, j)``.
+
+Data parallel: one process per GPU, as the ImageNet twin, ``--b`` the
+batch of each rank (the JAX example's ``--b`` is the global batch of
+its mesh).  ``DistributedDataParallel.reduce_gradients`` averages the
+gradients once a step (the stash under ``--grad-accum``, whose
+overflow flag is ORed over the ranks too).  The MLM term divides by
+the mask count of the whole global batch (all-reduced) times the world
+size, so the average over the ranks is the loss of the global batch.
+Start the ranks with ``python -m apex_tpu_torch.parallel.multiproc``;
+rank r draws its batches from ``RandomState(r)``.
+
 Not here: ``--ring-attention``/``--sp-attention``, ``--remat``,
-``--moe``, ``--grad-accum``, ``--pp`` and the data-parallel mesh.
+``--moe`` and ``--pp``.
 """
 
 from __future__ import annotations
@@ -32,10 +50,11 @@ from __future__ import annotations
 import argparse
 import time
 import types
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from apex_tpu_torch import amp
@@ -44,6 +63,8 @@ from apex_tpu_torch.models import BertConfig, BertForPreTraining, \
     bert_base, bert_large
 from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.optimizers import FusedLAMB
+from apex_tpu_torch.parallel import DistributedDataParallel
+from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
 
@@ -71,16 +92,48 @@ def synthetic_mlm_batch(rng, args, cfg):
             nsp.astype(np.int32))
 
 
-def batch_loss(mlm_logits, nsp_logits, labels, weights, nsp):
-    """MLM cross entropy weighted by the mask positions over their count
-    (at least 1), plus the mean NSP cross entropy, in fp32."""
+def batch_loss(mlm_logits, nsp_logits, labels, weights, nsp, denom=None,
+               nsp_div: float = 1.0):
+    """MLM cross entropy weighted by the mask positions over ``denom``
+    (default: their count, at least 1), plus the mean NSP cross entropy
+    over ``nsp_div``, in fp32."""
     v = mlm_logits.shape[-1]
     mlm = F.cross_entropy(mlm_logits.float().reshape(-1, v),
                           labels.reshape(-1).long(), reduction="none")
-    denom = weights.sum().clamp_min(1.0)
+    if denom is None:
+        denom = weights.sum().clamp_min(1.0)
     mlm_loss = (mlm * weights.reshape(-1)).sum() / denom
     nsp_loss = F.cross_entropy(nsp_logits.float(), nsp.long())
+    if nsp_div != 1.0:
+        nsp_loss = nsp_loss / nsp_div
     return mlm_loss + nsp_loss
+
+
+def _world(ddp) -> int:
+    if ddp is None or not dist.is_initialized():
+        return 1
+    return ddp.process_group.size()
+
+
+def mlm_denom(weights, ddp=None):
+    """This rank's MLM divisor: the global batch's mask count (at least
+    1) over the world size, so the ranks' average loss is the global
+    batch's."""
+    count = weights.sum()
+    world = _world(ddp)
+    if world > 1:
+        dist.all_reduce(count, group=ddp.process_group.handle)
+    denom = count.clamp_min(1.0)
+    return denom / world if world > 1 else denom
+
+
+def _any_rank(flag, ddp):
+    """``flag`` ORed over the ranks (a device bool; no host sync)."""
+    if _world(ddp) == 1:
+        return flag
+    count = flag.to(torch.int32)
+    dist.all_reduce(count, group=ddp.process_group.handle)
+    return count > 0
 
 
 def _no_lamb_adaptation(name: str) -> bool:
@@ -125,34 +178,88 @@ def step_key(seed: int, step: int) -> threefry.Key:
 
 
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
-               batch, *, deterministic: bool = True, dropout_key=None):
-    """One step of the JAX example's ``train_step``: loss, scaled
-    gradients, ``optimizer.step``.  ``batch`` is ``(ids, labels,
-    weights, nsp)`` on the device; ``dropout_key`` (a threefry key, e.g.
-    :func:`step_key`) keys the step's dropout when ``deterministic`` is
-    False.  Returns ``(params, opt_state, loss, grads)``, the loss
-    unscaled and the grads as autograd gave them (scaled)."""
+               batch, *, deterministic: bool = True, dropout_key=None,
+               grad_accum: int = 1, ddp=None):
+    """One step of the JAX example's ``train_step`` (``grad_accum`` 1) or
+    of its grad-accumulation step: loss, scaled gradients, the optimizer.
+    ``batch`` is ``(ids, labels, weights, nsp)`` on the device;
+    ``dropout_key`` (a threefry key, e.g. :func:`step_key`) keys the
+    step's dropout when ``deterministic`` is False; ``ddp`` (a
+    ``DistributedDataParallel``) averages the gradients over the ranks.
+    Returns ``(params, opt_state, loss, grads)``: the loss unscaled (this
+    rank's), the grads as autograd gave them (scaled) for ``grad_accum``
+    1, else the unscaled stash."""
+    if grad_accum > 1:
+        return _accum_step(model, optimizer, params, opt_state, batch,
+                           grad_accum, deterministic, dropout_key, ddp)
     ids, labels, weights, nsp = batch
     mlm_logits, nsp_logits = model.apply(params, ids,
                                          deterministic=deterministic,
                                          dropout_key=dropout_key)
-    loss = batch_loss(mlm_logits, nsp_logits, labels, weights, nsp)
+    denom = None if ddp is None else mlm_denom(weights, ddp)
+    loss = batch_loss(mlm_logits, nsp_logits, labels, weights, nsp, denom)
     with amp.scale_loss(loss, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
     grads = dict(zip(params.keys(), grads))
+    if ddp is not None:
+        grads = ddp.reduce_gradients(grads)
     params, opt_state = optimizer.step(params, grads, opt_state)
     return params, opt_state, loss.detach(), grads
 
 
+def _accum_step(model, optimizer, params, opt_state, batch, accum,
+                deterministic, dropout_key, ddp):
+    """The grad-accumulation step: microbatch j is ``a[j::accum]``, its
+    MLM term over the whole batch's divisor and its NSP term over
+    ``accum``; each microbatch's grads are unscaled into the stash with
+    the scale held, then the stash is reduced over the ranks, the scale
+    updated once from the ORed overflow and one update applied."""
+    weights = batch[2]
+    denom = mlm_denom(weights, ddp)
+    stashed, overflow, total = None, None, None
+    for j in range(accum):
+        ids, labels, w, nsp = (a[j::accum] for a in batch)
+        key = None if dropout_key is None \
+            else threefry.fold_in(dropout_key, j)
+        mlm_logits, nsp_logits = model.apply(params, ids,
+                                             deterministic=deterministic,
+                                             dropout_key=key)
+        loss = batch_loss(mlm_logits, nsp_logits, labels, w, nsp, denom,
+                          float(accum))
+        with amp.scale_loss(loss, opt_state) as scaled:
+            grads = torch.autograd.grad(scaled, list(params.values()))
+        stashed, ovf, opt_state = optimizer.unscale_grads(
+            dict(zip(params.keys(), grads)), opt_state, stashed=stashed,
+            update_scale=False)
+        overflow = ovf if overflow is None else overflow | ovf
+        total = loss.detach() if total is None else total + loss.detach()
+    if ddp is not None:
+        stashed = ddp.reduce_gradients(stashed)
+        overflow = _any_rank(overflow, ddp)
+    opt_state = optimizer.update_scale(opt_state, overflow)
+    params, opt_state = optimizer.apply_gradients(params, stashed, opt_state,
+                                                  overflow)
+    return params, opt_state, total, stashed
+
+
 def batches(cfg: BertConfig, batch: int, seq_len: int,
-            mask_prob: float = 0.15):
+            mask_prob: float = 0.15, seed: int = 0):
     """The example's batch stream: ``synthetic_mlm_batch`` on
-    ``RandomState(0)``."""
-    rng = np.random.RandomState(0)
+    ``RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
     args = types.SimpleNamespace(b=batch, seq_len=seq_len,
                                  mask_prob=mask_prob)
     while True:
         yield synthetic_mlm_batch(rng, args, cfg)
+
+
+def check_grad_accum(batch: int, accum: int) -> None:
+    """The JAX example's checks of ``--grad-accum``."""
+    if accum < 1:
+        raise SystemExit(f"--grad-accum must be >= 1, got {accum}")
+    if batch % accum:
+        raise SystemExit(f"batch {batch} must divide by --grad-accum "
+                         f"{accum}")
 
 
 def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
@@ -160,21 +267,31 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
           opt_level: str = "O2", loss_scale=None, mask_prob: float = 0.15,
           attention_fn: Optional[Callable] = None,
           deterministic: bool = True, seed: int = 0, device="cuda",
-          print_freq: int = 0) -> dict:
-    """Train ``steps`` steps; returns per-step ``losses`` and
-    ``step_seconds`` (host clock around each step, ended by reading the
-    loss), ``tokens_per_s`` per step, and the final scaler state
-    (``loss_scale``, ``skipped_steps``, ``applied_steps``).  Dropout
-    (``deterministic=False``) takes step i's key from
-    :func:`step_key` ``(seed, i)``."""
+          print_freq: int = 0, grad_accum: int = 1, ddp: bool = False,
+          data: Optional[Iterator] = None) -> dict:
+    """Train ``steps`` steps of ``batch`` rows on this rank; returns
+    per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
+    around each step, ended by reading the loss), ``tokens_per_s`` per
+    step (this rank's), the final scaler state (``loss_scale``,
+    ``skipped_steps``, ``applied_steps``) and ``params``.  Dropout
+    (``deterministic=False``) takes step i's key from :func:`step_key`
+    ``(seed, i)``.  ``ddp`` averages the gradients over the ranks of the
+    default process group (parameters start as rank 0's); ``data``
+    (host batches) defaults to :func:`batches` from ``RandomState(rank)``."""
     dev = resolve_device(device)
+    check_grad_accum(batch, grad_accum)
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, max_grad_norm=max_grad_norm, opt_level=opt_level,
         loss_scale=loss_scale, attention_fn=attention_fn, device=dev,
         seed=seed)
+    wrapper = DistributedDataParallel(model) if ddp else None
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if wrapper is not None and _world(wrapper) > 1:
+        params = wrapper.broadcast_params(params)
     losses, seconds = [], []
     meter = AverageMeter()
-    data = batches(cfg, batch, seq_len, mask_prob)
+    if data is None:
+        data = batches(cfg, batch, seq_len, mask_prob, seed=rank)
     for step in range(steps):
         host = next(data)
         t0 = time.perf_counter()
@@ -182,7 +299,8 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
         params, opt_state, loss, _ = train_step(
             model, optimizer, params, opt_state, tensors,
             deterministic=deterministic,
-            dropout_key=None if deterministic else step_key(seed, step))
+            dropout_key=None if deterministic else step_key(seed, step),
+            grad_accum=grad_accum, ddp=wrapper)
         losses.append(float(loss))      # waits for the step to finish
         seconds.append(time.perf_counter() - t0)
         meter.update(losses[-1])
@@ -196,7 +314,8 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
             "tokens_per_s": [batch * seq_len / s for s in seconds],
             "loss_scale": float(optimizer.loss_scale(opt_state)),
             "skipped_steps": int(opt_state.skipped_steps),
-            "applied_steps": int(opt_state.applied_steps)}
+            "applied_steps": int(opt_state.applied_steps),
+            "params": params}
 
 
 def parse_args(argv=None):
@@ -204,7 +323,8 @@ def parse_args(argv=None):
                                 "(PyTorch/CUDA port)")
     p.add_argument("--config", default="base", choices=["base", "large",
                                                         "tiny"])
-    p.add_argument("--b", "--batch-size", type=int, default=32, dest="b")
+    p.add_argument("--b", "--batch-size", type=int, default=32, dest="b",
+                   help="batch of each rank")
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -214,24 +334,36 @@ def parse_args(argv=None):
     p.add_argument("--loss-scale", default=None)
     p.add_argument("--mask-prob", type=float, default=0.15)
     p.add_argument("--print-freq", type=int, default=5)
+    p.add_argument("--grad-accum", type=int, default=1, metavar="A",
+                   help="accumulate grads over A microbatches a step (amp's "
+                   "unscale-with-stashed protocol; an overflow in any "
+                   "microbatch skips the whole update)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    check_grad_accum(args.b, args.grad_accum)
     cfg = get_config(args.config)
+    initialize_distributed("cuda")
     dev = resolve_device("cuda")
+    world = dist.get_world_size() if dist.is_initialized() else 1
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
-                f"{args.config}", rank0=True)
+                f"{args.config}, world size {world}, batch {args.b} per "
+                f"rank, grad-accum {args.grad_accum}", rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, max_grad_norm=args.max_grad_norm,
                 opt_level=args.opt_level, loss_scale=args.loss_scale,
-                mask_prob=args.mask_prob, print_freq=args.print_freq)
+                mask_prob=args.mask_prob, print_freq=args.print_freq,
+                grad_accum=args.grad_accum, ddp=world > 1)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)
-    maybe_print(f"final: loss {out['losses'][-1]:.4f}, avg {meter.avg:.1f} "
-                f"tok/s", rank0=True)
+    maybe_print(f"final: loss {out['losses'][-1]:.4f}, avg "
+                f"{meter.avg * world:.1f} tok/s over {world} rank(s)",
+                rank0=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

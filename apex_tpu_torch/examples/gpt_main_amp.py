@@ -15,8 +15,15 @@ step is the JAX example's ``train_step`` with ``deterministic=True``
 :func:`train` is the same loop as a function; it takes ``device="cpu"``
 for a run on the plain PyTorch versions of the kernels.
 
+Data parallel: one process per GPU, as the ImageNet twin, ``--b`` the
+batch of each rank (the JAX example's ``--b`` is the global batch of
+its mesh); ``DistributedDataParallel.reduce_gradients`` averages the
+gradients before ``optimizer.step``.  Start the ranks with ``python -m
+apex_tpu_torch.parallel.multiproc``; rank r draws its batches from
+``RandomState(r)``.
+
 Not here yet: ``--sp``, ``--tp`` and ``--remat`` (sequence and tensor
-parallelism, rematerialisation) and the data-parallel mesh.
+parallelism, rematerialisation).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import amp
 from apex_tpu_torch._device import resolve_device
@@ -35,6 +43,8 @@ from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel, gpt_medium, \
     gpt_small, lm_loss
 from apex_tpu_torch.ops import make_flash_attention
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.parallel import DistributedDataParallel
+from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
 
@@ -51,8 +61,9 @@ def config(name: str, seq_len: int) -> GPTConfig:
     return cfg
 
 
-def batches(vocab: int, batch: int, seq_len: int) -> Iterator[np.ndarray]:
-    rng = np.random.RandomState(0)
+def batches(vocab: int, batch: int, seq_len: int,
+            seed: int = 0) -> Iterator[np.ndarray]:
+    rng = np.random.RandomState(seed)
     while True:
         yield rng.randint(0, vocab, (batch, seq_len)).astype(np.int32)
 
@@ -80,16 +91,19 @@ def build(cfg: GPTConfig, *, lr: float = 3e-4, opt_level: str = "O2",
 
 
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
-               ids: torch.Tensor):
+               ids: torch.Tensor, ddp=None):
     """One step of the JAX example's ``train_step``: loss, scaled
-    gradients, ``optimizer.step``.  Returns ``(params, opt_state, loss,
-    grads)`` with the loss unscaled and the grads as autograd gave them
-    (scaled)."""
+    gradients (averaged over the ranks by ``ddp``, a
+    ``DistributedDataParallel``, when given), ``optimizer.step``.
+    Returns ``(params, opt_state, loss, grads)`` with the loss unscaled
+    (this rank's) and the grads as autograd gave them (scaled)."""
     logits = model.apply(params, ids)
     loss = lm_loss(logits, ids)
     with amp.scale_loss(loss, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
     grads = dict(zip(params.keys(), grads))
+    if ddp is not None:
+        grads = ddp.reduce_gradients(grads)
     params, opt_state = optimizer.step(params, grads, opt_state)
     return params, opt_state, loss.detach(), grads
 
@@ -98,22 +112,33 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
           steps: int = 30, lr: float = 3e-4, opt_level: str = "O2",
           loss_scale=None, device="cuda", seed: int = 0,
           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-          print_freq: int = 0) -> dict:
-    """Train ``steps`` steps; returns per-step ``losses`` and
-    ``step_seconds`` (host clock around each step, ended by reading the
-    loss), ``tokens_per_s`` per step, and the final scaler state
-    (``loss_scale``, ``skipped_steps``, ``applied_steps``)."""
+          print_freq: int = 0, ddp: bool = False,
+          data: Optional[Iterator[np.ndarray]] = None) -> dict:
+    """Train ``steps`` steps of ``batch`` rows on this rank; returns
+    per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
+    around each step, ended by reading the loss), ``tokens_per_s`` per
+    step (this rank's), the final scaler state (``loss_scale``,
+    ``skipped_steps``, ``applied_steps``) and ``params``.  ``ddp``
+    averages the gradients over the ranks of the default process group
+    (parameters start as rank 0's); ``data`` (host batches of ids)
+    defaults to :func:`batches` from ``RandomState(rank)``."""
     dev = resolve_device(device)
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, opt_level=opt_level, loss_scale=loss_scale, device=dev,
         seed=seed, state_dict=state_dict)
+    wrapper = DistributedDataParallel(model) if ddp else None
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if wrapper is not None and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        params = wrapper.broadcast_params(params)
     losses, seconds = [], []
-    data = batches(cfg.vocab_size, batch, seq_len)
+    if data is None:
+        data = batches(cfg.vocab_size, batch, seq_len, seed=rank)
     for step in range(steps):
         ids = torch.from_numpy(next(data)).to(dev)
         t0 = time.perf_counter()
         params, opt_state, loss, _ = train_step(model, optimizer, params,
-                                                opt_state, ids)
+                                                opt_state, ids, wrapper)
         losses.append(float(loss))      # waits for the step to finish
         seconds.append(time.perf_counter() - t0)
         if print_freq and (step % print_freq == 0 or step == steps - 1):
@@ -124,7 +149,8 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
             "tokens_per_s": [batch * seq_len / s for s in seconds],
             "loss_scale": float(optimizer.loss_scale(opt_state)),
             "skipped_steps": int(opt_state.skipped_steps),
-            "applied_steps": int(opt_state.applied_steps)}
+            "applied_steps": int(opt_state.applied_steps),
+            "params": params}
 
 
 def parse_args(argv=None):
@@ -132,7 +158,8 @@ def parse_args(argv=None):
                                 "(PyTorch/CUDA port)")
     p.add_argument("--config", default="small",
                    choices=["small", "medium", "tiny"])
-    p.add_argument("--b", "--batch-size", type=int, default=8, dest="b")
+    p.add_argument("--b", "--batch-size", type=int, default=8, dest="b",
+                   help="batch of each rank")
     p.add_argument("--seq-len", type=int, default=1024)
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--lr", type=float, default=3e-4)
@@ -146,18 +173,24 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     cfg = config(args.config, args.seq_len)
+    initialize_distributed("cuda")
     dev = resolve_device("cuda")
+    world = dist.get_world_size() if dist.is_initialized() else 1
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
-                f"{args.config}, seq: {args.seq_len}, flash: True",
-                rank0=True)
+                f"{args.config}, seq: {args.seq_len}, flash: True, world "
+                f"size {world}, batch {args.b} per rank", rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, opt_level=args.opt_level,
-                loss_scale=args.loss_scale, print_freq=args.print_freq)
+                loss_scale=args.loss_scale, print_freq=args.print_freq,
+                ddp=world > 1)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)
-    maybe_print(f"final: loss {out['losses'][-1]:.4f}, avg {meter.avg:.1f} "
-                f"tok/s", rank0=True)
+    maybe_print(f"final: loss {out['losses'][-1]:.4f}, avg "
+                f"{meter.avg * world:.1f} tok/s over {world} rank(s)",
+                rank0=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -20,9 +20,16 @@ a world of one.  Rank r draws synthetic batches from seed r.
         -m apex_tpu_torch.examples.imagenet_main_amp --sync_bn
 
 :func:`train` is the loop as a function; ``device="cpu"`` runs it on
-the CPU.  ``--data`` takes ``.npz`` shards (``x`` NHWC uint8, ``y``
-int); ImageFolder data, ``--resume``, ``--checkpoint-dir``, ``--zero``
-and ``--torch-weights`` come with later slices of the port and raise.
+the CPU.  ``--data`` takes a torchvision ImageFolder tree (``train/``
+and, for validation, ``val/``; each rank decodes its shard with
+``--workers`` threads) or ``.npz`` shards (``x`` NHWC uint8, ``y``
+int).  ``--torch-weights`` starts from a torchvision-format checkpoint
+(``utils.load_torch_resnet``); ``--checkpoint-dir`` saves the whole
+train state (params, running statistics, optimizer and scaler state,
+epoch, best prec@1) to ``last/`` after each epoch's validation and to
+``best/`` on a new best prec@1, from rank 0 (``utils.checkpoint``);
+``--resume`` restores one and starts at the epoch after it.  ``--zero``
+comes with a later slice of the port and raises.
 """
 
 from __future__ import annotations
@@ -39,11 +46,14 @@ import torch.distributed as dist
 
 from apex_tpu_torch import amp, models
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.data import npz_loader, prefetch_to_device
+from apex_tpu_torch.data import image_folder_loader, npz_loader, \
+    prefetch_to_device
+from apex_tpu_torch.data.loaders import _list_image_folder
 from apex_tpu_torch.optimizers import transforms
 from apex_tpu_torch.parallel import DistributedDataParallel, SyncBatchNorm
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
-from apex_tpu_torch.utils import AverageMeter, maybe_print
+from apex_tpu_torch.utils import AverageMeter, checkpoint, \
+    load_torch_resnet, maybe_print
 
 ARCHS = {
     "resnet18": models.ResNet18, "resnet34": models.ResNet34,
@@ -61,8 +71,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="ImageNet training with apex_tpu_torch amp (GPU)")
     p.add_argument("--data", default=None,
-                   help="dataset dir of .npz shards (x: NHWC uint8, y: "
-                   "int); synthetic when omitted")
+                   help="dataset dir: an ImageFolder tree (train/<class>/"
+                   "*.jpg [+ val/<class>/*.jpg]) or .npz shards (x: NHWC "
+                   "uint8, y: int); synthetic when omitted")
     p.add_argument("--arch", "-a", default="resnet50", choices=sorted(ARCHS))
     p.add_argument("--stem", default="conv", choices=["conv", "s2d"])
     p.add_argument("--epochs", type=int, default=2)
@@ -92,20 +103,20 @@ def parse_args(argv=None):
                    choices=["O0", "O1", "O2", "O3"])
     p.add_argument("--keep-batchnorm-fp32", default=None)
     p.add_argument("--loss-scale", default=None)
-    p.add_argument("--resume", default=None)
-    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume", default=None,
+                   help="checkpoint dir to resume from")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save last/ and best/ checkpoints when set")
     p.add_argument("--zero", action="store_true")
-    p.add_argument("--torch-weights", default=None, metavar="PT")
+    p.add_argument("--torch-weights", default=None, metavar="PT",
+                   help="initialize from a torchvision-format checkpoint "
+                   "(.pt state_dict, 'module.' prefixes stripped)")
     return p.parse_args(argv)
 
 
 def _check_supported(args) -> None:
-    for flag, value in (("--resume", args.resume),
-                        ("--checkpoint-dir", args.checkpoint_dir),
-                        ("--zero", args.zero),
-                        ("--torch-weights", args.torch_weights)):
-        if value:
-            raise NotImplementedError(f"{flag} {LATER_SLICE}")
+    if args.zero:
+        raise NotImplementedError(f"--zero {LATER_SLICE}")
 
 
 def synthetic_batches(args, steps, seed=0):
@@ -124,8 +135,10 @@ def synthetic_batches(args, steps, seed=0):
 def make_loaders(args, rank: int = 0, world: int = 1):
     """``(train_iter, make_val_iter or None, steps_per_epoch)`` for
     ``--data``: synthetic batches without it (rank r from seed r, the
-    validation set from seed 1234 + r), else ``.npz`` shards, each rank
-    its own rows."""
+    validation set from seed 1234 + r); an ImageFolder tree (rank r
+    decodes shard r of ``train/``, an epoch its length over ``--b``,
+    and validates on ``val/`` when there is one); else ``.npz`` shards,
+    each rank its own rows."""
     if args.data is None:
         train = synthetic_batches(args, args.steps_per_epoch, seed=rank)
 
@@ -135,13 +148,28 @@ def make_loaders(args, rank: int = 0, world: int = 1):
                 synthetic_batches(args, args.val_steps, seed=1234 + rank))])
 
         return train, make_val, args.steps_per_epoch
-    if os.path.isdir(os.path.join(args.data, "train")):
-        raise NotImplementedError(f"ImageFolder data (--data with a train/ "
-                                  f"subdir) {LATER_SLICE}")
+    train_dir = os.path.join(args.data, "train")
+    if os.path.isdir(train_dir):
+        samples = _list_image_folder(train_dir)[0]
+        steps = max(1, len(samples) // world // args.b)
+        train = image_folder_loader(
+            train_dir, args.b, image_size=args.image_size, train=True,
+            num_workers=args.workers, samples=samples, num_shards=world,
+            shard_index=rank)
+        val_dir = os.path.join(args.data, "val")
+        make_val = None
+        if os.path.isdir(val_dir):
+            def make_val():
+                return image_folder_loader(
+                    val_dir, args.b, image_size=args.image_size,
+                    train=False, num_workers=args.workers, loop=False,
+                    num_shards=world, shard_index=rank)
+        return train, make_val, steps
     if glob.glob(os.path.join(args.data, "*.npz")):
         return (npz_loader(args.data, args.b, num_shards=world,
                            shard_index=rank), None, args.steps_per_epoch)
-    raise SystemExit(f"--data {args.data}: no .npz shards found")
+    raise SystemExit(f"--data {args.data}: neither train/ subdir nor .npz "
+                     "shards found")
 
 
 def lr_schedule(args, steps_per_epoch):
@@ -180,6 +208,70 @@ def _world():
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def load_torch_weights(module, args) -> None:
+    """``--torch-weights``: a torchvision-format checkpoint (a state dict,
+    or a full checkpoint dict holding one under ``state_dict``) loaded
+    into ``module``'s parameters and running statistics."""
+    sd = torch.load(args.torch_weights, map_location="cpu")
+    sd = sd.get("state_dict", sd)
+    converted = load_torch_resnet(
+        sd, arch=args.arch,
+        norm_name="SyncBatchNorm" if args.sync_bn else "BatchNorm",
+        stem=args.stem)
+    module.load_state_dict({**converted["params"],
+                            **converted["batch_stats"]})
+    maybe_print(f"loaded torch weights from {args.torch_weights}",
+                rank0=True)
+
+
+def batch_stats(module) -> dict:
+    """The running statistics: the module's buffers, by name (the JAX
+    model's ``batch_stats`` collection)."""
+    return dict(module.named_buffers())
+
+
+def train_state(model, params, opt_state, epoch: int,
+                best_prec1: float) -> dict:
+    """The whole train state a checkpoint holds."""
+    return {"params": params, "batch_stats": batch_stats(model.unwrapped),
+            "opt_state": opt_state, "epoch": epoch,
+            "best_prec1": best_prec1}
+
+
+def resume(path: str, model, params, opt_state):
+    """``(params, opt_state, start_epoch, best_prec1)`` from the
+    checkpoint at ``path``; the running statistics go back into the
+    model's buffers."""
+    state = checkpoint.restore(path, train_state(model, params, opt_state,
+                                                 0, 0.0))
+    with torch.no_grad():
+        for name, buf in batch_stats(model.unwrapped).items():
+            buf.copy_(state["batch_stats"][name])
+    start_epoch = int(state["epoch"]) + 1
+    best_prec1 = float(state["best_prec1"])
+    maybe_print(f"resumed from {path} at epoch {start_epoch} (best prec@1 "
+                f"{best_prec1:.2f})", rank0=True)
+    return state["params"], state["opt_state"], start_epoch, best_prec1
+
+
+def save_checkpoint(args, model, params, opt_state, epoch: int, prec1,
+                    best_prec1: float) -> float:
+    """``--checkpoint-dir``: ``last/`` after every epoch, ``best/`` too on
+    a new best prec@1, written by rank 0; returns the best prec@1."""
+    is_best = prec1 is not None and prec1 > best_prec1
+    if is_best:
+        best_prec1 = prec1
+    if _world()[0] == 0:
+        state = train_state(model, params, opt_state, epoch, best_prec1)
+        checkpoint.save(os.path.join(args.checkpoint_dir, "last"), state)
+        if is_best:
+            checkpoint.save(os.path.join(args.checkpoint_dir, "best"), state)
+    maybe_print(f"saved checkpoint for epoch {epoch}"
+                + (f" (new best prec@1 {best_prec1:.2f})" if is_best else ""),
+                rank0=True)
+    return best_prec1
 
 
 def build(module, args, steps_per_epoch: int):
@@ -293,38 +385,48 @@ def train(args, *, device="cuda", module=None, steps: Optional[int] = None,
     """The example's loop on this rank.  ``module`` defaults to
     ``--arch`` from seed 0; ``batches`` (``(x, y)`` numpy pairs)
     defaults to ``--data``'s.  With ``steps`` it trains that many steps
-    and skips validation; else ``--epochs`` epochs of
-    ``--steps-per-epoch``, validating after each.
+    and skips validation and checkpoints; else the epochs from
+    ``--resume``'s next (or 0) to ``--epochs`` of ``--steps-per-epoch``,
+    validating after each (and saving with ``--checkpoint-dir``).
 
     Returns per-step ``losses``, ``prec1``, ``prec5`` (this rank's batch)
     and ``step_seconds`` (on the card: CUDA events between the steps'
     starts, read at the end, so the loop syncs only at ``--print-freq``;
     on the CPU the host clock), ``images_per_s`` per step (this rank's),
-    the final scaler state, and what the step takes (``model``,
-    ``optimizer``, ``ddp``, ``params``, ``opt_state``, ``norm``)."""
+    the final scaler state, ``start_epoch`` and ``best_prec1``, and what
+    the step takes (``model``, ``optimizer``, ``ddp``, ``params``,
+    ``opt_state``, ``norm``)."""
     dev = resolve_device(device)
     _check_supported(args)
     _configure_backends(args, dev)
     rank, world = _world()
     if module is None:
         module = make_model(args, dev)
+    if args.torch_weights:
+        load_torch_weights(module, args)
     train_iter, make_val, steps_per_epoch = make_loaders(args, rank, world)
     if batches is not None:
         train_iter = batches
     model, optimizer, ddp, params, opt_state = build(module, args,
                                                      steps_per_epoch)
+    start_epoch, best_prec1 = 0, 0.0
+    if args.resume:
+        params, opt_state, start_epoch, best_prec1 = resume(
+            args.resume, model, params, opt_state)
     norm = normalizer(dev)
     if args.evaluate:
         if make_val is None:
-            raise SystemExit("--evaluate needs a validation source: "
-                             "synthetic data (no --data)")
+            raise SystemExit("--evaluate needs a validation source: an "
+                             "ImageFolder --data dir with a val/ subdir, "
+                             "or synthetic data (no --data)")
         prec1, prec5 = validate(model, params, make_val, args, dev, norm)
         return {"prec1": prec1, "prec5": prec5}
     if args.prof:
         return profile(args, model, optimizer, ddp, params, opt_state,
                        train_iter, dev, norm)
 
-    total = steps if steps is not None else args.epochs * steps_per_epoch
+    total = steps if steps is not None \
+        else max(args.epochs - start_epoch, 0) * steps_per_epoch
     per_epoch = total if steps is not None else steps_per_epoch
     data = prefetch_to_device(train_iter, device=dev)
     cuda = dev.type == "cuda"
@@ -349,13 +451,19 @@ def train(args, *, device="cuda", module=None, steps: Optional[int] = None,
             p5s.append(p5)
             if not cuda:
                 float(loss)
+            epoch = start_epoch + i // per_epoch
             if args.print_freq and i % args.print_freq == 0:
-                maybe_print(f"Epoch: [{i // per_epoch}][{i % per_epoch}/"
+                maybe_print(f"Epoch: [{epoch}][{i % per_epoch}/"
                             f"{per_epoch}]\tLoss {float(loss):.4f}\t"
                             f"Prec@1 {float(p1):.2f}\tPrec@5 {float(p5):.2f}",
                             rank0=True)
             if steps is None and (i + 1) % per_epoch == 0:
-                validate(model, params, make_val, args, dev, norm)
+                prec1, _ = validate(model, params, make_val, args, dev,
+                                    norm)
+                if args.checkpoint_dir:
+                    best_prec1 = save_checkpoint(args, model, params,
+                                                 opt_state, epoch, prec1,
+                                                 best_prec1)
         mark()
     finally:
         data.close()
@@ -372,6 +480,7 @@ def train(args, *, device="cuda", module=None, steps: Optional[int] = None,
             "loss_scale": float(optimizer.loss_scale(opt_state)),
             "skipped_steps": int(opt_state.skipped_steps),
             "applied_steps": int(opt_state.applied_steps),
+            "start_epoch": start_epoch, "best_prec1": best_prec1,
             "model": model, "optimizer": optimizer, "ddp": ddp,
             "params": params, "opt_state": opt_state, "norm": norm}
 

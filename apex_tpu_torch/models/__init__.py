@@ -8,6 +8,11 @@ from apex_tpu_torch.models.bert import (
     bert_large,
 )
 from apex_tpu_torch.models.bert import params_from_jax as bert_params_from_jax
+from apex_tpu_torch.models.dcgan import (
+    Discriminator,
+    Generator,
+    dcgan_params_from_jax,
+)
 from apex_tpu_torch.models.gpt import (
     GPTBlock,
     GPTConfig,
@@ -38,10 +43,11 @@ from apex_tpu_torch.models.resnet import (
 
 __all__ = ["BasicBlock", "BatchNorm", "BertConfig", "BertEncoder",
            "BertForPreTraining", "BertLayer", "BertSelfAttention",
-           "Bottleneck", "GPTBlock", "GPTConfig", "GPTLMHeadModel",
-           "GPTSelfAttention", "MLP", "ResNet", "ResNet18", "ResNet34",
-           "ResNet50", "ResNet101", "ResNet152", "bert_base", "bert_large",
-           "bert_params_from_jax", "default_norm", "gpt_medium", "gpt_small",
+           "Bottleneck", "Discriminator", "GPTBlock", "GPTConfig",
+           "GPTLMHeadModel", "GPTSelfAttention", "Generator", "MLP", "ResNet",
+           "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
+           "bert_base", "bert_large", "bert_params_from_jax",
+           "dcgan_params_from_jax", "default_norm", "gpt_medium", "gpt_small",
            "lm_loss", "mlp_params_from_jax", "params_from_jax",
            "resnet_params_from_jax", "s2d_input_transform", "space_to_depth",
            "stem_to_s2d"]

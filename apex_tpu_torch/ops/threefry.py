@@ -45,6 +45,7 @@ from typing import Iterable, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch._kernels.build import (
     Kernel,
     check_dtype,
@@ -117,26 +118,29 @@ def _counters(shape: Sequence[int], device):
     return i >> 32, i & M32
 
 
-def random_bits(key: Key, shape: Sequence[int] = (), device="cpu"):
+def random_bits(key: Key, shape: Sequence[int] = (), device="cuda"):
     """``jax.random.bits(key, shape, uint32)``: element i (in row-major
     order) is the XOR of the two words of the block over (i >> 32,
-    i mod 2**32); int64 tensor of ``shape`` holding the uint32 values."""
+    i mod 2**32); int64 tensor of ``shape`` holding the uint32 values,
+    on the card unless the caller asks for the CPU."""
     shape = tuple(shape)
-    hi, lo = _counters(shape, device)
+    hi, lo = _counters(shape, resolve_device(device))
     y0, y1 = threefry2x32(key, hi, lo)
     return (y0 ^ y1).reshape(shape)
 
 
-def uniform(key: Key, shape: Sequence[int] = (), device="cpu"):
+def uniform(key: Key, shape: Sequence[int] = (), device="cuda"):
     """``jax.random.uniform(key, shape)``: float32 in [0, 1) from the top
     23 bits, as a float in [1, 2) minus 1."""
     bits = random_bits(key, shape, device)
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def bernoulli(key: Key, p: float, shape: Sequence[int] = (), device="cpu"):
+def bernoulli(key: Key, p: float, shape: Sequence[int] = (),
+              device="cuda"):
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` with p
     rounded to float32."""
+    device = resolve_device(device)
     return uniform(key, shape, device) < torch.tensor(
         p, dtype=torch.float32, device=device)
 

@@ -120,7 +120,11 @@ class FusedAdam:
 
     def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
-                 eps_inside_sqrt: bool = False, weight_decay: float = 0.0):
+                 eps_inside_sqrt: bool = False, weight_decay: float = 0.0,
+                 amsgrad: bool = False):
+        if amsgrad:
+            raise RuntimeError("FusedAdam does not support the AMSGrad "
+                               "variant.")
         self.lr = float(lr)
         self.bias_correction = bias_correction
         self.betas = (float(betas[0]), float(betas[1]))

@@ -3,7 +3,8 @@
 Copies of the optax pieces the JAX package's ImageNet example and entry
 points train with (``examples/imagenet/main_amp.py``: ``sgd(schedule,
 momentum)`` after ``add_decayed_weights``, the warmup-then-step-decay
-schedule), kept here so the port imports no optax.  A transformation is
+schedule; ``examples/dcgan/main_amp.py``: ``adam`` and
+``sigmoid_binary_cross_entropy``), kept here so the port imports no optax.  A transformation is
 a pair of functions, ``init(params) -> state`` and ``update(updates,
 state, params) -> (updates, state)``, over trees of tensors (a
 ``{name: tensor}`` dict).  The state layout is optax's: ``chain``
@@ -27,6 +28,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, \
     Union
 
 import torch
+import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
 Tree = Any
@@ -51,6 +53,12 @@ class TraceState(NamedTuple):
 
 class ScaleByScheduleState(NamedTuple):
     count: torch.Tensor   # int32 0-d, updates applied so far
+
+
+class ScaleByAdamState(NamedTuple):
+    count: torch.Tensor   # int32 0-d, updates applied so far
+    mu: Tree              # first moment
+    nu: Tree              # second moment
 
 
 def _tree_map(fn, tree, *rest):
@@ -223,6 +231,48 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def _bias_correction(moment: Tree, decay: float,
+                     count: torch.Tensor) -> Tree:
+    correction = 1 - decay ** count.to(torch.float32)
+    return _tree_map(lambda t: t / correction.to(t.dtype), moment)
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  eps_root: float = 0.0) -> GradientTransformation:
+    """optax ``scale_by_adam``: the moments ``(1 - b) * g**k + b * m``,
+    the count one more, then ``mu_hat / (sqrt(nu_hat + eps_root) +
+    eps)`` with both moments bias-corrected by the new count."""
+
+    def init(params):
+        return ScaleByAdamState(
+            count=torch.zeros((), dtype=torch.int32,
+                              device=_first_device(params)),
+            mu=_tree_map(torch.zeros_like, params),
+            nu=_tree_map(torch.zeros_like, params))
+
+    def update(updates, state, params=None):
+        del params
+        mu = _tree_map(lambda g, t: (1 - b1) * g + b1 * t, updates,
+                       state.mu)
+        nu = _tree_map(lambda g, t: (1 - b2) * (g ** 2) + b2 * t, updates,
+                       state.nu)
+        count = _safe_increment(state.count)
+        mu_hat = _bias_correction(mu, b1, count)
+        nu_hat = _bias_correction(nu, b2, count)
+        updates = _tree_map(lambda m, v: m / (torch.sqrt(v + eps_root) + eps),
+                            mu_hat, nu_hat)
+        return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
+
+    return GradientTransformation(init, update)
+
+
+def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, eps_root: float = 0.0) -> GradientTransformation:
+    """optax ``adam``: ``scale_by_adam`` then ``scale_by_learning_rate``."""
+    return chain(scale_by_adam(b1, b2, eps, eps_root),
+                 scale_by_learning_rate(learning_rate))
+
+
 def sgd(learning_rate: ScalarOrSchedule,
         momentum: Optional[float] = None) -> GradientTransformation:
     """optax ``sgd``: ``trace(momentum)`` (when given) then
@@ -245,3 +295,13 @@ def softmax_cross_entropy_with_integer_labels(
     label_logits = torch.take_along_dim(
         logits, labels.long().unsqueeze(-1), dim=-1).squeeze(-1)
     return torch.logsumexp(logits, dim=-1) - label_logits
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+    """optax's, elementwise: ``-labels * log_sigmoid(logits) - (1 -
+    labels) * log_sigmoid(-logits)``, computed by
+    ``F.binary_cross_entropy_with_logits`` (looked up at each call, so
+    amp O1's fp32 policy for it applies)."""
+    return F.binary_cross_entropy_with_logits(
+        logits, labels.to(logits.dtype), reduction="none")

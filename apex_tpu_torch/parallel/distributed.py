@@ -146,6 +146,10 @@ class DistributedDataParallel:
     def apply(self, *args, **kwargs):
         return self.module.apply(*args, **kwargs)
 
+    @property
+    def unwrapped(self):
+        return self.module
+
     def reduce_gradients(self, grads: Tree) -> Tree:
         """Every rank's ``grads`` replaced by their reduction over the
         group: fp32 cast (``allreduce_always_fp32``), ``/ factor``,

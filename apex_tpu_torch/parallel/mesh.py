@@ -21,6 +21,13 @@ class ProcessGroup(NamedTuple):
     groups: Optional[Tuple[Tuple[int, ...], ...]] = None
     handle: Any = None        # torch.distributed group; None: the world
 
+    @property
+    def group_size(self) -> Optional[int]:
+        """Ranks a group of the partition holds; None for the world."""
+        if self.groups is None:
+            return None
+        return len(self.groups[0])
+
     def size(self) -> int:
         """Ranks in this rank's group (the world's size for the world)."""
         if self.groups is None:

@@ -1,4 +1,14 @@
-from apex_tpu_torch.amp._amp_state import maybe_print
-from apex_tpu_torch.utils.meters import AverageMeter
+"""apex_tpu_torch.utils — training-loop utilities.
 
-__all__ = ["AverageMeter", "maybe_print"]
+Twin of ``apex_tpu.utils``: :class:`AverageMeter`, :func:`maybe_print`,
+:mod:`.checkpoint` (one-call save and restore of a whole train state)
+and :func:`load_torch_resnet` (torchvision ResNet checkpoints, from
+:mod:`.torch_interop`).
+"""
+
+from apex_tpu_torch.amp._amp_state import maybe_print
+from apex_tpu_torch.utils import checkpoint
+from apex_tpu_torch.utils.meters import AverageMeter
+from apex_tpu_torch.utils.torch_interop import load_torch_resnet
+
+__all__ = ["AverageMeter", "checkpoint", "load_torch_resnet", "maybe_print"]

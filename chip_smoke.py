@@ -105,7 +105,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
        ("error")``: master params, m, v and the step counter keep every
        bit, the loss scale halves, and no host sync is raised;
    (d) one more O2 step under ``torch.profiler``: device time by kernel
-       class and the device's idle share.
+       class and the device's idle share;
+   (e) the data-parallel step: ``train(ddp=True)``, 3 O2 steps through
+       ``DistributedDataParallel`` over an NCCL group of one, counts read
+       around it (path ``train_ddp``): losses bit for bit those of the
+       same 3 steps without DDP.
 7. train_bert — ``apex_tpu_torch.examples.bert_main_amp`` on BERT-large
    at full width (vocab 30522, hidden 1024, 24 layers, 16 heads),
    FusedLAMB as the example (lr 1e-4, max_grad_norm 1.0, no decay and
@@ -131,7 +135,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
        copied from pinned memory), backward and
        ``AmpOptimizer(FusedLAMB)`` step: params, m, v and the step
        counter keep every bit, the scale halves, no host sync;
-   (d) one more O2 step under ``torch.profiler``.
+   (d) one more O2 step under ``torch.profiler``;
+   (e) ``--grad-accum``: one O2 step at 4 strided microbatches and one at
+       1 from (a)'s weights on the same batch, each against the oracle's
+       step within 2e-2, the 4-microbatch step's counts read around it
+       (path ``train_bert_accum``: 4 times a step's); a second step of
+       each timed (step ms, tokens/s, peak memory); an inf planted with
+       ``fill_`` in microbatch 3's scaled grads under sync-debug
+       "error": every bit kept, the scale halved once, no host sync; the
+       4-microbatch step through ``DistributedDataParallel`` over an
+       NCCL group of one equal to it bit for bit.
 
 8. train_resnet — the flagship, run first of the paths:
    ``apex_tpu_torch.examples.imagenet_main_amp`` at its defaults with
@@ -157,7 +170,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
        equal this process's full batch within 2e-5 scale-aware;
    (e) ``entry.dryrun(1)`` over the NCCL group, 3 steps, against the same
        step on plain Adam (no kernel): O0 losses <= 1e-4 relative, O2
-       within 2e-2, B1 launched exactly once a step (path ``dryrun``).
+       within 2e-2, B1 launched exactly once a step (path ``dryrun``);
+   (f) after (a), the whole train state saved with ``utils.checkpoint``
+       (bytes, save and restore seconds on the host clock) and restored
+       into a freshly built twin; one more step from each on the same
+       batch with ``--deterministic``: params, momentum, running
+       statistics, scaler state and loss bit for bit;
+   (g) ``--torch-weights`` from a torchvision-format ``.pt`` this phase
+       writes from that state: the loaded model's logits equal the
+       source model's bit for bit;
+   (h) when PIL is installed (``importlib.util.find_spec``; the line
+       says which), two steps of the twin on an ImageFolder tree of 512
+       JPEGs the phase writes and removes: images/s beside the synthetic
+       rate, losses finite.
 
 9. train_o1 — GPT-2 small under amp O1 at B 8, S 1024 on B1-B6 (the
    op-level cast policy installed on the torch namespaces; LayerNorm's
@@ -187,7 +212,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    probe (the first Linear runs bf16, ``F.cross_entropy`` computes in
    fp32 on bf16 logits, ``F.binary_cross_entropy`` is refused);
    samples/s (median of epochs 1-4); one O1 step under the profiler.
-   Both O1 phases run last, and each ends by removing the policy,
+11. train_dcgan — ``apex_tpu_torch.examples.dcgan_main_amp.train()`` at
+   its defaults (O1, B 64, 64x64, nz 100, base 64, 20 iterations, two
+   models, two Adam optimizers, three loss scalers; no kernel of the
+   port, counts read around it): (a) losses finite, images/s (median of
+   iterations 1-19), peak memory; (b) each iteration's O0 step from the
+   O1 run's state on the same batch: D's and G's losses within 2e-2,
+   relative where the loss exceeds 1 (``DCGAN_TOL``), and the
+   free-running O0 run's distance recorded; (c) an inf in the real
+   batch: D's step skipped and scaler 0 halved, scalers 1 and 2 kept, G
+   stepped; (d) one iteration under ``torch.profiler``.
+   The O1 phases run last, and each ends by removing the policy,
    resetting amp's state and checking every patched function is its
    original again.
 
@@ -2028,14 +2063,76 @@ def _train_overflow_and_profile():
                     tokens=TRAIN_BATCH * TRAIN_SEQ)
 
 
+DDP_STEPS = 3
+
+
+def _nccl_world_of_one():
+    """An NCCL process group of this one rank (NCCL takes one rank a
+    GPU)."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel.multiproc import free_port, \
+        initialize_distributed
+    initialize_distributed("cuda", world_size=1, rank=0,
+                           init_method=f"tcp://127.0.0.1:{free_port()}")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}")
+
+
+def _train_ddp():
+    """(e) the data-parallel step through ``DistributedDataParallel`` over
+    an NCCL group of one, ``DDP_STEPS`` O2 steps at B 8, S 1024, counts
+    read around it: the losses bit for bit those of the same steps
+    without DDP."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    kw = dict(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=DDP_STEPS,
+              lr=TRAIN_LR, opt_level="O2", device="cuda", seed=0)
+    plain = gpt_main_amp.train(cfg, **kw)
+    _nccl_world_of_one()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ddp = gpt_main_amp.train(cfg, ddp=True, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+    want = {k: DDP_STEPS * v
+            for k, v in _per_step_launches(cfg, counts).items()}
+    same = ddp["losses"] == plain["losses"]
+    emit("train", run="(e) DDP, NCCL world of one", steps=DDP_STEPS,
+         losses=ddp["losses"], no_ddp_losses=plain["losses"],
+         losses_bit_equal=same,
+         step_ms=[1e3 * t for t in ddp["step_seconds"]],
+         no_ddp_step_ms=[1e3 * t for t in plain["step_seconds"]],
+         tokens_per_s=ddp["tokens_per_s"], peak_memory_gb=peak_gb,
+         launches=counts)
+    if counts != want:
+        raise AssertionError(f"GPT DDP: launches {counts} != {want}")
+    if not same:
+        raise AssertionError("GPT DDP at a world of one: losses differ "
+                             "from the step without DDP")
+    return {"losses": ddp["losses"], "no_ddp_losses": plain["losses"],
+            "step_seconds": ddp["step_seconds"],
+            "no_ddp_step_seconds": plain["step_seconds"],
+            "peak_memory_gb": peak_gb, "launches": counts}
+
+
 def phase_train():
     results = {"O0": _train_o0()}
     results["O2"] = _train_o2()
     results["profile"] = _train_overflow_and_profile()
+    results["ddp"] = _train_ddp()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "train.json").write_text(json.dumps(results, indent=1,
                                                    default=str))
-    return results["O2"]["launches"]
+    return {"train": results["O2"]["launches"],
+            "train_ddp": results["ddp"]["launches"]}
 
 
 # -- train_bert ---------------------------------------------------------------
@@ -2262,15 +2359,182 @@ def _bert_overflow_and_profile(state_dict):
                     tokens=BERT_BATCH * BERT_SEQ)
 
 
+BERT_ACCUM = 4
+
+
+def _bert_accum_step(cfg, state_dict, accum, batch, *, oracle=False,
+                     ddp=False):
+    """One O2 step from ``state_dict`` on ``batch`` at ``--grad-accum
+    accum`` with step 0's dropout key, on the kernels or (``oracle``) on
+    their plain versions; with ``ddp`` through
+    ``DistributedDataParallel`` over the current process group.  Returns
+    the model, optimizer, params, state and loss."""
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    if oracle:
+        model, opt, params, st = bert_main_amp.build(
+            cfg, lr=BERT_LR, opt_level="O2",
+            attention_fn=_plain_dropout_attention, device="cuda",
+            state_dict=state_dict)
+        _plain_oracle(model.module)
+    else:
+        model, opt, params, st = _bert_build(cfg, "O2", state_dict)
+    params, st, loss, _ = bert_main_amp.train_step(
+        model, opt, params, st, batch, deterministic=False,
+        dropout_key=bert_main_amp.step_key(0, 0), grad_accum=accum,
+        ddp=DistributedDataParallel(model) if ddp else None)
+    return model, opt, params, st, loss
+
+
+BERT_ACCUM_TIMED = 3      # steps after the checked one, median step ms
+
+
+def _bert_accum(state_dict):
+    """(e) ``--grad-accum``: one step at 1 and one at 4 from the same
+    weights and batch, each against the oracle's step, its launches read
+    around it (``accum`` times a step's); then ``BERT_ACCUM_TIMED``
+    steps timed (median step ms, tokens/s) and the peak memory of that
+    model's run alone; an inf planted in microbatch 3's scaled grads
+    under sync-debug "error": every bit kept, the scale halved once; the
+    4-microbatch step through DDP over an NCCL group of one equal to it
+    bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    cfg = bert_main_amp.get_config("large")
+    data = bert_main_amp.batches(cfg, BERT_BATCH, BERT_SEQ)
+    batches = [tuple(torch.from_numpy(a).to("cuda") for a in next(data))
+               for _ in range(1 + BERT_ACCUM_TIMED)]
+    out, counts = {}, None
+    for accum in (1, BERT_ACCUM):
+        oracle = _bert_accum_step(cfg, state_dict, accum, batches[0],
+                                  oracle=True)
+        want_loss = float(oracle[4])
+        del oracle
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        model, opt, params, st, loss_t = _bert_accum_step(
+            cfg, state_dict, accum, batches[0])
+        loss = float(loss_t)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = {k: accum * v for k, v in
+                _bert_per_step_launches(cfg, launches).items()}
+        if launches != want:
+            raise AssertionError(f"BERT grad-accum {accum}: launches "
+                                 f"{launches} != {want}")
+        if accum == BERT_ACCUM:     # the DDP run's reference, below
+            reference = {"loss": loss_t.cpu(), "params": {
+                k: v.detach().cpu() for k, v in params.items()}}
+        step_ms = []
+        for i, batch in enumerate(batches[1:], start=1):
+            t0 = time.perf_counter()
+            params, st, loss2, _ = bert_main_amp.train_step(
+                model, opt, params, st, batch, deterministic=False,
+                dropout_key=bert_main_amp.step_key(0, i), grad_accum=accum)
+            float(loss2)
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if accum == BERT_ACCUM:
+            counts = launches
+            kept = (model, opt, params, st)
+        else:
+            del model, opt, params, st
+            torch.cuda.empty_cache()
+        err = abs(loss - want_loss)
+        med = statistics.median(step_ms)
+        out[accum] = {"loss": loss, "oracle_loss": want_loss,
+                      "loss_abs_err": err, "step_ms": step_ms,
+                      "step_ms_median": med,
+                      "tokens_per_s": BERT_BATCH * BERT_SEQ / (med / 1e3),
+                      "peak_memory_gb": peak_gb, "launches": launches}
+        emit("train_bert", run=f"(e) --grad-accum {accum}",
+             **out[accum])
+        if not err <= O2_LOSS_TOL:
+            raise AssertionError(f"BERT grad-accum {accum}: loss error "
+                                 f"{err:.3g} > {O2_LOSS_TOL}")
+
+    # an inf in microbatch 3: the whole step skipped, one scale update
+    model, opt, params, st = kept
+    snap = ({k: v.detach().clone() for k, v in params.items()},
+            [t.clone() for t in torch.utils._pytree.tree_leaves(st.inner)])
+    scale0, skipped0 = float(opt.loss_scale(st)), int(st.skipped_steps)
+    unscale, calls = opt.unscale_grads, []
+    bad = f"encoder.layer_{cfg.num_hidden_layers // 2}.intermediate.weight"
+
+    def planting(grads, state, loss_id=0, **kw):
+        if len(calls) == 3:
+            grads[bad][17, 3].fill_(float("inf"))   # a launch, not a copy
+        calls.append(kw.get("update_scale"))
+        return unscale(grads, state, loss_id, **kw)
+
+    opt.unscale_grads = planting
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st, _, _ = bert_main_amp.train_step(
+            model, opt, params, st, batches[1], deterministic=False,
+            dropout_key=bert_main_amp.step_key(0, 99),
+            grad_accum=BERT_ACCUM)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        opt.unscale_grads = unscale
+    torch.cuda.synchronize()
+    kept_bits = (all(torch.equal(params[k], snap[0][k]) for k in params)
+                 and all(torch.equal(a, b) for a, b in zip(
+                     torch.utils._pytree.tree_leaves(st.inner), snap[1])))
+    scale1 = float(opt.loss_scale(st))
+    out["overflow"] = {"microbatch": 3, "grad": bad, "bits_kept": kept_bits,
+                       "loss_scale_before": scale0,
+                       "loss_scale_after": scale1,
+                       "unscale_calls_deferred": calls,
+                       "skipped_steps": int(st.skipped_steps),
+                       "host_syncs": 0}
+    emit("train_bert", run="(e) --grad-accum 4, inf in microbatch 3",
+         **out["overflow"])
+    if not (kept_bits and scale1 == scale0 / 2 and calls == [False] * 4
+            and int(st.skipped_steps) == skipped0 + 1):
+        raise AssertionError("the grad-accum overflow step changed the "
+                             "state or did not halve the scale once")
+    del model, opt, params, st, snap, kept
+    torch.cuda.empty_cache()
+
+    # the same 4-microbatch step through DDP over NCCL at a world of one
+    _nccl_world_of_one()
+    try:
+        _, _, params, _, loss = _bert_accum_step(cfg, state_dict, BERT_ACCUM,
+                                                 batches[0], ddp=True)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    same = (torch.equal(loss.cpu(), reference["loss"])
+            and all(torch.equal(params[k].detach().cpu(),
+                                reference["params"][k]) for k in params))
+    out["ddp"] = {"loss": float(loss), "bit_equal_to_no_ddp": same}
+    emit("train_bert", run="(e) --grad-accum 4 through DDP, NCCL world "
+         "of one", **out["ddp"])
+    if not same:
+        raise AssertionError("BERT grad-accum through DDP at a world of one "
+                             "differs from the step without DDP")
+    del params, reference
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def phase_train_bert():
     results, state_dict = _bert_o0()
     results = {"O0": results}
     results["O2"] = _bert_o2(state_dict)
     results["profile"] = _bert_overflow_and_profile(state_dict)
+    results["accum"], accum_counts = _bert_accum(state_dict)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "train_bert.json").write_text(json.dumps(results, indent=1,
                                                         default=str))
-    return results["O2"]["launches"]
+    return {"train_bert": results["O2"]["launches"],
+            "train_bert_accum": accum_counts}
 
 
 # -- train_o1 and train_simple: amp O1 -----------------------------------------
@@ -2580,6 +2844,164 @@ def phase_train_simple():
     return counts
 
 
+# -- train_dcgan ---------------------------------------------------------------
+
+# O1 against O0 from the same state, each step's D and G loss, relative to
+# the O0 loss where it exceeds 1: D soon drives G's loss to ~9, where one
+# bf16 step of a logit is 0.0625 and an absolute 2e-2 would ask O1's
+# bf16 logits for more than bf16 holds
+DCGAN_TOL = 2e-2
+
+
+def _clone_tree(tree):
+    import torch
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(
+        lambda t: t.detach().clone().requires_grad_(t.requires_grad)
+        if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _dcgan_same_state(args, state_dicts):
+    """(b) every iteration of an O1 run from ``state_dicts`` beside the
+    O0 step from the same state (params, optimizer and scaler states,
+    running statistics) on the same batch: each step's two loss errors,
+    relative to the O0 loss where it exceeds 1 (``DCGAN_TOL``).  A
+    GAN's free-running trajectories separate, so the levels are held
+    step by step; each step runs with its own model's policy active."""
+    import torch
+    from apex_tpu_torch.amp import _amp_state
+    from apex_tpu_torch.examples import dcgan_main_amp as dcgan
+    o0 = type(args)(**{**vars(args), "opt_level": "O0"})
+    one = list(dcgan.build(args, device="cuda", state_dicts=state_dicts))
+    zero = list(dcgan.build(o0, device="cuda", state_dicts=state_dicts))
+    data = dcgan.synthetic_batches(args)
+    errs = []
+    for _ in range(args.iters):
+        real, z = (torch.from_numpy(a).to("cuda") for a in next(data))
+        with torch.no_grad():
+            for m0, m1 in ((zero[0], one[0]), (zero[1], one[1])):
+                for b0, b1 in zip(m0.unwrapped.buffers(),
+                                  m1.unwrapped.buffers()):
+                    b0.copy_(b1)
+        _amp_state._amp_state.opt_properties = zero[0].properties
+        ref = dcgan.train_step(*zero[:4], *_clone_tree(one[4:8]), real, z)
+        _amp_state._amp_state.opt_properties = one[0].properties
+        got = dcgan.train_step(*one[:8], real, z)
+        one[4:8] = got[:4]
+        errs.append(tuple(abs(float(got[i]) - float(ref[i]))
+                          / max(1.0, abs(float(ref[i]))) for i in (4, 5)))
+    return errs
+
+
+def _dcgan_overflow(args, state_dicts):
+    """(c) an inf in the real batch: D's step skipped (params kept) and
+    scaler 0 halved; scalers 1 and 2 kept, G's step taken."""
+    import torch
+    from apex_tpu_torch.examples import dcgan_main_amp as dcgan
+    G, D, optG, optD, pG, pD, sG, sD = dcgan.build(
+        args, device="cuda", state_dicts=state_dicts)
+    real, z = (torch.from_numpy(a).to("cuda")
+               for a in next(dcgan.synthetic_batches(args)))
+    real[0, 0, 0, 0].fill_(float("inf"))
+    before = _clone_tree((pG, pD))
+    scales0 = [float(optD.loss_scale(sD, 0)), float(optD.loss_scale(sD, 1)),
+               float(optG.loss_scale(sG, 2))]
+    pG2, pD2, sG2, sD2, _, errG = dcgan.train_step(
+        G, D, optG, optD, pG, pD, sG, sD, real, z)
+    scales = [float(optD.loss_scale(sD2, 0)),
+              float(optD.loss_scale(sD2, 1)), float(optG.loss_scale(sG2, 2))]
+    d_kept = all(torch.equal(pD2[k], before[1][k]) for k in pD2)
+    g_moved = any(not torch.equal(pG2[k], before[0][k]) for k in pG2)
+    out = {"d_params_kept": d_kept, "g_stepped": g_moved,
+           "scales_before": scales0, "scales_after": scales,
+           "d_skipped_steps": int(sD2.skipped_steps),
+           "g_applied_steps": int(sG2.applied_steps),
+           "loss_g": float(errG)}
+    emit("train_dcgan", run="(c) inf in the real batch", **out)
+    if not (d_kept and g_moved and scales == [scales0[0] / 2, scales0[1],
+                                              scales0[2]]
+            and int(sD2.skipped_steps) == 1
+            and int(sG2.applied_steps) == 1):
+        raise AssertionError(f"DCGAN overflow step: {out}")
+    return out
+
+
+def phase_train_dcgan():
+    """``examples.dcgan_main_amp.train()`` at its defaults on the card (O1,
+    B 64, 64x64, nz 100, base 64, 20 iterations, seed 0): (a) the run,
+    counts read around it, losses finite, images/s (median of iterations
+    1-19), peak memory; (b) each iteration's O0 step from the same state
+    within ``DCGAN_TOL`` on D's and G's losses, and the free-running O0
+    run's distance recorded; (c) the overflow step; (d) one O1 iteration
+    under the profiler.  Ends by removing the O1 policy."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import dcgan_main_amp as dcgan
+    try:
+        args = dcgan.parse_args([])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        o1 = dcgan.train(args, device="cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ips = statistics.median(o1["images_per_s"][1:])
+        state_dicts = tuple(
+            {k: v.detach().clone() for k, v in m.unwrapped.state_dict()
+             .items()}
+            for m in (dcgan.build(args, device="cuda")[:2]))
+        if not (np.isfinite(o1["loss_d"]).all()
+                and np.isfinite(o1["loss_g"]).all()):
+            raise AssertionError(f"DCGAN O1: non-finite losses {o1['loss_d']}"
+                                 f" {o1['loss_g']}")
+        errs = _dcgan_same_state(args, state_dicts)
+        o0 = dcgan.train(dcgan.parse_args(["--opt-level", "O0"]),
+                         device="cuda")
+        free = [max(abs(a - b) for a, b in zip(o1[k], o0[k]))
+                for k in ("loss_d", "loss_g")]
+        worst = [max(e[i] for e in errs) for i in (0, 1)]
+        emit("train_dcgan", run="(a) O1 at the defaults",
+             batch=args.b, image=args.image_size, nz=args.nz,
+             iters=args.iters, loss_d=o1["loss_d"], loss_g=o1["loss_g"],
+             loss_scales=o1["loss_scales"], images_per_s_median=ips,
+             step_ms=[1e3 * t for t in o1["step_seconds"]],
+             peak_memory_gb=peak_gb, launches=counts)
+        emit("train_dcgan", run="(b) O0 from the same state each step",
+             max_loss_d_err=worst[0], max_loss_g_err=worst[1],
+             tol=DCGAN_TOL, free_running_o0_max_abs_diff={
+                 "loss_d": free[0], "loss_g": free[1]},
+             o0_images_per_s_median=statistics.median(
+                 o0["images_per_s"][1:]))
+        if not max(worst) <= DCGAN_TOL:
+            raise AssertionError(f"DCGAN: O1 against O0 {worst} > "
+                                 f"{DCGAN_TOL}")
+        overflow = _dcgan_overflow(args, state_dicts)
+        G, D, optG, optD, pG, pD, sG, sD = dcgan.build(
+            args, device="cuda", state_dicts=state_dicts)
+        data = dcgan.synthetic_batches(args)
+        box = {"s": (pG, pD, sG, sD)}
+
+        def one_step():
+            real, z = (torch.from_numpy(a).to("cuda") for a in next(data))
+            out = dcgan.train_step(G, D, optG, optD, *box["s"], real, z)
+            box["s"] = out[:4]
+            float(out[5])
+
+        one_step()
+        prof = _profile("train_dcgan_step_O1", one_step, images=args.b)
+    finally:
+        _o1_cleanup()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "train_dcgan.json").write_text(json.dumps({
+        "o1": {k: o1[k] for k in ("loss_d", "loss_g", "step_seconds",
+                                  "images_per_s", "loss_scales")},
+        "same_state_errs": errs, "free_running_diff": free,
+        "overflow": overflow, "profile": prof, "peak_memory_gb": peak_gb},
+        indent=1, default=str))
+    return counts
+
+
 # -- train_resnet --------------------------------------------------------------
 
 # the flagship: examples/imagenet/main_amp.py defaults with --sync_bn
@@ -2646,11 +3068,184 @@ def _resnet_full():
                                            out["step_seconds"]],
          loss_scale=out["loss_scale"], skipped_steps=out["skipped_steps"],
          peak_memory_gb=peak_gb, launches=counts)
+    resume = _resnet_resume(out, state, batches[RESNET_STEPS])
     result = {k: out[k] for k in ("losses", "step_seconds", "images_per_s",
                                   "loss_scale", "skipped_steps")}
     del out, state, xs
     return {**result, "images_per_s_median": ips, "peak_memory_gb": peak_gb,
-            "profile": prof, "launches": counts}
+            "profile": prof, "launches": counts, "resume": resume}
+
+
+def _torchvision_state_dict(sd, stages=(3, 4, 6, 3), convs=3,
+                            block="Bottleneck"):
+    """The port ResNet's ``state_dict`` under torchvision's names (the
+    inverse of ``utils.load_torch_resnet``), ``num_batches_tracked``
+    counters included, as a torchvision checkpoint holds them."""
+    import torch
+    out = {"conv1.weight": sd["stem_conv.weight"]}
+
+    def bn(src, dst):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}.{leaf}"] = sd[f"{src}.{leaf}"]
+        out[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+    bn("stem_bn", "bn1")
+    k = 0
+    for s, n in enumerate(stages, start=1):
+        for i in range(n):
+            src, dst = f"{block}_{k}", f"layer{s}.{i}"
+            for c in range(convs):
+                out[f"{dst}.conv{c + 1}.weight"] = sd[f"{src}.Conv_{c}.weight"]
+                bn(f"{src}.BatchNorm_{c}", f"{dst}.bn{c + 1}")
+            if f"{src}.downsample_conv.weight" in sd:
+                out[f"{dst}.downsample.0.weight"] = \
+                    sd[f"{src}.downsample_conv.weight"]
+                bn(f"{src}.downsample_bn", f"{dst}.downsample.1")
+            k += 1
+    out["fc.weight"], out["fc.bias"] = sd["fc.weight"], sd["fc.bias"]
+    return out
+
+
+def _same_bits(a, b):
+    """Two trees of tensors (and scalars) equal leaf for leaf, bit for
+    bit."""
+    import torch
+    from torch.utils import _pytree as pytree
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    return sa == sb and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _resnet_resume(out, state, batch):
+    """(f) the whole train state after (a) saved with ``utils.checkpoint``
+    and restored into a freshly built twin; one more step from each on
+    the same batch with ``--deterministic``: params, momentum, running
+    statistics, scaler state and loss bit for bit.  (g)
+    ``--torch-weights`` from a torchvision-format ``.pt`` written from
+    that state: the logits of the loaded model equal the source's.  The
+    card's cuDNN flags are restored afterwards."""
+    import torch
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        return _resnet_resume_deterministic(out, state, batch)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _resnet_resume_deterministic(out, state, batch):
+    import shutil
+    import torch
+    from apex_tpu_torch.examples import imagenet_main_amp as im
+    from apex_tpu_torch.utils import checkpoint
+    args = _resnet_args("--deterministic")
+    dev = torch.device("cuda")
+    im._configure_backends(args, dev)
+    path = OUT_DIR / "resume_ckpt"
+    model, opt = out["model"], out["optimizer"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(str(path), im.train_state(model, state["params"],
+                                              state["st"], 0, 0.0))
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    twin = im.make_model(args, dev, seed=1)
+    m2, opt2, ddp2, p2, s2 = im.build(twin, args, args.steps_per_epoch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, s2, start_epoch, _ = im.resume(str(path), m2, p2, s2)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(path)
+    x, y = (torch.from_numpy(a).to(dev) for a in batch)
+    runs = []
+    for m, o, d, p, st in ((model, opt, out["ddp"], state["params"],
+                            state["st"]), (m2, opt2, ddp2, p2, s2)):
+        p, st, loss, _, _ = im.train_step(m, o, d, p, st, x, y, out["norm"])
+        runs.append({"params": p, "opt_state": st, "loss": loss,
+                     "stats": dict(m.unwrapped.named_buffers())})
+    same = {k: _same_bits(runs[0][k], runs[1][k])
+            for k in ("params", "opt_state", "loss", "stats")}
+    emit("train_resnet", run="(f) checkpoint and resume",
+         checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+         start_epoch=start_epoch, next_step_bit_equal=same,
+         loss=float(runs[0]["loss"]))
+    if not all(same.values()):
+        raise AssertionError(f"the resumed step differs: {same}")
+
+    # (g) a torchvision-format checkpoint of this state, loaded as the
+    # CLI's --torch-weights loads it
+    source = im.make_model(args, dev, seed=2)
+    source.load_state_dict({**{k: v.detach() for k, v in
+                               runs[0]["params"].items()},
+                            **runs[0]["stats"]})
+    pt = OUT_DIR / "resnet50_torchvision.pt"
+    torch.save({"state_dict": _torchvision_state_dict(
+        source.state_dict())}, pt)
+    wargs = _resnet_args("--deterministic", "--torch-weights", str(pt))
+    loaded = im.make_model(wargs, dev, seed=3)
+    im.load_torch_weights(loaded, wargs)
+    pt.unlink()
+    xn = (x.float() - im.normalizer(dev)[0]) / im.normalizer(dev)[1]
+    with torch.no_grad():
+        want = source(xn, train=False)
+        got = loaded(xn, train=False)
+    equal = torch.equal(got, want)
+    emit("train_resnet", run="(g) --torch-weights", logits_bit_equal=equal,
+         logits_shape=list(got.shape))
+    if not equal:
+        raise AssertionError("--torch-weights: logits differ from the "
+                             "source model's")
+    del runs, m2, p2, s2, source, loaded
+    return {"checkpoint_bytes": nbytes, "save_s": save_s,
+            "restore_s": restore_s, "next_step_bit_equal": same,
+            "torch_weights_logits_bit_equal": equal}
+
+
+IMAGEFOLDER_CLASSES, IMAGEFOLDER_PER_CLASS = 8, 64   # 512 JPEGs
+IMAGEFOLDER_SIZE = (320, 256)                        # width, height
+
+
+def _resnet_image_folder(synthetic_ips):
+    """(h) two steps of the ImageNet twin on an ImageFolder tree of 512
+    JPEGs this phase writes (when PIL is installed): images/s beside the
+    synthetic rate; every loss finite."""
+    import importlib.util
+    if importlib.util.find_spec("PIL") is None:
+        emit("train_resnet", run="(h) ImageFolder --data",
+             skipped="PIL is not installed")
+        return {"skipped": "PIL is not installed"}
+    import shutil
+    from PIL import Image
+    from apex_tpu_torch.examples import imagenet_main_amp as im
+    root = OUT_DIR / "imagefolder"
+    rng = np.random.RandomState(0)
+    w, h = IMAGEFOLDER_SIZE
+    t0 = time.perf_counter()
+    for c in range(IMAGEFOLDER_CLASSES):
+        d = root / "train" / f"class{c:02d}"
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(IMAGEFOLDER_PER_CLASS):
+            small = rng.randint(0, 256, (h // 8, w // 8, 3), dtype=np.uint8)
+            Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+                d / f"{i:03d}.jpg", quality=90)
+    write_s = time.perf_counter() - t0
+    try:
+        args = _resnet_args("--data", str(root), "--workers", "8")
+        out = im.train(args, device="cuda", steps=2)
+    finally:
+        shutil.rmtree(root)
+    result = {"images": IMAGEFOLDER_CLASSES * IMAGEFOLDER_PER_CLASS,
+              "jpeg_write_s": write_s, "losses": out["losses"],
+              "images_per_s": out["images_per_s"],
+              "synthetic_images_per_s_median": synthetic_ips}
+    emit("train_resnet", run="(h) ImageFolder --data", **result)
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"ImageFolder: non-finite loss {out['losses']}")
+    return result
 
 
 def _resnet_pair_and_overflow():
@@ -2843,14 +3438,12 @@ def _resnet_dryrun():
 def phase_train_resnet():
     import torch
     import torch.distributed as dist
-    from apex_tpu_torch.parallel.multiproc import free_port, \
-        initialize_distributed
-    initialize_distributed("cuda", world_size=1, rank=0,
-                           init_method=f"tcp://127.0.0.1:{free_port()}")
-    if dist.get_backend() != "nccl":
-        raise AssertionError(f"train_resnet: backend {dist.get_backend()}")
+    _nccl_world_of_one()
     try:
         results = {"full": _resnet_full()}
+        torch.cuda.empty_cache()
+        results["image_folder"] = _resnet_image_folder(
+            results["full"]["images_per_s_median"])
         torch.cuda.empty_cache()
         results["pair"] = _resnet_pair_and_overflow()
         torch.cuda.empty_cache()
@@ -2868,7 +3461,7 @@ def phase_train_resnet():
 
 def main(phases=("device", "build", "kernels", "train_resnet", "serve",
                  "serve_q8", "train", "train_bert", "train_o1",
-                 "train_simple")):
+                 "train_simple", "train_dcgan")):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     sys.path.insert(0, str(REPO))
@@ -2880,20 +3473,24 @@ def main(phases=("device", "build", "kernels", "train_resnet", "serve",
         kernels = phase_kernels()
     # each main path runs with the counts at 0 just before it; a kernel
     # reports the launches of the last path that ran it (GPT training
-    # under O1, then BERT training, then GPT training, then int8 serving,
-    # then serving, then the flagship's dry run); train_resnet's phase
-    # drives two paths, the ResNet-50 step and entry.dryrun; the O1
-    # phases run last and remove their op policy at their end
+    # under O1, then BERT's grad-accum step, then BERT training, then
+    # GPT's DDP step, then GPT training, then int8 serving, then
+    # serving, then the flagship's dry run); train_resnet's phase drives
+    # two paths, the ResNet-50 step and entry.dryrun, train's the GPT
+    # step and its DDP step, train_bert's the BERT step and its
+    # grad-accum step; the O1 phases run last and remove their op
+    # policy at their end
     for phase, run in (("train_resnet", phase_train_resnet),
                        ("serve", phase_serve), ("serve_q8", phase_serve_q8),
                        ("train", phase_train),
                        ("train_bert", phase_train_bert),
                        ("train_o1", phase_train_o1),
-                       ("train_simple", phase_train_simple)):
+                       ("train_simple", phase_train_simple),
+                       ("train_dcgan", phase_train_dcgan)):
         if phase not in phases:
             continue
         by_path = run()
-        if phase != "train_resnet":
+        if phase not in ("train_resnet", "train", "train_bert"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():

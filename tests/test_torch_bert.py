@@ -172,7 +172,8 @@ def _same_key_case(jax_init, monkeypatch, attention):
     plain_dropout = tf.dropout
 
     def recording_dropout(x, rate, k):
-        masks.append(tf.bernoulli(k, 1.0 - rate, x.shape).numpy())
+        masks.append(tf.bernoulli(k, 1.0 - rate, x.shape,
+                                  device="cpu").numpy())
         return plain_dropout(x, rate, k)
 
     monkeypatch.setattr(tf, "dropout", recording_dropout)

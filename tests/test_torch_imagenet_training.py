@@ -309,17 +309,38 @@ def test_dryrun_one_rank_starts_and_ends_its_group(restore_amp):
 
 
 def test_unported_options_name_the_later_slice():
-    for flags in (["--zero"], ["--resume", "x"], ["--checkpoint-dir", "x"],
+    """Only ``--zero`` is left to a later slice; ``--resume``,
+    ``--checkpoint-dir`` and ``--torch-weights`` are ported
+    (``tests/test_torch_checkpoint.py``, ``test_torch_resnet_interop.py``)."""
+    with pytest.raises(NotImplementedError, match="later slice"):
+        twin.train(twin.parse_args(ARGV + ["--zero"]), device="cpu")
+    for flags in (["--resume", "x"], ["--checkpoint-dir", "x"],
                   ["--torch-weights", "x.pt"]):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            twin.train(twin.parse_args(ARGV + flags), device="cpu")
+        twin._check_supported(twin.parse_args(ARGV + flags))
 
 
 def test_imagefolder_data_names_the_later_slice(tmp_path):
-    (tmp_path / "train").mkdir()
-    args = twin.parse_args(ARGV + ["--data", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        twin.make_loaders(args)
+    """ImageFolder ``--data`` is ported: ``train/`` feeds the image
+    folder loader (an epoch is its length over ``--b``) and ``val/`` the
+    validation pass, each with a short last batch kept."""
+    from PIL import Image
+    rng = np.random.RandomState(0)
+    for split, n in (("train", 5), ("val", 3)):
+        for cls in range(2):
+            d = tmp_path / split / f"c{cls}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                Image.fromarray(rng.randint(0, 256, (40, 36, 3),
+                                            dtype=np.uint8)).save(
+                    d / f"{i}.jpg")
+    args = twin.parse_args(ARGV + ["--data", str(tmp_path), "--workers",
+                                   "2"])
+    train, make_val, steps = twin.make_loaders(args)
+    assert steps == 10 // 4
+    x, y = next(train)
+    assert x.shape == (4, 32, 32, 3) and x.dtype == np.uint8
+    assert y.dtype == np.int32
+    assert [x.shape[0] for x, _ in make_val()] == [4, 2]
 
 
 def test_npz_data_and_prefetch(tmp_path):

@@ -15,11 +15,11 @@ import pytest
 import torch
 
 from apex_tpu_torch import entry
-from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp, \
-    imagenet_main_amp, simple_main_amp
+from apex_tpu_torch.examples import bert_main_amp, dcgan_main_amp, \
+    gpt_main_amp, imagenet_main_amp, simple_main_amp
 from apex_tpu_torch.data import prefetch_to_device
 from apex_tpu_torch.models import MLP, BertConfig, BertForPreTraining, \
-    GPTConfig, GPTLMHeadModel, ResNet50
+    Discriminator, Generator, GPTConfig, GPTLMHeadModel, ResNet50
 from apex_tpu_torch.serving import DecodeEngine, InferenceServer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -72,7 +72,9 @@ def test_every_module_imports_with_jax_blocked():
                   "amp.compat_api", "fp16_utils", "fp16_utils.fp16util",
                   "fp16_utils.loss_scaler", "fp16_utils.fp16_optimizer",
                   "models.mlp", "examples.simple_main_amp",
-                  "ops.unpatched"):
+                  "ops.unpatched", "utils.checkpoint",
+                  "utils.torch_interop", "models.dcgan",
+                  "examples.dcgan_main_amp"):
             assert "apex_tpu_torch." + m in mods, m
         leaked = [m for m in sys.modules
                   if m == "apex_tpu" or m.startswith("apex_tpu.")]
@@ -83,7 +85,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 62
+    assert int(out.stdout.split()[-1]) >= 66
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -118,4 +120,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         MLP()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simple_main_amp.train(epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Generator()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Discriminator()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dcgan_main_amp.train(dcgan_main_amp.parse_args([]))
     DecodeEngine(TINY, sd, device="cpu")       # asked for: fine

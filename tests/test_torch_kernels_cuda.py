@@ -17,7 +17,9 @@ but its own under the profiler, nor B3's), B3's dweight and dbias, decode split 
 keys, masked tiles skipped, T past the old shared-memory limit), B8 (int8 K/V) bit for bit against B7 on
 the dequantized K/V, the same bits from repeated launches of B3, B7
 and B8, and the threefry dropout kernel bit for bit against its plain
-version.  Scale-aware error
+version; besides, a train-state checkpoint of card tensors (bf16
+leaves) round-trips bit for bit, and DCGAN at O0 on the card matches
+the CPU within 1e-4.  Scale-aware error
 max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
 flash o, dq, dk and dv also row by row (``row_err``); every kernel call
 adds exactly one launch.
@@ -1040,3 +1042,89 @@ def test_overflow_select_on_the_card(gen):
         torch.utils._pytree.tree_leaves(st.inner), snap[1]))
     assert int(st.inner[1][1].count) == 1
     assert torch.equal(st.loss_scalers[0].loss_scale, scale0 / 2)
+
+
+# -- the train-state checkpoint and DCGAN on the card ------------------------
+
+def test_checkpoint_roundtrip_of_a_cuda_train_state(gen, tmp_path):
+    """An O3 train state on the card (bf16 params, fp32 momentum, the
+    scaler's fp32/int32/bool leaves) restored onto a fresh state on the
+    card: every leaf on the card, in its own dtype, bit for bit."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp import _amp_state
+    from apex_tpu_torch.models import MLP
+    from apex_tpu_torch.optimizers import transforms
+    from apex_tpu_torch.utils import checkpoint
+    saved = _amp_state._amp_state.opt_properties
+    try:
+        model, opt = amp.initialize(MLP(features=(64,), in_features=32),
+                                    transforms.sgd(0.1, momentum=0.9),
+                                    opt_level="O3", verbosity=0)
+        params = model.init()
+        st = opt.init(params)
+        x = torch.randn(16, 32, device="cuda", generator=gen)
+        y = torch.arange(16, device="cuda") % 10
+        for _ in range(2):
+            loss = torch.nn.functional.cross_entropy(
+                model.apply(params, x).float(), y)
+            with amp.scale_loss(loss, st) as scaled:
+                g = torch.autograd.grad(scaled, list(params.values()))
+            params, st = opt.step(params, dict(zip(params, g)), st)
+        state = {"params": params, "opt_state": st, "epoch": 1}
+        checkpoint.save(str(tmp_path / "c"), state)
+        fresh = model.init()
+        restored = checkpoint.restore(
+            str(tmp_path / "c"),
+            {"params": fresh, "opt_state": opt.init(fresh), "epoch": 0})
+    finally:
+        _amp_state._amp_state.opt_properties = saved
+    assert restored["epoch"] == 1
+    got = torch.utils._pytree.tree_leaves((restored["params"],
+                                           restored["opt_state"]))
+    want = torch.utils._pytree.tree_leaves((params, st))
+    assert any(t.dtype == torch.bfloat16 for t in want)
+    assert any(t.dtype == torch.bool for t in want)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_dcgan_o0_on_the_card_matches_the_cpu(gen):
+    """``dcgan_main_amp.train()`` at O0 (base 8, B 4, 2 iterations, TF32
+    off) on the card against the same run on the CPU from the same
+    weights and batches: losses and running statistics within 1e-4
+    scale-aware; params within 1e-4 but for Adam's sign-of-noise steps
+    (a gradient within rounding of zero steps by lr either way): every
+    param within 2 lr, and under 0.1% of them past 1e-4."""
+    from apex_tpu_torch.amp import _amp_state
+    from apex_tpu_torch.examples import dcgan_main_amp as dcgan
+    args = dcgan.parse_args(["--b", "4", "--iters", "2", "--opt-level",
+                             "O0", "--print-freq", "0"])
+    saved = (_amp_state._amp_state.opt_properties,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = [dcgan.train(args, device=d, base_features=8)
+                for d in ("cuda", "cpu")]
+    finally:
+        (_amp_state._amp_state.opt_properties,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    card, cpu = runs
+    for k in ("loss_d", "loss_g"):
+        assert rel_err(torch.tensor(card[k]), torch.tensor(cpu[k])) <= 1e-4
+    for side in ("G", "D"):
+        for (name, a), (_, b) in zip(card[side].unwrapped.named_buffers(),
+                                     cpu[side].unwrapped.named_buffers()):
+            assert rel_err(a.cpu(), b) <= 1e-4, name
+    lr, far, total = args.lr, 0, 0
+    for side in ("pG", "pD"):
+        for name, a in card[side].items():
+            b = cpu[side][name].detach()
+            diff = (a.detach().cpu() - b).abs()
+            assert diff.max().item() <= 2 * lr * 1.001, name
+            far += int((diff > 1e-4 * (b.abs().max() + 1)).sum())
+            total += diff.numel()
+    assert far <= 1e-3 * total, (far, total)

@@ -1,0 +1,90 @@
+"""Public names the ported modules lacked, and the threefry primitives'
+default device, each against the JAX object.
+
+- ``AmpModel.properties`` and ``AmpModel.unwrapped``;
+- ``DistributedDataParallel.unwrapped``;
+- ``ProcessGroup.group_size``: None for the world, the group length
+  otherwise (``size()`` is unchanged);
+- ``FusedAdam(amsgrad=True)`` raises the JAX package's ``RuntimeError``;
+- ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
+  on the card unless asked for the CPU, as ``jax.random`` draws on the
+  default device: without CUDA the default raises, and ``device="cpu"``
+  gives ``jax.random``'s bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import optax
+
+from apex_tpu import amp as jamp
+from apex_tpu import optimizers as joptimizers
+from apex_tpu import parallel as jparallel
+from apex_tpu.models import MLP as JaxMLP
+from apex_tpu_torch import amp, parallel
+from apex_tpu_torch.amp import _amp_state
+from apex_tpu_torch.models import MLP
+from apex_tpu_torch.ops import threefry
+from apex_tpu_torch.optimizers import FusedAdam, transforms
+
+
+@pytest.fixture(autouse=True)
+def restore_amp():
+    saved = _amp_state._amp_state.opt_properties
+    yield
+    _amp_state._amp_state.opt_properties = saved
+
+
+def test_amp_model_properties_and_unwrapped():
+    jmodule = JaxMLP(features=(8,))
+    jmodel, _ = jamp.initialize(jmodule, optax.sgd(0.1), opt_level="O2",
+                                verbosity=0)
+    module = MLP(features=(8,), device="cpu")
+    model, _ = amp.initialize(module, transforms.sgd(0.1), opt_level="O2",
+                              verbosity=0)
+    assert jmodel.unwrapped is jmodule and model.unwrapped is module
+    got, want = model.properties.options, jmodel.properties.options
+    assert set(got) == set(want)
+    for k in want:          # the half dtype is each framework's bfloat16
+        assert str(got[k]).replace("torch.", "") == str(
+            getattr(want[k], "__name__", want[k])), k
+    jddp = jparallel.DistributedDataParallel(jmodel)
+    ddp = parallel.DistributedDataParallel(model)
+    assert jddp.unwrapped is jmodel and ddp.unwrapped is model
+
+
+def test_process_group_size():
+    world = jparallel.ProcessGroup()
+    grouped = jparallel.ProcessGroup("data", ((0, 1), (2, 3)))
+    assert parallel.ProcessGroup().group_size is world.group_size is None
+    assert parallel.ProcessGroup(((0, 1), (2, 3))).group_size \
+        == grouped.group_size == 2
+
+
+def test_fused_adam_refuses_amsgrad():
+    with pytest.raises(RuntimeError) as want:
+        joptimizers.FusedAdam(amsgrad=True)
+    with pytest.raises(RuntimeError) as got:
+        FusedAdam(amsgrad=True)
+    assert str(got.value) == str(want.value) \
+        == "FusedAdam does not support the AMSGrad variant."
+
+
+def test_threefry_draws_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    key = threefry.PRNGKey(3)
+    for draw in (lambda: threefry.random_bits(key, (4,)),
+                 lambda: threefry.uniform(key, (4,)),
+                 lambda: threefry.bernoulli(key, 0.5, (4,))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            draw()
+    jkey = jax.random.PRNGKey(3)
+    np.testing.assert_array_equal(
+        threefry.random_bits(key, (4,), device="cpu").numpy()
+        .astype(np.uint32),
+        np.asarray(jax.random.bits(jkey, (4,), np.uint32)))
+    np.testing.assert_array_equal(
+        threefry.bernoulli(key, 0.5, (4,), device="cpu").numpy(),
+        np.asarray(jax.random.bernoulli(jkey, 0.5, (4,))))

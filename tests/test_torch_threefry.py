@@ -56,18 +56,18 @@ def test_key_operations_match_jax(seed):
 def test_bits_uniform_bernoulli_match_jax(shape):
     for seed in SEEDS:
         key, k = jax.random.PRNGKey(seed), tf.PRNGKey(seed)
-        bits = tf.random_bits(k, shape)
+        bits = tf.random_bits(k, shape, device="cpu")
         want = np.asarray(jax.random.bits(key, shape, jnp.uint32))
         assert bits.shape == want.shape
         np.testing.assert_array_equal(bits.numpy().astype(np.uint32), want)
-        u = tf.uniform(k, shape)
+        u = tf.uniform(k, shape, device="cpu")
         assert u.dtype == torch.float32
         np.testing.assert_array_equal(u.numpy(),
                                       np.asarray(jax.random.uniform(key,
                                                                     shape)))
         for p in (0.9, 1e-3):
             np.testing.assert_array_equal(
-                tf.bernoulli(k, p, shape).numpy(),
+                tf.bernoulli(k, p, shape, device="cpu").numpy(),
                 np.asarray(jax.random.bernoulli(key, p, shape)))
 
 
@@ -164,7 +164,7 @@ def test_dropout_matches_flax_dropout(dtype, shape, rate):
                                   np.asarray(want.astype(jnp.float32)))
     np.testing.assert_array_equal(xt.grad.float().numpy(),
                                   np.asarray(want_g.astype(jnp.float32)))
-    keep = tf.bernoulli(k, 1.0 - rate, shape)
+    keep = tf.bernoulli(k, 1.0 - rate, shape, device="cpu")
     assert torch.equal(got != 0, keep & (xt != 0))
 
 
