@@ -41,13 +41,17 @@ size, so the average over the ranks is the loss of the global batch.
 Start the ranks with ``python -m apex_tpu_torch.parallel.multiproc``;
 rank r draws its batches from ``RandomState(r)``.
 
-Not here: ``--ring-attention``/``--sp-attention``, ``--remat``,
-``--moe`` and ``--pp``.
+``--remat`` rematerialises each encoder layer in the backward
+(``BertConfig.remat``), as the JAX example's flag does.
+
+Not here: ``--ring-attention``/``--sp-attention``, ``--moe`` and
+``--pp``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 import types
 from typing import Callable, Dict, Iterator, Mapping, Optional
@@ -268,7 +272,7 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
           attention_fn: Optional[Callable] = None,
           deterministic: bool = True, seed: int = 0, device="cuda",
           print_freq: int = 0, grad_accum: int = 1, ddp: bool = False,
-          data: Optional[Iterator] = None) -> dict:
+          data: Optional[Iterator] = None, remat: bool = False) -> dict:
     """Train ``steps`` steps of ``batch`` rows on this rank; returns
     per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
     around each step, ended by reading the loss), ``tokens_per_s`` per
@@ -277,9 +281,12 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
     (``deterministic=False``) takes step i's key from :func:`step_key`
     ``(seed, i)``.  ``ddp`` averages the gradients over the ranks of the
     default process group (parameters start as rank 0's); ``data``
-    (host batches) defaults to :func:`batches` from ``RandomState(rank)``."""
+    (host batches) defaults to :func:`batches` from ``RandomState(rank)``.
+    ``remat`` rematerialises each encoder layer in the backward."""
     dev = resolve_device(device)
     check_grad_accum(batch, grad_accum)
+    if remat:
+        cfg = dataclasses.replace(cfg, remat=True)
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, max_grad_norm=max_grad_norm, opt_level=opt_level,
         loss_scale=loss_scale, attention_fn=attention_fn, device=dev,
@@ -338,6 +345,8 @@ def parse_args(argv=None):
                    help="accumulate grads over A microbatches a step (amp's "
                    "unscale-with-stashed protocol; an overflow in any "
                    "microbatch skips the whole update)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize encoder layers in the backward")
     return p.parse_args(argv)
 
 
@@ -350,12 +359,14 @@ def main(argv=None):
     world = dist.get_world_size() if dist.is_initialized() else 1
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
                 f"{args.config}, world size {world}, batch {args.b} per "
-                f"rank, grad-accum {args.grad_accum}", rank0=True)
+                f"rank, grad-accum {args.grad_accum}, remat {args.remat}",
+                rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, max_grad_norm=args.max_grad_norm,
                 opt_level=args.opt_level, loss_scale=args.loss_scale,
                 mask_prob=args.mask_prob, print_freq=args.print_freq,
-                grad_accum=args.grad_accum, ddp=world > 1)
+                grad_accum=args.grad_accum, ddp=world > 1,
+                remat=args.remat)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)

@@ -6,14 +6,20 @@ from ``numpy.random.RandomState(0)``, as the JAX example makes them),
 attention through ``make_flash_attention(causal=True)``, amp O0-O3
 with the dynamic loss scale, ``FusedAdam`` with the flat layout.  The
 step is the JAX example's ``train_step`` with ``deterministic=True``
-(no dropout).
+(no dropout); ``--remat`` rematerialises each block in the backward
+(``GPTConfig.remat``), as the JAX example's flag does.
 
     python -m apex_tpu_torch.examples.gpt_main_amp --config small
     python -m apex_tpu_torch.examples.gpt_main_amp --config tiny \\
         --b 2 --seq-len 64 --steps 3          # needs a card as well
 
 :func:`train` is the same loop as a function; it takes ``device="cpu"``
-for a run on the plain PyTorch versions of the kernels.
+for a run on the plain PyTorch versions of the kernels, and
+``deterministic=False`` for the model's dropout (0.1 hidden and 0.1
+attention at GPT-2's configurations, attention dropout inside the
+flash kernels), step i keyed ``fold_in(PRNGKey(seed), i)``
+(``bert_main_amp.step_key``: the JAX example trains deterministically
+and fixes no rule).
 
 Data parallel: one process per GPU, as the ImageNet twin, ``--b`` the
 batch of each rank (the JAX example's ``--b`` is the global batch of
@@ -22,8 +28,8 @@ gradients before ``optimizer.step``.  Start the ranks with ``python -m
 apex_tpu_torch.parallel.multiproc``; rank r draws its batches from
 ``RandomState(r)``.
 
-Not here yet: ``--sp``, ``--tp`` and ``--remat`` (sequence and tensor
-parallelism, rematerialisation).
+Not here yet: ``--sp`` and ``--tp`` (sequence and tensor
+parallelism).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch.distributed as dist
 
 from apex_tpu_torch import amp
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.examples.bert_main_amp import step_key
 from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel, gpt_medium, \
     gpt_small, lm_loss
 from apex_tpu_torch.ops import make_flash_attention
@@ -91,13 +98,17 @@ def build(cfg: GPTConfig, *, lr: float = 3e-4, opt_level: str = "O2",
 
 
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
-               ids: torch.Tensor, ddp=None):
+               ids: torch.Tensor, ddp=None, *, deterministic: bool = True,
+               dropout_key=None):
     """One step of the JAX example's ``train_step``: loss, scaled
     gradients (averaged over the ranks by ``ddp``, a
-    ``DistributedDataParallel``, when given), ``optimizer.step``.
-    Returns ``(params, opt_state, loss, grads)`` with the loss unscaled
-    (this rank's) and the grads as autograd gave them (scaled)."""
-    logits = model.apply(params, ids)
+    ``DistributedDataParallel``, when given), ``optimizer.step``;
+    ``dropout_key`` (a threefry key) keys the dropout when
+    ``deterministic`` is False.  Returns ``(params, opt_state, loss,
+    grads)`` with the loss unscaled (this rank's) and the grads as
+    autograd gave them (scaled)."""
+    logits = model.apply(params, ids, deterministic=deterministic,
+                         dropout_key=dropout_key)
     loss = lm_loss(logits, ids)
     with amp.scale_loss(loss, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
@@ -113,7 +124,8 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
           loss_scale=None, device="cuda", seed: int = 0,
           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
           print_freq: int = 0, ddp: bool = False,
-          data: Optional[Iterator[np.ndarray]] = None) -> dict:
+          data: Optional[Iterator[np.ndarray]] = None, remat: bool = False,
+          deterministic: bool = True) -> dict:
     """Train ``steps`` steps of ``batch`` rows on this rank; returns
     per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
     around each step, ended by reading the loss), ``tokens_per_s`` per
@@ -121,8 +133,13 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
     ``skipped_steps``, ``applied_steps``) and ``params``.  ``ddp``
     averages the gradients over the ranks of the default process group
     (parameters start as rank 0's); ``data`` (host batches of ids)
-    defaults to :func:`batches` from ``RandomState(rank)``."""
+    defaults to :func:`batches` from ``RandomState(rank)``.  ``remat``
+    rematerialises each block in the backward; ``deterministic=False``
+    trains with the model's dropout, step i keyed ``step_key(seed,
+    i)``."""
     dev = resolve_device(device)
+    if remat:
+        cfg = dataclasses.replace(cfg, remat=True)
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, opt_level=opt_level, loss_scale=loss_scale, device=dev,
         seed=seed, state_dict=state_dict)
@@ -137,8 +154,10 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
     for step in range(steps):
         ids = torch.from_numpy(next(data)).to(dev)
         t0 = time.perf_counter()
-        params, opt_state, loss, _ = train_step(model, optimizer, params,
-                                                opt_state, ids, wrapper)
+        params, opt_state, loss, _ = train_step(
+            model, optimizer, params, opt_state, ids, wrapper,
+            deterministic=deterministic,
+            dropout_key=None if deterministic else step_key(seed, step))
         losses.append(float(loss))      # waits for the step to finish
         seconds.append(time.perf_counter() - t0)
         if print_freq and (step % print_freq == 0 or step == steps - 1):
@@ -167,6 +186,8 @@ def parse_args(argv=None):
                    choices=["O0", "O1", "O2", "O3"])
     p.add_argument("--loss-scale", default=None)
     p.add_argument("--print-freq", type=int, default=5)
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize each block in the backward")
     return p.parse_args(argv)
 
 
@@ -177,12 +198,13 @@ def main(argv=None):
     dev = resolve_device("cuda")
     world = dist.get_world_size() if dist.is_initialized() else 1
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
-                f"{args.config}, seq: {args.seq_len}, flash: True, world "
-                f"size {world}, batch {args.b} per rank", rank0=True)
+                f"{args.config}, seq: {args.seq_len}, flash: True, remat: "
+                f"{args.remat}, world size {world}, batch {args.b} per rank",
+                rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, opt_level=args.opt_level,
                 loss_scale=args.loss_scale, print_freq=args.print_freq,
-                ddp=world > 1)
+                ddp=world > 1, remat=args.remat)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)

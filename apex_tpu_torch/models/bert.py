@@ -38,9 +38,14 @@ same key drops the same positions in both packages:
 The keys depend only on the step key, the paths and the counts, so
 they are computed on the host: nothing syncs.
 
-Not here: ``PipelinedBert``, MoE layers, remat, the
-``BertEmbeddings``/``BertStage``/``BertHeads`` split and
-``load_hf_bert``.
+``BertConfig.remat`` rematerialises each encoder layer in the backward
+(``models/_remat.py``: ``torch.utils.checkpoint``, non-reentrant), as
+``nn.remat`` does in the JAX model; the recompute draws the forward's
+dropout keys, so the gradients equal those without remat bit for bit.
+
+Not here: ``PipelinedBert``, MoE layers and the
+``BertEmbeddings``/``BertStage``/``BertHeads`` split.  HuggingFace
+checkpoints load through ``utils.load_hf_bert``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.models._remat import remat as remat_layer
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import threefry
 
@@ -72,6 +78,8 @@ class BertConfig:
     attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
+    # rematerialize each encoder layer in the backward (training only)
+    remat: bool = False
 
 
 def bert_base() -> BertConfig:
@@ -104,6 +112,28 @@ def dot_product_attention(q, k, v, bias=None, dropout_fn=None):
     if dropout_fn is not None:
         probs = dropout_fn(probs)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_dropout_fn(dropout, scope, fused: bool, attention_seed,
+                         device):
+    """The ``dropout_fn`` an attention hands its ``attention_fn``: its
+    ``Dropout_0`` (``dropout``, a ``threefry.Dropout``) on the probs,
+    keyed from the attention's ``scope``.  A ``fused`` adapter cannot
+    call a probs -> probs closure (the probs are never materialized):
+    it consumes ``.rate`` and ``.seed``, the scope's per-call seed
+    (``attention_seed`` when the caller drew it already), drawn on the
+    host and put on ``device`` by a copy that does not sync."""
+    drop = scope.push("Dropout_0")
+
+    def dropout_fn(p):
+        return dropout(p, drop.make_rng())
+
+    if fused:
+        if attention_seed is None:
+            attention_seed = threefry.attention_seeds([scope], device)[0]
+        dropout_fn.rate = dropout.rate
+        dropout_fn.seed = attention_seed
+    return dropout_fn
 
 
 def _linear(n_in, n_out, dev, dtype):
@@ -144,25 +174,10 @@ class BertSelfAttention(nn.Module):
         q, k, v = (proj(x).view(b, s, nh, h // nh)
                    for proj in (self.query, self.key, self.value))
         dropout_fn = None
-        rate = cfg.attention_probs_dropout_prob
-        if rate > 0 and not deterministic:
-            scope = _scope(dropout_key)
-            drop = scope.push("Dropout_0")
-
-            def dropout_fn(p):
-                return self.dropout(p, drop.make_rng())
-
-            if self.attention_fn is not None:
-                # fused adapters cannot call a probs -> probs closure
-                # (the probs are never materialized): they consume the
-                # rate and this layer's per-call seed, drawn from the
-                # attention's scope on the host and on the card by a
-                # copy that does not sync
-                if attention_seed is None:
-                    attention_seed = threefry.attention_seeds(
-                        [scope], x.device)[0]
-                dropout_fn.rate = rate
-                dropout_fn.seed = attention_seed
+        if cfg.attention_probs_dropout_prob > 0 and not deterministic:
+            dropout_fn = attention_dropout_fn(
+                self.dropout, _scope(dropout_key),
+                self.attention_fn is not None, attention_seed, x.device)
         attn = self.attention_fn or dot_product_attention
         ctx = attn(q, k, v, bias=attn_bias, dropout_fn=dropout_fn)
         return self.output(ctx.reshape(b, s, h))
@@ -175,6 +190,15 @@ def _dropout_scope(cfg, deterministic, dropout_key):
                          and cfg.attention_probs_dropout_prob == 0.0):
         return None
     return _scope(dropout_key)
+
+
+def _drop(module, x, scope):
+    """``module`` (a ``threefry.Dropout``) on x, keyed by the next draw
+    of ``scope``'s ``Dropout_0``; x as it is without a scope or at rate
+    0 (flax draws nothing then)."""
+    if scope is None or module.rate == 0.0:
+        return x
+    return module(x, scope.push("Dropout_0").make_rng())
 
 
 class BertLayer(nn.Module):
@@ -204,14 +228,9 @@ class BertLayer(nn.Module):
             x, attn_bias, deterministic,
             None if scope is None else scope.push("attention"),
             attention_seed)
-        x = self.attention_ln(x + self._drop(attn_out, scope))
+        x = self.attention_ln(x + _drop(self.drop, attn_out, scope))
         y = self.output(F.gelu(self.intermediate(x)))   # exact erf gelu
-        return self.output_ln(x + self._drop(y, scope))
-
-    def _drop(self, x, scope):
-        if scope is None or self.drop.rate == 0.0:
-            return x
-        return self.drop(x, scope.push("Dropout_0").make_rng())
+        return self.output_ln(x + _drop(self.drop, y, scope))
 
 
 class BertEncoder(nn.Module):
@@ -247,9 +266,7 @@ class BertEncoder(nn.Module):
         x = self.embeddings_ln(self.word_embeddings(input_ids)
                                + self.position_embeddings(pos)
                                + self.token_type_embeddings(token_type_ids))
-        if scope is None or self.embeddings_dropout.rate == 0.0:
-            return x
-        return self.embeddings_dropout(x, scope.push("Dropout_0").make_rng())
+        return _drop(self.embeddings_dropout, x, scope)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None):
@@ -269,9 +286,14 @@ class BertEncoder(nn.Module):
             # every layer's attention seed in one copy to the device
             seeds = threefry.attention_seeds(
                 [sc.push("attention") for sc in scopes], x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(n):
-            x = getattr(self, f"layer_{i}")(x, attn_bias, deterministic,
-                                            scopes[i], seeds[i])
+            layer = getattr(self, f"layer_{i}")
+            if remat:
+                x = remat_layer(layer, scopes[i], x, attn_bias,
+                                deterministic, attention_seed=seeds[i])
+            else:
+                x = layer(x, attn_bias, deterministic, scopes[i], seeds[i])
         return x
 
 

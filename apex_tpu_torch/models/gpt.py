@@ -14,17 +14,39 @@ runs on the quantized grid.
 
 The training forward (no cache views) is differentiable end to end,
 the kernels included (their autograd functions), and :func:`lm_loss` is
-the next-token cross entropy in fp32.  It trains as the JAX example's
-step does, with ``deterministic=True``: no dropout.
+the next-token cross entropy in fp32.
 
-Not here: dropout, remat and the pipelined and tensor-parallel
-variants — later slices.
+Dropout draws from flax's ``dropout`` rng stream as the JAX model does
+(the same rule as ``models/bert.py``): ``forward(...,
+deterministic=False, dropout_key=key)`` takes the key the JAX model
+takes as ``rngs={"dropout": key}``, and each draw is keyed by its flax
+module path and call count (``ops/threefry.py``), so the same key drops
+the same positions in both packages:
+
+- hidden dropout: the embeddings' ``Dropout_0`` at the model's root,
+  and each block's one ``Dropout_0`` (``block_<i>``), called on the
+  attention output and then on the MLP output;
+- attention dropout: with a custom ``attention_fn``, each block's int32
+  seed ``randint(make_rng("dropout"), (), 0, int32 max)`` at the
+  attention's scope, handed over as ``dropout_fn.rate`` / ``.seed``
+  (all blocks' seeds drawn on the host and moved to the card in one
+  ``non_blocking`` copy from pinned memory); the default attention
+  applies the attention's own ``Dropout_0`` to its probs.
+
+``GPTConfig.remat`` rematerialises each block in the backward
+(``models/_remat.py``: ``torch.utils.checkpoint``, non-reentrant), as
+``nn.remat`` does in the JAX model, when training (no ``return_kv``, no
+cache views).  The recompute draws the forward's dropout keys (the
+block runs on a fork of its scope's counters, and the attention seeds
+are drawn before the blocks), so the gradients equal those without
+remat bit for bit.
+
+Not here: the pipelined and tensor-parallel variants.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -33,11 +55,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.models._remat import remat as remat_block
+from apex_tpu_torch.models.bert import _drop, _dropout_scope, \
+    attention_dropout_fn, dot_product_attention
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.decode_attention import (
     cached_attention,
     chunk_cached_attention,
 )
+from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 
 NEG_INF = -1e9
@@ -55,6 +81,8 @@ class GPTConfig:
     attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
+    # rematerialize each block in the backward (training only)
+    remat: bool = False
 
 
 def gpt_small() -> GPTConfig:
@@ -67,29 +95,16 @@ def gpt_medium() -> GPTConfig:
                      num_attention_heads=16, intermediate_size=4096)
 
 
-def dot_product_attention(q, k, v, bias=None):
-    """(B, S, H, D) -> (B, S, H, D); softmax in fp32 — the twin of
-    ``apex_tpu.models.bert.dot_product_attention``."""
-    d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
-    scores = scores.float()
-    if bias is not None:
-        scores = scores + bias
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
 def causal_dot_product_attention(q, k, v, bias=None, dropout_fn=None):
     """The default attention path: the causal mask folded into the
-    additive bias, then :func:`dot_product_attention`."""
-    if dropout_fn is not None:
-        raise NotImplementedError("attention dropout is not ported yet")
+    additive bias, then ``bert.dot_product_attention`` (fp32 softmax,
+    ``dropout_fn`` on the probs), as the JAX model delegates."""
     sq, sk = q.shape[1], k.shape[1]
     pos_q = torch.arange(sq, device=q.device)
     pos_k = torch.arange(sk, device=q.device)
     cmask = torch.where(pos_q[:, None] >= pos_k[None, :], 0.0, NEG_INF)
     bias = cmask[None, None] if bias is None else bias + cmask[None, None]
-    return dot_product_attention(q, k, v, bias=bias)
+    return dot_product_attention(q, k, v, bias=bias, dropout_fn=dropout_fn)
 
 
 class GPTSelfAttention(nn.Module):
@@ -104,9 +119,11 @@ class GPTSelfAttention(nn.Module):
         self.key = nn.Linear(h, h, device=dev, dtype=dtype)
         self.value = nn.Linear(h, h, device=dev, dtype=dtype)
         self.output = nn.Linear(h, h, device=dev, dtype=dtype)
+        self.dropout = threefry.Dropout(cfg.attention_probs_dropout_prob)
 
     def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False,
-                kv_quant: bool = False):
+                kv_quant: bool = False, dropout_key=None,
+                attention_seed=None):
         """``cache_view``: ``(k_ctx, v_ctx, ctx_bias)`` with k/v_ctx
         (B, T, H, D) gathered cache context and ctx_bias (B, T).  A single
         new token (decode) attends [context; self] through
@@ -122,7 +139,14 @@ class GPTSelfAttention(nn.Module):
         the compute dtype (the attention ops widen at read).  Without a
         cache view, ``attention_fn`` attends the dequantized K/V.
         ``return_kv`` then returns ``((k_q, k_scale), (v_q,
-        v_scale))``."""
+        v_scale))``.
+
+        ``dropout_key``: the attention's flax scope (or a key for a
+        standalone call) when attention dropout is on; its
+        ``Dropout_0`` drops the default path's probs, and a custom
+        ``attention_fn`` gets the rate and the scope's per-call seed
+        (``attention_seed`` when already drawn: a 0-d int32 tensor on
+        the model's device)."""
         b, s, h = x.shape
         nh = self.num_heads
         q = self.query(x).view(b, s, nh, h // nh)
@@ -158,7 +182,12 @@ class GPTSelfAttention(nn.Module):
                 k = dequantize_kv(k_q, k_s, k.dtype)
                 v = dequantize_kv(v_q, v_s, v.dtype)
             attn = self.attention_fn or causal_dot_product_attention
-            ctx = attn(q, k, v, bias=attn_bias)
+            dropout_fn = None
+            if dropout_key is not None and self.dropout.rate > 0:
+                dropout_fn = attention_dropout_fn(
+                    self.dropout, threefry.RngScope.of(dropout_key),
+                    self.attention_fn is not None, attention_seed, x.device)
+            ctx = attn(q, k, v, bias=attn_bias, dropout_fn=dropout_fn)
         out = self.output(ctx.reshape(b, s, h))
         if return_kv:
             return out, kv_out
@@ -166,7 +195,9 @@ class GPTSelfAttention(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN: x + Attn(LN(x)); x + MLP(LN(x))."""
+    """Pre-LN: x + drop(Attn(LN(x))); x + drop(MLP(LN(x))), ``drop`` one
+    module (flax's ``Dropout_0`` of the block) called twice.
+    ``dropout_key`` is the block's flax scope when dropout is on."""
 
     def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
                  *, device="cuda", dtype: torch.dtype = torch.float32):
@@ -181,20 +212,27 @@ class GPTBlock(nn.Module):
                                 dtype=dtype)
         self.mlp_out = nn.Linear(cfg.intermediate_size, h, device=dev,
                                  dtype=dtype)
+        self.drop = threefry.Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False,
-                kv_quant: bool = False):
+                kv_quant: bool = False, dropout_key=None,
+                attention_seed=None):
+        scope = None if dropout_key is None \
+            else threefry.RngScope.of(dropout_key)
         h = self.attention(self.attn_ln(x), attn_bias, cache_view=cache_view,
-                           return_kv=return_kv, kv_quant=kv_quant)
+                           return_kv=return_kv, kv_quant=kv_quant,
+                           dropout_key=None if scope is None
+                           else scope.push("attention"),
+                           attention_seed=attention_seed)
         kv = None
         if return_kv:
             h, kv = h
-        x = x + h
+        x = x + _drop(self.drop, h, scope)
         h = self.mlp_out(F.gelu(self.mlp_in(self.mlp_ln(x)),
                                 approximate="tanh"))
         if return_kv:
-            return x + h, kv
-        return x + h
+            return x + _drop(self.drop, h, scope), kv
+        return x + _drop(self.drop, h, scope)
 
 
 class GPTLMHeadModel(nn.Module):
@@ -234,6 +272,8 @@ class GPTLMHeadModel(nn.Module):
             for _ in range(cfg.num_hidden_layers))
         self.final_ln = FusedLayerNorm(h, eps=cfg.layer_norm_eps, device=dev,
                                        dtype=dtype)
+        self.embed_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
+        self.attention_fn = attention_fn
         if seed is not None:
             self.reset_parameters(seed)
 
@@ -252,15 +292,35 @@ class GPTLMHeadModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, positions=None,
                 cache_views=None, return_kv: bool = False,
-                kv_quant: bool = False):
+                kv_quant: bool = False, deterministic: bool = True,
+                dropout_key=None):
+        """``dropout_key``: the key the JAX model takes as
+        ``rngs={"dropout": key}``; needed when ``deterministic`` is False
+        and a dropout rate is above 0."""
+        cfg = self.cfg
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :]
-        x = self.wte(input_ids) + self.wpe(positions)
+        scope = _dropout_scope(cfg, deterministic, dropout_key)
+        x = _drop(self.embed_dropout, self.wte(input_ids)
+                  + self.wpe(positions), scope)
         bias = None
         if attention_mask is not None:
             bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
                                NEG_INF).float()
+        n = cfg.num_hidden_layers
+        scopes = [None if scope is None else scope.push(f"block_{i}")
+                  for i in range(n)]
+        seeds = [None] * n
+        if scope is not None and self.attention_fn is not None \
+                and cfg.attention_probs_dropout_prob > 0 \
+                and cache_views is None:
+            # every block's attention seed in one copy to the device,
+            # drawn before any block runs (so a recompute draws none)
+            seeds = threefry.attention_seeds(
+                [sc.push("attention") for sc in scopes], x.device)
+        remat = cfg.remat and not return_kv and cache_views is None \
+            and torch.is_grad_enabled()
         kvs = []
         for i, block in enumerate(self.blocks):
             cv = None
@@ -269,10 +329,15 @@ class GPTLMHeadModel(nn.Module):
                 cv = (k_ctx[i], v_ctx[i], ctx_bias, *(t[i] for t in scales))
             if return_kv:
                 x, kv = block(x, bias, cache_view=cv, return_kv=True,
-                              kv_quant=kv_quant)
+                              kv_quant=kv_quant, dropout_key=scopes[i],
+                              attention_seed=seeds[i])
                 kvs.append(kv)
+            elif remat:
+                x = remat_block(block, scopes[i], x, bias, kv_quant=kv_quant,
+                                attention_seed=seeds[i])
             else:
-                x = block(x, bias, cache_view=cv, kv_quant=kv_quant)
+                x = block(x, bias, cache_view=cv, kv_quant=kv_quant,
+                          dropout_key=scopes[i], attention_seed=seeds[i])
         x = self.final_ln(x)
         logits = F.linear(x, self.wte.weight).float()  # weight-tied head
         if return_kv:

@@ -13,6 +13,7 @@ from apex_tpu_torch.ops.flash_attention import (
 from apex_tpu_torch.ops.flatten import (
     FlatSpec,
     flatten,
+    flatten_grouped,
     flatten_like,
     unflatten,
 )
@@ -28,7 +29,8 @@ from apex_tpu_torch.ops.sampling import finite_rows, greedy_argmax
 
 __all__ = ["FlatSpec", "INT8_QMAX", "bias_to_kv_mask", "cached_attention",
            "chunk_cached_attention", "dequantize_kv", "dropout_params",
-           "finite_rows", "flash_attention", "flatten", "flatten_like",
+           "finite_rows", "flash_attention", "flatten", "flatten_grouped",
+           "flatten_like",
            "greedy_argmax", "keep_from_seed", "make_flash_attention",
            "multi_tensor_axpby", "multi_tensor_l2norm",
            "multi_tensor_scale", "multi_tensor_unscale", "quantize_kv",

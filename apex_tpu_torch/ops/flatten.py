@@ -8,14 +8,16 @@ updates every parameter in one launch.  :func:`unflatten` returns
 and the buffer share memory and an in-place update of the buffer is an
 update of every leaf.
 
-Not here yet: ``flatten_grouped`` and the grouped layout
-(``FlatSpec.perm``/``group_bounds``), which come with FusedAdam's
-``param_groups``.
+:func:`flatten_grouped` lays the buffer out group by group (FusedAdam's
+``param_groups``): each group's leaves are one contiguous slice, in
+tree order within the group, and ``FlatSpec.perm`` and ``group_bounds``
+record the layout; ``offsets`` stay indexed by tree position, so
+:func:`unflatten` needs nothing else.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -24,13 +26,17 @@ Tree = Any
 
 
 class FlatSpec(NamedTuple):
-    """Metadata needed to invert :func:`flatten`."""
+    """Metadata needed to invert :func:`flatten`.  ``perm`` is the
+    buffer order of the leaves (empty: tree order, one implicit group),
+    ``group_bounds`` each group's ``(start, size)`` slice."""
 
     treedef: Any
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
     offsets: Tuple[int, ...]  # start offset of each leaf in the buffer
     total: int                # logical element count (without padding)
+    perm: Tuple[int, ...] = ()
+    group_bounds: Tuple[Tuple[int, int], ...] = ()
 
 
 def _numel(shape) -> int:
@@ -79,10 +85,45 @@ def flatten(tree: Tree, dtype=None, pad_to: int = 1):
     return flat, spec
 
 
+def flatten_grouped(tree: Tree, group_ids: Sequence[int], dtype=None,
+                    pad_to: int = 1):
+    """Like :func:`flatten`, but group by group: ``group_ids`` gives each
+    leaf's group (tree order, groups numbered 0..max), and each group's
+    leaves become one contiguous slice, in tree order within it.  Only
+    the total is padded.  Returns ``(flat, spec)``."""
+    leaves, treedef = pytree.tree_flatten(tree)
+    if len(group_ids) != len(leaves):
+        raise ValueError(f"{len(group_ids)} group ids for {len(leaves)} "
+                         "leaves")
+    if not leaves:
+        return (torch.zeros((0,), dtype=dtype or torch.float32),
+                FlatSpec(treedef, (), (), (), 0))
+    if dtype is None:
+        dtype = _result_dtype(leaves)
+    perm = tuple(sorted(range(len(leaves)),
+                        key=lambda i: (group_ids[i], i)))
+    shapes = tuple(tuple(x.shape) for x in leaves)
+    offsets = [0] * len(leaves)
+    bounds, cursor = [], 0
+    for g in range(max(group_ids) + 1):
+        start = cursor
+        for i in perm:
+            if group_ids[i] == g:
+                offsets[i] = cursor
+                cursor += _numel(shapes[i])
+        bounds.append((start, cursor - start))
+    flat = _pad_flat(torch.cat([leaves[i].detach().to(dtype).reshape(-1)
+                                for i in perm]), pad_to)
+    spec = FlatSpec(treedef, shapes, tuple(x.dtype for x in leaves),
+                    tuple(offsets), cursor, perm, tuple(bounds))
+    return flat, spec
+
+
 def flatten_like(tree: Tree, spec: FlatSpec, dtype=None,
                  pad_to: int = 1) -> torch.Tensor:
     """Flatten ``tree`` (with ``spec``'s structure) into a new 1-D buffer
-    in ``spec``'s layout, without rebuilding the spec."""
+    in ``spec``'s layout (grouped where it is), without rebuilding the
+    spec."""
     leaves, treedef = pytree.tree_flatten(tree)
     if treedef != spec.treedef:
         raise ValueError("tree does not match the spec's structure")
@@ -90,6 +131,8 @@ def flatten_like(tree: Tree, spec: FlatSpec, dtype=None,
         return torch.zeros((0,), dtype=dtype or torch.float32)
     if dtype is None:
         dtype = _result_dtype(leaves)
+    if spec.perm:
+        leaves = [leaves[i] for i in spec.perm]
     return _pad_flat(torch.cat([x.detach().to(dtype).reshape(-1)
                                 for x in leaves]), pad_to)
 

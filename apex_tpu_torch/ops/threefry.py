@@ -195,7 +195,11 @@ class RngScope:
     same tree (shared, keyed by path).  :meth:`push` is ``Scope.push``
     (a child named ``name``); :meth:`make_rng` is ``Scope.make_rng``:
     the scope's counter advances by one and the key is the root key with
-    ``(*path, count)`` folded in, as ``LazyRng.as_jax_rng`` does."""
+    ``(*path, count)`` folded in, as ``LazyRng.as_jax_rng`` does.
+    :meth:`fork` copies the counters: a function that runs twice on one
+    input (a block rematerialised by ``torch.utils.checkpoint``) runs
+    each time on a fork of the same snapshot and draws the same keys, as
+    flax's ``nn.remat`` replays the same rngs."""
 
     def __init__(self, key, path: Tuple[str, ...] = (), counters=None):
         self.key = as_key(key)
@@ -211,6 +215,10 @@ class RngScope:
 
     def push(self, name: str) -> "RngScope":
         return RngScope(self.key, self.path + (name,), self._counters)
+
+    def fork(self) -> "RngScope":
+        """This scope with its own copy of the counters as they stand."""
+        return RngScope(self.key, self.path, dict(self._counters))
 
     def make_rng(self) -> Key:
         n = self._counters.get(self.path, 0) + 1

@@ -1,7 +1,7 @@
-"""FusedAdam — Adam over one flat fp32 buffer through a CUDA kernel (B1).
+"""FusedAdam — Adam over flat buffers or per leaf, through CUDA kernels (B1).
 
-Twin of ``apex_tpu/optimizers/fused_adam.py`` with the flat layout.  The
-update (``_adam_math`` there, reference ``fused_adam_cuda_kernel.cu``):
+Twin of ``apex_tpu/optimizers/fused_adam.py``.  The update
+(``_adam_math`` there, reference ``fused_adam_cuda_kernel.cu``):
 
     g     = grad / combined_scale
     m     = beta1*m + (1-beta1)*g
@@ -11,55 +11,84 @@ update (``_adam_math`` there, reference ``fused_adam_cuda_kernel.cu``):
 
 with ``step_size = lr * sqrt(1-beta2^t) / (1-beta1^t)`` under bias
 correction, ``t = max(step, 1)`` in fp32, computed with torch ops on the
-device.  ``step(..., skip=overflow)`` runs amp's skip-step inside the
-kernel: a skipped step leaves p, m, v and the step counter unchanged,
-and no value is read back to the host.
+device.  ``max_grad_norm`` folds into the combined scale (reference
+``fused_adam.py:98-104``): with ``clip = (norm / scale) /
+max_grad_norm``, the scale becomes ``clip * scale`` where ``clip > 1``,
+selected with ``torch.where`` on the device.  The norm is the group's
+(its slice of the flat buffer, or the sum of its leaves' sums of
+squares in the tree layout) unless ``step(grad_norm=...)`` gives one.
+``step(..., skip=overflow)`` runs amp's skip-step inside the kernels: a
+skipped step leaves p, m, v and the step counter unchanged, and no
+value is read back to the host.
 
-The port's flat layout differs from the JAX one in where the masters
-live: the state holds the flat fp32 parameter buffer ``p`` beside m and
-v, and ``step`` returns the parameters as *views* of it, so the kernel
-updates them in place and no unflatten copy is made.  Parameters that
-are not such views (the first step, or O3's half params) are copied in
-first, and half leaves are cast back out, as the JAX step does.  p, m
-and v are updated in place: a state passed to ``step`` is consumed.
+Layouts (``layout=``):
 
-Not here yet: ``max_grad_norm``, ``param_groups``, ``layout="tree"``,
-``add_param_group``, ``with_zero`` and ``output_params_dtype``.
+- ``"flat"``: m and v are flat fp32 buffers and the state also holds
+  the flat fp32 parameter buffer ``p`` (where the JAX state keeps none):
+  ``step`` returns the parameters as *views* of it, so the kernel
+  updates them in place and no unflatten copy is made.  Parameters
+  that are not such views (the first step, or O3's half params) are
+  copied in first, and half leaves are cast back out.  Without
+  ``param_groups`` one launch of the flat kernel updates the buffer;
+  with them the buffer is laid out group by group
+  (``ops.flatten_grouped``) and one launch of the multi-tensor kernel
+  updates every group's slice with its own hyperparameters.
+- ``"tree"``: m and v are trees shaped like the params, one segment per
+  leaf for the multi-tensor kernel, one launch a step.  fp32
+  contiguous parameters (amp O2's masters) are updated in place and
+  returned as they are; other leaves are updated in fp32 copies and
+  cast back.
+
+Either way p, m and v are updated in place: a state passed to ``step``
+is consumed.  ``param_groups`` (``optimizers.param_groups``) match the
+parameters' dotted names and override ``lr``, ``betas``, ``eps``,
+``weight_decay`` and ``max_grad_norm``.
+
+Not here yet: ``with_zero``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from apex_tpu_torch._kernels.build import Kernel, plain_path, stream_handle
-from apex_tpu_torch.ops.flatten import FlatSpec, flatten, flatten_like, \
-    unflatten
+from apex_tpu_torch.ops.flatten import FlatSpec, flatten, flatten_grouped, \
+    flatten_like, unflatten
+from apex_tpu_torch.optimizers.param_groups import group_hparams, \
+    leaf_paths, resolve_group_ids, validate_specs
 
 Tree = Any
 
 # the flat buffers are padded to a multiple of this many elements, so
-# the kernel's 128-bit (4-float) accesses divide them exactly
+# the flat kernel's 128-bit (4-float) accesses divide them exactly
 PAD_TO = 128
+
+# the multi-tensor kernel's chunk: at most this many elements of one
+# segment a row of its table
+_CHUNK = 65536
 
 _P = ctypes.c_void_p
 KERNEL = Kernel("fused_adam", "apex_fused_adam",
                 [_P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P])
+MULTI_KERNEL = Kernel("fused_adam_multi", "apex_fused_adam_multi",
+                      [_P, ctypes.c_int64, _P, ctypes.c_int, _P])
 
 
 class FusedAdamState(NamedTuple):
     step: torch.Tensor   # int32 0-d, steps taken (skipped ones excluded)
-    m: torch.Tensor      # fp32 flat
-    v: torch.Tensor      # fp32 flat
-    p: torch.Tensor      # fp32 flat master parameters
-    spec: FlatSpec
+    m: Any               # fp32 flat (flat layout) or a tree (tree layout)
+    v: Any
+    p: Optional[torch.Tensor]  # fp32 flat master parameters; None (tree)
+    spec: Optional[FlatSpec]   # the flat layout; None (tree)
 
 
 def _adam_plain(p, m, v, g, scalars, eps_inside_sqrt: bool):
-    """Plain PyTorch version of the kernel: returns new (p, m, v) from
+    """Plain PyTorch version of the kernels: returns new (p, m, v) from
     the 7 scalars [step_size, beta1, beta2, eps, combined_scale,
     weight_decay, keep]; ``keep`` selects new or old values with a
     where, never a blend (an overflowed g is inf/nan)."""
@@ -103,44 +132,190 @@ def adam_flat(p, m, v, g, scalars, eps_inside_sqrt: bool) -> None:
                   stream_handle(p.device))
 
 
+Segment = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]
+
+
+def adam_multi_plain(segments: Sequence[Segment], scalars,
+                     eps_inside_sqrt: bool) -> None:
+    """Plain PyTorch version of the multi-tensor kernel: each segment
+    ``(p, m, v, g, group)`` through :func:`_adam_plain` on its group's
+    row of ``scalars``, in place."""
+    for p, m, v, g, gid in segments:
+        new = _adam_plain(p, m, v, g, scalars[gid], eps_inside_sqrt)
+        for buf, val in zip((p, m, v), new):
+            buf.copy_(val)
+
+
+def _segment_rows(segments: Sequence[Segment], device_index: int):
+    """One ``(p, m, v, g, n, group)`` pointer row per segment, after
+    checking each tensor is 1-D, contiguous, float32, of its segment's
+    length and on the device ``device_index`` (``get_device()``: -1 for
+    the CPU).  fp32 data is 4-byte aligned by construction."""
+    rows = []
+    for p, m, v, g, gid in segments:
+        n = p.numel()
+        for t in (p, m, v, g):
+            if t.dtype is not torch.float32 or t.dim() != 1 \
+                    or t.numel() != n or not t.is_contiguous():
+                raise ValueError("adam_multi: p, m, v, g of a segment "
+                                 "must be contiguous 1-D float32 of one "
+                                 "length")
+            if t.get_device() != device_index:
+                raise ValueError("adam_multi: a segment lies on another "
+                                 "device than the scalars")
+        rows.append((p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
+                     n, gid))
+    return rows
+
+
+def _chunk_table(rows) -> np.ndarray:
+    """The kernel's chunk table from :func:`_segment_rows`: one int64 row
+    ``(p, m, v, g, n, group)`` per piece of at most ``_CHUNK`` elements of
+    a segment, the pointers advanced to the piece."""
+    rows = np.array(rows, dtype=np.int64).reshape(-1, 6)
+    pieces = -(-rows[:, 4] // _CHUNK)
+    table = np.repeat(rows, pieces, axis=0)
+    first = np.repeat(np.cumsum(pieces) - pieces, pieces)
+    start = (np.arange(len(table), dtype=np.int64) - first) * _CHUNK
+    table[:, :4] += 4 * start[:, None]
+    table[:, 4] = np.minimum(table[:, 4] - start, _CHUNK)
+    return np.ascontiguousarray(table)
+
+
+def adam_multi(segments: Sequence[Segment], scalars,
+               eps_inside_sqrt: bool) -> None:
+    """One Adam step over a list of segments ``(p, m, v, g, group)`` of
+    contiguous 1-D fp32 tensors of any length and 4-byte alignment, in
+    place, each with its group's row of the (G, 7) device ``scalars``:
+    one launch of the multi-tensor kernel for CUDA tensors (the chunk
+    table goes to the card by a ``non_blocking`` copy from pinned
+    memory, so nothing syncs), the plain version for CPU tensors."""
+    if scalars.ndim != 2 or scalars.shape[1] != 7 \
+            or scalars.dtype != torch.float32:
+        raise ValueError("adam_multi: scalars must be (G, 7) float32")
+    if any(not 0 <= s[4] < scalars.shape[0] for s in segments):
+        raise ValueError("adam_multi: a group has no scalars")
+    device_index = scalars.get_device()
+    if device_index >= 0 and scalars.device.type != "cuda":
+        raise ValueError(f"unsupported device {scalars.device}")
+    rows = _segment_rows(segments, device_index)
+    if not rows:
+        return
+    if device_index < 0:
+        adam_multi_plain(segments, scalars, eps_inside_sqrt)
+        return
+    host = torch.from_numpy(_chunk_table(rows))
+    table = host.pin_memory().to(scalars.device, non_blocking=True)
+    MULTI_KERNEL.launch(table.data_ptr(), table.shape[0],
+                        scalars.contiguous().data_ptr(),
+                        int(eps_inside_sqrt), stream_handle(scalars.device))
+
+
 def _full(x, device):
     return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
+def _scalar(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).reshape(())
+    return _full(x, device)
+
+
+def _to_len(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad a flat buffer to the state's length ``n``."""
+    if flat.shape[0] < n:
+        flat = torch.cat([flat, flat.new_zeros((n - flat.shape[0],))])
+    return flat
+
+
 class FusedAdam:
-    """Adam over flat buffers (reference ``fused_adam.py:5-49``): ``lr``,
-    ``bias_correction``, ``betas``, ``eps``, ``eps_inside_sqrt``,
-    ``weight_decay``.  ``init(params)`` and
-    ``step(params, grads, state, scale=1.0, skip=None)`` take trees
-    (e.g. a ``{name: tensor}`` dict) of parameters and gradients."""
+    """Adam over flat buffers or per leaf (reference ``fused_adam.py:5-49``):
+    ``lr``, ``bias_correction``, ``betas``, ``eps``, ``eps_inside_sqrt``,
+    ``weight_decay``, ``max_grad_norm``, ``amsgrad`` (refused, as the
+    reference does), ``param_groups``, ``pad_to`` (the flat buffers'
+    length multiple; the padding stays zero) and ``layout`` (``"flat"``
+    or ``"tree"``, see the module docstring).  ``init(params)``,
+    ``step(params, grads, state, ...)`` and the optax-style
+    ``update(grads, state, params, ...)`` take trees (e.g. a ``{name:
+    tensor}`` dict) of parameters and gradients."""
 
     # AmpOptimizer hands the overflow flag to step(skip=...): the
-    # skip-step select runs inside the kernel
+    # skip-step select runs inside the kernels
     supports_fused_skip = True
 
     def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  eps_inside_sqrt: bool = False, weight_decay: float = 0.0,
-                 amsgrad: bool = False):
+                 max_grad_norm: float = 0.0, amsgrad: bool = False,
+                 param_groups=None, pad_to: int = PAD_TO,
+                 layout: str = "flat"):
         if amsgrad:
             raise RuntimeError("FusedAdam does not support the AMSGrad "
                                "variant.")
+        if layout not in ("flat", "tree"):
+            raise ValueError(f"layout must be 'flat' or 'tree', "
+                             f"got {layout!r}")
+        self.layout = layout
         self.lr = float(lr)
         self.bias_correction = bias_correction
         self.betas = (float(betas[0]), float(betas[1]))
         self.eps = float(eps)
         self.eps_inside_sqrt = bool(eps_inside_sqrt)
         self.weight_decay = float(weight_decay)
+        self.max_grad_norm = float(max_grad_norm)
+        self.pad_to = int(pad_to)
+        self.param_groups = list(param_groups) if param_groups else []
+        if self.param_groups:
+            validate_specs(self.param_groups, self._defaults().keys(),
+                           "FusedAdam")
 
+    def _defaults(self):
+        return {"lr": self.lr, "betas": self.betas, "eps": self.eps,
+                "weight_decay": self.weight_decay,
+                "max_grad_norm": self.max_grad_norm}
+
+    def _clone(self, **overrides) -> "FusedAdam":
+        kw = dict(lr=self.lr, bias_correction=self.bias_correction,
+                  betas=self.betas, eps=self.eps,
+                  eps_inside_sqrt=self.eps_inside_sqrt,
+                  weight_decay=self.weight_decay,
+                  max_grad_norm=self.max_grad_norm,
+                  param_groups=self.param_groups, pad_to=self.pad_to,
+                  layout=self.layout)
+        kw.update(overrides)
+        return type(self)(**kw)
+
+    # -- state --------------------------------------------------------------
     def init(self, params: Tree) -> FusedAdamState:
-        flat, spec = flatten(params, dtype=torch.float32, pad_to=PAD_TO)
-        return FusedAdamState(
-            step=torch.zeros((), dtype=torch.int32, device=flat.device),
-            m=torch.zeros_like(flat), v=torch.zeros_like(flat), p=flat,
-            spec=spec)
+        leaves = [t for t in pytree.tree_leaves(params)
+                  if isinstance(t, torch.Tensor)]
+        device = leaves[0].device if leaves else torch.device("cpu")
+        step = torch.zeros((), dtype=torch.int32, device=device)
+        if self.layout == "tree":
+            def zeros(t):
+                return torch.zeros(t.shape, dtype=torch.float32,
+                                   device=t.device)
+            return FusedAdamState(step=step,
+                                  m=pytree.tree_map(zeros, params),
+                                  v=pytree.tree_map(zeros, params),
+                                  p=None, spec=None)
+        if self.param_groups:
+            ids = resolve_group_ids(params, self.param_groups)
+            flat, spec = flatten_grouped(params, ids, dtype=torch.float32,
+                                         pad_to=self.pad_to)
+            n_groups = len(self.param_groups) + 1
+            if len(spec.group_bounds) < n_groups:   # trailing empty groups
+                bounds = list(spec.group_bounds)
+                bounds += [(spec.total, 0)] * (n_groups - len(bounds))
+                spec = spec._replace(group_bounds=tuple(bounds))
+        else:
+            flat, spec = flatten(params, dtype=torch.float32,
+                                 pad_to=self.pad_to)
+        return FusedAdamState(step=step, m=torch.zeros_like(flat),
+                              v=torch.zeros_like(flat), p=flat, spec=spec)
 
     def params(self, state: FusedAdamState) -> Tree:
-        """The parameters as views of the state's master buffer (cast
+        """The parameters as views of the flat state's master buffer (cast
         back where a leaf is not fp32), ready for autograd."""
         with torch.no_grad():
             tree = unflatten(state.p, state.spec)
@@ -157,51 +332,226 @@ class FusedAdam:
             for t, shape, off in zip(leaves, state.spec.shapes,
                                      state.spec.offsets))
 
-    def _scalars(self, step, scale, keep):
+    # -- runtime group surgery ----------------------------------------------
+    def add_param_group(self, state: FusedAdamState, params: Tree, match,
+                        **overrides):
+        """Add a group mid-training (reference
+        ``_process_optimizer.py:333-407``): returns ``(new_optimizer,
+        new_state)`` where the leaves ``match`` finds take ``overrides``
+        (the new group comes first: first match wins) and every leaf
+        keeps its moments by name; ``params`` may hold new leaves, whose
+        moments start at zero."""
+        new_opt = self._clone(param_groups=[dict(match=match, **overrides)]
+                              + self.param_groups)
+        new_state = new_opt.init(params)
+        if self.layout == "tree":
+            trees = (state.m, state.v, new_state.m, new_state.v)
+        else:
+            trees = tuple(unflatten(buf, st.spec, cast_back=False)
+                          for st in (state, new_state)
+                          for buf in (st.m, st.v))
+        old_m, old_v, new_m, new_v = trees
+        old = {name: (m, v) for name, m, v in zip(
+            leaf_paths(old_m), pytree.tree_leaves(old_m),
+            pytree.tree_leaves(old_v))}
+        with torch.no_grad():
+            for name, m, v in zip(leaf_paths(params),
+                                  pytree.tree_leaves(new_m),
+                                  pytree.tree_leaves(new_v)):
+                if name in old and old[name][0].shape == m.shape:
+                    m.copy_(old[name][0])
+                    v.copy_(old[name][1])
+        return new_opt, new_state._replace(step=state.step.clone())
+
+    # -- optax-style update ---------------------------------------------------
+    def update(self, grads: Tree, state: FusedAdamState,
+               params: Optional[Tree] = None, *, scale=1.0, grad_norm=None,
+               skip=None):
+        """optax-style: returns ``(updates, new_state)`` with ``new_params
+        = params + updates`` (the updates in each param's dtype).  The
+        caller's params are left as they are; the state is consumed.
+        ``skip`` true gives zero updates and keeps the state's bits."""
+        if params is None:
+            raise ValueError("FusedAdam.update requires params")
+        with torch.no_grad():
+            if self.layout == "tree":
+                work = pytree.tree_map(lambda t: t.detach().clone(), params)
+                new, new_state = self._step_tree(work, grads, state, scale,
+                                                 grad_norm, skip)
+                return pytree.tree_map(
+                    lambda n, p: (n.detach() - p.detach()).to(p.dtype),
+                    new, params), new_state
+            if self._are_views(params, state):
+                # keep the caller's views of the buffer where they are
+                state = state._replace(p=state.p.clone())
+            old = _to_len(flatten_like(params, state.spec,
+                                       dtype=torch.float32), state.p.shape[0])
+            new_state = self._step_flat(params, grads, state, scale,
+                                        grad_norm, skip)
+            updates = unflatten(new_state.p - old, state.spec,
+                                cast_back=False)
+            return pytree.tree_map(lambda u, p: u.to(p.dtype), updates,
+                                   params), new_state
+
+    # -- apex-style step ------------------------------------------------------
+    def step(self, params: Tree, grads: Tree, state: FusedAdamState,
+             scale=1.0, grad_norm=None, output_params_dtype=None, skip=None):
+        """Apply one update; returns ``(params, state)``.  ``skip`` (a bool
+        or 0-d bool tensor): amp's overflow skip, selected inside the
+        kernels.  ``grad_norm``: the norm ``max_grad_norm`` clips by, in
+        place of each group's own.  ``output_params_dtype``: the params
+        come back cast to it (the reference's ``output_params`` copy)."""
+        with torch.no_grad():
+            if self.layout == "tree":
+                new, new_state = self._step_tree(params, grads, state, scale,
+                                                 grad_norm, skip)
+            else:
+                new_state = self._step_flat(params, grads, state, scale,
+                                            grad_norm, skip)
+                new = None
+        if output_params_dtype is not None:
+            if new is None:
+                new = unflatten(new_state.p, new_state.spec, cast_back=False)
+            return pytree.tree_map(
+                lambda t: t.detach().to(output_params_dtype), new), new_state
+        if new is None:
+            return self.params(new_state), new_state
+        return new, new_state
+
+    # -- core -----------------------------------------------------------------
+    def _keep_and_step(self, state, skip):
+        dev = state.step.device
+        if skip is None:
+            return _full(1.0, dev), state.step + 1
+        if not isinstance(skip, torch.Tensor):
+            skip = torch.full((), bool(skip), device=dev)
+        keep = 1.0 - skip.float().reshape(())
+        # a skipped step leaves the bias-correction clock alone
+        return keep, state.step + keep.to(torch.int32)
+
+    def _scalars(self, hp, step, scale, keep, norm_fn, grad_norm):
+        """One group's 7 device scalars; ``norm_fn()`` is the group's own
+        grad norm, computed only when ``max_grad_norm`` needs it."""
         dev = step.device
-        beta1, beta2 = self.betas
+        beta1, beta2 = hp["betas"]
+        scale_t = _scalar(scale, dev)
+        cs = scale_t
+        if hp["max_grad_norm"] > 0:
+            gn = _scalar(grad_norm, dev) if grad_norm is not None \
+                else norm_fn()
+            clip = (gn / scale_t) / hp["max_grad_norm"]
+            cs = torch.where(clip > 1, clip * scale_t, scale_t)
         if self.bias_correction:
             # a skipped first step leaves step at 0, where 1 - beta^0 = 0:
             # clamp to 1; that step_size only feeds a discarded result
             t = step.clamp_min(1).float()
-            step_size = self.lr * torch.sqrt(1.0 - torch.pow(beta2, t)) \
+            step_size = hp["lr"] * torch.sqrt(1.0 - torch.pow(beta2, t)) \
                 / (1.0 - torch.pow(beta1, t))
         else:
-            step_size = _full(self.lr, dev)
-        cs = (scale.float().reshape(()) if isinstance(scale, torch.Tensor)
-              else _full(scale, dev))
-        return torch.stack([step_size, _full(beta1, dev), _full(beta2, dev),
-                            _full(self.eps, dev), cs,
-                            _full(self.weight_decay, dev), keep])
+            step_size = _full(hp["lr"], dev)
+        return torch.stack([step_size.float(), _full(beta1, dev),
+                            _full(beta2, dev), _full(hp["eps"], dev), cs,
+                            _full(hp["weight_decay"], dev), keep])
 
     def _update(self, p, m, v, g, scalars) -> None:
         adam_flat(p, m, v, g, scalars, self.eps_inside_sqrt)
 
-    def step(self, params: Tree, grads: Tree, state: FusedAdamState,
-             scale=1.0, skip=None):
-        """Apply one update; returns ``(params, state)`` with params as
-        views of ``state.p``.  ``skip`` (a bool or 0-d bool tensor):
-        amp's overflow skip, selected inside the kernel."""
-        p = state.p
-        with torch.no_grad():
-            if not self._are_views(params, state):
-                p.copy_(flatten_like(params, state.spec, dtype=torch.float32,
-                                     pad_to=PAD_TO))
-            g = flatten_like(grads, state.spec, dtype=torch.float32,
-                             pad_to=PAD_TO)
-            if g.shape != p.shape:
-                raise ValueError(f"grads flatten to {g.numel()} elements, "
-                                 f"the state holds {p.numel()}")
-            if skip is None:
-                keep = _full(1.0, p.device)
-                step = state.step + 1
+    def _update_multi(self, segments, scalars) -> None:
+        adam_multi(segments, scalars, self.eps_inside_sqrt)
+
+    def _group_hps(self, n_groups: int):
+        hps = group_hparams(self._defaults(), self.param_groups)
+        if len(hps) == 1 and n_groups > 1:
+            # the state has a grouped layout but this optimizer declares
+            # no groups (a layout-only restore): every group takes the
+            # defaults
+            hps = hps * n_groups
+        elif len(hps) != n_groups:
+            raise ValueError(
+                f"optimizer declares {len(hps)} groups but the state's "
+                f"flat layout has {n_groups} — param_groups must match "
+                "the specs the state was init'd (or add_param_group'd) "
+                "with")
+        return hps
+
+    def _step_flat(self, params, grads, state: FusedAdamState, scale,
+                   grad_norm, skip) -> FusedAdamState:
+        p, spec = state.p, state.spec
+        n = p.shape[0]
+        # pad to the state's buffer length, not to pad_to: a restored
+        # state keeps its layout
+        if not self._are_views(params, state):
+            p.copy_(_to_len(flatten_like(params, spec, dtype=torch.float32),
+                            n))
+        g = _to_len(flatten_like(grads, spec, dtype=torch.float32), n)
+        if g.shape != p.shape:
+            raise ValueError(f"grads flatten to {g.numel()} elements, "
+                             f"the state holds {n}")
+        keep, step = self._keep_and_step(state, skip)
+
+        def norm_of(t):
+            return lambda: torch.sqrt(torch.sum(t * t))
+
+        if not spec.group_bounds:
+            scalars = self._scalars(self._group_hps(1)[0], step, scale, keep,
+                                    norm_of(g), grad_norm)
+            if n % 4 == 0:
+                self._update(p, state.m, state.v, g, scalars)
             else:
-                if not isinstance(skip, torch.Tensor):
-                    skip = torch.full((), bool(skip), device=p.device)
-                keep = 1.0 - skip.float().reshape(())
-                # a skipped step leaves the bias-correction clock alone
-                step = state.step + keep.to(torch.int32)
-            self._update(p, state.m, state.v, g,
-                         self._scalars(step, scale, keep))
-        new_state = state._replace(step=step)
-        return self.params(new_state), new_state
+                self._update_multi([(p, state.m, state.v, g, 0)],
+                                   scalars[None])
+        else:
+            hps = self._group_hps(len(spec.group_bounds))
+            scalars, segments = [], []
+            for gid, ((start, size), hp) in enumerate(
+                    zip(spec.group_bounds, hps)):
+                sl = slice(start, start + size)
+                scalars.append(self._scalars(hp, step, scale, keep,
+                                             norm_of(g[sl]), grad_norm))
+                if size:
+                    segments.append((p[sl], state.m[sl], state.v[sl], g[sl],
+                                     gid))
+            self._update_multi(segments, torch.stack(scalars))
+        return state._replace(step=step)
+
+    def _step_tree(self, params, grads, state: FusedAdamState, scale,
+                   grad_norm, skip):
+        p_leaves, treedef = pytree.tree_flatten(params)
+        g_leaves = pytree.tree_leaves(grads)
+        m_leaves = pytree.tree_leaves(state.m)
+        v_leaves = pytree.tree_leaves(state.v)
+        if not len(p_leaves) == len(g_leaves) == len(m_leaves) \
+                == len(v_leaves):
+            raise ValueError(f"{len(p_leaves)} params, {len(g_leaves)} "
+                             f"grads and {len(m_leaves)} moments")
+        hps = self._group_hps(len(self.param_groups) + 1)
+        ids = (resolve_group_ids(params, self.param_groups)
+               if self.param_groups else (0,) * len(p_leaves))
+        keep, step = self._keep_and_step(state, skip)
+        work = [p.detach() if p.dtype == torch.float32 and p.is_contiguous()
+                else p.detach().float().contiguous() for p in p_leaves]
+        g32 = [g.detach().float().contiguous() for g in g_leaves]
+
+        def norm_of(gid):
+            def fn():
+                sq = sum(torch.sum(g * g) for g, i in zip(g32, ids)
+                         if i == gid)
+                return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32,
+                                                  device=step.device))
+            return fn
+
+        scalars = torch.stack([
+            self._scalars(hp, step, scale, keep, norm_of(gid), grad_norm)
+            for gid, hp in enumerate(hps)])
+        self._update_multi(
+            [(w.view(-1), m.view(-1), v.view(-1), g.view(-1), gid)
+             for w, m, v, g, gid in zip(work, m_leaves, v_leaves, g32, ids)],
+            scalars)
+        out = []
+        for p, w in zip(p_leaves, work):
+            if w.data_ptr() == p.data_ptr() and w.dtype == p.dtype:
+                out.append(p)           # updated in place
+            else:
+                out.append(w.to(p.dtype).requires_grad_(p.requires_grad))
+        return (pytree.tree_unflatten(out, treedef),
+                state._replace(step=step))

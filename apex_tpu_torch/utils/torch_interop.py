@@ -1,6 +1,6 @@
-"""torchvision ResNet checkpoints for the port's ResNet.
+"""torchvision ResNet and HuggingFace BERT checkpoints for the port's models.
 
-Twin of ``apex_tpu/utils/torch_interop.py``'s :func:`load_torch_resnet`:
+Twin of ``apex_tpu/utils/torch_interop.py``.  :func:`load_torch_resnet`:
 a torchvision-format ``state_dict`` (``conv1``, ``bn1``,
 ``layer{s}.{i}.conv{c}``/``bn{c}``, ``downsample.0``/``.1``, ``fc``)
 renamed onto ``models.ResNet``'s flax names (``stem_conv``,
@@ -13,6 +13,11 @@ stems take the 7x7 stem folded by ``models.resnet.stem_to_s2d``.
 Returns ``{"params": {name: tensor}, "batch_stats": {name: tensor}}``:
 the parameters and the running-statistics buffers, fp32 on the CPU, for
 ``load_state_dict`` of the union.
+
+:func:`load_hf_bert`: a HuggingFace ``BertForPreTraining`` ``state_dict``
+renamed onto the port's ``models.BertForPreTraining`` (the JAX package's
+flax names, dotted); both keep ``nn.Linear``'s (out, in) weights, so no
+tensor is transposed or reshaped.
 """
 
 from __future__ import annotations
@@ -123,3 +128,88 @@ def load_torch_resnet(state_dict: Mapping[str, Any],
             f"state_dict has {len(leftovers)} keys not consumed by "
             f"arch={arch!r} (e.g. {sorted(leftovers)[:4]}); wrong arch?")
     return {"params": params, "batch_stats": stats}
+
+
+def load_hf_bert(state_dict: Mapping[str, Any], num_hidden_layers: int,
+                 num_attention_heads: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Convert a HuggingFace ``BertForPreTraining`` ``state_dict``
+    (tensors or numpy arrays; a ``module.`` prefix is stripped) into
+    ``{"params": {name: tensor}}`` of the port's
+    ``models.BertForPreTraining``, fp32 on the CPU, for
+    ``load_state_dict``:
+
+    - ``bert.embeddings.*`` -> ``encoder.{word,position,token_type}_
+      embeddings`` and ``encoder.embeddings_ln``;
+    - ``bert.encoder.layer.<i>.attention.self.{query,key,value}`` ->
+      ``encoder.layer_<i>.attention.*``, ``attention.output.dense`` ->
+      ``attention.output``, its LayerNorm -> ``attention_ln``; the
+      ``intermediate`` and ``output`` denses 1:1, the output LayerNorm ->
+      ``output_ln``;
+    - ``cls.predictions.transform`` -> ``mlm_transform``/``mlm_ln``,
+      ``cls.predictions.decoder`` (with the tied
+      ``cls.predictions.bias``) -> ``mlm_decoder``,
+      ``cls.seq_relationship`` -> ``nsp_classifier``,
+      ``bert.pooler.dense`` -> ``pooler``.
+
+    A missing key and a key left over (other than ``position_ids``, a
+    buffer of some transformers versions) raise ``ValueError`` with the
+    JAX package's messages: a checkpoint of another depth than
+    ``num_hidden_layers`` is refused either way.  ``num_attention_heads``
+    is the JAX signature's; the port's projections need no head
+    split."""
+    del num_attention_heads
+    raw = _strip_module_prefix(dict(state_dict))
+    consumed = set()
+
+    def get(key: str) -> torch.Tensor:
+        consumed.add(key)
+        try:
+            return _tensor(raw[key])
+        except KeyError:
+            raise ValueError(
+                f"state_dict is missing {key!r} — not a HuggingFace "
+                "BertForPreTraining checkpoint, or wrong "
+                "num_hidden_layers?") from None
+
+    params: Dict[str, torch.Tensor] = {}
+
+    def copy(src: str, dst: str, names=(("weight", "weight"),
+                                       ("bias", "bias"))) -> None:
+        for a, b in names:
+            params[f"{dst}.{b}"] = get(f"{src}.{a}")
+
+    ln = (("weight", "scale"), ("bias", "bias"))
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        copy(f"bert.embeddings.{name}", f"encoder.{name}", (("weight",
+                                                            "weight"),))
+    copy("bert.embeddings.LayerNorm", "encoder.embeddings_ln", ln)
+    for i in range(num_hidden_layers):
+        src, dst = f"bert.encoder.layer.{i}", f"encoder.layer_{i}"
+        for name in ("query", "key", "value"):
+            copy(f"{src}.attention.self.{name}", f"{dst}.attention.{name}")
+        copy(f"{src}.attention.output.dense", f"{dst}.attention.output")
+        copy(f"{src}.attention.output.LayerNorm", f"{dst}.attention_ln", ln)
+        copy(f"{src}.intermediate.dense", f"{dst}.intermediate")
+        copy(f"{src}.output.dense", f"{dst}.output")
+        copy(f"{src}.output.LayerNorm", f"{dst}.output_ln", ln)
+
+    if "cls.predictions.decoder.bias" in raw:
+        params["mlm_decoder.bias"] = get("cls.predictions.decoder.bias")
+        consumed.add("cls.predictions.bias")  # tied duplicate, if present
+    else:
+        params["mlm_decoder.bias"] = get("cls.predictions.bias")
+    copy("bert.pooler.dense", "pooler")
+    copy("cls.predictions.transform.dense", "mlm_transform")
+    copy("cls.predictions.transform.LayerNorm", "mlm_ln", ln)
+    params["mlm_decoder.weight"] = get("cls.predictions.decoder.weight")
+    copy("cls.seq_relationship", "nsp_classifier")
+
+    leftovers = [k for k in raw if k not in consumed
+                 and not k.endswith("position_ids")]
+    if leftovers:
+        raise ValueError(
+            f"state_dict has {len(leftovers)} keys not consumed with "
+            f"num_hidden_layers={num_hidden_layers} "
+            f"(e.g. {sorted(leftovers)[:4]}); wrong layer count?")
+    return {"params": params}

@@ -56,7 +56,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    held bit for bit against its plain version, forward and gradient, at
    BERT-large's activation and an odd size, beside ``F.dropout``; its
    bound counts the integer instructions of its loop in the built
-   SASS (``threefry_int_ops``, also in the build line).
+   SASS (``threefry_int_ops``, also in the build line).  B1-multi (the
+   multi-tensor form of B1) is held bit for bit against its plain
+   version over GPT-2 small's 196 leaves in three groups, on a skipped
+   step with inf/nan gradients, and on odd, misaligned and empty
+   segments (``MULTI_EDGE_SEGMENTS``), and timed beside flat B1 and
+   ``torch._fused_adam_``; the dropout rows at GPT-2 small's causal
+   shape go into the JSON line as ``gpt_causal``.
 4. serve   — ``InferenceServer`` on GPT-2 small at full width (seeded
    random weights), 8 decode slots, 16-token blocks, flash prefill,
    16 prompts of 4..255 tokens, 32 new tokens each:
@@ -222,9 +228,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
    free-running O0 run's distance recorded; (c) an inf in the real
    batch: D's step skipped and scaler 0 halved, scalers 1 and 2 kept, G
    stepped; (d) one iteration under ``torch.profiler``.
-   The O1 phases run last, and each ends by removing the policy,
-   resetting amp's state and checking every patched function is its
-   original again.
+12. train_gpt_remat — ``gpt_main_amp.train(remat=True)`` on GPT-2 small
+   (B 8, S 1024, O2, flash, 10 steps), counts read around it (B2 and B4
+   twice a block): losses, params and scaler bit for bit those of the
+   same run without remat; peak memory and tokens/s of both.
+13. train_gpt_dropout — GPT-2 small O2 flash with its configuration's
+   dropout (0.1 hidden, 0.1 attention), ``deterministic=False``, step i
+   keyed ``step_key(0, i)``, 3 steps: losses within 2e-2 of the
+   kernel-free oracle (plain attention with the kernels' hash dropout,
+   the plain threefry dropout); the same under remat bit for bit; both
+   runs' counts exact.
+14. train_bert_remat — ``bert_main_amp.train(remat=True)`` at the
+   example's defaults with flash and dropout, 3 steps: bit for bit the
+   run without remat; counts, peak memory, tokens/s.
+15. adam_rest — FusedAdam on GPT-2 small's parameters: the tree layout
+   bit for bit the flat one (one B1-multi launch a step, path
+   ``adam_rest``), the grouped flat layout (no decay on ``bias|_ln``,
+   ``max_grad_norm=1.0``) within 1e-6 of the tree one, ``update`` equal
+   to ``step``, an overflowed step on both layouts keeping every bit
+   under sync-debug "error", and the cut-down ``FP16_Optimizer`` over
+   bf16 params for 3 steps, the second overflowed, sync-free.
+16. hf_bert — ``utils.load_hf_bert`` on a BERT-large HuggingFace-named
+   state dict made from a seed: conversion seconds, every key consumed,
+   the loaded model's MLM and NSP logits through B2/B4 (fp32) within
+   1e-4 of its plain path.
+
+The O1 phases run last, and each ends by removing the policy, resetting
+amp's state and checking every patched function is its original again.
+When every phase runs, every kernel of the JSON line must have been
+launched by some path.  The ``done`` line gives the seconds of each
+phase.
 
 The line before the last is ``{"kernels": [...]}``; before it, the
 card's name and power limit as nvidia-smi prints them; the last line is
@@ -1361,6 +1394,166 @@ def _adam_variants(torch):
              "bound_ms": bms, "bound_by": by}]
 
 
+def _gpt_small_leaves(seed=None):
+    """GPT-2 small's parameters as a ``{name: fp32 tensor}`` dict on the
+    card (196 leaves, the tied wte once): seeded weights, or PyTorch's
+    default init with ``seed=None``."""
+    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
+    model = GPTLMHeadModel(gpt_small(), device="cuda", seed=seed)
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+# B1-multi's edge case: segment lengths and the offsets of p, m, v and g
+# from a 16-byte line (in elements): alike (head, float4 body, tail),
+# unlike (all scalar), one longer than a chunk, one empty
+MULTI_EDGE_SEGMENTS = ((1, (0, 0, 0, 0)), (3, (1, 1, 1, 1)),
+                       (4097, (2, 2, 2, 2)), (70001, (3, 3, 3, 3)),
+                       (129, (1, 2, 3, 0)), (0, (0, 0, 0, 0)),
+                       (6, (3, 0, 0, 0)), (1000, (0, 0, 0, 0)))
+
+
+def _adam_multi_edge(torch, adam):
+    """B1-multi against its plain version bit for bit on
+    ``MULTI_EDGE_SEGMENTS`` carved from four buffers, in three groups
+    whose last is skipped and holds inf/nan gradients; bytes outside the
+    kept groups' segments keep every bit."""
+    total = sum(n + 4 for n, _ in MULTI_EDGE_SEGMENTS) + 64
+    g_ = torch.Generator(device="cuda").manual_seed(5)
+    bufs = [torch.randn(total, device="cuda", generator=g_)
+            for _ in range(4)]
+    bufs[1].mul_(0.1)
+    bufs[2].abs_().mul_(0.01)
+
+    def carve(tensors):
+        segments, cursor = [], 0
+        for i, (n, offs) in enumerate(MULTI_EDGE_SEGMENTS):
+            cursor += -cursor % 4
+            segments.append((*(t[cursor + o:cursor + o + n]
+                               for t, o in zip(tensors, offs)), i % 3))
+            cursor += n + 4
+        return segments
+
+    for p, m, v, g, gid in carve(bufs):
+        if gid == 2 and g.numel() > 5:
+            g[0], g[5] = float("inf"), float("nan")
+    scalars = torch.tensor([[1e-3, 0.9, 0.999, 1e-8, 2.0, 0.01, 1.0],
+                            [3e-4, 0.8, 0.99, 1e-6, 8.0, 0.0, 1.0],
+                            [1e-2, 0.9, 0.999, 1e-8, 1.0, 0.1, 0.0]],
+                           device="cuda")
+    twins = [b.clone() for b in bufs]
+    old = [b.clone() for b in bufs]
+    adam.adam_multi(carve(bufs), scalars, False)
+    adam.adam_multi_plain(carve(twins), scalars, False)
+    index = torch.arange(total, device="cuda")
+    for j, (got, want, o) in enumerate(zip(bufs[:3], twins[:3], old)):
+        untouched = torch.ones(total, dtype=torch.bool, device="cuda")
+        for seg in carve([index] * 4):
+            if seg[4] != 2:
+                untouched[seg[j]] = False
+        if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                and torch.equal(got[untouched].view(torch.int32),
+                                o[untouched].view(torch.int32))):
+            raise AssertionError("fused_adam_multi: the edge case differs "
+                                 "from the plain version or wrote outside "
+                                 "the kept segments")
+    return len(MULTI_EDGE_SEGMENTS)
+
+
+def _adam_multi_variants(torch):
+    """B1-multi over GPT-2 small's 196 leaves (the tree layout's
+    segments), bit for bit against its plain version in three groups
+    (the recipe's no-decay ``bias|_ln``, ``wte`` at another lr, the
+    rest) and on a skipped step with inf/nan gradients, and on the edge
+    case (``_adam_multi_edge``).  Timed in one group beside flat B1 over
+    a flat buffer of the same elements (``flat_ms``) and the host time
+    of a call (``host_ms``: the checks, the chunk table, its pinned copy,
+    the launch);
+    yardstick ``torch._fused_adam_`` over the same leaves."""
+    adam = importlib.import_module("apex_tpu_torch.optimizers.fused_adam")
+    edge = _adam_multi_edge(torch, adam)
+    g_ = torch.Generator(device="cuda").manual_seed(4)
+    leaves = _gpt_small_leaves()
+    names = list(leaves)
+    p = [torch.randn_like(t) for t in leaves.values()]
+    m = [0.01 * torch.randn(t.shape, device="cuda", generator=g_) for t in p]
+    v = [1e-4 * torch.rand(t.shape, device="cuda", generator=g_) for t in p]
+    g = [torch.randn(t.shape, device="cuda", generator=g_) for t in p]
+    n = sum(t.numel() for t in p)
+    lr, b1, b2, eps = TRAIN_LR, 0.9, 0.999, 1e-8
+    ss = lr * (1 - b2 ** 3) ** 0.5 / (1 - b1 ** 3)
+    gids = [1 if re.search(r"(bias|_ln)", k) else 2 if "wte" in k else 0
+            for k in names]
+    scalars = torch.tensor([[ss, b1, b2, eps, 1.0, 0.01, 1.0],
+                            [ss, b1, b2, eps, 1.0, 0.0, 1.0],
+                            [0.5 * ss, b1, b2, eps, 2.0, 0.01, 1.0]],
+                           device="cuda")
+
+    def segs(tensors, ids):
+        return [(*(t.view(-1) for t in ts), i)
+                for ts, i in zip(zip(*tensors), ids)]
+
+    work = [[t.clone() for t in ts] for ts in (p, m, v)]
+    twin = [[t.clone() for t in ts] for ts in (p, m, v)]
+    adam.adam_multi(segs((*work, g), gids), scalars, False)
+    adam.adam_multi_plain(segs((*twin, g), gids), scalars, False)
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for ws, ts in zip(work, twin) for a, b in zip(ws, ts))
+    # a skipped step: every group keep = 0, inf and nan in the grads
+    bad = [t.clone() for t in g]
+    bad[0].view(-1)[7] = float("inf")
+    bad[-1].view(-1)[0] = float("nan")
+    skip = scalars.clone()
+    skip[:, 6] = 0.0
+    snap = [[t.clone() for t in ts] for ts in work]
+    adam.adam_multi(segs((*work, bad), gids), skip, False)
+    kept = all(torch.equal(a, b) for ws, ss_ in zip(work, snap)
+               for a, b in zip(ws, ss_))
+    if not (bitwise and kept):
+        raise AssertionError(f"fused_adam_multi at GPT-2 small: bitwise "
+                             f"{bitwise}, skipped step kept {kept}")
+    del work, twin, snap, bad
+    one = scalars[:1]
+    one_segs = segs((p, m, v, g), [0] * len(p))
+    n_chunks = len(adam._chunk_table(adam._segment_rows(one_segs, 0)))
+    flat = [torch.randn(n + -n % 4, device="cuda", generator=g_)
+            for _ in range(4)]
+
+    def kernel():
+        adam.adam_multi(one_segs, one, False)
+
+    def plain():
+        adam.adam_multi_plain(one_segs, one, False)
+
+    def flat_b1():
+        adam.adam_flat(*flat, one[0], False)
+
+    steps = [torch.tensor(3.0, device="cuda") for _ in p]
+
+    def library():
+        torch._fused_adam_(p, g, m, v, [], steps, lr=lr, beta1=b1, beta2=b2,
+                           weight_decay=0.01, eps=eps, amsgrad=False,
+                           maximize=False)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kernel()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    bms, by = bound(28 * n + 48 * n_chunks, 15 * n, "float32")
+    return [{"shape": [n], "dtype": "float32", "segments": len(p),
+             "chunks": n_chunks, "groups_checked": 3,
+             "edge_segments": edge, "rel_err": 0.0, "max_abs_err": 0.0,
+             "bitwise": True, "skip_bitwise": True,
+             "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
+             "flat_ms": median_ms(flat_b1, TIMED_LAUNCHES_LARGE),
+             "host_ms": host_ms,
+             "plain_ms": median_ms(plain, 5),
+             "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
+             "library": "torch._fused_adam_ over the 196 leaves",
+             "bound_ms": bms, "bound_by": by}]
+
+
 # (name, source, TPU kernel it replaces, variant builder, summary variant:
 # the shape and dtype of the training step, the path that launches the
 # kernel last, and for B7 and B8 the serving step's, with the engine's
@@ -1382,6 +1575,10 @@ KERNELS = (
      ([8, 1025, 12, 64], "float32", "engine")),
     ("fused_adam", "apex_tpu_torch/csrc/fused_adam.cu",
      "apex_tpu/optimizers/fused_adam.py:95", _adam_variants,
+     (None, "float32")),
+    # the multi-tensor form of B1 (FusedAdam's tree and grouped layouts)
+    ("fused_adam_multi", "apex_tpu_torch/csrc/fused_adam.cu",
+     "apex_tpu/optimizers/fused_adam.py:95", _adam_multi_variants,
      (None, "float32")),
     ("layer_norm_bwd", "apex_tpu_torch/csrc/layer_norm.cu",
      "apex_tpu/normalization/fused_layer_norm.py:78", _ln_bwd_variants,
@@ -1445,6 +1642,16 @@ def phase_kernels():
                if key in main},
             "shape": main["shape"], "dtype": main["dtype"],
             "variants": rows}
+        gpt = next((r for r in rows if name.endswith("_dropout")
+                    and r["shape"] == [TRAIN_BATCH, TRAIN_SEQ, 12, 64]
+                    and r["dtype"] == "bfloat16"), None)
+        if gpt is not None:
+            # the dropout branches at GPT-2 small's causal training shape
+            results[name]["gpt_causal"] = {
+                key: gpt[key] for key in ("shape", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err",
+                                          "row_err")}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(results, indent=1))
     return results
@@ -1859,14 +2066,15 @@ def _per_step_launches(cfg, names):
 
 
 def _plain_attention(q, k, v, bias=None, dropout_fn=None):
-    """The flash adapter's plain version: causal attention with fp32
-    softmax (``_reference``), differentiable through PyTorch's own
+    """The causal flash adapter's plain version: causal attention with
+    fp32 softmax and, from the ``dropout_fn`` annotation, the kernels'
+    hash dropout (``_reference``), differentiable through PyTorch's own
     autograd."""
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
-    if dropout_fn is not None:
-        raise NotImplementedError("the oracle trains without dropout")
+    rate, seed = fa.dropout_params(dropout_fn)
+    sa = None if seed is None else fa.seed_array(seed, num_heads=q.shape[2])
     return fa._reference(q, k, v, fa.bias_to_kv_mask(bias), True,
-                         q.shape[-1] ** -0.5)
+                         q.shape[-1] ** -0.5, dropout_rate=rate, seed=sa)
 
 
 def _plain_adam(lr):
@@ -1897,21 +2105,24 @@ def _train_oracle(cfg, opt_level):
     return model, opt, params, opt.init(params)
 
 
-def _oracle_steps(cfg, opt_level, batch, steps):
+def _oracle_steps(cfg, opt_level, batch, steps, deterministic=True):
     """The oracle's losses over ``steps`` steps of the example's
-    batches, and its step-1 gradients; fails if it launched a port
+    batches (with ``deterministic=False``, dropout on ``train()``'s step
+    keys), and its step-1 gradients; fails if it launched a port
     kernel."""
     import torch
     from apex_tpu_torch._kernels import launch_counts
-    from apex_tpu_torch.examples import gpt_main_amp
+    from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp
     before = launch_counts()
     model, opt, params, st = _train_oracle(cfg, opt_level)
     data = gpt_main_amp.batches(cfg.vocab_size, batch, TRAIN_SEQ)
     losses, grads1 = [], None
     for step in range(steps):
         ids = torch.from_numpy(next(data)).to("cuda")
-        params, st, loss, grads = gpt_main_amp.train_step(model, opt, params,
-                                                          st, ids)
+        params, st, loss, grads = gpt_main_amp.train_step(
+            model, opt, params, st, ids, deterministic=deterministic,
+            dropout_key=None if deterministic
+            else bert_main_amp.step_key(0, step))
         losses.append(float(loss))
         if step == 0:
             grads1 = grads
@@ -2535,6 +2746,446 @@ def phase_train_bert():
                                                         default=str))
     return {"train_bert": results["O2"]["launches"],
             "train_bert_accum": accum_counts}
+
+
+# -- GPT remat and dropout, BERT remat ---------------------------------------
+
+GPT_DROPOUT_STEPS = 3      # GPT-2 small's dropout runs, and BERT remat's
+
+
+def _gpt_launches(cfg, names, remat=False, dropout=False):
+    """Launches of one GPT training step (``_per_step_launches``) under
+    remat and dropout: remat runs each block's forward twice (B2 and B4
+    twice a block); dropout moves attention onto the dropout branches
+    and adds the hidden dropouts: 2L+1 forward (embeddings, two a block)
+    and as many backward, and under remat each block's first again in
+    the recompute (its output feeds the next LayerNorm, whose input is
+    saved; checkpoint stops before the second, whose output nothing
+    saves)."""
+    n = cfg.num_hidden_layers
+    fwd = 2 if remat else 1
+    sfx = "_dropout" if dropout else ""
+    step = {"layer_norm_fwd": 2 * n * fwd + 1, "layer_norm_bwd": 2 * n + 1,
+            "flash_fwd" + sfx: n * fwd, "flash_bwd_dq" + sfx: n,
+            "flash_bwd_dkv" + sfx: n, "fused_adam": 1}
+    if dropout:
+        step["threefry_dropout"] = 2 * (2 * n + 1) + (n if remat else 0)
+    return {name: step.get(name, 0) for name in names}
+
+
+def _bert_remat_launches(cfg, names):
+    """``_bert_per_step_launches`` under remat: each layer's forward runs
+    twice, its two LayerNorms, its attention and its two hidden dropouts
+    (both outputs feed a LayerNorm) with it."""
+    n = cfg.num_hidden_layers
+    step = _bert_per_step_launches(cfg, names)
+    for name, extra in (("layer_norm_fwd", 2 * n), ("flash_fwd_dropout", n),
+                        ("threefry_dropout", 2 * n)):
+        step[name] += extra
+    return step
+
+
+def _counted_run(train, **kw):
+    """``train(**kw)`` with every launch count at 0 just before and read
+    just after; returns the run, the counts, the peak memory (GB) and the
+    median tokens/s of its steps after the first."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = train(**kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"non-finite loss {out['losses']}")
+    return (out, counts, torch.cuda.max_memory_allocated() / 1e9,
+            statistics.median(out["tokens_per_s"][1:]))
+
+
+def _same_run(a, b):
+    """Losses, scaler and every param of two runs bit for bit."""
+    import torch
+    return (a["losses"] == b["losses"]
+            and (a["loss_scale"], a["skipped_steps"], a["applied_steps"])
+            == (b["loss_scale"], b["skipped_steps"], b["applied_steps"])
+            and all(torch.equal(p, b["params"][k])
+                    for k, p in a["params"].items()))
+
+
+def _check_counts(label, counts, per_step, steps):
+    want = {k: steps * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+
+
+def phase_train_gpt_remat():
+    """GPT-2 small through ``gpt_main_amp.train(remat=True)`` at the
+    example's defaults (B 8, S 1024, O2, flash, ``O2_STEPS`` steps), the
+    counts read around it (B2 and B4 twice a block), beside the same run
+    without remat from the same weights and batches: losses, params and
+    scaler bit for bit at every step; peak memory and tokens/s of
+    both."""
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    kw = dict(cfg=cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=O2_STEPS,
+              lr=TRAIN_LR, opt_level="O2", device="cuda", seed=0)
+    plain, _, plain_peak, plain_tps = _counted_run(gpt_main_amp.train, **kw)
+    remat, counts, peak, tps = _counted_run(gpt_main_amp.train,
+                                            remat=True, **kw)
+    same = _same_run(remat, plain)
+    emit("train_gpt_remat", steps=O2_STEPS, losses=remat["losses"],
+         bit_equal_to_no_remat=same, peak_memory_gb=peak,
+         no_remat_peak_memory_gb=plain_peak, tokens_per_s_median=tps,
+         no_remat_tokens_per_s_median=plain_tps,
+         step_ms=[1e3 * t for t in remat["step_seconds"]],
+         no_remat_step_ms=[1e3 * t for t in plain["step_seconds"]],
+         launches=counts)
+    _check_counts("GPT remat", counts, _gpt_launches(cfg, counts, remat=True),
+                  O2_STEPS)
+    if not same:
+        raise AssertionError("GPT remat: the run differs from the one "
+                             "without remat")
+    return {"train_gpt_remat": counts}
+
+
+def phase_train_gpt_dropout():
+    """GPT-2 small O2 with flash attention at the configuration's own
+    dropout (0.1 hidden, 0.1 attention), ``deterministic=False``, step i
+    keyed ``step_key(0, i)``, ``GPT_DROPOUT_STEPS`` steps through
+    ``train()``: losses within 2e-2 of the kernel-free oracle on the card
+    (plain attention with the kernels' hash dropout, the plain threefry
+    dropout, the same keys); the same run with remat bit for bit; each
+    run's counts read around it."""
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    kw = dict(cfg=cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              steps=GPT_DROPOUT_STEPS, lr=TRAIN_LR, opt_level="O2",
+              device="cuda", seed=0, deterministic=False)
+    out, counts, peak, tps = _counted_run(gpt_main_amp.train, **kw)
+    _check_counts("GPT dropout", counts,
+                  _gpt_launches(cfg, counts, dropout=True), GPT_DROPOUT_STEPS)
+    remat, rcounts, rpeak, rtps = _counted_run(gpt_main_amp.train, remat=True,
+                                               **kw)
+    _check_counts("GPT dropout remat", rcounts,
+                  _gpt_launches(cfg, rcounts, remat=True, dropout=True),
+                  GPT_DROPOUT_STEPS)
+    same = _same_run(remat, out)
+    want, _ = _oracle_steps(cfg, "O2", TRAIN_BATCH, GPT_DROPOUT_STEPS,
+                            deterministic=False)
+    errs = [abs(a - b) for a, b in zip(out["losses"], want)]
+    emit("train_gpt_dropout", steps=GPT_DROPOUT_STEPS, dropout=DROPOUT,
+         losses=out["losses"], oracle_losses=want,
+         max_loss_abs_err=max(errs), remat_bit_equal=same,
+         tokens_per_s_median=tps, remat_tokens_per_s_median=rtps,
+         peak_memory_gb=peak, remat_peak_memory_gb=rpeak,
+         step_ms=[1e3 * t for t in out["step_seconds"]], launches=counts,
+         remat_launches=rcounts)
+    if not max(errs) <= O2_LOSS_TOL:
+        raise AssertionError(f"GPT dropout: loss error {max(errs):.3g} > "
+                             f"{O2_LOSS_TOL}")
+    if not same:
+        raise AssertionError("GPT dropout: the remat run differs")
+    return {"train_gpt_dropout": counts, "train_gpt_dropout_remat": rcounts}
+
+
+def phase_train_bert_remat():
+    """``bert_main_amp.train(remat=True)`` at the example's defaults
+    (BERT-large, B 32, S 128, O2, FusedLAMB, dropout 0.1, flash),
+    ``GPT_DROPOUT_STEPS`` steps, against the same run without remat: bit
+    for bit; counts, peak memory and tokens/s of both."""
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    cfg = bert_main_amp.get_config("large")
+    kw = dict(cfg=cfg, batch=BERT_BATCH, seq_len=BERT_SEQ,
+              steps=GPT_DROPOUT_STEPS, lr=BERT_LR, opt_level="O2",
+              attention_fn=make_flash_attention(), deterministic=False,
+              seed=0, device="cuda")
+    plain, _, plain_peak, plain_tps = _counted_run(bert_main_amp.train, **kw)
+    remat, counts, peak, tps = _counted_run(bert_main_amp.train, remat=True,
+                                            **kw)
+    same = _same_run(remat, plain)
+    emit("train_bert_remat", steps=GPT_DROPOUT_STEPS, losses=remat["losses"],
+         bit_equal_to_no_remat=same, peak_memory_gb=peak,
+         no_remat_peak_memory_gb=plain_peak, tokens_per_s_median=tps,
+         no_remat_tokens_per_s_median=plain_tps,
+         step_ms=[1e3 * t for t in remat["step_seconds"]],
+         no_remat_step_ms=[1e3 * t for t in plain["step_seconds"]],
+         launches=counts)
+    _check_counts("BERT remat", counts, _bert_remat_launches(cfg, counts),
+                  GPT_DROPOUT_STEPS)
+    if not same:
+        raise AssertionError("BERT remat: the run differs from the one "
+                             "without remat")
+    return {"train_bert_remat": counts}
+
+
+# -- adam_rest: FusedAdam's tree and grouped layouts, FP16_Optimizer ---------
+
+ADAM_STEPS = 3
+NO_DECAY = [{"match": r"(bias|_ln)", "weight_decay": 0.0}]
+
+
+def _adam_grads(torch, params, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: 1e-2 * torch.randn(t.shape, device="cuda", generator=g)
+            for k, t in params.items()}
+
+
+def _adam_steps(opt, params, steps, **kw):
+    """``steps`` steps of ``opt`` from a copy of ``params`` on the same
+    gradients; returns the params, the state and the counts read around
+    the steps."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    params = {k: t.clone() for k, t in params.items()}
+    state = opt.init(params)
+    grads = [_adam_grads(torch, params, 100 + i) for i in range(steps)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for g in grads:
+        params, state = opt.step(params, g, state, **kw)
+    torch.cuda.synchronize()
+    return params, state, launch_counts()
+
+
+def _overflow_keeps_bits(torch, opt, params, label):
+    """One clean step, then an inf planted with ``fill_`` and a step
+    with amp's overflow flag under sync-debug "error": every param, m,
+    v and the clock keep their bits."""
+    from torch.utils import _pytree as pytree
+    params, state, _ = _adam_steps(opt, params, 1)
+    grads = _adam_grads(torch, params, 7)
+    grads["blocks.1.mlp_in.weight"][5].fill_(float("inf"))
+    snap = [t.detach().clone() for t in params.values()]
+    moments = [t.clone() for t in pytree.tree_leaves(
+        (state.m, state.v, state.step))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        overflow = ~torch.stack([torch.isfinite(g).all()
+                                 for g in grads.values()]).all()
+        params, state = opt.step(params, grads, state, skip=overflow)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(a.detach(), b)
+               for a, b in zip(params.values(), snap)) and all(
+        torch.equal(a, b) for a, b in zip(pytree.tree_leaves(
+            (state.m, state.v, state.step)), moments))
+    if not kept:
+        raise AssertionError(f"{label}: the overflowed step changed a bit")
+    return True
+
+
+def _fp16_optimizer_leg(torch, params):
+    """The cut-down FP16_Optimizer over GPT-2 small in bf16 (the half
+    dtype the JAX test takes): 3 steps with the dynamic scale, the
+    second overflowed (an inf planted with ``fill_``), all under
+    sync-debug "error": the scale halves once, the step is skipped and
+    the master keeps its bits, the others move it."""
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FP16_Optimizer, FusedAdam
+    opt = FP16_Optimizer(FusedAdam(lr=TRAIN_LR), dynamic_loss_scale=True)
+    half = {k: t.to(torch.bfloat16) for k, t in params.items()}
+    state = opt.init(half)
+    scale0 = float(opt.loss_scale(state))
+    grads = [{k: (v * scale0).to(torch.bfloat16) for k, v in
+              _adam_grads(torch, params, 200 + i).items()} for i in range(3)]
+    grads[1]["wte.weight"][11].fill_(float("inf"))
+    masters, scales = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in grads:
+            half, state = opt.step(half, g, state)
+            masters.append(state.master.clone())
+            scales.append(state.scaler.loss_scale.clone())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    scales = [float(s) for s in scales]
+    ok = (scales == [scale0, scale0 / 2, scale0 / 2]
+          and torch.equal(masters[0], masters[1])
+          and not torch.equal(masters[1], masters[2])
+          and int(state.inner.step) == 2
+          and counts["fused_adam"] == 3
+          and half["wte.weight"].dtype == torch.bfloat16)
+    if not ok:
+        raise AssertionError(f"FP16_Optimizer: scales {scales}, step "
+                             f"{int(state.inner.step)}, launches {counts}")
+    return {"loss_scales": scales, "skipped_kept_bits": True,
+            "steps_taken": int(state.inner.step), "host_syncs": 0}
+
+
+def phase_adam_rest():
+    """FusedAdam's rest on GPT-2 small's parameter dict (seeded, 196
+    leaves) with seeded gradients, ``ADAM_STEPS`` steps a run:
+    (a) the tree layout against the flat one, bit for bit, no norm; one
+        B1-multi launch a step (the path ``adam_rest``);
+    (b) the grouped flat layout (no weight decay on ``bias|_ln``,
+        ``max_grad_norm=1.0``) against the tree layout with the same
+        groups, within ``ADAM_TOL`` scale-aware (the group norms are
+        summed in different orders); one B1-multi launch a step;
+    (c) ``update`` equal to ``step``: the updates bit for bit the
+        stepped params less the old ones;
+    (d) an overflowed step on both layouts under sync-debug "error":
+        every bit kept;
+    (e) the cut-down FP16_Optimizer (``_fp16_optimizer_leg``)."""
+    import torch
+    from apex_tpu_torch.optimizers import FusedAdam
+    params = _gpt_small_leaves(seed=0)
+    kw = dict(lr=TRAIN_LR, weight_decay=0.01)
+    tree, tstate, counts = _adam_steps(FusedAdam(layout="tree", **kw), params,
+                                       ADAM_STEPS, scale=2.0)
+    flat, _, fcounts = _adam_steps(FusedAdam(**kw), params, ADAM_STEPS,
+                                   scale=2.0)
+    tree_is_flat = all(torch.equal(tree[k], flat[k].detach()) for k in tree)
+    groups = dict(kw, param_groups=NO_DECAY, max_grad_norm=1.0)
+    gflat, _, gcounts = _adam_steps(FusedAdam(**groups), params, ADAM_STEPS)
+    gtree, _, _ = _adam_steps(FusedAdam(layout="tree", **groups), params,
+                              ADAM_STEPS)
+    grouped_err = max(scale_aware_err(gflat[k].detach(), gtree[k])[0]
+                      for k in gtree)
+    ups = {}
+    for layout in ("tree", "flat"):
+        opt = FusedAdam(layout=layout, param_groups=NO_DECAY, **kw)
+        grads = _adam_grads(torch, params, 100)
+        ref = {k: t.clone() for k, t in params.items()}
+        updates, _ = opt.update(grads, opt.init(ref), ref)
+        stepped, _ = opt.step({k: t.clone() for k, t in params.items()},
+                              grads, opt.init(ref))
+        ups[layout] = all(torch.equal(updates[k],
+                                      stepped[k].detach() - params[k])
+                          for k in params)
+    overflow = {layout: _overflow_keeps_bits(
+        torch, FusedAdam(layout=layout, param_groups=NO_DECAY, **kw), params,
+        f"FusedAdam {layout}") for layout in ("tree", "flat")}
+    fp16 = _fp16_optimizer_leg(torch, params)
+    emit("adam_rest", leaves=len(params), steps=ADAM_STEPS,
+         tree_bit_equal_to_flat=tree_is_flat,
+         grouped_flat_vs_tree_err=grouped_err, update_equals_step=ups,
+         overflow_bits_kept=overflow, fp16_optimizer=fp16,
+         launches=counts, flat_launches=fcounts, grouped_launches=gcounts)
+    want = {"fused_adam_multi": ADAM_STEPS}
+    for label, got in (("tree", counts), ("grouped", gcounts)):
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"FusedAdam {label}: launches {got}")
+    if not (tree_is_flat and grouped_err <= ADAM_TOL and all(ups.values())):
+        raise AssertionError(f"FusedAdam: tree == flat {tree_is_flat}, "
+                             f"grouped error {grouped_err:.3g}, update == "
+                             f"step {ups}")
+    return {"adam_rest": counts}
+
+
+# -- hf_bert: load_hf_bert at BERT-large ---------------------------------------
+
+def _hf_bert_state_dict(torch, cfg, seed=0):
+    """A HuggingFace ``BertForPreTraining`` state dict of ``cfg``'s
+    shapes on the CPU, from a seeded CPU generator: normal(0.02) weights
+    and biases, LayerNorm scales 1 + normal(0.1), the tied
+    ``cls.predictions.bias`` and the ``position_ids`` buffer."""
+    g = torch.Generator().manual_seed(seed)
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    sd = {}
+
+    def normal(*shape, std=0.02, mean=0.0):
+        return torch.empty(shape).normal_(mean, std, generator=g)
+
+    def lin(name, n_out, n_in):
+        sd[f"{name}.weight"] = normal(n_out, n_in)
+        sd[f"{name}.bias"] = normal(n_out)
+
+    def ln(name):
+        sd[f"{name}.weight"] = normal(h, std=0.1, mean=1.0)
+        sd[f"{name}.bias"] = normal(h, std=0.1)
+
+    for name, n in (("word_embeddings", v),
+                    ("position_embeddings", cfg.max_position_embeddings),
+                    ("token_type_embeddings", cfg.type_vocab_size)):
+        sd[f"bert.embeddings.{name}.weight"] = normal(n, h)
+    ln("bert.embeddings.LayerNorm")
+    for i in range(cfg.num_hidden_layers):
+        pre = f"bert.encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            lin(f"{pre}.attention.self.{name}", h, h)
+        lin(f"{pre}.attention.output.dense", h, h)
+        ln(f"{pre}.attention.output.LayerNorm")
+        lin(f"{pre}.intermediate.dense", f, h)
+        lin(f"{pre}.output.dense", h, f)
+        ln(f"{pre}.output.LayerNorm")
+    lin("bert.pooler.dense", h, h)
+    lin("cls.predictions.transform.dense", h, h)
+    ln("cls.predictions.transform.LayerNorm")
+    lin("cls.predictions.decoder", v, h)
+    sd["cls.predictions.bias"] = sd["cls.predictions.decoder.bias"]
+    lin("cls.seq_relationship", 2, h)
+    sd["bert.embeddings.position_ids"] = torch.arange(
+        cfg.max_position_embeddings)[None]
+    return sd
+
+
+HF_BATCH = 8
+
+
+def phase_hf_bert():
+    """``utils.load_hf_bert`` on a BERT-large HuggingFace-named state dict
+    made in-process (``_hf_bert_state_dict``): the conversion's seconds
+    on the host clock, every key consumed (a leftover raises), every
+    model parameter filled (a strict ``load_state_dict``); the loaded
+    model's MLM and NSP logits (fp32, TF32 off, B 8, S 128, padded rows,
+    segments) through B2 and B4 (the path ``hf_bert``, counts read
+    around it) against the same weights on its own plain path (plain
+    LayerNorm and attention: no kernel), within ``O0_TOL`` scale-aware."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import BertForPreTraining, bert_large
+    from apex_tpu_torch.ops import make_flash_attention
+    from apex_tpu_torch.utils import load_hf_bert
+    cfg = bert_large()
+    sd = _hf_bert_state_dict(torch, cfg)
+    t0 = time.perf_counter()
+    params = load_hf_bert(sd, cfg.num_hidden_layers,
+                          cfg.num_attention_heads)["params"]
+    seconds = time.perf_counter() - t0
+    model = BertForPreTraining(cfg, attention_fn=make_flash_attention(),
+                               device="cuda", seed=None)
+    model.load_state_dict(params)
+    oracle = _plain_oracle(BertForPreTraining(
+        cfg, attention_fn=_plain_dropout_attention, device="cuda",
+        seed=None))
+    oracle.load_state_dict(params)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(4, cfg.vocab_size, (HF_BATCH, BERT_SEQ))
+    mask = np.ones_like(ids)
+    mask[1::2, 100:] = 0
+    segs = rng.randint(0, 2, ids.shape)
+    args = [torch.from_numpy(a).to("cuda") for a in (ids, mask, segs)]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = model(*args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = oracle(*args)
+        torch.cuda.synchronize()
+    if launch_counts() != counts:
+        raise AssertionError("the hf_bert oracle launched a port kernel")
+    errs = [scale_aware_err(a, b)[0] for a, b in zip(got, want)]
+    n = cfg.num_hidden_layers
+    per_call = {"layer_norm_fwd": 2 * n + 2, "flash_fwd": n}
+    emit("hf_bert", keys=len(sd), params=len(params),
+         elements=sum(t.numel() for t in params.values()),
+         conversion_seconds=seconds, mlm_err=errs[0], nsp_err=errs[1],
+         launches=counts)
+    _check_counts("hf_bert", counts, {k: per_call.get(k, 0) for k in counts},
+                  1)
+    if not max(errs) <= O0_TOL:
+        raise AssertionError(f"hf_bert: logits error {max(errs):.3g} > "
+                             f"{O0_TOL}")
+    return {"hf_bert": counts}
 
 
 # -- train_o1 and train_simple: amp O1 -----------------------------------------
@@ -3459,38 +4110,59 @@ def phase_train_resnet():
             "dryrun": dry_counts}
 
 
-def main(phases=("device", "build", "kernels", "train_resnet", "serve",
-                 "serve_q8", "train", "train_bert", "train_o1",
-                 "train_simple", "train_dcgan")):
+PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
+          "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
+          "train_bert_remat", "adam_rest", "hf_bert", "train_o1",
+          "train_simple", "train_dcgan")
+
+
+def main(phases=PHASES):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     sys.path.insert(0, str(REPO))
     import torch
     kernels = None
+    seconds = {}
     if "build" in phases:
+        t0 = time.perf_counter()
         phase_build()
+        seconds["build"] = time.perf_counter() - t0
     if "kernels" in phases:
+        t0 = time.perf_counter()
         kernels = phase_kernels()
+        seconds["kernels"] = time.perf_counter() - t0
     # each main path runs with the counts at 0 just before it; a kernel
     # reports the launches of the last path that ran it (GPT training
-    # under O1, then BERT's grad-accum step, then BERT training, then
-    # GPT's DDP step, then GPT training, then int8 serving, then
-    # serving, then the flagship's dry run); train_resnet's phase drives
-    # two paths, the ResNet-50 step and entry.dryrun, train's the GPT
-    # step and its DDP step, train_bert's the BERT step and its
-    # grad-accum step; the O1 phases run last and remove their op
-    # policy at their end
+    # under O1, then the HuggingFace BERT's forward, then FusedAdam's
+    # tree layout, then BERT under remat, then GPT with dropout under
+    # remat and without, then GPT under remat, then BERT's grad-accum
+    # step, then BERT training, then GPT's DDP step, then GPT training,
+    # then int8 serving, then serving, then the flagship's dry run);
+    # train_resnet's phase drives two paths, the ResNet-50 step and
+    # entry.dryrun, train's the GPT step and its DDP step, train_bert's
+    # the BERT step and its grad-accum step, train_gpt_dropout's the
+    # GPT step with dropout and the same under remat; the O1 phases run
+    # last and remove their op policy at their end
     for phase, run in (("train_resnet", phase_train_resnet),
                        ("serve", phase_serve), ("serve_q8", phase_serve_q8),
                        ("train", phase_train),
                        ("train_bert", phase_train_bert),
+                       ("train_gpt_remat", phase_train_gpt_remat),
+                       ("train_gpt_dropout", phase_train_gpt_dropout),
+                       ("train_bert_remat", phase_train_bert_remat),
+                       ("adam_rest", phase_adam_rest),
+                       ("hf_bert", phase_hf_bert),
                        ("train_o1", phase_train_o1),
                        ("train_simple", phase_train_simple),
                        ("train_dcgan", phase_train_dcgan)):
         if phase not in phases:
             continue
+        t0 = time.perf_counter()
         by_path = run()
-        if phase not in ("train_resnet", "train", "train_bert"):
+        seconds[phase] = time.perf_counter() - t0
+        if phase not in ("train_resnet", "train", "train_bert",
+                         "train_gpt_remat", "train_gpt_dropout",
+                         "train_bert_remat", "adam_rest", "hf_bert"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():
@@ -3498,7 +4170,12 @@ def main(phases=("device", "build", "kernels", "train_resnet", "serve",
                 k["launches_by_path"][path] = n
                 if n:
                     k["launches"] = n
-    emit("done", seconds=round(time.perf_counter() - t_start, 3))
+    if kernels is not None and set(phases) >= set(PHASES):
+        idle = [k["name"] for k in kernels.values() if not k["launches"]]
+        if idle:
+            raise AssertionError(f"kernels no main path launched: {idle}")
+    emit("done", seconds=round(time.perf_counter() - t_start, 3),
+         phase_seconds={k: round(v, 3) for k, v in seconds.items()})
     print(smi_line)
     if kernels is not None:
         print(json.dumps({"kernels": [

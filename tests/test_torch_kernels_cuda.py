@@ -9,8 +9,10 @@ without it:
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX.)  They cover
 the edges ``chip_smoke.py`` does not: odd widths, ragged lengths, the
 built head_dim (64), fully-masked rows, strided operands, inf/nan
-gradients in the Adam step, gradients flowing through the kernels'
-autograd functions, the errors the wrappers raise, B2 at the paths'
+gradients in the Adam step, the multi-tensor Adam (B1-multi) bit for
+bit against its plain version over odd, misaligned and empty segments
+in five groups (one skipped) and through FusedAdam's tree and grouped
+layouts, gradients flowing through the kernels' autograd functions, the errors the wrappers raise, B2 at the paths'
 shapes and both sides of its fast path's edges with fp32 and bf16
 weights (every block size giving the same bits, and no device kernel
 but its own under the profiler, nor B3's), B3's dweight and dbias, decode split across 64-key tiles (every split count of 1025
@@ -427,6 +429,141 @@ def test_fused_adam_matches_plain_with_nonfinite_grads(gen, keep,
             assert torch.equal(got, o)
 
 
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def test_fused_adam_flat_equals_plain_bit_for_bit(gen):
+    """Each operation of B1 rounds on its own, in the plain version's
+    order, so finite inputs give the plain version's bits."""
+    p, m, v, g = _adam_inputs(gen)
+    g[5] = g[77] = 0.5
+    for eps_inside in (False, True):
+        scalars = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 4.0, 0.01, 1.0],
+                               device="cuda")
+        want = adam._adam_plain(p, m, v, g, scalars, eps_inside)
+        adam.adam_flat(p, m, v, g, scalars, eps_inside)
+        for got, w in zip((p, m, v), want):
+            assert torch.equal(_bits(got), _bits(w))
+
+
+# the multi-tensor form (B1-multi): segments of odd lengths, one longer
+# than a chunk, at starts off the 16-byte grid, p/m/v/g misaligned alike
+# (head, float4 body, tail) or unlike (scalar), one empty
+_MULTI_SEGMENTS = ((1, (0, 0, 0, 0)), (3, (1, 1, 1, 1)), (4097, (2, 2, 2, 2)),
+                   (70001, (3, 3, 3, 3)), (129, (1, 2, 3, 0)), (0, (0,) * 4),
+                   (6, (3, 0, 0, 0)), (1000, (0, 0, 0, 0)))
+
+
+def _carve(bufs, n_groups):
+    """The segments of ``_MULTI_SEGMENTS`` carved from four buffers, the
+    i-th in group ``i % n_groups``, and the mask of what the kept groups
+    may write."""
+    segments, kept, cursor = [], torch.zeros(bufs[0].numel(),
+                                             dtype=torch.bool), 0
+    for i, (n, offs) in enumerate(_MULTI_SEGMENTS):
+        cursor += -cursor % 4
+        segments.append((*(b[cursor + o:cursor + o + n]
+                           for b, o in zip(bufs, offs)), i % n_groups))
+        if i % n_groups != n_groups - 1:
+            kept[cursor:cursor + n + 3] = True
+        cursor += n + 4
+    return segments, kept
+
+
+def _multi_case(gen, n_groups=5):
+    """Four buffers and (G, 7) scalars whose last group is skipped and
+    holds segments with inf/nan gradients."""
+    total = sum(n + 4 for n, _ in _MULTI_SEGMENTS) + 64
+    bufs = [torch.randn(total, device="cuda", generator=gen)
+            for _ in range(4)]
+    bufs[1].mul_(0.1)
+    bufs[2] = bufs[2].abs_().mul_(0.01)
+    rows = [[1e-3 * (gid + 1), 0.9, 0.999, 1e-8, 2.0 + gid, 0.01 * gid,
+             0.0 if gid == n_groups - 1 else 1.0]
+            for gid in range(n_groups)]
+    for p, m, v, g, gid in _carve(bufs, n_groups)[0]:
+        if gid == n_groups - 1 and g.numel() > 5:
+            g[0], g[5] = float("inf"), float("nan")
+    return bufs, torch.tensor(rows, device="cuda")
+
+
+@pytest.mark.parametrize("eps_inside", [False, True])
+def test_fused_adam_multi_matches_plain_bit_for_bit(gen, eps_inside):
+    bufs, scalars = _multi_case(gen)
+    twins = [b.clone() for b in bufs]
+    old = [b.clone() for b in bufs]
+    segments, kept = _carve(bufs, scalars.shape[0])
+    _one_launch("fused_adam_multi", lambda: adam.adam_multi(
+        segments, scalars, eps_inside))
+    adam.adam_multi_plain(_carve(twins, scalars.shape[0])[0], scalars,
+                          eps_inside)
+    kept = kept.cuda()
+    for got, want, o in zip(bufs[:3], twins[:3], old):
+        assert torch.equal(_bits(got), _bits(want))
+        # the skipped group and the gaps keep every bit
+        assert torch.equal(_bits(got[~kept]), _bits(o[~kept]))
+
+
+def test_fused_adam_multi_refuses_what_it_does_not_take(gen):
+    p = torch.zeros(8, device="cuda")
+    scalars = torch.ones(1, 7, device="cuda")
+    with pytest.raises(ValueError, match="no scalars"):
+        adam.adam_multi([(p, p, p, p, 1)], scalars, False)
+    with pytest.raises(ValueError, match="one length"):
+        adam.adam_multi([(p, p, p, p[:4], 0)], scalars, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        q = torch.zeros(16, device="cuda")[::2]
+        adam.adam_multi([(q, q, q, q, 0)], scalars, False)
+
+
+@pytest.mark.parametrize("layout,groups", [
+    ("tree", None), ("tree", [{"match": r"bias", "lr": 1e-4}]),
+    ("flat", [{"match": r"bias", "weight_decay": 0.0}])])
+def test_fused_adam_layouts_launch_b1_multi_once_a_step(gen, layout, groups):
+    """The tree and grouped flat layouts step through one B1-multi
+    launch; the tree layout equals the flat one bit for bit (no norm),
+    and an overflowed step keeps every bit without a host sync."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    shapes = {"w": (300, 7), "bias": (129,), "s": (), "u": (5, 3)}
+
+    def tree(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return {k: torch.randn(s, device="cuda", generator=g)
+                for k, s in shapes.items()}
+
+    opt = FusedAdam(lr=1e-3, weight_decay=0.01, layout=layout,
+                    param_groups=groups)
+    ref = FusedAdam(lr=1e-3, weight_decay=0.01, layout="flat",
+                    param_groups=groups)
+    params, rparams = tree(0), tree(0)
+    st, rst = opt.init(params), ref.init(rparams)
+    for i in range(3):
+        grads = tree(10 + i)
+        before = launch_counts()
+        params, st = opt.step(params, grads, st, scale=2.0)
+        rparams, rst = ref.step(rparams, grads, rst, scale=2.0)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["fused_adam_multi"] == before["fused_adam_multi"] \
+            + 1 + (groups is not None)
+    for k in shapes:
+        assert torch.equal(params[k].detach(), rparams[k].detach()), k
+    snap = {k: v.detach().clone() for k, v in params.items()}
+    grads = tree(20)
+    grads["w"][0, 0] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st = opt.step(params, grads, st,
+                              skip=torch.isinf(grads["w"]).any())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for k in shapes:
+        assert torch.equal(params[k].detach(), snap[k]), k
+    assert int(st.step) == 3
+
+
 def test_amp_step_on_overflow_syncs_nothing_and_keeps_every_bit(gen):
     from apex_tpu_torch import amp
     from apex_tpu_torch.optimizers import FusedAdam
@@ -494,7 +631,8 @@ def _seed(seed, h, offsets=None):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,causal", [(33, 33, True), (100, 100, False),
-                                          (24, 70, False), (130, 130, True)])
+                                          (24, 70, False), (130, 130, True),
+                                          (1024, 1024, True)])
 @pytest.mark.parametrize("rate", [0.1, 0.3])
 def test_flash_dropout_matches_plain(gen, dtype, sq, sk, causal, rate):
     """B4d, B5d and B6d against their plain versions, with a padded
