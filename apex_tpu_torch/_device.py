@@ -14,6 +14,8 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
+        # "meta": shapes only (the tensor-parallel model reads the full
+        # model's parameter shapes from a meta copy)
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -17,12 +17,25 @@ adds each microbatch's unscaled grads into the stash and leaves the
 scaler where it was; the step ends with one ``update_scale`` on the
 ORed overflow and one ``apply_gradients``.
 
-Not here yet: ``with_zero``.
+The overflow decision is global.  Where the gradients are split over
+ranks (the model group under tensor parallelism, the data group under
+ZeRO-2), ``with_overflow_groups(*groups)`` reduces the flag with
+``parallel.pmax_g`` over each before the skip and the scaler update, so
+an inf on one rank skips the step on all of them; on GSPMD the JAX
+package's flag is global by construction.
+
+ZeRO: ``with_zero(group)`` passes through to an inner optimizer that
+has ``with_zero`` (``FusedAdam``), as the JAX package does.  An
+optimizer in optax's protocol has none: there the JAX package's
+per-leaf update follows the sharded state under GSPMD, and here the
+returned optimizer runs it on each sharded leaf's slice and gathers the
+params (``parallel.zero.zero1_update``).  ``zero2_step`` is amp's
+protocol around ``parallel.zero2_update``.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -53,10 +66,46 @@ class AmpOptimizer:
     ``supports_fused_skip = True``) or one in optax's protocol
     (``init(params)`` and ``update(grads, state, params)``)."""
 
-    def __init__(self, inner, loss_scaler: LossScaler, num_losses: int = 1):
+    def __init__(self, inner, loss_scaler: LossScaler, num_losses: int = 1,
+                 overflow_groups: Sequence = (), zero=None):
         self.inner = inner
         self.loss_scaler = loss_scaler
         self.num_losses = int(num_losses)
+        self.overflow_groups = tuple(overflow_groups)
+        self.zero = zero    # (group, min_shard_elems): ZeRO-1 per leaf
+
+    def _copy(self, **kw) -> "AmpOptimizer":
+        args = dict(inner=self.inner, loss_scaler=self.loss_scaler,
+                    num_losses=self.num_losses,
+                    overflow_groups=self.overflow_groups, zero=self.zero)
+        args.update(kw)
+        return AmpOptimizer(**args)
+
+    def with_overflow_groups(self, *groups) -> "AmpOptimizer":
+        """A copy that takes the overflow flag's max over each of
+        ``groups`` (``parallel.ProcessGroup``s the gradients are split
+        over) before it skips and updates the scale."""
+        return self._copy(overflow_groups=self.overflow_groups + groups)
+
+    def with_zero(self, group, min_shard_elems: Optional[int] = None
+                  ) -> "AmpOptimizer":
+        """ZeRO-1 over ``group`` (the data ranks), to pair with
+        ``parallel.shard_optimizer_state(state, group, min_shard_elems)``:
+        the inner optimizer's own ``with_zero`` where it has one, else
+        the per-leaf sharded update (module docstring)."""
+        if hasattr(self.inner, "with_zero"):
+            return self._copy(inner=self.inner.with_zero(group,
+                                                         min_shard_elems))
+        if getattr(self.inner, "supports_fused_skip", False):
+            raise NotImplementedError(
+                f"ZeRO over {type(self.inner).__name__} is not ported")
+        return self._copy(zero=(group, min_shard_elems))
+
+    def _global(self, overflow: torch.Tensor, *groups) -> torch.Tensor:
+        from apex_tpu_torch.parallel.collectives import pmax_g
+        for group in groups + self.overflow_groups:
+            overflow = pmax_g(overflow, group)
+        return overflow
 
     def init(self, params: Tree) -> AmpOptimizerState:
         inner = self.inner.init(params)
@@ -84,6 +133,7 @@ class AmpOptimizer:
         else:
             g, overflow = self.loss_scaler.unscale_with_stashed(
                 grads, stashed, sstate)
+        overflow = self._global(overflow)
         if not update_scale:
             return g, overflow, state
         return g, overflow, self.update_scale(state, overflow, loss_id)
@@ -104,6 +154,11 @@ class AmpOptimizer:
             params_out, inner_out = self.inner.step(params, grads,
                                                     state.inner,
                                                     skip=overflow)
+        elif self.zero is not None:
+            from apex_tpu_torch.parallel.zero import zero1_update
+            params_out, inner_out = zero1_update(
+                self.inner, params, grads, state.inner, self.zero[0],
+                ~overflow, self.zero[1])
         else:
             keep = ~overflow
             with torch.no_grad():
@@ -127,6 +182,28 @@ class AmpOptimizer:
         returns ``(params, state)``."""
         g, overflow, state = self.unscale_grads(grads, state, loss_id)
         return self.apply_gradients(params, g, state, overflow)
+
+    def zero2_step(self, params: Tree, grads: Tree, state: AmpOptimizerState,
+                   group, loss_id: int = 0):
+        """ZeRO-2 under amp: ``grads`` are this rank's LOCAL scaled
+        gradients; the overflow flag is taken over ``group`` (and the
+        overflow groups), ``parallel.zero2_update`` unscales inside B1's
+        combined scale and skips inside its select, then the scaler
+        updates.  Returns ``(params, state)``."""
+        from apex_tpu_torch.parallel.zero import zero2_update
+        sstate = state.loss_scalers[loss_id]
+        overflow = self._global(self.loss_scaler.check_overflow(grads),
+                                group)
+        params, inner = zero2_update(self.inner, params, grads, state.inner,
+                                     group,
+                                     scale=self.loss_scaler.loss_scale(
+                                         sstate),
+                                     skip=overflow)
+        state = self.update_scale(state, overflow, loss_id)
+        skipped = overflow.to(torch.int32)
+        return params, state._replace(
+            inner=inner, applied_steps=state.applied_steps + (1 - skipped),
+            skipped_steps=state.skipped_steps + skipped)
 
     def loss_scale(self, state: AmpOptimizerState, loss_id: int = 0):
         return state.loss_scalers[loss_id].loss_scale

@@ -6,10 +6,17 @@ the data-parallel training step of the JAX ``dryrun_multichip`` on this
 rank of ``n``: a tiny BasicBlock ResNet (stages [1, 1], width 16, 10
 classes) with ``SyncBatchNorm``, amp O2, ``FusedAdam(lr=1e-3)`` (kernel
 B1 on the card) and ``DistributedDataParallel``, on ``2 * n`` images of
-ones at 32x32 split over the ranks.  It stops before the JAX dry run's
-ZeRO-1 leg (``FusedAdam.with_zero`` over the data axis), which comes
-with a later slice of the port, and before its tensor, sequence,
-pipeline and expert-parallel legs.
+ones at 32x32 split over the ranks.  Then, as the JAX dry run, the same
+step under ZeRO-1 (``parallel.shard_optimizer_state`` plus
+``optimizer.with_zero`` over the world, ``__graft_entry__.py:112-118``)
+and under ZeRO-2 (``parallel.zero2_update`` through
+``AmpOptimizer.zero2_step``: the gradients reduce-scattered into each
+rank's shard, the overflow flag taken over the world).  The JAX dry
+run's ZeRO-2 leg steps a linear model in fp32 (``:545-599``); here it
+is the flagship step itself, so amp's skip protocol is in it.  Each
+ZeRO run must end with the plain run's params bit for bit.  The tensor,
+sequence, pipeline and expert-parallel legs of the JAX dry run are not
+here.
 """
 
 from __future__ import annotations
@@ -52,19 +59,88 @@ def dryrun_model(device="cuda", seed: Optional[int] = 0):
                          device=device, seed=seed)
 
 
+def flagship_setup(device="cuda", *, opt_level: str = "O2", optimizer=None,
+                   state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                   zero: Optional[str] = None):
+    """The dry run's step as it starts on this rank of an initialized
+    process group: ``(model, optimizer, ddp, params, opt_state, x, y)``.
+    ``zero``: None (DDP), ``"zero1"`` (the state sharded over the world,
+    the optimizer ``with_zero``) or ``"zero2"`` (the state sharded)."""
+    dev = resolve_device(device)
+    module = dryrun_model(dev, seed=None if state_dict else 0)
+    if state_dict is not None:
+        module.load_state_dict(state_dict)
+    model, opt = amp.initialize(
+        module, optimizer if optimizer is not None else FusedAdam(
+            lr=1e-3), opt_level=opt_level, verbosity=0)
+    ddp = parallel.DistributedDataParallel(model)
+    params = model.init()
+    opt_state = opt.init(params)
+    if zero is not None:
+        opt_state = parallel.shard_optimizer_state(opt_state,
+                                                   parallel.mesh.WORLD)
+    if zero == "zero1":
+        opt = opt.with_zero(parallel.mesh.WORLD)
+    x = torch.ones((2, DRYRUN_IMAGE, DRYRUN_IMAGE, 3), device=dev)
+    y = torch.zeros((2,), dtype=torch.int64, device=dev)
+    return model, opt, ddp, params, opt_state, x, y
+
+
+def flagship_step(model, opt, ddp, params, opt_state, x, y,
+                  zero: Optional[str] = None):
+    """One step of the dry run: returns ``(params, opt_state, loss)``,
+    the loss this rank's, on the device (nothing is read back)."""
+    logits = model.apply(params, x, train=True).float()
+    loss = transforms.softmax_cross_entropy_with_integer_labels(
+        logits, y).mean()
+    with amp.scale_loss(loss, opt_state) as scaled:
+        grads = torch.autograd.grad(scaled, list(params.values()))
+    grads = dict(zip(params.keys(), grads))
+    if zero == "zero2":
+        params, opt_state = opt.zero2_step(params, grads, opt_state,
+                                           parallel.mesh.WORLD)
+    else:
+        grads = ddp.reduce_gradients(grads)
+        params, opt_state = opt.step(params, grads, opt_state)
+    return params, opt_state, loss.detach()
+
+
+def _flagship_run(dev, steps, opt_level, optimizer, state_dict, zero):
+    """``steps`` of the dry run's step on this rank; returns the
+    world-mean losses, params, optimizer state and model."""
+    model, opt, ddp, params, opt_state, x, y = flagship_setup(
+        dev, opt_level=opt_level, optimizer=optimizer,
+        state_dict=state_dict, zero=zero)
+    losses = []
+    for _ in range(steps):
+        params, opt_state, loss = flagship_step(model, opt, ddp, params,
+                                                opt_state, x, y, zero)
+        losses.append(parallel.all_reduce_tree(loss, average=True))
+    losses = [float(v) for v in losses]
+    if not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"dryrun {zero or 'ddp'}: loss {losses}")
+    return {"losses": losses, "params": params, "opt_state": opt_state,
+            "model": model}
+
+
 def dryrun(n_ranks: int, device="cuda", *, steps: int = 1,
            opt_level: str = "O2", optimizer=None,
-           state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
-    """The flagship data-parallel step on this rank of ``n_ranks``.
+           state_dict: Optional[Mapping[str, torch.Tensor]] = None
+           ) -> dict:
+    """The flagship data-parallel step on this rank of ``n_ranks``, then
+    its ZeRO-1 and ZeRO-2 runs.
 
     Call it on every rank of an initialized process group of ``n_ranks``;
     with none and ``n_ranks == 1`` it starts a one-rank group itself
     (NCCL on the card, gloo on the CPU; the address is a free localhost
     port) and ends it after.  ``steps`` repeats the step on the same
-    batch; ``optimizer`` replaces ``FusedAdam(lr=1e-3)`` and
+    batch; ``optimizer`` replaces ``FusedAdam(lr=1e-3)`` (ZeRO-2 needs a
+    flat FusedAdam: another optimizer runs ZeRO-1 only) and
     ``state_dict`` (e.g. ``models.resnet_params_from_jax``) the weights
     from seed 0.  Returns the world-mean ``losses`` and the final
-    ``params``, ``opt_state`` and ``model``."""
+    ``params``, ``opt_state`` and ``model`` of the DDP run, and
+    ``"zero1"`` / ``"zero2"`` the same of each ZeRO run; a ZeRO run
+    whose params differ from the DDP run's in any bit raises."""
     dev = resolve_device(device)
     own_group = not dist.is_initialized()
     if own_group:
@@ -78,38 +154,26 @@ def dryrun(n_ranks: int, device="cuda", *, steps: int = 1,
         world, rank = dist.get_world_size(), dist.get_rank()
         if world != n_ranks:
             raise RuntimeError(f"dryrun({n_ranks}) on a world of {world}")
-        module = dryrun_model(dev, seed=None if state_dict else 0)
-        if state_dict is not None:
-            module.load_state_dict(state_dict)
-        model, opt = amp.initialize(
-            module, optimizer if optimizer is not None else FusedAdam(
-                lr=1e-3), opt_level=opt_level, verbosity=0)
-        ddp = parallel.DistributedDataParallel(model)
-        params = model.init()
-        opt_state = opt.init(params)
-        x = torch.ones((2, DRYRUN_IMAGE, DRYRUN_IMAGE, 3), device=dev)
-        y = torch.zeros((2,), dtype=torch.int64, device=dev)
-        losses = []
-        for _ in range(steps):
-            logits = model.apply(params, x, train=True).float()
-            loss = transforms.softmax_cross_entropy_with_integer_labels(
-                logits, y).mean()
-            with amp.scale_loss(loss, opt_state) as scaled:
-                grads = torch.autograd.grad(scaled, list(params.values()))
-            grads = ddp.reduce_gradients(dict(zip(params.keys(), grads)))
-            params, opt_state = opt.step(params, grads, opt_state)
-            losses.append(parallel.all_reduce_tree(loss.detach(),
-                                                   average=True))
-        losses = [float(v) for v in losses]
-        if not all(torch.isfinite(torch.tensor(losses))):
-            raise AssertionError(f"dryrun({n_ranks}): loss {losses}")
+        out = _flagship_run(dev, steps, opt_level, optimizer, state_dict,
+                            None)
+        legs = ["zero1"]
+        if optimizer is None or (isinstance(optimizer, FusedAdam)
+                                 and optimizer.layout == "flat"):
+            legs.append("zero2")
+        for leg in legs:
+            got = _flagship_run(dev, steps, opt_level, optimizer,
+                                state_dict, leg)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(got["params"].values(), out["params"].values()))
+            if not same:
+                raise AssertionError(f"dryrun({n_ranks}) {leg}: params "
+                                     "differ from the DDP run's")
+            out[leg] = got
         if rank == 0:
             print(f"dryrun({n_ranks}) dp + SyncBN + FusedAdam "
-                  f"({opt_level}): ok, loss={losses[-1]:.4f}; stops before "
-                  "the ZeRO-1 leg")
-        return {"losses": losses, "params": params, "opt_state": opt_state,
-                "model": model}
+                  f"({opt_level}): ok, loss={out['losses'][-1]:.4f}"
+                  + "".join(f"; {leg} bit for bit" for leg in legs))
+        return out
     finally:
         if own_group:
             dist.destroy_process_group()
-

@@ -25,11 +25,29 @@ Data parallel: one process per GPU, as the ImageNet twin, ``--b`` the
 batch of each rank (the JAX example's ``--b`` is the global batch of
 its mesh); ``DistributedDataParallel.reduce_gradients`` averages the
 gradients before ``optimizer.step``.  Start the ranks with ``python -m
-apex_tpu_torch.parallel.multiproc``; rank r draws its batches from
-``RandomState(r)``.
+apex_tpu_torch.parallel.multiproc``; the ranks of data index d draw
+their batches from ``RandomState(d)``.
 
-Not here yet: ``--sp`` and ``--tp`` (sequence and tensor
-parallelism).
+``--tp TP``: Megatron tensor parallelism on a (world / TP, TP) rank
+mesh (``parallel.create_mesh``): the model's params split by
+``parallel.gpt_tp_rules`` (``GPTLMHeadModel(..., tp=<model group>)``),
+``FusedAdam(layout="tree")`` (B1-multi over the rank's leaves), the
+vocab padded to a multiple of ``128 * TP`` (``models.padded_vocab``,
+ids drawn from the true vocab) and ``ops.vocab_parallel_lm_loss``.
+The JAX example takes the vocab-parallel loss only on the TPU or at
+O0 (``examples/gpt/main_amp.py:60-66``: a half-precision limit of
+XLA's CPU backend); the port has no such limit, so ``--tp`` always
+takes it.  TP peers draw the same batches (seeded by the data index);
+DDP averages over the data group only, and amp's overflow flag is
+taken over the model group.  Each rank's ``--b`` rows are its data
+index's batch.  ``main()`` runs NCCL (one rank a GPU);
+:func:`train` takes whatever process group is initialized.
+
+    WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
+        -m apex_tpu_torch.examples.gpt_main_amp --tp 2
+
+Not here yet: ``--sp`` (sequence parallelism), and the optimizer
+state of tensor-parallel params sharded over the data ranks.
 """
 
 from __future__ import annotations
@@ -48,9 +66,11 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.examples.bert_main_amp import step_key
 from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel, gpt_medium, \
     gpt_small, lm_loss
-from apex_tpu_torch.ops import make_flash_attention
+from apex_tpu_torch.models.gpt import padded_vocab
+from apex_tpu_torch.ops import make_flash_attention, vocab_parallel_lm_loss
 from apex_tpu_torch.optimizers import FusedAdam
-from apex_tpu_torch.parallel import DistributedDataParallel
+from apex_tpu_torch.parallel import DistributedDataParallel, create_mesh, \
+    gpt_tp_rules, shard_params
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
@@ -77,21 +97,37 @@ def batches(vocab: int, batch: int, seq_len: int,
 
 def build(cfg: GPTConfig, *, lr: float = 3e-4, opt_level: str = "O2",
           loss_scale=None, device="cuda", seed: int = 0,
-          state_dict: Optional[Mapping[str, torch.Tensor]] = None):
+          state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+          mesh=None):
     """(model, optimizer, params, opt_state): the GPT with causal flash
     attention under ``amp.initialize`` with ``FusedAdam(lr)``; weights
     from ``seed`` or, when given, ``state_dict`` (e.g. from
-    ``models.params_from_jax``)."""
+    ``models.params_from_jax``; the full model's under TP, cut to this
+    rank's part here).  ``mesh`` (a ``parallel.Mesh`` whose model axis
+    is above 1) builds the tensor-parallel model, with
+    ``FusedAdam(layout="tree")`` whose clipping norm is the model's and
+    amp's overflow flag taken over the model group."""
     dev = resolve_device(device)
+    tp = mesh is not None and mesh.shape["model"] > 1
     module = GPTLMHeadModel(cfg, attention_fn=make_flash_attention(
-        causal=True), device=dev, seed=None if state_dict is not None else seed)
+        causal=True), device=dev, seed=None if state_dict is not None else seed,
+        tp=mesh.group("model") if tp else None)
     if state_dict is not None:
+        if tp:
+            state_dict = shard_params(state_dict, mesh, gpt_tp_rules(),
+                                      num_heads=cfg.num_attention_heads)
         module.load_state_dict(state_dict)
+    inner = FusedAdam(lr=lr, layout="tree" if tp else "flat")
+    if tp:
+        inner = inner.with_model_parallel(
+            mesh.group("model"),
+            {name: bool(spec) for name, spec in module.tp_specs().items()})
     # amp's default verbosity, as the JAX example: the option report,
     # and maybe_print's step lines after it
-    model, optimizer = amp.initialize(module, FusedAdam(lr=lr),
-                                      opt_level=opt_level,
+    model, optimizer = amp.initialize(module, inner, opt_level=opt_level,
                                       loss_scale=loss_scale)
+    if tp:
+        optimizer = optimizer.with_overflow_groups(mesh.group("model"))
     params = model.init()
     opt_state = optimizer.init(params)
     return model, optimizer, params, opt_state
@@ -99,17 +135,25 @@ def build(cfg: GPTConfig, *, lr: float = 3e-4, opt_level: str = "O2",
 
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
                ids: torch.Tensor, ddp=None, *, deterministic: bool = True,
-               dropout_key=None):
+               dropout_key=None, mesh=None, true_vocab=None):
     """One step of the JAX example's ``train_step``: loss, scaled
     gradients (averaged over the ranks by ``ddp``, a
     ``DistributedDataParallel``, when given), ``optimizer.step``;
     ``dropout_key`` (a threefry key) keys the dropout when
-    ``deterministic`` is False.  Returns ``(params, opt_state, loss,
-    grads)`` with the loss unscaled (this rank's) and the grads as
-    autograd gave them (scaled)."""
-    logits = model.apply(params, ids, deterministic=deterministic,
-                         dropout_key=dropout_key)
-    loss = lm_loss(logits, ids)
+    ``deterministic`` is False.  With a tensor-parallel ``mesh`` the
+    loss is ``ops.vocab_parallel_lm_loss`` over the model's final hidden
+    states and its ``wte`` rows (``true_vocab`` the unpadded vocab).
+    Returns ``(params, opt_state, loss, grads)`` with the loss unscaled
+    (this rank's) and the grads as autograd gave them (scaled)."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        hidden = model.apply(params, ids, deterministic=deterministic,
+                             dropout_key=dropout_key, return_hidden=True)
+        loss = vocab_parallel_lm_loss(hidden, params["wte.weight"], ids,
+                                      mesh, true_vocab=true_vocab)
+    else:
+        logits = model.apply(params, ids, deterministic=deterministic,
+                             dropout_key=dropout_key)
+        loss = lm_loss(logits, ids)
     with amp.scale_loss(loss, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
     grads = dict(zip(params.keys(), grads))
@@ -125,7 +169,7 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
           print_freq: int = 0, ddp: bool = False,
           data: Optional[Iterator[np.ndarray]] = None, remat: bool = False,
-          deterministic: bool = True) -> dict:
+          deterministic: bool = True, tp: int = 0) -> dict:
     """Train ``steps`` steps of ``batch`` rows on this rank; returns
     per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
     around each step, ended by reading the loss), ``tokens_per_s`` per
@@ -133,31 +177,45 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
     ``skipped_steps``, ``applied_steps``) and ``params``.  ``ddp``
     averages the gradients over the ranks of the default process group
     (parameters start as rank 0's); ``data`` (host batches of ids)
-    defaults to :func:`batches` from ``RandomState(rank)``.  ``remat``
-    rematerialises each block in the backward; ``deterministic=False``
-    trains with the model's dropout, step i keyed ``step_key(seed,
-    i)``."""
+    defaults to :func:`batches` from ``RandomState(data index)``.
+    ``remat`` rematerialises each block in the backward;
+    ``deterministic=False`` trains with the model's dropout, step i keyed
+    ``step_key(seed, i)``.  ``tp`` above 1: tensor parallelism over
+    ``tp`` ranks of the initialized world (module docstring; with
+    ``ddp`` the data group averages), ``cfg`` the unpadded model and
+    ``state_dict`` the full padded one."""
     dev = resolve_device(device)
     if remat:
         cfg = dataclasses.replace(cfg, remat=True)
+    true_vocab, mesh, data_index = cfg.vocab_size, None, 0
+    if tp > 1:
+        mesh = create_mesh(tp=tp)
+        data_index = mesh.index("data")
+        cfg = dataclasses.replace(cfg,
+                                  vocab_size=padded_vocab(cfg.vocab_size, tp))
+    elif dist.is_initialized():
+        data_index = dist.get_rank()
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, opt_level=opt_level, loss_scale=loss_scale, device=dev,
-        seed=seed, state_dict=state_dict)
-    wrapper = DistributedDataParallel(model) if ddp else None
-    rank = dist.get_rank() if dist.is_initialized() else 0
+        seed=seed, state_dict=state_dict, mesh=mesh)
+    wrapper = None
+    if ddp:
+        wrapper = DistributedDataParallel(
+            model, process_group=mesh.group("data") if mesh else None)
     if wrapper is not None and dist.is_initialized() \
-            and dist.get_world_size() > 1:
+            and wrapper.process_group.size() > 1:
         params = wrapper.broadcast_params(params)
     losses, seconds = [], []
     if data is None:
-        data = batches(cfg.vocab_size, batch, seq_len, seed=rank)
+        data = batches(true_vocab, batch, seq_len, seed=data_index)
     for step in range(steps):
         ids = torch.from_numpy(next(data)).to(dev)
         t0 = time.perf_counter()
         params, opt_state, loss, _ = train_step(
             model, optimizer, params, opt_state, ids, wrapper,
             deterministic=deterministic,
-            dropout_key=None if deterministic else step_key(seed, step))
+            dropout_key=None if deterministic else step_key(seed, step),
+            mesh=mesh, true_vocab=true_vocab)
         losses.append(float(loss))      # waits for the step to finish
         seconds.append(time.perf_counter() - t0)
         if print_freq and (step % print_freq == 0 or step == steps - 1):
@@ -188,6 +246,9 @@ def parse_args(argv=None):
     p.add_argument("--print-freq", type=int, default=5)
     p.add_argument("--remat", action="store_true",
                    help="rematerialize each block in the backward")
+    p.add_argument("--tp", type=int, default=0, metavar="TP",
+                   help="Megatron tensor parallelism over TP-way model "
+                   "groups (parallel.gpt_tp_rules, vocab-parallel loss)")
     return p.parse_args(argv)
 
 
@@ -197,19 +258,24 @@ def main(argv=None):
     initialize_distributed("cuda")
     dev = resolve_device("cuda")
     world = dist.get_world_size() if dist.is_initialized() else 1
+    tp = max(args.tp, 1)
+    if world % tp:
+        raise SystemExit(f"--tp {args.tp} must divide the world size "
+                         f"({world})")
+    dp = world // tp
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
                 f"{args.config}, seq: {args.seq_len}, flash: True, remat: "
-                f"{args.remat}, world size {world}, batch {args.b} per rank",
-                rank0=True)
+                f"{args.remat}, world size {world} (dp={dp}, tp={tp}), "
+                f"batch {args.b} per data index", rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, opt_level=args.opt_level,
                 loss_scale=args.loss_scale, print_freq=args.print_freq,
-                ddp=world > 1, remat=args.remat)
+                ddp=dp > 1, remat=args.remat, tp=tp)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)
     maybe_print(f"final: loss {out['losses'][-1]:.4f}, avg "
-                f"{meter.avg * world:.1f} tok/s over {world} rank(s)",
+                f"{meter.avg * dp:.1f} tok/s over {world} rank(s)",
                 rank0=True)
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -29,7 +29,11 @@ train state (params, running statistics, optimizer and scaler state,
 epoch, best prec@1) to ``last/`` after each epoch's validation and to
 ``best/`` on a new best prec@1, from rank 0 (``utils.checkpoint``);
 ``--resume`` restores one and starts at the epoch after it.  ``--zero``
-comes with a later slice of the port and raises.
+is ZeRO-1 over the ranks: the SGD momentum's large leaves hold this
+rank's slice (``parallel.shard_optimizer_state``), the update runs on
+those slices and gathers the params (``AmpOptimizer.with_zero``), and a
+checkpoint saves the state unsharded (``unshard_optimizer_state``, as
+the JAX example does), so any world size resumes from it.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from apex_tpu_torch import amp, models
+from apex_tpu_torch import amp, models, parallel
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.data import image_folder_loader, npz_loader, \
     prefetch_to_device
@@ -63,8 +67,6 @@ ARCHS = {
 
 MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255.0
 STD = np.array([0.229, 0.224, 0.225], np.float32) * 255.0
-
-LATER_SLICE = "comes with a later slice of the port"
 
 
 def parse_args(argv=None):
@@ -107,16 +109,13 @@ def parse_args(argv=None):
                    help="checkpoint dir to resume from")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save last/ and best/ checkpoints when set")
-    p.add_argument("--zero", action="store_true")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1: shard the optimizer state over the ranks "
+                   "(parallel.shard_optimizer_state)")
     p.add_argument("--torch-weights", default=None, metavar="PT",
                    help="initialize from a torchvision-format checkpoint "
                    "(.pt state_dict, 'module.' prefixes stripped)")
     return p.parse_args(argv)
-
-
-def _check_supported(args) -> None:
-    if args.zero:
-        raise NotImplementedError(f"--zero {LATER_SLICE}")
 
 
 def synthetic_batches(args, steps, seed=0):
@@ -256,13 +255,34 @@ def resume(path: str, model, params, opt_state):
     return state["params"], state["opt_state"], start_epoch, best_prec1
 
 
+def zero_shard(optimizer, opt_state):
+    """``--zero``: the optimizer and its state sharded over the world."""
+    group = parallel.mesh.WORLD
+    return (optimizer.with_zero(group),
+            parallel.shard_optimizer_state(opt_state, group))
+
+
+def full_opt_state(optimizer, params, opt_state, zero: bool):
+    """The optimizer state as a checkpoint holds it: gathered from the
+    ranks under ``--zero`` (every rank must call it), else as it is."""
+    if not zero:
+        return opt_state
+    like = optimizer.init({k: torch.empty_like(v, device="meta")
+                           for k, v in params.items()})
+    return parallel.unshard_optimizer_state(opt_state, parallel.mesh.WORLD,
+                                            like)
+
+
 def save_checkpoint(args, model, params, opt_state, epoch: int, prec1,
-                    best_prec1: float) -> float:
+                    best_prec1: float, optimizer=None) -> float:
     """``--checkpoint-dir``: ``last/`` after every epoch, ``best/`` too on
-    a new best prec@1, written by rank 0; returns the best prec@1."""
+    a new best prec@1, written by rank 0 (under ``--zero`` every rank
+    first takes part in gathering the state: ``optimizer`` is needed);
+    returns the best prec@1."""
     is_best = prec1 is not None and prec1 > best_prec1
     if is_best:
         best_prec1 = prec1
+    opt_state = full_opt_state(optimizer, params, opt_state, args.zero)
     if _world()[0] == 0:
         state = train_state(model, params, opt_state, epoch, best_prec1)
         checkpoint.save(os.path.join(args.checkpoint_dir, "last"), state)
@@ -397,7 +417,6 @@ def train(args, *, device="cuda", module=None, steps: Optional[int] = None,
     the step takes (``model``, ``optimizer``, ``ddp``, ``params``,
     ``opt_state``, ``norm``)."""
     dev = resolve_device(device)
-    _check_supported(args)
     _configure_backends(args, dev)
     rank, world = _world()
     if module is None:
@@ -413,6 +432,8 @@ def train(args, *, device="cuda", module=None, steps: Optional[int] = None,
     if args.resume:
         params, opt_state, start_epoch, best_prec1 = resume(
             args.resume, model, params, opt_state)
+    if args.zero:
+        optimizer, opt_state = zero_shard(optimizer, opt_state)
     norm = normalizer(dev)
     if args.evaluate:
         if make_val is None:
@@ -463,7 +484,7 @@ def train(args, *, device="cuda", module=None, steps: Optional[int] = None,
                 if args.checkpoint_dir:
                     best_prec1 = save_checkpoint(args, model, params,
                                                  opt_state, epoch, prec1,
-                                                 best_prec1)
+                                                 best_prec1, optimizer)
         mark()
     finally:
         data.close()

@@ -41,16 +41,35 @@ block runs on a fork of its scope's counters, and the attention seeds
 are drawn before the blocks), so the gradients equal those without
 remat bit for bit.
 
-Not here: the pipelined and tensor-parallel variants.
+Tensor parallelism (``GPTLMHeadModel(cfg, ..., tp=<model group>)``,
+the twin of the JAX model under ``parallel.gpt_tp_rules``): each rank
+builds its local shapes under the dense model's names.  q/k/v and
+``mlp_in`` are column-parallel (``parallel.copy_to_group`` in front),
+the attention ``output`` and ``mlp_out`` row-parallel
+(:class:`RowParallelLinear`: the bias added once, after
+``reduce_from_group``), ``wte`` vocab-parallel
+(:class:`VocabParallelEmbedding`).  The head is left to
+``ops.vocab_parallel_lm_loss``: a TP forward takes ``return_hidden=True``
+(the final LN's output, as the JAX model's flag).  Dropout draws what
+the dense model draws: the hidden dropouts act on replicated
+activations with the same keys on every rank; the flash kernels get
+``dropout_offsets`` ``(0, 0, m * heads_local, heads)`` on model rank m,
+and the default attention draws the full ``(B, heads, S, S)`` mask and
+keeps this rank's heads.  ``reset_parameters(seed)`` draws each full
+tensor as the dense model does and keeps this rank's slice, so a seed
+gives the dense model's weights, split.  Serving under TP is not here.
+
+Not here: the pipelined variant.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -65,6 +84,9 @@ from apex_tpu_torch.ops.decode_attention import (
 )
 from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
+from apex_tpu_torch.parallel.collectives import copy_to_group, \
+    reduce_from_group
+from apex_tpu_torch.parallel.mesh import ProcessGroup
 
 NEG_INF = -1e9
 
@@ -95,6 +117,93 @@ def gpt_medium() -> GPTConfig:
                      num_attention_heads=16, intermediate_size=4096)
 
 
+def padded_vocab(vocab_size: int, tp: int) -> int:
+    """``vocab_size`` rounded up to a multiple of ``128 * tp``: the JAX
+    example's padding of the embedding rows under the vocab-parallel
+    loss (Megatron's ``make_vocab_size_divisible_by``; GPT-2's 50257 at
+    ``--tp 2`` is 50432)."""
+    unit = 128 * tp
+    return -(-vocab_size // unit) * unit
+
+
+class _TP(NamedTuple):
+    """A tensor-parallel layer's place: the model group, this rank's
+    index in it and the group's size."""
+
+    group: ProcessGroup
+    rank: int
+    size: int
+
+
+def _tp_place(group: Optional[ProcessGroup]) -> Optional[_TP]:
+    if group is None:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError("a tensor-parallel model needs an initialized "
+                           "process group")
+    return _TP(group, group.rank(), group.size())
+
+
+class RowParallelLinear(nn.Module):
+    """``y = sum over the model group of (x_local @ W_local^T) + b``:
+    ``weight`` is this rank's (out, in / n) columns, ``bias`` the whole
+    (out,) vector, added once after the sum (adding it on every rank
+    before the sum would count it n times)."""
+
+    def __init__(self, in_local: int, out_features: int, tp: _TP, *,
+                 device, dtype):
+        super().__init__()
+        self.tp = tp
+        self.weight = nn.Parameter(torch.empty(out_features, in_local,
+                                               device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x):
+        return reduce_from_group(F.linear(x, self.weight),
+                                 self.tp.group) + self.bias
+
+
+class VocabParallelEmbedding(nn.Module):
+    """The embedding's rows ``[rank * V/n, (rank + 1) * V/n)``: ids
+    outside them look up zeros, and the sum over the model group gives
+    every rank the whole lookup."""
+
+    def __init__(self, rows_local: int, dim: int, tp: _TP, *, device,
+                 dtype):
+        super().__init__()
+        self.tp = tp
+        self.start = tp.rank * rows_local
+        self.weight = nn.Parameter(torch.empty(rows_local, dim,
+                                               device=device, dtype=dtype))
+
+    def forward(self, ids):
+        local = ids - self.start
+        valid = (local >= 0) & (local < self.weight.shape[0])
+        emb = F.embedding(torch.where(valid, local, 0), self.weight)
+        emb = torch.where(valid[..., None], emb, 0.0)
+        return reduce_from_group(emb, self.tp.group)
+
+
+def _head_slice_dropout(dropout, scope, tp: _TP, heads: int):
+    """The default attention's ``dropout_fn`` on a TP rank: the dense
+    model's draw over the full (B, heads, S, S) probs, this rank's heads
+    kept (flax's ``Dropout_0`` at the attention's scope)."""
+    drop = scope.push("Dropout_0")
+    keep_prob = 1.0 - dropout.rate
+
+    def dropout_fn(p):
+        b, hl = p.shape[:2]
+        keep = threefry.bernoulli(drop.make_rng(), keep_prob,
+                                  (b, heads) + tuple(p.shape[2:]), p.device)
+        keep = keep[:, tp.rank * hl:(tp.rank + 1) * hl]
+        div = torch.full((), keep_prob, dtype=p.dtype, device=p.device)
+        return torch.where(keep, p / div, torch.zeros((), dtype=p.dtype,
+                                                      device=p.device))
+
+    return dropout_fn
+
+
 def causal_dot_product_attention(q, k, v, bias=None, dropout_fn=None):
     """The default attention path: the causal mask folded into the
     additive bias, then ``bert.dot_product_attention`` (fp32 softmax,
@@ -108,17 +217,26 @@ def causal_dot_product_attention(q, k, v, bias=None, dropout_fn=None):
 
 
 class GPTSelfAttention(nn.Module):
+    """Under TP (``tp``, a :class:`_TP`) q/k/v hold this rank's heads and
+    ``output`` is row-parallel."""
+
     def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
-                 *, device="cuda", dtype: torch.dtype = torch.float32):
+                 *, device="cuda", dtype: torch.dtype = torch.float32,
+                 tp: Optional[_TP] = None):
         super().__init__()
         dev = resolve_device(device)
         h = cfg.hidden_size
-        self.num_heads = cfg.num_attention_heads
+        n = tp.size if tp is not None else 1
+        self.tp = tp
+        self.num_heads_total = cfg.num_attention_heads
+        self.num_heads = cfg.num_attention_heads // n
+        hl = h // n
         self.attention_fn = attention_fn
-        self.query = nn.Linear(h, h, device=dev, dtype=dtype)
-        self.key = nn.Linear(h, h, device=dev, dtype=dtype)
-        self.value = nn.Linear(h, h, device=dev, dtype=dtype)
-        self.output = nn.Linear(h, h, device=dev, dtype=dtype)
+        self.query = nn.Linear(h, hl, device=dev, dtype=dtype)
+        self.key = nn.Linear(h, hl, device=dev, dtype=dtype)
+        self.value = nn.Linear(h, hl, device=dev, dtype=dtype)
+        self.output = nn.Linear(h, h, device=dev, dtype=dtype) if tp is None \
+            else RowParallelLinear(hl, h, tp, device=dev, dtype=dtype)
         self.dropout = threefry.Dropout(cfg.attention_probs_dropout_prob)
 
     def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False,
@@ -149,9 +267,12 @@ class GPTSelfAttention(nn.Module):
         the model's device)."""
         b, s, h = x.shape
         nh = self.num_heads
-        q = self.query(x).view(b, s, nh, h // nh)
-        k = self.key(x).view(b, s, nh, h // nh)
-        v = self.value(x).view(b, s, nh, h // nh)
+        hd = h // self.num_heads_total
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp.group)
+        q = self.query(x).view(b, s, nh, hd)
+        k = self.key(x).view(b, s, nh, hd)
+        v = self.value(x).view(b, s, nh, hd)
         kv_out = (k, v)
         if kv_quant:
             (k_q, k_s), (v_q, v_s) = kv_out = quantize_kv(k), quantize_kv(v)
@@ -184,11 +305,21 @@ class GPTSelfAttention(nn.Module):
             attn = self.attention_fn or causal_dot_product_attention
             dropout_fn = None
             if dropout_key is not None and self.dropout.rate > 0:
-                dropout_fn = attention_dropout_fn(
-                    self.dropout, threefry.RngScope.of(dropout_key),
-                    self.attention_fn is not None, attention_seed, x.device)
+                scope = threefry.RngScope.of(dropout_key)
+                fused = self.attention_fn is not None
+                if self.tp is not None and not fused:
+                    dropout_fn = _head_slice_dropout(
+                        self.dropout, scope, self.tp, self.num_heads_total)
+                else:
+                    dropout_fn = attention_dropout_fn(
+                        self.dropout, scope, fused, attention_seed,
+                        x.device)
+                if self.tp is not None and fused:
+                    # the flash kernels hash GLOBAL head coordinates
+                    dropout_fn.offsets = (0, 0, self.tp.rank * nh,
+                                          self.num_heads_total)
             ctx = attn(q, k, v, bias=attn_bias, dropout_fn=dropout_fn)
-        out = self.output(ctx.reshape(b, s, h))
+        out = self.output(ctx.reshape(b, s, nh * hd))
         if return_kv:
             return out, kv_out
         return out
@@ -200,18 +331,21 @@ class GPTBlock(nn.Module):
     ``dropout_key`` is the block's flax scope when dropout is on."""
 
     def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
-                 *, device="cuda", dtype: torch.dtype = torch.float32):
+                 *, device="cuda", dtype: torch.dtype = torch.float32,
+                 tp: Optional[_TP] = None):
         super().__init__()
         dev = resolve_device(device)
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        il = cfg.intermediate_size // (tp.size if tp is not None else 1)
+        self.tp = tp
         self.attn_ln = FusedLayerNorm(h, eps=eps, device=dev, dtype=dtype)
         self.attention = GPTSelfAttention(cfg, attention_fn, device=dev,
-                                          dtype=dtype)
+                                          dtype=dtype, tp=tp)
         self.mlp_ln = FusedLayerNorm(h, eps=eps, device=dev, dtype=dtype)
-        self.mlp_in = nn.Linear(h, cfg.intermediate_size, device=dev,
-                                dtype=dtype)
-        self.mlp_out = nn.Linear(cfg.intermediate_size, h, device=dev,
-                                 dtype=dtype)
+        self.mlp_in = nn.Linear(h, il, device=dev, dtype=dtype)
+        self.mlp_out = nn.Linear(il, h, device=dev, dtype=dtype) \
+            if tp is None else RowParallelLinear(il, h, tp, device=dev,
+                                                 dtype=dtype)
         self.drop = threefry.Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False,
@@ -228,8 +362,10 @@ class GPTBlock(nn.Module):
         if return_kv:
             h, kv = h
         x = x + _drop(self.drop, h, scope)
-        h = self.mlp_out(F.gelu(self.mlp_in(self.mlp_ln(x)),
-                                approximate="tanh"))
+        h = self.mlp_ln(x)
+        if self.tp is not None:
+            h = copy_to_group(h, self.tp.group)
+        h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
         if return_kv:
             return x + _drop(self.drop, h, scope), kv
         return x + _drop(self.drop, h, scope)
@@ -255,20 +391,39 @@ class GPTLMHeadModel(nn.Module):
     per-layer (L, B, T, H) scale legs (a 5-tuple), fresh K/V are
     quantized at the projection, and ``return_kv`` yields per-layer
     ``((k_q, k_scale), (v_q, v_scale))``.
+
+    ``tp`` (a ``parallel.ProcessGroup``, the mesh's model group) builds
+    this rank's part of the tensor-parallel model (module docstring);
+    its forward needs ``return_hidden=True``.
     """
 
     def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
                  *, device="cuda", dtype: torch.dtype = torch.float32,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0,
+                 tp: Optional[ProcessGroup] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
-        self.wte = nn.Embedding(cfg.vocab_size, h, device=dev, dtype=dtype)
+        place = self.tp = _tp_place(tp)
+        if place is not None:
+            n = place.size
+            for what, size in (("num_attention_heads",
+                                cfg.num_attention_heads),
+                               ("intermediate_size", cfg.intermediate_size),
+                               ("vocab_size", cfg.vocab_size)):
+                if size % n:
+                    raise ValueError(f"{what} {size} does not divide over "
+                                     f"{n} tensor-parallel ranks")
+            self.wte = VocabParallelEmbedding(cfg.vocab_size // n, h, place,
+                                              device=dev, dtype=dtype)
+        else:
+            self.wte = nn.Embedding(cfg.vocab_size, h, device=dev,
+                                    dtype=dtype)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, h, device=dev,
                                 dtype=dtype)
         self.blocks = nn.ModuleList(
-            GPTBlock(cfg, attention_fn, device=dev, dtype=dtype)
+            GPTBlock(cfg, attention_fn, device=dev, dtype=dtype, tp=place)
             for _ in range(cfg.num_hidden_layers))
         self.final_ln = FusedLayerNorm(h, eps=cfg.layer_norm_eps, device=dev,
                                        dtype=dtype)
@@ -277,28 +432,59 @@ class GPTLMHeadModel(nn.Module):
         if seed is not None:
             self.reset_parameters(seed)
 
+    def tp_specs(self) -> Dict[str, tuple]:
+        """Each parameter's split under ``parallel.gpt_tp_rules`` at this
+        model's TP size (``{}`` without TP), read from the full model's
+        shapes."""
+        if self.tp is None:
+            return {}
+        from apex_tpu_torch.parallel import tensor_parallel as tpar
+        full = GPTLMHeadModel(self.cfg, device="meta", seed=None)
+        return tpar.param_specs(dict(full.named_parameters()),
+                                tpar.Mesh({"model": self.tp.size}),
+                                tpar.gpt_tp_rules(),
+                                num_heads=self.cfg.num_attention_heads)
+
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
+        from apex_tpu_torch.parallel.tensor_parallel import local_slice
         gen = torch.Generator().manual_seed(int(seed))
         std = self.cfg.initializer_range
+        specs = self.tp_specs()
+        n = self.tp.size if self.tp is not None else 1
         for name, p in self.named_parameters():
             if name.endswith("_ln.scale"):
                 p.fill_(1.0)
             elif name.endswith("bias"):
                 p.zero_()
             else:
-                p.copy_(torch.empty(p.shape, dtype=torch.float32)
-                        .normal_(0.0, std, generator=gen))
+                spec = specs.get(name, ())
+                shape = tuple(d * n if axis else d for d, axis in
+                              zip(p.shape, spec + (None,) * p.dim()))
+                full = torch.empty(shape, dtype=torch.float32).normal_(
+                    0.0, std, generator=gen)
+                if spec:
+                    full = local_slice(full, spec, {"model": n},
+                                       {"model": self.tp.rank})
+                p.copy_(full)
 
     def forward(self, input_ids, attention_mask=None, positions=None,
                 cache_views=None, return_kv: bool = False,
                 kv_quant: bool = False, deterministic: bool = True,
-                dropout_key=None):
+                dropout_key=None, return_hidden: bool = False):
         """``dropout_key``: the key the JAX model takes as
         ``rngs={"dropout": key}``; needed when ``deterministic`` is False
-        and a dropout rate is above 0."""
+        and a dropout rate is above 0.  ``return_hidden``: the final LN's
+        output (B, S, H) in place of the logits, for
+        ``ops.vocab_parallel_lm_loss``."""
         cfg = self.cfg
         b, s = input_ids.shape
+        if self.tp is not None and (not return_hidden or return_kv
+                                    or cache_views is not None):
+            raise ValueError(
+                "a tensor-parallel GPT trains only: pass return_hidden=True "
+                "and take the loss with ops.vocab_parallel_lm_loss "
+                "(serving under TP is not ported)")
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :]
         scope = _dropout_scope(cfg, deterministic, dropout_key)
@@ -339,6 +525,8 @@ class GPTLMHeadModel(nn.Module):
                 x = block(x, bias, cache_view=cv, kv_quant=kv_quant,
                           dropout_key=scopes[i], attention_seed=seeds[i])
         x = self.final_ln(x)
+        if return_hidden:
+            return x
         logits = F.linear(x, self.wte.weight).float()  # weight-tied head
         if return_kv:
             return logits, kvs
@@ -352,9 +540,17 @@ def params_from_jax(params: Mapping, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
     DenseGeneral q/k/v kernels (h, nh, hd) and the output kernel
     (nh, hd, h) flatten to (h, h) and transpose into ``nn.Linear``'s
     (out, in) layout; Dense kernels (in, out) transpose; embeddings and
-    LN scale/bias carry over as they are."""
+    LN scale/bias carry over as they are.  A ``cfg`` whose vocab is
+    padded (:func:`padded_vocab`, the JAX example's padding under
+    ``--tp``) takes a JAX tree of the padded model as it is, or one of
+    the true vocab with zero rows appended; ``parallel.shard_params``
+    then cuts each TP rank's part."""
     p = params.get("params", params)
     h = cfg.hidden_size
+    rows = np.asarray(p["wte"]["embedding"]).shape[0]
+    if rows > cfg.vocab_size:
+        raise ValueError(f"the JAX tree's wte has {rows} rows, the config "
+                         f"{cfg.vocab_size}")
 
     def t(a, shape=None):
         a = np.array(a)  # a writable copy
@@ -362,7 +558,11 @@ def params_from_jax(params: Mapping, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
             a = a.reshape(shape)
         return torch.from_numpy(np.ascontiguousarray(a))
 
-    sd = {"wte.weight": t(p["wte"]["embedding"]),
+    wte = np.asarray(p["wte"]["embedding"])
+    if rows < cfg.vocab_size:
+        wte = np.concatenate([wte, np.zeros((cfg.vocab_size - rows, h),
+                                            wte.dtype)])
+    sd = {"wte.weight": t(wte),
           "wpe.weight": t(p["wpe"]["embedding"]),
           "final_ln.scale": t(p["final_ln"]["scale"]),
           "final_ln.bias": t(p["final_ln"]["bias"])}

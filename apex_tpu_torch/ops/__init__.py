@@ -26,6 +26,7 @@ from apex_tpu_torch.ops.multi_tensor import (
     tree_any_nonfinite,
 )
 from apex_tpu_torch.ops.sampling import finite_rows, greedy_argmax
+from apex_tpu_torch.ops.vocab_parallel import vocab_parallel_lm_loss
 
 __all__ = ["FlatSpec", "INT8_QMAX", "bias_to_kv_mask", "cached_attention",
            "chunk_cached_attention", "dequantize_kv", "dropout_params",
@@ -34,4 +35,5 @@ __all__ = ["FlatSpec", "INT8_QMAX", "bias_to_kv_mask", "cached_attention",
            "greedy_argmax", "keep_from_seed", "make_flash_attention",
            "multi_tensor_axpby", "multi_tensor_l2norm",
            "multi_tensor_scale", "multi_tensor_unscale", "quantize_kv",
-           "seed_array", "tree_any_nonfinite", "unflatten"]
+           "seed_array", "tree_any_nonfinite", "unflatten",
+           "vocab_parallel_lm_loss"]

@@ -588,12 +588,16 @@ def make_flash_attention(*, causal: bool = False, **kwargs):
     signature the models take; ``bias`` must be a key-position-only
     (B, 1, 1, Sk) additive mask.  Attention dropout runs in the kernels
     from the ``(rate, seed)`` annotation on ``dropout_fn``
-    (:func:`dropout_params`)."""
+    (:func:`dropout_params`), and its ``.offsets`` where a
+    tensor-parallel model sets them (``dropout_offsets``)."""
 
     def attention_fn(q, k, v, bias=None, dropout_fn=None):
         rate, seed = dropout_params(dropout_fn)
         return flash_attention(q, k, v, kv_mask=bias_to_kv_mask(bias),
                                causal=causal, dropout_rate=rate,
-                               dropout_seed=seed, **kwargs)
+                               dropout_seed=seed,
+                               dropout_offsets=getattr(dropout_fn,
+                                                       "offsets", None),
+                               **kwargs)
 
     return attention_fn

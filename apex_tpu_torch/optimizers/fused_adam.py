@@ -44,7 +44,20 @@ is consumed.  ``param_groups`` (``optimizers.param_groups``) match the
 parameters' dotted names and override ``lr``, ``betas``, ``eps``,
 ``weight_decay`` and ``max_grad_norm``.
 
-Not here yet: ``with_zero``.
+``with_zero(group)`` (ZeRO-1, with ``parallel.shard_optimizer_state``):
+the flat layout's m and v hold this rank's 1/n of the buffer; B1 runs
+on this rank's slice of p, m, v and the (all-reduced) g, and the fresh
+slice is all-gathered into the flat p that the params view.  A grouped
+layout launches B1-multi over each group's segment cut to the rank's
+range.  The clipping norm is the group's over the whole reduced g,
+which every rank holds, so the step is the replicated one bit for bit.
+A buffer that does not shard (``parallel.zero.flat_shard_len``) takes
+the replicated update.  The tree layout's ``with_zero`` changes
+nothing, as in the JAX package.
+
+``with_model_parallel(group, sharded)`` (tensor parallelism): the
+``max_grad_norm`` norm counts each replicated leaf once and sums the
+squares of the sharded leaves (``sharded[name]``) over the model group.
 """
 
 from __future__ import annotations
@@ -268,6 +281,8 @@ class FusedAdam:
         if self.param_groups:
             validate_specs(self.param_groups, self._defaults().keys(),
                            "FusedAdam")
+        self._zero = None       # (group, min_shard_elems): with_zero
+        self._tp = None         # (group, {name: sharded}): model parallel
 
     def _defaults(self):
         return {"lr": self.lr, "betas": self.betas, "eps": self.eps,
@@ -283,7 +298,33 @@ class FusedAdam:
                   param_groups=self.param_groups, pad_to=self.pad_to,
                   layout=self.layout)
         kw.update(overrides)
-        return type(self)(**kw)
+        new = type(self)(**kw)
+        new._zero, new._tp = self._zero, self._tp
+        return new
+
+    def with_zero(self, group, min_shard_elems: Optional[int] = None
+                  ) -> "FusedAdam":
+        """A copy whose flat update runs on this rank's shard of the
+        buffers over ``group`` (the data ranks) and all-gathers the
+        params (module docstring).  ``min_shard_elems`` (default ``n *
+        128``) must be what ``parallel.shard_optimizer_state`` was given.
+        The tree layout takes no configuration: a copy as it is."""
+        new = self._clone()
+        if self.layout == "flat":
+            new._zero = (group, min_shard_elems)
+        return new
+
+    def with_model_parallel(self, group, sharded) -> "FusedAdam":
+        """A copy whose ``max_grad_norm`` norm is the tensor-parallel
+        model's: ``sharded`` maps each dotted parameter name to whether
+        it is split over the model ``group`` (``parallel.param_specs``:
+        a non-empty spec).  The tree layout only."""
+        if self.layout != "tree":
+            raise ValueError("tensor-parallel params step with "
+                             "layout='tree'")
+        new = self._clone()
+        new._tp = (group, dict(sharded))
+        return new
 
     # -- state --------------------------------------------------------------
     def init(self, params: Tree) -> FusedAdamState:
@@ -492,6 +533,15 @@ class FusedAdam:
         def norm_of(t):
             return lambda: torch.sqrt(torch.sum(t * t))
 
+        if self._zero is not None:
+            shard = self._zero_shard(n, state)
+            if shard is not None:
+                group, lo, k = shard
+                self._step_flat_shard(
+                    p, g[lo:lo + k], state, spec, step, scale, keep,
+                    lambda a, size: norm_of(g[a:a + size]), grad_norm,
+                    group, lo, k)
+                return state._replace(step=step)
         if not spec.group_bounds:
             scalars = self._scalars(self._group_hps(1)[0], step, scale, keep,
                                     norm_of(g), grad_norm)
@@ -514,6 +564,51 @@ class FusedAdam:
             self._update_multi(segments, torch.stack(scalars))
         return state._replace(step=step)
 
+    def _zero_shard(self, total: int, state: FusedAdamState):
+        """``(group, lo, k)``: this rank's range of the buffer under
+        ``with_zero``; None where the buffer takes the replicated
+        update."""
+        from apex_tpu_torch.parallel import zero
+        group, least = self._zero
+        ranks, r = zero.group_place(group)
+        k = zero.flat_shard_len(total, ranks, zero.min_shard(group, least))
+        if k is None:
+            return None
+        if state.m.shape[0] != k:
+            raise ValueError(
+                f"with_zero: m holds {state.m.shape[0]} elements, this "
+                f"rank's shard {k}: shard the state with "
+                "parallel.shard_optimizer_state")
+        return group, r * k, k
+
+    def _step_flat_shard(self, p, g_shard, state, spec, step, scale, keep,
+                         norm_of, grad_norm, group, lo, k) -> None:
+        """The sharded flat update of ZeRO-1 and ZeRO-2: B1 (or B1-multi
+        over the groups' pieces) on ``[lo, lo + k)`` of p with
+        ``g_shard``, the gradient's same range, and this rank's m and v,
+        then the all-gather of p's slices.  ``norm_of(start, size)``
+        gives the function that computes the norm of the gradient's
+        ``[start, start + size)``."""
+        from apex_tpu_torch.parallel.collectives import all_gather_flat
+        hi = lo + k
+        if not spec.group_bounds:
+            scalars = self._scalars(self._group_hps(1)[0], step, scale, keep,
+                                    norm_of(0, p.shape[0]), grad_norm)
+            self._update(p[lo:hi], state.m, state.v, g_shard, scalars)
+        else:
+            hps = self._group_hps(len(spec.group_bounds))
+            scalars, segments = [], []
+            for gid, ((start, size), hp) in enumerate(
+                    zip(spec.group_bounds, hps)):
+                scalars.append(self._scalars(hp, step, scale, keep,
+                                             norm_of(start, size), grad_norm))
+                a, b = max(start, lo) - lo, min(start + size, hi) - lo
+                if a < b:
+                    segments.append((p[lo + a:lo + b], state.m[a:b],
+                                     state.v[a:b], g_shard[a:b], gid))
+            self._update_multi(segments, torch.stack(scalars))
+        all_gather_flat(p[lo:hi], group, out=p)
+
     def _step_tree(self, params, grads, state: FusedAdamState, scale,
                    grad_norm, skip):
         p_leaves, treedef = pytree.tree_flatten(params)
@@ -532,8 +627,17 @@ class FusedAdam:
                 else p.detach().float().contiguous() for p in p_leaves]
         g32 = [g.detach().float().contiguous() for g in g_leaves]
 
+        names = leaf_paths(params) if self._tp is not None else None
+
         def norm_of(gid):
             def fn():
+                if self._tp is not None:
+                    from apex_tpu_torch.parallel.tensor_parallel import \
+                        tp_grad_norm
+                    group, sharded = self._tp
+                    picked = {n: g for n, g, i in zip(names, g32, ids)
+                              if i == gid}
+                    return tp_grad_norm(picked, sharded, group, step.device)
                 sq = sum(torch.sum(g * g) for g, i in zip(g32, ids)
                          if i == gid)
                 return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32,

@@ -4,15 +4,25 @@ Twin of ``apex_tpu.parallel``'s data-parallel half (reference
 ``apex/parallel``): ``DistributedDataParallel`` and ``Reducer``,
 ``SyncBatchNorm`` with ``convert_syncbn_model``, ``LARC``, process
 groups and the launcher.  One process per GPU: NCCL on the card, gloo
-on the CPU.
+on the CPU.  Megatron tensor parallelism (``tensor_parallel``: the rules
+and the split; the (data, model) rank mesh ``create_mesh``; the
+collectives ``copy_to_group`` / ``reduce_from_group``) and ZeRO-1/2
+(``zero``).
 
-Not here yet: tensor, sequence and pipeline parallelism, expert
-parallelism and ZeRO.
+Not here yet: sequence and pipeline parallelism, expert parallelism.
 """
 
 from apex_tpu_torch.parallel.LARC import LARC
-from apex_tpu_torch.parallel.collectives import all_gather_g, pmean_g, \
-    psum_g
+from apex_tpu_torch.parallel.collectives import (
+    all_gather_flat,
+    all_gather_g,
+    copy_to_group,
+    pmax_g,
+    pmean_g,
+    psum_g,
+    reduce_from_group,
+    reduce_scatter_flat,
+)
 from apex_tpu_torch.parallel.distributed import (
     DistributedDataParallel,
     Reducer,
@@ -20,13 +30,27 @@ from apex_tpu_torch.parallel.distributed import (
     all_reduce_tree,
     broadcast_params,
 )
-from apex_tpu_torch.parallel.mesh import ProcessGroup, create_process_group
+from apex_tpu_torch.parallel.mesh import Mesh, ProcessGroup, create_mesh, \
+    create_process_group
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.parallel.sync_batchnorm import (
     SyncBatchNorm,
     convert_syncbn_model,
     merge_stats,
     welford_combine,
+)
+from apex_tpu_torch.parallel.tensor_parallel import (
+    BERT_TP_RULES,
+    Heads,
+    bert_tp_rules,
+    gpt_tp_rules,
+    param_specs,
+    shard_params,
+)
+from apex_tpu_torch.parallel.zero import (
+    shard_optimizer_state,
+    unshard_optimizer_state,
+    zero2_update,
 )
 
 
@@ -38,21 +62,37 @@ def create_syncbn_process_group(group_size: int,
 
 
 __all__ = [
+    "BERT_TP_RULES",
     "DistributedDataParallel",
+    "Heads",
     "LARC",
+    "Mesh",
     "ProcessGroup",
     "Reducer",
     "SyncBatchNorm",
+    "all_gather_flat",
     "all_gather_g",
     "all_gather_tree",
     "all_reduce_tree",
+    "bert_tp_rules",
     "broadcast_params",
     "convert_syncbn_model",
+    "copy_to_group",
+    "create_mesh",
     "create_process_group",
     "create_syncbn_process_group",
+    "gpt_tp_rules",
     "initialize_distributed",
     "merge_stats",
+    "param_specs",
+    "pmax_g",
     "pmean_g",
     "psum_g",
+    "reduce_from_group",
+    "reduce_scatter_flat",
+    "shard_optimizer_state",
+    "shard_params",
+    "unshard_optimizer_state",
     "welford_combine",
+    "zero2_update",
 ]

@@ -4,9 +4,32 @@ Twin of ``apex_tpu/parallel/collectives.py`` (``psum_g``, ``pmean_g``,
 ``all_gather_g``) on ``torch.distributed``.  ``psum_g`` and ``pmean_g``
 are differentiable: the gradient of a sum over ranks is the sum over
 ranks of the gradients (the transpose of a psum is a psum), which is
-what SyncBatchNorm's backward needs.  ``all_gather_g`` is not (gloo
-has no all_gather of CUDA tensors, so nothing on the training path
-gathers).
+what SyncBatchNorm's backward needs, where each rank holds a part of
+the batch.  ``all_gather_g`` is not differentiable.
+
+Tensor parallelism needs the other pair, Megatron's ``f`` and ``g``:
+the activations a TP group's ranks hold are replicated, so the
+downstream gradient is already the same on every rank and a psum in
+the backward would multiply it by the group's size.
+:func:`copy_to_group` is the identity forward and a sum in the
+backward (in front of a column-parallel product);
+:func:`reduce_from_group` a sum forward and the identity backward
+(after a row-parallel product).  On GSPMD the JAX package gets both
+from the partitioner.
+
+:func:`pmax_g` reduces a flag or a max on the device (no host sync on
+NCCL).  :func:`all_gather_flat` and :func:`reduce_scatter_flat` are the
+tiled dim-0 collectives ZeRO moves its shards with.  Their form is
+chosen by the group's backend name, never by trying one:
+
+- ``nccl``: ``all_gather_into_tensor`` and ``reduce_scatter_tensor``;
+- any other (gloo): the gather as one ``broadcast`` per rank of its
+  slice into the output, the reduce-scatter as an ``all_reduce`` of
+  the whole buffer and a slice of it (gloo has neither collective for
+  CUDA tensors; it has ``broadcast`` and ``all_reduce``).
+
+Without an initialized process group every collective is the identity
+(a world of one process).
 """
 
 from __future__ import annotations
@@ -17,6 +40,10 @@ import torch
 import torch.distributed as dist
 
 from apex_tpu_torch.parallel.mesh import WORLD, ProcessGroup
+
+
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -56,3 +83,116 @@ def all_gather_g(x: torch.Tensor, group: Optional[ProcessGroup] = None, *,
     parts = [torch.empty_like(x) for _ in range(group.size())]
     dist.all_gather(parts, x.contiguous(), group=group.handle)
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, handle):
+        ctx.handle = handle
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ctx.handle)
+        return out, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Sum over the group forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, handle):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=handle)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` as it is, its gradient summed over
+    ``group`` (a column-parallel layer's input)."""
+    if not _initialized():
+        return x
+    return _CopyToGroup.apply(x, group.handle)
+
+
+def reduce_from_group(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    """Megatron's ``g``: the sum of ``x`` over ``group``, its gradient
+    passed through as it is (a row-parallel layer's output)."""
+    if not _initialized():
+        return x
+    return _ReduceFromGroup.apply(x, group.handle)
+
+
+def pmax_g(x: torch.Tensor,
+           group: Optional[ProcessGroup] = None) -> torch.Tensor:
+    """Elementwise max of ``x`` over ``group``, as a new tensor on the
+    device (bools reduce as int32 and come back bool); not
+    differentiable."""
+    if not _initialized():
+        return x.clone()
+    work = x.detach().to(torch.int32) if x.dtype == torch.bool \
+        else x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(work, op=dist.ReduceOp.MAX,
+                    group=(group or WORLD).handle)
+    return work.bool() if x.dtype == torch.bool else work
+
+
+def _native(group: ProcessGroup) -> bool:
+    return group.backend() == "nccl"
+
+
+def all_gather_flat(x: torch.Tensor, group: ProcessGroup,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in group order, into
+    ``out`` when given (contiguous, ``n`` times ``x``'s rows).  ``x`` may
+    be this rank's own slice of ``out`` (the gather is then in place).
+    NCCL: ``all_gather_into_tensor``; other backends: one ``broadcast``
+    per rank of its slice."""
+    n = group.size() if _initialized() else 1
+    if out is None:
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    rows = x.shape[0]
+    if not _initialized():
+        if out.data_ptr() != x.data_ptr():
+            out.copy_(x)
+        return out
+    mine = out[group.rank() * rows:(group.rank() + 1) * rows]
+    if mine.data_ptr() != x.data_ptr():
+        mine.copy_(x)
+    if _native(group):
+        dist.all_gather_into_tensor(out, mine, group=group.handle)
+        return out
+    for i, src in enumerate(group.members()):
+        dist.broadcast(out[i * rows:(i + 1) * rows], src=src,
+                       group=group.handle)
+    return out
+
+
+def reduce_scatter_flat(x: torch.Tensor,
+                        group: ProcessGroup) -> torch.Tensor:
+    """This rank's 1/n of the sum of ``x`` over ``group``, cut along dim
+    0 in group order (``x``'s rows divide by n).  NCCL:
+    ``reduce_scatter_tensor`` (the full sum is never formed); other
+    backends: an ``all_reduce`` of a copy of ``x``, then this rank's
+    slice of it."""
+    if not _initialized():
+        return x.clone()
+    n, r = group.size(), group.rank()
+    rows = x.shape[0] // n
+    if rows * n != x.shape[0]:
+        raise ValueError(f"reduce_scatter_flat: {x.shape[0]} rows do not "
+                         f"divide over {n} ranks")
+    if _native(group):
+        out = x.new_empty((rows,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=group.handle)
+        return out
+    work = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(work, group=group.handle)
+    return work[r * rows:(r + 1) * rows]

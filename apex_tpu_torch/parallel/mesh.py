@@ -2,14 +2,19 @@
 
 Twin of ``apex_tpu/parallel/mesh.py``.  The JAX package names a group by
 a mesh axis and a partition of its indices; here a group is the
-partition of the world's ranks into contiguous groups plus the
+partition of the world's ranks into equal groups plus the
 ``torch.distributed`` group that holds this rank.  ``groups=None`` is
 the whole world (the default group).
+
+:func:`create_mesh` is the twin of the JAX examples' ``Mesh(devices
+.reshape(dp, tp), ("data", "model"))``: rank r sits at data index
+``r // tp`` and model index ``r % tp``, so the model groups are
+contiguous and the data groups strided.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
@@ -41,8 +46,30 @@ class ProcessGroup(NamedTuple):
         rank = dist.get_rank()
         return next(g for g in self.groups if rank in g)
 
+    def rank(self) -> int:
+        """This rank's index within its group."""
+        return self.members().index(dist.get_rank())
+
+    def backend(self) -> str:
+        """The group's ``torch.distributed`` backend name (``"nccl"``,
+        ``"gloo"``)."""
+        return str(dist.get_backend(self.handle))
+
 
 WORLD = ProcessGroup()
+
+
+def _new_groups(groups: Sequence[Tuple[int, ...]]) -> ProcessGroup:
+    """Make every group of the partition on every rank, in order (each
+    ``dist.new_group`` is a collective call of the whole world), and keep
+    the one that holds this rank."""
+    rank = dist.get_rank()
+    handle = None
+    for g in groups:
+        made = dist.new_group(list(g))
+        if rank in g:
+            handle = made
+    return ProcessGroup(tuple(tuple(g) for g in groups), handle)
 
 
 def create_process_group(group_size: Optional[int] = None,
@@ -61,12 +88,41 @@ def create_process_group(group_size: Optional[int] = None,
         raise ValueError(
             f"group_size {group_size} must evenly divide world size "
             f"{world_size} (reference requires the same)")
-    groups = tuple(tuple(range(g * group_size, (g + 1) * group_size))
-                   for g in range(world_size // group_size))
-    rank = dist.get_rank()
-    handle = None
-    for g in groups:
-        made = dist.new_group(list(g))
-        if rank in g:
-            handle = made
-    return ProcessGroup(groups, handle)
+    return _new_groups([tuple(range(g * group_size, (g + 1) * group_size))
+                        for g in range(world_size // group_size)])
+
+
+class Mesh(NamedTuple):
+    """A (data, model) rank mesh: ``shape`` maps each axis name to its
+    size, ``groups`` each axis to this rank's ``ProcessGroup`` along it
+    (empty for a mesh made only to read shapes, as ``param_specs``
+    does)."""
+
+    shape: Dict[str, int]
+    groups: Dict[str, ProcessGroup] = {}
+
+    def group(self, axis: str) -> ProcessGroup:
+        return self.groups[axis]
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.groups[axis].rank()
+
+
+def create_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
+    """The world as a ``(dp, tp)`` mesh with axes ``"data"`` and
+    ``"model"`` (``dp`` defaults to world size // ``tp``): rank r is data
+    index ``r // tp``, model index ``r % tp``.  The model groups
+    ``{d * tp + m}`` are contiguous, the data groups ``{d * tp + m : d}``
+    strided.  Every rank must call it in the same order as every other
+    rank; both groups are made on every rank (the model groups first)."""
+    world = dist.get_world_size()
+    if dp is None:
+        dp = world // tp if tp > 0 else 0
+    if tp <= 0 or dp <= 0 or dp * tp != world:
+        raise ValueError(f"mesh ({dp}, {tp}) does not tile a world of "
+                         f"{world} ranks")
+    model = _new_groups([tuple(range(d * tp, (d + 1) * tp))
+                         for d in range(dp)])
+    data = _new_groups([tuple(range(m, world, tp)) for m in range(tp)])
+    return Mesh({"data": dp, "model": tp}, {"data": data, "model": model})

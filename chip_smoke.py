@@ -176,7 +176,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
        equal this process's full batch within 2e-5 scale-aware;
    (e) ``entry.dryrun(1)`` over the NCCL group, 3 steps, against the same
        step on plain Adam (no kernel): O0 losses <= 1e-4 relative, O2
-       within 2e-2, B1 launched exactly once a step (path ``dryrun``);
+       within 2e-2; its ZeRO-1 and ZeRO-2 runs on NCCL's own
+       collectives end with its DDP run's params bit for bit (the dry
+       run raises otherwise); B1 launched exactly three times a step,
+       once a run (path ``dryrun``);
    (f) after (a), the whole train state saved with ``utils.checkpoint``
        (bytes, save and restore seconds on the host clock) and restored
        into a freshly built twin; one more step from each on the same
@@ -252,6 +255,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    state dict made from a seed: conversion seconds, every key consumed,
    the loaded model's MLM and NSP logits through B2/B4 (fp32) within
    1e-4 of its plain path.
+17. train_tp_zero — Megatron tensor parallelism and ZeRO at full width,
+   the ranks as processes over gloo on the one card (CUDA tensors):
+   (a) GPT-2 small at ``--tp 2`` (B 8, S 1024, flash): O0 2 steps
+       within 1e-4 of one process's dense run from the same weights
+       (losses relative, step-1 params scale-aware), O2 3 steps within
+       2e-2; replicated params equal on both ranks; B4-B6 12 each and
+       B1-multi 1 a rank a step (path ``train_tp``);
+   (b) an inf in rank 1's gradient only: both ranks skip, keep every
+       bit and halve the scale;
+   (c) DDP, ZeRO-1 and ZeRO-2 on GPT-2 small with flat FusedAdam, half
+       of B 8 a rank, 3 steps: both ZeRO runs end with DDP's master
+       buffer bit for bit; each run's memory a rank by part of the step
+       (paths ``train_zero1``, ``train_zero2``);
+   (d) a ZeRO-1 and a ZeRO-2 step of the dry run over NCCL at a world
+       of one under sync-debug "error".
 
 The O1 phases run last, and each ends by removing the policy, resetting
 amp's state and checking every patched function is its original again.
@@ -319,6 +337,7 @@ L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 # the training path: examples/gpt/main_amp.py --config small --flash
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 3e-4
+TP, TP_HEADS = 2, 6       # --tp 2: each rank 6 of GPT-2 small's 12 heads
 O0_BATCH, O0_STEPS, O2_STEPS = 2, 3, 10
 O0_TOL = 1e-4             # loss relative, step-1 grads scale-aware
 O2_LOSS_TOL = 2e-2        # absolute, every step
@@ -412,8 +431,12 @@ def kineto_launch(fn, fragment):
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    args = next(e["args"] for e in events if e.get("cat") == "kernel"
-                and fragment in e.get("name", ""))
+    args = next((e["args"] for e in events if e.get("cat") == "kernel"
+                 and fragment in e.get("name", "")), None)
+    if args is None:
+        # a diagnostic only: the profiler traced no kernel of this launch
+        # (CUPTI gave no device events on this machine)
+        return {"recorded": False}
     return {key: args.get(key) for key in (
         "grid", "block", "registers per thread", "blocks per SM",
         "warps per SM", "est. achieved occupancy %")}
@@ -753,13 +776,17 @@ def _flash_variants(torch):
     import torch.nn.functional as F
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     out = []
-    h, d = 12, 64
+    d = 64
     for dtype in (torch.float32, torch.bfloat16):
         # serving prefills (B 1, a padding mask), then the training step
-        # (B 8, no mask: the example's batches have no padding)
-        for bsz, s, length in ((1, 16, 11), (1, 100, 77), (1, 256, 200),
-                               (1, 1024, 1000),
-                               (TRAIN_BATCH, TRAIN_SEQ, None)):
+        # (B 8, no mask: the example's batches have no padding), then
+        # one rank's 6 heads of it under --tp 2 (bf16, O2)
+        for bsz, s, length, h in ((1, 16, 11, 12), (1, 100, 77, 12),
+                                  (1, 256, 200, 12), (1, 1024, 1000, 12),
+                                  (TRAIN_BATCH, TRAIN_SEQ, None, 12),
+                                  (TRAIN_BATCH, TRAIN_SEQ, None, TP_HEADS)):
+            if h == TP_HEADS and dtype != torch.bfloat16:
+                continue
             g = torch.Generator(device="cuda").manual_seed(s)
             q, k, v = (torch.randn(bsz, s, h, d, device="cuda", generator=g)
                        .to(dtype) for _ in range(3))
@@ -1052,10 +1079,13 @@ def _flash_bwd_variants(torch, which):
     plain_fn = {"dq": fa._bwd_dq_reference,
                 "dkv": fa._bwd_dkv_reference}[which]
     out = []
-    h, d = 12, 64
+    d = 64
     for dtype in (torch.float32, torch.bfloat16):
-        for bsz, s, length in ((TRAIN_BATCH, TRAIN_SEQ, None),
-                               (2, 100, 77)):
+        for bsz, s, length, h in ((TRAIN_BATCH, TRAIN_SEQ, None, 12),
+                                  (2, 100, 77, 12),
+                                  (TRAIN_BATCH, TRAIN_SEQ, None, TP_HEADS)):
+            if h == TP_HEADS and dtype != torch.bfloat16:
+                continue
             g = torch.Generator(device="cuda").manual_seed(s + 1)
             q, k, v, do = (torch.randn(bsz, s, h, d, device="cuda",
                                        generator=g).to(dtype)
@@ -1386,12 +1416,46 @@ def _adam_variants(torch):
                            amsgrad=False, maximize=False)
 
     bms, by = bound(28 * n, 15 * n, "float32")
-    return [{"shape": [n], "dtype": "float32", "rel_err": rel,
+    rows = [{"shape": [n], "dtype": "float32", "rel_err": rel,
              "max_abs_err": max_abs, "skip_bitwise": True,
              "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
              "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
              "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
              "bound_ms": bms, "bound_by": by}]
+    # ZeRO's launch: rank 1's half of the buffer over 2 ranks, views at
+    # an offset of the full p, m, v and g (with_zero's and
+    # zero2_update's slices), against its plain version bit for bit
+    k = n // 2
+    sl = slice(k, n)
+    want = adam._adam_plain(p[sl], m[sl], v[sl], g[sl], scalars, False)
+    ps, ms_, vs = p[sl].clone(), m[sl].clone(), v[sl].clone()
+    adam.adam_flat(ps, ms_, vs, g[sl], scalars, False)
+    if not all(torch.equal(a, b) for a, b in zip((ps, ms_, vs), want)):
+        raise AssertionError("fused_adam: the ZeRO shard is not bit for "
+                             "bit its plain version")
+    del want, ps, ms_, vs
+
+    def shard():
+        adam.adam_flat(p[sl], m[sl], v[sl], g[sl], scalars, False)
+
+    def shard_plain():
+        return adam._adam_plain(p[sl], m[sl], v[sl], g[sl], scalars, False)
+
+    def shard_library():
+        torch._fused_adam_([p[sl]], [g[sl]], [m[sl]], [v[sl]], [], steps,
+                           lr=lr, beta1=b1, beta2=b2, weight_decay=0.0,
+                           eps=eps, amsgrad=False, maximize=False)
+
+    bms, by = bound(28 * k, 15 * k, "float32")
+    rows.append({"shape": [k], "dtype": "float32", "zero_shard": "rank 1 "
+                 "of 2 (offset k of the flat buffer)", "rel_err": 0.0,
+                 "max_abs_err": 0.0, "bitwise": True,
+                 "ms": median_ms(shard, TIMED_LAUNCHES_LARGE),
+                 "plain_ms": median_ms(shard_plain, TIMED_LAUNCHES_LARGE),
+                 "library_ms": median_ms(shard_library,
+                                         TIMED_LAUNCHES_LARGE),
+                 "bound_ms": bms, "bound_by": by})
+    return rows
 
 
 def _gpt_small_leaves(seed=None):
@@ -1652,6 +1716,16 @@ def phase_kernels():
                                           "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err",
                                           "row_err")}
+        # the shapes the tensor-parallel and ZeRO paths give them: one
+        # rank's 6 heads at --tp 2, B1 on one rank's half of the buffer
+        extra = next((r for r in rows if r.get("zero_shard") or (
+            r["shape"] == [TRAIN_BATCH, TRAIN_SEQ, TP_HEADS, 64]
+            and r["dtype"] == "bfloat16")), None)
+        if extra is not None:
+            results[name]["tp_zero_shape"] = {
+                key: extra[key] for key in ("shape", "ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "bound_by", "max_abs_err")}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(results, indent=1))
     return results
@@ -4050,8 +4124,9 @@ def _resnet_two_processes():
 
 
 def _resnet_dryrun():
-    """(e) ``entry.dryrun(1)`` over NCCL with B1, against the same step
-    on plain Adam; the counts read around the O2 kernel run."""
+    """(e) ``entry.dryrun(1)`` over NCCL with B1, its DDP, ZeRO-1 and
+    ZeRO-2 runs, against the same step on plain Adam; the counts read
+    around the O2 kernel run."""
     import torch
     from apex_tpu_torch import entry
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
@@ -4068,7 +4143,8 @@ def _resnet_dryrun():
                            opt_level=level)["losses"]
         torch.cuda.synchronize()
         counts[level] = launch_counts()
-        want = {k: DRYRUN_STEPS if k == "fused_adam" else 0
+        # the DDP, ZeRO-1 and ZeRO-2 runs: one B1 a step each
+        want = {k: 3 * DRYRUN_STEPS if k == "fused_adam" else 0
                 for k in counts[level]}
         if counts[level] != want:
             raise AssertionError(f"dryrun {level}: launches {counts[level]}")
@@ -4110,10 +4186,382 @@ def phase_train_resnet():
             "dryrun": dry_counts}
 
 
+TP_O0_STEPS, TP_O2_STEPS, ZERO_STEPS = 2, 3, 3
+TP_TOL = 1e-4             # O0 against one process: losses relative,
+                          # step-1 params scale-aware
+
+
+def _tp_launches(cfg, names, steps):
+    """A TP rank's launches over ``steps`` steps: as the dense step's
+    (its local heads through B4-B6) with the tree layout's one B1-multi
+    in place of B1."""
+    step = dict(_per_step_launches(cfg, names), fused_adam=0,
+                fused_adam_multi=1)
+    return {name: steps * step.get(name, 0) for name in names}
+
+
+def _tp_state_dict(cfg, tp):
+    """GPT-2 small's seed-0 weights (CPU), ``wte`` padded with zero rows
+    to the vocab ``--tp`` trains with (the dense model's rows first)."""
+    import torch
+    from apex_tpu_torch.models import GPTLMHeadModel
+    from apex_tpu_torch.models.gpt import padded_vocab
+    sd = GPTLMHeadModel(cfg, device="cpu", seed=0).state_dict()
+    rows = padded_vocab(cfg.vocab_size, tp) - cfg.vocab_size
+    sd["wte.weight"] = torch.cat([sd["wte.weight"],
+                                  sd["wte.weight"].new_zeros(
+                                      rows, cfg.hidden_size)])
+    return sd
+
+
+def _tp_dense_reference():
+    """One process's dense runs from the same weights: O0 (its step-1
+    params saved for the ranks, padded as theirs) and O2."""
+    import torch
+    from apex_tpu_torch.examples import gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    out = {}
+    for level, steps in (("O0", TP_O0_STEPS), ("O2", TP_O2_STEPS)):
+        model, opt, params, st = gpt_main_amp.build(
+            cfg, lr=TRAIN_LR, opt_level=level, device="cuda", seed=0)
+        data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        losses = []
+        for step in range(steps):
+            ids = torch.from_numpy(next(data)).to("cuda")
+            params, st, loss, _ = gpt_main_amp.train_step(model, opt, params,
+                                                          st, ids)
+            losses.append(float(loss))
+            if level == "O0" and step == 0:
+                sd = {k: v.detach().cpu() for k, v in params.items()}
+                torch.save(sd, OUT_DIR / "tp_dense_step1.pt")
+        out[level] = losses
+        del model, opt, params, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank_leg(rank):
+    """(a) and (b) on this rank of the --tp 2 mesh."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import amp, parallel
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    from apex_tpu_torch.models.gpt import padded_vocab
+    from apex_tpu_torch.ops import vocab_parallel_lm_loss
+    from apex_tpu_torch.parallel import tensor_parallel as tpar
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    vocab = padded_vocab(cfg.vocab_size, TP)
+    sd = _tp_state_dict(cfg, TP)
+    dense1 = torch.load(OUT_DIR / "tp_dense_step1.pt")
+    dense1["wte.weight"] = torch.cat([dense1["wte.weight"],
+                                      dense1["wte.weight"].new_zeros(
+                                          vocab - cfg.vocab_size,
+                                          cfg.hidden_size)])
+    mesh = parallel.create_mesh(tp=TP)
+    want1 = tpar.shard_params(dense1, mesh, tpar.gpt_tp_rules(),
+                              num_heads=cfg.num_attention_heads)
+    del dense1
+    out = {}
+    for level, steps in (("O0", TP_O0_STEPS), ("O2", TP_O2_STEPS)):
+        model, opt, params, st = gpt_main_amp.build(
+            dataclasses.replace(cfg, vocab_size=vocab), lr=TRAIN_LR,
+            opt_level=level, device="cuda", state_dict=sd, mesh=mesh)
+        data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        losses, seconds, step1_err = [], [], None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for step in range(steps):
+            ids = torch.from_numpy(next(data)).to("cuda")
+            t0 = time.perf_counter()
+            # the grads dropped: held, they would join the next step's
+            params, st, loss = gpt_main_amp.train_step(
+                model, opt, params, st, ids, mesh=mesh,
+                true_vocab=cfg.vocab_size)[:3]
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+            if step == 0 and level == "O0":
+                step1_err = max(scale_aware_err(params[k], want1[k].cuda())[0]
+                                for k in params)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        specs = model.unwrapped.tp_specs()
+        same = True
+        for name, spec in specs.items():
+            if not spec:
+                mine = params[name].detach().clone()
+                theirs = mine.clone()
+                dist.broadcast(theirs, src=0)
+                same = same and torch.equal(mine, theirs)
+        out[level] = {"losses": losses, "step_seconds": seconds,
+                      "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t
+                                       for t in seconds],
+                      "peak_memory_gb": peak, "launches": counts,
+                      "replicated_bitwise": same, "step1_param_err":
+                      step1_err, "want_launches": _tp_launches(
+                          cfg, counts, steps)}
+    # (b) an inf in rank 1's gradient only, with fill_
+    ids = torch.from_numpy(next(gpt_main_amp.batches(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    hidden = model.apply(params, ids, return_hidden=True)
+    loss = vocab_parallel_lm_loss(hidden, params["wte.weight"], ids, mesh,
+                                  true_vocab=cfg.vocab_size)
+    with amp.scale_loss(loss, st) as scaled:
+        grads = dict(zip(params, torch.autograd.grad(
+            scaled, list(params.values()))))
+    if rank == 1:
+        grads["blocks.1.mlp_in.weight"].fill_(float("inf"))
+    before = {k: v.detach().clone() for k, v in params.items()}
+    scale0, skipped0 = float(opt.loss_scale(st)), int(st.skipped_steps)
+    params, st = opt.step(params, grads, st)
+    out["overflow"] = {
+        "bits_kept": all(torch.equal(before[k], params[k]) for k in params),
+        "loss_scale_before": scale0,
+        "loss_scale_after": float(opt.loss_scale(st)),
+        "skipped": int(st.skipped_steps) - skipped0}
+    return out
+
+
+def _zero_rank_leg(rank, world):
+    """(c) DDP, ZeRO-1 and ZeRO-2 on GPT-2 small, each rank half of B 8;
+    the flat master buffer after ``ZERO_STEPS`` steps against DDP's (a
+    host copy, so that it holds no device memory in the later runs).
+    Memory a step (GB): what is held at its start, and for each part of
+    it, the forward and backward, the gradient reduction and the
+    optimizer step (ZeRO-2's reduce-scatter is inside its step), its
+    peak and what is held at its end."""
+    import torch
+    from apex_tpu_torch import amp, parallel
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    from apex_tpu_torch.models import lm_loss
+    from apex_tpu_torch.parallel.mesh import WORLD
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    rows = TRAIN_BATCH // world
+    batches = [next(data)[rank * rows:(rank + 1) * rows]
+               for _ in range(ZERO_STEPS)]
+    out, ddp_p = {}, None
+
+    def mark(mem, part):
+        torch.cuda.synchronize()
+        mem[f"{part}_peak"] = torch.cuda.max_memory_allocated() / 1e9
+        mem[f"{part}_end"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    for leg in ("ddp", "zero1", "zero2"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        model, opt, params, st = gpt_main_amp.build(
+            cfg, lr=TRAIN_LR, opt_level="O2", device="cuda", seed=0)
+        ddp = parallel.DistributedDataParallel(model)
+        if leg != "ddp":
+            st = parallel.shard_optimizer_state(st, WORLD)
+        if leg == "zero1":
+            opt = opt.with_zero(WORLD)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        losses, steps_mem = [], []
+        for ids in batches:
+            ids = torch.from_numpy(ids).to("cuda")
+            torch.cuda.synchronize()
+            mem = {"held": torch.cuda.memory_allocated() / 1e9}
+            torch.cuda.reset_peak_memory_stats()
+            loss = lm_loss(model.apply(params, ids), ids)
+            with amp.scale_loss(loss, st) as scaled:
+                grads = dict(zip(params, torch.autograd.grad(
+                    scaled, list(params.values()))))
+            mark(mem, "forward_backward")
+            # the loss as a float: its graph would hold this step's params
+            # (autograd's leaf nodes) into the next step, and the last
+            # step's into the next run
+            losses.append(float(loss))
+            del loss, scaled
+            if leg == "zero2":
+                params, st = opt.zero2_step(params, grads, st, WORLD)
+            else:
+                grads = ddp.reduce_gradients(grads)
+                mark(mem, "reduce")
+                params, st = opt.step(params, grads, st)
+            mark(mem, "step")
+            del grads
+            steps_mem.append(mem)
+        torch.cuda.synchronize()
+        row = {"losses": losses, "launches": launch_counts(),
+               "peak_memory_gb": max(v for m in steps_mem
+                                     for k, v in m.items()
+                                     if k.endswith("_peak")),
+               "memory_gb": steps_mem,
+               "m_elements": st.inner.m.numel(),
+               "buffer_elements": st.inner.p.numel()}
+        if leg == "ddp":
+            ddp_p = st.inner.p.cpu()
+        else:
+            row["bitwise_ddp"] = bool(torch.equal(st.inner.p.cpu(), ddp_p))
+        out[leg] = row
+        del model, opt, params, st, ddp
+    return out
+
+
+def _tp_zero_rank(rank, world, store):
+    """(a)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = {"tp": _tp_rank_leg(rank)}
+        out["tp_seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["zero"] = _zero_rank_leg(rank, world)
+        out["zero_seconds"] = time.perf_counter() - t0
+        (OUT_DIR / f"tp_zero_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_nccl():
+    """(d) one ZeRO-1 and one ZeRO-2 step of ``entry.dryrun``'s flagship
+    step over NCCL at a world of one under sync-debug "error" (the
+    overflow all-reduce included), each after a first step outside it;
+    that its ZeRO runs end bit for bit with its DDP run is held in
+    train_resnet's (e)."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import entry
+    _nccl_world_of_one()
+    try:
+        synced = {}
+        for leg in ("zero1", "zero2"):
+            setup = entry.flagship_setup("cuda", zero=leg)
+            model, opt, ddp, params, st, x, y = setup
+            params, st, _ = entry.flagship_step(model, opt, ddp, params, st,
+                                                x, y, leg)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                params, st, loss = entry.flagship_step(model, opt, ddp,
+                                                       params, st, x, y, leg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            synced[leg] = {"loss": float(loss), "host_syncs": 0,
+                           "backend": dist.get_backend()}
+    finally:
+        dist.destroy_process_group()
+    emit("train_tp_zero", run="(d) the dry run's ZeRO steps over NCCL",
+         sync_debug_error_steps=synced)
+
+
+def phase_train_tp_zero():
+    """(a) GPT-2 small at --tp 2 (B 8, S 1024, flash) as two processes
+    over gloo on the one card, O0 and O2 against one process's dense
+    runs, exact launches, replicated params equal on both ranks; (b) an
+    inf in rank 1's gradient skips both ranks; (c) DDP, ZeRO-1 and ZeRO-2
+    on GPT-2 small, two processes with half of B 8 each, bit for bit;
+    (d) the dry run's ZeRO steps over NCCL at a world of one, sync-free."""
+    import torch
+    import torch.multiprocessing as mp
+    from apex_tpu_torch.examples import gpt_main_amp
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    dense = _tp_dense_reference()
+    dense_s = time.perf_counter() - t0
+    store = OUT_DIR / "tp_zero_store"
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(_tp_zero_rank, args=(2, str(store)), nprocs=2,
+                           join=True, start_method="spawn")
+    finally:
+        store.unlink(missing_ok=True)
+        (OUT_DIR / "tp_dense_step1.pt").unlink(missing_ok=True)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        path = OUT_DIR / f"tp_zero_rank{r}.json"
+        ranks.append(json.loads(path.read_text()))
+        path.unlink()
+    # (a)
+    for level, tol in (("O0", TP_TOL), ("O2", O2_LOSS_TOL)):
+        for r, res in enumerate(ranks):
+            got = res["tp"][level]
+            if level == "O0":
+                err = max(abs(a - b) / abs(b)
+                          for a, b in zip(got["losses"], dense[level]))
+            else:
+                err = max(abs(a - b)
+                          for a, b in zip(got["losses"], dense[level]))
+            emit("train_tp_zero", run=f"(a) --tp 2 {level}", rank=r,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=got["losses"],
+                 dense_losses=dense[level], loss_err=err, tol=tol,
+                 step1_param_err=got["step1_param_err"],
+                 replicated_bitwise=got["replicated_bitwise"],
+                 tokens_per_s=got["tokens_per_s"],
+                 peak_memory_gb=got["peak_memory_gb"],
+                 launches=got["launches"])
+            if not err <= tol:
+                raise AssertionError(f"--tp 2 {level} rank {r}: loss error "
+                                     f"{err:.3g} > {tol}")
+            if level == "O0" and not got["step1_param_err"] <= TP_TOL:
+                raise AssertionError(f"--tp 2 O0 rank {r}: step-1 params "
+                                     f"{got['step1_param_err']:.3g}")
+            if not got["replicated_bitwise"]:
+                raise AssertionError(f"--tp 2 {level}: replicated params "
+                                     "differ between the ranks")
+            if got["launches"] != got["want_launches"]:
+                raise AssertionError(f"--tp 2 {level} rank {r}: launches "
+                                     f"{got['launches']} != "
+                                     f"{got['want_launches']}")
+    # (b)
+    for r, res in enumerate(ranks):
+        o = res["tp"]["overflow"]
+        emit("train_tp_zero", run="(b) inf in rank 1's gradient", rank=r,
+             **o)
+        if not (o["bits_kept"] and o["skipped"] == 1
+                and o["loss_scale_after"] == o["loss_scale_before"] / 2):
+            raise AssertionError(f"--tp 2 overflow, rank {r}: {o}")
+    # (c)
+    for r, res in enumerate(ranks):
+        z = res["zero"]
+        emit("train_tp_zero", run="(c) DDP, ZeRO-1, ZeRO-2", rank=r,
+             batch_per_rank=TRAIN_BATCH // 2, seq=TRAIN_SEQ,
+             **{f"{leg}_{key}": z[leg][key] for leg in z
+                for key in ("losses", "peak_memory_gb", "memory_gb",
+                            "m_elements", "bitwise_ddp") if key in z[leg]})
+        cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+        for leg in ("ddp", "zero1", "zero2"):
+            if leg != "ddp" and not z[leg]["bitwise_ddp"]:
+                raise AssertionError(f"{leg} rank {r}: params differ from "
+                                     "DDP's")
+            want = {k: ZERO_STEPS * v for k, v in
+                    _per_step_launches(cfg, z[leg]["launches"]).items()}
+            if z[leg]["launches"] != want:
+                raise AssertionError(f"{leg}: launches "
+                                     f"{z[leg]['launches']}")
+    # (d)
+    _dryrun_nccl()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "train_tp_zero.json").write_text(json.dumps(
+        {"dense": dense, "ranks": ranks, "dense_seconds": dense_s,
+         "ranks_seconds": ranks_s}, indent=1, default=str))
+    return {"train_tp": ranks[0]["tp"]["O2"]["launches"],
+            "train_zero1": ranks[0]["zero"]["zero1"]["launches"],
+            "train_zero2": ranks[0]["zero"]["zero2"]["launches"]}
+
+
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
           "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
-          "train_bert_remat", "adam_rest", "hf_bert", "train_o1",
-          "train_simple", "train_dcgan")
+          "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
+          "train_o1", "train_simple", "train_dcgan")
 
 
 def main(phases=PHASES):
@@ -4141,8 +4589,10 @@ def main(phases=PHASES):
     # train_resnet's phase drives two paths, the ResNet-50 step and
     # entry.dryrun, train's the GPT step and its DDP step, train_bert's
     # the BERT step and its grad-accum step, train_gpt_dropout's the
-    # GPT step with dropout and the same under remat; the O1 phases run
-    # last and remove their op policy at their end
+    # GPT step with dropout and the same under remat; train_tp_zero's
+    # the --tp 2 step (rank 0's counts, read in its process), the ZeRO-1
+    # GPT steps and the ZeRO-2 ones (rank 0's, each run's own); the
+    # O1 phases run last and remove their op policy at their end
     for phase, run in (("train_resnet", phase_train_resnet),
                        ("serve", phase_serve), ("serve_q8", phase_serve_q8),
                        ("train", phase_train),
@@ -4152,6 +4602,7 @@ def main(phases=PHASES):
                        ("train_bert_remat", phase_train_bert_remat),
                        ("adam_rest", phase_adam_rest),
                        ("hf_bert", phase_hf_bert),
+                       ("train_tp_zero", phase_train_tp_zero),
                        ("train_o1", phase_train_o1),
                        ("train_simple", phase_train_simple),
                        ("train_dcgan", phase_train_dcgan)):
@@ -4162,7 +4613,8 @@ def main(phases=PHASES):
         seconds[phase] = time.perf_counter() - t0
         if phase not in ("train_resnet", "train", "train_bert",
                          "train_gpt_remat", "train_gpt_dropout",
-                         "train_bert_remat", "adam_rest", "hf_bert"):
+                         "train_bert_remat", "adam_rest", "hf_bert",
+                         "train_tp_zero"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():

@@ -200,8 +200,12 @@ def test_ddp_simple_example_trains_on_the_cpu():
                                   "--gradient-predivide-factor", "2"])
     losses = ddp_simple.run(args, device="cpu")
     assert len(losses) == 4 and np.all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ddp_simple.run(ddp_simple.parse_args(["--zero2"]), device="cpu")
+    # --zero2 trains too (a process alone here; two ranks in
+    # tests/test_torch_zero.py)
+    zero2 = ddp_simple.run(ddp_simple.parse_args(
+        ["--iters", "4", "--b", "16", "--zero2"]), device="cpu")
+    assert len(zero2) == 4 and np.all(np.isfinite(zero2))
+    assert zero2[0] == losses[0] and zero2[1:] != losses[1:]
 
 
 def test_initialize_distributed_refuses_a_world_without_address(

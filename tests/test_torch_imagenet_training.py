@@ -309,14 +309,24 @@ def test_dryrun_one_rank_starts_and_ends_its_group(restore_amp):
 
 
 def test_unported_options_name_the_later_slice():
-    """Only ``--zero`` is left to a later slice; ``--resume``,
-    ``--checkpoint-dir`` and ``--torch-weights`` are ported
+    """No option is left to a later slice: ``--zero`` trains (ZeRO-1 over
+    the world, here a process alone: the same steps bit for bit as
+    without it; two ranks in ``tests/test_torch_zero.py``), and
+    ``--resume``, ``--checkpoint-dir`` and ``--torch-weights`` parse
     (``tests/test_torch_checkpoint.py``, ``test_torch_resnet_interop.py``)."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        twin.train(twin.parse_args(ARGV + ["--zero"]), device="cpu")
+    runs = [twin.train(twin.parse_args(ARGV + flags), device="cpu",
+                       steps=2, module=tr.ResNet([1, 1], tr.BasicBlock,
+                                                 num_classes=10, width=8,
+                                                 device="cpu"))
+            for flags in ([], ["--zero"])]
+    assert runs[0]["losses"] == runs[1]["losses"]
+    for a, b in zip(runs[0]["params"].values(), runs[1]["params"].values()):
+        assert torch.equal(a, b)
     for flags in (["--resume", "x"], ["--checkpoint-dir", "x"],
-                  ["--torch-weights", "x.pt"]):
-        twin._check_supported(twin.parse_args(ARGV + flags))
+                  ["--torch-weights", "x.pt"], ["--zero"]):
+        args = twin.parse_args(ARGV + flags)
+        assert vars(args)[flags[0].lstrip("-").replace("-", "_")] in (
+            flags[-1], True)
 
 
 def test_imagefolder_data_names_the_later_slice(tmp_path):

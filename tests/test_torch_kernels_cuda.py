@@ -21,7 +21,10 @@ the dequantized K/V, the same bits from repeated launches of B3, B7
 and B8, and the threefry dropout kernel bit for bit against its plain
 version; besides, a train-state checkpoint of card tensors (bf16
 leaves) round-trips bit for bit, and DCGAN at O0 on the card matches
-the CPU within 1e-4.  Scale-aware error
+the CPU within 1e-4; B1 on ZeRO shards at an offset and through
+``FusedAdam.with_zero`` bit for bit, and B4-B6 (and their dropout
+branches) at one ``--tp 2`` rank's 6 heads with a head offset.
+Scale-aware error
 max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
 flash o, dq, dk and dv also row by row (``row_err``); every kernel call
 adds exactly one launch.
@@ -447,6 +450,48 @@ def test_fused_adam_flat_equals_plain_bit_for_bit(gen):
             assert torch.equal(_bits(got), _bits(w))
 
 
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_fused_adam_on_a_zero_shard_at_an_offset(gen, ranks):
+    """B1 on each rank's slice of a flat buffer (views at an offset, as
+    ``with_zero`` and ``zero2_update`` launch it) gives the bits of the
+    whole buffer's update."""
+    n = 128 * 33
+    p, m, v, g = _adam_inputs(gen, n)
+    g[5] = g[77] = 0.5
+    scalars = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 4.0, 0.01, 1.0],
+                           device="cuda")
+    want = adam._adam_plain(p, m, v, g, scalars, False)
+    k = n // ranks
+    for r in range(ranks):
+        sl = slice(r * k, (r + 1) * k)
+        ms, vs = m[sl].clone(), v[sl].clone()
+        _one_launch("fused_adam", lambda: adam.adam_flat(
+            p[sl], ms, vs, g[sl], scalars, False))
+        assert torch.equal(_bits(ms), _bits(want[1][sl]))
+        assert torch.equal(_bits(vs), _bits(want[2][sl]))
+    assert torch.equal(_bits(p), _bits(want[0]))
+
+
+def test_fused_adam_zero_step_equals_the_replicated_one(gen):
+    """``FusedAdam.with_zero`` at a world of one process (no process
+    group: the gathers are copies) launches B1 once over its shard, the
+    whole buffer, and gives the replicated step's bits."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import mesh, shard_optimizer_state
+    params = {f"w{i}": torch.randn(n, device="cuda", generator=gen)
+              for i, n in enumerate((1000, 37, 3000))}
+    grads = {k: torch.randn_like(v) for k, v in params.items()}
+    opt = FusedAdam(lr=1e-3)
+    want, _ = opt.step({k: v.clone() for k, v in params.items()}, grads,
+                       opt.init(params))
+    zopt = opt.with_zero(mesh.WORLD)
+    st = shard_optimizer_state(opt.init(params), mesh.WORLD)
+    got, _ = _one_launch("fused_adam", lambda: zopt.step(
+        {k: v.clone() for k, v in params.items()}, grads, st))
+    for k in want:
+        assert torch.equal(_bits(got[k]), _bits(want[k]))
+
+
 # the multi-tensor form (B1-multi): segments of odd lengths, one longer
 # than a chunk, at starts off the 16-byte grid, p/m/v/g misaligned alike
 # (head, float4 body, tail) or unlike (scalar), one empty
@@ -666,6 +711,43 @@ def test_flash_dropout_matches_plain(gen, dtype, sq, sk, causal, rate):
         assert rel_err(g, w) <= TOL[dtype]
         if not causal:
             assert torch.all(g[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_at_six_local_heads_with_a_head_offset(gen, dtype, rate):
+    """B4, B5 and B6 (B4d-B6d with dropout) at one rank's 6 of GPT-2
+    small's 12 heads under --tp 2 (causal, S 1024, head_off 6 of 12)
+    against their plain versions; with dropout the mask is the 12-head
+    call's for heads 6-11."""
+    b, s, h, d = 2, 1024, 6, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(4))
+    seed = _seed(4321, h, (0, 0, h, 2 * h))
+    scale = d ** -0.5
+    suffix = "_dropout" if rate else ""
+    o, lse = _one_launch("flash_fwd" + suffix, lambda: fa.flash_attention_fwd(
+        q, k, v, None, True, scale, rate, seed if rate else None))
+    po, plse = fa._reference(q, k, v, None, True, scale, return_lse=True,
+                             dropout_rate=rate, seed=seed if rate else None)
+    assert rel_err(o, po) <= TOL[dtype]
+    assert rel_err(lse, plse) <= 2e-5
+    delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, plse, delta, None, True, scale, rate,
+            seed if rate else None)
+    dq = _one_launch("flash_bwd_dq" + suffix,
+                     lambda: fa.flash_attention_bwd_dq(*args))
+    dk, dv = _one_launch("flash_bwd_dkv" + suffix,
+                         lambda: fa.flash_attention_bwd_dkv(*args))
+    want = (fa._bwd_dq_reference(*args), *fa._bwd_dkv_reference(*args))
+    for g, w in zip((dq, dk, dv), want):
+        assert rel_err(g, w) <= TOL[dtype]
+    if rate:
+        rows = torch.arange(s, device="cuda")
+        local = fa.keep_from_seed(seed, b, h, rows, rows, rate)
+        full = fa.keep_from_seed(_seed(4321, 2 * h), b, 2 * h, rows, rows,
+                                 rate)
+        assert torch.equal(local, full[:, h:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
