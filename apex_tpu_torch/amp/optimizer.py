@@ -24,8 +24,9 @@ ZeRO-2), ``with_overflow_groups(*groups)`` reduces the flag with
 an inf on one rank skips the step on all of them; on GSPMD the JAX
 package's flag is global by construction.
 
-ZeRO: ``with_zero(group)`` passes through to an inner optimizer that
-has ``with_zero`` (``FusedAdam``), as the JAX package does.  An
+ZeRO: ``with_zero(group, like_params=...)`` passes through to an inner
+optimizer that has ``with_zero`` (``FusedAdam``, flat or tree), as the
+JAX package does.  An
 optimizer in optax's protocol has none: there the JAX package's
 per-leaf update follows the sharded state under GSPMD, and here the
 returned optimizer runs it on each sharded leaf's slice and gathers the
@@ -87,18 +88,22 @@ class AmpOptimizer:
         over) before it skips and updates the scale."""
         return self._copy(overflow_groups=self.overflow_groups + groups)
 
-    def with_zero(self, group, min_shard_elems: Optional[int] = None
-                  ) -> "AmpOptimizer":
+    def with_zero(self, group, min_shard_elems: Optional[int] = None,
+                  like_params=None) -> "AmpOptimizer":
         """ZeRO-1 over ``group`` (the data ranks), to pair with
-        ``parallel.shard_optimizer_state(state, group, min_shard_elems)``:
-        the inner optimizer's own ``with_zero`` where it has one, else
-        the per-leaf sharded update (module docstring)."""
+        ``parallel.shard_optimizer_state(state, group, min_shard_elems,
+        like_params)``: the inner optimizer's own ``with_zero`` where it
+        has one, else the per-leaf sharded update (module docstring).
+        ``like_params`` places a tree-layout ``FusedAdam``'s moments of
+        tensor-parallel params."""
         if hasattr(self.inner, "with_zero"):
-            return self._copy(inner=self.inner.with_zero(group,
-                                                         min_shard_elems))
+            return self._copy(inner=self.inner.with_zero(
+                group, min_shard_elems, like_params=like_params))
         if getattr(self.inner, "supports_fused_skip", False):
             raise NotImplementedError(
-                f"ZeRO over {type(self.inner).__name__} is not ported")
+                f"ZeRO over {type(self.inner).__name__} comes with the "
+                "pipeline-parallel slice (its oracle is ZeRO x pipeline "
+                "parallelism; ROADMAP A.10)")
         return self._copy(zero=(group, min_shard_elems))
 
     def _global(self, overflow: torch.Tensor, *groups) -> torch.Tensor:

@@ -78,18 +78,25 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
-template <typename T>
+// kWindow: x is a window of a larger tensor's stream (module note at
+// the entry point); without it the loop is the whole stream's, as
+// before windows existed
+template <typename T, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 threefry_dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
                         int64_t n, uint32_t k0, uint32_t k1, float keep_prob,
-                        float divisor) {
+                        float divisor, int64_t row, int64_t row_stride,
+                        int64_t base) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride) {
+    // element i of a window of the stream: rows of `row` counters
+    // `row_stride` apart from `base`
+    const int64_t c = kWindow ? base + (i / row) * row_stride + i % row : i;
     const uint32_t bits =
-        threefry_bits(k0, k1, static_cast<uint32_t>(i >> 32),
-                      static_cast<uint32_t>(i));
+        threefry_bits(k0, k1, static_cast<uint32_t>(c >> 32),
+                      static_cast<uint32_t>(c));
     const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
     y[i] = u < keep_prob ? apex::from_float<T>(apex::to_float(x[i]) / divisor)
                          : apex::from_float<T>(0.0f);
@@ -98,16 +105,22 @@ threefry_dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, int64_t n, uint32_t k0,
-                   uint32_t k1, float keep_prob, float divisor,
-                   cudaStream_t stream) {
+                   uint32_t k1, float keep_prob, float divisor, int64_t row,
+                   int64_t row_stride, int64_t base, cudaStream_t stream) {
   int device = 0, sms = 132;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int64_t want = (n + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < 8LL * sms ? want : 8LL * sms);
-  threefry_dropout_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, k0, k1, keep_prob,
-      divisor);
+  if (row == n && base == 0) {
+    threefry_dropout_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), n, k0, k1, keep_prob,
+        divisor, row, row_stride, base);
+  } else {
+    threefry_dropout_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), n, k0, k1, keep_prob,
+        divisor, row, row_stride, base);
+  }
   return cudaGetLastError();
 }
 
@@ -115,20 +128,25 @@ cudaError_t launch(const void* x, void* y, int64_t n, uint32_t k0,
 
 // x, y: (n,) contiguous in `dtype` (float32 or bfloat16); (k0, k1): the
 // threefry key; keep_prob: 1 - rate in fp32; divisor: 1 - rate rounded
-// to `dtype`, as a float.
+// to `dtype`, as a float; element i draws stream counter
+// base + (i / row) * row_stride + i % row (row == n and base 0: counter
+// i), so a slice of a larger tensor draws what the whole tensor's call
+// draws there.
 extern "C" int apex_threefry_dropout(const void* x, void* y, int64_t n,
                                      uint32_t k0, uint32_t k1,
                                      float keep_prob, float divisor,
-                                     int dtype, void* stream) {
+                                     int64_t row, int64_t row_stride,
+                                     int64_t base, int dtype, void* stream) {
   if (n <= 0) return 0;
+  if (row <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case apex::kFloat32:
-      return static_cast<int>(
-          launch<float>(x, y, n, k0, k1, keep_prob, divisor, s));
+      return static_cast<int>(launch<float>(
+          x, y, n, k0, k1, keep_prob, divisor, row, row_stride, base, s));
     case apex::kBFloat16:
-      return static_cast<int>(
-          launch<__nv_bfloat16>(x, y, n, k0, k1, keep_prob, divisor, s));
+      return static_cast<int>(launch<__nv_bfloat16>(
+          x, y, n, k0, k1, keep_prob, divisor, row, row_stride, base, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,7 +14,8 @@ and under ZeRO-2 (``parallel.zero2_update`` through
 rank's shard, the overflow flag taken over the world).  The JAX dry
 run's ZeRO-2 leg steps a linear model in fp32 (``:545-599``); here it
 is the flagship step itself, so amp's skip protocol is in it.  Each
-ZeRO run must end with the plain run's params bit for bit.  The tensor,
+ZeRO run must end with the plain run's params bit for bit, so the runs
+take deterministic cuDNN algorithms (benchmark off).  The tensor,
 sequence, pipeline and expert-parallel legs of the JAX dry run are not
 here.
 """
@@ -151,29 +152,36 @@ def dryrun(n_ranks: int, device="cuda", *, steps: int = 1,
             dev, init_method=f"tcp://127.0.0.1:{free_port()}",
             world_size=1, rank=0)
     try:
-        world, rank = dist.get_world_size(), dist.get_rank()
-        if world != n_ranks:
-            raise RuntimeError(f"dryrun({n_ranks}) on a world of {world}")
-        out = _flagship_run(dev, steps, opt_level, optimizer, state_dict,
-                            None)
-        legs = ["zero1"]
-        if optimizer is None or (isinstance(optimizer, FusedAdam)
-                                 and optimizer.layout == "flat"):
-            legs.append("zero2")
-        for leg in legs:
-            got = _flagship_run(dev, steps, opt_level, optimizer,
-                                state_dict, leg)
-            same = all(torch.equal(a, b) for a, b in
-                       zip(got["params"].values(), out["params"].values()))
-            if not same:
-                raise AssertionError(f"dryrun({n_ranks}) {leg}: params "
-                                     "differ from the DDP run's")
-            out[leg] = got
-        if rank == 0:
-            print(f"dryrun({n_ranks}) dp + SyncBN + FusedAdam "
-                  f"({opt_level}): ok, loss={out['losses'][-1]:.4f}"
-                  + "".join(f"; {leg} bit for bit" for leg in legs))
-        return out
+        # the ZeRO runs are held to the DDP run's bits: cuDNN's benchmark
+        # may pick a convolution algorithm whose sums run in no fixed order
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled, benchmark=False,
+                deterministic=True,
+                allow_tf32=torch.backends.cudnn.allow_tf32):
+            world, rank = dist.get_world_size(), dist.get_rank()
+            if world != n_ranks:
+                raise RuntimeError(f"dryrun({n_ranks}) on a world of "
+                                   f"{world}")
+            out = _flagship_run(dev, steps, opt_level, optimizer,
+                                state_dict, None)
+            legs = ["zero1"]
+            if optimizer is None or (isinstance(optimizer, FusedAdam)
+                                     and optimizer.layout == "flat"):
+                legs.append("zero2")
+            for leg in legs:
+                got = _flagship_run(dev, steps, opt_level, optimizer,
+                                    state_dict, leg)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    got["params"].values(), out["params"].values()))
+                if not same:
+                    raise AssertionError(f"dryrun({n_ranks}) {leg}: params "
+                                         "differ from the DDP run's")
+                out[leg] = got
+            if rank == 0:
+                print(f"dryrun({n_ranks}) dp + SyncBN + FusedAdam "
+                      f"({opt_level}): ok, loss={out['losses'][-1]:.4f}"
+                      + "".join(f"; {leg} bit for bit" for leg in legs))
+            return out
     finally:
         if own_group:
             dist.destroy_process_group()

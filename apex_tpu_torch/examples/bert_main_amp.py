@@ -44,8 +44,28 @@ rank r draws its batches from ``RandomState(r)``.
 ``--remat`` rematerialises each encoder layer in the backward
 (``BertConfig.remat``), as the JAX example's flag does.
 
-Not here: ``--ring-attention``/``--sp-attention``, ``--moe`` and
-``--pp``.
+``--ring-attention SP`` (``--sp-attention {ring, ulysses}``, ring by
+default as in the JAX example): sequence parallelism on a (world / SP,
+SP) rank mesh.  Each rank of a sequence group holds S/SP of its data
+index's tokens through the whole model (``BertForPreTraining(...,
+sp=<sp group>)`` with ``parallel.make_ring_attention`` or
+``make_ulysses_attention``).  Its objective is its positions' MLM sum
+over the global batch's mask count (all-reduced over the data group)
+over dp, plus, on sequence rank 0 alone, where the pooled ``[CLS]``
+token lives, the NSP term; the loss of the batch is the objectives'
+sum over the sequence group.  The params are replicated over the
+sequence group: their gradients are summed over it and averaged over
+the data group, as one ``DistributedDataParallel`` mean over the whole
+world of each rank's objective times SP, and the overflow flag is
+taken over the sequence group too.  A batch may carry a fifth array,
+the (B, S) {0, 1} attention mask (the example's synthetic batches have
+none).  ``--ring-attention`` with ``--grad-accum`` above 1 is refused
+here; ``--pp`` is refused (pipeline parallelism, ROADMAP A.10).
+
+    WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
+        -m apex_tpu_torch.examples.bert_main_amp --ring-attention 2
+
+Not here: ``--moe`` and ``--pp``.
 """
 
 from __future__ import annotations
@@ -67,7 +87,9 @@ from apex_tpu_torch.models import BertConfig, BertForPreTraining, \
     bert_base, bert_large
 from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.optimizers import FusedLAMB
-from apex_tpu_torch.parallel import DistributedDataParallel
+from apex_tpu_torch.parallel import DistributedDataParallel, create_mesh, \
+    make_ring_attention, make_ulysses_attention, psum_g
+from apex_tpu_torch.parallel.mesh import WORLD
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
@@ -153,25 +175,42 @@ def make_optimizer(lr: float = 1e-4, max_grad_norm: float = 1.0):
         exclude_from_layer_adaptation=_no_lamb_adaptation)
 
 
+def _sp(mesh) -> int:
+    return mesh.shape["sp"] if mesh is not None else 1
+
+
 def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
           opt_level: str = "O2", loss_scale=None,
           attention_fn: Optional[Callable] = None, device="cuda",
           seed: int = 0,
-          state_dict: Optional[Mapping[str, torch.Tensor]] = None):
+          state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+          mesh=None, sp_attention: str = "ring"):
     """(model, optimizer, params, opt_state): BertForPreTraining under
     ``amp.initialize`` with the recipe's FusedLAMB; weights from
     ``seed`` or, when given, ``state_dict`` (e.g. from
-    ``models.bert.params_from_jax``)."""
+    ``models.bert.params_from_jax``).  ``mesh`` (a ``parallel.Mesh``)
+    whose sequence axis is above 1 builds the sequence-parallel model
+    with ``sp_attention`` (``"ring"`` or ``"ulysses"``, in place of
+    ``attention_fn``) and takes the overflow flag over the sequence
+    group."""
     dev = resolve_device(device)
+    sp = _sp(mesh) > 1
+    if sp:
+        make = {"ring": make_ring_attention,
+                "ulysses": make_ulysses_attention}[sp_attention]
+        attention_fn = make(mesh.group("sp"))
     module = BertForPreTraining(
         cfg, attention_fn=attention_fn, device=dev,
-        seed=None if state_dict is not None else seed)
+        seed=None if state_dict is not None else seed,
+        sp=mesh.group("sp") if sp else None)
     if state_dict is not None:
         module.load_state_dict(state_dict)
     # amp's default verbosity, as the JAX example: the option report
     model, optimizer = amp.initialize(
         module, make_optimizer(lr, max_grad_norm), opt_level=opt_level,
         loss_scale=loss_scale)
+    if sp:
+        optimizer = optimizer.with_overflow_groups(mesh.group("sp"))
     params = model.init()
     return model, optimizer, params, optimizer.init(params)
 
@@ -181,28 +220,65 @@ def step_key(seed: int, step: int) -> threefry.Key:
     return threefry.fold_in(threefry.PRNGKey(seed), step)
 
 
+def _sp_objective(model, params, batch, mesh, deterministic, dropout_key):
+    """A sequence-parallel rank's objective (module docstring) on its
+    slice of the data index's whole ``batch``."""
+    ids, labels, weights, nsp, *mask = batch
+    n_sp, r = _sp(mesh), mesh.index("sp")
+    s_local = ids.shape[1] // n_sp
+
+    def mine(a):
+        return a[:, r * s_local:(r + 1) * s_local]
+
+    mlm_logits, nsp_logits = model.apply(
+        params, mine(ids), mine(mask[0]) if mask else None,
+        deterministic=deterministic, dropout_key=dropout_key)
+    count = psum_g(weights.sum().float(), mesh.group("data"))
+    denom = count.clamp_min(1.0) / mesh.shape["data"]
+    v = mlm_logits.shape[-1]
+    mlm = F.cross_entropy(mlm_logits.float().reshape(-1, v),
+                          mine(labels).reshape(-1).long(), reduction="none")
+    objective = (mlm * mine(weights).reshape(-1)).sum() / denom
+    if r == 0:
+        # the pooled [CLS] token lives on sequence rank 0
+        return objective + F.cross_entropy(nsp_logits.float(), nsp.long())
+    return objective + 0.0 * nsp_logits.sum()
+
+
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
                batch, *, deterministic: bool = True, dropout_key=None,
-               grad_accum: int = 1, ddp=None):
+               grad_accum: int = 1, ddp=None, mesh=None):
     """One step of the JAX example's ``train_step`` (``grad_accum`` 1) or
     of its grad-accumulation step: loss, scaled gradients, the optimizer.
-    ``batch`` is ``(ids, labels, weights, nsp)`` on the device;
-    ``dropout_key`` (a threefry key, e.g. :func:`step_key`) keys the
-    step's dropout when ``deterministic`` is False; ``ddp`` (a
-    ``DistributedDataParallel``) averages the gradients over the ranks.
-    Returns ``(params, opt_state, loss, grads)``: the loss unscaled (this
-    rank's), the grads as autograd gave them (scaled) for ``grad_accum``
-    1, else the unscaled stash."""
+    ``batch`` is ``(ids, labels, weights, nsp)`` on the device, or with a
+    fifth array, the (B, S) attention mask; ``dropout_key`` (a threefry
+    key, e.g. :func:`step_key`) keys the step's dropout when
+    ``deterministic`` is False; ``ddp`` (a ``DistributedDataParallel``)
+    averages the gradients over the ranks.  With a sequence-parallel
+    ``mesh`` the batch is the data index's whole batch and ``ddp`` must
+    average over the whole world (module docstring).  Returns
+    ``(params, opt_state, loss, grads)``: the loss unscaled (this rank's;
+    under SP the data index's), the grads as autograd gave them (scaled)
+    for ``grad_accum`` 1, else the unscaled stash."""
     if grad_accum > 1:
         return _accum_step(model, optimizer, params, opt_state, batch,
                            grad_accum, deterministic, dropout_key, ddp)
-    ids, labels, weights, nsp = batch
-    mlm_logits, nsp_logits = model.apply(params, ids,
-                                         deterministic=deterministic,
-                                         dropout_key=dropout_key)
-    denom = None if ddp is None else mlm_denom(weights, ddp)
-    loss = batch_loss(mlm_logits, nsp_logits, labels, weights, nsp, denom)
-    with amp.scale_loss(loss, opt_state) as scaled:
+    if _sp(mesh) > 1:
+        shard = _sp_objective(model, params, batch, mesh, deterministic,
+                              dropout_key)
+        objective = shard * _sp(mesh)
+        with torch.no_grad():
+            loss = psum_g(shard.detach(), mesh.group("sp"))
+    else:
+        ids, labels, weights, nsp, *mask = batch
+        mlm_logits, nsp_logits = model.apply(params, ids,
+                                             mask[0] if mask else None,
+                                             deterministic=deterministic,
+                                             dropout_key=dropout_key)
+        denom = None if ddp is None else mlm_denom(weights, ddp)
+        loss = objective = batch_loss(mlm_logits, nsp_logits, labels,
+                                      weights, nsp, denom)
+    with amp.scale_loss(objective, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
     grads = dict(zip(params.keys(), grads))
     if ddp is not None:
@@ -272,7 +348,8 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
           attention_fn: Optional[Callable] = None,
           deterministic: bool = True, seed: int = 0, device="cuda",
           print_freq: int = 0, grad_accum: int = 1, ddp: bool = False,
-          data: Optional[Iterator] = None, remat: bool = False) -> dict:
+          data: Optional[Iterator] = None, remat: bool = False,
+          sp: int = 0, sp_attention: str = "ring") -> dict:
     """Train ``steps`` steps of ``batch`` rows on this rank; returns
     per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
     around each step, ended by reading the loss), ``tokens_per_s`` per
@@ -282,17 +359,35 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
     ``(seed, i)``.  ``ddp`` averages the gradients over the ranks of the
     default process group (parameters start as rank 0's); ``data``
     (host batches) defaults to :func:`batches` from ``RandomState(rank)``.
-    ``remat`` rematerialises each encoder layer in the backward."""
+    ``remat`` rematerialises each encoder layer in the backward.
+    ``sp`` above 1: sequence parallelism over ``sp`` ranks of the
+    initialized world with ``sp_attention`` (module docstring); each
+    rank takes its data index's whole batch (``data`` defaults to
+    ``RandomState(data index)``), the gradients always go through
+    ``DistributedDataParallel`` over the world, and ``tokens_per_s``
+    counts the batch's tokens."""
     dev = resolve_device(device)
     check_grad_accum(batch, grad_accum)
     if remat:
         cfg = dataclasses.replace(cfg, remat=True)
+    mesh = None
+    if sp > 1:
+        if grad_accum > 1:
+            raise ValueError("--ring-attention with --grad-accum is not "
+                             "ported yet")
+        if seq_len % sp:
+            raise ValueError(f"sp {sp} must divide seq_len {seq_len}")
+        mesh = create_mesh(sp=sp)
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, max_grad_norm=max_grad_norm, opt_level=opt_level,
         loss_scale=loss_scale, attention_fn=attention_fn, device=dev,
-        seed=seed)
-    wrapper = DistributedDataParallel(model) if ddp else None
-    rank = dist.get_rank() if dist.is_initialized() else 0
+        seed=seed, mesh=mesh, sp_attention=sp_attention)
+    if mesh is not None:
+        wrapper = DistributedDataParallel(model, process_group=WORLD)
+        rank = mesh.index("data")
+    else:
+        wrapper = DistributedDataParallel(model) if ddp else None
+        rank = dist.get_rank() if dist.is_initialized() else 0
     if wrapper is not None and _world(wrapper) > 1:
         params = wrapper.broadcast_params(params)
     losses, seconds = [], []
@@ -307,7 +402,7 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
             model, optimizer, params, opt_state, tensors,
             deterministic=deterministic,
             dropout_key=None if deterministic else step_key(seed, step),
-            grad_accum=grad_accum, ddp=wrapper)
+            grad_accum=grad_accum, ddp=wrapper, mesh=mesh)
         losses.append(float(loss))      # waits for the step to finish
         seconds.append(time.perf_counter() - t0)
         meter.update(losses[-1])
@@ -347,31 +442,52 @@ def parse_args(argv=None):
                    "microbatch skips the whole update)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize encoder layers in the backward")
+    p.add_argument("--ring-attention", type=int, default=0, metavar="SP",
+                   help="sequence parallelism over SP ranks (a (world / "
+                   "SP, SP) mesh; SP must divide the world and --seq-len)")
+    p.add_argument("--sp-attention", default="ring",
+                   choices=("ring", "ulysses"),
+                   help="the sequence-parallel attention under "
+                   "--ring-attention: ring (K/V rotation) or ulysses "
+                   "(all-to-all head scatter)")
+    p.add_argument("--pp", type=int, default=0, metavar="S",
+                   help="pipeline parallelism: not ported yet (refused)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     check_grad_accum(args.b, args.grad_accum)
+    if args.pp:
+        raise SystemExit("--pp: pipeline parallelism is not ported yet "
+                         "(ROADMAP A.10)")
     cfg = get_config(args.config)
     initialize_distributed("cuda")
     dev = resolve_device("cuda")
     world = dist.get_world_size() if dist.is_initialized() else 1
+    sp = max(args.ring_attention, 1)
+    if world % sp or args.seq_len % sp:
+        raise SystemExit(f"SP={sp} must divide the world size ({world}) "
+                         f"and --seq-len ({args.seq_len})")
+    if sp > 1 and args.grad_accum > 1:
+        raise SystemExit("--ring-attention with --grad-accum is not "
+                         "ported yet")
+    dp = world // sp
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
-                f"{args.config}, world size {world}, batch {args.b} per "
-                f"rank, grad-accum {args.grad_accum}, remat {args.remat}",
-                rank0=True)
+                f"{args.config}, world size {world} (dp={dp}, sp={sp}), "
+                f"batch {args.b} per data index, grad-accum "
+                f"{args.grad_accum}, remat {args.remat}", rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, max_grad_norm=args.max_grad_norm,
                 opt_level=args.opt_level, loss_scale=args.loss_scale,
                 mask_prob=args.mask_prob, print_freq=args.print_freq,
                 grad_accum=args.grad_accum, ddp=world > 1,
-                remat=args.remat)
+                remat=args.remat, sp=sp, sp_attention=args.sp_attention)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)
     maybe_print(f"final: loss {out['losses'][-1]:.4f}, avg "
-                f"{meter.avg * world:.1f} tok/s over {world} rank(s)",
+                f"{meter.avg * dp:.1f} tok/s over {world} rank(s)",
                 rank0=True)
     if dist.is_initialized():
         dist.destroy_process_group()

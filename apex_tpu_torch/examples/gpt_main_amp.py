@@ -40,14 +40,33 @@ XLA's CPU backend); the port has no such limit, so ``--tp`` always
 takes it.  TP peers draw the same batches (seeded by the data index);
 DDP averages over the data group only, and amp's overflow flag is
 taken over the model group.  Each rank's ``--b`` rows are its data
-index's batch.  ``main()`` runs NCCL (one rank a GPU);
-:func:`train` takes whatever process group is initialized.
+index's batch.  At dp > 1 the moments are sharded over the data group
+as the JAX example's ``shard_optimizer_state(like_params=params)``
+places them (ZeRO-1 over the tree layout: ``FusedAdam.with_zero(...,
+like_params=model.tp_places())``; ``build(zero=False)`` keeps them
+whole).  ``main()`` runs NCCL (one rank a GPU); :func:`train` takes
+whatever process group is initialized.
 
     WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
         -m apex_tpu_torch.examples.gpt_main_amp --tp 2
 
-Not here yet: ``--sp`` (sequence parallelism), and the optimizer
-state of tensor-parallel params sharded over the data ranks.
+``--sp SP`` (``--sp-attention {ring, ulysses}``, Ulysses by default as
+in the JAX example): sequence parallelism on a (world / SP, SP) rank
+mesh.  Each rank of a sequence group holds S/SP of its data index's
+tokens through the whole model (``GPTLMHeadModel(..., sp=<sp group>)``
+with ``parallel.make_ring_attention`` or ``make_ulysses_attention``,
+causal); its loss is the sum of its positions' cross entropy
+(``models.gpt.lm_loss_shard``: the next shard's first token labels its
+last position) over ``B * (S - 1)``.  The params are replicated over
+the sequence group: their gradients are summed over it and averaged
+over the data group, as one ``DistributedDataParallel`` mean over the
+whole (data x sp) world of each rank's loss times SP; the overflow flag
+is taken over the sequence group too.  Positions grow to ``--seq-len``
+(``config``).  ``--sp`` with ``--tp`` is refused (the JAX example
+composes them on one mesh; ROADMAP A.10 queues it).
+
+    WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
+        -m apex_tpu_torch.examples.gpt_main_amp --sp 2
 """
 
 from __future__ import annotations
@@ -66,11 +85,13 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.examples.bert_main_amp import step_key
 from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel, gpt_medium, \
     gpt_small, lm_loss
-from apex_tpu_torch.models.gpt import padded_vocab
+from apex_tpu_torch.models.gpt import lm_loss_shard, padded_vocab
 from apex_tpu_torch.ops import make_flash_attention, vocab_parallel_lm_loss
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.parallel import DistributedDataParallel, create_mesh, \
-    gpt_tp_rules, shard_params
+    gpt_tp_rules, make_ring_attention, make_ulysses_attention, psum_g, \
+    shard_optimizer_state, shard_params
+from apex_tpu_torch.parallel.mesh import WORLD
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
@@ -95,23 +116,40 @@ def batches(vocab: int, batch: int, seq_len: int,
         yield rng.randint(0, vocab, (batch, seq_len)).astype(np.int32)
 
 
+def _sp(mesh) -> int:
+    return mesh.shape["sp"] if mesh is not None else 1
+
+
 def build(cfg: GPTConfig, *, lr: float = 3e-4, opt_level: str = "O2",
           loss_scale=None, device="cuda", seed: int = 0,
           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-          mesh=None):
+          mesh=None, zero: bool = True, sp_attention: str = "ulysses"):
     """(model, optimizer, params, opt_state): the GPT with causal flash
     attention under ``amp.initialize`` with ``FusedAdam(lr)``; weights
     from ``seed`` or, when given, ``state_dict`` (e.g. from
     ``models.params_from_jax``; the full model's under TP, cut to this
-    rank's part here).  ``mesh`` (a ``parallel.Mesh`` whose model axis
-    is above 1) builds the tensor-parallel model, with
+    rank's part here).  ``mesh`` (a ``parallel.Mesh``) whose model axis
+    is above 1 builds the tensor-parallel model, with
     ``FusedAdam(layout="tree")`` whose clipping norm is the model's and
-    amp's overflow flag taken over the model group."""
+    amp's overflow flag taken over the model group; its moments are
+    sharded over a data axis above 1 unless ``zero`` is False (the flag
+    then taken over the data group as well).  A sequence axis above 1
+    builds the sequence-parallel model with ``sp_attention`` (``"ring"``
+    or ``"ulysses"``) and the overflow flag taken over the sequence
+    group."""
     dev = resolve_device(device)
     tp = mesh is not None and mesh.shape["model"] > 1
-    module = GPTLMHeadModel(cfg, attention_fn=make_flash_attention(
-        causal=True), device=dev, seed=None if state_dict is not None else seed,
-        tp=mesh.group("model") if tp else None)
+    sp = _sp(mesh) > 1
+    if sp:
+        make = {"ring": make_ring_attention,
+                "ulysses": make_ulysses_attention}[sp_attention]
+        attention_fn = make(mesh.group("sp"), causal=True)
+    else:
+        attention_fn = make_flash_attention(causal=True)
+    module = GPTLMHeadModel(cfg, attention_fn=attention_fn, device=dev,
+                            seed=None if state_dict is not None else seed,
+                            tp=mesh.group("model") if tp else None,
+                            sp=mesh.group("sp") if sp else None)
     if state_dict is not None:
         if tp:
             state_dict = shard_params(state_dict, mesh, gpt_tp_rules(),
@@ -128,8 +166,19 @@ def build(cfg: GPTConfig, *, lr: float = 3e-4, opt_level: str = "O2",
                                       loss_scale=loss_scale)
     if tp:
         optimizer = optimizer.with_overflow_groups(mesh.group("model"))
+    if sp:
+        optimizer = optimizer.with_overflow_groups(mesh.group("sp"))
     params = model.init()
     opt_state = optimizer.init(params)
+    if tp and zero and mesh.shape["data"] > 1:
+        # the shards of data peers must skip together: the flag over the
+        # data group too (the JAX package's flag is global)
+        places = module.tp_places()
+        optimizer = optimizer.with_overflow_groups(
+            mesh.group("data")).with_zero(mesh.group("data"),
+                                          like_params=places)
+        opt_state = opt_state._replace(inner=shard_optimizer_state(
+            opt_state.inner, mesh.group("data"), like_params=places))
     return model, optimizer, params, opt_state
 
 
@@ -143,18 +192,34 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
     ``deterministic`` is False.  With a tensor-parallel ``mesh`` the
     loss is ``ops.vocab_parallel_lm_loss`` over the model's final hidden
     states and its ``wte`` rows (``true_vocab`` the unpadded vocab).
-    Returns ``(params, opt_state, loss, grads)`` with the loss unscaled
-    (this rank's) and the grads as autograd gave them (scaled)."""
-    if mesh is not None and mesh.shape["model"] > 1:
+    With a sequence-parallel one, ``ids`` is the data index's whole (B,
+    S) batch: the model runs on this rank's tokens, the gradient is of
+    its loss shard times the sequence group's size over ``B * (S - 1)``
+    (``ddp``, over the whole world, averages them) and the loss is the
+    shards' sum over the group.  Returns ``(params, opt_state, loss,
+    grads)`` with the loss unscaled (this rank's; under SP the batch's)
+    and the grads as autograd gave them (scaled)."""
+    n_sp = _sp(mesh)
+    if n_sp > 1:
+        r, s_local = mesh.index("sp"), ids.shape[1] // n_sp
+        logits = model.apply(params, ids[:, r * s_local:(r + 1) * s_local],
+                             deterministic=deterministic,
+                             dropout_key=dropout_key)
+        total = ids.shape[0] * (ids.shape[1] - 1)
+        shard = lm_loss_shard(logits, ids, r, n_sp)
+        objective = shard * (n_sp / total)
+        with torch.no_grad():
+            loss = psum_g(shard.detach(), mesh.group("sp")) / total
+    elif mesh is not None and mesh.shape["model"] > 1:
         hidden = model.apply(params, ids, deterministic=deterministic,
                              dropout_key=dropout_key, return_hidden=True)
-        loss = vocab_parallel_lm_loss(hidden, params["wte.weight"], ids,
-                                      mesh, true_vocab=true_vocab)
+        loss = objective = vocab_parallel_lm_loss(
+            hidden, params["wte.weight"], ids, mesh, true_vocab=true_vocab)
     else:
         logits = model.apply(params, ids, deterministic=deterministic,
                              dropout_key=dropout_key)
-        loss = lm_loss(logits, ids)
-    with amp.scale_loss(loss, opt_state) as scaled:
+        loss = objective = lm_loss(logits, ids)
+    with amp.scale_loss(objective, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
     grads = dict(zip(params.keys(), grads))
     if ddp is not None:
@@ -169,7 +234,8 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
           print_freq: int = 0, ddp: bool = False,
           data: Optional[Iterator[np.ndarray]] = None, remat: bool = False,
-          deterministic: bool = True, tp: int = 0) -> dict:
+          deterministic: bool = True, tp: int = 0, sp: int = 0,
+          sp_attention: str = "ulysses") -> dict:
     """Train ``steps`` steps of ``batch`` rows on this rank; returns
     per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
     around each step, ended by reading the loss), ``tokens_per_s`` per
@@ -182,24 +248,39 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
     ``deterministic=False`` trains with the model's dropout, step i keyed
     ``step_key(seed, i)``.  ``tp`` above 1: tensor parallelism over
     ``tp`` ranks of the initialized world (module docstring; with
-    ``ddp`` the data group averages), ``cfg`` the unpadded model and
-    ``state_dict`` the full padded one."""
+    ``ddp`` the data group averages, the moments sharded over it at dp
+    > 1), ``cfg`` the unpadded model and ``state_dict`` the full padded
+    one.  ``sp`` above 1: sequence parallelism over ``sp``
+    ranks with ``sp_attention`` (module docstring); each rank takes its
+    data index's whole batch and runs its tokens, the gradients always
+    go through ``DistributedDataParallel`` over the world and
+    ``tokens_per_s`` counts the batch's tokens."""
     dev = resolve_device(device)
     if remat:
         cfg = dataclasses.replace(cfg, remat=True)
+    if tp > 1 and sp > 1:
+        raise ValueError("sequence parallelism with tensor parallelism "
+                         "comes with a later slice (ROADMAP A.10)")
     true_vocab, mesh, data_index = cfg.vocab_size, None, 0
-    if tp > 1:
-        mesh = create_mesh(tp=tp)
+    if tp > 1 or sp > 1:
+        mesh = create_mesh(tp=max(tp, 1), sp=max(sp, 1))
         data_index = mesh.index("data")
+    if tp > 1:
         cfg = dataclasses.replace(cfg,
                                   vocab_size=padded_vocab(cfg.vocab_size, tp))
-    elif dist.is_initialized():
+    elif sp > 1 and seq_len % sp:
+        raise ValueError(f"sp {sp} must divide seq_len {seq_len}")
+    elif mesh is None and dist.is_initialized():
         data_index = dist.get_rank()
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, opt_level=opt_level, loss_scale=loss_scale, device=dev,
-        seed=seed, state_dict=state_dict, mesh=mesh)
+        seed=seed, state_dict=state_dict, mesh=mesh,
+        sp_attention=sp_attention)
     wrapper = None
-    if ddp:
+    if sp > 1:
+        # each rank's loss times sp, averaged over the (data x sp) world
+        wrapper = DistributedDataParallel(model, process_group=WORLD)
+    elif ddp:
         wrapper = DistributedDataParallel(
             model, process_group=mesh.group("data") if mesh else None)
     if wrapper is not None and dist.is_initialized() \
@@ -249,28 +330,40 @@ def parse_args(argv=None):
     p.add_argument("--tp", type=int, default=0, metavar="TP",
                    help="Megatron tensor parallelism over TP-way model "
                    "groups (parallel.gpt_tp_rules, vocab-parallel loss)")
+    p.add_argument("--sp", type=int, default=0, metavar="SP",
+                   help="shard the sequence over SP-way sequence "
+                   "parallelism (a (world / SP, SP) rank mesh)")
+    p.add_argument("--sp-attention", default="ulysses",
+                   choices=("ring", "ulysses"))
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    tp, sp = max(args.tp, 1), max(args.sp, 1)
+    if tp > 1 and sp > 1:
+        raise SystemExit("--sp with --tp is not ported yet (ROADMAP A.10, "
+                         "with the pipeline-parallel slice)")
     cfg = config(args.config, args.seq_len)
     initialize_distributed("cuda")
     dev = resolve_device("cuda")
     world = dist.get_world_size() if dist.is_initialized() else 1
-    tp = max(args.tp, 1)
-    if world % tp:
-        raise SystemExit(f"--tp {args.tp} must divide the world size "
-                         f"({world})")
-    dp = world // tp
+    if world % (tp * sp):
+        raise SystemExit(f"--sp {args.sp} x --tp {args.tp} must divide the "
+                         f"world size ({world})")
+    if args.seq_len % sp:
+        raise SystemExit(f"--sp {sp} must divide --seq-len "
+                         f"({args.seq_len})")
+    dp = world // (tp * sp)
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
                 f"{args.config}, seq: {args.seq_len}, flash: True, remat: "
-                f"{args.remat}, world size {world} (dp={dp}, tp={tp}), "
-                f"batch {args.b} per data index", rank0=True)
+                f"{args.remat}, world size {world} (dp={dp}, sp={sp}, "
+                f"tp={tp}), batch {args.b} per data index", rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, opt_level=args.opt_level,
                 loss_scale=args.loss_scale, print_freq=args.print_freq,
-                ddp=dp > 1, remat=args.remat, tp=tp)
+                ddp=dp > 1, remat=args.remat, tp=tp, sp=sp,
+                sp_attention=args.sp_attention)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)

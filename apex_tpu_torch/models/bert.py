@@ -43,6 +43,18 @@ they are computed on the host: nothing syncs.
 ``nn.remat`` does in the JAX model; the recompute draws the forward's
 dropout keys, so the gradients equal those without remat bit for bit.
 
+Sequence parallelism (``BertForPreTraining(cfg, attention_fn, sp=<sp
+group>)`` with ``parallel.make_ring_attention`` or
+``make_ulysses_attention``): each rank holds its S/sp tokens through the
+whole model.  Its embeddings take positions ``sp_rank * S_local +
+arange(S_local)``, its ``attention_mask`` is its shard's (the ring
+carries it with its K/V, Ulysses gathers it), the hidden dropouts draw
+its window of the dense activation's threefry stream
+(``threefry.window``), and the heads give its (B, S_local, V) MLM
+logits; the NSP logits are the pooled ``[CLS]`` token's only on sequence
+rank 0, where that token lives (the caller takes the NSP term there
+alone).
+
 Not here: ``PipelinedBert``, MoE layers and the
 ``BertEmbeddings``/``BertStage``/``BertHeads`` split.  HuggingFace
 checkpoints load through ``utils.load_hf_bert``.
@@ -56,6 +68,7 @@ from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -192,13 +205,15 @@ def _dropout_scope(cfg, deterministic, dropout_key):
     return _scope(dropout_key)
 
 
-def _drop(module, x, scope):
+def _drop(module, x, scope, window=None):
     """``module`` (a ``threefry.Dropout``) on x, keyed by the next draw
     of ``scope``'s ``Dropout_0``; x as it is without a scope or at rate
-    0 (flax draws nothing then)."""
+    0 (flax draws nothing then).  ``window``: x is a sequence-parallel
+    rank's slice of the dense activation (``threefry.window``)."""
     if scope is None or module.rate == 0.0:
         return x
-    return module(x, scope.push("Dropout_0").make_rng())
+    key = scope.push("Dropout_0").make_rng()
+    return module(x, key) if window is None else module(x, key, window)
 
 
 class BertLayer(nn.Module):
@@ -222,29 +237,40 @@ class BertLayer(nn.Module):
         self.drop = threefry.Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, attn_bias, deterministic: bool = True,
-                dropout_key=None, attention_seed=None):
+                dropout_key=None, attention_seed=None, drop_window=None):
+        """``drop_window``: x is a sequence-parallel rank's slice of the
+        dense activation (``threefry.window``)."""
         scope = _dropout_scope(self.cfg, deterministic, dropout_key)
         attn_out = self.attention(
             x, attn_bias, deterministic,
             None if scope is None else scope.push("attention"),
             attention_seed)
-        x = self.attention_ln(x + _drop(self.drop, attn_out, scope))
+        x = self.attention_ln(x + _drop(self.drop, attn_out, scope,
+                                        drop_window))
         y = self.output(F.gelu(self.intermediate(x)))   # exact erf gelu
-        return self.output_ln(x + _drop(self.drop, y, scope))
+        return self.output_ln(x + _drop(self.drop, y, scope, drop_window))
 
 
 class BertEncoder(nn.Module):
     """input_ids/token_type_ids (B, S) int, attention_mask (B, S) {0,1}
     -> sequence output (B, S, H).  Embedding sum + LN + dropout
-    (``_embed_block``), then the layers, named ``layer_<i>``."""
+    (``_embed_block``), then the layers, named ``layer_<i>``.  ``sp``
+    (a sequence group): the inputs are this rank's S_local tokens
+    (module docstring)."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, sp=None):
         super().__init__()
         dev = resolve_device(device)
         h = cfg.hidden_size
         self.cfg = cfg
+        if sp is not None and attention_fn is None:
+            raise ValueError("a sequence-parallel BERT takes a "
+                             "sequence-parallel attention_fn "
+                             "(parallel.make_ring_attention or "
+                             "make_ulysses_attention)")
+        self.sp = sp
         self.attention_fn = attention_fn
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=dev,
                                             dtype=dtype)
@@ -258,22 +284,37 @@ class BertEncoder(nn.Module):
             self.add_module(f"layer_{i}", BertLayer(
                 cfg, attention_fn, device=dev, dtype=dtype))
 
-    def _embed_block(self, input_ids, token_type_ids, scope):
+    def _embed_block(self, input_ids, token_type_ids, scope, offset=0,
+                     window=None):
         s = input_ids.shape[1]
-        pos = torch.arange(s, device=input_ids.device)[None, :]
+        pos = offset + torch.arange(s, device=input_ids.device)[None, :]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
+        # the type rows as a one-hot product, not a gather: every token of
+        # a type adds into one row, and the gather's backward on the card
+        # sums such a row in no fixed order (two runs differ in the last
+        # bits); the product's backward is a GEMM, the same bits each run
+        types = self.token_type_embeddings.weight
         x = self.embeddings_ln(self.word_embeddings(input_ids)
                                + self.position_embeddings(pos)
-                               + self.token_type_embeddings(token_type_ids))
-        return _drop(self.embeddings_dropout, x, scope)
+                               + F.one_hot(token_type_ids.long(),
+                                           types.shape[0]).to(types.dtype)
+                               @ types)
+        return _drop(self.embeddings_dropout, x, scope, window)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None):
         cfg = self.cfg
         n = cfg.num_hidden_layers
         scope = _dropout_scope(cfg, deterministic, dropout_key)
-        x = self._embed_block(input_ids, token_type_ids, scope)
+        offset, window = 0, None
+        if self.sp is not None and dist.is_initialized():
+            b, s = input_ids.shape
+            offset = self.sp.rank() * s
+            window = threefry.window((b, s * self.sp.size(),
+                                      cfg.hidden_size), 1, offset, s)
+        x = self._embed_block(input_ids, token_type_ids, scope, offset,
+                              window)
         attn_bias = None
         if attention_mask is not None:
             attn_bias = torch.where(attention_mask[:, None, None, :] > 0,
@@ -291,9 +332,11 @@ class BertEncoder(nn.Module):
             layer = getattr(self, f"layer_{i}")
             if remat:
                 x = remat_layer(layer, scopes[i], x, attn_bias,
-                                deterministic, attention_seed=seeds[i])
+                                deterministic, attention_seed=seeds[i],
+                                drop_window=window)
             else:
-                x = layer(x, attn_bias, deterministic, scopes[i], seeds[i])
+                x = layer(x, attn_bias, deterministic, scopes[i], seeds[i],
+                          drop_window=window)
         return x
 
 
@@ -307,18 +350,20 @@ class BertForPreTraining(nn.Module):
     the JAX model's distributions (normal(initializer_range) for
     embeddings and kernels, zero biases, unit LN scales) from a CPU
     ``torch.Generator``, the same weights on any device; ``seed=None``
-    leaves PyTorch's init for callers that load a state dict."""
+    leaves PyTorch's init for callers that load a state dict.  ``sp``
+    (a sequence group) builds a sequence-parallel rank's model (module
+    docstring)."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
                  dtype: torch.dtype = torch.float32,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0, sp=None):
         super().__init__()
         dev = resolve_device(device)
         h = cfg.hidden_size
         self.cfg = cfg
         self.encoder = BertEncoder(cfg, attention_fn, device=dev,
-                                   dtype=dtype)
+                                   dtype=dtype, sp=sp)
         self.mlm_transform = _linear(h, h, dev, dtype)
         self.mlm_ln = _layer_norm(cfg, dev, dtype)
         self.mlm_decoder = _linear(h, cfg.vocab_size, dev, dtype)

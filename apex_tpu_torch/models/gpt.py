@@ -59,7 +59,18 @@ keeps this rank's heads.  ``reset_parameters(seed)`` draws each full
 tensor as the dense model does and keeps this rank's slice, so a seed
 gives the dense model's weights, split.  Serving under TP is not here.
 
-Not here: the pipelined variant.
+Sequence parallelism (``GPTLMHeadModel(cfg, attention_fn, sp=<sp
+group>)`` with an ``attention_fn`` of ``parallel.make_ring_attention``
+or ``make_ulysses_attention``): each rank holds its S/sp tokens through
+the whole model, where the JAX model under the examples' ``--sp``
+leaves everything but the attention to GSPMD.  Positions default to
+``sp_rank * S_local + arange(S_local)``; the hidden dropouts draw this
+rank's window of the dense activation's threefry stream
+(``threefry.window``), so the masks are the dense model's; the head
+gives this rank's (B, S_local, V) logits, and :func:`lm_loss_shard`
+takes its part of the next-token loss.
+
+Not here: the pipelined variant, and TP with SP in one model.
 """
 
 from __future__ import annotations
@@ -350,7 +361,9 @@ class GPTBlock(nn.Module):
 
     def forward(self, x, attn_bias, cache_view=None, return_kv: bool = False,
                 kv_quant: bool = False, dropout_key=None,
-                attention_seed=None):
+                attention_seed=None, drop_window=None):
+        """``drop_window``: x is a sequence-parallel rank's slice of the
+        dense activation (``threefry.window``)."""
         scope = None if dropout_key is None \
             else threefry.RngScope.of(dropout_key)
         h = self.attention(self.attn_ln(x), attn_bias, cache_view=cache_view,
@@ -361,14 +374,14 @@ class GPTBlock(nn.Module):
         kv = None
         if return_kv:
             h, kv = h
-        x = x + _drop(self.drop, h, scope)
+        x = x + _drop(self.drop, h, scope, drop_window)
         h = self.mlp_ln(x)
         if self.tp is not None:
             h = copy_to_group(h, self.tp.group)
         h = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
         if return_kv:
-            return x + _drop(self.drop, h, scope), kv
-        return x + _drop(self.drop, h, scope)
+            return x + _drop(self.drop, h, scope, drop_window), kv
+        return x + _drop(self.drop, h, scope, drop_window)
 
 
 class GPTLMHeadModel(nn.Module):
@@ -394,17 +407,28 @@ class GPTLMHeadModel(nn.Module):
 
     ``tp`` (a ``parallel.ProcessGroup``, the mesh's model group) builds
     this rank's part of the tensor-parallel model (module docstring);
-    its forward needs ``return_hidden=True``.
+    its forward needs ``return_hidden=True``.  ``sp`` (the mesh's
+    sequence group) makes it a sequence-parallel rank's model: its
+    ``input_ids`` are this rank's S_local tokens and ``attention_fn``
+    must attend over the group (module docstring).
     """
 
     def __init__(self, cfg: GPTConfig, attention_fn: Optional[Callable] = None,
                  *, device="cuda", dtype: torch.dtype = torch.float32,
                  seed: Optional[int] = 0,
-                 tp: Optional[ProcessGroup] = None):
+                 tp: Optional[ProcessGroup] = None,
+                 sp: Optional[ProcessGroup] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
+        if sp is not None and (tp is not None or attention_fn is None):
+            raise ValueError(
+                "a sequence-parallel GPT takes a sequence-parallel "
+                "attention_fn (parallel.make_ring_attention or "
+                "make_ulysses_attention) and no tp (TP with SP comes "
+                "with a later slice)")
+        self.sp = sp
         place = self.tp = _tp_place(tp)
         if place is not None:
             n = place.size
@@ -444,6 +468,24 @@ class GPTLMHeadModel(nn.Module):
                                 tpar.Mesh({"model": self.tp.size}),
                                 tpar.gpt_tp_rules(),
                                 num_heads=self.cfg.num_attention_heads)
+
+    def tp_places(self) -> Dict[str, tuple]:
+        """Each local parameter's ``parallel.tensor_parallel.Place`` (its
+        split with the heads kept, and how it reads in the JAX layout):
+        the ``like_params`` ZeRO-1 shards the tree layout's moments
+        with."""
+        from apex_tpu_torch.parallel import tensor_parallel as tpar
+        n = self.tp.size if self.tp is not None else 1
+        specs = {}
+        if self.tp is not None:
+            full = GPTLMHeadModel(self.cfg, device="meta", seed=None)
+            specs = tpar.param_specs(dict(full.named_parameters()),
+                                     tpar.Mesh({"model": n}),
+                                     tpar.gpt_tp_rules(),
+                                     num_heads=self.cfg.num_attention_heads,
+                                     keep_heads=True)
+        return tpar.param_places(self, specs, {"model": n},
+                                 self.cfg.num_attention_heads)
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
@@ -485,11 +527,17 @@ class GPTLMHeadModel(nn.Module):
                 "a tensor-parallel GPT trains only: pass return_hidden=True "
                 "and take the loss with ops.vocab_parallel_lm_loss "
                 "(serving under TP is not ported)")
+        offset, window = 0, None
+        if self.sp is not None and dist.is_initialized():
+            n_sp, offset = self.sp.size(), self.sp.rank() * s
+            window = threefry.window((b, s * n_sp, cfg.hidden_size), 1,
+                                     offset, s)
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device)[None, :]
+            positions = offset + torch.arange(s, device=input_ids.device)[
+                None, :]
         scope = _dropout_scope(cfg, deterministic, dropout_key)
         x = _drop(self.embed_dropout, self.wte(input_ids)
-                  + self.wpe(positions), scope)
+                  + self.wpe(positions), scope, window)
         bias = None
         if attention_mask is not None:
             bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
@@ -520,10 +568,11 @@ class GPTLMHeadModel(nn.Module):
                 kvs.append(kv)
             elif remat:
                 x = remat_block(block, scopes[i], x, bias, kv_quant=kv_quant,
-                                attention_seed=seeds[i])
+                                attention_seed=seeds[i], drop_window=window)
             else:
                 x = block(x, bias, cache_view=cv, kv_quant=kv_quant,
-                          dropout_key=scopes[i], attention_seed=seeds[i])
+                          dropout_key=scopes[i], attention_seed=seeds[i],
+                          drop_window=window)
         x = self.final_ln(x)
         if return_hidden:
             return x
@@ -606,3 +655,19 @@ def lm_loss(logits, input_ids, attention_mask=None):
     keep = attention_mask[:, 1:].sum().float()
     return (_lm_masked_sum(logits, input_ids, attention_mask)
             / keep.clamp_min(1.0))
+
+
+def lm_loss_shard(logits, input_ids, rank: int, n: int):
+    """A sequence-parallel rank's part of :func:`lm_loss`: the SUM of the
+    next-token cross entropy over its positions (fp32), from its (B,
+    S_local, V) ``logits`` and the batch's whole (B, S) ``input_ids``.
+    The label of this rank's last position is the next shard's first
+    token; the last rank drops its final position, which has none.  The
+    loss of the batch is the sum over the ranks divided by ``B * (S -
+    1)``."""
+    b, s_local, v = logits.shape
+    start = rank * s_local
+    labels = input_ids[:, start + 1:start + s_local + 1]
+    kept = labels.shape[1]            # s_local, or s_local - 1 at the end
+    return F.cross_entropy(logits[:, :kept].reshape(-1, v).float(),
+                           labels.reshape(-1).long(), reduction="sum")

@@ -244,7 +244,8 @@ def attention_seeds(scopes: Sequence[RngScope], device) -> torch.Tensor:
 _P = ctypes.c_void_p
 KERNEL = Kernel("threefry_dropout", "apex_threefry_dropout",
                 [_P, _P, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
-                 ctypes.c_float, ctypes.c_float, ctypes.c_int, _P])
+                 ctypes.c_float, ctypes.c_float, ctypes.c_int64,
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,60 +255,95 @@ def _divisor_value(keep_prob: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(keep_prob, dtype=dtype))
 
 
-def dropout_plain(x: torch.Tensor, rate: float, key) -> torch.Tensor:
+def window(full_shape: Sequence[int], dim: int, start: int,
+           length: int) -> Tuple[int, int, int]:
+    """``(row, row_stride, base)``: where the slice ``[start, start +
+    length)`` along ``dim`` of a tensor of ``full_shape`` lies in its
+    row-major stream of counters: rows of ``row`` counters,
+    ``row_stride`` apart, from ``base`` (what the dropout kernel and
+    :func:`dropout_plain` take as ``window``)."""
+    inner = math.prod(full_shape[dim + 1:])
+    return length * inner, full_shape[dim] * inner, start * inner
+
+
+def _window_counters(n: int, win, device):
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if win is not None:
+        row, row_stride, base = win
+        i = base + torch.div(i, row, rounding_mode="floor") * row_stride \
+            + i % row
+    return i >> 32, i & M32
+
+
+def dropout_plain(x: torch.Tensor, rate: float, key,
+                  window=None) -> torch.Tensor:
     """Plain PyTorch version of the dropout kernel, flax's
     ``nn.Dropout.__call__``: ``where(bernoulli(key, 1 - rate, x.shape),
     x / (1 - rate), 0)``, the divisor a 0-d tensor of x's dtype (a true
-    division, as the kernel's).  Differentiable by PyTorch's autograd."""
+    division, as the kernel's).  ``window`` (:func:`window`): x is that
+    slice of a larger tensor and draws what the larger tensor's call
+    draws there.  Differentiable by PyTorch's autograd."""
     keep_prob = 1.0 - rate
-    keep = bernoulli(as_key(key), keep_prob, x.shape, x.device)
+    hi, lo = _window_counters(x.numel(), window, x.device)
+    y0, y1 = threefry2x32(as_key(key), hi, lo)
+    bits = (y0 ^ y1).reshape(x.shape)
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    keep = u < torch.tensor(keep_prob, dtype=torch.float32, device=x.device)
     div = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / div, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))
 
 
-def _dropout_cuda(x: torch.Tensor, rate: float, key: Key) -> torch.Tensor:
+def _dropout_cuda(x: torch.Tensor, rate: float, key: Key,
+                  window=None) -> torch.Tensor:
     code = check_dtype("dropout", x)
     x = x.contiguous()
     y = torch.empty_like(x)
     if x.numel():
         keep_prob = 1.0 - rate
+        row, row_stride, base = window or (x.numel(), 0, 0)
         KERNEL.launch(x.data_ptr(), y.data_ptr(), x.numel(), key[0], key[1],
-                      keep_prob, _divisor_value(keep_prob, x.dtype), code,
-                      stream_handle(x.device))
+                      keep_prob, _divisor_value(keep_prob, x.dtype), row,
+                      row_stride, base, code, stream_handle(x.device))
     return y
 
 
-def _dropout_apply(x, rate, key):
+def _dropout_apply(x, rate, key, window=None):
     if plain_path(x):
-        return dropout_plain(x, rate, key)
-    return _dropout_cuda(x, rate, key)
+        return dropout_plain(x, rate, key, window)
+    return _dropout_cuda(x, rate, key, window)
 
 
 class _DropoutFn(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, rate, key):
-        ctx.rate, ctx.key = rate, key
-        return _dropout_apply(x, rate, key)
+    def forward(ctx, x, rate, key, window):
+        ctx.rate, ctx.key, ctx.window = rate, key, window
+        return _dropout_apply(x, rate, key, window)
 
     @staticmethod
     def backward(ctx, dy):
-        return _dropout_apply(dy, ctx.rate, ctx.key), None, None
+        return _dropout_apply(dy, ctx.rate, ctx.key, ctx.window), None, \
+            None, None
 
 
-def dropout(x: torch.Tensor, rate: float, key) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, key, window=None) -> torch.Tensor:
     """flax's ``nn.Dropout`` on ``key``: ``x / (1 - rate)`` where
     ``bernoulli(key, 1 - rate, x.shape)`` keeps, else 0, in x's dtype.
     Rate 0 returns x and rate 1 zeros, drawing nothing, as flax does.
-    The kernel for CUDA tensors (float32 or bfloat16), the plain version
-    for CPU tensors; differentiable in x."""
+    ``window`` (:func:`window`): x is a slice of a larger tensor and is
+    dropped as that tensor's call drops it there (a sequence-parallel
+    rank's tokens).  The kernel for CUDA tensors (float32 or bfloat16),
+    the plain version for CPU tensors; differentiable in x."""
     rate = float(rate)
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
-    return _DropoutFn.apply(x, rate, as_key(key))
+    if window is not None and window[0] == x.numel() and window[2] == 0:
+        window = None       # the slice is the whole stream's start
+    return _DropoutFn.apply(x, rate, as_key(key),
+                            None if window is None else tuple(window))
 
 
 class Dropout(nn.Module):
@@ -319,8 +355,10 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x, key):
-        return dropout(x, self.rate, key)
+    def forward(self, x, key, window=None):
+        if window is None:
+            return dropout(x, self.rate, key)
+        return dropout(x, self.rate, key, window)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"

@@ -52,8 +52,13 @@ layout launches B1-multi over each group's segment cut to the rank's
 range.  The clipping norm is the group's over the whole reduced g,
 which every rank holds, so the step is the replicated one bit for bit.
 A buffer that does not shard (``parallel.zero.flat_shard_len``) takes
-the replicated update.  The tree layout's ``with_zero`` changes
-nothing, as in the JAX package.
+the replicated update.  Over the tree layout (``with_zero(group,
+like_params=...)``, the moments sharded by ``shard_optimizer_state``
+with the same ``like_params``), B1-multi steps each sharded leaf's m
+and v with contiguous copies of its param's and gradient's slices
+(``parallel.zero.tree_shard``) and the fresh slices are all-gathered
+into the params, one flat gather a step; the update is elementwise, so
+the step is the replicated one bit for bit.
 
 ``with_model_parallel(group, sharded)`` (tensor parallelism): the
 ``max_grad_norm`` norm counts each replicated leaf once and sums the
@@ -281,7 +286,7 @@ class FusedAdam:
         if self.param_groups:
             validate_specs(self.param_groups, self._defaults().keys(),
                            "FusedAdam")
-        self._zero = None       # (group, min_shard_elems): with_zero
+        self._zero = None       # (group, min_shard_elems, places)
         self._tp = None         # (group, {name: sharded}): model parallel
 
     def _defaults(self):
@@ -302,16 +307,16 @@ class FusedAdam:
         new._zero, new._tp = self._zero, self._tp
         return new
 
-    def with_zero(self, group, min_shard_elems: Optional[int] = None
-                  ) -> "FusedAdam":
-        """A copy whose flat update runs on this rank's shard of the
-        buffers over ``group`` (the data ranks) and all-gathers the
-        params (module docstring).  ``min_shard_elems`` (default ``n *
-        128``) must be what ``parallel.shard_optimizer_state`` was given.
-        The tree layout takes no configuration: a copy as it is."""
+    def with_zero(self, group, min_shard_elems: Optional[int] = None,
+                  like_params=None) -> "FusedAdam":
+        """A copy whose update runs on this rank's shard of the state
+        over ``group`` (the data ranks) and all-gathers the params
+        (module docstring).  ``min_shard_elems`` (default ``n * 128``)
+        and ``like_params`` (the tree layout's ``{name: Place}``; the
+        flat layout ignores it) must be what
+        ``parallel.shard_optimizer_state`` was given."""
         new = self._clone()
-        if self.layout == "flat":
-            new._zero = (group, min_shard_elems)
+        new._zero = (group, min_shard_elems, dict(like_params or {}))
         return new
 
     def with_model_parallel(self, group, sharded) -> "FusedAdam":
@@ -569,7 +574,7 @@ class FusedAdam:
         ``with_zero``; None where the buffer takes the replicated
         update."""
         from apex_tpu_torch.parallel import zero
-        group, least = self._zero
+        group, least, _ = self._zero
         ranks, r = zero.group_place(group)
         k = zero.flat_shard_len(total, ranks, zero.min_shard(group, least))
         if k is None:
@@ -609,6 +614,44 @@ class FusedAdam:
             self._update_multi(segments, torch.stack(scalars))
         all_gather_flat(p[lo:hi], group, out=p)
 
+    def _update_tree_shards(self, params, work, m_leaves, v_leaves, g32,
+                            ids, scalars) -> None:
+        """ZeRO-1 over the tree layout: one B1-multi launch over each
+        leaf's moment shard with contiguous copies of its param's and
+        gradient's slices (``parallel.zero.tree_shard``), then one flat
+        all-gather of the fresh slices back into ``work``."""
+        from apex_tpu_torch.optimizers.param_groups import leaf_paths
+        from apex_tpu_torch.parallel import zero
+        from apex_tpu_torch.parallel.tensor_parallel import Place
+        group, least, places = self._zero
+        n, r = zero.group_place(group)
+        least = zero.min_shard(group, least)
+        segments, views, dims, fresh = [], [], [], []
+        for name, w, m, v, g, gid in zip(leaf_paths(params), work, m_leaves,
+                                         v_leaves, g32, ids):
+            place = places.get(name, Place())
+            view, d, p_shard = zero.tree_shard(w, place, n, r, least)
+            want = w.shape if d is None else p_shard.shape
+            if m.shape != want:
+                raise ValueError(
+                    f"with_zero: {name}'s moment is {tuple(m.shape)}, this "
+                    f"rank's shard {tuple(want)}: shard the state with "
+                    "parallel.shard_optimizer_state and the same "
+                    "like_params")
+            if d is None:
+                segments.append((w.view(-1), m.view(-1), v.view(-1),
+                                 g.view(-1), gid))
+                continue
+            p_shard = p_shard.contiguous()
+            g_shard = zero.tree_shard(g, place, n, r, least)[2].contiguous()
+            segments.append((p_shard.view(-1), m.view(-1), v.view(-1),
+                             g_shard.view(-1), gid))
+            views.append(view)
+            dims.append(d)
+            fresh.append(p_shard)
+        self._update_multi(segments, scalars)
+        zero._gather_into(fresh, views, dims, group)
+
     def _step_tree(self, params, grads, state: FusedAdamState, scale,
                    grad_norm, skip):
         p_leaves, treedef = pytree.tree_flatten(params)
@@ -647,10 +690,14 @@ class FusedAdam:
         scalars = torch.stack([
             self._scalars(hp, step, scale, keep, norm_of(gid), grad_norm)
             for gid, hp in enumerate(hps)])
-        self._update_multi(
-            [(w.view(-1), m.view(-1), v.view(-1), g.view(-1), gid)
-             for w, m, v, g, gid in zip(work, m_leaves, v_leaves, g32, ids)],
-            scalars)
+        if self._zero is None:
+            self._update_multi(
+                [(w.view(-1), m.view(-1), v.view(-1), g.view(-1), gid)
+                 for w, m, v, g, gid in zip(work, m_leaves, v_leaves, g32,
+                                            ids)], scalars)
+        else:
+            self._update_tree_shards(params, work, m_leaves, v_leaves, g32,
+                                     ids, scalars)
         out = []
         for p, w in zip(p_leaves, work):
             if w.data_ptr() == p.data_ptr() and w.dtype == p.dtype:

@@ -5,20 +5,23 @@ Twin of ``apex_tpu.parallel``'s data-parallel half (reference
 ``SyncBatchNorm`` with ``convert_syncbn_model``, ``LARC``, process
 groups and the launcher.  One process per GPU: NCCL on the card, gloo
 on the CPU.  Megatron tensor parallelism (``tensor_parallel``: the rules
-and the split; the (data, model) rank mesh ``create_mesh``; the
-collectives ``copy_to_group`` / ``reduce_from_group``) and ZeRO-1/2
-(``zero``).
+and the split; the (data, sp, model) rank mesh ``create_mesh``; the
+collectives ``copy_to_group`` / ``reduce_from_group``), ZeRO-1/2
+(``zero``) and sequence parallelism (``sequence``: ring and Ulysses
+attention over the collectives ``ppermute_g`` / ``all_to_all_g``).
 
-Not here yet: sequence and pipeline parallelism, expert parallelism.
+Not here yet: pipeline parallelism, expert parallelism.
 """
 
 from apex_tpu_torch.parallel.LARC import LARC
 from apex_tpu_torch.parallel.collectives import (
     all_gather_flat,
     all_gather_g,
+    all_to_all_g,
     copy_to_group,
     pmax_g,
     pmean_g,
+    ppermute_g,
     psum_g,
     reduce_from_group,
     reduce_scatter_flat,
@@ -33,6 +36,12 @@ from apex_tpu_torch.parallel.distributed import (
 from apex_tpu_torch.parallel.mesh import Mesh, ProcessGroup, create_mesh, \
     create_process_group
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
+from apex_tpu_torch.parallel.sequence import (
+    make_ring_attention,
+    make_ulysses_attention,
+    ring_attention,
+    ulysses_attention,
+)
 from apex_tpu_torch.parallel.sync_batchnorm import (
     SyncBatchNorm,
     convert_syncbn_model,
@@ -74,6 +83,7 @@ __all__ = [
     "all_gather_g",
     "all_gather_tree",
     "all_reduce_tree",
+    "all_to_all_g",
     "bert_tp_rules",
     "broadcast_params",
     "convert_syncbn_model",
@@ -83,15 +93,20 @@ __all__ = [
     "create_syncbn_process_group",
     "gpt_tp_rules",
     "initialize_distributed",
+    "make_ring_attention",
+    "make_ulysses_attention",
     "merge_stats",
     "param_specs",
     "pmax_g",
     "pmean_g",
+    "ppermute_g",
     "psum_g",
     "reduce_from_group",
     "reduce_scatter_flat",
+    "ring_attention",
     "shard_optimizer_state",
     "shard_params",
+    "ulysses_attention",
     "unshard_optimizer_state",
     "welford_combine",
     "zero2_update",

@@ -19,14 +19,23 @@ from the partitioner.
 
 :func:`pmax_g` reduces a flag or a max on the device (no host sync on
 NCCL).  :func:`all_gather_flat` and :func:`reduce_scatter_flat` are the
-tiled dim-0 collectives ZeRO moves its shards with.  Their form is
-chosen by the group's backend name, never by trying one:
+tiled dim-0 collectives ZeRO moves its shards with.  Sequence
+parallelism (``parallel.sequence``) needs three more:
+:func:`ppermute_g`, the ring step (``lax.ppermute`` by a shift; its
+backward the inverse shift), :func:`all_to_all_g`, the tiled swap of
+``lax.all_to_all(..., tiled=True)`` (its backward the reverse swap),
+and :func:`all_gather_g` with ``tiled`` for the key mask.  Their form
+is chosen by the group's backend name, never by trying one:
 
-- ``nccl``: ``all_gather_into_tensor`` and ``reduce_scatter_tensor``;
-- any other (gloo): the gather as one ``broadcast`` per rank of its
-  slice into the output, the reduce-scatter as an ``all_reduce`` of
-  the whole buffer and a slice of it (gloo has neither collective for
-  CUDA tensors; it has ``broadcast`` and ``all_reduce``).
+- ``nccl``: ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``batch_isend_irecv``, ``all_to_all_single`` on a contiguous
+  buffer of the chunks, ``all_gather``;
+- any other (gloo): every gather, the ring step and the swap as one
+  ``broadcast`` per rank of what it sends (each rank keeps what is
+  its own), the reduce-scatter as an ``all_reduce`` of the whole
+  buffer and a slice of it (gloo has no all-gather, reduce-scatter,
+  all-to-all or send/recv for CUDA tensors; it has ``broadcast`` and
+  ``all_reduce``).
 
 Without an initialized process group every collective is the identity
 (a world of one process).
@@ -78,10 +87,21 @@ def pmean_g(x: torch.Tensor,
 def all_gather_g(x: torch.Tensor, group: Optional[ProcessGroup] = None, *,
                  axis: int = 0, tiled: bool = False) -> torch.Tensor:
     """Every rank's ``x`` in group order, stacked on a new ``axis``
-    (concatenated along it with ``tiled``)."""
+    (concatenated along it with ``tiled``); not differentiable.  NCCL:
+    ``all_gather``; other backends: one ``broadcast`` per rank."""
     group = group or WORLD
-    parts = [torch.empty_like(x) for _ in range(group.size())]
-    dist.all_gather(parts, x.contiguous(), group=group.handle)
+    if not _initialized():
+        parts = [x]
+    else:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(group.size())]
+        if _native(group):
+            dist.all_gather(parts, x, group=group.handle)
+        else:
+            for i, src in enumerate(group.members()):
+                if src == dist.get_rank():
+                    parts[i] = x
+                dist.broadcast(parts[i], src=src, group=group.handle)
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
 
 
@@ -196,3 +216,105 @@ def reduce_scatter_flat(x: torch.Tensor,
     work = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(work, group=group.handle)
     return work[r * rows:(r + 1) * rows]
+
+
+def _ppermute(x: torch.Tensor, group: ProcessGroup, shift: int
+              ) -> torch.Tensor:
+    n, r = group.size(), group.rank()
+    members = group.members()
+    x = x.contiguous()
+    if shift % n == 0:
+        return x.clone()
+    if _native(group):
+        out = torch.empty_like(x)
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, members[(r + shift) % n],
+                           group=group.handle),
+                dist.P2POp(dist.irecv, out, members[(r - shift) % n],
+                           group=group.handle)]):
+            work.wait()
+        return out
+    keep = (r - shift) % n
+    out = None
+    for i, src in enumerate(members):
+        buf = x if i == r else torch.empty_like(x)
+        dist.broadcast(buf, src=src, group=group.handle)
+        if i == keep:
+            out = buf
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    """Each rank's ``x`` to the rank ``shift`` after it in the group;
+    the backward sends the gradients the other way."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ppermute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _PPermute.apply(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute_g(x: torch.Tensor, group: ProcessGroup,
+               shift: int = 1) -> torch.Tensor:
+    """The ring step: rank i of ``group`` sends ``x`` to rank ``(i +
+    shift) % n`` and returns what rank ``(i - shift) % n`` sent
+    (``lax.ppermute`` with the pairs ``(i, (i + shift) % n)``);
+    differentiable, its backward the inverse shift.  NCCL: one
+    ``batch_isend_irecv``; other backends: a ``broadcast`` per rank."""
+    if not _initialized():
+        return x
+    return _PPermute.apply(x, group, int(shift))
+
+
+def _all_to_all(x: torch.Tensor, group: ProcessGroup, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n, r = group.size(), group.rank()
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all_g: dim {split_dim} of "
+                         f"{tuple(x.shape)} does not split over {n} ranks")
+    # chunk j (for rank j) leads: one contiguous buffer of n chunks
+    send = torch.stack(x.chunk(n, dim=split_dim))
+    if _native(group):
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group.handle)
+        parts = recv.unbind(0)
+    else:
+        parts = []
+        for i, src in enumerate(group.members()):
+            buf = send if i == r else torch.empty_like(send)
+            dist.broadcast(buf, src=src, group=group.handle)
+            parts.append(buf[r].clone() if i != r else send[r])
+    return torch.cat(parts, dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled swap; the backward swaps back."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return _AllToAll.apply(grad, ctx.group, concat_dim, split_dim), \
+            None, None, None
+
+
+def all_to_all_g(x: torch.Tensor, group: ProcessGroup, split_dim: int,
+                 concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
+    tiled=True)``: ``x`` cut into n chunks along ``split_dim``, chunk j
+    sent to rank j, and the chunks received concatenated along
+    ``concat_dim`` in group order; differentiable, its backward the
+    reverse swap.  NCCL: ``all_to_all_single`` on the stacked chunks;
+    other backends: a ``broadcast`` per rank of its stacked chunks."""
+    if not _initialized():
+        return x
+    return _AllToAll.apply(x, group, split_dim % x.dim(),
+                           concat_dim % x.dim())

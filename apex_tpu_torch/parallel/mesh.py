@@ -7,9 +7,10 @@ partition of the world's ranks into equal groups plus the
 the whole world (the default group).
 
 :func:`create_mesh` is the twin of the JAX examples' ``Mesh(devices
-.reshape(dp, tp), ("data", "model"))``: rank r sits at data index
-``r // tp`` and model index ``r % tp``, so the model groups are
-contiguous and the data groups strided.
+.reshape(dp, sp, tp), ("data", "sp", "model"))``: rank r sits at data
+index ``r // (sp * tp)``, sequence index ``(r // tp) % sp`` and model
+index ``r % tp``, so the model groups are contiguous and the sequence
+and data groups strided.
 """
 
 from __future__ import annotations
@@ -93,9 +94,9 @@ def create_process_group(group_size: Optional[int] = None,
 
 
 class Mesh(NamedTuple):
-    """A (data, model) rank mesh: ``shape`` maps each axis name to its
-    size, ``groups`` each axis to this rank's ``ProcessGroup`` along it
-    (empty for a mesh made only to read shapes, as ``param_specs``
+    """A (data, sp, model) rank mesh: ``shape`` maps each axis name to
+    its size, ``groups`` each axis to this rank's ``ProcessGroup`` along
+    it (empty for a mesh made only to read shapes, as ``param_specs``
     does)."""
 
     shape: Dict[str, int]
@@ -109,20 +110,28 @@ class Mesh(NamedTuple):
         return self.groups[axis].rank()
 
 
-def create_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
-    """The world as a ``(dp, tp)`` mesh with axes ``"data"`` and
-    ``"model"`` (``dp`` defaults to world size // ``tp``): rank r is data
-    index ``r // tp``, model index ``r % tp``.  The model groups
-    ``{d * tp + m}`` are contiguous, the data groups ``{d * tp + m : d}``
-    strided.  Every rank must call it in the same order as every other
-    rank; both groups are made on every rank (the model groups first)."""
+def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1) -> Mesh:
+    """The world as a ``(dp, sp, tp)`` mesh with axes ``"data"``,
+    ``"sp"`` and ``"model"`` (``dp`` defaults to world size // (``sp``
+    * ``tp``)): rank r is data index ``r // (sp * tp)``, sequence index
+    ``(r // tp) % sp``, model index ``r % tp``.  The model groups are
+    contiguous, the sequence groups strided by ``tp``, the data groups
+    by ``sp * tp``.  Every rank must call it in the same order as every
+    other rank; every group is made on every rank, the model groups
+    first, then the data groups, then the sequence groups (a ``(dp,
+    tp)`` mesh makes the same model and data groups as before the
+    sequence axis)."""
     world = dist.get_world_size()
+    inner = sp * tp
     if dp is None:
-        dp = world // tp if tp > 0 else 0
-    if tp <= 0 or dp <= 0 or dp * tp != world:
-        raise ValueError(f"mesh ({dp}, {tp}) does not tile a world of "
-                         f"{world} ranks")
-    model = _new_groups([tuple(range(d * tp, (d + 1) * tp))
-                         for d in range(dp)])
-    data = _new_groups([tuple(range(m, world, tp)) for m in range(tp)])
-    return Mesh({"data": dp, "model": tp}, {"data": data, "model": model})
+        dp = world // inner if inner > 0 else 0
+    if tp <= 0 or sp <= 0 or dp <= 0 or dp * inner != world:
+        raise ValueError(f"mesh ({dp}, {sp}, {tp}) does not tile a world "
+                         f"of {world} ranks")
+    model = _new_groups([tuple(range(g * tp, (g + 1) * tp))
+                         for g in range(dp * sp)])
+    data = _new_groups([tuple(range(j, world, inner)) for j in range(inner)])
+    seq = _new_groups([tuple(d * inner + s * tp + m for s in range(sp))
+                       for d in range(dp) for m in range(tp)])
+    return Mesh({"data": dp, "sp": sp, "model": tp},
+                {"data": data, "sp": seq, "model": model})

@@ -24,8 +24,13 @@ The first rule whose regex matches decides: its spec if it divides the
 shape, else the parameter stays replicated (``()``).  A spec of more
 dims than the parameter, or one naming an axis the mesh lacks, raises.
 
-Not here yet: ``pipeline_param_specs`` (it comes with pipeline
-parallelism), and BERT's sharded forward (its rules are here).
+:func:`param_places` says how each local parameter reads in the JAX
+package's layout (a ``Linear``'s weight transposed, a dim of heads as
+(heads, head_dim)): ZeRO-1 shards a tensor-parallel leaf's moments over
+the data ranks on the dim the JAX package's ``like_params`` picks.
+
+Not here yet: ``pipeline_param_specs`` and BERT's sharded forward (both
+come with pipeline parallelism; BERT's rules are here).
 """
 
 from __future__ import annotations
@@ -124,10 +129,12 @@ def _spec_fits(shape, spec: Spec, sizes: Mapping[str, int], rule_pat: str,
 
 
 def param_specs(params: Mapping[str, torch.Tensor], mesh: Mesh, rules: Rules,
-                *, num_heads: Optional[int] = None) -> Dict[str, Tuple]:
+                *, num_heads: Optional[int] = None,
+                keep_heads: bool = False) -> Dict[str, Tuple]:
     """``{dotted name: spec}`` for ``params`` (a ``{name: tensor}``
     dict): per dim the axis it splits over or ``None``; ``()`` for a
-    replicated parameter."""
+    replicated parameter.  ``keep_heads`` keeps a ``Heads(axis)`` entry
+    as it is (else its axis name)."""
     out = {}
     for name, x in params.items():
         out[name] = ()
@@ -135,8 +142,60 @@ def param_specs(params: Mapping[str, torch.Tensor], mesh: Mesh, rules: Rules,
             if re.search(pat, name):
                 if _spec_fits(tuple(x.shape), spec, mesh.shape, pat,
                               num_heads):
-                    out[name] = tuple(_axis(e) for e in spec)
+                    out[name] = tuple(e if keep_heads else _axis(e)
+                                      for e in spec)
                 break
+    return out
+
+
+class Place(NamedTuple):
+    """How a rank's local parameter reads in the JAX package's layout:
+    ``spec`` its split (per dim None, an axis or ``Heads(axis)``),
+    ``transposed`` for an ``nn.Linear``-style (out, in) weight (the JAX
+    kernel is (in, out)), ``heads`` the heads a ``Heads`` dim holds on
+    this rank, ``split`` the ranks the full tensor is cut over."""
+
+    spec: Spec = ()
+    transposed: bool = False
+    heads: int = 0
+    split: int = 1
+
+
+def jax_view(x: torch.Tensor, place: Place):
+    """``(view, spec)``: ``x`` as a view in the JAX package's layout (a
+    transposed weight read back, a ``Heads`` dim unflattened to (heads,
+    head_dim)) and the split of each of the view's dims."""
+    spec = tuple(place.spec) + (None,) * (x.dim() - len(place.spec))
+    if place.transposed:
+        x, spec = x.t(), spec[::-1]
+    for d, e in enumerate(spec):
+        if isinstance(e, Heads):
+            x = x.unflatten(d, (place.heads, -1))
+            spec = spec[:d] + (e.axis, None) + spec[d + 1:]
+            break
+    return x, spec
+
+
+def param_places(module: torch.nn.Module, specs: Mapping[str, Spec],
+                 sizes: Mapping[str, int], num_heads: int
+                 ) -> Dict[str, Place]:
+    """``{dotted name: Place}`` for ``module``'s local parameters under
+    ``specs`` (:func:`param_specs` with ``keep_heads``, read from the
+    full model): every 2-D weight but an embedding table's is read
+    transposed."""
+    out = {}
+    for name, p in module.named_parameters():
+        spec = specs.get(name, ())
+        owner = module.get_submodule(name.rpartition(".")[0])
+        transposed = p.dim() == 2 and name.endswith("weight") \
+            and not type(owner).__name__.endswith("Embedding")
+        split, heads = 1, 0
+        for e in spec:
+            if e is not None:
+                split *= sizes[_axis(e)]
+            if isinstance(e, Heads):
+                heads = num_heads // sizes[e.axis]
+        out[name] = Place(spec, transposed, heads, split)
     return out
 
 

@@ -10,12 +10,27 @@ holds this rank's slices and the steps move the shards themselves:
   leaf: a flat ``FusedAdam`` state's ``m`` and ``v`` on dim 0 (its
   master buffer ``p`` stays whole: the params are views of it), a
   per-leaf moment tree's leaves (``optimizers.transforms``' SGD
-  momentum, optax-style Adam) on their first dimension that divides
-  over the ranks, at least ``n * 128`` elements; everything else, the
-  step counters and loss scales included, stays replicated.
+  momentum, optax-style Adam, ``FusedAdam(layout="tree")``) on their
+  first dimension that divides over the ranks, at least ``n * 128``
+  elements; everything else, the step counters and loss scales
+  included, stays replicated.
+- ``like_params`` (``{name: tensor_parallel.Place}``, e.g. a TP
+  model's ``tp_places()``): the tree layout's moments of
+  tensor-parallel params, as the JAX package's ``like_params`` places
+  them.  A leaf is read in the JAX layout
+  (``tensor_parallel.jax_view``: a ``Linear``'s weight transposed, a
+  dim of heads as (heads, head_dim)), keeps its model split, and
+  shards over the data ranks on the first still-free dim of that
+  view that divides, if the full (unsplit) tensor holds at least ``n
+  * 128`` elements.  The shard is that view's slice, made contiguous
+  once here: each rank's moment shard is the JAX placement's device
+  shard as it is.
 - ZeRO-1, the update after the usual all-reduce of the gradients:
   ``FusedAdam.with_zero`` runs B1 on this rank's slice of the flat
-  buffers and all-gathers the fresh slice into the flat ``p``;
+  buffers and all-gathers the fresh slice into the flat ``p``; over
+  the tree layout, B1-multi steps each leaf's moment shard with
+  contiguous copies of its param's and gradient's slices, and the
+  fresh slices are all-gathered (one flat gather) into the params;
   ``AmpOptimizer.with_zero`` over an optax-style optimizer runs its
   update on each sharded leaf's slice (:func:`zero1_update`) and
   gathers the parameters back.
@@ -33,9 +48,9 @@ slices whose length divides by 4 (B1's 16-byte accesses) and it holds
 at least ``min_shard_elems``; else it takes the replicated update, as
 the JAX package's kernel takes its jnp update.
 
-Not here yet: ``like_params`` (the state of tensor-parallel params
-sharded over the data axis as well) and ZeRO over ``FusedAdam``'s tree
-layout or ``FusedLAMB``.
+Not here yet: ZeRO over ``FusedLAMB`` (its oracle is ZeRO x pipeline
+parallelism; it comes with the pipeline slice) and ZeRO-2 over the tree
+layout (with the same slice: the reduce-scatter of per-leaf shards).
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ from apex_tpu_torch.ops.flatten import flatten_like
 from apex_tpu_torch.parallel.collectives import all_gather_flat, \
     reduce_scatter_flat
 from apex_tpu_torch.parallel.mesh import ProcessGroup
+from apex_tpu_torch.parallel.tensor_parallel import Place, jax_view
 
 Tree = Any
 
@@ -98,6 +114,32 @@ def leaf_shard_dim(shape: Sequence[int], n: int,
     return None
 
 
+def view_shard_dim(x: torch.Tensor, place: Place, n: int,
+                   min_shard_elems: int):
+    """``(view, dim)``: a tree-layout leaf in the JAX layout
+    (``tensor_parallel.jax_view``) and the dim of that view its shard
+    is cut on over ``n`` data ranks: the first dim its model split
+    leaves free that divides, where the full tensor holds
+    ``min_shard_elems``; ``dim`` None where the leaf stays replicated
+    over the data ranks (the JAX package's ``like_params`` rule)."""
+    view, spec = jax_view(x, place)
+    if n == 1 or x.numel() * place.split < min_shard_elems:
+        return view, None
+    for d, (size, e) in enumerate(zip(view.shape, spec)):
+        if e is None and size >= n and size % n == 0:
+            return view, d
+    return view, None
+
+
+def tree_shard(x: torch.Tensor, place: Place, n: int, r: int,
+               min_shard_elems: int):
+    """``(view, dim, shard)``: this rank's shard of a tree-layout leaf
+    (:func:`view_shard_dim`) as a view of ``x``; ``shard`` is ``view``
+    itself where the leaf stays whole."""
+    view, d = view_shard_dim(x, place, n, min_shard_elems)
+    return view, d, _narrow(view, d, n, r)
+
+
 def _narrow(x: torch.Tensor, d: Optional[int], n: int, r: int):
     if d is None:
         return x
@@ -111,20 +153,33 @@ def _is_adam_state(x) -> bool:
 
 
 def shard_optimizer_state(state: Tree, group: ProcessGroup,
-                          min_shard_elems: Optional[int] = None) -> Tree:
+                          min_shard_elems: Optional[int] = None,
+                          like_params=None) -> Tree:
     """``state`` with each large leaf replaced by this rank's slice of it
     over ``group`` (a new tensor); see the module docstring for which.
     ``min_shard_elems`` defaults to ``n * 128``, as in the JAX package,
-    and must match what the optimizer's ``with_zero`` was given."""
+    and must match what the optimizer's ``with_zero`` was given.
+    ``like_params`` (``{name: Place}``) places the tree layout's
+    moments of tensor-parallel params; a flat state ignores it, as in
+    the JAX package."""
     n, r = group_place(group)
     least = min_shard(group, min_shard_elems)
 
     def adam(st):
         if st.spec is None:
-            raise NotImplementedError(
-                "ZeRO over FusedAdam's tree layout is not ported (its "
-                "per-leaf moments follow the params' placement through "
-                "like_params); use the flat layout")
+            from apex_tpu_torch.optimizers.param_groups import leaf_paths
+            places = dict(like_params or {})
+
+            def cut(tree):
+                leaves, spec = pytree.tree_flatten(tree)
+                out = []
+                for name, x in zip(leaf_paths(tree), leaves):
+                    _, d, shard = tree_shard(x, places.get(name, Place()),
+                                             n, r, least)
+                    out.append(x if d is None else shard.clone(
+                        memory_format=torch.contiguous_format))
+                return pytree.tree_unflatten(out, spec)
+            return st._replace(m=cut(st.m), v=cut(st.v))
         k = flat_shard_len(st.m.shape[0], n, least)
         if k is None:
             return st
@@ -144,12 +199,15 @@ def shard_optimizer_state(state: Tree, group: ProcessGroup,
 
 
 def unshard_optimizer_state(state: Tree, group: ProcessGroup,
-                            like: Tree) -> Tree:
+                            like: Tree, like_params=None) -> Tree:
     """The full state from a sharded one: each leaf whose shape differs
     from ``like``'s (the unsharded state, or any tree of its structure
     with tensors of its shapes, e.g. on the ``meta`` device) is gathered
-    over ``group`` along the dim where they differ.  Every rank of the
-    group must call it."""
+    over ``group`` along the dim where they differ.  A tree-layout
+    ``FusedAdam`` state sharded with ``like_params`` needs the same
+    ``like_params`` here.  Every rank of the group must call it."""
+    if like_params is not None:
+        return _unshard_places(state, group, like, like_params)
     leaves, spec = pytree.tree_flatten(state)
     like_leaves = pytree.tree_leaves(like)
     if len(leaves) != len(like_leaves):
@@ -165,6 +223,47 @@ def unshard_optimizer_state(state: Tree, group: ProcessGroup,
     for i, x in zip(sharded, full):
         leaves[i] = x
     return pytree.tree_unflatten(leaves, spec)
+
+
+def _unshard_places(state, group, like, places):
+    """:func:`unshard_optimizer_state` of tree-layout ``FusedAdam``
+    states sharded with ``like_params``."""
+    from apex_tpu_torch.optimizers.param_groups import leaf_paths
+    n, _ = group_place(group)
+    least = min_shard(group, None)
+
+    def whole(st, ref):
+        if not _is_adam_state(st) or st.spec is not None:
+            return st
+
+        def grow(tree, ref_tree):
+            leaves, spec = pytree.tree_flatten(tree)
+            dev = leaves[0].device
+            fulls = [torch.empty(x.shape, dtype=x.dtype, device=dev)
+                     for x in pytree.tree_leaves(ref_tree)]
+            views, dims, shards = [], [], []
+            for name, full, x in zip(leaf_paths(ref_tree), fulls, leaves):
+                view, d = view_shard_dim(full, places.get(name, Place()),
+                                         n, least)
+                if d is None:
+                    full.copy_(x)
+                else:
+                    views.append(view)
+                    dims.append(d)
+                    shards.append(x)
+            _gather_into(shards, views, dims, group)
+            return pytree.tree_unflatten(fulls, spec)
+        return st._replace(m=grow(st.m, ref.m), v=grow(st.v, ref.v))
+
+    return pytree.tree_map(whole, state, like, is_leaf=_is_adam_state)
+
+
+def _gather_into(shards: List[torch.Tensor], views: List[torch.Tensor],
+                 dims: List[int], group: ProcessGroup) -> None:
+    """Each rank's ``shards`` gathered over ``group`` into ``views`` (the
+    full leaves, as views) along ``dims``: one flat all-gather a dtype."""
+    for view, full in zip(views, _gather_leaves(shards, dims, group)):
+        view.copy_(full)
 
 
 def _gather_leaves(locals_: List[torch.Tensor], dims: List[int],
@@ -245,8 +344,11 @@ def zero2_update(optimizer, params: Tree, grads: Tree, state,
     so the step equals DDP's all-reduce and ``FusedAdam.step`` bit for
     bit."""
     if getattr(optimizer, "layout", None) != "flat":
-        raise ValueError("zero2_update needs a flat-layout FusedAdam "
-                         f"(got layout={getattr(optimizer, 'layout', None)!r})")
+        raise ValueError(
+            "zero2_update needs a flat-layout FusedAdam (got layout="
+            f"{getattr(optimizer, 'layout', None)!r}); ZeRO-2 over the "
+            "tree layout comes with the pipeline-parallel slice (ROADMAP "
+            "A.10)")
     if optimizer.param_groups:
         raise NotImplementedError(
             "zero2_update v1 does not support param_groups (group "

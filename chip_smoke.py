@@ -271,6 +271,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (d) a ZeRO-1 and a ZeRO-2 step of the dry run over NCCL at a world
        of one under sync-debug "error".
 
+18. train_sp — sequence parallelism, the ranks as processes over gloo on
+   the one card (CUDA tensors), against one process's dense runs from
+   the same weights and batches (TF32 off):
+   (a) GPT-2 small at ``--sp 2`` (B 8, S 1024), ring and Ulysses: O0 2
+       steps (losses <= 1e-4 relative, the step-1 gradients the
+       optimizer takes <= 1e-4 scale-aware), O2 3 steps within 2e-2;
+       tokens/s for the pair, peak memory a rank, the collectives a
+       step (calls of ``torch.distributed``), launches exact (B2/B3 25
+       a step; B4-B6 12 a step for Ulysses, for the ring 12 on rank 0,
+       whose second hop is skipped, and 24 on rank 1; B1 1; paths
+       ``train_sp_ring``, ``train_sp_ulysses``);
+   (b) long context: GPT-2 small at S 8192, B 1, ``--sp 2`` ring, O2 3
+       steps within 2e-2 of one dense process; the peak a rank beside
+       the dense process's (path ``train_sp_long``);
+   (c) BERT-large at ``--ring-attention 2`` (B 8, S 512), ring and
+       Ulysses: O0 1 step (loss <= 1e-4 relative, the gradients of the
+       embeddings' LayerNorm, layers 0 and 23 and the heads <= 1e-4
+       scale-aware), O2 3 steps within 2e-2; launches exact (B2/B3 50,
+       B4-B6 48 ring and 24 Ulysses a step; paths
+       ``train_sp_bert_ring``, ``train_sp_bert_ulysses``);
+   (d) GPT-2 small at ``--tp 2`` and dp 2 (four processes, B 2 a data
+       index, O2, 2 steps): ZeRO-1 over the tree moments
+       (``like_params``) ends bit for bit with the moments whole; moment
+       bytes a rank (half), peak memory (path ``train_sp_zero``).
+   The kernels phase holds the call modes these paths give the flash
+   kernels at a ring hop's 8 x 512 x 12 x 64 bf16 (``_sp_hop_rows``:
+   B4 with the lse on the causal diagonal and an unmasked hop, the
+   two-hop merge against one call, a fully masked row's lse, B5/B6
+   with an lse cotangent, B4d-B6d at a hop's row offset), each against
+   its plain version; the JSON line carries them as ``sp_hop``.
+
 The O1 phases run last, and each ends by removing the policy, resetting
 amp's state and checking every patched function is its original again.
 When every phase runs, every kernel of the JSON line must have been
@@ -611,8 +642,9 @@ def threefry_int_ops():
         check=True, timeout=300).stdout
     out = {}
     for sec in re.split(r"(?=\n\s*Function : )", sass):
-        m = re.search(r"Function : (\S*threefry_dropout_kernelI(\w+?)EEv)",
-                      sec)
+        # the whole-stream loop (kWindow false), as the phase times it
+        m = re.search(r"Function : (\S*threefry_dropout_kernelI(\w+?)"
+                      r"Lb0E\S*)", sec)
         if m:
             dt = "float32" if m.group(2) == "f" else "bfloat16"
             out[dt] = _loop_int_ops(sec)
@@ -838,7 +870,7 @@ def _flash_variants(torch):
                 "plain_ms": median_ms(plain, iters),
                 "library_ms": median_ms(library, iters),
                 "bound_ms": bms, "bound_by": by})
-    return out
+    return out + _sp_hop_rows(torch, "fwd")
 
 
 # the bias patterns the decode rows are timed at: the engine's (random
@@ -1150,7 +1182,148 @@ def _flash_bwd_variants(torch, which):
                 "plain_ms": median_ms(plain, iters),
                 "library_ms": median_ms(library, iters),
                 "bound_ms": bms, "bound_by": by})
-    return out
+    return out + _sp_hop_rows(torch, which)
+
+
+# a ring hop at GPT-2 small's --sp 2 training step: each rank's 512 of
+# the 1024 tokens, bf16 (O2)
+SP = 2
+SP_HOP = (TRAIN_BATCH, TRAIN_SEQ // SP, 12, 64)
+
+
+def _sp_hop_rows(torch, which):
+    """The call modes the sequence-parallel paths give the flash kernels,
+    at a ring hop's shape (``SP_HOP``, bf16), each against its plain
+    version on the card, timed beside it, SDPA at the same shape and
+    the bound (``sp_mode`` names the mode):
+
+    - ``fwd``: B4 with ``return_lse`` on the causal diagonal hop and on
+      an unmasked hop (o and lse checked); the two-hop merge (two
+      unmasked B4 calls over 512 keys each, merged by the log-sum-exp
+      rule) against one call over the 1024 joined keys (``merge_err``);
+      a batch row whose keys are all masked returns lse <= NEG_INF / 2
+      and zeros (``dead_row_lse``);
+    - ``dq``, ``dkv``: B5 and B6 on an unmasked hop with ``delta -
+      dlse`` for a nonzero ``dlse`` (the merge's lse cotangent);
+    - ``*_dropout``: B4d, B5d and B6d at rate 0.1 on the hop that rank 1
+      takes from rank 0, offsets ``(512, 0, 0, 12)`` (the mask
+      read-back at offsets (70001, 65540) runs in the same phase, bit
+      for bit)."""
+    import torch.nn.functional as F
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    bsz, s, h, d = SP_HOP
+    dtype, dt = torch.bfloat16, "bfloat16"
+    g = torch.Generator(device="cuda").manual_seed(4242)
+    q, k, v, do, k2, v2 = (torch.randn(bsz, s, h, d, device="cuda",
+                                       generator=g).to(dtype)
+                           for _ in range(6))
+    scale = 1.0 / d ** 0.5
+    isz = q.element_size()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    rate = DROPOUT if which.endswith("_dropout") else 0.0
+    seed = fa.seed_array(777, (s, 0, 0, h), num_heads=h, device="cuda") \
+        if rate else None
+    base = which.replace("_dropout", "")
+    rows = []
+
+    def row(mode, causal, got, want, kernel, plain, library, nbytes, flops,
+            **extra):
+        rel = max_abs = 0.0
+        for a, b in zip(got, want):
+            r, m = _check(f"flash {which} {mode}",
+                          dt if a.dtype == dtype else "float32", a, b)
+            rel, max_abs = max(rel, r), max(max_abs, m)
+        bms, by = bound(nbytes, flops, dt)
+        rows.append({
+            "shape": list(SP_HOP), "dtype": dt, "design": _design(dt),
+            "sp_mode": mode, "causal": causal, "rel_err": rel,
+            "max_abs_err": max_abs,
+            "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
+            "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
+            "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
+            "bound_ms": bms, "bound_by": by, **extra})
+
+    fwd_bytes = 4 * bsz * s * h * d * isz + bsz * h * s * 4
+    if base == "fwd":
+        modes = (("hop_unmasked", False),) if rate else \
+            (("hop_causal_diagonal", True), ("hop_unmasked", False))
+        for mode, causal in modes:
+            pairs = bsz * h * (s * (s + 1) // 2 if causal else s * s)
+
+            def kernel(causal=causal):
+                return fa.flash_attention_fwd(q, k, v, None, causal, scale,
+                                              rate, seed)
+
+            def plain(causal=causal):
+                return fa._reference(q, k, v, None, causal, scale,
+                                     return_lse=True, dropout_rate=rate,
+                                     seed=seed)
+
+            def library(causal=causal):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, dropout_p=rate, is_causal=causal)
+            extra = {"offsets": [s, 0, 0, h]} if rate else {}
+            row(mode, causal, kernel(), plain(), kernel, plain, library,
+                fwd_bytes, 4 * pairs * d, **extra)
+        if rate:
+            return rows
+        # the two-hop merge against one call over the joined keys
+        o1, l1 = fa.flash_attention_fwd(q, k, v, None, False, scale)
+        o2, l2 = fa.flash_attention_fwd(q, k2, v2, None, False, scale)
+        lse = torch.logaddexp(l1, l2)
+        merged = (o1.float() * torch.exp(l1 - lse).permute(0, 2, 1)[..., None]
+                  + o2.float() * torch.exp(l2 - lse).permute(0, 2, 1)[
+                      ..., None])
+        joined = fa.flash_attention_fwd(q, torch.cat([k, k2], 1),
+                                        torch.cat([v, v2], 1), None, False,
+                                        scale)
+        plain_joined = fa._reference(q, torch.cat([k, k2], 1),
+                                     torch.cat([v, v2], 1), None, False,
+                                     scale, return_lse=True)
+        merge_err = max(_check("two-hop merge", dt, merged, joined[0])[0],
+                        _check("two-hop merge lse", "float32", lse,
+                               joined[1])[0],
+                        _check("two-hop merge plain", dt, merged,
+                               plain_joined[0])[0])
+        # a batch row whose every key is masked in this hop
+        dead = torch.zeros(bsz, s, device="cuda")
+        dead[0] = fa.NEG_INF
+        od, ld = fa.flash_attention_fwd(q, k, v, dead, False, scale)
+        dead_lse = ld[0].max().item()
+        if not (dead_lse <= fa.NEG_INF / 2 and bool((od[0] == 0).all())):
+            raise AssertionError(f"flash fwd: a fully masked row gave lse "
+                                 f"{dead_lse:.3g} or a nonzero output")
+        rows[-1].update(merge_err=merge_err, dead_row_lse=dead_lse)
+        return rows
+    # B5 / B6 (and their dropout branches) on an unmasked hop with a
+    # nonzero lse cotangent
+    po, plse = fa._reference(q, k, v, None, False, scale, return_lse=True,
+                             dropout_rate=rate, seed=seed)
+    dlse = torch.randn(bsz, h, s, device="cuda", generator=g)
+    delta = ((do.float() * po.float()).sum(-1).permute(0, 2, 1)
+             - dlse).contiguous()
+    bargs = (q, k, v, do, plse, delta, None, False, scale, rate, seed)
+    kfn = {"dq": fa.flash_attention_bwd_dq,
+           "dkv": fa.flash_attention_bwd_dkv}[base]
+    pfn = {"dq": fa._bwd_dq_reference, "dkv": fa._bwd_dkv_reference}[base]
+    got, want = kfn(*bargs), pfn(*bargs)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    so = F.scaled_dot_product_attention(qt, kt, vt, dropout_p=rate)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(so, (qt, kt, vt), dot, retain_graph=True)
+    pairs = bsz * h * s * s
+    n_out = (1 if base == "dq" else 2) * bsz * s * h * d * isz
+    nbytes = 4 * bsz * s * h * d * isz + 2 * bsz * h * s * 4 + n_out
+    extra = {"offsets": [s, 0, 0, h]} if rate else {}
+    row("hop_dlse", False, got, want, lambda: kfn(*bargs),
+        lambda: pfn(*bargs), library, nbytes,
+        (6 if base == "dq" else 8) * pairs * d,
+        dlse_max=float(dlse.abs().max()), **extra)
+    return rows
 
 
 def _mask_readback(torch, fa, which, dtype):
@@ -1304,7 +1477,7 @@ def _flash_dropout_variants(torch, which):
                 "library_ms": median_ms(library, iters),
                 "bound_ms": bms, "bound_by": by})
             del so
-    return out
+    return out + _sp_hop_rows(torch, which + "_dropout")
 
 
 def _dropout_variants(torch):
@@ -1726,6 +1899,13 @@ def phase_kernels():
                 key: extra[key] for key in ("shape", "ms", "plain_ms",
                                             "library_ms", "bound_ms",
                                             "bound_by", "max_abs_err")}
+        # the ring hop's call modes (--sp 2's 512-token shards)
+        hops = {r["sp_mode"]: {key: r[key] for key in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "merge_err", "dead_row_lse", "offsets")
+            if key in r} for r in rows if "sp_mode" in r}
+        if hops:
+            results[name]["sp_hop"] = hops
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(results, indent=1))
     return results
@@ -1790,9 +1970,10 @@ def _plain_layer_norm(mod, x):
     return (xhat * mod.scale + mod.bias).to(x.dtype).reshape(x.shape)
 
 
-def _plain_dropout(mod, x, key):
+def _plain_dropout(mod, x, key, window=None):
     tf = importlib.import_module("apex_tpu_torch.ops.threefry")
-    return x if mod.rate == 0.0 else tf.dropout_plain(x, mod.rate, key)
+    return x if mod.rate == 0.0 else tf.dropout_plain(x, mod.rate, key,
+                                                      window)
 
 
 def _plain_oracle(model):
@@ -4558,10 +4739,478 @@ def phase_train_tp_zero():
             "train_zero2": ranks[0]["zero"]["zero2"]["launches"]}
 
 
+# the sequence-parallel paths: GPT-2 small at --sp 2 (B 8, S 1024) ring
+# and Ulysses, long context (B 1, S 8192, ring), BERT-large at
+# --ring-attention 2 (B 8, S 512), and --tp 2 at dp 2 with ZeRO-1 over
+# the tree moments (B 2 a data index)
+SP_O0_STEPS, SP_O2_STEPS = 2, 3
+SP_LONG_SEQ = 8192
+SP_BERT_BATCH, SP_BERT_SEQ = 8, 512
+SP_ZERO_BATCH, SP_ZERO_STEPS = 2, 2
+SP_TOL = 1e-4             # O0 against one process: losses relative,
+                          # step-1 grads scale-aware
+# BERT-large's O0 gradients compared: the embeddings' LayerNorm, the
+# first and last layers and the heads but the 31M-row embedding and
+# decoder (the file the dense process writes stays ~0.1 GB)
+SP_BERT_GRADS = re.compile(r"embeddings_ln|layer_0\.|layer_23\.|pooler|"
+                           r"nsp_classifier|mlm_transform|mlm_ln")
+COLLECTIVES = ("broadcast", "all_reduce", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_to_all_single", "batch_isend_irecv")
+
+
+class _CollectiveCount:
+    """Counts the calls of ``torch.distributed``'s collectives the port
+    makes (its modules call them through the module) while active."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.counts, self.saved = dist, {}, {}
+
+    def __enter__(self):
+        for name in COLLECTIVES:
+            fn = self.saved[name] = getattr(self.dist, name)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            setattr(self.dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _sp_dense():
+    """One process's dense runs the sequence-parallel ranks are held
+    against: GPT-2 small O0 (its step-1 gradients saved for the ranks)
+    and O2 at B 8, S 1024; GPT-2 small O2 at B 1, S 8192 (peak memory);
+    BERT-large O2 and O0 at B 8, S 512 with flash attention (a part of
+    its O0 gradients saved)."""
+    import torch
+    from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    out = {}
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    for level, steps in (("O0", SP_O0_STEPS), ("O2", SP_O2_STEPS)):
+        model, opt, params, st = gpt_main_amp.build(
+            cfg, lr=TRAIN_LR, opt_level=level, device="cuda", seed=0)
+        data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        losses = []
+        for step in range(steps):
+            ids = torch.from_numpy(next(data)).to("cuda")
+            params, st, loss, grads = gpt_main_amp.train_step(
+                model, opt, params, st, ids)
+            losses.append(float(loss))
+            if level == "O0" and step == 0:
+                torch.save({k: v.detach().cpu() for k, v in grads.items()},
+                           OUT_DIR / "sp_dense_grads.pt")
+            del grads
+        out[f"gpt_{level}"] = losses
+        del model, opt, params, st
+        torch.cuda.empty_cache()
+    long_cfg = gpt_main_amp.config("small", SP_LONG_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = gpt_main_amp.train(long_cfg, batch=1, seq_len=SP_LONG_SEQ,
+                             steps=SP_O2_STEPS, lr=TRAIN_LR,
+                             opt_level="O2", device="cuda", seed=0)
+    torch.cuda.synchronize()
+    out["long"] = {"losses": run["losses"],
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "tokens_per_s": run["tokens_per_s"]}
+    del run
+    torch.cuda.empty_cache()
+    bcfg = bert_main_amp.get_config("large")
+    for level, steps in (("O0", 1), ("O2", SP_O2_STEPS)):
+        model, opt, params, st = bert_main_amp.build(
+            bcfg, opt_level=level, attention_fn=make_flash_attention(),
+            device="cuda", seed=0)
+        data = bert_main_amp.batches(bcfg, SP_BERT_BATCH, SP_BERT_SEQ)
+        losses = []
+        for step in range(steps):
+            batch = tuple(torch.from_numpy(a).to("cuda") for a in next(data))
+            params, st, loss, grads = bert_main_amp.train_step(
+                model, opt, params, st, batch)
+            losses.append(float(loss))
+            if level == "O0":
+                torch.save({k: v.detach().cpu() for k, v in grads.items()
+                            if SP_BERT_GRADS.search(k)},
+                           OUT_DIR / "sp_bert_grads.pt")
+            del grads
+        out[f"bert_{level}"] = losses
+        del model, opt, params, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_steps(build, step, batches, steps, grads_file=None,
+              grads_filter=None):
+    """``steps`` steps of a sequence-parallel rank (``build()`` gives
+    model, optimizer, params, state, mesh), the launch counts at 0 just
+    before and read just after, the collectives counted, the peak
+    memory; with ``grads_file``, the step-1 gradients' scale-aware error
+    against the dense process's."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    model, opt, params, st, mesh = build()
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.parallel.mesh import WORLD
+    ddp = DistributedDataParallel(model, process_group=WORLD)
+    losses, seconds, grad_err = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _CollectiveCount() as coll:
+        for i in range(steps):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            params, st, loss, grads = step(model, opt, params, st, batch,
+                                           ddp, mesh)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+            if i == 0 and grads_file is not None:
+                want = torch.load(grads_file)
+                grad_err = max(scale_aware_err(grads[k], want[k].cuda())[0]
+                               for k in want)
+                del want
+            del grads
+    torch.cuda.synchronize()
+    out = {"losses": losses, "step_seconds": seconds,
+           "launches": launch_counts(), "collectives": dict(coll.counts),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "step1_grad_err": grad_err}
+    del model, opt, params, st, ddp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_rank_legs(rank):
+    """(a)-(c) on this rank of a (1, 2) sequence mesh."""
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    out = {}
+
+    def gpt_build(level, pattern, config):
+        def build():
+            mesh = parallel.create_mesh(sp=SP)
+            return gpt_main_amp.build(config, lr=TRAIN_LR, opt_level=level,
+                                      device="cuda", seed=0, mesh=mesh,
+                                      sp_attention=pattern) + (mesh,)
+        return build
+
+    def gpt_step(model, opt, params, st, ids, ddp, mesh):
+        return gpt_main_amp.train_step(model, opt, params, st,
+                                       ids.to("cuda"), ddp, mesh=mesh)
+
+    def gpt_batches(batch, seq):
+        data = gpt_main_amp.batches(cfg.vocab_size, batch, seq)
+        return (torch.from_numpy(next(data)) for _ in itertools.count())
+
+    for pattern in ("ring", "ulysses"):
+        out[f"gpt_{pattern}_O0"] = _sp_steps(
+            gpt_build("O0", pattern, cfg), gpt_step,
+            gpt_batches(TRAIN_BATCH, TRAIN_SEQ), SP_O0_STEPS,
+            grads_file=OUT_DIR / "sp_dense_grads.pt")
+        out[f"gpt_{pattern}_O2"] = _sp_steps(
+            gpt_build("O2", pattern, cfg), gpt_step,
+            gpt_batches(TRAIN_BATCH, TRAIN_SEQ), SP_O2_STEPS)
+    out["gpt_long"] = _sp_steps(
+        gpt_build("O2", "ring", gpt_main_amp.config("small", SP_LONG_SEQ)),
+        gpt_step, gpt_batches(1, SP_LONG_SEQ), SP_O2_STEPS)
+    bcfg = bert_main_amp.get_config("large")
+
+    def bert_build(level, pattern):
+        def build():
+            mesh = parallel.create_mesh(sp=SP)
+            return bert_main_amp.build(bcfg, opt_level=level, device="cuda",
+                                       seed=0, mesh=mesh,
+                                       sp_attention=pattern) + (mesh,)
+        return build
+
+    def bert_step(model, opt, params, st, batch, ddp, mesh):
+        return bert_main_amp.train_step(
+            model, opt, params, st,
+            tuple(torch.from_numpy(a).to("cuda") for a in batch), ddp=ddp,
+            mesh=mesh)
+
+    for pattern in ("ring", "ulysses"):
+        out[f"bert_{pattern}_O0"] = _sp_steps(
+            bert_build("O0", pattern), bert_step,
+            bert_main_amp.batches(bcfg, SP_BERT_BATCH, SP_BERT_SEQ), 1,
+            grads_file=OUT_DIR / "sp_bert_grads.pt")
+        out[f"bert_{pattern}_O2"] = _sp_steps(
+            bert_build("O2", pattern), bert_step,
+            bert_main_amp.batches(bcfg, SP_BERT_BATCH, SP_BERT_SEQ),
+            SP_O2_STEPS)
+    return out
+
+
+def _sp_rank(rank, world, store):
+    """(a)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = _sp_rank_legs(rank)
+        out["seconds"] = time.perf_counter() - t0
+        (OUT_DIR / f"sp_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_zero_rank(rank, world, store):
+    """(d) on this rank of the (2, 1, 2) mesh: GPT-2 small's --tp 2 step
+    with the tree moments whole, then sharded over the data group
+    (ZeRO-1, like_params), from the same weights and batches; the params
+    of both runs bit for bit, the moment bytes of each."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    from apex_tpu_torch.models.gpt import padded_vocab
+    from torch.utils import _pytree as pytree
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+        sd = _tp_state_dict(cfg, TP)
+        mesh = parallel.create_mesh(tp=TP)
+        d = mesh.index("data")
+        data = gpt_main_amp.batches(cfg.vocab_size, 2 * SP_ZERO_BATCH,
+                                    TRAIN_SEQ)
+        rows = [next(data)[d * SP_ZERO_BATCH:(d + 1) * SP_ZERO_BATCH]
+                for _ in range(SP_ZERO_STEPS)]
+        out, finals = {}, {}
+        for zero in (False, True):
+            torch.cuda.empty_cache()
+            model, opt, params, st = gpt_main_amp.build(
+                dataclasses.replace(cfg, vocab_size=padded_vocab(
+                    cfg.vocab_size, TP)), lr=TRAIN_LR, opt_level="O2",
+                device="cuda", state_dict=sd, mesh=mesh, zero=zero)
+            ddp = parallel.DistributedDataParallel(
+                model, process_group=mesh.group("data"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            seconds = []
+            for ids in rows:
+                t0 = time.perf_counter()
+                params, st, loss = gpt_main_amp.train_step(
+                    model, opt, params, st, torch.from_numpy(ids).cuda(),
+                    ddp, mesh=mesh, true_vocab=cfg.vocab_size)[:3]
+                float(loss)
+                seconds.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            leg = "zero1" if zero else "whole"
+            out[leg] = {
+                "launches": launch_counts(), "step_seconds": seconds,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "moment_bytes": sum(
+                    t.numel() * t.element_size() for t in
+                    pytree.tree_leaves((st.inner.m, st.inner.v))),
+                "loss_scale": float(opt.loss_scale(st)),
+                "applied_steps": int(st.applied_steps)}
+            finals[leg] = {k: v.detach().cpu() for k, v in params.items()}
+            del model, opt, params, st, ddp
+        out["bitwise"] = all(torch.equal(finals["whole"][k],
+                                         finals["zero1"][k])
+                             for k in finals["whole"])
+        (OUT_DIR / f"sp_zero_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(fn, world, name):
+    import torch.multiprocessing as mp
+    store = OUT_DIR / f"{name}_store"
+    store.unlink(missing_ok=True)
+    try:
+        mp.start_processes(fn, args=(world, str(store)), nprocs=world,
+                           join=True, start_method="spawn")
+    finally:
+        store.unlink(missing_ok=True)
+    ranks = []
+    for r in range(world):
+        path = OUT_DIR / f"{name}_rank{r}.json"
+        ranks.append(json.loads(path.read_text()))
+        path.unlink()
+    return ranks
+
+
+def _sp_launches(names, norms, layers, flash_calls, steps, adam):
+    """A sequence-parallel rank's launches over ``steps`` steps: the
+    dense step's ``norms`` LayerNorms forward and backward,
+    ``flash_calls`` of B4, B5 and B6 a layer (the ring's hops this rank
+    computes, or 1 for Ulysses), and ``adam`` (``fused_adam``, or
+    nothing for FusedLAMB) once a step."""
+    step = {"layer_norm_fwd": norms, "layer_norm_bwd": norms,
+            "flash_fwd": flash_calls * layers,
+            "flash_bwd_dq": flash_calls * layers,
+            "flash_bwd_dkv": flash_calls * layers}
+    if adam:
+        step[adam] = 1
+    return {name: steps * step.get(name, 0) for name in names}
+
+
+def phase_train_sp():
+    """(a) GPT-2 small at --sp 2, ring and Ulysses, (b) long context at
+    --sp 2 ring, (c) BERT-large at --ring-attention 2, ring and Ulysses,
+    as two processes over gloo on the one card against one process's
+    dense runs; (d) --tp 2 at dp 2 with ZeRO-1 over the tree moments
+    against the moments whole, four processes."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        dense = _sp_dense()
+        dense_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = _spawn(_sp_rank, SP, "sp")
+    finally:
+        (OUT_DIR / "sp_dense_grads.pt").unlink(missing_ok=True)
+        (OUT_DIR / "sp_bert_grads.pt").unlink(missing_ok=True)
+    ranks_s = time.perf_counter() - t0
+    by_path = {}
+    # (a) and (b)
+    for pattern in ("ring", "ulysses"):
+        for level, tol in (("O0", SP_TOL), ("O2", O2_LOSS_TOL)):
+            want = dense[f"gpt_{level}"]
+            for r, res in enumerate(ranks):
+                got = res[f"gpt_{pattern}_{level}"]
+                err = max((abs(a - b) / abs(b) if level == "O0"
+                           else abs(a - b))
+                          for a, b in zip(got["losses"], want))
+                calls = r + 1 if pattern == "ring" else 1
+                steps = SP_O0_STEPS if level == "O0" else SP_O2_STEPS
+                want_l = _sp_launches(got["launches"], 25, 12, calls,
+                                      steps, "fused_adam")
+                emit("train_sp", run=f"(a) GPT-2 small --sp 2 {pattern} "
+                     f"{level}", rank=r, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     losses=got["losses"], dense_losses=want, loss_err=err,
+                     tol=tol, step1_grad_err=got["step1_grad_err"],
+                     tokens_per_s=[TRAIN_BATCH * TRAIN_SEQ / t
+                                   for t in got["step_seconds"]],
+                     peak_memory_gb=got["peak_memory_gb"],
+                     launches=got["launches"],
+                     collectives_a_step={k: v / steps for k, v in
+                                         got["collectives"].items()})
+                if not err <= tol:
+                    raise AssertionError(f"--sp 2 {pattern} {level} rank "
+                                         f"{r}: loss error {err:.3g}")
+                if level == "O0" and not got["step1_grad_err"] <= SP_TOL:
+                    raise AssertionError(
+                        f"--sp 2 {pattern} O0 rank {r}: step-1 grads "
+                        f"{got['step1_grad_err']:.3g}")
+                if got["launches"] != want_l:
+                    raise AssertionError(f"--sp 2 {pattern} {level} rank "
+                                         f"{r}: launches {got['launches']} "
+                                         f"!= {want_l}")
+            if level == "O2":
+                by_path[f"train_sp_{pattern}"] = ranks[0][
+                    f"gpt_{pattern}_O2"]["launches"]
+    long_err = 0.0
+    for r, res in enumerate(ranks):
+        got = res["gpt_long"]
+        long_err = max(long_err, max(abs(a - b) for a, b in zip(
+            got["losses"], dense["long"]["losses"])))
+        emit("train_sp", run="(b) long context, --sp 2 ring", rank=r,
+             batch=1, seq=SP_LONG_SEQ, losses=got["losses"],
+             dense_losses=dense["long"]["losses"],
+             peak_memory_gb=got["peak_memory_gb"],
+             dense_peak_memory_gb=dense["long"]["peak_memory_gb"],
+             tokens_per_s=[SP_LONG_SEQ / t for t in got["step_seconds"]],
+             dense_tokens_per_s=dense["long"]["tokens_per_s"],
+             launches=got["launches"])
+        if got["launches"] != _sp_launches(got["launches"], 25, 12, r + 1,
+                                           SP_O2_STEPS, "fused_adam"):
+            raise AssertionError(f"long context rank {r}: launches "
+                                 f"{got['launches']}")
+    if not long_err <= O2_LOSS_TOL:
+        raise AssertionError(f"long context: loss error {long_err:.3g}")
+    by_path["train_sp_long"] = ranks[0]["gpt_long"]["launches"]
+    # (c)
+    for pattern in ("ring", "ulysses"):
+        for level, tol in (("O0", SP_TOL), ("O2", O2_LOSS_TOL)):
+            want = dense[f"bert_{level}"]
+            for r, res in enumerate(ranks):
+                got = res[f"bert_{pattern}_{level}"]
+                err = max((abs(a - b) / abs(b) if level == "O0"
+                           else abs(a - b))
+                          for a, b in zip(got["losses"], want))
+                steps = 1 if level == "O0" else SP_O2_STEPS
+                # the ring's two hops a layer, non-causal; Ulysses one
+                want_l = _sp_launches(got["launches"], 2 * BERT_LAYERS + 2,
+                                      BERT_LAYERS,
+                                      SP if pattern == "ring" else 1, steps,
+                                      None)
+                emit("train_sp", run=f"(c) BERT-large --ring-attention 2 "
+                     f"{pattern} {level}", rank=r, batch=SP_BERT_BATCH,
+                     seq=SP_BERT_SEQ, losses=got["losses"],
+                     dense_losses=want, loss_err=err, tol=tol,
+                     step1_grad_err=got["step1_grad_err"],
+                     tokens_per_s=[SP_BERT_BATCH * SP_BERT_SEQ / t
+                                   for t in got["step_seconds"]],
+                     peak_memory_gb=got["peak_memory_gb"],
+                     launches=got["launches"],
+                     collectives_a_step={k: v / steps for k, v in
+                                         got["collectives"].items()})
+                if not err <= tol:
+                    raise AssertionError(f"BERT --ring-attention 2 "
+                                         f"{pattern} {level} rank {r}: "
+                                         f"loss error {err:.3g}")
+                if level == "O0" and not got["step1_grad_err"] <= SP_TOL:
+                    raise AssertionError(
+                        f"BERT {pattern} O0 rank {r}: step-1 grads "
+                        f"{got['step1_grad_err']:.3g}")
+                if got["launches"] != want_l:
+                    raise AssertionError(f"BERT {pattern} {level} rank {r}: "
+                                         f"launches {got['launches']} != "
+                                         f"{want_l}")
+            if level == "O2":
+                by_path[f"train_sp_bert_{pattern}"] = ranks[0][
+                    f"bert_{pattern}_O2"]["launches"]
+    # (d)
+    t0 = time.perf_counter()
+    zero = _spawn(_sp_zero_rank, 2 * TP, "sp_zero")
+    zero_s = time.perf_counter() - t0
+    for r, res in enumerate(zero):
+        emit("train_sp", run="(d) --tp 2 at dp 2, ZeRO-1 over the tree "
+             "moments", rank=r, batch_per_data_index=SP_ZERO_BATCH,
+             seq=TRAIN_SEQ, bitwise=res["bitwise"],
+             **{f"{leg}_{key}": res[leg][key] for leg in ("whole", "zero1")
+                for key in ("moment_bytes", "peak_memory_gb",
+                            "step_seconds", "loss_scale", "launches")})
+        if not res["bitwise"]:
+            raise AssertionError(f"ZeRO-1 over the tree moments, rank {r}: "
+                                 "params differ from the whole moments'")
+        if not 0.5 <= res["zero1"]["moment_bytes"] / res["whole"][
+                "moment_bytes"] <= 0.52:
+            raise AssertionError(f"ZeRO-1 rank {r}: moment bytes "
+                                 f"{res['zero1']['moment_bytes']} of "
+                                 f"{res['whole']['moment_bytes']}")
+    by_path["train_sp_zero"] = zero[0]["zero1"]["launches"]
+    (OUT_DIR / "train_sp.json").write_text(json.dumps(
+        {"dense": dense, "ranks": ranks, "zero": zero,
+         "dense_seconds": dense_s, "ranks_seconds": ranks_s,
+         "zero_seconds": zero_s}, indent=1, default=str))
+    return by_path
+
+
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
           "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
           "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
-          "train_o1", "train_simple", "train_dcgan")
+          "train_sp", "train_o1", "train_simple", "train_dcgan")
 
 
 def main(phases=PHASES):
@@ -4591,7 +5240,10 @@ def main(phases=PHASES):
     # the BERT step and its grad-accum step, train_gpt_dropout's the
     # GPT step with dropout and the same under remat; train_tp_zero's
     # the --tp 2 step (rank 0's counts, read in its process), the ZeRO-1
-    # GPT steps and the ZeRO-2 ones (rank 0's, each run's own); the
+    # GPT steps and the ZeRO-2 ones (rank 0's, each run's own);
+    # train_sp's the --sp 2 ring and Ulysses steps, the long-context
+    # step, BERT's ring and Ulysses steps and the ZeRO-1 --tp 2 step
+    # (rank 0's, read in its process); the
     # O1 phases run last and remove their op policy at their end
     for phase, run in (("train_resnet", phase_train_resnet),
                        ("serve", phase_serve), ("serve_q8", phase_serve_q8),
@@ -4603,6 +5255,7 @@ def main(phases=PHASES):
                        ("adam_rest", phase_adam_rest),
                        ("hf_bert", phase_hf_bert),
                        ("train_tp_zero", phase_train_tp_zero),
+                       ("train_sp", phase_train_sp),
                        ("train_o1", phase_train_o1),
                        ("train_simple", phase_train_simple),
                        ("train_dcgan", phase_train_dcgan)):
@@ -4614,7 +5267,7 @@ def main(phases=PHASES):
         if phase not in ("train_resnet", "train", "train_bert",
                          "train_gpt_remat", "train_gpt_dropout",
                          "train_bert_remat", "adam_rest", "hf_bert",
-                         "train_tp_zero"):
+                         "train_tp_zero", "train_sp"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():

@@ -23,7 +23,13 @@ version; besides, a train-state checkpoint of card tensors (bf16
 leaves) round-trips bit for bit, and DCGAN at O0 on the card matches
 the CPU within 1e-4; B1 on ZeRO shards at an offset and through
 ``FusedAdam.with_zero`` bit for bit, and B4-B6 (and their dropout
-branches) at one ``--tp 2`` rank's 6 heads with a head offset.
+branches) at one ``--tp 2`` rank's 6 heads with a head offset; the
+sequence-parallel call modes: B4's lse merged over two key blocks (one
+fully masked for a row) against one call over the joined keys, B5 and
+B6 with an lse cotangent, B4d-B6d at a ring hop's row and column
+offsets, the threefry dropout's window against the dense slice, and
+ring and Ulysses attention at a world of one; BERT's token-type gradient
+repeats its bits.
 Scale-aware error
 max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
 flash o, dq, dk and dv also row by row (``row_err``); every kernel call
@@ -1348,3 +1354,150 @@ def test_dcgan_o0_on_the_card_matches_the_cpu(gen):
             far += int((diff > 1e-4 * (b.abs().max() + 1)).sum())
             total += diff.numel()
     assert far <= 1e-3 * total, (far, total)
+
+
+# -- the sequence-parallel call modes (ring hops, Ulysses) -------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_hop_lse_merge_equals_one_call_over_the_joined_keys(gen, dtype):
+    """B4 with ``return_lse`` on two key blocks, merged with the ring's
+    log-sum-exp rule, equals one call over the joined keys; a batch row
+    whose keys are all masked in one block takes only the other's."""
+    b, s, h, d = 2, 96, 3, 64
+    q, k1, v1, k2, v2 = (torch.randn(b, s, h, d, device="cuda",
+                                     generator=gen).to(dtype)
+                         for _ in range(5))
+    m1 = torch.zeros(b, s, device="cuda")
+    m1[1] = fa.NEG_INF
+    m2 = torch.zeros(b, s, device="cuda")
+    o1, l1 = _one_launch("flash_fwd", lambda: fa.flash_attention(
+        q, k1, v1, kv_mask=m1, return_lse=True))
+    o2, l2 = fa.flash_attention(q, k2, v2, kv_mask=m2, return_lse=True)
+    assert (l1[1] <= fa.NEG_INF / 2).all() and (o1[1] == 0).all()
+    lse = torch.logaddexp(l1, l2)
+    t = lambda w: w.permute(0, 2, 1)[..., None]
+    merged = o1.float() * t(torch.exp(l1 - lse)) \
+        + o2.float() * t(torch.exp(l2 - lse))
+    want, want_lse = fa._reference(q, torch.cat([k1, k2], 1),
+                                   torch.cat([v1, v2], 1),
+                                   torch.cat([m1, m2], 1), False,
+                                   1.0 / d ** 0.5, return_lse=True)
+    assert rel_err(merged, want) <= TOL[dtype]
+    assert rel_err(lse, want_lse) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_with_an_lse_cotangent(gen, dtype, causal):
+    """B5 and B6 with ``delta - dlse`` (a ring hop's backward, whose lse
+    feeds the merge) against their plain versions on the same delta."""
+    b, s, h, d = 2, 160, 3, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
+                               generator=gen).to(dtype) for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    o, lse = fa._reference(q, k, v, None, causal, scale, return_lse=True)
+    dlse = torch.randn(b, h, s, device="cuda", generator=gen)
+    delta = ((do.float() * o.float()).sum(-1).permute(0, 2, 1)
+             - dlse).contiguous()
+    args = (q, k, v, do, lse, delta, None, causal, scale)
+    dq = _one_launch("flash_bwd_dq", lambda: fa.flash_attention_bwd_dq(
+        *args))
+    dk, dv = _one_launch("flash_bwd_dkv",
+                         lambda: fa.flash_attention_bwd_dkv(*args))
+    want = (fa._bwd_dq_reference(*args),) + fa._bwd_dkv_reference(*args)
+    for got, ref in zip((dq, dk, dv), want):
+        assert rel_err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
+def test_flash_dropout_at_ring_offsets_matches_plain(gen, dtype, which):
+    """B4d, B5d and B6d with a ring hop's row and column offsets (rank 1
+    of 2 holding rank 0's block, and the diagonal at 512) against their
+    plain versions on the same seed array."""
+    b, s, h, d = 2, 128, 3, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
+                               generator=gen).to(dtype) for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    for offsets, causal in (((s, 0, 0, h), False), ((512, 512, 0, h), True)):
+        seed = fa.seed_array(1234, offsets, num_heads=h, device="cuda")
+        po, plse = fa._reference(q, k, v, None, causal, scale,
+                                 return_lse=True, dropout_rate=0.1,
+                                 seed=seed)
+        delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1) \
+            .contiguous()
+        bargs = (q, k, v, do, plse, delta, None, causal, scale, 0.1, seed)
+        if which == "fwd":
+            got = _one_launch("flash_fwd_dropout",
+                              lambda: fa.flash_attention_fwd(
+                                  q, k, v, None, causal, scale, 0.1,
+                                  seed))[0]
+            want = po
+        elif which == "dq":
+            got = _one_launch("flash_bwd_dq_dropout",
+                              lambda: fa.flash_attention_bwd_dq(*bargs))
+            want = fa._bwd_dq_reference(*bargs)
+        else:
+            got = torch.cat(_one_launch(
+                "flash_bwd_dkv_dropout",
+                lambda: fa.flash_attention_bwd_dkv(*bargs)))
+            want = torch.cat(fa._bwd_dkv_reference(*bargs))
+        assert rel_err(got, want) <= TOL[dtype], offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threefry_dropout_window_is_the_dense_slice(gen, dtype):
+    """A sequence-parallel rank's window of the hidden dropout (one
+    launch of the windowed loop) equals its plain version and the slice
+    of the whole tensor's call, bit for bit, output and gradient."""
+    key = tf.fold_in(tf.PRNGKey(3), 5)
+    x = torch.randn(3, 256, 768, device="cuda", generator=gen).to(dtype)
+    full = tf.dropout(x, 0.1, key)
+    for n in (2, 4):
+        sl = 256 // n
+        for r in range(n):
+            win = tf.window(x.shape, 1, r * sl, sl)
+            part = x[:, r * sl:(r + 1) * sl].clone().requires_grad_()
+            got = _one_launch("threefry_dropout",
+                              lambda: tf.dropout(part, 0.1, key, win))
+            assert torch.equal(got, full[:, r * sl:(r + 1) * sl])
+            assert torch.equal(got, tf.dropout_plain(part.detach(), 0.1, key,
+                                                     win))
+            dy = torch.ones_like(got)
+            got.backward(dy)
+            assert torch.equal(part.grad, tf.dropout_plain(dy, 0.1, key,
+                                                           win))
+
+
+def test_sequence_parallel_at_a_world_of_one_is_flash(gen):
+    """Ring and Ulysses without a process group (a world of one) on card
+    tensors: the flash kernels' output, causal and not."""
+    sq = importlib.import_module("apex_tpu_torch.parallel.sequence")
+    q, k, v = (torch.randn(2, 128, 4, 64, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    for causal in (False, True):
+        want = fa.flash_attention(q, k, v, causal=causal)
+        for fn in (sq.ring_attention, sq.ulysses_attention):
+            assert torch.equal(fn(q, k, v, causal=causal), want)
+
+
+def test_bert_token_type_gradient_repeats_its_bits(gen):
+    """BERT's token-type rows get every token of a type (4096 into one row
+    here): the model takes them as a one-hot product, whose backward
+    repeats its bits, where the embedding gather's backward on the card
+    sums such a row in no fixed order."""
+    bert = importlib.import_module("apex_tpu_torch.models.bert")
+    cfg = bert.BertConfig(vocab_size=64, hidden_size=1024,
+                          num_hidden_layers=1, num_attention_heads=16,
+                          intermediate_size=64, hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    enc = bert.BertEncoder(cfg, device="cuda")
+    ids = torch.randint(0, 64, (32, 128), device="cuda", generator=gen)
+    r = torch.randn(32, 128, 1024, device="cuda", generator=gen)
+    grads = []
+    for _ in range(20):
+        enc.zero_grad()
+        (enc(ids) * r).sum().backward()
+        grads.append(enc.token_type_embeddings.weight.grad.clone())
+    assert all(torch.equal(g, grads[0]) for g in grads)

@@ -6,6 +6,11 @@ default device, each against the JAX object.
 - ``ProcessGroup.group_size``: None for the world, the group length
   otherwise (``size()`` is unchanged);
 - ``FusedAdam(amsgrad=True)`` raises the JAX package's ``RuntimeError``;
+- the sequence-parallel names of ``apex_tpu.parallel`` (``ring_attention``,
+  ``ulysses_attention``, ``make_ring_attention``,
+  ``make_ulysses_attention``) are the port's ``parallel`` names too, with
+  the adapters' ``onef1b_compatible`` marks, beside the new collectives
+  ``ppermute_g`` and ``all_to_all_g``;
 - ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
   on the card unless asked for the CPU, as ``jax.random`` draws on the
   default device: without CUDA the default raises, and ``device="cpu"``
@@ -88,3 +93,16 @@ def test_threefry_draws_on_the_card_unless_asked(monkeypatch):
     np.testing.assert_array_equal(
         threefry.bernoulli(key, 0.5, (4,), device="cpu").numpy(),
         np.asarray(jax.random.bernoulli(jkey, 0.5, (4,))))
+
+
+def test_sequence_parallel_names():
+    names = ("ring_attention", "ulysses_attention", "make_ring_attention",
+             "make_ulysses_attention")
+    for name in names:
+        assert name in jparallel.__all__ and name in parallel.__all__, name
+        assert callable(getattr(parallel, name))
+    for name in ("ppermute_g", "all_to_all_g"):
+        assert name in parallel.__all__
+    for make in ("make_ring_attention", "make_ulysses_attention"):
+        assert getattr(parallel, make)(None).onef1b_compatible == \
+            getattr(jparallel, make)("sp").onef1b_compatible

@@ -91,10 +91,12 @@ def _step_grads(model, params, ids, mesh, scaled_state=None):
 
 
 def _overflow(sd, rows, mesh, rank):
-    """One O2 step with an inf in rank 1's gradient of a sharded leaf."""
+    """One O2 step with an inf in rank 1's gradient of a sharded leaf
+    (the moments whole: with ZeRO-1 over the data group the flag is
+    taken over it too, ``tests/test_torch_zero_tp.py``)."""
     model, opt, params, st = gpt.build(_cfg(vocab_size=VOCAB), lr=LR,
                                        opt_level="O2", device="cpu",
-                                       state_dict=sd, mesh=mesh)
+                                       state_dict=sd, mesh=mesh, zero=False)
     grads = _step_grads(model, params, torch.from_numpy(rows), mesh, st)
     if rank == 1:
         grads["blocks.0.mlp_in.weight"].fill_(float("inf"))

@@ -355,10 +355,14 @@ def test_refusals():
     with pytest.raises(ValueError, match="already shard-local"):
         parallel.zero2_update(flat.with_zero(GROUP), params, g,
                               flat.init(params), GROUP)
-    with pytest.raises(NotImplementedError, match="tree layout"):
-        parallel.shard_optimizer_state(tree.init(params), GROUP)
-    # with_zero on the tree layout changes nothing, as in the JAX package
-    assert tree.with_zero(GROUP)._zero is None
+    # the tree layout shards now (ZeRO-1 over its moments, like_params);
+    # without a process group every leaf stays whole
+    whole = tree.init(params)
+    cut = parallel.shard_optimizer_state(whole, GROUP)
+    assert all(a.shape == b.shape for a, b in zip(
+        torch.utils._pytree.tree_leaves(cut.m),
+        torch.utils._pytree.tree_leaves(whole.m)))
+    assert tree.with_zero(GROUP)._zero is not None
     _, lamb = amp.initialize(_mlp(), __import__(
         "apex_tpu_torch.optimizers", fromlist=["FusedLAMB"]).FusedLAMB(),
         opt_level="O0", verbosity=0)
