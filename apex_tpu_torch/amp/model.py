@@ -24,6 +24,11 @@ bf16 gradients back to the fp32 masters as fp32 — the same flow.
   compute dtype (the JAX package's norm-output seam mend), so one fp32
   norm does not drag the rest of the network up to fp32.
 - Under ``amp.disable_casts()`` none of these casts happens.
+
+``AmpModel.loss_and_grad_1f1b`` is the pipeline models' 1F1B entry:
+the cast params swapped into the module for that method (a
+``functional_call`` of a wrapper whose ``forward`` calls it), the
+gradients returned in the canonical params' dtypes.
 """
 
 from __future__ import annotations
@@ -208,3 +213,36 @@ class AmpModel:
         with self._apply_context():
             return torch.func.functional_call(self.module, params, args,
                                               kwargs)
+
+    def loss_and_grad_1f1b(self, params: Dict[str, torch.Tensor], *args,
+                           **kwargs):
+        """amp's passthrough to the wrapped model's 1F1B loss-and-grad
+        (``models.PipelinedBert.loss_and_grad_1f1b``): the params cast to
+        the compute layout and swapped into the module for the call, the
+        norm-output hooks active around the schedule's rematerialized
+        forwards.  Returns ``(loss, grads)`` with each gradient in its
+        canonical parameter's dtype, as autograd through ``apply``'s
+        cast gives it, for ``AmpOptimizer.step`` to unscale."""
+        if not hasattr(self.module, "loss_and_grad_1f1b"):
+            raise AttributeError(
+                f"{type(self.module).__name__} has no loss_and_grad_1f1b "
+                "(only pipeline models with the 1F1B schedule do)")
+        compute = self.compute_variables(params)
+        with self._apply_context():
+            loss, grads = torch.func.functional_call(
+                _Method(self.module, "loss_and_grad_1f1b"),
+                {f"inner.{k}": v for k, v in compute.items()}, args, kwargs)
+        return loss, {k: g.to(params[k].dtype) for k, g in grads.items()}
+
+
+class _Method(nn.Module):
+    """``module.<name>`` as a module's forward, so ``functional_call``
+    can swap the parameters in for a method other than ``forward``."""
+
+    def __init__(self, module: nn.Module, name: str):
+        super().__init__()
+        self.inner = module
+        self.name = name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.inner, self.name)(*args, **kwargs)

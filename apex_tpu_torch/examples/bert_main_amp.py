@@ -60,20 +60,38 @@ world of each rank's objective times SP, and the overflow flag is
 taken over the sequence group too.  A batch may carry a fifth array,
 the (B, S) {0, 1} attention mask (the example's synthetic batches have
 none).  ``--ring-attention`` with ``--grad-accum`` above 1 is refused
-here; ``--pp`` is refused (pipeline parallelism, ROADMAP A.10).
+here.
 
     WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
         -m apex_tpu_torch.examples.bert_main_amp --ring-attention 2
 
-Not here: ``--moe`` and ``--pp``.
+``--pp S`` (``--pp-schedule {gpipe,1f1b}``, ``--pp-microbatches M``,
+4 by default): the encoder pipelined over S ranks of a (world / S, S)
+(data, pipe) mesh, ``models.PipelinedBert`` with one stage a rank and
+the embeddings and heads on every rank; ``--b`` is the batch of each
+data index, every rank of its pipe group draws it.  GPipe trains as the
+dense step does (autograd through the pipeline).  1F1B takes
+``loss_and_grad_1f1b``: each microbatch's loss is its MLM sum times ``M
+* dp`` over the global mask count plus its mean NSP term over the
+accumulation count, scaled by amp inside the schedule.  Under either
+schedule one ``DistributedDataParallel.reduce_gradients`` averages the
+data index's gradients over the data group.  Both run under
+``--grad-accum`` and ``--remat``.  The recipe's ``FusedLAMB`` clips by
+the norm over the whole model (``with_model_parallel`` over the pipe
+group: each stage's leaves once, the replicated ones once) and amp's
+overflow flag is taken over the pipe group.  ``--pp`` with
+``--ring-attention`` is refused (ROADMAP A.10: SP inside the pipeline),
+as is ``--moe`` (ROADMAP A.10: ``models/moe.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 import types
+from functools import partial
 from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
@@ -84,7 +102,7 @@ import torch.nn.functional as F
 from apex_tpu_torch import amp
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models import BertConfig, BertForPreTraining, \
-    bert_base, bert_large
+    PipelinedBert, bert_base, bert_large
 from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.optimizers import FusedLAMB
 from apex_tpu_torch.parallel import DistributedDataParallel, create_mesh, \
@@ -184,7 +202,8 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
           attention_fn: Optional[Callable] = None, device="cuda",
           seed: int = 0,
           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-          mesh=None, sp_attention: str = "ring"):
+          mesh=None, sp_attention: str = "ring",
+          pp_microbatches: Optional[int] = None):
     """(model, optimizer, params, opt_state): BertForPreTraining under
     ``amp.initialize`` with the recipe's FusedLAMB; weights from
     ``seed`` or, when given, ``state_dict`` (e.g. from
@@ -192,8 +211,16 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
     whose sequence axis is above 1 builds the sequence-parallel model
     with ``sp_attention`` (``"ring"`` or ``"ulysses"``, in place of
     ``attention_fn``) and takes the overflow flag over the sequence
-    group."""
+    group.  ``pp_microbatches`` builds this rank's ``PipelinedBert`` on
+    ``mesh``'s pipe axis (``state_dict`` then this rank's, e.g. from
+    ``models.bert.dense_to_rank``; ``seed`` gives the dense model's
+    weights, this rank's part), the optimizer's clipping norm and
+    overflow flag over the pipe group."""
     dev = resolve_device(device)
+    if pp_microbatches is not None:
+        return _build_pipelined(cfg, lr, max_grad_norm, opt_level,
+                                loss_scale, attention_fn, dev, seed,
+                                state_dict, mesh, pp_microbatches)
     sp = _sp(mesh) > 1
     if sp:
         make = {"ring": make_ring_attention,
@@ -211,6 +238,25 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
         loss_scale=loss_scale)
     if sp:
         optimizer = optimizer.with_overflow_groups(mesh.group("sp"))
+    params = model.init()
+    return model, optimizer, params, optimizer.init(params)
+
+
+def _build_pipelined(cfg, lr, max_grad_norm, opt_level, loss_scale,
+                     attention_fn, dev, seed, state_dict, mesh, microbatches):
+    pp = mesh.shape["pipe"]
+    module = PipelinedBert(cfg, mesh, pp, microbatches, batch_axis="data",
+                           attention_fn=attention_fn, device=dev,
+                           seed=None if state_dict is not None else seed)
+    if state_dict is not None:
+        module.load_state_dict(state_dict)
+    pipe = mesh.group("pipe")
+    lamb = make_optimizer(lr, max_grad_norm).with_model_parallel(
+        pipe, {name: name.startswith("stages.")
+               for name, _ in module.named_parameters()})
+    model, optimizer = amp.initialize(module, lamb, opt_level=opt_level,
+                                      loss_scale=loss_scale)
+    optimizer = optimizer.with_overflow_groups(pipe)
     params = model.init()
     return model, optimizer, params, optimizer.init(params)
 
@@ -247,7 +293,8 @@ def _sp_objective(model, params, batch, mesh, deterministic, dropout_key):
 
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
                batch, *, deterministic: bool = True, dropout_key=None,
-               grad_accum: int = 1, ddp=None, mesh=None):
+               grad_accum: int = 1, ddp=None, mesh=None,
+               schedule: Optional[str] = None):
     """One step of the JAX example's ``train_step`` (``grad_accum`` 1) or
     of its grad-accumulation step: loss, scaled gradients, the optimizer.
     ``batch`` is ``(ids, labels, weights, nsp)`` on the device, or with a
@@ -259,7 +306,24 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
     average over the whole world (module docstring).  Returns
     ``(params, opt_state, loss, grads)``: the loss unscaled (this rank's;
     under SP the data index's), the grads as autograd gave them (scaled)
-    for ``grad_accum`` 1, else the unscaled stash."""
+    for ``grad_accum`` 1, else the unscaled stash.  ``schedule`` (a
+    pipelined model's ``"gpipe"`` or ``"1f1b"``): ``ddp`` averages over
+    the data group; GPipe steps as above, 1F1B through
+    ``loss_and_grad_1f1b`` (module docstring)."""
+    if schedule == "1f1b":
+        slice_grads = partial(_onef1b_grads, optimizer=optimizer)
+        if grad_accum > 1:
+            return _accum_step(model, optimizer, params, opt_state, batch,
+                               grad_accum, deterministic, dropout_key, ddp,
+                               slice_grads)
+        ids, labels, weights, nsp, *mask = batch
+        loss, grads = slice_grads(model, params, opt_state, batch,
+                                  mlm_denom(weights, ddp), 1.0,
+                                  deterministic, dropout_key)
+        if ddp is not None:
+            grads = ddp.reduce_gradients(grads)
+        params, opt_state = optimizer.step(params, grads, opt_state)
+        return params, opt_state, loss, grads
     if grad_accum > 1:
         return _accum_step(model, optimizer, params, opt_state, batch,
                            grad_accum, deterministic, dropout_key, ddp)
@@ -287,32 +351,71 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
     return params, opt_state, loss.detach(), grads
 
 
+def _autodiff_grads(model, params, opt_state, batch, denom, nsp_div,
+                    deterministic, dropout_key):
+    """One microbatch's loss (unscaled) and scaled gradients through
+    autograd."""
+    ids, labels, w, nsp = batch[:4]
+    mlm_logits, nsp_logits = model.apply(params, ids,
+                                         deterministic=deterministic,
+                                         dropout_key=dropout_key)
+    loss = batch_loss(mlm_logits, nsp_logits, labels, w, nsp, denom, nsp_div)
+    with amp.scale_loss(loss, opt_state) as scaled:
+        grads = torch.autograd.grad(scaled, list(params.values()))
+    return loss.detach(), dict(zip(params.keys(), grads))
+
+
+def _onef1b_grads(model, params, opt_state, batch, denom, nsp_div,
+                  deterministic, dropout_key, *, optimizer):
+    """A pipelined model's 1F1B pass over ``batch``: each microbatch's
+    MLM sum times M over ``denom`` (this rank's divisor, the global mask
+    count over dp) plus its mean NSP term over ``nsp_div``, scaled by
+    amp; returns this data index's loss (unscaled) and scaled
+    gradients."""
+    ids, labels, weights, nsp, *mask = batch
+    m = model.module.num_microbatches
+
+    def mb_loss(mlm_logits, nsp_logits, tgt):
+        v = mlm_logits.shape[-1]
+        ce = F.cross_entropy(mlm_logits.float().reshape(-1, v),
+                             tgt["labels"].reshape(-1).long(),
+                             reduction="none")
+        mlm = (ce * tgt["weights"].reshape(-1)).sum() * m / denom
+        nsp_loss = F.cross_entropy(nsp_logits.float(), tgt["nsp"].long())
+        if nsp_div != 1.0:
+            nsp_loss = nsp_loss / nsp_div
+        return amp.scale(mlm + nsp_loss, opt_state)
+
+    loss, grads = model.loss_and_grad_1f1b(
+        params, ids, mb_loss, {"labels": labels, "weights": weights,
+                               "nsp": nsp},
+        attention_mask=mask[0] if mask else None,
+        deterministic=deterministic, dropout_key=dropout_key)
+    return loss / optimizer.loss_scale(opt_state), grads
+
+
 def _accum_step(model, optimizer, params, opt_state, batch, accum,
-                deterministic, dropout_key, ddp):
+                deterministic, dropout_key, ddp, slice_grads=None):
     """The grad-accumulation step: microbatch j is ``a[j::accum]``, its
     MLM term over the whole batch's divisor and its NSP term over
     ``accum``; each microbatch's grads are unscaled into the stash with
     the scale held, then the stash is reduced over the ranks, the scale
-    updated once from the ORed overflow and one update applied."""
+    updated once from the ORed overflow and one update applied.
+    ``slice_grads`` (1F1B's) gives a microbatch's loss and grads in
+    place of autograd's."""
     weights = batch[2]
     denom = mlm_denom(weights, ddp)
     stashed, overflow, total = None, None, None
     for j in range(accum):
-        ids, labels, w, nsp = (a[j::accum] for a in batch)
         key = None if dropout_key is None \
             else threefry.fold_in(dropout_key, j)
-        mlm_logits, nsp_logits = model.apply(params, ids,
-                                             deterministic=deterministic,
-                                             dropout_key=key)
-        loss = batch_loss(mlm_logits, nsp_logits, labels, w, nsp, denom,
-                          float(accum))
-        with amp.scale_loss(loss, opt_state) as scaled:
-            grads = torch.autograd.grad(scaled, list(params.values()))
+        loss, grads = (slice_grads or _autodiff_grads)(
+            model, params, opt_state, tuple(a[j::accum] for a in batch[:4]),
+            denom, float(accum), deterministic, key)
         stashed, ovf, opt_state = optimizer.unscale_grads(
-            dict(zip(params.keys(), grads)), opt_state, stashed=stashed,
-            update_scale=False)
+            grads, opt_state, stashed=stashed, update_scale=False)
         overflow = ovf if overflow is None else overflow | ovf
-        total = loss.detach() if total is None else total + loss.detach()
+        total = loss if total is None else total + loss
     if ddp is not None:
         stashed = ddp.reduce_gradients(stashed)
         overflow = _any_rank(overflow, ddp)
@@ -342,6 +445,28 @@ def check_grad_accum(batch: int, accum: int) -> None:
                          f"{accum}")
 
 
+def check_pipeline(cfg: BertConfig, batch: int, accum: int, pp: int,
+                   schedule: str, microbatches: int, sp: int,
+                   world: int) -> None:
+    """The JAX example's checks of ``--pp`` and what it stays refused
+    with here."""
+    if schedule == "1f1b" and not pp:
+        raise SystemExit("--pp-schedule 1f1b needs --pp S")
+    if not pp:
+        return
+    if sp > 1:
+        raise SystemExit("--pp with --ring-attention is not ported yet "
+                         "(ROADMAP A.10: SP inside the pipeline)")
+    if world % pp or cfg.num_hidden_layers % pp:
+        raise SystemExit(f"PP={pp} must divide devices ({world}) and "
+                         f"layers ({cfg.num_hidden_layers})")
+    per_call = batch // max(accum, 1)
+    if per_call % microbatches:
+        raise SystemExit(
+            f"per-data-shard batch {per_call} (b/grad_accum) must divide "
+            f"into --pp-microbatches {microbatches}")
+
+
 def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
           steps: int = 30, lr: float = 1e-4, max_grad_norm: float = 1.0,
           opt_level: str = "O2", loss_scale=None, mask_prob: float = 0.15,
@@ -349,7 +474,8 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
           deterministic: bool = True, seed: int = 0, device="cuda",
           print_freq: int = 0, grad_accum: int = 1, ddp: bool = False,
           data: Optional[Iterator] = None, remat: bool = False,
-          sp: int = 0, sp_attention: str = "ring") -> dict:
+          sp: int = 0, sp_attention: str = "ring", pp: int = 0,
+          pp_schedule: str = "gpipe", pp_microbatches: int = 4) -> dict:
     """Train ``steps`` steps of ``batch`` rows on this rank; returns
     per-step ``losses`` (this rank's) and ``step_seconds`` (host clock
     around each step, ended by reading the loss), ``tokens_per_s`` per
@@ -365,13 +491,21 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
     rank takes its data index's whole batch (``data`` defaults to
     ``RandomState(data index)``), the gradients always go through
     ``DistributedDataParallel`` over the world, and ``tokens_per_s``
-    counts the batch's tokens."""
+    counts the batch's tokens.  ``pp`` above 0: the encoder pipelined
+    over ``pp`` ranks of the initialized world with ``pp_schedule`` and
+    ``pp_microbatches`` (module docstring); each pipe group takes its
+    data index's batch (``data`` as under ``sp``), ``losses`` are the
+    data index's and ``tokens_per_s`` counts its batch's tokens."""
     dev = resolve_device(device)
     check_grad_accum(batch, grad_accum)
+    check_pipeline(cfg, batch, grad_accum, pp, pp_schedule, pp_microbatches,
+                   sp, dist.get_world_size() if dist.is_initialized() else 1)
     if remat:
         cfg = dataclasses.replace(cfg, remat=True)
     mesh = None
-    if sp > 1:
+    if pp:
+        mesh = create_mesh(pp=pp)
+    elif sp > 1:
         if grad_accum > 1:
             raise ValueError("--ring-attention with --grad-accum is not "
                              "ported yet")
@@ -381,8 +515,16 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, max_grad_norm=max_grad_norm, opt_level=opt_level,
         loss_scale=loss_scale, attention_fn=attention_fn, device=dev,
-        seed=seed, mesh=mesh, sp_attention=sp_attention)
-    if mesh is not None:
+        seed=seed, mesh=mesh, sp_attention=sp_attention,
+        pp_microbatches=pp_microbatches if pp else None)
+    schedule = pp_schedule if pp else None
+    if pp:
+        # the pipe group's ranks hold one data index's batch; DDP
+        # averages over the data group (replicated parts already agree)
+        wrapper = DistributedDataParallel(model,
+                                          process_group=mesh.group("data"))
+        rank = mesh.index("data")
+    elif mesh is not None:
         wrapper = DistributedDataParallel(model, process_group=WORLD)
         rank = mesh.index("data")
     else:
@@ -402,7 +544,8 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
             model, optimizer, params, opt_state, tensors,
             deterministic=deterministic,
             dropout_key=None if deterministic else step_key(seed, step),
-            grad_accum=grad_accum, ddp=wrapper, mesh=mesh)
+            grad_accum=grad_accum, ddp=wrapper, mesh=mesh,
+            schedule=schedule)
         losses.append(float(loss))      # waits for the step to finish
         seconds.append(time.perf_counter() - t0)
         meter.update(losses[-1])
@@ -450,18 +593,34 @@ def parse_args(argv=None):
                    help="the sequence-parallel attention under "
                    "--ring-attention: ring (K/V rotation) or ulysses "
                    "(all-to-all head scatter)")
+    p.add_argument("--moe", type=int, default=0, metavar="E",
+                   help="Switch-MoE layers: not ported yet (refused)")
     p.add_argument("--pp", type=int, default=0, metavar="S",
-                   help="pipeline parallelism: not ported yet (refused)")
+                   help="pipeline the encoder over S stages on a (data, "
+                   "pipe) mesh (models.PipelinedBert); S must divide the "
+                   "world size and the layer count")
+    p.add_argument("--pp-schedule", default="gpipe",
+                   choices=("gpipe", "1f1b"),
+                   help="pipeline schedule under --pp: gpipe (autograd "
+                   "through the ticks) or 1f1b (interleaved forward and "
+                   "backward, saved stage inputs bounded by the stage "
+                   "count)")
+    p.add_argument("--pp-microbatches", type=int, default=4, metavar="M",
+                   help="microbatches a step under --pp (bubble fraction "
+                   "(S-1)/(M+S-1))")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     check_grad_accum(args.b, args.grad_accum)
-    if args.pp:
-        raise SystemExit("--pp: pipeline parallelism is not ported yet "
-                         "(ROADMAP A.10)")
+    if args.moe:
+        raise SystemExit("--moe: Switch-MoE layers are not ported yet "
+                         "(ROADMAP A.10: models/moe.py)")
     cfg = get_config(args.config)
+    check_pipeline(cfg, args.b, args.grad_accum, args.pp, args.pp_schedule,
+                   args.pp_microbatches, args.ring_attention,
+                   int(os.environ.get("WORLD_SIZE", "1")))
     initialize_distributed("cuda")
     dev = resolve_device("cuda")
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -472,17 +631,20 @@ def main(argv=None):
     if sp > 1 and args.grad_accum > 1:
         raise SystemExit("--ring-attention with --grad-accum is not "
                          "ported yet")
-    dp = world // sp
+    dp = world // (sp * max(args.pp, 1))
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
-                f"{args.config}, world size {world} (dp={dp}, sp={sp}), "
-                f"batch {args.b} per data index, grad-accum "
-                f"{args.grad_accum}, remat {args.remat}", rank0=True)
+                f"{args.config}, world size {world} (dp={dp}, sp={sp}, "
+                f"pp={max(args.pp, 1)}), batch {args.b} per data index, "
+                f"grad-accum {args.grad_accum}, remat {args.remat}",
+                rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, max_grad_norm=args.max_grad_norm,
                 opt_level=args.opt_level, loss_scale=args.loss_scale,
                 mask_prob=args.mask_prob, print_freq=args.print_freq,
                 grad_accum=args.grad_accum, ddp=world > 1,
-                remat=args.remat, sp=sp, sp_attention=args.sp_attention)
+                remat=args.remat, sp=sp, sp_attention=args.sp_attention,
+                pp=args.pp, pp_schedule=args.pp_schedule,
+                pp_microbatches=args.pp_microbatches)
     meter = AverageMeter()
     for tps in out["tokens_per_s"][1:]:     # the first step warms up
         meter.update(tps)

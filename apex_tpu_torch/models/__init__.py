@@ -1,9 +1,13 @@
 from apex_tpu_torch.models.bert import (
     BertConfig,
+    BertEmbeddings,
     BertEncoder,
     BertForPreTraining,
+    BertHeads,
     BertLayer,
     BertSelfAttention,
+    BertStage,
+    PipelinedBert,
     bert_base,
     bert_large,
 )
@@ -16,14 +20,18 @@ from apex_tpu_torch.models.dcgan import (
 from apex_tpu_torch.models.gpt import (
     GPTBlock,
     GPTConfig,
+    GPTEmbed,
     GPTLMHeadModel,
     GPTSelfAttention,
+    GPTStage,
+    PipelinedGPT,
     gpt_medium,
     gpt_small,
     lm_loss,
     params_from_jax,
 )
 from apex_tpu_torch.models.mlp import MLP, mlp_params_from_jax
+from apex_tpu_torch.models.pipelined_common import PipelinedCommon
 from apex_tpu_torch.models.resnet import (
     BasicBlock,
     BatchNorm,
@@ -41,10 +49,12 @@ from apex_tpu_torch.models.resnet import (
     stem_to_s2d,
 )
 
-__all__ = ["BasicBlock", "BatchNorm", "BertConfig", "BertEncoder",
-           "BertForPreTraining", "BertLayer", "BertSelfAttention",
-           "Bottleneck", "Discriminator", "GPTBlock", "GPTConfig",
-           "GPTLMHeadModel", "GPTSelfAttention", "Generator", "MLP", "ResNet",
+__all__ = ["BasicBlock", "BatchNorm", "BertConfig", "BertEmbeddings",
+           "BertEncoder", "BertForPreTraining", "BertHeads", "BertLayer",
+           "BertSelfAttention", "BertStage", "Bottleneck", "Discriminator",
+           "GPTBlock", "GPTConfig", "GPTEmbed", "GPTLMHeadModel",
+           "GPTSelfAttention", "GPTStage", "Generator", "MLP",
+           "PipelinedBert", "PipelinedCommon", "PipelinedGPT", "ResNet",
            "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
            "bert_base", "bert_large", "bert_params_from_jax",
            "dcgan_params_from_jax", "default_norm", "gpt_medium", "gpt_small",

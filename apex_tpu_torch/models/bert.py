@@ -55,9 +55,11 @@ logits; the NSP logits are the pooled ``[CLS]`` token's only on sequence
 rank 0, where that token lives (the caller takes the NSP term there
 alone).
 
-Not here: ``PipelinedBert``, MoE layers and the
-``BertEmbeddings``/``BertStage``/``BertHeads`` split.  HuggingFace
-checkpoints load through ``utils.load_hf_bert``.
+Pipeline parallelism: :class:`PipelinedBert` (one stage a rank of the
+mesh's pipe axis) over the ``BertEmbeddings``/``BertStage``/``BertHeads``
+split; :func:`dense_to_rank` maps a dense state dict to a rank's.  Not
+here: MoE layers.  HuggingFace checkpoints load through
+``utils.load_hf_bert``.
 """
 
 from __future__ import annotations
@@ -71,9 +73,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models._remat import remat as remat_layer
+from apex_tpu_torch.models.pipelined_common import PipelinedCommon, \
+    rank_state_dict
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import threefry
 
@@ -251,6 +256,86 @@ class BertLayer(nn.Module):
         return self.output_ln(x + _drop(self.drop, y, scope, drop_window))
 
 
+def _embed_block(module, input_ids, token_type_ids, scope, offset=0,
+                 window=None):
+    """Embedding sum + LN + dropout, shared by :class:`BertEncoder` and
+    :class:`BertEmbeddings` (``module`` holds the tables, the LN and the
+    dropout under the same names in both)."""
+    s = input_ids.shape[1]
+    pos = offset + torch.arange(s, device=input_ids.device)[None, :]
+    if token_type_ids is None:
+        token_type_ids = torch.zeros_like(input_ids)
+    # the type rows as a one-hot product, not a gather: every token of a
+    # type adds into one row, and the gather's backward on the card sums
+    # such a row in no fixed order (two runs differ in the last bits);
+    # the product's backward is a GEMM, the same bits each run
+    types = module.token_type_embeddings.weight
+    x = module.embeddings_ln(module.word_embeddings(input_ids)
+                             + module.position_embeddings(pos)
+                             + F.one_hot(token_type_ids.long(),
+                                         types.shape[0]).to(types.dtype)
+                             @ types)
+    return _drop(module.embeddings_dropout, x, scope, window)
+
+
+def _run_layers(module, n, attention_fn, x, attn_bias, deterministic,
+                scope, window=None):
+    """``module``'s ``layer_0`` .. ``layer_<n-1>`` on x (remat under
+    ``cfg.remat`` while training), each keyed from ``scope`` pushed by
+    its name: the encoder's loop and a pipeline stage's."""
+    cfg = module.cfg
+    scopes = [None if scope is None else scope.push(f"layer_{i}")
+              for i in range(n)]
+    seeds = [None] * n
+    if scope is not None and attention_fn is not None \
+            and cfg.attention_probs_dropout_prob > 0:
+        # every layer's attention seed in one copy to the device
+        seeds = threefry.attention_seeds(
+            [sc.push("attention") for sc in scopes], x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n):
+        layer = getattr(module, f"layer_{i}")
+        if remat:
+            x = remat_layer(layer, scopes[i], x, attn_bias, deterministic,
+                            attention_seed=seeds[i], drop_window=window)
+        else:
+            x = layer(x, attn_bias, deterministic, scopes[i], seeds[i],
+                      drop_window=window)
+    return x
+
+
+def _add_embeddings(module, cfg, dev, dtype):
+    h = cfg.hidden_size
+    module.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=dev,
+                                          dtype=dtype)
+    module.position_embeddings = nn.Embedding(
+        cfg.max_position_embeddings, h, device=dev, dtype=dtype)
+    module.token_type_embeddings = nn.Embedding(
+        cfg.type_vocab_size, h, device=dev, dtype=dtype)
+    module.embeddings_ln = _layer_norm(cfg, dev, dtype)
+    module.embeddings_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
+
+
+def _add_heads(module, cfg, dev, dtype):
+    h = cfg.hidden_size
+    module.mlm_transform = _linear(h, h, dev, dtype)
+    module.mlm_ln = _layer_norm(cfg, dev, dtype)
+    module.mlm_decoder = _linear(h, cfg.vocab_size, dev, dtype)
+    module.pooler = _linear(h, h, dev, dtype)
+    module.nsp_classifier = _linear(h, 2, dev, dtype)
+
+
+def _pretraining_heads(module, seq):
+    """MLM (transform, gelu, LN, untied decoder) and NSP (tanh pooler
+    over ``[CLS]``) heads in fp32, shared by :class:`BertForPreTraining`
+    and :class:`BertHeads`."""
+    h = module.mlm_ln(F.gelu(module.mlm_transform(seq)))
+    mlm_logits = module.mlm_decoder(h).float()
+    cls = torch.tanh(module.pooler(seq[:, 0]))
+    nsp_logits = module.nsp_classifier(cls).float()
+    return mlm_logits, nsp_logits
+
+
 class BertEncoder(nn.Module):
     """input_ids/token_type_ids (B, S) int, attention_mask (B, S) {0,1}
     -> sequence output (B, S, H).  Embedding sum + LN + dropout
@@ -263,7 +348,6 @@ class BertEncoder(nn.Module):
                  dtype: torch.dtype = torch.float32, sp=None):
         super().__init__()
         dev = resolve_device(device)
-        h = cfg.hidden_size
         self.cfg = cfg
         if sp is not None and attention_fn is None:
             raise ValueError("a sequence-parallel BERT takes a "
@@ -272,35 +356,10 @@ class BertEncoder(nn.Module):
                              "make_ulysses_attention)")
         self.sp = sp
         self.attention_fn = attention_fn
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=dev,
-                                            dtype=dtype)
-        self.position_embeddings = nn.Embedding(
-            cfg.max_position_embeddings, h, device=dev, dtype=dtype)
-        self.token_type_embeddings = nn.Embedding(
-            cfg.type_vocab_size, h, device=dev, dtype=dtype)
-        self.embeddings_ln = _layer_norm(cfg, dev, dtype)
-        self.embeddings_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
+        _add_embeddings(self, cfg, dev, dtype)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(
                 cfg, attention_fn, device=dev, dtype=dtype))
-
-    def _embed_block(self, input_ids, token_type_ids, scope, offset=0,
-                     window=None):
-        s = input_ids.shape[1]
-        pos = offset + torch.arange(s, device=input_ids.device)[None, :]
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        # the type rows as a one-hot product, not a gather: every token of
-        # a type adds into one row, and the gather's backward on the card
-        # sums such a row in no fixed order (two runs differ in the last
-        # bits); the product's backward is a GEMM, the same bits each run
-        types = self.token_type_embeddings.weight
-        x = self.embeddings_ln(self.word_embeddings(input_ids)
-                               + self.position_embeddings(pos)
-                               + F.one_hot(token_type_ids.long(),
-                                           types.shape[0]).to(types.dtype)
-                               @ types)
-        return _drop(self.embeddings_dropout, x, scope, window)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None):
@@ -313,31 +372,14 @@ class BertEncoder(nn.Module):
             offset = self.sp.rank() * s
             window = threefry.window((b, s * self.sp.size(),
                                       cfg.hidden_size), 1, offset, s)
-        x = self._embed_block(input_ids, token_type_ids, scope, offset,
-                              window)
+        x = _embed_block(self, input_ids, token_type_ids, scope, offset,
+                         window)
         attn_bias = None
         if attention_mask is not None:
             attn_bias = torch.where(attention_mask[:, None, None, :] > 0,
                                     0.0, -1e9).float()
-        scopes = [None if scope is None else scope.push(f"layer_{i}")
-                  for i in range(n)]
-        seeds = [None] * n
-        if scope is not None and self.attention_fn is not None \
-                and cfg.attention_probs_dropout_prob > 0:
-            # every layer's attention seed in one copy to the device
-            seeds = threefry.attention_seeds(
-                [sc.push("attention") for sc in scopes], x.device)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for i in range(n):
-            layer = getattr(self, f"layer_{i}")
-            if remat:
-                x = remat_layer(layer, scopes[i], x, attn_bias,
-                                deterministic, attention_seed=seeds[i],
-                                drop_window=window)
-            else:
-                x = layer(x, attn_bias, deterministic, scopes[i], seeds[i],
-                          drop_window=window)
-        return x
+        return _run_layers(self, n, self.attention_fn, x, attn_bias,
+                           deterministic, scope, window)
 
 
 class BertForPreTraining(nn.Module):
@@ -360,15 +402,10 @@ class BertForPreTraining(nn.Module):
                  seed: Optional[int] = 0, sp=None):
         super().__init__()
         dev = resolve_device(device)
-        h = cfg.hidden_size
         self.cfg = cfg
         self.encoder = BertEncoder(cfg, attention_fn, device=dev,
                                    dtype=dtype, sp=sp)
-        self.mlm_transform = _linear(h, h, dev, dtype)
-        self.mlm_ln = _layer_norm(cfg, dev, dtype)
-        self.mlm_decoder = _linear(h, cfg.vocab_size, dev, dtype)
-        self.pooler = _linear(h, h, dev, dtype)
-        self.nsp_classifier = _linear(h, 2, dev, dtype)
+        _add_heads(self, cfg, dev, dtype)
         if seed is not None:
             self.reset_parameters(seed)
 
@@ -386,11 +423,7 @@ class BertForPreTraining(nn.Module):
                         .normal_(0.0, std, generator=gen))
 
     def _pretraining_heads(self, seq):
-        h = self.mlm_ln(F.gelu(self.mlm_transform(seq)))
-        mlm_logits = self.mlm_decoder(h).float()
-        cls = torch.tanh(self.pooler(seq[:, 0]))
-        nsp_logits = self.nsp_classifier(cls).float()
-        return mlm_logits, nsp_logits
+        return _pretraining_heads(self, seq)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None):
@@ -404,16 +437,252 @@ class BertForPreTraining(nn.Module):
         return self._pretraining_heads(seq)
 
 
-def params_from_jax(params: Mapping, cfg: BertConfig
-                    ) -> Dict[str, torch.Tensor]:
+class BertEmbeddings(nn.Module):
+    """The embeddings split out for pipeline parallelism (names as the
+    encoder's inline ones): ``forward(input_ids, token_type_ids=None,
+    deterministic=True, dropout_key=None)``, ``dropout_key`` its root
+    scope's key."""
+
+    def __init__(self, cfg: BertConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        _add_embeddings(self, cfg, resolve_device(device), dtype)
+
+    def forward(self, input_ids, token_type_ids=None,
+                deterministic: bool = True, dropout_key=None):
+        scope = _dropout_scope(self.cfg, deterministic, dropout_key)
+        return _embed_block(self, input_ids, token_type_ids, scope)
+
+
+class BertStage(nn.Module):
+    """``layers_per_stage`` consecutive encoder layers, ``layer_0`` ..,
+    the stage body of :class:`PipelinedBert`; its dropout scope's root
+    is the stage (the JAX stage module's paths)."""
+
+    def __init__(self, cfg: BertConfig, layers_per_stage: int,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.layers_per_stage = layers_per_stage
+        self.attention_fn = attention_fn
+        for i in range(layers_per_stage):
+            self.add_module(f"layer_{i}", BertLayer(
+                cfg, attention_fn, device=dev, dtype=dtype))
+
+    def forward(self, x, attn_bias, deterministic: bool = True,
+                dropout_key=None):
+        scope = _dropout_scope(self.cfg, deterministic, dropout_key)
+        return _run_layers(self, self.layers_per_stage, self.attention_fn,
+                           x, attn_bias, deterministic, scope)
+
+
+class BertHeads(nn.Module):
+    """The MLM and NSP heads split out for pipeline parallelism (names as
+    :class:`BertForPreTraining`'s)."""
+
+    def __init__(self, cfg: BertConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        _add_heads(self, cfg, resolve_device(device), dtype)
+
+    def forward(self, seq):
+        return _pretraining_heads(self, seq)
+
+
+def _bias(input_ids, attention_mask, neg=-1e9):
+    """The additive key bias (B, 1, 1, S) of a {0, 1} mask; None without
+    one (a zero bias, as the JAX pipelined models pass, adds nothing)."""
+    if attention_mask is None:
+        return None
+    return torch.where(attention_mask[:, None, None, :] > 0, 0.0, neg).float()
+
+
+def _rows(t, j, mb):
+    return None if t is None else t[j * mb:(j + 1) * mb]
+
+
+class PipelinedBert(PipelinedCommon, nn.Module):
+    """BERT for pretraining with the encoder pipelined over the mesh's
+    ``pipe_axis`` group: the twin of the JAX ``PipelinedBert``, one stage
+    a rank.  Rank r holds ``embed.*`` (:class:`BertEmbeddings`),
+    ``stages.layer_<i>.*`` (its ``L / pp`` layers, :class:`BertStage`,
+    ``i`` local to the stage: dense layer ``r * L / pp + i``) and
+    ``heads.*`` (:class:`BertHeads`); the embeddings and heads run on
+    every rank.
+
+    ``forward`` is GPipe (``parallel.pipeline.gpipe``):
+    ``(mlm_logits, nsp_logits)`` of this rank's batch, the same on every
+    rank of its pipe group.  :meth:`loss_and_grad_1f1b` is 1F1B
+    (``parallel.pipeline.onef1b``), the heads as the schedule's
+    ``loss_params``.  ``batch_axis`` (the mesh's data axis): each data
+    index runs the pipeline on its own rows and the dropout keys fold in
+    the data index.  Both schedules leave the mean over the data group
+    to the caller: GPipe's gradients are autograd's on this index's
+    rows, and :meth:`loss_and_grad_1f1b` returns this index's loss and
+    gradients (the JAX method returns their data mean, which one
+    ``DistributedDataParallel.reduce_gradients`` gives).
+
+    Dropout: ``deterministic=False`` with ``dropout_key`` (the JAX
+    model's ``rngs={"dropout": key}``): the embeddings draw from
+    ``fold_in(key, 2**20)``, microbatch j's stage from
+    ``_stage_dropout_key(key, j)``, so 1F1B's rematerialized forward
+    draws the forward's masks and both schedules equal the JAX model's
+    bit for bit.  The attention bias and the microbatch index do not
+    ride the activations: each rank slices them from the batch it holds
+    (``microbatch_index``).
+
+    ``seed`` draws the dense :class:`BertForPreTraining`'s weights from
+    the same seed and keeps this rank's (:func:`dense_to_rank`), so
+    ``PipelinedBert(..., seed=s)`` on the pipe ranks together is
+    ``BertForPreTraining(..., seed=s)``.  ``tp_axis`` and ``seq_axis``
+    raise ``NotImplementedError`` (ROADMAP A.10)."""
+
+    def __init__(self, cfg: BertConfig, mesh, pp: int,
+                 num_microbatches: int, pipe_axis: str = "pipe",
+                 batch_axis: Optional[str] = None,
+                 seq_axis: Optional[str] = None,
+                 tp_axis: Optional[str] = None,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32,
+                 seed: Optional[int] = 0):
+        nn.Module.__init__(self)
+        self._setup(cfg, mesh, pp, num_microbatches, pipe_axis, batch_axis,
+                    seq_axis, tp_axis, attention_fn,
+                    "parallel.make_ring_attention(seq_axis)")
+        dev = resolve_device(device)
+        self.embed = BertEmbeddings(cfg, device=dev, dtype=dtype)
+        self.stages = BertStage(cfg, cfg.num_hidden_layers // pp,
+                                attention_fn, device=dev, dtype=dtype)
+        self.heads = BertHeads(cfg, device=dev, dtype=dtype)
+        if seed is not None:
+            self.reset_parameters(seed)
+
+    def reset_parameters(self, seed: int) -> None:
+        """The dense model's draws from ``seed``, this rank's kept."""
+        self._reset_from_dense(
+            BertForPreTraining(self.cfg, device="meta", seed=None),
+            _rank_name, self.stages.layers_per_stage, seed)
+
+    def _build_stage_fn(self, needs_rng, base_key, deterministic, bias, mb):
+        """The stage body both schedules run: ``(params, h, j) -> h``,
+        microbatch j's rows of ``bias`` and its stage key."""
+
+        def stage_fn(sp, h, j):
+            key = self._stage_dropout_key(base_key, j) if needs_rng \
+                else None
+            return torch.func.functional_call(
+                self.stages, sp, (h, _rows(bias, j, mb)),
+                {"deterministic": deterministic, "dropout_key": key})
+
+        return stage_fn
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True, dropout_key=None):
+        from apex_tpu_torch.parallel.pipeline import gpipe
+        needs_rng, base_key, embed_key = self._dropout_setup(
+            deterministic, dropout_key, "PipelinedBert.apply")
+        x = self.embed(input_ids, token_type_ids, deterministic, embed_key)
+        m = self.num_microbatches
+        stage_fn = self._build_stage_fn(
+            needs_rng, base_key, deterministic,
+            _bias(input_ids, attention_mask), input_ids.shape[0] // m)
+        seq = gpipe(self._pipe(), stage_fn,
+                    dict(self.stages.named_parameters()), x, m,
+                    microbatch_index=True)
+        return self.heads(seq)
+
+    def loss_and_grad_1f1b(self, input_ids, loss_fn, targets,
+                           attention_mask=None, token_type_ids=None,
+                           deterministic: bool = True, dropout_key=None):
+        """The 1F1B training step on this rank's batch: ``loss_fn(mlm,
+        nsp, target_mb) -> scalar`` (a mean over the microbatch's rows),
+        ``targets`` a pytree of per-row tensors.  Returns ``(loss,
+        grads)``: the loss the mean over the microbatches, the gradients
+        a ``{name: tensor}`` dict of this rank's parameters (``embed.*``
+        through the pipeline's input gradient, ``stages.*`` from the
+        schedule, ``heads.*`` as its ``loss_params``), the same on every
+        rank of the pipe group but ``stages.*``; both this data index's,
+        for the caller to average over the data group."""
+        from apex_tpu_torch.parallel.pipeline import onef1b
+        needs_rng, base_key, embed_key = self._dropout_setup(
+            deterministic, dropout_key, "loss_and_grad_1f1b")
+        m = self.num_microbatches
+        embed = dict(self.embed.named_parameters())
+        with torch.enable_grad():
+            x = self.embed(input_ids, token_type_ids, deterministic,
+                           embed_key)
+        stage_fn = self._build_stage_fn(
+            needs_rng, base_key, deterministic,
+            _bias(input_ids, attention_mask), input_ids.shape[0] // m)
+
+        def pl_loss(h, tgt, heads_p):
+            mlm, nsp = torch.func.functional_call(self.heads, heads_p, (h,))
+            return loss_fn(mlm, nsp, tgt)
+
+        loss, g_stage, dx, g_heads = onef1b(
+            self._pipe(), stage_fn, pl_loss,
+            dict(self.stages.named_parameters()), x.detach(), targets, m,
+            dict(self.heads.named_parameters()), microbatch_index=True)
+        g_embed = dict(zip(embed, torch.autograd.grad(
+            x, list(embed.values()), dx)))
+        grads = {**{f"embed.{k}": v for k, v in g_embed.items()},
+                 **{f"stages.{k}": v for k, v in g_stage.items()},
+                 **{f"heads.{k}": v for k, v in g_heads.items()}}
+        return loss, grads
+
+
+def _rank_name(name: str, layers_per_stage: int, rank: int):
+    """A dense :class:`BertForPreTraining` parameter's name on pipeline
+    rank ``rank``, or None when another rank holds it."""
+    if name.startswith("encoder.layer_"):
+        i, rest = name[len("encoder.layer_"):].split(".", 1)
+        stage, local = divmod(int(i), layers_per_stage)
+        return f"stages.layer_{local}.{rest}" if stage == rank else None
+    if name.startswith("encoder."):
+        return "embed." + name[len("encoder."):]
+    return "heads." + name
+
+
+def dense_to_rank(state_dict: Mapping[str, torch.Tensor], cfg: BertConfig,
+                  pp: int, rank: int) -> Dict[str, torch.Tensor]:
+    """A dense :class:`BertForPreTraining` state dict (or a gradient tree
+    of the same names) as :class:`PipelinedBert`'s on pipeline rank
+    ``rank`` of ``pp``: dense layer ``rank * L / pp + i`` becomes
+    ``stages.layer_<i>``, the embeddings ``embed.*``, the heads
+    ``heads.*``."""
+    return rank_state_dict(state_dict, _rank_name,
+                           cfg.num_hidden_layers // pp, rank)
+
+
+def params_from_jax(params: Mapping, cfg: BertConfig,
+                    rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The JAX package's ``BertForPreTraining`` param tree
     (``{"params": ...}`` or its inner dict, leaves as arrays) as this
     model's ``state_dict`` — and equally a gradient tree of the same
-    shape.  DenseGeneral q/k/v kernels (h, nh, hd) and the output kernel
-    (nh, hd, h) flatten to (h, h) and transpose into ``nn.Linear``'s
-    (out, in) layout; Dense kernels (in, out) transpose; embeddings and
-    LN scale/bias carry over as they are."""
+    shape.  A ``PipelinedBert`` tree (``{"embed", "stages", "heads"}``,
+    the stage leaves stacked on dim 0) gives pipeline rank ``rank``'s
+    state dict, row ``rank`` of each stacked leaf.  DenseGeneral q/k/v
+    kernels (h, nh, hd) and the output kernel (nh, hd, h) flatten to (h,
+    h) and transpose into ``nn.Linear``'s (out, in) layout; Dense kernels
+    (in, out) transpose; embeddings and LN scale/bias carry over as they
+    are."""
     p = params.get("params", params)
+    if "stages" in p:
+        stages = p["stages"]
+        pp = np.asarray(pytree.tree_leaves(stages)[0]).shape[0]
+        lps = cfg.num_hidden_layers // pp
+        enc = dict(p["embed"])
+        for st in range(pp):
+            for li in range(lps):
+                enc[f"layer_{st * lps + li}"] = pytree.tree_map(
+                    lambda a, st=st: np.asarray(a)[st],
+                    stages[f"layer_{li}"])
+        dense = params_from_jax({"encoder": enc, **p["heads"]}, cfg)
+        return dense_to_rank(dense, cfg, pp, 0 if rank is None else rank)
     h = cfg.hidden_size
 
     def t(a, shape=None):

@@ -70,7 +70,9 @@ rank's window of the dense activation's threefry stream
 gives this rank's (B, S_local, V) logits, and :func:`lm_loss_shard`
 takes its part of the next-token loss.
 
-Not here: the pipelined variant, and TP with SP in one model.
+Pipeline parallelism: :class:`PipelinedGPT` (one stage a rank of the
+mesh's pipe axis, over :class:`GPTEmbed` and :class:`GPTStage`).  Not
+here: TP with SP in one model.
 """
 
 from __future__ import annotations
@@ -83,11 +85,14 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models._remat import remat as remat_block
-from apex_tpu_torch.models.bert import _drop, _dropout_scope, \
+from apex_tpu_torch.models.bert import _drop, _dropout_scope, _rows, \
     attention_dropout_fn, dot_product_attention
+from apex_tpu_torch.models.pipelined_common import PipelinedCommon, \
+    rank_state_dict
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.decode_attention import (
     cached_attention,
@@ -582,7 +587,229 @@ class GPTLMHeadModel(nn.Module):
         return logits
 
 
-def params_from_jax(params: Mapping, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+class GPTEmbed(nn.Module):
+    """Token + position embeddings + dropout, split out for pipeline
+    parallelism (``wte``, ``wpe`` as :class:`GPTLMHeadModel`'s); its
+    dropout scope's root is the module (the JAX ``GPTEmbed``'s)."""
+
+    def __init__(self, cfg: GPTConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.wte = nn.Embedding(cfg.vocab_size, h, device=dev, dtype=dtype)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings, h, device=dev,
+                                dtype=dtype)
+        self.embed_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids, deterministic: bool = True,
+                dropout_key=None):
+        scope = _dropout_scope(self.cfg, deterministic, dropout_key)
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        return _drop(self.embed_dropout, self.wte(input_ids)
+                     + self.wpe(pos[None, :]), scope)
+
+
+class GPTStage(nn.Module):
+    """``n_layers`` consecutive pre-LN blocks, ``block_0`` .., one
+    pipeline stage; its dropout scope's root is the stage."""
+
+    def __init__(self, cfg: GPTConfig, n_layers: int,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg, self.n_layers = cfg, n_layers
+        self.attention_fn = attention_fn
+        for i in range(n_layers):
+            self.add_module(f"block_{i}", GPTBlock(
+                cfg, attention_fn, device=dev, dtype=dtype))
+
+    def forward(self, x, attn_bias, deterministic: bool = True,
+                dropout_key=None):
+        cfg = self.cfg
+        scope = _dropout_scope(cfg, deterministic, dropout_key)
+        scopes = [None if scope is None else scope.push(f"block_{i}")
+                  for i in range(self.n_layers)]
+        seeds = [None] * self.n_layers
+        if scope is not None and self.attention_fn is not None \
+                and cfg.attention_probs_dropout_prob > 0:
+            seeds = threefry.attention_seeds(
+                [sc.push("attention") for sc in scopes], x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i in range(self.n_layers):
+            block = getattr(self, f"block_{i}")
+            if remat:
+                x = remat_block(block, scopes[i], x, attn_bias,
+                                attention_seed=seeds[i])
+            else:
+                x = block(x, attn_bias, dropout_key=scopes[i],
+                          attention_seed=seeds[i])
+        return x
+
+
+class PipelinedGPT(PipelinedCommon, nn.Module):
+    """GPT over the mesh's ``pipe_axis`` group, one stage a rank: the
+    twin of the JAX ``PipelinedGPT`` (the decoder counterpart of
+    ``models.PipelinedBert``, the same schedules).  Rank r holds
+    ``embed.*`` (:class:`GPTEmbed`: ``wte``, ``wpe``), ``stages.block_<i>``
+    (its ``L / pp`` blocks, dense block ``r * L / pp + i``) and ``head.*``
+    (the final LayerNorm); the LM head is tied to ``embed.wte``.
+
+    ``forward`` is GPipe: the (B, S, V) fp32 logits of this rank's
+    batch.  :meth:`loss_and_grad_1f1b` is 1F1B with ``{"head", "wte"}``
+    as the schedule's ``loss_params``: ``wte``'s gradient is the
+    embedding's vjp plus the head's, summed, the tied parameter's chain
+    rule.  With ``attention_mask`` each microbatch's loss is its masked
+    SUM over the global denominator ``total_keep / (M * n_dp)`` (the
+    keep count all-reduced over the data group), so the schedule's mean
+    over microbatches and the caller's data mean give the global masked
+    mean exactly under any padding skew.  ``batch_axis``, dropout and
+    ``seed`` as in ``PipelinedBert`` (the dense model is
+    :class:`GPTLMHeadModel`)."""
+
+    def __init__(self, cfg: GPTConfig, mesh, pp: int,
+                 num_microbatches: int, pipe_axis: str = "pipe",
+                 batch_axis: Optional[str] = None,
+                 seq_axis: Optional[str] = None,
+                 tp_axis: Optional[str] = None,
+                 attention_fn: Optional[Callable] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32,
+                 seed: Optional[int] = 0):
+        nn.Module.__init__(self)
+        self._setup(cfg, mesh, pp, num_microbatches, pipe_axis, batch_axis,
+                    seq_axis, tp_axis, attention_fn,
+                    "parallel.make_ulysses_attention(seq_axis, causal=True)")
+        dev = resolve_device(device)
+        self.embed = GPTEmbed(cfg, device=dev, dtype=dtype)
+        self.stages = GPTStage(cfg, cfg.num_hidden_layers // pp,
+                               attention_fn, device=dev, dtype=dtype)
+        self.head = FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
+                                   device=dev, dtype=dtype)
+        if seed is not None:
+            self.reset_parameters(seed)
+
+    def reset_parameters(self, seed: int) -> None:
+        """The dense model's draws from ``seed``, this rank's kept."""
+        self._reset_from_dense(
+            GPTLMHeadModel(self.cfg, device="meta", seed=None), _rank_name,
+            self.stages.n_layers, seed)
+
+    def _build_stage_fn(self, needs_rng, base_key, deterministic, bias, mb):
+
+        def stage_fn(sp, h, j):
+            key = self._stage_dropout_key(base_key, j) if needs_rng \
+                else None
+            return torch.func.functional_call(
+                self.stages, sp, (h, _rows(bias, j, mb)),
+                {"deterministic": deterministic, "dropout_key": key})
+
+        return stage_fn
+
+    def _stage_inputs(self, input_ids, attention_mask, deterministic,
+                      dropout_key, caller):
+        needs_rng, base_key, embed_key = self._dropout_setup(
+            deterministic, dropout_key, caller)
+        bias = None if attention_mask is None else torch.where(
+            attention_mask[:, None, None, :] > 0, 0.0, NEG_INF).float()
+        stage_fn = self._build_stage_fn(
+            needs_rng, base_key, deterministic, bias,
+            input_ids.shape[0] // self.num_microbatches)
+        return embed_key, stage_fn
+
+    def _head(self, h, head_p, wte):
+        x = torch.func.functional_call(self.head, head_p, (h,))
+        return F.linear(x, wte).float()
+
+    def forward(self, input_ids, attention_mask=None,
+                deterministic: bool = True, dropout_key=None):
+        from apex_tpu_torch.parallel.pipeline import gpipe
+        embed_key, stage_fn = self._stage_inputs(
+            input_ids, attention_mask, deterministic, dropout_key,
+            "PipelinedGPT.apply")
+        x = self.embed(input_ids, deterministic, embed_key)
+        h = gpipe(self._pipe(), stage_fn,
+                  dict(self.stages.named_parameters()), x,
+                  self.num_microbatches, microbatch_index=True)
+        return F.linear(self.head(h), self.embed.wte.weight).float()
+
+    def loss_and_grad_1f1b(self, input_ids, targets, attention_mask=None,
+                           deterministic: bool = True, dropout_key=None):
+        """1F1B on this rank's batch: ``targets`` the (B, S) token ids the
+        loss shifts against (usually ``input_ids``).  Returns ``(loss,
+        grads)``, the gradients a ``{name: tensor}`` dict of this rank's
+        parameters, ``embed.wte.weight``'s the sum of its lookup's and
+        the LM head's; both this data index's, as
+        ``PipelinedBert.loss_and_grad_1f1b``'s."""
+        from apex_tpu_torch.parallel.pipeline import onef1b
+        embed_key, stage_fn = self._stage_inputs(
+            input_ids, attention_mask, deterministic, dropout_key,
+            "loss_and_grad_1f1b")
+        m = self.num_microbatches
+        embed = dict(self.embed.named_parameters())
+        with torch.enable_grad():
+            x = self.embed(input_ids, deterministic, embed_key)
+
+        def pl_loss(h, tgt, lp):
+            logits = self._head(h, lp["head"], lp["wte"])
+            if "mask" in tgt:
+                return (_lm_masked_sum(logits, tgt["ids"], tgt["mask"])
+                        / tgt["denom"][0])
+            return lm_loss(logits, tgt["ids"])
+
+        tgt = {"ids": targets}
+        if attention_mask is not None:
+            keep = attention_mask[:, 1:].sum().float()
+            n_dp = 1
+            if self.batch_axis and dist.is_initialized():
+                group = self.mesh.group(self.batch_axis)
+                keep = keep.clone()
+                dist.all_reduce(keep, group=group.handle)
+                n_dp = group.size()
+            tgt["mask"] = attention_mask
+            tgt["denom"] = (keep.clamp_min(1.0) / (m * n_dp)).expand(
+                targets.shape[0])
+        loss_params = {"head": dict(self.head.named_parameters()),
+                       "wte": embed["wte.weight"]}
+        loss, g_stage, dx, g_lp = onef1b(
+            self._pipe(), stage_fn, pl_loss,
+            dict(self.stages.named_parameters()), x.detach(), tgt, m,
+            loss_params, microbatch_index=True)
+        g_embed = dict(zip(embed, torch.autograd.grad(
+            x, list(embed.values()), dx)))
+        # the tied wte: the lookup's gradient and the head's, summed
+        g_embed["wte.weight"] = g_embed["wte.weight"] + g_lp["wte"]
+        grads = {**{f"embed.{k}": v for k, v in g_embed.items()},
+                 **{f"stages.{k}": v for k, v in g_stage.items()},
+                 **{f"head.{k}": v for k, v in g_lp["head"].items()}}
+        return loss, grads
+
+
+def _rank_name(name: str, layers_per_stage: int, rank: int):
+    """A dense :class:`GPTLMHeadModel` parameter's name on pipeline rank
+    ``rank``, or None when another rank holds it."""
+    if name.startswith("blocks."):
+        i, rest = name[len("blocks."):].split(".", 1)
+        stage, local = divmod(int(i), layers_per_stage)
+        return f"stages.block_{local}.{rest}" if stage == rank else None
+    if name.startswith("final_ln."):
+        return "head." + name[len("final_ln."):]
+    return "embed." + name
+
+
+def dense_to_rank(state_dict: Mapping[str, torch.Tensor], cfg: GPTConfig,
+                  pp: int, rank: int) -> Dict[str, torch.Tensor]:
+    """A dense :class:`GPTLMHeadModel` state dict (or gradient tree) as
+    :class:`PipelinedGPT`'s on pipeline rank ``rank`` of ``pp``: dense
+    block ``rank * L / pp + i`` becomes ``stages.block_<i>``, ``final_ln``
+    ``head``, ``wte``/``wpe`` ``embed.*``."""
+    return rank_state_dict(state_dict, _rank_name,
+                           cfg.num_hidden_layers // pp, rank)
+
+
+def params_from_jax(params: Mapping, cfg: GPTConfig,
+                    rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The JAX package's GPT param tree (``{"params": ...}`` or its
     inner dict, leaves as numpy arrays) as this model's ``state_dict``.
 
@@ -593,8 +820,24 @@ def params_from_jax(params: Mapping, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
     padded (:func:`padded_vocab`, the JAX example's padding under
     ``--tp``) takes a JAX tree of the padded model as it is, or one of
     the true vocab with zero rows appended; ``parallel.shard_params``
-    then cuts each TP rank's part."""
+    then cuts each TP rank's part.  A ``PipelinedGPT`` tree (``{"embed",
+    "stages", "head"}``, the stage leaves stacked on dim 0) gives
+    pipeline rank ``rank``'s state dict, row ``rank`` of each stacked
+    leaf."""
     p = params.get("params", params)
+    if "stages" in p:
+        stages = p["stages"]
+        pp = np.asarray(stages["block_0"]["mlp_in"]["kernel"]).shape[0]
+        lps = cfg.num_hidden_layers // pp
+        mono = {"wte": p["embed"]["wte"], "wpe": p["embed"]["wpe"],
+                "final_ln": p["head"]}
+        for st in range(pp):
+            for li in range(lps):
+                mono[f"block_{st * lps + li}"] = pytree.tree_map(
+                    lambda a, st=st: np.asarray(a)[st],
+                    stages[f"block_{li}"])
+        return dense_to_rank(params_from_jax(mono, cfg), cfg, pp,
+                             0 if rank is None else rank)
     h = cfg.hidden_size
     rows = np.asarray(p["wte"]["embedding"]).shape[0]
     if rows > cfg.vocab_size:

@@ -1,0 +1,142 @@
+"""Shared plumbing of the pipelined model families.
+
+Twin of ``apex_tpu/models/pipelined_common.py``: ``PipelinedBert`` and
+``PipelinedGPT`` differ in their stage bodies and loss heads but share
+the dropout prologue and the per-(microbatch, stage[, data index]) key
+chain, so one copy lives here.  The mixin reads the attributes both
+families set: ``mesh``, ``pipe_axis``, ``batch_axis``,
+``num_microbatches`` and ``cfg`` (with ``hidden_dropout_prob`` and
+``attention_probs_dropout_prob``).
+
+Each rank of the port holds one stage, so the keys are computed on the
+host from the microbatch's index and this rank's coordinates: nothing
+is read back from the device.  Not here yet: the tensor-parallel
+methods (``param_spec_tree``, ``shard_variables``, ``constrain_grads``)
+and the sequence axis; a pipelined model built with ``tp_axis`` or
+``seq_axis`` raises (ROADMAP A.10).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+import torch.distributed as dist
+
+from apex_tpu_torch.ops import threefry
+
+#: the embed key's fold_in index, far outside the microbatch ids the
+#: stage keys fold in
+EMBED_FOLD = 2 ** 20
+
+
+def rank_state_dict(state_dict: Mapping[str, torch.Tensor],
+                    rank_name: Callable, layers_per_stage: int,
+                    rank: int) -> Dict[str, torch.Tensor]:
+    """The entries of a dense model's ``state_dict`` (or gradient tree)
+    that pipeline rank ``rank`` holds, under its names (``rank_name(name,
+    layers_per_stage, rank)``, None for another rank's)."""
+    out = {}
+    for name, t in state_dict.items():
+        local = rank_name(name, layers_per_stage, rank)
+        if local is not None:
+            out[local] = t
+    return out
+
+
+class PipelinedCommon:
+
+    def _setup(self, cfg, mesh, pp: int, num_microbatches: int,
+               pipe_axis: str, batch_axis, seq_axis, tp_axis, attention_fn,
+               sp_factory: str) -> None:
+        """The checks and attributes both families' ``__init__`` share;
+        ``sp_factory`` names the sequence-parallel attention a
+        ``seq_axis`` would take, for the error."""
+        if cfg.num_hidden_layers % pp:
+            raise ValueError(
+                f"num_hidden_layers={cfg.num_hidden_layers} must divide "
+                f"into pp={pp} equal stages")
+        if seq_axis is not None and attention_fn is None:
+            raise ValueError(
+                "seq_axis requires a sequence-parallel attention_fn for "
+                f"the same axis ({sp_factory}) — plain attention would "
+                "silently attend only within each sequence shard")
+        if tp_axis is not None or seq_axis is not None:
+            raise NotImplementedError(
+                "a pipelined model with a tensor-parallel or sequence axis "
+                "is not ported yet (ROADMAP A.10: TP and SP inside the "
+                "pipeline)")
+        if dist.is_initialized() and mesh.shape[pipe_axis] != pp:
+            raise ValueError(f"pp={pp} but the mesh's {pipe_axis!r} axis "
+                             f"has {mesh.shape[pipe_axis]} ranks")
+        self.cfg, self.mesh, self.pp = cfg, mesh, pp
+        self.num_microbatches = num_microbatches
+        self.pipe_axis, self.batch_axis = pipe_axis, batch_axis
+        self.attention_fn = attention_fn
+
+    def _pipe(self):
+        return self.mesh.group(self.pipe_axis) if dist.is_initialized() \
+            else None
+
+    @torch.no_grad()
+    def _reset_from_dense(self, dense, rank_name: Callable,
+                          layers_per_stage: int, seed: int) -> None:
+        """The dense model's draws from ``seed`` (normal(initializer_range)
+        for every weight in its parameter order, unit LN scales, zero
+        biases), this rank's kept: the ranks together hold the dense
+        model's weights.  ``dense`` is the dense model on ``meta``."""
+        gen = torch.Generator().manual_seed(int(seed))
+        std = self.cfg.initializer_range
+        mine = dict(self.named_parameters())
+        r = self._coord(self.pipe_axis)
+        for name, p in dense.named_parameters():
+            if name.endswith("_ln.scale"):
+                fill = torch.ones(())
+            elif name.endswith("bias"):
+                fill = torch.zeros(())
+            else:
+                fill = torch.empty(p.shape, dtype=torch.float32).normal_(
+                    0.0, std, generator=gen)
+            local = rank_name(name, layers_per_stage, r)
+            if local is not None:
+                mine[local].copy_(fill)
+
+    def _coord(self, axis: Optional[str]) -> int:
+        if axis is None or not dist.is_initialized():
+            return 0
+        return self.mesh.index(axis)
+
+    def _microbatch_ids(self, h: torch.Tensor) -> torch.Tensor:
+        """One microbatch id per row, as the schedules split the (local)
+        batch: contiguous groups of b / M rows."""
+        b = h.shape[0]
+        return torch.arange(b, dtype=torch.int32, device=h.device) // \
+            max(1, b // self.num_microbatches)
+
+    def _stage_dropout_key(self, base_key, mb: int) -> threefry.Key:
+        """The key of microbatch ``mb`` on this rank's stage: ``base_key``
+        with the microbatch id, the pipe index and (with ``batch_axis``)
+        the data index folded in, in that order."""
+        key = threefry.fold_in(base_key, mb)
+        key = threefry.fold_in(key, self._coord(self.pipe_axis))
+        if self.batch_axis:
+            key = threefry.fold_in(key, self._coord(self.batch_axis))
+        return key
+
+    def _dropout_setup(self, deterministic: bool, dropout_key, caller: str):
+        """The rng prologue of both training paths: ``(needs_rng,
+        base_key, embed_key)``, the embed key ``fold_in(base_key,
+        2**20)``."""
+        cfg = self.cfg
+        needs_rng = not deterministic and (
+            cfg.hidden_dropout_prob > 0
+            or cfg.attention_probs_dropout_prob > 0)
+        if not needs_rng:
+            return False, None, None
+        if dropout_key is None:
+            raise ValueError(
+                f"{caller}(deterministic=False) with dropout in the "
+                "config needs dropout_key= (the JAX model's "
+                "rngs={'dropout': key})")
+        base_key = threefry.as_key(dropout_key)
+        return True, base_key, threefry.fold_in(base_key, EMBED_FOLD)

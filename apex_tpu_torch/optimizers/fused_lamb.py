@@ -28,9 +28,17 @@ nothing is read back to the host.
 
 Parameter names are the trees' dotted leaf names
 (``param_groups.leaf_names``; a ``{name: tensor}`` dict's keys):
-``param_groups`` match them, and ``exclude_from_layer_adaptation`` is a
-predicate on them.  Not here yet: ``per_slice_trust_ratio`` and
-``add_param_group`` (the pipelined BERT's).
+``param_groups`` match them, and ``exclude_from_layer_adaptation`` and
+``per_slice_trust_ratio`` are predicates on them.
+
+Pipeline parallelism: a ``PipelinedBert`` rank holds one stage, so the
+global clipping norm (the JAX optimizer's over the whole tree, every
+stage once) is the stage leaves' squares summed over the pipe group plus
+the replicated leaves' counted once:
+``with_model_parallel(group, sharded)``, as ``FusedAdam``'s.  The
+port's stage leaves are one tensor a layer, so each already gets its
+own trust ratio; ``per_slice_trust_ratio`` is for stacked leaves (the
+JAX ``(pp, ...)`` layout) and a pipelined port rank does not pass it.
 """
 
 from __future__ import annotations
@@ -77,7 +85,11 @@ class FusedLAMB:
     practice for bias and LayerNorm parameters).  ``param_groups``:
     name-matched group specs with ``lr`` / ``weight_decay`` / ``eps``
     overrides, resolved per leaf; ``betas`` and ``max_grad_norm`` stay
-    global.  ``trust_clip``: optional upper bound on the ratio."""
+    global.  ``trust_clip``: optional upper bound on the ratio.
+    ``per_slice_trust_ratio``: optional predicate ``f(name) -> bool``
+    marking leaves that are stacks of per-layer tensors along dim 0:
+    each dim-0 slice gets its own trust ratio, as if the layers were
+    separate leaves."""
 
     # AmpOptimizer hands the overflow flag to step(skip=...): the select
     # runs inside the per-leaf update, without a host sync
@@ -88,7 +100,8 @@ class FusedLAMB:
                  eps: float = 1e-6, weight_decay: float = 0.01,
                  max_grad_norm: float = 1.0,
                  trust_clip: Optional[float] = None,
-                 exclude_from_layer_adaptation=None, param_groups=None):
+                 exclude_from_layer_adaptation=None, param_groups=None,
+                 per_slice_trust_ratio=None):
         self.lr = float(lr)
         self.betas = (float(betas[0]), float(betas[1]))
         self.eps = float(eps)
@@ -96,11 +109,58 @@ class FusedLAMB:
         self.max_grad_norm = float(max_grad_norm)
         self.trust_clip = trust_clip
         self.exclude_from_layer_adaptation = exclude_from_layer_adaptation
+        self.per_slice_trust_ratio = per_slice_trust_ratio
         self.param_groups = list(param_groups) if param_groups else []
         if self.param_groups:
             validate_specs(self.param_groups, ("lr", "weight_decay", "eps"),
                            "FusedLAMB")
         self._plans: Dict[Tuple, _Plan] = {}
+        self._mp = None     # (group, {name: sharded}): model parallel
+
+    def _args(self) -> dict:
+        return dict(lr=self.lr, betas=self.betas, eps=self.eps,
+                    weight_decay=self.weight_decay,
+                    max_grad_norm=self.max_grad_norm,
+                    trust_clip=self.trust_clip,
+                    exclude_from_layer_adaptation=(
+                        self.exclude_from_layer_adaptation),
+                    param_groups=self.param_groups,
+                    per_slice_trust_ratio=self.per_slice_trust_ratio)
+
+    def with_model_parallel(self, group, sharded) -> "FusedLAMB":
+        """A copy whose clipping norm is the model's over ``group`` (the
+        pipe group: each rank holds one stage): ``sharded`` maps each
+        dotted parameter name to whether its leaf is this rank's alone
+        (squares summed over the group) or the same on every rank
+        (counted once)."""
+        new = FusedLAMB(**self._args())
+        new._mp = (group, dict(sharded))
+        return new
+
+    def add_param_group(self, state: FusedLAMBState, params: Tree, match,
+                        **overrides):
+        """``(new_optimizer, new_state)``: the ``match``-ed leaves use
+        ``overrides`` from now on (the newest group first, so it wins
+        over older ones); the moments carry over by leaf name (new leaves
+        start at zero)."""
+        args = self._args()
+        args["param_groups"] = [dict(match=match, **overrides)] \
+            + self.param_groups
+        new = FusedLAMB(**args)
+        new._mp = self._mp
+        old_m = dict(zip(leaf_names(state.m), pytree.tree_leaves(state.m)))
+        old_v = dict(zip(leaf_names(state.v), pytree.tree_leaves(state.v)))
+        fresh = new.init(params)
+        m_leaves, spec = pytree.tree_flatten(fresh.m)
+        v_leaves = pytree.tree_leaves(fresh.v)
+        m_out, v_out = [], []
+        for name, m, v in zip(leaf_names(fresh.m), m_leaves, v_leaves):
+            keep = name in old_m and old_m[name].shape == m.shape
+            m_out.append(old_m[name] if keep else m)
+            v_out.append(old_v[name] if keep else v)
+        return new, FusedLAMBState(step=state.step,
+                                   m=pytree.tree_unflatten(m_out, spec),
+                                   v=pytree.tree_unflatten(v_out, spec))
 
     def _plan(self, names: Tuple[str, ...], device) -> _Plan:
         key = (names, torch.device(device))
@@ -159,7 +219,13 @@ class FusedLAMB:
         beta1, beta2 = self.betas
 
         # stage 0: global grad-norm clipping
-        gnorm = multi_tensor_l2norm(grads)
+        if self._mp is not None:
+            from apex_tpu_torch.parallel.tensor_parallel import tp_grad_norm
+            group, sharded = self._mp
+            gnorm = tp_grad_norm(dict(zip(leaf_names(grads), g_leaves)),
+                                 sharded, group, state.step.device)
+        else:
+            gnorm = multi_tensor_l2norm(grads)
         clip = torch.where(gnorm > self.max_grad_norm,
                            gnorm / self.max_grad_norm, 1.0)
 
@@ -193,12 +259,30 @@ class FusedLAMB:
         if self.trust_clip is not None:
             ratio = torch.clamp_max(ratio, float(self.trust_clip))
         ratio = torch.where(plan.excluded, 1.0, ratio)
-        deltas = torch._foreach_mul(upd, list((plan.neg_lr * ratio)
-                                              .unbind()))
+        factors = list((plan.neg_lr * ratio).unbind())
+        if self.per_slice_trust_ratio is not None:
+            for i, name in enumerate(leaf_names(params)):
+                if self.per_slice_trust_ratio(name):
+                    factors[i] = self._slice_factor(p32[i], upd[i],
+                                                    plan.neg_lr[i],
+                                                    plan.excluded[i])
+        deltas = torch._foreach_mul(upd, factors)
         new_state = FusedLAMBState(step=step,
                                    m=pytree.tree_unflatten(m2, spec),
                                    v=pytree.tree_unflatten(v2, spec))
         return deltas, keep, new_state, (p_leaves, spec)
+
+    def _slice_factor(self, p, upd, neg_lr, excluded):
+        """``-lr * ratio`` of a stacked leaf, one ratio for each dim-0
+        slice, shaped to broadcast over the stack."""
+        dims = tuple(range(1, upd.dim()))
+        pn = torch.sqrt(torch.sum(p * p, dim=dims))
+        un = torch.sqrt(torch.sum(upd * upd, dim=dims))
+        ratio = torch.where((pn > 0) & (un > 0), pn / un, 1.0)
+        if self.trust_clip is not None:
+            ratio = torch.clamp_max(ratio, float(self.trust_clip))
+        ratio = torch.where(excluded, 1.0, ratio)
+        return (neg_lr * ratio).reshape((-1,) + (1,) * (upd.dim() - 1))
 
     def update(self, grads: Tree, state: FusedLAMBState,
                params: Optional[Tree] = None, *, skip=None):

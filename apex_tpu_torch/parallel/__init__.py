@@ -7,10 +7,12 @@ groups and the launcher.  One process per GPU: NCCL on the card, gloo
 on the CPU.  Megatron tensor parallelism (``tensor_parallel``: the rules
 and the split; the (data, sp, model) rank mesh ``create_mesh``; the
 collectives ``copy_to_group`` / ``reduce_from_group``), ZeRO-1/2
-(``zero``) and sequence parallelism (``sequence``: ring and Ulysses
-attention over the collectives ``ppermute_g`` / ``all_to_all_g``).
+(``zero``), sequence parallelism (``sequence``: ring and Ulysses
+attention over the collectives ``ppermute_g`` / ``all_to_all_g``) and
+pipeline parallelism (``pipeline``: GPipe and 1F1B over the stage hop
+``shift_g``, one stage a rank of the mesh's pipe axis).
 
-Not here yet: pipeline parallelism, expert parallelism.
+Not here yet: expert parallelism.
 """
 
 from apex_tpu_torch.parallel.LARC import LARC
@@ -25,6 +27,7 @@ from apex_tpu_torch.parallel.collectives import (
     psum_g,
     reduce_from_group,
     reduce_scatter_flat,
+    shift_g,
 )
 from apex_tpu_torch.parallel.distributed import (
     DistributedDataParallel,
@@ -36,6 +39,14 @@ from apex_tpu_torch.parallel.distributed import (
 from apex_tpu_torch.parallel.mesh import Mesh, ProcessGroup, create_mesh, \
     create_process_group
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
+from apex_tpu_torch.parallel.pipeline import (
+    gpipe,
+    gpipe_spmd,
+    onef1b,
+    onef1b_loss_and_grad,
+    onef1b_spmd,
+    pipeline_apply,
+)
 from apex_tpu_torch.parallel.sequence import (
     make_ring_attention,
     make_ulysses_attention,
@@ -91,12 +102,18 @@ __all__ = [
     "create_mesh",
     "create_process_group",
     "create_syncbn_process_group",
+    "gpipe",
+    "gpipe_spmd",
     "gpt_tp_rules",
     "initialize_distributed",
     "make_ring_attention",
     "make_ulysses_attention",
     "merge_stats",
+    "onef1b",
+    "onef1b_loss_and_grad",
+    "onef1b_spmd",
     "param_specs",
+    "pipeline_apply",
     "pmax_g",
     "pmean_g",
     "ppermute_g",
@@ -106,6 +123,7 @@ __all__ = [
     "ring_attention",
     "shard_optimizer_state",
     "shard_params",
+    "shift_g",
     "ulysses_attention",
     "unshard_optimizer_state",
     "welford_combine",

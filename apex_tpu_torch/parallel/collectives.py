@@ -270,6 +270,73 @@ def ppermute_g(x: torch.Tensor, group: ProcessGroup,
     return _PPermute.apply(x, group, int(shift))
 
 
+def _shift(x: torch.Tensor, group: ProcessGroup, shift: int,
+           senders=None) -> torch.Tensor:
+    """The hop's pairs ``(i, i + shift)`` that fit in the group; with
+    ``senders`` (group indices) only the pairs whose sender is in it, so
+    a rank whose source does not send gets zeros and a rank that does
+    not send takes part only as a receiver (``x`` its buffer's
+    template)."""
+    n, r = group.size(), group.rank()
+    members = group.members()
+    x = x.contiguous()
+    src, dst = r - shift, r + shift
+
+    def sends(i):
+        return 0 <= i + shift < n and (senders is None or i in senders)
+    if _native(group):
+        ops = []
+        if sends(r):
+            ops.append(dist.P2POp(dist.isend, x, members[dst],
+                                  group=group.handle))
+        out = torch.zeros_like(x)
+        if 0 <= src < n and sends(src):
+            ops.append(dist.P2POp(dist.irecv, out, members[src],
+                                  group=group.handle))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return out
+    out = None
+    for i, member in enumerate(members):
+        if not sends(i):
+            continue            # rank i sends to no one: no broadcast
+        buf = x if i == r else torch.empty_like(x)
+        dist.broadcast(buf, src=member, group=group.handle)
+        if i == src:
+            out = buf
+    return torch.zeros_like(x) if out is None else out
+
+
+class _Shift(torch.autograd.Function):
+    """Each rank's ``x`` to the rank ``shift`` after it, if there is one;
+    the backward sends the gradients back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Shift.apply(grad, ctx.group, -ctx.shift), None, None
+
+
+def shift_g(x: torch.Tensor, group: ProcessGroup,
+            shift: int = 1) -> torch.Tensor:
+    """The pipeline's hop: rank i of ``group`` sends ``x`` to rank ``i +
+    shift`` when that rank exists and returns what rank ``i - shift``
+    sent, or zeros where there is no such rank (``lax.ppermute`` with
+    the pairs ``(i, i + shift)`` that fit in the group, no wrap-around);
+    differentiable, its backward the reverse shift.  Every rank of the
+    group must call it, with a tensor of the same shape and dtype.
+    NCCL: one ``batch_isend_irecv`` of the pairs that exist; other
+    backends: a ``broadcast`` per sending rank."""
+    if not _initialized():
+        return torch.zeros_like(x) if shift else x
+    return _Shift.apply(x, group, int(shift))
+
+
 def _all_to_all(x: torch.Tensor, group: ProcessGroup, split_dim: int,
                 concat_dim: int) -> torch.Tensor:
     n, r = group.size(), group.rank()

@@ -168,7 +168,7 @@ class DistributedDataParallel:
                 flat, fspec = flatten([leaves[i] for i in run], dtype=dt)
                 if f != 1.0:
                     flat.div_(f)
-                if _initialized():
+                if n > 1:
                     dist.all_reduce(flat, group=self.process_group.handle)
                 if self.gradient_average:
                     flat.mul_(f / n)

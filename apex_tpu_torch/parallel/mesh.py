@@ -7,10 +7,12 @@ partition of the world's ranks into equal groups plus the
 the whole world (the default group).
 
 :func:`create_mesh` is the twin of the JAX examples' ``Mesh(devices
-.reshape(dp, sp, tp), ("data", "sp", "model"))``: rank r sits at data
-index ``r // (sp * tp)``, sequence index ``(r // tp) % sp`` and model
-index ``r % tp``, so the model groups are contiguous and the sequence
-and data groups strided.
+.reshape(dp, sp, tp), ("data", "sp", "model"))`` and of the BERT
+example's ``Mesh(devices.reshape(dp, pp), ("data", "pipe"))`` (with a
+sequence axis ``(dp, sp, pp)``): rank r sits at data index ``r // (sp *
+pp * tp)``, sequence index ``(r // (pp * tp)) % sp``, pipe index ``(r //
+tp) % pp`` and model index ``r % tp``, so the model groups are
+contiguous and the pipe, sequence and data groups strided.
 """
 
 from __future__ import annotations
@@ -94,10 +96,10 @@ def create_process_group(group_size: Optional[int] = None,
 
 
 class Mesh(NamedTuple):
-    """A (data, sp, model) rank mesh: ``shape`` maps each axis name to
-    its size, ``groups`` each axis to this rank's ``ProcessGroup`` along
-    it (empty for a mesh made only to read shapes, as ``param_specs``
-    does)."""
+    """A (data, sp, pipe, model) rank mesh: ``shape`` maps each axis name
+    to its size, ``groups`` each axis to this rank's ``ProcessGroup``
+    along it (empty for a mesh made only to read shapes, as
+    ``param_specs`` does)."""
 
     shape: Dict[str, int]
     groups: Dict[str, ProcessGroup] = {}
@@ -110,28 +112,42 @@ class Mesh(NamedTuple):
         return self.groups[axis].rank()
 
 
-def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1) -> Mesh:
-    """The world as a ``(dp, sp, tp)`` mesh with axes ``"data"``,
-    ``"sp"`` and ``"model"`` (``dp`` defaults to world size // (``sp``
-    * ``tp``)): rank r is data index ``r // (sp * tp)``, sequence index
-    ``(r // tp) % sp``, model index ``r % tp``.  The model groups are
-    contiguous, the sequence groups strided by ``tp``, the data groups
-    by ``sp * tp``.  Every rank must call it in the same order as every
-    other rank; every group is made on every rank, the model groups
-    first, then the data groups, then the sequence groups (a ``(dp,
-    tp)`` mesh makes the same model and data groups as before the
-    sequence axis)."""
+def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1,
+                pp: int = 1) -> Mesh:
+    """The world as a ``(dp, sp, pp, tp)`` mesh with axes ``"data"``,
+    ``"sp"``, ``"pipe"`` and ``"model"`` (``dp`` defaults to world size
+    // (``sp`` * ``pp`` * ``tp``)): rank r is data index ``r // (sp * pp
+    * tp)``, sequence index ``(r // (pp * tp)) % sp``, pipe index ``(r //
+    tp) % pp``, model index ``r % tp``.  The model groups are
+    contiguous, the pipe groups strided by ``tp``, the sequence groups by
+    ``pp * tp``, the data groups by ``sp * pp * tp``.  Every rank must
+    call it in the same order as every other rank; every group is made
+    on every rank, the model groups first, then the data, sequence and
+    pipe groups (at ``pp`` 1 the ranks and the first three axes' groups
+    are those of the ``(dp, sp, tp)`` mesh).  The pipe axis with a
+    sequence or model axis above 1 waits for ROADMAP A.10's next item
+    (pipeline parallelism with TP and SP)."""
     world = dist.get_world_size()
-    inner = sp * tp
+    inner = sp * pp * tp
     if dp is None:
         dp = world // inner if inner > 0 else 0
-    if tp <= 0 or sp <= 0 or dp <= 0 or dp * inner != world:
-        raise ValueError(f"mesh ({dp}, {sp}, {tp}) does not tile a world "
-                         f"of {world} ranks")
+    if min(tp, sp, pp, dp) <= 0 or dp * inner != world:
+        raise ValueError(f"mesh ({dp}, {sp}, {pp}, {tp}) does not tile a "
+                         f"world of {world} ranks")
+    if pp > 1 and (sp > 1 or tp > 1):
+        raise NotImplementedError(
+            "a pipe axis beside a sequence or model axis is not ported yet "
+            "(ROADMAP A.10: TP and SP inside the pipeline)")
     model = _new_groups([tuple(range(g * tp, (g + 1) * tp))
-                         for g in range(dp * sp)])
+                         for g in range(dp * sp * pp)])
     data = _new_groups([tuple(range(j, world, inner)) for j in range(inner)])
-    seq = _new_groups([tuple(d * inner + s * tp + m for s in range(sp))
-                       for d in range(dp) for m in range(tp)])
-    return Mesh({"data": dp, "sp": sp, "model": tp},
-                {"data": data, "sp": seq, "model": model})
+    seq = _new_groups([tuple(d * inner + s * pp * tp + q * tp + m
+                             for s in range(sp))
+                       for d in range(dp) for q in range(pp)
+                       for m in range(tp)])
+    pipe = _new_groups([tuple(d * inner + s * pp * tp + q * tp + m
+                              for q in range(pp))
+                        for d in range(dp) for s in range(sp)
+                        for m in range(tp)])
+    return Mesh({"data": dp, "sp": sp, "pipe": pp, "model": tp},
+                {"data": data, "sp": seq, "pipe": pipe, "model": model})

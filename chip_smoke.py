@@ -302,6 +302,46 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with an lse cotangent, B4d-B6d at a hop's row offset), each against
    its plain version; the JSON line carries them as ``sp_hop``.
 
+19. train_pp — pipeline parallelism, the ranks as processes over gloo
+   on the one card (CUDA tensors), each rank one stage of
+   ``models.PipelinedBert`` through ``bert_main_amp``: ``train(...,
+   pp=2, pp_schedule=, pp_microbatches=)`` for the O2 runs, its
+   ``build`` and ``train_step`` where a step's gradients or params are
+   read, against one
+   process's dense ``BertForPreTraining`` from the same seed (each
+   rank's stage the dense layers ``r * 12 + i``), TF32 off; its first
+   line is the prediction (``PP_PREDICTION``) written before any chip
+   reading (its ``r2_*`` entries before the second round's):
+   (a) BERT-large at ``--pp 2`` (B 32, S 128, M 4, flash attention),
+       GPipe and 1F1B: O0 2 steps (losses <= 1e-4 relative, step-1
+       gradients of the embeddings' LayerNorm, the first and last
+       layer of each stage and the heads <= 1e-4 scale-aware), GPipe
+       against 1F1B params after step 1 <= 1e-5, O2 3 steps within
+       2e-2; step ms, tokens/s for the pair, peak a rank, collective
+       calls a step, launches exact (``_pp_launches``: 1F1B runs the
+       stage forward twice but on the last stage, and the heads on the
+       last stage only; paths ``train_pp_gpipe``, ``train_pp_1f1b``);
+   (b) O2 at M 4 (B 32) and M 8 (B 64), a microbatch of 8 rows: GPipe's
+       peak a rank grows with M, 1F1B's by less than ``PP_MEM_1F1B_GB``;
+       the schedule's own memory (``_PipeMemory``): GPipe's held at its
+       return grows with M, 1F1B's peak inside it by less than
+       ``PP_PIPE_1F1B_GB`` and a quarter of GPipe's growth;
+   (c) dp 2 x pp 2, four processes, 16 rows a data index: one O0 step of
+       each schedule (the gradients the data group's mean, the losses
+       the data index's, their mean) against the dense process on the
+       32 rows;
+   (d) dropout 0.1 (hidden and attention, the flash kernels' dropout
+       branches and threefry on the stage key chain): 1F1B's gradients
+       within 1e-5 of GPipe autodiff's at the same key, launches exact
+       (path ``train_pp_dropout``);
+   (e) GPT-2 small's ``PipelinedGPT`` at pp 2 (B 8, S 1024, M 4), 1F1B
+       with skewed padding (``PP_GPT_LENS``), O0: the loss within 1e-4
+       of the dense masked ``lm_loss``, the tied ``wte`` gradient within
+       1e-4 scale-aware, launches exact (path ``train_pp_gpt``).
+   The kernels phase times B4, B5 and B6 at one microbatch of (a),
+   8 x 128 x 16 x 64 bf16 (``_pp_mb_rows``), against their plain
+   versions and SDPA; the JSON line carries them as ``pp_microbatch``.
+
 The O1 phases run last, and each ends by removing the policy, resetting
 amp's state and checking every patched function is its original again.
 When every phase runs, every kernel of the JSON line must have been
@@ -870,7 +910,7 @@ def _flash_variants(torch):
                 "plain_ms": median_ms(plain, iters),
                 "library_ms": median_ms(library, iters),
                 "bound_ms": bms, "bound_by": by})
-    return out + _sp_hop_rows(torch, "fwd")
+    return out + _sp_hop_rows(torch, "fwd") + _pp_mb_rows(torch, "fwd")
 
 
 # the bias patterns the decode rows are timed at: the engine's (random
@@ -1182,7 +1222,7 @@ def _flash_bwd_variants(torch, which):
                 "plain_ms": median_ms(plain, iters),
                 "library_ms": median_ms(library, iters),
                 "bound_ms": bms, "bound_by": by})
-    return out + _sp_hop_rows(torch, which)
+    return out + _sp_hop_rows(torch, which) + _pp_mb_rows(torch, which)
 
 
 # a ring hop at GPT-2 small's --sp 2 training step: each rank's 512 of
@@ -1324,6 +1364,82 @@ def _sp_hop_rows(torch, which):
         (6 if base == "dq" else 8) * pairs * d,
         dlse_max=float(dlse.abs().max()), **extra)
     return rows
+
+
+# one microbatch of BERT-large's --pp 2 step (B 32, M 4), bf16 (O2)
+PP_MB = (8, 128, 16, 64)
+
+
+def _pp_mb_rows(torch, which):
+    """B4 (``which="fwd"``), B5 (``"dq"``) or B6 (``"dkv"``) at the launch
+    size pipelining gives them on one card: one microbatch of BERT-large
+    (``PP_MB``, non-causal, no mask, bf16), against its plain version,
+    SDPA at the same shape and the bound (``pp_mode`` names the row)."""
+    import torch.nn.functional as F
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    bsz, s, h, d = PP_MB
+    dtype, dt = torch.bfloat16, "bfloat16"
+    g = torch.Generator(device="cuda").manual_seed(808)
+    q, k, v, do = (torch.randn(bsz, s, h, d, device="cuda",
+                               generator=g).to(dtype) for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    isz = q.element_size()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    pairs = bsz * h * s * s
+    if which == "fwd":
+        def kernel():
+            return fa.flash_attention_fwd(q, k, v, None, False, scale)
+
+        def plain():
+            return fa._reference(q, k, v, None, False, scale,
+                                 return_lse=True)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+        nbytes = 4 * bsz * s * h * d * isz + bsz * h * s * 4
+        flops = 4 * pairs * d
+    else:
+        po, plse = fa._reference(q, k, v, None, False, scale,
+                                 return_lse=True)
+        delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1) \
+            .contiguous()
+        args = (q, k, v, do, plse, delta, None, False, scale)
+        kfn = {"dq": fa.flash_attention_bwd_dq,
+               "dkv": fa.flash_attention_bwd_dkv}[which]
+        pfn = {"dq": fa._bwd_dq_reference,
+               "dkv": fa._bwd_dkv_reference}[which]
+        so = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+
+        def kernel():
+            return kfn(*args)
+
+        def plain():
+            return pfn(*args)
+
+        def library():
+            return torch.autograd.grad(so, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        n_out = (1 if which == "dq" else 2) * bsz * s * h * d * isz
+        nbytes = 4 * bsz * s * h * d * isz + 2 * bsz * h * s * 4 + n_out
+        flops = (6 if which == "dq" else 8) * pairs * d
+    got, want = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rel = max_abs = 0.0
+    for a, b in zip(got, want):
+        r, m = _check(f"flash {which} pp microbatch",
+                      dt if a.dtype == dtype else "float32", a, b)
+        rel, max_abs = max(rel, r), max(max_abs, m)
+    bms, by = bound(nbytes, flops, dt)
+    return [{"shape": list(PP_MB), "dtype": dt, "design": _design(dt),
+             "pp_mode": "microbatch", "causal": False, "rel_err": rel,
+             "max_abs_err": max_abs,
+             "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
+             "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
+             "library_ms": median_ms(library, TIMED_LAUNCHES_LARGE),
+             "bound_ms": bms, "bound_by": by}]
 
 
 def _mask_readback(torch, fa, which, dtype):
@@ -1906,6 +2022,13 @@ def phase_kernels():
             if key in r} for r in rows if "sp_mode" in r}
         if hops:
             results[name]["sp_hop"] = hops
+        # one microbatch of BERT-large's --pp 2 step
+        mb = next((r for r in rows if r.get("pp_mode") == "microbatch"),
+                  None)
+        if mb is not None:
+            results[name]["pp_microbatch"] = {key: mb[key] for key in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "kernels.json").write_text(json.dumps(results, indent=1))
     return results
@@ -5207,10 +5330,631 @@ def phase_train_sp():
     return by_path
 
 
+# the pipeline paths: BERT-large at --pp 2 (B 32, S 128, M 4), GPipe and
+# 1F1B, as two processes over gloo on the one card against one dense
+# process; the memory claim at M 4 and M 8; dp 2 x pp 2 as four
+# processes; dropout through PipelinedBert; GPT-2 small's PipelinedGPT
+PP, PP_BATCH, PP_SEQ, PP_M = 2, 32, 128, 4
+PP_O0_STEPS, PP_O2_STEPS = 2, 3
+PP_TOL = 1e-4             # O0 against one process: losses relative,
+                          # step-1 grads scale-aware
+PP_SCHED_TOL = 1e-5       # GPipe against 1F1B: params after step 1,
+                          # and (d)'s gradients, scale-aware
+PP_MEM = ((4, 32), (8, 64))        # (M, B): a microbatch of 8 rows
+PP_MEM_1F1B_GB = 0.7      # (b): 1F1B's step peak grows less from M 4 to 8
+PP_PIPE_1F1B_GB = 0.1     # (b): and its schedule's own peak grows less
+                          # (S saved inputs of 2 MB, no tick's graph kept)
+PP_DP_BATCH = 16          # (c): the rows of a data index
+PP_GPT_LENS = (1024, 17, 700, 301, 1024, 5, 512, 64)   # (e)'s padding
+# the gradients the dense process writes for the ranks: the embeddings'
+# LayerNorm, the first and last layer of each stage and the heads but
+# the 31M-row decoder
+PP_GRADS = re.compile(r"embeddings_ln|layer_0\.|layer_11\.|layer_12\.|"
+                      r"layer_23\.|pooler|nsp_classifier|mlm_transform|"
+                      r"mlm_ln")
+PP_PREDICTION = {
+    "a_losses_O0": "within 1e-4 relative of the dense process, step-1 "
+                   "gradients within 1e-4 scale-aware; GPipe and 1F1B "
+                   "params after step 1 within 1e-5",
+    "a_O2": "within 2e-2 of dense O2 every step",
+    "a_step_ms_O2": "GPipe 450-900, 1F1B 550-1100 (gloo hops and the "
+                    "heads' gradient broadcast through the host)",
+    "a_tokens_per_s_pair_O2": "GPipe 4.5k-9k, 1F1B 3.7k-7.5k",
+    "a_peak_gb_rank_O2": "GPipe 6-10, 1F1B 4-7",
+    "a_collectives_a_step": "GPipe 8 hop broadcasts, 4 output "
+                            "all-reduces (... per leaf), 1 dx broadcast; "
+                            "1F1B 20 hop broadcasts and the loss, dx and "
+                            "head-gradient broadcasts",
+    "a_launches": "exact: GPipe B2 = B3 = 2 + 2*12*4 = 98, B4-B6 48; "
+                  "1F1B B2 1 + 4*12*4 (+4 on the last stage), B3 "
+                  "1 + 2*12*4 (+4), B4 96, B5 = B6 48",
+    "b_memory": "GPipe's peak grows by 1.5-3 GB a rank from M 4 to M 8; "
+                "1F1B's grows by under 0.7 GB (the batch and its "
+                "embeddings double, the saved stage inputs stay at S)",
+    "c_dp2_pp2": "within 1e-4 of the dense process",
+    "d_dropout": "1F1B within 1e-5 of GPipe autodiff at the same key",
+    "e_gpt": "masked loss within 1e-4 relative of the dense lm_loss, "
+             "tied wte gradient within 1e-4 scale-aware",
+    "phase_s": "80-130",
+    # written after the first round of readings and before the run that
+    # takes these: the last stage's forward tick only saves its input,
+    # a hop runs only with the stages that send, the O2 runs go through
+    # bert_main_amp.train, and the schedule's own memory is read
+    "r2_step_ms_O2": "GPipe 320-390 as before; 1F1B 380-470 (from "
+                     "480-530: the last stage's M stage forwards and 12 "
+                     "of 20 hop broadcasts gone)",
+    "r2_collectives_a_step": "GPipe 8 hop broadcasts as before; 1F1B 8 "
+                             "hop broadcasts (from 20)",
+    "r2_b_schedule_memory": "M 4 to M 8: GPipe's held at its return "
+                            "grows 1.2-2.5 GB a rank (0.3-0.6 GB a "
+                            "microbatch of 8 rows: 12 layers' saved "
+                            "activations); 1F1B's schedule peak grows "
+                            "under 0.1 GB",
+    "r2_b_step_peak": "the step peak still grows by about 0.5 GB under "
+                      "GPipe: the fp32 MLM logits of the 32 extra rows "
+                      "(32x128x30522x4 B), which GPipe's heads take on "
+                      "the whole batch and 1F1B's on one microbatch",
+}
+
+
+def _pp_launches(names, lps, m, schedule, last, steps, dropout=False):
+    """A pipelined BERT rank's launches over ``steps`` steps: GPipe runs
+    the embeddings, the stage's ``lps`` layers on each of ``m``
+    microbatches and the heads, each forward and backward; 1F1B runs the
+    stage forward twice on a stage that sends (its forward tick and the
+    rematerialized forward) and once on the last stage (its forward tick
+    only saves the input), the embeddings once, and the heads' MLM
+    LayerNorm only on the last stage, once a microbatch.  With
+    ``dropout`` the flash kernels are their dropout branches and each
+    hidden dropout (embeddings, two a layer) launches forward and
+    backward."""
+    fwd = 2 if schedule == "1f1b" and not last else 1
+    heads = (m if last else 0) if schedule == "1f1b" else 1
+    sfx = "_dropout" if dropout else ""
+    step = {"layer_norm_fwd": 1 + fwd * 2 * lps * m + heads,
+            "layer_norm_bwd": 1 + 2 * lps * m + heads,
+            f"flash_fwd{sfx}": fwd * lps * m,
+            f"flash_bwd_dq{sfx}": lps * m,
+            f"flash_bwd_dkv{sfx}": lps * m}
+    if dropout:
+        step["threefry_dropout"] = 2 + (fwd + 1) * 2 * lps * m
+    return {name: steps * step.get(name, 0) for name in names}
+
+
+def _gpt_pp_launches(names, lps, m, last):
+    """A PipelinedGPT rank's launches of one 1F1B loss-and-grad: the
+    stage's ``lps`` blocks (two LayerNorms and one attention each) run
+    forward twice (once on the last stage) and backward once a
+    microbatch; the head's LayerNorm runs on the last stage, once a
+    microbatch."""
+    heads, fwd = (m, 1) if last else (0, 2)
+    step = {"layer_norm_fwd": 2 * fwd * lps * m + heads,
+            "layer_norm_bwd": 2 * lps * m + heads,
+            "flash_fwd": fwd * lps * m, "flash_bwd_dq": lps * m,
+            "flash_bwd_dkv": lps * m}
+    return {name: step.get(name, 0) for name in names}
+
+
+def _pp_gpt_batch(torch):
+    from apex_tpu_torch.examples import gpt_main_amp
+    ids = next(gpt_main_amp.batches(50257, len(PP_GPT_LENS), TRAIN_SEQ))
+    mask = torch.zeros(len(PP_GPT_LENS), TRAIN_SEQ, dtype=torch.int32)
+    for i, n in enumerate(PP_GPT_LENS):
+        mask[i, :n] = 1
+    return torch.from_numpy(ids).cuda(), mask.cuda()
+
+
+def _pp_dense():
+    """One process's dense runs the pipelined ranks are held against:
+    BERT-large O0 (2 steps, a part of the step-1 gradients written for
+    the ranks) and O2 (3 steps) at B 32, S 128; O0 one step on (c)'s
+    global batch (data index 0's and 1's 16 rows); GPT-2 small's masked
+    lm_loss and its wte gradient on (e)'s batch."""
+    import torch
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
+    from apex_tpu_torch.models.gpt import lm_loss
+    from apex_tpu_torch.ops import make_flash_attention
+    out = {}
+    cfg = bert_main_amp.get_config("large")
+    for level, steps in (("O0", PP_O0_STEPS), ("O2", PP_O2_STEPS)):
+        model, opt, params, st = bert_main_amp.build(
+            cfg, opt_level=level, attention_fn=make_flash_attention(),
+            device="cuda", seed=0)
+        data = bert_main_amp.batches(cfg, PP_BATCH, PP_SEQ)
+        losses, seconds = [], []
+        for step in range(steps):
+            batch = tuple(torch.from_numpy(a).cuda() for a in next(data))
+            t0 = time.perf_counter()
+            params, st, loss, grads = bert_main_amp.train_step(
+                model, opt, params, st, batch)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+            if level == "O0" and step == 0:
+                torch.save({k: v.detach().cpu() for k, v in grads.items()
+                            if PP_GRADS.search(k)},
+                           OUT_DIR / "pp_dense_grads.pt")
+            del grads
+        out[f"bert_{level}"] = {"losses": losses, "step_seconds": seconds}
+        if level == "O0":
+            model, opt, params, st = bert_main_amp.build(
+                cfg, opt_level="O0", attention_fn=make_flash_attention(),
+                device="cuda", seed=0)
+            rows = [next(bert_main_amp.batches(cfg, PP_DP_BATCH, PP_SEQ,
+                                               seed=d)) for d in range(2)]
+            batch = tuple(torch.from_numpy(np.concatenate(parts)).cuda()
+                          for parts in zip(*rows))
+            params, st, loss, grads = bert_main_amp.train_step(
+                model, opt, params, st, batch)
+            out["bert_dp"] = {"loss": float(loss)}
+            torch.save({k: v.detach().cpu() for k, v in grads.items()
+                        if PP_GRADS.search(k)}, OUT_DIR / "pp_dp_grads.pt")
+            del grads
+        del model, opt, params, st
+        torch.cuda.empty_cache()
+    gcfg = gpt_small()
+    model = GPTLMHeadModel(gcfg, make_flash_attention(causal=True),
+                           device="cuda", seed=0)
+    ids, mask = _pp_gpt_batch(torch)
+    loss = lm_loss(model(ids, mask), ids, mask)
+    (wte,) = torch.autograd.grad(loss, [model.wte.weight])
+    out["gpt"] = {"loss": float(loss)}
+    torch.save(wte.detach().cpu(), OUT_DIR / "pp_gpt_wte.pt")
+    del model, wte
+    torch.cuda.empty_cache()
+    return out
+
+
+class _PipeMemory:
+    """While active, wraps the pipeline schedules
+    (``parallel.pipeline.gpipe`` and ``onef1b``, which the pipelined
+    models look up at each call) to read the memory of each call above
+    what was allocated at its entry: ``peak``, the most allocated inside
+    the call, and ``held``, what is still allocated when it returns
+    (GPipe's tick graphs, kept for its backward; 1F1B's gradients).  The
+    maxima over the calls are kept, and :meth:`step_peak` is the whole
+    run's peak across the resets the calls make."""
+
+    def __init__(self):
+        import torch
+        from apex_tpu_torch.parallel import pipeline
+        self.cuda, self.pipeline = torch.cuda, pipeline
+        self.peak = self.held = self.outer = 0
+        self.saved = {}
+
+    def __enter__(self):
+        cuda = self.cuda
+        for name in ("gpipe", "onef1b"):
+            fn = self.saved[name] = getattr(self.pipeline, name)
+
+            def wrapped(*a, _fn=fn, **kw):
+                self.outer = max(self.outer, cuda.max_memory_allocated())
+                base = cuda.memory_allocated()
+                cuda.reset_peak_memory_stats()
+                out = _fn(*a, **kw)
+                self.peak = max(self.peak,
+                                cuda.max_memory_allocated() - base)
+                self.held = max(self.held, cuda.memory_allocated() - base)
+                return out
+            setattr(self.pipeline, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.pipeline, name, fn)
+
+    def step_peak(self):
+        return max(self.outer, self.cuda.max_memory_allocated())
+
+
+def _pp_train(schedule, m, batch, steps):
+    """``steps`` O2 steps of BERT-large through the user's entry,
+    ``bert_main_amp.train(..., pp=2, pp_schedule=, pp_microbatches=)``
+    (its mesh, its DDP over the data group, its checks, data index 0's
+    batches): launch counts at 0 just before and read just after,
+    collective calls counted, the whole run's peak and the schedule's
+    own memory (:class:`_PipeMemory`)."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _CollectiveCount() as coll, _PipeMemory() as mem:
+        res = bert_main_amp.train(
+            bert_main_amp.get_config("large"), batch=batch, seq_len=PP_SEQ,
+            steps=steps, opt_level="O2", attention_fn=make_flash_attention(),
+            device="cuda", seed=0, pp=PP, pp_schedule=schedule,
+            pp_microbatches=m)
+        torch.cuda.synchronize()
+    out = {"losses": res["losses"], "step_seconds": res["step_seconds"],
+           "launches": launch_counts(), "collectives": dict(coll.counts),
+           "peak_memory_gb": mem.step_peak() / 1e9,
+           "pipe_peak_gb": mem.peak / 1e9, "pipe_held_gb": mem.held / 1e9}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_run(build, schedule, batches, steps, keep_params=False, **step_kw):
+    """``steps`` steps of a pipelined BERT rank: launch counts at 0 just
+    before and read just after, collective calls counted, host clock
+    around each step (ended by reading the loss), the peak memory and
+    the schedule's own (:class:`_PipeMemory`); the step-1 gradients and
+    (``keep_params``) the params after step 1, both moved to the host
+    so that they hold no device memory through the later steps."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    model, opt, params, st, mesh = build()
+    ddp = DistributedDataParallel(model, process_group=mesh.group("data"))
+    losses, seconds, grads1, params1 = [], [], None, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _CollectiveCount() as coll, _PipeMemory() as mem:
+        for i in range(steps):
+            batch = tuple(torch.from_numpy(a).cuda() for a in next(batches))
+            scale = float(opt.loss_scale(st))
+            t0 = time.perf_counter()
+            params, st, loss, grads = bert_main_amp.train_step(
+                model, opt, params, st, batch, ddp=ddp, mesh=mesh,
+                schedule=schedule, **step_kw)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                grads1 = {k: (g.detach() / scale).cpu()
+                          for k, g in grads.items()}
+                if keep_params:
+                    params1 = {k: v.detach().cpu()
+                               for k, v in params.items()}
+            del grads
+        torch.cuda.synchronize()
+    out = {"losses": losses, "step_seconds": seconds,
+           "launches": launch_counts(), "collectives": dict(coll.counts),
+           "peak_memory_gb": mem.step_peak() / 1e9,
+           "pipe_peak_gb": mem.peak / 1e9, "pipe_held_gb": mem.held / 1e9}
+    del model, opt, params, st, ddp
+    torch.cuda.empty_cache()
+    return out, grads1, params1
+
+
+def _pp_grad_err(grads, want_file, pp, rank):
+    import torch
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models.bert import dense_to_rank
+    want = dense_to_rank(torch.load(want_file),
+                         bert_main_amp.get_config("large"), pp, rank)
+    return max(scale_aware_err(grads[k].cuda(), w.cuda())[0]
+               for k, w in want.items())
+
+
+def _pp_rank_legs(rank):
+    """(a), (b), (d) and (e) on this rank of the (1, 2) pipe mesh."""
+    import dataclasses
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models import PipelinedGPT, gpt_small
+    from apex_tpu_torch.ops import make_flash_attention
+    cfg = bert_main_amp.get_config("large")
+    lps, last = BERT_LAYERS // PP, rank == PP - 1
+    out, state = {}, {}
+
+    def make_build(level, m, config=cfg):
+        def build():
+            mesh = parallel.create_mesh(pp=PP)
+            made = bert_main_amp.build(
+                config, opt_level=level, attention_fn=make_flash_attention(),
+                device="cuda", seed=0, state_dict=state.get("sd"),
+                mesh=mesh, pp_microbatches=m)
+            if "sd" not in state:
+                # on the host: no device memory through the measured runs
+                state["sd"] = {k: v.detach().cpu() for k, v in
+                               made[0].module.state_dict().items()}
+            return made + (mesh,)
+        return build
+
+    def data(batch=PP_BATCH):
+        return bert_main_amp.batches(cfg, batch, PP_SEQ)
+
+    # (a)
+    params1 = {}
+    for schedule in ("gpipe", "1f1b"):
+        res, grads1, params1[schedule] = _pp_run(
+            make_build("O0", PP_M), schedule, data(), PP_O0_STEPS,
+            keep_params=True)
+        res["step1_grad_err"] = _pp_grad_err(
+            grads1, OUT_DIR / "pp_dense_grads.pt", PP, rank)
+        res["want_launches"] = _pp_launches(res["launches"], lps, PP_M,
+                                            schedule, last, PP_O0_STEPS)
+        out[f"{schedule}_O0"] = res
+        del grads1
+        res = _pp_train(schedule, PP_M, PP_BATCH, PP_O2_STEPS)
+        res["want_launches"] = _pp_launches(res["launches"], lps, PP_M,
+                                            schedule, last, PP_O2_STEPS)
+        out[f"{schedule}_O2"] = res
+    out["sched_param_err"] = max(
+        scale_aware_err(params1["1f1b"][k], params1["gpipe"][k])[0]
+        for k in params1["gpipe"])
+    del params1
+    torch.cuda.empty_cache()
+    # (b)
+    for m, batch in PP_MEM:
+        for schedule in ("gpipe", "1f1b"):
+            res = _pp_train(schedule, m, batch, 2)
+            out[f"mem_{schedule}_M{m}"] = {
+                key: res[key] for key in ("peak_memory_gb", "pipe_peak_gb",
+                                          "pipe_held_gb", "step_seconds",
+                                          "losses")}
+    # (d): one step's gradients, 1F1B against GPipe autodiff, O0
+    drop = {}
+    for schedule in ("gpipe", "1f1b"):
+        res, drop[schedule], _ = _pp_run(
+            make_build("O0", PP_M), schedule, data(), 1, deterministic=False,
+            dropout_key=bert_main_amp.step_key(0, 0))
+        res["want_launches"] = _pp_launches(res["launches"], lps, PP_M,
+                                            schedule, last, 1, dropout=True)
+        out[f"drop_{schedule}"] = res
+    out["drop_grad_err"] = max(
+        scale_aware_err(drop["1f1b"][k], drop["gpipe"][k])[0]
+        for k in drop["gpipe"])
+    del drop, state["sd"]
+    torch.cuda.empty_cache()
+    # (e): GPT-2 small's PipelinedGPT, 1F1B with skewed padding, O0
+    mesh = parallel.create_mesh(pp=PP)
+    gpt = PipelinedGPT(gpt_small(), mesh, PP, PP_M,
+                       attention_fn=make_flash_attention(causal=True),
+                       device="cuda", seed=0)
+    ids, mask = _pp_gpt_batch(torch)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = gpt.loss_and_grad_1f1b(ids, ids, attention_mask=mask)
+    loss = float(loss)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    wte = torch.load(OUT_DIR / "pp_gpt_wte.pt").cuda()
+    out["gpt"] = {"loss": loss, "seconds": seconds, "launches": counts,
+                  "want_launches": _gpt_pp_launches(counts, 12 // PP, PP_M,
+                                                    last),
+                  "wte_grad_err": scale_aware_err(
+                      grads["embed.wte.weight"], wte)[0]}
+    del gpt, grads, wte
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_rank(rank, world, store):
+    """(a), (b), (d), (e)'s ranks: gloo on CUDA tensors, TF32 off."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = _pp_rank_legs(rank)
+        out["seconds"] = time.perf_counter() - t0
+        (OUT_DIR / f"pp_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _pp_dp_rank(rank, world, store):
+    """(c) on this rank of the (2, 2) mesh: BERT-large O0, one 1F1B step
+    and one GPipe step, data index d's 16 rows from ``RandomState(d)``."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = bert_main_amp.get_config("large")
+        out, state = {}, {}
+        for schedule in ("1f1b", "gpipe"):
+            def build():
+                mesh = parallel.create_mesh(pp=PP)
+                made = bert_main_amp.build(
+                    cfg, opt_level="O0", attention_fn=make_flash_attention(),
+                    device="cuda", seed=0, state_dict=state.get("sd"),
+                    mesh=mesh, pp_microbatches=PP_M)
+                state.setdefault("sd", {k: v.detach().clone() for k, v in
+                                        made[0].module.state_dict().items()})
+                return made + (mesh,)
+            d = rank // PP
+            res, grads1, _ = _pp_run(
+                build, schedule, bert_main_amp.batches(cfg, PP_DP_BATCH,
+                                                       PP_SEQ, seed=d), 1)
+            res["step1_grad_err"] = _pp_grad_err(
+                grads1, OUT_DIR / "pp_dp_grads.pt", PP, rank % PP)
+            out[schedule] = res
+            del grads1
+        (OUT_DIR / f"pp_dp_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_pp():
+    """(a) BERT-large at --pp 2, GPipe and 1F1B, O0 and O2, (b) the
+    memory claim, (d) dropout through PipelinedBert and (e) GPT-2
+    small's PipelinedGPT, as two processes over gloo on the one card;
+    (c) dp 2 x pp 2 as four; each against one dense process."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    emit("train_pp", prediction=PP_PREDICTION)
+    t0 = time.perf_counter()
+    files = ("pp_dense_grads.pt", "pp_dp_grads.pt", "pp_gpt_wte.pt")
+    try:
+        dense = _pp_dense()
+        dense_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = _spawn(_pp_rank, PP, "pp")
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp_ranks = _spawn(_pp_dp_rank, 2 * PP, "pp_dp")
+        dp_s = time.perf_counter() - t0
+    finally:
+        for f in files:
+            (OUT_DIR / f).unlink(missing_ok=True)
+    by_path = {}
+    tokens = PP_BATCH * PP_SEQ
+    # (a)
+    for schedule in ("gpipe", "1f1b"):
+        for level, tol in (("O0", PP_TOL), ("O2", O2_LOSS_TOL)):
+            want = dense[f"bert_{level}"]["losses"]
+            steps = PP_O0_STEPS if level == "O0" else PP_O2_STEPS
+            for r, res in enumerate(ranks):
+                got = res[f"{schedule}_{level}"]
+                err = max((abs(a - b) / abs(b) if level == "O0"
+                           else abs(a - b))
+                          for a, b in zip(got["losses"], want))
+                emit("train_pp", run=f"(a) BERT-large --pp 2 {schedule} "
+                     f"{level}", rank=r, batch=PP_BATCH, seq=PP_SEQ,
+                     microbatches=PP_M, losses=got["losses"],
+                     dense_losses=want, loss_err=err, tol=tol,
+                     step1_grad_err=got.get("step1_grad_err"),
+                     step_ms=[1e3 * t for t in got["step_seconds"]],
+                     dense_step_ms=[1e3 * t for t in
+                                    dense[f"bert_{level}"]["step_seconds"]],
+                     tokens_per_s_pair=[tokens / t
+                                        for t in got["step_seconds"]],
+                     peak_memory_gb=got["peak_memory_gb"],
+                     launches_a_step={k: v / steps for k, v in
+                                      got["launches"].items()},
+                     collectives_a_step={k: v / steps for k, v in
+                                         got["collectives"].items()})
+                if not err <= tol:
+                    raise AssertionError(f"--pp 2 {schedule} {level} rank "
+                                         f"{r}: loss error {err:.3g}")
+                if level == "O0" and not got["step1_grad_err"] <= PP_TOL:
+                    raise AssertionError(
+                        f"--pp 2 {schedule} O0 rank {r}: step-1 grads "
+                        f"{got['step1_grad_err']:.3g}")
+                if got["launches"] != got["want_launches"]:
+                    raise AssertionError(
+                        f"--pp 2 {schedule} {level} rank {r}: launches "
+                        f"{got['launches']} != {got['want_launches']}")
+            if level == "O2":
+                by_path[f"train_pp_{schedule}"] = ranks[0][
+                    f"{schedule}_O2"]["launches"]
+    for r, res in enumerate(ranks):
+        emit("train_pp", run="(a) GPipe against 1F1B, params after step 1",
+             rank=r, err=res["sched_param_err"], tol=PP_SCHED_TOL)
+        if not res["sched_param_err"] <= PP_SCHED_TOL:
+            raise AssertionError(f"GPipe against 1F1B rank {r}: "
+                                 f"{res['sched_param_err']:.3g}")
+    # (b)
+    for r, res in enumerate(ranks):
+        peaks = {k: res[k]["peak_memory_gb"] for k in res
+                 if k.startswith("mem_")}
+        growth = {s: peaks[f"mem_{s}_M8"] - peaks[f"mem_{s}_M4"]
+                  for s in ("gpipe", "1f1b")}
+        pipe = {f"{s}_M{m}": {key: res[f"mem_{s}_M{m}"][f"pipe_{key}_gb"]
+                              for key in ("peak", "held")}
+                for s in ("gpipe", "1f1b") for m in (4, 8)}
+        # what the schedule keeps: GPipe its tick graphs at its return,
+        # 1F1B the most it needs at once
+        pipe_growth = {
+            "gpipe_held": (pipe["gpipe_M8"]["held"]
+                           - pipe["gpipe_M4"]["held"]),
+            "1f1b_peak": (pipe["1f1b_M8"]["peak"]
+                          - pipe["1f1b_M4"]["peak"])}
+        emit("train_pp", run="(b) peak a rank at M 4 (B 32) and M 8 (B 64), "
+             "O2, through bert_main_amp.train", rank=r, peaks_gb=peaks,
+             growth_gb=growth, schedule_gb=pipe,
+             schedule_growth_gb=pipe_growth,
+             step_ms={k: [1e3 * t for t in res[k]["step_seconds"]]
+                      for k in peaks})
+        if not growth["1f1b"] < min(growth["gpipe"], PP_MEM_1F1B_GB):
+            raise AssertionError(f"(b) rank {r}: 1F1B's peak grew "
+                                 f"{growth['1f1b']:.3g} GB, GPipe's "
+                                 f"{growth['gpipe']:.3g}")
+        if not pipe_growth["1f1b_peak"] < min(
+                PP_PIPE_1F1B_GB, 0.25 * pipe_growth["gpipe_held"]):
+            raise AssertionError(
+                f"(b) rank {r}: 1F1B's schedule peak grew "
+                f"{pipe_growth['1f1b_peak']:.3g} GB, GPipe's held "
+                f"{pipe_growth['gpipe_held']:.3g}")
+    # (c)
+    for r, res in enumerate(dp_ranks):
+        for schedule, got in res.items():
+            # each rank's loss is its data index's: their mean over the
+            # data group is the global batch's
+            loss = sum(dp_ranks[d * PP][schedule]["losses"][0]
+                       for d in range(2)) / 2
+            err = abs(loss - dense["bert_dp"]["loss"]) / abs(
+                dense["bert_dp"]["loss"])
+            emit("train_pp", run=f"(c) dp 2 x pp 2 {schedule} O0", rank=r,
+                 batch_per_data_index=PP_DP_BATCH, loss=got["losses"][0],
+                 data_mean_loss=loss, dense_loss=dense["bert_dp"]["loss"],
+                 loss_err=err, step1_grad_err=got["step1_grad_err"],
+                 step_ms=[1e3 * t for t in got["step_seconds"]],
+                 peak_memory_gb=got["peak_memory_gb"],
+                 collectives_a_step=got["collectives"])
+            if not err <= PP_TOL:
+                raise AssertionError(f"(c) {schedule} rank {r}: loss error "
+                                     f"{err:.3g}")
+            if not got["step1_grad_err"] <= PP_TOL:
+                raise AssertionError(f"(c) {schedule} rank {r}: grads "
+                                     f"{got['step1_grad_err']:.3g}")
+    # (d)
+    for r, res in enumerate(ranks):
+        emit("train_pp", run="(d) dropout 0.1, 1F1B against GPipe autodiff",
+             rank=r, grad_err=res["drop_grad_err"], tol=PP_SCHED_TOL,
+             launches={s: res[f"drop_{s}"]["launches"]
+                       for s in ("gpipe", "1f1b")})
+        if not res["drop_grad_err"] <= PP_SCHED_TOL:
+            raise AssertionError(f"(d) rank {r}: {res['drop_grad_err']:.3g}")
+        for s in ("gpipe", "1f1b"):
+            got = res[f"drop_{s}"]
+            if got["launches"] != got["want_launches"]:
+                raise AssertionError(f"(d) {s} rank {r}: launches "
+                                     f"{got['launches']} != "
+                                     f"{got['want_launches']}")
+    by_path["train_pp_dropout"] = ranks[0]["drop_1f1b"]["launches"]
+    # (e)
+    for r, res in enumerate(ranks):
+        got = res["gpt"]
+        err = abs(got["loss"] - dense["gpt"]["loss"]) / abs(
+            dense["gpt"]["loss"])
+        emit("train_pp", run="(e) GPT-2 small PipelinedGPT pp 2, 1F1B, "
+             "skewed padding, O0", rank=r, batch=len(PP_GPT_LENS),
+             seq=TRAIN_SEQ, microbatches=PP_M, loss=got["loss"],
+             dense_loss=dense["gpt"]["loss"], loss_err=err,
+             wte_grad_err=got["wte_grad_err"],
+             step_ms=1e3 * got["seconds"], launches=got["launches"])
+        if not (err <= PP_TOL and got["wte_grad_err"] <= PP_TOL):
+            raise AssertionError(f"(e) rank {r}: loss {err:.3g}, wte "
+                                 f"{got['wte_grad_err']:.3g}")
+        if got["launches"] != got["want_launches"]:
+            raise AssertionError(f"(e) rank {r}: launches "
+                                 f"{got['launches']} != "
+                                 f"{got['want_launches']}")
+    by_path["train_pp_gpt"] = ranks[0]["gpt"]["launches"]
+    (OUT_DIR / "train_pp.json").write_text(json.dumps(
+        {"dense": dense, "ranks": ranks, "dp_ranks": dp_ranks,
+         "dense_seconds": dense_s, "ranks_seconds": ranks_s,
+         "dp_seconds": dp_s}, indent=1, default=str))
+    emit("train_pp", dense_seconds=dense_s, ranks_seconds=ranks_s,
+         dp_seconds=dp_s)
+    return by_path
+
+
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
           "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
           "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
-          "train_sp", "train_o1", "train_simple", "train_dcgan")
+          "train_sp", "train_pp", "train_o1", "train_simple",
+          "train_dcgan")
 
 
 def main(phases=PHASES):
@@ -5256,6 +6000,7 @@ def main(phases=PHASES):
                        ("hf_bert", phase_hf_bert),
                        ("train_tp_zero", phase_train_tp_zero),
                        ("train_sp", phase_train_sp),
+                       ("train_pp", phase_train_pp),
                        ("train_o1", phase_train_o1),
                        ("train_simple", phase_train_simple),
                        ("train_dcgan", phase_train_dcgan)):
@@ -5267,7 +6012,7 @@ def main(phases=PHASES):
         if phase not in ("train_resnet", "train", "train_bert",
                          "train_gpt_remat", "train_gpt_dropout",
                          "train_bert_remat", "adam_rest", "hf_bert",
-                         "train_tp_zero", "train_sp"):
+                         "train_tp_zero", "train_sp", "train_pp"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():

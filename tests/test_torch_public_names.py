@@ -11,6 +11,10 @@ default device, each against the JAX object.
   ``make_ulysses_attention``) are the port's ``parallel`` names too, with
   the adapters' ``onef1b_compatible`` marks, beside the new collectives
   ``ppermute_g`` and ``all_to_all_g``;
+- the pipeline names (``gpipe_spmd``, ``onef1b_spmd``,
+  ``onef1b_loss_and_grad``, ``pipeline_apply``; ``PipelinedBert``,
+  ``PipelinedGPT`` and their stage modules) are the port's too, beside
+  the hop ``shift_g``;
 - ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
   on the card unless asked for the CPU, as ``jax.random`` draws on the
   default device: without CUDA the default raises, and ``device="cpu"``
@@ -106,3 +110,29 @@ def test_sequence_parallel_names():
     for make in ("make_ring_attention", "make_ulysses_attention"):
         assert getattr(parallel, make)(None).onef1b_compatible == \
             getattr(jparallel, make)("sp").onef1b_compatible
+
+
+def test_pipeline_names():
+    """The pipeline names of ``apex_tpu.parallel`` and ``apex_tpu.models``
+    (and the stage modules of its ``bert`` and ``gpt``) are the port's
+    too; the port adds the hop and the unstacked forms."""
+    from apex_tpu import models as jmodels
+    from apex_tpu_torch import models
+    for name in ("gpipe_spmd", "onef1b_spmd", "onef1b_loss_and_grad",
+                 "pipeline_apply"):
+        assert name in jparallel.__all__ and name in parallel.__all__, name
+        assert callable(getattr(parallel, name))
+    for name in ("shift_g", "gpipe", "onef1b"):
+        assert name in parallel.__all__
+    from apex_tpu.models import bert as jbert, gpt as jgpt
+    for name in ("PipelinedBert", "PipelinedGPT"):
+        assert hasattr(jmodels, name) and name in models.__all__, name
+    for mod, names in ((jbert, ("BertEmbeddings", "BertStage",
+                                "BertHeads")),
+                       (jgpt, ("GPTEmbed", "GPTStage"))):
+        for name in names:
+            assert hasattr(mod, name) and name in models.__all__, name
+    for name in ("_microbatch_ids", "_stage_dropout_key", "_dropout_setup"):
+        assert hasattr(jmodels.PipelinedBert, name)
+        assert hasattr(models.PipelinedBert, name)
+        assert hasattr(models.PipelinedGPT, name)
