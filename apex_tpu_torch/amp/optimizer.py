@@ -101,9 +101,9 @@ class AmpOptimizer:
                 group, min_shard_elems, like_params=like_params))
         if getattr(self.inner, "supports_fused_skip", False):
             raise NotImplementedError(
-                f"ZeRO over {type(self.inner).__name__} comes with the "
-                "pipeline-parallel slice (its oracle is ZeRO x pipeline "
-                "parallelism; ROADMAP A.10)")
+                f"ZeRO over {type(self.inner).__name__} is not ported yet "
+                "(ROADMAP A.10: ZeRO over FusedLAMB; its oracle is ZeRO x "
+                "pipeline parallelism)")
         return self._copy(zero=(group, min_shard_elems))
 
     def _global(self, overflow: torch.Tensor, *groups) -> torch.Tensor:

@@ -59,8 +59,9 @@ the data group, as one ``DistributedDataParallel`` mean over the whole
 world of each rank's objective times SP, and the overflow flag is
 taken over the sequence group too.  A batch may carry a fifth array,
 the (B, S) {0, 1} attention mask (the example's synthetic batches have
-none).  ``--ring-attention`` with ``--grad-accum`` above 1 is refused
-here.
+none).  Under ``--grad-accum A`` each slice's MLM term is over the mask
+count of the whole batch (summed over the data group), as the JAX
+example's ``make_accum_step`` divides it.
 
     WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
         -m apex_tpu_torch.examples.bert_main_amp --ring-attention 2
@@ -79,9 +80,27 @@ data index's gradients over the data group.  Both run under
 ``--grad-accum`` and ``--remat``.  The recipe's ``FusedLAMB`` clips by
 the norm over the whole model (``with_model_parallel`` over the pipe
 group: each stage's leaves once, the replicated ones once) and amp's
-overflow flag is taken over the pipe group.  ``--pp`` with
-``--ring-attention`` is refused (ROADMAP A.10: SP inside the pipeline),
-as is ``--moe`` (ROADMAP A.10: ``models/moe.py``).
+overflow flag is taken over the pipe group.
+
+``--pp S --ring-attention SP``: a (world / (SP * S), SP, S) (data, sp,
+pipe) mesh, the JAX example's ``reshape(dp, sp, pp)``, and
+``PipelinedBert(seq_axis="sp")`` with the sequence group's ring or
+Ulysses attention: each rank of a (sp, pipe) group runs its S/SP tokens
+through its stage.  GPipe's objective is the dense ``--ring-attention``
+one (its positions' MLM sum, NSP on sequence rank 0), reduced by one
+``DistributedDataParallel`` over the (data x sp) ranks of its pipe
+index (the mesh's ``"data_sp"`` group); 1F1B (Ulysses only: ``--pp-schedule
+1f1b`` with ring attention exits with the JAX example's message) gathers
+each microbatch's hidden states over the sequence group before the
+loss, and ``loss_and_grad_1f1b`` returns the gradients summed over it,
+for the data group's mean.  The overflow flag is taken over the pipe
+group alone, and so is the clipping norm: both read gradients already
+whole on every sequence and data rank.  ``--moe`` is
+refused (ROADMAP A.10: ``models/moe.py``).
+
+    WORLD_SIZE=4 python -m apex_tpu_torch.parallel.multiproc \\
+        -m apex_tpu_torch.examples.bert_main_amp --pp 2 \\
+        --ring-attention 2 --sp-attention ulysses --pp-schedule 1f1b
 """
 
 from __future__ import annotations
@@ -107,7 +126,6 @@ from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.optimizers import FusedLAMB
 from apex_tpu_torch.parallel import DistributedDataParallel, create_mesh, \
     make_ring_attention, make_ulysses_attention, psum_g
-from apex_tpu_torch.parallel.mesh import WORLD
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
@@ -215,17 +233,18 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
     ``mesh``'s pipe axis (``state_dict`` then this rank's, e.g. from
     ``models.bert.dense_to_rank``; ``seed`` gives the dense model's
     weights, this rank's part), the optimizer's clipping norm and
-    overflow flag over the pipe group."""
+    overflow flag over the pipe group; with a sequence axis above 1 as
+    well, ``seq_axis="sp"`` with ``sp_attention``."""
     dev = resolve_device(device)
-    if pp_microbatches is not None:
-        return _build_pipelined(cfg, lr, max_grad_norm, opt_level,
-                                loss_scale, attention_fn, dev, seed,
-                                state_dict, mesh, pp_microbatches)
     sp = _sp(mesh) > 1
     if sp:
         make = {"ring": make_ring_attention,
                 "ulysses": make_ulysses_attention}[sp_attention]
         attention_fn = make(mesh.group("sp"))
+    if pp_microbatches is not None:
+        return _build_pipelined(cfg, lr, max_grad_norm, opt_level,
+                                loss_scale, attention_fn, dev, seed,
+                                state_dict, mesh, pp_microbatches, sp)
     module = BertForPreTraining(
         cfg, attention_fn=attention_fn, device=dev,
         seed=None if state_dict is not None else seed,
@@ -243,9 +262,11 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
 
 
 def _build_pipelined(cfg, lr, max_grad_norm, opt_level, loss_scale,
-                     attention_fn, dev, seed, state_dict, mesh, microbatches):
+                     attention_fn, dev, seed, state_dict, mesh, microbatches,
+                     sp):
     pp = mesh.shape["pipe"]
     module = PipelinedBert(cfg, mesh, pp, microbatches, batch_axis="data",
+                           seq_axis="sp" if sp else None,
                            attention_fn=attention_fn, device=dev,
                            seed=None if state_dict is not None else seed)
     if state_dict is not None:
@@ -256,6 +277,10 @@ def _build_pipelined(cfg, lr, max_grad_norm, opt_level, loss_scale,
                for name, _ in module.named_parameters()})
     model, optimizer = amp.initialize(module, lamb, opt_level=opt_level,
                                       loss_scale=loss_scale)
+    # only the pipe group: the flag is read from gradients that are
+    # already equal over sp and data (reduced over data_sp under GPipe;
+    # summed over sp inside loss_and_grad_1f1b, then meaned over data,
+    # under 1F1B), and _accum_step ORs its flag over the ddp group
     optimizer = optimizer.with_overflow_groups(pipe)
     params = model.init()
     return model, optimizer, params, optimizer.init(params)
@@ -266,9 +291,14 @@ def step_key(seed: int, step: int) -> threefry.Key:
     return threefry.fold_in(threefry.PRNGKey(seed), step)
 
 
-def _sp_objective(model, params, batch, mesh, deterministic, dropout_key):
+def _sp_objective(model, params, batch, mesh, deterministic, dropout_key,
+                  denom, nsp_div: float = 1.0):
     """A sequence-parallel rank's objective (module docstring) on its
-    slice of the data index's whole ``batch``."""
+    slice of the data index's whole ``batch``: its positions' MLM sum
+    over ``denom`` (:func:`mlm_denom`: the global batch's mask count
+    over dp) plus, on sequence rank 0, the NSP term over ``nsp_div``.  A
+    pipelined model takes the whole batch and slices its tokens
+    itself."""
     ids, labels, weights, nsp, *mask = batch
     n_sp, r = _sp(mesh), mesh.index("sp")
     s_local = ids.shape[1] // n_sp
@@ -276,19 +306,36 @@ def _sp_objective(model, params, batch, mesh, deterministic, dropout_key):
     def mine(a):
         return a[:, r * s_local:(r + 1) * s_local]
 
+    whole = mesh.shape["pipe"] > 1
     mlm_logits, nsp_logits = model.apply(
-        params, mine(ids), mine(mask[0]) if mask else None,
+        params, ids if whole else mine(ids),
+        (mask[0] if whole else mine(mask[0])) if mask else None,
         deterministic=deterministic, dropout_key=dropout_key)
-    count = psum_g(weights.sum().float(), mesh.group("data"))
-    denom = count.clamp_min(1.0) / mesh.shape["data"]
     v = mlm_logits.shape[-1]
     mlm = F.cross_entropy(mlm_logits.float().reshape(-1, v),
                           mine(labels).reshape(-1).long(), reduction="none")
     objective = (mlm * mine(weights).reshape(-1)).sum() / denom
     if r == 0:
         # the pooled [CLS] token lives on sequence rank 0
-        return objective + F.cross_entropy(nsp_logits.float(), nsp.long())
+        return objective + F.cross_entropy(nsp_logits.float(),
+                                           nsp.long()) / nsp_div
     return objective + 0.0 * nsp_logits.sum()
+
+
+def _sp_grads(model, params, opt_state, batch, denom, nsp_div,
+              deterministic, dropout_key, *, mesh):
+    """The sequence-parallel step's loss and gradients on ``batch`` (a
+    grad-accumulation slice, or the whole batch): the data index's loss
+    (the shards' sum over the sequence group, unscaled) and the scaled
+    gradients of the rank's objective times the group's size (``ddp``
+    then averages them over the (data x sp) ranks)."""
+    shard = _sp_objective(model, params, batch, mesh, deterministic,
+                          dropout_key, denom, nsp_div)
+    with amp.scale_loss(shard * _sp(mesh), opt_state) as scaled:
+        grads = torch.autograd.grad(scaled, list(params.values()))
+    with torch.no_grad():
+        loss = psum_g(shard.detach(), mesh.group("sp"))
+    return loss, dict(zip(params.keys(), grads))
 
 
 def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
@@ -303,7 +350,8 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
     ``deterministic`` is False; ``ddp`` (a ``DistributedDataParallel``)
     averages the gradients over the ranks.  With a sequence-parallel
     ``mesh`` the batch is the data index's whole batch and ``ddp`` must
-    average over the whole world (module docstring).  Returns
+    average over the mesh's ``"data_sp"`` group (module docstring; the
+    data group under 1F1B).  Returns
     ``(params, opt_state, loss, grads)``: the loss unscaled (this rank's;
     under SP the data index's), the grads as autograd gave them (scaled)
     for ``grad_accum`` 1, else the unscaled stash.  ``schedule`` (a
@@ -326,13 +374,13 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
         return params, opt_state, loss, grads
     if grad_accum > 1:
         return _accum_step(model, optimizer, params, opt_state, batch,
-                           grad_accum, deterministic, dropout_key, ddp)
+                           grad_accum, deterministic, dropout_key, ddp,
+                           partial(_sp_grads, mesh=mesh)
+                           if _sp(mesh) > 1 else None)
     if _sp(mesh) > 1:
-        shard = _sp_objective(model, params, batch, mesh, deterministic,
-                              dropout_key)
-        objective = shard * _sp(mesh)
-        with torch.no_grad():
-            loss = psum_g(shard.detach(), mesh.group("sp"))
+        loss, grads = _sp_grads(model, params, opt_state, batch,
+                                mlm_denom(batch[2], ddp), 1.0, deterministic,
+                                dropout_key, mesh=mesh)
     else:
         ids, labels, weights, nsp, *mask = batch
         mlm_logits, nsp_logits = model.apply(params, ids,
@@ -340,11 +388,11 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
                                              deterministic=deterministic,
                                              dropout_key=dropout_key)
         denom = None if ddp is None else mlm_denom(weights, ddp)
-        loss = objective = batch_loss(mlm_logits, nsp_logits, labels,
-                                      weights, nsp, denom)
-    with amp.scale_loss(objective, opt_state) as scaled:
-        grads = torch.autograd.grad(scaled, list(params.values()))
-    grads = dict(zip(params.keys(), grads))
+        loss = batch_loss(mlm_logits, nsp_logits, labels, weights, nsp,
+                          denom)
+        with amp.scale_loss(loss, opt_state) as scaled:
+            grads = torch.autograd.grad(scaled, list(params.values()))
+        grads = dict(zip(params.keys(), grads))
     if ddp is not None:
         grads = ddp.reduce_gradients(grads)
     params, opt_state = optimizer.step(params, grads, opt_state)
@@ -404,13 +452,14 @@ def _accum_step(model, optimizer, params, opt_state, batch, accum,
     ``slice_grads`` (1F1B's) gives a microbatch's loss and grads in
     place of autograd's."""
     weights = batch[2]
+    # the whole batch's mask count (over the ranks), every slice's divisor
     denom = mlm_denom(weights, ddp)
     stashed, overflow, total = None, None, None
     for j in range(accum):
         key = None if dropout_key is None \
             else threefry.fold_in(dropout_key, j)
         loss, grads = (slice_grads or _autodiff_grads)(
-            model, params, opt_state, tuple(a[j::accum] for a in batch[:4]),
+            model, params, opt_state, tuple(a[j::accum] for a in batch),
             denom, float(accum), deterministic, key)
         stashed, ovf, opt_state = optimizer.unscale_grads(
             grads, opt_state, stashed=stashed, update_scale=False)
@@ -447,19 +496,30 @@ def check_grad_accum(batch: int, accum: int) -> None:
 
 def check_pipeline(cfg: BertConfig, batch: int, accum: int, pp: int,
                    schedule: str, microbatches: int, sp: int,
-                   world: int) -> None:
-    """The JAX example's checks of ``--pp`` and what it stays refused
-    with here."""
-    if schedule == "1f1b" and not pp:
-        raise SystemExit("--pp-schedule 1f1b needs --pp S")
-    if not pp:
-        return
-    if sp > 1:
-        raise SystemExit("--pp with --ring-attention is not ported yet "
-                         "(ROADMAP A.10: SP inside the pipeline)")
-    if world % pp or cfg.num_hidden_layers % pp:
+                   world: int, seq_len: int, sp_attention: str) -> None:
+    """The JAX example's checks of ``--pp`` (with ``--ring-attention``
+    ``sp``), in its order and with its messages, the world size in
+    place of its device count."""
+    if pp and sp:
+        if world % (sp * pp) or seq_len % sp or \
+                cfg.num_hidden_layers % pp:
+            raise SystemExit(
+                f"SP={sp} x PP={pp} must divide devices ({world}), SP "
+                f"the seq len ({seq_len}), PP the layers "
+                f"({cfg.num_hidden_layers})")
+    elif pp and (world % pp or cfg.num_hidden_layers % pp):
         raise SystemExit(f"PP={pp} must divide devices ({world}) and "
                          f"layers ({cfg.num_hidden_layers})")
+    if schedule == "1f1b" and not pp:
+        raise SystemExit("--pp-schedule 1f1b needs --pp S")
+    if pp and schedule == "1f1b" and sp and sp_attention == "ring":
+        raise SystemExit(
+            "--pp-schedule 1f1b cannot host ring attention (its "
+            "collective-carrying scan miscompiles in the schedule's "
+            "branches — tools/repro_ring_1f1b.py); use "
+            "--sp-attention ulysses or the gpipe schedule")
+    if not pp:
+        return
     per_call = batch // max(accum, 1)
     if per_call % microbatches:
         raise SystemExit(
@@ -490,42 +550,40 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
     initialized world with ``sp_attention`` (module docstring); each
     rank takes its data index's whole batch (``data`` defaults to
     ``RandomState(data index)``), the gradients always go through
-    ``DistributedDataParallel`` over the world, and ``tokens_per_s``
-    counts the batch's tokens.  ``pp`` above 0: the encoder pipelined
-    over ``pp`` ranks of the initialized world with ``pp_schedule`` and
-    ``pp_microbatches`` (module docstring); each pipe group takes its
+    ``DistributedDataParallel`` (over the mesh's ``"data_sp"`` group),
+    and ``tokens_per_s`` counts the batch's tokens.  ``pp`` above 0: the
+    encoder pipelined over ``pp`` ranks of the initialized world with
+    ``pp_schedule`` and ``pp_microbatches`` (module docstring), with
+    ``sp`` inside it when both are given; each pipe group takes its
     data index's batch (``data`` as under ``sp``), ``losses`` are the
     data index's and ``tokens_per_s`` counts its batch's tokens."""
     dev = resolve_device(device)
     check_grad_accum(batch, grad_accum)
     check_pipeline(cfg, batch, grad_accum, pp, pp_schedule, pp_microbatches,
-                   sp, dist.get_world_size() if dist.is_initialized() else 1)
+                   sp, dist.get_world_size() if dist.is_initialized() else 1,
+                   seq_len, sp_attention)
     if remat:
         cfg = dataclasses.replace(cfg, remat=True)
     mesh = None
-    if pp:
-        mesh = create_mesh(pp=pp)
-    elif sp > 1:
-        if grad_accum > 1:
-            raise ValueError("--ring-attention with --grad-accum is not "
-                             "ported yet")
-        if seq_len % sp:
-            raise ValueError(f"sp {sp} must divide seq_len {seq_len}")
-        mesh = create_mesh(sp=sp)
+    if sp > 1 and seq_len % sp:
+        raise ValueError(f"sp {sp} must divide seq_len {seq_len}")
+    if pp or sp > 1:
+        mesh = create_mesh(sp=max(sp, 1), pp=max(pp, 1))
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, max_grad_norm=max_grad_norm, opt_level=opt_level,
         loss_scale=loss_scale, attention_fn=attention_fn, device=dev,
         seed=seed, mesh=mesh, sp_attention=sp_attention,
         pp_microbatches=pp_microbatches if pp else None)
     schedule = pp_schedule if pp else None
-    if pp:
-        # the pipe group's ranks hold one data index's batch; DDP
-        # averages over the data group (replicated parts already agree)
+    if mesh is not None:
+        # the pipe and sequence groups' ranks hold one data index's batch;
+        # DDP averages over the data group (replicated parts already
+        # agree, 1F1B's gradients come summed over the sequence group),
+        # else over the (data x sp) ranks, of each rank's objective
+        # times sp
+        group = "data" if sp <= 1 or schedule == "1f1b" else "data_sp"
         wrapper = DistributedDataParallel(model,
-                                          process_group=mesh.group("data"))
-        rank = mesh.index("data")
-    elif mesh is not None:
-        wrapper = DistributedDataParallel(model, process_group=WORLD)
+                                          process_group=mesh.group(group))
         rank = mesh.index("data")
     else:
         wrapper = DistributedDataParallel(model) if ddp else None
@@ -620,7 +678,8 @@ def main(argv=None):
     cfg = get_config(args.config)
     check_pipeline(cfg, args.b, args.grad_accum, args.pp, args.pp_schedule,
                    args.pp_microbatches, args.ring_attention,
-                   int(os.environ.get("WORLD_SIZE", "1")))
+                   int(os.environ.get("WORLD_SIZE", "1")), args.seq_len,
+                   args.sp_attention)
     initialize_distributed("cuda")
     dev = resolve_device("cuda")
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -628,9 +687,6 @@ def main(argv=None):
     if world % sp or args.seq_len % sp:
         raise SystemExit(f"SP={sp} must divide the world size ({world}) "
                          f"and --seq-len ({args.seq_len})")
-    if sp > 1 and args.grad_accum > 1:
-        raise SystemExit("--ring-attention with --grad-accum is not "
-                         "ported yet")
     dp = world // (sp * max(args.pp, 1))
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
                 f"{args.config}, world size {world} (dp={dp}, sp={sp}, "

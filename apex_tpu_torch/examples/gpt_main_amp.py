@@ -62,11 +62,23 @@ the sequence group: their gradients are summed over it and averaged
 over the data group, as one ``DistributedDataParallel`` mean over the
 whole (data x sp) world of each rank's loss times SP; the overflow flag
 is taken over the sequence group too.  Positions grow to ``--seq-len``
-(``config``).  ``--sp`` with ``--tp`` is refused (the JAX example
-composes them on one mesh; ROADMAP A.10 queues it).
+(``config``).
+
+``--sp SP --tp TP`` compose on one (world / (SP * TP), SP, TP) mesh, as
+the JAX example's: each rank runs its H/TP heads over its S/SP tokens
+(``GPTLMHeadModel(..., tp=, sp=)``; Ulysses needs ``(H / TP) % SP ==
+0``), and its loss is ``ops.vocab_parallel_lm_loss_shard``, the sum of
+its positions' cross entropy from its (B, S/SP, V/TP) logits, over ``B *
+(S - 1)``.  The gradients of a model index's ranks are reduced over the
+(data x sp) ranks of that model index (the mesh's ``"data_sp"`` group),
+never over the world, whose other model indices hold other shards; the
+overflow flag is taken over the sequence and model groups, and at dp > 1
+the moments are ZeRO-1 sharded over the data group as under ``--tp``.
 
     WORLD_SIZE=2 python -m apex_tpu_torch.parallel.multiproc \\
         -m apex_tpu_torch.examples.gpt_main_amp --sp 2
+    WORLD_SIZE=4 python -m apex_tpu_torch.parallel.multiproc \\
+        -m apex_tpu_torch.examples.gpt_main_amp --sp 2 --tp 2
 """
 
 from __future__ import annotations
@@ -86,12 +98,12 @@ from apex_tpu_torch.examples.bert_main_amp import step_key
 from apex_tpu_torch.models import GPTConfig, GPTLMHeadModel, gpt_medium, \
     gpt_small, lm_loss
 from apex_tpu_torch.models.gpt import lm_loss_shard, padded_vocab
-from apex_tpu_torch.ops import make_flash_attention, vocab_parallel_lm_loss
+from apex_tpu_torch.ops import make_flash_attention, \
+    vocab_parallel_lm_loss, vocab_parallel_lm_loss_shard
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.parallel import DistributedDataParallel, create_mesh, \
     gpt_tp_rules, make_ring_attention, make_ulysses_attention, psum_g, \
     shard_optimizer_state, shard_params
-from apex_tpu_torch.parallel.mesh import WORLD
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
@@ -195,18 +207,24 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
     With a sequence-parallel one, ``ids`` is the data index's whole (B,
     S) batch: the model runs on this rank's tokens, the gradient is of
     its loss shard times the sequence group's size over ``B * (S - 1)``
-    (``ddp``, over the whole world, averages them) and the loss is the
-    shards' sum over the group.  Returns ``(params, opt_state, loss,
-    grads)`` with the loss unscaled (this rank's; under SP the batch's)
-    and the grads as autograd gave them (scaled)."""
+    (``ddp``, over the mesh's ``"data_sp"`` group, averages them; under
+    TP too the shard is ``ops.vocab_parallel_lm_loss_shard``'s) and the
+    loss is the shards' sum over the group.  Returns ``(params,
+    opt_state, loss, grads)`` with the loss unscaled (this rank's; under
+    SP the batch's) and the grads as autograd gave them (scaled)."""
     n_sp = _sp(mesh)
     if n_sp > 1:
         r, s_local = mesh.index("sp"), ids.shape[1] // n_sp
-        logits = model.apply(params, ids[:, r * s_local:(r + 1) * s_local],
-                             deterministic=deterministic,
-                             dropout_key=dropout_key)
+        tp = mesh.shape["model"] > 1
+        out = model.apply(params, ids[:, r * s_local:(r + 1) * s_local],
+                          deterministic=deterministic,
+                          dropout_key=dropout_key, return_hidden=tp)
         total = ids.shape[0] * (ids.shape[1] - 1)
-        shard = lm_loss_shard(logits, ids, r, n_sp)
+        if tp:
+            shard = vocab_parallel_lm_loss_shard(
+                out, params["wte.weight"], ids, mesh, true_vocab=true_vocab)
+        else:
+            shard = lm_loss_shard(out, ids, r, n_sp)
         objective = shard * (n_sp / total)
         with torch.no_grad():
             loss = psum_g(shard.detach(), mesh.group("sp")) / total
@@ -251,25 +269,24 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
     ``ddp`` the data group averages, the moments sharded over it at dp
     > 1), ``cfg`` the unpadded model and ``state_dict`` the full padded
     one.  ``sp`` above 1: sequence parallelism over ``sp``
-    ranks with ``sp_attention`` (module docstring); each rank takes its
-    data index's whole batch and runs its tokens, the gradients always
-    go through ``DistributedDataParallel`` over the world and
+    ranks with ``sp_attention`` (module docstring), beside ``tp`` or
+    not; each rank takes its data index's whole batch and runs its
+    tokens, the gradients always go through ``DistributedDataParallel``
+    over the mesh's ``"data_sp"`` group (the world without ``tp``) and
     ``tokens_per_s`` counts the batch's tokens."""
     dev = resolve_device(device)
     if remat:
         cfg = dataclasses.replace(cfg, remat=True)
-    if tp > 1 and sp > 1:
-        raise ValueError("sequence parallelism with tensor parallelism "
-                         "comes with a later slice (ROADMAP A.10)")
+    check_sp_tp(cfg, max(tp, 1), max(sp, 1), sp_attention, ValueError)
     true_vocab, mesh, data_index = cfg.vocab_size, None, 0
     if tp > 1 or sp > 1:
         mesh = create_mesh(tp=max(tp, 1), sp=max(sp, 1))
         data_index = mesh.index("data")
+    if sp > 1 and seq_len % sp:
+        raise ValueError(f"sp {sp} must divide seq_len {seq_len}")
     if tp > 1:
         cfg = dataclasses.replace(cfg,
                                   vocab_size=padded_vocab(cfg.vocab_size, tp))
-    elif sp > 1 and seq_len % sp:
-        raise ValueError(f"sp {sp} must divide seq_len {seq_len}")
     elif mesh is None and dist.is_initialized():
         data_index = dist.get_rank()
     model, optimizer, params, opt_state = build(
@@ -278,8 +295,10 @@ def train(cfg: GPTConfig, *, batch: int = 8, seq_len: int = 1024,
         sp_attention=sp_attention)
     wrapper = None
     if sp > 1:
-        # each rank's loss times sp, averaged over the (data x sp) world
-        wrapper = DistributedDataParallel(model, process_group=WORLD)
+        # each rank's loss times sp, averaged over the (data x sp) ranks
+        # of its model index
+        wrapper = DistributedDataParallel(
+            model, process_group=mesh.group("data_sp"))
     elif ddp:
         wrapper = DistributedDataParallel(
             model, process_group=mesh.group("data") if mesh else None)
@@ -338,13 +357,24 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def check_sp_tp(cfg: GPTConfig, tp: int, sp: int, sp_attention: str,
+                error=SystemExit) -> None:
+    """Ulysses over tensor-parallel heads: each of the ``tp`` ranks'
+    ``H / tp`` heads must split over the ``sp`` ranks."""
+    if sp > 1 and sp_attention == "ulysses" and \
+            (cfg.num_attention_heads // tp) % sp:
+        raise error(
+            f"--sp-attention ulysses needs the {cfg.num_attention_heads} "
+            f"heads / --tp {tp} to divide by --sp {sp} (a tensor-parallel "
+            f"rank's {cfg.num_attention_heads // tp} heads are split over "
+            "the sequence ranks)")
+
+
 def main(argv=None):
     args = parse_args(argv)
     tp, sp = max(args.tp, 1), max(args.sp, 1)
-    if tp > 1 and sp > 1:
-        raise SystemExit("--sp with --tp is not ported yet (ROADMAP A.10, "
-                         "with the pipeline-parallel slice)")
     cfg = config(args.config, args.seq_len)
+    check_sp_tp(cfg, tp, sp, args.sp_attention)
     initialize_distributed("cuda")
     dev = resolve_device("cuda")
     world = dist.get_world_size() if dist.is_initialized() else 1

@@ -56,9 +56,10 @@ rank 0, where that token lives (the caller takes the NSP term there
 alone).
 
 Pipeline parallelism: :class:`PipelinedBert` (one stage a rank of the
-mesh's pipe axis) over the ``BertEmbeddings``/``BertStage``/``BertHeads``
-split; :func:`dense_to_rank` maps a dense state dict to a rank's.  Not
-here: MoE layers.  HuggingFace checkpoints load through
+mesh's pipe axis, optionally with a sequence axis inside it) over the
+``BertEmbeddings``/``BertStage``/``BertHeads`` split;
+:func:`dense_to_rank` maps a dense state dict to a rank's.  Not here:
+MoE layers.  HuggingFace checkpoints load through
 ``utils.load_hf_bert``.
 """
 
@@ -78,7 +79,7 @@ from torch.utils import _pytree as pytree
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models._remat import remat as remat_layer
 from apex_tpu_torch.models.pipelined_common import PipelinedCommon, \
-    rank_state_dict
+    gather_seq, rank_state_dict
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import threefry
 
@@ -450,9 +451,14 @@ class BertEmbeddings(nn.Module):
         _add_embeddings(self, cfg, resolve_device(device), dtype)
 
     def forward(self, input_ids, token_type_ids=None,
-                deterministic: bool = True, dropout_key=None):
+                deterministic: bool = True, dropout_key=None, offset=0,
+                window=None):
+        """``offset``: the position of the first token; ``window``: the
+        activation is that slice of a larger one's dropout stream
+        (``threefry.window``)."""
         scope = _dropout_scope(self.cfg, deterministic, dropout_key)
-        return _embed_block(self, input_ids, token_type_ids, scope)
+        return _embed_block(self, input_ids, token_type_ids, scope, offset,
+                            window)
 
 
 class BertStage(nn.Module):
@@ -538,8 +544,24 @@ class PipelinedBert(PipelinedCommon, nn.Module):
     ``seed`` draws the dense :class:`BertForPreTraining`'s weights from
     the same seed and keeps this rank's (:func:`dense_to_rank`), so
     ``PipelinedBert(..., seed=s)`` on the pipe ranks together is
-    ``BertForPreTraining(..., seed=s)``.  ``tp_axis`` and ``seq_axis``
-    raise ``NotImplementedError`` (ROADMAP A.10)."""
+    ``BertForPreTraining(..., seed=s)``.
+
+    ``seq_axis`` (the mesh's sequence axis, with ``attention_fn`` a
+    ``parallel.make_ring_attention`` or ``make_ulysses_attention`` of its
+    group): the inputs are still the data index's whole (B, S) batch, and
+    this rank runs its S/sp tokens (``models/pipelined_common.py``): its
+    embeddings take positions ``sp_rank * S/sp + arange(S/sp)``, its
+    attention bias is its keys' shard (the ring carries it with its K/V,
+    Ulysses gathers it).  ``forward`` gives this rank's (B, S/sp, V) MLM
+    logits and NSP logits that are the pooled ``[CLS]`` token's on
+    sequence rank 0 alone, where that token lives; its gradients are
+    partial on each shard, for the caller to sum over the sequence
+    group.  :meth:`loss_and_grad_1f1b` takes only an attention marked
+    ``onef1b_compatible`` (Ulysses; the ring raises, as in the
+    reference), gathers the hidden states before ``loss_fn`` and
+    returns the gradients summed over the sequence group.  ``tp_axis``
+    raises ``NotImplementedError`` (ROADMAP A.10: TP inside the
+    pipeline)."""
 
     def __init__(self, cfg: BertConfig, mesh, pp: int,
                  num_microbatches: int, pipe_axis: str = "pipe",
@@ -580,19 +602,31 @@ class PipelinedBert(PipelinedCommon, nn.Module):
 
         return stage_fn
 
+    def _embed_and_stage(self, input_ids, attention_mask, token_type_ids,
+                         deterministic, dropout_key, caller):
+        """This rank's embeddings (of its tokens under ``seq_axis``) and
+        the stage body, both schedules' prologue."""
+        needs_rng, base_key, embed_key = self._dropout_setup(
+            deterministic, dropout_key, caller)
+        offset, window = self._embed_window(input_ids)
+        ids = self._seq_slice(input_ids)
+        x = self.embed(ids, self._seq_slice(token_type_ids), deterministic,
+                       embed_key, offset, window)
+        stage_fn = self._build_stage_fn(
+            needs_rng, base_key, deterministic,
+            _bias(ids, self._seq_slice(attention_mask)),
+            ids.shape[0] // self.num_microbatches)
+        return x, stage_fn
+
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None):
         from apex_tpu_torch.parallel.pipeline import gpipe
-        needs_rng, base_key, embed_key = self._dropout_setup(
-            deterministic, dropout_key, "PipelinedBert.apply")
-        x = self.embed(input_ids, token_type_ids, deterministic, embed_key)
-        m = self.num_microbatches
-        stage_fn = self._build_stage_fn(
-            needs_rng, base_key, deterministic,
-            _bias(input_ids, attention_mask), input_ids.shape[0] // m)
+        x, stage_fn = self._embed_and_stage(
+            input_ids, attention_mask, token_type_ids, deterministic,
+            dropout_key, "PipelinedBert.apply")
         seq = gpipe(self._pipe(), stage_fn,
-                    dict(self.stages.named_parameters()), x, m,
-                    microbatch_index=True)
+                    dict(self.stages.named_parameters()), x,
+                    self.num_microbatches, microbatch_index=True)
         return self.heads(seq)
 
     def loss_and_grad_1f1b(self, input_ids, loss_fn, targets,
@@ -606,21 +640,24 @@ class PipelinedBert(PipelinedCommon, nn.Module):
         through the pipeline's input gradient, ``stages.*`` from the
         schedule, ``heads.*`` as its ``loss_params``), the same on every
         rank of the pipe group but ``stages.*``; both this data index's,
-        for the caller to average over the data group."""
+        for the caller to average over the data group.  Under
+        ``seq_axis`` ``loss_fn`` sees the whole sequence's logits (the
+        hidden states gathered over the sequence group), ``targets`` are
+        per row of the whole batch, and ``embed.*`` and ``stages.*`` are
+        summed over the sequence group."""
         from apex_tpu_torch.parallel.pipeline import onef1b
-        needs_rng, base_key, embed_key = self._dropout_setup(
-            deterministic, dropout_key, "loss_and_grad_1f1b")
+        self._check_onef1b()
         m = self.num_microbatches
         embed = dict(self.embed.named_parameters())
         with torch.enable_grad():
-            x = self.embed(input_ids, token_type_ids, deterministic,
-                           embed_key)
-        stage_fn = self._build_stage_fn(
-            needs_rng, base_key, deterministic,
-            _bias(input_ids, attention_mask), input_ids.shape[0] // m)
+            x, stage_fn = self._embed_and_stage(
+                input_ids, attention_mask, token_type_ids, deterministic,
+                dropout_key, "loss_and_grad_1f1b")
+        seq = self._seq_group()
 
         def pl_loss(h, tgt, heads_p):
-            mlm, nsp = torch.func.functional_call(self.heads, heads_p, (h,))
+            mlm, nsp = torch.func.functional_call(
+                self.heads, heads_p, (gather_seq(h, seq),))
             return loss_fn(mlm, nsp, tgt)
 
         loss, g_stage, dx, g_heads = onef1b(
@@ -629,10 +666,13 @@ class PipelinedBert(PipelinedCommon, nn.Module):
             dict(self.heads.named_parameters()), microbatch_index=True)
         g_embed = dict(zip(embed, torch.autograd.grad(
             x, list(embed.values()), dx)))
-        grads = {**{f"embed.{k}": v for k, v in g_embed.items()},
-                 **{f"stages.{k}": v for k, v in g_stage.items()},
-                 **{f"heads.{k}": v for k, v in g_heads.items()}}
-        return loss, grads
+        # the embeddings' and the stage's are partial on each sequence
+        # shard; the heads', on the gathered states, are whole already
+        shared = self._sum_over_seq(
+            {**{f"embed.{k}": v for k, v in g_embed.items()},
+             **{f"stages.{k}": v for k, v in g_stage.items()}})
+        return loss, {**shared,
+                      **{f"heads.{k}": v for k, v in g_heads.items()}}
 
 
 def _rank_name(name: str, layers_per_stage: int, rank: int):

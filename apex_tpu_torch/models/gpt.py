@@ -70,9 +70,19 @@ rank's window of the dense activation's threefry stream
 gives this rank's (B, S_local, V) logits, and :func:`lm_loss_shard`
 takes its part of the next-token loss.
 
+TP with SP in one model (``tp=`` and ``sp=`` together, on the
+``(dp, sp, tp)`` mesh of ``parallel.create_mesh``): each rank runs its
+H/tp heads over its S/sp tokens (Ulysses then needs ``(H / tp) % sp ==
+0``), the vocab-parallel embedding keeps its rows and takes positions at
+the sequence offset, the hidden dropouts draw the rank's window and the
+attention dropout hashes the global (token, head) coordinates (the
+``dropout_fn.offsets`` the TP attention sets carry the head offset to
+the sequence-parallel attention); ``ops.vocab_parallel_lm_loss_shard``
+takes the rank's part of the loss from its hidden states.
+
 Pipeline parallelism: :class:`PipelinedGPT` (one stage a rank of the
-mesh's pipe axis, over :class:`GPTEmbed` and :class:`GPTStage`).  Not
-here: TP with SP in one model.
+mesh's pipe axis, over :class:`GPTEmbed` and :class:`GPTStage`),
+optionally with a sequence axis inside it.
 """
 
 from __future__ import annotations
@@ -92,7 +102,7 @@ from apex_tpu_torch.models._remat import remat as remat_block
 from apex_tpu_torch.models.bert import _drop, _dropout_scope, _rows, \
     attention_dropout_fn, dot_product_attention
 from apex_tpu_torch.models.pipelined_common import PipelinedCommon, \
-    rank_state_dict
+    gather_seq, rank_state_dict
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.decode_attention import (
     cached_attention,
@@ -427,12 +437,11 @@ class GPTLMHeadModel(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
-        if sp is not None and (tp is not None or attention_fn is None):
+        if sp is not None and attention_fn is None:
             raise ValueError(
                 "a sequence-parallel GPT takes a sequence-parallel "
                 "attention_fn (parallel.make_ring_attention or "
-                "make_ulysses_attention) and no tp (TP with SP comes "
-                "with a later slice)")
+                "make_ulysses_attention)")
         self.sp = sp
         place = self.tp = _tp_place(tp)
         if place is not None:
@@ -604,11 +613,15 @@ class GPTEmbed(nn.Module):
         self.embed_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, deterministic: bool = True,
-                dropout_key=None):
+                dropout_key=None, offset=0, window=None):
+        """``offset``: the position of the first token; ``window``: the
+        activation is that slice of a larger one's dropout stream
+        (``threefry.window``)."""
         scope = _dropout_scope(self.cfg, deterministic, dropout_key)
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        pos = offset + torch.arange(input_ids.shape[1],
+                                    device=input_ids.device)
         return _drop(self.embed_dropout, self.wte(input_ids)
-                     + self.wpe(pos[None, :]), scope)
+                     + self.wpe(pos[None, :]), scope, window)
 
 
 class GPTStage(nn.Module):
@@ -665,9 +678,11 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
     SUM over the global denominator ``total_keep / (M * n_dp)`` (the
     keep count all-reduced over the data group), so the schedule's mean
     over microbatches and the caller's data mean give the global masked
-    mean exactly under any padding skew.  ``batch_axis``, dropout and
-    ``seed`` as in ``PipelinedBert`` (the dense model is
-    :class:`GPTLMHeadModel`)."""
+    mean exactly under any padding skew.  ``batch_axis``, ``seq_axis``
+    (causal ring or Ulysses; ``forward`` gives this rank's (B, S/sp, V)
+    logits, :meth:`loss_and_grad_1f1b` takes Ulysses only and gathers
+    the hidden states for the shifted loss), dropout and ``seed`` as in
+    ``PipelinedBert`` (the dense model is :class:`GPTLMHeadModel`)."""
 
     def __init__(self, cfg: GPTConfig, mesh, pp: int,
                  num_microbatches: int, pipe_axis: str = "pipe",
@@ -709,14 +724,20 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
 
     def _stage_inputs(self, input_ids, attention_mask, deterministic,
                       dropout_key, caller):
+        """This rank's embeddings (of its tokens under ``seq_axis``) and
+        the stage body, both schedules' prologue."""
         needs_rng, base_key, embed_key = self._dropout_setup(
             deterministic, dropout_key, caller)
-        bias = None if attention_mask is None else torch.where(
-            attention_mask[:, None, None, :] > 0, 0.0, NEG_INF).float()
+        mask = self._seq_slice(attention_mask)
+        bias = None if mask is None else torch.where(
+            mask[:, None, None, :] > 0, 0.0, NEG_INF).float()
         stage_fn = self._build_stage_fn(
             needs_rng, base_key, deterministic, bias,
             input_ids.shape[0] // self.num_microbatches)
-        return embed_key, stage_fn
+        offset, window = self._embed_window(input_ids)
+        x = self.embed(self._seq_slice(input_ids), deterministic, embed_key,
+                       offset, window)
+        return x, stage_fn
 
     def _head(self, h, head_p, wte):
         x = torch.func.functional_call(self.head, head_p, (h,))
@@ -725,10 +746,9 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
     def forward(self, input_ids, attention_mask=None,
                 deterministic: bool = True, dropout_key=None):
         from apex_tpu_torch.parallel.pipeline import gpipe
-        embed_key, stage_fn = self._stage_inputs(
+        x, stage_fn = self._stage_inputs(
             input_ids, attention_mask, deterministic, dropout_key,
             "PipelinedGPT.apply")
-        x = self.embed(input_ids, deterministic, embed_key)
         h = gpipe(self._pipe(), stage_fn,
                   dict(self.stages.named_parameters()), x,
                   self.num_microbatches, microbatch_index=True)
@@ -741,18 +761,21 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
         grads)``, the gradients a ``{name: tensor}`` dict of this rank's
         parameters, ``embed.wte.weight``'s the sum of its lookup's and
         the LM head's; both this data index's, as
-        ``PipelinedBert.loss_and_grad_1f1b``'s."""
+        ``PipelinedBert.loss_and_grad_1f1b``'s (under ``seq_axis`` the
+        lookup's summed over the sequence group, the head's whole on
+        every shard)."""
         from apex_tpu_torch.parallel.pipeline import onef1b
-        embed_key, stage_fn = self._stage_inputs(
-            input_ids, attention_mask, deterministic, dropout_key,
-            "loss_and_grad_1f1b")
+        self._check_onef1b()
         m = self.num_microbatches
         embed = dict(self.embed.named_parameters())
         with torch.enable_grad():
-            x = self.embed(input_ids, deterministic, embed_key)
+            x, stage_fn = self._stage_inputs(
+                input_ids, attention_mask, deterministic, dropout_key,
+                "loss_and_grad_1f1b")
+        seq = self._seq_group()
 
         def pl_loss(h, tgt, lp):
-            logits = self._head(h, lp["head"], lp["wte"])
+            logits = self._head(gather_seq(h, seq), lp["head"], lp["wte"])
             if "mask" in tgt:
                 return (_lm_masked_sum(logits, tgt["ids"], tgt["mask"])
                         / tgt["denom"][0])
@@ -778,12 +801,14 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
             loss_params, microbatch_index=True)
         g_embed = dict(zip(embed, torch.autograd.grad(
             x, list(embed.values()), dx)))
+        # partial on each sequence shard: the lookup's and the stage's
+        grads = self._sum_over_seq(
+            {**{f"embed.{k}": v for k, v in g_embed.items()},
+             **{f"stages.{k}": v for k, v in g_stage.items()}})
         # the tied wte: the lookup's gradient and the head's, summed
-        g_embed["wte.weight"] = g_embed["wte.weight"] + g_lp["wte"]
-        grads = {**{f"embed.{k}": v for k, v in g_embed.items()},
-                 **{f"stages.{k}": v for k, v in g_stage.items()},
-                 **{f"head.{k}": v for k, v in g_lp["head"].items()}}
-        return loss, grads
+        grads["embed.wte.weight"] = grads["embed.wte.weight"] + g_lp["wte"]
+        return loss, {**grads,
+                      **{f"head.{k}": v for k, v in g_lp["head"].items()}}
 
 
 def _rank_name(name: str, layers_per_stage: int, rank: int):

@@ -10,10 +10,26 @@ families set: ``mesh``, ``pipe_axis``, ``batch_axis``,
 
 Each rank of the port holds one stage, so the keys are computed on the
 host from the microbatch's index and this rank's coordinates: nothing
-is read back from the device.  Not here yet: the tensor-parallel
-methods (``param_spec_tree``, ``shard_variables``, ``constrain_grads``)
-and the sequence axis; a pipelined model built with ``tp_axis`` or
-``seq_axis`` raises (ROADMAP A.10).
+is read back from the device.
+
+The sequence axis (``seq_axis`` with a sequence-parallel
+``attention_fn``): every rank of a (sp, pipe) group holds its data
+index's whole batch and runs its S/sp tokens through its stage
+(:meth:`PipelinedCommon._seq_slice`).  The stage keys fold in the
+sequence index last, so each shard's stage masks are drawn at its local
+shape from its own key, as the JAX stage inside ``shard_map`` draws
+them; the embeddings, which the JAX model runs outside its
+``shard_map`` on the whole batch, draw the rank's window of the whole
+activation's stream (:meth:`PipelinedCommon._embed_window`).  Under 1F1B
+the last stage gathers the microbatch's hidden states over the group
+before the loss (:func:`gather_seq`, whose backward keeps this rank's
+slice of the replicated cotangent), and the stage and embedding
+gradients, partial on each shard, are summed over the group
+(:meth:`PipelinedCommon._sum_over_seq`); the loss-head gradients,
+computed on the gathered states, are whole on every shard already.
+Not here yet: the tensor-parallel methods (``param_spec_tree``,
+``shard_variables``, ``constrain_grads``); a pipelined model built with
+``tp_axis`` raises (ROADMAP A.10: TP inside the pipeline).
 """
 
 from __future__ import annotations
@@ -28,6 +44,32 @@ from apex_tpu_torch.ops import threefry
 #: the embed key's fold_in index, far outside the microbatch ids the
 #: stage keys fold in
 EMBED_FOLD = 2 ** 20
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The sequence shards of ``h`` (B, S_local, ...) concatenated over
+    the group on dim 1; the backward keeps this rank's slice of the
+    cotangent (every rank computes the same replicated loss from the
+    gathered tensor, so its slice is the true gradient of its shard)."""
+
+    @staticmethod
+    def forward(ctx, h, group):
+        from apex_tpu_torch.parallel.collectives import all_gather_g
+        ctx.rank, ctx.size = group.rank(), h.shape[1]
+        return all_gather_g(h, group, axis=1, tiled=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.size
+        return grad[:, lo:lo + ctx.size], None
+
+
+def gather_seq(h: torch.Tensor, group) -> torch.Tensor:
+    """``h``'s sequence shards gathered over ``group`` (module
+    docstring); ``h`` itself without an initialized process group."""
+    if group is None or not dist.is_initialized():
+        return h
+    return _GatherSeq.apply(h, group)
 
 
 def rank_state_dict(state_dict: Mapping[str, torch.Tensor],
@@ -61,17 +103,17 @@ class PipelinedCommon:
                 "seq_axis requires a sequence-parallel attention_fn for "
                 f"the same axis ({sp_factory}) — plain attention would "
                 "silently attend only within each sequence shard")
-        if tp_axis is not None or seq_axis is not None:
+        if tp_axis is not None:
             raise NotImplementedError(
-                "a pipelined model with a tensor-parallel or sequence axis "
-                "is not ported yet (ROADMAP A.10: TP and SP inside the "
-                "pipeline)")
+                "a pipelined model with a tensor-parallel axis is not "
+                "ported yet (ROADMAP A.10: TP inside the pipeline)")
         if dist.is_initialized() and mesh.shape[pipe_axis] != pp:
             raise ValueError(f"pp={pp} but the mesh's {pipe_axis!r} axis "
                              f"has {mesh.shape[pipe_axis]} ranks")
         self.cfg, self.mesh, self.pp = cfg, mesh, pp
         self.num_microbatches = num_microbatches
         self.pipe_axis, self.batch_axis = pipe_axis, batch_axis
+        self.seq_axis = seq_axis
         self.attention_fn = attention_fn
 
     def _pipe(self):
@@ -115,13 +157,74 @@ class PipelinedCommon:
 
     def _stage_dropout_key(self, base_key, mb: int) -> threefry.Key:
         """The key of microbatch ``mb`` on this rank's stage: ``base_key``
-        with the microbatch id, the pipe index and (with ``batch_axis``)
-        the data index folded in, in that order."""
+        with the microbatch id, the pipe index, (with ``batch_axis``) the
+        data index and (with ``seq_axis``) the sequence index folded in,
+        in that order."""
         key = threefry.fold_in(base_key, mb)
         key = threefry.fold_in(key, self._coord(self.pipe_axis))
         if self.batch_axis:
             key = threefry.fold_in(key, self._coord(self.batch_axis))
+        if self.seq_axis:
+            key = threefry.fold_in(key, self._coord(self.seq_axis))
         return key
+
+    def _seq_group(self):
+        return self.mesh.group(self.seq_axis) \
+            if self.seq_axis and dist.is_initialized() else None
+
+    def _seq_slice(self, t: Optional[torch.Tensor]):
+        """This rank's tokens ``t[:, r * S/sp:(r + 1) * S/sp]`` of a (B, S)
+        input (``t`` itself without a sequence axis, None for None)."""
+        group = self._seq_group()
+        if t is None or group is None:
+            return t
+        n = t.shape[1] // group.size()
+        return t[:, group.rank() * n:(group.rank() + 1) * n]
+
+    def _embed_window(self, input_ids: torch.Tensor):
+        """``(offset, window)`` of this rank's embeddings: the position of
+        its first token, and where its (B, S_local, H) activation lies
+        in the counters of the whole (B * dp, S, H) activation the JAX
+        model's embeddings drop (``threefry.window``; None when the rank
+        holds all of it)."""
+        b, s = input_ids.shape
+        seq = self._seq_group()
+        n_sp = 1 if seq is None else seq.size()
+        n_dp = self.mesh.shape[self.batch_axis] \
+            if self.batch_axis and dist.is_initialized() else 1
+        if n_sp == 1 and n_dp == 1:
+            return 0, None
+        s_local = s // n_sp
+        offset = 0 if seq is None else seq.rank() * s_local
+        row, stride, base = threefry.window(
+            (b * n_dp, s, self.cfg.hidden_size), 1, offset, s_local)
+        base += self._coord(self.batch_axis) * b * stride
+        return offset, (row, stride, base)
+
+    def _check_onef1b(self) -> None:
+        """The reference's fence: under ``seq_axis`` 1F1B takes only an
+        ``attention_fn`` marked ``onef1b_compatible``."""
+        if self.seq_axis is not None and not getattr(
+                self.attention_fn, "onef1b_compatible", False):
+            raise NotImplementedError(
+                "seq_axis under 1F1B needs an attention_fn marked "
+                "onef1b_compatible=True (make_ulysses_attention is; ring "
+                "attention is NOT — its collective-carrying scan "
+                "miscomputes in the schedule's cond branches). Tag your "
+                "own scan-free implementation explicitly, or use the GPipe "
+                "apply() path")
+
+    def _sum_over_seq(self, grads: Dict[str, torch.Tensor]):
+        """``grads`` summed over the sequence group (bucketed, one
+        all-reduce a dtype); as they are without one."""
+        group = self._seq_group()
+        if group is None or group.size() == 1 or not grads:
+            return grads
+        from apex_tpu_torch.parallel.distributed import \
+            DistributedDataParallel
+        return DistributedDataParallel(
+            process_group=group, gradient_average=False).reduce_gradients(
+                grads)
 
     def _dropout_setup(self, deterministic: bool, dropout_key, caller: str):
         """The rng prologue of both training paths: ``(needs_rng,

@@ -26,7 +26,8 @@ from apex_tpu_torch.ops.multi_tensor import (
     tree_any_nonfinite,
 )
 from apex_tpu_torch.ops.sampling import finite_rows, greedy_argmax
-from apex_tpu_torch.ops.vocab_parallel import vocab_parallel_lm_loss
+from apex_tpu_torch.ops.vocab_parallel import vocab_parallel_lm_loss, \
+    vocab_parallel_lm_loss_shard
 
 __all__ = ["FlatSpec", "INT8_QMAX", "bias_to_kv_mask", "cached_attention",
            "chunk_cached_attention", "dequantize_kv", "dropout_params",
@@ -36,4 +37,4 @@ __all__ = ["FlatSpec", "INT8_QMAX", "bias_to_kv_mask", "cached_attention",
            "multi_tensor_axpby", "multi_tensor_l2norm",
            "multi_tensor_scale", "multi_tensor_unscale", "quantize_kv",
            "seed_array", "tree_any_nonfinite", "unflatten",
-           "vocab_parallel_lm_loss"]
+           "vocab_parallel_lm_loss", "vocab_parallel_lm_loss_shard"]

@@ -21,6 +21,10 @@ and the local ``wte`` slice gets its own.  The reductions are Megatron's
 computes the same loss from replicated (B, S) values, and a psum in the
 backward would multiply the gradients by n.
 
+:func:`vocab_parallel_lm_loss_shard` is the same loss over a sequence
+shard (``--sp`` with ``--tp``): the sum over the rank's positions, for
+the caller to sum over the sequence group.
+
 The samplers in the JAX file (``vocab_parallel_sample``,
 ``vocab_parallel_argmax``) belong to tensor-parallel serving and are
 not here.
@@ -67,6 +71,18 @@ def vocab_parallel_lm_loss(hidden: torch.Tensor, wte: torch.Tensor,
     Returns the 0-d loss in ``logits_dtype``, the same on every rank of
     the group; gradients flow to ``hidden`` and ``wte``.
     """
+    per_tok = _per_token(hidden, wte, input_ids[:, 1:], mesh, axis,
+                         true_vocab, logits_dtype)
+    if attention_mask is None:
+        return per_tok.mean()
+    keep = attention_mask[:, 1:].to(per_tok.dtype)
+    return (per_tok * keep).sum() / keep.sum().clamp_min(1.0)
+
+
+def _per_token(hidden, wte, labels, mesh, axis, true_vocab, logits_dtype):
+    """The (B, n) cross entropy of the first n = ``labels.shape[1]``
+    positions of ``hidden`` against ``labels``, from this rank's vocab
+    rows (the three reductions of the module docstring)."""
     # imported here: parallel imports ops (a module-level import would
     # be circular)
     from apex_tpu_torch.parallel.collectives import copy_to_group, \
@@ -80,8 +96,8 @@ def vocab_parallel_lm_loss(hidden: torch.Tensor, wte: torch.Tensor,
     if true_vocab is not None and true_vocab < vshard * n:
         vids = index * vshard + torch.arange(vshard, device=lg.device)
         lg = torch.where(vids < true_vocab, lg, PAD_LOGIT)
-    lg = lg[:, :-1]
-    tgt = input_ids[:, 1:].long()
+    lg = lg[:, :labels.shape[1]]
+    tgt = labels.long()
     gmax = pmax_g(lg.detach().amax(dim=-1), group)
     z = torch.exp(lg - gmax[..., None])
     lse = torch.log(reduce_from_group(z.sum(dim=-1), group)) + gmax
@@ -90,8 +106,25 @@ def vocab_parallel_lm_loss(hidden: torch.Tensor, wte: torch.Tensor,
     picked = torch.gather(lg, -1, local_t.clamp(0, vshard - 1)[..., None])
     tgt_logit = reduce_from_group(
         torch.where(owned, picked[..., 0], 0.0), group)
-    per_tok = lse - tgt_logit
-    if attention_mask is None:
-        return per_tok.mean()
-    keep = attention_mask[:, 1:].to(per_tok.dtype)
-    return (per_tok * keep).sum() / keep.sum().clamp_min(1.0)
+    return lse - tgt_logit
+
+
+def vocab_parallel_lm_loss_shard(hidden: torch.Tensor, wte: torch.Tensor,
+                                 input_ids: torch.Tensor, mesh,
+                                 true_vocab: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """A sequence-parallel rank's part of :func:`vocab_parallel_lm_loss`:
+    the SUM of the next-token cross entropy over its positions, from its
+    (B, S/sp, H) ``hidden`` (its sequence shard, replicated over the
+    model group) and its vocab rows of ``wte``; ``input_ids`` is the
+    batch's whole (B, S).  As ``models.gpt.lm_loss_shard``: the next
+    shard's first token labels this rank's last position, and the last
+    sequence rank drops its final position, which has none.  The loss of
+    the batch is the sum over the sequence group divided by ``B * (S -
+    1)``, in fp32; the vocab is split over the mesh's ``"model"`` axis
+    and the sequence over its ``"sp"`` axis."""
+    s_local = hidden.shape[1]
+    start = (mesh.index("sp") if dist.is_initialized() else 0) * s_local
+    labels = input_ids[:, start + 1:start + s_local + 1]
+    return _per_token(hidden, wte, labels, mesh, "model", true_vocab,
+                      torch.float32).sum()

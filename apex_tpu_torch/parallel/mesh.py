@@ -12,7 +12,10 @@ example's ``Mesh(devices.reshape(dp, pp), ("data", "pipe"))`` (with a
 sequence axis ``(dp, sp, pp)``): rank r sits at data index ``r // (sp *
 pp * tp)``, sequence index ``(r // (pp * tp)) % sp``, pipe index ``(r //
 tp) % pp`` and model index ``r % tp``, so the model groups are
-contiguous and the pipe, sequence and data groups strided.
+contiguous and the pipe, sequence and data groups strided.  A fifth
+group, ``"data_sp"``, holds the ranks of one (pipe, model) coordinate:
+the ranks over which a sequence-parallel model's replicated parameters
+are reduced.
 """
 
 from __future__ import annotations
@@ -97,9 +100,10 @@ def create_process_group(group_size: Optional[int] = None,
 
 class Mesh(NamedTuple):
     """A (data, sp, pipe, model) rank mesh: ``shape`` maps each axis name
-    to its size, ``groups`` each axis to this rank's ``ProcessGroup``
-    along it (empty for a mesh made only to read shapes, as
-    ``param_specs`` does)."""
+    to its size, ``groups`` each axis (and ``"data_sp"``, the data and
+    sequence axes together) to this rank's ``ProcessGroup`` along it
+    (empty for a mesh made only to read shapes, as ``param_specs``
+    does)."""
 
     shape: Dict[str, int]
     groups: Dict[str, ProcessGroup] = {}
@@ -124,9 +128,12 @@ def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1,
     call it in the same order as every other rank; every group is made
     on every rank, the model groups first, then the data, sequence and
     pipe groups (at ``pp`` 1 the ranks and the first three axes' groups
-    are those of the ``(dp, sp, tp)`` mesh).  The pipe axis with a
-    sequence or model axis above 1 waits for ROADMAP A.10's next item
-    (pipeline parallelism with TP and SP)."""
+    are those of the ``(dp, sp, tp)`` mesh), then, with ``sp`` above 1
+    beside a pipe or model axis above 1, the ``"data_sp"`` groups: the
+    ``dp * sp`` ranks of each (pipe, model) coordinate (else it is the
+    data group at ``sp`` 1 and the world when the data and sequence
+    axes are all of it).  The pipe axis with a model axis above 1 waits
+    for ROADMAP A.10: TP inside the pipeline."""
     world = dist.get_world_size()
     inner = sp * pp * tp
     if dp is None:
@@ -134,10 +141,10 @@ def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1,
     if min(tp, sp, pp, dp) <= 0 or dp * inner != world:
         raise ValueError(f"mesh ({dp}, {sp}, {pp}, {tp}) does not tile a "
                          f"world of {world} ranks")
-    if pp > 1 and (sp > 1 or tp > 1):
+    if pp > 1 and tp > 1:
         raise NotImplementedError(
-            "a pipe axis beside a sequence or model axis is not ported yet "
-            "(ROADMAP A.10: TP and SP inside the pipeline)")
+            "a pipe axis beside a model axis is not ported yet (ROADMAP "
+            "A.10: TP inside the pipeline)")
     model = _new_groups([tuple(range(g * tp, (g + 1) * tp))
                          for g in range(dp * sp * pp)])
     data = _new_groups([tuple(range(j, world, inner)) for j in range(inner)])
@@ -149,5 +156,14 @@ def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1,
                               for q in range(pp))
                         for d in range(dp) for s in range(sp)
                         for m in range(tp)])
+    if sp == 1:
+        data_sp = data
+    elif pp * tp == 1:
+        data_sp = WORLD
+    else:
+        data_sp = _new_groups([tuple(d * inner + s * pp * tp + q * tp + m
+                                     for d in range(dp) for s in range(sp))
+                               for q in range(pp) for m in range(tp)])
     return Mesh({"data": dp, "sp": sp, "pipe": pp, "model": tp},
-                {"data": data, "sp": seq, "pipe": pipe, "model": model})
+                {"data": data, "sp": seq, "pipe": pipe, "model": model,
+                 "data_sp": data_sp})

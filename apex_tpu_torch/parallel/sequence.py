@@ -26,7 +26,10 @@ group is a world of one.
 Attention dropout takes global coordinates: the ring's hop from rank
 ``src`` hashes ``(my * S_local, src * S_local, 0, H)``, Ulysses' rank
 ``(0, 0, my * H/n, H)``, so every (q, k) pair drops as the one-device
-call drops it at the same seed.
+call drops it at the same seed.  ``dropout_heads=(h0, H_total)`` places
+the H local heads at ``h0`` of the whole model's ``H_total`` (a
+tensor-parallel rank's; the adapters read it from the ``dropout_fn``'s
+``.offsets``, which the tensor-parallel models set).
 
 Eager autograd has no SPMD program: every rank's backward must issue
 the same collectives in the same order.  The ring rotates K and V as
@@ -40,7 +43,7 @@ tensor: two collectives forward, two backward.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -113,7 +116,8 @@ def ring_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
                    causal: bool = False, scale: Optional[float] = None,
                    use_flash: Optional[bool] = None,
                    flash_kwargs: Optional[dict] = None,
-                   dropout_rate: float = 0.0, dropout_seed=None):
+                   dropout_rate: float = 0.0, dropout_seed=None,
+                   dropout_heads: Optional[Tuple[int, int]] = None):
     """Exact attention over a sequence sharded on ``group``.
 
     ``q``, ``k``, ``v``: this rank's (B, S_local, H, D) shards;
@@ -125,8 +129,9 @@ def ring_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
     versions on the CPU), False for the fp32 online-softmax blocks;
     ``flash_kwargs``: passed to ``flash_attention``;
     ``dropout_rate``/``dropout_seed``: attention dropout in global
-    coordinates.  Returns (B, S_local, H, D) in q's dtype; rows with no
-    live key give zeros.  Differentiable in q, k and v."""
+    coordinates (``dropout_heads``: module docstring).  Returns (B,
+    S_local, H, D) in q's dtype; rows with no live key give zeros.
+    Differentiable in q, k and v."""
     _check_dropout("ring_attention", dropout_rate, dropout_seed,
                    flash_kwargs)
     if use_flash is None or use_flash:
@@ -134,9 +139,11 @@ def ring_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
                                      causal=causal, scale=scale,
                                      flash_kwargs=flash_kwargs or {},
                                      dropout_rate=dropout_rate,
-                                     dropout_seed=dropout_seed)
+                                     dropout_seed=dropout_seed,
+                                     dropout_heads=dropout_heads)
     n, my = _place(group)
     b, s_local, h, d = q.shape
+    h0, h_total = dropout_heads or (0, h)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     q32 = q.float() * scale
@@ -160,8 +167,9 @@ def ring_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
         keep = None
         if dropout_rate > 0.0:
             keep = keep_from_seed(
-                seed_array(dropout_seed, (my * s_local, src * s_local, 0, h),
-                           num_heads=h, device=dev),
+                seed_array(dropout_seed,
+                           (my * s_local, src * s_local, h0, h_total),
+                           num_heads=h_total, device=dev),
                 b, h, local, local, dropout_rate)
         m, den, acc = _online_block_update(m, den, acc, scores, kv[1], keep,
                                            dropout_rate)
@@ -173,7 +181,8 @@ def ring_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
 
 
 def _ring_attention_flash(q, k, v, *, group, kv_mask, causal, scale,
-                          flash_kwargs, dropout_rate=0.0, dropout_seed=None):
+                          flash_kwargs, dropout_rate=0.0, dropout_seed=None,
+                          dropout_heads=None):
     """Ring attention with ``flash_attention(return_lse=True)`` a hop and
     the exact merge ``out = sum_i o_i * exp(lse_i - LSE)``; under causal
     masking the diagonal hop is causal, a hop from ``src < my``
@@ -181,6 +190,7 @@ def _ring_attention_flash(q, k, v, *, group, kv_mask, causal, scale,
     graph times 0, see the module docstring)."""
     n, my = _place(group)
     b, s_local, h, d = q.shape
+    h0, h_total = dropout_heads or (0, h)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if kv_mask is not None:
@@ -191,7 +201,8 @@ def _ring_attention_flash(q, k, v, *, group, kv_mask, causal, scale,
         if dropout_rate > 0.0:
             extra = dict(dropout_rate=dropout_rate,
                          dropout_seed=dropout_seed,
-                         dropout_offsets=(my * s_local, src * s_local, 0, h))
+                         dropout_offsets=(my * s_local, src * s_local, h0,
+                                          h_total))
         return flash_attention(q, k_blk, v_blk, kv_mask=mask_blk,
                                causal=is_causal, scale=scale,
                                return_lse=True, **extra, **flash_kwargs)
@@ -224,7 +235,8 @@ def ulysses_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
                       attention_impl: Optional[Callable] = None,
                       use_flash: Optional[bool] = None,
                       flash_kwargs: Optional[dict] = None,
-                      dropout_rate: float = 0.0, dropout_seed=None):
+                      dropout_rate: float = 0.0, dropout_seed=None,
+                      dropout_heads: Optional[Tuple[int, int]] = None):
     """All-to-all sequence parallelism (the "Ulysses" pattern).
 
     Shards (B, S_local, H, D) with H divisible by the group's size are
@@ -233,9 +245,11 @@ def ulysses_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
     no ``attention_impl``): ``flash_attention``; False: the exact fp32
     softmax; ``attention_impl(q, k, v, bias=)``: the caller's attention
     over the additive (B, 1, S or 1, S) bias.  ``kv_mask`` is this
-    shard's (B, S_local) key mask, all-gathered over the group."""
+    shard's (B, S_local) key mask, all-gathered over the group;
+    ``dropout_heads``: module docstring."""
     n, my = _place(group)
     b, s_local, h, d = q.shape
+    h0, h_total = dropout_heads or (0, h)
     _check_dropout("ulysses_attention", dropout_rate, dropout_seed,
                    flash_kwargs)
     if dropout_rate > 0.0 and attention_impl is not None:
@@ -273,7 +287,7 @@ def ulysses_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
             # this rank holds heads [my * h/n, (my + 1) * h/n) of the H
             extra = dict(dropout_rate=dropout_rate,
                          dropout_seed=dropout_seed,
-                         dropout_offsets=(0, 0, my * h_loc, h))
+                         dropout_offsets=(0, 0, h0 + my * h_loc, h_total))
         out = flash_attention(qg, kg, vg, kv_mask=mask_g, causal=causal,
                               scale=scale, **extra, **(flash_kwargs or {}))
         return to_seq(out)
@@ -294,8 +308,8 @@ def ulysses_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
     if dropout_rate > 0.0:
         pos = torch.arange(s_global, device=q.device)
         keep = keep_from_seed(
-            seed_array(dropout_seed, (0, 0, my * h_loc, h), num_heads=h_loc,
-                       device=q.device),
+            seed_array(dropout_seed, (0, 0, h0 + my * h_loc, h_total),
+                       num_heads=h_total, device=q.device),
             b, h_loc, pos, pos, dropout_rate)
         probs = torch.where(keep, probs / _divisor(dropout_rate, q.device),
                             0.0)
@@ -304,6 +318,13 @@ def ulysses_attention(q, k, v, *, group: Optional[ProcessGroup] = None,
     valid = scores.amax(dim=-1) > NEG_INF / 2                # (B, H, Sq)
     out = torch.where(valid.permute(0, 2, 1)[..., None], out, 0.0)
     return to_seq(out.to(q.dtype))
+
+
+def _dropout_heads(dropout_fn):
+    """``(head_offset, heads_total)`` from a tensor-parallel model's
+    ``dropout_fn.offsets``; None without them."""
+    offsets = getattr(dropout_fn, "offsets", None)
+    return None if offsets is None else (offsets[2], offsets[3])
 
 
 def make_ring_attention(group: Optional[ProcessGroup] = None, *,
@@ -318,7 +339,8 @@ def make_ring_attention(group: Optional[ProcessGroup] = None, *,
         rate, seed = dropout_params(dropout_fn)
         return ring_attention(q, k, v, group=group,
                               kv_mask=bias_to_kv_mask(bias), causal=causal,
-                              dropout_rate=rate, dropout_seed=seed)
+                              dropout_rate=rate, dropout_seed=seed,
+                              dropout_heads=_dropout_heads(dropout_fn))
 
     # the JAX ring's collective-carrying scan miscomputes in the 1F1B
     # schedule's branches; the mark travels with the adapter
@@ -335,7 +357,8 @@ def make_ulysses_attention(group: Optional[ProcessGroup] = None, *,
         return ulysses_attention(q, k, v, group=group,
                                  kv_mask=bias_to_kv_mask(bias),
                                  causal=causal, dropout_rate=rate,
-                                 dropout_seed=seed)
+                                 dropout_seed=seed,
+                                 dropout_heads=_dropout_heads(dropout_fn))
 
     attention_fn.onef1b_compatible = True
     return attention_fn

@@ -48,9 +48,9 @@ slices whose length divides by 4 (B1's 16-byte accesses) and it holds
 at least ``min_shard_elems``; else it takes the replicated update, as
 the JAX package's kernel takes its jnp update.
 
-Not here yet: ZeRO over ``FusedLAMB`` (its oracle is ZeRO x pipeline
-parallelism; it comes with the pipeline slice) and ZeRO-2 over the tree
-layout (with the same slice: the reduce-scatter of per-leaf shards).
+Not here yet: ZeRO over ``FusedLAMB`` (ROADMAP A.10: ZeRO over
+FusedLAMB; its oracle is ZeRO x pipeline parallelism).  ZeRO-2 takes a
+flat-layout ``FusedAdam`` only, as the JAX package's ``zero2_update``.
 """
 
 from __future__ import annotations
@@ -345,10 +345,8 @@ def zero2_update(optimizer, params: Tree, grads: Tree, state,
     bit."""
     if getattr(optimizer, "layout", None) != "flat":
         raise ValueError(
-            "zero2_update needs a flat-layout FusedAdam (got layout="
-            f"{getattr(optimizer, 'layout', None)!r}); ZeRO-2 over the "
-            "tree layout comes with the pipeline-parallel slice (ROADMAP "
-            "A.10)")
+            "zero2_update needs a flat-layout FusedAdam "
+            f"(got layout={getattr(optimizer, 'layout', None)!r})")
     if optimizer.param_groups:
         raise NotImplementedError(
             "zero2_update v1 does not support param_groups (group "

@@ -342,6 +342,47 @@ Phases, each printing one JSON line; any failure exits non-zero:
    8 x 128 x 16 x 64 bf16 (``_pp_mb_rows``), against their plain
    versions and SDPA; the JSON line carries them as ``pp_microbatch``.
 
+20. train_sp_compose — sequence parallelism composed with the other
+   axes, four processes over gloo on the one card a world (CUDA
+   tensors), TF32 off, against one process's dense runs from the same
+   seed; its first line is the prediction (``C_PREDICTION``) written
+   before any chip reading:
+   (a) BERT-large ``--pp 2 --ring-attention 2`` (dp 1 x sp 2 x pp 2, B
+       16, S 512, M 4): GPipe with ring and 1F1B with Ulysses, O0 2
+       steps through ``build``/``train_step`` (losses <= 1e-4
+       relative, step-1 gradients <= 1e-4 scale-aware, GPipe against
+       1F1B params after step 1 <= 1e-5) and O2 3 steps through
+       ``train(..., pp=2, sp=2)`` (within 2e-2); step ms, tokens/s for
+       the four, peak a rank and the four's sum, collective calls a
+       step, launches exact (``_compose_launches``: the ring's two
+       flash calls an attention, Ulysses' one; paths
+       ``train_pp_sp_gpipe_ring``, ``train_pp_sp_1f1b_ulysses``); 1F1B
+       with ring exits with the JAX example's message;
+   (b) dropout 0.1 through ``PipelinedBert`` with Ulysses: 1F1B's
+       gradients within 1e-5 of GPipe autodiff's at one key (B4d-B6d
+       and threefry on the sequence-folded key chain; path
+       ``train_pp_sp_dropout``);
+   (c) GPT-2 small's ``PipelinedGPT`` at sp 2 x pp 2 (B 8, S 1024, M 4):
+       1F1B with causal Ulysses at O0, the loss within 1e-4 relative
+       and the tied ``wte`` gradient within 1e-4 scale-aware of the
+       dense model's; GPipe with causal ring, the logits within 2e-4
+       scale-aware of the dense final hidden states' through the rank's
+       ``wte``; launches exact (path ``train_pp_sp_gpt``);
+   (d) GPT-2 small ``--sp 2 --tp 2`` (dp 1, B 8, S 1024), Ulysses and
+       ring: O0 2 steps through ``gpt_main_amp``'s ``build``/
+       ``train_step`` with DDP over the ``"data_sp"`` group (losses <=
+       1e-4 relative, params after step 1 <= 1e-4 scale-aware of the
+       dense step's, sliced as the rank's), O2 3 steps through
+       ``gpt_main_amp.train(tp=2, sp=2)`` within 2e-2; tokens/s for the
+       four, peak a rank, collectives a step, launches exact (paths
+       ``train_gpt_sp_tp_ulysses``, ``train_gpt_sp_tp_ring``).
+   The kernels phase times B4, B5 and B6 at the shapes these paths give
+   them (``COMPOSE_SHAPES``): a pipelined ring hop 4 x 256 x 16 x 64
+   with its keys' padding mask, the pipelined Ulysses attention 4 x 512
+   x 8 x 64, and ``--sp --tp``'s Ulysses attention 8 x 1024 x 3 x 64
+   causal, each against its plain version and SDPA; the JSON line
+   carries them as ``compose_mode``.
+
 The O1 phases run last, and each ends by removing the policy, resetting
 amp's state and checking every patched function is its original again.
 When every phase runs, every kernel of the JSON line must have been
@@ -1368,48 +1409,83 @@ def _sp_hop_rows(torch, which):
 
 # one microbatch of BERT-large's --pp 2 step (B 32, M 4), bf16 (O2)
 PP_MB = (8, 128, 16, 64)
+# the launch shapes the composed axes give the flash kernels, bf16 (O2):
+# a ring hop of BERT-large's --pp 2 --ring-attention 2 microbatch (B 16,
+# M 4, S 512 over two ranks) with its keys' padding mask, the same
+# microbatch's Ulysses attention (16 heads over two ranks, the whole
+# sequence), and GPT-2 small's --sp 2 --tp 2 Ulysses attention (12 heads
+# over two model ranks, then two sequence ranks), causal
+COMPOSE_SHAPES = (("pp_sp_ring_hop", (4, 256, 16, 64), False, True),
+                  ("pp_sp_ulysses", (4, 512, 8, 64), False, False),
+                  ("sp_tp_ulysses", (8, 1024, 3, 64), True, False))
+COMPOSE_MASKED_KEYS = 32   # the hop's last keys a row, masked
 
 
 def _pp_mb_rows(torch, which):
     """B4 (``which="fwd"``), B5 (``"dq"``) or B6 (``"dkv"``) at the launch
     size pipelining gives them on one card: one microbatch of BERT-large
     (``PP_MB``, non-causal, no mask, bf16), against its plain version,
-    SDPA at the same shape and the bound (``pp_mode`` names the row)."""
+    SDPA at the same shape and the bound (``pp_mode`` names the row); and
+    at the composed axes' shapes (``COMPOSE_SHAPES``, ``compose_mode``
+    names the row)."""
+    rows = _shape_rows(torch, which, PP_MB, "pp_mode", "microbatch", False,
+                       False, 808)
+    for mode, shape, causal, masked in COMPOSE_SHAPES:
+        rows += _shape_rows(torch, which, shape, "compose_mode", mode,
+                            causal, masked, 909)
+    return rows
+
+
+def _shape_rows(torch, which, shape, key, mode, causal, masked, seed):
+    """One row of B4, B5 or B6 (``which``) at ``shape`` (bf16), its key
+    padding mask (the last ``COMPOSE_MASKED_KEYS`` keys of every row at
+    ``NEG_INF``) when ``masked``: against its plain version, timed beside
+    it and SDPA (its boolean mask the same keys), the bound counting the
+    (query, key) pairs the mask and the causal order leave."""
     import torch.nn.functional as F
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
-    bsz, s, h, d = PP_MB
+    bsz, s, h, d = shape
     dtype, dt = torch.bfloat16, "bfloat16"
-    g = torch.Generator(device="cuda").manual_seed(808)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(bsz, s, h, d, device="cuda",
                                generator=g).to(dtype) for _ in range(4))
     scale = 1.0 / d ** 0.5
     isz = q.element_size()
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    pairs = bsz * h * s * s
+    mask = sdpa_mask = None
+    live = s
+    if masked:
+        live = s - COMPOSE_MASKED_KEYS
+        mask = torch.zeros(bsz, s, device="cuda")
+        mask[:, live:] = fa.NEG_INF
+        sdpa_mask = (mask > fa.NEG_INF / 2)[:, None, None, :]
+    pairs = bsz * h * (s * (s + 1) // 2 if causal else s * live)
+    lib_kw = dict(attn_mask=sdpa_mask, is_causal=causal)
     if which == "fwd":
         def kernel():
-            return fa.flash_attention_fwd(q, k, v, None, False, scale)
+            return fa.flash_attention_fwd(q, k, v, mask, causal, scale)
 
         def plain():
-            return fa._reference(q, k, v, None, False, scale,
+            return fa._reference(q, k, v, mask, causal, scale,
                                  return_lse=True)
 
         def library():
-            return F.scaled_dot_product_attention(qt, kt, vt)
-        nbytes = 4 * bsz * s * h * d * isz + bsz * h * s * 4
+            return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+        nbytes = 4 * bsz * s * h * d * isz + bsz * h * s * 4 \
+            + (bsz * s * 4 if masked else 0)
         flops = 4 * pairs * d
     else:
-        po, plse = fa._reference(q, k, v, None, False, scale,
+        po, plse = fa._reference(q, k, v, mask, causal, scale,
                                  return_lse=True)
         delta = (do.float() * po.float()).sum(-1).permute(0, 2, 1) \
             .contiguous()
-        args = (q, k, v, do, plse, delta, None, False, scale)
+        args = (q, k, v, do, plse, delta, mask, causal, scale)
         kfn = {"dq": fa.flash_attention_bwd_dq,
                "dkv": fa.flash_attention_bwd_dkv}[which]
         pfn = {"dq": fa._bwd_dq_reference,
                "dkv": fa._bwd_dkv_reference}[which]
-        so = F.scaled_dot_product_attention(qt, kt, vt)
+        so = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
         dot = do.transpose(1, 2)
 
         def kernel():
@@ -1422,19 +1498,21 @@ def _pp_mb_rows(torch, which):
             return torch.autograd.grad(so, (qt, kt, vt), dot,
                                        retain_graph=True)
         n_out = (1 if which == "dq" else 2) * bsz * s * h * d * isz
-        nbytes = 4 * bsz * s * h * d * isz + 2 * bsz * h * s * 4 + n_out
+        nbytes = 4 * bsz * s * h * d * isz + 2 * bsz * h * s * 4 + n_out \
+            + (bsz * s * 4 if masked else 0)
         flops = (6 if which == "dq" else 8) * pairs * d
     got, want = kernel(), plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     rel = max_abs = 0.0
     for a, b in zip(got, want):
-        r, m = _check(f"flash {which} pp microbatch",
+        r, m = _check(f"flash {which} {mode}",
                       dt if a.dtype == dtype else "float32", a, b)
         rel, max_abs = max(rel, r), max(max_abs, m)
     bms, by = bound(nbytes, flops, dt)
-    return [{"shape": list(PP_MB), "dtype": dt, "design": _design(dt),
-             "pp_mode": "microbatch", "causal": False, "rel_err": rel,
+    return [{"shape": list(shape), "dtype": dt, "design": _design(dt),
+             key: mode, "causal": causal, "masked_keys":
+             COMPOSE_MASKED_KEYS if masked else 0, "rel_err": rel,
              "max_abs_err": max_abs,
              "ms": median_ms(kernel, TIMED_LAUNCHES_LARGE),
              "plain_ms": median_ms(plain, TIMED_LAUNCHES_LARGE),
@@ -5950,11 +6028,608 @@ def phase_train_pp():
     return by_path
 
 
+# the composed axes: BERT-large at --pp 2 --ring-attention 2 (B 16, S
+# 512, M 4), GPipe with ring and 1F1B with Ulysses, dropout through
+# PipelinedBert with Ulysses, GPT-2 small's PipelinedGPT (B 8, S 1024,
+# M 4), as four processes over gloo on the one card (dp 1 x sp 2 x pp
+# 2); GPT-2 small --sp 2 --tp 2 as four more; each against one dense
+# process
+CSP, CPP = 2, 2
+CB_BATCH, CB_SEQ, C_M = 16, 512, 4
+C_O0_STEPS, C_O2_STEPS = 2, 3
+C_TOL = 1e-4              # O0 against one process: losses relative,
+                          # step-1 grads (params for (d)) scale-aware
+C_SCHED_TOL = 1e-5        # GPipe against 1F1B: params after step 1, and
+                          # (b)'s gradients, scale-aware
+C_LOGIT_TOL = 2e-4        # (c) GPipe's logits, scale-aware
+C_PREDICTION = {
+    "a_losses_O0": "GPipe-ring and 1F1B-Ulysses within 1e-4 relative of "
+                   "the dense process, step-1 gradients within 1e-4 "
+                   "scale-aware (measured error 1e-7 to 1e-6, as train_pp's "
+                   "--pp 2 and train_sp's --ring-attention 2); GPipe and "
+                   "1F1B params after step 1 within 1e-5",
+    "a_O2": "within 2e-2 of dense O2 every step",
+    "a_step_ms_O2": "GPipe-ring 600-1500, 1F1B-Ulysses 700-1800 (the "
+                    "K/V rotations and all-to-alls, 96 a step a rank, "
+                    "through the host beside the pipe hops; four "
+                    "processes share the card)",
+    "a_tokens_per_s_four_O2": "GPipe-ring 5.5k-14k, 1F1B-Ulysses "
+                              "4.5k-12k (8192 tokens a step for the four)",
+    "a_peak_gb_rank_O2": "GPipe 13-17, 1F1B 12-16 (train_pp's --pp 2 "
+                         "ranks held 13.1-13.6, most of it the "
+                         "replicated embeddings, heads and their LAMB "
+                         "state); the four 52-68, under the card's 80",
+    "a_collectives_a_step": "GPipe-ring: about 2 broadcasts a K/V "
+                            "rotation (12 layers x 4 microbatches, "
+                            "forward and backward) beside train_pp's 8 pipe "
+                            "hops; 1F1B-Ulysses: the all-to-alls as "
+                            "broadcasts, 4 q/k/v and 4 output swaps a "
+                            "layer a microbatch each way, and the "
+                            "gathered hidden states",
+    "a_launches": "exact: GPipe-ring B2 = B3 = 2 + 2*12*4 = 98, B4-B6 "
+                  "2*12*4 = 96 (two hops a layer a microbatch); "
+                  "1F1B-Ulysses B2 1 + 4*12*4 (+4 on the last stage), B3 "
+                  "1 + 2*12*4 (+4), B4 96 (48 on the last stage), B5 = "
+                  "B6 48",
+    "a_1f1b_ring": "exits with the JAX example's message",
+    "b_dropout": "1F1B within 1e-5 of GPipe autodiff at the same key",
+    "c_gpt": "1F1B-Ulysses loss within 1e-4 relative of the dense "
+             "lm_loss, tied wte gradient within 1e-4 scale-aware; "
+             "GPipe-ring logits within 2e-4 scale-aware",
+    "d_sp_tp_O0": "ring and Ulysses losses within 1e-4 relative, step-1 "
+                  "params within 1e-4 scale-aware",
+    "d_sp_tp_O2": "within 2e-2 every step",
+    "d_tokens_per_s_four_O2": "3k-9k (gloo all-reduces of the "
+                              "row-parallel outputs and the sequence "
+                              "swaps through the host)",
+    "d_peak_gb_rank_O2": "3-7",
+    "phase_s": "150-300",
+}
+
+
+def _compose_launches(names, lps, m, schedule, last, steps, calls,
+                      dropout=False):
+    """A pipelined BERT rank's launches (``_pp_launches``) with ``calls``
+    flash calls an attention: the ring's two hops, Ulysses' one."""
+    counts = _pp_launches(names, lps, m, schedule, last, steps, dropout)
+    return {k: v * calls if k.startswith("flash_") else v
+            for k, v in counts.items()}
+
+
+def _compose_dense():
+    """One process's dense runs: BERT-large O0 (2 steps, a part of the
+    step-1 gradients written for the ranks) and O2 (3 steps) at B 16, S
+    512; GPT-2 small's lm_loss, its wte gradient, its wte and its final
+    hidden states at B 8, S 1024; GPT-2 small's O0 and O2 steps for (d)
+    (``_tp_dense_reference``)."""
+    import torch
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
+    from apex_tpu_torch.models.gpt import lm_loss
+    from apex_tpu_torch.ops import make_flash_attention
+    out = {}
+    cfg = bert_main_amp.get_config("large")
+    for level, steps in (("O0", C_O0_STEPS), ("O2", C_O2_STEPS)):
+        model, opt, params, st = bert_main_amp.build(
+            cfg, opt_level=level, attention_fn=make_flash_attention(),
+            device="cuda", seed=0)
+        data = bert_main_amp.batches(cfg, CB_BATCH, CB_SEQ)
+        losses, seconds = [], []
+        for step in range(steps):
+            batch = tuple(torch.from_numpy(a).cuda() for a in next(data))
+            t0 = time.perf_counter()
+            params, st, loss, grads = bert_main_amp.train_step(
+                model, opt, params, st, batch)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+            if level == "O0" and step == 0:
+                torch.save({k: v.detach().cpu() for k, v in grads.items()
+                            if PP_GRADS.search(k)},
+                           OUT_DIR / "c_dense_grads.pt")
+            del grads
+        out[f"bert_{level}"] = {"losses": losses, "step_seconds": seconds}
+        del model, opt, params, st
+        torch.cuda.empty_cache()
+    model = GPTLMHeadModel(gpt_small(), make_flash_attention(causal=True),
+                           device="cuda", seed=0)
+    ids = torch.from_numpy(next(_c_gpt_batches())).cuda()
+    hidden = model(ids, return_hidden=True)
+    loss = lm_loss(torch.nn.functional.linear(hidden, model.wte.weight)
+                   .float(), ids)
+    (wte,) = torch.autograd.grad(loss, [model.wte.weight])
+    out["gpt"] = {"loss": float(loss)}
+    torch.save({"wte": wte.detach().cpu(), "hidden": hidden.detach().cpu(),
+                "wte_weight": model.wte.weight.detach().cpu()},
+               OUT_DIR / "c_gpt.pt")
+    del model, wte, hidden
+    torch.cuda.empty_cache()
+    out["sp_tp"] = _tp_dense_reference()
+    return out
+
+
+def _c_gpt_batches():
+    from apex_tpu_torch.examples import gpt_main_amp
+    return gpt_main_amp.batches(50257, TRAIN_BATCH, TRAIN_SEQ)
+
+
+def _compose_run(build, schedule, batches, steps, keep_params=False,
+                 **step_kw):
+    """``steps`` steps of a BERT rank of the (1, 2, 2) mesh: its DDP over
+    the example's group (the data group under 1F1B, the (data x sp)
+    ranks under GPipe), launch counts at 0 just before and read just
+    after, collectives counted, host clock around each step, the peak;
+    the step-1 gradients and (``keep_params``) params on the host."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    model, opt, params, st, mesh = build()
+    ddp = DistributedDataParallel(model, process_group=mesh.group(
+        "data" if schedule == "1f1b" else "data_sp"))
+    losses, seconds, grads1, params1 = [], [], None, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _CollectiveCount() as coll:
+        for i in range(steps):
+            batch = tuple(torch.from_numpy(a).cuda() for a in next(batches))
+            scale = float(opt.loss_scale(st))
+            t0 = time.perf_counter()
+            params, st, loss, grads = bert_main_amp.train_step(
+                model, opt, params, st, batch, ddp=ddp, mesh=mesh,
+                schedule=schedule, **step_kw)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                grads1 = {k: (g.detach() / scale).cpu()
+                          for k, g in grads.items()}
+                if keep_params:
+                    params1 = {k: v.detach().cpu()
+                               for k, v in params.items()}
+            del grads
+        torch.cuda.synchronize()
+    out = {"losses": losses, "step_seconds": seconds,
+           "launches": launch_counts(), "collectives": dict(coll.counts),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, opt, params, st, ddp
+    torch.cuda.empty_cache()
+    return out, grads1, params1
+
+
+def _compose_o2(schedule, pattern):
+    """``C_O2_STEPS`` O2 steps of BERT-large through the user's entry,
+    ``bert_main_amp.train(..., pp=2, sp=2, sp_attention=)``: launches,
+    collectives and the peak, as ``_pp_train``."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with _CollectiveCount() as coll:
+        res = bert_main_amp.train(
+            bert_main_amp.get_config("large"), batch=CB_BATCH,
+            seq_len=CB_SEQ, steps=C_O2_STEPS, opt_level="O2",
+            attention_fn=make_flash_attention(), device="cuda", seed=0,
+            pp=CPP, pp_schedule=schedule, pp_microbatches=C_M, sp=CSP,
+            sp_attention=pattern)
+        torch.cuda.synchronize()
+    out = {"losses": res["losses"], "step_seconds": res["step_seconds"],
+           "launches": launch_counts(), "collectives": dict(coll.counts),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compose_rank_legs(rank):
+    """(a), (b) and (c) on this rank of the (1, 2, 2) mesh."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models import PipelinedGPT, gpt_small
+    cfg = bert_main_amp.get_config("large")
+    mesh0 = parallel.create_mesh(sp=CSP, pp=CPP)
+    sp_rank, pipe = mesh0.index("sp"), mesh0.index("pipe")
+    lps, last = BERT_LAYERS // CPP, pipe == CPP - 1
+    out, state = {"coords": [0, sp_rank, pipe]}, {}
+
+    def make_build(level, pattern, config=cfg):
+        def build():
+            mesh = parallel.create_mesh(sp=CSP, pp=CPP)
+            made = bert_main_amp.build(
+                config, opt_level=level, device="cuda", seed=0,
+                state_dict=state.get("sd"), mesh=mesh, sp_attention=pattern,
+                pp_microbatches=C_M)
+            if "sd" not in state:
+                state["sd"] = {k: v.detach().cpu() for k, v in
+                               made[0].module.state_dict().items()}
+            return made + (mesh,)
+        return build
+
+    def data():
+        return bert_main_amp.batches(cfg, CB_BATCH, CB_SEQ)
+
+    # (a)
+    params1 = {}
+    for schedule, pattern in (("gpipe", "ring"), ("1f1b", "ulysses")):
+        calls = CSP if pattern == "ring" else 1
+        res, grads1, params1[schedule] = _compose_run(
+            make_build("O0", pattern), schedule, data(), C_O0_STEPS,
+            keep_params=True)
+        res["step1_grad_err"] = _pp_grad_err(
+            grads1, OUT_DIR / "c_dense_grads.pt", CPP, pipe)
+        res["want_launches"] = _compose_launches(
+            res["launches"], lps, C_M, schedule, last, C_O0_STEPS, calls)
+        out[f"{schedule}_O0"] = res
+        del grads1
+        res = _compose_o2(schedule, pattern)
+        res["want_launches"] = _compose_launches(
+            res["launches"], lps, C_M, schedule, last, C_O2_STEPS, calls)
+        out[f"{schedule}_O2"] = res
+    out["sched_param_err"] = max(
+        scale_aware_err(params1["1f1b"][k].cuda(),
+                        params1["gpipe"][k].cuda())[0]
+        for k in params1["gpipe"])
+    del params1
+    try:
+        bert_main_amp.check_pipeline(cfg, CB_BATCH, 1, CPP, "1f1b", C_M,
+                                     CSP, CSP * CPP, CB_SEQ, "ring")
+        out["ring_1f1b"] = None
+    except SystemExit as e:
+        out["ring_1f1b"] = str(e)
+    torch.cuda.empty_cache()
+    # (b): one step's gradients with dropout, 1F1B against GPipe, O0
+    drop = {}
+    for schedule in ("gpipe", "1f1b"):
+        res, drop[schedule], _ = _compose_run(
+            make_build("O0", "ulysses"), schedule, data(), 1,
+            deterministic=False, dropout_key=bert_main_amp.step_key(0, 0))
+        res["want_launches"] = _compose_launches(
+            res["launches"], lps, C_M, schedule, last, 1, 1, dropout=True)
+        out[f"drop_{schedule}"] = res
+    out["drop_grad_err"] = max(
+        scale_aware_err(drop["1f1b"][k].cuda(), drop["gpipe"][k].cuda())[0]
+        for k in drop["gpipe"])
+    del drop, state["sd"]
+    torch.cuda.empty_cache()
+    # (c): GPT-2 small's PipelinedGPT, 1F1B with Ulysses, GPipe with ring
+    ids = torch.from_numpy(next(_c_gpt_batches())).cuda()
+    dense = torch.load(OUT_DIR / "c_gpt.pt")
+    sl = TRAIN_SEQ // CSP
+    gpt = {}
+    for schedule, make in (("1f1b", parallel.make_ulysses_attention),
+                           ("gpipe", parallel.make_ring_attention)):
+        model = PipelinedGPT(gpt_small(), mesh0, CPP, C_M, seq_axis="sp",
+                             attention_fn=make(mesh0.group("sp"),
+                                               causal=True),
+                             device="cuda", seed=0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if schedule == "1f1b":
+            loss, grads = model.loss_and_grad_1f1b(ids, ids)
+            got = {"loss": float(loss), "wte_grad_err": scale_aware_err(
+                grads["embed.wte.weight"], dense["wte"].cuda())[0]}
+            want = _gpt_pp_launches(launch_counts(), 12 // CPP, C_M, last)
+            del grads
+        else:
+            with torch.no_grad():
+                logits = model(ids)
+                want_logits = F.linear(
+                    dense["hidden"][:, sp_rank * sl:(sp_rank + 1) * sl]
+                    .cuda(), dense["wte_weight"].cuda()).float()
+                got = {"logit_err": scale_aware_err(logits,
+                                                    want_logits)[0]}
+            del logits, want_logits
+            names = launch_counts()
+            n = 12 // CPP * C_M
+            step = {"layer_norm_fwd": 2 * n + 1,
+                    "flash_fwd": (sp_rank + 1) * n}
+            want = {k: step.get(k, 0) for k in names}
+        torch.cuda.synchronize()
+        got.update(seconds=time.perf_counter() - t0,
+                   launches=launch_counts(), want_launches=want)
+        gpt[schedule] = got
+        del model
+        torch.cuda.empty_cache()
+    out["gpt"] = gpt
+    del dense
+    return out
+
+
+def _compose_rank(rank, world, store):
+    """(a)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = _compose_rank_legs(rank)
+        out["seconds"] = time.perf_counter() - t0
+        (OUT_DIR / f"compose_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_tp_o0(cfg, vocab, sd, pattern, want1):
+    """(d)'s O0 leg on this rank: ``C_O0_STEPS`` steps through ``build``
+    and ``train_step`` (DDP over ``"data_sp"``, as ``train`` makes it),
+    so that the params after step 1 can be held against the dense
+    process's, sliced as this rank's."""
+    import dataclasses
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.examples import gpt_main_amp
+    mesh = parallel.create_mesh(sp=CSP, tp=TP)
+    model, opt, params, st = gpt_main_amp.build(
+        dataclasses.replace(cfg, vocab_size=vocab), lr=TRAIN_LR,
+        opt_level="O0", device="cuda", state_dict=sd, mesh=mesh,
+        sp_attention=pattern)
+    ddp = parallel.DistributedDataParallel(
+        model, process_group=mesh.group("data_sp"))
+    data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    losses, seconds, step1_err = [], [], None
+    for step in range(C_O0_STEPS):
+        ids = torch.from_numpy(next(data)).to("cuda")
+        t0 = time.perf_counter()
+        params, st, loss = gpt_main_amp.train_step(
+            model, opt, params, st, ids, ddp, mesh=mesh,
+            true_vocab=cfg.vocab_size)[:3]
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+        if step == 0:
+            step1_err = max(scale_aware_err(params[k], want1[k].cuda())[0]
+                            for k in params)
+    del model, opt, params, st, ddp
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_seconds": seconds,
+            "step1_param_err": step1_err}
+
+
+def _sp_tp_rank(rank, world, store):
+    """(d) on this rank of the (1, 2, 2) (data, sp, model) mesh: GPT-2
+    small --sp 2 --tp 2, Ulysses and ring, O0 through ``build`` and
+    ``train_step`` (its params after step 1 against the dense process's,
+    sliced as this rank's) and O2 through the user's entry,
+    ``gpt_main_amp.train(tp=2, sp=2)``, which makes its own mesh, DDP
+    group, checks and overflow groups; launches, collectives and the
+    peak are read around the O2 run."""
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import gpt_main_amp
+    from apex_tpu_torch.models.gpt import padded_vocab
+    from apex_tpu_torch.parallel import tensor_parallel as tpar
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+        vocab = padded_vocab(cfg.vocab_size, TP)
+        sd = _tp_state_dict(cfg, TP)
+        dense1 = torch.load(OUT_DIR / "tp_dense_step1.pt")
+        dense1["wte.weight"] = torch.cat([dense1["wte.weight"],
+                                          dense1["wte.weight"].new_zeros(
+                                              vocab - cfg.vocab_size,
+                                              cfg.hidden_size)])
+        mesh = parallel.create_mesh(sp=CSP, tp=TP)
+        sp_rank = mesh.index("sp")
+        want1 = tpar.shard_params(dense1, mesh, tpar.gpt_tp_rules(),
+                                  num_heads=cfg.num_attention_heads)
+        del dense1
+        out = {"coords": [0, sp_rank, mesh.index("model")]}
+        for pattern in ("ulysses", "ring"):
+            calls = sp_rank + 1 if pattern == "ring" else 1
+            out[f"{pattern}_O0"] = _sp_tp_o0(cfg, vocab, sd, pattern, want1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            with _CollectiveCount() as coll:
+                res = gpt_main_amp.train(
+                    cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    steps=C_O2_STEPS, lr=TRAIN_LR, opt_level="O2",
+                    device="cuda", state_dict=sd, tp=TP, sp=CSP,
+                    sp_attention=pattern)
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            want = {k: v * calls if k.startswith("flash_") else v
+                    for k, v in _tp_launches(cfg, counts,
+                                             C_O2_STEPS).items()}
+            out[f"{pattern}_O2"] = {
+                "losses": res["losses"], "step_seconds": res["step_seconds"],
+                "tokens_per_s_four": res["tokens_per_s"],
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": counts, "want_launches": want,
+                "collectives": dict(coll.counts)}
+            del res
+            torch.cuda.empty_cache()
+        (OUT_DIR / f"sp_tp_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_sp_compose():
+    """Sequence parallelism composed with the other axes: (a) BERT-large
+    --pp 2 --ring-attention 2, GPipe with ring and 1F1B with Ulysses, O0
+    and O2, (b) dropout through PipelinedBert with Ulysses, (c) GPT-2
+    small's PipelinedGPT with sp 2, as four processes over gloo on the
+    one card; (d) GPT-2 small --sp 2 --tp 2, four more; each against
+    one dense process."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    emit("train_sp_compose", prediction=C_PREDICTION)
+    t0 = time.perf_counter()
+    files = ("c_dense_grads.pt", "c_gpt.pt", "tp_dense_step1.pt")
+    try:
+        dense = _compose_dense()
+        dense_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = _spawn(_compose_rank, CSP * CPP, "compose")
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sp_tp = _spawn(_sp_tp_rank, CSP * TP, "sp_tp")
+        sp_tp_s = time.perf_counter() - t0
+    finally:
+        for f in files:
+            (OUT_DIR / f).unlink(missing_ok=True)
+    by_path = {}
+    tokens = CB_BATCH * CB_SEQ
+    peaks = {}
+    # (a)
+    for schedule, pattern in (("gpipe", "ring"), ("1f1b", "ulysses")):
+        for level, tol in (("O0", C_TOL), ("O2", O2_LOSS_TOL)):
+            want = dense[f"bert_{level}"]
+            steps = C_O0_STEPS if level == "O0" else C_O2_STEPS
+            for r, res in enumerate(ranks):
+                got = res[f"{schedule}_{level}"]
+                err = max((abs(a - b) / abs(b) if level == "O0"
+                           else abs(a - b))
+                          for a, b in zip(got["losses"], want["losses"]))
+                peaks.setdefault(f"{schedule}_{level}", []).append(
+                    got["peak_memory_gb"])
+                emit("train_sp_compose", run=f"(a) BERT-large --pp 2 "
+                     f"--ring-attention 2 {schedule}-{pattern} {level}",
+                     rank=r, coords=res["coords"], batch=CB_BATCH,
+                     seq=CB_SEQ, microbatches=C_M, losses=got["losses"],
+                     dense_losses=want["losses"], loss_err=err, tol=tol,
+                     step1_grad_err=got.get("step1_grad_err"),
+                     step_ms=[1e3 * t for t in got["step_seconds"]],
+                     dense_step_ms=[1e3 * t for t in want["step_seconds"]],
+                     tokens_per_s_four=[tokens / t
+                                        for t in got["step_seconds"]],
+                     peak_memory_gb=got["peak_memory_gb"],
+                     launches_a_step={k: v / steps for k, v in
+                                      got["launches"].items()},
+                     collectives_a_step={k: v / steps for k, v in
+                                         got["collectives"].items()})
+                if not err <= tol:
+                    raise AssertionError(f"(a) {schedule} {level} rank {r}: "
+                                         f"loss error {err:.3g}")
+                if level == "O0" and not got["step1_grad_err"] <= C_TOL:
+                    raise AssertionError(
+                        f"(a) {schedule} O0 rank {r}: step-1 grads "
+                        f"{got['step1_grad_err']:.3g}")
+                if got["launches"] != got["want_launches"]:
+                    raise AssertionError(
+                        f"(a) {schedule} {level} rank {r}: launches "
+                        f"{got['launches']} != {got['want_launches']}")
+            if level == "O2":
+                by_path[f"train_pp_sp_{schedule}_{pattern}"] = ranks[0][
+                    f"{schedule}_O2"]["launches"]
+    emit("train_sp_compose", run="(a) peak a rank, GB, and the four's sum",
+         peaks=peaks, sums={k: sum(v) for k, v in peaks.items()})
+    for r, res in enumerate(ranks):
+        emit("train_sp_compose", run="(a) GPipe-ring against 1F1B-Ulysses, "
+             "params after step 1", rank=r, err=res["sched_param_err"],
+             tol=C_SCHED_TOL, ring_1f1b=res["ring_1f1b"])
+        if not res["sched_param_err"] <= C_SCHED_TOL:
+            raise AssertionError(f"(a) GPipe against 1F1B rank {r}: "
+                                 f"{res['sched_param_err']:.3g}")
+        if not (res["ring_1f1b"] or "").startswith(
+                "--pp-schedule 1f1b cannot host ring attention"):
+            raise AssertionError(f"(a) 1F1B with ring: {res['ring_1f1b']}")
+    # (b)
+    for r, res in enumerate(ranks):
+        emit("train_sp_compose", run="(b) dropout 0.1 with Ulysses, 1F1B "
+             "against GPipe autodiff", rank=r, grad_err=res["drop_grad_err"],
+             tol=C_SCHED_TOL, launches={s: res[f"drop_{s}"]["launches"]
+                                        for s in ("gpipe", "1f1b")})
+        if not res["drop_grad_err"] <= C_SCHED_TOL:
+            raise AssertionError(f"(b) rank {r}: {res['drop_grad_err']:.3g}")
+        for s in ("gpipe", "1f1b"):
+            got = res[f"drop_{s}"]
+            if got["launches"] != got["want_launches"]:
+                raise AssertionError(f"(b) {s} rank {r}: launches "
+                                     f"{got['launches']} != "
+                                     f"{got['want_launches']}")
+    by_path["train_pp_sp_dropout"] = ranks[0]["drop_1f1b"]["launches"]
+    # (c)
+    for r, res in enumerate(ranks):
+        one, gp = res["gpt"]["1f1b"], res["gpt"]["gpipe"]
+        err = abs(one["loss"] - dense["gpt"]["loss"]) / abs(
+            dense["gpt"]["loss"])
+        emit("train_sp_compose", run="(c) GPT-2 small PipelinedGPT sp 2 x "
+             "pp 2: 1F1B-Ulysses and GPipe-ring, O0", rank=r,
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=C_M,
+             loss=one["loss"], dense_loss=dense["gpt"]["loss"],
+             loss_err=err, wte_grad_err=one["wte_grad_err"],
+             logit_err=gp["logit_err"], onef1b_ms=1e3 * one["seconds"],
+             gpipe_forward_ms=1e3 * gp["seconds"],
+             launches={"1f1b": one["launches"], "gpipe": gp["launches"]})
+        if not (err <= C_TOL and one["wte_grad_err"] <= C_TOL
+                and gp["logit_err"] <= C_LOGIT_TOL):
+            raise AssertionError(f"(c) rank {r}: loss {err:.3g}, wte "
+                                 f"{one['wte_grad_err']:.3g}, logits "
+                                 f"{gp['logit_err']:.3g}")
+        for got in (one, gp):
+            if got["launches"] != got["want_launches"]:
+                raise AssertionError(f"(c) rank {r}: launches "
+                                     f"{got['launches']} != "
+                                     f"{got['want_launches']}")
+    by_path["train_pp_sp_gpt"] = ranks[0]["gpt"]["1f1b"]["launches"]
+    # (d)
+    for pattern in ("ulysses", "ring"):
+        for level, tol in (("O0", C_TOL), ("O2", O2_LOSS_TOL)):
+            want = dense["sp_tp"][level]
+            for r, res in enumerate(sp_tp):
+                got = res[f"{pattern}_{level}"]
+                err = max((abs(a - b) / abs(b) if level == "O0"
+                           else abs(a - b))
+                          for a, b in zip(got["losses"], want))
+                steps = len(got["losses"])
+                reading = ({"step1_param_err": got["step1_param_err"]}
+                           if level == "O0" else {
+                    "tokens_per_s_four": got["tokens_per_s_four"],
+                    "peak_memory_gb": got["peak_memory_gb"],
+                    "launches": got["launches"],
+                    "collectives_a_step": {k: v / steps for k, v in
+                                           got["collectives"].items()}})
+                emit("train_sp_compose", run=f"(d) GPT-2 small --sp 2 --tp 2 "
+                     f"{pattern} {level}" + (" through gpt_main_amp.train"
+                                             if level == "O2" else ""),
+                     rank=r, coords=res["coords"], batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, losses=got["losses"], dense_losses=want,
+                     loss_err=err, tol=tol,
+                     step_ms=[1e3 * t for t in got["step_seconds"]],
+                     **reading)
+                if not err <= tol:
+                    raise AssertionError(f"(d) {pattern} {level} rank {r}: "
+                                         f"loss error {err:.3g}")
+                if level == "O0" and not got["step1_param_err"] <= C_TOL:
+                    raise AssertionError(
+                        f"(d) {pattern} O0 rank {r}: step-1 params "
+                        f"{got['step1_param_err']:.3g}")
+                if level == "O2" and got["launches"] != got["want_launches"]:
+                    raise AssertionError(
+                        f"(d) {pattern} {level} rank {r}: launches "
+                        f"{got['launches']} != {got['want_launches']}")
+            if level == "O2":
+                by_path[f"train_gpt_sp_tp_{pattern}"] = sp_tp[0][
+                    f"{pattern}_O2"]["launches"]
+    (OUT_DIR / "train_sp_compose.json").write_text(json.dumps(
+        {"dense": dense, "ranks": ranks, "sp_tp": sp_tp,
+         "dense_seconds": dense_s, "ranks_seconds": ranks_s,
+         "sp_tp_seconds": sp_tp_s}, indent=1, default=str))
+    emit("train_sp_compose", dense_seconds=dense_s, ranks_seconds=ranks_s,
+         sp_tp_seconds=sp_tp_s)
+    return by_path
+
+
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
           "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
           "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
-          "train_sp", "train_pp", "train_o1", "train_simple",
-          "train_dcgan")
+          "train_sp", "train_pp", "train_sp_compose", "train_o1",
+          "train_simple", "train_dcgan")
 
 
 def main(phases=PHASES):
@@ -6001,6 +6676,7 @@ def main(phases=PHASES):
                        ("train_tp_zero", phase_train_tp_zero),
                        ("train_sp", phase_train_sp),
                        ("train_pp", phase_train_pp),
+                       ("train_sp_compose", phase_train_sp_compose),
                        ("train_o1", phase_train_o1),
                        ("train_simple", phase_train_simple),
                        ("train_dcgan", phase_train_dcgan)):
@@ -6012,7 +6688,8 @@ def main(phases=PHASES):
         if phase not in ("train_resnet", "train", "train_bert",
                          "train_gpt_remat", "train_gpt_dropout",
                          "train_bert_remat", "adam_rest", "hf_bert",
-                         "train_tp_zero", "train_sp", "train_pp"):
+                         "train_tp_zero", "train_sp", "train_pp",
+                         "train_sp_compose"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():

@@ -18,10 +18,10 @@ GPipe, 1F1B and 1F1B under ``--grad-accum 2`` against the JAX
 example's step on the whole batch, the losses' data mean within 1e-5
 relative and the params within 2e-5.  ``train()`` with ``pp=2`` runs both schedules to the same
 losses, with ``remat=True`` too (each stage's layers rematerialized).
-The CLI's refusals: ``--pp`` with ``--ring-attention`` and
-``--moe`` name their ROADMAP item, and ``--pp-schedule 1f1b`` without
-``--pp`` and a layer count ``--pp`` does not divide raise the JAX
-example's messages.
+The CLI's refusals: ``--moe`` names its ROADMAP item, and
+``--pp-schedule 1f1b`` with ring attention, ``--pp-schedule 1f1b``
+without ``--pp`` and a layer count ``--pp`` does not divide raise the
+JAX example's messages.
 
 The ranks are spawned once for the module (a ``FileStore`` under the
 test's temporary directory); the rank function imports no JAX.
@@ -296,7 +296,8 @@ def test_train_runs_both_schedules_and_remat(ranks):
 
 
 @pytest.mark.parametrize("argv,phrase", [
-    (["--pp", "2", "--ring-attention", "2"], "ROADMAP A.10: SP inside"),
+    (["--pp", "1", "--ring-attention", "1", "--pp-schedule", "1f1b"],
+     "--pp-schedule 1f1b cannot host ring attention"),
     (["--moe", "4"], "ROADMAP A.10: models/moe.py"),
     (["--pp-schedule", "1f1b"], "--pp-schedule 1f1b needs --pp S"),
     (["--config", "tiny", "--pp", "4"],

@@ -221,9 +221,10 @@ def test_padding_reaches_the_step(ranks, jax_init):
 
 def test_refusals():
     cfg = bert.get_config("tiny")
-    with pytest.raises(SystemExit, match="A.10"):
+    with pytest.raises(SystemExit, match=r"SP=2 x PP=2 must divide "
+                       r"devices \(1\)"):
         bert.main(["--config", "tiny", "--pp", "2", "--ring-attention",
                    "2"])
-    with pytest.raises(ValueError, match="grad-accum"):
-        bert.train(cfg, batch=4, seq_len=S, steps=1, device="cpu", sp=2,
+    with pytest.raises(ValueError, match="must divide seq_len"):
+        bert.train(cfg, batch=4, seq_len=S + 1, steps=1, device="cpu", sp=2,
                    grad_accum=2)

@@ -360,8 +360,12 @@ def test_ulysses_one_head_a_rank_matches_the_dense_model(ranks, jax_init):
 
 
 def test_sp_with_tp_is_refused():
-    with pytest.raises(ValueError, match="later slice"):
+    """Ulysses over tensor-parallel heads: GPT-tiny's 4 heads over --tp 2
+    leave 2 a rank, which do not split over --sp 4."""
+    with pytest.raises(ValueError, match=r"heads / --tp 2 to divide by "
+                       r"--sp 4"):
         gpt.train(_cfg(), batch=B, seq_len=S, steps=1, device="cpu", tp=2,
-                  sp=2)
-    with pytest.raises(SystemExit, match="A.10"):
-        gpt.main(["--config", "tiny", "--sp", "2", "--tp", "2"])
+                  sp=4)
+    with pytest.raises(SystemExit, match=r"heads / --tp 2 to divide by "
+                       r"--sp 4"):
+        gpt.main(["--config", "tiny", "--sp", "4", "--tp", "2"])

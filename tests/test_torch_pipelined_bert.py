@@ -32,7 +32,8 @@ from the JAX model's initial params (``params_from_jax(..., rank=r)``):
   JAX optimizer's, and the port's per-tensor ratios on rank r equal the
   JAX per-slice ratios of stage r; ``add_param_group`` carries the
   moments over by name as the JAX optimizer's does;
-- ``tp_axis`` and ``seq_axis`` raise ``NotImplementedError``.
+- ``tp_axis`` raises ``NotImplementedError``; ``seq_axis`` without an
+  ``attention_fn`` the reference's ``ValueError``.
 
 The ranks are spawned once for each mesh (a ``FileStore`` under the
 test's temporary directory); the rank function imports no JAX.
@@ -447,7 +448,9 @@ def test_lamb_per_slice_and_add_param_group():
 
 def test_unported_axes_raise():
     mesh = parallel.Mesh({"pipe": 1}, {})
-    for kw in ({"tp_axis": "model"}, {"seq_axis": "sp",
-                                      "attention_fn": lambda *a, **k: None}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            tb.PipelinedBert(_cfg(), mesh, 1, 1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        tb.PipelinedBert(_cfg(), mesh, 1, 1, device="cpu", tp_axis="model")
+    # the reference's check: a sequence axis takes a sequence-parallel
+    # attention_fn
+    with pytest.raises(ValueError, match="seq_axis requires"):
+        tb.PipelinedBert(_cfg(), mesh, 1, 1, device="cpu", seq_axis="sp")

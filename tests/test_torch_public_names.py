@@ -136,3 +136,34 @@ def test_pipeline_names():
         assert hasattr(jmodels.PipelinedBert, name)
         assert hasattr(models.PipelinedBert, name)
         assert hasattr(models.PipelinedGPT, name)
+
+
+def test_sequence_shard_names():
+    """The names the composed axes add: ``ops.vocab_parallel_lm_loss_shard``
+    (at a world of one, the sum of ``models.gpt.lm_loss_shard``'s and the
+    JAX ``lm_loss`` times ``B * (S - 1)``), ``models.pipelined_common.
+    gather_seq`` (the tensor itself at a world of one) and the mesh's
+    ``"data_sp"`` group (the model-index group of the reduction)."""
+    import jax.numpy as jnp
+    from apex_tpu import models as jmodels
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.models import gpt as tg
+    from apex_tpu_torch.models.pipelined_common import gather_seq
+    assert "vocab_parallel_lm_loss_shard" in ops.__all__
+    rng = np.random.RandomState(0)
+    hidden = torch.from_numpy(rng.standard_normal((2, 8, 16))
+                              .astype(np.float32))
+    wte = torch.from_numpy(rng.standard_normal((24, 16)).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(0, 24, (2, 8)))
+    mesh = parallel.Mesh({"model": 1, "sp": 1},
+                         {"model": parallel.mesh.WORLD,
+                          "sp": parallel.mesh.WORLD})
+    got = ops.vocab_parallel_lm_loss_shard(hidden, wte, ids, mesh)
+    logits = hidden @ wte.T
+    assert torch.allclose(got, tg.lm_loss_shard(logits, ids, 0, 1),
+                          rtol=1e-6)
+    want = float(jmodels.lm_loss(jnp.asarray(logits.numpy()),
+                                 jnp.asarray(ids.numpy()))) * 2 * 7
+    assert abs(float(got) - want) <= 1e-5 * abs(want)
+    assert gather_seq(hidden, None) is hidden
+    assert "data_sp" in parallel.Mesh.__doc__
