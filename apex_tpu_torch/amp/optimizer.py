@@ -25,8 +25,9 @@ an inf on one rank skips the step on all of them; on GSPMD the JAX
 package's flag is global by construction.
 
 ZeRO: ``with_zero(group, like_params=...)`` passes through to an inner
-optimizer that has ``with_zero`` (``FusedAdam``, flat or tree), as the
-JAX package does.  An
+optimizer that has ``with_zero`` (``FusedAdam``, flat or tree, and
+``FusedLAMB``, whose per-leaf update runs on each rank's moment slices
+with whole-leaf trust ratios), as the JAX package does.  An
 optimizer in optax's protocol has none: there the JAX package's
 per-leaf update follows the sharded state under GSPMD, and here the
 returned optimizer runs it on each sharded leaf's slice and gathers the
@@ -93,17 +94,16 @@ class AmpOptimizer:
         """ZeRO-1 over ``group`` (the data ranks), to pair with
         ``parallel.shard_optimizer_state(state, group, min_shard_elems,
         like_params)``: the inner optimizer's own ``with_zero`` where it
-        has one, else the per-leaf sharded update (module docstring).
-        ``like_params`` places a tree-layout ``FusedAdam``'s moments of
-        tensor-parallel params."""
+        has one (``FusedAdam``, ``FusedLAMB``), else the per-leaf sharded
+        update (module docstring).  ``like_params`` places the per-leaf
+        moments of tensor-parallel or pipelined params (a model's
+        ``tp_places()``)."""
         if hasattr(self.inner, "with_zero"):
             return self._copy(inner=self.inner.with_zero(
                 group, min_shard_elems, like_params=like_params))
         if getattr(self.inner, "supports_fused_skip", False):
             raise NotImplementedError(
-                f"ZeRO over {type(self.inner).__name__} is not ported yet "
-                "(ROADMAP A.10: ZeRO over FusedLAMB; its oracle is ZeRO x "
-                "pipeline parallelism)")
+                f"{type(self.inner).__name__} has no ZeRO update")
         return self._copy(zero=(group, min_shard_elems))
 
     def _global(self, overflow: torch.Tensor, *groups) -> torch.Tensor:

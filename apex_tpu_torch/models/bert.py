@@ -55,17 +55,33 @@ logits; the NSP logits are the pooled ``[CLS]`` token's only on sequence
 rank 0, where that token lives (the caller takes the NSP term there
 alone).
 
+Tensor parallelism (``BertForPreTraining(cfg, ..., tp=<model group>)``,
+the twin of the JAX model under ``parallel.bert_tp_rules``): each rank
+builds its local shapes under the dense model's names, from the shared
+Megatron blocks of ``parallel.tensor_parallel``.  q/k/v and
+``intermediate`` are column-parallel (``copy_to_group`` in front), the
+attention ``output`` and the MLP's ``output`` row-parallel, the word
+embeddings vocab-parallel, the MLM decoder column-parallel over the
+vocabulary with its logits gathered over the group (so the forward
+returns whole logits, as under GSPMD).  A split whose dim does not
+divide leaves its leaves whole, as ``param_specs`` falls back
+(:func:`tp_splits`).  Dropout draws the dense model's masks: the hidden
+dropouts act on replicated activations, the attention's keep this
+rank's heads (the default attention's whole draw sliced, the flash
+kernels' hash at the global head index).
+
 Pipeline parallelism: :class:`PipelinedBert` (one stage a rank of the
-mesh's pipe axis, optionally with a sequence axis inside it) over the
-``BertEmbeddings``/``BertStage``/``BertHeads`` split;
-:func:`dense_to_rank` maps a dense state dict to a rank's.  Not here:
-MoE layers.  HuggingFace checkpoints load through
-``utils.load_hf_bert``.
+mesh's pipe axis, optionally with a sequence axis and a model axis
+inside it) over the ``BertEmbeddings``/``BertStage``/``BertHeads``
+split; :func:`dense_to_rank` maps a dense state dict to a rank's (with
+``tp``, its Megatron slice).  Not here: MoE layers.  HuggingFace
+checkpoints load through ``utils.load_hf_bert``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Mapping, Optional
 
@@ -82,6 +98,12 @@ from apex_tpu_torch.models.pipelined_common import PipelinedCommon, \
     gather_seq, rank_state_dict
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import threefry
+from apex_tpu_torch.parallel.collectives import copy_to_group, \
+    gather_from_group
+from apex_tpu_torch.parallel import tensor_parallel as tpar
+from apex_tpu_torch.parallel.mesh import ProcessGroup
+from apex_tpu_torch.parallel.tensor_parallel import RowParallelLinear, \
+    TPPlace, VocabParallelEmbedding, head_slice_dropout, tp_place
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,42 +186,98 @@ def _layer_norm(cfg, dev, dtype):
                           device=dev, dtype=dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _full_tp_specs(cfg: BertConfig, n: int,
+                   keep_heads: bool) -> Dict[str, tuple]:
+    """``parallel.bert_tp_rules``' spec of each parameter of the full
+    dense model at ``n`` model ranks (``param_specs``, read from the
+    model on ``meta``): where BERT's Megatron placement is decided, a
+    split whose dim does not divide left replicated."""
+    full = BertForPreTraining(cfg, device="meta", seed=None)
+    return tpar.param_specs(dict(full.named_parameters()),
+                            tpar.Mesh({"model": n}), tpar.bert_tp_rules(),
+                            num_heads=cfg.num_attention_heads,
+                            keep_heads=keep_heads)
+
+
+def tp_splits(cfg: BertConfig, n: int) -> Dict[str, bool]:
+    """Which of BERT's Megatron splits apply at ``n`` model ranks, read
+    from the full model's placement (``_full_tp_specs``): ``"heads"``
+    (q, k, v column- and the attention output row-parallel), ``"mlp"``
+    (``intermediate`` column- and ``output`` row-parallel), ``"vocab"``
+    (the word embeddings and the MLM decoder).  A split whose dim does
+    not divide leaves its leaves replicated, as the JAX package's
+    ``param_specs`` does (BERT's 30522 words at 4 ranks)."""
+    specs = _full_tp_specs(cfg, n, False)
+    return {split: bool(specs[name]) for split, name in (
+        ("heads", "encoder.layer_0.attention.query.weight"),
+        ("mlp", "encoder.layer_0.intermediate.weight"),
+        ("vocab", "encoder.word_embeddings.weight"))}
+
+
+def _split_place(tp: Optional[TPPlace], cfg, split: str):
+    """``tp`` where ``split`` applies at its size (:func:`tp_splits`),
+    else None: the layer stays replicated."""
+    return tp if tp is not None and tp_splits(cfg, tp.size)[split] else None
+
+
 class BertSelfAttention(nn.Module):
     """q/k/v projections (one ``nn.Linear`` each, as the JAX leaves
     are), attention, output projection.  ``dropout_key`` is the
     attention's flax scope (or a key for a standalone call);
     ``attention_seed``, when given, is its already drawn per-call seed
-    (a 0-d int32 tensor on the model's device)."""
+    (a 0-d int32 tensor on the model's device).  Under TP (``tp``, a
+    ``parallel.tensor_parallel.TPPlace``, where the heads divide) q/k/v
+    hold this rank's heads behind ``copy_to_group`` and ``output`` is
+    row-parallel; attention dropout keeps the dense model's mask on this
+    rank's heads (the default attention draws the whole (B, heads, S, S)
+    mask, the fused kernels hash the global head index through
+    ``dropout_fn.offsets``)."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tp: Optional[TPPlace] = None):
         super().__init__()
         dev = resolve_device(device)
         h = cfg.hidden_size
         self.cfg = cfg
+        self.tp = tp = _split_place(tp, cfg, "heads")
+        n = tp.size if tp is not None else 1
+        self.num_heads = cfg.num_attention_heads // n
         self.attention_fn = attention_fn
-        self.query = _linear(h, h, dev, dtype)
-        self.key = _linear(h, h, dev, dtype)
-        self.value = _linear(h, h, dev, dtype)
-        self.output = _linear(h, h, dev, dtype)
+        self.query = _linear(h, h // n, dev, dtype)
+        self.key = _linear(h, h // n, dev, dtype)
+        self.value = _linear(h, h // n, dev, dtype)
+        self.output = _linear(h, h, dev, dtype) if tp is None \
+            else RowParallelLinear(h // n, h, tp, device=dev, dtype=dtype)
         self.dropout = threefry.Dropout(cfg.attention_probs_dropout_prob)
 
     def forward(self, x, attn_bias, deterministic: bool = True,
                 dropout_key=None, attention_seed=None):
         cfg = self.cfg
         b, s, h = x.shape
-        nh = cfg.num_attention_heads
-        q, k, v = (proj(x).view(b, s, nh, h // nh)
+        nh, heads = self.num_heads, cfg.num_attention_heads
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp.group)
+        q, k, v = (proj(x).view(b, s, nh, h // heads)
                    for proj in (self.query, self.key, self.value))
         dropout_fn = None
         if cfg.attention_probs_dropout_prob > 0 and not deterministic:
-            dropout_fn = attention_dropout_fn(
-                self.dropout, _scope(dropout_key),
-                self.attention_fn is not None, attention_seed, x.device)
+            fused = self.attention_fn is not None
+            if self.tp is not None and not fused:
+                dropout_fn = head_slice_dropout(
+                    self.dropout, _scope(dropout_key), self.tp, heads)
+            else:
+                dropout_fn = attention_dropout_fn(
+                    self.dropout, _scope(dropout_key), fused,
+                    attention_seed, x.device)
+            if self.tp is not None and fused:
+                # the flash kernels hash GLOBAL head coordinates
+                dropout_fn.offsets = (0, 0, self.tp.rank * nh, heads)
         attn = self.attention_fn or dot_product_attention
         ctx = attn(q, k, v, bias=attn_bias, dropout_fn=dropout_fn)
-        return self.output(ctx.reshape(b, s, h))
+        return self.output(ctx.reshape(b, s, nh * (h // heads)))
 
 
 def _dropout_scope(cfg, deterministic, dropout_key):
@@ -224,21 +302,27 @@ def _drop(module, x, scope, window=None):
 
 class BertLayer(nn.Module):
     """Post-LN: LN(x + drop(Attn(x))); LN(x + drop(MLP(x))), ``drop``
-    one module (flax's ``Dropout_0`` of the layer) called twice."""
+    one module (flax's ``Dropout_0`` of the layer) called twice.  Under
+    TP (``tp``) ``intermediate`` is column-parallel and ``output``
+    row-parallel where the MLP width divides; the hidden dropouts act
+    on replicated activations, the same keys on every model rank."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tp: Optional[TPPlace] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.attention = BertSelfAttention(cfg, attention_fn, device=dev,
-                                           dtype=dtype)
+                                           dtype=dtype, tp=tp)
         self.attention_ln = _layer_norm(cfg, dev, dtype)
-        self.intermediate = _linear(cfg.hidden_size, cfg.intermediate_size,
-                                    dev, dtype)
-        self.output = _linear(cfg.intermediate_size, cfg.hidden_size, dev,
-                              dtype)
+        self.tp = tp = _split_place(tp, cfg, "mlp")
+        il = cfg.intermediate_size // (tp.size if tp is not None else 1)
+        self.intermediate = _linear(cfg.hidden_size, il, dev, dtype)
+        self.output = _linear(il, cfg.hidden_size, dev, dtype) \
+            if tp is None else RowParallelLinear(il, cfg.hidden_size, tp,
+                                                 device=dev, dtype=dtype)
         self.output_ln = _layer_norm(cfg, dev, dtype)
         self.drop = threefry.Dropout(cfg.hidden_dropout_prob)
 
@@ -253,7 +337,8 @@ class BertLayer(nn.Module):
             attention_seed)
         x = self.attention_ln(x + _drop(self.drop, attn_out, scope,
                                         drop_window))
-        y = self.output(F.gelu(self.intermediate(x)))   # exact erf gelu
+        y = x if self.tp is None else copy_to_group(x, self.tp.group)
+        y = self.output(F.gelu(self.intermediate(y)))   # exact erf gelu
         return self.output_ln(x + _drop(self.drop, y, scope, drop_window))
 
 
@@ -305,10 +390,13 @@ def _run_layers(module, n, attention_fn, x, attn_bias, deterministic,
     return x
 
 
-def _add_embeddings(module, cfg, dev, dtype):
+def _add_embeddings(module, cfg, dev, dtype, tp=None):
     h = cfg.hidden_size
-    module.word_embeddings = nn.Embedding(cfg.vocab_size, h, device=dev,
-                                          dtype=dtype)
+    tp = _split_place(tp, cfg, "vocab")
+    module.word_embeddings = nn.Embedding(
+        cfg.vocab_size, h, device=dev, dtype=dtype) if tp is None \
+        else VocabParallelEmbedding(cfg.vocab_size // tp.size, h, tp,
+                                    device=dev, dtype=dtype)
     module.position_embeddings = nn.Embedding(
         cfg.max_position_embeddings, h, device=dev, dtype=dtype)
     module.token_type_embeddings = nn.Embedding(
@@ -317,11 +405,13 @@ def _add_embeddings(module, cfg, dev, dtype):
     module.embeddings_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
 
 
-def _add_heads(module, cfg, dev, dtype):
+def _add_heads(module, cfg, dev, dtype, tp=None):
     h = cfg.hidden_size
+    module.vocab_tp = tp = _split_place(tp, cfg, "vocab")
     module.mlm_transform = _linear(h, h, dev, dtype)
     module.mlm_ln = _layer_norm(cfg, dev, dtype)
-    module.mlm_decoder = _linear(h, cfg.vocab_size, dev, dtype)
+    module.mlm_decoder = _linear(
+        h, cfg.vocab_size // (tp.size if tp is not None else 1), dev, dtype)
     module.pooler = _linear(h, h, dev, dtype)
     module.nsp_classifier = _linear(h, 2, dev, dtype)
 
@@ -329,9 +419,16 @@ def _add_heads(module, cfg, dev, dtype):
 def _pretraining_heads(module, seq):
     """MLM (transform, gelu, LN, untied decoder) and NSP (tanh pooler
     over ``[CLS]``) heads in fp32, shared by :class:`BertForPreTraining`
-    and :class:`BertHeads`."""
+    and :class:`BertHeads`.  Under TP the decoder is column-parallel
+    over the vocabulary and its (B, S, V/n) logits are gathered over the
+    model group: the caller's loss takes whole logits."""
     h = module.mlm_ln(F.gelu(module.mlm_transform(seq)))
-    mlm_logits = module.mlm_decoder(h).float()
+    tp = module.vocab_tp
+    if tp is None:
+        mlm_logits = module.mlm_decoder(h).float()
+    else:
+        mlm_logits = gather_from_group(
+            module.mlm_decoder(copy_to_group(h, tp.group)), tp.group).float()
     cls = torch.tanh(module.pooler(seq[:, 0]))
     nsp_logits = module.nsp_classifier(cls).float()
     return mlm_logits, nsp_logits
@@ -342,11 +439,13 @@ class BertEncoder(nn.Module):
     -> sequence output (B, S, H).  Embedding sum + LN + dropout
     (``_embed_block``), then the layers, named ``layer_<i>``.  ``sp``
     (a sequence group): the inputs are this rank's S_local tokens
-    (module docstring)."""
+    (module docstring); ``tp`` (a ``TPPlace``) builds a tensor-parallel
+    rank's layers and word embeddings."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
-                 dtype: torch.dtype = torch.float32, sp=None):
+                 dtype: torch.dtype = torch.float32, sp=None,
+                 tp: Optional[TPPlace] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -357,10 +456,10 @@ class BertEncoder(nn.Module):
                              "make_ulysses_attention)")
         self.sp = sp
         self.attention_fn = attention_fn
-        _add_embeddings(self, cfg, dev, dtype)
+        _add_embeddings(self, cfg, dev, dtype, tp)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(
-                cfg, attention_fn, device=dev, dtype=dtype))
+                cfg, attention_fn, device=dev, dtype=dtype, tp=tp))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None):
@@ -395,33 +494,53 @@ class BertForPreTraining(nn.Module):
     ``torch.Generator``, the same weights on any device; ``seed=None``
     leaves PyTorch's init for callers that load a state dict.  ``sp``
     (a sequence group) builds a sequence-parallel rank's model (module
-    docstring)."""
+    docstring).
+
+    ``tp`` (a ``parallel.ProcessGroup``, the mesh's model group) builds
+    this rank's part of the tensor-parallel model, the twin of the JAX
+    model under ``parallel.bert_tp_rules``: each leaf split as
+    ``param_specs`` places it (q/k/v and ``intermediate`` column-, the
+    attention output and ``output`` row-parallel, the word embeddings
+    and the MLM decoder over the vocabulary; a split whose dim does not
+    divide stays replicated, :func:`tp_splits`), under the dense model's
+    names.  The MLM logits are gathered over the group, so the forward
+    returns what the dense model returns; ``seed`` draws each full
+    tensor as the dense model does and keeps this rank's slice."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
                  dtype: torch.dtype = torch.float32,
-                 seed: Optional[int] = 0, sp=None):
+                 seed: Optional[int] = 0, sp=None,
+                 tp: Optional[ProcessGroup] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.tp = place = tp_place(tp)
         self.encoder = BertEncoder(cfg, attention_fn, device=dev,
-                                   dtype=dtype, sp=sp)
-        _add_heads(self, cfg, dev, dtype)
+                                   dtype=dtype, sp=sp, tp=place)
+        _add_heads(self, cfg, dev, dtype, place)
         if seed is not None:
             self.reset_parameters(seed)
 
-    @torch.no_grad()
+    def tp_specs(self, keep_heads: bool = False) -> Dict[str, tuple]:
+        """Each parameter's split under ``parallel.bert_tp_rules`` at this
+        model's TP size (``{}`` without TP), read from the full model's
+        shapes."""
+        if self.tp is None:
+            return {}
+        return dict(_full_tp_specs(self.cfg, self.tp.size, keep_heads))
+
+    def tp_places(self) -> Dict[str, tuple]:
+        """Each local parameter's ``parallel.tensor_parallel.Place``: the
+        ``like_params`` ZeRO-1 shards the moments with."""
+        n = self.tp.size if self.tp is not None else 1
+        return tpar.param_places(self, self.tp_specs(keep_heads=True),
+                                 {"model": n}, self.cfg.num_attention_heads)
+
     def reset_parameters(self, seed: int) -> None:
-        gen = torch.Generator().manual_seed(int(seed))
-        std = self.cfg.initializer_range
-        for name, p in self.named_parameters():
-            if name.endswith("_ln.scale"):
-                p.fill_(1.0)
-            elif name.endswith("bias"):
-                p.zero_()
-            else:
-                p.copy_(torch.empty(p.shape, dtype=torch.float32)
-                        .normal_(0.0, std, generator=gen))
+        from apex_tpu_torch.parallel.tensor_parallel import reset_seeded
+        reset_seeded(self, self.tp_specs(), self.tp, seed,
+                     self.cfg.initializer_range)
 
     def _pretraining_heads(self, seq):
         return _pretraining_heads(self, seq)
@@ -442,13 +561,15 @@ class BertEmbeddings(nn.Module):
     """The embeddings split out for pipeline parallelism (names as the
     encoder's inline ones): ``forward(input_ids, token_type_ids=None,
     deterministic=True, dropout_key=None)``, ``dropout_key`` its root
-    scope's key."""
+    scope's key.  ``tp``: a ``TPPlace``, the word embeddings
+    vocab-parallel where the vocabulary divides."""
 
     def __init__(self, cfg: BertConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tp: Optional[TPPlace] = None):
         super().__init__()
         self.cfg = cfg
-        _add_embeddings(self, cfg, resolve_device(device), dtype)
+        _add_embeddings(self, cfg, resolve_device(device), dtype, tp)
 
     def forward(self, input_ids, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None, offset=0,
@@ -464,11 +585,13 @@ class BertEmbeddings(nn.Module):
 class BertStage(nn.Module):
     """``layers_per_stage`` consecutive encoder layers, ``layer_0`` ..,
     the stage body of :class:`PipelinedBert`; its dropout scope's root
-    is the stage (the JAX stage module's paths)."""
+    is the stage (the JAX stage module's paths).  ``tp``: a
+    ``TPPlace``, the layers tensor-parallel (:class:`BertLayer`)."""
 
     def __init__(self, cfg: BertConfig, layers_per_stage: int,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tp: Optional[TPPlace] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -476,7 +599,7 @@ class BertStage(nn.Module):
         self.attention_fn = attention_fn
         for i in range(layers_per_stage):
             self.add_module(f"layer_{i}", BertLayer(
-                cfg, attention_fn, device=dev, dtype=dtype))
+                cfg, attention_fn, device=dev, dtype=dtype, tp=tp))
 
     def forward(self, x, attn_bias, deterministic: bool = True,
                 dropout_key=None):
@@ -487,13 +610,16 @@ class BertStage(nn.Module):
 
 class BertHeads(nn.Module):
     """The MLM and NSP heads split out for pipeline parallelism (names as
-    :class:`BertForPreTraining`'s)."""
+    :class:`BertForPreTraining`'s).  ``tp``: a ``TPPlace``, the MLM
+    decoder column-parallel over the vocabulary where it divides, its
+    logits gathered."""
 
     def __init__(self, cfg: BertConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tp: Optional[TPPlace] = None):
         super().__init__()
         self.cfg = cfg
-        _add_heads(self, cfg, resolve_device(device), dtype)
+        _add_heads(self, cfg, resolve_device(device), dtype, tp)
 
     def forward(self, seq):
         return _pretraining_heads(self, seq)
@@ -559,9 +685,20 @@ class PipelinedBert(PipelinedCommon, nn.Module):
     group.  :meth:`loss_and_grad_1f1b` takes only an attention marked
     ``onef1b_compatible`` (Ulysses; the ring raises, as in the
     reference), gathers the hidden states before ``loss_fn`` and
-    returns the gradients summed over the sequence group.  ``tp_axis``
-    raises ``NotImplementedError`` (ROADMAP A.10: TP inside the
-    pipeline)."""
+    returns the gradients summed over the sequence group.
+
+    ``tp_axis`` (the mesh's model axis, ``parallel.create_mesh(pp=,
+    tp=)``): Megatron tensor parallelism inside each stage, with or
+    without ``seq_axis``, under both schedules.  The stage's layers, the
+    word embeddings and the MLM decoder hold this rank's slices as
+    :meth:`param_spec_tree` places them (``parallel.bert_tp_rules``;
+    BERT-large's 30522 words stay whole at 4 ranks); the MLM logits are
+    gathered over the model group, so both schedules' ``loss_fn`` and
+    outputs see the whole vocabulary, and the gradients are this rank's
+    slices.  ``seed`` and :meth:`shard_variables` give each rank its
+    slice of the dense weights."""
+
+    tp_rules_name = "bert_tp_rules"
 
     def __init__(self, cfg: BertConfig, mesh, pp: int,
                  num_microbatches: int, pipe_axis: str = "pipe",
@@ -576,12 +713,22 @@ class PipelinedBert(PipelinedCommon, nn.Module):
                     seq_axis, tp_axis, attention_fn,
                     "parallel.make_ring_attention(seq_axis)")
         dev = resolve_device(device)
-        self.embed = BertEmbeddings(cfg, device=dev, dtype=dtype)
+        self.embed = BertEmbeddings(cfg, device=dev, dtype=dtype,
+                                    tp=self.tp)
         self.stages = BertStage(cfg, cfg.num_hidden_layers // pp,
-                                attention_fn, device=dev, dtype=dtype)
-        self.heads = BertHeads(cfg, device=dev, dtype=dtype)
+                                attention_fn, device=dev, dtype=dtype,
+                                tp=self.tp)
+        self.heads = BertHeads(cfg, device=dev, dtype=dtype, tp=self.tp)
         if seed is not None:
             self.reset_parameters(seed)
+
+    def _meta_layout(self):
+        cfg = self.cfg
+        return nn.ModuleDict({
+            "embed": BertEmbeddings(cfg, device="meta"),
+            "stages": BertStage(cfg, self.stages.layers_per_stage,
+                                device="meta"),
+            "heads": BertHeads(cfg, device="meta")})
 
     def reset_parameters(self, seed: int) -> None:
         """The dense model's draws from ``seed``, this rank's kept."""
@@ -688,18 +835,23 @@ def _rank_name(name: str, layers_per_stage: int, rank: int):
 
 
 def dense_to_rank(state_dict: Mapping[str, torch.Tensor], cfg: BertConfig,
-                  pp: int, rank: int) -> Dict[str, torch.Tensor]:
+                  pp: int, rank: int, tp: int = 1,
+                  tp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """A dense :class:`BertForPreTraining` state dict (or a gradient tree
     of the same names) as :class:`PipelinedBert`'s on pipeline rank
     ``rank`` of ``pp``: dense layer ``rank * L / pp + i`` becomes
     ``stages.layer_<i>``, the embeddings ``embed.*``, the heads
-    ``heads.*``."""
-    return rank_state_dict(state_dict, _rank_name,
-                           cfg.num_hidden_layers // pp, rank)
+    ``heads.*``; with ``tp`` above 1, model rank ``tp_rank``'s Megatron
+    slice of each (``parallel.tensor_parallel.tp_slice``)."""
+    return tpar.tp_slice(rank_state_dict(state_dict, _rank_name,
+                                         cfg.num_hidden_layers // pp, rank),
+                         tpar.bert_tp_rules(), cfg.num_attention_heads, tp,
+                         tp_rank)
 
 
 def params_from_jax(params: Mapping, cfg: BertConfig,
-                    rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                    rank: Optional[int] = None, tp: int = 1,
+                    tp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """The JAX package's ``BertForPreTraining`` param tree
     (``{"params": ...}`` or its inner dict, leaves as arrays) as this
     model's ``state_dict`` — and equally a gradient tree of the same
@@ -709,7 +861,10 @@ def params_from_jax(params: Mapping, cfg: BertConfig,
     kernels (h, nh, hd) and the output kernel (nh, hd, h) flatten to (h,
     h) and transpose into ``nn.Linear``'s (out, in) layout; Dense kernels
     (in, out) transpose; embeddings and LN scale/bias carry over as they
-    are."""
+    are.  ``tp`` above 1: model rank ``tp_rank``'s Megatron slice of
+    each leaf (``parallel.tensor_parallel.tp_slice``), what
+    ``BertForPreTraining(tp=)`` or a ``PipelinedBert(tp_axis=)`` rank
+    holds."""
     p = params.get("params", params)
     if "stages" in p:
         stages = p["stages"]
@@ -722,7 +877,12 @@ def params_from_jax(params: Mapping, cfg: BertConfig,
                     lambda a, st=st: np.asarray(a)[st],
                     stages[f"layer_{li}"])
         dense = params_from_jax({"encoder": enc, **p["heads"]}, cfg)
-        return dense_to_rank(dense, cfg, pp, 0 if rank is None else rank)
+        return dense_to_rank(dense, cfg, pp, 0 if rank is None else rank,
+                             tp, tp_rank)
+    if tp > 1:
+        return tpar.tp_slice(params_from_jax(params, cfg),
+                             tpar.bert_tp_rules(), cfg.num_attention_heads, tp,
+                             tp_rank)
     h = cfg.hidden_size
 
     def t(a, shape=None):

@@ -82,13 +82,16 @@ takes the rank's part of the loss from its hidden states.
 
 Pipeline parallelism: :class:`PipelinedGPT` (one stage a rank of the
 mesh's pipe axis, over :class:`GPTEmbed` and :class:`GPTStage`),
-optionally with a sequence axis inside it.
+optionally with a sequence axis and a model axis inside it.  The
+Megatron blocks (:class:`RowParallelLinear`,
+:class:`VocabParallelEmbedding`) live in ``parallel.tensor_parallel``,
+shared with BERT; their names import from here as before.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, NamedTuple, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -111,8 +114,14 @@ from apex_tpu_torch.ops.decode_attention import (
 from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from apex_tpu_torch.parallel.collectives import copy_to_group, \
-    reduce_from_group
+    gather_from_group
+from apex_tpu_torch.parallel import tensor_parallel as tpar
 from apex_tpu_torch.parallel.mesh import ProcessGroup
+# the Megatron blocks live beside the rules; the names stay importable
+# from here
+from apex_tpu_torch.parallel.tensor_parallel import RowParallelLinear, \
+    TPPlace as _TP, VocabParallelEmbedding, \
+    head_slice_dropout as _head_slice_dropout, tp_place as _tp_place
 
 NEG_INF = -1e9
 
@@ -150,84 +159,6 @@ def padded_vocab(vocab_size: int, tp: int) -> int:
     ``--tp 2`` is 50432)."""
     unit = 128 * tp
     return -(-vocab_size // unit) * unit
-
-
-class _TP(NamedTuple):
-    """A tensor-parallel layer's place: the model group, this rank's
-    index in it and the group's size."""
-
-    group: ProcessGroup
-    rank: int
-    size: int
-
-
-def _tp_place(group: Optional[ProcessGroup]) -> Optional[_TP]:
-    if group is None:
-        return None
-    if not dist.is_initialized():
-        raise RuntimeError("a tensor-parallel model needs an initialized "
-                           "process group")
-    return _TP(group, group.rank(), group.size())
-
-
-class RowParallelLinear(nn.Module):
-    """``y = sum over the model group of (x_local @ W_local^T) + b``:
-    ``weight`` is this rank's (out, in / n) columns, ``bias`` the whole
-    (out,) vector, added once after the sum (adding it on every rank
-    before the sum would count it n times)."""
-
-    def __init__(self, in_local: int, out_features: int, tp: _TP, *,
-                 device, dtype):
-        super().__init__()
-        self.tp = tp
-        self.weight = nn.Parameter(torch.empty(out_features, in_local,
-                                               device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(out_features, device=device,
-                                             dtype=dtype))
-
-    def forward(self, x):
-        return reduce_from_group(F.linear(x, self.weight),
-                                 self.tp.group) + self.bias
-
-
-class VocabParallelEmbedding(nn.Module):
-    """The embedding's rows ``[rank * V/n, (rank + 1) * V/n)``: ids
-    outside them look up zeros, and the sum over the model group gives
-    every rank the whole lookup."""
-
-    def __init__(self, rows_local: int, dim: int, tp: _TP, *, device,
-                 dtype):
-        super().__init__()
-        self.tp = tp
-        self.start = tp.rank * rows_local
-        self.weight = nn.Parameter(torch.empty(rows_local, dim,
-                                               device=device, dtype=dtype))
-
-    def forward(self, ids):
-        local = ids - self.start
-        valid = (local >= 0) & (local < self.weight.shape[0])
-        emb = F.embedding(torch.where(valid, local, 0), self.weight)
-        emb = torch.where(valid[..., None], emb, 0.0)
-        return reduce_from_group(emb, self.tp.group)
-
-
-def _head_slice_dropout(dropout, scope, tp: _TP, heads: int):
-    """The default attention's ``dropout_fn`` on a TP rank: the dense
-    model's draw over the full (B, heads, S, S) probs, this rank's heads
-    kept (flax's ``Dropout_0`` at the attention's scope)."""
-    drop = scope.push("Dropout_0")
-    keep_prob = 1.0 - dropout.rate
-
-    def dropout_fn(p):
-        b, hl = p.shape[:2]
-        keep = threefry.bernoulli(drop.make_rng(), keep_prob,
-                                  (b, heads) + tuple(p.shape[2:]), p.device)
-        keep = keep[:, tp.rank * hl:(tp.rank + 1) * hl]
-        div = torch.full((), keep_prob, dtype=p.dtype, device=p.device)
-        return torch.where(keep, p / div, torch.zeros((), dtype=p.dtype,
-                                                      device=p.device))
-
-    return dropout_fn
 
 
 def causal_dot_product_attention(q, k, v, bias=None, dropout_fn=None):
@@ -476,7 +407,6 @@ class GPTLMHeadModel(nn.Module):
         shapes."""
         if self.tp is None:
             return {}
-        from apex_tpu_torch.parallel import tensor_parallel as tpar
         full = GPTLMHeadModel(self.cfg, device="meta", seed=None)
         return tpar.param_specs(dict(full.named_parameters()),
                                 tpar.Mesh({"model": self.tp.size}),
@@ -488,7 +418,6 @@ class GPTLMHeadModel(nn.Module):
         split with the heads kept, and how it reads in the JAX layout):
         the ``like_params`` ZeRO-1 shards the tree layout's moments
         with."""
-        from apex_tpu_torch.parallel import tensor_parallel as tpar
         n = self.tp.size if self.tp is not None else 1
         specs = {}
         if self.tp is not None:
@@ -501,28 +430,10 @@ class GPTLMHeadModel(nn.Module):
         return tpar.param_places(self, specs, {"model": n},
                                  self.cfg.num_attention_heads)
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
-        from apex_tpu_torch.parallel.tensor_parallel import local_slice
-        gen = torch.Generator().manual_seed(int(seed))
-        std = self.cfg.initializer_range
-        specs = self.tp_specs()
-        n = self.tp.size if self.tp is not None else 1
-        for name, p in self.named_parameters():
-            if name.endswith("_ln.scale"):
-                p.fill_(1.0)
-            elif name.endswith("bias"):
-                p.zero_()
-            else:
-                spec = specs.get(name, ())
-                shape = tuple(d * n if axis else d for d, axis in
-                              zip(p.shape, spec + (None,) * p.dim()))
-                full = torch.empty(shape, dtype=torch.float32).normal_(
-                    0.0, std, generator=gen)
-                if spec:
-                    full = local_slice(full, spec, {"model": n},
-                                       {"model": self.tp.rank})
-                p.copy_(full)
+        from apex_tpu_torch.parallel.tensor_parallel import reset_seeded
+        reset_seeded(self, self.tp_specs(), self.tp, seed,
+                     self.cfg.initializer_range)
 
     def forward(self, input_ids, attention_mask=None, positions=None,
                 cache_views=None, return_kv: bool = False,
@@ -599,15 +510,22 @@ class GPTLMHeadModel(nn.Module):
 class GPTEmbed(nn.Module):
     """Token + position embeddings + dropout, split out for pipeline
     parallelism (``wte``, ``wpe`` as :class:`GPTLMHeadModel`'s); its
-    dropout scope's root is the module (the JAX ``GPTEmbed``'s)."""
+    dropout scope's root is the module (the JAX ``GPTEmbed``'s).
+    ``tp`` (a ``TPPlace``): ``wte`` vocab-parallel where the vocabulary
+    divides (``vocab_tp``), else whole, as ``param_specs`` falls back."""
 
     def __init__(self, cfg: GPTConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tp: Optional[_TP] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
-        self.wte = nn.Embedding(cfg.vocab_size, h, device=dev, dtype=dtype)
+        self.vocab_tp = tp if tp is not None \
+            and cfg.vocab_size % tp.size == 0 else None
+        self.wte = nn.Embedding(cfg.vocab_size, h, device=dev, dtype=dtype) \
+            if self.vocab_tp is None else VocabParallelEmbedding(
+                cfg.vocab_size // tp.size, h, tp, device=dev, dtype=dtype)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, h, device=dev,
                                 dtype=dtype)
         self.embed_dropout = threefry.Dropout(cfg.hidden_dropout_prob)
@@ -626,18 +544,20 @@ class GPTEmbed(nn.Module):
 
 class GPTStage(nn.Module):
     """``n_layers`` consecutive pre-LN blocks, ``block_0`` .., one
-    pipeline stage; its dropout scope's root is the stage."""
+    pipeline stage; its dropout scope's root is the stage.  ``tp`` (a
+    ``TPPlace``): the blocks tensor-parallel (:class:`GPTBlock`)."""
 
     def __init__(self, cfg: GPTConfig, n_layers: int,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 tp: Optional[_TP] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg, self.n_layers = cfg, n_layers
         self.attention_fn = attention_fn
         for i in range(n_layers):
             self.add_module(f"block_{i}", GPTBlock(
-                cfg, attention_fn, device=dev, dtype=dtype))
+                cfg, attention_fn, device=dev, dtype=dtype, tp=tp))
 
     def forward(self, x, attn_bias, deterministic: bool = True,
                 dropout_key=None):
@@ -682,7 +602,17 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
     (causal ring or Ulysses; ``forward`` gives this rank's (B, S/sp, V)
     logits, :meth:`loss_and_grad_1f1b` takes Ulysses only and gathers
     the hidden states for the shifted loss), dropout and ``seed`` as in
-    ``PipelinedBert`` (the dense model is :class:`GPTLMHeadModel`)."""
+    ``PipelinedBert`` (the dense model is :class:`GPTLMHeadModel`).
+
+    ``tp_axis`` (the mesh's model axis): the blocks tensor-parallel
+    (``parallel.gpt_tp_rules``; the heads and the MLP width must divide,
+    as :class:`GPTLMHeadModel`'s), the tied ``wte`` vocab-sharded on
+    every stage where the vocabulary divides (else whole, the rules'
+    fallback).  The LM head is column-parallel: each rank's (B, S, V/n)
+    logits are gathered over the model group, so ``forward`` and the
+    1F1B loss see the whole vocabulary."""
+
+    tp_rules_name = "gpt_tp_rules"
 
     def __init__(self, cfg: GPTConfig, mesh, pp: int,
                  num_microbatches: int, pipe_axis: str = "pipe",
@@ -697,13 +627,28 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
                     seq_axis, tp_axis, attention_fn,
                     "parallel.make_ulysses_attention(seq_axis, causal=True)")
         dev = resolve_device(device)
-        self.embed = GPTEmbed(cfg, device=dev, dtype=dtype)
+        if self.tp is not None:
+            for what, size in (("num_attention_heads",
+                                cfg.num_attention_heads),
+                               ("intermediate_size", cfg.intermediate_size)):
+                if size % self.tp.size:
+                    raise ValueError(f"{what} {size} does not divide over "
+                                     f"{self.tp.size} tensor-parallel ranks")
+        self.embed = GPTEmbed(cfg, device=dev, dtype=dtype, tp=self.tp)
         self.stages = GPTStage(cfg, cfg.num_hidden_layers // pp,
-                               attention_fn, device=dev, dtype=dtype)
+                               attention_fn, device=dev, dtype=dtype,
+                               tp=self.tp)
         self.head = FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                    device=dev, dtype=dtype)
         if seed is not None:
             self.reset_parameters(seed)
+
+    def _meta_layout(self):
+        cfg = self.cfg
+        return nn.ModuleDict({
+            "embed": GPTEmbed(cfg, device="meta"),
+            "stages": GPTStage(cfg, self.stages.n_layers, device="meta"),
+            "head": FusedLayerNorm(cfg.hidden_size, device="meta")})
 
     def reset_parameters(self, seed: int) -> None:
         """The dense model's draws from ``seed``, this rank's kept."""
@@ -740,8 +685,15 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
         return x, stage_fn
 
     def _head(self, h, head_p, wte):
+        """The tied LM head's fp32 logits (B, S, V): under TP the
+        column-parallel product of this rank's vocab rows, gathered over
+        the model group."""
         x = torch.func.functional_call(self.head, head_p, (h,))
-        return F.linear(x, wte).float()
+        tp = self.embed.vocab_tp
+        if tp is None:
+            return F.linear(x, wte).float()
+        return gather_from_group(F.linear(copy_to_group(x, tp.group), wte),
+                                 tp.group).float()
 
     def forward(self, input_ids, attention_mask=None,
                 deterministic: bool = True, dropout_key=None):
@@ -752,7 +704,8 @@ class PipelinedGPT(PipelinedCommon, nn.Module):
         h = gpipe(self._pipe(), stage_fn,
                   dict(self.stages.named_parameters()), x,
                   self.num_microbatches, microbatch_index=True)
-        return F.linear(self.head(h), self.embed.wte.weight).float()
+        return self._head(h, dict(self.head.named_parameters()),
+                          self.embed.wte.weight)
 
     def loss_and_grad_1f1b(self, input_ids, targets, attention_mask=None,
                            deterministic: bool = True, dropout_key=None):
@@ -824,17 +777,23 @@ def _rank_name(name: str, layers_per_stage: int, rank: int):
 
 
 def dense_to_rank(state_dict: Mapping[str, torch.Tensor], cfg: GPTConfig,
-                  pp: int, rank: int) -> Dict[str, torch.Tensor]:
+                  pp: int, rank: int, tp: int = 1,
+                  tp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """A dense :class:`GPTLMHeadModel` state dict (or gradient tree) as
     :class:`PipelinedGPT`'s on pipeline rank ``rank`` of ``pp``: dense
     block ``rank * L / pp + i`` becomes ``stages.block_<i>``, ``final_ln``
-    ``head``, ``wte``/``wpe`` ``embed.*``."""
-    return rank_state_dict(state_dict, _rank_name,
-                           cfg.num_hidden_layers // pp, rank)
+    ``head``, ``wte``/``wpe`` ``embed.*``; with ``tp`` above 1, model
+    rank ``tp_rank``'s Megatron slice of each
+    (``parallel.tensor_parallel.tp_slice``)."""
+    return tpar.tp_slice(rank_state_dict(state_dict, _rank_name,
+                                         cfg.num_hidden_layers // pp, rank),
+                         tpar.gpt_tp_rules(), cfg.num_attention_heads, tp,
+                         tp_rank)
 
 
 def params_from_jax(params: Mapping, cfg: GPTConfig,
-                    rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                    rank: Optional[int] = None, tp: int = 1,
+                    tp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """The JAX package's GPT param tree (``{"params": ...}`` or its
     inner dict, leaves as numpy arrays) as this model's ``state_dict``.
 
@@ -848,7 +807,8 @@ def params_from_jax(params: Mapping, cfg: GPTConfig,
     then cuts each TP rank's part.  A ``PipelinedGPT`` tree (``{"embed",
     "stages", "head"}``, the stage leaves stacked on dim 0) gives
     pipeline rank ``rank``'s state dict, row ``rank`` of each stacked
-    leaf."""
+    leaf.  ``tp`` above 1: model rank ``tp_rank``'s Megatron slice of
+    each leaf (``parallel.tensor_parallel.tp_slice``)."""
     p = params.get("params", params)
     if "stages" in p:
         stages = p["stages"]
@@ -862,7 +822,11 @@ def params_from_jax(params: Mapping, cfg: GPTConfig,
                     lambda a, st=st: np.asarray(a)[st],
                     stages[f"block_{li}"])
         return dense_to_rank(params_from_jax(mono, cfg), cfg, pp,
-                             0 if rank is None else rank)
+                             0 if rank is None else rank, tp, tp_rank)
+    if tp > 1:
+        return tpar.tp_slice(params_from_jax(params, cfg),
+                             tpar.gpt_tp_rules(), cfg.num_attention_heads, tp,
+                             tp_rank)
     h = cfg.hidden_size
     rows = np.asarray(p["wte"]["embedding"]).shape[0]
     if rows > cfg.vocab_size:

@@ -27,9 +27,19 @@ slice of the replicated cotangent), and the stage and embedding
 gradients, partial on each shard, are summed over the group
 (:meth:`PipelinedCommon._sum_over_seq`); the loss-head gradients,
 computed on the gathered states, are whole on every shard already.
-Not here yet: the tensor-parallel methods (``param_spec_tree``,
-``shard_variables``, ``constrain_grads``); a pipelined model built with
-``tp_axis`` raises (ROADMAP A.10: TP inside the pipeline).
+
+The model axis (``tp_axis``, the mesh's model group): Megatron tensor
+parallelism inside each stage, as the JAX package's partial-manual
+``shard_map`` leaves the model axis to GSPMD.  A rank holds its stage's
+slice of each leaf under the family's rules (``tp_rules_name``), the
+embeddings and heads their unstacked slices (:meth:`param_spec_tree`,
+the port of ``tensor_parallel.pipeline_param_specs``); the stage body's
+layers carry their own ``copy_to_group``/``reduce_from_group``, so the
+model group's collectives run inside the schedules' ticks, at the same
+tick on every rank of one (data, sp, pipe) coordinate.  The gradients
+come out as local slices already (:meth:`constrain_grads` checks their
+shapes); the stage key folds no model index, so the model ranks draw
+the dense masks.
 """
 
 from __future__ import annotations
@@ -46,30 +56,14 @@ from apex_tpu_torch.ops import threefry
 EMBED_FOLD = 2 ** 20
 
 
-class _GatherSeq(torch.autograd.Function):
-    """The sequence shards of ``h`` (B, S_local, ...) concatenated over
-    the group on dim 1; the backward keeps this rank's slice of the
-    cotangent (every rank computes the same replicated loss from the
-    gathered tensor, so its slice is the true gradient of its shard)."""
-
-    @staticmethod
-    def forward(ctx, h, group):
-        from apex_tpu_torch.parallel.collectives import all_gather_g
-        ctx.rank, ctx.size = group.rank(), h.shape[1]
-        return all_gather_g(h, group, axis=1, tiled=True)
-
-    @staticmethod
-    def backward(ctx, grad):
-        lo = ctx.rank * ctx.size
-        return grad[:, lo:lo + ctx.size], None
-
-
 def gather_seq(h: torch.Tensor, group) -> torch.Tensor:
-    """``h``'s sequence shards gathered over ``group`` (module
-    docstring); ``h`` itself without an initialized process group."""
-    if group is None or not dist.is_initialized():
-        return h
-    return _GatherSeq.apply(h, group)
+    """``h``'s sequence shards (B, S_local, ...) concatenated over
+    ``group`` on dim 1 (``parallel.gather_from_group``: the backward
+    keeps this rank's slice of the cotangent, every rank computing the
+    same replicated loss from the gathered tensor); ``h`` itself without
+    an initialized process group."""
+    from apex_tpu_torch.parallel.collectives import gather_from_group
+    return gather_from_group(h, group, axis=1)
 
 
 def rank_state_dict(state_dict: Mapping[str, torch.Tensor],
@@ -87,6 +81,9 @@ def rank_state_dict(state_dict: Mapping[str, torch.Tensor],
 
 
 class PipelinedCommon:
+    #: the family's Megatron rules in ``parallel.tensor_parallel``
+    #: (``"bert_tp_rules"``, ``"gpt_tp_rules"``), set by the subclass
+    tp_rules_name = None
 
     def _setup(self, cfg, mesh, pp: int, num_microbatches: int,
                pipe_axis: str, batch_axis, seq_axis, tp_axis, attention_fn,
@@ -103,18 +100,98 @@ class PipelinedCommon:
                 "seq_axis requires a sequence-parallel attention_fn for "
                 f"the same axis ({sp_factory}) — plain attention would "
                 "silently attend only within each sequence shard")
-        if tp_axis is not None:
-            raise NotImplementedError(
-                "a pipelined model with a tensor-parallel axis is not "
-                "ported yet (ROADMAP A.10: TP inside the pipeline)")
         if dist.is_initialized() and mesh.shape[pipe_axis] != pp:
             raise ValueError(f"pp={pp} but the mesh's {pipe_axis!r} axis "
                              f"has {mesh.shape[pipe_axis]} ranks")
         self.cfg, self.mesh, self.pp = cfg, mesh, pp
         self.num_microbatches = num_microbatches
         self.pipe_axis, self.batch_axis = pipe_axis, batch_axis
-        self.seq_axis = seq_axis
+        self.seq_axis, self.tp_axis = seq_axis, tp_axis
         self.attention_fn = attention_fn
+        self.tp = None
+        if tp_axis is not None and dist.is_initialized():
+            from apex_tpu_torch.parallel.tensor_parallel import tp_place
+            self.tp = tp_place(mesh.group(tp_axis))
+        elif tp_axis is not None and mesh.shape.get(tp_axis, 1) > 1:
+            raise RuntimeError("a tensor-parallel model needs an "
+                               "initialized process group")
+
+    def _meta_layout(self):
+        """The model without TP on ``meta``: a module whose parameters
+        carry this rank's names at their full per-stage shapes (the
+        subclass builds it)."""
+        raise NotImplementedError
+
+    def param_spec_tree(self, params=None) -> Dict[str, tuple]:
+        """``{name: spec}`` by ``parallel.tensor_parallel.
+        pipeline_param_specs`` under the family's rules for ``tp_axis``
+        (none without it): the stage leaves ``(pipe_axis, *spec)``, the
+        embeddings and heads their plain specs.  ``params`` (``{name:
+        tensor}`` at the full per-stage shapes) defaults to this model's
+        own (:meth:`_meta_layout`)."""
+        from apex_tpu_torch.parallel import tensor_parallel as tpar
+        rules = (getattr(tpar, self.tp_rules_name)(self.tp_axis)
+                 if self.tp_axis is not None else ())
+        if params is None:
+            params = dict(self._meta_layout().named_parameters())
+        return tpar.pipeline_param_specs(
+            params, tpar.Mesh(dict(self.mesh.shape)), rules, self.pipe_axis,
+            num_heads=self.cfg.num_attention_heads)
+
+    def _tp_specs(self) -> Dict[str, tuple]:
+        """Each local name's model split (its spec without the stacked
+        pipe entry); ``{}`` without TP."""
+        if self.tp is None:
+            return {}
+        prefix = "stages."
+        return {name: spec[1:] if name.startswith(prefix) else spec
+                for name, spec in self.param_spec_tree().items()}
+
+    def tp_places(self) -> Dict[str, tuple]:
+        """Each local parameter's ``parallel.tensor_parallel.Place`` in the
+        JAX layout: its model split (heads kept), and for a stage leaf the
+        pipe ranks its JAX leaf is stacked over (``split``): the
+        ``like_params`` of ZeRO-1 over the moments (the data shard goes
+        on the first dim the stacking and the model split leave free)."""
+        from apex_tpu_torch.parallel import tensor_parallel as tpar
+        rules = (getattr(tpar, self.tp_rules_name)(self.tp_axis)
+                 if self.tp is not None else ())
+        full = dict(self._meta_layout().named_parameters())
+        specs = tpar.param_specs(full, tpar.Mesh(dict(self.mesh.shape)),
+                                 rules,
+                                 num_heads=self.cfg.num_attention_heads,
+                                 keep_heads=True)
+        places = tpar.param_places(self, specs, self.mesh.shape,
+                                   self.cfg.num_attention_heads)
+        return {name: place._replace(split=place.split * self.pp)
+                if name.startswith("stages.") else place
+                for name, place in places.items()}
+
+    def shard_variables(self, state_dict: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """This rank's Megatron slice of its stage's full state dict
+        (``dense_to_rank``'s or ``params_from_jax(..., rank=)``'s, at the
+        full TP shapes): each leaf cut as :meth:`param_spec_tree` places
+        it, at this rank's model index; as it is without TP."""
+        specs = self._tp_specs()
+        if not specs:
+            return dict(state_dict)
+        from apex_tpu_torch.parallel.tensor_parallel import local_slice
+        coords = {self.tp_axis: self.tp.rank}
+        return {name: local_slice(t, specs[name], self.mesh.shape, coords)
+                if specs.get(name) else t
+                for name, t in state_dict.items()}
+
+    def constrain_grads(self, grads: Mapping[str, torch.Tensor]):
+        """The gradients as they are: a rank's are its leaves' local
+        slices already (the JAX method pins GSPMD's placement on them);
+        raises where one's shape is not its parameter's."""
+        mine = dict(self.named_parameters())
+        for name, g in grads.items():
+            if g.shape != mine[name].shape:
+                raise ValueError(f"{name}'s gradient is {tuple(g.shape)}, "
+                                 f"the parameter {tuple(mine[name].shape)}")
+        return grads
 
     def _pipe(self):
         return self.mesh.group(self.pipe_axis) if dist.is_initialized() \
@@ -125,12 +202,16 @@ class PipelinedCommon:
                           layers_per_stage: int, seed: int) -> None:
         """The dense model's draws from ``seed`` (normal(initializer_range)
         for every weight in its parameter order, unit LN scales, zero
-        biases), this rank's kept: the ranks together hold the dense
-        model's weights.  ``dense`` is the dense model on ``meta``."""
+        biases), this rank's kept (under TP its slice): the ranks
+        together hold the dense model's weights.  ``dense`` is the dense
+        model on ``meta``."""
+        from apex_tpu_torch.parallel.tensor_parallel import local_slice
         gen = torch.Generator().manual_seed(int(seed))
         std = self.cfg.initializer_range
         mine = dict(self.named_parameters())
         r = self._coord(self.pipe_axis)
+        specs = self._tp_specs()
+        coords = {self.tp_axis: self.tp.rank} if specs else {}
         for name, p in dense.named_parameters():
             if name.endswith("_ln.scale"):
                 fill = torch.ones(())
@@ -141,6 +222,9 @@ class PipelinedCommon:
                     0.0, std, generator=gen)
             local = rank_name(name, layers_per_stage, r)
             if local is not None:
+                if specs.get(local) and fill.dim():
+                    fill = local_slice(fill, specs[local], self.mesh.shape,
+                                       coords)
                 mine[local].copy_(fill)
 
     def _coord(self, axis: Optional[str]) -> int:

@@ -676,11 +676,14 @@ class FusedAdam:
             def fn():
                 if self._tp is not None:
                     from apex_tpu_torch.parallel.tensor_parallel import \
-                        tp_grad_norm
+                        model_grad_norm
                     group, sharded = self._tp
                     picked = {n: g for n, g, i in zip(names, g32, ids)
                               if i == gid}
-                    return tp_grad_norm(picked, sharded, group, step.device)
+                    split = {n: ("model",) if sharded[n] else ()
+                             for n in picked}
+                    return model_grad_norm(picked, split, {"model": group},
+                                           step.device)
                 sq = sum(torch.sum(g * g) for g, i in zip(g32, ids)
                          if i == gid)
                 return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32,

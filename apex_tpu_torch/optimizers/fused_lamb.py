@@ -31,14 +31,31 @@ Parameter names are the trees' dotted leaf names
 ``param_groups`` match them, and ``exclude_from_layer_adaptation`` and
 ``per_slice_trust_ratio`` are predicates on them.
 
-Pipeline parallelism: a ``PipelinedBert`` rank holds one stage, so the
-global clipping norm (the JAX optimizer's over the whole tree, every
-stage once) is the stage leaves' squares summed over the pipe group plus
-the replicated leaves' counted once:
-``with_model_parallel(group, sharded)``, as ``FusedAdam``'s.  The
-port's stage leaves are one tensor a layer, so each already gets its
-own trust ratio; ``per_slice_trust_ratio`` is for stacked leaves (the
-JAX ``(pp, ...)`` layout) and a pipelined port rank does not pass it.
+Norms across ranks.  In the JAX package GSPMD makes every norm a norm
+of the whole (global) leaf; here a rank holds parts, so each norm is
+summed over the ranks that hold the parts, each replicated leaf counted
+once, and the sums ride one small all-reduce a group:
+
+- pipeline parallelism: a ``PipelinedBert`` rank holds one stage, so the
+  global clipping norm (the JAX optimizer's over the whole tree, every
+  stage once) sums the stage leaves' squares over the pipe group:
+  ``with_model_parallel(group, sharded)``, as ``FusedAdam``'s.  The
+  port's stage leaves are one tensor a layer, so each gets its own trust
+  ratio, as the JAX ``(pp, ...)`` stacks under ``per_slice_trust_ratio``
+  (the BERT example's setting); a pipelined port rank does not pass it;
+- tensor parallelism: ``with_tensor_parallel(group, split)`` names the
+  leaves cut over the model group; their squares are summed over it in
+  the clipping norm (beside the pipe group's: the model's norm spans the
+  (pipe x model) ranks of one data index, ``parallel.tensor_parallel.
+  model_grad_norm``) and in both trust-ratio norms, ``||p||`` and
+  ``||update||``, so each ratio is the whole leaf's;
+- ZeRO-1, ``with_zero(group, like_params=...)`` (with
+  ``parallel.shard_optimizer_state``): a rank updates its slice of each
+  sharded leaf (the moments' shards, cut as the JAX package's
+  ``like_params`` places them) and all-gathers the fresh slices; the
+  clipping norm is taken from the whole reduced gradients, and the
+  trust-ratio norms of a sharded leaf are summed over the data group as
+  well.
 """
 
 from __future__ import annotations
@@ -115,7 +132,9 @@ class FusedLAMB:
             validate_specs(self.param_groups, ("lr", "weight_decay", "eps"),
                            "FusedLAMB")
         self._plans: Dict[Tuple, _Plan] = {}
-        self._mp = None     # (group, {name: sharded}): model parallel
+        self._mp = None     # (group, {name: sharded}): the pipe group
+        self._tp = None     # (group, {name: split}): the model group
+        self._zero = None   # (group, min_shard_elems, {name: Place})
 
     def _args(self) -> dict:
         return dict(lr=self.lr, betas=self.betas, eps=self.eps,
@@ -127,15 +146,40 @@ class FusedLAMB:
                     param_groups=self.param_groups,
                     per_slice_trust_ratio=self.per_slice_trust_ratio)
 
+    def _copy(self, args=None, **parallel) -> "FusedLAMB":
+        """A new optimizer of ``args`` (default: this one's) with this
+        one's groups and ZeRO setting, ``parallel`` replacing some."""
+        new = FusedLAMB(**(args or self._args()))
+        new._mp, new._tp, new._zero = self._mp, self._tp, self._zero
+        for k, v in parallel.items():
+            setattr(new, k, v)
+        return new
+
     def with_model_parallel(self, group, sharded) -> "FusedLAMB":
         """A copy whose clipping norm is the model's over ``group`` (the
         pipe group: each rank holds one stage): ``sharded`` maps each
         dotted parameter name to whether its leaf is this rank's alone
         (squares summed over the group) or the same on every rank
         (counted once)."""
-        new = FusedLAMB(**self._args())
-        new._mp = (group, dict(sharded))
-        return new
+        return self._copy(_mp=(group, dict(sharded)))
+
+    def with_tensor_parallel(self, group, split) -> "FusedLAMB":
+        """A copy for a tensor-parallel model's rank: ``split`` maps each
+        dotted parameter name to whether its leaf is cut over the model
+        ``group`` (a non-empty ``parallel.param_specs`` spec).  Those
+        leaves' squares are summed over the group in the clipping norm
+        and in both trust-ratio norms (module docstring)."""
+        return self._copy(_tp=(group, dict(split)))
+
+    def with_zero(self, group, min_shard_elems: Optional[int] = None,
+                  like_params=None) -> "FusedLAMB":
+        """A copy whose update runs on this rank's shard of the moments
+        over ``group`` (the data ranks) and all-gathers the params
+        (module docstring).  ``min_shard_elems`` and ``like_params`` (the
+        ``{name: Place}`` of a TP or pipelined model's ``tp_places()``)
+        must be what ``parallel.shard_optimizer_state`` was given."""
+        return self._copy(_zero=(group, min_shard_elems,
+                                 dict(like_params or {})))
 
     def add_param_group(self, state: FusedLAMBState, params: Tree, match,
                         **overrides):
@@ -146,8 +190,7 @@ class FusedLAMB:
         args = self._args()
         args["param_groups"] = [dict(match=match, **overrides)] \
             + self.param_groups
-        new = FusedLAMB(**args)
-        new._mp = self._mp
+        new = self._copy(args)
         old_m = dict(zip(leaf_names(state.m), pytree.tree_leaves(state.m)))
         old_v = dict(zip(leaf_names(state.v), pytree.tree_leaves(state.v)))
         fresh = new.init(params)
@@ -192,13 +235,34 @@ class FusedLAMB:
             m=pytree.tree_unflatten(zeros, spec),
             v=pytree.tree_unflatten([z.clone() for z in zeros], spec))
 
+    def _clip_norm(self, grads: Tree, device) -> torch.Tensor:
+        """The global gradient norm: over the pipe and model groups'
+        parts (each replicated leaf once) where the ranks hold parts."""
+        if self._mp is None and self._tp is None:
+            return multi_tensor_l2norm(grads)
+        from apex_tpu_torch.parallel.tensor_parallel import model_grad_norm
+        names = leaf_names(grads)
+        groups, split = {}, {name: () for name in names}
+        for axis, mp in (("pipe", self._mp), ("model", self._tp)):
+            if mp is None:
+                continue
+            groups[axis] = mp[0]
+            for name in names:
+                if mp[1].get(name, False):
+                    split[name] += (axis,)
+        return model_grad_norm(dict(zip(names, pytree.tree_leaves(grads))),
+                               split, groups, device)
+
     @torch.no_grad()
     def _deltas(self, grads: Tree, state: FusedLAMBState, params: Tree,
-                skip):
+                skip, gnorm=None, data_split=None):
         """``(deltas, keep, new_state, spec)``: the leaves' ``-lr * ratio
         * update`` in fp32 before the skip select, the 0-d bool keep (or
         None without ``skip``), and the state with m, v already
-        selected."""
+        selected.  ``gnorm``: the clipping norm when the caller took it
+        (ZeRO: from the whole gradients); ``data_split``: per leaf,
+        whether the tree holds this rank's ZeRO slice of it (its
+        trust-ratio norms then summed over the data group)."""
         p_leaves, spec = pytree.tree_flatten(params)
         g_leaves, g_spec = pytree.tree_flatten(grads)
         m_leaves, _ = pytree.tree_flatten(state.m)
@@ -219,13 +283,8 @@ class FusedLAMB:
         beta1, beta2 = self.betas
 
         # stage 0: global grad-norm clipping
-        if self._mp is not None:
-            from apex_tpu_torch.parallel.tensor_parallel import tp_grad_norm
-            group, sharded = self._mp
-            gnorm = tp_grad_norm(dict(zip(leaf_names(grads), g_leaves)),
-                                 sharded, group, state.step.device)
-        else:
-            gnorm = multi_tensor_l2norm(grads)
+        if gnorm is None:
+            gnorm = self._clip_norm(grads, state.step.device)
         clip = torch.where(gnorm > self.max_grad_norm,
                            gnorm / self.max_grad_norm, 1.0)
 
@@ -251,9 +310,19 @@ class FusedLAMB:
             m2 = [torch.where(keep, a, b) for a, b in zip(m2, m_leaves)]
             v2 = [torch.where(keep, a, b) for a, b in zip(v2, v_leaves)]
 
-        # stage 2: per-tensor trust ratio
+        # stage 2: per-tensor trust ratio, of the whole leaf
         p_norm = torch.stack(torch._foreach_norm(p32))
         u_norm = torch.stack(torch._foreach_norm(upd))
+        masks = self._split_masks(leaf_names(params), data_split,
+                                  p_norm.device)
+        if masks:
+            from apex_tpu_torch.parallel.tensor_parallel import \
+                sum_over_groups
+            sq = sum_over_groups(
+                torch.cat([p_norm * p_norm, u_norm * u_norm]),
+                {a: torch.cat([m, m]) for a, (_, m) in masks.items()},
+                {a: g for a, (g, _) in masks.items()})
+            p_norm, u_norm = torch.sqrt(sq).chunk(2)
         ratio = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
                             1.0)
         if self.trust_clip is not None:
@@ -263,6 +332,10 @@ class FusedLAMB:
         if self.per_slice_trust_ratio is not None:
             for i, name in enumerate(leaf_names(params)):
                 if self.per_slice_trust_ratio(name):
+                    if any(bool(m[i]) for _, m in masks.values()):
+                        raise NotImplementedError(
+                            f"per_slice_trust_ratio on {name}, a leaf cut "
+                            "over ranks (TP or ZeRO)")
                     factors[i] = self._slice_factor(p32[i], upd[i],
                                                     plan.neg_lr[i],
                                                     plan.excluded[i])
@@ -271,6 +344,22 @@ class FusedLAMB:
                                    m=pytree.tree_unflatten(m2, spec),
                                    v=pytree.tree_unflatten(v2, spec))
         return deltas, keep, new_state, (p_leaves, spec)
+
+    def _split_masks(self, names, data_split, device):
+        """``{axis: (group, bool vector)}``: the groups a leaf's
+        trust-ratio norms are summed over, the model group's leaves
+        (``with_tensor_parallel``) and the data group's ZeRO slices;
+        empty where no leaf is cut."""
+        masks = {}
+        if self._tp is not None and any(self._tp[1].get(n, False)
+                                        for n in names):
+            masks["model"] = (self._tp[0], torch.tensor(
+                [bool(self._tp[1].get(n, False)) for n in names],
+                device=device))
+        if data_split is not None and any(data_split):
+            masks["data"] = (self._zero[0], torch.tensor(
+                list(data_split), device=device))
+        return masks
 
     def _slice_factor(self, p, upd, neg_lr, excluded):
         """``-lr * ratio`` of a stacked leaf, one ratio for each dim-0
@@ -303,7 +392,11 @@ class FusedLAMB:
              skip=None):
         """Apply one update; returns ``(params, state)``, the params as
         new leaf tensors that require grad.  Under ``skip`` every bit of
-        the params is kept (a select of the old tensor, not ``p + 0``)."""
+        the params is kept (a select of the old tensor, not ``p + 0``).
+        After ``with_zero`` the state holds this rank's moment shards and
+        ``grads`` are the reduced (whole) gradients."""
+        if self._zero is not None:
+            return self._step_zero(params, grads, state, skip)
         deltas, keep, new_state, (p_leaves, spec) = self._deltas(
             grads, state, params, skip)
         with torch.no_grad():
@@ -313,3 +406,65 @@ class FusedLAMB:
                 new = [torch.where(keep, a, b) for a, b in zip(new, p_leaves)]
         new = [t.requires_grad_(t.is_floating_point()) for t in new]
         return pytree.tree_unflatten(new, spec), new_state
+
+    @torch.no_grad()
+    def _step_zero(self, params: Tree, grads: Tree, state: FusedLAMBState,
+                   skip):
+        """ZeRO-1: LAMB's per-leaf update on this rank's slice of each
+        sharded leaf (``parallel.zero.tree_shard``, the moments' layout),
+        whole leaves elsewhere; the fresh slices all-gathered (one flat
+        gather a dtype) into new params."""
+        from apex_tpu_torch.parallel import zero
+        from apex_tpu_torch.parallel.tensor_parallel import Place
+        group, least, places = self._zero
+        n, r = zero.group_place(group)
+        least = zero.min_shard(group, least)
+        names = leaf_names(params)
+        p_leaves, spec = pytree.tree_flatten(params)
+        g_leaves, g_spec = pytree.tree_flatten(grads)
+        m_leaves = pytree.tree_leaves(state.m)
+        if g_spec != spec or len(m_leaves) != len(p_leaves):
+            raise ValueError("FusedLAMB: params, grads and state must be "
+                             "trees of the same structure")
+        gnorm = self._clip_norm(grads, state.step.device)
+        p_loc, g_loc, cuts = [], [], []
+        for name, p, g, m in zip(names, p_leaves, g_leaves, m_leaves):
+            place = places.get(name, Place())
+            _, d, p_shard = zero.tree_shard(p.detach(), place, n, r, least)
+            want = p.shape if d is None else p_shard.shape
+            if m.shape != want:
+                raise ValueError(
+                    f"with_zero: {name}'s moment is {tuple(m.shape)}, this "
+                    f"rank's shard {tuple(want)}: shard the state with "
+                    "parallel.shard_optimizer_state and the same "
+                    "like_params")
+            cuts.append((place, d))
+            if d is None:       # a whole leaf, in its own layout
+                p_loc.append(p.detach())
+                g_loc.append(g)
+                continue
+            p_loc.append(p_shard.contiguous())
+            g_loc.append(zero.tree_shard(g, place, n, r, least)[2]
+                         .contiguous())
+        deltas, keep, new_state, _ = self._deltas(
+            pytree.tree_unflatten(g_loc, spec), state,
+            pytree.tree_unflatten(p_loc, spec), skip, gnorm=gnorm,
+            data_split=[d is not None for _, d in cuts])
+        fresh = torch._foreach_add(
+            p_loc, [dl.to(p.dtype) for dl, p in zip(deltas, p_loc)])
+        if keep is not None:
+            fresh = [torch.where(keep, a, b) for a, b in zip(fresh, p_loc)]
+        out, views, dims, shards = [], [], [], []
+        for p, (place, d), x in zip(p_leaves, cuts, fresh):
+            if d is None:
+                out.append(x)
+                continue
+            full = torch.empty_like(p, memory_format=torch.contiguous_format)
+            view, _, _ = zero.tree_shard(full, place, n, r, least)
+            views.append(view)
+            dims.append(d)
+            shards.append(x)
+            out.append(full)
+        zero._gather_into(shards, views, dims, group)
+        out = [t.requires_grad_(t.is_floating_point()) for t in out]
+        return pytree.tree_unflatten(out, spec), new_state

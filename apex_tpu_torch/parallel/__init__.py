@@ -21,6 +21,7 @@ from apex_tpu_torch.parallel.collectives import (
     all_gather_g,
     all_to_all_g,
     copy_to_group,
+    gather_from_group,
     pmax_g,
     pmean_g,
     ppermute_g,
@@ -65,6 +66,7 @@ from apex_tpu_torch.parallel.tensor_parallel import (
     bert_tp_rules,
     gpt_tp_rules,
     param_specs,
+    pipeline_param_specs,
     shard_params,
 )
 from apex_tpu_torch.parallel.zero import (
@@ -102,6 +104,7 @@ __all__ = [
     "create_mesh",
     "create_process_group",
     "create_syncbn_process_group",
+    "gather_from_group",
     "gpipe",
     "gpipe_spmd",
     "gpt_tp_rules",
@@ -114,6 +117,7 @@ __all__ = [
     "onef1b_spmd",
     "param_specs",
     "pipeline_apply",
+    "pipeline_param_specs",
     "pmax_g",
     "pmean_g",
     "ppermute_g",

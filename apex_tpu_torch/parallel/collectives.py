@@ -14,8 +14,10 @@ the backward would multiply it by the group's size.
 :func:`copy_to_group` is the identity forward and a sum in the
 backward (in front of a column-parallel product);
 :func:`reduce_from_group` a sum forward and the identity backward
-(after a row-parallel product).  On GSPMD the JAX package gets both
-from the partitioner.
+(after a row-parallel product); :func:`gather_from_group` concatenates
+a column-parallel output over the group and keeps this rank's slice of
+the gradient.  On GSPMD the JAX package gets all three from the
+partitioner.
 
 :func:`pmax_g` reduces a flag or a max on the device (no host sync on
 NCCL).  :func:`all_gather_flat` and :func:`reduce_scatter_flat` are the
@@ -148,6 +150,33 @@ def reduce_from_group(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
     if not _initialized():
         return x
     return _ReduceFromGroup.apply(x, group.handle)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``axis``; the backward keeps
+    this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.rank, ctx.size, ctx.axis = group.rank(), x.shape[axis], axis
+        return all_gather_g(x, group, axis=axis, tiled=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.axis, ctx.rank * ctx.size, ctx.size), None, \
+            None
+
+
+def gather_from_group(x: torch.Tensor, group: ProcessGroup,
+                      axis: int = -1) -> torch.Tensor:
+    """Megatron's gather of a column-parallel output: the ranks' ``x``
+    concatenated along ``axis`` in group order, whose gradient is this
+    rank's slice of the cotangent (every rank computes the same
+    replicated function of the gathered tensor, so its slice is the true
+    gradient of its part); ``x`` itself without a process group."""
+    if group is None or not _initialized():
+        return x
+    return _GatherFromGroup.apply(x, group, axis % x.dim())
 
 
 def pmax_g(x: torch.Tensor,

@@ -132,8 +132,10 @@ def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1,
     beside a pipe or model axis above 1, the ``"data_sp"`` groups: the
     ``dp * sp`` ranks of each (pipe, model) coordinate (else it is the
     data group at ``sp`` 1 and the world when the data and sequence
-    axes are all of it).  The pipe axis with a model axis above 1 waits
-    for ROADMAP A.10: TP inside the pipeline."""
+    axes are all of it).  A model axis beside the pipe axis is tensor
+    parallelism inside the pipeline: each stage's layers split over the
+    ``tp`` contiguous ranks of one (data, sp, pipe) coordinate, the
+    stage hops running between the ranks of one model index."""
     world = dist.get_world_size()
     inner = sp * pp * tp
     if dp is None:
@@ -141,10 +143,6 @@ def create_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1,
     if min(tp, sp, pp, dp) <= 0 or dp * inner != world:
         raise ValueError(f"mesh ({dp}, {sp}, {pp}, {tp}) does not tile a "
                          f"world of {world} ranks")
-    if pp > 1 and tp > 1:
-        raise NotImplementedError(
-            "a pipe axis beside a model axis is not ported yet (ROADMAP "
-            "A.10: TP inside the pipeline)")
     model = _new_groups([tuple(range(g * tp, (g + 1) * tp))
                          for g in range(dp * sp * pp)])
     data = _new_groups([tuple(range(j, world, inner)) for j in range(inner)])

@@ -29,8 +29,23 @@ package's layout (a ``Linear``'s weight transposed, a dim of heads as
 (heads, head_dim)): ZeRO-1 shards a tensor-parallel leaf's moments over
 the data ranks on the dim the JAX package's ``like_params`` picks.
 
-Not here yet: ``pipeline_param_specs`` and BERT's sharded forward (both
-come with pipeline parallelism; BERT's rules are here).
+The Megatron blocks the tensor-parallel models share
+(``models.GPTLMHeadModel(tp=)``, ``models.BertForPreTraining(tp=)`` and
+the pipelined families' stages under ``tp_axis``): :class:`TPPlace`, a
+layer's model group and its place in it; :class:`RowParallelLinear`;
+:class:`VocabParallelEmbedding`; :func:`head_slice_dropout`, the default
+attention's dropout on a rank's heads.  A column-parallel layer is a
+plain ``nn.Linear`` of the rank's output features behind
+``copy_to_group``; its output is gathered with ``gather_from_group``
+where a whole tensor is needed (BERT's MLM logits).
+
+:func:`pipeline_param_specs` is the pipelined models' placement: the
+stage leaves' specs carry the pipe axis in front (the JAX layout stacks
+the stages on a leading dim; a port rank holds its stage's row of it),
+the embeddings' and heads' their plain specs.  :func:`model_grad_norm`
+is the clipping norm of a model whose leaves are split over several
+groups (TP inside the pipeline: the pipe and the model groups), each
+replicated leaf counted once.
 """
 
 from __future__ import annotations
@@ -42,6 +57,10 @@ from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, \
 import torch
 import torch.distributed as dist
 
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch.parallel.collectives import reduce_from_group
 from apex_tpu_torch.parallel.mesh import Mesh, ProcessGroup
 
 
@@ -211,29 +230,201 @@ def local_slice(x: torch.Tensor, spec: Tuple, sizes: Mapping[str, int],
 
 
 def shard_params(params: Mapping[str, torch.Tensor], mesh: Mesh,
-                 rules: Rules, *, num_heads: Optional[int] = None
+                 rules: Rules, *, num_heads: Optional[int] = None,
+                 coords: Optional[Mapping[str, int]] = None
                  ) -> Dict[str, torch.Tensor]:
     """This rank's slice of every parameter of the full ``params`` (a
-    ``{name: tensor}`` state dict), as new contiguous tensors."""
-    coords = {axis: mesh.index(axis) for axis in mesh.shape}
+    ``{name: tensor}`` state dict), as new contiguous tensors; the slice
+    of the rank at ``coords`` (axis -> index) when given, e.g. on a mesh
+    of shapes only."""
+    if coords is None:
+        coords = {axis: mesh.index(axis) for axis in mesh.shape}
     specs = param_specs(params, mesh, rules, num_heads=num_heads)
     return {name: local_slice(x, specs[name], mesh.shape, coords)
             for name, x in params.items()}
 
 
-def tp_grad_norm(grads: Mapping[str, torch.Tensor],
-                 sharded: Mapping[str, bool], group: ProcessGroup,
-                 device) -> torch.Tensor:
-    """The global L2 norm of a TP rank's gradients: the sum of squares
-    of the sharded leaves over ``group``, each replicated leaf counted
-    once (a fp32 0-d tensor on ``device``; no host sync)."""
-    def sq(keep):
-        terms = [torch.sum(g.float() * g.float())
-                 for name, g in grads.items() if sharded[name] == keep]
-        return torch.stack(terms).sum() if terms \
-            else torch.zeros((), device=device)
+def tp_slice(state_dict: Mapping[str, torch.Tensor], rules: Rules,
+             num_heads: Optional[int], tp: int,
+             tp_rank: int) -> Dict[str, torch.Tensor]:
+    """Model rank ``tp_rank``'s slice of a full state dict (a dense
+    model's or a pipeline rank's names) under ``rules`` at ``tp`` model
+    ranks (:func:`shard_params`); as it is at ``tp`` 1."""
+    if tp == 1:
+        return dict(state_dict)
+    return shard_params(state_dict, Mesh({"model": tp}), rules,
+                        num_heads=num_heads, coords={"model": tp_rank})
 
-    part = sq(True)
+
+@torch.no_grad()
+def reset_seeded(module: torch.nn.Module, specs: Mapping[str, Tuple],
+                 tp: Optional["TPPlace"], seed: int, std: float) -> None:
+    """The dense model's initialization of ``module`` (a model rank under
+    the dense model's names): from a CPU generator seeded ``seed``, each
+    weight's full tensor drawn normal(``std``) in parameter order and
+    this rank's slice under ``specs`` kept, unit LayerNorm scales, zero
+    biases; so a seed gives the dense model's weights, split."""
+    gen = torch.Generator().manual_seed(int(seed))
+    n = tp.size if tp is not None else 1
+    for name, p in module.named_parameters():
+        if name.endswith("_ln.scale"):
+            p.fill_(1.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            spec = specs.get(name, ())
+            shape = tuple(d * n if axis else d for d, axis in
+                          zip(p.shape, spec + (None,) * p.dim()))
+            full = torch.empty(shape, dtype=torch.float32).normal_(
+                0.0, std, generator=gen)
+            if spec:
+                full = local_slice(full, spec, {"model": n},
+                                   {"model": tp.rank})
+            p.copy_(full)
+
+
+def pipeline_param_specs(params: Mapping[str, torch.Tensor], mesh: Mesh,
+                         rules: Rules, pipe_axis: str,
+                         stage_key: str = "stages", *,
+                         num_heads: Optional[int] = None) -> Dict[str, Tuple]:
+    """``{dotted name: spec}`` of a pipelined model's parameters at their
+    full (unsplit) per-stage shapes: the twin of the JAX package's
+    ``pipeline_param_specs``.  A leaf under ``stage_key`` takes
+    ``(pipe_axis, *spec)``, its rule's spec behind the pipe axis of the
+    JAX layout's stacked stage dim (``(pipe_axis,)`` where no rule
+    applies); every other leaf its plain :func:`param_specs` spec (``()``
+    without a rule, and everything without ``rules``)."""
+    prefix = stage_key + "."
+    plain = param_specs(params, mesh, rules, num_heads=num_heads)
+    return {name: (pipe_axis,) + spec if name.startswith(prefix) else spec
+            for name, spec in plain.items()}
+
+
+def model_grad_norm(grads: Mapping[str, torch.Tensor],
+                    split: Mapping[str, Tuple[str, ...]],
+                    groups: Mapping[str, ProcessGroup],
+                    device) -> torch.Tensor:
+    """The global L2 norm of a model whose leaves are split over several
+    groups: ``split`` maps each dotted name to the axes (keys of
+    ``groups``) its leaf is split over (each rank holds its own part)
+    and is replicated over the others.  The squares of the leaves of one
+    set of axes are summed on the rank, then over each of its groups in
+    turn (one all-reduce a group, of the sums of every set holding it),
+    so each replicated leaf counts once.  A fp32 0-d tensor on
+    ``device``; no host sync."""
+    axes = list(groups)
+    sets = sorted({tuple(a for a in axes if a in split[name])
+                   for name in grads} | {()})
+    part = {s: [] for s in sets}
+    for name, g in grads.items():
+        part[tuple(a for a in axes if a in split[name])].append(
+            torch.sum(g.float() * g.float()))
+    sums = {s: torch.stack(t).sum() if t else torch.zeros((), device=device)
+            for s, t in part.items()}
     if dist.is_available() and dist.is_initialized():
-        dist.all_reduce(part, group=group.handle)
-    return torch.sqrt(part + sq(False))
+        for axis in axes:
+            held = [s for s in sets if axis in s]
+            if not held:
+                continue
+            work = torch.stack([sums[s] for s in held])
+            dist.all_reduce(work, group=groups[axis].handle)
+            sums.update(zip(held, work.unbind()))
+    return torch.sqrt(torch.stack([sums[s] for s in sets]).sum())
+
+
+def sum_over_groups(values: torch.Tensor,
+                    masks: Mapping[str, torch.Tensor],
+                    groups: Mapping[str, ProcessGroup]) -> torch.Tensor:
+    """``values`` (one entry a leaf) with each entry summed over the
+    groups whose ``masks`` (a bool vector a group) hold it: one
+    all-reduce a group.  FusedLAMB's whole-leaf norms under TP and
+    ZeRO."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return values
+    for axis, group in groups.items():
+        mask = masks[axis]
+        work = torch.where(mask, values, 0.0)
+        dist.all_reduce(work, group=group.handle)
+        values = torch.where(mask, work, values)
+    return values
+
+
+class TPPlace(NamedTuple):
+    """A tensor-parallel layer's place: the model group, this rank's
+    index in it and the group's size."""
+
+    group: ProcessGroup
+    rank: int
+    size: int
+
+
+def tp_place(group: Optional[ProcessGroup]) -> Optional[TPPlace]:
+    """The :class:`TPPlace` of this rank in ``group``; None for None."""
+    if group is None:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError("a tensor-parallel model needs an initialized "
+                           "process group")
+    return TPPlace(group, group.rank(), group.size())
+
+
+class RowParallelLinear(nn.Module):
+    """``y = sum over the model group of (x_local @ W_local^T) + b``:
+    ``weight`` is this rank's (out, in / n) columns, ``bias`` the whole
+    (out,) vector, added once after the sum (adding it on every rank
+    before the sum would count it n times)."""
+
+    def __init__(self, in_local: int, out_features: int, tp: TPPlace, *,
+                 device, dtype):
+        super().__init__()
+        self.tp = tp
+        self.weight = nn.Parameter(torch.empty(out_features, in_local,
+                                               device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x):
+        return reduce_from_group(F.linear(x, self.weight),
+                                 self.tp.group) + self.bias
+
+
+class VocabParallelEmbedding(nn.Module):
+    """The embedding's rows ``[rank * V/n, (rank + 1) * V/n)``: ids
+    outside them look up zeros, and the sum over the model group gives
+    every rank the whole lookup."""
+
+    def __init__(self, rows_local: int, dim: int, tp: TPPlace, *, device,
+                 dtype):
+        super().__init__()
+        self.tp = tp
+        self.start = tp.rank * rows_local
+        self.weight = nn.Parameter(torch.empty(rows_local, dim,
+                                               device=device, dtype=dtype))
+
+    def forward(self, ids):
+        local = ids - self.start
+        valid = (local >= 0) & (local < self.weight.shape[0])
+        emb = F.embedding(torch.where(valid, local, 0), self.weight)
+        emb = torch.where(valid[..., None], emb, 0.0)
+        return reduce_from_group(emb, self.tp.group)
+
+
+def head_slice_dropout(dropout, scope, tp: TPPlace, heads: int):
+    """The default attention's ``dropout_fn`` on a TP rank: the dense
+    model's draw over the full (B, heads, S, S) probs, this rank's heads
+    kept (flax's ``Dropout_0`` at the attention's scope; ``dropout`` a
+    ``threefry.Dropout``, ``scope`` a ``threefry.RngScope``)."""
+    from apex_tpu_torch.ops import threefry
+    drop = scope.push("Dropout_0")
+    keep_prob = 1.0 - dropout.rate
+
+    def dropout_fn(p):
+        b, hl = p.shape[:2]
+        keep = threefry.bernoulli(drop.make_rng(), keep_prob,
+                                  (b, heads) + tuple(p.shape[2:]), p.device)
+        keep = keep[:, tp.rank * hl:(tp.rank + 1) * hl]
+        div = torch.full((), keep_prob, dtype=p.dtype, device=p.device)
+        return torch.where(keep, p / div, torch.zeros((), dtype=p.dtype,
+                                                      device=p.device))
+
+    return dropout_fn

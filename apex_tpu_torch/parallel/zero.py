@@ -48,9 +48,13 @@ slices whose length divides by 4 (B1's 16-byte accesses) and it holds
 at least ``min_shard_elems``; else it takes the replicated update, as
 the JAX package's kernel takes its jnp update.
 
-Not here yet: ZeRO over ``FusedLAMB`` (ROADMAP A.10: ZeRO over
-FusedLAMB; its oracle is ZeRO x pipeline parallelism).  ZeRO-2 takes a
-flat-layout ``FusedAdam`` only, as the JAX package's ``zero2_update``.
+A ``FusedLAMBState``'s per-leaf ``m`` and ``v`` shard as the tree
+layout's moments do (``like_params`` included: a TP model's or a
+pipelined one's ``tp_places()``, whose stage leaves count the pipe ranks
+their JAX stack spans); ``FusedLAMB.with_zero`` then runs LAMB's
+update on each rank's slices, its trust-ratio norms summed over the
+data group, and gathers the params.  ZeRO-2 takes a flat-layout
+``FusedAdam`` only, as the JAX package's ``zero2_update``.
 """
 
 from __future__ import annotations
@@ -152,6 +156,19 @@ def _is_adam_state(x) -> bool:
     return isinstance(x, FusedAdamState)
 
 
+def _is_fused_state(x) -> bool:
+    """A ``FusedAdamState`` or a ``FusedLAMBState``: states whose
+    moments ``shard_optimizer_state`` cuts as a unit."""
+    from apex_tpu_torch.optimizers.fused_lamb import FusedLAMBState
+    return _is_adam_state(x) or isinstance(x, FusedLAMBState)
+
+
+def _per_leaf_moments(x) -> bool:
+    """A state whose ``m`` and ``v`` are trees like the params: a
+    tree-layout ``FusedAdamState`` or a ``FusedLAMBState``."""
+    return _is_fused_state(x) and getattr(x, "spec", None) is None
+
+
 def shard_optimizer_state(state: Tree, group: ProcessGroup,
                           min_shard_elems: Optional[int] = None,
                           like_params=None) -> Tree:
@@ -166,7 +183,7 @@ def shard_optimizer_state(state: Tree, group: ProcessGroup,
     least = min_shard(group, min_shard_elems)
 
     def adam(st):
-        if st.spec is None:
+        if _per_leaf_moments(st):
             from apex_tpu_torch.optimizers.param_groups import leaf_paths
             places = dict(like_params or {})
 
@@ -187,7 +204,7 @@ def shard_optimizer_state(state: Tree, group: ProcessGroup,
                            v=st.v[r * k:(r + 1) * k].clone())
 
     def leaf(x):
-        if _is_adam_state(x):
+        if _is_fused_state(x):
             return adam(x)
         if not isinstance(x, torch.Tensor):
             return x
@@ -195,7 +212,7 @@ def shard_optimizer_state(state: Tree, group: ProcessGroup,
         return x if d is None else _narrow(x, d, n, r).clone(
             memory_format=torch.contiguous_format)
 
-    return pytree.tree_map(leaf, state, is_leaf=_is_adam_state)
+    return pytree.tree_map(leaf, state, is_leaf=_is_fused_state)
 
 
 def unshard_optimizer_state(state: Tree, group: ProcessGroup,
@@ -204,8 +221,9 @@ def unshard_optimizer_state(state: Tree, group: ProcessGroup,
     from ``like``'s (the unsharded state, or any tree of its structure
     with tensors of its shapes, e.g. on the ``meta`` device) is gathered
     over ``group`` along the dim where they differ.  A tree-layout
-    ``FusedAdam`` state sharded with ``like_params`` needs the same
-    ``like_params`` here.  Every rank of the group must call it."""
+    ``FusedAdam`` state or a ``FusedLAMB`` state sharded with
+    ``like_params`` needs the same ``like_params`` here.  Every rank of
+    the group must call it."""
     if like_params is not None:
         return _unshard_places(state, group, like, like_params)
     leaves, spec = pytree.tree_flatten(state)
@@ -226,14 +244,14 @@ def unshard_optimizer_state(state: Tree, group: ProcessGroup,
 
 
 def _unshard_places(state, group, like, places):
-    """:func:`unshard_optimizer_state` of tree-layout ``FusedAdam``
-    states sharded with ``like_params``."""
+    """:func:`unshard_optimizer_state` of tree-layout ``FusedAdam`` and
+    ``FusedLAMB`` states sharded with ``like_params``."""
     from apex_tpu_torch.optimizers.param_groups import leaf_paths
     n, _ = group_place(group)
     least = min_shard(group, None)
 
     def whole(st, ref):
-        if not _is_adam_state(st) or st.spec is not None:
+        if not _per_leaf_moments(st):
             return st
 
         def grow(tree, ref_tree):
@@ -255,7 +273,7 @@ def _unshard_places(state, group, like, places):
             return pytree.tree_unflatten(fulls, spec)
         return st._replace(m=grow(st.m, ref.m), v=grow(st.v, ref.v))
 
-    return pytree.tree_map(whole, state, like, is_leaf=_is_adam_state)
+    return pytree.tree_map(whole, state, like, is_leaf=_is_fused_state)
 
 
 def _gather_into(shards: List[torch.Tensor], views: List[torch.Tensor],

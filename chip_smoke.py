@@ -282,13 +282,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
        a step; B4-B6 12 a step for Ulysses, for the ring 12 on rank 0,
        whose second hop is skipped, and 24 on rank 1; B1 1; paths
        ``train_sp_ring``, ``train_sp_ulysses``);
-   (b) long context: GPT-2 small at S 8192, B 1, ``--sp 2`` ring, O2 3
+   (b) long context: GPT-2 small at S 8192, B 1, ``--sp 2`` ring, O2 2
        steps within 2e-2 of one dense process; the peak a rank beside
        the dense process's (path ``train_sp_long``);
    (c) BERT-large at ``--ring-attention 2`` (B 8, S 512), ring and
        Ulysses: O0 1 step (loss <= 1e-4 relative, the gradients of the
        embeddings' LayerNorm, layers 0 and 23 and the heads <= 1e-4
-       scale-aware), O2 3 steps within 2e-2; launches exact (B2/B3 50,
+       scale-aware), O2 2 steps within 2e-2; launches exact (B2/B3 50,
        B4-B6 48 ring and 24 Ulysses a step; paths
        ``train_sp_bert_ring``, ``train_sp_bert_ulysses``);
    (d) GPT-2 small at ``--tp 2`` and dp 2 (four processes, B 2 a data
@@ -321,7 +321,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
        calls a step, launches exact (``_pp_launches``: 1F1B runs the
        stage forward twice but on the last stage, and the heads on the
        last stage only; paths ``train_pp_gpipe``, ``train_pp_1f1b``);
-   (b) O2 at M 4 (B 32) and M 8 (B 64), a microbatch of 8 rows: GPipe's
+   (b) O2 at M 4 (B 32; (a)'s O2 run) and M 8 (B 64, 2 steps), a
+       microbatch of 8 rows: GPipe's
        peak a rank grows with M, 1F1B's by less than ``PP_MEM_1F1B_GB``;
        the schedule's own memory (``_PipeMemory``): GPipe's held at its
        return grows with M, 1F1B's peak inside it by less than
@@ -351,7 +352,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
        16, S 512, M 4): GPipe with ring and 1F1B with Ulysses, O0 2
        steps through ``build``/``train_step`` (losses <= 1e-4
        relative, step-1 gradients <= 1e-4 scale-aware, GPipe against
-       1F1B params after step 1 <= 1e-5) and O2 3 steps through
+       1F1B params after step 1 <= 1e-5) and O2 2 steps through
        ``train(..., pp=2, sp=2)`` (within 2e-2); step ms, tokens/s for
        the four, peak a rank and the four's sum, collective calls a
        step, launches exact (``_compose_launches``: the ring's two
@@ -372,7 +373,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
        ring: O0 2 steps through ``gpt_main_amp``'s ``build``/
        ``train_step`` with DDP over the ``"data_sp"`` group (losses <=
        1e-4 relative, params after step 1 <= 1e-4 scale-aware of the
-       dense step's, sliced as the rank's), O2 3 steps through
+       dense step's, sliced as the rank's), O2 2 steps through
        ``gpt_main_amp.train(tp=2, sp=2)`` within 2e-2; tokens/s for the
        four, peak a rank, collectives a step, launches exact (paths
        ``train_gpt_sp_tp_ulysses``, ``train_gpt_sp_tp_ring``).
@@ -382,6 +383,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
    x 8 x 64, and ``--sp --tp``'s Ulysses attention 8 x 1024 x 3 x 64
    causal, each against its plain version and SDPA; the JSON line
    carries them as ``compose_mode``.
+
+21. train_tp_pp — tensor parallelism inside the pipeline and ZeRO over
+   FusedLAMB, four processes over gloo on the one card (CUDA tensors),
+   TF32 off; its first line is the prediction (``T_PREDICTION``)
+   written before any chip reading:
+   (a) BERT-large ``PipelinedBert(tp_axis="model")`` at dp 1 x tp 2 x pp
+       2 (B 16, S 512, M 4; 8 heads a rank), GPipe and 1F1B through
+       ``bert_main_amp.train_step`` with the recipe's FusedLAMB over the
+       pipe and model groups (``with_model_parallel``,
+       ``with_tensor_parallel``): O0 2 steps against one dense process
+       (losses <= 1e-4 relative, step-1 gradients of ``PP_GRADS``'
+       leaves, sliced as the rank's, <= 1e-4 scale-aware, GPipe against
+       1F1B params after step 1 <= 1e-5), O2 2 steps within 2e-2 of the
+       dense O2 run; step ms, tokens/s for the four, peak a rank,
+       collectives a step, launches exact (train_pp's formula; paths
+       ``train_tp_pp_gpipe``, ``train_tp_pp_1f1b``);
+   (b) GPT-2 small's ``PipelinedGPT`` (vocabulary padded to 50432) at tp
+       2 x pp 2 (B 8, S 1024, M 4), 1F1B at O0: the loss within 1e-4
+       relative and the rank's vocab rows of the tied ``wte`` gradient
+       within 1e-4 scale-aware of the dense model's; launches exact
+       (path ``train_tp_pp_gpt``);
+   (c) ZeRO over FusedLAMB on BERT-large at dp 2 x pp 2 (B 16 a data
+       index, S 128, M 4), GPipe, O2, 3 steps: the losses within 2e-2
+       of the replicated-state run's and the fp32 params after the last
+       step (``T_ZERO_PARAMS``' leaves) within 1e-5 scale-aware, LAMB's
+       state bytes a rank under 0.6 of the replicated run's, the peak a
+       rank of each; launches exact (path ``train_zero_lamb``).
+   The kernels phase times B4, B5 and B6 at the shapes these paths give
+   them (``COMPOSE_SHAPES``' ``tp_pp_bert`` 4 x 512 x 8 x 64 and
+   ``tp_pp_gpt`` 2 x 1024 x 6 x 64 causal) and B4d-B6d at the first with
+   model rank 1's head offsets (0, 0, 8, 16), each against its plain
+   version and SDPA.  To keep the whole script near 1000 s,
+   ``train_sp_compose``'s O2 legs and ``train_sp`` (b) and (c)'s run 2
+   steps, not 3, and ``train_pp`` (b)'s M 4 peaks are read from (a)'s
+   O2 runs (the same call) instead of two runs of their own.
 
 The O1 phases run last, and each ends by removing the policy, resetting
 amp's state and checking every patched function is its original again.
@@ -877,10 +913,12 @@ def _ln_variants(torch):
             row["copy_cold_ms"] = median_ms(lambda: y.copy_(x), iters,
                                             flush=flush)
             del y
-            row["launch"] = kineto_launch(kernel, "layer_norm_fwd_kernel")
-            warps = (row["launch"]["grid"][0]
-                     * row["launch"]["block"][0] // 32)
-            row["rows_per_warp"] = -(-n1 // warps)
+            launch = row["launch"] = kineto_launch(kernel,
+                                                   "layer_norm_fwd_kernel")
+            # a diagnostic: absent where the profiler traced no launch
+            if launch.get("grid") and launch.get("block"):
+                warps = launch["grid"][0] * launch["block"][0] // 32
+                row["rows_per_warp"] = -(-n1 // warps)
         out.append(row)
     return out
 
@@ -1417,7 +1455,12 @@ PP_MB = (8, 128, 16, 64)
 # over two model ranks, then two sequence ranks), causal
 COMPOSE_SHAPES = (("pp_sp_ring_hop", (4, 256, 16, 64), False, True),
                   ("pp_sp_ulysses", (4, 512, 8, 64), False, False),
-                  ("sp_tp_ulysses", (8, 1024, 3, 64), True, False))
+                  ("sp_tp_ulysses", (8, 1024, 3, 64), True, False),
+                  # TP inside the pipeline: BERT-large's microbatch (B 16,
+                  # M 4, S 512) with 8 of its 16 heads a rank, and GPT-2
+                  # small's (B 8, M 4, S 1024) with 6 of 12, causal
+                  ("tp_pp_bert", (4, 512, 8, 64), False, False),
+                  ("tp_pp_gpt", (2, 1024, 6, 64), True, False))
 COMPOSE_MASKED_KEYS = 32   # the hop's last keys a row, masked
 
 
@@ -1580,15 +1623,22 @@ def _flash_dropout_variants(torch, which):
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     out = []
     d = 64
+    # TP inside the pipeline (bf16): model rank 1's 8 heads of BERT-large's
+    # microbatch, hashed at their global index (offsets (0, 0, 8, 16))
+    tp_case = ((CB_BATCH // T_M, CB_SEQ, BERT_HEADS // T_TP, False,
+                (0, 0, BERT_HEADS // T_TP, BERT_HEADS)),)
     for dtype in (torch.float32, torch.bfloat16):
         readback = _mask_readback(torch, fa, which, dtype)
-        for bsz, s, h, causal in ((BERT_BATCH, BERT_SEQ, BERT_HEADS, False),
-                                  (TRAIN_BATCH, TRAIN_SEQ, 12, True)):
+        for bsz, s, h, causal, offsets in (
+                (BERT_BATCH, BERT_SEQ, BERT_HEADS, False, None),
+                (TRAIN_BATCH, TRAIN_SEQ, 12, True, None)) + (
+                tp_case if dtype == torch.bfloat16 else ()):
             g = torch.Generator(device="cuda").manual_seed(s + 7)
             q, k, v, do = (torch.randn(bsz, s, h, d, device="cuda",
                                        generator=g).to(dtype)
                            for _ in range(4))
-            seed = fa.seed_array(12345 + s, num_heads=h, device="cuda")
+            seed = fa.seed_array(12345 + s, offsets, num_heads=h,
+                                 device="cuda")
             scale = 1.0 / d ** 0.5
             po, plse = fa._reference(q, k, v, None, causal, scale,
                                      return_lse=True, dropout_rate=DROPOUT,
@@ -1662,6 +1712,8 @@ def _flash_dropout_variants(torch, which):
             out.append({
                 "shape": [bsz, s, h, d], "dtype": dt,
                 "design": _design(dt), "causal": causal,
+                **({} if offsets is None else {"offsets": list(offsets),
+                                               "tp_pp_mode": "tp_pp_bert"}),
                 "rate": DROPOUT, "rel_err": rel,
                 **({} if rows is None else {"row_err": rows}),
                 "max_abs_err": max_abs,
@@ -4945,6 +4997,8 @@ def phase_train_tp_zero():
 # --ring-attention 2 (B 8, S 512), and --tp 2 at dp 2 with ZeRO-1 over
 # the tree moments (B 2 a data index)
 SP_O0_STEPS, SP_O2_STEPS = 2, 3
+SP_LONG_STEPS = 2         # (b)'s O2 steps at S 8192
+SP_BERT_O2_STEPS = 2      # (c)'s O2 steps (5-10 s each on the four)
 SP_LONG_SEQ = 8192
 SP_BERT_BATCH, SP_BERT_SEQ = 8, 512
 SP_ZERO_BATCH, SP_ZERO_STEPS = 2, 2
@@ -5015,7 +5069,7 @@ def _sp_dense():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     run = gpt_main_amp.train(long_cfg, batch=1, seq_len=SP_LONG_SEQ,
-                             steps=SP_O2_STEPS, lr=TRAIN_LR,
+                             steps=SP_LONG_STEPS, lr=TRAIN_LR,
                              opt_level="O2", device="cuda", seed=0)
     torch.cuda.synchronize()
     out["long"] = {"losses": run["losses"],
@@ -5024,7 +5078,7 @@ def _sp_dense():
     del run
     torch.cuda.empty_cache()
     bcfg = bert_main_amp.get_config("large")
-    for level, steps in (("O0", 1), ("O2", SP_O2_STEPS)):
+    for level, steps in (("O0", 1), ("O2", SP_BERT_O2_STEPS)):
         model, opt, params, st = bert_main_amp.build(
             bcfg, opt_level=level, attention_fn=make_flash_attention(),
             device="cuda", seed=0)
@@ -5121,7 +5175,7 @@ def _sp_rank_legs(rank):
             gpt_batches(TRAIN_BATCH, TRAIN_SEQ), SP_O2_STEPS)
     out["gpt_long"] = _sp_steps(
         gpt_build("O2", "ring", gpt_main_amp.config("small", SP_LONG_SEQ)),
-        gpt_step, gpt_batches(1, SP_LONG_SEQ), SP_O2_STEPS)
+        gpt_step, gpt_batches(1, SP_LONG_SEQ), SP_LONG_STEPS)
     bcfg = bert_main_amp.get_config("large")
 
     def bert_build(level, pattern):
@@ -5146,7 +5200,7 @@ def _sp_rank_legs(rank):
         out[f"bert_{pattern}_O2"] = _sp_steps(
             bert_build("O2", pattern), bert_step,
             bert_main_amp.batches(bcfg, SP_BERT_BATCH, SP_BERT_SEQ),
-            SP_O2_STEPS)
+            SP_BERT_O2_STEPS)
     return out
 
 
@@ -5334,7 +5388,7 @@ def phase_train_sp():
              dense_tokens_per_s=dense["long"]["tokens_per_s"],
              launches=got["launches"])
         if got["launches"] != _sp_launches(got["launches"], 25, 12, r + 1,
-                                           SP_O2_STEPS, "fused_adam"):
+                                           SP_LONG_STEPS, "fused_adam"):
             raise AssertionError(f"long context rank {r}: launches "
                                  f"{got['launches']}")
     if not long_err <= O2_LOSS_TOL:
@@ -5349,7 +5403,7 @@ def phase_train_sp():
                 err = max((abs(a - b) / abs(b) if level == "O0"
                            else abs(a - b))
                           for a, b in zip(got["losses"], want))
-                steps = 1 if level == "O0" else SP_O2_STEPS
+                steps = 1 if level == "O0" else SP_BERT_O2_STEPS
                 # the ring's two hops a layer, non-causal; Ulysses one
                 want_l = _sp_launches(got["launches"], 2 * BERT_LAYERS + 2,
                                       BERT_LAYERS,
@@ -5699,12 +5753,13 @@ def _pp_run(build, schedule, batches, steps, keep_params=False, **step_kw):
     return out, grads1, params1
 
 
-def _pp_grad_err(grads, want_file, pp, rank):
+def _pp_grad_err(grads, want_file, pp, rank, tp=1, tp_rank=0):
     import torch
     from apex_tpu_torch.examples import bert_main_amp
     from apex_tpu_torch.models.bert import dense_to_rank
     want = dense_to_rank(torch.load(want_file),
-                         bert_main_amp.get_config("large"), pp, rank)
+                         bert_main_amp.get_config("large"), pp, rank, tp,
+                         tp_rank)
     return max(scale_aware_err(grads[k].cuda(), w.cuda())[0]
                for k, w in want.items())
 
@@ -5760,10 +5815,11 @@ def _pp_rank_legs(rank):
         for k in params1["gpipe"])
     del params1
     torch.cuda.empty_cache()
-    # (b)
+    # (b): M 4 at B 32 is (a)'s O2 run itself (the same call, 3 steps)
     for m, batch in PP_MEM:
         for schedule in ("gpipe", "1f1b"):
-            res = _pp_train(schedule, m, batch, 2)
+            res = out[f"{schedule}_O2"] if (m, batch) == (PP_M, PP_BATCH) \
+                else _pp_train(schedule, m, batch, 2)
             out[f"mem_{schedule}_M{m}"] = {
                 key: res[key] for key in ("peak_memory_gb", "pipe_peak_gb",
                                           "pipe_held_gb", "step_seconds",
@@ -6036,7 +6092,7 @@ def phase_train_pp():
 # process
 CSP, CPP = 2, 2
 CB_BATCH, CB_SEQ, C_M = 16, 512, 4
-C_O0_STEPS, C_O2_STEPS = 2, 3
+C_O0_STEPS, C_O2_STEPS = 2, 2
 C_TOL = 1e-4              # O0 against one process: losses relative,
                           # step-1 grads (params for (d)) scale-aware
 C_SCHED_TOL = 1e-5        # GPipe against 1F1B: params after step 1, and
@@ -6096,16 +6152,13 @@ def _compose_launches(names, lps, m, schedule, last, steps, calls,
             for k, v in counts.items()}
 
 
-def _compose_dense():
-    """One process's dense runs: BERT-large O0 (2 steps, a part of the
-    step-1 gradients written for the ranks) and O2 (3 steps) at B 16, S
-    512; GPT-2 small's lm_loss, its wte gradient, its wte and its final
-    hidden states at B 8, S 1024; GPT-2 small's O0 and O2 steps for (d)
-    (``_tp_dense_reference``)."""
+def _bert_large_dense(grads_file):
+    """One process's dense BERT-large runs at B 16, S 512 (seed 0, flash
+    attention): O0 ``C_O0_STEPS`` steps, the step-1 gradients of the
+    ``PP_GRADS`` leaves written to ``grads_file``, and O2
+    ``C_O2_STEPS`` steps; each its losses and step seconds."""
     import torch
     from apex_tpu_torch.examples import bert_main_amp
-    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
-    from apex_tpu_torch.models.gpt import lm_loss
     from apex_tpu_torch.ops import make_flash_attention
     out = {}
     cfg = bert_main_amp.get_config("large")
@@ -6124,12 +6177,25 @@ def _compose_dense():
             seconds.append(time.perf_counter() - t0)
             if level == "O0" and step == 0:
                 torch.save({k: v.detach().cpu() for k, v in grads.items()
-                            if PP_GRADS.search(k)},
-                           OUT_DIR / "c_dense_grads.pt")
+                            if PP_GRADS.search(k)}, OUT_DIR / grads_file)
             del grads
         out[f"bert_{level}"] = {"losses": losses, "step_seconds": seconds}
         del model, opt, params, st
         torch.cuda.empty_cache()
+    return out
+
+
+def _compose_dense():
+    """One process's dense runs: BERT-large O0 and O2 at B 16, S 512
+    (``_bert_large_dense``, a part of the step-1 gradients written for
+    the ranks); GPT-2 small's lm_loss, its wte gradient, its wte and its final
+    hidden states at B 8, S 1024; GPT-2 small's O0 and O2 steps for (d)
+    (``_tp_dense_reference``)."""
+    import torch
+    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
+    from apex_tpu_torch.models.gpt import lm_loss
+    from apex_tpu_torch.ops import make_flash_attention
+    out = _bert_large_dense("c_dense_grads.pt")
     model = GPTLMHeadModel(gpt_small(), make_flash_attention(causal=True),
                            device="cuda", seed=0)
     ids = torch.from_numpy(next(_c_gpt_batches())).cuda()
@@ -6153,12 +6219,14 @@ def _c_gpt_batches():
 
 
 def _compose_run(build, schedule, batches, steps, keep_params=False,
-                 **step_kw):
+                 keep_final=None, **step_kw):
     """``steps`` steps of a BERT rank of the (1, 2, 2) mesh: its DDP over
     the example's group (the data group under 1F1B, the (data x sp)
     ranks under GPipe), launch counts at 0 just before and read just
     after, collectives counted, host clock around each step, the peak;
-    the step-1 gradients and (``keep_params``) params on the host."""
+    the step-1 gradients and (``keep_params``) params on the host, or
+    (``keep_final``, a pattern) the params after the last step whose
+    names match it."""
     import torch
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.examples import bert_main_amp
@@ -6191,6 +6259,9 @@ def _compose_run(build, schedule, batches, steps, keep_params=False,
     out = {"losses": losses, "step_seconds": seconds,
            "launches": launch_counts(), "collectives": dict(coll.counts),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if keep_final is not None:
+        params1 = {k: v.detach().cpu() for k, v in params.items()
+                   if keep_final.search(k)}
     del model, opt, params, st, ddp
     torch.cuda.empty_cache()
     return out, grads1, params1
@@ -6625,11 +6696,407 @@ def phase_train_sp_compose():
     return by_path
 
 
+T_TP, T_PP, T_M = 2, 2, 4      # (a), (b): dp 1 x tp 2 x pp 2; (c) dp 2 x pp 2
+T_O0_STEPS, T_O2_STEPS, T_ZERO_STEPS = 2, 2, 3
+T_ZERO_BATCH, T_ZERO_SEQ = 16, 128   # (c): the rows of a data index
+T_TOL = 1e-4              # O0 against one process: losses relative,
+                          # step-1 grads (b: wte's) scale-aware
+T_SCHED_TOL = 1e-5        # GPipe against 1F1B: params after step 1
+T_ZERO_PARAM_TOL = 1e-5   # (c): the fp32 params after the last step,
+                          # ZeRO against replicated, scale-aware
+T_ZERO_PARAMS = re.compile(PP_GRADS.pattern + r"|word_embeddings|"
+                           r"mlm_decoder")
+T_PREDICTION = {
+    "a_losses_O0": "GPipe and 1F1B within 1e-4 relative of the dense "
+                   "process, step-1 gradients within 1e-4 scale-aware "
+                   "(measured error 1e-7 to 1e-6, as train_pp's --pp 2 and "
+                   "train_sp_compose's); GPipe against 1F1B params after "
+                   "step 1 within 1e-5",
+    "a_O2": "within 2e-2 of dense O2 every step",
+    "a_step_ms_O2": "GPipe 1500-4000, 1F1B 1800-5000: each layer's two "
+                    "row-parallel all-reduces a microbatch forward and two "
+                    "column-parallel ones backward (~8 MB bf16 each, 96 a "
+                    "step a rank for 12 layers x 4 microbatches) through "
+                    "the host beside the pipe hops; four processes share "
+                    "the card",
+    "a_peak_gb_rank_O2": "7-11: half of a stage's 12 layers' weights, "
+                         "grads and LAMB moments (~1.9 GB of train_pp's "
+                         "--pp 2 rank's 13.1), the vocab-parallel decoder "
+                         "and embeddings halved, the activations of 8 heads "
+                         "a rank; the four 28-44 of 80",
+    "a_launches": "exact, train_pp's formula at M 4 and 12 layers a stage "
+                  "(B2 = B3 = 1 + 2*12*4 + 1 = 98 under GPipe, B4-B6 48): "
+                  "TP changes no kernel count, only the heads a launch",
+    "b_gpt": "1F1B loss within 1e-4 relative of the dense lm_loss, the "
+             "rank's vocab rows of the tied wte gradient within 1e-4 "
+             "scale-aware; launches exact (train_pp's GPT formula)",
+    "c_zero_O2": "ZeRO over FusedLAMB within 1e-5 of the replicated-state "
+                 "run every step (the same bf16 forward; only the trust "
+                 "norms' summation order differs; gate 2e-2); LAMB's m and "
+                 "v a rank about half of the replicated run's (each leaf "
+                 "over 256 elements cut over the 2 data ranks), the peak "
+                 "a rank 1-2 GB lower",
+    "c_zero_params": "the fp32 params after step 3 (the first and last "
+                     "layer of the stage, the word embeddings, the MLM "
+                     "decoder, the LNs and heads) within 1e-7 scale-aware "
+                     "of the replicated run's, most leaves bit for bit "
+                     "(gate 1e-5)",
+    "kernels": "B4 at 4x512x8x64 (BERT-large's microbatch, 8 heads a rank) "
+               "~0.02 ms, 1.4-1.7x SDPA as at pp Ulysses' same shape; "
+               "2x1024x6x64 causal (GPT-2 small) ~0.015 ms",
+    "phase_s": "120-220",
+}
+
+
+def _tp_pp_bert_build(level, m_batch=T_M, mesh_kw=None, zero=False,
+                      state_dict=None):
+    """A rank's ``PipelinedBert`` of BERT-large with TP inside the pipeline
+    (``mesh_kw`` the mesh: dp 1 x pp 2 x tp 2 by default), flash
+    attention, seed 0, under amp ``level`` with the BERT recipe's
+    FusedLAMB: its clipping norm over the pipe and model groups, its
+    trust-ratio norms of the model-split leaves over the model group
+    (``with_tensor_parallel``), the overflow flag over both; ``zero``:
+    ZeRO-1 of LAMB's moments over the data group, ``like_params`` the
+    model's places.  Returns the build function ``_compose_run`` takes."""
+    def build():
+        from apex_tpu_torch import amp, parallel
+        from apex_tpu_torch.examples import bert_main_amp
+        from apex_tpu_torch.models import PipelinedBert
+        from apex_tpu_torch.ops import make_flash_attention
+        mesh = parallel.create_mesh(**(mesh_kw or dict(pp=T_PP, tp=T_TP)))
+        tp = mesh.shape["model"] > 1
+        module = PipelinedBert(
+            bert_main_amp.get_config("large"), mesh, mesh.shape["pipe"],
+            m_batch, batch_axis="data", tp_axis="model" if tp else None,
+            attention_fn=make_flash_attention(), device="cuda",
+            seed=None if state_dict is not None else 0)
+        if state_dict is not None:
+            module.load_state_dict(state_dict)
+        lamb = bert_main_amp.make_optimizer().with_model_parallel(
+            mesh.group("pipe"), {k: k.startswith("stages.")
+                                 for k, _ in module.named_parameters()})
+        if tp:
+            lamb = lamb.with_tensor_parallel(
+                mesh.group("model"),
+                {k: "model" in v for k, v in module.param_spec_tree()
+                 .items()})
+        places = module.tp_places()
+        model, opt = amp.initialize(module, lamb, opt_level=level,
+                                    verbosity=0)
+        opt = opt.with_overflow_groups(mesh.group("pipe"),
+                                       mesh.group("model"))
+        params = model.init()
+        st = opt.init(params)
+        if zero:
+            opt = opt.with_zero(mesh.group("data"), like_params=places)
+            st = parallel.shard_optimizer_state(st, mesh.group("data"),
+                                                like_params=places)
+        return model, opt, params, st, mesh
+    return build
+
+
+def _tp_pp_gpt_cfg():
+    """GPT-2 small with the vocabulary padded to 128 x tp (the JAX
+    example's padding under --tp), so the tied wte splits over the model
+    ranks."""
+    import dataclasses
+    from apex_tpu_torch.models import gpt_small
+    from apex_tpu_torch.models.gpt import padded_vocab
+    return dataclasses.replace(gpt_small(),
+                               vocab_size=padded_vocab(50257, T_TP))
+
+
+def _tp_pp_dense():
+    """One process's dense runs: BERT-large O0 and O2 at B 16, S 512
+    (``_bert_large_dense``, the step-1 gradients written for the ranks);
+    the padded GPT-2 small's lm_loss and wte gradient at B 8, S 1024."""
+    import torch
+    from apex_tpu_torch.models import GPTLMHeadModel
+    from apex_tpu_torch.models.gpt import lm_loss
+    from apex_tpu_torch.ops import make_flash_attention
+    out = _bert_large_dense("t_dense_grads.pt")
+    cfg = _tp_pp_gpt_cfg()
+    model = GPTLMHeadModel(cfg, make_flash_attention(causal=True),
+                           device="cuda", seed=0)
+    ids = torch.from_numpy(next(_t_gpt_batches())).cuda()
+    loss = lm_loss(model(ids), ids)
+    (wte,) = torch.autograd.grad(loss, [model.wte.weight])
+    out["gpt"] = {"loss": float(loss)}
+    torch.save({"wte": wte.detach().cpu()}, OUT_DIR / "t_gpt.pt")
+    del model, wte
+    torch.cuda.empty_cache()
+    return out
+
+
+def _t_gpt_batches():
+    from apex_tpu_torch.examples import gpt_main_amp
+    return gpt_main_amp.batches(50257, TRAIN_BATCH, TRAIN_SEQ)
+
+
+def _state_bytes(st):
+    import torch
+    inner = st.inner
+    return sum(t.numel() * t.element_size() for t in
+               torch.utils._pytree.tree_leaves((inner.m, inner.v)))
+
+
+def _tp_pp_rank_legs(rank):
+    """(a), (b) and (c) on this rank: (a), (b) on the (1, pp 2, tp 2)
+    mesh, (c) on (dp 2, pp 2)."""
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models import PipelinedGPT
+    from apex_tpu_torch.ops import make_flash_attention
+    cfg = bert_main_amp.get_config("large")
+    mesh0 = parallel.create_mesh(pp=T_PP, tp=T_TP)
+    pipe, m = mesh0.index("pipe"), mesh0.index("model")
+    lps, last = BERT_LAYERS // T_PP, pipe == T_PP - 1
+    out = {"coords": [0, pipe, m]}
+
+    def data():
+        return bert_main_amp.batches(cfg, CB_BATCH, CB_SEQ)
+
+    # (a)
+    params1 = {}
+    for schedule in ("gpipe", "1f1b"):
+        res, grads1, params1[schedule] = _compose_run(
+            _tp_pp_bert_build("O0"), schedule, data(), T_O0_STEPS,
+            keep_params=True)
+        res["step1_grad_err"] = _pp_grad_err(
+            grads1, OUT_DIR / "t_dense_grads.pt", T_PP, pipe, T_TP, m)
+        res["want_launches"] = _pp_launches(
+            res["launches"], lps, T_M, schedule, last, T_O0_STEPS)
+        out[f"{schedule}_O0"] = res
+        del grads1
+        res, _, _ = _compose_run(_tp_pp_bert_build("O2"), schedule, data(),
+                                 T_O2_STEPS)
+        res["want_launches"] = _pp_launches(
+            res["launches"], lps, T_M, schedule, last, T_O2_STEPS)
+        out[f"{schedule}_O2"] = res
+    out["sched_param_err"] = max(
+        scale_aware_err(params1["1f1b"][k].cuda(),
+                        params1["gpipe"][k].cuda())[0]
+        for k in params1["gpipe"])
+    out["param_shapes"] = {k: list(v.shape) for k, v in
+                           params1["gpipe"].items() if PP_GRADS.search(k)}
+    del params1
+    torch.cuda.empty_cache()
+    # (b): GPT-2 small's PipelinedGPT, 1F1B, O0
+    gcfg = _tp_pp_gpt_cfg()
+    ids = torch.from_numpy(next(_t_gpt_batches())).cuda()
+    dense = torch.load(OUT_DIR / "t_gpt.pt")
+    model = PipelinedGPT(gcfg, mesh0, T_PP, T_M, tp_axis="model",
+                         attention_fn=make_flash_attention(causal=True),
+                         device="cuda", seed=0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = model.loss_and_grad_1f1b(ids, ids)
+    loss = float(loss)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    rows = gcfg.vocab_size // T_TP
+    out["gpt"] = {"loss": loss, "seconds": seconds, "launches": counts,
+                  "want_launches": _gpt_pp_launches(counts, 12 // T_PP, T_M,
+                                                    last),
+                  "wte_grad_err": scale_aware_err(
+                      grads["embed.wte.weight"],
+                      dense["wte"][m * rows:(m + 1) * rows].cuda())[0]}
+    del model, grads, dense
+    torch.cuda.empty_cache()
+    # (c): ZeRO over FusedLAMB at dp 2 x pp 2, O2, GPipe
+    mesh = parallel.create_mesh(pp=T_PP)
+    d = mesh.index("data")
+    zero, final = {}, {}
+    for cut in (False, True):
+        batches = (tuple(a[d * T_ZERO_BATCH:(d + 1) * T_ZERO_BATCH]
+                         for a in b) for b in bert_main_amp.batches(
+                             cfg, 2 * T_ZERO_BATCH, T_ZERO_SEQ))
+        build = _tp_pp_bert_build("O2", mesh_kw=dict(pp=T_PP), zero=cut)
+        state = {}
+
+        def keep_bytes(build=build):
+            made = build()
+            state["bytes"] = _state_bytes(made[3])
+            return made
+        res, _, final[cut] = _compose_run(keep_bytes, "gpipe", batches,
+                                          T_ZERO_STEPS,
+                                          keep_final=T_ZERO_PARAMS)
+        res["state_bytes"] = state["bytes"]
+        res["want_launches"] = _pp_launches(
+            res["launches"], lps, T_M, "gpipe", mesh.index("pipe") == 1,
+            T_ZERO_STEPS)
+        zero["zero" if cut else "replicated"] = res
+    out["zero"] = zero
+    out["zero_coords"] = [d, mesh.index("pipe")]
+    out["zero_params"] = {
+        "leaves": len(final[False]),
+        "elements": sum(v.numel() for v in final[False].values()),
+        "bitwise": sum(torch.equal(final[True][k], v)
+                       for k, v in final[False].items()),
+        "err": max(scale_aware_err(final[True][k], v)[0]
+                   for k, v in final[False].items())}
+    return out
+
+
+def _tp_pp_rank(rank, world, store):
+    """(a)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = _tp_pp_rank_legs(rank)
+        out["seconds"] = time.perf_counter() - t0
+        (OUT_DIR / f"tp_pp_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_tp_pp():
+    """Tensor parallelism inside the pipeline and ZeRO over FusedLAMB,
+    four processes over gloo on the one card: (a) BERT-large
+    PipelinedBert at dp 1 x tp 2 x pp 2, GPipe and 1F1B, O0 and O2, (b)
+    GPT-2 small's PipelinedGPT at tp 2 x pp 2 under 1F1B, (c) ZeRO over
+    FusedLAMB on BERT-large at dp 2 x pp 2, O2, against the
+    replicated-state run; (a), (b) against one dense process."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    emit("train_tp_pp", prediction=T_PREDICTION)
+    t0 = time.perf_counter()
+    files = ("t_dense_grads.pt", "t_gpt.pt")
+    try:
+        dense = _tp_pp_dense()
+        dense_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = _spawn(_tp_pp_rank, T_TP * T_PP, "tp_pp")
+        ranks_s = time.perf_counter() - t0
+    finally:
+        for f in files:
+            (OUT_DIR / f).unlink(missing_ok=True)
+    by_path, peaks = {}, {}
+    tokens = CB_BATCH * CB_SEQ
+    # (a)
+    for schedule in ("gpipe", "1f1b"):
+        for level, tol in (("O0", T_TOL), ("O2", O2_LOSS_TOL)):
+            want = dense[f"bert_{level}"]
+            steps = T_O0_STEPS if level == "O0" else T_O2_STEPS
+            for r, res in enumerate(ranks):
+                got = res[f"{schedule}_{level}"]
+                err = max((abs(a - b) / abs(b) if level == "O0"
+                           else abs(a - b))
+                          for a, b in zip(got["losses"], want["losses"]))
+                peaks.setdefault(f"{schedule}_{level}", []).append(
+                    got["peak_memory_gb"])
+                emit("train_tp_pp", run=f"(a) BERT-large PipelinedBert tp 2 "
+                     f"x pp 2 {schedule} {level}", rank=r,
+                     coords=res["coords"], batch=CB_BATCH, seq=CB_SEQ,
+                     microbatches=T_M, losses=got["losses"],
+                     dense_losses=want["losses"], loss_err=err, tol=tol,
+                     step1_grad_err=got.get("step1_grad_err"),
+                     step_ms=[1e3 * t for t in got["step_seconds"]],
+                     dense_step_ms=[1e3 * t for t in want["step_seconds"]],
+                     tokens_per_s_four=[tokens / t
+                                        for t in got["step_seconds"]],
+                     peak_memory_gb=got["peak_memory_gb"],
+                     launches_a_step={k: v / steps for k, v in
+                                      got["launches"].items()},
+                     collectives_a_step={k: v / steps for k, v in
+                                         got["collectives"].items()})
+                if not err <= tol:
+                    raise AssertionError(f"(a) {schedule} {level} rank {r}: "
+                                         f"loss error {err:.3g}")
+                if level == "O0" and not got["step1_grad_err"] <= T_TOL:
+                    raise AssertionError(
+                        f"(a) {schedule} O0 rank {r}: step-1 grads "
+                        f"{got['step1_grad_err']:.3g}")
+                if got["launches"] != got["want_launches"]:
+                    raise AssertionError(
+                        f"(a) {schedule} {level} rank {r}: launches "
+                        f"{got['launches']} != {got['want_launches']}")
+            if level == "O2":
+                by_path[f"train_tp_pp_{schedule}"] = ranks[0][
+                    f"{schedule}_O2"]["launches"]
+    emit("train_tp_pp", run="(a) peak a rank, GB, and the four's sum",
+         peaks=peaks, sums={k: sum(v) for k, v in peaks.items()})
+    for r, res in enumerate(ranks):
+        emit("train_tp_pp", run="(a) GPipe against 1F1B, params after step "
+             "1", rank=r, err=res["sched_param_err"], tol=T_SCHED_TOL,
+             param_shapes=res["param_shapes"])
+        if not res["sched_param_err"] <= T_SCHED_TOL:
+            raise AssertionError(f"(a) GPipe against 1F1B rank {r}: "
+                                 f"{res['sched_param_err']:.3g}")
+    # (b)
+    for r, res in enumerate(ranks):
+        got = res["gpt"]
+        err = abs(got["loss"] - dense["gpt"]["loss"]) / abs(
+            dense["gpt"]["loss"])
+        emit("train_tp_pp", run="(b) GPT-2 small PipelinedGPT tp 2 x pp 2, "
+             "1F1B, O0", rank=r, coords=res["coords"], batch=TRAIN_BATCH,
+             seq=TRAIN_SEQ, microbatches=T_M, loss=got["loss"],
+             dense_loss=dense["gpt"]["loss"], loss_err=err,
+             wte_grad_err=got["wte_grad_err"],
+             onef1b_ms=1e3 * got["seconds"], launches=got["launches"])
+        if not (err <= T_TOL and got["wte_grad_err"] <= T_TOL):
+            raise AssertionError(f"(b) rank {r}: loss {err:.3g}, wte "
+                                 f"{got['wte_grad_err']:.3g}")
+        if got["launches"] != got["want_launches"]:
+            raise AssertionError(f"(b) rank {r}: launches "
+                                 f"{got['launches']} != "
+                                 f"{got['want_launches']}")
+    by_path["train_tp_pp_gpt"] = ranks[0]["gpt"]["launches"]
+    # (c)
+    for r, res in enumerate(ranks):
+        rep, cut = res["zero"]["replicated"], res["zero"]["zero"]
+        err = max(abs(a - b) for a, b in zip(cut["losses"], rep["losses"]))
+        emit("train_tp_pp", run="(c) ZeRO over FusedLAMB, BERT-large dp 2 x "
+             "pp 2, GPipe, O2, against the replicated state", rank=r,
+             coords=res["zero_coords"], batch=T_ZERO_BATCH, seq=T_ZERO_SEQ,
+             microbatches=T_M, losses=cut["losses"],
+             replicated_losses=rep["losses"], loss_err=err,
+             tol=O2_LOSS_TOL, state_bytes=cut["state_bytes"],
+             replicated_state_bytes=rep["state_bytes"],
+             peak_memory_gb=cut["peak_memory_gb"],
+             replicated_peak_memory_gb=rep["peak_memory_gb"],
+             step_ms=[1e3 * t for t in cut["step_seconds"]],
+             replicated_step_ms=[1e3 * t for t in rep["step_seconds"]],
+             collectives_a_step={k: v / T_ZERO_STEPS for k, v in
+                                 cut["collectives"].items()})
+        emit("train_tp_pp", run="(c) fp32 params after the last step, ZeRO "
+             "against replicated", rank=r, tol=T_ZERO_PARAM_TOL,
+             **res["zero_params"])
+        if not err <= O2_LOSS_TOL:
+            raise AssertionError(f"(c) rank {r}: loss error {err:.3g}")
+        if not res["zero_params"]["err"] <= T_ZERO_PARAM_TOL:
+            raise AssertionError(f"(c) rank {r}: params after the last "
+                                 f"step {res['zero_params']['err']:.3g}")
+        if not cut["state_bytes"] < 0.6 * rep["state_bytes"]:
+            raise AssertionError(f"(c) rank {r}: state bytes "
+                                 f"{cut['state_bytes']} of "
+                                 f"{rep['state_bytes']}")
+        for run in (rep, cut):
+            if run["launches"] != run["want_launches"]:
+                raise AssertionError(f"(c) rank {r}: launches "
+                                     f"{run['launches']} != "
+                                     f"{run['want_launches']}")
+    by_path["train_zero_lamb"] = ranks[0]["zero"]["zero"]["launches"]
+    (OUT_DIR / "train_tp_pp.json").write_text(json.dumps(
+        {"dense": dense, "ranks": ranks, "dense_seconds": dense_s,
+         "ranks_seconds": ranks_s}, indent=1, default=str))
+    emit("train_tp_pp", dense_seconds=dense_s, ranks_seconds=ranks_s)
+    return by_path
+
+
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
           "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
           "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
-          "train_sp", "train_pp", "train_sp_compose", "train_o1",
-          "train_simple", "train_dcgan")
+          "train_sp", "train_pp", "train_sp_compose", "train_tp_pp",
+          "train_o1", "train_simple", "train_dcgan")
 
 
 def main(phases=PHASES):
@@ -6677,6 +7144,7 @@ def main(phases=PHASES):
                        ("train_sp", phase_train_sp),
                        ("train_pp", phase_train_pp),
                        ("train_sp_compose", phase_train_sp_compose),
+                       ("train_tp_pp", phase_train_tp_pp),
                        ("train_o1", phase_train_o1),
                        ("train_simple", phase_train_simple),
                        ("train_dcgan", phase_train_dcgan)):
@@ -6689,7 +7157,7 @@ def main(phases=PHASES):
                          "train_gpt_remat", "train_gpt_dropout",
                          "train_bert_remat", "adam_rest", "hf_bert",
                          "train_tp_zero", "train_sp", "train_pp",
-                         "train_sp_compose"):
+                         "train_sp_compose", "train_tp_pp"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():

@@ -32,8 +32,13 @@ from the JAX model's initial params (``params_from_jax(..., rank=r)``):
   JAX optimizer's, and the port's per-tensor ratios on rank r equal the
   JAX per-slice ratios of stage r; ``add_param_group`` carries the
   moments over by name as the JAX optimizer's does;
-- ``tp_axis`` raises ``NotImplementedError``; ``seq_axis`` without an
-  ``attention_fn`` the reference's ``ValueError``.
+- ``tp_axis`` builds (TP inside the pipeline; its parity is
+  ``tests/test_torch_tp_pp.py``): on a model axis of one rank the model
+  is whole and its spec tree is the JAX ``pipeline_param_specs``' (the
+  pipe axis on the stage leaves, the model axis where a rule applies);
+  a model axis of more ranks needs an initialized process group;
+  ``seq_axis`` without an ``attention_fn`` the reference's
+  ``ValueError``.
 
 The ranks are spawned once for each mesh (a ``FileStore`` under the
 test's temporary directory); the rank function imports no JAX.
@@ -447,9 +452,21 @@ def test_lamb_per_slice_and_add_param_group():
 
 
 def test_unported_axes_raise():
-    mesh = parallel.Mesh({"pipe": 1}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        tb.PipelinedBert(_cfg(), mesh, 1, 1, device="cpu", tp_axis="model")
+    mesh = parallel.Mesh({"pipe": 1, "model": 1}, {})
+    pb = tb.PipelinedBert(_cfg(), mesh, 1, 1, device="cpu", tp_axis="model")
+    specs = pb.param_spec_tree()
+    assert specs["stages.layer_0.attention.query.weight"] == (
+        "pipe", "model", None)
+    assert specs["stages.layer_0.output_ln.scale"] == ("pipe",)
+    assert specs["embed.word_embeddings.weight"] == ("model", None)
+    assert specs["heads.pooler.weight"] == ()
+    full = tb.BertForPreTraining(_cfg(), device="cpu", seed=0)
+    assert {k: v.shape for k, v in pb.state_dict().items()} == {
+        k: v.shape for k, v in tb.dense_to_rank(full.state_dict(), _cfg(),
+                                                1, 0).items()}
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        tb.PipelinedBert(_cfg(), parallel.Mesh({"pipe": 1, "model": 2}, {}),
+                         1, 1, device="cpu", tp_axis="model")
     # the reference's check: a sequence axis takes a sequence-parallel
     # attention_fn
     with pytest.raises(ValueError, match="seq_axis requires"):

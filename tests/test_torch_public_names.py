@@ -15,6 +15,13 @@ default device, each against the JAX object.
   ``onef1b_loss_and_grad``, ``pipeline_apply``; ``PipelinedBert``,
   ``PipelinedGPT`` and their stage modules) are the port's too, beside
   the hop ``shift_g``;
+- the names tensor parallelism inside the pipeline adds:
+  ``parallel.tensor_parallel.pipeline_param_specs`` (``parallel.
+  pipeline_param_specs``), the pipelined models' ``param_spec_tree``,
+  ``shard_variables`` and ``constrain_grads``, ``BertForPreTraining(tp=)``
+  with ``tp_specs``/``tp_places``, ``parallel.gather_from_group``,
+  ``FusedLAMB.with_tensor_parallel``/``with_zero``; the Megatron blocks
+  still import from ``models.gpt``;
 - ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
   on the card unless asked for the CPU, as ``jax.random`` draws on the
   default device: without CUDA the default raises, and ``device="cpu"``
@@ -167,3 +174,54 @@ def test_sequence_shard_names():
     assert abs(float(got) - want) <= 1e-5 * abs(want)
     assert gather_seq(hidden, None) is hidden
     assert "data_sp" in parallel.Mesh.__doc__
+
+
+def test_tensor_parallel_pipeline_names():
+    """TP inside the pipeline: the JAX names are the port's, and at a
+    world of one the new pieces are the plain model's."""
+    import inspect
+
+    from apex_tpu import models as jmodels
+    from apex_tpu.parallel import tensor_parallel as jtp
+    from apex_tpu_torch import models
+    from apex_tpu_torch.models import bert as tb, gpt as tg
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.parallel import tensor_parallel as tp
+    assert callable(jtp.pipeline_param_specs)
+    assert parallel.pipeline_param_specs is tp.pipeline_param_specs
+    assert "pipeline_param_specs" in parallel.__all__
+    assert "gather_from_group" in parallel.__all__
+    for name in ("param_spec_tree", "shard_variables", "constrain_grads"):
+        assert hasattr(jmodels.PipelinedBert, name)
+        assert hasattr(models.PipelinedBert, name), name
+        assert hasattr(models.PipelinedGPT, name), name
+    assert "tp" in inspect.signature(models.BertForPreTraining).parameters
+    for name in ("RowParallelLinear", "VocabParallelEmbedding", "_TP",
+                 "_head_slice_dropout", "_tp_place"):
+        assert hasattr(tg, name), name
+    for name in ("with_tensor_parallel", "with_zero"):
+        assert callable(getattr(FusedLAMB(), name))
+    cfg = tb.BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=64,
+                        max_position_embeddings=16)
+    model = tb.BertForPreTraining(cfg, device="cpu", seed=0)
+    assert model.tp_specs() == {}
+    assert all(not p.spec for p in model.tp_places().values())
+    x = torch.ones(2, 3)
+    assert parallel.gather_from_group(x, None) is x
+    specs = parallel.pipeline_param_specs(
+        {"stages.layer_0.intermediate.weight": torch.empty(64, 32),
+         "embed.word_embeddings.weight": torch.empty(64, 32),
+         "heads.pooler.weight": torch.empty(32, 32)},
+        parallel.Mesh({"pipe": 2, "model": 2}), parallel.bert_tp_rules(),
+        "pipe")
+    assert specs == {"stages.layer_0.intermediate.weight":
+                     ("pipe", "model", None),
+                     "embed.word_embeddings.weight": ("model", None),
+                     "heads.pooler.weight": ()}
+    sd = {"encoder.layer_0.intermediate.weight": torch.arange(64.)
+          .reshape(8, 8)}
+    assert tp.tp_slice(sd, parallel.bert_tp_rules(), 2, 1, 0) == sd
+    half = tp.tp_slice(sd, parallel.bert_tp_rules(), 2, 2, 1)
+    assert torch.equal(half["encoder.layer_0.intermediate.weight"],
+                       sd["encoder.layer_0.intermediate.weight"][4:])

@@ -363,11 +363,12 @@ def test_refusals():
         torch.utils._pytree.tree_leaves(cut.m),
         torch.utils._pytree.tree_leaves(whole.m)))
     assert tree.with_zero(GROUP)._zero is not None
+    # ZeRO over FusedLAMB passes through to its own with_zero (parity:
+    # tests/test_torch_zero_tp.py)
     _, lamb = amp.initialize(_mlp(), __import__(
         "apex_tpu_torch.optimizers", fromlist=["FusedLAMB"]).FusedLAMB(),
         opt_level="O0", verbosity=0)
-    with pytest.raises(NotImplementedError, match="FusedLAMB"):
-        lamb.with_zero(GROUP)
+    assert lamb.with_zero(GROUP).inner._zero[0] is GROUP
 
 
 def test_shard_unshard_round_trip(ranks):

@@ -23,13 +23,31 @@ GPT-tiny (vocab 997 padded to 1024, hidden 128, 2 layers, 4 heads, MLP
   four ranks (the overflow flag is taken over the data group as well as
   the model group: data peers gather each other's shards), every bit
   kept;
-- ZeRO-2 over the tree layout and ZeRO over FusedLAMB are still refused
-  (ZeRO-2: a flat-layout FusedAdam only).
+- ZeRO-1 over ``FusedLAMB`` (``AmpOptimizer.with_zero``, O0, 3 steps)
+  against the replicated-state run: over BERT's tensor-parallel model at
+  (dp 2, tp 2) (``like_params=model.tp_places()``; the trust-ratio norms
+  of a leaf cut over model and data ranks summed over both) and over a
+  ``PipelinedBert`` at (dp 2, pp 2), the twin of
+  ``test_zero_x_pipeline_fusedlamb`` (``like_params=pb.tp_places()``):
+  the losses within 1e-6 relative and the params within 1e-6
+  scale-aware each step; each moment shard holds as many elements as
+  the JAX placement's device shard (the stage cut and the data cut), the
+  state a rank under ``1 / 1.8`` of the replicated one, as the reference
+  asks; ``unshard_optimizer_state`` gives the replicated moments back
+  (within 1e-6) and sharding that again gives the shards bit for bit;
+- both port runs of ZeRO over FusedLAMB, the replicated state's and
+  ZeRO-1's, against the JAX package's own O0 FusedLAMB steps on the
+  dense model from the same init and batch: losses within 1e-5
+  relative, each rank's params (its TP slice or its stage) within 1e-5
+  scale-aware after every step;
+- ZeRO-2 over the tree layout is still refused (a flat-layout FusedAdam
+  only).
 
 The ranks are spawned once for the module (a ``FileStore`` under the
 test's temporary directory); the rank function imports no JAX.
 """
 
+import re
 import time
 
 import numpy as np
@@ -39,9 +57,10 @@ import torch.distributed as dist
 
 from apex_tpu_torch import amp, parallel
 from apex_tpu_torch.examples import gpt_main_amp as gpt
+from apex_tpu_torch.models import bert as tb
 from apex_tpu_torch.models import gpt as tg
 from apex_tpu_torch.ops import vocab_parallel_lm_loss
-from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 from apex_tpu_torch.parallel import tensor_parallel as tpar
 
 TINY = dict(vocab_size=997, hidden_size=128, num_hidden_layers=2,
@@ -100,6 +119,147 @@ def _overflow(sd, rows, mesh, rank):
             "skipped": int(st.skipped_steps)}
 
 
+LAMB_STEPS, LAMB_TOL, LAMB_JAX_TOL = 3, 1e-6, 1e-5
+LAMB_PP = 2
+
+
+def _lamb_cfg(layers=2):
+    return tb.BertConfig(vocab_size=128, hidden_size=32,
+                         num_hidden_layers=layers, num_attention_heads=4,
+                         intermediate_size=64, max_position_embeddings=16,
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+
+
+def _lamb_batch(d):
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 128, (DP * B, 16))
+    tgt = {"mlm": rng.randint(0, 128, (DP * B, 16)),
+           "nsp": rng.randint(0, 2, (DP * B,))}
+    return (torch.from_numpy(ids[d * B:(d + 1) * B]),
+            {k: torch.from_numpy(v[d * B:(d + 1) * B])
+             for k, v in tgt.items()})
+
+
+def _pretrain_loss(mlm, nsp, t):
+    v = mlm.shape[-1]
+    return torch.nn.functional.cross_entropy(
+        mlm.float().reshape(-1, v), t["mlm"].reshape(-1)) \
+        + torch.nn.functional.cross_entropy(nsp.float(), t["nsp"])
+
+
+def _lamb_runs(make, loss_and_grads, mesh):
+    """LAMB_STEPS O0 FusedLAMB steps under amp with the moments whole and
+    with ZeRO-1 over the data group: the losses and params of each step,
+    both final states, the places."""
+    data = mesh.group("data")
+    ddp = parallel.DistributedDataParallel(process_group=data)
+    runs = {}
+    for zero in (False, True):
+        module, lamb = make()
+        places = module.tp_places()
+        model, opt = amp.initialize(module, lamb, opt_level="O0",
+                                    verbosity=0)
+        params = model.init()
+        state = opt.init(params)
+        if zero:
+            opt = opt.with_zero(data, like_params=places)
+            state = parallel.shard_optimizer_state(state, data,
+                                                   like_params=places)
+        losses, steps = [], []
+        for _ in range(LAMB_STEPS):
+            loss, grads = loss_and_grads(model, params, opt, state)
+            grads = ddp.reduce_gradients({"loss": loss.reshape(1), **grads})
+            losses.append(float(grads.pop("loss")[0]))
+            params, state = opt.step(params, grads, state)
+            steps.append({k: v.detach().clone() for k, v in params.items()})
+        runs[zero] = {"losses": losses, "steps": steps, "state": state,
+                      "places": places}
+    whole, cut = runs[False], runs[True]
+    out = {"loss_err": max(abs(a - b) / abs(b) for a, b in zip(
+        cut["losses"], whole["losses"])),
+        "param_err": max(
+            float((a[k] - b[k]).abs().max()) / (float(b[k].abs().max()) + 1)
+            for a, b in zip(cut["steps"], whole["steps"]) for k in b)}
+    places = cut["places"]
+    gathered = parallel.unshard_optimizer_state(
+        cut["state"].inner, data, whole["state"].inner, like_params=places)
+    pairs = list(zip(
+        torch.utils._pytree.tree_leaves((gathered.m, gathered.v)),
+        torch.utils._pytree.tree_leaves((whole["state"].inner.m,
+                                         whole["state"].inner.v))))
+    out["unshard_err"] = max(float((a - b).abs().max()) /
+                             (float(b.abs().max()) + 1) for a, b in pairs)
+    again = parallel.shard_optimizer_state(gathered, data,
+                                           like_params=places)
+    out["reshard_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        torch.utils._pytree.tree_leaves((again.m, again.v)),
+        torch.utils._pytree.tree_leaves((cut["state"].inner.m,
+                                         cut["state"].inner.v))))
+    out["trajectory"] = {name: {"losses": run["losses"],
+                                "steps": run["steps"]}
+                         for name, run in (("replicated", whole),
+                                           ("zero", cut))}
+    out["shard_numel"] = {k: v.numel()
+                          for k, v in cut["state"].inner.m.items()}
+    out["param_numel"] = {k: v.numel() for k, v in cut["steps"][0].items()}
+    out["state_bytes"] = [sum(t.numel() * 4 for t in
+                              torch.utils._pytree.tree_leaves((r.m, r.v)))
+                          for r in (whole["state"].inner,
+                                    cut["state"].inner)]
+    return out
+
+
+def _lamb_over_tp(mesh, sd):
+    """ZeRO over FusedLAMB on BERT's TP model, (dp 2, tp 2)."""
+    group = mesh.group("model")
+    ids, tgt = _lamb_batch(mesh.index("data"))
+
+    def make():
+        module = tb.BertForPreTraining(_lamb_cfg(), device="cpu", seed=None,
+                                       tp=group)
+        module.load_state_dict(tpar.tp_slice(
+            sd, tpar.bert_tp_rules(), _lamb_cfg().num_attention_heads, TP,
+            mesh.index("model")))
+        split = {k: bool(v) for k, v in module.tp_specs().items()}
+        return module, FusedLAMB(lr=1e-2).with_tensor_parallel(group, split)
+
+    def step(model, params, opt, state):
+        mlm, nsp = model.apply(params, ids)
+        loss = _pretrain_loss(mlm, nsp, tgt)
+        return loss.detach(), dict(zip(params, torch.autograd.grad(
+            loss * opt.loss_scale(state), list(params.values()))))
+
+    out = _lamb_runs(make, step, mesh)
+    out["coords"] = (mesh.index("data"), mesh.index("model"))
+    return out
+
+
+def _lamb_over_pipeline(sd):
+    """ZeRO over FusedLAMB on a PipelinedBert, (dp 2, pp 2): the twin of
+    test_zero_x_pipeline_fusedlamb."""
+    mesh = parallel.create_mesh(pp=LAMB_PP)
+    pipe = mesh.index("pipe")
+    ids, tgt = _lamb_batch(mesh.index("data"))
+    cfg = _lamb_cfg(4)
+
+    def make():
+        module = tb.PipelinedBert(cfg, mesh, LAMB_PP, 2, batch_axis="data",
+                                  device="cpu", seed=None)
+        module.load_state_dict(tb.dense_to_rank(sd, cfg, LAMB_PP, pipe))
+        stage = {k: k.startswith("stages.")
+                 for k, _ in module.named_parameters()}
+        return module, FusedLAMB(lr=1e-2).with_model_parallel(
+            mesh.group("pipe"), stage)
+
+    def step(model, params, opt, state):
+        return model.loss_and_grad_1f1b(params, ids, _pretrain_loss, tgt)
+
+    out = _lamb_runs(make, step, mesh)
+    out["coords"] = (mesh.index("data"), pipe)
+    return out
+
+
 def _rank_main(rank, world, tmpdir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmpdir}/store",
@@ -140,6 +300,9 @@ def _rank_main(rank, world, tmpdir):
                                              like_params=places)
         out["index_shards"] = cut.m
         out["overflow"] = _overflow(sd, rows[0], mesh, rank)
+        lamb = torch.load(f"{tmpdir}/lamb.pt")
+        out["lamb_tp"] = _lamb_over_tp(mesh, lamb["tp"])
+        out["lamb_pp"] = _lamb_over_pipeline(lamb["pp"])
         torch.save(out, f"{tmpdir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -154,6 +317,20 @@ def jax_init():
     params = jax.jit(jm.GPTLMHeadModel(cfg).init)(
         jax.random.PRNGKey(0), jnp.ones((DP, S), jnp.int32))["params"]
     return jax.tree.map(np.asarray, params)
+
+
+def _jax_bert(layers):
+    import jax
+    import jax.numpy as jnp
+    from apex_tpu import models as jm
+    c = _lamb_cfg(layers)
+    cfg = jm.BertConfig(**{f: getattr(c, f) for f in (
+        "vocab_size", "hidden_size", "num_hidden_layers",
+        "num_attention_heads", "intermediate_size",
+        "max_position_embeddings", "hidden_dropout_prob",
+        "attention_probs_dropout_prob")})
+    return jax.tree.map(np.asarray, jm.BertForPreTraining(cfg).init(
+        jax.random.PRNGKey(1), jnp.ones((2, 16), jnp.int32))["params"])
 
 
 def _index_tree(jax_init):
@@ -171,6 +348,8 @@ def ranks(tmp_path_factory, jax_init):
     torch.save(tg.params_from_jax(jax_init, cfg), tmp / "init.pt")
     torch.save(tg.params_from_jax(_index_tree(jax_init), cfg),
                tmp / "index.pt")
+    torch.save({k: tb.params_from_jax(_jax_bert(layers), _lamb_cfg(layers))
+                for k, layers in (("tp", 2), ("pp", 4))}, tmp / "lamb.pt")
     ctx = torch.multiprocessing.start_processes(
         _rank_main, args=(WORLD, str(tmp)), nprocs=WORLD, join=False,
         start_method="spawn")
@@ -238,6 +417,134 @@ def test_moment_shards_are_the_jax_placement(ranks, jax_init):
             np.testing.assert_array_equal(got, want, err_msg=name)
             sharded_on_data += "data" in str(leaf.sharding.spec)
     assert sharded_on_data > 0
+
+
+@pytest.mark.parametrize("case", ["lamb_tp", "lamb_pp"])
+def test_zero_over_lamb_matches_the_replicated_state(ranks, case):
+    for out in ranks:
+        got = out[case]
+        assert got["loss_err"] <= LAMB_TOL, got["loss_err"]
+        assert got["param_err"] <= LAMB_TOL, got["param_err"]
+        assert got["unshard_err"] <= LAMB_TOL, got["unshard_err"]
+        assert got["reshard_bitwise"]
+        full, shard = got["state_bytes"]
+        assert shard < full / 1.8, got["state_bytes"]
+
+
+def _jax_lamb_trajectory(layers):
+    """The JAX package's O0 FusedLAMB run from the port's init
+    (``_jax_bert``) over the whole batch of both data ranks: the loss of
+    each step and the params after it, as the dense model's state
+    dicts."""
+    import jax
+    import jax.numpy as jnp
+    from apex_tpu import amp as jamp
+    from apex_tpu import models as jm
+    from apex_tpu import optimizers as jopt
+    c = _lamb_cfg(layers)
+    model, opt = jamp.initialize(jm.BertForPreTraining(jm.BertConfig(**{
+        f: getattr(c, f) for f in (
+            "vocab_size", "hidden_size", "num_hidden_layers",
+            "num_attention_heads", "intermediate_size",
+            "max_position_embeddings", "hidden_dropout_prob",
+            "attention_probs_dropout_prob")})), jopt.FusedLAMB(lr=1e-2),
+        opt_level="O0", verbosity=0)
+    rng = np.random.RandomState(3)
+    ids = jnp.asarray(rng.randint(0, 128, (DP * B, 16)))
+    mlm_t = jax.nn.one_hot(rng.randint(0, 128, (DP * B, 16)), 128)
+    nsp_t = jax.nn.one_hot(rng.randint(0, 2, (DP * B,)), 2)
+
+    @jax.jit
+    def step(params, state):
+        def loss_fn(p):
+            mlm, nsp = model.apply({"params": p}, ids, deterministic=True)
+            return -jnp.mean(jnp.sum(jax.nn.log_softmax(mlm) * mlm_t, -1)) \
+                - jnp.mean(jnp.sum(jax.nn.log_softmax(nsp) * nsp_t, -1))
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        return opt.step(params, grads, state) + (loss,)
+
+    params = jax.tree.map(jnp.asarray, _jax_bert(layers))
+    state = opt.init(params)
+    losses, steps = [], []
+    for _ in range(LAMB_STEPS):
+        params, state, loss = step(params, state)
+        losses.append(float(loss))
+        steps.append(tb.params_from_jax(jax.tree.map(np.asarray, params),
+                                        c))
+    return losses, steps
+
+
+@pytest.mark.parametrize("case", ["lamb_tp", "lamb_pp"])
+def test_zero_over_lamb_matches_jax(ranks, case):
+    """Both port runs of ZeRO over FusedLAMB, the replicated state's and
+    ZeRO-1's, against the JAX package's FusedLAMB on the dense model
+    from the same init and batch: each step's loss within
+    ``LAMB_JAX_TOL`` relative, each rank's params (its TP slice, or its
+    stage) within ``LAMB_JAX_TOL`` scale-aware of the JAX params cut
+    the same way."""
+    layers = 2 if case == "lamb_tp" else 4
+    losses, steps = _jax_lamb_trajectory(layers)
+    assert losses[-1] < losses[0]
+    c = _lamb_cfg(layers)
+    for out in ranks:
+        got = out[case]
+        _, r = got["coords"]
+        wants = [tpar.tp_slice(sd, tpar.bert_tp_rules(),
+                               c.num_attention_heads, TP, r)
+                 if case == "lamb_tp"
+                 else tb.dense_to_rank(sd, c, LAMB_PP, r) for sd in steps]
+        for run in ("replicated", "zero"):
+            traj = got["trajectory"][run]
+            for a, b in zip(traj["losses"], losses):
+                assert abs(a - b) <= LAMB_JAX_TOL * abs(b), (
+                    run, traj["losses"], losses)
+            for mine, want in zip(traj["steps"], wants):
+                assert set(mine) == set(want)
+                for k, w in want.items():
+                    err = float((mine[k] - w).abs().max()) / (
+                        float(w.abs().max()) + 1.0)
+                    assert err <= LAMB_JAX_TOL, (run, k, err)
+
+
+def test_zero_over_lamb_shards_are_the_jax_placement(ranks):
+    """Each rank's moment shard of a PipelinedBert leaf holds as many
+    elements as the JAX placement's device shard of
+    ``test_zero_x_pipeline_fusedlamb``'s ``like_params`` layout (here on
+    a (data 2, pipe 2) mesh): the stage cut and the data cut."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from apex_tpu import models as jm
+    from apex_tpu import optimizers as jopt
+    from apex_tpu import parallel as jpar
+    c = _lamb_cfg(4)
+    jmesh = Mesh(np.asarray(jax.devices()[:WORLD]).reshape(DP, LAMB_PP),
+                 ("data", "pipe"))
+    pb = jm.PipelinedBert(jm.BertConfig(**{f: getattr(c, f) for f in (
+        "vocab_size", "hidden_size", "num_hidden_layers",
+        "num_attention_heads", "intermediate_size",
+        "max_position_embeddings", "hidden_dropout_prob",
+        "attention_probs_dropout_prob")}), jmesh, pp=LAMB_PP,
+        num_microbatches=2, batch_axis="data")
+    params = pb.shard_variables(pb.init(
+        jax.random.PRNGKey(1), jnp.ones((4, 16), jnp.int32)))["params"]
+    cut = jpar.shard_optimizer_state(jopt.FusedLAMB(lr=1e-2).init(params),
+                                     jmesh, axis="data", like_params=params)
+    want = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(cut.m):
+        name = ".".join(str(getattr(k, "key", k)) for k in path)
+        name = re.sub(r"\.(kernel|embedding)$", ".weight", name)
+        want[name] = int(np.prod(leaf.sharding.shard_shape(leaf.shape)))
+    staged = 0
+    for out in ranks:
+        got = out["lamb_pp"]["shard_numel"]
+        assert set(got) == set(want)
+        for name, n in want.items():
+            assert got[name] == n, name
+            # a stage leaf: this rank's stage alone, cut over the data
+            staged += name.startswith("stages.") and \
+                n * DP == out["lamb_pp"]["param_numel"][name]
+    assert staged > 0
 
 
 def test_zero_refusals():
