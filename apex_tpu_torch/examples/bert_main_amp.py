@@ -95,12 +95,36 @@ each microbatch's hidden states over the sequence group before the
 loss, and ``loss_and_grad_1f1b`` returns the gradients summed over it,
 for the data group's mean.  The overflow flag is taken over the pipe
 group alone, and so is the clipping norm: both read gradients already
-whole on every sequence and data rank.  ``--moe`` is
-refused (ROADMAP A.10: ``models/moe.py``).
+whole on every sequence and data rank.
 
     WORLD_SIZE=4 python -m apex_tpu_torch.parallel.multiproc \\
         -m apex_tpu_torch.examples.bert_main_amp --pp 2 \\
         --ring-attention 2 --sp-attention ulysses --pp-schedule 1f1b
+
+``--moe E`` (``--moe-dispatch {dense,capacity}``,
+``--moe-capacity-factor``): each layer's MLP a Switch-MoE of E experts
+(``models.MoEMlp``), the objective ``mlm + nsp/div + 0.01 * aux/div``
+as the JAX example's, aux the model's sum of the layers' load-balance
+aux.  It composes with dp, ``--grad-accum``, ``--remat``, ``--pp``
+(under 1F1B the aux joins each microbatch's loss at the last stage with
+the weight ``(0.01/div) * loss scale``: it never reaches amp's scaling
+of the microbatch loss) and ``--ring-attention`` (under ``--pp`` GPipe
+only; ``PipelinedBert`` refuses sequence parallelism with MoE under
+1F1B, as the JAX model does).  The aux is the whole batch's statistic
+as the JAX example's is (its mean over the data-sharded global batch):
+the dense model averages each layer's token fractions over the ranks
+that share the step (the data group, under ``--ring-attention`` the
+(data x sp) ranks; ``moe_aux_group``), so the ranks' mean aux is the
+global one, value and gradient; a sequence rank's share of it is its
+aux over SP.  The capacity dispatch's cap and arrival order are the
+whole batch's over the same ranks, as GSPMD's cumsum over the global
+batch gives them.  A pipelined model keeps the JAX pipeline's rule, the
+mean of per-(data index, microbatch) estimates (the capacity
+dispatch's cap and order per (data index, microbatch) too), averaged over the sequence group under ``--ring-attention``
+(GPipe: sequence rank 0's objective takes the term, as it takes NSP).
+
+    python -m apex_tpu_torch.examples.bert_main_amp --config large \\
+        --moe 8 --moe-dispatch capacity --steps 3
 """
 
 from __future__ import annotations
@@ -124,8 +148,8 @@ from apex_tpu_torch.models import BertConfig, BertForPreTraining, \
     PipelinedBert, bert_base, bert_large
 from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.optimizers import FusedLAMB
-from apex_tpu_torch.parallel import DistributedDataParallel, create_mesh, \
-    make_ring_attention, make_ulysses_attention, psum_g
+from apex_tpu_torch.parallel import DistributedDataParallel, ProcessGroup, \
+    create_mesh, make_ring_attention, make_ulysses_attention, psum_g
 from apex_tpu_torch.parallel.multiproc import initialize_distributed
 from apex_tpu_torch.utils import AverageMeter, maybe_print
 
@@ -169,6 +193,16 @@ def batch_loss(mlm_logits, nsp_logits, labels, weights, nsp, denom=None,
     if nsp_div != 1.0:
         nsp_loss = nsp_loss / nsp_div
     return mlm_loss + nsp_loss
+
+
+#: the load-balance aux's weight in the objective (the JAX example's)
+AUX_WEIGHT = 0.01
+
+
+def _outputs(out):
+    """``(mlm, nsp, aux)`` of a model's forward (aux 0 without MoE
+    layers)."""
+    return out if len(out) == 3 else (*out, 0.0)
 
 
 def _world(ddp) -> int:
@@ -221,7 +255,8 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
           seed: int = 0,
           state_dict: Optional[Mapping[str, torch.Tensor]] = None,
           mesh=None, sp_attention: str = "ring",
-          pp_microbatches: Optional[int] = None):
+          pp_microbatches: Optional[int] = None,
+          moe_aux_group: Optional[ProcessGroup] = None):
     """(model, optimizer, params, opt_state): BertForPreTraining under
     ``amp.initialize`` with the recipe's FusedLAMB; weights from
     ``seed`` or, when given, ``state_dict`` (e.g. from
@@ -234,7 +269,10 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
     ``models.bert.dense_to_rank``; ``seed`` gives the dense model's
     weights, this rank's part), the optimizer's clipping norm and
     overflow flag over the pipe group; with a sequence axis above 1 as
-    well, ``seq_axis="sp"`` with ``sp_attention``."""
+    well, ``seq_axis="sp"`` with ``sp_attention``.  ``moe_aux_group``:
+    the dense model's MoE token fractions averaged over it (the ranks
+    that share a step; module docstring); under a sequence axis above 1
+    it defaults to the mesh's ``"data_sp"`` group."""
     dev = resolve_device(device)
     sp = _sp(mesh) > 1
     if sp:
@@ -245,10 +283,12 @@ def build(cfg: BertConfig, *, lr: float = 1e-4, max_grad_norm: float = 1.0,
         return _build_pipelined(cfg, lr, max_grad_norm, opt_level,
                                 loss_scale, attention_fn, dev, seed,
                                 state_dict, mesh, pp_microbatches, sp)
+    if sp and moe_aux_group is None:
+        moe_aux_group = mesh.group("data_sp")
     module = BertForPreTraining(
         cfg, attention_fn=attention_fn, device=dev,
         seed=None if state_dict is not None else seed,
-        sp=mesh.group("sp") if sp else None)
+        sp=mesh.group("sp") if sp else None, moe_aux_group=moe_aux_group)
     if state_dict is not None:
         module.load_state_dict(state_dict)
     # amp's default verbosity, as the JAX example: the option report
@@ -298,7 +338,9 @@ def _sp_objective(model, params, batch, mesh, deterministic, dropout_key,
     over ``denom`` (:func:`mlm_denom`: the global batch's mask count
     over dp) plus, on sequence rank 0, the NSP term over ``nsp_div``.  A
     pipelined model takes the whole batch and slices its tokens
-    itself."""
+    itself.  With MoE layers the aux term over ``nsp_div``: a dense
+    rank's aux over SP, a pipelined model's (the sequence group's mean)
+    on sequence rank 0."""
     ids, labels, weights, nsp, *mask = batch
     n_sp, r = _sp(mesh), mesh.index("sp")
     s_local = ids.shape[1] // n_sp
@@ -307,19 +349,24 @@ def _sp_objective(model, params, batch, mesh, deterministic, dropout_key,
         return a[:, r * s_local:(r + 1) * s_local]
 
     whole = mesh.shape["pipe"] > 1
-    mlm_logits, nsp_logits = model.apply(
+    mlm_logits, nsp_logits, aux = _outputs(model.apply(
         params, ids if whole else mine(ids),
         (mask[0] if whole else mine(mask[0])) if mask else None,
-        deterministic=deterministic, dropout_key=dropout_key)
+        deterministic=deterministic, dropout_key=dropout_key))
     v = mlm_logits.shape[-1]
     mlm = F.cross_entropy(mlm_logits.float().reshape(-1, v),
                           mine(labels).reshape(-1).long(), reduction="none")
     objective = (mlm * mine(weights).reshape(-1)).sum() / denom
+    aux = AUX_WEIGHT * aux / nsp_div
+    if not whole:
+        # a dense rank's aux is its share of the global statistic
+        objective, aux = objective + aux / n_sp, 0.0
     if r == 0:
-        # the pooled [CLS] token lives on sequence rank 0
-        return objective + F.cross_entropy(nsp_logits.float(),
-                                           nsp.long()) / nsp_div
-    return objective + 0.0 * nsp_logits.sum()
+        # the pooled [CLS] token lives on sequence rank 0; a pipelined
+        # model's aux (the sequence group's mean) counts there, once
+        return objective + aux + F.cross_entropy(nsp_logits.float(),
+                                                 nsp.long()) / nsp_div
+    return objective + 0.0 * nsp_logits.sum() + 0.0 * aux
 
 
 def _sp_grads(model, params, opt_state, batch, denom, nsp_div,
@@ -383,13 +430,12 @@ def train_step(model, optimizer, params: Dict[str, torch.Tensor], opt_state,
                                 dropout_key, mesh=mesh)
     else:
         ids, labels, weights, nsp, *mask = batch
-        mlm_logits, nsp_logits = model.apply(params, ids,
-                                             mask[0] if mask else None,
-                                             deterministic=deterministic,
-                                             dropout_key=dropout_key)
+        mlm_logits, nsp_logits, aux = _outputs(model.apply(
+            params, ids, mask[0] if mask else None,
+            deterministic=deterministic, dropout_key=dropout_key))
         denom = None if ddp is None else mlm_denom(weights, ddp)
         loss = batch_loss(mlm_logits, nsp_logits, labels, weights, nsp,
-                          denom)
+                          denom) + AUX_WEIGHT * aux
         with amp.scale_loss(loss, opt_state) as scaled:
             grads = torch.autograd.grad(scaled, list(params.values()))
         grads = dict(zip(params.keys(), grads))
@@ -404,10 +450,10 @@ def _autodiff_grads(model, params, opt_state, batch, denom, nsp_div,
     """One microbatch's loss (unscaled) and scaled gradients through
     autograd."""
     ids, labels, w, nsp = batch[:4]
-    mlm_logits, nsp_logits = model.apply(params, ids,
-                                         deterministic=deterministic,
-                                         dropout_key=dropout_key)
-    loss = batch_loss(mlm_logits, nsp_logits, labels, w, nsp, denom, nsp_div)
+    mlm_logits, nsp_logits, aux = _outputs(model.apply(
+        params, ids, deterministic=deterministic, dropout_key=dropout_key))
+    loss = batch_loss(mlm_logits, nsp_logits, labels, w, nsp, denom,
+                      nsp_div) + AUX_WEIGHT * aux / nsp_div
     with amp.scale_loss(loss, opt_state) as scaled:
         grads = torch.autograd.grad(scaled, list(params.values()))
     return loss.detach(), dict(zip(params.keys(), grads))
@@ -418,8 +464,9 @@ def _onef1b_grads(model, params, opt_state, batch, denom, nsp_div,
     """A pipelined model's 1F1B pass over ``batch``: each microbatch's
     MLM sum times M over ``denom`` (this rank's divisor, the global mask
     count over dp) plus its mean NSP term over ``nsp_div``, scaled by
-    amp; returns this data index's loss (unscaled) and scaled
-    gradients."""
+    amp; with MoE layers the aux joins at the last stage weighted
+    ``(0.01 / nsp_div) * loss scale`` (amp's scaling never reaches it);
+    returns this data index's loss (unscaled) and scaled gradients."""
     ids, labels, weights, nsp, *mask = batch
     m = model.module.num_microbatches
 
@@ -434,11 +481,15 @@ def _onef1b_grads(model, params, opt_state, batch, denom, nsp_div,
             nsp_loss = nsp_loss / nsp_div
         return amp.scale(mlm + nsp_loss, opt_state)
 
+    aux_w = 0.0
+    if model.module.cfg.moe_experts:
+        aux_w = (AUX_WEIGHT / nsp_div) * optimizer.loss_scale(opt_state)
     loss, grads = model.loss_and_grad_1f1b(
         params, ids, mb_loss, {"labels": labels, "weights": weights,
                                "nsp": nsp},
         attention_mask=mask[0] if mask else None,
-        deterministic=deterministic, dropout_key=dropout_key)
+        deterministic=deterministic, dropout_key=dropout_key,
+        moe_aux_weight=aux_w)
     return loss / optimizer.loss_scale(opt_state), grads
 
 
@@ -499,7 +550,9 @@ def check_pipeline(cfg: BertConfig, batch: int, accum: int, pp: int,
                    world: int, seq_len: int, sp_attention: str) -> None:
     """The JAX example's checks of ``--pp`` (with ``--ring-attention``
     ``sp``), in its order and with its messages, the world size in
-    place of its device count."""
+    place of its device count; and, before any rank starts, the refusal
+    ``PipelinedBert.loss_and_grad_1f1b`` gives MoE with a sequence
+    axis."""
     if pp and sp:
         if world % (sp * pp) or seq_len % sp or \
                 cfg.num_hidden_layers % pp:
@@ -518,6 +571,11 @@ def check_pipeline(cfg: BertConfig, batch: int, accum: int, pp: int,
             "collective-carrying scan miscompiles in the schedule's "
             "branches — tools/repro_ring_1f1b.py); use "
             "--sp-attention ulysses or the gpipe schedule")
+    if pp and schedule == "1f1b" and sp and cfg.moe_experts:
+        # the JAX example meets PipelinedBert's refusal at its first step
+        raise SystemExit(
+            "seq_axis + MoE under 1F1B: the sp-local aux estimate breaks "
+            "the loss/grad reduction algebra; use the GPipe apply() path")
     if not pp:
         return
     per_call = batch // max(accum, 1)
@@ -556,7 +614,10 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
     ``pp_schedule`` and ``pp_microbatches`` (module docstring), with
     ``sp`` inside it when both are given; each pipe group takes its
     data index's batch (``data`` as under ``sp``), ``losses`` are the
-    data index's and ``tokens_per_s`` counts its batch's tokens."""
+    data index's and ``tokens_per_s`` counts its batch's tokens.  A
+    ``cfg`` with ``moe_experts`` trains the MoE model (module
+    docstring); under ``ddp`` its aux's token fractions are averaged
+    over the default group."""
     dev = resolve_device(device)
     check_grad_accum(batch, grad_accum)
     check_pipeline(cfg, batch, grad_accum, pp, pp_schedule, pp_microbatches,
@@ -569,11 +630,15 @@ def train(cfg: BertConfig, *, batch: int = 32, seq_len: int = 128,
         raise ValueError(f"sp {sp} must divide seq_len {seq_len}")
     if pp or sp > 1:
         mesh = create_mesh(sp=max(sp, 1), pp=max(pp, 1))
+    aux_group = None
+    if mesh is None and ddp and dist.is_initialized():
+        aux_group = ProcessGroup()
     model, optimizer, params, opt_state = build(
         cfg, lr=lr, max_grad_norm=max_grad_norm, opt_level=opt_level,
         loss_scale=loss_scale, attention_fn=attention_fn, device=dev,
         seed=seed, mesh=mesh, sp_attention=sp_attention,
-        pp_microbatches=pp_microbatches if pp else None)
+        pp_microbatches=pp_microbatches if pp else None,
+        moe_aux_group=aux_group)
     schedule = pp_schedule if pp else None
     if mesh is not None:
         # the pipe and sequence groups' ranks hold one data index's batch;
@@ -652,7 +717,14 @@ def parse_args(argv=None):
                    "--ring-attention: ring (K/V rotation) or ulysses "
                    "(all-to-all head scatter)")
     p.add_argument("--moe", type=int, default=0, metavar="E",
-                   help="Switch-MoE layers: not ported yet (refused)")
+                   help="replace each layer's MLP with a Switch-MoE of E "
+                   "experts (the load-balance aux joins the loss)")
+    p.add_argument("--moe-dispatch", default="dense",
+                   choices=["dense", "capacity"],
+                   help="MoE dispatch: dense (exact, E x FLOPs) or "
+                   "capacity (Switch capacity-factor gather/scatter; "
+                   "tokens past capacity ride the residual)")
+    p.add_argument("--moe-capacity-factor", type=float, default=1.25)
     p.add_argument("--pp", type=int, default=0, metavar="S",
                    help="pipeline the encoder over S stages on a (data, "
                    "pipe) mesh (models.PipelinedBert); S must divide the "
@@ -672,10 +744,9 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     check_grad_accum(args.b, args.grad_accum)
-    if args.moe:
-        raise SystemExit("--moe: Switch-MoE layers are not ported yet "
-                         "(ROADMAP A.10: models/moe.py)")
-    cfg = get_config(args.config)
+    cfg = dataclasses.replace(get_config(args.config), moe_experts=args.moe,
+                              moe_dispatch=args.moe_dispatch,
+                              moe_capacity_factor=args.moe_capacity_factor)
     check_pipeline(cfg, args.b, args.grad_accum, args.pp, args.pp_schedule,
                    args.pp_microbatches, args.ring_attention,
                    int(os.environ.get("WORLD_SIZE", "1")), args.seq_len,
@@ -691,7 +762,8 @@ def main(argv=None):
     maybe_print(f"device: {torch.cuda.get_device_name(dev)}, config: "
                 f"{args.config}, world size {world} (dp={dp}, sp={sp}, "
                 f"pp={max(args.pp, 1)}), batch {args.b} per data index, "
-                f"grad-accum {args.grad_accum}, remat {args.remat}",
+                f"grad-accum {args.grad_accum}, remat {args.remat}, moe "
+                f"{args.moe}",
                 rank0=True)
     out = train(cfg, batch=args.b, seq_len=args.seq_len, steps=args.steps,
                 lr=args.lr, max_grad_norm=args.max_grad_norm,

@@ -74,8 +74,23 @@ Pipeline parallelism: :class:`PipelinedBert` (one stage a rank of the
 mesh's pipe axis, optionally with a sequence axis and a model axis
 inside it) over the ``BertEmbeddings``/``BertStage``/``BertHeads``
 split; :func:`dense_to_rank` maps a dense state dict to a rank's (with
-``tp``, its Megatron slice).  Not here: MoE layers.  HuggingFace
-checkpoints load through ``utils.load_hf_bert``.
+``tp``, its Megatron slice).  HuggingFace checkpoints load through
+``utils.load_hf_bert``.
+
+Switch-MoE layers (``BertConfig.moe_experts`` above 0): each layer's
+MLP is a :class:`~apex_tpu_torch.models.moe.MoEMlp` named ``moe`` in
+place of ``intermediate``/``output``, as the JAX layer's.  The JAX model
+sows each layer's load-balance aux into its ``"losses"`` collection;
+the port has no ``sow``, so a model with MoE layers returns the sum over
+its layers as one more output: ``BertForPreTraining`` gives ``(mlm, nsp,
+aux)`` (the JAX ``PipelinedBert``'s convention), ``BertStage`` ``(x,
+aux)``.  Remat checkpoints the layer with its aux.  Under TP the MoE
+stays whole on every model rank (``bert_tp_rules`` match no MoE leaf).
+``BertForPreTraining(..., ep=<group>)`` holds each layer's experts split
+over the group (expert parallelism, ``models.moe``), and
+``moe_aux_group``, the ranks that share a step, makes the MoE's batch
+theirs: the aux's token fractions and the capacity dispatch's cap and
+arrival order are the whole batch's (``MoEMlp``'s ``aux_group``).
 """
 
 from __future__ import annotations
@@ -83,6 +98,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -94,12 +110,14 @@ from torch.utils import _pytree as pytree
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.models._remat import remat as remat_layer
+from apex_tpu_torch.models.moe import MoEMlp, ep_specs
+from apex_tpu_torch.models.moe import params_from_jax as moe_params_from_jax
 from apex_tpu_torch.models.pipelined_common import PipelinedCommon, \
     gather_seq, rank_state_dict
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops import threefry
 from apex_tpu_torch.parallel.collectives import copy_to_group, \
-    gather_from_group
+    gather_from_group, pmean_g
 from apex_tpu_torch.parallel import tensor_parallel as tpar
 from apex_tpu_torch.parallel.mesh import ProcessGroup
 from apex_tpu_torch.parallel.tensor_parallel import RowParallelLinear, \
@@ -121,6 +139,12 @@ class BertConfig:
     initializer_range: float = 0.02
     # rematerialize each encoder layer in the backward (training only)
     remat: bool = False
+    # >0: each layer's MLP is a Switch-MoE of this many experts
+    # (models.MoEMlp), whose load-balance aux the model returns
+    moe_experts: int = 0
+    # "dense" (exact, E x FLOPs) or "capacity" (Switch gather/scatter)
+    moe_dispatch: str = "dense"
+    moe_capacity_factor: float = 1.25
 
 
 def bert_base() -> BertConfig:
@@ -207,9 +231,10 @@ def tp_splits(cfg: BertConfig, n: int) -> Dict[str, bool]:
     (``intermediate`` column- and ``output`` row-parallel), ``"vocab"``
     (the word embeddings and the MLM decoder).  A split whose dim does
     not divide leaves its leaves replicated, as the JAX package's
-    ``param_specs`` does (BERT's 30522 words at 4 ranks)."""
+    ``param_specs`` does (BERT's 30522 words at 4 ranks).  An MoE model
+    has no ``"mlp"`` split."""
     specs = _full_tp_specs(cfg, n, False)
-    return {split: bool(specs[name]) for split, name in (
+    return {split: bool(specs.get(name)) for split, name in (
         ("heads", "encoder.layer_0.attention.query.weight"),
         ("mlp", "encoder.layer_0.intermediate.weight"),
         ("vocab", "encoder.word_embeddings.weight"))}
@@ -305,12 +330,19 @@ class BertLayer(nn.Module):
     one module (flax's ``Dropout_0`` of the layer) called twice.  Under
     TP (``tp``) ``intermediate`` is column-parallel and ``output``
     row-parallel where the MLP width divides; the hidden dropouts act
-    on replicated activations, the same keys on every model rank."""
+    on replicated activations, the same keys on every model rank.  With
+    ``cfg.moe_experts`` the MLP is ``moe`` (an :class:`MoEMlp`, whole on
+    every model rank; ``ep`` and ``moe_aux_group`` its groups,
+    ``moe_seq_shards`` its ``seq_shards``) and the forward returns ``(x,
+    aux)``."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
                  dtype: torch.dtype = torch.float32,
-                 tp: Optional[TPPlace] = None):
+                 tp: Optional[TPPlace] = None,
+                 ep: Optional[ProcessGroup] = None,
+                 moe_aux_group: Optional[ProcessGroup] = None,
+                 moe_seq_shards: int = 1):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -318,11 +350,18 @@ class BertLayer(nn.Module):
                                            dtype=dtype, tp=tp)
         self.attention_ln = _layer_norm(cfg, dev, dtype)
         self.tp = tp = _split_place(tp, cfg, "mlp")
-        il = cfg.intermediate_size // (tp.size if tp is not None else 1)
-        self.intermediate = _linear(cfg.hidden_size, il, dev, dtype)
-        self.output = _linear(il, cfg.hidden_size, dev, dtype) \
-            if tp is None else RowParallelLinear(il, cfg.hidden_size, tp,
-                                                 device=dev, dtype=dtype)
+        if cfg.moe_experts:
+            self.moe = MoEMlp(cfg.moe_experts, cfg.hidden_size,
+                              cfg.intermediate_size, cfg.moe_dispatch,
+                              cfg.moe_capacity_factor, device=dev,
+                              dtype=dtype, ep=ep, aux_group=moe_aux_group,
+                              seq_shards=moe_seq_shards)
+        else:
+            il = cfg.intermediate_size // (tp.size if tp is not None else 1)
+            self.intermediate = _linear(cfg.hidden_size, il, dev, dtype)
+            self.output = _linear(il, cfg.hidden_size, dev, dtype) \
+                if tp is None else RowParallelLinear(
+                    il, cfg.hidden_size, tp, device=dev, dtype=dtype)
         self.output_ln = _layer_norm(cfg, dev, dtype)
         self.drop = threefry.Dropout(cfg.hidden_dropout_prob)
 
@@ -337,6 +376,10 @@ class BertLayer(nn.Module):
             attention_seed)
         x = self.attention_ln(x + _drop(self.drop, attn_out, scope,
                                         drop_window))
+        if self.cfg.moe_experts:
+            y, aux = self.moe(x)
+            return self.output_ln(x + _drop(self.drop, y, scope,
+                                            drop_window)), aux
         y = x if self.tp is None else copy_to_group(x, self.tp.group)
         y = self.output(F.gelu(self.intermediate(y)))   # exact erf gelu
         return self.output_ln(x + _drop(self.drop, y, scope, drop_window))
@@ -368,7 +411,8 @@ def _run_layers(module, n, attention_fn, x, attn_bias, deterministic,
                 scope, window=None):
     """``module``'s ``layer_0`` .. ``layer_<n-1>`` on x (remat under
     ``cfg.remat`` while training), each keyed from ``scope`` pushed by
-    its name: the encoder's loop and a pipeline stage's."""
+    its name: the encoder's loop and a pipeline stage's.  With MoE
+    layers, ``(x, aux)``: aux the sum of the layers' in layer order."""
     cfg = module.cfg
     scopes = [None if scope is None else scope.push(f"layer_{i}")
               for i in range(n)]
@@ -379,6 +423,7 @@ def _run_layers(module, n, attention_fn, x, attn_bias, deterministic,
         seeds = threefry.attention_seeds(
             [sc.push("attention") for sc in scopes], x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for i in range(n):
         layer = getattr(module, f"layer_{i}")
         if remat:
@@ -387,7 +432,10 @@ def _run_layers(module, n, attention_fn, x, attn_bias, deterministic,
         else:
             x = layer(x, attn_bias, deterministic, scopes[i], seeds[i],
                       drop_window=window)
-    return x
+        if cfg.moe_experts:
+            x, aux = x
+            auxes.append(aux)
+    return (x, sum(auxes)) if cfg.moe_experts else x
 
 
 def _add_embeddings(module, cfg, dev, dtype, tp=None):
@@ -436,16 +484,19 @@ def _pretraining_heads(module, seq):
 
 class BertEncoder(nn.Module):
     """input_ids/token_type_ids (B, S) int, attention_mask (B, S) {0,1}
-    -> sequence output (B, S, H).  Embedding sum + LN + dropout
-    (``_embed_block``), then the layers, named ``layer_<i>``.  ``sp``
-    (a sequence group): the inputs are this rank's S_local tokens
-    (module docstring); ``tp`` (a ``TPPlace``) builds a tensor-parallel
-    rank's layers and word embeddings."""
+    -> sequence output (B, S, H) (with MoE layers ``(seq, aux)``).
+    Embedding sum + LN + dropout (``_embed_block``), then the layers,
+    named ``layer_<i>``.  ``sp`` (a sequence group): the inputs are this
+    rank's S_local tokens (module docstring); ``tp`` (a ``TPPlace``)
+    builds a tensor-parallel rank's layers and word embeddings; ``ep``
+    and ``moe_aux_group``: the MoE layers' groups."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
                  dtype: torch.dtype = torch.float32, sp=None,
-                 tp: Optional[TPPlace] = None):
+                 tp: Optional[TPPlace] = None,
+                 ep: Optional[ProcessGroup] = None,
+                 moe_aux_group: Optional[ProcessGroup] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -457,9 +508,12 @@ class BertEncoder(nn.Module):
         self.sp = sp
         self.attention_fn = attention_fn
         _add_embeddings(self, cfg, dev, dtype, tp)
+        shards = sp.size() if sp is not None and dist.is_initialized() \
+            else 1
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(
-                cfg, attention_fn, device=dev, dtype=dtype, tp=tp))
+                cfg, attention_fn, device=dev, dtype=dtype, tp=tp, ep=ep,
+                moe_aux_group=moe_aux_group, moe_seq_shards=shards))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True, dropout_key=None):
@@ -505,19 +559,40 @@ class BertForPreTraining(nn.Module):
     divide stays replicated, :func:`tp_splits`), under the dense model's
     names.  The MLM logits are gathered over the group, so the forward
     returns what the dense model returns; ``seed`` draws each full
-    tensor as the dense model does and keeps this rank's slice."""
+    tensor as the dense model does and keeps this rank's slice.
+
+    With MoE layers (``cfg.moe_experts``) the forward returns ``(mlm,
+    nsp, aux)``, aux (fp32, 0-d) the sum of the layers' load-balance
+    aux (module docstring).  ``ep`` (a ``ProcessGroup`` whose ranks hold
+    the same tokens) splits each layer's experts over it, as
+    ``parallel.shard_params(..., models.EP_RULES)`` cuts a state dict
+    (``ep`` set on the model when the experts divide); ``seed`` then
+    keeps this rank's experts of each full draw.  ``moe_aux_group``: the
+    ranks that run one step on different tokens (the data group; under
+    sequence parallelism the (data x sp) ranks, in the mesh's
+    ``"data_sp"`` order): each layer's token fractions are averaged over
+    it, so the group's mean aux is the whole batch's, and the capacity
+    dispatch's cap and arrival order are the whole batch's
+    (``MoEMlp``)."""
 
     def __init__(self, cfg: BertConfig,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
                  dtype: torch.dtype = torch.float32,
                  seed: Optional[int] = 0, sp=None,
-                 tp: Optional[ProcessGroup] = None):
+                 tp: Optional[ProcessGroup] = None,
+                 ep: Optional[ProcessGroup] = None,
+                 moe_aux_group: Optional[ProcessGroup] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.tp = place = tp_place(tp)
         self.encoder = BertEncoder(cfg, attention_fn, device=dev,
-                                   dtype=dtype, sp=sp, tp=place)
+                                   dtype=dtype, sp=sp, tp=place, ep=ep,
+                                   moe_aux_group=moe_aux_group)
+        moe = getattr(self.encoder.layer_0, "moe", None) \
+            if cfg.num_hidden_layers else None
+        self.ep = None if moe is None or moe.ep is None else TPPlace(
+            moe.ep, moe.ep_rank, moe.ep_size)
         _add_heads(self, cfg, dev, dtype, place)
         if seed is not None:
             self.reset_parameters(seed)
@@ -539,8 +614,12 @@ class BertForPreTraining(nn.Module):
 
     def reset_parameters(self, seed: int) -> None:
         from apex_tpu_torch.parallel.tensor_parallel import reset_seeded
-        reset_seeded(self, self.tp_specs(), self.tp, seed,
-                     self.cfg.initializer_range)
+        places = {} if self.tp is None else {"model": self.tp}
+        specs = self.tp_specs()
+        if self.ep is not None:
+            places["expert"] = self.ep
+            specs.update(ep_specs(self))
+        reset_seeded(self, specs, places, seed, self.cfg.initializer_range)
 
     def _pretraining_heads(self, seq):
         return _pretraining_heads(self, seq)
@@ -554,6 +633,9 @@ class BertForPreTraining(nn.Module):
         seq = self.encoder(input_ids, attention_mask, token_type_ids,
                            deterministic,
                            None if scope is None else scope.push("encoder"))
+        if self.cfg.moe_experts:
+            seq, aux = seq
+            return (*self._pretraining_heads(seq), aux)
         return self._pretraining_heads(seq)
 
 
@@ -586,7 +668,9 @@ class BertStage(nn.Module):
     """``layers_per_stage`` consecutive encoder layers, ``layer_0`` ..,
     the stage body of :class:`PipelinedBert`; its dropout scope's root
     is the stage (the JAX stage module's paths).  ``tp``: a
-    ``TPPlace``, the layers tensor-parallel (:class:`BertLayer`)."""
+    ``TPPlace``, the layers tensor-parallel (:class:`BertLayer`).  With
+    MoE layers the forward returns ``(x, aux)``, aux the stage's sum
+    (what the JAX stage sows)."""
 
     def __init__(self, cfg: BertConfig, layers_per_stage: int,
                  attention_fn: Optional[Callable] = None, *, device="cuda",
@@ -696,7 +780,18 @@ class PipelinedBert(PipelinedCommon, nn.Module):
     gathered over the model group, so both schedules' ``loss_fn`` and
     outputs see the whole vocabulary, and the gradients are this rank's
     slices.  ``seed`` and :meth:`shard_variables` give each rank its
-    slice of the dense weights."""
+    slice of the dense weights.
+
+    MoE configs (dense or capacity dispatch, the experts whole on each
+    stage): the stage's aux rides the activations as a per-row ``(mb,)``
+    fp32 leaf (every row of a microbatch carries its running total over
+    the stages), so its gradient reaches each stage's router through the
+    schedules' hops.  ``forward`` returns ``(mlm, nsp, aux)``, aux the
+    mean over the rows (the mean of the microbatches' estimates; under
+    ``seq_axis`` also over the sequence group, ``pmean_g``);
+    :meth:`loss_and_grad_1f1b` adds ``moe_aux_weight * mean(aux)`` to
+    each microbatch's loss at the last stage, and refuses ``seq_axis``
+    with MoE, as the JAX method does."""
 
     tp_rules_name = "bert_tp_rules"
 
@@ -738,16 +833,33 @@ class PipelinedBert(PipelinedCommon, nn.Module):
 
     def _build_stage_fn(self, needs_rng, base_key, deterministic, bias, mb):
         """The stage body both schedules run: ``(params, h, j) -> h``,
-        microbatch j's rows of ``bias`` and its stage key."""
+        microbatch j's rows of ``bias`` and its stage key; with MoE
+        layers ``h`` is ``(hidden, aux)`` and the stage adds its aux to
+        every row's running total."""
+        moe = self.cfg.moe_experts > 0
 
         def stage_fn(sp, h, j):
             key = self._stage_dropout_key(base_key, j) if needs_rng \
                 else None
-            return torch.func.functional_call(
+            if moe:
+                h, aux = h
+            out = torch.func.functional_call(
                 self.stages, sp, (h, _rows(bias, j, mb)),
                 {"deterministic": deterministic, "dropout_key": key})
+            if moe:
+                out, stage_aux = out
+                return out, aux + stage_aux
+            return out
 
         return stage_fn
+
+    def _activations(self, x):
+        """The schedules' input: ``x``, or with MoE layers ``(x, aux0)``,
+        aux0 a per-row fp32 zero."""
+        if not self.cfg.moe_experts:
+            return x
+        return x, torch.zeros(x.shape[0], dtype=torch.float32,
+                              device=x.device)
 
     def _embed_and_stage(self, input_ids, attention_mask, token_type_ids,
                          deterministic, dropout_key, caller):
@@ -772,13 +884,26 @@ class PipelinedBert(PipelinedCommon, nn.Module):
             input_ids, attention_mask, token_type_ids, deterministic,
             dropout_key, "PipelinedBert.apply")
         seq = gpipe(self._pipe(), stage_fn,
-                    dict(self.stages.named_parameters()), x,
-                    self.num_microbatches, microbatch_index=True)
-        return self.heads(seq)
+                    dict(self.stages.named_parameters()),
+                    self._activations(x), self.num_microbatches,
+                    microbatch_index=True)
+        if not self.cfg.moe_experts:
+            return self.heads(seq)
+        seq, aux = seq
+        # every row of a microbatch carries its stage-summed aux: the
+        # mean over the rows is the mean over the microbatches
+        aux = aux.mean()
+        group = self._seq_group()
+        if group is not None and group.size() > 1:
+            # each sequence shard routes its own tokens: a local estimate,
+            # averaged over the shards (lax.pmean's value and transpose)
+            aux = pmean_g(aux, group)
+        return (*self.heads(seq), aux)
 
     def loss_and_grad_1f1b(self, input_ids, loss_fn, targets,
                            attention_mask=None, token_type_ids=None,
-                           deterministic: bool = True, dropout_key=None):
+                           deterministic: bool = True, dropout_key=None,
+                           moe_aux_weight=0.0):
         """The 1F1B training step on this rank's batch: ``loss_fn(mlm,
         nsp, target_mb) -> scalar`` (a mean over the microbatch's rows),
         ``targets`` a pytree of per-row tensors.  Returns ``(loss,
@@ -791,9 +916,28 @@ class PipelinedBert(PipelinedCommon, nn.Module):
         ``seq_axis`` ``loss_fn`` sees the whole sequence's logits (the
         hidden states gathered over the sequence group), ``targets`` are
         per row of the whole batch, and ``embed.*`` and ``stages.*`` are
-        summed over the sequence group."""
+        summed over the sequence group.  With MoE layers the loss of a
+        microbatch is ``loss_fn(...) + moe_aux_weight * mean(aux)`` (a
+        float, or a tensor such as the aux weight times amp's loss
+        scale); a weight of 0 warns, as the JAX method does."""
         from apex_tpu_torch.parallel.pipeline import onef1b
         self._check_onef1b()
+        moe = self.cfg.moe_experts > 0
+        if moe and self.seq_axis is not None:
+            raise NotImplementedError(
+                "seq_axis + MoE under 1F1B: the sp-local aux estimate "
+                "breaks the loss/grad reduction algebra; use the GPipe "
+                "apply() path")
+        statically_zero = isinstance(moe_aux_weight, (int, float)) \
+            and moe_aux_weight == 0.0
+        use_aux = moe and not statically_zero
+        if moe and statically_zero:
+            warnings.warn(
+                "loss_and_grad_1f1b on an MoE config with "
+                "moe_aux_weight=0: the load-balance aux term is dropped "
+                "and nothing pushes the router toward balance (the GPipe "
+                "apply() path returns the aux explicitly); pass "
+                "moe_aux_weight to include it", stacklevel=2)
         m = self.num_microbatches
         embed = dict(self.embed.named_parameters())
         with torch.enable_grad():
@@ -802,15 +946,22 @@ class PipelinedBert(PipelinedCommon, nn.Module):
                 dropout_key, "loss_and_grad_1f1b")
         seq = self._seq_group()
 
-        def pl_loss(h, tgt, heads_p):
+        def pl_loss(y, tgt, heads_p):
+            h = y[0] if moe else y
             mlm, nsp = torch.func.functional_call(
                 self.heads, heads_p, (gather_seq(h, seq),))
-            return loss_fn(mlm, nsp, tgt)
+            loss = loss_fn(mlm, nsp, tgt)
+            if use_aux:
+                loss = loss + moe_aux_weight * torch.mean(y[-1])
+            return loss
 
         loss, g_stage, dx, g_heads = onef1b(
             self._pipe(), stage_fn, pl_loss,
-            dict(self.stages.named_parameters()), x.detach(), targets, m,
+            dict(self.stages.named_parameters()),
+            self._activations(x.detach()), targets, m,
             dict(self.heads.named_parameters()), microbatch_index=True)
+        if moe:
+            dx = dx[0]
         g_embed = dict(zip(embed, torch.autograd.grad(
             x, list(embed.values()), dx)))
         # the embeddings' and the stage's are partial on each sequence
@@ -861,8 +1012,9 @@ def params_from_jax(params: Mapping, cfg: BertConfig,
     kernels (h, nh, hd) and the output kernel (nh, hd, h) flatten to (h,
     h) and transpose into ``nn.Linear``'s (out, in) layout; Dense kernels
     (in, out) transpose; embeddings and LN scale/bias carry over as they
-    are.  ``tp`` above 1: model rank ``tp_rank``'s Megatron slice of
-    each leaf (``parallel.tensor_parallel.tp_slice``), what
+    are; an MoE layer's stacked experts carry over as they are and its
+    router kernel (H, E) transposes.  ``tp`` above 1: model rank
+    ``tp_rank``'s Megatron slice of each leaf (``parallel.tensor_parallel.tp_slice``), what
     ``BertForPreTraining(tp=)`` or a ``PipelinedBert(tp_axis=)`` rank
     holds."""
     p = params.get("params", params)
@@ -916,8 +1068,12 @@ def params_from_jax(params: Mapping, cfg: BertConfig,
             np.asarray(att["output"]["kernel"]).reshape(h, h).T)
         sd[f"{pre}attention.output.bias"] = t(att["output"]["bias"])
         ln(sd, f"{pre}attention_ln", lay["attention_ln"])
-        dense(sd, f"{pre}intermediate", lay["intermediate"])
-        dense(sd, f"{pre}output", lay["output"])
+        if "moe" in lay:
+            for name, v in moe_params_from_jax(lay["moe"]).items():
+                sd[f"{pre}moe.{name}"] = v
+        else:
+            dense(sd, f"{pre}intermediate", lay["intermediate"])
+            dense(sd, f"{pre}output", lay["output"])
         ln(sd, f"{pre}output_ln", lay["output_ln"])
     for name in ("mlm_transform", "mlm_decoder", "pooler", "nsp_classifier"):
         dense(sd, name, p[name])

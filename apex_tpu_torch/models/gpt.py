@@ -432,7 +432,8 @@ class GPTLMHeadModel(nn.Module):
 
     def reset_parameters(self, seed: int) -> None:
         from apex_tpu_torch.parallel.tensor_parallel import reset_seeded
-        reset_seeded(self, self.tp_specs(), self.tp, seed,
+        reset_seeded(self, self.tp_specs(),
+                     {} if self.tp is None else {"model": self.tp}, seed,
                      self.cfg.initializer_range)
 
     def forward(self, input_ids, attention_mask=None, positions=None,

@@ -205,7 +205,8 @@ class PipelinedCommon:
         biases), this rank's kept (under TP its slice): the ranks
         together hold the dense model's weights.  ``dense`` is the dense
         model on ``meta``."""
-        from apex_tpu_torch.parallel.tensor_parallel import local_slice
+        from apex_tpu_torch.parallel.tensor_parallel import is_bias, \
+            local_slice
         gen = torch.Generator().manual_seed(int(seed))
         std = self.cfg.initializer_range
         mine = dict(self.named_parameters())
@@ -215,7 +216,7 @@ class PipelinedCommon:
         for name, p in dense.named_parameters():
             if name.endswith("_ln.scale"):
                 fill = torch.ones(())
-            elif name.endswith("bias"):
+            elif is_bias(name):
                 fill = torch.zeros(())
             else:
                 fill = torch.empty(p.shape, dtype=torch.float32).normal_(

@@ -75,6 +75,39 @@ from apex_tpu_torch.optimizers.param_groups import (
 Tree = Any
 
 
+#: the elements of one group of leaves that stage 1 and the final add
+#: take at once: the temporaries live for a group, not for the model
+CHUNK_ELEMENTS = 1 << 26
+
+
+def _chunks(leaves: List[torch.Tensor]):
+    """Index lists of consecutive leaves of at most ``CHUNK_ELEMENTS``
+    elements together (a larger leaf alone)."""
+    group, size = [], 0
+    for i, leaf in enumerate(leaves):
+        if group and size + leaf.numel() > CHUNK_ELEMENTS:
+            yield group
+            group, size = [], 0
+        group.append(i)
+        size += leaf.numel()
+    if group:
+        yield group
+
+
+def _add_consuming(params: List[torch.Tensor], deltas: List) -> List:
+    """``params + deltas`` (each delta cast to its parameter's dtype), a
+    group of leaves at a time, each delta dropped from ``deltas`` as soon
+    as it is added."""
+    out = []
+    for idx in _chunks(params):
+        out += torch._foreach_add([params[i] for i in idx],
+                                  [deltas[i].to(params[i].dtype)
+                                   for i in idx])
+        for i in idx:
+            deltas[i] = None
+    return out
+
+
 class FusedLAMBState(NamedTuple):
     step: torch.Tensor   # int32 0-d, steps taken (skipped ones excluded)
     m: Tree              # fp32, like params
@@ -288,27 +321,41 @@ class FusedLAMB:
         clip = torch.where(gnorm > self.max_grad_norm,
                            gnorm / self.max_grad_norm, 1.0)
 
-        # stage 1: per-leaf adam-style update (eps, weight decay per group)
-        g = torch._foreach_div([x.float() for x in g_leaves], clip)
-        p32 = [x.float() for x in p_leaves]
-        m2 = torch._foreach_mul(m_leaves, beta1)
-        torch._foreach_add_(m2, torch._foreach_mul(g, 1.0 - beta1))
-        gg = torch._foreach_mul(g, 1.0 - beta2)
-        torch._foreach_mul_(gg, g)
-        v2 = torch._foreach_mul(v_leaves, beta2)
-        torch._foreach_add_(v2, gg)
-        # bias correction; clamp: a skipped first step sees t = 0, where
-        # 1 - beta^0 = 0; its update only feeds keep-selected values
+        # stage 1: per-leaf adam-style update (eps, weight decay per
+        # group), run over groups of leaves (``_chunks``) with each
+        # temporary dropped or reused in place as soon as it is spent (the
+        # same values as one out-of-place chain over every leaf): beyond
+        # its inputs the step holds the new m, v and update, so a model
+        # whose masters, grads and moments fill most of the card still
+        # steps.  Bias correction: clamp, a skipped first step sees t = 0,
+        # where 1 - beta^0 = 0; its update only feeds keep-selected values
         t = step.clamp_min(1).float()
-        num = torch._foreach_div(m2, 1.0 - torch.pow(beta1, t))
-        den = torch._foreach_div(v2, 1.0 - torch.pow(beta2, t))
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, plan.eps)
-        upd = torch._foreach_div(num, den)
-        torch._foreach_add_(upd, torch._foreach_mul(p32, plan.weight_decay))
+        bc1, bc2 = 1.0 - torch.pow(beta1, t), 1.0 - torch.pow(beta2, t)
+        p32 = [x.float() for x in p_leaves]
+        m2, v2, upd = [None] * len(p32), [None] * len(p32), [None] * len(p32)
+        for idx in _chunks(p32):
+            g = torch._foreach_div([g_leaves[i].float() for i in idx], clip)
+            m = torch._foreach_mul([m_leaves[i] for i in idx], beta1)
+            torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - beta1))
+            gg = torch._foreach_mul(g, 1.0 - beta2)
+            torch._foreach_mul_(gg, g)
+            del g
+            v = torch._foreach_mul([v_leaves[i] for i in idx], beta2)
+            torch._foreach_add_(v, gg)
+            del gg
+            u = torch._foreach_div(m, bc1)
+            den = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, [plan.eps[i] for i in idx])
+            torch._foreach_div_(u, den)
+            del den
+            torch._foreach_add_(u, torch._foreach_mul(
+                [p32[i] for i in idx], [plan.weight_decay[i] for i in idx]))
+            for i, a, b, c in zip(idx, m, v, u):
+                m2[i], v2[i], upd[i] = a, b, c
         if keep is not None:
-            m2 = [torch.where(keep, a, b) for a, b in zip(m2, m_leaves)]
-            v2 = [torch.where(keep, a, b) for a, b in zip(v2, v_leaves)]
+            for new, old in zip(m2 + v2, m_leaves + v_leaves):
+                torch.where(keep, new, old, out=new)
 
         # stage 2: per-tensor trust ratio, of the whole leaf
         p_norm = torch.stack(torch._foreach_norm(p32))
@@ -339,7 +386,8 @@ class FusedLAMB:
                     factors[i] = self._slice_factor(p32[i], upd[i],
                                                     plan.neg_lr[i],
                                                     plan.excluded[i])
-        deltas = torch._foreach_mul(upd, factors)
+        torch._foreach_mul_(upd, factors)
+        deltas = upd
         new_state = FusedLAMBState(step=step,
                                    m=pytree.tree_unflatten(m2, spec),
                                    v=pytree.tree_unflatten(v2, spec))
@@ -400,10 +448,10 @@ class FusedLAMB:
         deltas, keep, new_state, (p_leaves, spec) = self._deltas(
             grads, state, params, skip)
         with torch.no_grad():
-            new = torch._foreach_add(
-                p_leaves, [d.to(p.dtype) for d, p in zip(deltas, p_leaves)])
+            new = _add_consuming(p_leaves, deltas)
             if keep is not None:
-                new = [torch.where(keep, a, b) for a, b in zip(new, p_leaves)]
+                for a, b in zip(new, p_leaves):
+                    torch.where(keep, a, b, out=a)
         new = [t.requires_grad_(t.is_floating_point()) for t in new]
         return pytree.tree_unflatten(new, spec), new_state
 
@@ -450,10 +498,10 @@ class FusedLAMB:
             pytree.tree_unflatten(g_loc, spec), state,
             pytree.tree_unflatten(p_loc, spec), skip, gnorm=gnorm,
             data_split=[d is not None for _, d in cuts])
-        fresh = torch._foreach_add(
-            p_loc, [dl.to(p.dtype) for dl, p in zip(deltas, p_loc)])
+        fresh = _add_consuming(p_loc, deltas)
         if keep is not None:
-            fresh = [torch.where(keep, a, b) for a, b in zip(fresh, p_loc)]
+            for a, b in zip(fresh, p_loc):
+                torch.where(keep, a, b, out=a)
         out, views, dims, shards = [], [], [], []
         for p, (place, d), x in zip(p_leaves, cuts, fresh):
             if d is None:

@@ -12,7 +12,9 @@ attention over the collectives ``ppermute_g`` / ``all_to_all_g``) and
 pipeline parallelism (``pipeline``: GPipe and 1F1B over the stage hop
 ``shift_g``, one stage a rank of the mesh's pipe axis).
 
-Not here yet: expert parallelism.
+Expert parallelism lives with its module, as in the JAX package:
+``models.MoEMlp(ep=<group>)`` with ``models.EP_RULES`` for
+:func:`shard_params`.
 """
 
 from apex_tpu_torch.parallel.LARC import LARC

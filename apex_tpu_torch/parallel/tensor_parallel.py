@@ -258,29 +258,38 @@ def tp_slice(state_dict: Mapping[str, torch.Tensor], rules: Rules,
 
 @torch.no_grad()
 def reset_seeded(module: torch.nn.Module, specs: Mapping[str, Tuple],
-                 tp: Optional["TPPlace"], seed: int, std: float) -> None:
-    """The dense model's initialization of ``module`` (a model rank under
+                 places: Mapping[str, "TPPlace"], seed: int,
+                 std: float) -> None:
+    """The dense model's initialization of ``module`` (a split rank under
     the dense model's names): from a CPU generator seeded ``seed``, each
     weight's full tensor drawn normal(``std``) in parameter order and
-    this rank's slice under ``specs`` kept, unit LayerNorm scales, zero
-    biases; so a seed gives the dense model's weights, split."""
+    this rank's slice under ``specs`` kept (``places`` maps each axis the
+    specs name to this rank's place in its group), unit LayerNorm
+    scales, zero biases; so a seed gives the dense model's weights,
+    split."""
     gen = torch.Generator().manual_seed(int(seed))
-    n = tp.size if tp is not None else 1
+    sizes = {axis: place.size for axis, place in places.items()}
+    coords = {axis: place.rank for axis, place in places.items()}
     for name, p in module.named_parameters():
         if name.endswith("_ln.scale"):
             p.fill_(1.0)
-        elif name.endswith("bias"):
+        elif is_bias(name):
             p.zero_()
         else:
             spec = specs.get(name, ())
-            shape = tuple(d * n if axis else d for d, axis in
+            shape = tuple(d * sizes[axis] if axis else d for d, axis in
                           zip(p.shape, spec + (None,) * p.dim()))
             full = torch.empty(shape, dtype=torch.float32).normal_(
                 0.0, std, generator=gen)
             if spec:
-                full = local_slice(full, spec, {"model": n},
-                                   {"model": tp.rank})
+                full = local_slice(full, spec, sizes, coords)
             p.copy_(full)
+
+
+def is_bias(name: str) -> bool:
+    """A bias leaf by its dotted name (``bias``, an MoE layer's
+    ``experts_bias_in``/``experts_bias_out``): zero-initialized."""
+    return "bias" in name.rsplit(".", 1)[-1]
 
 
 def pipeline_param_specs(params: Mapping[str, torch.Tensor], mesh: Mesh,

@@ -344,8 +344,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    versions and SDPA; the JSON line carries them as ``pp_microbatch``.
 
 20. train_sp_compose — sequence parallelism composed with the other
-   axes, four processes over gloo on the one card a world (CUDA
-   tensors), TF32 off, against one process's dense runs from the same
+   axes, four processes over gloo on the one card (CUDA tensors), TF32
+   off, against one process's dense runs from the same
    seed; its first line is the prediction (``C_PREDICTION``) written
    before any chip reading:
    (a) BERT-large ``--pp 2 --ring-attention 2`` (dp 1 x sp 2 x pp 2, B
@@ -370,7 +370,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
        scale-aware of the dense final hidden states' through the rank's
        ``wte``; launches exact (path ``train_pp_sp_gpt``);
    (d) GPT-2 small ``--sp 2 --tp 2`` (dp 1, B 8, S 1024), Ulysses and
-       ring: O0 2 steps through ``gpt_main_amp``'s ``build``/
+       ring, in (a)-(c)'s world of four: O0 2 steps through
+       ``gpt_main_amp``'s ``build``/
        ``train_step`` with DDP over the ``"data_sp"`` group (losses <=
        1e-4 relative, params after step 1 <= 1e-4 scale-aware of the
        dense step's, sliced as the rank's), O2 2 steps through
@@ -417,7 +418,51 @@ Phases, each printing one JSON line; any failure exits non-zero:
    version and SDPA.  To keep the whole script near 1000 s,
    ``train_sp_compose``'s O2 legs and ``train_sp`` (b) and (c)'s run 2
    steps, not 3, and ``train_pp`` (b)'s M 4 peaks are read from (a)'s
-   O2 runs (the same call) instead of two runs of their own.
+   O2 runs (the same call) instead of two runs of their own.  To make
+   room for ``train_moe``, ``train_sp_compose`` (d) runs in (a)-(c)'s
+   world of four (one spawn, not two), the dense references two phases
+   share run once a run (``_shared``), every BERT-large build of the
+   spawned ranks of ``train_sp``, ``train_pp``, ``train_sp_compose``,
+   ``train_tp_pp`` and ``train_moe`` loads its seed-0 weights (drawn
+   once a run, ``_seed0_bert_large``; ``train_moe``'s from (a)'s O0
+   model) from the card over CUDA IPC (``_spawn_seed0``) instead of
+   drawing them, and ``_profile`` traces the card's kernels alone (the
+   host's ops were never read).
+
+22. train_moe — Switch-MoE (``models.MoEMlp``) in BERT-large's layers,
+   TF32 off; its first line is the prediction (``M_PREDICTION``):
+   (a) one process, ``bert_main_amp``'s ``build`` and ``train_step``
+       for ``--config large --moe 8 --moe-dispatch capacity`` (factor
+       1.25) at B 32, S 128, O2 with the recipe's FusedLAMB, flash
+       attention, 3 steps: finite losses, step ms, tokens/s, the peak,
+       launches exact (``train_bert``'s formula without dropout: the MoE
+       adds no launch of B2-B6), the router fp32 and the experts bf16 in
+       the compute layout, one more step under ``torch.profiler``; at
+       O0 and B 16 one forward of the seed-0 model in capacity dispatch
+       at factor 8 (nothing drops) against dense dispatch: the logits
+       within 1e-5 scale-aware, the aux within 1e-6 relative (the dense
+       logits saved for (b));
+   (b) two processes over gloo on the one card, ``--moe 8 --pp 2`` (M
+       4, B 16, S 128, O0, 2 steps through ``build``/``train_step``,
+       each pipe rank's seed-0 weights loaded from (a)'s O0 model over
+       CUDA IPC; run before (a)'s O2 steps),
+       both dispatches: 1F1B against GPipe, the losses within 1e-5
+       relative, every step-1 gradient within rtol 3e-4 / atol 1e-5,
+       every stage's router gradient nonzero, launches exact (paths
+       ``train_moe_pp_gpipe``, ``train_moe_pp_1f1b``); GPipe's dense
+       logits within 1e-4 of (a)'s;
+   (c) in the same world, EP at ep 2: one MoE layer at BERT-large width
+       (E 8, 4096 tokens), both dispatches, against the replicated layer
+       on each rank: out and the gradients of x, the router and the
+       rank's experts within 1e-5 scale-aware, aux within 1e-6, the
+       expert bytes a rank half.
+
+The dense references two phases share (GPT-2 small's ``--tp`` runs of
+``train_tp_zero`` and ``train_sp_compose`` (d), BERT-large's B 16, S 512
+runs of ``train_sp_compose`` and ``train_tp_pp``) are computed once a
+run (``_shared``; a phase run alone computes its own), their files kept
+under ``chiprun_out/chip_smoke/`` until the run ends; each call's
+seconds are a ``dense_reference`` line.
 
 The O1 phases run last, and each ends by removing the policy, resetting
 amp's state and checking every patched function is its original again.
@@ -2508,8 +2553,7 @@ def _profile(label, run, **fields):
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2856,16 +2900,20 @@ def phase_train():
 
 # -- train_bert ---------------------------------------------------------------
 
-def _bert_per_step_launches(cfg, names):
+def _bert_per_step_launches(cfg, names, dropout=True):
     """Launches of one BERT training step with dropout: 2L+2 LayerNorms
     (embeddings, two per layer, the MLM head) forward and backward, L
     flash attentions with dropout forward, dq and dk/dv, 2L+1 hidden
     dropouts (embeddings, two per layer) forward and as many backward;
-    nothing else (FusedLAMB is plain PyTorch)."""
+    nothing else (FusedLAMB is plain PyTorch, an MoE layer's router,
+    experts and dispatch are PyTorch products and indexing).  Without
+    ``dropout`` the flash kernels' plain branches and no threefry."""
     n = cfg.num_hidden_layers
+    sfx = "_dropout" if dropout else ""
     step = {"layer_norm_fwd": 2 * n + 2, "layer_norm_bwd": 2 * n + 2,
-            "flash_fwd_dropout": n, "flash_bwd_dq_dropout": n,
-            "flash_bwd_dkv_dropout": n, "threefry_dropout": 2 * (2 * n + 1)}
+            f"flash_fwd{sfx}": n, f"flash_bwd_dq{sfx}": n,
+            f"flash_bwd_dkv{sfx}": n,
+            "threefry_dropout": 2 * (2 * n + 1) if dropout else 0}
     return {name: step.get(name, 0) for name in names}
 
 
@@ -4648,9 +4696,70 @@ def _tp_state_dict(cfg, tp):
     return sd
 
 
+# the dense references two phases share (train_tp_zero's, train_sp's and
+# train_sp_compose's GPT-2 small runs, train_sp_compose's and
+# train_tp_pp's BERT-large runs): computed once a run, each phase still
+# computing its own when it runs alone; their files stay under OUT_DIR
+# until main() ends
+_SHARED = {}
+SHARED_FILES = ("tp_dense_step1.pt", "sp_dense_grads.pt",
+                "bert_large_dense_grads.pt")
+
+
+def _shared(name, compute):
+    """``compute()``'s result (a dict), computed on the run's first call
+    and reused after; each call emits the seconds it took and the first
+    call's."""
+    t0 = time.perf_counter()
+    fresh = name not in _SHARED
+    if fresh:
+        _SHARED[name] = (compute(), time.perf_counter() - t0)
+    value, first = _SHARED[name]
+    emit("dense_reference", name=name, computed=fresh,
+         seconds=time.perf_counter() - t0, first_call_seconds=first)
+    return dict(value)
+
+
+@functools.lru_cache(maxsize=None)
+def _seed0_bert_large():
+    """BERT-large's seed-0 weights (``BertForPreTraining(seed=0)``'s state
+    dict) on the host, drawn once a run: the dense references build from
+    them, and ``_spawn_seed0`` shares them with the spawned ranks."""
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models import BertForPreTraining
+    return BertForPreTraining(bert_main_amp.get_config("large"),
+                              device="cpu", seed=0).state_dict()
+
+
+def _spawn_seed0(fn, world, name, state=None):
+    """``_spawn`` with a dense BERT state dict on the card as the ranks'
+    last argument, shared over CUDA IPC: ``state``, or BERT-large's
+    seed-0 weights.  The one way a spawned rank gets its seed-0 weights:
+    every build loads the dense dict (``state_dict=seed0``) or its part,
+    ``dense_to_rank(seed0, cfg, pp, pipe, tp, tp_rank)`` (a pipeline
+    stage, under TP a Megatron slice of one), instead of drawing them;
+    the shared copy freed when the ranks end."""
+    import torch
+    seed0 = {k: v.cuda() for k, v in
+             (state if state is not None else _seed0_bert_large()).items()}
+    try:
+        return _spawn(fn, world, name, seed0)
+    finally:
+        del seed0
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+
+
 def _tp_dense_reference():
-    """One process's dense runs from the same weights: O0 (its step-1
-    params saved for the ranks, padded as theirs) and O2."""
+    """One process's dense GPT-2 small runs (``_tp_dense_runs``), shared
+    by the run's phases."""
+    return _shared("gpt2_small_tp_dense", _tp_dense_runs)
+
+
+def _tp_dense_runs():
+    """One process's dense GPT-2 small runs at B 8, S 1024 from seed 0:
+    O0 (its step-1 gradients saved for train_sp's ranks, its step-1
+    params for the --tp ranks) and O2."""
     import torch
     from apex_tpu_torch.examples import gpt_main_amp
     cfg = gpt_main_amp.config("small", TRAIN_SEQ)
@@ -4662,12 +4771,15 @@ def _tp_dense_reference():
         losses = []
         for step in range(steps):
             ids = torch.from_numpy(next(data)).to("cuda")
-            params, st, loss, _ = gpt_main_amp.train_step(model, opt, params,
-                                                          st, ids)
+            params, st, loss, grads = gpt_main_amp.train_step(
+                model, opt, params, st, ids)
             losses.append(float(loss))
             if level == "O0" and step == 0:
+                torch.save({k: v.detach().cpu() for k, v in grads.items()},
+                           OUT_DIR / "sp_dense_grads.pt")
                 sd = {k: v.detach().cpu() for k, v in params.items()}
                 torch.save(sd, OUT_DIR / "tp_dense_step1.pt")
+            del grads
         out[level] = losses
         del model, opt, params, st
         torch.cuda.empty_cache()
@@ -4917,7 +5029,6 @@ def phase_train_tp_zero():
                            join=True, start_method="spawn")
     finally:
         store.unlink(missing_ok=True)
-        (OUT_DIR / "tp_dense_step1.pt").unlink(missing_ok=True)
     ranks_s = time.perf_counter() - t0
     ranks = []
     for r in range(2):
@@ -5046,25 +5157,10 @@ def _sp_dense():
     import torch
     from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp
     from apex_tpu_torch.ops import make_flash_attention
-    out = {}
-    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
-    for level, steps in (("O0", SP_O0_STEPS), ("O2", SP_O2_STEPS)):
-        model, opt, params, st = gpt_main_amp.build(
-            cfg, lr=TRAIN_LR, opt_level=level, device="cuda", seed=0)
-        data = gpt_main_amp.batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
-        losses = []
-        for step in range(steps):
-            ids = torch.from_numpy(next(data)).to("cuda")
-            params, st, loss, grads = gpt_main_amp.train_step(
-                model, opt, params, st, ids)
-            losses.append(float(loss))
-            if level == "O0" and step == 0:
-                torch.save({k: v.detach().cpu() for k, v in grads.items()},
-                           OUT_DIR / "sp_dense_grads.pt")
-            del grads
-        out[f"gpt_{level}"] = losses
-        del model, opt, params, st
-        torch.cuda.empty_cache()
+    # GPT-2 small's O0 and O2 runs are train_tp_zero's (the same seed,
+    # batches and steps: SP_O0_STEPS, SP_O2_STEPS)
+    gpt = _tp_dense_reference()
+    out = {"gpt_O0": gpt["O0"], "gpt_O2": gpt["O2"]}
     long_cfg = gpt_main_amp.config("small", SP_LONG_SEQ)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5081,7 +5177,7 @@ def _sp_dense():
     for level, steps in (("O0", 1), ("O2", SP_BERT_O2_STEPS)):
         model, opt, params, st = bert_main_amp.build(
             bcfg, opt_level=level, attention_fn=make_flash_attention(),
-            device="cuda", seed=0)
+            device="cuda", state_dict=_seed0_bert_large())
         data = bert_main_amp.batches(bcfg, SP_BERT_BATCH, SP_BERT_SEQ)
         losses = []
         for step in range(steps):
@@ -5141,8 +5237,10 @@ def _sp_steps(build, step, batches, steps, grads_file=None,
     return out
 
 
-def _sp_rank_legs(rank):
-    """(a)-(c) on this rank of a (1, 2) sequence mesh."""
+def _sp_rank_legs(rank, seed0):
+    """(a)-(c) on this rank of a (1, 2) sequence mesh; ``seed0``:
+    BERT-large's seed-0 weights on the card (``_spawn_seed0``), which
+    every BERT build loads."""
     import torch
     from apex_tpu_torch import parallel
     from apex_tpu_torch.examples import bert_main_amp, gpt_main_amp
@@ -5182,7 +5280,7 @@ def _sp_rank_legs(rank):
         def build():
             mesh = parallel.create_mesh(sp=SP)
             return bert_main_amp.build(bcfg, opt_level=level, device="cuda",
-                                       seed=0, mesh=mesh,
+                                       state_dict=seed0, mesh=mesh,
                                        sp_attention=pattern) + (mesh,)
         return build
 
@@ -5204,7 +5302,7 @@ def _sp_rank_legs(rank):
     return out
 
 
-def _sp_rank(rank, world, store):
+def _sp_rank(rank, world, store, seed0):
     """(a)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
     import torch
     import torch.distributed as dist
@@ -5215,7 +5313,8 @@ def _sp_rank(rank, world, store):
                             rank=rank, world_size=world)
     try:
         t0 = time.perf_counter()
-        out = _sp_rank_legs(rank)
+        out = _sp_rank_legs(rank, seed0)
+        seed0.clear()       # the shared blocks released (see _moe_rank)
         out["seconds"] = time.perf_counter() - t0
         (OUT_DIR / f"sp_rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -5287,13 +5386,16 @@ def _sp_zero_rank(rank, world, store):
         dist.destroy_process_group()
 
 
-def _spawn(fn, world, name):
+def _spawn(fn, world, name, *extra):
+    """``world`` processes running ``fn(rank, world, store, *extra)``
+    (CUDA tensors in ``extra`` reach them through CUDA IPC, no copy);
+    their JSON results."""
     import torch.multiprocessing as mp
     store = OUT_DIR / f"{name}_store"
     store.unlink(missing_ok=True)
     try:
-        mp.start_processes(fn, args=(world, str(store)), nprocs=world,
-                           join=True, start_method="spawn")
+        mp.start_processes(fn, args=(world, str(store), *extra),
+                           nprocs=world, join=True, start_method="spawn")
     finally:
         store.unlink(missing_ok=True)
     ranks = []
@@ -5331,9 +5433,8 @@ def phase_train_sp():
         dense = _sp_dense()
         dense_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = _spawn(_sp_rank, SP, "sp")
+        ranks = _spawn_seed0(_sp_rank, SP, "sp")
     finally:
-        (OUT_DIR / "sp_dense_grads.pt").unlink(missing_ok=True)
         (OUT_DIR / "sp_bert_grads.pt").unlink(missing_ok=True)
     ranks_s = time.perf_counter() - t0
     by_path = {}
@@ -5592,7 +5693,7 @@ def _pp_dense():
     for level, steps in (("O0", PP_O0_STEPS), ("O2", PP_O2_STEPS)):
         model, opt, params, st = bert_main_amp.build(
             cfg, opt_level=level, attention_fn=make_flash_attention(),
-            device="cuda", seed=0)
+            device="cuda", state_dict=_seed0_bert_large())
         data = bert_main_amp.batches(cfg, PP_BATCH, PP_SEQ)
         losses, seconds = [], []
         for step in range(steps):
@@ -5611,7 +5712,7 @@ def _pp_dense():
         if level == "O0":
             model, opt, params, st = bert_main_amp.build(
                 cfg, opt_level="O0", attention_fn=make_flash_attention(),
-                device="cuda", seed=0)
+                device="cuda", state_dict=_seed0_bert_large())
             rows = [next(bert_main_amp.batches(cfg, PP_DP_BATCH, PP_SEQ,
                                                seed=d)) for d in range(2)]
             batch = tuple(torch.from_numpy(np.concatenate(parts)).cuda()
@@ -5720,7 +5821,9 @@ def _pp_run(build, schedule, batches, steps, keep_params=False, **step_kw):
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.examples import bert_main_amp
     from apex_tpu_torch.parallel import DistributedDataParallel
+    t0 = time.perf_counter()
     model, opt, params, st, mesh = build()
+    build_s = time.perf_counter() - t0
     ddp = DistributedDataParallel(model, process_group=mesh.group("data"))
     losses, seconds, grads1, params1 = [], [], None, None
     torch.cuda.synchronize()
@@ -5745,6 +5848,7 @@ def _pp_run(build, schedule, batches, steps, keep_params=False, **step_kw):
             del grads
         torch.cuda.synchronize()
     out = {"losses": losses, "step_seconds": seconds,
+           "build_seconds": build_s,
            "launches": launch_counts(), "collectives": dict(coll.counts),
            "peak_memory_gb": mem.step_peak() / 1e9,
            "pipe_peak_gb": mem.peak / 1e9, "pipe_held_gb": mem.held / 1e9}
@@ -5764,8 +5868,10 @@ def _pp_grad_err(grads, want_file, pp, rank, tp=1, tp_rank=0):
                for k, w in want.items())
 
 
-def _pp_rank_legs(rank):
-    """(a), (b), (d) and (e) on this rank of the (1, 2) pipe mesh."""
+def _pp_rank_legs(rank, seed0):
+    """(a), (b), (d) and (e) on this rank of the (1, 2) pipe mesh;
+    ``seed0``: BERT-large's seed-0 weights on the card
+    (``_spawn_seed0``), whose stage every BERT build loads."""
     import dataclasses
     import torch
     from apex_tpu_torch import parallel
@@ -5773,22 +5879,19 @@ def _pp_rank_legs(rank):
     from apex_tpu_torch.examples import bert_main_amp
     from apex_tpu_torch.models import PipelinedGPT, gpt_small
     from apex_tpu_torch.ops import make_flash_attention
+    from apex_tpu_torch.models.bert import dense_to_rank
     cfg = bert_main_amp.get_config("large")
     lps, last = BERT_LAYERS // PP, rank == PP - 1
-    out, state = {}, {}
+    out = {}
 
     def make_build(level, m, config=cfg):
         def build():
             mesh = parallel.create_mesh(pp=PP)
-            made = bert_main_amp.build(
+            return bert_main_amp.build(
                 config, opt_level=level, attention_fn=make_flash_attention(),
-                device="cuda", seed=0, state_dict=state.get("sd"),
-                mesh=mesh, pp_microbatches=m)
-            if "sd" not in state:
-                # on the host: no device memory through the measured runs
-                state["sd"] = {k: v.detach().cpu() for k, v in
-                               made[0].module.state_dict().items()}
-            return made + (mesh,)
+                device="cuda", state_dict=dense_to_rank(seed0, config, PP,
+                                                        rank),
+                mesh=mesh, pp_microbatches=m) + (mesh,)
         return build
 
     def data(batch=PP_BATCH):
@@ -5836,7 +5939,7 @@ def _pp_rank_legs(rank):
     out["drop_grad_err"] = max(
         scale_aware_err(drop["1f1b"][k], drop["gpipe"][k])[0]
         for k in drop["gpipe"])
-    del drop, state["sd"]
+    del drop
     torch.cuda.empty_cache()
     # (e): GPT-2 small's PipelinedGPT, 1F1B with skewed padding, O0
     mesh = parallel.create_mesh(pp=PP)
@@ -5862,7 +5965,7 @@ def _pp_rank_legs(rank):
     return out
 
 
-def _pp_rank(rank, world, store):
+def _pp_rank(rank, world, store, seed0):
     """(a), (b), (d), (e)'s ranks: gloo on CUDA tensors, TF32 off."""
     import torch
     import torch.distributed as dist
@@ -5873,16 +5976,18 @@ def _pp_rank(rank, world, store):
                             rank=rank, world_size=world)
     try:
         t0 = time.perf_counter()
-        out = _pp_rank_legs(rank)
+        out = _pp_rank_legs(rank, seed0)
+        seed0.clear()       # the shared blocks released (see _moe_rank)
         out["seconds"] = time.perf_counter() - t0
         (OUT_DIR / f"pp_rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def _pp_dp_rank(rank, world, store):
+def _pp_dp_rank(rank, world, store, seed0):
     """(c) on this rank of the (2, 2) mesh: BERT-large O0, one 1F1B step
-    and one GPipe step, data index d's 16 rows from ``RandomState(d)``."""
+    and one GPipe step, data index d's 16 rows from ``RandomState(d)``;
+    the stage's seed-0 weights from ``seed0`` (``_spawn_seed0``)."""
     import torch
     import torch.distributed as dist
     from apex_tpu_torch import parallel
@@ -5894,18 +5999,17 @@ def _pp_dp_rank(rank, world, store):
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
+        from apex_tpu_torch.models.bert import dense_to_rank
         cfg = bert_main_amp.get_config("large")
-        out, state = {}, {}
+        out = {}
         for schedule in ("1f1b", "gpipe"):
             def build():
                 mesh = parallel.create_mesh(pp=PP)
-                made = bert_main_amp.build(
+                return bert_main_amp.build(
                     cfg, opt_level="O0", attention_fn=make_flash_attention(),
-                    device="cuda", seed=0, state_dict=state.get("sd"),
-                    mesh=mesh, pp_microbatches=PP_M)
-                state.setdefault("sd", {k: v.detach().clone() for k, v in
-                                        made[0].module.state_dict().items()})
-                return made + (mesh,)
+                    device="cuda", state_dict=dense_to_rank(
+                        seed0, cfg, PP, rank % PP),
+                    mesh=mesh, pp_microbatches=PP_M) + (mesh,)
             d = rank // PP
             res, grads1, _ = _pp_run(
                 build, schedule, bert_main_amp.batches(cfg, PP_DP_BATCH,
@@ -5914,6 +6018,7 @@ def _pp_dp_rank(rank, world, store):
                 grads1, OUT_DIR / "pp_dp_grads.pt", PP, rank % PP)
             out[schedule] = res
             del grads1
+        seed0.clear()       # the shared blocks released (see _moe_rank)
         (OUT_DIR / f"pp_dp_rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -5932,10 +6037,10 @@ def phase_train_pp():
         dense = _pp_dense()
         dense_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = _spawn(_pp_rank, PP, "pp")
+        ranks = _spawn_seed0(_pp_rank, PP, "pp")
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        dp_ranks = _spawn(_pp_dp_rank, 2 * PP, "pp_dp")
+        dp_ranks = _spawn_seed0(_pp_dp_rank, 2 * PP, "pp_dp")
         dp_s = time.perf_counter() - t0
     finally:
         for f in files:
@@ -6152,10 +6257,19 @@ def _compose_launches(names, lps, m, schedule, last, steps, calls,
             for k, v in counts.items()}
 
 
-def _bert_large_dense(grads_file):
+BERT_DENSE_GRADS = "bert_large_dense_grads.pt"
+
+
+def _bert_large_dense():
+    """One process's dense BERT-large runs (``_bert_large_dense_runs``),
+    shared by the run's phases."""
+    return _shared("bert_large_dense", _bert_large_dense_runs)
+
+
+def _bert_large_dense_runs():
     """One process's dense BERT-large runs at B 16, S 512 (seed 0, flash
     attention): O0 ``C_O0_STEPS`` steps, the step-1 gradients of the
-    ``PP_GRADS`` leaves written to ``grads_file``, and O2
+    ``PP_GRADS`` leaves written to ``BERT_DENSE_GRADS``, and O2
     ``C_O2_STEPS`` steps; each its losses and step seconds."""
     import torch
     from apex_tpu_torch.examples import bert_main_amp
@@ -6165,7 +6279,7 @@ def _bert_large_dense(grads_file):
     for level, steps in (("O0", C_O0_STEPS), ("O2", C_O2_STEPS)):
         model, opt, params, st = bert_main_amp.build(
             cfg, opt_level=level, attention_fn=make_flash_attention(),
-            device="cuda", seed=0)
+            device="cuda", state_dict=_seed0_bert_large())
         data = bert_main_amp.batches(cfg, CB_BATCH, CB_SEQ)
         losses, seconds = [], []
         for step in range(steps):
@@ -6177,7 +6291,8 @@ def _bert_large_dense(grads_file):
             seconds.append(time.perf_counter() - t0)
             if level == "O0" and step == 0:
                 torch.save({k: v.detach().cpu() for k, v in grads.items()
-                            if PP_GRADS.search(k)}, OUT_DIR / grads_file)
+                            if PP_GRADS.search(k)},
+                           OUT_DIR / BERT_DENSE_GRADS)
             del grads
         out[f"bert_{level}"] = {"losses": losses, "step_seconds": seconds}
         del model, opt, params, st
@@ -6195,7 +6310,7 @@ def _compose_dense():
     from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
     from apex_tpu_torch.models.gpt import lm_loss
     from apex_tpu_torch.ops import make_flash_attention
-    out = _bert_large_dense("c_dense_grads.pt")
+    out = _bert_large_dense()
     model = GPTLMHeadModel(gpt_small(), make_flash_attention(causal=True),
                            device="cuda", seed=0)
     ids = torch.from_numpy(next(_c_gpt_batches())).cuda()
@@ -6231,7 +6346,9 @@ def _compose_run(build, schedule, batches, steps, keep_params=False,
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.examples import bert_main_amp
     from apex_tpu_torch.parallel import DistributedDataParallel
+    t0 = time.perf_counter()
     model, opt, params, st, mesh = build()
+    build_s = time.perf_counter() - t0
     ddp = DistributedDataParallel(model, process_group=mesh.group(
         "data" if schedule == "1f1b" else "data_sp"))
     losses, seconds, grads1, params1 = [], [], None, None
@@ -6257,6 +6374,7 @@ def _compose_run(build, schedule, batches, steps, keep_params=False,
             del grads
         torch.cuda.synchronize()
     out = {"losses": losses, "step_seconds": seconds,
+           "build_seconds": build_s,
            "launches": launch_counts(), "collectives": dict(coll.counts),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     if keep_final is not None:
@@ -6294,31 +6412,31 @@ def _compose_o2(schedule, pattern):
     return out
 
 
-def _compose_rank_legs(rank):
-    """(a), (b) and (c) on this rank of the (1, 2, 2) mesh."""
+def _compose_rank_legs(rank, seed0):
+    """(a), (b) and (c) on this rank of the (1, 2, 2) mesh; ``seed0``:
+    BERT-large's seed-0 weights on the card (``_spawn_seed0``), whose
+    stage every BERT build loads."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch import parallel
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.examples import bert_main_amp
     from apex_tpu_torch.models import PipelinedGPT, gpt_small
+    from apex_tpu_torch.models.bert import dense_to_rank
     cfg = bert_main_amp.get_config("large")
     mesh0 = parallel.create_mesh(sp=CSP, pp=CPP)
     sp_rank, pipe = mesh0.index("sp"), mesh0.index("pipe")
     lps, last = BERT_LAYERS // CPP, pipe == CPP - 1
-    out, state = {"coords": [0, sp_rank, pipe]}, {}
+    out = {"coords": [0, sp_rank, pipe]}
 
     def make_build(level, pattern, config=cfg):
         def build():
             mesh = parallel.create_mesh(sp=CSP, pp=CPP)
-            made = bert_main_amp.build(
-                config, opt_level=level, device="cuda", seed=0,
-                state_dict=state.get("sd"), mesh=mesh, sp_attention=pattern,
-                pp_microbatches=C_M)
-            if "sd" not in state:
-                state["sd"] = {k: v.detach().cpu() for k, v in
-                               made[0].module.state_dict().items()}
-            return made + (mesh,)
+            return bert_main_amp.build(
+                config, opt_level=level, device="cuda",
+                state_dict=dense_to_rank(seed0, config, CPP, pipe),
+                mesh=mesh, sp_attention=pattern,
+                pp_microbatches=C_M) + (mesh,)
         return build
 
     def data():
@@ -6332,7 +6450,7 @@ def _compose_rank_legs(rank):
             make_build("O0", pattern), schedule, data(), C_O0_STEPS,
             keep_params=True)
         res["step1_grad_err"] = _pp_grad_err(
-            grads1, OUT_DIR / "c_dense_grads.pt", CPP, pipe)
+            grads1, OUT_DIR / BERT_DENSE_GRADS, CPP, pipe)
         res["want_launches"] = _compose_launches(
             res["launches"], lps, C_M, schedule, last, C_O0_STEPS, calls)
         out[f"{schedule}_O0"] = res
@@ -6365,7 +6483,7 @@ def _compose_rank_legs(rank):
     out["drop_grad_err"] = max(
         scale_aware_err(drop["1f1b"][k].cuda(), drop["gpipe"][k].cuda())[0]
         for k in drop["gpipe"])
-    del drop, state["sd"]
+    del drop
     torch.cuda.empty_cache()
     # (c): GPT-2 small's PipelinedGPT, 1F1B with Ulysses, GPipe with ring
     ids = torch.from_numpy(next(_c_gpt_batches())).cuda()
@@ -6412,8 +6530,10 @@ def _compose_rank_legs(rank):
     return out
 
 
-def _compose_rank(rank, world, store):
-    """(a)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
+def _compose_rank(rank, world, store, seed0):
+    """(a)-(d)'s ranks, one world of four for both meshes: gloo on CUDA
+    tensors, TF32 off."""
+    import gc
     import torch
     import torch.distributed as dist
     torch.cuda.set_device(0)
@@ -6423,9 +6543,16 @@ def _compose_rank(rank, world, store):
                             rank=rank, world_size=world)
     try:
         t0 = time.perf_counter()
-        out = _compose_rank_legs(rank)
+        out = _compose_rank_legs(rank, seed0)
+        seed0.clear()       # the shared blocks released (see _moe_rank)
         out["seconds"] = time.perf_counter() - t0
         (OUT_DIR / f"compose_rank{rank}.json").write_text(json.dumps(out))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = _sp_tp_rank_legs(rank)
+        out["seconds"] = time.perf_counter() - t0
+        (OUT_DIR / f"sp_tp_rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
@@ -6465,7 +6592,7 @@ def _sp_tp_o0(cfg, vocab, sd, pattern, want1):
             "step1_param_err": step1_err}
 
 
-def _sp_tp_rank(rank, world, store):
+def _sp_tp_rank_legs(rank):
     """(d) on this rank of the (1, 2, 2) (data, sp, model) mesh: GPT-2
     small --sp 2 --tp 2, Ulysses and ring, O0 through ``build`` and
     ``train_step`` (its params after step 1 against the dense process's,
@@ -6474,82 +6601,77 @@ def _sp_tp_rank(rank, world, store):
     group, checks and overflow groups; launches, collectives and the
     peak are read around the O2 run."""
     import torch
-    import torch.distributed as dist
     from apex_tpu_torch import parallel
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.examples import gpt_main_amp
     from apex_tpu_torch.models.gpt import padded_vocab
     from apex_tpu_torch.parallel import tensor_parallel as tpar
-    torch.cuda.set_device(0)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
-    try:
-        cfg = gpt_main_amp.config("small", TRAIN_SEQ)
-        vocab = padded_vocab(cfg.vocab_size, TP)
-        sd = _tp_state_dict(cfg, TP)
-        dense1 = torch.load(OUT_DIR / "tp_dense_step1.pt")
-        dense1["wte.weight"] = torch.cat([dense1["wte.weight"],
-                                          dense1["wte.weight"].new_zeros(
-                                              vocab - cfg.vocab_size,
-                                              cfg.hidden_size)])
-        mesh = parallel.create_mesh(sp=CSP, tp=TP)
-        sp_rank = mesh.index("sp")
-        want1 = tpar.shard_params(dense1, mesh, tpar.gpt_tp_rules(),
-                                  num_heads=cfg.num_attention_heads)
-        del dense1
-        out = {"coords": [0, sp_rank, mesh.index("model")]}
-        for pattern in ("ulysses", "ring"):
-            calls = sp_rank + 1 if pattern == "ring" else 1
-            out[f"{pattern}_O0"] = _sp_tp_o0(cfg, vocab, sd, pattern, want1)
+    cfg = gpt_main_amp.config("small", TRAIN_SEQ)
+    vocab = padded_vocab(cfg.vocab_size, TP)
+    sd = _tp_state_dict(cfg, TP)
+    dense1 = torch.load(OUT_DIR / "tp_dense_step1.pt")
+    dense1["wte.weight"] = torch.cat([dense1["wte.weight"],
+                                      dense1["wte.weight"].new_zeros(
+                                          vocab - cfg.vocab_size,
+                                          cfg.hidden_size)])
+    mesh = parallel.create_mesh(sp=CSP, tp=TP)
+    sp_rank = mesh.index("sp")
+    want1 = tpar.shard_params(dense1, mesh, tpar.gpt_tp_rules(),
+                              num_heads=cfg.num_attention_heads)
+    del dense1
+    out = {"coords": [0, sp_rank, mesh.index("model")]}
+    for pattern in ("ulysses", "ring"):
+        calls = sp_rank + 1 if pattern == "ring" else 1
+        out[f"{pattern}_O0"] = _sp_tp_o0(cfg, vocab, sd, pattern, want1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with _CollectiveCount() as coll:
+            res = gpt_main_amp.train(
+                cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                steps=C_O2_STEPS, lr=TRAIN_LR, opt_level="O2",
+                device="cuda", state_dict=sd, tp=TP, sp=CSP,
+                sp_attention=pattern)
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            with _CollectiveCount() as coll:
-                res = gpt_main_amp.train(
-                    cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                    steps=C_O2_STEPS, lr=TRAIN_LR, opt_level="O2",
-                    device="cuda", state_dict=sd, tp=TP, sp=CSP,
-                    sp_attention=pattern)
-                torch.cuda.synchronize()
-            counts = launch_counts()
-            want = {k: v * calls if k.startswith("flash_") else v
-                    for k, v in _tp_launches(cfg, counts,
-                                             C_O2_STEPS).items()}
-            out[f"{pattern}_O2"] = {
-                "losses": res["losses"], "step_seconds": res["step_seconds"],
-                "tokens_per_s_four": res["tokens_per_s"],
-                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "launches": counts, "want_launches": want,
-                "collectives": dict(coll.counts)}
-            del res
-            torch.cuda.empty_cache()
-        (OUT_DIR / f"sp_tp_rank{rank}.json").write_text(json.dumps(out))
-    finally:
-        dist.destroy_process_group()
+        counts = launch_counts()
+        want = {k: v * calls if k.startswith("flash_") else v
+                for k, v in _tp_launches(cfg, counts,
+                                         C_O2_STEPS).items()}
+        out[f"{pattern}_O2"] = {
+            "losses": res["losses"], "step_seconds": res["step_seconds"],
+            "tokens_per_s_four": res["tokens_per_s"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "want_launches": want,
+            "collectives": dict(coll.counts)}
+        del res
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_sp_compose():
     """Sequence parallelism composed with the other axes: (a) BERT-large
     --pp 2 --ring-attention 2, GPipe with ring and 1F1B with Ulysses, O0
     and O2, (b) dropout through PipelinedBert with Ulysses, (c) GPT-2
-    small's PipelinedGPT with sp 2, as four processes over gloo on the
-    one card; (d) GPT-2 small --sp 2 --tp 2, four more; each against
-    one dense process."""
+    small's PipelinedGPT with sp 2, and (d) GPT-2 small --sp 2 --tp 2,
+    as one world of four processes over gloo on the one card; each
+    against one dense process."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     emit("train_sp_compose", prediction=C_PREDICTION)
     t0 = time.perf_counter()
-    files = ("c_dense_grads.pt", "c_gpt.pt", "tp_dense_step1.pt")
+    files = ("c_gpt.pt",)
     try:
         dense = _compose_dense()
         dense_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = _spawn(_compose_rank, CSP * CPP, "compose")
+        # (a)-(c) and (d) in one world of four (two meshes): one spawn
+        ranks = _spawn_seed0(_compose_rank, CSP * CPP, "compose")
         ranks_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        sp_tp = _spawn(_sp_tp_rank, CSP * TP, "sp_tp")
-        sp_tp_s = time.perf_counter() - t0
+        sp_tp = []
+        for r in range(CSP * TP):
+            path = OUT_DIR / f"sp_tp_rank{r}.json"
+            sp_tp.append(json.loads(path.read_text()))
+            path.unlink()
+        sp_tp_s = max(res["seconds"] for res in sp_tp)
     finally:
         for f in files:
             (OUT_DIR / f).unlink(missing_ok=True)
@@ -6749,7 +6871,7 @@ T_PREDICTION = {
 
 
 def _tp_pp_bert_build(level, m_batch=T_M, mesh_kw=None, zero=False,
-                      state_dict=None):
+                      seed0=None):
     """A rank's ``PipelinedBert`` of BERT-large with TP inside the pipeline
     (``mesh_kw`` the mesh: dp 1 x pp 2 x tp 2 by default), flash
     attention, seed 0, under amp ``level`` with the BERT recipe's
@@ -6757,21 +6879,28 @@ def _tp_pp_bert_build(level, m_batch=T_M, mesh_kw=None, zero=False,
     trust-ratio norms of the model-split leaves over the model group
     (``with_tensor_parallel``), the overflow flag over both; ``zero``:
     ZeRO-1 of LAMB's moments over the data group, ``like_params`` the
-    model's places.  Returns the build function ``_compose_run`` takes."""
+    model's places; ``seed0``: BERT-large's seed-0 weights on the card
+    (``_spawn_seed0``), whose part for the rank's (pipe, model) place
+    the build loads instead of drawing them.  Returns the build function
+    ``_compose_run`` takes."""
     def build():
         from apex_tpu_torch import amp, parallel
         from apex_tpu_torch.examples import bert_main_amp
         from apex_tpu_torch.models import PipelinedBert
+        from apex_tpu_torch.models.bert import dense_to_rank
         from apex_tpu_torch.ops import make_flash_attention
         mesh = parallel.create_mesh(**(mesh_kw or dict(pp=T_PP, tp=T_TP)))
         tp = mesh.shape["model"] > 1
+        cfg = bert_main_amp.get_config("large")
         module = PipelinedBert(
-            bert_main_amp.get_config("large"), mesh, mesh.shape["pipe"],
-            m_batch, batch_axis="data", tp_axis="model" if tp else None,
+            cfg, mesh, mesh.shape["pipe"], m_batch, batch_axis="data",
+            tp_axis="model" if tp else None,
             attention_fn=make_flash_attention(), device="cuda",
-            seed=None if state_dict is not None else 0)
-        if state_dict is not None:
-            module.load_state_dict(state_dict)
+            seed=None if seed0 is not None else 0)
+        if seed0 is not None:
+            module.load_state_dict(dense_to_rank(
+                seed0, cfg, mesh.shape["pipe"], mesh.index("pipe"),
+                mesh.shape["model"], mesh.index("model")))
         lamb = bert_main_amp.make_optimizer().with_model_parallel(
             mesh.group("pipe"), {k: k.startswith("stages.")
                                  for k, _ in module.named_parameters()})
@@ -6814,7 +6943,7 @@ def _tp_pp_dense():
     from apex_tpu_torch.models import GPTLMHeadModel
     from apex_tpu_torch.models.gpt import lm_loss
     from apex_tpu_torch.ops import make_flash_attention
-    out = _bert_large_dense("t_dense_grads.pt")
+    out = _bert_large_dense()
     cfg = _tp_pp_gpt_cfg()
     model = GPTLMHeadModel(cfg, make_flash_attention(causal=True),
                            device="cuda", seed=0)
@@ -6840,9 +6969,11 @@ def _state_bytes(st):
                torch.utils._pytree.tree_leaves((inner.m, inner.v)))
 
 
-def _tp_pp_rank_legs(rank):
+def _tp_pp_rank_legs(rank, seed0):
     """(a), (b) and (c) on this rank: (a), (b) on the (1, pp 2, tp 2)
-    mesh, (c) on (dp 2, pp 2)."""
+    mesh, (c) on (dp 2, pp 2); ``seed0``: BERT-large's seed-0 weights on
+    the card (``_spawn_seed0``), whose stage (and, under TP, slice of it)
+    every BERT build loads."""
     import torch
     from apex_tpu_torch import parallel
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
@@ -6862,16 +6993,16 @@ def _tp_pp_rank_legs(rank):
     params1 = {}
     for schedule in ("gpipe", "1f1b"):
         res, grads1, params1[schedule] = _compose_run(
-            _tp_pp_bert_build("O0"), schedule, data(), T_O0_STEPS,
-            keep_params=True)
+            _tp_pp_bert_build("O0", seed0=seed0), schedule, data(),
+            T_O0_STEPS, keep_params=True)
         res["step1_grad_err"] = _pp_grad_err(
-            grads1, OUT_DIR / "t_dense_grads.pt", T_PP, pipe, T_TP, m)
+            grads1, OUT_DIR / BERT_DENSE_GRADS, T_PP, pipe, T_TP, m)
         res["want_launches"] = _pp_launches(
             res["launches"], lps, T_M, schedule, last, T_O0_STEPS)
         out[f"{schedule}_O0"] = res
         del grads1
-        res, _, _ = _compose_run(_tp_pp_bert_build("O2"), schedule, data(),
-                                 T_O2_STEPS)
+        res, _, _ = _compose_run(_tp_pp_bert_build("O2", seed0=seed0),
+                                 schedule, data(), T_O2_STEPS)
         res["want_launches"] = _pp_launches(
             res["launches"], lps, T_M, schedule, last, T_O2_STEPS)
         out[f"{schedule}_O2"] = res
@@ -6914,7 +7045,8 @@ def _tp_pp_rank_legs(rank):
         batches = (tuple(a[d * T_ZERO_BATCH:(d + 1) * T_ZERO_BATCH]
                          for a in b) for b in bert_main_amp.batches(
                              cfg, 2 * T_ZERO_BATCH, T_ZERO_SEQ))
-        build = _tp_pp_bert_build("O2", mesh_kw=dict(pp=T_PP), zero=cut)
+        build = _tp_pp_bert_build("O2", mesh_kw=dict(pp=T_PP), zero=cut,
+                                  seed0=seed0)
         state = {}
 
         def keep_bytes(build=build):
@@ -6941,7 +7073,7 @@ def _tp_pp_rank_legs(rank):
     return out
 
 
-def _tp_pp_rank(rank, world, store):
+def _tp_pp_rank(rank, world, store, seed0):
     """(a)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
     import torch
     import torch.distributed as dist
@@ -6952,7 +7084,8 @@ def _tp_pp_rank(rank, world, store):
                             rank=rank, world_size=world)
     try:
         t0 = time.perf_counter()
-        out = _tp_pp_rank_legs(rank)
+        out = _tp_pp_rank_legs(rank, seed0)
+        seed0.clear()       # the shared blocks released (see _moe_rank)
         out["seconds"] = time.perf_counter() - t0
         (OUT_DIR / f"tp_pp_rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -6969,12 +7102,12 @@ def phase_train_tp_pp():
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     emit("train_tp_pp", prediction=T_PREDICTION)
     t0 = time.perf_counter()
-    files = ("t_dense_grads.pt", "t_gpt.pt")
+    files = ("t_gpt.pt",)
     try:
         dense = _tp_pp_dense()
         dense_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = _spawn(_tp_pp_rank, T_TP * T_PP, "tp_pp")
+        ranks = _spawn_seed0(_tp_pp_rank, T_TP * T_PP, "tp_pp")
         ranks_s = time.perf_counter() - t0
     finally:
         for f in files:
@@ -7092,14 +7225,479 @@ def phase_train_tp_pp():
     return by_path
 
 
+# -- train_moe ----------------------------------------------------------------
+
+# BERT-large with Switch-MoE layers: (a) one process, --moe 8 --moe-dispatch
+# capacity (factor 1.25) at B 32, S 128, O2; its O0 forwards at B 16;
+# (b) --pp 2 at M 4, O0, both dispatches and schedules; (c) EP at ep 2,
+# one MoE layer at BERT-large width, both dispatches; (b) and (c) in one
+# world of two gloo processes
+M_E, M_CF = 8, 1.25
+M_O2_STEPS = 3
+M_O0_BATCH = 16           # (a)'s O0 forwards and (b)'s batch
+M_PP, M_M, M_PP_STEPS = 2, 4, 2
+M_EP = 2
+M_LOGIT_TOL = 1e-5        # (a) capacity at factor E against dense:
+M_AUX_TOL = 1e-6          # logits scale-aware, aux relative; (c)'s aux
+M_LOSS_TOL = 1e-5         # (b) 1F1B against GPipe: losses relative,
+M_RTOL, M_ATOL = 3e-4, 1e-5   # every step-1 gradient (test_pipeline.py:976)
+M_PP_LOGIT_TOL = 1e-4     # (b) GPipe's dense logits against (a)'s
+M_EP_TOL = 1e-5           # (c) EP against the replicated layer: out and
+                          # gradients, scale-aware
+M_LOGITS = "moe_dense_logits.pt"
+M_PREDICTION = {
+    "a_O2_step_ms": "350-700 at B 32, S 128: BERT-large's dense O2 step "
+                    "(170-190 ms) with 1.25x its MLP FLOPs in (8, 640, "
+                    "H/F) bmm, the capacity dispatch's gathers and "
+                    "scatter-add, and FusedLAMB's passes over 1.71B "
+                    "parameters in place of 0.34B",
+    "a_tokens_per_s": "6k-12k",
+    "a_peak_gb": "40-60: 1.71B fp32 masters, their fp32 grads and "
+                 "LAMB's m and v (27 GB), the bf16 compute copies, "
+                 "LAMB's temporaries",
+    "a_launches": "exact, train_bert's formula without dropout: B2 = "
+                  "B3 = 50, B4-B6 24 a step; MoE adds none",
+    "a_O0_capacity_vs_dense": "logits within 1e-6 scale-aware (the same "
+                              "routing at every layer; only the experts' "
+                              "GEMM shapes differ), aux within 1e-7",
+    "a_device_split": "gemm 50-70% of the busy time, gather/scatter "
+                      "2-8%, multi-tensor (LAMB) 10-30%",
+    "b_sched": "1F1B against GPipe: losses within 1e-7 relative, "
+               "gradients within 1e-6 of rtol 3e-4 / atol 1e-5's bound, "
+               "stage 0's router gradient nonzero for both dispatches",
+    "b_logits": "GPipe's dense-dispatch logits within 1e-6 of (a)'s",
+    "b_step_ms": "O0 fp32: dense dispatch 2000-6000 (8x the MLP FLOPs on "
+                 "the CUDA cores), capacity 800-2500",
+    "c_ep": "out within 1e-6 scale-aware, aux within 1e-7, gradients "
+            "within 1e-6; expert bytes a rank 134 of 268 MB",
+    "phase_s": "90-150",
+}
+
+
+def _moe_cfg(dispatch, capacity_factor=M_CF):
+    import dataclasses
+    from apex_tpu_torch.examples import bert_main_amp
+    return dataclasses.replace(bert_main_amp.get_config("large"),
+                               moe_experts=M_E, moe_dispatch=dispatch,
+                               moe_capacity_factor=capacity_factor)
+
+
+def _moe_o2(dense):
+    """(a) O2: ``bert_main_amp.build`` and ``train_step`` (what its
+    ``train`` runs) for --moe 8 --moe-dispatch capacity at B 32, S 128,
+    flash attention, from the seed-0 weights of ``dense`` (the O0 model,
+    released once they are copied), counts at 0 just before the steps
+    and read just after; the compute layout; one more step under the
+    profiler."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.ops import make_flash_attention
+    cfg = _moe_cfg("capacity")
+    t0 = time.perf_counter()
+    model, opt, params, st = bert_main_amp.build(
+        cfg, opt_level="O2", attention_fn=make_flash_attention(),
+        device="cuda", state_dict=dense.state_dict())
+    dense.to("meta")
+    # the blocks (b)'s ranks mapped are freed once their handles are
+    # collected
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    data = bert_main_amp.batches(cfg, BERT_BATCH, BERT_SEQ)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in next(data))
+               for _ in range(M_O2_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, seconds = [], []
+    for i in range(M_O2_STEPS):
+        t0 = time.perf_counter()
+        params, st, loss, _ = bert_main_amp.train_step(model, opt, params,
+                                                       st, batches[i])
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: M_O2_STEPS * v for k, v in
+            _bert_per_step_launches(cfg, counts, dropout=False).items()}
+    compute = model.compute_variables(params)
+    layout = {k: str(compute[f"encoder.layer_0.moe.{k}"].dtype)
+              for k in ("router.weight", "router.bias", "experts_in",
+                        "experts_out")}
+    del compute
+    n_params = sum(p.numel() for p in params.values())
+    state = {"params": params, "st": st}
+
+    def one_step():
+        state["params"], state["st"], _, _ = bert_main_amp.train_step(
+            model, opt, state["params"], state["st"], batches[-1])
+
+    prof = _profile("train_moe (a) O2 step", one_step, batch=BERT_BATCH,
+                    seq=BERT_SEQ)
+    del model, opt, params, st, state, batches
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_seconds": seconds, "build_s": build_s,
+            "tokens_per_s": [BERT_BATCH * BERT_SEQ / t for t in seconds],
+            "peak_memory_gb": peak_gb, "launches": counts,
+            "want_launches": want, "layout": layout, "params": n_params,
+            "profile": {k: prof.get(k) for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "kernel_launches", "by_class_ms", "top_kernels_ms",
+                "device_time")}}
+
+
+def _moe_o0_forwards():
+    """(a) O0 at B 16: one forward of the seed-0 model in dense dispatch
+    and one in capacity dispatch at factor E (nothing can drop), the same
+    weights; the dense MLM logits saved for (b).  Returns the readings
+    and the dense model (its weights start (a)'s O2 run)."""
+    import torch
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models import BertForPreTraining
+    from apex_tpu_torch.ops import make_flash_attention
+    ids = torch.from_numpy(next(bert_main_amp.batches(
+        _moe_cfg("dense"), M_O0_BATCH, BERT_SEQ))[0]).cuda()
+    t0 = time.perf_counter()
+    dense = BertForPreTraining(_moe_cfg("dense"), make_flash_attention(),
+                               device="cuda", seed=0)
+    sparse = BertForPreTraining(_moe_cfg("capacity", float(M_E)),
+                                make_flash_attention(), device="cuda",
+                                seed=None)
+    sparse.load_state_dict(dense.state_dict())
+    build_s = time.perf_counter() - t0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        mlm_d, nsp_d, aux_d = dense(ids)
+        torch.cuda.synchronize()
+        dense_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        mlm_c, nsp_c, aux_c = sparse(ids)
+        torch.cuda.synchronize()
+        capacity_ms = 1e3 * (time.perf_counter() - t0)
+    del sparse
+    out = {"logit_err": scale_aware_err(mlm_c, mlm_d)[0],
+           "nsp_err": scale_aware_err(nsp_c, nsp_d)[0],
+           "aux_dense": float(aux_d), "aux_capacity": float(aux_c),
+           "aux_rel_err": abs(float(aux_c) - float(aux_d))
+           / abs(float(aux_d)),
+           "finite": bool(torch.isfinite(mlm_d).all()
+                          and torch.isfinite(mlm_c).all()),
+           "dense_forward_ms": dense_ms,
+           "capacity_forward_ms": capacity_ms, "build_s": build_s}
+    torch.save(mlm_d.cpu(), OUT_DIR / M_LOGITS)
+    del mlm_d, mlm_c
+    torch.cuda.empty_cache()
+    return out, dense
+
+
+def _moe_ep(rank):
+    """(c) one MoE layer at BERT-large width (E 8, H 1024, F 4096, B 32 x
+    S 128 tokens) at ep 2 against the replicated layer on this rank, both
+    dispatches: out, aux and the gradients of x, the router and this
+    rank's experts of a weighted sum of out and aux."""
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.models import MoEMlp
+    from apex_tpu_torch.models.moe import EXPERT_LEAVES
+    group = parallel.ProcessGroup()
+    gen = torch.Generator().manual_seed(1)
+    shape = (BERT_BATCH, BERT_SEQ, BERT_HIDDEN)
+    x = torch.randn(shape, generator=gen).cuda()
+    w = torch.randn(shape, generator=gen).cuda()
+    out = {}
+    for dispatch in ("dense", "capacity"):
+        res, ms = {}, {}
+        for label, ep in (("whole", None), ("ep", group)):
+            mod = MoEMlp(M_E, BERT_HIDDEN, 4 * BERT_HIDDEN, dispatch, M_CF,
+                         device="cuda", ep=ep, seed=0)
+            names = [n for n, _ in mod.named_parameters()]
+            for _ in range(2):      # the second one timed
+                xg = x.clone().requires_grad_()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o, a = mod(xg)
+                g = torch.autograd.grad((o * w).sum() + 0.37 * a,
+                                        [xg] + list(mod.parameters()))
+                torch.cuda.synchronize()
+                ms[label] = 1e3 * (time.perf_counter() - t0)
+            res[label] = {"out": o.detach(), "aux": float(a), "gx": g[0],
+                          "grads": dict(zip(names, g[1:])),
+                          "bytes": sum(p.numel() * p.element_size()
+                                       for n, p in mod.named_parameters()
+                                       if n in EXPERT_LEAVES)}
+            del mod
+        whole, ep = res["whole"], res["ep"]
+        el = M_E // M_EP
+        grad_err = {}
+        for k, gv in ep["grads"].items():
+            want = whole["grads"][k]
+            if k in EXPERT_LEAVES:
+                want = want[rank * el:(rank + 1) * el]
+            grad_err[k] = scale_aware_err(gv, want)[0]
+        out[dispatch] = {
+            "out_err": scale_aware_err(ep["out"], whole["out"])[0],
+            "aux_rel_err": abs(ep["aux"] - whole["aux"]) / abs(whole["aux"]),
+            "gx_err": scale_aware_err(ep["gx"], whole["gx"])[0],
+            "grad_err": grad_err,
+            "router_grad_max": float(ep["grads"]["router.weight"]
+                                     .abs().max()),
+            "expert_bytes": ep["bytes"], "whole_expert_bytes": whole["bytes"],
+            "fwd_bwd_ms": ms}
+        del res, whole, ep
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_rank_legs(rank, seed0):
+    """(b) and (c) on this rank of the world of two; ``seed0``: the
+    seed-0 weights of (a)'s O0 model on the card (``_spawn_seed0``),
+    whose stage every build loads."""
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.examples import bert_main_amp
+    from apex_tpu_torch.models.bert import dense_to_rank
+    from apex_tpu_torch.ops import make_flash_attention
+    mesh0 = parallel.create_mesh(pp=M_PP)
+    pipe = mesh0.index("pipe")
+    lps, last = BERT_LAYERS // M_PP, pipe == M_PP - 1
+    state, out = {}, {"pipe": pipe}
+    ids = torch.from_numpy(next(bert_main_amp.batches(
+        _moe_cfg("dense"), M_O0_BATCH, BERT_SEQ))[0]).cuda()
+
+    def make_build(dispatch, logits=False):
+        def build():
+            mesh = parallel.create_mesh(pp=M_PP)
+            cfg = _moe_cfg(dispatch)
+            made = bert_main_amp.build(
+                cfg, opt_level="O0", attention_fn=make_flash_attention(),
+                device="cuda", state_dict=dense_to_rank(seed0, cfg, M_PP,
+                                                        pipe),
+                mesh=mesh, pp_microbatches=M_M)
+            if logits:
+                # GPipe's dense logits at the seed's weights
+                with torch.no_grad():
+                    mlm = made[0].apply(made[2], ids)[0]
+                    want = torch.load(OUT_DIR / M_LOGITS).cuda()
+                    state["logit_err"] = scale_aware_err(mlm, want)[0]
+                del mlm, want
+            return made + (mesh,)
+        return build
+
+    def data():
+        return bert_main_amp.batches(_moe_cfg("dense"), M_O0_BATCH,
+                                     BERT_SEQ)
+
+    for dispatch in ("dense", "capacity"):
+        runs, grads = {}, {}
+        for schedule in ("gpipe", "1f1b"):
+            res, grads[schedule], _ = _pp_run(
+                make_build(dispatch, logits=(dispatch, schedule) == (
+                    "dense", "gpipe")), schedule, data(), M_PP_STEPS)
+            res["want_launches"] = _pp_launches(
+                res["launches"], lps, M_M, schedule, last, M_PP_STEPS)
+            runs[schedule] = res
+        worst, bad = 0.0, []
+        for k, g in grads["1f1b"].items():
+            a, b = g.cuda(), grads["gpipe"][k].cuda()
+            ratio = float(((a - b).abs() / (M_ATOL + M_RTOL * b.abs()))
+                          .max())
+            worst = max(worst, ratio)
+            if ratio > 1.0:
+                bad.append(k)
+            del a, b
+        routers = {k: [float(grads[s][k].abs().max()) for s in grads]
+                   for k in grads["gpipe"] if k.endswith("router.weight")}
+        runs["grad_bound_ratio"] = worst
+        runs["grads_out_of_bound"] = bad[:8]
+        runs["router_grad_max"] = routers
+        runs["loss_rel_err"] = max(
+            abs(a - b) / abs(b) for a, b in zip(runs["1f1b"]["losses"],
+                                                runs["gpipe"]["losses"]))
+        out[dispatch] = runs
+        del grads
+        torch.cuda.empty_cache()
+    out["logit_err"] = state["logit_err"]
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["ep"] = _moe_ep(rank)
+    out["ep_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _moe_rank(rank, world, store, seed0):
+    """(b)-(c)'s ranks: gloo on CUDA tensors, TF32 off."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = _moe_rank_legs(rank, seed0)
+        # release the shared blocks now (the spawned process's own
+        # arguments hold this dict to the end): the producer frees them
+        # only once every consumer has
+        seed0.clear()
+        out["seconds"] = time.perf_counter() - t0
+        (OUT_DIR / f"moe_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_moe():
+    """Switch-MoE: (a) BERT-large --moe 8 --moe-dispatch capacity in one
+    process, O2, and its O0 capacity-at-E forward against dense; (b)
+    --moe 8 --pp 2 1F1B against GPipe, both dispatches, and (c) EP at ep
+    2, as two processes over gloo on the one card."""
+    import gc
+    import torch
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    emit("train_moe", prediction=M_PREDICTION)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what the earlier phases leave on the card: (b)'s two ranks share it
+    emit("train_moe", main_process_allocated_gb=torch.cuda
+         .memory_allocated() / 1e9, main_process_reserved_gb=torch.cuda
+         .memory_reserved() / 1e9)
+    try:
+        t0 = time.perf_counter()
+        fwd, dense = _moe_o0_forwards()
+        a_o0_s = time.perf_counter() - t0
+        # (b) and (c) before (a)'s O2 run: the ranks load their stages of
+        # the seed-0 weights from this model, which stays on the card
+        # until they end, instead of drawing 1.78B normals each
+        t0 = time.perf_counter()
+        ranks = _spawn_seed0(_moe_rank, M_PP, "moe", dense.state_dict())
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a = _moe_o2(dense)
+        del dense
+        a_o2_s = time.perf_counter() - t0
+    finally:
+        (OUT_DIR / M_LOGITS).unlink(missing_ok=True)
+    by_path = {"train_moe": a["launches"]}
+    tokens = BERT_BATCH * BERT_SEQ
+    # (a)
+    emit("train_moe", run="(a) BERT-large --moe 8 --moe-dispatch capacity "
+         "O2", batch=BERT_BATCH, seq=BERT_SEQ, capacity_factor=M_CF,
+         params=a["params"], losses=a["losses"],
+         step_ms=[1e3 * t for t in a["step_seconds"]],
+         tokens_per_s=a["tokens_per_s"], peak_memory_gb=a["peak_memory_gb"],
+         build_s=a["build_s"], layout=a["layout"], launches=a["launches"])
+    emit("train_moe", run="(a) O2 step, device time by class",
+         **a["profile"])
+    if not all(np.isfinite(a["losses"])):
+        raise AssertionError(f"(a) non-finite loss {a['losses']}")
+    if a["launches"] != a["want_launches"]:
+        raise AssertionError(f"(a) launches {a['launches']} != "
+                             f"{a['want_launches']}")
+    if a["layout"] != {"router.weight": "torch.float32",
+                       "router.bias": "torch.float32",
+                       "experts_in": "torch.bfloat16",
+                       "experts_out": "torch.bfloat16"}:
+        raise AssertionError(f"(a) compute layout {a['layout']}")
+    emit("train_moe", run="(a) O0 capacity at factor E against dense",
+         batch=M_O0_BATCH, seq=BERT_SEQ, **fwd, logit_tol=M_LOGIT_TOL,
+         aux_tol=M_AUX_TOL)
+    if not (fwd["finite"] and fwd["logit_err"] <= M_LOGIT_TOL
+            and fwd["aux_rel_err"] <= M_AUX_TOL):
+        raise AssertionError(f"(a) capacity against dense: {fwd}")
+    # (b)
+    for r, res in enumerate(ranks):
+        for dispatch in ("dense", "capacity"):
+            runs = res[dispatch]
+            for schedule in ("gpipe", "1f1b"):
+                got = runs[schedule]
+                emit("train_moe", run=f"(b) --moe 8 --pp 2 {dispatch} "
+                     f"{schedule} O0", rank=r, pipe=res["pipe"],
+                     batch=M_O0_BATCH, seq=BERT_SEQ, microbatches=M_M,
+                     losses=got["losses"],
+                     step_ms=[1e3 * t for t in got["step_seconds"]],
+                     tokens_per_s_pair=[M_O0_BATCH * BERT_SEQ / t
+                                        for t in got["step_seconds"]],
+                     build_s=got["build_seconds"],
+                     peak_memory_gb=got["peak_memory_gb"],
+                     launches=got["launches"],
+                     collectives_a_step={k: v / M_PP_STEPS for k, v in
+                                         got["collectives"].items()})
+                if got["launches"] != got["want_launches"]:
+                    raise AssertionError(
+                        f"(b) {dispatch} {schedule} rank {r}: launches "
+                        f"{got['launches']} != {got['want_launches']}")
+                if not all(np.isfinite(got["losses"])):
+                    raise AssertionError(f"(b) {dispatch} {schedule}: "
+                                         f"{got['losses']}")
+            emit("train_moe", run=f"(b) 1F1B against GPipe, {dispatch}",
+                 rank=r, loss_rel_err=runs["loss_rel_err"],
+                 loss_tol=M_LOSS_TOL,
+                 grad_bound_ratio=runs["grad_bound_ratio"],
+                 rtol=M_RTOL, atol=M_ATOL,
+                 router_grad_max=runs["router_grad_max"])
+            if not runs["loss_rel_err"] <= M_LOSS_TOL:
+                raise AssertionError(f"(b) {dispatch} rank {r}: loss "
+                                     f"{runs['loss_rel_err']:.3g}")
+            if runs["grads_out_of_bound"]:
+                raise AssertionError(f"(b) {dispatch} rank {r}: gradients "
+                                     f"{runs['grads_out_of_bound']}")
+            if not runs["router_grad_max"] or not all(
+                    v > 0 for vs in runs["router_grad_max"].values()
+                    for v in vs):
+                raise AssertionError(f"(b) {dispatch} rank {r}: a zero "
+                                     "router gradient")
+        emit("train_moe", run="(b) GPipe's dense logits against (a)'s",
+             rank=r, err=res["logit_err"], tol=M_PP_LOGIT_TOL)
+        if not res["logit_err"] <= M_PP_LOGIT_TOL:
+            raise AssertionError(f"(b) rank {r}: logits "
+                                 f"{res['logit_err']:.3g}")
+    for schedule in ("gpipe", "1f1b"):
+        by_path[f"train_moe_pp_{schedule}"] = ranks[0]["capacity"][
+            schedule]["launches"]
+    # (c)
+    for r, res in enumerate(ranks):
+        for dispatch, got in res["ep"].items():
+            emit("train_moe", run=f"(c) EP at ep 2, {dispatch}", rank=r,
+                 tokens=tokens, **got, tol=M_EP_TOL, aux_tol=M_AUX_TOL)
+            errs = [got["out_err"], got["gx_err"],
+                    *got["grad_err"].values()]
+            if not (max(errs) <= M_EP_TOL
+                    and got["aux_rel_err"] <= M_AUX_TOL
+                    and got["router_grad_max"] > 0
+                    and 2 * got["expert_bytes"]
+                    == got["whole_expert_bytes"]):
+                raise AssertionError(f"(c) {dispatch} rank {r}: {got}")
+    seconds = {"a_o2": a_o2_s, "a_o0": a_o0_s, "ranks": ranks_s,
+               "rank_legs": [res["seconds"] for res in ranks],
+               "ep": [res["ep_seconds"] for res in ranks]}
+    (OUT_DIR / "train_moe.json").write_text(json.dumps(
+        {"a": a, "a_o0": fwd, "ranks": ranks, "seconds": seconds},
+        indent=1, default=str))
+    emit("train_moe", seconds=seconds)
+    return by_path
+
+
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
           "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
           "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
           "train_sp", "train_pp", "train_sp_compose", "train_tp_pp",
-          "train_o1", "train_simple", "train_dcgan")
+          "train_moe", "train_o1", "train_simple", "train_dcgan")
 
 
 def main(phases=PHASES):
+    try:
+        _main(phases)
+    finally:
+        for f in SHARED_FILES:
+            (OUT_DIR / f).unlink(missing_ok=True)
+
+
+def _main(phases):
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     sys.path.insert(0, str(REPO))
@@ -7145,6 +7743,7 @@ def main(phases=PHASES):
                        ("train_pp", phase_train_pp),
                        ("train_sp_compose", phase_train_sp_compose),
                        ("train_tp_pp", phase_train_tp_pp),
+                       ("train_moe", phase_train_moe),
                        ("train_o1", phase_train_o1),
                        ("train_simple", phase_train_simple),
                        ("train_dcgan", phase_train_dcgan)):
@@ -7157,7 +7756,7 @@ def main(phases=PHASES):
                          "train_gpt_remat", "train_gpt_dropout",
                          "train_bert_remat", "adam_rest", "hf_bert",
                          "train_tp_zero", "train_sp", "train_pp",
-                         "train_sp_compose", "train_tp_pp"):
+                         "train_sp_compose", "train_tp_pp", "train_moe"):
             by_path = {phase: by_path}
         for path, counts in by_path.items():
             for k in (kernels or {}).values():

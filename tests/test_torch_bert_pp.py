@@ -18,10 +18,11 @@ GPipe, 1F1B and 1F1B under ``--grad-accum 2`` against the JAX
 example's step on the whole batch, the losses' data mean within 1e-5
 relative and the params within 2e-5.  ``train()`` with ``pp=2`` runs both schedules to the same
 losses, with ``remat=True`` too (each stage's layers rematerialized).
-The CLI's refusals: ``--moe`` names its ROADMAP item, and
-``--pp-schedule 1f1b`` with ring attention, ``--pp-schedule 1f1b``
-without ``--pp`` and a layer count ``--pp`` does not divide raise the
-JAX example's messages.
+The CLI's refusals: ``--moe`` with a sequence axis under
+``--pp-schedule 1f1b`` raises ``PipelinedBert``'s message before any
+rank starts, and ``--pp-schedule 1f1b`` with ring attention,
+``--pp-schedule 1f1b`` without ``--pp`` and a layer count ``--pp`` does
+not divide raise the JAX example's messages.
 
 The ranks are spawned once for the module (a ``FileStore`` under the
 test's temporary directory); the rank function imports no JAX.
@@ -298,7 +299,9 @@ def test_train_runs_both_schedules_and_remat(ranks):
 @pytest.mark.parametrize("argv,phrase", [
     (["--pp", "1", "--ring-attention", "1", "--pp-schedule", "1f1b"],
      "--pp-schedule 1f1b cannot host ring attention"),
-    (["--moe", "4"], "ROADMAP A.10: models/moe.py"),
+    (["--moe", "4", "--pp", "1", "--ring-attention", "1",
+      "--sp-attention", "ulysses", "--pp-schedule", "1f1b"],
+     r"seq_axis \+ MoE under 1F1B"),
     (["--pp-schedule", "1f1b"], "--pp-schedule 1f1b needs --pp S"),
     (["--config", "tiny", "--pp", "4"],
      r"PP=4 must divide devices \(1\) and layers \(2\)"),
