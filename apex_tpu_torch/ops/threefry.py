@@ -12,8 +12,10 @@ no JAX) of what that needs:
   off): the threefry-2x32 block (:func:`threefry2x32`), ``PRNGKey``,
   ``fold_in``, ``split``, 32-bit ``random_bits`` (the partitionable
   form: element i hashes the counter pair (i >> 32, i mod 2**32) and
-  keeps the XOR of the two output words), ``uniform``, ``bernoulli`` and
-  a scalar int32 ``randint``;
+  keeps the XOR of the two output words), ``uniform``, ``bernoulli``, a
+  scalar int32 ``randint``, and the row-batched ``PRNGKey``, ``fold_in``,
+  ``random_bits``, ``uniform`` and ``gumbel`` the sampler draws its
+  noise with (``*_rows``: one key a row of an (N, 2) tensor);
 - from ``flax/core/scope.py`` (flax 0.12): ``LazyRng``'s folding of a
   scope's path and a call count into the stream's key
   (``_fold_in_static``: SHA-1 of the strings, big-endian bytes of the
@@ -143,6 +145,64 @@ def bernoulli(key: Key, p: float, shape: Sequence[int] = (),
     device = resolve_device(device)
     return uniform(key, shape, device) < torch.tensor(
         p, dtype=torch.float32, device=device)
+
+
+# -- row-batched keys ---------------------------------------------------------
+# A batch of keys is an (N, 2) int64 tensor of uint32 words.  The same
+# block function runs on every row at once, so one call draws every
+# row's vector, as the reference vmaps ``PRNGKey``/``fold_in``/``gumbel``
+# over its rows (``apex_tpu/ops/sampling.py::_row_keys``).
+
+def key_rows(seeds: torch.Tensor) -> torch.Tensor:
+    """``vmap(PRNGKey)`` over (N,) integer seeds: (N, 2) int64 keys
+    ``(0, seed mod 2**32)``, on the seeds' device."""
+    s = seeds.long() & M32
+    return torch.stack([torch.zeros_like(s), s], dim=-1)
+
+
+def fold_in_rows(keys: torch.Tensor, data) -> torch.Tensor:
+    """``vmap(fold_in)``: (N, 2) keys and (N,) integer data (or one
+    int for every row) -> (N, 2) keys, the block of each key over
+    ``(0, data mod 2**32)``."""
+    if isinstance(data, torch.Tensor):
+        data = data.long() & M32
+    else:
+        data = int(data) & M32
+    y0, y1 = threefry2x32((keys[:, 0], keys[:, 1]), 0, data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``vmap(bits(key, (n,), uint32))``: (N, 2) keys -> (N, n) int64
+    holding each row's uint32 stream (:func:`random_bits`'s counters)."""
+    hi, lo = _counters((n,), keys.device)
+    y0, y1 = threefry2x32((keys[:, :1], keys[:, 1:]), hi[None], lo[None])
+    return y0 ^ y1
+
+
+def uniform_rows(keys: torch.Tensor, n: int, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """``vmap(uniform(key, (n,), float32, minval, maxval))``: (N, n)
+    float32.  The float in [0, 1) from the top 23 bits times ``maxval -
+    minval`` (rounded to float32) plus ``minval``, rounded once (XLA
+    fuses the two into a multiply-add; the float32 product is exact in
+    float64), floored at ``minval``, as ``random._uniform`` does."""
+    bits = random_bits_rows(keys, n)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    scaled = floats.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, scaled.float())
+
+
+def gumbel_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``vmap(gumbel(key, (n,), float32))`` in JAX 0.9's default
+    ``mode="low"``: ``-log(-log(uniform(key, minval=tiny, maxval=1)))``,
+    (N, n) float32.  The bits are integer work and equal JAX's; the two
+    logs may round an ulp apart from XLA's."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform_rows(keys, n, tiny, 1.0)))
 
 
 def _bits_scalar(key: Key) -> int:

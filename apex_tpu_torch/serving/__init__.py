@@ -4,13 +4,18 @@ continuous batching.
 - :mod:`serving.kv_cache` — the block pool (a dict of tensors updated in
   place; full width or int8 with a scale sidecar) and the host-side
   refcounted allocator;
-- :mod:`serving.engine` — bucketed prefill (flash kernel pluggable) and
-  batched single-token decode through the decode-attention kernel;
+- :mod:`serving.engine` — bucketed prefill through the flash kernel,
+  chunked prefill and speculative verify over the cached context,
+  batched single-token decode through the decode-attention kernel,
+  block copies and the checksummed block export/import, greedy or
+  stochastic sampling on the device;
 - :mod:`serving.scheduler` / :mod:`serving.api` — iteration-level
-  continuous batching with preempt-youngest on pool pressure, and the
-  synchronous :class:`InferenceServer` front door.
+  continuous batching with chunked prefill and preempt-youngest on pool
+  pressure, and the synchronous :class:`InferenceServer` front door
+  (``SamplingParams`` a request).
 """
 
+from apex_tpu_torch.ops.sampling import SamplingParams
 from apex_tpu_torch.serving.api import InferenceServer, greedy_sample
 from apex_tpu_torch.serving.engine import (
     DecodeEngine,
@@ -36,6 +41,7 @@ __all__ = [
     "KVCacheConfig",
     "QueueFullError",
     "Request",
+    "SamplingParams",
     "Scheduler",
     "default_prefill_buckets",
     "gather_scales",

@@ -1,6 +1,6 @@
 """Block-table-indexed KV cache — the serving memory manager.
 
-Twin of ``apex_tpu/serving/kv_cache.py`` without copies or prefix-cache
+Twin of ``apex_tpu/serving/kv_cache.py`` without the prefix-cache
 hooks.  The cache is one preallocated pool of ``num_blocks`` blocks of
 ``block_size`` token slots per layer,
 
@@ -162,13 +162,21 @@ def init_kv_cache(cfg: KVCacheConfig, device) -> Dict[str, torch.Tensor]:
 def slot_index(block_tables: torch.Tensor, positions: torch.Tensor,
                block_size: int) -> torch.Tensor:
     """Flat pool slot of logical ``positions`` — (B,) or (B, S) — under
-    ``block_tables`` (B, max_blocks): ``table[pos // bs] * bs + pos % bs``."""
+    ``block_tables`` (B, max_blocks): ``table[pos // bs] * bs + pos % bs``.
+    A position past the table lands in the garbage block, as an
+    unallocated entry does: ``torch.gather`` raises on an index that
+    ``jnp.take_along_axis`` fills, so the block index is clamped for the
+    gather and its result replaced by block 0 (a chunk's padded tail
+    runs past the table when ``max_context`` is not a multiple of the
+    chunk)."""
     blk = positions // block_size
     off = positions % block_size
     squeeze = blk.ndim == block_tables.ndim - 1
     if squeeze:
         blk = blk[..., None]
-    phys = torch.gather(block_tables, -1, blk)
+    last = block_tables.shape[-1] - 1
+    phys = torch.gather(block_tables, -1, blk.clamp_max(last))
+    phys = torch.where(blk <= last, phys, 0)
     if squeeze:
         phys = phys[..., 0]
     return phys * block_size + off
@@ -231,6 +239,37 @@ def context_bias(lengths: torch.Tensor, max_context: int) -> torch.Tensor:
     slots < length, NEG_INF beyond."""
     t = torch.arange(max_context, device=lengths.device)[None, :]
     return torch.where(t < lengths[:, None], 0.0, NEG_INF).float()
+
+
+def _block_rows(ids: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(M,) block ids -> (M * block_size,) their pool slots, in order."""
+    off = torch.arange(block_size, device=ids.device)
+    return (ids[:, None] * block_size + off[None, :]).reshape(-1)
+
+
+def copy_blocks_across(dst_cache, src_cache, src, dst,
+                       block_size: int) -> None:
+    """Whole-block copy ``src[i]`` (in ``src_cache``) -> ``dst[i]`` (in
+    ``dst_cache``) between two pools of one geometry, in place on
+    ``dst_cache``: the hand-off of a finished prefill's blocks from one
+    engine's pool into another's.  src, dst: (M,) block ids,
+    (0, 0)-padded (the garbage block onto itself).  Every leaf moves,
+    the int8 pool's scale sidecar with its payload."""
+    s = _block_rows(src.long(), block_size)
+    d = _block_rows(dst.long(), block_size)
+    for name, arr in dst_cache.items():
+        arr[:, d] = src_cache[name][:, s]
+
+
+def copy_blocks(cache, src, dst, block_size: int) -> None:
+    """Whole-block copy ``src[i] -> dst[i]`` inside the pool, in place:
+    the device half of copy-on-write.  src, dst: (M,) block ids (a
+    (0, 0) pair copies the garbage block onto itself).  Every leaf is
+    copied, the scale sidecar included.  The source rows are gathered
+    before any is written, as the reference's
+    ``arr.at[:, d].set(arr[:, s])`` reads the old pool: a pair whose
+    source is another pair's destination copies the old block."""
+    copy_blocks_across(cache, cache, src, dst, block_size)
 
 
 class BlockAllocator:

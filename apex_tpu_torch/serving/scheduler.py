@@ -1,19 +1,25 @@
 """Continuous-batching request scheduler (Orca-style iteration-level).
 
 Twin of ``apex_tpu/serving/scheduler.py`` for the slice without prefix
-caching, chunked prefill, overload control, disaggregated hand-off or
-speculative look-ahead.  Every iteration the scheduler admits waiting
-requests into free batch slots while the block pool can hold their
-prompts, grows each running request's block table just in time for its
-next token — preempting the youngest request back to the waiting queue
-when the pool runs dry — and retires finished requests at once, so their
-slot and blocks serve the next iteration.
+caching, overload control, disaggregated hand-off or speculative
+look-ahead.  Every iteration the scheduler admits waiting requests into
+free batch slots while the block pool can hold their prompts, grows each
+running request's block table just in time for its next token —
+preempting the youngest request back to the waiting queue when the pool
+runs dry — and retires finished requests at once, so their slot and
+blocks serve the next iteration.
+
+Chunked prefill (Sarathi-style): :meth:`Scheduler.prefill_plan` hands
+out a request's pending prefill ``chunk_size`` tokens at a time (the
+whole context at once when ``chunk_size`` is None); the server runs one
+chunk per prefilling request per iteration, interleaved with the decode
+step, and :meth:`Scheduler.chunk_done` carries the KV position.
 
 Preemption is recompute: the victim's blocks are freed, and on
 re-admission its sequence so far re-prefills as a pseudo-prompt
 (``prompt + generated[:-1]``) whose logits are discarded — the pending
-last token re-enters the decode batch unchanged, so greedy generation is
-bit-stable across preemptions.
+last token re-enters the decode batch unchanged, so generation, greedy
+or counter-keyed stochastic, is bit-stable across preemptions.
 
 A request whose context can never fit the pool fails alone
 (``finish_reason="capacity"``); a bounded waiting queue
@@ -26,8 +32,11 @@ from __future__ import annotations
 import dataclasses
 import itertools
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
+import numpy as np
+
+from apex_tpu_torch.ops.sampling import SamplingParams
 from apex_tpu_torch.serving import reasons
 from apex_tpu_torch.serving.kv_cache import BlockAllocator
 
@@ -47,6 +56,9 @@ class Request:
     max_new_tokens: int
     eos_id: Optional[int] = None
     uid: int = dataclasses.field(default_factory=lambda: next(_uid))
+    # per-request sampling knobs; the default instance is greedy argmax
+    sampling: SamplingParams = dataclasses.field(
+        default_factory=SamplingParams)
 
     # runtime state (owned by the scheduler)
     generated: List[int] = dataclasses.field(default_factory=list)
@@ -57,7 +69,7 @@ class Request:
     finished: bool = False
     finish_reason: Optional[str] = None
     preemptions: int = 0
-    # the context the pending prefill must materialize, and whether its
+    # the context being (chunk-)prefilled, and whether its final chunk's
     # logits sample a token (False after preemption: the pending token
     # continues instead)
     prefill_ctx: Optional[List[int]] = None
@@ -69,6 +81,8 @@ class Request:
 
     @property
     def prefilling(self) -> bool:
+        """Admitted with context K/V still to materialize: the decode
+        batch skips it until its last chunk lands."""
         return self.prefill_ctx is not None
 
     def record_token(self, token: int) -> None:
@@ -88,13 +102,19 @@ class Scheduler:
 
     ``max_batch_size`` decode slots, ``block_size`` tokens per block,
     ``max_context`` per request, over the shared :class:`BlockAllocator`.
-    ``max_waiting`` bounds the waiting queue."""
+    ``max_waiting`` bounds the waiting queue.  ``chunk_size``: prefill
+    chunk in tokens (None = the whole context in one
+    :meth:`prefill_plan`, chunked prefill off)."""
 
     def __init__(self, allocator: BlockAllocator, *, max_batch_size: int,
                  block_size: int, max_context: int,
-                 max_waiting: Optional[int] = None):
+                 max_waiting: Optional[int] = None,
+                 chunk_size: Optional[int] = None):
         if max_waiting is not None and max_waiting < 1:
             raise ValueError(f"max_waiting must be >= 1, got {max_waiting}")
+        if chunk_size is not None and chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        self.chunk_size = chunk_size
         self.allocator = allocator
         self.max_batch_size = max_batch_size
         self.block_size = block_size
@@ -180,11 +200,30 @@ class Scheduler:
             return req.prompt + req.generated[:-1]
         return list(req.prompt)
 
-    def prefill_done(self, req: Request) -> None:
-        """The engine materialized ``req``'s whole prefill context; it
-        joins the decode batch."""
-        req.num_cached = len(req.prefill_ctx)
-        req.prefill_ctx = None
+    def prefill_plan(self, req: Request) -> Tuple[List[int], int, bool]:
+        """The next chunk of ``req``'s pending prefill: ``(tokens, start,
+        is_last)``, ``start`` the position of ``tokens[0]`` (== K/V
+        already materialized).  The caller runs the chunk through the
+        engine, then :meth:`chunk_done`."""
+        ctx = req.prefill_ctx
+        if ctx is None:
+            raise ValueError(f"prefill_plan on a request that is not "
+                             f"prefilling (uid {req.uid})")
+        start = req.num_cached
+        n = len(ctx) - start
+        if self.chunk_size is not None:
+            n = min(n, self.chunk_size)
+        return ctx[start:start + n], start, start + n == len(ctx)
+
+    def chunk_done(self, req: Request, n: int) -> bool:
+        """Account ``n`` freshly prefilled tokens.  True = the prefill is
+        complete and ``req`` joins the decode batch (the caller samples
+        from the final chunk when ``req.prefill_sample``)."""
+        req.num_cached += n
+        if req.num_cached == len(req.prefill_ctx):
+            req.prefill_ctx = None
+            return True
+        return False
 
     def ensure_decode_capacity(self, req: Request) -> bool:
         """Grow ``req``'s block table if its next token write needs a
@@ -201,6 +240,42 @@ class Scheduler:
                 return False
             self.preempt(victim)
         return True
+
+    # -- sampling-param batching -------------------------------------------
+
+    @staticmethod
+    def _pack_sampling(by_slot, width: int) -> Tuple[np.ndarray, ...]:
+        """``{slot: SamplingParams}`` -> the per-slot launch arrays
+        ``(temperature f32, top_k i32, top_p f32, seed i32)``, each
+        ``(width,)``.  Unlisted slots get temperature 0: the greedy
+        lane."""
+        temp = np.zeros((width,), np.float32)
+        tk = np.zeros((width,), np.int32)
+        tp = np.ones((width,), np.float32)
+        seed = np.zeros((width,), np.int32)
+        for slot, s in by_slot.items():
+            temp[slot] = s.temperature
+            tk[slot] = 0 if s.top_k is None else int(s.top_k)
+            tp[slot] = s.top_p
+            seed[slot] = int(s.seed) & 0x7FFFFFFF
+        return temp, tk, tp, seed
+
+    def sampling_inputs(self, requests) -> Optional[Tuple]:
+        """The per-slot sampling arrays of one batched decode or verify
+        launch; None when every request is greedy (the argmax-only
+        step)."""
+        if all(r.sampling.is_greedy for r in requests):
+            return None
+        return self._pack_sampling({r.slot: r.sampling for r in requests},
+                                   self.max_batch_size)
+
+    @staticmethod
+    def prefill_sampling(req: Request) -> Optional[Tuple]:
+        """The (1,)-wide sampling arrays of one request's prefill or
+        chunk launch (None = greedy)."""
+        if req.sampling.is_greedy:
+            return None
+        return Scheduler._pack_sampling({0: req.sampling}, 1)
 
     def _preempt_victim(self, exclude: Request) -> Optional[Request]:
         """The youngest-admitted running request other than ``exclude``."""

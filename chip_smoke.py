@@ -92,6 +92,44 @@ Phases, each printing one JSON line; any failure exits non-zero:
        with 16 slots (all at once need 158 blocks); the int8 arm's
        tokens agree with the bf16 arm's to a mean agreeing prefix
        >= 0.75 (``tests/L0/test_kv_quant.py``'s gate).
+   serve and serve_q8 pin ``enable_chunked_prefill=False`` (the
+   monolithic flash prefill); the three serve phases share one seed-0
+   model, its oracle and the traffic (``_serve_model``).
+5b. serve_programs — the engine's remaining programs and stochastic
+   sampling on the same model and traffic; its first line is the
+   prediction (``S_PREDICTION``):
+   (a) chunked prefill (``prefill_chunk=64``), fp32 pool, TF32 off:
+       tokens against the greedy full recompute (serve (a)'s rule),
+       launches exact (B2 (2L+1) a chunk and a decode step, B4 none, B7
+       L a decode step), ``stats()["prefill_chunks"]`` = the sum of
+       ceil(len / 64); then on the default bf16 pool chunked and
+       monolithic passes in turns, tokens/s the median of 3 each, and a
+       chunked pass under ``torch.profiler``;
+   (b) the same from the int8 pool against the int8 oracle (B8), once
+       (serve_q8 (b) times the int8 pool);
+   (c) on a bf16 and an int8 pool: ``verify`` of 8 slots x 4 tokens
+       against 4 decode steps from the same pool (logits within
+       ``VERIFY_TOL`` scale-aware, 1e-3 bf16 and 2e-4 int8, and a verify
+       fed one position late outside it; argmax equal but where the
+       decode's top-2 gap is under twice the row's difference; launches
+       2L+1 B2 and nothing else), ``copy_blocks`` (a chained batch reads
+       the old blocks),
+       ``copy_blocks_from`` and ``export_blocks``/``import_blocks`` into
+       a second engine bit for bit on every leaf, a flipped payload
+       byte refused, an empty import writing nothing;
+   (d) 8 requests of mixed classes (greedy, temperature, top-k, top-p,
+       both; one seed each) on the bf16 pool: a replay on a reset pool,
+       the greedy rows against a greedy-only pass and a pool of
+       ``STARVED_BLOCKS`` that preempts, each bit for bit; the card's
+       keys and uniform bits the CPU's, its Gumbel noise within
+       ``NOISE_ULPS`` epsilons of max(|x|, 1); the replay under the
+       profiler;
+   (e) 7 of serve's prompts decoding on the bf16 pool when a
+       1000-token prompt arrives: the default server (chunks of 256)
+       against the monolithic prefill, passes in turns, the decoders'
+       median, p99 and largest inter-token gaps and the long request's
+       time to first token; launches and chunks exact.  The phase
+       prints its seconds in its ``done`` line.
 6. train   — ``apex_tpu_torch.examples.gpt_main_amp`` on GPT-2 small at
    full width, FusedAdam(lr=3e-4) flat, causal flash attention, against
    a kernel-free oracle on the card (the same model and step on plain
@@ -2218,18 +2256,22 @@ def _make_prompts(cfg, n=16, seed=0):
             for _ in range(n)]
 
 
-def _serve_once(server, prompts, max_new):
+def _serve_once(server, prompts, max_new, sampling=None):
     """Drive the main path once with every launch count at 0 just
     before and read just after; checks the counts against the model's
-    2L+1 LayerNorms and L attentions per forward (decode on B8 from an
-    int8 pool, on B7 otherwise)."""
+    2L+1 LayerNorms per forward (a monolithic prefill, a chunk or a
+    decode step), L flash attentions per monolithic prefill (none when
+    the server chunks: a chunk's attention is plain PyTorch, as the
+    reference's) and L decode attentions per decode step (B8 from an
+    int8 pool, B7 otherwise)."""
     import torch
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     torch.cuda.synchronize()
     reset_launch_counts()
     server.reset_meters()
     t0 = time.perf_counter()
-    outs = server.generate(prompts, max_new_tokens=max_new)
+    outs = server.generate(prompts, max_new_tokens=max_new,
+                           sampling=sampling)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -2238,16 +2280,21 @@ def _serve_once(server, prompts, max_new):
     decode = ("decode_attention_q8" if server.engine.quantized
               else "decode_attention")
     serve = {"layer_norm_fwd": (2 * layers + 1)
-             * (st["prefills"] + st["decode_steps"]),
+             * (st["prefills"] + st["prefill_chunks"] + st["decode_steps"]),
              "flash_fwd": layers * st["prefills"],
              decode: layers * st["decode_steps"]}
+    chunked = server.prefill_chunk is not None
+    required = [name for name in serve if not (chunked
+                                               and name == "flash_fwd")]
     # the training kernels (backward, optimizer) run no time here
     want = {name: serve.get(name, 0) for name in counts}
-    if counts != want or not all(serve.values()) \
+    if counts != want or not all(serve[name] for name in required) \
+            or (st["prefill_chunks"] > 0) != chunked \
             or st["kernel_launches"] != counts:
         raise AssertionError(f"kernel launches {counts} (stats() "
                              f"{st['kernel_launches']}) != expected {want} "
                              f"({st['prefills']} prefills, "
+                             f"{st['prefill_chunks']} chunks, "
                              f"{st['decode_steps']} decode steps)")
     server.scheduler.audit()
     if server.engine.allocator.num_free != \
@@ -2293,6 +2340,9 @@ def _oracle_check(model, prompts, outs, kv_quant=False):
     """Greedy full recompute on the card through the plain oracle (with
     ``kv_quant``, K/V quantized at the source as the int8 pool holds
     them); returns (tokens compared, near-ties that ended a comparison).
+    One causal forward a request over its prompt and served tokens: the
+    logits at position len(prompt) - 1 + t see exactly the prompt and
+    the first t served tokens, what a recompute before token t sees.
     Fails if the oracle launched any of the port's kernels."""
     import torch
     from apex_tpu_torch._kernels import launch_counts
@@ -2301,13 +2351,12 @@ def _oracle_check(model, prompts, outs, kv_quant=False):
     before = launch_counts()
     with torch.no_grad():
         for p, o in zip(prompts, outs):
-            toks = list(p)
-            for t, got in enumerate(o):
-                ids = torch.tensor([toks], device="cuda")
-                logits = model(ids, kv_quant=kv_quant)[0, -1]
-                ref = int(greedy_argmax(logits))
-                top2 = torch.topk(logits, 2).values
-                gap = float(top2[0] - top2[1])
+            ids = torch.tensor([list(p) + list(o[:-1])], device="cuda")
+            logits = model(ids, kv_quant=kv_quant)[0, len(p) - 1:]
+            refs = greedy_argmax(logits).tolist()
+            top2 = torch.topk(logits, 2).values
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            for t, (got, ref, gap) in enumerate(zip(o, refs, gaps)):
                 if got != ref:
                     if gap < NEAR_TIE_GAP:
                         near_ties += 1
@@ -2316,26 +2365,38 @@ def _oracle_check(model, prompts, outs, kv_quant=False):
                         f"token {t} of a {len(p)}-token prompt: served {got}"
                         f" != oracle {ref} (top-2 gap {gap:.3g})")
                 compared += 1
-                toks.append(got)
     if launch_counts() != before:
         raise AssertionError("the full-recompute oracle launched a port "
                              "kernel")
     return compared, near_ties
 
 
-def phase_serve():
-    import torch
-    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
-    from apex_tpu_torch.serving import InferenceServer
+def _serve_model():
+    """GPT-2 small's seed-0 model on the card with its plain oracle, its
+    state dict and the serve traffic, built once a run (``_shared``) for
+    serve, serve_q8 and serve_programs; serve_programs drops it at its
+    end."""
+    return _shared("gpt2_small_serve", _build_serve_model)
 
+
+def _build_serve_model():
+    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
     cfg = gpt_small()
     model = GPTLMHeadModel(cfg, device="cuda", seed=0).eval()
-    params = model.state_dict()
-    oracle = _plain_oracle(model)
-    prompts = _make_prompts(cfg)
+    return {"cfg": cfg, "params": model.state_dict(),
+            "oracle": _plain_oracle(model), "prompts": _make_prompts(cfg)}
+
+
+def phase_serve():
+    import torch
+    from apex_tpu_torch.serving import InferenceServer
+
+    shared = _serve_model()
+    cfg, params, oracle, prompts = (shared[k] for k in (
+        "cfg", "params", "oracle", "prompts"))
     max_new = 32
     common = dict(device="cuda", max_batch_size=8, block_size=16,
-                  kv_quant="off")
+                  kv_quant="off", enable_chunked_prefill=False)
     results = {}
 
     # (a) fp32 cache against greedy full recompute
@@ -2403,21 +2464,18 @@ def phase_serve_q8():
     """The int8-pool serving path, (a)-(c) of the module docstring;
     returns the launch counts of the last timed pass of (b)."""
     import torch
-    from apex_tpu_torch.models import GPTLMHeadModel, gpt_small
     from apex_tpu_torch.serving import InferenceServer, KVCacheConfig
 
-    cfg = gpt_small()
-    model = GPTLMHeadModel(cfg, device="cuda", seed=0).eval()
-    params = model.state_dict()
-    oracle = _plain_oracle(model)
-    prompts = _make_prompts(cfg)
+    shared = _serve_model()
+    cfg, params, oracle, prompts = (shared[k] for k in (
+        "cfg", "params", "oracle", "prompts"))
     max_new = 32
     results = {}
 
     # (a) fp32 compute against the int8 full recompute
     server = InferenceServer(cfg, params, device="cuda", max_batch_size=8,
                              block_size=16, cache_dtype=torch.float32,
-                             kv_quant="int8")
+                             kv_quant="int8", enable_chunked_prefill=False)
     outs_a, wall, counts, st = _serve_once(server, prompts, max_new)
     mem = st["memory"]
     if mem["cache_dtype"] != "int8" or \
@@ -2467,7 +2525,8 @@ def phase_serve_q8():
         srv = InferenceServer(cfg, params, device="cuda",
                               max_batch_size=EQUAL_BYTES_SLOTS,
                               block_size=16, num_blocks=blocks,
-                              cache_dtype=torch.bfloat16, kv_quant=quant)
+                              cache_dtype=torch.bfloat16, kv_quant=quant,
+                              enable_chunked_prefill=False)
         srv.generate(prompts[:2], max_new_tokens=2)
         srv.engine.reset_cache()
         outs[arm], wall, counts, st = _serve_once(srv, prompts, max_new)
@@ -2503,6 +2562,469 @@ def phase_serve_q8():
     (OUT_DIR / "serve_q8.json").write_text(json.dumps(results, indent=1,
                                                       default=str))
     return timed_counts
+
+
+# -- serve_programs ----------------------------------------------------------
+
+# the engine's remaining programs on serve's model and traffic: the prefill
+# chunk, verify's width, the stochastic leg's requests (serve's first 8
+# prompts), their classes (one seed a request) and a pool small enough
+# that those 8 preempt (they end needing 89 blocks)
+PROGRAMS_CHUNK = 64
+VERIFY_K = 4
+PROGRAMS_BLOCKS = 200
+SAMPLED_PROMPTS = 8
+STARVED_BLOCKS = 45
+SAMPLING_CLASSES = (None, {"temperature": 0.8},
+                    {"temperature": 1.0, "top_k": 40},
+                    {"temperature": 1.0, "top_p": 0.9},
+                    {"temperature": 0.8, "top_k": 40, "top_p": 0.9})
+# |card - CPU| of the Gumbel noise, in float32 epsilons of max(|x|, 1)
+NOISE_ULPS = 4
+# verify's logits against four decode steps, scale-aware, a pool: about
+# 9x and 7x the sound readings (1.10e-4 bf16, 2.9e-5 int8); a verify fed
+# one position late must land above it
+VERIFY_TOL = {"bfloat16": 1e-3, "int8": 2e-4}
+# (e) a long prompt arriving while the other slots decode: its length,
+# the decoders' new tokens, the decode steps before it arrives and the
+# long request's own new tokens
+STALL_PROMPT = 1000
+STALL_DECODERS = 7
+STALL_NEW = 40
+STALL_AT = 8
+STALL_LONG_NEW = 8
+
+S_PREDICTION = {
+    "a_tokens": "equal the greedy full recompute but at top-2 gaps < 1e-3, "
+                "as serve (a)",
+    "a_launches": "exact: B2 (2L+1) x (chunks + decode steps), B4 0, B7 L "
+                  "a decode step; 43 chunks for the 16 prompts at 64",
+    "a_tokens_per_s_bf16": "chunked 550-700 against the monolithic "
+                           "prefill's 650-800 in the same call (serve's "
+                           "767 on an earlier run): ~2.7x the prefill "
+                           "launches, each a 64-token forward with the "
+                           "context gathered a layer, and the path is "
+                           "host-bound",
+    "b_int8": "tokens equal the int8 oracle but at near-ties; B8 L a "
+              "decode step, B7 0",
+    "c_verify": "verify's (8, 4, V) logits within 2e-2 scale-aware of 4 "
+                "decode steps' (bf16 pool: the in-chunk K/V are not rounded "
+                "to bf16; int8: ~1e-5), argmax equal but at near-ties; "
+                "copies, the hand-off and export/import bit for bit",
+    "d_sampling": "replay, the greedy rows and the starved pool's streams "
+                  "bit for bit; the card's uniform bits the CPU's, its "
+                  "noise within 4 eps of max(|x|, 1)",
+    "phase_s": "30-60",
+    "c_fault": "verify fed one position late (the context off by one "
+               "slot): > 1e-2 scale-aware on both pools, far above "
+               "VERIFY_TOL",
+    "e_stall": "7 slots decoding when a 1000-token prompt arrives (bf16 "
+               "pool): the decoders' largest inter-token gap ~1.5-3x "
+               "their median under the default chunk (256, four chunks "
+               "in four steps) and ~3-6x under the monolithic prefill "
+               "(one 1000-row forward in one step); p99 (of ~270 gaps) "
+               "the same order, as the 7 stalled gaps are 2.6% of them; "
+               "the long request's first token later when chunked "
+               "(1.2-2x the monolithic time to first token)",
+}
+
+
+def _chunks(prompts, chunk):
+    return sum(-(-len(p) // chunk) for p in prompts)
+
+
+def _programs_server(shared, quant, dtype, **kw):
+    from apex_tpu_torch.serving import InferenceServer
+    return InferenceServer(shared["cfg"], shared["params"], device="cuda",
+                           max_batch_size=8, block_size=16, cache_dtype=dtype,
+                           kv_quant=quant, **kw)
+
+
+def _programs_chunked(shared, quant, max_new):
+    """(a) fp32 pool, (b) int8 pool: chunked serving at PROGRAMS_CHUNK
+    against the oracle, launches exact, chunks counted (the timed passes
+    are (a)'s on the bf16 pool, beside the monolithic prefill)."""
+    import torch
+    prompts = shared["prompts"]
+    server = _programs_server(shared, quant, torch.float32,
+                              prefill_chunk=PROGRAMS_CHUNK)
+    outs, wall, counts, st = _serve_once(server, prompts, max_new)
+    want_chunks = _chunks(prompts, PROGRAMS_CHUNK)
+    if st["prefill_chunks"] != want_chunks or st["preemptions"] \
+            or st["prefills"]:
+        raise AssertionError(f"serve_programs {quant}: {st['prefills']} "
+                             f"prefills, {st['prefill_chunks']} chunks "
+                             f"(want {want_chunks}), {st['preemptions']} "
+                             f"preemptions")
+    compared, near_ties = _oracle_check(shared["oracle"], prompts, outs,
+                                        kv_quant=quant == "int8")
+    out = {"wall_s": wall, "launches": counts, "stats": st,
+           "prefill_chunks": st["prefill_chunks"],
+           "chunk_iters_peak": st["chunk_iters_peak"],
+           "oracle_tokens_compared": compared, "near_ties": near_ties}
+    emit("serve_programs", leg="a" if quant == "off" else "b", pool=quant,
+         tokens=st["tokens_generated"], prefill_chunks=st["prefill_chunks"],
+         chunk_iters_peak=st["chunk_iters_peak"],
+         decode_steps=st["decode_steps"], launches=counts,
+         **{k: v for k, v in out.items()
+            if k not in ("launches", "stats", "prefill_chunks",
+                         "chunk_iters_peak")})
+    return counts, out
+
+
+def _chunked_against_monolithic(shared, max_new):
+    """(a) continued: the default bf16 pool, chunked and monolithic
+    passes in turns (one warm-up each), then a chunked pass under the
+    profiler."""
+    import torch
+    prompts = shared["prompts"]
+    servers = {"chunked": _programs_server(shared, "off", torch.bfloat16,
+                                           prefill_chunk=PROGRAMS_CHUNK),
+               "monolithic": _programs_server(shared, "off", torch.bfloat16,
+                                              enable_chunked_prefill=False)}
+    for srv in servers.values():
+        srv.generate(prompts[:2], max_new_tokens=2)
+    rates = {name: [] for name in servers}
+    for _ in range(TIMED_SERVE_PASSES):
+        for name, srv in servers.items():
+            srv.engine.reset_cache()
+            _, wall, _, st = _serve_once(srv, prompts, max_new)
+            rates[name].append(st["tokens_generated"] / wall)
+    out = {name: {"tokens_per_s": statistics.median(r),
+                  "tokens_per_s_passes": r} for name, r in rates.items()}
+    out["profile"] = _profile_serve(servers["chunked"], prompts, max_new,
+                                    label="serve_programs_chunked")
+    emit("serve_programs", leg="a_bf16", **{
+        f"{name}_tokens_per_s": out[name]["tokens_per_s"]
+        for name in servers}, passes=rates)
+    return out
+
+
+def _near_tie_argmax(got, want):
+    """Rows whose argmax differs: each must have a top-2 gap in ``want``
+    below twice that row's largest |got - want| (else AssertionError);
+    returns their count."""
+    from apex_tpu_torch.ops import greedy_argmax
+    g, w = greedy_argmax(got), greedy_argmax(want)
+    bad = (g != w).nonzero().tolist()
+    for idx in bad:
+        top2 = want[tuple(idx)].topk(2).values
+        gap = float(top2[0] - top2[1])
+        diff = float((got[tuple(idx)] - want[tuple(idx)]).abs().max())
+        if gap >= 2 * diff:
+            raise AssertionError(f"verify argmax {g[tuple(idx)]} != decode "
+                                 f"{w[tuple(idx)]} at {idx} (top-2 gap "
+                                 f"{gap:.3g}, |diff| {diff:.3g})")
+    return len(bad)
+
+
+def _same_rows(a, a_blocks, b, b_blocks, label):
+    """Every leaf of ``a``'s pool at ``a_blocks`` equals ``b``'s at
+    ``b_blocks`` bit for bit."""
+    import torch
+    sa = torch.from_numpy(a._block_slots(a_blocks, len(a_blocks))).cuda()
+    sb = torch.from_numpy(b._block_slots(b_blocks, len(b_blocks))).cuda()
+    for name in a.cache:
+        if not torch.equal(a.cache[name][:, sa], b.cache[name][:, sb]):
+            raise AssertionError(f"serve_programs (c) {label}: leaf {name} "
+                                 f"differs")
+
+
+def _programs_engine(shared, quant):
+    """(c) verify against decode steps from the same pool, the block
+    copies, the cross-engine copy and export/import, on a bf16 or an int8
+    pool (bf16 compute dtype)."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.ops import greedy_argmax
+    from apex_tpu_torch.serving import BlockAllocator, DecodeEngine
+    cfg, prompts = shared["cfg"], shared["prompts"][:8]
+    layers = cfg.num_hidden_layers
+    kw = dict(device="cuda", max_batch_size=8, block_size=16,
+              cache_dtype=torch.bfloat16, kv_quant=quant,
+              num_blocks=PROGRAMS_BLOCKS)
+    eng = DecodeEngine(cfg, shared["params"], **kw)
+    other = DecodeEngine(cfg, shared["params"], **kw)
+    tables, first = [], []
+    for p in prompts:
+        table = eng.allocator.alloc(BlockAllocator.blocks_for(
+            len(p) + VERIFY_K, 16))
+        for start in range(0, len(p), PROGRAMS_CHUNK):
+            ids, _ = eng.chunk_prefill_sampled(
+                p[start:start + PROGRAMS_CHUNK], start, table,
+                pad_to=PROGRAMS_CHUNK)
+        tables.append(table)
+        first.append(int(ids[0]))
+    tab = np.zeros((8, eng.blocks_per_seq), np.int64)
+    for i, t in enumerate(tables):
+        tab[i, :len(t)] = t
+    pos = np.array([len(p) for p in prompts])
+    snapshot = {n: t.clone() for n, t in eng.cache.items()}
+    fed, logits, toks = [], [], first
+    for j in range(VERIFY_K):
+        fed.append(toks)
+        step = eng.decode(np.array(toks), pos + j, tab)
+        logits.append(step)
+        toks = greedy_argmax(step).tolist()
+    dec = torch.stack(logits, dim=1)
+    for n, t in eng.cache.items():
+        t.copy_(snapshot[n])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ver = eng.verify(np.array(fed).T, np.full(8, VERIFY_K), pos, tab)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want_counts = {name: (2 * layers + 1 if name == "layer_norm_fwd" else 0)
+                   for name in counts}
+    if counts != want_counts:
+        raise AssertionError(f"serve_programs (c): verify launched {counts}")
+    err, max_abs = scale_aware_err(ver, dec)
+    near = _near_tie_argmax(ver, dec)
+    kind = quant or "bfloat16"
+    if not err <= VERIFY_TOL[kind]:
+        raise AssertionError(f"serve_programs (c) {kind}: verify logits "
+                             f"{err:.3g} from decode's (limit "
+                             f"{VERIFY_TOL[kind]})")
+    # a plausible fault, the context off by one slot, must fail the gate
+    fault, _ = scale_aware_err(eng.verify(np.array(fed).T,
+                                          np.full(8, VERIFY_K), pos + 1,
+                                          tab), dec)
+    if not fault > VERIFY_TOL[kind]:
+        raise AssertionError(f"serve_programs (c) {kind}: a verify one "
+                             f"position late reads {fault:.3g}, within "
+                             f"the limit {VERIFY_TOL[kind]}")
+    # block copies inside the pool: a chained batch reads the old blocks
+    fresh = eng.allocator.alloc(3)
+    before = {n: t.clone() for n, t in eng.cache.items()}
+    eng.copy_blocks([(tables[0][0], fresh[0]), (fresh[0], fresh[1]),
+                     (tables[0][1], fresh[2])])
+    for src, dst in ((tables[0][0], fresh[0]), (fresh[0], fresh[1]),
+                     (tables[0][1], fresh[2])):
+        for name, pool in eng.cache.items():
+            if not torch.equal(pool[:, dst * 16:(dst + 1) * 16],
+                               before[name][:, src * 16:(src + 1) * 16]):
+                raise AssertionError(f"serve_programs (c) copy_blocks: "
+                                     f"{src} -> {dst} leaf {name}")
+    # another engine's pool: the hand-off copy, then export -> import
+    dst = other.allocator.alloc(len(tables[1]))
+    other.copy_blocks_from(eng, list(zip(tables[1], dst)))
+    _same_rows(eng, tables[1], other, dst, "copy_blocks_from")
+    payload = eng.export_blocks(tables[2])
+    dst = other.allocator.alloc(len(tables[2]))
+    other.import_blocks(dst, payload)
+    _same_rows(eng, tables[2], other, dst, "export/import")
+    kept = {n: t.clone() for n, t in other.cache.items()}
+    leaf = min(payload["leaves"])
+    torn = payload["leaves"][leaf].copy()
+    torn.view(np.uint8).reshape(-1)[0] ^= 0xFF
+    try:
+        other.import_blocks(other.allocator.alloc(len(tables[2])), {
+            **payload, "leaves": {**payload["leaves"], leaf: torn}})
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("serve_programs (c): a torn payload imported")
+    other.import_blocks([], other.export_blocks([]))
+    for name, t in other.cache.items():
+        if not torch.equal(t, kept[name]):
+            raise AssertionError(f"serve_programs (c): a refused or empty "
+                                 f"import wrote leaf {name}")
+    out = {"verify_err": err, "verify_max_abs": max_abs,
+           "verify_limit": VERIFY_TOL[kind], "verify_fault_err": fault,
+           "verify_argmax_near_ties": near, "verify_launches": counts,
+           "payload_bytes": sum(a.nbytes for a in payload["leaves"].values()),
+           "torn_refused": refused[:80]}
+    emit("serve_programs", leg="c", pool=kind, **{
+        k: v for k, v in out.items() if k != "verify_launches"})
+    return out
+
+
+def _programs_sampling(shared, max_new):
+    """(d) mixed sampling classes on the bf16 pool: replay, the greedy
+    rows against a greedy-only pass and a starved pool, each bit for bit;
+    the card's keys, uniform bits and noise against the CPU's; the replay
+    once more under the profiler."""
+    import torch
+    from apex_tpu_torch.ops import sampling, threefry
+    from apex_tpu_torch.serving import SamplingParams
+    prompts = shared["prompts"][:SAMPLED_PROMPTS]
+    samp = [None if c is None else SamplingParams(seed=1000 + i, **c)
+            for i, c in zip(range(len(prompts)),
+                            itertools.cycle(SAMPLING_CLASSES))]
+    server = _programs_server(shared, "off", torch.bfloat16,
+                              prefill_chunk=PROGRAMS_CHUNK)
+    runs = {}
+    for run in ("first", "replay"):
+        server.engine.reset_cache()
+        runs[run] = _serve_once(server, prompts, max_new, sampling=samp)
+    outs, _, counts, st = runs["first"]
+    server.engine.reset_cache()
+    greedy = _serve_once(server, prompts, max_new)[0]
+    starved = _programs_server(shared, "off", torch.bfloat16,
+                               prefill_chunk=PROGRAMS_CHUNK,
+                               num_blocks=STARVED_BLOCKS)
+    starved_outs, _, _, starved_st = _serve_once(starved, prompts, max_new,
+                                                 sampling=samp)
+    classes = {}
+    for s in samp:
+        k = "greedy" if s is None else s.klass
+        classes[k] = classes.get(k, 0) + 1
+    checks = {
+        "replay": runs["replay"][0] == outs,
+        "greedy_rows": all(o == g for o, g, s in zip(outs, greedy, samp)
+                           if s is None),
+        "stochastic_rows_differ": any(o != g for o, g, s in
+                                      zip(outs, greedy, samp) if s),
+        "starved_pool": starved_outs == outs,
+        "starved_preempted": starved_st["preemptions"] > 0,
+        "class_counts": st["sampling"]["requests"] == classes,
+    }
+    # one key a request at its first sampled position
+    seeds = torch.tensor([s.seed if s else 0 for s in samp])
+    pos = torch.tensor([len(p) for p in prompts])
+    keys = threefry.fold_in_rows(threefry.fold_in_rows(
+        threefry.key_rows(seeds), pos), sampling.SALT_SAMPLE)
+    keys_card = threefry.fold_in_rows(threefry.fold_in_rows(
+        threefry.key_rows(seeds.cuda()), pos.cuda()), sampling.SALT_SAMPLE)
+    vocab = shared["cfg"].vocab_size
+    tiny = torch.finfo(torch.float32).tiny
+    checks["keys"] = torch.equal(keys_card.cpu(), keys)
+    checks["uniform_bits"] = torch.equal(
+        threefry.uniform_rows(keys_card, vocab, tiny, 1.0).cpu(),
+        threefry.uniform_rows(keys, vocab, tiny, 1.0))
+    noise = sampling.sampling_noise(seeds.cuda(), pos.cuda(), vocab).cpu()
+    want = sampling.sampling_noise(seeds, pos, vocab)
+    eps = torch.finfo(torch.float32).eps
+    ulps = float(((noise - want).abs()
+                  / (eps * want.abs().clamp_min(1.0))).max())
+    checks["noise_within_ulps"] = ulps <= NOISE_ULPS
+    rates = {run: r[3]["tokens_generated"] / r[1] for run, r in runs.items()}
+    emit("serve_programs", leg="d", launches=counts,
+         preemptions_starved=starved_st["preemptions"],
+         noise_ulps=ulps, classes=classes, tokens_per_s=rates, **checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_programs (d) failed: {failed}")
+    server.engine.reset_cache()
+    profile = _profile("serve_programs_stochastic", lambda: server.generate(
+        prompts, max_new_tokens=max_new, sampling=samp))
+    return counts, {"checks": checks, "noise_ulps": ulps,
+                    "launches": counts, "stats": st, "tokens_per_s": rates,
+                    "starved_stats": starved_st, "profile": profile}
+
+
+def _stall_pass(server, shorts, long_prompt):
+    """(e) one pass: the short requests decode, the long prompt arrives
+    after ``STALL_AT`` steps; returns the decoders' inter-token gaps (ms,
+    from each step that gave a request tokens to the next; its first
+    step gives two, the prefill's and a decode's), the long request's
+    time to its first token (ms), the stats and launches."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    server.engine.reset_cache()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    server.reset_meters()
+    reqs = [server.submit(p, STALL_NEW) for p in shorts]
+    seen = {}
+    gaps, long_req, ttft, steps = [], None, None, 0
+    while server.has_work:
+        if steps == STALL_AT:
+            long_req = server.submit(long_prompt, STALL_LONG_NEW)
+            t_submit = time.perf_counter()
+        server.step()
+        torch.cuda.synchronize()
+        now, steps = time.perf_counter(), steps + 1
+        for i, r in enumerate(reqs):
+            n = len(r.generated)
+            if n and seen.get(i, (0, 0))[0] != n:
+                if i in seen:
+                    gaps.append((now - seen[i][1]) * 1e3)
+                seen[i] = (n, now)
+        if long_req is not None and ttft is None and long_req.generated:
+            ttft = (now - t_submit) * 1e3
+    counts, st = launch_counts(), server.stats()
+    layers = server.engine.cfg.num_hidden_layers
+    forwards = st["prefills"] + st["prefill_chunks"] + st["decode_steps"]
+    chunked = server.prefill_chunk is not None
+    want_chunks = (sum(-(-len(p) // server.prefill_chunk)
+                       for p in [*shorts, long_prompt]) if chunked else 0)
+    if counts["layer_norm_fwd"] != (2 * layers + 1) * forwards \
+            or counts["flash_fwd"] != layers * st["prefills"] \
+            or st["prefill_chunks"] != want_chunks \
+            or st["prefills"] != (0 if chunked else len(shorts) + 1) \
+            or [len(r.generated) for r in reqs] != [STALL_NEW] * len(reqs) \
+            or len(long_req.generated) != STALL_LONG_NEW:
+        raise AssertionError(f"serve_programs (e): launches {counts}, "
+                             f"{st['prefills']} prefills, "
+                             f"{st['prefill_chunks']} chunks")
+    return gaps, ttft, st, counts
+
+
+def _programs_stall(shared):
+    """(e) the stall a long prompt puts on a decoding batch: the default
+    server (chunks of 256) and the monolithic prefill on the bf16 pool,
+    passes in turns after a warm-up each; the decoders' median, p99 and
+    largest inter-token gaps and the long request's time to first
+    token, each the median over the passes."""
+    import torch
+    t0 = time.perf_counter()
+    shorts = shared["prompts"][:STALL_DECODERS]
+    long_prompt = np.random.default_rng(STALL_PROMPT).integers(
+        0, shared["cfg"].vocab_size, STALL_PROMPT).tolist()
+    servers = {"chunked": _programs_server(shared, "off", torch.bfloat16),
+               "monolithic": _programs_server(shared, "off", torch.bfloat16,
+                                              enable_chunked_prefill=False)}
+    for srv in servers.values():
+        srv.generate([shorts[0], long_prompt[:300]], max_new_tokens=2)
+    passes = {name: [] for name in servers}
+    for _ in range(TIMED_SERVE_PASSES):
+        for name, srv in servers.items():
+            gaps, ttft, st, counts = _stall_pass(srv, shorts, long_prompt)
+            passes[name].append({
+                "gap_median_ms": statistics.median(gaps),
+                "gap_p99_ms": float(np.percentile(gaps, 99)),
+                "gap_max_ms": max(gaps), "gaps": len(gaps),
+                "long_ttft_ms": ttft, "prefill_chunks": st["prefill_chunks"],
+                "prefills": st["prefills"], "launches": counts})
+    out = {name: {k: statistics.median(p[k] for p in ps)
+                  for k in ("gap_median_ms", "gap_p99_ms", "gap_max_ms",
+                            "long_ttft_ms")}
+           for name, ps in passes.items()}
+    out["chunk"] = servers["chunked"].prefill_chunk
+    out["seconds"] = time.perf_counter() - t0
+    emit("serve_programs", leg="e", **out)
+    out["passes"] = passes
+    return out
+
+
+def phase_serve_programs():
+    """The engine's remaining programs and stochastic sampling on serve's
+    model and traffic, (a)-(d) of the module docstring; returns the
+    launches of its three serving paths."""
+    import torch
+    t0 = time.perf_counter()
+    emit("serve_programs", prediction=S_PREDICTION)
+    shared = _serve_model()
+    max_new = 32
+    results = {}
+    counts_a, results["a"] = _programs_chunked(shared, "off", max_new)
+    results["a_bf16"] = _chunked_against_monolithic(shared, max_new)
+    counts_b, results["b"] = _programs_chunked(shared, "int8", max_new)
+    results["c"] = {quant or "bfloat16": _programs_engine(shared, quant)
+                    for quant in (None, "int8")}
+    counts_d, results["d"] = _programs_sampling(shared, max_new)
+    results["e"] = _programs_stall(shared)
+    _SHARED.pop("gpt2_small_serve", None)
+    torch.cuda.empty_cache()
+    results["seconds"] = time.perf_counter() - t0
+    emit("serve_programs", leg="done", seconds=round(results["seconds"], 3))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "serve_programs.json").write_text(
+        json.dumps(results, indent=1, default=str))
+    # a kernel reports the last path's launches: B7 serve_chunked's
+    return {"serve_stochastic": counts_d, "serve_chunked": counts_a,
+            "serve_chunked_q8": counts_b}
 
 
 # device-time classes of the profiled passes' kernels, by kernel-name
@@ -2601,7 +3123,8 @@ def _profile_serve(server, prompts, max_new, label="serve"):
     out = _profile(label, lambda: server.generate(prompts,
                                                   max_new_tokens=max_new))
     st = server.stats()
-    out["engine_steps"] = st["prefills"] + st["decode_steps"]
+    out["engine_steps"] = (st["prefills"] + st["prefill_chunks"]
+                           + st["decode_steps"])
     return out
 
 
@@ -7683,7 +8206,7 @@ def phase_train_moe():
 
 
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
-          "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
+          "serve_programs", "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
           "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
           "train_sp", "train_pp", "train_sp_compose", "train_tp_pp",
           "train_moe", "train_o1", "train_simple", "train_dcgan")
@@ -7731,6 +8254,7 @@ def _main(phases):
     # O1 phases run last and remove their op policy at their end
     for phase, run in (("train_resnet", phase_train_resnet),
                        ("serve", phase_serve), ("serve_q8", phase_serve_q8),
+                       ("serve_programs", phase_serve_programs),
                        ("train", phase_train),
                        ("train_bert", phase_train_bert),
                        ("train_gpt_remat", phase_train_gpt_remat),
@@ -7752,7 +8276,8 @@ def _main(phases):
         t0 = time.perf_counter()
         by_path = run()
         seconds[phase] = time.perf_counter() - t0
-        if phase not in ("train_resnet", "train", "train_bert",
+        if phase not in ("train_resnet", "serve_programs", "train",
+                         "train_bert",
                          "train_gpt_remat", "train_gpt_dropout",
                          "train_bert_remat", "adam_rest", "hf_bert",
                          "train_tp_zero", "train_sp", "train_pp",

@@ -173,7 +173,8 @@ def test_generate_matches_jax_server_token_for_token(tiny):
     prompts = _prompts()
     want = jserver.generate(prompts, max_new_tokens=24)
     server = InferenceServer(cfg, sd, device="cpu", max_batch_size=4,
-                             block_size=16, cache_dtype=torch.float32)
+                             block_size=16, cache_dtype=torch.float32,
+                             enable_chunked_prefill=False)
     before = launch_counts()
     got = server.generate(prompts, max_new_tokens=24)
     assert launch_counts() == before, "the CPU path launched a kernel"
@@ -208,7 +209,8 @@ def test_preemption_matches_jax_server():
     server = InferenceServer(
         cfg, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                              cfg),
-        device="cpu", cache_dtype=torch.float32, **geometry)
+        device="cpu", cache_dtype=torch.float32,
+        enable_chunked_prefill=False, **geometry)
     got = server.generate(prompts, max_new_tokens=24)
     assert got == want
     st = server.stats()
@@ -223,7 +225,8 @@ def test_scheduler_edges():
     sd = GPTLMHeadModel(cfg, device="cpu", seed=0).state_dict()
     server = InferenceServer(cfg, sd, device="cpu", max_batch_size=2,
                              max_context=32, block_size=8, max_waiting=1,
-                             cache_dtype=torch.float32)
+                             cache_dtype=torch.float32,
+                             enable_chunked_prefill=False)
     with pytest.raises(ValueError):
         server.submit(list(range(32)), 4)      # no room to generate
     with pytest.raises(ValueError):
@@ -234,7 +237,8 @@ def test_scheduler_edges():
     assert rejected.finished and rejected.finish_reason == "rejected"
     eos_server = InferenceServer(cfg, sd, device="cpu", max_batch_size=2,
                                  max_context=64, block_size=8,
-                                 cache_dtype=torch.float32)
+                                 cache_dtype=torch.float32,
+                                 enable_chunked_prefill=False)
     ref = eos_server.generate([[5, 4, 3, 2, 1]], max_new_tokens=12)[0]
     eos = ref[5]
     out = eos_server.generate([[5, 4, 3, 2, 1]], max_new_tokens=12,
@@ -269,7 +273,8 @@ def test_stats_count_launches_since_reset_meters(tiny):
     _, _, cfg, sd, _ = tiny
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     server = InferenceServer(cfg, sd, device="cpu", max_batch_size=2,
-                             block_size=16, cache_dtype=torch.float32)
+                             block_size=16, cache_dtype=torch.float32,
+                             enable_chunked_prefill=False)
     fa.KERNEL.launches += 3            # launches made before the window
     try:
         server.reset_meters()

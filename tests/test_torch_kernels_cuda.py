@@ -29,7 +29,10 @@ fully masked for a row) against one call over the joined keys, B5 and
 B6 with an lse cotangent, B4d-B6d at a ring hop's row and column
 offsets, the threefry dropout's window against the dense slice, and
 ring and Ulysses attention at a world of one; BERT's token-type gradient
-repeats its bits.
+repeats its bits; the stochastic sampler (``sample_tokens``, plain
+PyTorch) and the row-batched threefry it draws with give on the card
+the CPU's keys and uniform bits bit for bit, Gumbel noise within
+``NOISE_ULPS`` epsilons of max(|x|, 1), and the CPU's tokens.
 Scale-aware error
 max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
 flash o, dq, dk and dv also row by row (``row_err``); every kernel call
@@ -1501,3 +1504,43 @@ def test_bert_token_type_gradient_repeats_its_bits(gen):
         (enc(ids) * r).sum().backward()
         grads.append(enc.token_type_embeddings.weight.grad.clone())
     assert all(torch.equal(g, grads[0]) for g in grads)
+
+
+NOISE_ULPS = 4
+
+
+def test_sampler_and_row_batched_threefry_match_the_cpu(gen):
+    """GPT-2's vocabulary, 8 rows of every class: the keys and the
+    uniform bits equal the CPU's, the noise is within NOISE_ULPS
+    float32 epsilons of max(|x|, 1) (the card's logs may round apart),
+    and the tokens equal the CPU's unless a row's top two scores lie
+    within 1e-4."""
+    smp = importlib.import_module("apex_tpu_torch.ops.sampling")
+    v = 50257
+    logits = torch.randn(8, v, device="cuda", generator=gen) * 3
+    temp = torch.tensor([0, .8, 1, .7, .9, 1.3, .5, 1], device="cuda")
+    top_k = torch.tensor([0, 0, 40, 0, 20, 0, 1, 50257], device="cuda",
+                         dtype=torch.int32)
+    top_p = torch.tensor([1, 1, 1, .9, .8, .95, 1, .5], device="cuda")
+    seeds = torch.arange(8, device="cuda") * 7919 + 1
+    pos = torch.arange(8, device="cuda") * 100 + 3
+    keys = tf.fold_in_rows(tf.fold_in_rows(tf.key_rows(seeds), pos), 0)
+    keys_cpu = tf.fold_in_rows(tf.fold_in_rows(tf.key_rows(seeds.cpu()),
+                                               pos.cpu()), 0)
+    assert torch.equal(keys.cpu(), keys_cpu)
+    tiny = torch.finfo(torch.float32).tiny
+    assert torch.equal(tf.uniform_rows(keys, v, tiny, 1.0).cpu(),
+                       tf.uniform_rows(keys_cpu, v, tiny, 1.0))
+    noise = smp.sampling_noise(seeds, pos, v).cpu()
+    want = smp.sampling_noise(seeds.cpu(), pos.cpu(), v)
+    eps = torch.finfo(torch.float32).eps
+    assert ((noise - want).abs() / (eps * want.abs().clamp_min(1))).max() \
+        <= NOISE_ULPS
+    args = (logits, temp, top_k, top_p, seeds, pos)
+    ids, fin = smp.sample_tokens(*args)
+    ids_cpu, fin_cpu = smp.sample_tokens(*(a.cpu() for a in args))
+    assert torch.equal(fin.cpu(), fin_cpu) and bool(fin_cpu.all())
+    score = smp.processed_logits(*(a.cpu() for a in args[:4])) + want
+    top2 = score.topk(2).values
+    near = (top2[:, 0] - top2[:, 1]) < 1e-4
+    assert torch.equal(ids.cpu()[~near], ids_cpu[~near])

@@ -393,7 +393,8 @@ def test_generate_matches_jax_server_under_int8(tiny, preempt):
             **kw, **SLICE_FLAGS)
     want = jserver.generate(prompts, max_new_tokens=24)
     server = InferenceServer(cfg, sd, device="cpu", cache_dtype=torch.float32,
-                             kv_quant="int8", **kw)
+                             kv_quant="int8", enable_chunked_prefill=False,
+                             **kw)
     before = launch_counts()
     got = server.generate(prompts, max_new_tokens=24)
     assert launch_counts() == before, "the CPU path launched a kernel"
@@ -429,7 +430,8 @@ def test_memory_stats_match_jax(tiny):
     prompts = [[1, 2, 3], [4, 5, 6, 7]]
     for quant in ("int8", "off"):
         server = InferenceServer(cfg, sd, device="cpu", kv_quant=quant,
-                                 cache_dtype=torch.float32, **geometry)
+                                 cache_dtype=torch.float32,
+                                 enable_chunked_prefill=False, **geometry)
         jsrv = JaxInferenceServer(
             jax_models.GPTConfig(**TINY), jparams, cache_dtype=jnp.float32,
             kv_quant=quant, attention_fn=jax_make_flash(causal=True),

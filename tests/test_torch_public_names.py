@@ -22,11 +22,20 @@ default device, each against the JAX object.
   with ``tp_specs``/``tp_places``, ``parallel.gather_from_group``,
   ``FusedLAMB.with_tensor_parallel``/``with_zero``; the Megatron blocks
   still import from ``models.gpt``;
+- the serving names of the engine's remaining programs and of
+  stochastic sampling: ``ops.SamplingParams``/``sample_tokens``
+  (``serving.SamplingParams`` too), the engine's methods and copy width,
+  the server's ``enable_chunked_prefill``/``prefill_chunk`` defaults,
+  ``submit``/``generate``'s ``sampling``, the scheduler's ``chunk_size``
+  and sampling packers, each beside the JAX object;
 - ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
   on the card unless asked for the CPU, as ``jax.random`` draws on the
   default device: without CUDA the default raises, and ``device="cpu"``
-  gives ``jax.random``'s bits.
+  gives ``jax.random``'s bits; ``ops.sampling.sample_tokens_host``
+  likewise samples on the card unless asked for the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -104,6 +113,25 @@ def test_threefry_draws_on_the_card_unless_asked(monkeypatch):
     np.testing.assert_array_equal(
         threefry.bernoulli(key, 0.5, (4,), device="cpu").numpy(),
         np.asarray(jax.random.bernoulli(jkey, 0.5, (4,))))
+
+
+def test_sample_tokens_host_samples_on_the_card_unless_asked(monkeypatch):
+    from apex_tpu.ops import sampling as jsampling
+    from apex_tpu_torch.ops import sampling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lg = np.random.default_rng(0).standard_normal((3, 17)).astype(np.float32)
+    args = (lg, np.array([0.0, 0.8, 1.0], np.float32),
+            np.array([0, 5, 0], np.int32), np.array([1.0, 1.0, 0.9],
+                                                     np.float32),
+            np.array([1, 2, 3], np.int32), np.array([4, 5, 6], np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sampling.sample_tokens_host(*args)
+    ids, fin = sampling.sample_tokens_host(*args, device="cpu")
+    assert ids.device.type == "cpu" and bool(fin.all())
+    assert ids[0].item() == int(np.argmax(lg[0]))
+    want, _ = jsampling.sample_tokens_host(*args)
+    assert ids.numpy().tolist() == np.asarray(want).tolist()
 
 
 def test_sequence_parallel_names():
@@ -225,3 +253,54 @@ def test_tensor_parallel_pipeline_names():
     half = tp.tp_slice(sd, parallel.bert_tp_rules(), 2, 2, 1)
     assert torch.equal(half["encoder.layer_0.intermediate.weight"],
                        sd["encoder.layer_0.intermediate.weight"][4:])
+
+
+def test_serving_programs_and_sampling_names_match_jax():
+    import inspect
+
+    from apex_tpu import ops as jops
+    from apex_tpu import serving as jserving
+    from apex_tpu.serving import api as japi
+    from apex_tpu.serving import engine as jengine
+    from apex_tpu_torch import ops, serving
+    from apex_tpu_torch.serving import api, engine
+
+    for name in ("SamplingParams", "sample_tokens", "finite_rows",
+                 "greedy_argmax"):
+        assert name in jops.__all__ and name in ops.__all__, name
+    for name in ("processed_logits", "sample_tokens_host",
+                 "sampling_noise"):
+        assert hasattr(jops.sampling, name) and name in ops.__all__, name
+    assert "SamplingParams" in jserving.__all__
+    assert serving.SamplingParams is ops.SamplingParams
+    assert [f.name for f in dataclasses.fields(ops.SamplingParams)] == \
+        [f.name for f in dataclasses.fields(jops.SamplingParams)]
+    assert engine._COPY_WIDTH == jengine._COPY_WIDTH
+    assert api.DEFAULT_PREFILL_CHUNK == japi.DEFAULT_PREFILL_CHUNK
+    for name in ("chunk_prefill", "chunk_prefill_sampled", "verify",
+                 "verify_sampled", "copy_blocks", "copy_blocks_from",
+                 "export_blocks", "import_blocks", "swap_params",
+                 "_block_slots"):
+        want = inspect.signature(getattr(jengine.DecodeEngine, name))
+        got = inspect.signature(getattr(engine.DecodeEngine, name))
+        assert list(got.parameters) == list(want.parameters), name
+    for name in ("prefill_sampled", "decode_sampled"):
+        assert "sampling" in inspect.signature(
+            getattr(engine.DecodeEngine, name)).parameters
+    assert "prefill_buckets" in inspect.signature(
+        engine.DecodeEngine).parameters
+    want = inspect.signature(jserving.InferenceServer).parameters
+    got = inspect.signature(serving.InferenceServer).parameters
+    for name in ("enable_chunked_prefill", "prefill_chunk"):
+        assert got[name].default == want[name].default, name
+    for method in ("submit", "generate"):
+        assert "sampling" in inspect.signature(
+            getattr(serving.InferenceServer, method)).parameters
+    sched = inspect.signature(serving.Scheduler).parameters
+    assert sched["chunk_size"].default is None
+    for name in ("prefill_plan", "chunk_done", "sampling_inputs",
+                 "prefill_sampling", "_pack_sampling"):
+        assert hasattr(serving.Scheduler, name) and \
+            hasattr(jserving.Scheduler, name), name
+    fields = {f.name for f in dataclasses.fields(serving.Request)}
+    assert {"sampling", "prefill_ctx", "prefill_sample"} <= fields
