@@ -9,10 +9,16 @@ continuous batching.
   batched single-token decode through the decode-attention kernel,
   block copies and the checksummed block export/import, greedy or
   stochastic sampling on the device;
+- :mod:`serving.prefix_cache` — the block-level prefix index (shared
+  full blocks, evictable holds, copy-on-write at whole-context hits);
+- :mod:`serving.speculation` — draft proposers (:class:`NgramDraft`);
+- :mod:`serving.overload` — the shed / displace / preempt policy;
+- :mod:`serving.reasons` — the finish-reason vocabulary;
 - :mod:`serving.scheduler` / :mod:`serving.api` — iteration-level
-  continuous batching with chunked prefill and preempt-youngest on pool
-  pressure, and the synchronous :class:`InferenceServer` front door
-  (``SamplingParams`` a request).
+  continuous batching with chunked prefill, prefix sharing, speculative
+  lookahead, overload shedding and priority-aware preemption, and the
+  synchronous :class:`InferenceServer` front door (``SamplingParams``,
+  priority and deadlines a request; drain, cancel and close).
 """
 
 from apex_tpu_torch.ops.sampling import SamplingParams
@@ -31,14 +37,21 @@ from apex_tpu_torch.serving.kv_cache import (
     resolve_cache_dtype,
     resolve_kv_quant,
 )
+from apex_tpu_torch.serving.overload import OverloadPolicy
+from apex_tpu_torch.serving.prefix_cache import PrefixCache
 from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
+from apex_tpu_torch.serving.speculation import DraftSource, NgramDraft
 
 __all__ = [
     "KV_QUANT_ENV",
     "BlockAllocator",
     "DecodeEngine",
+    "DraftSource",
     "InferenceServer",
     "KVCacheConfig",
+    "NgramDraft",
+    "OverloadPolicy",
+    "PrefixCache",
     "QueueFullError",
     "Request",
     "SamplingParams",

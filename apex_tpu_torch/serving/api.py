@@ -1,26 +1,28 @@
 """The synchronous continuous-batching server.
 
-Twin of ``apex_tpu/serving/api.py::InferenceServer`` run with the
-subsystems this slice leaves out turned off — no prefix cache,
-speculation, pipelined loop, overload control, breaker, streaming,
-program accounting or mesh.  Each :meth:`step` admits what fits,
-advances every prefilling request by ONE chunk (``prefill_chunk``
-tokens, the default; the whole prompt through the bucketed flash
-prefill with ``enable_chunked_prefill=False``), samples the first token
-from a prompt's last chunk, then runs one batched decode step over the
-rest of the running batch and retires requests on ``max_new_tokens`` or
-``eos_id``.  Chunks interleave with decode, so a long prompt stalls the
-running batch by one chunk at a time.  Sampling happens on the device
-(the engine's ``*_sampled`` steps): greedy, or a request's
-:class:`ops.SamplingParams` (temperature, top-k, top-p, counter-keyed by
-its seed), so only token ids and finite flags cross to the host.
+Twin of ``apex_tpu/serving/api.py::InferenceServer`` with the reference's
+default serving layers — the prefix cache with copy-on-write, n-gram
+speculative decoding, overload control, deadlines and the
+drain/cancel/close lifecycle — and without the pipelined loop, the
+breaker, streaming, KV offload, program accounting or a mesh.  Each
+:meth:`step` expires deadlines, sheds overload, admits what fits
+(matching cached prefix blocks, duplicating a whole-context hit's last
+block), advances every prefilling request by ONE chunk
+(``prefill_chunk`` tokens, the default; the whole uncached tail with
+``enable_chunked_prefill=False``), samples the first token from a
+prompt's last chunk, then runs one batched step over the rest of the
+running batch: a verify step when any request has a draft, else a
+decode step.  Sampling happens on the device (the engine's
+``*_sampled`` steps): greedy, or a request's :class:`ops.SamplingParams`
+counter-keyed by its seed, so only token ids and finite flags cross to
+the host.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,10 +33,17 @@ from apex_tpu_torch.ops.sampling import SamplingParams
 from apex_tpu_torch.serving import reasons
 from apex_tpu_torch.serving.engine import DecodeEngine
 from apex_tpu_torch.serving.kv_cache import KV_QUANT_ENV
+from apex_tpu_torch.serving.overload import AdmissionEstimator, \
+    OverloadPolicy
+from apex_tpu_torch.serving.prefix_cache import PrefixCache
 from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
+from apex_tpu_torch.serving.speculation import DraftSource, NgramDraft
+from apex_tpu_torch.utils.meters import CounterMeter
 
 # the reference's default prefill chunk, capped at max_context
 DEFAULT_PREFILL_CHUNK = 256
+# the reference's default drafted tokens a verify step
+DEFAULT_SPEC_TOKENS = 4
 
 
 def greedy_sample(logits) -> np.ndarray:
@@ -50,18 +59,20 @@ def greedy_sample(logits) -> np.ndarray:
 
 
 class _Gauge:
-    """Peak and running mean of a level sampled once per step."""
+    """Latest value, peak and running mean of a level sampled once per
+    step."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        self.peak = self.sum = 0.0
+        self.val = self.peak = self.sum = 0.0
         self.count = 0
 
     def update(self, val: float):
-        self.peak = max(self.peak, float(val))
-        self.sum += float(val)
+        self.val = float(val)
+        self.peak = max(self.peak, self.val)
+        self.sum += self.val
         self.count += 1
 
     @property
@@ -69,11 +80,23 @@ class _Gauge:
         return self.sum / self.count if self.count else 0.0
 
 
+def _depths(values) -> dict:
+    """count, p50, p90 (nearest rank), mean and max of recorded
+    drafted or accepted depths."""
+    if not values:
+        return {"count": 0}
+    v = sorted(values)
+    n = len(v)
+    return {"count": n, "p50": v[-(-50 * n // 100) - 1],
+            "p90": v[-(-90 * n // 100) - 1],
+            "mean": round(sum(v) / n, 3), "max": v[-1]}
+
+
 class InferenceServer:
     """Batched GPT inference with a paged KV cache and continuous
     batching.
 
-    Args (all but the last three pass to :class:`DecodeEngine`):
+    Args (the first group passes to :class:`DecodeEngine`):
       cfg, params: the architecture and its ``state_dict``.
       device: ``"cuda"`` (default) or ``"cpu"``.
       max_batch_size, max_context, num_blocks, block_size, cache_dtype:
@@ -84,11 +107,32 @@ class InferenceServer:
         the ``APEX_TPU_KV_QUANT`` environment variable (unset: off).
         A kwarg that is given wins over the environment.
       max_waiting: bound on the waiting queue; a submit past it comes
-        back already finished with ``finish_reason="rejected"``.
+        back already finished with ``finish_reason="rejected"`` (or
+        displaces lower-priority queued work under overload control).
+      clock: the wall-deadline and timeline time source (monotonic
+        seconds), injectable so deadline tests never sleep.
+      enable_prefix_cache: block-level prefix sharing at admission
+        (:mod:`serving.prefix_cache`, default on): shared-prefix traffic
+        skips re-prefilling cached full blocks.
       enable_chunked_prefill: prefill in chunks of ``prefill_chunk``
         tokens (default on, as the reference); False prefills each
-        prompt whole through the bucketed flash prefill.
+        prompt whole through the bucketed flash prefill (a prefix hit's
+        tail through one bucketed chunk).
       prefill_chunk: the chunk, default ``min(256, max_context)``.
+      enable_speculation: speculative decoding (default on): each decode
+        iteration, requests with a draft feed their pending token plus
+        up to ``spec_tokens`` guesses through ``engine.verify_sampled``
+        and keep the longest prefix equal to the model's own tokens,
+        plus the model's next token.  Greedy requests keep the argmax's
+        tokens exactly; stochastic ones compare drafts against each
+        column's counter-keyed sample (rejection sampling), so the
+        stream is the same with speculation on or off.
+      spec_tokens: the most drafted tokens a verify step (default 4).
+      draft_source: the :class:`serving.speculation.DraftSource`
+        (default :class:`~serving.speculation.NgramDraft`).
+      enable_overload: priority-aware load shedding (default on) with
+        ``overload_policy`` (default: :class:`OverloadPolicy`'s stock
+        thresholds); False makes queue-full strictly reject.
 
     Example::
 
@@ -107,8 +151,15 @@ class InferenceServer:
                  cache_dtype: Optional[torch.dtype] = None,
                  kv_quant: Optional[str] = None,
                  max_waiting: Optional[int] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 enable_prefix_cache: bool = True,
                  enable_chunked_prefill: bool = True,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 enable_speculation: bool = True,
+                 spec_tokens: Optional[int] = None,
+                 draft_source: Optional[DraftSource] = None,
+                 enable_overload: bool = True,
+                 overload_policy: Optional[OverloadPolicy] = None):
         if kv_quant is None:
             kv_quant = os.environ.get(KV_QUANT_ENV)
         self.engine = DecodeEngine(
@@ -116,34 +167,81 @@ class InferenceServer:
             max_context=max_context, num_blocks=num_blocks,
             block_size=block_size, cache_dtype=cache_dtype,
             kv_quant=kv_quant)
+        self.clock = clock
         self.prefill_chunk = None
         if enable_chunked_prefill:
             self.prefill_chunk = int(
                 prefill_chunk if prefill_chunk is not None
                 else min(DEFAULT_PREFILL_CHUNK, self.engine.max_context))
+        self.spec_tokens = int(spec_tokens if spec_tokens is not None
+                               else DEFAULT_SPEC_TOKENS)
+        if self.spec_tokens < 1:
+            raise ValueError(
+                f"spec_tokens must be >= 1, got {self.spec_tokens}")
+        self.draft_source = (draft_source if draft_source is not None
+                             else NgramDraft())
+        self.speculating = bool(enable_speculation)
+        self.overload_policy = (
+            overload_policy if overload_policy is not None
+            else OverloadPolicy()) if enable_overload else None
+        # predictive admission: only when the policy arms it
+        self.admission = (
+            AdmissionEstimator(
+                min_history=self.overload_policy.admission_min_history,
+                margin=self.overload_policy.admission_margin)
+            if self.overload_policy is not None
+            and self.overload_policy.predictive_admission else None)
+        self.prefix = CounterMeter()
+        self.prefix_cache = (
+            PrefixCache(self.engine.allocator, self.engine.block_size,
+                        counters=self.prefix)
+            if enable_prefix_cache else None)
         self.scheduler = Scheduler(
             self.engine.allocator,
             max_batch_size=self.engine.max_batch_size,
             block_size=self.engine.block_size,
             max_context=self.engine.max_context,
-            max_waiting=max_waiting, chunk_size=self.prefill_chunk)
+            max_waiting=max_waiting, chunk_size=self.prefill_chunk,
+            prefix_cache=self.prefix_cache, overload=self.overload_policy)
+        self._iter = 0              # scheduler iterations served
+        self._finalized = 0         # scheduler.finished timeline cursor
+        self._draining = False
+        self._closed = False
+        self._final_stats: Optional[dict] = None
         self.queue_depth = _Gauge()
         self.occupancy = _Gauge()
         self.chunk_iters = _Gauge()
+        self.pressure_gauge = _Gauge()
         self.reset_meters()
 
     # -- request lifecycle ------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
                eos_id: Optional[int] = None, *,
+               priority: int = 0,
+               deadline_iters: Optional[int] = None,
+               deadline_s: Optional[float] = None,
                sampling: Optional[SamplingParams] = None) -> Request:
         """Enqueue one request.  ``max_new_tokens`` must be >= 1; a prompt
         leaving no room to generate within ``max_context`` raises
         :class:`ValueError`, and a budget overshooting the remaining
-        context is capped to fit.  ``sampling``: a
+        context is capped to fit.  ``priority`` is nice-style (0 =
+        foreground; larger = lower, sheddable under overload).
+        ``deadline_iters`` / ``deadline_s`` expire the request to
+        ``finish_reason="timeout"``.  ``sampling``: a
         :class:`SamplingParams` (None = greedy); anything else raises
-        :class:`TypeError`.  A full waiting queue returns the request
-        already finished with ``finish_reason="rejected"``."""
+        :class:`TypeError`.
+
+        The request may come back already finished, ``finished_at``
+        stamped now: ``"rejected"`` (queue full, nothing lower to
+        displace), ``"draining"`` (after :meth:`begin_drain`) or
+        ``"shed"`` (predictive admission).  A queue-full submit may
+        instead displace a lower-priority queued request, which then
+        finishes ``"shed"``.  Submitting to a closed server raises
+        :class:`RuntimeError`."""
+        if self._closed:
+            raise RuntimeError(
+                "InferenceServer is closed; no further submissions")
         prompt = [int(t) for t in prompt]
         if int(max_new_tokens) < 1:
             raise ValueError(
@@ -160,42 +258,93 @@ class InferenceServer:
                 f"greedy), got {type(sampling).__name__}")
         req = Request(prompt=prompt,
                       max_new_tokens=min(int(max_new_tokens), cap),
-                      eos_id=eos_id,
+                      eos_id=eos_id, priority=int(priority),
+                      deadline_iters=deadline_iters, deadline_s=deadline_s,
+                      submit_iter=self._iter, submitted_at=self.clock(),
                       sampling=sampling if sampling is not None
                       else SamplingParams())
         klass = req.sampling.klass
         self.sampling_requests[klass] = \
             self.sampling_requests.get(klass, 0) + 1
+        if self._draining:
+            return self._finish_at_submit(req, reasons.DRAINING)
+        if self.admission is not None and self.admission.doomed(req):
+            return self._finish_at_submit(req, reasons.SHED)
         try:
             self.scheduler.submit(req)
         except QueueFullError:
-            req.finished = True
-            req.finish_reason = reasons.REJECTED
-            self.scheduler.finished.append(req)
-            self.scheduler.failures[reasons.REJECTED] = \
-                self.scheduler.failures.get(reasons.REJECTED, 0) + 1
+            return self._finish_at_submit(req, reasons.REJECTED)
+        # a displaced victim finished "shed" inside scheduler.submit
+        self._finalize_finished()
         return req
+
+    def _finish_at_submit(self, req: Request, reason: str) -> Request:
+        """Finish ``req`` without enqueueing it, ``finished_at`` now."""
+        sched = self.scheduler
+        req.finished = True
+        req.finish_reason = reason
+        sched.finished.append(req)
+        sched.failures[reason] = sched.failures.get(reason, 0) + 1
+        self._finalize_finished()
+        return req
+
+    def _expire_deadlines(self) -> None:
+        """Fail every live request, waiting or running, whose iteration
+        or wall budget is spent."""
+        now = self.clock()
+        sched = self.scheduler
+        for req in list(sched.waiting) + list(sched.running.values()):
+            over_iters = (req.deadline_iters is not None
+                          and self._iter - req.submit_iter
+                          > req.deadline_iters)
+            over_wall = (req.deadline_s is not None
+                         and now - req.submitted_at >= req.deadline_s)
+            if over_iters or over_wall:
+                sched.fail(req, reasons.TIMEOUT)
 
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
 
+    def pressure(self) -> float:
+        """The overload signal (:meth:`Scheduler.pressure`)."""
+        return self.scheduler.pressure()
+
     def step(self) -> int:
-        """One continuous-batching iteration: admit, advance every
-        prefilling request by one chunk (sampling its first token from
-        the last), then one decode step across the rest of the running
-        batch.  Returns the number of tokens produced.  A request whose
-        logits go non-finite, or that outgrows the pool with nothing left
-        to preempt, fails alone."""
+        """One continuous-batching iteration: expire deadlines, shed
+        overload, admit (copying whole-context hits' last blocks), advance
+        every prefilling request by one chunk (sampling its first token
+        from the last), then one step across the rest of the running
+        batch — verify when any request has a draft, else decode.
+        Returns the number of tokens produced.  A request whose logits go
+        non-finite, that outgrows the pool with nothing left to preempt,
+        or whose deadline passes, fails alone."""
         sched, engine = self.scheduler, self.engine
+        self._iter += 1
         produced = chunks = 0
-        sched.admit()
+        self._expire_deadlines()
+        # the pressure signal at its pre-shed peak, then the shed
+        self.pressure_gauge.update(sched.pressure())
+        sched.shed_overload()
+        admitted = sched.admit()
+        now = self.clock()
+        for req in admitted:
+            if req.admitted_at is None:
+                req.admitted_at = now
+        # whole-context cache hits first duplicate their last shared
+        # block, so the re-write of the last token stays private
+        cows = [r for r in sched._admit_order if r.pending_cow]
+        if cows:
+            engine.copy_blocks([r.pending_cow for r in cows])
+            for req in cows:
+                sched.cow_done(req)
         for req in [r for r in sched._admit_order if r.prefilling]:
             tokens, start, is_last = sched.prefill_plan(req)
             # only a fresh prompt's last chunk samples a token
             samp = (sched.prefill_sampling(req)
                     if is_last and req.prefill_sample else None)
-            if self.prefill_chunk is None:     # the whole context at once
+            if start == 0 and is_last and self.prefill_chunk is None:
+                # no cached prefix, no chunking: the monolithic prefill
                 ids, fin = engine.prefill_sampled(tokens, req.block_table,
                                                   sampling=samp)
                 self.prefills += 1
@@ -212,6 +361,7 @@ class InferenceServer:
                 sched.fail(req, reasons.NONFINITE)
                 continue
             req.record_token(int(ids[0]))
+            self._note_token(req)
             produced += 1
             if req.finished:
                 sched.retire(req)
@@ -225,12 +375,38 @@ class InferenceServer:
                     sched.fail(req, reasons.CAPACITY)
             running = [r for r in sched.running.values() if not r.prefilling]
             if running:
-                produced += self._decode_step(running)
+                drafts = (self._propose_drafts(running)
+                          if self.speculating else {})
+                produced += (self._verify_step(running, drafts) if drafts
+                             else self._decode_step(running))
 
         self.tokens_generated += produced
         self.queue_depth.update(sched.num_waiting)
         self.occupancy.update(sched.num_running / engine.max_batch_size)
+        self._finalize_finished()
         return produced
+
+    def _note_token(self, req: Request) -> None:
+        """Stamp the first-token edge of ``req``'s timeline, or the gap
+        since its previous token."""
+        now = self.clock()
+        if req.first_token_at is None and req.generated:
+            req.first_token_at = now
+        elif req.last_token_at is not None:
+            req.itl_gaps.append(now - req.last_token_at)
+        req.last_token_at = now
+
+    def _finalize_finished(self) -> None:
+        """Stamp ``finished_at`` on every request finished since the last
+        call (retired, failed or turned away at submit), once each."""
+        fin = self.scheduler.finished
+        while self._finalized < len(fin):
+            req = fin[self._finalized]
+            self._finalized += 1
+            if req.finished_at is None:
+                req.finished_at = self.clock()
+            if self.admission is not None:
+                self.admission.observe(req)
 
     def _decode_inputs(self, running):
         engine = self.engine
@@ -258,14 +434,141 @@ class InferenceServer:
                 continue
             req.num_cached += 1
             req.record_token(int(ids[req.slot]))
+            self._note_token(req)
             produced += 1
             if req.finished:
                 sched.retire(req)
+            else:
+                # index a block this token just filled
+                sched.register_progress(req)
+        self.spec.incr("decode_tokens", produced)
+        return produced
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _propose_drafts(self, running) -> Dict[int, List[int]]:
+        """uid -> drafted tokens this iteration: the draft source's
+        guesses, capped by the request's remaining budget, cut at the
+        first out-of-vocabulary id, and trimmed to the lookahead blocks
+        the scheduler grants without preempting."""
+        sched = self.scheduler
+        vocab = self.engine.cfg.vocab_size
+        drafts: Dict[int, List[int]] = {}
+        for req in running:
+            budget = min(self.spec_tokens,
+                         req.max_new_tokens - len(req.generated) - 1)
+            if budget < 1:
+                continue
+            d = list(self.draft_source.propose(
+                req.prompt + req.generated, budget))[:budget]
+            for i, t in enumerate(d):
+                if not 0 <= int(t) < vocab:
+                    d = d[:i]
+                    break
+            if not d:
+                continue
+            fit = sched.lookahead_capacity(req, 1 + len(d))
+            d = d[:fit - 1]
+            if d:
+                drafts[req.uid] = d
+        return drafts
+
+    def _verify_inputs(self, running, drafts):
+        """(tokens, lengths, positions, tables): every slot's pending
+        token and its drafts (none = a one-token column), zero-padded to
+        ``spec_tokens + 1`` columns."""
+        engine = self.engine
+        kw = self.spec_tokens + 1
+        b, mb = engine.max_batch_size, engine.blocks_per_seq
+        tokens = np.zeros((b, kw), np.int64)
+        lengths = np.zeros((b,), np.int64)
+        positions = np.zeros((b,), np.int64)
+        tables = np.zeros((b, mb), np.int64)
+        for req in running:
+            d = drafts.get(req.uid, ())
+            n = 1 + len(d)
+            tokens[req.slot, 0] = req.next_input
+            tokens[req.slot, 1:n] = d
+            lengths[req.slot] = n
+            positions[req.slot] = req.num_cached
+            tables[req.slot, :len(req.block_table)] = req.block_table
+        return tokens, lengths, positions, tables
+
+    def _verify_step(self, running, drafts) -> int:
+        """One verify step over the whole running batch: each slot feeds
+        its pending token and its drafts; acceptance keeps, a slot, the
+        longest draft prefix equal to the model's own tokens plus the
+        model's next token; rejected lookahead is rolled back."""
+        tokens, lengths, positions, tables = self._verify_inputs(running,
+                                                                 drafts)
+        ids, fin = self.engine.verify_sampled(
+            tokens, lengths, positions, tables,
+            sampling=self.scheduler.sampling_inputs(running))
+        self.verify_steps += 1
+        return self._apply_verify_results(running, drafts, lengths,
+                                          ids.cpu().numpy(),
+                                          fin.cpu().numpy())
+
+    def _apply_verify_results(self, running, drafts, lengths, row_toks,
+                              finite) -> int:
+        """Acceptance over one verify step's (B, K) tokens and finite
+        flags.  Returns the tokens produced."""
+        sched = self.scheduler
+        produced = 0
+        for req in running:
+            n = int(lengths[req.slot])
+            if not np.all(finite[req.slot, :n]):
+                sched.fail(req, reasons.NONFINITE)
+                continue
+            toks = row_toks[req.slot]
+            d = drafts.get(req.uid, ())
+            req.num_cached += 1        # the pending token's K/V landed
+            accepted = 0
+            for j, guess in enumerate(d):
+                if int(guess) != int(toks[j]):
+                    break              # the model disagrees: reject the rest
+                req.record_token(int(guess))
+                self._note_token(req)
+                produced += 1
+                req.num_cached += 1    # its verify-written K/V is valid
+                accepted += 1
+                if req.finished:
+                    break
+            resampled = False
+            if not req.finished:
+                # the model's own next token after the last accepted one
+                # (under sampling, the residual resample of a rejection);
+                # its K/V is not written yet: it becomes the pending token
+                resampled = accepted < len(d)
+                req.record_token(int(toks[accepted]))
+                self._note_token(req)
+                produced += 1
+            if d:
+                req.spec_drafted += len(d)
+                req.spec_accepted += accepted
+                self.spec.incr("drafted_tokens", len(d))
+                self.spec.incr("accepted_tokens", accepted)
+                self.spec_drafted_depths.append(len(d))
+                self.spec_accepted_depths.append(accepted)
+                if not req.sampling.is_greedy:
+                    self.spec.incr("stoch_drafted_tokens", len(d))
+                    self.spec.incr("stoch_accepted_tokens", accepted)
+                    if resampled:
+                        self.spec.incr("stoch_resamples")
+            if req.finished:
+                sched.retire(req)
+            else:
+                sched.register_progress(req)
+                sched.rollback_lookahead(req)
+        self.spec.incr("decode_tokens", produced)
         return produced
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int,
                  eos_id: Optional[int] = None, *,
+                 priority: int = 0,
+                 deadline_iters: Optional[int] = None,
+                 deadline_s: Optional[float] = None,
                  sampling: Union[SamplingParams,
                                  Sequence[Optional[SamplingParams]],
                                  None] = None) -> List[List[int]]:
@@ -282,11 +585,72 @@ class InferenceServer:
                 raise ValueError(
                     f"sampling sequence length {len(per_prompt)} != "
                     f"{len(prompts)} prompts")
-        reqs = [self.submit(p, max_new_tokens, eos_id, sampling=s)
+        reqs = [self.submit(p, max_new_tokens, eos_id, priority=priority,
+                            deadline_iters=deadline_iters,
+                            deadline_s=deadline_s, sampling=s)
                 for p, s in zip(prompts, per_prompt)]
         while self.has_work:
             self.step()
         return [list(r.generated) for r in reqs]
+
+    # -- the lifecycle ----------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def begin_drain(self) -> None:
+        """Stop admissions (later submits finish ``"draining"``) and
+        leave the running work to the caller's steps.  Idempotent."""
+        self._draining = True
+
+    def end_drain(self) -> None:
+        """Reopen admissions after :meth:`begin_drain`; a closed server
+        cannot reopen."""
+        if self._closed:
+            raise RuntimeError("cannot end_drain a closed server")
+        self._draining = False
+
+    def drain(self) -> dict:
+        """Stop admissions and run every live request to a terminal
+        state; the work computes as it would undisturbed, so its tokens
+        are the same.  Returns :meth:`stats`."""
+        self.begin_drain()
+        while self.has_work:
+            self.step()
+        self._finalize_finished()
+        return self.stats()
+
+    def close(self) -> dict:
+        """:meth:`drain`, then refuse further submissions.  The drain
+        runs once; later calls return the same stats snapshot."""
+        if self._closed:
+            return self._final_stats
+        self._final_stats = self.drain()
+        self._closed = True
+        return self._final_stats
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel one live request by uid: it finishes
+        ``"cancelled"`` and frees its slot and blocks at once (a queued
+        one leaves the queue).  False if the uid is unknown or already
+        finished."""
+        sched = self.scheduler
+        for req in list(sched.running.values()) + list(sched.waiting):
+            if req.uid == uid:
+                sched.fail(req, reasons.CANCELLED)
+                self._finalize_finished()
+                return True
+        return False
+
+    def audit(self) -> None:
+        """The scheduler, allocator and prefix-cache invariants
+        (:meth:`Scheduler.audit`); raises :class:`AssertionError`."""
+        self.scheduler.audit()
 
     # -- meters -----------------------------------------------------------
 
@@ -296,12 +660,21 @@ class InferenceServer:
         self.prefills = 0
         self.prefill_chunks = 0
         self.decode_steps = 0
+        self.verify_steps = 0
         self.sampling_requests = {}
+        self.spec = CounterMeter()
+        self.spec_drafted_depths: List[int] = []
+        self.spec_accepted_depths: List[int] = []
+        self.prefix = CounterMeter()
+        if self.prefix_cache is not None:
+            self.prefix_cache.counters = self.prefix
         self.queue_depth.reset()
         self.occupancy.reset()
         self.chunk_iters.reset()
+        self.pressure_gauge.reset()
         self.scheduler.finished.clear()
         self.scheduler.failures.clear()
+        self._finalized = 0
         self._launches_at_reset = launch_counts()
         self._started = time.perf_counter()
 
@@ -309,23 +682,29 @@ class InferenceServer:
         """Serving counters since :meth:`reset_meters`.  ``kernel_launches``
         are the CUDA kernels' launches since then, by kernel, counted
         process-wide (a second server in the same process adds to them):
-        ``2 * L + 1`` LayerNorm launches per prefill, per chunk and per
-        decode step, ``L`` flash launches per (monolithic) prefill and
-        ``L`` decode-attention launches per decode step —
+        ``2 * L + 1`` LayerNorm launches per prefill, per chunk, per
+        verify and per decode step, ``L`` flash launches per (monolithic)
+        prefill and ``L`` decode-attention launches per decode step —
         ``decode_attention`` (B7) on the full-width pool,
-        ``decode_attention_q8`` (B8) on the int8 one; 0 on the CPU.
-        ``prefills`` counts monolithic prefills, ``prefill_chunks`` chunk
-        launches, ``chunk_iters_peak`` the most chunks one step ran, and
-        ``sampling["requests"]`` the submitted requests by
-        :attr:`SamplingParams.klass`.  ``memory`` is the pool: its
-        geometry and bytes (:meth:`DecodeEngine.memory_info`) and the
-        allocator's free, live and peak live blocks."""
+        ``decode_attention_q8`` (B8) on the int8 one; a verify step runs
+        neither; 0 on the CPU.  ``prefills`` counts monolithic prefills,
+        ``prefill_chunks`` chunk launches, ``chunk_iters_peak`` the most
+        chunks one step ran, ``decode_steps`` / ``verify_steps`` the two
+        kinds of batched step.  ``speculation`` and
+        ``sampling["rejection"]`` are the reference's blocks (no
+        ``verify_compiles``: eager PyTorch traces nothing); the
+        ``prefix_*`` and ``kv_blocks_*`` keys appear with the prefix
+        cache.  ``memory`` is the pool: its geometry and bytes
+        (:meth:`DecodeEngine.memory_info`) and the allocator's free,
+        live, evictable and peak blocks."""
         sched = self.scheduler
+        self._finalize_finished()
         elapsed = max(time.perf_counter() - self._started, 1e-9)
         now = launch_counts()
         launches = {name: n - self._launches_at_reset.get(name, 0)
                     for name, n in now.items()}
-        return {
+        spec = self.spec
+        out = {
             "tokens_generated": self.tokens_generated,
             "tokens_per_s": self.tokens_generated / elapsed,
             "queue_depth_peak": self.queue_depth.peak,
@@ -337,20 +716,74 @@ class InferenceServer:
             "prefill_chunks": self.prefill_chunks,
             "chunk_iters_peak": int(self.chunk_iters.peak),
             "decode_steps": self.decode_steps,
-            "sampling": {"requests": dict(self.sampling_requests)},
+            "verify_steps": self.verify_steps,
+            "pressure": round(self.pressure_gauge.val, 3),
+            "pressure_peak": round(self.pressure_gauge.peak, 3),
+            "draining": self._draining,
+            "speculation": {
+                "enabled": self.speculating,
+                "spec_tokens": self.spec_tokens,
+                "drafted_tokens": spec.count("drafted_tokens"),
+                "accepted_tokens": spec.count("accepted_tokens"),
+                "acceptance_rate": round(spec.ratio(
+                    "accepted_tokens", "drafted_tokens"), 3),
+                "verify_steps": self.verify_steps,
+                "decode_steps": self.decode_steps,
+                "decode_tokens": spec.count("decode_tokens"),
+                "tokens_per_engine_step": round(
+                    spec.count("decode_tokens")
+                    / max(1, self.verify_steps + self.decode_steps), 3),
+                "drafted_per_step": _depths(self.spec_drafted_depths),
+                "accepted_per_step": _depths(self.spec_accepted_depths),
+            },
+            "sampling": {
+                "requests": dict(self.sampling_requests),
+                "rejection": {
+                    "drafted_tokens": spec.count("stoch_drafted_tokens"),
+                    "accepted_tokens": spec.count("stoch_accepted_tokens"),
+                    "acceptance_rate": round(spec.ratio(
+                        "stoch_accepted_tokens",
+                        "stoch_drafted_tokens"), 3),
+                    "resamples": spec.count("stoch_resamples"),
+                },
+            },
+            "admission": (self.admission.as_stats()
+                          if self.admission is not None
+                          else {"enabled": False}),
             "kv_blocks_free": self.engine.allocator.num_free,
             "kernel_launches": launches,
             "memory": self._memory_stats(),
         }
+        if self.prefix_cache is not None:
+            pre = self.prefix
+            out.update({
+                "prefix_hit_tokens": pre.count("prefix_hit_tokens"),
+                "prefix_miss_tokens": pre.count("prefix_miss_tokens"),
+                "prefix_hit_requests": pre.count("prefix_hit_requests"),
+                "prefix_hit_rate": round(pre.ratio(
+                    "prefix_hit_tokens",
+                    "prefix_hit_tokens", "prefix_miss_tokens"), 3),
+                "prefix_evicted_blocks": pre.count("prefix_evicted_blocks"),
+                "prefix_cow_blocks": pre.count("prefix_cow_blocks"),
+                "kv_blocks_cached": self.prefix_cache.num_cached_blocks,
+                "kv_blocks_evictable": self.prefix_cache.num_evictable,
+            })
+        return out
 
     def _memory_stats(self) -> dict:
         info = self.engine.memory_info()
         alloc = self.engine.allocator
+        cache = self.prefix_cache
         return {
             "blocks_usable": info["blocks_usable"],
             "blocks_free": alloc.num_free,
             "blocks_live": alloc.num_live,
             "blocks_live_peak": alloc.live_peak,
+            "blocks_evictable": cache.num_evictable if cache else 0,
+            "blocks_evictable_peak": cache.evictable_peak if cache else 0,
+            "lookahead_granted_blocks": self.scheduler.lookahead_granted,
+            "lookahead_rolled_back_blocks":
+                self.scheduler.lookahead_rolled_back,
             **{key: info[key] for key in (
                 "pool_bytes", "pool_bytes_per_device", "bytes_per_block",
                 "cache_dtype", "quantize", "compute_dtype")},

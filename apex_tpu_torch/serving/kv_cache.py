@@ -273,22 +273,35 @@ def copy_blocks(cache, src, dst, block_size: int) -> None:
 
 
 class BlockAllocator:
-    """Free list over physical blocks 1..num_blocks-1 (0 is the garbage
-    sink and never handed out).  LIFO reuse keeps recently touched blocks
-    hot; a set mirrors the list for O(1) double-free checks.  Every live
-    block holds one reference (nothing shares blocks without the prefix
-    cache, which brings the refcount increments back)."""
+    """Refcounted free list over physical blocks 1..num_blocks-1 (0 is
+    the garbage sink and never handed out).  LIFO reuse keeps recently
+    touched blocks hot; a set mirrors the list for O(1) double-free
+    checks.
+
+    Refcounts are what let the prefix cache share blocks: a block in
+    several requests' tables holds one ref per table (:meth:`incref`),
+    and :meth:`free` drops one.  A block whose count reaches zero is
+    first offered to ``release_hook`` (the prefix cache): True keeps it
+    out of the free list, resident and evictable later through
+    :meth:`release_to_free`.  Every block is in exactly one of three
+    states: free, live (refcount >= 1) or cache-held (refcount 0,
+    retained by the hook)."""
 
     def __init__(self, cfg: KVCacheConfig):
         self.cfg = cfg
+        self.release_hook = None      # blk -> bool; True = hook keeps it
+        self.reset_hooks: List = []   # called on reset() (cache clears)
         self.reset()
 
     def reset(self):
-        """Return every block to the free list."""
+        """Return every block to the free list; the reset hooks fire so
+        a prefix cache indexing the old blocks drops its entries."""
         self._free: List[int] = list(range(self.cfg.num_blocks - 1, 0, -1))
         self._free_set = set(self._free)
         self._refs: Dict[int, int] = {}
         self.live_peak = 0          # high-watermark of live blocks
+        for hook in self.reset_hooks:
+            hook()
 
     @property
     def num_free(self) -> int:
@@ -296,13 +309,18 @@ class BlockAllocator:
 
     @property
     def num_live(self) -> int:
+        """Blocks referenced by at least one table."""
         return len(self._refs)
+
+    def _note_live(self) -> None:
+        if len(self._refs) > self.live_peak:
+            self.live_peak = len(self._refs)
 
     def can_alloc(self, n: int) -> bool:
         return n <= len(self._free)
 
     def alloc(self, n: int) -> List[int]:
-        """Pop n blocks; :class:`MemoryError` when the pool
+        """Pop n blocks at refcount 1; :class:`MemoryError` when the pool
         is exhausted (the scheduler checks :meth:`can_alloc` first)."""
         if n <= 0:
             return []
@@ -315,15 +333,34 @@ class BlockAllocator:
         for blk in out:
             self._free_set.discard(blk)
             self._refs[blk] = 1
-        self.live_peak = max(self.live_peak, len(self._refs))
+        self._note_live()
         return out
 
     def refs(self, blk: int) -> int:
         return self._refs.get(blk, 0)
 
+    def incref(self, blocks: List[int]):
+        """Add one ref per block (a second table now references it)."""
+        for blk in blocks:
+            if blk not in self._refs:
+                raise ValueError(f"incref of unallocated block {blk}")
+            self._refs[blk] += 1
+
+    def adopt(self, blk: int):
+        """Re-own a cache-held block (refcount 0, hook-retained) at
+        refcount 1: the prefix cache reactivating a matched block."""
+        if blk in self._free_set or blk in self._refs:
+            raise ValueError(
+                f"adopt of block {blk} that is not cache-held "
+                f"(free={blk in self._free_set}, "
+                f"refs={self._refs.get(blk)})")
+        self._refs[blk] = 1
+        self._note_live()
+
     def free(self, blocks: List[int]):
-        """Return blocks to the free list.  All blocks validate before
-        any state changes."""
+        """Drop one ref per block; a block reaching zero returns to the
+        free list unless ``release_hook`` claims it.  All blocks
+        validate before any state changes."""
         for blk in blocks:
             if not 1 <= blk < self.cfg.num_blocks:
                 raise ValueError(f"freeing invalid block id {blk}")
@@ -332,9 +369,23 @@ class BlockAllocator:
             if blk not in self._refs:
                 raise ValueError(f"freeing unallocated block {blk}")
         for blk in blocks:
+            if self._refs[blk] > 1:
+                self._refs[blk] -= 1
+                continue
             del self._refs[blk]
+            if self.release_hook is not None and self.release_hook(blk):
+                continue
             self._free.append(blk)
             self._free_set.add(blk)
+
+    def release_to_free(self, blk: int):
+        """Return a cache-held block (refcount 0) to the free list: the
+        prefix cache's eviction path."""
+        if blk in self._free_set or blk in self._refs:
+            raise ValueError(
+                f"release_to_free of block {blk} that is not cache-held")
+        self._free.append(blk)
+        self._free_set.add(blk)
 
     @staticmethod
     def blocks_for(num_tokens: int, block_size: int) -> int:

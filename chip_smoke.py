@@ -71,7 +71,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
        LayerNorm: it launches none of the kernels); a mismatch is
        allowed only where the oracle's top-2 logit gap is < 1e-3, and
        ends that request's comparison;
-   (b) the default bf16 cache, timed: tokens/s (median of 3 passes),
+   (b) the default bf16 cache, timed: tokens/s (median of 2 passes),
        occupancy, preemptions.
    Both check that every kernel's launch count rose by exactly its
    per-prefill and per-decode-step count, and that ``stats()`` reports
@@ -86,15 +86,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
        over the dequantized values), the same near-tie rule; launches
        exact (B8 ``L`` per decode step, B7 none); ``stats()["memory"]``
        reads ``int8`` and 313,344 bytes per block;
-   (b) the same server timed (median of 3 passes) and profiled once;
+   (b) the same server timed (median of 2 passes) and profiled once;
    (c) equal pool bytes: the bytes of 129 bf16 blocks give the bf16
        arm 129 blocks and the int8 arm 242; both serve the 16 prompts
        with 16 slots (all at once need 158 blocks); the int8 arm's
        tokens agree with the bf16 arm's to a mean agreeing prefix
        >= 0.75 (``tests/L0/test_kv_quant.py``'s gate).
    serve and serve_q8 pin ``enable_chunked_prefill=False`` (the
-   monolithic flash prefill); the three serve phases share one seed-0
-   model, its oracle and the traffic (``_serve_model``).
+   monolithic flash prefill); the four serve phases share one seed-0
+   model, its oracle and the traffic (``_serve_model``).  serve,
+   serve_q8 and serve_programs turn the default layers off
+   (``LAYERS_OFF``: no prefix cache, speculation or overload control),
+   so their launch and step checks read the paths they always did.
 5b. serve_programs — the engine's remaining programs and stochastic
    sampling on the same model and traffic; its first line is the
    prediction (``S_PREDICTION``):
@@ -103,7 +106,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
        launches exact (B2 (2L+1) a chunk and a decode step, B4 none, B7
        L a decode step), ``stats()["prefill_chunks"]`` = the sum of
        ceil(len / 64); then on the default bf16 pool chunked and
-       monolithic passes in turns, tokens/s the median of 3 each, and a
+       monolithic passes in turns, tokens/s the median of 2 each, and a
        chunked pass under ``torch.profiler``;
    (b) the same from the int8 pool against the int8 oracle (B8), once
        (serve_q8 (b) times the int8 pool);
@@ -130,6 +133,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
        median, p99 and largest inter-token gaps and the long request's
        time to first token; launches and chunks exact.  The phase
        prints its seconds in its ``done`` line.
+5c. serve_features — the reference server's default layers (prefix
+   cache with copy-on-write, n-gram speculation, overload control,
+   deadlines and the lifecycle) on the same model, 8 slots, 16-token
+   blocks, the defaults on; its first line is the prediction
+   (``F_PREDICTION``).  Every pass checks its launches exactly against
+   the step accounting (B2 2L+1 a chunk, verify or decode step, B7/B8 L
+   a decode step and none a verify step, B4 L a monolithic prefill),
+   ``audit()`` and the pool (nothing live afterwards):
+   (a) 16 requests sharing a 256-token system prompt with tails of
+       8-64 tokens and 2 that are the system prompt alone, 32 new tokens
+       each, fp32 pool: tokens against the greedy full recompute (serve
+       (a)'s rule), ``prefix_hit_tokens`` >= 15 x 256,
+       ``prefix_cow_blocks`` 2;
+   (b) the same from the int8 pool: each COW copy equal to its source
+       on every leaf (payload and scales) right after the copy, tokens
+       equal to an int8 server without the cache but where they part at
+       an oracle near-tie;
+   (c) 8 prompts repeating an 8-32-token snippet, greedy on the fp32
+       pool: tokens against the oracle, drafts drafted and accepted;
+       then the four stochastic classes twice from a reset pool, bit
+       for bit, the rejection counters read;
+   (d) (a)'s traffic in 40 usable blocks: evictions and preemptions,
+       tokens still the oracle's;
+   (e) 48 submits at priorities 0 and 1 into ``max_waiting=16``: one
+       terminal reason each, none shed at priority 0; a drain begun
+       mid-generation gives the undisturbed tokens, a submit during it
+       finishes ``draining``, ``close()`` runs once and refuses later
+       submits;
+   and one timed pass each of (a)'s and (c)'s traffic on the bf16 pool
+   with the three layers on and off: tokens/s, hit rate, acceptance
+   rate, tokens a batched step, verify and decode steps, launches a
+   pass.
 6. train   — ``apex_tpu_torch.examples.gpt_main_amp`` on GPT-2 small at
    full width, FusedAdam(lr=3e-4) flat, causal flash attention, against
    a kernel-free oracle on the card (the same model and step on plain
@@ -555,7 +590,13 @@ ADAM_TOL = 1e-6
 NEAR_TIE_GAP = 1e-3
 TIMED_LAUNCHES = 50
 TIMED_LAUNCHES_LARGE = 20  # training-size shapes (ms each)
-TIMED_SERVE_PASSES = 3
+# timed passes a serve leg: 2 keeps the four serve phases' time down
+# (their median is their mean)
+TIMED_SERVE_PASSES = 2
+# the server's default layers that serve, serve_q8 and serve_programs
+# turn off, so their launch and step checks read the paths they did
+LAYERS_OFF = dict(enable_prefix_cache=False, enable_speculation=False,
+                  enable_overload=False)
 
 # the int8 serving path: GPT-2 small's pool block at 16 tokens (int8 K/V
 # and their fp32 scales), the equal-bytes arms and their agreement gate
@@ -2396,7 +2437,8 @@ def phase_serve():
         "cfg", "params", "oracle", "prompts"))
     max_new = 32
     common = dict(device="cuda", max_batch_size=8, block_size=16,
-                  kv_quant="off", enable_chunked_prefill=False)
+                  kv_quant="off", enable_chunked_prefill=False,
+                  **LAYERS_OFF)
     results = {}
 
     # (a) fp32 cache against greedy full recompute
@@ -2475,7 +2517,8 @@ def phase_serve_q8():
     # (a) fp32 compute against the int8 full recompute
     server = InferenceServer(cfg, params, device="cuda", max_batch_size=8,
                              block_size=16, cache_dtype=torch.float32,
-                             kv_quant="int8", enable_chunked_prefill=False)
+                             kv_quant="int8", enable_chunked_prefill=False,
+                             **LAYERS_OFF)
     outs_a, wall, counts, st = _serve_once(server, prompts, max_new)
     mem = st["memory"]
     if mem["cache_dtype"] != "int8" or \
@@ -2526,7 +2569,7 @@ def phase_serve_q8():
                               max_batch_size=EQUAL_BYTES_SLOTS,
                               block_size=16, num_blocks=blocks,
                               cache_dtype=torch.bfloat16, kv_quant=quant,
-                              enable_chunked_prefill=False)
+                              enable_chunked_prefill=False, **LAYERS_OFF)
         srv.generate(prompts[:2], max_new_tokens=2)
         srv.engine.reset_cache()
         outs[arm], wall, counts, st = _serve_once(srv, prompts, max_new)
@@ -2635,6 +2678,7 @@ def _chunks(prompts, chunk):
 
 def _programs_server(shared, quant, dtype, **kw):
     from apex_tpu_torch.serving import InferenceServer
+    kw = {**LAYERS_OFF, **kw}
     return InferenceServer(shared["cfg"], shared["params"], device="cuda",
                            max_batch_size=8, block_size=16, cache_dtype=dtype,
                            kv_quant=quant, **kw)
@@ -3015,8 +3059,6 @@ def phase_serve_programs():
                     for quant in (None, "int8")}
     counts_d, results["d"] = _programs_sampling(shared, max_new)
     results["e"] = _programs_stall(shared)
-    _SHARED.pop("gpt2_small_serve", None)
-    torch.cuda.empty_cache()
     results["seconds"] = time.perf_counter() - t0
     emit("serve_programs", leg="done", seconds=round(results["seconds"], 3))
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -3025,6 +3067,425 @@ def phase_serve_programs():
     # a kernel reports the last path's launches: B7 serve_chunked's
     return {"serve_stochastic": counts_d, "serve_chunked": counts_a,
             "serve_chunked_q8": counts_b}
+
+
+# -- serve_features ----------------------------------------------------------
+
+# the reference server's default layers (prefix cache with COW, n-gram
+# speculation, overload control) on serve's model
+# (a)/(b): a 256-token system prompt (16 full blocks) shared by 16
+# requests with tails of 8-64 tokens, and 2 requests that are the system
+# prompt alone (whole-context hits: copy-on-write)
+FEATURES_SYSTEM = 256
+FEATURES_SHARED = 16
+FEATURES_COW = 2
+FEATURES_TAIL = (8, 64)
+FEATURES_NEW = 32
+# (c): 8 prompts, each an 8-32-token snippet repeated 4 times; the
+# stochastic classes at a low temperature, one seed a request
+FEATURES_SNIPPETS = 8
+FEATURES_SNIPPET = (8, 32)
+FEATURES_REPEATS = 4
+FEATURES_STOCH = ({"temperature": 0.2}, {"temperature": 0.2, "top_k": 40},
+                  {"temperature": 0.2, "top_p": 0.9},
+                  {"temperature": 0.2, "top_k": 40, "top_p": 0.9})
+# (d): a pool of 40 usable blocks for (a)'s traffic: the 16 shared blocks
+# and 24 for 8 running requests' tails and tokens (each ends needing 2-7)
+FEATURES_TIGHT_BLOCKS = 41
+# (e): a burst at priorities 0 and 1 into a bounded queue, and the drain
+BURST, BURST_WAITING, BURST_NEW = 48, 16, 8
+DRAIN_AT = 3
+
+F_PREDICTION = {
+    "a_tokens": "equal the greedy full recompute but at top-2 gaps < "
+                "1e-3, as serve (a)",
+    "a_prefix": "17 of 18 requests hit the 16 system blocks: "
+                "prefix_hit_tokens 17 x 256 = 4352, hit rate ~0.84, "
+                "prefix_cow_blocks 2, audit clean",
+    "b_int8": "the COW copies bit for bit (payload and scales); tokens "
+              "equal the int8 server without the cache but at near-ties",
+    "c_spec": "the random-weight model falls into short cycles on "
+              "repeated snippets: acceptance 0.3-0.8, tokens a batched "
+              "step 1.5-3.5; the stochastic replay bit for bit",
+    "d_tight": "evictions and preemptions > 0, tokens still the oracle's",
+    "e_burst": "16 queued, the rest rejected or displacing priority-1 "
+               "work (shed); no priority-0 request shed",
+    "launches": "exact: B2 2L+1 a forward (chunk, verify or decode "
+                "step), B7/B8 L a decode step, none a verify step, B4 0 "
+                "(the default server chunks)",
+    "timing_bf16": "layers on against off in the same call: (a) 1.3-2x "
+                   "the tokens/s (17 x 256 prefill tokens skipped, fewer "
+                   "batched steps), (c) 1.5-3x; every path host-bound, so "
+                   "the step count decides",
+    "phase_s": "25-45",
+}
+
+
+def _features_traffic(cfg, seed=1):
+    """(shared-prefix prompts with the 2 whole-prompt hits at the end,
+    repeated-snippet prompts)."""
+    rng = np.random.RandomState(seed)
+    vocab = cfg.vocab_size
+    system = list(rng.randint(0, vocab, size=FEATURES_SYSTEM))
+    shared = [system + list(rng.randint(0, vocab, size=int(
+        rng.randint(FEATURES_TAIL[0], FEATURES_TAIL[1] + 1))))
+        for _ in range(FEATURES_SHARED)]
+    shared += [list(system) for _ in range(FEATURES_COW)]
+    snippets = [list(rng.randint(0, vocab, size=int(rng.randint(
+        FEATURES_SNIPPET[0], FEATURES_SNIPPET[1] + 1)))) * FEATURES_REPEATS
+        for _ in range(FEATURES_SNIPPETS)]
+    return shared, snippets
+
+
+def _features_server(shared, dtype, **kw):
+    from apex_tpu_torch.serving import InferenceServer
+    kw.setdefault("kv_quant", "off")
+    return InferenceServer(shared["cfg"], shared["params"], device="cuda",
+                           max_batch_size=8, block_size=16, cache_dtype=dtype,
+                           **kw)
+
+
+def _features_pass(server, first, rest, max_new, sampling=None):
+    """Drive the default layers' main path once, every launch count at 0
+    just before and read just after: the ``first`` prompts alone until
+    each has its first token (their blocks register), then ``rest``.
+    Checks the counts against the step accounting — 2L+1 LayerNorms a
+    forward (a monolithic prefill, a chunk, a verify or a decode step), L
+    flash attentions a monolithic prefill, L decode attentions a decode
+    step (B8 from an int8 pool, B7 otherwise) and none a verify step —
+    and the pool afterwards: nothing live, every block free or cached.
+    Returns (requests, wall s, counts, stats)."""
+    import torch
+    from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
+    prompts = list(first) + list(rest)
+    per = (list(sampling) if isinstance(sampling, (list, tuple))
+           else [sampling] * len(prompts))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    server.reset_meters()
+    t0 = time.perf_counter()
+    reqs = [server.submit(p, max_new, sampling=s)
+            for p, s in zip(first, per)]
+    while not all(r.generated or r.finished for r in reqs):
+        server.step()
+    reqs += [server.submit(p, max_new, sampling=s)
+             for p, s in zip(rest, per[len(first):])]
+    while server.has_work:
+        server.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = server.stats()
+    layers = server.engine.cfg.num_hidden_layers
+    decode = ("decode_attention_q8" if server.engine.quantized
+              else "decode_attention")
+    forwards = (st["prefills"] + st["prefill_chunks"] + st["decode_steps"]
+                + st["verify_steps"])
+    serve = {"layer_norm_fwd": (2 * layers + 1) * forwards,
+             "flash_fwd": layers * st["prefills"],
+             decode: layers * st["decode_steps"]}
+    want = {name: serve.get(name, 0) for name in counts}
+    if counts != want or st["kernel_launches"] != counts:
+        raise AssertionError(
+            f"serve_features: launches {counts} != expected {want} "
+            f"({st['prefills']} prefills, {st['prefill_chunks']} chunks, "
+            f"{st['decode_steps']} decode, {st['verify_steps']} verify "
+            f"steps)")
+    server.audit()
+    alloc = server.engine.allocator
+    cached = st.get("kv_blocks_evictable", 0)
+    if alloc.num_live or alloc.num_free + cached != \
+            server.engine.cache_cfg.num_blocks - 1:
+        raise AssertionError(f"serve_features: {alloc.num_live} blocks "
+                             f"live, {alloc.num_free} free, {cached} cached "
+                             f"after the pass")
+    vocab = server.engine.cfg.vocab_size
+    for r in reqs:
+        if len(r.generated) != max_new or r.finish_reason != "length" \
+                or not all(0 <= t < vocab for t in r.generated):
+            raise AssertionError(f"serve_features: request {r.uid} ended "
+                                 f"{r.finish_reason} with {r.generated}")
+    return reqs, wall, counts, st
+
+
+def _gap_at(model, prompt, out, t, kv_quant):
+    """The oracle's top-2 gap at served token ``t`` (its context the
+    prompt and ``out[:t]``)."""
+    import torch
+    with torch.no_grad():
+        ids = torch.tensor([list(prompt) + list(out[:t])], device="cuda")
+        top2 = torch.topk(model(ids, kv_quant=kv_quant)[0, -1], 2).values
+    return float(top2[0] - top2[1])
+
+
+def _same_but_near_ties(model, prompts, a, b, kv_quant):
+    """Two servers' tokens for the same prompts: equal, but where one
+    request's streams part at a near-tie of the oracle (that request's
+    comparison ends there).  Returns (tokens compared, near-ties)."""
+    compared = near_ties = 0
+    for p, x, y in zip(prompts, a, b):
+        n = _lcp(x, y)
+        compared += n
+        if n < len(x):
+            gap = _gap_at(model, p, x, n, kv_quant)
+            if gap >= NEAR_TIE_GAP:
+                raise AssertionError(
+                    f"serve_features: two servers part at token {n} of a "
+                    f"{len(p)}-token prompt (top-2 gap {gap:.3g})")
+            near_ties += 1
+    return compared, near_ties
+
+
+def _cow_probe(engine, record):
+    """Wrap ``engine.copy_blocks`` to check, right after each copy, every
+    destination block against its source, every leaf bit for bit (the
+    int8 payload and its scales)."""
+    import torch
+    copy, bs = engine.copy_blocks, engine.block_size
+
+    def copy_and_check(pairs):
+        copy(pairs)
+        for src, dst in pairs:
+            same = all(torch.equal(t[:, dst * bs:(dst + 1) * bs],
+                                   t[:, src * bs:(src + 1) * bs])
+                       for t in engine.cache.values())
+            record.append({"src": int(src), "dst": int(dst),
+                           "leaves": sorted(engine.cache), "equal": same})
+            if not same:
+                raise AssertionError(f"serve_features: COW copy {src} -> "
+                                     f"{dst} differs from its source")
+
+    engine.copy_blocks = copy_and_check
+
+
+def _features_summary(st):
+    spec = st["speculation"]
+    return {"tokens": st["tokens_generated"],
+            "prefills": st["prefills"], "prefill_chunks": st["prefill_chunks"],
+            "decode_steps": st["decode_steps"],
+            "verify_steps": st["verify_steps"],
+            "drafted": spec["drafted_tokens"],
+            "accepted": spec["accepted_tokens"],
+            "acceptance_rate": spec["acceptance_rate"],
+            "tokens_per_engine_step": spec["tokens_per_engine_step"],
+            "prefix_hit_rate": st.get("prefix_hit_rate"),
+            "prefix_hit_tokens": st.get("prefix_hit_tokens"),
+            "prefix_cow_blocks": st.get("prefix_cow_blocks"),
+            "prefix_evicted_blocks": st.get("prefix_evicted_blocks"),
+            "preemptions": st["preemptions"]}
+
+
+def _features_shared_prefix(shared, traffic):
+    """(a) the fp32 pool against the oracle; (b) the int8 pool against an
+    int8 server without the cache, the COW copies probed; (d) a pool
+    tight enough to evict and preempt, against the oracle."""
+    import torch
+    oracle = shared["oracle"]
+    out, counts = {}, {}
+    server = _features_server(shared, torch.float32)
+    reqs, wall, counts["a"], st = _features_pass(
+        server, traffic[:1], traffic[1:], FEATURES_NEW)
+    outs = [r.generated for r in reqs]
+    compared, near = _oracle_check(oracle, traffic, outs)
+    if st["prefix_hit_tokens"] < (FEATURES_SHARED - 1) * FEATURES_SYSTEM \
+            or st["prefix_cow_blocks"] != FEATURES_COW:
+        raise AssertionError(f"serve_features (a): {_features_summary(st)}")
+    out["a"] = {"wall_s": wall, **_features_summary(st),
+                "oracle_tokens_compared": compared, "near_ties": near,
+                "launches": counts["a"]}
+    emit("serve_features", leg="a", pool="float32",
+         **{k: v for k, v in out["a"].items()})
+    del server
+
+    cows = []
+    q8 = _features_server(shared, torch.float32, kv_quant="int8")
+    _cow_probe(q8.engine, cows)
+    reqs, wall, counts["b"], st = _features_pass(
+        q8, traffic[:1], traffic[1:], FEATURES_NEW)
+    outs_q8 = [r.generated for r in reqs]
+    plain = _features_server(shared, torch.float32, kv_quant="int8",
+                             enable_prefix_cache=False)
+    ref = [r.generated for r in _features_pass(
+        plain, traffic[:1], traffic[1:], FEATURES_NEW)[0]]
+    same, near_b = _same_but_near_ties(oracle, traffic, outs_q8, ref, True)
+    if len(cows) != FEATURES_COW or st["prefix_cow_blocks"] != FEATURES_COW:
+        raise AssertionError(f"serve_features (b): {len(cows)} COW copies "
+                             f"probed, stats {_features_summary(st)}")
+    out["b"] = {"wall_s": wall, **_features_summary(st), "cow_copies": cows,
+                "tokens_equal_to_uncached": same, "near_ties": near_b,
+                "launches": counts["b"]}
+    emit("serve_features", leg="b", pool="int8",
+         **{k: v for k, v in out["b"].items()})
+    del q8, plain
+
+    tight = _features_server(shared, torch.float32,
+                             num_blocks=FEATURES_TIGHT_BLOCKS)
+    reqs, wall, _, st = _features_pass(tight, traffic[:1], traffic[1:],
+                                       FEATURES_NEW)
+    compared, near = _oracle_check(oracle, traffic,
+                                   [r.generated for r in reqs])
+    if not st["prefix_evicted_blocks"] or not st["preemptions"]:
+        raise AssertionError(f"serve_features (d): no eviction or no "
+                             f"preemption: {_features_summary(st)}")
+    out["d"] = {"wall_s": wall, **_features_summary(st),
+                "blocks_usable": FEATURES_TIGHT_BLOCKS - 1,
+                "oracle_tokens_compared": compared, "near_ties": near}
+    emit("serve_features", leg="d", **out["d"])
+    return out, counts
+
+
+def _features_speculation(shared, snippets):
+    """(c) repeated snippets, greedy on the fp32 pool against the oracle
+    with drafts accepted; then the stochastic classes twice from a reset
+    pool, bit for bit, the rejection counters read."""
+    import torch
+    from apex_tpu_torch.serving import SamplingParams
+    server = _features_server(shared, torch.float32)
+    reqs, wall, counts, st = _features_pass(server, [], snippets,
+                                            FEATURES_NEW)
+    compared, near = _oracle_check(shared["oracle"], snippets,
+                                   [r.generated for r in reqs])
+    spec = st["speculation"]
+    if not spec["drafted_tokens"] or not spec["accepted_tokens"]:
+        raise AssertionError(f"serve_features (c): {spec}")
+    out = {"greedy": {"wall_s": wall, **_features_summary(st),
+                      "oracle_tokens_compared": compared, "near_ties": near,
+                      "drafted_per_step": spec["drafted_per_step"],
+                      "accepted_per_step": spec["accepted_per_step"],
+                      "launches": counts}}
+    emit("serve_features", leg="c", sampling="greedy",
+         **{k: v for k, v in out["greedy"].items()})
+    samp = [SamplingParams(seed=2000 + i, **c) for i, c in zip(
+        range(len(snippets)), itertools.cycle(FEATURES_STOCH))]
+    runs = []
+    for _ in range(2):
+        server.engine.reset_cache()
+        reqs, wall, _, st = _features_pass(server, [], snippets,
+                                           FEATURES_NEW, sampling=samp)
+        runs.append(([r.generated for r in reqs], st))
+    rej = runs[0][1]["sampling"]["rejection"]
+    if runs[0][0] != runs[1][0] or not rej["drafted_tokens"] \
+            or not rej["accepted_tokens"] + rej["resamples"]:
+        raise AssertionError(f"serve_features (c): stochastic replay equal "
+                             f"{runs[0][0] == runs[1][0]}, rejection {rej}")
+    out["stochastic"] = {"replay_equal": True, "rejection": rej,
+                         "classes": runs[0][1]["sampling"]["requests"],
+                         **_features_summary(runs[0][1])}
+    emit("serve_features", leg="c", sampling="stochastic",
+         **out["stochastic"])
+    return out, counts
+
+
+def _features_lifecycle(shared, traffic):
+    """(e) a burst at priorities 0 and 1 into a bounded queue: one
+    terminal reason each, no priority-0 request shed; a drain begun
+    mid-generation gives the undisturbed tokens; close() runs once."""
+    import torch
+    from apex_tpu_torch.serving import reasons
+    server = _features_server(shared, torch.bfloat16,
+                              max_waiting=BURST_WAITING)
+    prompts = [traffic[i % len(traffic)] for i in range(BURST)]
+    reqs = [server.submit(p, BURST_NEW, priority=i % 2)
+            for i, p in enumerate(prompts)]
+    while server.has_work:
+        server.step()
+    server.audit()
+    ends = {}
+    for r in reqs:
+        if not r.finished or r.finish_reason not in reasons.TERMINAL_REASONS:
+            raise AssertionError(f"serve_features (e): request {r.uid} "
+                                 f"ended {r.finish_reason}")
+        ends.setdefault(r.priority, {}).setdefault(r.finish_reason, 0)
+        ends[r.priority][r.finish_reason] += 1
+    if ends[0].get(reasons.SHED) or len(server.scheduler.finished) != BURST:
+        raise AssertionError(f"serve_features (e): {ends}")
+    burst_st = server.stats()
+    # the drain: the undisturbed run, then the same requests with a drain
+    # begun after DRAIN_AT steps (a submit during it finishes "draining")
+    server.engine.reset_cache()
+    want = server.generate(traffic[:8], BURST_NEW)
+    server.engine.reset_cache()
+    reqs = [server.submit(p, BURST_NEW) for p in traffic[:8]]
+    for _ in range(DRAIN_AT):
+        server.step()
+    live = sum(not r.finished for r in reqs)
+    if not live or not any(r.generated for r in reqs):
+        raise AssertionError(f"serve_features (e): the drain would begin "
+                             f"with {live} requests live")
+    server.begin_drain()
+    late = server.submit(traffic[8], BURST_NEW)
+    final = server.close()
+    again = server.close()
+    try:
+        server.submit(traffic[0], 1)
+    except RuntimeError:
+        refused = True
+    else:
+        refused = False
+    got = [r.generated for r in reqs]
+    if got != want or late.finish_reason != reasons.DRAINING \
+            or again is not final or not refused or not final["draining"]:
+        raise AssertionError(f"serve_features (e): drain tokens equal "
+                             f"{got == want}, late {late.finish_reason}, "
+                             f"close once {again is final}, refused "
+                             f"{refused}")
+    out = {"ends_by_priority": ends, "pressure_peak":
+           burst_st["pressure_peak"], "queue_depth_peak":
+           burst_st["queue_depth_peak"], "live_at_drain": live,
+           "drain_tokens_equal": True, "close_once": True}
+    emit("serve_features", leg="e", **out)
+    return out
+
+
+def _features_timing(shared, traffic, snippets):
+    """One timed pass each of (a)'s and (c)'s traffic on the default bf16
+    pool, the three layers on and off, in turns after one warm-up each."""
+    import torch
+    servers = {"on": _features_server(shared, torch.bfloat16),
+               "off": _features_server(shared, torch.bfloat16, **LAYERS_OFF)}
+    for srv in servers.values():
+        srv.generate(snippets[:2], max_new_tokens=2)
+    out = {}
+    for leg, first, rest in (("a", traffic[:1], traffic[1:]),
+                             ("c", [], snippets)):
+        for name, srv in servers.items():
+            srv.engine.reset_cache()
+            _, wall, counts, st = _features_pass(srv, first, rest,
+                                                 FEATURES_NEW)
+            out[f"{leg}_{name}"] = {
+                "tokens_per_s": st["tokens_generated"] / wall,
+                "wall_s": wall, **_features_summary(st),
+                "launches_per_pass": {k: v for k, v in counts.items() if v}}
+            emit("serve_features", leg=f"timed_{leg}", layers=name,
+                 **out[f"{leg}_{name}"])
+    return out
+
+
+def phase_serve_features():
+    """The reference server's default serving layers on serve's model,
+    (a)-(e) and the timing of the module docstring; returns the launches
+    of its paths.  Drops the shared serve model at its end."""
+    import torch
+    t0 = time.perf_counter()
+    emit("serve_features", prediction=F_PREDICTION)
+    shared = _serve_model()
+    traffic, snippets = _features_traffic(shared["cfg"])
+    results = {}
+    results["shared_prefix"], counts = _features_shared_prefix(shared,
+                                                               traffic)
+    results["c"], counts["c"] = _features_speculation(shared, snippets)
+    results["e"] = _features_lifecycle(shared, traffic)
+    results["timing"] = _features_timing(shared, traffic, snippets)
+    _SHARED.pop("gpt2_small_serve", None)
+    torch.cuda.empty_cache()
+    results["seconds"] = time.perf_counter() - t0
+    emit("serve_features", leg="done", seconds=round(results["seconds"], 3))
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "serve_features.json").write_text(
+        json.dumps(results, indent=1, default=str))
+    # a kernel reports the last path's launches: (a)'s and (b)'s
+    return {"serve_features_spec": counts["c"],
+            "serve_features_q8": counts["b"], "serve_features": counts["a"]}
 
 
 # device-time classes of the profiled passes' kernels, by kernel-name
@@ -8206,7 +8667,8 @@ def phase_train_moe():
 
 
 PHASES = ("device", "build", "kernels", "train_resnet", "serve", "serve_q8",
-          "serve_programs", "train", "train_bert", "train_gpt_remat", "train_gpt_dropout",
+          "serve_programs", "serve_features", "train", "train_bert",
+          "train_gpt_remat", "train_gpt_dropout",
           "train_bert_remat", "adam_rest", "hf_bert", "train_tp_zero",
           "train_sp", "train_pp", "train_sp_compose", "train_tp_pp",
           "train_moe", "train_o1", "train_simple", "train_dcgan")
@@ -8255,6 +8717,7 @@ def _main(phases):
     for phase, run in (("train_resnet", phase_train_resnet),
                        ("serve", phase_serve), ("serve_q8", phase_serve_q8),
                        ("serve_programs", phase_serve_programs),
+                       ("serve_features", phase_serve_features),
                        ("train", phase_train),
                        ("train_bert", phase_train_bert),
                        ("train_gpt_remat", phase_train_gpt_remat),
@@ -8276,7 +8739,8 @@ def _main(phases):
         t0 = time.perf_counter()
         by_path = run()
         seconds[phase] = time.perf_counter() - t0
-        if phase not in ("train_resnet", "serve_programs", "train",
+        if phase not in ("train_resnet", "serve_programs",
+                         "serve_features", "train",
                          "train_bert",
                          "train_gpt_remat", "train_gpt_dropout",
                          "train_bert_remat", "adam_rest", "hf_bert",

@@ -42,6 +42,12 @@ SLICE_FLAGS = dict(enable_prefix_cache=False, enable_chunked_prefill=False,
                    enable_streaming=False, enable_program_accounting=False,
                    kv_quant=None, mesh=None)
 
+# the port's twins of the layers SLICE_FLAGS turns off, which its server
+# runs by default: off, so the launch, step and free-block checks read
+# the path the JAX oracle runs
+PORT_OFF = dict(enable_prefix_cache=False, enable_speculation=False,
+                enable_overload=False)
+
 # lengths within the 16- and 32-token buckets: two prefill programs
 PROMPT_LENS = (5, 17, 30, 9, 12, 3)
 
@@ -174,7 +180,7 @@ def test_generate_matches_jax_server_token_for_token(tiny):
     want = jserver.generate(prompts, max_new_tokens=24)
     server = InferenceServer(cfg, sd, device="cpu", max_batch_size=4,
                              block_size=16, cache_dtype=torch.float32,
-                             enable_chunked_prefill=False)
+                             enable_chunked_prefill=False, **PORT_OFF)
     before = launch_counts()
     got = server.generate(prompts, max_new_tokens=24)
     assert launch_counts() == before, "the CPU path launched a kernel"
@@ -210,7 +216,7 @@ def test_preemption_matches_jax_server():
         cfg, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                              cfg),
         device="cpu", cache_dtype=torch.float32,
-        enable_chunked_prefill=False, **geometry)
+        enable_chunked_prefill=False, **geometry, **PORT_OFF)
     got = server.generate(prompts, max_new_tokens=24)
     assert got == want
     st = server.stats()

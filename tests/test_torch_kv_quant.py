@@ -63,6 +63,11 @@ SLICE_FLAGS = dict(enable_prefix_cache=False, enable_chunked_prefill=False,
                    enable_overload=False, enable_breaker=False,
                    enable_streaming=False, enable_program_accounting=False,
                    mesh=None)
+# the port's twins of the layers SLICE_FLAGS turns off, which its server
+# runs by default: off, so the step and free-block checks read the path
+# the JAX oracle runs
+PORT_OFF = dict(enable_prefix_cache=False, enable_speculation=False,
+                enable_overload=False)
 
 PROMPT_LENS = (5, 17, 30, 9, 12, 3)
 
@@ -394,7 +399,7 @@ def test_generate_matches_jax_server_under_int8(tiny, preempt):
     want = jserver.generate(prompts, max_new_tokens=24)
     server = InferenceServer(cfg, sd, device="cpu", cache_dtype=torch.float32,
                              kv_quant="int8", enable_chunked_prefill=False,
-                             **kw)
+                             **kw, **PORT_OFF)
     before = launch_counts()
     got = server.generate(prompts, max_new_tokens=24)
     assert launch_counts() == before, "the CPU path launched a kernel"
@@ -431,7 +436,8 @@ def test_memory_stats_match_jax(tiny):
     for quant in ("int8", "off"):
         server = InferenceServer(cfg, sd, device="cpu", kv_quant=quant,
                                  cache_dtype=torch.float32,
-                                 enable_chunked_prefill=False, **geometry)
+                                 enable_chunked_prefill=False, **geometry,
+                                 **PORT_OFF)
         jsrv = JaxInferenceServer(
             jax_models.GPTConfig(**TINY), jparams, cache_dtype=jnp.float32,
             kv_quant=quant, attention_fn=jax_make_flash(causal=True),
@@ -439,7 +445,10 @@ def test_memory_stats_match_jax(tiny):
         assert server.generate(prompts, 6) == jsrv.generate(prompts, 6)
         mem, jmem = server.stats()["memory"], jsrv.stats()["memory"]
         assert set(mem) == {"blocks_usable", "blocks_free", "blocks_live",
-                            "blocks_live_peak", "pool_bytes",
+                            "blocks_live_peak", "blocks_evictable",
+                            "blocks_evictable_peak",
+                            "lookahead_granted_blocks",
+                            "lookahead_rolled_back_blocks", "pool_bytes",
                             "pool_bytes_per_device", "bytes_per_block",
                             "cache_dtype", "quantize", "compute_dtype"}
         for key in mem:
