@@ -3,9 +3,10 @@
 Laid out like ``apex_tpu`` subpackage for subpackage, so every ported
 module has an obvious counterpart: ``amp``, ``fp16_utils``,
 ``normalization``, ``ops``, ``optimizers``, ``models``, ``parallel``,
-``data``, ``serving``, ``utils`` and ``examples``.  Plain tensor code is PyTorch; every kernel the JAX
-package wrote in Pallas for the TPU is a CUDA C++ kernel written
-for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and bound
+``data``, ``resilience``, ``serving``, ``utils`` and ``examples``.
+Plain tensor code is PyTorch; every kernel the JAX package wrote in
+Pallas for the TPU is a CUDA C++ kernel written for ``sm_90a``
+(``csrc/``), built with ``nvcc`` at first use and bound
 with :mod:`ctypes` (``_kernels``).  Each kernel wrapper runs its plain
 PyTorch version for a CPU tensor and launches its kernel for a CUDA
 tensor.
@@ -18,8 +19,8 @@ never JAX, and nothing of ``apex_tpu``.  Subpackages load lazily, so
 import importlib
 
 _SUBPACKAGES = ("amp", "data", "examples", "fp16_utils", "models",
-                "normalization", "ops", "optimizers", "parallel", "serving",
-                "utils")
+                "normalization", "ops", "optimizers", "parallel", "resilience",
+                "serving", "utils")
 
 __all__ = list(_SUBPACKAGES)
 

@@ -190,8 +190,10 @@ def uniform_rows(keys: torch.Tensor, n: int, minval: float = 0.0,
     bits = random_bits_rows(keys, n)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
         torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    # filled on the device: a tensor built from a Python float would be
+    # copied from the host and wait on the stream
+    lo = torch.full((), minval, dtype=torch.float32, device=keys.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=keys.device)
     scaled = floats.double() * (hi - lo).double() + lo.double()
     return torch.maximum(lo, scaled.float())
 

@@ -16,9 +16,12 @@ continuous batching.
 - :mod:`serving.reasons` — the finish-reason vocabulary;
 - :mod:`serving.scheduler` / :mod:`serving.api` — iteration-level
   continuous batching with chunked prefill, prefix sharing, speculative
-  lookahead, overload shedding and priority-aware preemption, and the
-  synchronous :class:`InferenceServer` front door (``SamplingParams``,
-  priority and deadlines a request; drain, cancel and close).
+  lookahead, overload shedding, priority-aware preemption and the
+  in-flight hold, and the :class:`InferenceServer` front door
+  (``SamplingParams``, priority and deadlines a request; drain, cancel
+  and close): a pipelined (dispatch-ahead) loop by default, the
+  circuit breaker (:mod:`apex_tpu_torch.resilience`) and the
+  transient-OOM retry.
 """
 
 from apex_tpu_torch.ops.sampling import SamplingParams

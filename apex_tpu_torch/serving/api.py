@@ -1,27 +1,49 @@
-"""The synchronous continuous-batching server.
+"""The continuous-batching server, pipelined by default.
 
 Twin of ``apex_tpu/serving/api.py::InferenceServer`` with the reference's
-default serving layers — the prefix cache with copy-on-write, n-gram
-speculative decoding, overload control, deadlines and the
-drain/cancel/close lifecycle — and without the pipelined loop, the
-breaker, streaming, KV offload, program accounting or a mesh.  Each
-:meth:`step` expires deadlines, sheds overload, admits what fits
-(matching cached prefix blocks, duplicating a whole-context hit's last
-block), advances every prefilling request by ONE chunk
+default serving layers — the pipelined (dispatch-ahead) loop, the
+circuit breaker and the transient-OOM retry, the prefix cache with
+copy-on-write, n-gram speculative decoding, overload control, deadlines
+and the drain/cancel/close lifecycle — and without streaming, KV
+offload, disaggregation, program accounting, a metrics registry or a
+mesh.
+
+Each :meth:`step` first RETIRES the previous iteration's launched decode
+or verify step (waits on its CUDA event and applies its token ids and
+finite flags), then plans: expires deadlines, sheds overload, admits
+what fits (matching cached prefix blocks, duplicating a whole-context
+hit's last block), advances every prefilling request by ONE chunk
 (``prefill_chunk`` tokens, the default; the whole uncached tail with
-``enable_chunked_prefill=False``), samples the first token from a
-prompt's last chunk, then runs one batched step over the rest of the
-running batch: a verify step when any request has a draft, else a
-decode step.  Sampling happens on the device (the engine's
-``*_sampled`` steps): greedy, or a request's :class:`ops.SamplingParams`
-counter-keyed by its seed, so only token ids and finite flags cross to
-the host.
+``enable_chunked_prefill=False``) and samples the first token from a
+prompt's last chunk; then it LAUNCHES one batched step over the rest of
+the running batch — a verify step when any request has a draft, else a
+decode step — without waiting on the card: the engine stages its inputs
+in pinned memory, and the step's ids and finite flags come back by a
+``non_blocking`` copy behind an event the next retire waits on.  Every
+host decision therefore sees the state the synchronous loop would see,
+and the tokens are the same; ``submit`` and ``cancel`` retire the window
+first.  ``enable_pipeline=False`` runs the same steps synchronously.
+
+Sampling happens on the device (the engine's ``*_sampled`` steps):
+greedy, or a request's :class:`ops.SamplingParams` counter-keyed by its
+seed, so only token ids and finite flags cross to the host.  A custom
+``sample_fn`` takes the logits steps and samples on the host, with the
+pipeline and speculation off.
+
+Failure isolation: a request whose logits go non-finite fails alone, and
+the :class:`resilience.CircuitBreaker` counts it, with every transient
+engine OOM, as a failure: after a streak, ``submit`` fast-rejects
+(``"breaker_open"``) until a half-open probe succeeds.  An OOM
+(:data:`OOM_ERRORS`) out of an engine call skips that call for one
+iteration — nothing was accounted and the K/V writes come last, so the
+retry is bit for bit.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -30,6 +52,7 @@ import torch
 from apex_tpu_torch._kernels.build import launch_counts
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.ops.sampling import SamplingParams
+from apex_tpu_torch.resilience.breaker import CircuitBreaker
 from apex_tpu_torch.serving import reasons
 from apex_tpu_torch.serving.engine import DecodeEngine
 from apex_tpu_torch.serving.kv_cache import KV_QUANT_ENV
@@ -44,6 +67,11 @@ from apex_tpu_torch.utils.meters import CounterMeter
 DEFAULT_PREFILL_CHUNK = 256
 # the reference's default drafted tokens a verify step
 DEFAULT_SPEC_TOKENS = 4
+
+# the transient engine OOMs the loop skips and retries: the reference's
+# MemoryError, and the CUDA caching allocator's torch.OutOfMemoryError,
+# which is a RuntimeError and not a MemoryError
+OOM_ERRORS = (MemoryError, torch.OutOfMemoryError)
 
 
 def greedy_sample(logits) -> np.ndarray:
@@ -80,16 +108,55 @@ class _Gauge:
         return self.sum / self.count if self.count else 0.0
 
 
+def _rank(v, pct: int):
+    """The ``pct``-th percentile of the sorted list ``v``, nearest
+    rank."""
+    return v[-(-pct * len(v) // 100) - 1]
+
+
 def _depths(values) -> dict:
     """count, p50, p90 (nearest rank), mean and max of recorded
     drafted or accepted depths."""
     if not values:
         return {"count": 0}
     v = sorted(values)
-    n = len(v)
-    return {"count": n, "p50": v[-(-50 * n // 100) - 1],
-            "p90": v[-(-90 * n // 100) - 1],
-            "mean": round(sum(v) / n, 3), "max": v[-1]}
+    return {"count": len(v), "p50": _rank(v, 50), "p90": _rank(v, 90),
+            "mean": round(sum(v) / len(v), 3), "max": v[-1]}
+
+
+def _hist_ms(seconds) -> dict:
+    """count, p50, p90, p99 (nearest rank) and max in milliseconds of
+    recorded durations in seconds: the reference's histogram view, over
+    the exact samples."""
+    if not seconds:
+        return {"count": 0}
+    v = sorted(seconds)
+    return {"count": len(v),
+            **{f"p{p}": round(_rank(v, p) * 1e3, 3) for p in (50, 90, 99)},
+            "max": round(v[-1] * 1e3, 3)}
+
+
+class _InflightStep:
+    """One launched-but-not-retired device step (the depth-1 window):
+    the requests it covers, the draft map and per-slot lengths (verify
+    only), the host tensors its token ids and finite flags are being
+    copied into, the event after that copy (None on the CPU, where the
+    tensors are the results themselves), and the launch-time clock that
+    device-side failures observed a step later are anchored to."""
+
+    __slots__ = ("kind", "running", "drafts", "lengths", "ids", "finite",
+                 "event", "launched_at")
+
+    def __init__(self, kind, running, ids, finite, event, launched_at,
+                 drafts=None, lengths=None):
+        self.kind = kind                  # "decode" | "verify"
+        self.running = running
+        self.ids = ids
+        self.finite = finite
+        self.event = event
+        self.launched_at = launched_at
+        self.drafts = drafts
+        self.lengths = lengths
 
 
 class InferenceServer:
@@ -106,11 +173,16 @@ class InferenceServer:
         kernel B8); ``"off"`` pins the full-width pool; None defers to
         the ``APEX_TPU_KV_QUANT`` environment variable (unset: off).
         A kwarg that is given wins over the environment.
+      sample_fn: a custom host sampler, (…, V) numpy logits -> (…,)
+        token ids.  Passing one warns: it takes the logits steps,
+        samples on the host, turns the pipeline and speculation off and
+        ignores per-request :class:`SamplingParams`.  None (default) is
+        :func:`greedy_sample`, with sampling on the device.
       max_waiting: bound on the waiting queue; a submit past it comes
         back already finished with ``finish_reason="rejected"`` (or
         displaces lower-priority queued work under overload control).
-      clock: the wall-deadline and timeline time source (monotonic
-        seconds), injectable so deadline tests never sleep.
+      clock: the wall-deadline, timeline and breaker time source
+        (monotonic seconds), injectable so deadline tests never sleep.
       enable_prefix_cache: block-level prefix sharing at admission
         (:mod:`serving.prefix_cache`, default on): shared-prefix traffic
         skips re-prefilling cached full blocks.
@@ -130,9 +202,17 @@ class InferenceServer:
       spec_tokens: the most drafted tokens a verify step (default 4).
       draft_source: the :class:`serving.speculation.DraftSource`
         (default :class:`~serving.speculation.NgramDraft`).
+      enable_pipeline: the dispatch-ahead loop (default on): decode and
+        verify steps are launched without waiting on the card and
+        retired at the start of the next step; the tokens are the
+        synchronous loop's.  Off with a custom ``sample_fn``.
       enable_overload: priority-aware load shedding (default on) with
         ``overload_policy`` (default: :class:`OverloadPolicy`'s stock
         thresholds); False makes queue-full strictly reject.
+      enable_breaker: the circuit breaker in front of ``submit``
+        (default on); ``breaker`` a :class:`resilience.CircuitBreaker`
+        (default: one on ``clock`` with the reference's thresholds).  A
+        breaker without counters reports through ``stats()``.
 
     Example::
 
@@ -150,6 +230,7 @@ class InferenceServer:
                  block_size: int = 16,
                  cache_dtype: Optional[torch.dtype] = None,
                  kv_quant: Optional[str] = None,
+                 sample_fn: Optional[Callable] = None,
                  max_waiting: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic,
                  enable_prefix_cache: bool = True,
@@ -158,8 +239,11 @@ class InferenceServer:
                  enable_speculation: bool = True,
                  spec_tokens: Optional[int] = None,
                  draft_source: Optional[DraftSource] = None,
+                 enable_pipeline: bool = True,
                  enable_overload: bool = True,
-                 overload_policy: Optional[OverloadPolicy] = None):
+                 overload_policy: Optional[OverloadPolicy] = None,
+                 enable_breaker: bool = True,
+                 breaker: Optional[CircuitBreaker] = None):
         if kv_quant is None:
             kv_quant = os.environ.get(KV_QUANT_ENV)
         self.engine = DecodeEngine(
@@ -168,6 +252,14 @@ class InferenceServer:
             block_size=block_size, cache_dtype=cache_dtype,
             kv_quant=kv_quant)
         self.clock = clock
+        self.sample_fn = sample_fn or greedy_sample
+        if self.sample_fn is not greedy_sample:
+            warnings.warn(
+                "a custom sample_fn disables the serving fast paths: "
+                "speculative decoding and the pipelined loop fall back to "
+                "the synchronous logits path, and per-request "
+                "SamplingParams are ignored; pass SamplingParams(...) per "
+                "request instead", UserWarning, stacklevel=2)
         self.prefill_chunk = None
         if enable_chunked_prefill:
             self.prefill_chunk = int(
@@ -180,7 +272,21 @@ class InferenceServer:
                 f"spec_tokens must be >= 1, got {self.spec_tokens}")
         self.draft_source = (draft_source if draft_source is not None
                              else NgramDraft())
-        self.speculating = bool(enable_speculation)
+        self.speculating = bool(enable_speculation
+                                and self.sample_fn is greedy_sample)
+        # the pipelined loop needs the sampler on the device
+        self.pipelining = bool(enable_pipeline
+                               and self.sample_fn is greedy_sample)
+        self._inflight: Optional[_InflightStep] = None
+        self._pending_produced = 0     # retired outside step() (submit)
+        self.breaker_events = CounterMeter()
+        self.breaker = (
+            breaker if breaker is not None
+            else CircuitBreaker(clock=clock, counters=self.breaker_events)
+        ) if enable_breaker else None
+        if self.breaker is not None and self.breaker.counters is None:
+            # a caller's breaker without counters reports through stats()
+            self.breaker.counters = self.breaker_events
         self.overload_policy = (
             overload_policy if overload_policy is not None
             else OverloadPolicy()) if enable_overload else None
@@ -234,14 +340,18 @@ class InferenceServer:
 
         The request may come back already finished, ``finished_at``
         stamped now: ``"rejected"`` (queue full, nothing lower to
-        displace), ``"draining"`` (after :meth:`begin_drain`) or
-        ``"shed"`` (predictive admission).  A queue-full submit may
-        instead displace a lower-priority queued request, which then
-        finishes ``"shed"``.  Submitting to a closed server raises
-        :class:`RuntimeError`."""
+        displace), ``"draining"`` (after :meth:`begin_drain`),
+        ``"breaker_open"`` (the breaker is open) or ``"shed"``
+        (predictive admission).  A queue-full submit may instead
+        displace a lower-priority queued request, which then finishes
+        ``"shed"``.  A launched step is retired first, so the breaker,
+        the displacement and the queue see its results.  Submitting to
+        a closed server raises :class:`RuntimeError`."""
         if self._closed:
             raise RuntimeError(
                 "InferenceServer is closed; no further submissions")
+        if self._inflight is not None:
+            self._pending_produced += self._flush_window()
         prompt = [int(t) for t in prompt]
         if int(max_new_tokens) < 1:
             raise ValueError(
@@ -268,6 +378,8 @@ class InferenceServer:
             self.sampling_requests.get(klass, 0) + 1
         if self._draining:
             return self._finish_at_submit(req, reasons.DRAINING)
+        if self.breaker is not None and not self.breaker.allow():
+            return self._finish_at_submit(req, reasons.BREAKER_OPEN)
         if self.admission is not None and self.admission.doomed(req):
             return self._finish_at_submit(req, reasons.SHED)
         try:
@@ -304,24 +416,35 @@ class InferenceServer:
 
     @property
     def has_work(self) -> bool:
-        return self.scheduler.has_work
+        """Queued, running, or launched-but-not-retired work."""
+        return self.scheduler.has_work or self._inflight is not None
 
     def pressure(self) -> float:
         """The overload signal (:meth:`Scheduler.pressure`)."""
         return self.scheduler.pressure()
 
     def step(self) -> int:
-        """One continuous-batching iteration: expire deadlines, shed
-        overload, admit (copying whole-context hits' last blocks), advance
-        every prefilling request by one chunk (sampling its first token
-        from the last), then one step across the rest of the running
-        batch — verify when any request has a draft, else decode.
-        Returns the number of tokens produced.  A request whose logits go
-        non-finite, that outgrows the pool with nothing left to preempt,
-        or whose deadline passes, fails alone."""
+        """One continuous-batching iteration: retire the previous
+        iteration's launched step (pipelined loop), expire deadlines,
+        shed overload, admit (copying whole-context hits' last blocks),
+        advance every prefilling request by one chunk (sampling its
+        first token from the last, synchronously in both loops), then
+        one step across the rest of the running batch — verify when any
+        request has a draft, else decode — launched without waiting when
+        pipelining (its tokens retire at the start of the next step or
+        at the next ``submit``/``cancel``), applied at once otherwise.
+        Returns the number of tokens applied to requests in this call.
+        A request whose logits go non-finite, that outgrows the pool
+        with nothing left to preempt, or whose deadline passes, fails
+        alone; a transient engine OOM skips the affected call for one
+        iteration, and its retry is bit for bit."""
         sched, engine = self.scheduler, self.engine
         self._iter += 1
-        produced = chunks = 0
+        produced, self._pending_produced = self._pending_produced, 0
+        # RETIRE before any host decision: deadlines, shedding, admission
+        # and drafts then see the state the synchronous loop would see
+        produced += self._flush_window()
+        plan_start = self.clock()
         self._expire_deadlines()
         # the pressure signal at its pre-shed peak, then the shed
         self.pressure_gauge.update(sched.pressure())
@@ -335,36 +458,40 @@ class InferenceServer:
         # block, so the re-write of the last token stays private
         cows = [r for r in sched._admit_order if r.pending_cow]
         if cows:
-            engine.copy_blocks([r.pending_cow for r in cows])
-            for req in cows:
-                sched.cow_done(req)
+            try:
+                engine.copy_blocks([r.pending_cow for r in cows])
+            except OOM_ERRORS:
+                # nothing was accounted: the same copies run next step
+                self._note_oom("copy_blocks")
+            else:
+                for req in cows:
+                    sched.cow_done(req)
+        chunks = 0
         for req in [r for r in sched._admit_order if r.prefilling]:
-            tokens, start, is_last = sched.prefill_plan(req)
-            # only a fresh prompt's last chunk samples a token
-            samp = (sched.prefill_sampling(req)
-                    if is_last and req.prefill_sample else None)
-            if start == 0 and is_last and self.prefill_chunk is None:
-                # no cached prefix, no chunking: the monolithic prefill
-                ids, fin = engine.prefill_sampled(tokens, req.block_table,
-                                                  sampling=samp)
+            launched = self._prefill_launch(req)
+            if launched is None:
+                continue        # an OOM: this exact chunk replays next step
+            out, finite, n, monolithic = launched
+            if monolithic:
                 self.prefills += 1
             else:
-                ids, fin = engine.chunk_prefill_sampled(
-                    tokens, start, req.block_table,
-                    pad_to=self.prefill_chunk, sampling=samp)
                 chunks += 1
-            if not sched.chunk_done(req, len(tokens)) \
-                    or not req.prefill_sample:
+            if not sched.chunk_done(req, n) or not req.prefill_sample:
                 continue    # mid-prefill, or a resumed request's pending
                             # token continues
-            if not bool(fin[0]):
+            tok = self._prefill_token(out, finite)
+            if tok is None:
                 sched.fail(req, reasons.NONFINITE)
+                if self.breaker is not None:
+                    self.breaker.record_failure()
                 continue
-            req.record_token(int(ids[0]))
+            req.record_token(tok)
             self._note_token(req)
             produced += 1
             if req.finished:
                 sched.retire(req)
+                if self.breaker is not None:
+                    self.breaker.record_success()
         self.chunk_iters.update(chunks)
         self.prefill_chunks += chunks
 
@@ -377,14 +504,73 @@ class InferenceServer:
             if running:
                 drafts = (self._propose_drafts(running)
                           if self.speculating else {})
-                produced += (self._verify_step(running, drafts) if drafts
-                             else self._decode_step(running))
+                if self.pipelining:
+                    # LAUNCH: its tokens retire at the next step
+                    if drafts:
+                        self._launch_verify(running, drafts)
+                    else:
+                        self._launch_decode(running)
+                elif drafts:
+                    produced += self._verify_step(running, drafts)
+                else:
+                    produced += self._decode_step(running)
+        if self.pipelining:
+            self.plan_time.append(self.clock() - plan_start)
 
         self.tokens_generated += produced
         self.queue_depth.update(sched.num_waiting)
         self.occupancy.update(sched.num_running / engine.max_batch_size)
         self._finalize_finished()
         return produced
+
+    def _prefill_launch(self, req: Request):
+        """Run ``req``'s next prefill chunk (or its monolithic prefill):
+        ``(ids, finite, tokens fed, monolithic)`` — under a custom
+        ``sample_fn`` the last-token logits and None in place of ids
+        and finite — or None when the engine OOMed.  Only a fresh
+        prompt's last chunk passes its sampling parameters."""
+        sched, engine = self.scheduler, self.engine
+        tokens, start, is_last = sched.prefill_plan(req)
+        host = self.sample_fn is not greedy_sample
+        samp = (sched.prefill_sampling(req)
+                if is_last and req.prefill_sample and not host else None)
+        # the kwarg is left out on greedy launches, as the reference
+        # does, so engine wrappers without it keep working
+        kw = {"sampling": samp} if samp is not None else {}
+        # no cached prefix, no chunking: the monolithic prefill
+        monolithic = start == 0 and is_last and self.prefill_chunk is None
+        try:
+            if monolithic:
+                out = (engine.prefill(tokens, req.block_table) if host
+                       else engine.prefill_sampled(tokens, req.block_table,
+                                                   **kw))
+            else:
+                out = (engine.chunk_prefill(tokens, start, req.block_table,
+                                            pad_to=self.prefill_chunk)
+                       if host else engine.chunk_prefill_sampled(
+                           tokens, start, req.block_table,
+                           pad_to=self.prefill_chunk, **kw))
+        except OOM_ERRORS:
+            # chunk_done is not called: the chunk replays next step
+            self._note_oom("prefill")
+            return None
+        if host:
+            return out, None, len(tokens), monolithic
+        return out[0], out[1], len(tokens), monolithic
+
+    def _prefill_token(self, out, finite) -> Optional[int]:
+        """A request's first token from its last chunk's result, read
+        synchronously in both loops (the token decides whether the
+        request joins this step's launch); None when the logits went
+        non-finite."""
+        if finite is None:          # a custom sample_fn's host logits
+            logits = out.cpu().numpy()
+            if not np.all(np.isfinite(logits)):
+                return None
+            return int(self.sample_fn(logits))
+        if not bool(finite[0]):
+            return None
+        return int(out[0])
 
     def _note_token(self, req: Request) -> None:
         """Stamp the first-token edge of ``req``'s timeline, or the gap
@@ -421,23 +607,81 @@ class InferenceServer:
         return tokens, positions, tables
 
     def _decode_step(self, running) -> int:
-        sched = self.scheduler
-        ids, fin = self.engine.decode_sampled(
-            *self._decode_inputs(running),
-            sampling=sched.sampling_inputs(running))
+        """One batched decode step over ``running``, materialized and
+        applied in the same call (the synchronous loop; with a custom
+        ``sample_fn`` through the logits step and the host sampler).
+        Returns the tokens produced."""
+        tokens, positions, tables = self._decode_inputs(running)
+        host = self.sample_fn is not greedy_sample
+        samp = None if host else self.scheduler.sampling_inputs(running)
+        kw = {"sampling": samp} if samp is not None else {}
+        try:
+            if host:
+                logits = self.engine.decode(tokens, positions,
+                                            tables).cpu().numpy()
+            else:
+                ids, fin = self.engine.decode_sampled(tokens, positions,
+                                                      tables, **kw)
+                ids, fin = ids.cpu().numpy(), fin.cpu().numpy()
+        except OOM_ERRORS:
+            # no request state moved: the same decode runs next step
+            self._note_oom("decode")
+            return 0
         self.decode_steps += 1
-        ids, fin = ids.cpu().numpy(), fin.cpu().numpy()
+        if host:
+            ids = self.sample_fn(logits)
+            fin = np.all(np.isfinite(logits), axis=-1)
+        return self._apply_decode_results(running, ids, fin)
+
+    def _launch_decode(self, running) -> bool:
+        """The pipelined decode launch: enqueue the sampled step, start
+        its ids and finite flags on their way to the host and hold
+        ``running`` as the in-flight window; the results retire next
+        step.  False when the launch OOMed (skipped and retried, as in
+        the synchronous loop)."""
+        sched = self.scheduler
+        tokens, positions, tables = self._decode_inputs(running)
+        samp = sched.sampling_inputs(running)
+        kw = {"sampling": samp} if samp is not None else {}
+        try:
+            ids, fin = self.engine.decode_sampled(tokens, positions, tables,
+                                                  **kw)
+        except OOM_ERRORS:
+            self._note_oom("decode")
+            return False
+        self.decode_steps += 1
+        (ids, fin), event = self.engine.to_host_async(ids, fin)
+        self._inflight = _InflightStep("decode", list(running), ids, fin,
+                                       event, self.clock())
+        sched.hold_inflight(running)
+        self.pipe.incr("launches")
+        return True
+
+    def _apply_decode_results(self, running, toks, finite,
+                              now: Optional[float] = None) -> int:
+        """Apply one decode step's (B,) host ids and finite flags to
+        ``running``: the retire half of both loops.  ``now`` backdates
+        a breaker failure to the launch clock (the pipelined retire sees
+        it a step late).  A False flag fails that request before its
+        token counts.  Returns the tokens produced."""
+        sched = self.scheduler
         produced = 0
         for req in running:
-            if not fin[req.slot]:
+            if req.finished or not req.running:
+                continue        # failed between launch and retire
+            if not finite[req.slot]:
                 sched.fail(req, reasons.NONFINITE)
+                if self.breaker is not None:
+                    self.breaker.record_failure(now)
                 continue
             req.num_cached += 1
-            req.record_token(int(ids[req.slot]))
+            req.record_token(int(toks[req.slot]))
             self._note_token(req)
             produced += 1
             if req.finished:
                 sched.retire(req)
+                if self.breaker is not None:
+                    self.breaker.record_success()
             else:
                 # index a block this token just filled
                 sched.register_progress(req)
@@ -495,30 +739,76 @@ class InferenceServer:
         return tokens, lengths, positions, tables
 
     def _verify_step(self, running, drafts) -> int:
-        """One verify step over the whole running batch: each slot feeds
-        its pending token and its drafts; acceptance keeps, a slot, the
-        longest draft prefix equal to the model's own tokens plus the
-        model's next token; rejected lookahead is rolled back."""
+        """One verify step over the whole running batch, materialized
+        and applied in the same call (the synchronous loop): each slot
+        feeds its pending token and its drafts; acceptance keeps, a
+        slot, the longest draft prefix equal to the model's own tokens
+        plus the model's next token; rejected lookahead is rolled
+        back."""
         tokens, lengths, positions, tables = self._verify_inputs(running,
                                                                  drafts)
-        ids, fin = self.engine.verify_sampled(
-            tokens, lengths, positions, tables,
-            sampling=self.scheduler.sampling_inputs(running))
+        samp = self.scheduler.sampling_inputs(running)
+        kw = {"sampling": samp} if samp is not None else {}
+        try:
+            ids, fin = self.engine.verify_sampled(tokens, lengths, positions,
+                                                  tables, **kw)
+            ids, fin = ids.cpu().numpy(), fin.cpu().numpy()
+        except OOM_ERRORS:
+            self._verify_oom(running)
+            return 0
         self.verify_steps += 1
-        return self._apply_verify_results(running, drafts, lengths,
-                                          ids.cpu().numpy(),
-                                          fin.cpu().numpy())
+        return self._apply_verify_results(running, drafts, lengths, ids, fin)
+
+    def _launch_verify(self, running, drafts) -> bool:
+        """The pipelined verify launch: :meth:`_launch_decode`'s twin,
+        keeping the drafts and lengths for acceptance at retire.  False
+        when the launch OOMed: the lookahead grown for it is rolled back
+        and the same verify (drafts are functions of request history)
+        runs next step."""
+        sched = self.scheduler
+        tokens, lengths, positions, tables = self._verify_inputs(running,
+                                                                 drafts)
+        samp = sched.sampling_inputs(running)
+        kw = {"sampling": samp} if samp is not None else {}
+        try:
+            ids, fin = self.engine.verify_sampled(tokens, lengths, positions,
+                                                  tables, **kw)
+        except OOM_ERRORS:
+            self._verify_oom(running)
+            return False
+        self.verify_steps += 1
+        (ids, fin), event = self.engine.to_host_async(ids, fin)
+        self._inflight = _InflightStep("verify", list(running), ids, fin,
+                                       event, self.clock(), drafts=drafts,
+                                       lengths=lengths)
+        sched.hold_inflight(running)
+        self.pipe.incr("launches")
+        return True
+
+    def _verify_oom(self, running) -> None:
+        """A verify call OOMed: no request state moved; the lookahead
+        blocks grown for it go back, so the skipped step holds no extra
+        pool space."""
+        self._note_oom("verify")
+        for req in running:
+            if req.running:
+                self.scheduler.rollback_lookahead(req)
 
     def _apply_verify_results(self, running, drafts, lengths, row_toks,
-                              finite) -> int:
-        """Acceptance over one verify step's (B, K) tokens and finite
-        flags.  Returns the tokens produced."""
+                              finite, now: Optional[float] = None) -> int:
+        """Acceptance over one verify step's (B, K) host tokens and
+        finite flags: the retire half of both loops (``now`` as in
+        :meth:`_apply_decode_results`).  Returns the tokens produced."""
         sched = self.scheduler
         produced = 0
         for req in running:
+            if req.finished or not req.running:
+                continue        # failed between launch and retire
             n = int(lengths[req.slot])
             if not np.all(finite[req.slot, :n]):
                 sched.fail(req, reasons.NONFINITE)
+                if self.breaker is not None:
+                    self.breaker.record_failure(now)
                 continue
             toks = row_toks[req.slot]
             d = drafts.get(req.uid, ())
@@ -557,11 +847,46 @@ class InferenceServer:
                         self.spec.incr("stoch_resamples")
             if req.finished:
                 sched.retire(req)
+                if self.breaker is not None:
+                    self.breaker.record_success()
             else:
                 sched.register_progress(req)
                 sched.rollback_lookahead(req)
         self.spec.incr("decode_tokens", produced)
         return produced
+
+    def _flush_window(self) -> int:
+        """RETIRE: wait for the in-flight step's ids and finite flags
+        (timed into ``host_stall_ms``), release the hold before any
+        request state moves, and apply them.  A no-op with no window.
+        Returns the tokens produced."""
+        inf = self._inflight
+        if inf is None:
+            return 0
+        self._inflight = None
+        t0 = self.clock()
+        if inf.event is not None:
+            inf.event.synchronize()
+        toks, finite = inf.ids.numpy(), inf.finite.numpy()
+        self.retire_wait.append(self.clock() - t0)
+        # the step's K/V writes landed: the window's pin lifts first
+        self.scheduler.release_inflight()
+        self.pipe.incr("retired_behind")
+        if inf.kind == "decode":
+            return self._apply_decode_results(inf.running, toks, finite,
+                                              now=inf.launched_at)
+        return self._apply_verify_results(inf.running, inf.drafts,
+                                          inf.lengths, toks, finite,
+                                          now=inf.launched_at)
+
+    def _note_oom(self, site: str) -> None:
+        """Count one transient engine OOM at ``site``: the call was
+        skipped (nothing moved) and retries next step; the breaker
+        counts it as a failure, so a sustained burst trips fast
+        rejection at the front door."""
+        self.oom.incr(site)
+        if self.breaker is not None:
+            self.breaker.record_failure()
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int,
@@ -622,6 +947,7 @@ class InferenceServer:
         self.begin_drain()
         while self.has_work:
             self.step()
+        self._account_pending_produced()
         self._finalize_finished()
         return self.stats()
 
@@ -638,14 +964,20 @@ class InferenceServer:
         """Cancel one live request by uid: it finishes
         ``"cancelled"`` and frees its slot and blocks at once (a queued
         one leaves the queue).  False if the uid is unknown or already
-        finished."""
+        finished.  A launched step is retired first, so no step still in
+        flight writes through the blocks the cancel frees (the retire
+        may itself finish the request)."""
+        if self._inflight is not None:
+            self._pending_produced += self._flush_window()
         sched = self.scheduler
+        cancelled = False
         for req in list(sched.running.values()) + list(sched.waiting):
-            if req.uid == uid:
+            if req.uid == uid and not req.finished:
                 sched.fail(req, reasons.CANCELLED)
-                self._finalize_finished()
-                return True
-        return False
+                cancelled = True
+                break
+        self._finalize_finished()
+        return cancelled
 
     def audit(self) -> None:
         """The scheduler, allocator and prefix-cache invariants
@@ -654,8 +986,17 @@ class InferenceServer:
 
     # -- meters -----------------------------------------------------------
 
+    def _account_pending_produced(self) -> None:
+        """Count tokens retired outside a step (a ``submit`` or
+        ``cancel`` that retired the window) that no later step took
+        up."""
+        self.tokens_generated += self._pending_produced
+        self._pending_produced = 0
+
     def reset_meters(self) -> None:
-        """Zero the counters (after warm-up, before a timed window)."""
+        """Zero the counters (after warm-up, before a timed window).  A
+        window still in flight keeps its tokens: they count when it
+        retires."""
         self.tokens_generated = 0
         self.prefills = 0
         self.prefill_chunks = 0
@@ -668,6 +1009,17 @@ class InferenceServer:
         self.prefix = CounterMeter()
         if self.prefix_cache is not None:
             self.prefix_cache.counters = self.prefix
+        self.pipe = CounterMeter()
+        self.oom = CounterMeter()
+        ours = self.breaker is not None \
+            and self.breaker.counters is self.breaker_events
+        self.breaker_events = CounterMeter()
+        if ours:
+            self.breaker.counters = self.breaker_events
+        # exact samples, seconds: the retire's wait on the card and the
+        # host's planning and launching time of a pipelined step
+        self.retire_wait: List[float] = []
+        self.plan_time: List[float] = []
         self.queue_depth.reset()
         self.occupancy.reset()
         self.chunk_iters.reset()
@@ -696,8 +1048,15 @@ class InferenceServer:
         ``prefix_*`` and ``kv_blocks_*`` keys appear with the prefix
         cache.  ``memory`` is the pool: its geometry and bytes
         (:meth:`DecodeEngine.memory_info`) and the allocator's free,
-        live, evictable and peak blocks."""
+        live, evictable and peak blocks.  ``breaker_state`` (or
+        ``"disabled"``), ``breaker_events`` and ``oom_events`` are the
+        failure containment's; ``pipeline`` the dispatch-ahead window:
+        its launches and retires, whether one is pending, and
+        ``host_stall_ms`` (the retire's wait on the card) and
+        ``host_plan_ms`` (the host's planning and launching a step), each
+        ``{count, p50, p90, p99, max}`` over the exact samples."""
         sched = self.scheduler
+        self._account_pending_produced()
         self._finalize_finished()
         elapsed = max(time.perf_counter() - self._started, 1e-9)
         now = launch_counts()
@@ -711,6 +1070,7 @@ class InferenceServer:
             "batch_occupancy_avg": round(self.occupancy.avg, 3),
             "requests_finished": len(sched.finished),
             "requests_failed": dict(sched.failures),
+            "requests_failed_total": sum(sched.failures.values()),
             "preemptions": sum(r.preemptions for r in sched.finished),
             "prefills": self.prefills,
             "prefill_chunks": self.prefill_chunks,
@@ -719,6 +1079,10 @@ class InferenceServer:
             "verify_steps": self.verify_steps,
             "pressure": round(self.pressure_gauge.val, 3),
             "pressure_peak": round(self.pressure_gauge.peak, 3),
+            "breaker_state": (self.breaker.state if self.breaker is not None
+                              else "disabled"),
+            "breaker_events": self.breaker_events.as_dict(),
+            "oom_events": self.oom.total,
             "draining": self._draining,
             "speculation": {
                 "enabled": self.speculating,
@@ -738,6 +1102,7 @@ class InferenceServer:
             },
             "sampling": {
                 "requests": dict(self.sampling_requests),
+                "custom_sample_fn": self.sample_fn is not greedy_sample,
                 "rejection": {
                     "drafted_tokens": spec.count("stoch_drafted_tokens"),
                     "accepted_tokens": spec.count("stoch_accepted_tokens"),
@@ -746,6 +1111,15 @@ class InferenceServer:
                         "stoch_drafted_tokens"), 3),
                     "resamples": spec.count("stoch_resamples"),
                 },
+            },
+            "pipeline": {
+                "enabled": self.pipelining,
+                "depth": 1 if self.pipelining else 0,
+                "launches": self.pipe.count("launches"),
+                "retired_behind": self.pipe.count("retired_behind"),
+                "pending": 1 if self._inflight is not None else 0,
+                "host_stall_ms": _hist_ms(self.retire_wait),
+                "host_plan_ms": _hist_ms(self.plan_time),
             },
             "admission": (self.admission.as_stats()
                           if self.admission is not None

@@ -50,6 +50,22 @@ Empty decode slots ride along as no-ops: position 0 masks their whole
 context, and their zeroed block table sends the K/V write to the
 garbage block.  The pool is updated in place.
 
+**Launches that do not block the host.**  On the card every host input
+(token ids, positions, block tables, sampling parameters) is staged in
+pinned memory from PyTorch's caching host allocator and copied
+``non_blocking`` on the current stream, the sampling tensors before the
+forward is enqueued, so a decode or verify call returns as soon as its
+work is queued.  The allocator records an event on each copy and hands
+the pinned block out again only after that copy has run, so a second
+launch (another prefill chunk of the same step, say) never overwrites
+a staging buffer still in flight.  Everything runs on the current
+stream: a later write to a recycled pool block is ordered after the
+in-flight step's K/V writes.  The K/V writes come last in each step, so
+a call that raises mid-forward wrote nothing and its retry is bit for
+bit.  :meth:`DecodeEngine.to_host_async` is the way back: a
+``non_blocking`` copy into pinned memory behind a CUDA event.  On the
+CPU the same code runs without pinning or events.
+
 No twin here of the reference's trace counts (``compile_counts``,
 ``verify_compiles``, ``collective_programs``: eager PyTorch traces
 nothing) or of its per-program accounting (``_qkey``; it comes with
@@ -339,7 +355,31 @@ class DecodeEngine:
                 f"{self.max_context}") from None
 
     def _to_device(self, *arrays: np.ndarray):
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        """Host arrays -> tensors on the engine's device.  On the card
+        each is staged in pinned memory and copied ``non_blocking``, so
+        the host does not wait on the stream; on the CPU the arrays are
+        wrapped as they are."""
+        if self.device.type != "cuda":
+            return tuple(torch.from_numpy(a) for a in arrays)
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+                self.device, non_blocking=True) for a in arrays)
+
+    def to_host_async(self, *tensors: torch.Tensor):
+        """Start copying device results to the host without waiting:
+        returns ``(host tensors, event)``.  On the card the host tensors
+        are pinned, filled by ``non_blocking`` copies, and valid once
+        ``event`` (a :class:`torch.cuda.Event` recorded after the
+        copies) has completed; on the CPU they are ``tensors`` and the
+        event is None."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                 pin_memory=True).copy_(t, non_blocking=True)
+                     for t in tensors)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
     def _sampling_args(self, sampling):
         """A ``(temperature, top_k, top_p, seed)`` tuple of per-row host
@@ -401,8 +441,9 @@ class DecodeEngine:
         (greedy) or ``(temperature, top_k, top_p, seed)`` (1,) arrays;
         the token's counter is the prompt length."""
         args = self._prefill_args(prompt, block_table)
+        samp = self._sampling_args(sampling)
         last = self._prefill_impl(*args)
-        return self._sample(last, args[1], self._sampling_args(sampling))
+        return self._sample(last, args[1], samp)
 
     def chunk_prefill(self, tokens, start: int, block_table,
                       pad_to: Optional[int] = None) -> torch.Tensor:
@@ -424,9 +465,9 @@ class DecodeEngine:
         :meth:`prefill_sampled`."""
         ids, start_t, length, table = self._chunk_args(tokens, start,
                                                        block_table, pad_to)
+        samp = self._sampling_args(sampling)
         last = self._chunk_impl(ids, start_t, length, table)
-        return self._sample(last, start_t + length,
-                            self._sampling_args(sampling))
+        return self._sample(last, start_t + length, samp)
 
     def decode(self, tokens, positions, tables) -> torch.Tensor:
         """One decode step over all slots: (B,), (B,), (B, blocks_per_seq)
@@ -440,9 +481,9 @@ class DecodeEngine:
         (greedy) or per-slot (B,) arrays; a slot's counter is its
         position + 1."""
         args = self._decode_args(tokens, positions, tables)
+        samp = self._sampling_args(sampling)
         logits = self._decode_impl(*args)
-        return self._sample(logits, args[1] + 1,
-                            self._sampling_args(sampling))
+        return self._sample(logits, args[1] + 1, samp)
 
     def verify(self, tokens, lengths, positions, tables) -> torch.Tensor:
         """One speculative verify step over all slots: tokens (B, K)
@@ -460,10 +501,11 @@ class DecodeEngine:
         slot draws with the counter ``position + 1 + j``."""
         ids, start, length, tabs = self._verify_args(tokens, lengths,
                                                      positions, tables)
+        samp = self._sampling_args(sampling)
         logits = self._verify_impl(ids, start, length, tabs)
         counters = start[:, None] + 1 + torch.arange(
             ids.shape[1], device=self.device)[None, :]
-        return self._sample(logits, counters, self._sampling_args(sampling))
+        return self._sample(logits, counters, samp)
 
     def swap_params(self, params) -> None:
         """Load a new ``state_dict`` of the same structure into the

@@ -1,13 +1,12 @@
 """Continuous-batching request scheduler (Orca-style iteration-level).
 
 Twin of ``apex_tpu/serving/scheduler.py`` without the disaggregated
-hand-off and the pipelined loop's in-flight hold.  Every iteration the
-scheduler admits waiting requests into free batch slots while the block
-pool can hold their prompts, grows each running request's block table
-just in time for its next token — preempting the worst-priority,
-youngest request back to the waiting queue when the pool runs dry — and
-retires finished requests at once, so their slot and blocks serve the
-next iteration.
+hand-off.  Every iteration the scheduler admits waiting requests into
+free batch slots while the block pool can hold their prompts, grows
+each running request's block table just in time for its next token —
+preempting the worst-priority, youngest request back to the waiting
+queue when the pool runs dry — and retires finished requests at once,
+so their slot and blocks serve the next iteration.
 
 **Prefix caching** (:mod:`serving.prefix_cache`).  At admission the
 context is matched against the block-level prefix index; matched full
@@ -46,6 +45,13 @@ last token re-enters the decode batch unchanged, so generation, greedy
 or counter-keyed stochastic, is bit-stable across preemptions (and with
 the prefix cache on, the victim's registered blocks usually come back
 as a cache hit).
+
+**The in-flight hold** (the pipelined serve loop): between a decode or
+verify launch and its retire, :meth:`Scheduler.hold_inflight` pins the
+launched requests — the pending device step still writes K/V through
+their tables, so the preemption victim chooser skips them, and
+:meth:`Scheduler.audit` checks that every held request is still running
+with its blocks.
 
 A request whose context can never fit the pool fails alone
 (``finish_reason="capacity"``); a bounded waiting queue
@@ -235,6 +241,9 @@ class Scheduler:
         # admission order among running requests: the preemption victim
         # is the worst priority, youngest within it, which converges
         self._admit_order: List[Request] = []
+        # the in-flight hold: requests whose launched device step is not
+        # retired yet (uid -> request); their blocks are pinned
+        self.inflight: Dict[int, Request] = {}
 
     # -- submission -------------------------------------------------------
 
@@ -514,6 +523,28 @@ class Scheduler:
         self.lookahead_rolled_back += len(tail)
         return len(tail)
 
+    # -- the pipelined in-flight hold ---------------------------------------
+
+    def hold_inflight(self, reqs: List[Request]) -> None:
+        """Pin ``reqs`` for a launched-but-not-retired device step: until
+        :meth:`release_inflight` they may not be preempted (their pending
+        K/V writes would land in reallocated blocks).  One launch window
+        at a time: holding while a hold is live is a serve-loop
+        sequencing bug and raises :class:`AssertionError`."""
+        if self.inflight:
+            raise AssertionError(
+                "hold_inflight while a launch window is already held")
+        for req in reqs:
+            if not req.running:
+                raise AssertionError(
+                    f"in-flight hold on non-running request {req.uid}")
+            self.inflight[req.uid] = req
+
+    def release_inflight(self) -> None:
+        """The launched step's results were consumed: the window's
+        requests are ordinary running requests again."""
+        self.inflight.clear()
+
     # -- sampling-param batching -------------------------------------------
 
     @staticmethod
@@ -552,11 +583,12 @@ class Scheduler:
 
     def _preempt_victim(self, exclude: Request) -> Optional[Request]:
         """The worst priority class (highest number) among running
-        requests other than ``exclude``, youngest-admitted within it;
-        with uniform priorities, the youngest."""
+        requests other than ``exclude`` and the in-flight hold,
+        youngest-admitted within it; with uniform priorities, the
+        youngest."""
         victim = victim_key = None
         for i, req in enumerate(self._admit_order):
-            if req is exclude:
+            if req is exclude or req.uid in self.inflight:
                 continue
             key = (req.priority, i)
             if victim_key is None or key > victim_key:
@@ -603,6 +635,7 @@ class Scheduler:
     def _release(self, req: Request) -> None:
         del self.running[req.slot]
         self._admit_order.remove(req)
+        self.inflight.pop(req.uid, None)
         self._free_slots.append(req.slot)
         req.slot = -1
         req.prefill_ctx = None
@@ -622,8 +655,9 @@ class Scheduler:
         """Refcount/free-list invariants: every block's refcount equals
         the running tables referencing it (plus a pending COW's source),
         a ref-0 block is either free or cache-held, the free list and
-        free set mirror each other, and waiting requests hold nothing.
-        Raises :class:`AssertionError`."""
+        free set mirror each other, waiting requests hold nothing, and
+        every request in the in-flight hold is still running with its
+        blocks.  Raises :class:`AssertionError`."""
         alloc = self.allocator
         table_refs: Dict[int, int] = {}
         for req in self.running.values():
@@ -636,6 +670,13 @@ class Scheduler:
             if req.block_table or req.pending_cow is not None:
                 raise AssertionError(f"waiting request {req.uid} holds "
                                      "blocks")
+        for uid, req in self.inflight.items():
+            if not req.running or self.running.get(req.slot) is not req:
+                raise AssertionError(
+                    f"in-flight request {uid} is no longer running")
+            if not req.block_table:
+                raise AssertionError(
+                    f"in-flight request {uid} holds no blocks")
         free = set(alloc._free)
         if not len(alloc._free) == len(free) == len(alloc._free_set) \
                 or free != alloc._free_set:

@@ -18,7 +18,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and bf16 (scale-aware error max|a-b|/(max|b|+1) <= 2e-5 fp32,
    <= 2e-2 bf16, <= 1e-6 for FusedAdam, whose skipped step must keep
    every bit; the bf16 flash o, dq, dk and dv also row by row, see
-   ``row_err``), each timed as the median device time of 20-50 launches
+   ``row_err``), each timed as the median device time of 10-25 launches
    between CUDA events beside its plain version, one PyTorch library
    call computing the same function (a yardstick the port never calls)
    and its bound (the larger of bytes over 3.35 TB/s and FLOPs over the
@@ -65,19 +65,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    shape go into the JSON line as ``gpt_causal``.
 4. serve   — ``InferenceServer`` on GPT-2 small at full width (seeded
    random weights), 8 decode slots, 16-token blocks, flash prefill,
-   16 prompts of 4..255 tokens, 32 new tokens each:
+   16 prompts of 4..255 tokens, 32 new tokens each, the pipelined
+   (dispatch-ahead) loop by default; its first line is the prediction
+   (``P_PREDICTION``):
    (a) fp32 cache, TF32 off: tokens against greedy full recompute on
        the card (the port's model with plain attention and plain
        LayerNorm: it launches none of the kernels); a mismatch is
        allowed only where the oracle's top-2 logit gap is < 1e-3, and
-       ends that request's comparison;
-   (b) the default bf16 cache, timed: tokens/s (median of 2 passes),
-       occupancy, preemptions.
-   Both check that every kernel's launch count rose by exactly its
-   per-prefill and per-decode-step count, and that ``stats()`` reports
-   the same counts.  (c) repeats (b) under
-   ``torch.profiler``: device time by kernel class and the device's
-   idle share of the wall time.  Both arms pin ``kv_quant="off"``.
+       ends that request's comparison; every decode launch runs under
+       ``torch.cuda.set_sync_debug_mode("error")`` (a launch that waits
+       on the card raises; the retire may wait); then the synchronous
+       loop (``enable_pipeline=False``): the same tokens and launches;
+   (b) the default bf16 cache, pipelined and synchronous passes in
+       turns, the order swapped every pass (``_alternate``): tokens/s
+       (median of 2 passes each), occupancy,
+       preemptions, the window's ``host_stall_ms``/``host_plan_ms`` and
+       the breaker's state; the same tokens and launches; then one pass
+       of each under ``torch.profiler``: device time by kernel class
+       and the device's idle share of the wall time;
+   (c) ``torch.OutOfMemoryError`` injected at the pipelined server's
+       second and third decode launches (``DECODE_OOM_AT``): the same
+       tokens, ``oom_events`` 2, the breaker closed.
+   Every pass checks that every kernel's launch count rose by exactly
+   its per-prefill and per-decode-step count, that ``stats()`` reports
+   the same counts, and that every launched window was retired.  All
+   arms pin ``kv_quant="off"``.
 5. serve_q8 — the same model and traffic from the int8 pool
    (``kv_quant="int8"``, decode through B8):
    (a) fp32 compute, TF32 off, 8 slots: tokens against the int8 greedy
@@ -86,7 +98,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
        over the dequantized values), the same near-tie rule; launches
        exact (B8 ``L`` per decode step, B7 none); ``stats()["memory"]``
        reads ``int8`` and 313,344 bytes per block;
-   (b) the same server timed (median of 2 passes) and profiled once;
+   (b) the same server and its synchronous twin, timed in turns, the
+       order swapped every pass (median of 2 passes each), and each
+       profiled once; both loops' tokens (a)'s, their launches equal;
    (c) equal pool bytes: the bytes of 129 bf16 blocks give the bf16
        arm 129 blocks and the int8 arm 242; both serve the 16 prompts
        with 16 slots (all at once need 158 blocks); the int8 arm's
@@ -105,9 +119,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
        tokens against the greedy full recompute (serve (a)'s rule),
        launches exact (B2 (2L+1) a chunk and a decode step, B4 none, B7
        L a decode step), ``stats()["prefill_chunks"]`` = the sum of
-       ceil(len / 64); then on the default bf16 pool chunked and
-       monolithic passes in turns, tokens/s the median of 2 each, and a
-       chunked pass under ``torch.profiler``;
+       ceil(len / 64); then on the default bf16 pool one chunked and
+       one monolithic pass (``PROGRAMS_TIMED_PASSES``), tokens/s each,
+       and a chunked pass under ``torch.profiler``;
    (b) the same from the int8 pool against the int8 oracle (B8), once
        (serve_q8 (b) times the int8 pool);
    (c) on a bf16 and an int8 pool: ``verify`` of 8 slots x 4 tokens
@@ -121,17 +135,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
        a second engine bit for bit on every leaf, a flipped payload
        byte refused, an empty import writing nothing;
    (d) 8 requests of mixed classes (greedy, temperature, top-k, top-p,
-       both; one seed each) on the bf16 pool: a replay on a reset pool,
-       the greedy rows against a greedy-only pass and a pool of
-       ``STARVED_BLOCKS`` that preempts, each bit for bit; the card's
-       keys and uniform bits the CPU's, its Gumbel noise within
-       ``NOISE_ULPS`` epsilons of max(|x|, 1); the replay under the
-       profiler;
+       both; one seed each) on the bf16 pool: the pipelined loop (its
+       decode launches under sync-debug "error") against the
+       synchronous loop, the greedy rows against a greedy-only pass
+       and a pool of ``STARVED_BLOCKS`` that preempts, each bit for
+       bit; the card's keys and uniform bits the CPU's, its Gumbel
+       noise within ``NOISE_ULPS`` epsilons of max(|x|, 1); the
+       pipelined pass under the profiler;
    (e) 7 of serve's prompts decoding on the bf16 pool when a
        1000-token prompt arrives: the default server (chunks of 256)
-       against the monolithic prefill, passes in turns, the decoders'
-       median, p99 and largest inter-token gaps and the long request's
-       time to first token; launches and chunks exact.  The phase
+       against the monolithic prefill, one pass each
+       (``PROGRAMS_TIMED_PASSES``), the decoders' median, p99 and
+       largest inter-token gaps and the long request's time to first
+       token; launches and chunks exact.  The phase
        prints its seconds in its ``done`` line.
 5c. serve_features — the reference server's default layers (prefix
    cache with copy-on-write, n-gram speculation, overload control,
@@ -153,7 +169,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (c) 8 prompts repeating an 8-32-token snippet, greedy on the fp32
        pool: tokens against the oracle, drafts drafted and accepted;
        then the four stochastic classes twice from a reset pool, bit
-       for bit, the rejection counters read;
+       for bit, the rejection counters read; every decode and verify
+       launch, greedy and stochastic, under sync-debug "error"; then
+       the greedy pass with ``torch.OutOfMemoryError`` injected at the
+       first prefill chunk and the second verify launch (``OOM_AT``):
+       the same tokens, ``oom_events`` 2, launches exact;
    (d) (a)'s traffic in 40 usable blocks: evictions and preemptions,
        tokens still the oracle's;
    (e) 48 submits at priorities 0 and 1 into ``max_waiting=16``: one
@@ -588,11 +608,21 @@ ROW_TOL = 1e-2
 ROW_EPS = 1e-2
 ADAM_TOL = 1e-6
 NEAR_TIE_GAP = 1e-3
-TIMED_LAUNCHES = 50
-TIMED_LAUNCHES_LARGE = 20  # training-size shapes (ms each)
+# launches a kernel timing takes the median of: each is timed alone
+# between CUDA events behind a spin, so a few tens give a stable median,
+# and the kernels phase's ~500 timings stay a small part of the script
+TIMED_LAUNCHES = 25
+TIMED_LAUNCHES_LARGE = 10  # training-size shapes (ms each)
 # timed passes a serve leg: 2 keeps the four serve phases' time down
-# (their median is their mean)
+# (their median is their mean); serve_programs' chunked-against-monolithic
+# and stall legs, which compare two prefill paths the pipelined loop does
+# not change, time one pass a server
 TIMED_SERVE_PASSES = 2
+PROGRAMS_TIMED_PASSES = 1
+# injected card OOMs, call numbers a method: serve (b)'s decode launches
+# and serve_features (c)'s first chunk and second verify launch
+DECODE_OOM_AT = {"decode_sampled": (2, 3)}
+OOM_AT = {"chunk_prefill_sampled": (1,), "verify_sampled": (2,)}
 # the server's default layers that serve, serve_q8 and serve_programs
 # turn off, so their launch and step checks read the paths they did
 LAYERS_OFF = dict(enable_prefix_cache=False, enable_speculation=False,
@@ -2337,6 +2367,13 @@ def _serve_once(server, prompts, max_new, sampling=None):
                              f"({st['prefills']} prefills, "
                              f"{st['prefill_chunks']} chunks, "
                              f"{st['decode_steps']} decode steps)")
+    pipe = st["pipeline"]
+    if pipe["pending"] or pipe["retired_behind"] != pipe["launches"] \
+            or pipe["launches"] != (st["decode_steps"] + st["verify_steps"]
+                                    if server.pipelining else 0):
+        raise AssertionError(f"pipeline {pipe} against "
+                             f"{st['decode_steps']} decode and "
+                             f"{st['verify_steps']} verify steps")
     server.scheduler.audit()
     if server.engine.allocator.num_free != \
             server.engine.cache_cfg.num_blocks - 1:
@@ -2346,6 +2383,73 @@ def _serve_once(server, prompts, max_new, sampling=None):
         if len(o) != max_new or not all(0 <= t < vocab for t in o):
             raise AssertionError(f"malformed completion: {o}")
     return outs, wall, counts, st
+
+
+def _alternate(servers, i):
+    """``servers``' items, reversed on odd passes: two loops timed in
+    turns run A B, B A, ..., so neither always goes first."""
+    items = list(servers.items())
+    return items[::-1] if i % 2 else items
+
+
+def _pipeline_fields(st):
+    """The dispatch-ahead window's and the breaker's readings of one
+    pass's ``stats()``."""
+    pipe = st["pipeline"]
+    return {"pipelined": pipe["enabled"], "launches_ahead": pipe["launches"],
+            "host_stall_ms": pipe["host_stall_ms"],
+            "host_plan_ms": pipe["host_plan_ms"],
+            "breaker_state": st["breaker_state"],
+            "oom_events": st["oom_events"]}
+
+
+def _sync_checked_launches(server, tally):
+    """Run each of ``server``'s pipelined decode and verify launches
+    under ``torch.cuda.set_sync_debug_mode("error")``: a launch that
+    waits on the card (a blocking copy, a ``.cpu()``, a size read off a
+    device tensor) raises.  The retire is left to wait.  Counts the
+    checked launches in ``tally`` by kind and sampling
+    (``decode_greedy``, ``verify_stochastic``, ...)."""
+    import torch
+
+    def wrap(kind, launch):
+        def checked(running, *args):
+            klass = ("greedy" if all(r.sampling.is_greedy for r in running)
+                     else "stochastic")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                launched = launch(running, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            key = f"{kind}_{klass}"
+            tally[key] = tally.get(key, 0) + 1
+            return launched
+        return checked
+
+    server._launch_decode = wrap("decode", server._launch_decode)
+    server._launch_verify = wrap("verify", server._launch_verify)
+
+
+def _inject_ooms(engine, at):
+    """Make each engine method named in ``at`` raise
+    ``torch.OutOfMemoryError`` on the listed call numbers, before the
+    engine runs (so nothing is launched or counted for it); returns the
+    calls seen, by method."""
+    import torch
+    seen = {}
+
+    def flaky(name, method):
+        def call(*args, **kw):
+            seen[name] = seen.get(name, 0) + 1
+            if seen[name] in at[name]:
+                raise torch.OutOfMemoryError(
+                    f"injected at {name} call {seen[name]}")
+            return method(*args, **kw)
+        return call
+
+    for name in at:
+        setattr(engine, name, flaky(name, getattr(engine, name)))
+    return seen
 
 
 def _plain_layer_norm(mod, x):
@@ -2428,10 +2532,32 @@ def _build_serve_model():
             "oracle": _plain_oracle(model), "prompts": _make_prompts(cfg)}
 
 
+P_PREDICTION = {
+    "tokens": "the pipelined and synchronous loops give the same tokens "
+              "and launches on the fp32, bf16 and int8 pools, greedy and "
+              "stochastic; the fp32 passes equal the greedy full recompute "
+              "but at top-2 gaps < 1e-3",
+    "sync_debug": "no decode or verify launch waits on the card",
+    "oom": "the injected OOMs retry bit for bit, launches exact",
+    "tokens_per_s": "pipelined within 0.95-1.08x synchronous on the bf16 "
+                    "and int8 pools, inside the host's pass-to-pass "
+                    "spread: the window hides only the device tail after "
+                    "a step's last launch, and the engine's copies no "
+                    "longer block in either loop",
+    "idle_share": "0.75-0.9 in both loops (the synchronous loop's earlier "
+                  "profiles: 0.81 bf16, 0.89 int8)",
+    "host_stall_ms": "p50 under 0.1: the card has finished a step before "
+                     "the host comes to retire it",
+    "host_plan_ms": "p50 10-20, the whole host step: the path is "
+                    "host-bound",
+}
+
+
 def phase_serve():
     import torch
     from apex_tpu_torch.serving import InferenceServer
 
+    emit("serve", prediction=P_PREDICTION)
     shared = _serve_model()
     cfg, params, oracle, prompts = (shared[k] for k in (
         "cfg", "params", "oracle", "prompts"))
@@ -2441,44 +2567,98 @@ def phase_serve():
                   **LAYERS_OFF)
     results = {}
 
-    # (a) fp32 cache against greedy full recompute
+    # (a) fp32 cache against greedy full recompute: the pipelined loop,
+    # its decode launches under sync-debug "error", then the synchronous
+    # loop, whose tokens and launches must be the same
     server = InferenceServer(cfg, params, cache_dtype=torch.float32, **common)
+    checked = {}
+    _sync_checked_launches(server, checked)
     outs_a, wall, counts, st = _serve_once(server, prompts, max_new)
     compared, near_ties = _oracle_check(oracle, prompts, outs_a)
+    sync = InferenceServer(cfg, params, cache_dtype=torch.float32,
+                           enable_pipeline=False, **common)
+    outs_s, wall_s, counts_s, st_s = _serve_once(sync, prompts, max_new)
+    if outs_s != outs_a or counts_s != counts \
+            or not checked.get("decode_greedy"):
+        raise AssertionError(f"serve (a): synchronous tokens equal "
+                             f"{outs_s == outs_a}, launches {counts_s} "
+                             f"against {counts}, sync-checked {checked}")
     results["fp32"] = {"wall_s": wall, "tokens_per_s": st["tokens_generated"]
                        / wall, "launches": counts, "stats": st,
                        "oracle_tokens_compared": compared,
-                       "near_ties": near_ties}
+                       "near_ties": near_ties, "sync_checked": checked,
+                       "synchronous": {"wall_s": wall_s, "stats": st_s}}
     emit("serve", cache="float32", tokens=st["tokens_generated"],
-         wall_s=round(wall, 4), prefills=st["prefills"],
-         decode_steps=st["decode_steps"], launches=counts,
-         oracle_tokens_compared=compared, near_ties=near_ties,
-         preemptions=st["preemptions"])
-    del server
+         wall_s=round(wall, 4), wall_s_synchronous=round(wall_s, 4),
+         prefills=st["prefills"], decode_steps=st["decode_steps"],
+         launches=counts, oracle_tokens_compared=compared,
+         near_ties=near_ties, preemptions=st["preemptions"],
+         synchronous_tokens_equal=True, sync_checked_launches=checked,
+         **_pipeline_fields(st))
+    del server, sync
 
-    # (b) the default bf16 cache, timed after one warm-up pass; the wall
-    # is host-bound and the host's CPU is shared, so several passes
-    server = InferenceServer(cfg, params, **common)
-    server.generate(prompts[:2], max_new_tokens=2)
-    passes = []
-    for _ in range(TIMED_SERVE_PASSES):
-        server.engine.reset_cache()
-        outs_b, wall, counts, st = _serve_once(server, prompts, max_new)
-        passes.append(st["tokens_generated"] / wall)
-    tokens_per_s = statistics.median(passes)
+    # (b) the default bf16 cache, timed: pipelined and synchronous passes
+    # in turns after one warm-up each (the wall is host-bound and the
+    # host's CPU is shared), then one pass of each under the profiler
+    servers = {"pipelined": InferenceServer(cfg, params, **common),
+               "synchronous": InferenceServer(cfg, params,
+                                              enable_pipeline=False,
+                                              **common)}
+    for srv in servers.values():
+        srv.generate(prompts[:2], max_new_tokens=2)
+    passes = {name: [] for name in servers}
+    outs, stats, launches = {}, {}, {}
+    for i in range(TIMED_SERVE_PASSES):
+        for name, srv in _alternate(servers, i):
+            srv.engine.reset_cache()
+            outs[name], wall, launches[name], stats[name] = _serve_once(
+                srv, prompts, max_new)
+            passes[name].append(stats[name]["tokens_generated"] / wall)
+    if outs["synchronous"] != outs["pipelined"] \
+            or launches["synchronous"] != launches["pipelined"]:
+        raise AssertionError("serve (b): the synchronous loop's tokens or "
+                             "launches differ from the pipelined loop's")
+    outs_b, counts, st = outs["pipelined"], launches["pipelined"], \
+        stats["pipelined"]
     agree = sum(a == b for oa, ob in zip(outs_a, outs_b)
                 for a, b in zip(oa, ob)) / (len(prompts) * max_new)
-    results["bf16"] = {"tokens_per_s": tokens_per_s,
-                       "tokens_per_s_passes": passes, "launches": counts,
-                       "stats": st, "token_agreement_with_fp32": agree}
-    emit("serve", cache="bfloat16", tokens=st["tokens_generated"],
-         tokens_per_s=tokens_per_s, tokens_per_s_passes=passes,
-         batch_occupancy_avg=st["batch_occupancy_avg"],
-         queue_depth_peak=st["queue_depth_peak"],
-         preemptions=st["preemptions"], prefills=st["prefills"],
-         decode_steps=st["decode_steps"], launches=counts,
-         token_agreement_with_fp32=round(agree, 4))
-    results["profile"] = _profile_serve(server, prompts, max_new)
+    results["bf16"] = {"token_agreement_with_fp32": agree}
+    for name, srv in servers.items():
+        tokens_per_s = statistics.median(passes[name])
+        profile = _profile_serve(srv, prompts, max_new,
+                                 label=f"serve_{name}")
+        results["bf16"][name] = {
+            "tokens_per_s": tokens_per_s, "tokens_per_s_passes":
+            passes[name], "launches": launches[name], "stats":
+            stats[name], "profile": profile}
+        emit("serve", cache="bfloat16", loop=name,
+             tokens=stats[name]["tokens_generated"],
+             tokens_per_s=tokens_per_s, tokens_per_s_passes=passes[name],
+             device_idle_share=profile.get("device_idle_share"),
+             batch_occupancy_avg=stats[name]["batch_occupancy_avg"],
+             queue_depth_peak=stats[name]["queue_depth_peak"],
+             preemptions=stats[name]["preemptions"],
+             prefills=stats[name]["prefills"],
+             decode_steps=stats[name]["decode_steps"],
+             launches=launches[name],
+             token_agreement_with_fp32=round(agree, 4),
+             **_pipeline_fields(stats[name]))
+    # (c) card OOMs injected at two decode launches of the pipelined
+    # server: the same tokens, the OOMs counted, the launches exact
+    flaky = servers["pipelined"]
+    seen = _inject_ooms(flaky.engine, DECODE_OOM_AT)
+    flaky.engine.reset_cache()
+    outs_c, _, counts_c, st_c = _serve_once(flaky, prompts, max_new)
+    want_ooms = sum(map(len, DECODE_OOM_AT.values()))
+    if outs_c != outs_b or st_c["oom_events"] != want_ooms \
+            or st_c["breaker_state"] != "closed":
+        raise AssertionError(f"serve (c): tokens equal {outs_c == outs_b}, "
+                             f"oom_events {st_c['oom_events']}, calls "
+                             f"{seen}, breaker {st_c['breaker_state']}")
+    results["oom"] = {"calls": seen, "launches": counts_c, "stats": st_c}
+    emit("serve", cache="bfloat16", run="decode_oom", tokens_equal=True,
+         calls=seen, decode_steps=st_c["decode_steps"], launches=counts_c,
+         **_pipeline_fields(st_c))
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "serve.json").write_text(json.dumps(results, indent=1,
                                                    default=str))
@@ -2499,7 +2679,8 @@ def _serve_emit(label, st, wall, counts, **fields):
     emit("serve_q8", run=label, tokens=st["tokens_generated"],
          wall_s=round(wall, 4), tokens_per_s=st["tokens_generated"] / wall,
          prefills=st["prefills"], decode_steps=st["decode_steps"],
-         preemptions=st["preemptions"], launches=counts, **fields)
+         preemptions=st["preemptions"], launches=counts,
+         **_pipeline_fields(st), **fields)
 
 
 def phase_serve_q8():
@@ -2533,25 +2714,47 @@ def phase_serve_q8():
     _serve_emit("oracle", st, wall, counts, memory=mem,
                 oracle_tokens_compared=compared, near_ties=near_ties)
 
-    # (b) the same server, timed after a warm-up pass, then profiled
-    server.generate(prompts[:2], max_new_tokens=2)
-    passes = []
-    for _ in range(TIMED_SERVE_PASSES):
-        server.engine.reset_cache()
-        outs_b, wall, counts, st = _serve_once(server, prompts, max_new)
-        passes.append(st["tokens_generated"] / wall)
-    results["timed"] = {"tokens_per_s": statistics.median(passes),
-                        "tokens_per_s_passes": passes, "launches": counts,
-                        "stats": st, "same_tokens_as_a": outs_b == outs_a}
-    _serve_emit("timed", st, wall, counts,
-                tokens_per_s_median=statistics.median(passes),
-                tokens_per_s_passes=passes,
-                batch_occupancy_avg=st["batch_occupancy_avg"],
-                same_tokens_as_a=outs_b == outs_a)
-    timed_counts = counts
-    results["profile"] = _profile_serve(server, prompts, max_new,
-                                        label="serve_q8")
-    del server
+    # (b) the same server and its synchronous twin, timed in turns after
+    # a warm-up pass each, then each profiled; the synchronous loop's
+    # tokens and launches are the pipelined loop's
+    servers = {"pipelined": server,
+               "synchronous": InferenceServer(
+                   cfg, params, device="cuda", max_batch_size=8,
+                   block_size=16, cache_dtype=torch.float32,
+                   kv_quant="int8", enable_chunked_prefill=False,
+                   enable_pipeline=False, **LAYERS_OFF)}
+    for srv in servers.values():
+        srv.generate(prompts[:2], max_new_tokens=2)
+    passes = {name: [] for name in servers}
+    outs, stats, launches, walls = {}, {}, {}, {}
+    for i in range(TIMED_SERVE_PASSES):
+        for name, srv in _alternate(servers, i):
+            srv.engine.reset_cache()
+            outs[name], walls[name], launches[name], stats[name] = \
+                _serve_once(srv, prompts, max_new)
+            passes[name].append(stats[name]["tokens_generated"]
+                                / walls[name])
+    if outs["synchronous"] != outs_a or outs["pipelined"] != outs_a \
+            or launches["synchronous"] != launches["pipelined"]:
+        raise AssertionError("serve_q8 (b): the timed passes' tokens or "
+                             "launches differ from (a)'s")
+    timed_counts = launches["pipelined"]
+    for name, srv in servers.items():
+        profile = _profile_serve(srv, prompts, max_new,
+                                 label=f"serve_q8_{name}")
+        results[f"timed_{name}"] = {
+            "tokens_per_s": statistics.median(passes[name]),
+            "tokens_per_s_passes": passes[name],
+            "launches": launches[name], "stats": stats[name],
+            "same_tokens_as_a": True, "profile": profile}
+        _serve_emit(f"timed_{name}", stats[name], walls[name],
+                    launches[name],
+                    tokens_per_s_median=statistics.median(passes[name]),
+                    tokens_per_s_passes=passes[name],
+                    device_idle_share=profile.get("device_idle_share"),
+                    batch_occupancy_avg=stats[name]["batch_occupancy_avg"],
+                    same_tokens_as_a=True)
+    del server, servers
 
     # (c) equal pool bytes: bf16 blocks against int8 blocks
     geometry = dict(num_layers=cfg.num_hidden_layers,
@@ -2729,7 +2932,7 @@ def _chunked_against_monolithic(shared, max_new):
     for srv in servers.values():
         srv.generate(prompts[:2], max_new_tokens=2)
     rates = {name: [] for name in servers}
-    for _ in range(TIMED_SERVE_PASSES):
+    for _ in range(PROGRAMS_TIMED_PASSES):
         for name, srv in servers.items():
             srv.engine.reset_cache()
             _, wall, _, st = _serve_once(srv, prompts, max_new)
@@ -2884,10 +3087,11 @@ def _programs_engine(shared, quant):
 
 
 def _programs_sampling(shared, max_new):
-    """(d) mixed sampling classes on the bf16 pool: replay, the greedy
-    rows against a greedy-only pass and a starved pool, each bit for bit;
-    the card's keys, uniform bits and noise against the CPU's; the replay
-    once more under the profiler."""
+    """(d) mixed sampling classes on the bf16 pool: the pipelined loop
+    (its launches under sync-debug "error") against the synchronous
+    loop, the greedy rows against a greedy-only pass and a starved pool,
+    each bit for bit; the card's keys, uniform bits and noise against
+    the CPU's; the pipelined pass once more under the profiler."""
     import torch
     from apex_tpu_torch.ops import sampling, threefry
     from apex_tpu_torch.serving import SamplingParams
@@ -2897,11 +3101,16 @@ def _programs_sampling(shared, max_new):
                             itertools.cycle(SAMPLING_CLASSES))]
     server = _programs_server(shared, "off", torch.bfloat16,
                               prefill_chunk=PROGRAMS_CHUNK)
+    sync = _programs_server(shared, "off", torch.bfloat16,
+                            prefill_chunk=PROGRAMS_CHUNK,
+                            enable_pipeline=False)
+    checked = {}
+    _sync_checked_launches(server, checked)
     runs = {}
-    for run in ("first", "replay"):
-        server.engine.reset_cache()
-        runs[run] = _serve_once(server, prompts, max_new, sampling=samp)
-    outs, _, counts, st = runs["first"]
+    for run, srv in (("pipelined", server), ("synchronous", sync)):
+        runs[run] = _serve_once(srv, prompts, max_new, sampling=samp)
+    del sync
+    outs, _, counts, st = runs["pipelined"]
     server.engine.reset_cache()
     greedy = _serve_once(server, prompts, max_new)[0]
     starved = _programs_server(shared, "off", torch.bfloat16,
@@ -2914,7 +3123,10 @@ def _programs_sampling(shared, max_new):
         k = "greedy" if s is None else s.klass
         classes[k] = classes.get(k, 0) + 1
     checks = {
-        "replay": runs["replay"][0] == outs,
+        "synchronous": runs["synchronous"][0] == outs
+        and runs["synchronous"][2] == counts,
+        "sync_checked_stochastic_decode":
+            checked.get("decode_stochastic", 0) > 0,
         "greedy_rows": all(o == g for o, g, s in zip(outs, greedy, samp)
                            if s is None),
         "stochastic_rows_differ": any(o != g for o, g, s in
@@ -2945,7 +3157,8 @@ def _programs_sampling(shared, max_new):
     rates = {run: r[3]["tokens_generated"] / r[1] for run, r in runs.items()}
     emit("serve_programs", leg="d", launches=counts,
          preemptions_starved=starved_st["preemptions"],
-         noise_ulps=ulps, classes=classes, tokens_per_s=rates, **checks)
+         noise_ulps=ulps, classes=classes, tokens_per_s=rates,
+         sync_checked_launches=checked, **checks)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"serve_programs (d) failed: {failed}")
@@ -2953,6 +3166,7 @@ def _programs_sampling(shared, max_new):
     profile = _profile("serve_programs_stochastic", lambda: server.generate(
         prompts, max_new_tokens=max_new, sampling=samp))
     return counts, {"checks": checks, "noise_ulps": ulps,
+                    "sync_checked": checked,
                     "launches": counts, "stats": st, "tokens_per_s": rates,
                     "starved_stats": starved_st, "profile": profile}
 
@@ -3022,7 +3236,7 @@ def _programs_stall(shared):
     for srv in servers.values():
         srv.generate([shorts[0], long_prompt[:300]], max_new_tokens=2)
     passes = {name: [] for name in servers}
-    for _ in range(TIMED_SERVE_PASSES):
+    for _ in range(PROGRAMS_TIMED_PASSES):
         for name, srv in servers.items():
             gaps, ttft, st, counts = _stall_pass(srv, shorts, long_prompt)
             passes[name].append({
@@ -3337,10 +3551,15 @@ def _features_shared_prefix(shared, traffic):
 def _features_speculation(shared, snippets):
     """(c) repeated snippets, greedy on the fp32 pool against the oracle
     with drafts accepted; then the stochastic classes twice from a reset
-    pool, bit for bit, the rejection counters read."""
+    pool, bit for bit, the rejection counters read; every decode and
+    verify launch under sync-debug "error".  Then the greedy pass again
+    with card OOMs injected (``OOM_AT``): the same tokens, the OOMs
+    counted, the launches exact."""
     import torch
     from apex_tpu_torch.serving import SamplingParams
     server = _features_server(shared, torch.float32)
+    checked = {}
+    _sync_checked_launches(server, checked)
     reqs, wall, counts, st = _features_pass(server, [], snippets,
                                             FEATURES_NEW)
     compared, near = _oracle_check(shared["oracle"], snippets,
@@ -3352,9 +3571,11 @@ def _features_speculation(shared, snippets):
                       "oracle_tokens_compared": compared, "near_ties": near,
                       "drafted_per_step": spec["drafted_per_step"],
                       "accepted_per_step": spec["accepted_per_step"],
-                      "launches": counts}}
+                      "launches": counts},
+           "greedy_tokens": [r.generated for r in reqs]}
     emit("serve_features", leg="c", sampling="greedy",
-         **{k: v for k, v in out["greedy"].items()})
+         **{k: v for k, v in out["greedy"].items()},
+         **_pipeline_fields(st))
     samp = [SamplingParams(seed=2000 + i, **c) for i, c in zip(
         range(len(snippets)), itertools.cycle(FEATURES_STOCH))]
     runs = []
@@ -3373,6 +3594,29 @@ def _features_speculation(shared, snippets):
                          **_features_summary(runs[0][1])}
     emit("serve_features", leg="c", sampling="stochastic",
          **out["stochastic"])
+    if not checked.get("verify_greedy") or not checked.get(
+            "verify_stochastic"):
+        raise AssertionError(f"serve_features (c): sync-checked launches "
+                             f"{checked}")
+    out["sync_checked"] = checked
+
+    flaky = _features_server(shared, torch.float32)
+    seen = _inject_ooms(flaky.engine, OOM_AT)
+    reqs, wall, oom_counts, st = _features_pass(flaky, [], snippets,
+                                                FEATURES_NEW)
+    same = [r.generated for r in reqs] == out["greedy_tokens"]
+    if not same or st["oom_events"] != sum(map(len, OOM_AT.values())) \
+            or any(seen.get(name, 0) <= max(calls)
+                   for name, calls in OOM_AT.items()) \
+            or st["breaker_state"] != "closed":
+        raise AssertionError(f"serve_features (c) OOM: tokens equal {same}, "
+                             f"oom_events {st['oom_events']}, calls {seen}, "
+                             f"breaker {st['breaker_state']}")
+    out["oom"] = {"tokens_equal": True, "oom_events": st["oom_events"],
+                  "calls": seen, "launches": oom_counts,
+                  **_features_summary(st)}
+    emit("serve_features", leg="c", run="oom", sync_checked_launches=checked,
+         **out["oom"])
     return out, counts
 
 
@@ -3532,7 +3776,10 @@ def _kernel_class(name):
 def _profile(label, run, **fields):
     """``run()`` once under ``torch.profiler``: device time by kernel
     class and the device's idle share of the run's wall time.  Reports
-    ``"not measured"`` when the profiler records no device events."""
+    ``"not measured"`` when the profiler records no device events.  The
+    device events are read off the raw Kineto results: building the
+    profiler's Python event list costs ~9 s for a serve pass's ~90,000
+    events, and only (start, end, name) is needed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3541,24 +3788,26 @@ def _profile(label, run, **fields):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda)
     if not kernels:
         emit("profile", run=label, device_time="not measured")
         return {"device_time": "not measured"}
-    by_class, by_name, busy_us, end_us = {}, {}, 0.0, None
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        start, end = e.time_range.start, e.time_range.end
+    by_name, busy_us, end_us = {}, 0.0, None
+    for start, end, name in kernels:
         if end_us is None or start >= end_us:
             busy_us += end - start
             end_us = end
         elif end > end_us:
             busy_us += end - end_us
             end_us = end
-        dur = end - start
-        cls = _kernel_class(e.name)
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    by_class = {}
+    for name, dur in by_name.items():
+        cls = _kernel_class(name)
         by_class[cls] = by_class.get(cls, 0.0) + dur
-        by_name[e.name] = by_name.get(e.name, 0.0) + dur
     total = sum(by_class.values())
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us,

@@ -47,8 +47,7 @@ TINY = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
             attention_probs_dropout_prob=0.0)
 
 SLICE_FLAGS = dict(enable_prefix_cache=False, enable_speculation=False,
-                   enable_pipeline=False, enable_overload=False,
-                   enable_breaker=False, enable_streaming=False,
+                   enable_overload=False, enable_streaming=False,
                    enable_program_accounting=False, mesh=None)
 
 CHUNK = 8
@@ -139,7 +138,11 @@ def test_chunked_generate_matches_jax_server(tiny, quant, geometry):
 
 
 def test_chunks_interleave_with_decode(tiny):
-    srv = _server(tiny, max_batch_size=2, block_size=16)
+    # the synchronous loop, as the reference's twin runs it: under the
+    # pipeline a token retires one step after its launch, which breaks
+    # the per-step "+1 token" probe
+    srv = _server(tiny, max_batch_size=2, block_size=16,
+                  enable_pipeline=False)
     short = srv.submit([1, 2, 3], 40)
     for _ in range(3):
         srv.step()

@@ -3,8 +3,9 @@
 Weights come from the JAX package's own init and cross over through
 ``params_from_jax``; the JAX side is the reference serving stack with
 the slice's flags (no prefix cache, chunked prefill, speculation,
-pipeline, overload, breaker, streaming or program accounting; flash
-prefill), run through its normal entry points.  The tiny configuration is
+overload, streaming or program accounting; flash prefill; the pipelined
+loop and the breaker on, as in both packages' defaults), run through its
+normal entry points.  The tiny configuration is
 ``examples/serving/serve_gpt.py``'s; the preemption case is
 ``tests/L0/test_serving_engine.py::test_preemption_is_bit_stable``'s.
 Scale-aware error max|a-b| / (max|b| + 1) <= 1e-4 for fp32 logits; token
@@ -37,8 +38,7 @@ TINY = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
             attention_probs_dropout_prob=0.0)
 
 SLICE_FLAGS = dict(enable_prefix_cache=False, enable_chunked_prefill=False,
-                   enable_speculation=False, enable_pipeline=False,
-                   enable_overload=False, enable_breaker=False,
+                   enable_speculation=False, enable_overload=False,
                    enable_streaming=False, enable_program_accounting=False,
                    kv_quant=None, mesh=None)
 

@@ -74,7 +74,8 @@ def test_every_module_imports_with_jax_blocked():
                   "models.mlp", "examples.simple_main_amp",
                   "ops.unpatched", "utils.checkpoint",
                   "utils.torch_interop", "models.dcgan",
-                  "examples.dcgan_main_amp"):
+                  "examples.dcgan_main_amp", "resilience",
+                  "resilience.breaker"):
             assert "apex_tpu_torch." + m in mods, m
         leaked = [m for m in sys.modules
                   if m == "apex_tpu" or m.startswith("apex_tpu.")]

@@ -59,8 +59,7 @@ TINY = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
             attention_probs_dropout_prob=0.0)
 
 SLICE_FLAGS = dict(enable_prefix_cache=False, enable_chunked_prefill=False,
-                   enable_speculation=False, enable_pipeline=False,
-                   enable_overload=False, enable_breaker=False,
+                   enable_speculation=False, enable_overload=False,
                    enable_streaming=False, enable_program_accounting=False,
                    mesh=None)
 # the port's twins of the layers SLICE_FLAGS turns off, which its server

@@ -9,9 +9,9 @@ vocabulary against apex_tpu's.
   and in wall seconds on an injected clock, for running, waiting and
   preempted requests).  Where a server is involved the JAX server runs
   the same traffic with the reference's default layers (prefix cache,
-  speculation where the reference keeps it, overload control) and the
-  rest of the slice's flags off (no pipeline, breaker, streaming or
-  program accounting); tokens, finish reasons, the failure counts and
+  speculation where the reference keeps it, overload control, the
+  pipelined loop and the breaker) and the rest of the slice's flags off
+  (no streaming or program accounting); tokens, finish reasons, the failure counts and
   the pressure readings are equal.  The raw-scheduler cases run the
   same calls on the JAX ``Scheduler``.
 - ``cancel`` of a running and a waiting request, and a drain that is
@@ -57,8 +57,7 @@ TINY = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
             max_position_embeddings=128, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0)
 
-JAX_FLAGS = dict(enable_pipeline=False, enable_breaker=False,
-                 enable_streaming=False, enable_program_accounting=False,
+JAX_FLAGS = dict(enable_streaming=False, enable_program_accounting=False,
                  mesh=None)
 
 

@@ -28,6 +28,10 @@ default device, each against the JAX object.
   the server's ``enable_chunked_prefill``/``prefill_chunk`` defaults,
   ``submit``/``generate``'s ``sampling``, the scheduler's ``chunk_size``
   and sampling packers, each beside the JAX object;
+- the pipelined loop's and the breaker's names: ``resilience`` exports
+  ``CircuitBreaker`` as the JAX package does, the server's
+  ``enable_pipeline``, ``enable_breaker``, ``breaker`` and ``sample_fn``
+  defaults are the JAX server's, and ``serving`` exports none of them;
 - ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
   on the card unless asked for the CPU, as ``jax.random`` draws on the
   default device: without CUDA the default raises, and ``device="cpu"``
@@ -304,3 +308,33 @@ def test_serving_programs_and_sampling_names_match_jax():
             hasattr(jserving.Scheduler, name), name
     fields = {f.name for f in dataclasses.fields(serving.Request)}
     assert {"sampling", "prefill_ctx", "prefill_sample"} <= fields
+
+
+def test_pipeline_and_breaker_names_match_jax():
+    import inspect
+
+    import apex_tpu_torch
+    from apex_tpu import resilience as jresilience
+    from apex_tpu import serving as jserving
+    from apex_tpu_torch import resilience, serving
+
+    assert resilience.__all__ == ["CircuitBreaker"]
+    assert "CircuitBreaker" in jresilience.__all__
+    assert "resilience" in apex_tpu_torch.__all__
+    assert apex_tpu_torch.resilience is resilience
+    for name in ("CircuitBreaker", "OOM_ERRORS"):
+        assert name not in serving.__all__ and name not in jserving.__all__
+    want = inspect.signature(jserving.InferenceServer).parameters
+    got = inspect.signature(serving.InferenceServer).parameters
+    for name in ("enable_pipeline", "enable_breaker", "breaker",
+                 "sample_fn"):
+        assert got[name].default == want[name].default, name
+    assert got["enable_pipeline"].default is True
+    assert got["enable_breaker"].default is True
+    for name in ("hold_inflight", "release_inflight"):
+        assert hasattr(serving.Scheduler, name) and \
+            hasattr(jserving.Scheduler, name), name
+    want = inspect.signature(jresilience.CircuitBreaker).parameters
+    got = inspect.signature(resilience.CircuitBreaker).parameters
+    assert {k: v.default for k, v in got.items()} == \
+        {k: v.default for k, v in want.items()}

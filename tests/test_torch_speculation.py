@@ -5,9 +5,10 @@ lookahead) against apex_tpu's.
   histories drawn from a seed and on the reference's unit cases
   (``tests/L0/test_speculative.py:302-320``).
 - Greedy parity: the port's server with speculation on (its default)
-  against the JAX server with ``enable_speculation=True`` and the rest
-  of the slice's flags off (no prefix cache, pipeline, overload,
-  breaker, streaming or program accounting): tokens, drafted and
+  against the JAX server with ``enable_speculation=True``, the pipelined
+  loop and the breaker on (both packages' defaults) and the rest of the
+  slice's flags off (no prefix cache, overload, streaming or program
+  accounting): tokens, drafted and
   accepted tokens, verify and decode steps, and lookahead blocks
   granted and rolled back are all equal; chunked and unchunked, with a
   pool that preempts.
@@ -46,8 +47,7 @@ TINY = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
             attention_probs_dropout_prob=0.0)
 
 JAX_FLAGS = dict(enable_prefix_cache=False, enable_speculation=True,
-                 enable_pipeline=False, enable_overload=False,
-                 enable_breaker=False, enable_streaming=False,
+                 enable_overload=False, enable_streaming=False,
                  enable_program_accounting=False, mesh=None)
 NEAR_TIE = 1e-4
 
@@ -218,7 +218,10 @@ def test_lookahead_rolls_back_after_every_step(tiny):
             if not r.prefilling:
                 assert len(r.block_table) <= r.num_cached // bs + 1
 
-    server = _server(tiny, block_size=4)
+    # the synchronous loop, as the reference's twin runs it: the
+    # pipelined loop holds the launched window's lookahead until its
+    # retire (its bound: tests/test_torch_serving_pipeline.py)
+    server = _server(tiny, block_size=4, enable_pipeline=False)
     out = _drive(server, [[3, 1, 4, 1, 5], [2, 7, 1, 8]], 32,
                  after_step=no_lookahead_kept)
     assert all(len(o) == 32 for o in out)
