@@ -14,14 +14,17 @@ continuous batching.
 - :mod:`serving.speculation` — draft proposers (:class:`NgramDraft`);
 - :mod:`serving.overload` — the shed / displace / preempt policy;
 - :mod:`serving.reasons` — the finish-reason vocabulary;
+- :mod:`serving.streaming` — per-token delivery (:class:`StreamBroker`,
+  :class:`TokenStream`);
 - :mod:`serving.scheduler` / :mod:`serving.api` — iteration-level
   continuous batching with chunked prefill, prefix sharing, speculative
   lookahead, overload shedding, priority-aware preemption and the
   in-flight hold, and the :class:`InferenceServer` front door
-  (``SamplingParams``, priority and deadlines a request; drain, cancel
-  and close): a pipelined (dispatch-ahead) loop by default, the
-  circuit breaker (:mod:`apex_tpu_torch.resilience`) and the
-  transient-OOM retry.
+  (``SamplingParams``, priority and deadlines a request; drain, cancel,
+  close and ``stream``): a pipelined (dispatch-ahead) loop by default,
+  the circuit breaker (:mod:`apex_tpu_torch.resilience`), the
+  transient-OOM retry, and disaggregated prefill/decode on one host
+  (``enable_disagg``: a prefill pool on a CUDA stream of its own).
 """
 
 from apex_tpu_torch.ops.sampling import SamplingParams

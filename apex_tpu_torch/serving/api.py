@@ -3,10 +3,11 @@
 Twin of ``apex_tpu/serving/api.py::InferenceServer`` with the reference's
 default serving layers — the pipelined (dispatch-ahead) loop, the
 circuit breaker and the transient-OOM retry, the prefix cache with
-copy-on-write, n-gram speculative decoding, overload control, deadlines
-and the drain/cancel/close lifecycle — and without streaming, KV
-offload, disaggregation, program accounting, a metrics registry or a
-mesh.
+copy-on-write, n-gram speculative decoding, overload control, deadlines,
+the drain/cancel/close lifecycle and per-token streaming — and its
+disaggregated prefill/decode on one host (off by default, as there);
+without KV offload, the cross-replica hand-off, program accounting, a
+metrics registry or a mesh.
 
 Each :meth:`step` first RETIRES the previous iteration's launched decode
 or verify step (waits on its CUDA event and applies its token ids and
@@ -23,6 +24,30 @@ in pinned memory, and the step's ids and finite flags come back by a
 host decision therefore sees the state the synchronous loop would see,
 and the tokens are the same; ``submit`` and ``cancel`` retire the window
 first.  ``enable_pipeline=False`` runs the same steps synchronously.
+
+**Disaggregated prefill/decode** (``enable_disagg=True``): a second
+engine with its own pool (``disagg_prefill_blocks``) and its own
+scheduler (``prefill_max_concurrent`` slots) runs every prefill on a
+CUDA stream of its own, and the main engine becomes a pure decode pool
+on the current stream — the two pools share no tensor, so their device
+work does not serialize.  A step retires and launches the decode pool's
+step first, then the prefill pool's chunks, which run under it.  A
+finished prefill's first token and blocks move at the start of the next
+step: its token is read, its blocks are copied into the decode pool
+(``DecodeEngine.copy_blocks_from``) and the request joins the decode
+batch at its carried position.  Two orderings cross the streams: the
+copy waits (on the device) for an event the prefill stream records
+after the request's last chunk, and the prefill stream's next launch
+waits for an event the decode stream records after the copy, since the
+released prefill blocks may be rewritten at once.  The prefill pool
+holds the prefix cache, so released blocks stay warm there.  A hand-off
+that finds no decode slot or blocks, or whose copy OOMs (torn or not),
+stays queued with its blocks and retries whole next step.
+
+**Streaming** (``enable_streaming=True``, the default):
+:meth:`InferenceServer.stream` gives a request's tokens as they retire
+(:class:`serving.streaming.StreamBroker`): each applied token is
+published, and each finished request's terminal reason.
 
 Sampling happens on the device (the engine's ``*_sampled`` steps):
 greedy, or a request's :class:`ops.SamplingParams` counter-keyed by its
@@ -44,7 +69,8 @@ from __future__ import annotations
 import os
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -61,6 +87,7 @@ from apex_tpu_torch.serving.overload import AdmissionEstimator, \
 from apex_tpu_torch.serving.prefix_cache import PrefixCache
 from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
 from apex_tpu_torch.serving.speculation import DraftSource, NgramDraft
+from apex_tpu_torch.serving.streaming import StreamBroker, TokenStream
 from apex_tpu_torch.utils.meters import CounterMeter
 
 # the reference's default prefill chunk, capped at max_context
@@ -159,6 +186,22 @@ class _InflightStep:
         self.lengths = lengths
 
 
+class _Handoff:
+    """One finished prefill waiting to move pools (``enable_disagg``):
+    the request; under pipelining the host tensors its last chunk's
+    token id and finite flag are being copied into, read when the
+    hand-off is processed next step; and the event the prefill engine
+    recorded after that chunk (after those copies), which the copy into
+    the decode pool waits on (None on the CPU)."""
+
+    __slots__ = ("req", "handles", "event")
+
+    def __init__(self, req, handles=None, event=None):
+        self.req = req
+        self.handles = handles
+        self.event = event
+
+
 class InferenceServer:
     """Batched GPT inference with a paged KV cache and continuous
     batching.
@@ -213,6 +256,18 @@ class InferenceServer:
         (default on); ``breaker`` a :class:`resilience.CircuitBreaker`
         (default: one on ``clock`` with the reference's thresholds).  A
         breaker without counters reports through ``stats()``.
+      enable_disagg: disaggregated prefill/decode on one host (default
+        off): every prefill runs in a second engine with its own pool of
+        ``disagg_prefill_blocks`` blocks (default room for
+        ``prefill_max_concurrent`` full-context prefills plus the garbage
+        block; fewer than one full context plus the garbage block
+        raises) and ``prefill_max_concurrent`` slots (default 2, at
+        least 1), on a CUDA stream of its own; finished prefills hand
+        their blocks to this engine's pool, which only decodes.
+      enable_streaming: per-token delivery through :meth:`stream`
+        (default on), each stream's queue bounded at
+        ``stream_queue_tokens`` (default 256; a slow consumer's oldest
+        notifications drop and are backfilled from the request).
 
     Example::
 
@@ -243,7 +298,12 @@ class InferenceServer:
                  enable_overload: bool = True,
                  overload_policy: Optional[OverloadPolicy] = None,
                  enable_breaker: bool = True,
-                 breaker: Optional[CircuitBreaker] = None):
+                 breaker: Optional[CircuitBreaker] = None,
+                 enable_disagg: bool = False,
+                 disagg_prefill_blocks: Optional[int] = None,
+                 prefill_max_concurrent: int = 2,
+                 enable_streaming: bool = True,
+                 stream_queue_tokens: int = 256):
         if kv_quant is None:
             kv_quant = os.environ.get(KV_QUANT_ENV)
         self.engine = DecodeEngine(
@@ -251,6 +311,32 @@ class InferenceServer:
             max_context=max_context, num_blocks=num_blocks,
             block_size=block_size, cache_dtype=cache_dtype,
             kv_quant=kv_quant)
+        # the prefill pool: same geometry, dtype and quantization, one
+        # request a prefill, its launches on a stream of its own
+        self.disagg = bool(enable_disagg)
+        self.prefill_engine: Optional[DecodeEngine] = None
+        if self.disagg:
+            if prefill_max_concurrent < 1:
+                raise ValueError(
+                    f"prefill_max_concurrent must be >= 1, got "
+                    f"{prefill_max_concurrent}")
+            bps = self.engine.blocks_per_seq
+            if disagg_prefill_blocks is None:
+                disagg_prefill_blocks = prefill_max_concurrent * bps + 1
+            if disagg_prefill_blocks < bps + 1:
+                raise ValueError(
+                    f"disagg_prefill_blocks={disagg_prefill_blocks} "
+                    f"cannot hold one full-context prefill ({bps} "
+                    f"blocks + garbage)")
+            dev = self.engine.device
+            self.prefill_engine = DecodeEngine(
+                cfg, params, device=dev, max_batch_size=1,
+                max_context=self.engine.max_context,
+                num_blocks=int(disagg_prefill_blocks),
+                block_size=block_size, cache_dtype=cache_dtype,
+                kv_quant=kv_quant,
+                stream=(torch.cuda.Stream(dev) if dev.type == "cuda"
+                        else None))
         self.clock = clock
         self.sample_fn = sample_fn or greedy_sample
         if self.sample_fn is not greedy_sample:
@@ -298,17 +384,38 @@ class InferenceServer:
             if self.overload_policy is not None
             and self.overload_policy.predictive_admission else None)
         self.prefix = CounterMeter()
+        # the prefix cache lives with the pool that runs prefills
         self.prefix_cache = (
-            PrefixCache(self.engine.allocator, self.engine.block_size,
-                        counters=self.prefix)
+            PrefixCache((self.prefill_engine or self.engine).allocator,
+                        self.engine.block_size, counters=self.prefix)
             if enable_prefix_cache else None)
         self.scheduler = Scheduler(
             self.engine.allocator,
             max_batch_size=self.engine.max_batch_size,
             block_size=self.engine.block_size,
             max_context=self.engine.max_context,
-            max_waiting=max_waiting, chunk_size=self.prefill_chunk,
-            prefix_cache=self.prefix_cache, overload=self.overload_policy)
+            max_waiting=None if self.disagg else max_waiting,
+            chunk_size=self.prefill_chunk,
+            prefix_cache=None if self.disagg else self.prefix_cache,
+            overload=self.overload_policy)
+        self.prefill_scheduler: Optional[Scheduler] = None
+        self._handoff: Deque[_Handoff] = deque()
+        if self.disagg:
+            self.prefill_scheduler = Scheduler(
+                self.prefill_engine.allocator,
+                max_batch_size=int(prefill_max_concurrent),
+                block_size=self.engine.block_size,
+                max_context=self.engine.max_context,
+                max_waiting=max_waiting, chunk_size=self.prefill_chunk,
+                prefix_cache=self.prefix_cache,
+                overload=self.overload_policy)
+            # one terminal ledger across the pools: a request finishes
+            # once, wherever it is
+            self.prefill_scheduler.finished = self.scheduler.finished
+            self.prefill_scheduler.failures = self.scheduler.failures
+        self.stream_broker: Optional[StreamBroker] = (
+            StreamBroker(queue_tokens=stream_queue_tokens)
+            if enable_streaming else None)
         self._iter = 0              # scheduler iterations served
         self._finalized = 0         # scheduler.finished timeline cursor
         self._draining = False
@@ -318,6 +425,7 @@ class InferenceServer:
         self.occupancy = _Gauge()
         self.chunk_iters = _Gauge()
         self.pressure_gauge = _Gauge()
+        self.handoff_pending = _Gauge()
         self.reset_meters()
 
     # -- request lifecycle ------------------------------------------------
@@ -383,7 +491,10 @@ class InferenceServer:
         if self.admission is not None and self.admission.doomed(req):
             return self._finish_at_submit(req, reasons.SHED)
         try:
-            self.scheduler.submit(req)
+            # under disaggregation every request enters through the
+            # prefill pool's queue; the decode pool admits only hand-offs
+            (self.prefill_scheduler if self.disagg
+             else self.scheduler).submit(req)
         except QueueFullError:
             return self._finish_at_submit(req, reasons.REJECTED)
         # a displaced victim finished "shed" inside scheduler.submit
@@ -401,27 +512,38 @@ class InferenceServer:
         return req
 
     def _expire_deadlines(self) -> None:
-        """Fail every live request, waiting or running, whose iteration
-        or wall budget is spent."""
+        """Fail every live request, waiting or running (in both pools
+        under disaggregation), whose iteration or wall budget is
+        spent."""
         now = self.clock()
-        sched = self.scheduler
-        for req in list(sched.waiting) + list(sched.running.values()):
-            over_iters = (req.deadline_iters is not None
-                          and self._iter - req.submit_iter
-                          > req.deadline_iters)
-            over_wall = (req.deadline_s is not None
-                         and now - req.submitted_at >= req.deadline_s)
-            if over_iters or over_wall:
-                sched.fail(req, reasons.TIMEOUT)
+        for sched in self._schedulers():
+            for req in list(sched.waiting) + list(sched.running.values()):
+                over_iters = (req.deadline_iters is not None
+                              and self._iter - req.submit_iter
+                              > req.deadline_iters)
+                over_wall = (req.deadline_s is not None
+                             and now - req.submitted_at >= req.deadline_s)
+                if over_iters or over_wall:
+                    sched.fail(req, reasons.TIMEOUT)
+
+    def _schedulers(self):
+        """``(decode, prefill)`` under disaggregation, else the one
+        scheduler."""
+        if self.disagg:
+            return (self.scheduler, self.prefill_scheduler)
+        return (self.scheduler,)
 
     @property
     def has_work(self) -> bool:
-        """Queued, running, or launched-but-not-retired work."""
-        return self.scheduler.has_work or self._inflight is not None
+        """Queued, running, launched-but-not-retired or pending hand-off
+        work, in either pool."""
+        return (any(sched.has_work for sched in self._schedulers())
+                or self._inflight is not None or bool(self._handoff))
 
     def pressure(self) -> float:
-        """The overload signal (:meth:`Scheduler.pressure`)."""
-        return self.scheduler.pressure()
+        """The overload signal (:meth:`Scheduler.pressure`), the larger
+        of the two pools' under disaggregation."""
+        return max(sched.pressure() for sched in self._schedulers())
 
     def step(self) -> int:
         """One continuous-batching iteration: retire the previous
@@ -438,7 +560,9 @@ class InferenceServer:
         with nothing left to preempt, or whose deadline passes, fails
         alone; a transient engine OOM skips the affected call for one
         iteration, and its retry is bit for bit."""
-        sched, engine = self.scheduler, self.engine
+        if self.disagg:
+            return self._step_disagg()
+        sched = self.scheduler
         self._iter += 1
         produced, self._pending_produced = self._pending_produced, 0
         # RETIRE before any host decision: deadlines, shedding, admission
@@ -449,13 +573,33 @@ class InferenceServer:
         # the pressure signal at its pre-shed peak, then the shed
         self.pressure_gauge.update(sched.pressure())
         sched.shed_overload()
-        admitted = sched.admit()
+        self._admit(sched, self.engine)
+        chunks = 0
+        for req in [r for r in sched._admit_order if r.prefilling]:
+            launched = self._prefill_launch(req, sched, self.engine)
+            if launched is None:
+                continue        # an OOM: this exact chunk replays next step
+            out, finite, n, monolithic = launched
+            if not monolithic:
+                chunks += 1
+            if not sched.chunk_done(req, n) or not req.prefill_sample:
+                continue    # mid-prefill, or a resumed request's pending
+                            # token continues
+            produced += self._first_token(sched, req,
+                                          self._prefill_token(out, finite))
+        self.chunk_iters.update(chunks)
+        self.prefill_chunks += chunks
+        produced += self._decode_batch()
+        return self._end_step(produced, plan_start, sched.num_waiting)
+
+    def _admit(self, sched: Scheduler, engine: DecodeEngine) -> None:
+        """Admit what fits into ``sched``'s pool, stamping first
+        admissions, then duplicate whole-context cache hits' last shared
+        blocks, so the re-write of the last token stays private."""
         now = self.clock()
-        for req in admitted:
+        for req in sched.admit():
             if req.admitted_at is None:
                 req.admitted_at = now
-        # whole-context cache hits first duplicate their last shared
-        # block, so the re-write of the last token stays private
         cows = [r for r in sched._admit_order if r.pending_cow]
         if cows:
             try:
@@ -466,70 +610,80 @@ class InferenceServer:
             else:
                 for req in cows:
                     sched.cow_done(req)
-        chunks = 0
-        for req in [r for r in sched._admit_order if r.prefilling]:
-            launched = self._prefill_launch(req)
-            if launched is None:
-                continue        # an OOM: this exact chunk replays next step
-            out, finite, n, monolithic = launched
-            if monolithic:
-                self.prefills += 1
-            else:
-                chunks += 1
-            if not sched.chunk_done(req, n) or not req.prefill_sample:
-                continue    # mid-prefill, or a resumed request's pending
-                            # token continues
-            tok = self._prefill_token(out, finite)
-            if tok is None:
-                sched.fail(req, reasons.NONFINITE)
-                if self.breaker is not None:
-                    self.breaker.record_failure()
-                continue
-            req.record_token(tok)
-            self._note_token(req)
-            produced += 1
-            if req.finished:
-                sched.retire(req)
-                if self.breaker is not None:
-                    self.breaker.record_success()
-        self.chunk_iters.update(chunks)
-        self.prefill_chunks += chunks
 
-        if sched.running:
-            for req in list(sched.running.values()):
-                if req.running and not req.prefilling \
-                        and not sched.ensure_decode_capacity(req):
-                    sched.fail(req, reasons.CAPACITY)
-            running = [r for r in sched.running.values() if not r.prefilling]
-            if running:
-                drafts = (self._propose_drafts(running)
-                          if self.speculating else {})
-                if self.pipelining:
-                    # LAUNCH: its tokens retire at the next step
-                    if drafts:
-                        self._launch_verify(running, drafts)
-                    else:
-                        self._launch_decode(running)
-                elif drafts:
-                    produced += self._verify_step(running, drafts)
-                else:
-                    produced += self._decode_step(running)
+    def _first_token(self, sched: Scheduler, req: Request,
+                     tok: Optional[int]) -> int:
+        """Apply a prefill's first token (None: its logits went
+        non-finite, and ``req`` fails); retire ``req`` if the token
+        finishes it.  Returns the tokens produced."""
+        if tok is None:
+            sched.fail(req, reasons.NONFINITE)
+            if self.breaker is not None:
+                self.breaker.record_failure()
+            return 0
+        req.record_token(tok)
+        self._note_token(req)
+        if req.finished:
+            sched.retire(req)
+            if self.breaker is not None:
+                self.breaker.record_success()
+        return 1
+
+    def _decode_batch(self) -> int:
+        """The decode pool's share of a step: grow every running
+        request's table for its next token (preempting, or failing a
+        request that outgrew the pool), then one step across the running
+        batch — verify when any request has a draft, else decode —
+        launched when pipelining (its tokens retire next step), applied
+        at once otherwise.  Returns the tokens applied."""
+        sched = self.scheduler
+        for req in list(sched.running.values()):
+            if req.running and not req.prefilling \
+                    and not sched.ensure_decode_capacity(req):
+                sched.fail(req, reasons.CAPACITY)
+        if self.disagg:
+            # a decode-pool preemption victim re-prefills: it re-enters
+            # at the front of the prefill pool's queue, keeping its
+            # seniority (its pending token continues, as monolithic)
+            while sched.waiting:
+                self.prefill_scheduler.waiting.appendleft(
+                    sched.waiting.pop())
+        running = [r for r in sched.running.values() if not r.prefilling]
+        if not running:
+            return 0
+        drafts = self._propose_drafts(running) if self.speculating else {}
+        if self.pipelining:
+            # LAUNCH: its tokens retire at the next step
+            if drafts:
+                self._launch_verify(running, drafts)
+            else:
+                self._launch_decode(running)
+            return 0
+        if drafts:
+            return self._verify_step(running, drafts)
+        return self._decode_step(running)
+
+    def _end_step(self, produced: int, plan_start: float,
+                  waiting: int) -> int:
+        """A step's bookkeeping: the plan time (pipelined), the token
+        count, the gauges and the finished requests' stamps."""
         if self.pipelining:
             self.plan_time.append(self.clock() - plan_start)
-
         self.tokens_generated += produced
-        self.queue_depth.update(sched.num_waiting)
-        self.occupancy.update(sched.num_running / engine.max_batch_size)
+        self.queue_depth.update(waiting)
+        self.occupancy.update(self.scheduler.num_running
+                              / self.engine.max_batch_size)
         self._finalize_finished()
         return produced
 
-    def _prefill_launch(self, req: Request):
-        """Run ``req``'s next prefill chunk (or its monolithic prefill):
-        ``(ids, finite, tokens fed, monolithic)`` — under a custom
-        ``sample_fn`` the last-token logits and None in place of ids
-        and finite — or None when the engine OOMed.  Only a fresh
-        prompt's last chunk passes its sampling parameters."""
-        sched, engine = self.scheduler, self.engine
+    def _prefill_launch(self, req: Request, sched: Scheduler,
+                        engine: DecodeEngine):
+        """Run ``req``'s next prefill chunk (or its monolithic prefill)
+        on ``engine``: ``(ids, finite, tokens fed, monolithic)`` — under
+        a custom ``sample_fn`` the last-token logits and None in place
+        of ids and finite — or None when the engine OOMed.  Only a fresh
+        prompt's last chunk passes its sampling parameters.  Counts a
+        monolithic prefill."""
         tokens, start, is_last = sched.prefill_plan(req)
         host = self.sample_fn is not greedy_sample
         samp = (sched.prefill_sampling(req)
@@ -554,6 +708,8 @@ class InferenceServer:
             # chunk_done is not called: the chunk replays next step
             self._note_oom("prefill")
             return None
+        if monolithic:
+            self.prefills += 1
         if host:
             return out, None, len(tokens), monolithic
         return out[0], out[1], len(tokens), monolithic
@@ -572,6 +728,135 @@ class InferenceServer:
             return None
         return int(out[0])
 
+    # -- disaggregated prefill/decode ---------------------------------------
+
+    def _step_disagg(self) -> int:
+        """One disaggregated iteration: the decode pool retires, hands
+        off the prefills finished earlier, and launches its pure
+        decode/verify step; then the prefill pool admits and launches up
+        to ``prefill_max_concurrent`` chunks on its own stream, which
+        run under the in-flight decode step.  The tokens are the
+        monolithic server's: the same steps on the same contexts, and
+        the copy moves every byte."""
+        psched = self.prefill_scheduler
+        self._iter += 1
+        produced, self._pending_produced = self._pending_produced, 0
+        # RETIRE the decode pool's step first: the inter-token edge the
+        # disaggregation protects
+        produced += self._flush_window()
+        plan_start = self.clock()
+        self._expire_deadlines()
+        self.pressure_gauge.update(self.pressure())
+        psched.shed_overload()
+        produced += self._process_handoffs()
+        produced += self._decode_batch()
+        # the prefill pool's launches come after the decode launch, so
+        # they run under it instead of in front of it
+        chunks, pf_produced = self._prefill_slice()
+        self.chunk_iters.update(chunks)
+        self.prefill_chunks += chunks
+        self.handoff_pending.update(len(self._handoff))
+        return self._end_step(produced + pf_produced, plan_start,
+                              psched.num_waiting)
+
+    def _prefill_slice(self):
+        """The prefill pool's share of a disaggregated step: admission,
+        COW copies and one chunk per prefilling request on the prefill
+        engine's stream.  A finished prefill joins the hand-off queue
+        with the event its engine records after the last chunk; under
+        pipelining its token's host copy is only started here and read
+        at the hand-off, so the slice does not wait on the card.
+        Returns ``(chunk launches, tokens produced)``."""
+        psched, engine = self.prefill_scheduler, self.prefill_engine
+        self._admit(psched, engine)
+        chunks = produced = 0
+        for req in [r for r in psched._admit_order if r.prefilling]:
+            launched = self._prefill_launch(req, psched, engine)
+            if launched is None:
+                continue        # an OOM: this exact chunk replays next step
+            out, finite, n, monolithic = launched
+            if not monolithic:
+                chunks += 1
+            if not psched.chunk_done(req, n):
+                continue
+            if not req.prefill_sample:
+                # resumed after a preemption: the pending token
+                # continues, nothing to sample
+                self._handoff.append(_Handoff(req,
+                                              event=engine.record_event()))
+                continue
+            # the token's results live on the prefill stream: bring them
+            # back on it, behind an event (a custom sample_fn's logits
+            # alone)
+            if finite is None:
+                (out,), event = engine.to_host_async(out)
+            else:
+                (out, finite), event = engine.to_host_async(out, finite)
+            if self.pipelining:
+                self._handoff.append(_Handoff(req, (out, finite), event))
+                continue
+            if event is not None:
+                event.synchronize()
+            produced += self._first_token(psched, req,
+                                          self._prefill_token(out, finite))
+            if not req.finished:
+                self._handoff.append(_Handoff(req, event=event))
+        return chunks, produced
+
+    def _process_handoffs(self) -> int:
+        """Drain the hand-off queue, first in first out: read each
+        finished prefill's first token (pipelined), then copy its blocks
+        into the decode pool and admit it there.  One that finds no
+        decode slot or blocks, or whose copy OOMs (torn or not), stays
+        queued with its prefill blocks and retries whole next step: the
+        copy moves whole tables, so a torn copy is re-copied as a
+        delayed one.  Returns the first tokens produced."""
+        sched, psched = self.scheduler, self.prefill_scheduler
+        q = self._handoff
+        produced = 0
+        while q:
+            ent = q[0]
+            req = ent.req
+            if req.finished or not req.running:
+                q.popleft()     # expired, cancelled or failed while queued
+                continue
+            if ent.handles is not None:
+                if ent.event is not None:
+                    ent.event.synchronize()
+                tok = self._prefill_token(*ent.handles)
+                ent.handles = None
+                produced += self._first_token(psched, req, tok)
+                if req.finished:
+                    if tok is not None:
+                        self.handoffs.incr("finished_at_prefill")
+                    q.popleft()
+                    continue
+            n = len(req.block_table)
+            dst = sched._try_alloc(n) if sched.has_free_slot else None
+            if dst is None:
+                self.handoffs.incr("deferred")
+                break
+            # read after write: the copy waits for the last chunk
+            self.engine.wait_event(ent.event)
+            try:
+                self.engine.copy_blocks_from(
+                    self.prefill_engine, list(zip(req.block_table, dst)))
+            except OOM_ERRORS:
+                sched.allocator.free(dst)
+                self._note_oom("handoff")
+                break
+            finally:
+                # write after read: released prefill blocks may be
+                # rewritten by the prefill stream's next launch, which
+                # waits for what the copy read (a torn copy read some)
+                self.prefill_engine.wait_event(self.engine.record_event())
+            psched.release_handoff(req)
+            sched.admit_handoff(req, dst)
+            self.handoffs.incr("requests")
+            self.handoffs.incr("blocks", n)
+            q.popleft()
+        return produced
+
     def _note_token(self, req: Request) -> None:
         """Stamp the first-token edge of ``req``'s timeline, or the gap
         since its previous token."""
@@ -581,6 +866,10 @@ class InferenceServer:
         elif req.last_token_at is not None:
             req.itl_gaps.append(now - req.last_token_at)
         req.last_token_at = now
+        # every applied token comes through here: the streams' publish
+        if self.stream_broker is not None:
+            self.stream_broker.publish(req.uid, len(req.generated) - 1,
+                                       req.generated[-1])
 
     def _finalize_finished(self) -> None:
         """Stamp ``finished_at`` on every request finished since the last
@@ -593,6 +882,10 @@ class InferenceServer:
                 req.finished_at = self.clock()
             if self.admission is not None:
                 self.admission.observe(req)
+            # the terminal event: delivery backfills any token the
+            # bounded queue dropped
+            if self.stream_broker is not None:
+                self.stream_broker.finish(req.uid, req.finish_reason or "")
 
     def _decode_inputs(self, running):
         engine = self.engine
@@ -969,20 +1262,60 @@ class InferenceServer:
         may itself finish the request)."""
         if self._inflight is not None:
             self._pending_produced += self._flush_window()
-        sched = self.scheduler
         cancelled = False
-        for req in list(sched.running.values()) + list(sched.waiting):
-            if req.uid == uid and not req.finished:
-                sched.fail(req, reasons.CANCELLED)
-                cancelled = True
+        for sched in self._schedulers():
+            for req in list(sched.running.values()) + list(sched.waiting):
+                if req.uid == uid and not req.finished:
+                    sched.fail(req, reasons.CANCELLED)
+                    cancelled = True
+                    break
+            if cancelled:
                 break
         self._finalize_finished()
         return cancelled
 
     def audit(self) -> None:
         """The scheduler, allocator and prefix-cache invariants
-        (:meth:`Scheduler.audit`); raises :class:`AssertionError`."""
-        self.scheduler.audit()
+        (:meth:`Scheduler.audit`), of both pools under disaggregation;
+        raises :class:`AssertionError`."""
+        for sched in self._schedulers():
+            sched.audit()
+
+    # -- streaming ----------------------------------------------------------
+
+    def _find_request(self, uid: int) -> Optional[Request]:
+        """The live or finished request with ``uid``, or None."""
+        for sched in self._schedulers():
+            for req in [*sched.running.values(), *sched.waiting]:
+                if req.uid == uid:
+                    return req
+        for req in self.scheduler.finished:
+            if req.uid == uid:
+                return req
+        return None
+
+    def stream(self, req_or_uid, callback: Optional[Callable] = None
+               ) -> TokenStream:
+        """The per-token delivery stream of a submitted request (a
+        :class:`Request` or its uid).  Iterate it (``for tok in
+        server.stream(uid)``, from another thread while this one steps),
+        poll it (``drain()``, ``take(timeout=)``), or pass ``callback``
+        for ``callback("token", tok)`` at each retired token and one
+        ``callback("end", finish_reason)``.  A stream opened late
+        backfills what was generated already.  Raises
+        :class:`RuntimeError` with ``enable_streaming=False`` and
+        :class:`KeyError` for an unknown uid."""
+        if self.stream_broker is None:
+            raise RuntimeError(
+                "streaming is disabled (enable_streaming=False)")
+        if isinstance(req_or_uid, Request):
+            req = req_or_uid
+        else:
+            req = self._find_request(int(req_or_uid))
+            if req is None:
+                raise KeyError(f"no request with uid {req_or_uid} on this "
+                               f"server")
+        return self.stream_broker.open(req.uid, req, callback)
 
     # -- meters -----------------------------------------------------------
 
@@ -1011,6 +1344,7 @@ class InferenceServer:
             self.prefix_cache.counters = self.prefix
         self.pipe = CounterMeter()
         self.oom = CounterMeter()
+        self.handoffs = CounterMeter()
         ours = self.breaker is not None \
             and self.breaker.counters is self.breaker_events
         self.breaker_events = CounterMeter()
@@ -1024,6 +1358,7 @@ class InferenceServer:
         self.occupancy.reset()
         self.chunk_iters.reset()
         self.pressure_gauge.reset()
+        self.handoff_pending.reset()
         self.scheduler.finished.clear()
         self.scheduler.failures.clear()
         self._finalized = 0
@@ -1054,7 +1389,12 @@ class InferenceServer:
         its launches and retires, whether one is pending, and
         ``host_stall_ms`` (the retire's wait on the card) and
         ``host_plan_ms`` (the host's planning and launching a step), each
-        ``{count, p50, p90, p99, max}`` over the exact samples."""
+        ``{count, p50, p90, p99, max}`` over the exact samples.
+        ``disagg`` is ``{"enabled": False}`` on a monolithic server,
+        else the prefill pool's blocks and the hand-off counters
+        (``memory`` is then the decode pool's, with no evictable holds:
+        the prefix cache lives in the prefill pool); ``streams`` the
+        broker's counters and open streams, and the cancellations."""
         sched = self.scheduler
         self._account_pending_produced()
         self._finalize_finished()
@@ -1127,6 +1467,8 @@ class InferenceServer:
             "kv_blocks_free": self.engine.allocator.num_free,
             "kernel_launches": launches,
             "memory": self._memory_stats(),
+            "disagg": self._disagg_stats(),
+            "streams": self._stream_stats(),
         }
         if self.prefix_cache is not None:
             pre = self.prefix
@@ -1147,7 +1489,8 @@ class InferenceServer:
     def _memory_stats(self) -> dict:
         info = self.engine.memory_info()
         alloc = self.engine.allocator
-        cache = self.prefix_cache
+        # under disaggregation the cache's holds are the prefill pool's
+        cache = None if self.disagg else self.prefix_cache
         return {
             "blocks_usable": info["blocks_usable"],
             "blocks_free": alloc.num_free,
@@ -1162,3 +1505,42 @@ class InferenceServer:
                 "pool_bytes", "pool_bytes_per_device", "bytes_per_block",
                 "cache_dtype", "quantize", "compute_dtype")},
         }
+
+    def _disagg_stats(self) -> dict:
+        """The ``stats()["disagg"]`` block: the prefill pool's blocks and
+        the hand-off counters (``requests``, ``blocks``, ``deferred``,
+        ``finished_at_prefill``, as they occur)."""
+        if not self.disagg:
+            return {"enabled": False}
+        palloc = self.prefill_engine.allocator
+        info = self.prefill_engine.memory_info()
+        evictable = (self.prefix_cache.num_evictable
+                     if self.prefix_cache is not None else 0)
+        return {
+            "enabled": True,
+            "prefill_max_concurrent": self.prefill_scheduler.max_batch_size,
+            "prefill_blocks_usable": info["blocks_usable"],
+            "prefill_blocks_free": palloc.num_free,
+            "prefill_blocks_live": palloc.num_live,
+            "prefill_blocks_live_peak": palloc.live_peak,
+            "prefill_blocks_evictable": evictable,
+            "prefill_evictable_bytes": evictable * info["bytes_per_block"],
+            "prefill_pool_bytes": info["pool_bytes"],
+            "prefill_backlog_blocks":
+                self.prefill_scheduler.prefill_backlog_blocks(),
+            "handoff": {"pending": len(self._handoff),
+                        "pending_peak": int(self.handoff_pending.peak),
+                        **self.handoffs.as_dict()},
+            "sink_attached": False,
+        }
+
+    def _stream_stats(self) -> dict:
+        """The ``stats()["streams"]`` block: the broker's counters and
+        open streams, and the cancellations (with streaming off too)."""
+        out = {"enabled": self.stream_broker is not None,
+               "cancelled": self.scheduler.failures.get(reasons.CANCELLED,
+                                                        0)}
+        if self.stream_broker is not None:
+            out.update(self.stream_broker.stats())
+            out["per_stream"] = self.stream_broker.snapshot()
+        return out

@@ -53,18 +53,29 @@ garbage block.  The pool is updated in place.
 **Launches that do not block the host.**  On the card every host input
 (token ids, positions, block tables, sampling parameters) is staged in
 pinned memory from PyTorch's caching host allocator and copied
-``non_blocking`` on the current stream, the sampling tensors before the
-forward is enqueued, so a decode or verify call returns as soon as its
-work is queued.  The allocator records an event on each copy and hands
-the pinned block out again only after that copy has run, so a second
-launch (another prefill chunk of the same step, say) never overwrites
-a staging buffer still in flight.  Everything runs on the current
-stream: a later write to a recycled pool block is ordered after the
-in-flight step's K/V writes.  The K/V writes come last in each step, so
-a call that raises mid-forward wrote nothing and its retry is bit for
-bit.  :meth:`DecodeEngine.to_host_async` is the way back: a
-``non_blocking`` copy into pinned memory behind a CUDA event.  On the
-CPU the same code runs without pinning or events.
+``non_blocking`` on the engine's stream, the sampling tensors before
+the forward is enqueued, so a decode or verify call returns as soon as
+its work is queued.  The allocator records an event on each copy, on
+the stream that consumes it, and hands the pinned block out again only
+after that copy has run, so a second launch (another prefill chunk of
+the same step, say) never overwrites a staging buffer still in flight.
+The K/V writes come last in each step, so a call that raises
+mid-forward wrote nothing and its retry is bit for bit.
+:meth:`DecodeEngine.to_host_async` is the way back: a ``non_blocking``
+copy into pinned memory behind a CUDA event.
+
+**Streams.**  An engine launches everything — its steps, its staging
+copies, its block copies and ``to_host_async`` — on one stream: its
+own ``stream`` when it is given one, else the current stream at each
+call.  One stream orders a later write to a recycled pool block after
+the in-flight step's K/V writes.  Two engines on two streams share no
+ordering, so the caller orders what crosses between them with
+:meth:`~DecodeEngine.record_event` and :meth:`~DecodeEngine.wait_event`
+(the disaggregated server's hand-off: ``serving.api``).  An engine with
+a stream of its own marks its pool and weights as used on that stream
+(``record_stream``), so their memory is not reused before its work is
+done.  On the CPU the same code runs without pinning, streams or
+events.
 
 No twin here of the reference's trace counts (``compile_counts``,
 ``verify_compiles``, ``collective_programs``: eager PyTorch traces
@@ -74,6 +85,8 @@ nothing) or of its per-program accounting (``_qkey``; it comes with
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import zlib
 from typing import Mapping, Optional, Sequence, Tuple
 
@@ -160,6 +173,18 @@ def pick_bucket(length: int, buckets: Sequence[int]) -> int:
         f"length {length} exceeds the largest bucket {buckets[-1]}")
 
 
+def _on_stream(method):
+    """Run ``method`` with the engine's own stream current (when it has
+    one), so its launches, staging copies and events land there."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with self._stream_context():
+            return method(self, *args, **kw)
+
+    return run
+
+
 class DecodeEngine:
     """The device half of the serving stack: owns the model, the cache
     pool and the prefill/decode steps — admission and batching live in
@@ -187,6 +212,9 @@ class DecodeEngine:
       prefill_buckets: ascending prompt-length buckets; None =
         :func:`default_prefill_buckets` of ``max_context``.  The largest
         must reach ``max_context``.
+      stream: a :class:`torch.cuda.Stream` on ``device`` that every call
+        launches on; None (default) launches on the current stream.
+        Only for a CUDA device.
 
     Prefill attends through ``ops.flash_attention`` (causal), chunks and
     verify through ``ops.chunk_cached_attention`` and decode through
@@ -201,9 +229,14 @@ class DecodeEngine:
                  block_size: int = 16,
                  cache_dtype: Optional[torch.dtype] = None,
                  kv_quant: Optional[str] = None,
-                 prefill_buckets: Optional[Sequence[int]] = None):
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if stream is not None and self.device.type != "cuda":
+            raise ValueError(f"a stream needs a CUDA device, got "
+                             f"{self.device}")
+        self.stream = stream
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.quantized = self.kv_quant is not None
         self.max_batch_size = int(max_batch_size)
@@ -237,6 +270,34 @@ class DecodeEngine:
             raise ValueError(
                 f"largest prefill bucket {self.prefill_buckets[-1]} "
                 f"< max_context {self.max_context}")
+        if stream is not None:
+            # the pool and weights were made on the current stream and
+            # are used on this one: their memory waits for both
+            for t in [*self.cache.values(), *self.model.parameters(),
+                      *self.model.buffers()]:
+                t.record_stream(stream)
+
+    def _stream_context(self):
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def record_event(self):
+        """A CUDA event recorded now on the engine's stream (None on the
+        CPU): it completes once everything launched so far has run."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        with self._stream_context():
+            event.record()
+        return event
+
+    def wait_event(self, event) -> None:
+        """Make the engine's later launches wait for ``event`` (another
+        stream's work) on the device, without blocking the host; None is
+        a no-op."""
+        if event is not None:
+            (self.stream if self.stream is not None
+             else torch.cuda.current_stream(self.device)).wait_event(event)
 
     # -- device steps -----------------------------------------------------
 
@@ -365,6 +426,7 @@ class DecodeEngine:
             torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
                 self.device, non_blocking=True) for a in arrays)
 
+    @_on_stream
     def to_host_async(self, *tensors: torch.Tensor):
         """Start copying device results to the host without waiting:
         returns ``(host tensors, event)``.  On the card the host tensors
@@ -428,6 +490,7 @@ class DecodeEngine:
                                np.asarray(lengths, np.int64),
                                np.asarray(tables, np.int64))
 
+    @_on_stream
     def prefill(self, prompt, block_table) -> torch.Tensor:
         """Run one prompt through the bucketed prefill, writing its K/V
         into ``block_table``'s blocks.  Returns the last-token logits
@@ -435,6 +498,7 @@ class DecodeEngine:
         return self._prefill_impl(*self._prefill_args(prompt,
                                                       block_table))[0]
 
+    @_on_stream
     def prefill_sampled(self, prompt, block_table, sampling=None):
         """:meth:`prefill` with the sampler on the device: returns
         ``(token_ids (1,) int32, finite (1,) bool)``.  ``sampling``: None
@@ -445,6 +509,7 @@ class DecodeEngine:
         last = self._prefill_impl(*args)
         return self._sample(last, args[1], samp)
 
+    @_on_stream
     def chunk_prefill(self, tokens, start: int, block_table,
                       pad_to: Optional[int] = None) -> torch.Tensor:
         """Run one prefill chunk, ``tokens`` at positions ``start ..
@@ -455,6 +520,7 @@ class DecodeEngine:
         return self._chunk_impl(*self._chunk_args(tokens, start,
                                                   block_table, pad_to))[0]
 
+    @_on_stream
     def chunk_prefill_sampled(self, tokens, start: int, block_table,
                               pad_to: Optional[int] = None,
                               sampling=None):
@@ -469,12 +535,14 @@ class DecodeEngine:
         last = self._chunk_impl(ids, start_t, length, table)
         return self._sample(last, start_t + length, samp)
 
+    @_on_stream
     def decode(self, tokens, positions, tables) -> torch.Tensor:
         """One decode step over all slots: (B,), (B,), (B, blocks_per_seq)
         with inactive slots zeroed.  Returns next-token logits (B, V)."""
         return self._decode_impl(*self._decode_args(tokens, positions,
                                                     tables))
 
+    @_on_stream
     def decode_sampled(self, tokens, positions, tables, sampling=None):
         """:meth:`decode` with the sampler on the device: returns
         ``(token_ids (B,) int32, finite (B,) bool)``.  ``sampling``: None
@@ -485,6 +553,7 @@ class DecodeEngine:
         logits = self._decode_impl(*args)
         return self._sample(logits, args[1] + 1, samp)
 
+    @_on_stream
     def verify(self, tokens, lengths, positions, tables) -> torch.Tensor:
         """One speculative verify step over all slots: tokens (B, K)
         (pending token + drafts a slot, zero-padded), lengths (B,) valid
@@ -494,6 +563,7 @@ class DecodeEngine:
         return self._verify_impl(*self._verify_args(tokens, lengths,
                                                     positions, tables))
 
+    @_on_stream
     def verify_sampled(self, tokens, lengths, positions, tables,
                        sampling=None):
         """:meth:`verify` with the sampler on the device: returns
@@ -507,6 +577,7 @@ class DecodeEngine:
             ids.shape[1], device=self.device)[None, :]
         return self._sample(logits, counters, samp)
 
+    @_on_stream
     def swap_params(self, params) -> None:
         """Load a new ``state_dict`` of the same structure into the
         model's tensors, in place (``load_state_dict``): the steps run on
@@ -522,6 +593,7 @@ class DecodeEngine:
         ids = np.asarray(pairs, np.int64).reshape(-1, 2)
         return self._to_device(ids[:, 0], ids[:, 1])
 
+    @_on_stream
     @torch.no_grad()
     def copy_blocks(self, pairs) -> None:
         """Duplicate physical blocks ``[(src, dst), ...]`` inside the pool
@@ -529,6 +601,7 @@ class DecodeEngine:
         if len(pairs):
             copy_blocks(self.cache, *self._copy_ids(pairs), self.block_size)
 
+    @_on_stream
     @torch.no_grad()
     def copy_blocks_from(self, src_engine: "DecodeEngine", pairs) -> None:
         """Copy physical blocks ``[(src, dst), ...]`` from another
@@ -547,6 +620,7 @@ class DecodeEngine:
         return (ids[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
 
     @torch.no_grad()
+    @_on_stream
     def export_blocks(self, block_ids, *,
                       per_block_crc: bool = False) -> dict:
         """``block_ids``' contents as a host payload: every leaf's rows
@@ -578,6 +652,7 @@ class DecodeEngine:
         return payload
 
     @torch.no_grad()
+    @_on_stream
     def import_blocks(self, block_ids, payload) -> None:
         """Scatter an :meth:`export_blocks` payload (this package's or
         the JAX engine's) into this pool's ``block_ids`` (same count,
@@ -636,6 +711,7 @@ class DecodeEngine:
             "compute_dtype": _dtype_name(cfg.resolved_dtype()),
         }
 
+    @_on_stream
     def reset_cache(self):
         """Zero the pool and refill the allocator in place."""
         for arr in self.cache.values():

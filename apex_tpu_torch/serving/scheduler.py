@@ -1,12 +1,14 @@
 """Continuous-batching request scheduler (Orca-style iteration-level).
 
-Twin of ``apex_tpu/serving/scheduler.py`` without the disaggregated
-hand-off.  Every iteration the scheduler admits waiting requests into
-free batch slots while the block pool can hold their prompts, grows
-each running request's block table just in time for its next token —
-preempting the worst-priority, youngest request back to the waiting
-queue when the pool runs dry — and retires finished requests at once,
-so their slot and blocks serve the next iteration.
+Twin of ``apex_tpu/serving/scheduler.py``, with the one-host half of
+the disaggregated hand-off (:meth:`Scheduler.admit_handoff`,
+:meth:`Scheduler.release_handoff`) and without the router's
+``withdraw_waiting``.  Every iteration the scheduler admits waiting
+requests into free batch slots while the block pool can hold their
+prompts, grows each running request's block table just in time for its
+next token — preempting the worst-priority, youngest request back to
+the waiting queue when the pool runs dry — and retires finished
+requests at once, so their slot and blocks serve the next iteration.
 
 **Prefix caching** (:mod:`serving.prefix_cache`).  At admission the
 context is matched against the block-level prefix index; matched full
@@ -473,6 +475,51 @@ class Scheduler:
                 req._reg_blocks = _REG_STOPPED
                 break
             req._reg_blocks += 1
+
+    # -- the disaggregated prefill/decode hand-off ---------------------------
+
+    @property
+    def has_free_slot(self) -> bool:
+        return bool(self._free_slots)
+
+    def admit_handoff(self, req: Request, block_table: List[int]) -> None:
+        """Admit a request whose context K/V is already materialized in
+        this scheduler's pool (the decode half of the hand-off):
+        ``block_table`` holds blocks allocated from THIS allocator, into
+        which the caller copied the context.  The request skips the
+        prefill state machine and enters the decode batch at its carried
+        ``num_cached`` position with ``next_input`` pending — the state a
+        just-finished local prefill leaves, so decode from here is the
+        monolithic server's bit for bit.  No free slot, or no carried
+        position, raises :class:`AssertionError`."""
+        if not self._free_slots:
+            raise AssertionError("admit_handoff with no free slot")
+        if req.num_cached <= 0 or req.next_input is None:
+            raise AssertionError(
+                f"handoff request {req.uid} has no carried KV position "
+                f"(num_cached={req.num_cached}, "
+                f"next_input={req.next_input})")
+        req.slot = self._free_slots.pop()
+        req.block_table = list(block_table)
+        req.prefill_ctx = None
+        req.cached_prefix_tokens = 0
+        # the handed-off blocks hold the request's own context, so they
+        # register into this pool's prefix index (when one exists) as
+        # locally prefilled blocks would
+        req._reg_blocks = 0 if self.prefix_cache is not None \
+            else _REG_STOPPED
+        self.running[req.slot] = req
+        self._admit_order.append(req)
+
+    def release_handoff(self, req: Request) -> None:
+        """Free a request's slot and blocks in THIS pool after its
+        context was copied out (the prefill half of the hand-off).  Newly
+        full blocks register into the prefix index first, so the prefill
+        pool doubles as the warm shared-prefix cache: the blocks stay as
+        evictable holds and the next shared-prefix admission matches
+        them."""
+        self.register_progress(req)
+        self._release(req)
 
     def ensure_decode_capacity(self, req: Request) -> bool:
         """Grow ``req``'s block table if its next token write needs a

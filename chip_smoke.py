@@ -76,13 +76,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
        ``torch.cuda.set_sync_debug_mode("error")`` (a launch that waits
        on the card raises; the retire may wait); then the synchronous
        loop (``enable_pipeline=False``): the same tokens and launches;
-   (b) the default bf16 cache, pipelined and synchronous passes in
-       turns, the order swapped every pass (``_alternate``): tokens/s
-       (median of 2 passes each), occupancy,
-       preemptions, the window's ``host_stall_ms``/``host_plan_ms`` and
-       the breaker's state; the same tokens and launches; then one pass
-       of each under ``torch.profiler``: device time by kernel class
-       and the device's idle share of the wall time;
+   (f) disaggregated prefill/decode (``enable_disagg=True``: the
+       prefill pool's engine on a CUDA stream of its own, B4 there, B7
+       in the decode pool): (a)'s tokens exactly and (a)'s B4 launches,
+       B7 L a decode step, every prompt handed off once; its decode
+       launches, prefill slices and hand-off copies under sync-debug
+       "error"; a consumer thread a request iterating ``stream()``
+       receives exactly its tokens; the first hand-off copy torn (half
+       its pairs, then ``torch.OutOfMemoryError``) and the second
+       delayed: ``oom_events`` 2; then the tightest prefill pool (one
+       full context), the same tokens;
+   (b) the default bf16 cache, the pipelined loop timed: tokens/s
+       (median of 2 passes), occupancy, preemptions, the window's
+       ``host_stall_ms``/``host_plan_ms`` and the breaker's state; one
+       synchronous pass with the same tokens and launches; then one
+       pipelined pass under ``torch.profiler``: device time by kernel
+       class and the device's idle share of the wall time;
    (c) ``torch.OutOfMemoryError`` injected at the pipelined server's
        second and third decode launches (``DECODE_OOM_AT``): the same
        tokens, ``oom_events`` 2, the breaker closed.
@@ -98,9 +107,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
        over the dequantized values), the same near-tie rule; launches
        exact (B8 ``L`` per decode step, B7 none); ``stats()["memory"]``
        reads ``int8`` and 313,344 bytes per block;
-   (b) the same server and its synchronous twin, timed in turns, the
-       order swapped every pass (median of 2 passes each), and each
-       profiled once; both loops' tokens (a)'s, their launches equal;
+   (f) the same from a disaggregated server (B8 in the decode pool):
+       (a)'s tokens but where they part at an oracle near-tie, (a)'s B4
+       launches, B8 L a decode step;
+   (b) the same server timed (median of 2 passes) and profiled once;
+       its tokens (a)'s, and one pass of its synchronous twin with the
+       same tokens and launches;
    (c) equal pool bytes: the bytes of 129 bf16 blocks give the bf16
        arm 129 blocks and the int8 arm 242; both serve the 16 prompts
        with 16 slots (all at once need 158 blocks); the int8 arm's
@@ -143,11 +155,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
        noise within ``NOISE_ULPS`` epsilons of max(|x|, 1); the
        pipelined pass under the profiler;
    (e) 7 of serve's prompts decoding on the bf16 pool when a
-       1000-token prompt arrives: the default server (chunks of 256)
-       against the monolithic prefill, one pass each
+       1000-token prompt arrives: the default server (chunks of 256),
+       the monolithic prefill and the disaggregated server (chunks of
+       256 in the prefill pool), one pass each
        (``PROGRAMS_TIMED_PASSES``), the decoders' median, p99 and
-       largest inter-token gaps and the long request's time to first
-       token; launches and chunks exact.  The phase
+       largest inter-token gaps (a token counted when the step that
+       applied it returns) and the long request's time to first token;
+       launches and chunks exact.  The phase
        prints its seconds in its ``done`` line.
 5c. serve_features — the reference server's default layers (prefix
    cache with copy-on-write, n-gram speculation, overload control,
@@ -181,10 +195,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
        mid-generation gives the undisturbed tokens, a submit during it
        finishes ``draining``, ``close()`` runs once and refuses later
        submits;
-   and one timed pass each of (a)'s and (c)'s traffic on the bf16 pool
-   with the three layers on and off: tokens/s, hit rate, acceptance
-   rate, tokens a batched step, verify and decode steps, launches a
-   pass.
+   and one timed pass each of (a)'s traffic on the bf16 pool with the
+   three layers on and off, and of (c)'s with them on: tokens/s, hit
+   rate, acceptance rate, tokens a batched step, verify and decode
+   steps, launches a pass.
 6. train   — ``apex_tpu_torch.examples.gpt_main_amp`` on GPT-2 small at
    full width, FusedAdam(lr=3e-4) flat, causal flash attention, against
    a kernel-free oracle on the card (the same model and step on plain
@@ -2327,22 +2341,28 @@ def _make_prompts(cfg, n=16, seed=0):
             for _ in range(n)]
 
 
-def _serve_once(server, prompts, max_new, sampling=None):
+def _serve_once(server, prompts, max_new, sampling=None, streamed=False):
     """Drive the main path once with every launch count at 0 just
     before and read just after; checks the counts against the model's
     2L+1 LayerNorms per forward (a monolithic prefill, a chunk or a
     decode step), L flash attentions per monolithic prefill (none when
     the server chunks: a chunk's attention is plain PyTorch, as the
     reference's) and L decode attentions per decode step (B8 from an
-    int8 pool, B7 otherwise)."""
+    int8 pool, B7 otherwise), and every pool (both under
+    disaggregation) audit-clean and free afterwards.  ``streamed``: a
+    consumer thread a request iterates ``server.stream(uid)`` while the
+    pass runs and must receive exactly the request's tokens."""
     import torch
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
     torch.cuda.synchronize()
     reset_launch_counts()
     server.reset_meters()
     t0 = time.perf_counter()
-    outs = server.generate(prompts, max_new_tokens=max_new,
-                           sampling=sampling)
+    if streamed:
+        outs = _generate_streamed(server, prompts, max_new)
+    else:
+        outs = server.generate(prompts, max_new_tokens=max_new,
+                               sampling=sampling)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -2374,10 +2394,11 @@ def _serve_once(server, prompts, max_new, sampling=None):
         raise AssertionError(f"pipeline {pipe} against "
                              f"{st['decode_steps']} decode and "
                              f"{st['verify_steps']} verify steps")
-    server.scheduler.audit()
-    if server.engine.allocator.num_free != \
-            server.engine.cache_cfg.num_blocks - 1:
-        raise AssertionError("blocks leaked after generate")
+    server.audit()
+    for engine in (server.engine, server.prefill_engine):
+        if engine is not None and engine.allocator.num_free != \
+                engine.cache_cfg.num_blocks - 1:
+            raise AssertionError("blocks leaked after generate")
     vocab = server.engine.cfg.vocab_size
     for o in outs:
         if len(o) != max_new or not all(0 <= t < vocab for t in o):
@@ -2385,11 +2406,35 @@ def _serve_once(server, prompts, max_new, sampling=None):
     return outs, wall, counts, st
 
 
-def _alternate(servers, i):
-    """``servers``' items, reversed on odd passes: two loops timed in
-    turns run A B, B A, ..., so neither always goes first."""
-    items = list(servers.items())
-    return items[::-1] if i % 2 else items
+def _generate_streamed(server, prompts, max_new):
+    """``server.generate`` with a consumer thread a request iterating
+    its ``server.stream(uid)`` while the serve thread steps; each must
+    receive exactly its request's tokens and finish reason."""
+    import threading
+    reqs = [server.submit(p, max_new) for p in prompts]
+    got = [[] for _ in reqs]
+    streams = [server.stream(r.uid) for r in reqs]
+
+    def consume(stream, out):
+        for tok in stream:
+            out.append(tok)
+
+    threads = [threading.Thread(target=consume, args=(s, g), daemon=True)
+               for s, g in zip(streams, got)]
+    for t in threads:
+        t.start()
+    while server.has_work:
+        server.step()
+    for t in threads:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in threads) \
+            or got != [r.generated for r in reqs] \
+            or [s.finish_reason for s in streams] != \
+            [r.finish_reason for r in reqs]:
+        raise AssertionError(f"streams: {sum(map(len, got))} tokens "
+                             f"delivered of "
+                             f"{sum(len(r.generated) for r in reqs)}")
+    return [list(r.generated) for r in reqs]
 
 
 def _pipeline_fields(st):
@@ -2450,6 +2495,143 @@ def _inject_ooms(engine, at):
     for name in at:
         setattr(engine, name, flaky(name, getattr(engine, name)))
     return seen
+
+
+def _sync_checked_prefill(server, tally):
+    """Run each disaggregated step's prefill slice (admission, the
+    prefill launches on the prefill engine's stream, the start of their
+    tokens' copy back and the event after it) and each hand-off copy into
+    the decode pool under ``torch.cuda.set_sync_debug_mode("error")``;
+    counts in ``tally`` the prefill launches (``prefill_launches``) and
+    the copies (``handoff_copy``) made under it."""
+    import torch
+
+    def under_error(call, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    prefill_slice, copy = server._prefill_slice, \
+        server.engine.copy_blocks_from
+
+    def checked_slice():
+        before = server.prefills
+        chunks, produced = under_error(prefill_slice)
+        tally["prefill_launches"] = tally.get("prefill_launches", 0) \
+            + server.prefills - before + chunks
+        return chunks, produced
+
+    def checked_copy(src, pairs):
+        tally["handoff_copy"] = tally.get("handoff_copy", 0) + 1
+        return under_error(copy, src, pairs)
+
+    server._prefill_slice = checked_slice
+    server.engine.copy_blocks_from = checked_copy
+
+
+def _torn_and_delayed(engine):
+    """Make the hand-off copy into ``engine`` raise
+    ``torch.OutOfMemoryError`` at its first call after copying half of
+    its pairs (torn) and at its second before copying any (delayed);
+    returns the calls seen and the torn call's pairs."""
+    import torch
+    seen = {"calls": 0}
+    copy = engine.copy_blocks_from
+
+    def faulty(src, pairs):
+        seen["calls"] += 1
+        if seen["calls"] == 1:
+            seen["torn_pairs"] = len(pairs)
+            copy(src, pairs[:len(pairs) // 2])
+            raise torch.OutOfMemoryError("injected: a torn hand-off")
+        if seen["calls"] == 2:
+            raise torch.OutOfMemoryError("injected: a delayed hand-off")
+        return copy(src, pairs)
+
+    engine.copy_blocks_from = faulty
+    return seen
+
+
+def _disagg_check(label, st, counts, mono_counts):
+    """A disaggregated pass's launches against the monolithic pass's:
+    the same B4 launches (one a layer a prompt, in the prefill pool) and
+    every prompt handed off once."""
+    flash, handoff = counts.get("flash_fwd", 0), st["disagg"]["handoff"]
+    if flash != mono_counts["flash_fwd"] \
+            or handoff.get("requests") != st["prefills"] \
+            or st["disagg"]["prefill_blocks_live"]:
+        raise AssertionError(f"{label}: B4 {flash} against the monolithic "
+                             f"{mono_counts['flash_fwd']}, hand-offs "
+                             f"{handoff}, {st['prefills']} prefills")
+
+
+def _serve_disagg(shared, common, outs_a, counts_a):
+    """(f) disaggregated prefill/decode on the fp32 pool, (a)'s prompts:
+    the pipelined pass with its decode launches, prefill slices and
+    hand-off copies under sync-debug "error", a consumer thread a
+    request on ``stream()``, and the first hand-off copy torn and the
+    second delayed by card OOMs; then the tightest prefill pool (one
+    full context: every hand-off's blocks go to the next prefill at
+    once, which must wait for the copy).  Each pass's tokens are (a)'s
+    exactly, its B4 launches (a)'s, its B7 L a decode step."""
+    import torch
+    from apex_tpu_torch.serving import InferenceServer
+    cfg, params, prompts = shared["cfg"], shared["params"], shared["prompts"]
+    max_new = len(outs_a[0])
+    layers = cfg.num_hidden_layers
+    out = {}
+    server = InferenceServer(cfg, params, cache_dtype=torch.float32,
+                             enable_disagg=True, **common)
+    checked = {}
+    _sync_checked_launches(server, checked)
+    seen = _torn_and_delayed(server.engine)
+    _sync_checked_prefill(server, checked)
+    outs, wall, counts, st = _serve_once(server, prompts, max_new,
+                                         streamed=True)
+    _disagg_check("serve (f)", st, counts, counts_a)
+    if outs != outs_a or st["oom_events"] != 2 or seen["calls"] < 3 \
+            or st["breaker_state"] != "closed" \
+            or checked.get("prefill_launches") != st["prefills"] \
+            or checked.get("handoff_copy") != seen["calls"] \
+            or checked.get("decode_greedy") != st["decode_steps"]:
+        raise AssertionError(f"serve (f): tokens equal {outs == outs_a}, "
+                             f"oom_events {st['oom_events']}, copies "
+                             f"{seen}, sync-checked {checked}")
+    out["fp32"] = {"wall_s": wall, "launches": counts, "stats": st,
+                   "sync_checked": checked, "faults": seen}
+    emit("serve", leg="f", cache="float32", disagg=True,
+         tokens_equal_monolithic=True, streams_equal=True,
+         b4_launches=counts["flash_fwd"],
+         b4_launches_monolithic=counts_a["flash_fwd"],
+         b7_launches=counts["decode_attention"],
+         decode_steps=st["decode_steps"],
+         b7_want=layers * st["decode_steps"], prefills=st["prefills"],
+         handoff=st["disagg"]["handoff"], sync_checked_launches=checked,
+         torn_pairs=seen.get("torn_pairs"), copy_calls=seen["calls"],
+         wall_s=round(wall, 4), **_pipeline_fields(st))
+    bps = server.engine.blocks_per_seq
+    del server
+
+    tight = InferenceServer(cfg, params, cache_dtype=torch.float32,
+                            enable_disagg=True, disagg_prefill_blocks=bps + 1,
+                            **common)
+    outs_t, wall, counts_t, st_t = _serve_once(tight, prompts, max_new)
+    _disagg_check("serve (f) tight", st_t, counts_t, counts_a)
+    if outs_t != outs_a or st_t["disagg"]["prefill_blocks_usable"] != bps:
+        raise AssertionError(f"serve (f) tight: tokens equal "
+                             f"{outs_t == outs_a}, {st_t['disagg']}")
+    out["tight"] = {"wall_s": wall, "launches": counts_t, "stats": st_t}
+    emit("serve", leg="f", cache="float32", disagg=True,
+         prefill_blocks_usable=st_t["disagg"]["prefill_blocks_usable"],
+         prefill_blocks_live_peak=st_t["disagg"][
+             "prefill_blocks_live_peak"],
+         tokens_equal_monolithic=True, b4_launches=counts_t["flash_fwd"],
+         b7_launches=counts_t["decode_attention"],
+         decode_steps=st_t["decode_steps"], handoff=st_t["disagg"][
+             "handoff"], wall_s=round(wall, 4))
+    return counts, out
 
 
 def _plain_layer_norm(mod, x):
@@ -2550,6 +2732,14 @@ P_PREDICTION = {
                      "the host comes to retire it",
     "host_plan_ms": "p50 10-20, the whole host step: the path is "
                     "host-bound",
+    "disagg": "(f) the disaggregated server's tokens (a)'s exactly on the "
+              "fp32 pool, with the tightest prefill pool too (the same "
+              "programs on the same contexts; the copy moves every byte), "
+              "and (a)'s but at near-ties on the int8 pool; B4 launches "
+              "the monolithic pass's; no decode launch, prefill slice or "
+              "hand-off copy waits on the card; the torn and the delayed "
+              "copy retried whole, oom_events 2; every stream exactly its "
+              "request's tokens",
 }
 
 
@@ -2596,56 +2786,53 @@ def phase_serve():
          synchronous_tokens_equal=True, sync_checked_launches=checked,
          **_pipeline_fields(st))
     del server, sync
+    counts_a = counts
 
-    # (b) the default bf16 cache, timed: pipelined and synchronous passes
-    # in turns after one warm-up each (the wall is host-bound and the
-    # host's CPU is shared), then one pass of each under the profiler
-    servers = {"pipelined": InferenceServer(cfg, params, **common),
-               "synchronous": InferenceServer(cfg, params,
-                                              enable_pipeline=False,
-                                              **common)}
-    for srv in servers.values():
-        srv.generate(prompts[:2], max_new_tokens=2)
-    passes = {name: [] for name in servers}
-    outs, stats, launches = {}, {}, {}
-    for i in range(TIMED_SERVE_PASSES):
-        for name, srv in _alternate(servers, i):
-            srv.engine.reset_cache()
-            outs[name], wall, launches[name], stats[name] = _serve_once(
-                srv, prompts, max_new)
-            passes[name].append(stats[name]["tokens_generated"] / wall)
-    if outs["synchronous"] != outs["pipelined"] \
-            or launches["synchronous"] != launches["pipelined"]:
+    # (f) disaggregated prefill/decode: (a)'s prompts, tokens and B4
+    # launches
+    counts_f, results["disagg"] = _serve_disagg(shared, common, outs_a,
+                                                counts_a)
+
+    # (b) the default bf16 cache, timed: the pipelined loop's passes after
+    # a warm-up (the wall is host-bound and the host's CPU is shared),
+    # then a pass under the profiler; one synchronous pass gives the same
+    # tokens and launches
+    server = InferenceServer(cfg, params, **common)
+    server.generate(prompts[:2], max_new_tokens=2)
+    passes = []
+    for _ in range(TIMED_SERVE_PASSES):
+        server.engine.reset_cache()
+        outs_b, wall, counts, st = _serve_once(server, prompts, max_new)
+        passes.append(st["tokens_generated"] / wall)
+    sync = InferenceServer(cfg, params, enable_pipeline=False, **common)
+    outs_s, _, counts_s, _ = _serve_once(sync, prompts, max_new)
+    if outs_s != outs_b or counts_s != counts:
         raise AssertionError("serve (b): the synchronous loop's tokens or "
                              "launches differ from the pipelined loop's")
-    outs_b, counts, st = outs["pipelined"], launches["pipelined"], \
-        stats["pipelined"]
+    del sync
     agree = sum(a == b for oa, ob in zip(outs_a, outs_b)
                 for a, b in zip(oa, ob)) / (len(prompts) * max_new)
-    results["bf16"] = {"token_agreement_with_fp32": agree}
-    for name, srv in servers.items():
-        tokens_per_s = statistics.median(passes[name])
-        profile = _profile_serve(srv, prompts, max_new,
-                                 label=f"serve_{name}")
-        results["bf16"][name] = {
-            "tokens_per_s": tokens_per_s, "tokens_per_s_passes":
-            passes[name], "launches": launches[name], "stats":
-            stats[name], "profile": profile}
-        emit("serve", cache="bfloat16", loop=name,
-             tokens=stats[name]["tokens_generated"],
-             tokens_per_s=tokens_per_s, tokens_per_s_passes=passes[name],
-             device_idle_share=profile.get("device_idle_share"),
-             batch_occupancy_avg=stats[name]["batch_occupancy_avg"],
-             queue_depth_peak=stats[name]["queue_depth_peak"],
-             preemptions=stats[name]["preemptions"],
-             prefills=stats[name]["prefills"],
-             decode_steps=stats[name]["decode_steps"],
-             launches=launches[name],
-             token_agreement_with_fp32=round(agree, 4),
-             **_pipeline_fields(stats[name]))
+    tokens_per_s = statistics.median(passes)
+    profile = _profile_serve(server, prompts, max_new,
+                             label="serve_pipelined")
+    results["bf16"] = {"token_agreement_with_fp32": agree,
+                       "tokens_per_s": tokens_per_s,
+                       "tokens_per_s_passes": passes, "launches": counts,
+                       "stats": st, "profile": profile,
+                       "synchronous_tokens_equal": True}
+    emit("serve", cache="bfloat16", loop="pipelined",
+         tokens=st["tokens_generated"], tokens_per_s=tokens_per_s,
+         tokens_per_s_passes=passes,
+         device_idle_share=profile.get("device_idle_share"),
+         batch_occupancy_avg=st["batch_occupancy_avg"],
+         queue_depth_peak=st["queue_depth_peak"],
+         preemptions=st["preemptions"], prefills=st["prefills"],
+         decode_steps=st["decode_steps"], launches=counts,
+         token_agreement_with_fp32=round(agree, 4),
+         synchronous_tokens_equal=True, **_pipeline_fields(st))
     # (c) card OOMs injected at two decode launches of the pipelined
     # server: the same tokens, the OOMs counted, the launches exact
-    flaky = servers["pipelined"]
+    flaky = server
     seen = _inject_ooms(flaky.engine, DECODE_OOM_AT)
     flaky.engine.reset_cache()
     outs_c, _, counts_c, st_c = _serve_once(flaky, prompts, max_new)
@@ -2662,7 +2849,7 @@ def phase_serve():
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "serve.json").write_text(json.dumps(results, indent=1,
                                                    default=str))
-    return counts
+    return {"serve_disagg": counts_f, "serve": counts}
 
 
 def _lcp(a, b):
@@ -2713,48 +2900,56 @@ def phase_serve_q8():
                          "near_ties": near_ties}
     _serve_emit("oracle", st, wall, counts, memory=mem,
                 oracle_tokens_compared=compared, near_ties=near_ties)
+    common = dict(device="cuda", max_batch_size=8, block_size=16,
+                  cache_dtype=torch.float32, kv_quant="int8",
+                  enable_chunked_prefill=False, **LAYERS_OFF)
 
-    # (b) the same server and its synchronous twin, timed in turns after
-    # a warm-up pass each, then each profiled; the synchronous loop's
-    # tokens and launches are the pipelined loop's
-    servers = {"pipelined": server,
-               "synchronous": InferenceServer(
-                   cfg, params, device="cuda", max_batch_size=8,
-                   block_size=16, cache_dtype=torch.float32,
-                   kv_quant="int8", enable_chunked_prefill=False,
-                   enable_pipeline=False, **LAYERS_OFF)}
-    for srv in servers.values():
-        srv.generate(prompts[:2], max_new_tokens=2)
-    passes = {name: [] for name in servers}
-    outs, stats, launches, walls = {}, {}, {}, {}
-    for i in range(TIMED_SERVE_PASSES):
-        for name, srv in _alternate(servers, i):
-            srv.engine.reset_cache()
-            outs[name], walls[name], launches[name], stats[name] = \
-                _serve_once(srv, prompts, max_new)
-            passes[name].append(stats[name]["tokens_generated"]
-                                / walls[name])
-    if outs["synchronous"] != outs_a or outs["pipelined"] != outs_a \
-            or launches["synchronous"] != launches["pipelined"]:
+    # (f) disaggregated prefill/decode from the int8 pool (B8 in the
+    # decode pool): (a)'s tokens, but where the two part at an oracle
+    # near-tie, and (a)'s B4 launches
+    disagg = InferenceServer(cfg, params, enable_disagg=True, **common)
+    outs_d, wall_d, counts_d, st_d = _serve_once(disagg, prompts, max_new)
+    _disagg_check("serve_q8 (f)", st_d, counts_d, counts)
+    same, near_d = _same_but_near_ties(oracle, prompts, outs_d, outs_a,
+                                       True)
+    results["disagg"] = {"wall_s": wall_d, "launches": counts_d,
+                         "stats": st_d, "tokens_equal_to_a": same,
+                         "near_ties": near_d}
+    _serve_emit("disagg", st_d, wall_d, counts_d, tokens_equal_to_a=same,
+                near_ties=near_d, b4_launches_monolithic=counts[
+                    "flash_fwd"], b8_want=cfg.num_hidden_layers
+                * st_d["decode_steps"], handoff=st_d["disagg"]["handoff"])
+    del disagg
+
+    # (b) the same server timed, its passes after a warm-up, then
+    # profiled; one pass of its synchronous twin: the pipelined passes'
+    # tokens are (a)'s, the synchronous pass's tokens and launches theirs
+    server.generate(prompts[:2], max_new_tokens=2)
+    passes = []
+    for _ in range(TIMED_SERVE_PASSES):
+        server.engine.reset_cache()
+        outs_b, wall, timed_counts, st = _serve_once(server, prompts,
+                                                     max_new)
+        passes.append(st["tokens_generated"] / wall)
+    sync = InferenceServer(cfg, params, enable_pipeline=False, **common)
+    outs_s, _, counts_s, _ = _serve_once(sync, prompts, max_new)
+    if outs_b != outs_a or outs_s != outs_a or counts_s != timed_counts:
         raise AssertionError("serve_q8 (b): the timed passes' tokens or "
                              "launches differ from (a)'s")
-    timed_counts = launches["pipelined"]
-    for name, srv in servers.items():
-        profile = _profile_serve(srv, prompts, max_new,
-                                 label=f"serve_q8_{name}")
-        results[f"timed_{name}"] = {
-            "tokens_per_s": statistics.median(passes[name]),
-            "tokens_per_s_passes": passes[name],
-            "launches": launches[name], "stats": stats[name],
-            "same_tokens_as_a": True, "profile": profile}
-        _serve_emit(f"timed_{name}", stats[name], walls[name],
-                    launches[name],
-                    tokens_per_s_median=statistics.median(passes[name]),
-                    tokens_per_s_passes=passes[name],
-                    device_idle_share=profile.get("device_idle_share"),
-                    batch_occupancy_avg=stats[name]["batch_occupancy_avg"],
-                    same_tokens_as_a=True)
-    del server, servers
+    profile = _profile_serve(server, prompts, max_new,
+                             label="serve_q8_pipelined")
+    results["timed_pipelined"] = {
+        "tokens_per_s": statistics.median(passes),
+        "tokens_per_s_passes": passes, "launches": timed_counts,
+        "stats": st, "same_tokens_as_a": True,
+        "synchronous_tokens_equal": True, "profile": profile}
+    _serve_emit("timed_pipelined", st, wall, timed_counts,
+                tokens_per_s_median=statistics.median(passes),
+                tokens_per_s_passes=passes,
+                device_idle_share=profile.get("device_idle_share"),
+                batch_occupancy_avg=st["batch_occupancy_avg"],
+                same_tokens_as_a=True, synchronous_tokens_equal=True)
+    del server, sync
 
     # (c) equal pool bytes: bf16 blocks against int8 blocks
     geometry = dict(num_layers=cfg.num_hidden_layers,
@@ -2807,7 +3002,7 @@ def phase_serve_q8():
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "serve_q8.json").write_text(json.dumps(results, indent=1,
                                                       default=str))
-    return timed_counts
+    return {"serve_q8_disagg": counts_d, "serve_q8": timed_counts}
 
 
 # -- serve_programs ----------------------------------------------------------
@@ -2872,6 +3067,15 @@ S_PREDICTION = {
                "the same order, as the 7 stalled gaps are 2.6% of them; "
                "the long request's first token later when chunked "
                "(1.2-2x the monolithic time to first token)",
+    "e_disagg": "the disaggregated server's largest decoder gap 0.8-1.25x "
+                "the chunked server's in the same pass (the path is "
+                "host-bound: each step still launches the decode step and "
+                "a chunk from one host thread, and the second stream "
+                "hides only the chunk's device time, which the host's "
+                "launch time already covers); its median gap within "
+                "0.9-1.1x chunked; the long request's first token "
+                "1.0-1.3x chunked's (its hand-off and first decode come "
+                "a step after the last chunk)",
 }
 
 
@@ -3176,31 +3380,40 @@ def _stall_pass(server, shorts, long_prompt):
     after ``STALL_AT`` steps; returns the decoders' inter-token gaps (ms,
     from each step that gave a request tokens to the next; its first
     step gives two, the prefill's and a decode's), the long request's
-    time to its first token (ms), the stats and launches."""
+    time to its first token (ms), the stats, the launches, where the
+    largest gap and the long request's first token fell (steps after
+    its arrival) and the largest gap from its arrival on.  A token counts
+    when the step that applied it returns (the pipelined loop applies a
+    token at its retire, after waiting on that step's own event), with
+    no wait on the rest of the card's work: under disaggregation the
+    prefill stream's chunks run on while the decoders' tokens retire."""
     import torch
     from apex_tpu_torch._kernels import launch_counts, reset_launch_counts
-    server.engine.reset_cache()
+    for engine in (server.engine, server.prefill_engine):
+        if engine is not None:
+            engine.reset_cache()
     torch.cuda.synchronize()
     reset_launch_counts()
     server.reset_meters()
     reqs = [server.submit(p, STALL_NEW) for p in shorts]
     seen = {}
-    gaps, long_req, ttft, steps = [], None, None, 0
+    gaps, gap_steps, long_req, ttft, steps = [], [], None, None, 0
     while server.has_work:
         if steps == STALL_AT:
             long_req = server.submit(long_prompt, STALL_LONG_NEW)
             t_submit = time.perf_counter()
         server.step()
-        torch.cuda.synchronize()
         now, steps = time.perf_counter(), steps + 1
         for i, r in enumerate(reqs):
             n = len(r.generated)
             if n and seen.get(i, (0, 0))[0] != n:
                 if i in seen:
                     gaps.append((now - seen[i][1]) * 1e3)
+                    gap_steps.append(steps - STALL_AT)
                 seen[i] = (n, now)
         if long_req is not None and ttft is None and long_req.generated:
             ttft = (now - t_submit) * 1e3
+            ttft_step = steps - STALL_AT
     counts, st = launch_counts(), server.stats()
     layers = server.engine.cfg.num_hidden_layers
     forwards = st["prefills"] + st["prefill_chunks"] + st["decode_steps"]
@@ -3216,15 +3429,20 @@ def _stall_pass(server, shorts, long_prompt):
         raise AssertionError(f"serve_programs (e): launches {counts}, "
                              f"{st['prefills']} prefills, "
                              f"{st['prefill_chunks']} chunks")
-    return gaps, ttft, st, counts
+    where = {"gap_max_step": gap_steps[gaps.index(max(gaps))],
+             "long_first_token_step": ttft_step,
+             "gap_max_from_arrival_ms": max(
+                 g for g, at in zip(gaps, gap_steps) if at >= 1)}
+    return gaps, ttft, st, counts, where
 
 
 def _programs_stall(shared):
     """(e) the stall a long prompt puts on a decoding batch: the default
-    server (chunks of 256) and the monolithic prefill on the bf16 pool,
-    passes in turns after a warm-up each; the decoders' median, p99 and
-    largest inter-token gaps and the long request's time to first
-    token, each the median over the passes."""
+    server (chunks of 256), the monolithic prefill and the
+    disaggregated server (chunks of 256 on the prefill pool's stream) on
+    the bf16 pool, passes in turns after a warm-up each; the decoders'
+    median, p99 and largest inter-token gaps and the long request's
+    time to first token, each the median over the passes."""
     import torch
     t0 = time.perf_counter()
     shorts = shared["prompts"][:STALL_DECODERS]
@@ -3232,22 +3450,32 @@ def _programs_stall(shared):
         0, shared["cfg"].vocab_size, STALL_PROMPT).tolist()
     servers = {"chunked": _programs_server(shared, "off", torch.bfloat16),
                "monolithic": _programs_server(shared, "off", torch.bfloat16,
-                                              enable_chunked_prefill=False)}
+                                              enable_chunked_prefill=False),
+               "disagg": _programs_server(shared, "off", torch.bfloat16,
+                                          enable_disagg=True)}
     for srv in servers.values():
         srv.generate([shorts[0], long_prompt[:300]], max_new_tokens=2)
     passes = {name: [] for name in servers}
     for _ in range(PROGRAMS_TIMED_PASSES):
         for name, srv in servers.items():
-            gaps, ttft, st, counts = _stall_pass(srv, shorts, long_prompt)
+            gaps, ttft, st, counts, where = _stall_pass(srv, shorts,
+                                                        long_prompt)
+            pipe = st["pipeline"]
             passes[name].append({
                 "gap_median_ms": statistics.median(gaps),
                 "gap_p99_ms": float(np.percentile(gaps, 99)),
                 "gap_max_ms": max(gaps), "gaps": len(gaps),
                 "long_ttft_ms": ttft, "prefill_chunks": st["prefill_chunks"],
-                "prefills": st["prefills"], "launches": counts})
+                "prefills": st["prefills"], "launches": counts,
+                "host_stall_ms_max": pipe["host_stall_ms"].get("max"),
+                "host_plan_ms_max": pipe["host_plan_ms"].get("max"),
+                **where})
     out = {name: {k: statistics.median(p[k] for p in ps)
                   for k in ("gap_median_ms", "gap_p99_ms", "gap_max_ms",
-                            "long_ttft_ms")}
+                            "long_ttft_ms", "gap_max_step",
+                            "long_first_token_step",
+                            "gap_max_from_arrival_ms", "host_stall_ms_max",
+                            "host_plan_ms_max")}
            for name, ps in passes.items()}
     out["chunk"] = servers["chunked"].prefill_chunk
     out["seconds"] = time.perf_counter() - t0
@@ -3682,17 +3910,20 @@ def _features_lifecycle(shared, traffic):
 
 
 def _features_timing(shared, traffic, snippets):
-    """One timed pass each of (a)'s and (c)'s traffic on the default bf16
-    pool, the three layers on and off, in turns after one warm-up each."""
+    """One timed pass each of (a)'s traffic on the default bf16 pool, the
+    three layers on and off, in turns after one warm-up each, and of
+    (c)'s with the layers on."""
     import torch
     servers = {"on": _features_server(shared, torch.bfloat16),
                "off": _features_server(shared, torch.bfloat16, **LAYERS_OFF)}
     for srv in servers.values():
         srv.generate(snippets[:2], max_new_tokens=2)
     out = {}
-    for leg, first, rest in (("a", traffic[:1], traffic[1:]),
-                             ("c", [], snippets)):
-        for name, srv in servers.items():
+    for leg, first, rest, names in (
+            ("a", traffic[:1], traffic[1:], ("on", "off")),
+            ("c", [], snippets, ("on",))):
+        for name in names:
+            srv = servers[name]
             srv.engine.reset_cache()
             _, wall, counts, st = _features_pass(srv, first, rest,
                                                  FEATURES_NEW)
@@ -8988,7 +9219,8 @@ def _main(phases):
         t0 = time.perf_counter()
         by_path = run()
         seconds[phase] = time.perf_counter() - t0
-        if phase not in ("train_resnet", "serve_programs",
+        if phase not in ("train_resnet", "serve", "serve_q8",
+                         "serve_programs",
                          "serve_features", "train",
                          "train_bert",
                          "train_gpt_remat", "train_gpt_dropout",

@@ -44,7 +44,7 @@ TINY = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=2, intermediate_size=64,
             max_position_embeddings=128, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0)
-JAX_FLAGS = dict(enable_streaming=False, enable_program_accounting=False)
+JAX_FLAGS = dict(enable_program_accounting=False)
 PROMPTS = [[3, 1, 4, 1, 5, 9, 2, 6], [2, 7, 1, 8]]
 GEOMETRY = dict(max_batch_size=2, max_context=64, block_size=8,
                 enable_speculation=False)

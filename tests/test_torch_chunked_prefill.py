@@ -47,8 +47,8 @@ TINY = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
             attention_probs_dropout_prob=0.0)
 
 SLICE_FLAGS = dict(enable_prefix_cache=False, enable_speculation=False,
-                   enable_overload=False, enable_streaming=False,
-                   enable_program_accounting=False, mesh=None)
+                   enable_overload=False, enable_program_accounting=False,
+                   mesh=None)
 
 CHUNK = 8
 # 41 and 30 cross several chunks and blocks of 16

@@ -3,8 +3,8 @@
 Weights come from the JAX package's own init and cross over through
 ``params_from_jax``; the JAX side is the reference serving stack with
 the slice's flags (no prefix cache, chunked prefill, speculation,
-overload, streaming or program accounting; flash prefill; the pipelined
-loop and the breaker on, as in both packages' defaults), run through its
+overload or program accounting; flash prefill; the pipelined loop, the
+breaker and streaming on, as in both packages' defaults), run through its
 normal entry points.  The tiny configuration is
 ``examples/serving/serve_gpt.py``'s; the preemption case is
 ``tests/L0/test_serving_engine.py::test_preemption_is_bit_stable``'s.
@@ -39,8 +39,7 @@ TINY = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
 
 SLICE_FLAGS = dict(enable_prefix_cache=False, enable_chunked_prefill=False,
                    enable_speculation=False, enable_overload=False,
-                   enable_streaming=False, enable_program_accounting=False,
-                   kv_quant=None, mesh=None)
+                   enable_program_accounting=False, kv_quant=None, mesh=None)
 
 # the port's twins of the layers SLICE_FLAGS turns off, which its server
 # runs by default: off, so the launch, step and free-block checks read

@@ -75,7 +75,8 @@ def test_every_module_imports_with_jax_blocked():
                   "ops.unpatched", "utils.checkpoint",
                   "utils.torch_interop", "models.dcgan",
                   "examples.dcgan_main_amp", "resilience",
-                  "resilience.breaker"):
+                  "resilience.breaker", "serving.streaming",
+                  "serving.streaming.broker"):
             assert "apex_tpu_torch." + m in mods, m
         leaked = [m for m in sys.modules
                   if m == "apex_tpu" or m.startswith("apex_tpu.")]

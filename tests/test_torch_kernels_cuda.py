@@ -32,7 +32,9 @@ ring and Ulysses attention at a world of one; BERT's token-type gradient
 repeats its bits; the stochastic sampler (``sample_tokens``, plain
 PyTorch) and the row-batched threefry it draws with give on the card
 the CPU's keys and uniform bits bit for bit, Gumbel noise within
-``NOISE_ULPS`` epsilons of max(|x|, 1), and the CPU's tokens.
+``NOISE_ULPS`` epsilons of max(|x|, 1), and the CPU's tokens; the
+disaggregated server, its prefill engine on a stream of its own and its
+pool one context, gives the monolithic server's tokens.
 Scale-aware error
 max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
 flash o, dq, dk and dv also row by row (``row_err``); every kernel call
@@ -1544,3 +1546,43 @@ def test_sampler_and_row_batched_threefry_match_the_cpu(gen):
     top2 = score.topk(2).values
     near = (top2[:, 0] - top2[:, 1]) < 1e-4
     assert torch.equal(ids.cpu()[~near], ids_cpu[~near])
+
+
+def test_disagg_tight_prefill_pool_hands_off_on_the_card(gen):
+    """The disaggregated server on the card, its prefill engine on a
+    stream of its own and its pool one full context (every hand-off's
+    blocks are rewritten by the next prefill at once, which must wait
+    for the copy): the tokens are the monolithic server's, both pools
+    audit clean after every step, and the prefill pool launches B4 once
+    a layer a prompt, as the monolithic server does."""
+    gpt = importlib.import_module("apex_tpu_torch.models.gpt")
+    serving = importlib.import_module("apex_tpu_torch.serving")
+    cfg = gpt.GPTConfig(vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256,
+                        max_position_embeddings=128, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    sd = gpt.GPTLMHeadModel(cfg, device="cuda", seed=0).state_dict()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 64, size=int(rng.randint(4, 100))).tolist()
+               for _ in range(8)]
+    kw = dict(device="cuda", max_batch_size=4, block_size=16,
+              cache_dtype=torch.float32, enable_chunked_prefill=False)
+    mono = serving.InferenceServer(cfg, sd, **kw)
+    before = launch_counts()
+    want = mono.generate(prompts, 24)
+    mono_flash = launch_counts()["flash_fwd"] - before.get("flash_fwd", 0)
+    srv = serving.InferenceServer(
+        cfg, sd, enable_disagg=True,
+        disagg_prefill_blocks=mono.engine.blocks_per_seq + 1, **kw)
+    assert srv.prefill_engine.stream is not None
+    before = launch_counts()
+    reqs = [srv.submit(p, 24) for p in prompts]
+    while srv.has_work:
+        srv.step()
+        srv.audit()
+    torch.cuda.synchronize()
+    flash = launch_counts()["flash_fwd"] - before.get("flash_fwd", 0)
+    st = srv.stats()
+    assert [r.generated for r in reqs] == want
+    assert st["disagg"]["handoff"]["requests"] == len(prompts)
+    assert flash == mono_flash == cfg.num_hidden_layers * len(prompts)

@@ -60,8 +60,7 @@ TINY = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
 
 SLICE_FLAGS = dict(enable_prefix_cache=False, enable_chunked_prefill=False,
                    enable_speculation=False, enable_overload=False,
-                   enable_streaming=False, enable_program_accounting=False,
-                   mesh=None)
+                   enable_program_accounting=False, mesh=None)
 # the port's twins of the layers SLICE_FLAGS turns off, which its server
 # runs by default: off, so the step and free-block checks read the path
 # the JAX oracle runs

@@ -11,7 +11,7 @@ vocabulary against apex_tpu's.
   the same traffic with the reference's default layers (prefix cache,
   speculation where the reference keeps it, overload control, the
   pipelined loop and the breaker) and the rest of the slice's flags off
-  (no streaming or program accounting); tokens, finish reasons, the failure counts and
+  (no program accounting); tokens, finish reasons, the failure counts and
   the pressure readings are equal.  The raw-scheduler cases run the
   same calls on the JAX ``Scheduler``.
 - ``cancel`` of a running and a waiting request, and a drain that is
@@ -57,8 +57,7 @@ TINY = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
             max_position_embeddings=128, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0)
 
-JAX_FLAGS = dict(enable_streaming=False, enable_program_accounting=False,
-                 mesh=None)
+JAX_FLAGS = dict(enable_program_accounting=False, mesh=None)
 
 
 @pytest.fixture(scope="module")

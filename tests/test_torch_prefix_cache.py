@@ -8,7 +8,7 @@ copy-on-write) against apex_tpu's.
   on (its default) against the JAX server with
   ``enable_prefix_cache=True``, the pipelined loop and the breaker on
   (both packages' defaults) and the rest of the slice's flags off (no
-  speculation, overload, streaming or program accounting), chunked at 8 and unchunked, over shared-prefix traffic,
+  speculation, overload or program accounting), chunked at 8 and unchunked, over shared-prefix traffic,
   a pool that forces preemption, one that forces eviction, a
   whole-context hit (copy-on-write) and the int8 pool.  Tokens are
   identical, ``stats()``'s prefix keys equal the JAX server's, and
@@ -38,8 +38,8 @@ TINY = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
             attention_probs_dropout_prob=0.0)
 
 JAX_FLAGS = dict(enable_prefix_cache=True, enable_speculation=False,
-                 enable_overload=False, enable_streaming=False,
-                 enable_program_accounting=False, mesh=None)
+                 enable_overload=False, enable_program_accounting=False,
+                 mesh=None)
 
 PREFIX_KEYS = ("prefix_hit_tokens", "prefix_miss_tokens",
                "prefix_hit_requests", "prefix_hit_rate",
@@ -344,7 +344,7 @@ def test_default_server_matches_jax_defaults(tiny, chunk):
     geometry = dict(max_batch_size=3, max_context=128, block_size=8)
     jserver = JaxInferenceServer(
         jcfg, jparams, cache_dtype=jnp.float32, kv_quant=None,
-        attention_fn=jax_make_flash(causal=True), enable_streaming=False,
+        attention_fn=jax_make_flash(causal=True),
         enable_program_accounting=False, mesh=None, **geometry, **chunked)
     server = InferenceServer(cfg, sd, device="cpu",
                              cache_dtype=torch.float32, **geometry, **chunked)

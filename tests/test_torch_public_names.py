@@ -32,6 +32,12 @@ default device, each against the JAX object.
   ``CircuitBreaker`` as the JAX package does, the server's
   ``enable_pipeline``, ``enable_breaker``, ``breaker`` and ``sample_fn``
   defaults are the JAX server's, and ``serving`` exports none of them;
+- disaggregation's and streaming's names: ``serving.streaming`` exports
+  ``StreamBroker`` and ``TokenStream`` as the JAX package does (and
+  ``serving`` neither), the server's ``enable_disagg``,
+  ``disagg_prefill_blocks``, ``prefill_max_concurrent``,
+  ``enable_streaming`` and ``stream_queue_tokens`` defaults and the
+  broker's are the JAX ones, and both schedulers have the hand-off;
 - ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
   on the card unless asked for the CPU, as ``jax.random`` draws on the
   default device: without CUDA the default raises, and ``device="cpu"``
@@ -336,5 +342,37 @@ def test_pipeline_and_breaker_names_match_jax():
             hasattr(jserving.Scheduler, name), name
     want = inspect.signature(jresilience.CircuitBreaker).parameters
     got = inspect.signature(resilience.CircuitBreaker).parameters
+    assert {k: v.default for k, v in got.items()} == \
+        {k: v.default for k, v in want.items()}
+
+
+def test_disagg_and_streaming_names_match_jax():
+    import inspect
+
+    from apex_tpu import serving as jserving
+    from apex_tpu.serving import streaming as jstreaming
+    from apex_tpu_torch import serving
+    from apex_tpu_torch.serving import streaming
+
+    assert streaming.__all__ == jstreaming.__all__ == ["StreamBroker",
+                                                        "TokenStream"]
+    for name in streaming.__all__:
+        assert name not in serving.__all__ and name not in jserving.__all__
+    want = inspect.signature(jserving.InferenceServer).parameters
+    got = inspect.signature(serving.InferenceServer).parameters
+    for name in ("enable_disagg", "disagg_prefill_blocks",
+                 "prefill_max_concurrent", "enable_streaming",
+                 "stream_queue_tokens"):
+        assert got[name].default == want[name].default, name
+    assert got["enable_disagg"].default is False
+    assert got["enable_streaming"].default is True
+    for name in ("has_free_slot", "admit_handoff", "release_handoff"):
+        assert hasattr(serving.Scheduler, name) and \
+            hasattr(jserving.Scheduler, name), name
+    for name in ("stream", "cancel", "audit"):
+        assert hasattr(serving.InferenceServer, name) and \
+            hasattr(jserving.InferenceServer, name), name
+    want = inspect.signature(jstreaming.StreamBroker).parameters
+    got = inspect.signature(streaming.StreamBroker).parameters
     assert {k: v.default for k, v in got.items()} == \
         {k: v.default for k, v in want.items()}

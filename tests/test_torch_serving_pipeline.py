@@ -3,8 +3,8 @@
 Twins of ``tests/L0/test_pipeline.py:123-421``: dispatch-ahead must be a
 reordering of the synchronous loop, never a different computation.
 
-- The JAX server with the pipeline on (its default; streaming and
-  program accounting off, the layers the port does not have) runs each
+- The JAX server with the pipeline on (its default; program
+  accounting off, the layer the port does not have) runs each
   undisturbed scenario once, in a module fixture: 64 tokens on two
   requests, forced preemption, forced prefix eviction, speculation on
   and off.  The port's pipelined and synchronous loops give its tokens
@@ -44,9 +44,9 @@ TINY = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
             max_position_embeddings=128, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0)
 
-# the reference's layers the port does not have yet; every other layer
+# the reference's layer the port does not have yet; every other layer
 # (pipeline and breaker included) stays at the reference's default
-JAX_FLAGS = dict(enable_streaming=False, enable_program_accounting=False)
+JAX_FLAGS = dict(enable_program_accounting=False)
 
 OOMS = (MemoryError, torch.OutOfMemoryError)
 

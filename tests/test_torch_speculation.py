@@ -7,7 +7,7 @@ lookahead) against apex_tpu's.
 - Greedy parity: the port's server with speculation on (its default)
   against the JAX server with ``enable_speculation=True``, the pipelined
   loop and the breaker on (both packages' defaults) and the rest of the
-  slice's flags off (no prefix cache, overload, streaming or program
+  slice's flags off (no prefix cache, overload or program
   accounting): tokens, drafted and
   accepted tokens, verify and decode steps, and lookahead blocks
   granted and rolled back are all equal; chunked and unchunked, with a
@@ -47,8 +47,8 @@ TINY = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
             attention_probs_dropout_prob=0.0)
 
 JAX_FLAGS = dict(enable_prefix_cache=False, enable_speculation=True,
-                 enable_overload=False, enable_streaming=False,
-                 enable_program_accounting=False, mesh=None)
+                 enable_overload=False, enable_program_accounting=False,
+                 mesh=None)
 NEAR_TIE = 1e-4
 
 SPEC_KEYS = ("drafted_tokens", "accepted_tokens", "acceptance_rate",
