@@ -10,7 +10,13 @@ continuous batching.
   block copies and the checksummed block export/import, greedy or
   stochastic sampling on the device;
 - :mod:`serving.prefix_cache` — the block-level prefix index (shared
-  full blocks, evictable holds, copy-on-write at whole-context hits);
+  full blocks, evictable holds, copy-on-write at whole-context hits) and
+  its offload tier's demote and promote;
+- :mod:`serving.offload` — the host-RAM and disk store behind it
+  (:class:`OffloadStore`, :func:`resolve_kv_offload`);
+- :mod:`serving.transport` — the KV transport the promote rides
+  (in-process or loopback TCP, under a retry/deadline/breaker envelope
+  with exactly-once ingest);
 - :mod:`serving.speculation` — draft proposers (:class:`NgramDraft`);
 - :mod:`serving.overload` — the shed / displace / preempt policy;
 - :mod:`serving.reasons` — the finish-reason vocabulary;
@@ -24,7 +30,8 @@ continuous batching.
   close and ``stream``): a pipelined (dispatch-ahead) loop by default,
   the circuit breaker (:mod:`apex_tpu_torch.resilience`), the
   transient-OOM retry, and disaggregated prefill/decode on one host
-  (``enable_disagg``: a prefill pool on a CUDA stream of its own).
+  (``enable_disagg``: a prefill pool on a CUDA stream of its own), and
+  hierarchical KV offload (``enable_kv_offload``).
 """
 
 from apex_tpu_torch.ops.sampling import SamplingParams
@@ -43,6 +50,7 @@ from apex_tpu_torch.serving.kv_cache import (
     resolve_cache_dtype,
     resolve_kv_quant,
 )
+from apex_tpu_torch.serving.offload import OffloadStore, resolve_kv_offload
 from apex_tpu_torch.serving.overload import OverloadPolicy
 from apex_tpu_torch.serving.prefix_cache import PrefixCache
 from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
@@ -56,6 +64,7 @@ __all__ = [
     "InferenceServer",
     "KVCacheConfig",
     "NgramDraft",
+    "OffloadStore",
     "OverloadPolicy",
     "PrefixCache",
     "QueueFullError",
@@ -68,5 +77,6 @@ __all__ = [
     "init_kv_cache",
     "pick_bucket",
     "resolve_cache_dtype",
+    "resolve_kv_offload",
     "resolve_kv_quant",
 ]

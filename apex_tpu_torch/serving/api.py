@@ -4,10 +4,11 @@ Twin of ``apex_tpu/serving/api.py::InferenceServer`` with the reference's
 default serving layers — the pipelined (dispatch-ahead) loop, the
 circuit breaker and the transient-OOM retry, the prefix cache with
 copy-on-write, n-gram speculative decoding, overload control, deadlines,
-the drain/cancel/close lifecycle and per-token streaming — and its
-disaggregated prefill/decode on one host (off by default, as there);
-without KV offload, the cross-replica hand-off, program accounting, a
-metrics registry or a mesh.
+the drain/cancel/close lifecycle and per-token streaming — its
+disaggregated prefill/decode on one host and its hierarchical KV offload
+over the KV transport (both off by default, as there); without the
+cross-replica hand-off, program accounting, a metrics registry or a
+mesh.
 
 Each :meth:`step` first RETIRES the previous iteration's launched decode
 or verify step (waits on its CUDA event and applies its token ids and
@@ -43,6 +44,16 @@ released prefill blocks may be rewritten at once.  The prefill pool
 holds the prefix cache, so released blocks stay warm there.  A hand-off
 that finds no decode slot or blocks, or whose copy OOMs (torn or not),
 stays queued with its blocks and retries whole next step.
+
+**Hierarchical KV offload** (``enable_kv_offload=True``, or the
+``APEX_TPU_KV_OFFLOAD`` environment variable when the kwarg is None):
+evicted prefix-cache blocks demote into a bounded host-RAM store
+(:class:`serving.offload.OffloadStore`, spilling to ``kv_offload_dir``)
+and promote back at a later admission's cache walk, imported through the
+checksummed ``import_blocks`` into the cache home's pool (the prefill
+pool under disaggregation).  The promote rides the KV transport
+(``kv_transport``, default an :class:`serving.transport.InProcessTransport`
+on ``clock``): the server registers its ``"offload"`` peer there.
 
 **Streaming** (``enable_streaming=True``, the default):
 :meth:`InferenceServer.stream` gives a request's tokens as they retire
@@ -82,23 +93,23 @@ from apex_tpu_torch.resilience.breaker import CircuitBreaker
 from apex_tpu_torch.serving import reasons
 from apex_tpu_torch.serving.engine import DecodeEngine
 from apex_tpu_torch.serving.kv_cache import KV_QUANT_ENV
+from apex_tpu_torch.serving.offload import KV_OFFLOAD_ENV, OffloadStore, \
+    resolve_kv_offload
+from apex_tpu_torch.serving.oom import OOM_ERRORS
 from apex_tpu_torch.serving.overload import AdmissionEstimator, \
     OverloadPolicy
 from apex_tpu_torch.serving.prefix_cache import PrefixCache
 from apex_tpu_torch.serving.scheduler import QueueFullError, Request, Scheduler
 from apex_tpu_torch.serving.speculation import DraftSource, NgramDraft
 from apex_tpu_torch.serving.streaming import StreamBroker, TokenStream
+from apex_tpu_torch.serving.transport import InProcessTransport, \
+    KVTransport, TransportPolicy
 from apex_tpu_torch.utils.meters import CounterMeter
 
 # the reference's default prefill chunk, capped at max_context
 DEFAULT_PREFILL_CHUNK = 256
 # the reference's default drafted tokens a verify step
 DEFAULT_SPEC_TOKENS = 4
-
-# the transient engine OOMs the loop skips and retries: the reference's
-# MemoryError, and the CUDA caching allocator's torch.OutOfMemoryError,
-# which is a RuntimeError and not a MemoryError
-OOM_ERRORS = (MemoryError, torch.OutOfMemoryError)
 
 
 def greedy_sample(logits) -> np.ndarray:
@@ -268,6 +279,28 @@ class InferenceServer:
         (default on), each stream's queue bounded at
         ``stream_queue_tokens`` (default 256; a slow consumer's oldest
         notifications drop and are backfilled from the request).
+      enable_kv_offload: hierarchical KV offload (default off; None
+        defers to the ``APEX_TPU_KV_OFFLOAD`` environment variable, and
+        a kwarg that is given wins): cold evictable prefix-cache blocks
+        demote into a bounded host-RAM store — optionally spilling to
+        ``kv_offload_dir`` with checksummed atomic writes — instead of
+        dying at eviction, and promote back into fresh blocks
+        (checksummed ``import_blocks``) when a later admission's walk
+        wants them, so a cache hit spans device -> host -> disk at a
+        fixed pool.  Every integrity or capacity failure on the offload
+        path falls back to cold prefill, with the same tokens.  Needs
+        the prefix cache (``ValueError`` without it).
+      kv_offload_host_bytes: the host-RAM tier's byte bound (default 64
+        MiB); the coldest entries past it spill or drop.
+      kv_offload_dir: optional disk spill tier directory; surviving
+        entries are adopted on construction (content-addressed).
+      kv_transport: the KV transport backend the offload promote rides,
+        a :class:`serving.transport.KVTransport`; default a fresh
+        :class:`~serving.transport.InProcessTransport` on ``clock`` (the
+        direct import call under the envelope).  The server registers
+        its ``"offload"`` ingest peer on it, ``stats()["transport"]``
+        reports the envelope's counters either way, and :meth:`close`
+        closes it.
 
     Example::
 
@@ -303,7 +336,11 @@ class InferenceServer:
                  disagg_prefill_blocks: Optional[int] = None,
                  prefill_max_concurrent: int = 2,
                  enable_streaming: bool = True,
-                 stream_queue_tokens: int = 256):
+                 stream_queue_tokens: int = 256,
+                 enable_kv_offload: Optional[bool] = None,
+                 kv_offload_host_bytes: int = 64 << 20,
+                 kv_offload_dir: Optional[str] = None,
+                 kv_transport: Optional[KVTransport] = None):
         if kv_quant is None:
             kv_quant = os.environ.get(KV_QUANT_ENV)
         self.engine = DecodeEngine(
@@ -389,6 +426,36 @@ class InferenceServer:
             PrefixCache((self.prefill_engine or self.engine).allocator,
                         self.engine.block_size, counters=self.prefix)
             if enable_prefix_cache else None)
+        if enable_kv_offload is None:
+            enable_kv_offload = os.environ.get(KV_OFFLOAD_ENV)
+        self.kv_offload = resolve_kv_offload(enable_kv_offload)
+        # the offload promote rides the transport's envelope; the default
+        # in-process backend on the server's clock is the direct import
+        # call, with no extra random draws and no extra branch
+        self.kv_transport = kv_transport if kv_transport is not None \
+            else InProcessTransport(policy=TransportPolicy(clock=clock))
+        self.kv_transport.register_peer("offload", self._offload_ingest)
+        self.offload_store: Optional[OffloadStore] = None
+        if self.kv_offload:
+            if self.prefix_cache is None:
+                raise ValueError(
+                    "enable_kv_offload requires the prefix cache "
+                    "(enable_prefix_cache=True) — the offload tiers "
+                    "extend its radix index")
+            self.offload_store = OffloadStore(
+                host_bytes=kv_offload_host_bytes, spill_dir=kv_offload_dir)
+            # the closures resolve the cache-home engine at call time, so
+            # a wrapper installed on it later intercepts; reset_meters
+            # gives the store and the cache the server's meters
+            self.prefix_cache.attach_offload(
+                self.offload_store,
+                lambda ids: self._cache_home().export_blocks(
+                    ids, per_block_crc=True),
+                lambda ids, payload: self.kv_transport.send(
+                    "offload",
+                    {"op": "promote", "blocks": [int(b) for b in ids]},
+                    payload),
+                clock=clock)
         self.scheduler = Scheduler(
             self.engine.allocator,
             max_batch_size=self.engine.max_batch_size,
@@ -857,6 +924,27 @@ class InferenceServer:
             q.popleft()
         return produced
 
+    # -- the offload tier -----------------------------------------------------
+
+    def _cache_home(self) -> DecodeEngine:
+        """The engine whose pool holds the prefix cache: the prefill
+        engine under disaggregation, else the engine."""
+        return self.prefill_engine if self.disagg else self.engine
+
+    def _offload_ingest(self, meta: dict, payload: dict) -> dict:
+        """The receiving half of an offload promote: import the
+        checksummed payload into the blocks the sender reserved, in the
+        cache home's pool, on its engine's stream.  Under disaggregation
+        that stream already waits for every hand-off copy that read the
+        blocks a hand-off freed (``_process_handoffs`` orders it before
+        the release), so the import, like a chunk, writes only after the
+        decode stream's read.  A torn payload raises ``ValueError``
+        natively: the transport reports it to the sender un-retried and
+        caches nothing."""
+        blocks = [int(b) for b in meta["blocks"]]
+        self._cache_home().import_blocks(blocks, payload)
+        return {"blocks": len(blocks)}
+
     def _note_token(self, req: Request) -> None:
         """Stamp the first-token edge of ``req``'s timeline, or the gap
         since its previous token."""
@@ -1245,12 +1333,14 @@ class InferenceServer:
         return self.stats()
 
     def close(self) -> dict:
-        """:meth:`drain`, then refuse further submissions.  The drain
-        runs once; later calls return the same stats snapshot."""
+        """:meth:`drain`, then refuse further submissions and close the
+        KV transport.  The drain runs once; later calls return the same
+        stats snapshot."""
         if self._closed:
             return self._final_stats
         self._final_stats = self.drain()
         self._closed = True
+        self.kv_transport.close()
         return self._final_stats
 
     def cancel(self, uid: int) -> bool:
@@ -1344,6 +1434,14 @@ class InferenceServer:
             self.prefix_cache.counters = self.prefix
         self.pipe = CounterMeter()
         self.oom = CounterMeter()
+        # the offload tier's counters and exact promote seconds (with
+        # offload off too: stats() keeps its shape)
+        self.offload = CounterMeter()
+        self.offload_promote: List[float] = []
+        if self.offload_store is not None:
+            self.offload_store.counters = self.offload
+            self.prefix_cache.offload_counters = self.offload
+            self.prefix_cache.promote_samples = self.offload_promote
         self.handoffs = CounterMeter()
         ours = self.breaker is not None \
             and self.breaker.counters is self.breaker_events
@@ -1394,7 +1492,10 @@ class InferenceServer:
         else the prefill pool's blocks and the hand-off counters
         (``memory`` is then the decode pool's, with no evictable holds:
         the prefix cache lives in the prefill pool); ``streams`` the
-        broker's counters and open streams, and the cancellations."""
+        broker's counters and open streams, and the cancellations;
+        ``offload`` the offload tier's (:meth:`_offload_stats`) and
+        ``transport`` the KV transport's envelope counters, totals and a
+        row a peer, with each peer's breaker state."""
         sched = self.scheduler
         self._account_pending_produced()
         self._finalize_finished()
@@ -1469,6 +1570,8 @@ class InferenceServer:
             "memory": self._memory_stats(),
             "disagg": self._disagg_stats(),
             "streams": self._stream_stats(),
+            "offload": self._offload_stats(),
+            "transport": self.kv_transport.stats(),
         }
         if self.prefix_cache is not None:
             pre = self.prefix
@@ -1532,6 +1635,29 @@ class InferenceServer:
                         "pending_peak": int(self.handoff_pending.peak),
                         **self.handoffs.as_dict()},
             "sink_attached": False,
+        }
+
+    def _offload_stats(self) -> dict:
+        """The ``stats()["offload"]`` block: the demote, promote (by the
+        tier it came from), spill and reject counters, the store's tier
+        occupancy and ``promote_ms`` (``{count, p50, p90, p99, max}`` over
+        the exact samples); every key present, zero, with offload
+        off."""
+        c = self.offload.count
+        store = self.offload_store
+        on = store is not None
+        return {
+            "enabled": self.kv_offload,
+            **{key: c(key) for key in (
+                "demotes", "demote_failed", "promotes_host",
+                "promotes_disk", "spills", "crc_rejects", "disk_torn",
+                "capacity_skips", "transport_skips", "host_dropped")},
+            "host_entries": store.host_entries if on else 0,
+            "host_bytes": store.host_used_bytes if on else 0,
+            "host_bytes_cap": store.host_bytes if on else 0,
+            "disk_entries": store.disk_entries if on else 0,
+            "spill_dir": store.spill_dir if on else None,
+            "promote_ms": _hist_ms(self.offload_promote),
         }
 
     def _stream_stats(self) -> dict:

@@ -131,10 +131,11 @@ def _host_bytes(rows: torch.Tensor) -> np.ndarray:
     return rows.numpy()
 
 
-def _device_rows(name: str, arr, pool: torch.Tensor) -> torch.Tensor:
-    """A payload leaf's host array -> the same bytes as ``pool``'s dtype
-    on its device (a bf16 leaf may come as uint16 bits or as the JAX
-    engine's ml_dtypes bfloat16)."""
+def _row_bytes(name: str, arr, pool: torch.Tensor) -> np.ndarray:
+    """A payload leaf's host array -> its bytes as a writeable uint8
+    array, the last axis widened by the element size (a bf16 leaf may
+    come as uint16 bits or as the JAX engine's ml_dtypes bfloat16);
+    ``.view(pool.dtype)`` of the tensor made from it gives the rows."""
     a = np.ascontiguousarray(arr)
     if a.dtype.itemsize != pool.element_size():
         raise ValueError(
@@ -142,8 +143,7 @@ def _device_rows(name: str, arr, pool: torch.Tensor) -> torch.Tensor:
             f"the pool's are {_dtype_name(pool.dtype)}")
     if not a.flags.writeable:
         a = a.copy()
-    return torch.from_numpy(a.view(np.uint8)).view(pool.dtype).to(
-        pool.device)
+    return a.view(np.uint8)
 
 
 # the reference's padded width of one block-copy launch, kept for parity
@@ -629,8 +629,8 @@ class DecodeEngine:
         bits) and a crc32 of each leaf's bytes, equal to the JAX
         engine's for the same pool contents.  ``per_block_crc=True``
         adds a crc32 a block a leaf (``"block_crc"``)."""
-        slots = torch.from_numpy(
-            self._block_slots(block_ids, len(block_ids))).to(self.device)
+        slots, = self._to_device(self._block_slots(block_ids,
+                                                   len(block_ids)))
         leaves = {name: _host_bytes(arr[:, slots])
                   for name, arr in self.cache.items()}
         bs = self.block_size
@@ -659,7 +659,9 @@ class DecodeEngine:
         same geometry).  Every leaf's crc32 is checked first and a
         mismatch raises :class:`ValueError`: a torn payload is rejected
         whole, never half-imported.  An empty transfer touches
-        nothing."""
+        nothing.  The ids and rows go through :meth:`_to_device`'s
+        pinned staging, so an import does not wait on the card (an
+        export does: its bytes come back to the host)."""
         if payload.get("block_size") != self.block_size \
                 or payload.get("num_blocks") != len(block_ids):
             raise ValueError(
@@ -684,12 +686,14 @@ class DecodeEngine:
                     f"payload rejected whole")
         if not len(block_ids):
             return
-        slots = torch.from_numpy(
-            self._block_slots(block_ids, len(block_ids))).to(self.device)
-        rows = {name: _device_rows(name, leaves[name], pool)
-                for name, pool in self.cache.items()}
-        for name, pool in self.cache.items():
-            pool[:, slots] = rows[name]
+        names = list(self.cache)
+        slots, *rows = self._to_device(
+            self._block_slots(block_ids, len(block_ids)),
+            *(_row_bytes(name, leaves[name], self.cache[name])
+              for name in names))
+        for name, row in zip(names, rows):
+            pool = self.cache[name]
+            pool[:, slots] = row.view(pool.dtype)
 
     def memory_info(self) -> dict:
         """Pool geometry for ``stats()["memory"]``: usable blocks, tokens

@@ -13,11 +13,14 @@ requests at once, so their slot and blocks serve the next iteration.
 **Prefix caching** (:mod:`serving.prefix_cache`).  At admission the
 context is matched against the block-level prefix index; matched full
 blocks enter the table SHARED (one ref a table) and only the uncached
-tail is prefilled.  Blocks register into the index as they fill
+tail is prefilled; with the offload tier attached, the walk goes on
+through the host/disk store (:meth:`PrefixCache.promote`).  Blocks
+register into the index as they fill
 (:meth:`Scheduler.register_progress`, from prefill chunks and from
 decode or verify steps crossing a block boundary), and a finished
-request's registered blocks stay as evictable holds, reclaimed by
-:meth:`Scheduler._try_alloc` only when the pool runs low.  When the
+request's registered blocks stay as evictable holds, reclaimed (and,
+with the offload tier, demoted) by :meth:`Scheduler._try_alloc` only
+when the pool runs low.  When the
 WHOLE context is cached, the last matched block is duplicated
 copy-on-write: the request must recompute the last token's logits and
 re-write its K/V, which may not touch a shared block; the server copies
@@ -348,6 +351,8 @@ class Scheduler:
         if n <= 0:
             return []
         while not self.allocator.can_alloc(n):
+            # the whole deficit in ONE evict call: the victims demote to
+            # the offload tier (when attached) as one batched export
             deficit = n - self.allocator.num_free
             if self.prefix_cache is None \
                     or not self.prefix_cache.evict(max(1, deficit)):
@@ -359,8 +364,9 @@ class Scheduler:
     def admit(self) -> List[Request]:
         """Fill free slots from the waiting queue (FIFO) while the pool
         can hold each candidate's prefill context plus one decode block.
-        Matched prefix blocks come shared from the cache; only the
-        uncached tail needs fresh blocks (and one more for a
+        Matched prefix blocks come shared from the cache (promoted from
+        its offload tier past the device tier); only the uncached tail
+        needs fresh blocks (and one more for a
         whole-context match's COW duplicate).  Returns the newly
         admitted requests, now prefilling.  A head request that needs
         more blocks than the whole pool owns fails alone (``capacity``)
@@ -375,8 +381,15 @@ class Scheduler:
             if need > pool_blocks:
                 self.fail(req, reasons.CAPACITY)
                 continue
-            matched = (self.prefix_cache.match(ctx)
-                       if self.prefix_cache is not None else [])
+            matched = []
+            if self.prefix_cache is not None:
+                matched = self.prefix_cache.match(ctx)
+                # where the device-tier walk stopped, the offload tier
+                # goes on by content hash: promoted blocks extend
+                # ``matched`` BEFORE the arithmetic below, so a hit
+                # across tiers plans its prefill as a device hit of the
+                # same depth does
+                self.prefix_cache.promote(ctx, matched, self._try_alloc)
             hit = len(matched) * bs
             # a whole-context match still recomputes the last token's
             # logits, and its K/V write may not land in a shared block

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,6 +47,16 @@ INDEX_FILE = "leaves.json"
 
 # dtypes numpy lacks, stored as the raw bits of a 16-bit integer view
 _BITS = (torch.bfloat16,)
+
+
+def leaf_checksum(leaf) -> str:
+    """``crc32:dtype:shape`` fingerprint of one host array, the JAX
+    package's :func:`leaf_checksum`.  Covers value bytes AND geometry, so
+    a silently re-shaped or down-cast leaf fails verification even when
+    its bytes collide (the KV offload store's disk manifest)."""
+    a = np.ascontiguousarray(np.asarray(leaf))
+    crc = zlib.crc32(a.tobytes()) & 0xFFFFFFFF
+    return f"{crc:08x}:{a.dtype.str}:{'x'.join(map(str, a.shape))}"
 
 
 def _path_entry(key) -> list:

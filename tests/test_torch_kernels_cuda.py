@@ -34,7 +34,8 @@ PyTorch) and the row-batched threefry it draws with give on the card
 the CPU's keys and uniform bits bit for bit, Gumbel noise within
 ``NOISE_ULPS`` epsilons of max(|x|, 1), and the CPU's tokens; the
 disaggregated server, its prefill engine on a stream of its own and its
-pool one context, gives the monolithic server's tokens.
+pool one context, gives the monolithic server's tokens, with the offload
+tier too (promotes importing into blocks a hand-off just freed).
 Scale-aware error
 max|a-b| / (max|b| + 1) <= 2e-5 in fp32, <= 2e-2 in bf16; the bf16
 flash o, dq, dk and dv also row by row (``row_err``); every kernel call
@@ -1586,3 +1587,67 @@ def test_disagg_tight_prefill_pool_hands_off_on_the_card(gen):
     assert [r.generated for r in reqs] == want
     assert st["disagg"]["handoff"]["requests"] == len(prompts)
     assert flash == mono_flash == cfg.num_hidden_layers * len(prompts)
+
+
+def test_offload_promote_into_blocks_a_handoff_freed(gen):
+    """The disaggregated server with the offload tier on the card: the
+    prefill pool (the cache home, on a stream of its own) holds one
+    context, so pass 2's promotes import into blocks a hand-off released
+    in the same step, which the decode stream's copy may still be
+    reading; the import waits for it.  Tokens equal a roomy monolithic
+    server's without offload, both pools audit clean after every step,
+    and the demote exports and promote imports ran in the prefill
+    pool."""
+    gpt = importlib.import_module("apex_tpu_torch.models.gpt")
+    serving = importlib.import_module("apex_tpu_torch.serving")
+    cfg = gpt.GPTConfig(vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256,
+                        max_position_embeddings=128, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    sd = gpt.GPTLMHeadModel(cfg, device="cuda", seed=0).state_dict()
+    rng = np.random.RandomState(1)
+    # 6 full blocks and a tail each: 7 blocks, more than half the pool
+    prompts = [rng.randint(0, 64, size=int(rng.randint(97, 104))).tolist()
+               for _ in range(4)]
+    kw = dict(device="cuda", max_batch_size=4, block_size=16,
+              cache_dtype=torch.float32, enable_chunked_prefill=False)
+    roomy = serving.InferenceServer(cfg, sd, **kw)
+    want = [roomy.generate(prompts, 24) for _ in range(2)]
+    srv = serving.InferenceServer(
+        cfg, sd, enable_disagg=True, enable_kv_offload=True,
+        disagg_prefill_blocks=roomy.engine.blocks_per_seq + 1, **kw)
+    freed, reused, exports = set(), [], []
+    release = srv.prefill_scheduler.release_handoff
+    imports = srv.prefill_engine.import_blocks
+    export = srv.prefill_engine.export_blocks
+
+    def release_and_note(req):
+        freed.update(req.block_table)
+        return release(req)
+
+    def import_and_note(ids, payload):
+        reused.append(len(freed & set(ids)))
+        return imports(ids, payload)
+
+    def export_and_note(ids, **kwargs):
+        exports.append(len(ids))
+        return export(ids, **kwargs)
+
+    srv.prefill_scheduler.release_handoff = release_and_note
+    srv.prefill_engine.import_blocks = import_and_note
+    srv.prefill_engine.export_blocks = export_and_note
+    got = []
+    for _ in range(2):
+        reqs = [srv.submit(p, 24) for p in prompts]
+        while srv.has_work:
+            freed.clear()
+            srv.step()
+            srv.audit()
+        got.append([r.generated for r in reqs])
+    torch.cuda.synchronize()
+    st = srv.stats()["offload"]
+    assert got == want
+    assert st["demotes"] == sum(exports) > 0
+    assert st["promotes_host"] > 0 and st["crc_rejects"] == 0
+    assert len(reused) == st["promote_ms"]["count"]
+    assert max(reused) > 0, "no promote reused blocks a hand-off freed"

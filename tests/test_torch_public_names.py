@@ -38,6 +38,14 @@ default device, each against the JAX object.
   ``disagg_prefill_blocks``, ``prefill_max_concurrent``,
   ``enable_streaming`` and ``stream_queue_tokens`` defaults and the
   broker's are the JAX ones, and both schedulers have the hand-off;
+- the offload tier's and the KV transport's names: ``serving`` exports
+  ``OffloadStore`` and ``resolve_kv_offload``, ``serving.transport`` the
+  reference's names, ``resilience`` ``RetryError`` and ``retry``, each
+  beside the JAX object; the server's ``enable_kv_offload``,
+  ``kv_offload_host_bytes``, ``kv_offload_dir`` and ``kv_transport``
+  defaults, ``TransportPolicy``'s, ``OffloadStore``'s and ``retry``'s
+  are the JAX ones; the prefix cache has ``attach_offload`` and
+  ``promote``;
 - ``ops.threefry``'s ``random_bits``, ``uniform`` and ``bernoulli`` run
   on the card unless asked for the CPU, as ``jax.random`` draws on the
   default device: without CUDA the default raises, and ``device="cpu"``
@@ -324,8 +332,8 @@ def test_pipeline_and_breaker_names_match_jax():
     from apex_tpu import serving as jserving
     from apex_tpu_torch import resilience, serving
 
-    assert resilience.__all__ == ["CircuitBreaker"]
-    assert "CircuitBreaker" in jresilience.__all__
+    assert resilience.__all__ == ["CircuitBreaker", "RetryError", "retry"]
+    assert set(resilience.__all__) <= set(jresilience.__all__)
     assert "resilience" in apex_tpu_torch.__all__
     assert apex_tpu_torch.resilience is resilience
     for name in ("CircuitBreaker", "OOM_ERRORS"):
@@ -376,3 +384,52 @@ def test_disagg_and_streaming_names_match_jax():
     got = inspect.signature(streaming.StreamBroker).parameters
     assert {k: v.default for k, v in got.items()} == \
         {k: v.default for k, v in want.items()}
+
+
+def test_offload_and_transport_names_match_jax():
+    import dataclasses as dc
+    import inspect
+
+    from apex_tpu import resilience as jresilience
+    from apex_tpu import serving as jserving
+    from apex_tpu.serving import offload as joffload
+    from apex_tpu.serving import transport as jtransport
+    from apex_tpu_torch import resilience, serving
+    from apex_tpu_torch.serving import offload, transport
+
+    for name in ("OffloadStore", "resolve_kv_offload"):
+        assert name in serving.__all__ and name in jserving.__all__, name
+    assert transport.__all__ == jtransport.__all__
+    assert offload.__all__ == joffload.__all__
+    assert offload.KV_OFFLOAD_ENV == joffload.KV_OFFLOAD_ENV
+    assert transport.MAX_FRAME_BYTES == jtransport.MAX_FRAME_BYTES
+    want = inspect.signature(jserving.InferenceServer).parameters
+    got = inspect.signature(serving.InferenceServer).parameters
+    for name in ("enable_kv_offload", "kv_offload_host_bytes",
+                 "kv_offload_dir", "kv_transport"):
+        assert got[name].default == want[name].default, name
+    assert got["enable_kv_offload"].default is None
+    assert got["kv_offload_host_bytes"].default == 64 << 20
+
+    def defaults(fn):
+        return {k: v.default
+                for k, v in inspect.signature(fn).parameters.items()}
+
+    assert defaults(offload.OffloadStore) == \
+        defaults(joffload.OffloadStore)
+    assert defaults(resilience.retry) == defaults(jresilience.retry)
+    assert issubclass(resilience.RetryError, OSError)
+    fields = {f.name: f.default
+              for f in dc.fields(transport.TransportPolicy)}
+    assert fields == {f.name: f.default
+                      for f in dc.fields(jtransport.TransportPolicy)}
+    assert defaults(transport.SocketTransport) == \
+        defaults(jtransport.SocketTransport)
+    for name in ("attach_offload", "promote"):
+        assert hasattr(serving.PrefixCache, name) and \
+            hasattr(jserving.PrefixCache, name), name
+    assert issubclass(transport.TransportError, RuntimeError)
+    for name in ("TransportConnectionError", "TransportTimeoutError",
+                 "TransportFrameError"):
+        assert issubclass(getattr(transport, name),
+                          transport.TransportError), name
